@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of cubecl_tpu_torch on one CUDA card (an H100).
 
-Builds the port's CUDA kernels from ``cubecl_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the shapes of the serving path, drives
-llama serving (``generate``) at the full width of the repo's largest llama,
-and checks a smaller f32 config end to end against the plain versions.
+Builds the port's CUDA kernels (the hand-written ones of
+``cubecl_tpu_torch/csrc`` and the ``@cube`` kernels K0 prints, one nvcc per
+source, all started together), holds each against its plain PyTorch
+version at the shapes of the serving path, drives llama serving
+(``generate``) at the full width of the repo's largest llama, and checks a
+smaller f32 config end to end against the plain versions.
 
     python3 chip_smoke.py          # from the repository root; one card
 
-Phases (one line each, before the last): 1 device, 2 build, 3 flash vs
-plain, 4 paged vs plain, 5 serve at full width, 6 serve exactness. Then a
+Phases (lines before the last): 1 device, 2 build, 3 flash vs plain,
+4 paged vs plain, 5 serve at full width, 6 serve exactness; then K0:
+a the DSL kernels at BASELINE sizes, and RMSNorm at every shape phases b
+and c give it, against the torch evaluator on the card and a plain
+formula, b serve at full width with RMSNorm through K0
+(``use_framework_kernels=True``), c serve exactness with it (which fails
+if b or c launched a K0 kernel that phase a did not check). Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero before the last line; without a CUDA device
 (or without the package beside it) the script exits non-zero and prints no
@@ -36,6 +43,11 @@ TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # serve exactness (phase 6, f32, 8 layers): prefill logits within LOGIT_TOL;
 # a greedy token may differ only where the top-2 logit gap is below it
 LOGIT_TOL = 1e-4
+# K0 kernels computing in bf16 op by op (the normalization kernels on bf16
+# buffers) against a plain formula computed in f32 and rounded once: a few
+# bf16 ulps apart
+CHAIN_TOL = (3e-2, 3e-2)
+INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
 
 def fail(msg):
@@ -58,9 +70,10 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def compare(got, ref, what):
-    """Max abs error of got vs ref; fails outside TOL of ref's dtype."""
-    atol, rtol = TOL[ref.dtype]
+def compare(got, ref, what, tol=None):
+    """Max abs error of got vs ref; fails outside ``tol`` (default TOL of
+    ref's dtype)."""
+    atol, rtol = tol or TOL[ref.dtype]
     g, r = got.float(), ref.float()
     if not torch.isfinite(g).all():
         fail(f"{what}: non-finite kernel output")
@@ -91,6 +104,296 @@ def ptxas_summary(log):
     return out
 
 
+# the rmsnorm launches of phases b and c, as llama's _rmsnorm makes them:
+# prefill (B, S, D) and decode (B, D) of the 0.77B bf16 serve and of the
+# d768 f32 one
+K0_SERVE_SHAPES = [((8, 1024, 2048), torch.bfloat16),
+                   ((8, 2048), torch.bfloat16),
+                   ((16, 384, 768), torch.float32),
+                   ((16, 768), torch.float32)]
+RMS_EPS = 1e-5  # LlamaConfig.rms_eps
+
+
+def compile_only(client):
+    """A client over ``client``'s server whose launches compile and run
+    nothing: each traces, prints and starts the nvcc of its kernel. Phase 2
+    drives every launch of phase a through it, so that all K0 builds run
+    at once; ``wait_builds`` then waits for them."""
+    from cubecl_tpu_torch.runtime import ComputeClient
+
+    class CompileOnly(ComputeClient):
+        def launch(self, task, buffers, scalars=()):
+            self.server.compile_kernel(task)
+
+    return CompileOnly(client.server)
+
+
+def _plain_softmax(x):
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
+
+
+def _plain_layernorm(x, g, b, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * g.float()
+            + b.float()).to(x.dtype)
+
+
+def _plain_normalize(x, eps):
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().sum(-1, keepdim=True) + eps)) \
+        .to(x.dtype)
+
+
+def _plain_gelu(x):
+    xf = x.float()
+    return (xf * (torch.erf(xf * INV_SQRT2) + 1.0) * 0.5).to(x.dtype)
+
+
+def _plain_rmsnorm(x, g, eps=1e-5):
+    xf = x.float()
+    ms = xf.square().sum(-1, keepdim=True) * (1.0 / x.shape[-1])
+    return (xf * torch.rsqrt(ms + eps) * g.float()).to(x.dtype)
+
+
+def dsl_cases(dev, gen):
+    """Phase a's launches. Each case: ``prepare(client)`` makes its
+    buffers on a client and returns the launch (a closure returning the
+    output tensor); ``plain()`` is the plain PyTorch formula."""
+    from cubecl_tpu_torch.ops import functional as F
+    from cubecl_tpu_torch.ops import gelu as G
+    from cubecl_tpu_torch.ops import normalization as N
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = []
+
+    def gelu_case(what, x, checked, inplace):
+        def prepare(c):
+            hx = c.create(x)
+            ho = hx if inplace else c.create(torch.empty_like(x))
+            return lambda: (G.launch_gelu(c, hx, ho, checked=checked),
+                            ho.tensor)[1]
+        cases.append(dict(name=what, prepare=prepare,
+                          plain=lambda: _plain_gelu(x), tol=None))
+
+    gelu_case("gelu exact f32 1M", rn(1 << 20), False, False)
+    gelu_case("gelu checked f32 1M (ragged: 10^6)", rn(10**6), True, False)
+    gelu_case("gelu in-place f32 1M", rn(1 << 20), False, True)
+
+    def norm_case(op, x, dtype, inplace=False):
+        rows, row = x.shape
+        g, b = rn(row, dtype=dtype), rn(row, dtype=dtype)
+
+        def prepare(c):
+            hx = c.create(x)
+            ho = hx if inplace else c.create(torch.empty_like(x))
+            hg, hb = c.create(g), c.create(b)
+
+            def launch():
+                if op == "softmax":
+                    N.launch_softmax(c, hx, ho, rows, row)
+                elif op == "normalize":
+                    N.launch_normalize(c, hx, ho, rows, row, eps=1e-6)
+                else:
+                    N.launch_layernorm(c, hx, hg, hb, ho, rows, row)
+                return ho.tensor
+            return launch
+
+        plain = {"softmax": lambda: _plain_softmax(x),
+                 "normalize": lambda: _plain_normalize(x, 1e-6),
+                 "layernorm": lambda: _plain_layernorm(x, g, b)}[op]
+        path = "rows" if rows % 8 else "lines"
+        name = (f"{op}{' in-place' if inplace else ''} {path} "
+                f"{str(dtype)[6:]} {rows}x{row}")
+        cases.append(dict(name=name, prepare=prepare, plain=plain,
+                          tol=CHAIN_TOL if dtype == torch.bfloat16
+                          else None))
+
+    for op in ("softmax", "normalize", "layernorm"):
+        norm_case(op, rn(4, 1024), torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rn(8192, 2048, dtype=dtype)
+        for op in ("softmax", "normalize", "layernorm"):
+            norm_case(op, x, dtype)
+    norm_case("softmax", rn(8192, 2048), torch.float32, inplace=True)
+
+    x = rn(8192, 2048, dtype=torch.bfloat16)
+    g = rn(2048, dtype=torch.bfloat16)
+    b = rn(2048, dtype=torch.bfloat16)
+    fn = {"gelu": ((x,), lambda: _plain_gelu(x)),
+          "softmax": ((x,), lambda: _plain_softmax(x)),
+          "layernorm": ((x, g, b), lambda: _plain_layernorm(x, g, b)),
+          "rmsnorm": ((x, g), lambda: _plain_rmsnorm(x, g))}
+    for op, (args, plain) in fn.items():
+        def prepare(c, op=op, args=args):
+            return lambda: getattr(F, op)(*args, client=c)
+        cases.append(dict(name=f"{op} fwd bf16 8192x2048", prepare=prepare,
+                          plain=plain, tol=None))
+    for shape, dtype in K0_SERVE_SHAPES:
+        # own names: the plain lambdas above read x and g when called
+        xs, gs = rn(*shape, dtype=dtype), rn(shape[-1], dtype=dtype)
+
+        def prepare(c, xs=xs, gs=gs):
+            return lambda: F.rmsnorm(xs, gs, RMS_EPS, client=c)
+        cases.append(dict(
+            name=f"rmsnorm fwd {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                 f" {'x'.join(map(str, shape))} (llama serve)", prepare=prepare,
+            plain=lambda xs=xs, gs=gs: _plain_rmsnorm(xs, gs, RMS_EPS),
+            tol=None))
+    return cases
+
+
+def run_case(case, cu, ev, card):
+    """Phase a, one case: the K0 kernel against the torch evaluator on the
+    card and against the plain formula; kernel and plain times."""
+    what = f"K0 {case['name']}"
+    got = case["prepare"](cu)()
+    want = case["prepare"](ev)()
+    torch.cuda.synchronize()
+    err_ev = compare(got, want, f"{what} vs evaluator")
+    err = compare(got, case["plain"](), f"{what} vs plain", case["tol"])
+    launch = case["prepare"](cu)
+    ms = cuda_ms(launch)
+    plain_ms = cuda_ms(case["plain"])
+    tol = case["tol"] or TOL[got.dtype]
+    print(f"phase a {what}: max abs err {err} vs plain (atol/rtol {tol}), "
+          f"{err_ev} vs the torch evaluator (atol/rtol {TOL[got.dtype]}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
+          flush=True)
+    return {"name": case["name"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def k0_ptxas(cu):
+    """'kernel: stack/spill bytes' of each K0 build, from ptxas -v."""
+    out = []
+    for c in cu.server._cache.values():
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      c.fn.build.log)
+        if m:
+            out.append(f"{c.name} {m.group(1)}/{m.group(2)}")
+    return ", ".join(sorted(set(out)))
+
+
+def serve_k0(llama, fa, pa, cu, dev, card):
+    """Phase b: phase 5's serve with ``use_framework_kernels=True``: every
+    RMSNorm (2L+1 per step) is the K0 kernel."""
+    cfg = llama.LlamaConfig(vocab=8192, d_model=2048, n_heads=16,
+                            n_kv_heads=8, n_layers=16, d_ff=5632, seq=1024,
+                            dtype="bfloat16", use_framework_kernels=True)
+    model = llama.init_params(cfg, seed=0, device=dev)
+    B, S, steps, page = 8, 1024, 64, 128
+    max_pages = math.ceil((S + steps) / page)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    pa.paged_attention.launches = 0
+    cu.server.reset_counts()
+    t0 = time.perf_counter()
+    toks = llama.generate(model, prompt, steps, max_pages, page)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    per = 2 * cfg.n_layers + 1
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_attention": pa.paged_attention.launches,
+                "_rmsnorm_fwd_k": cu.server.launches["_rmsnorm_fwd_k"]}
+    want = {"flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * steps,
+            "_rmsnorm_fwd_k": per * (1 + steps)}
+    if launches != want or cu.server.launch_count != want["_rmsnorm_fwd_k"]:
+        fail(f"serve K0: kernel launches {launches} (all K0: "
+             f"{dict(cu.server.launches)}), want {want}")
+    if toks.shape != (B, steps) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        fail(f"serve K0: bad tokens {toks.shape} {toks.dtype}")
+
+    cache = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = llama.prefill(model, cache, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not torch.isfinite(logits.float()).all():
+        fail("serve K0: non-finite prefill logits")
+    tok = logits.argmax(-1).to(torch.int32)
+    again = [tok]
+    n0 = cu.server.launch_count
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = llama.decode_step(model, cache, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+        again.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    per_step = (cu.server.launch_count - n0) / steps
+    if not torch.equal(torch.stack(again[:steps], 1), toks):
+        fail("serve K0: the warm re-run gave other tokens than generate")
+    print(f"phase b serve llama 0.77B bf16 with use_framework_kernels=True "
+          f"(RMSNorm on K0): {B} requests x {S} prompt + {steps} greedy "
+          f"steps; generate {gen_s:.3f} s cold; launches {launches}; warm "
+          f"prefill {prefill_s:.4f} s ({B * S / prefill_s:.0f} prompt "
+          f"tok/s), decode {B * steps / decode_s:.1f} tok/s "
+          f"({1e3 * decode_s / steps:.3f} ms/step), {per_step:.0f} K0 "
+          f"launches per decode step [{card}]", flush=True)
+    return {"launches": launches["_rmsnorm_fwd_k"]}
+
+
+def exactness(llama, dev, framework):
+    """Phases 6 and c (bench.py:604-609): a d768 f32 llama served with the
+    kernels and with their plain versions; prefill logits within
+    LOGIT_TOL, greedy tokens equal but at near-ties. Returns the line."""
+    cfg = llama.LlamaConfig(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4,
+                            n_layers=8, d_ff=2048, seq=512,
+                            use_framework_kernels=framework)
+    model = llama.init_params(cfg, seed=1, device=dev)
+    B, S, steps, page = 16, 384, 32, 128
+    max_pages = math.ceil((S + steps) / page)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+
+    def serve(kernels):
+        cache = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+        logits, cache = llama.prefill(model, cache, prompt, kernels=kernels)
+        first = logits
+        toks, step_logits = [], []
+        for _ in range(steps):
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            step_logits.append(logits)
+            logits, cache = llama.decode_step(model, cache, tok,
+                                              kernels=kernels)
+        return first, torch.stack(toks, 1), torch.stack(step_logits, 1)
+
+    k_first, k_toks, k_logits = serve(True)
+    p_first, p_toks, p_logits = serve(False)
+    torch.cuda.synchronize()
+    logit_err = (k_first - p_first).abs().max().item()
+    if not torch.isfinite(k_first).all() or logit_err > LOGIT_TOL:
+        fail(f"exactness: prefill logits differ by {logit_err} > {LOGIT_TOL}")
+    flips = []
+    for b in range(B):
+        diff = (k_toks[b] != p_toks[b]).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            top2 = k_logits[b, i].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap >= LOGIT_TOL:
+                fail(f"exactness: row {b} step {i} tokens differ with a "
+                     f"top-2 gap of {gap} >= {LOGIT_TOL}")
+            flips.append((b, i, gap))
+    same = int((k_toks == p_toks).all(1).sum())
+    return (f"exactness llama d768 f32 (8 layers, 12/4 heads, "
+            f"use_framework_kernels={framework}): {B} requests x {S} prompt "
+            f"+ {steps} steps, kernels vs plain on the card: prefill logits "
+            f"max abs err {logit_err} (tol {LOGIT_TOL}); {same}/{B} token "
+            f"rows equal; near-tie flips {flips}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -118,15 +421,39 @@ def main():
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; {nvcc}",
           flush=True)
 
+    from cubecl_tpu_torch.backend.cuda.printer import CudaCompiler
+    from cubecl_tpu_torch.runtime import (CudaRuntime, default_client,
+                                          eval_client)
+
+    cu = CudaRuntime.client()
+    if default_client() is not cu or not isinstance(cu.server.compiler,
+                                                    CudaCompiler):
+        fail("the default client is not the CUDA one")
+    ev = eval_client(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = dsl_cases(dev, torch.Generator(device=dev).manual_seed(2))
+
     # -- phase 2: build -----------------------------------------------------
+    # K0's kernels are traced and printed, and their nvcc processes started,
+    # by phase a's launches on a compile-only client (they cover every K0
+    # kernel that phases b and c launch); csrc builds while they compile
+    t0 = time.perf_counter()
+    co = compile_only(cu)
+    for c in cases:
+        c["prepare"](co)()
     build = native.build()
     native.kernels()
+    cu.server.wait_builds()
+    build_wall = time.perf_counter() - t0
     regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in
                      ptxas_summary(build.log))
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
           f"{os.path.relpath(build.path)}; ptxas: {regs}", flush=True)
-
-    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"phase 2 build K0: {cu.server.compile_count} @cube kernels "
+          f"printed and built by nvcc in parallel with csrc, "
+          f"{build_wall:.1f} s wall for all, {cu.server.build_seconds():.1f}"
+          f" s of nvcc summed; ptxas stack/spill per kernel: "
+          f"{k0_ptxas(cu)}", flush=True)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -241,50 +568,23 @@ def main():
     del model, cache, logits
 
     # -- phase 6: serve exactness, kernels vs plain (bench.py:604-609) ------
-    cfg = llama.LlamaConfig(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4,
-                            n_layers=8, d_ff=2048, seq=512,
-                            use_framework_kernels=False)
-    model = llama.init_params(cfg, seed=1, device=dev)
-    B, S, steps, page = 16, 384, 32, 128
-    max_pages = math.ceil((S + steps) / page)
-    prompt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    print(f"phase 6 {exactness(llama, dev, False)}", flush=True)
 
-    def serve(kernels):
-        cache = llama.init_kv_cache(cfg, B, max_pages, page, dev)
-        logits, cache = llama.prefill(model, cache, prompt, kernels=kernels)
-        first = logits
-        toks, step_logits = [], []
-        for _ in range(steps):
-            tok = logits.argmax(-1).to(torch.int32)
-            toks.append(tok)
-            step_logits.append(logits)
-            logits, cache = llama.decode_step(model, cache, tok,
-                                              kernels=kernels)
-        return first, torch.stack(toks, 1), torch.stack(step_logits, 1)
+    # -- phase a: the DSL kernels (K0) at BASELINE sizes --------------------
+    k0_rows = []
+    for c in cases:
+        k0_rows.append(run_case(c, cu, ev, card))
+    checked = set(cu.server._cache)
 
-    k_first, k_toks, k_logits = serve(True)
-    p_first, p_toks, p_logits = serve(False)
-    torch.cuda.synchronize()
-    logit_err = (k_first - p_first).abs().max().item()
-    if not torch.isfinite(k_first).all() or logit_err > LOGIT_TOL:
-        fail(f"exactness: prefill logits differ by {logit_err} > {LOGIT_TOL}")
-    flips = []
-    for b in range(B):
-        diff = (k_toks[b] != p_toks[b]).nonzero()
-        if len(diff):
-            i = int(diff[0])
-            top2 = k_logits[b, i].topk(2).values
-            gap = (top2[0] - top2[1]).item()
-            if gap >= LOGIT_TOL:
-                fail(f"exactness: row {b} step {i} tokens differ with a "
-                     f"top-2 gap of {gap} >= {LOGIT_TOL}")
-            flips.append((b, i, gap))
-    same = int((k_toks == p_toks).all(1).sum())
-    print(f"phase 6 exactness llama d768 f32 (8 layers, 12/4 heads): {B} "
-          f"requests x {S} prompt + {steps} steps, kernels vs plain on the "
-          f"card: prefill logits max abs err {logit_err} (tol {LOGIT_TOL}); "
-          f"{same}/{B} token rows equal; near-tie flips {flips}", flush=True)
+    # -- phase b: serve at full width with RMSNorm on K0 --------------------
+    k0_serve = serve_k0(llama, fa, pa, cu, dev, card)
+
+    # -- phase c: serve exactness with RMSNorm on K0 ------------------------
+    print(f"phase c {exactness(llama, dev, True)}", flush=True)
+    unchecked = set(cu.server._cache) - checked
+    if unchecked:
+        fail(f"phases b/c launched K0 kernels that phase a did not hold "
+             f"against plain: {sorted(unchecked)}")
 
     def row(name, source, replaces, rows):
         err, ms, plain_ms = rows[0]
@@ -292,11 +592,28 @@ def main():
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
+    rms = next(r for r in k0_rows if r["name"] == "rmsnorm fwd bf16 8192x2048")
+    rms_dec = next(r for r in k0_rows
+                   if r["name"] == "rmsnorm fwd bf16 8x2048 (llama serve)")
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
             "cubecl_tpu/ops/attention.py:76", flash_rows),
         row("paged_attention", "cubecl_tpu_torch/csrc/paged_attention.cu",
             "cubecl_tpu/ops/paged_attention.py:247", paged_rows[1:]),
+        {"name": "k0_cube_kernels", "route": "cuda",
+         "source": "cubecl_tpu_torch/backend/cuda/printer.py",
+         "replaces": "cubecl_tpu/backend/pallas/emitter.py:48",
+         "launches": k0_serve["launches"],
+         "max_abs_err": rms["max_abs_err"], "ms": rms["ms"],
+         "plain_ms": rms["plain_ms"],
+         "main_path_kernel": "_rmsnorm_fwd_k (llama RMSNorm, prefill "
+                             "8x1024 rows of 2048 bf16)",
+         "decode_8x2048": {k: rms_dec[k] for k in
+                           ("max_abs_err", "ms", "plain_ms")},
+         "cube_kernels_compiled": sorted(
+             {k.name for k in cu.server._cache.values()}),
+         "cube_kernel_launches_phases_b_c": dict(cu.server.launches),
+         "build_s": round(build_wall, 3)},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

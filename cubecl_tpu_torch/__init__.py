@@ -1,10 +1,17 @@
 """cubecl_tpu_torch: the PyTorch/CUDA port of ``cubecl_tpu`` for Hopper.
 
-The serving path of the llama family runs here on one NVIDIA H100: the
-model is plain PyTorch, and the attention of prefill and of paged decode
-are hand-written CUDA kernels (``csrc/``), built by ``nvcc`` on first use.
-Importing the package needs neither CUDA nor ``nvcc``, and it never imports
-JAX or ``cubecl_tpu``.
+Two slices run on one NVIDIA H100:
+
+- the ``@cube`` kernel language: ``frontend`` traces a Python kernel into
+  the IR of ``ir``, ``opt`` optimizes it, and ``backend`` lowers it, by the
+  CUDA C++ printer (built by ``nvcc`` at first launch) on a card, or by
+  the torch evaluator on the CPU; ``runtime`` holds the clients
+  (``CudaRuntime``, ``CpuRuntime``, ``default_client``);
+- llama serving (``models.llama``), with hand-written CUDA kernels for
+  attention (``csrc/``) and RMSNorm as a ``@cube`` kernel.
+
+Importing the package needs neither CUDA nor ``nvcc``, and it never
+imports JAX or ``cubecl_tpu``.
 """
 
 __version__ = "0.1.0"

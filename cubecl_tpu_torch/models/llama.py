@@ -6,13 +6,16 @@ The PyTorch counterpart of ``cubecl_tpu.models.llama``'s serving path:
 KV cache. Weights keep the JAX orientation ``(d_in, d_out)`` and are used
 as ``x @ W``, so JAX parameters load without transposes.
 
-Attention is the only kernel on this path: prefill goes through
-``ops.attention.flash_attention`` and each decode step through
-``ops.paged_attention.paged_attention``, which launch the CUDA kernels on a
-CUDA device. ``kernels=False`` runs their plain PyTorch versions on any
-device instead; it is the reference the kernels are checked against.
-RMSNorm, RoPE, SwiGLU and the projections are plain tensor code, as in the
-JAX package's ``use_framework_kernels=False`` configuration.
+Three kernels are on this path. Prefill attention goes through
+``ops.attention.flash_attention`` and each decode step's through
+``ops.paged_attention.paged_attention`` (hand-written CUDA). With
+``use_framework_kernels=True`` (the default, as in the JAX package) every
+RMSNorm whose rows fit the DSL kernels (``ops.functional.fits``) is the
+``@cube`` kernel ``ops.functional.rmsnorm``, launched through K0: the CUDA
+printer's kernel on a card, the torch evaluator on the CPU; 2·L+1 launches
+per forward or decode step. ``kernels=False`` runs the plain PyTorch
+versions of all three on any device; it is the reference the kernels are
+checked against. RoPE, SwiGLU and the projections are plain tensor code.
 
 Unlike the functional JAX code, the KV cache is updated in place.
 """
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import functional as F
 from ..ops.attention import flash_attention, flash_attention_plain
 from ..ops.paged_attention import paged_attention, paged_attention_plain
 
@@ -72,9 +76,6 @@ def check_supported(cfg: LlamaConfig) -> None:
     """Raise for every option of the JAX config this port does not run,
     naming the ROADMAP item that brings it."""
     todo = [
-        (cfg.use_framework_kernels, "use_framework_kernels=True (RMSNorm as "
-         "a @cube DSL kernel) waits for the K0 backend, ROADMAP Queue 1 "
-         "items 2-5; pass use_framework_kernels=False"),
         (cfg.n_experts > 0 or cfg.moe_capacity > 0,
          "MoE layers (n_experts, moe_capacity) are ROADMAP Queue 1 item 12"),
         (cfg.kv_dtype == "int8", "int8 KV is ROADMAP Queue 1 item 8"),
@@ -155,7 +156,9 @@ def _to_torch(a) -> torch.Tensor:
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of :class:`Llama` from the JAX parameter pytree
     of ``cubecl_tpu.models.llama.init_params`` (leaves as numpy arrays):
-    ``model.load_state_dict(params_from_jax(tree))``."""
+    ``model.load_state_dict(params_from_jax(tree))``. The layout does not
+    depend on ``use_framework_kernels``: the kernel route changes how
+    RMSNorm is computed, not its weights."""
     sd = {"embed": _to_torch(tree["embed"]),
           "rms_out": _to_torch(tree["rms_out"])}
     for i, layer in enumerate(tree["layers"]):
@@ -168,11 +171,33 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _rmsnorm(x, g, eps):
+def _rmsnorm_plain(x, g, eps):
     """f32 variance; the reciprocal is cast to x's dtype before the
-    multiply, as ``_rmsnorm_jnp``."""
+    multiply, as the JAX package's ``_rmsnorm_jnp``."""
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.reciprocal(torch.sqrt(var + eps)).to(x.dtype)) * g
+
+
+def _rmsnorm_framework_plain(x, g, eps):
+    """The plain version of ``F.rmsnorm``'s kernel: ``x * rsqrt(sum(x^2) *
+    (1/D) + eps) * g`` in f32, cast once to x's dtype (in bf16 it rounds
+    otherwise than :func:`_rmsnorm_plain`)."""
+    xf = x.float()
+    ms = xf.square().sum(-1, keepdim=True) * (1.0 / x.shape[-1])
+    return (xf * torch.rsqrt(ms + eps) * g.float()).to(x.dtype)
+
+
+def _rmsnorm(x, g, cfg: LlamaConfig, kernels: bool):
+    """RMSNorm as the JAX package routes it (``_rmsnorm`` with
+    ``transformer._rowwise_framework``): the ``@cube`` kernel where the
+    configuration asks for framework kernels and the rows fit it, else
+    ``_rmsnorm_jnp``'s formula. ``kernels=False`` takes the plain version
+    of whichever of the two the configuration picks."""
+    eps = cfg.rms_eps
+    if cfg.use_framework_kernels and F.fits(x):
+        return F.rmsnorm(x, g, eps) if kernels else \
+            _rmsnorm_framework_plain(x, g, eps)
+    return _rmsnorm_plain(x, g, eps)
 
 
 def _rope_tables(pos, cfg: LlamaConfig):
@@ -232,10 +257,10 @@ def forward(model: Llama, tokens, *, kernels: bool = True, lora=None):
                         cfg)
     x = model.embed[tokens]
     for layer in model.layers:
-        x = x + _attention(_rmsnorm(x, layer.rms1, cfg.rms_eps), layer, cfg,
-                           rope, kernels)[0]
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg.rms_eps), layer)
-    x = _rmsnorm(x, model.rms_out, cfg.rms_eps)
+        x = x + _attention(_rmsnorm(x, layer.rms1, cfg, kernels), layer,
+                           cfg, rope, kernels)[0]
+        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+    x = _rmsnorm(x, model.rms_out, cfg, kernels)
     return x @ model.embed.T                     # tied head
 
 
@@ -290,14 +315,14 @@ def prefill(model: Llama, cache: KVCache, tokens, *, kernels: bool = True):
     rope = _rope_tables(pos, cfg)
     x = model.embed[tokens]
     for li, layer in enumerate(model.layers):
-        o, (k, v) = _attention(_rmsnorm(x, layer.rms1, cfg.rms_eps), layer,
-                               cfg, rope, kernels)
+        o, (k, v) = _attention(_rmsnorm(x, layer.rms1, cfg, kernels),
+                               layer, cfg, rope, kernels)
         # (B, S, Hkv, hd) -> pool[li][:, pid, slot] of shape (Hkv, B, S, hd)
         cache.k[li][:, pid, slot] = k.permute(2, 0, 1, 3).to(cache.k.dtype)
         cache.v[li][:, pid, slot] = v.permute(2, 0, 1, 3).to(cache.v.dtype)
         x = x + o
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg.rms_eps), layer)
-    x = _rmsnorm(x, model.rms_out, cfg.rms_eps)
+        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+    x = _rmsnorm(x, model.rms_out, cfg, kernels)
     cache.lengths.fill_(S)
     return x[:, -1] @ model.embed.T, cache
 
@@ -322,7 +347,7 @@ def decode_step(model: Llama, cache: KVCache, tokens, *,
     cos, sin = (t[:, None, :] for t in _rope_tables(pos, cfg))
     x = model.embed[tokens]
     for li, layer in enumerate(model.layers):
-        h = _rmsnorm(x, layer.rms1, cfg.rms_eps)
+        h = _rmsnorm(x, layer.rms1, cfg, kernels)
         q = _rope((h @ layer.wq).view(B, nh, hd), cos, sin)
         k = _rope((h @ layer.wk).view(B, nkv, hd), cos, sin)
         v = (h @ layer.wv).view(B, nkv, hd)
@@ -331,8 +356,8 @@ def decode_step(model: Llama, cache: KVCache, tokens, *,
         o = attend(q, cache.k, cache.v, cache.page_indices, attend_len,
                    layer=li)
         x = x + o.reshape(B, nh * hd) @ layer.wo
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg.rms_eps), layer)
-    x = _rmsnorm(x, model.rms_out, cfg.rms_eps)
+        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+    x = _rmsnorm(x, model.rms_out, cfg, kernels)
     cache.lengths.add_(1)
     return x @ model.embed.T, cache
 

@@ -1,5 +1,8 @@
-"""Kernels of the port, each beside its plain PyTorch version:
-``attention.flash_attention`` and ``paged_attention.paged_attention``.
+"""Kernels of the port, each beside its plain version:
+``attention.flash_attention`` and ``paged_attention.paged_attention``
+(hand-written CUDA), and the ``@cube`` kernels of ``gelu``,
+``normalization`` and ``functional`` (K0: the CUDA printer on a card, the
+torch evaluator on the CPU).
 
 (Nothing is re-exported here: a function named like its module would hide
 the module ``ops.paged_attention`` behind the function.)

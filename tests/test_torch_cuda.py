@@ -9,7 +9,8 @@ test run) and run on the H100 with
 (``-o addopts=""`` drops the JAX package's pytest plugin: the card's host
 has no JAX). Tolerances: f32 atol 2e-5 / rtol 1e-4 (summation order only);
 bf16 atol 1e-2 / rtol 1e-2, one bf16 rounding (2^-8 relative) of the
-output apart.
+output apart. The DSL kernels (K0) are held against the torch evaluator run
+on the card, which rounds at the same ops, at the same tolerances.
 """
 
 import numpy as np
@@ -17,6 +18,10 @@ import pytest
 import torch
 
 from cubecl_tpu_torch.models import llama
+from cubecl_tpu_torch.ops import functional as F
+from cubecl_tpu_torch.ops import gelu as G
+from cubecl_tpu_torch.ops import normalization as N
+from cubecl_tpu_torch.runtime import CudaRuntime, eval_client
 from cubecl_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_plain,
@@ -91,5 +96,91 @@ def test_generate_kernels_match_plain(dev):
         0, cfg.vocab, (3, 70), dtype=np.int32)).to(dev)
     got = llama.generate(model, prompt, 8, max_pages=3, page=32)
     ref = llama.generate(model, prompt, 8, max_pages=3, page=32,
+                         kernels=False)
+    assert torch.equal(got, ref)
+
+
+def _dsl_launches(client, dev, dtype):
+    """The slice's DSL launches on one client; returns their outputs."""
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out = {}
+    x = rn(1000)
+    o = client.create(torch.zeros_like(x))
+    G.launch_gelu(client, client.create(x), o, checked=True)
+    out["gelu checked"] = o.tensor
+    hc = client.create(x)  # one tensor as both buffers: no __restrict__
+    G.launch_gelu(client, hc, hc, checked=True)
+    out["gelu checked in place"] = hc.tensor
+    hx = client.create(rn(1 << 14))
+    o = client.create(torch.zeros_like(hx.tensor))
+    G.launch_gelu(client, hx, o)
+    out["gelu exact"] = o.tensor
+    G.launch_gelu(client, hx, hx)
+    out["gelu in place"] = hx.tensor
+    for rows, row in ((4, 1024), (64, 512)):
+        hx = client.create(rn(rows, row))
+        gb = [client.create(rn(row)) for _ in range(2)]
+        for name in ("softmax", "normalize", "layernorm"):
+            o = client.create(torch.zeros_like(hx.tensor))
+            if name == "softmax":
+                N.launch_softmax(client, hx, o, rows, row)
+            elif name == "normalize":
+                N.launch_normalize(client, hx, o, rows, row, eps=1e-6)
+            else:
+                N.launch_layernorm(client, hx, *gb, o, rows, row)
+            out[f"{name} {rows}x{row}"] = o.tensor
+        N.launch_softmax(client, hx, hx, rows, row)
+        out[f"softmax in place {rows}x{row}"] = hx.tensor
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dsl_kernels_match_evaluator(dev, dtype):
+    """Every gelu / normalization path, printed and built by K0, against
+    the torch evaluator on the same card and inputs."""
+    cu = CudaRuntime.client()
+    n = cu.server.launch_count
+    got = _dsl_launches(cu, dev, dtype)
+    assert cu.server.launch_count == n + len(got)
+    want = _dsl_launches(eval_client(dev), dev, dtype)
+    torch.cuda.synchronize()
+    for k in want:
+        _close(got[k], want[k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["gelu", "softmax", "layernorm", "rmsnorm"])
+def test_functional_kernels_match_evaluator(dev, op, dtype):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(64, 512, generator=g, device=dev).to(dtype)
+    w = torch.randn(512, generator=g, device=dev).to(dtype)
+    args = {"gelu": (x,), "softmax": (x,), "layernorm": (x, w, w),
+            "rmsnorm": (x, w)}[op]
+    server = CudaRuntime.client().server
+    n = server.launches[f"_{op}_fwd_k"]
+    got = getattr(F, op)(*args)
+    torch.cuda.synchronize()
+    assert server.launches[f"_{op}_fwd_k"] == n + 1
+    cpu = getattr(F, op)(*(a.cpu() for a in args))  # the torch evaluator
+    _close(got.cpu(), cpu)
+
+
+def test_generate_framework_kernels_match_plain(dev):
+    """use_framework_kernels=True: RMSNorm on K0, f32, greedy tokens equal
+    to the plain route's, 2L+1 K0 launches per step."""
+    cfg = llama.LlamaConfig(vocab=128, d_model=256, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512)
+    model = llama.init_params(cfg, seed=0, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, 64), dtype=np.int32)).to(dev)
+    server = CudaRuntime.client().server
+    n = server.launches["_rmsnorm_fwd_k"]
+    got = llama.generate(model, prompt, 6, max_pages=3, page=32)
+    assert server.launches["_rmsnorm_fwd_k"] == n + 7 * (2 * cfg.n_layers + 1)
+    ref = llama.generate(model, prompt, 6, max_pages=3, page=32,
                          kernels=False)
     assert torch.equal(got, ref)

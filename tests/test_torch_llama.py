@@ -1,11 +1,15 @@
 """cubecl_tpu_torch.models.llama against cubecl_tpu.models.llama.
 
 A tiny config (d 128, 4 query / 2 kv heads at head_dim 32, 2 layers) with
-``use_framework_kernels=False``. The port loads the JAX ``init_params``
-through ``params_from_jax``; prompts come from a numpy seed. The port runs
-its attention's plain versions on the CPU, the JAX package its Pallas
-kernels in interpret mode. f32 logits agree to atol 1e-5 / rtol 1e-4: both
-sides round the same f32 math in different orders through two layers.
+``use_framework_kernels=False``, and the JAX package's framework-kernel
+config of ``tests/test_functional.py:125-127`` (d 128, 1 layer) with
+``use_framework_kernels=True``, where RMSNorm is the ``@cube`` kernel
+(K0: the torch evaluator on the CPU, Pallas interpret mode in JAX). The
+port loads the JAX ``init_params`` through ``params_from_jax``; prompts
+come from a numpy seed. The port runs its attention's plain versions on
+the CPU, the JAX package its Pallas kernels in interpret mode. f32 logits
+agree to atol 1e-5 / rtol 1e-4: both sides round the same f32 math in
+different orders through the layers; greedy tokens are equal.
 """
 
 import jax
@@ -16,6 +20,7 @@ import torch
 
 from cubecl_tpu.models import llama as jllama
 from cubecl_tpu_torch.models import llama
+from cubecl_tpu_torch.runtime import CpuRuntime
 
 ATOL, RTOL = 1e-5, 1e-4
 CFG = dict(vocab=64, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2,
@@ -128,7 +133,7 @@ def test_generate_plain_equals_kernel_route_on_cpu(prompt):
 
 
 @pytest.mark.parametrize("option", [
-    dict(use_framework_kernels=True), dict(n_experts=4),
+    dict(attn_sinks=2), dict(n_experts=4),
     dict(moe_capacity=8), dict(kv_dtype="int8"), dict(attn_window=16),
     dict(ring_cache=True), dict(remat=True)])
 def test_unsupported_options_raise(option):
@@ -144,3 +149,83 @@ def test_lora_and_capacity_errors(prompt):
         llama.forward(model, p, lora={})
     with pytest.raises(ValueError, match="exceed"):
         llama.generate(model, p, 13, max_pages=4, page=8)   # 20 + 13 > 32
+
+
+# the framework-kernel config: 8 decode rows and 8 x 16 prefill rows, so
+# that every RMSNorm fits the DSL kernel (rows % 8 == 0, d % 128 == 0)
+FW = dict(vocab=64, d_model=128, n_heads=2, n_kv_heads=1, n_layers=1,
+          d_ff=128, seq=16, use_flash_attention=False)
+FW_B, FW_S, FW_STEPS = 8, 16, 4
+FW_K0 = 2 * FW["n_layers"] + 1        # K0 launches per forward / step
+
+
+@pytest.fixture(scope="module")
+def fw_models():
+    jcfg = jllama.LlamaConfig(**FW)
+    assert jcfg.use_framework_kernels       # the JAX default
+    jparams = jllama.init_params(jcfg, seed=4)
+    model = llama.Llama(llama.LlamaConfig(**FW))
+    model.load_state_dict(llama.params_from_jax(
+        jax.tree.map(np.asarray, jparams)))
+    prompt = np.random.default_rng(4).integers(0, FW["vocab"], (FW_B, FW_S),
+                                               dtype=np.int32)
+    return jcfg, jparams, model, prompt
+
+
+def _k0_launches():
+    return CpuRuntime.client().server.launches["_rmsnorm_fwd_k"]
+
+
+def test_framework_forward_logits(fw_models):
+    jcfg, jparams, model, prompt = fw_models
+    ref = jllama.forward(jparams, jnp.asarray(prompt), jcfg)
+    n = _k0_launches()
+    got = llama.forward(model, torch.from_numpy(prompt))
+    assert _k0_launches() == n + FW_K0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_framework_generate_tokens_equal_jax(fw_models):
+    jcfg, jparams, model, prompt = fw_models
+    ref = jllama.generate(jparams, jnp.asarray(prompt), FW_STEPS, jcfg,
+                          max_pages=MAX_PAGES, page=PAGE)
+    n = _k0_launches()
+    got = llama.generate(model, torch.from_numpy(prompt), FW_STEPS,
+                         max_pages=MAX_PAGES, page=PAGE)
+    # one prefill and FW_STEPS decode steps, each 2L+1 RMSNorms on K0
+    assert _k0_launches() == n + FW_K0 * (1 + FW_STEPS)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_framework_plain_route_matches_kernel(fw_models):
+    """kernels=False takes the framework kernel's plain formula (f32,
+    one rounding): same logits to f32 summation order, same tokens."""
+    _jcfg, _jparams, model, prompt = fw_models
+    p = torch.from_numpy(prompt)
+    n = _k0_launches()
+    plain = llama.forward(model, p, kernels=False)
+    assert _k0_launches() == n
+    np.testing.assert_allclose(plain.numpy(), llama.forward(model, p).numpy(),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_array_equal(
+        llama.generate(model, p, 3, MAX_PAGES, PAGE, kernels=False).numpy(),
+        llama.generate(model, p, 3, MAX_PAGES, PAGE).numpy())
+
+
+def test_params_layout_independent_of_framework_flag():
+    """The same JAX parameters load into the model of either flag: the
+    flag changes how RMSNorm is computed, not the weights."""
+    sds = []
+    for flag in (True, False):
+        jp = jllama.init_params(
+            jllama.LlamaConfig(**{**FW, "use_framework_kernels": flag}),
+            seed=4)
+        sd = llama.params_from_jax(jax.tree.map(np.asarray, jp))
+        model = llama.Llama(llama.LlamaConfig(
+            **{**FW, "use_framework_kernels": not flag}))
+        model.load_state_dict(sd, strict=True)
+        sds.append(sd)
+    assert sds[0].keys() == sds[1].keys()
+    for k in sds[0]:
+        assert torch.equal(sds[0][k], sds[1][k]), k
