@@ -10,9 +10,14 @@
 // Math (as A1): o = softmax(q k^T * sm_scale) v with a base-2 online softmax
 // (scores scaled by sm_scale*log2(e), exp2), f32 statistics and accumulator,
 // causal mask col <= row (absolute positions), and the l == 0 guard in the
-// epilogue. Unlike A1, the scale is applied to the f32 scores inside the
-// kernel instead of being folded into q and rounded to q's dtype first, so
-// in bf16 the two differ by that one rounding of q.
+// epilogue. With an lse pointer (training), each row's base-2 log-sum-exp
+// m + log2(l) of the scaled scores is written as f32 (B, H, Sq), the
+// residual of the backward kernels (flash_attention_bwd.cu); A1's
+// (..., 128) lane-broadcast layout of it exists only for the TPU and is not
+// copied. Serving passes null and nothing is written. Unlike A1, the scale
+// is applied to the f32 scores inside the kernel instead of being folded
+// into q and rounded to q's dtype first, so in bf16 the two differ by that
+// one rounding of q.
 //
 // Bound on the H100: at prefill sizes (S ~ 1k, D 64/128) attention is
 // compute-bound. This first version runs the two inner products on the f32
@@ -42,8 +47,9 @@ constexpr int flash_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                 int Sq, int Skv, float scale_log2, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
+                 float scale_log2, int causal) {
   constexpr int DC = D / 64;  // 4-wide column groups of the output per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][BM]  (q transposed)
@@ -179,6 +185,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
+    // every lane of the row's 16 holds its stats; a row with nothing live
+    // gets 0, finite, and its masked columns give exp2(s - 0) = 0 anyway
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * H + h) * Sq + row] =
+          l_i[i] == 0.f ? 0.f : m_i[i] + log2f(l_i[i]);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
 #pragma unroll
@@ -190,7 +201,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int Hkv, int Sq, int Skv,
+                         float* lse, int B, int H, int Hkv, int Sq, int Skv,
                          float scale_log2, int causal, cudaStream_t stream) {
   constexpr int smem = flash_smem_bytes<D>();
   // above 48 KB a kernel must opt in to dynamic shared memory, once
@@ -201,7 +212,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BM - 1) / BM, H, B);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Skv,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Sq, Skv,
       scale_log2, causal);
   return cudaGetLastError();
 }
@@ -214,16 +225,18 @@ extern "C" const char* cubecl_error_string(int code) {
 }
 
 // q (B, H, Sq, D), k/v (B, Hkv, Skv, D), o (B, H, Sq, D): contiguous, one
-// dtype. Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a dtype / head_dim this kernel was not built for.
+// dtype; lse (B, H, Sq) f32, or null for none. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a dtype / head_dim this
+// kernel was not built for.
 extern "C" int cubecl_flash_fwd(const void* q, const void* k, const void* v,
-                                void* o, int dtype, int B, int H, int Hkv,
-                                int Sq, int Skv, int D, float scale_log2,
-                                int causal, void* stream) {
+                                void* o, float* lse, int dtype, int B, int H,
+                                int Hkv, int Sq, int Skv, int D,
+                                float scale_log2, int causal, void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CUBECL_FLASH(T, HD) \
-  launch_flash<T, HD>(q, k, v, o, B, H, Hkv, Sq, Skv, scale_log2, causal, st)
+  launch_flash<T, HD>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, scale_log2, \
+                      causal, st)
   if (dtype == kF32 && D == 64) return CUBECL_FLASH(float, 64);
   if (dtype == kF32 && D == 128) return CUBECL_FLASH(float, 128);
   if (dtype == kBF16 && D == 64) return CUBECL_FLASH(__nv_bfloat16, 64);

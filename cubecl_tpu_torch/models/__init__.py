@@ -1,1 +1,6 @@
-"""Model families of the port: ``llama`` (serving)."""
+"""Model families of the port: ``llama`` (serving and training) and
+``transformer`` (training)."""
+
+from . import llama, transformer
+
+__all__ = ["llama", "transformer"]

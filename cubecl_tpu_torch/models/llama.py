@@ -1,23 +1,30 @@
-"""Llama-family LM for serving: RMSNorm + RoPE + GQA + SwiGLU, paged KV.
+"""Llama-family LM: RMSNorm + RoPE + GQA + SwiGLU, paged KV serving and
+SGD training.
 
-The PyTorch counterpart of ``cubecl_tpu.models.llama``'s serving path:
-``init_params`` / ``params_from_jax`` give a :class:`Llama` module, and
-``prefill``, ``decode_step`` and ``generate`` run it over a stacked paged
-KV cache. Weights keep the JAX orientation ``(d_in, d_out)`` and are used
-as ``x @ W``, so JAX parameters load without transposes.
+The PyTorch counterpart of ``cubecl_tpu.models.llama``'s single-device
+paths: ``init_params`` / ``params_from_jax`` give a :class:`Llama` module;
+``prefill``, ``decode_step`` and ``generate`` serve it over a stacked paged
+KV cache, and ``loss_fn`` / ``make_train_step`` train it (``cfg.remat``
+recomputes each layer in the backward through ``torch.utils.checkpoint``).
+Weights keep the JAX orientation ``(d_in, d_out)`` and are used as
+``x @ W``, so JAX parameters load without transposes. They are built
+frozen (``requires_grad=False``) for serving; a train step makes them
+trainable.
 
-Three kernels are on this path. Prefill attention goes through
-``ops.attention.flash_attention`` and each decode step's through
-``ops.paged_attention.paged_attention`` (hand-written CUDA). With
-``use_framework_kernels=True`` (the default, as in the JAX package) every
-RMSNorm whose rows fit the DSL kernels (``ops.functional.fits``) is the
-``@cube`` kernel ``ops.functional.rmsnorm``, launched through K0: the CUDA
-printer's kernel on a card, the torch evaluator on the CPU; 2·L+1 launches
-per forward or decode step. ``kernels=False`` runs the plain PyTorch
-versions of all three on any device; it is the reference the kernels are
-checked against. RoPE, SwiGLU and the projections are plain tensor code.
+Prefill and training attention go through ``ops.attention.flash_attention``
+(hand-written CUDA forward; in training also its dK/dV and dQ backward
+kernels), each decode step's through ``ops.paged_attention.paged_attention``.
+With ``use_framework_kernels=True`` (the default, as in the JAX package)
+every RMSNorm whose rows fit the DSL kernels (``ops.functional.fits``) is
+the ``@cube`` kernel ``ops.functional.rmsnorm``, launched through K0 (the
+CUDA printer's kernel on a card, the torch evaluator on the CPU): 2·L+1
+launches per forward or decode step, and as many of ``_rmsnorm_bwd_k`` per
+backward. ``kernels=False`` runs the plain PyTorch versions of all of them
+on any device; it is the reference the kernels are checked against. RoPE,
+SwiGLU and the projections are plain tensor code.
 
-Unlike the functional JAX code, the KV cache is updated in place.
+Unlike the functional JAX code, the KV cache and, in a train step, the
+weights are updated in place.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
 from ..ops.attention import flash_attention, flash_attention_plain
@@ -82,7 +90,6 @@ def check_supported(cfg: LlamaConfig) -> None:
         (cfg.attn_window > 0 or cfg.attn_sinks > 0 or cfg.ring_cache,
          "windowed / ring KV decode (attn_window, attn_sinks, ring_cache) "
          "is ROADMAP Queue 1 item 8"),
-        (cfg.remat, "remat is training, ROADMAP Queue 1 item 7"),
     ]
     for unsupported, why in todo:
         if unsupported:
@@ -139,10 +146,11 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cpu") -> Llama:
     load :func:`params_from_jax` to compare with the JAX package)."""
     model = Llama(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    for name, p in model.named_parameters():
-        if "rms" in name:
-            continue
-        p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "rms" in name:
+                continue
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * 0.02)
     return model
 
 
@@ -248,20 +256,71 @@ def _no_lora(lora):
         raise NotImplementedError("multi-LoRA is ROADMAP Queue 1 item 8")
 
 
-@torch.no_grad()
+def _layer(x, layer: LlamaLayer, cfg: LlamaConfig, rope, kernels: bool):
+    x = x + _attention(_rmsnorm(x, layer.rms1, cfg, kernels), layer, cfg,
+                       rope, kernels)[0]
+    return x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+
+
 def forward(model: Llama, tokens, *, kernels: bool = True, lora=None):
-    """tokens (B, S) int -> logits (B, S, vocab)."""
+    """tokens (B, S) int -> logits (B, S, vocab). Differentiable where the
+    weights require grad; with ``cfg.remat`` (and grad mode on) each layer
+    keeps only its input and is recomputed in the backward."""
     _no_lora(lora)
     cfg = model.cfg
     rope = _rope_tables(torch.arange(tokens.shape[1], device=tokens.device),
                         cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     x = model.embed[tokens]
     for layer in model.layers:
-        x = x + _attention(_rmsnorm(x, layer.rms1, cfg, kernels), layer,
-                           cfg, rope, kernels)[0]
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+        if remat:
+            x = checkpoint(_layer, x, layer, cfg, rope, kernels,
+                           use_reentrant=False)
+        else:
+            x = _layer(x, layer, cfg, rope, kernels)
     x = _rmsnorm(x, model.rms_out, cfg, kernels)
     return x @ model.embed.T                     # tied head
+
+
+def loss_fn(model: Llama, tokens, *, kernels: bool = True):
+    """Mean next-token NLL of tokens (B, S + 1): the logits of the first S
+    positions in f32, log-softmax with the max shift written out as the
+    JAX ``loss_fn`` writes it."""
+    logits = forward(model, tokens[:, :-1], kernels=kernels).float()
+    targets = tokens[:, 1:].long()
+    mx = logits.max(-1, keepdim=True).values
+    logp = logits - torch.log(torch.exp(logits - mx).sum(-1, keepdim=True)) \
+        - mx
+    return -logp.gather(-1, targets[..., None]).mean()
+
+
+def sgd_step(cfg, loss, lr: float, kernels: bool):
+    """``step(model, tokens) -> loss(model, tokens)``: one SGD step on a
+    model built for ``cfg``. The weights become trainable, the old grads
+    are dropped, one backward fills ``p.grad`` (left there for inspection
+    until the next step), and each weight is updated in place as the JAX
+    ``p - lr * g`` (a grad has its weight's dtype)."""
+
+    def step(model: nn.Module, tokens):
+        if model.cfg != cfg:
+            raise ValueError("the model was built for another config")
+        model.requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        value = loss(model, tokens, kernels=kernels)
+        value.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.sub_(lr * p.grad)
+        return value.detach()
+
+    return step
+
+
+def make_train_step(cfg: LlamaConfig, lr: float = 1e-3, *,
+                    kernels: bool = True):
+    """``step(model, tokens) -> loss``: one in-place SGD step of
+    :func:`loss_fn` (see :func:`sgd_step`)."""
+    return sgd_step(cfg, loss_fn, lr, kernels)
 
 
 @dataclasses.dataclass

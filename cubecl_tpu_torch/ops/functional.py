@@ -3,13 +3,15 @@
 
 In the JAX package each op is a ``jax.custom_vjp`` whose forward and
 backward are ``@cube`` kernels applied functionally. The port keeps the
-eight kernel bodies unchanged and gives model code the forward ops
-(:func:`gelu`, :func:`softmax`, :func:`layernorm`, :func:`rmsnorm`), each
-one launch of K0 through :meth:`CubeFunction.apply`: on a CUDA tensor the
-kernel the CUDA printer built, on a CPU tensor the torch evaluator. The
-backward kernels are traced and held against the JAX package in the tests;
-their ``torch.autograd.Function``s come with training (ROADMAP Queue 1
-items 5 and 7).
+eight kernel bodies unchanged; each op (:func:`gelu`, :func:`softmax`,
+:func:`layernorm`, :func:`rmsnorm`) is a ``torch.autograd.Function`` whose
+forward is one launch of its ``_*_fwd_k`` kernel and whose backward dx is
+one launch of its ``_*_bwd_k`` kernel, through :meth:`CubeFunction.apply`:
+on a CUDA tensor the kernel the CUDA printer built, on a CPU tensor the
+torch evaluator. The backward saves what the JAX ``fwd`` saves (gelu x,
+softmax y, the norms (x, g)); the parameter gradients dg and db are plain
+f32 torch reductions cast to g's dtype, which the JAX package leaves to
+XLA too.
 
 Shape contract (``fits``, the JAX package's): the last axis D rides one
 LINE per row, so D % 128 == 0, D <= 16384 and the flattened row count %
@@ -165,30 +167,114 @@ def _rmsnorm_bwd_k(x: Slice, gamma: Slice, dy: Slice, dx: MutSlice,
     dx[ABSOLUTE_POS] = cast(istd * dyg - xv * (c * istd * istd * istd), xe)
 
 
+def _rows(kernel, x, ins, scalars=(), client=None):
+    """One launch of ``kernel`` over the rows of ``ins`` (contiguous
+    copies where needed) into a new tensor shaped as x."""
+    arrays = [(t.contiguous(), False) for t in ins] + [(_empty(x), True)]
+    return _apply_rows(kernel, x, arrays, scalars, client=client)
+
+
+class _Gelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, client):
+        ctx.save_for_backward(x)
+        ctx.client = client
+        return _rows(_gelu_fwd_k, x, [x], client=client)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        return _rows(_gelu_bwd_k, x, [x, dy], client=ctx.client), None
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, client):
+        y = _rows(_softmax_fwd_k, x, [x], client=client)
+        ctx.save_for_backward(y)
+        ctx.client = client
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        return _rows(_softmax_bwd_k, y, [y, dy], client=ctx.client), None
+
+
+def _param_grad(dy, x_hat, g):
+    """sum over every row of dy * x_hat in f32, cast to g's dtype."""
+    return (dy.float() * x_hat).sum(tuple(range(dy.dim() - 1))).to(g.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, b, eps, client):
+        ctx.save_for_backward(x, g)
+        ctx.eps, ctx.client = eps, client
+        return _rows(_layernorm_fwd_k, x, [x, g, b],
+                     (1.0 / x.shape[-1], eps), client)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        eps = ctx.eps
+        dx = _rows(_layernorm_bwd_k, x, [x, g, dy],
+                   (1.0 / x.shape[-1], eps), ctx.client)
+        dg = db = None
+        if ctx.needs_input_grad[1]:
+            xf = x.float()
+            xc = xf - xf.mean(-1, keepdim=True)
+            istd = torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+            dg = _param_grad(dy, xc * istd, g)
+        if ctx.needs_input_grad[2]:
+            db = _param_grad(dy, 1.0, g)
+        return dx, dg, db, None, None
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, eps, client):
+        ctx.save_for_backward(x, g)
+        ctx.eps, ctx.client = eps, client
+        return _rows(_rmsnorm_fwd_k, x, [x, g], (1.0 / x.shape[-1], eps),
+                     client)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        eps = ctx.eps
+        dx = _rows(_rmsnorm_bwd_k, x, [x, g, dy], (1.0 / x.shape[-1], eps),
+                   ctx.client)
+        dg = None
+        if ctx.needs_input_grad[1]:
+            xf = x.float()
+            istd = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            dg = _param_grad(dy, xf * istd, g)
+        return dx, dg, None, None
+
+
 def gelu(x, client=None):
     """Exact (erf) GELU over the last axis, as one K0 launch (on
-    ``client``, default the client of x's device)."""
-    return _apply_rows(_gelu_fwd_k, x, [(x, False), (_empty(x), True)],
-                       client=client)
+    ``client``, default the client of x's device); its gradient is one
+    launch of ``_gelu_bwd_k``."""
+    return _Gelu.apply(x, client)
 
 
 def softmax(x, client=None):
-    """Row softmax over the last axis, as one K0 launch."""
-    return _apply_rows(_softmax_fwd_k, x, [(x, False), (_empty(x), True)],
-                       client=client)
+    """Row softmax over the last axis, as one K0 launch; its gradient is
+    one launch of ``_softmax_bwd_k``."""
+    return _Softmax.apply(x, client)
 
 
 def layernorm(x, g, b, eps: float = 1e-5, client=None):
-    """LayerNorm over the last axis (f32 statistics), as one K0 launch."""
-    return _apply_rows(_layernorm_fwd_k, x,
-                       [(x, False), (g, False), (b, False),
-                        (_empty(x), True)], (1.0 / x.shape[-1], eps),
-                       client=client)
+    """LayerNorm over the last axis (f32 statistics), as one K0 launch;
+    dx is one launch of ``_layernorm_bwd_k``, dg and db plain f32
+    reductions."""
+    return _LayerNorm.apply(x, g, b, eps, client)
 
 
 def rmsnorm(x, g, eps: float = 1e-5, client=None):
     """RMSNorm over the last axis (llama family): ``x * rsqrt(mean(x^2) +
-    eps) * g`` in f32, cast once to x's dtype, as one K0 launch."""
-    return _apply_rows(_rmsnorm_fwd_k, x,
-                       [(x, False), (g, False), (_empty(x), True)],
-                       (1.0 / x.shape[-1], eps), client=client)
+    eps) * g`` in f32, cast once to x's dtype, as one K0 launch; dx is one
+    launch of ``_rmsnorm_bwd_k``, dg a plain f32 reduction."""
+    return _RmsNorm.apply(x, g, eps, client)

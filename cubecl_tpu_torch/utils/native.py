@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels (``cubecl_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
-lands in ``cubecl_tpu_torch/build/`` under a name that hashes the sources and
-flags, so an edited kernel is rebuilt and an unchanged one is loaded as is.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in
+``cubecl_tpu_torch/build/`` under a name that hashes the sources and flags,
+so an edited kernel is rebuilt and an unchanged one is loaded as is.
 
 Counterpart of ``cubecl_tpu/utils/native.py``, without its silent fallbacks:
 a missing ``nvcc``, a compile error or a library that does not load raises
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -31,7 +33,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,8 +42,10 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "cubecl_flash_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _VP],
+    "cubecl_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _I, _VP],
+    "cubecl_flash_bwd_dkv": [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP],
+    "cubecl_flash_bwd_dq": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _VP],
 }
@@ -107,16 +111,32 @@ def build() -> Build:
         nvcc = find_nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            objs = [os.path.join(objdir, os.path.basename(f) + ".o")
+                    for f in srcs]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, f]
+                    for f, o in zip(srcs, objs)]
+            cmds.append([nvcc, "-shared", "-o", tmp, *objs])
+            log = ""
+            # one nvcc per source, all at once; then the link
+            for batch in (cmds[:-1], cmds[-1:]):
+                procs = [(c, subprocess.Popen(
+                    c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)) for c in batch]
+                for cmd, p in procs:
+                    out = p.communicate()[0]
+                    log += out
+                    if p.returncode != 0:
+                        for _, other in procs:
+                            if other.returncode is None:  # drain its pipe
+                                other.communicate()
+                        if os.path.exists(tmp):
+                            os.remove(tmp)
+                        raise KernelBuildError(
+                            f"nvcc failed (exit {p.returncode}): "
+                            f"{' '.join(cmd)}\n{out}")
         seconds = time.perf_counter() - t0
-        log = r.stdout + r.stderr
-        if r.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise KernelBuildError(
-                f"nvcc failed (exit {r.returncode}): {' '.join(cmd)}\n{log}")
         os.replace(tmp, so)  # atomic: a concurrent builder sees all or none
         _BUILD = Build(so, seconds, log)
         return _BUILD

@@ -22,6 +22,8 @@ from cubecl_tpu_torch.ops import functional as F
 from cubecl_tpu_torch.ops import gelu as G
 from cubecl_tpu_torch.ops import normalization as N
 from cubecl_tpu_torch.runtime import CudaRuntime, eval_client
+from cubecl_tpu_torch.models import transformer
+from cubecl_tpu_torch.ops import attention as fa
 from cubecl_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_plain,
@@ -184,3 +186,82 @@ def test_generate_framework_kernels_match_plain(dev):
     ref = llama.generate(model, prompt, 6, max_pages=3, page=32,
                          kernels=False)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 77, 200])
+def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, S):
+    """dq, dk, dv of the autograd Function (forward kernel with lse, dK/dV
+    and dQ kernels) against flash_attention_backward_plain on the kernel's
+    own o and lse; the lse against the plain logsumexp."""
+    g = torch.Generator(device=dev).manual_seed(S * D + causal)
+    q, do = (torch.randn(2, 6, S, D, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, S, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    o = flash_attention(*leaves, causal)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
+        (n[0] + 1, n[1] + 1)
+    o2, lse = fa._flash_forward(q, k, v, causal, None, True)
+    assert torch.equal(o2, o.detach())
+    _, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+    ref = fa.flash_attention_backward_plain(q, k, v, o2, lse, do, causal)
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["gelu", "softmax", "layernorm", "rmsnorm"])
+def test_functional_backward_kernels_match_evaluator(dev, op, dtype):
+    """dx of each op's backward kernel against the torch evaluator on the
+    card; dg, db (plain reductions) against the same."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(64, 512, generator=g, device=dev).to(dtype)
+    w = torch.randn(512, generator=g, device=dev).to(dtype)
+    dy = torch.randn(64, 512, generator=g, device=dev).to(dtype)
+    args = {"gelu": (x,), "softmax": (x,), "layernorm": (x, w, w),
+            "rmsnorm": (x, w)}[op]
+    server = CudaRuntime.client().server
+    n = server.launches[f"_{op}_bwd_k"]
+    leaves = [a.clone().requires_grad_() for a in args]
+    getattr(F, op)(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert server.launches[f"_{op}_bwd_k"] == n + 1
+    ev = [a.clone().requires_grad_() for a in args]
+    getattr(F, op)(*ev, client=eval_client(dev)).backward(dy)
+    for t, r in zip(leaves, ev):
+        _close(t.grad, r.grad)
+
+
+def test_train_step_kernels_match_plain(dev):
+    """One llama and one transformer SGD step, f32, with the kernels and
+    with their plain versions from the same weights: loss, every gradient
+    and the updated weights."""
+    for mod, cfg, shape in (
+            (llama, llama.LlamaConfig(vocab=128, d_model=256, n_heads=4,
+                                      n_kv_heads=2, n_layers=2, d_ff=512,
+                                      seq=129), (4, 129)),
+            (transformer, transformer.TransformerConfig(
+                vocab=128, d_model=256, n_heads=2, n_layers=2, d_ff=512,
+                seq=129), (4, 129))):
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, shape, dtype=np.int32)).to(dev)
+        models = []
+        for kernels in (True, False):
+            model = mod.init_params(cfg, seed=0, device=dev)
+            loss = mod.make_train_step(cfg, 1e-2, kernels=kernels)(model,
+                                                                  tokens)
+            models.append((loss, model))
+        (lk, mk), (lp, mp) = models
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+        for (name, a), b in zip(mk.named_parameters(), mp.parameters()):
+            tol = 1e-4 * b.grad.abs().max().item()
+            assert (a.grad - b.grad).abs().max().item() <= tol, name
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

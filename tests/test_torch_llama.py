@@ -135,7 +135,7 @@ def test_generate_plain_equals_kernel_route_on_cpu(prompt):
 @pytest.mark.parametrize("option", [
     dict(attn_sinks=2), dict(n_experts=4),
     dict(moe_capacity=8), dict(kv_dtype="int8"), dict(attn_window=16),
-    dict(ring_cache=True), dict(remat=True)])
+    dict(ring_cache=True), dict(attn_window=16, ring_cache=True)])
 def test_unsupported_options_raise(option):
     cfg = llama.LlamaConfig(**{**CFG, **option})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
