@@ -26,8 +26,19 @@ B 8 x S 1024 (ms/step, peak memory, launches per step, a profiled step,
 one step with remat), g train exactness, a d768 f32 step with the kernels
 against one with the plain versions, h train the transformer at GPT-2
 small's widths (phases f-h fail on a K0 kernel id that a and e did not
-hold). Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": {...}}``.
+hold). Then the serving slice of chunks, int8 KV and pages: i the chunked
+paged-attention kernel (P3) against plain at the verify, chunked-prefill,
+d768, ragged and int8 shapes, j paged decode on int8 pools against plain
+and the KV-bound decode (B 16, context 2048) on bf16 against int8 pools,
+k the 0.77B bf16 llama through ``prefill_chunked``, ``decode_chunk``,
+``speculative_generate`` (a self-draft and a d768 draft), an int8 cache
+and continuous batching with prefix caching on the ``PageAllocator``,
+each with its kernel launches checked, l the same paths on the d768 f32
+llama against the plain versions (and each batched request against its
+solo run). Each kernel's line gives its time beside its bound (bytes over
+3.35 TB/s or operations over the dtype's peak) and, where one PyTorch
+call computes the same function, that call's time. Then a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero before the last line; without a CUDA device
 (or without the package beside it) the script exits non-zero and prints no
 result. Imports only torch, numpy and cubecl_tpu_torch.
@@ -45,6 +56,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise.
 # f32: the kernels and the plain versions (cuBLAS in full f32, TF32 off) sum
@@ -60,6 +72,19 @@ LOGIT_TOL = 1e-4
 # bf16 ulps apart
 CHAIN_TOL = (3e-2, 3e-2)
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
+# bf16 on the tensor cores, f32 off them, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# phase k, the 0.77B bf16 llama served by two paths that round in other
+# places (chunked against one-shot prefill, decode_chunk against decode
+# steps, whose projections are GEMMs of other heights): some ten bf16
+# roundings a layer (2^-9 relative each) over 16 layers move a value by a
+# few percent of its scale (sqrt(160) * 2^-9 ~ 2.5%), and logits reach
+# |4|. Exactness is phase l's, in f32. A greedy choice may flip only where
+# the top-2 logit gap is below twice the logit tolerance.
+BF16_PATH_TOL = (1e-1, 5e-2)
+BF16_GAP = 0.2
 
 
 def fail(msg):
@@ -103,10 +128,11 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                          m.group(1))
-            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}, "
-                    f"{k.group(3)}>" if k else m.group(1))
+            k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)"
+                          r"(S\d*_|[af])?Li(\d+)E", m.group(1))
+            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
+                    f"{', int8 KV' if k.group(3) == 'a' else ''}, "
+                    f"{k.group(4)}>" if k else m.group(1))
         elif "spill" in line:
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
@@ -185,6 +211,21 @@ def _plain_rmsnorm(x, g, eps=1e-5):
     return (xf * torch.rsqrt(ms + eps) * g.float()).to(x.dtype)
 
 
+def grad_call(fn, inputs, dy):
+    """A call that runs the autograd backward of ``fn(*inputs)`` for
+    ``dy`` (the forward runs once, here): the backward of a library call,
+    timed as its ``library_ms``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    y = fn(*leaves)
+    return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
+def elementwise_bound(n, elem, moved, flops_per_elem):
+    """Bound of a row-wise K0 kernel over ``n`` elements of ``elem`` bytes
+    that moves ``moved`` such tensors and computes in f32."""
+    return bound_ms(flops_per_elem * n, moved * n * elem, torch.float32)
+
+
 def dsl_cases(dev, gen):
     """Phase a's launches. Each case: ``prepare(client)`` makes its
     buffers on a client and returns the launch (a closure returning the
@@ -260,6 +301,7 @@ def dsl_cases(dev, gen):
             return lambda: getattr(F, op)(*args, client=c)
         cases.append(dict(name=f"{op} fwd bf16 8192x2048", prepare=prepare,
                           plain=plain, tol=None))
+    cases[-1]["library"] = lambda: TF.rms_norm(x, (2048,), g, RMS_EPS)
     for shape, dtype in K0_SERVE_SHAPES:
         # own names: the plain lambdas above read x and g when called
         xs, gs = rn(*shape, dtype=dtype), rn(shape[-1], dtype=dtype)
@@ -270,7 +312,8 @@ def dsl_cases(dev, gen):
             name=f"rmsnorm fwd {'bf16' if dtype == torch.bfloat16 else 'f32'}"
                  f" {'x'.join(map(str, shape))} (llama serve)", prepare=prepare,
             plain=lambda xs=xs, gs=gs: _plain_rmsnorm(xs, gs, RMS_EPS),
-            tol=None))
+            tol=None, library=lambda xs=xs, gs=gs: TF.rms_norm(
+                xs, (xs.shape[-1],), gs, RMS_EPS)))
     return cases
 
 
@@ -286,13 +329,15 @@ def run_case(case, cu, ev, card, phase="a"):
     launch = case["prepare"](cu)
     ms = cuda_ms(launch)
     plain_ms = cuda_ms(case["plain"])
+    lib_ms = cuda_ms(case["library"]) if "library" in case else None
     tol = case["tol"] or TOL[got.dtype]
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"phase {phase} {what}: max abs err {err} vs plain (atol/rtol {tol}), "
           f"{err_ev} vs the torch evaluator (atol/rtol {TOL[got.dtype]}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib} [{card}]",
           flush=True)
     return {"name": case["name"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": lib_ms}
 
 
 def k0_ptxas(cu):
@@ -489,20 +534,31 @@ def bwd_cases(dev, gen):
         size = "x".join(map(str, shape))
         # gelu computes in the storage dtype op by op (no f32 cast)
         chain = CHAIN_TOL if op == "gelu" and dt == torch.bfloat16 else None
+        lib_fwd, lib_args = {
+            "rmsnorm": (lambda x, g, n=shape[-1]: TF.rms_norm(
+                x, (n,), g, RMS_EPS), (x, g)),
+            "layernorm": (lambda x, g, b, n=shape[-1]: TF.layer_norm(
+                x, (n,), g, b, 1e-5), (x, g, b)),
+            "gelu": (lambda x: TF.gelu(x, approximate="none"), (x,))}[op]
+        library = {"fwd": lambda f=lib_fwd, a=lib_args: f(*a),
+                   "bwd": grad_call(lib_fwd, lib_args, dy)}
         for kind, (launch, plain) in (("fwd", fwd), ("bwd", bwd)):
             cases.append(dict(
                 name=f"_{op}_{kind}_k {_dt(dt)} {size}", op=op, kind=kind,
                 prepare=lambda c, launch=launch: (lambda: launch(c)),
-                plain=plain, tol=chain))
+                plain=plain, tol=chain, library=library[kind]))
     for dt in (torch.float32, torch.bfloat16):
-        y = torch.softmax(rn(8192, 2048, dtype=torch.float32), -1).to(dt)
+        z = rn(8192, 2048, dtype=torch.float32)
+        y = torch.softmax(z, -1).to(dt)
         dy = rn(8192, 2048, dtype=dt)
         cases.append(dict(
             name=f"_softmax_bwd_k {_dt(dt)} 8192x2048", op="softmax",
             kind="bwd", prepare=lambda c, y=y, dy=dy: (lambda: F._rows(
                 F._softmax_bwd_k, y, [y, dy], client=c)),
             plain=lambda y=y, dy=dy: _plain_softmax_bwd(y, dy),
-            tol=CHAIN_TOL if dt == torch.bfloat16 else None))
+            tol=CHAIN_TOL if dt == torch.bfloat16 else None,
+            library=grad_call(lambda z: torch.softmax(z, -1), (z.to(dt),),
+                              dy)))
     return cases
 
 
@@ -585,13 +641,24 @@ def flash_backward(fa, dev, gen, card):
                                                 causal))
         plain_ms = cuda_ms(lambda: fa.flash_attention_backward_plain(
             q, k, v, o, lse, do, causal), iters=5, warmup=1)
+        lib_ms = cuda_ms(grad_call(
+            lambda q, k, v: TF.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), (q, k, v), do))
         print(f"phase d {what}: max abs err o {err_o}, lse {err_lse}, dq "
               f"{err[0]}, dk {err[1]}, dv {err[2]} (atol/rtol {TOL[dt]}; "
               f"lse {TOL[torch.float32]}); kernels: forward with lse "
               f"{fwd_ms:.4f} ms, dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms; "
-              f"plain backward {plain_ms:.4f} ms [{card}]", flush=True)
-        rows[name] = dict(dq_err=err[0], dkv_err=max(err[1:]), fwd_ms=fwd_ms,
-                          dkv_ms=dkv_ms, dq_ms=dq_ms, plain_ms=plain_ms)
+              f"plain backward {plain_ms:.4f} ms, SDPA's backward "
+              f"{lib_ms:.4f} ms [{card}]", flush=True)
+        lse_bytes = 8 * B * H * S           # lse and di, f32
+        elem = torch.finfo(dt).bits // 8
+        rows[name] = dict(
+            dq_err=err[0], dkv_err=max(err[1:]), fwd_ms=fwd_ms,
+            dkv_ms=dkv_ms, dq_ms=dq_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            dkv_bound=flash_bound(B, H, Hkv, S, S, D, dt, causal, 4,
+                                  elem * D * 2 * B * Hkv * S + lse_bytes),
+            dq_bound=flash_bound(B, H, Hkv, S, S, D, dt, causal, 3,
+                                 elem * D * B * H * S + lse_bytes))
     return rows
 
 
@@ -641,6 +708,8 @@ def profile_step(step, model, tokens):
         key = ("flash dK/dV" if "flash_bwd_dkv" in n else
                "flash dQ" if "flash_bwd_dq" in n else
                "flash forward" if "flash_fwd" in n else
+               "paged chunked (P3)" if "paged_chunked" in n else
+               "paged decode (P1)" if "paged_decode" in n else
                "K0 @cube" if re.search(r"_(rmsnorm|layernorm|gelu)_", n) else
                "GEMM" if re.search(r"gemm|nvjet|xmma|cutlass|sm90", n, re.I)
                else "other")
@@ -809,6 +878,744 @@ def train_transformer(fa, cu, dev, card):
     return launches
 
 
+def bound_ms(flops, nbytes, dtype):
+    """The least time the card could take for ``flops`` operations of
+    ``dtype`` and ``nbytes`` moved (each input byte read once, each output
+    byte written once): (ms, the term that bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def flash_bound(B, H, Hkv, Sq, Sk, D, dtype, causal, products=2,
+                extra_bytes=0):
+    """Bound of an attention call over (B, H, Sq, D) queries and (B, Hkv,
+    Sk, D) keys and values, of ``products`` matrix products per live
+    (query, key) pair and head: the forward's two, or the dK/dV kernel's
+    four and the dQ kernel's three. Bytes: q, k, v and o (or the grads in
+    their place), plus ``extra_bytes``."""
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = elem * D * (2 * B * H * Sq + 2 * B * Hkv * Sk) + extra_bytes
+    return bound_ms(2 * products * D * B * H * pairs, nbytes, dtype)
+
+
+def paged_bound(q_dtype, kv_elem, D, H, Hkv, n_live, kv_live, quant,
+                rows):
+    """Bound of paged attention. ``n_live``: per query row (of every batch
+    row), the positions it attends; ``kv_live``: per batch row, the
+    positions its kv heads read. Two products per (query row, position,
+    head); bytes: q and o (``rows`` query tokens of H heads), the live K
+    and V of each kv head, their int8 scales."""
+    flops = 4 * D * H * sum(n_live)
+    elem = torch.finfo(q_dtype).bits // 8
+    kv = sum(kv_live) * Hkv * (2 * D * kv_elem + (8 if quant else 0))
+    return bound_ms(flops, 2 * rows * H * D * elem + kv, q_dtype)
+
+
+def chunked_live(starts, lengths, C):
+    """(positions attended per query token, positions read per row) of
+    paged_attention_chunked."""
+    n = [max(0, min(ln, st + i + 1)) for st, ln in zip(starts, lengths)
+         for i in range(C)]
+    return n, [max(0, min(ln, st + C)) for st, ln in zip(starts, lengths)]
+
+
+def int8_pools(shape, dev, gen):
+    """int8 K and V pools with their scales, quantized from N(0, 1) pools
+    one layer at a time."""
+    from cubecl_tpu_torch.ops.paged_attention import quantize_kv
+
+    kq = torch.empty(shape, dtype=torch.int8, device=dev)
+    vq = torch.empty_like(kq)
+    ks = torch.empty(shape[:4], device=dev)
+    vs = torch.empty_like(ks)
+    for layer in range(shape[0]):
+        for vals, scales in ((kq, ks), (vq, vs)):
+            vals[layer], scales[layer] = quantize_kv(torch.randn(
+                shape[1:], generator=gen, device=dev))
+    return kq, vq, ks, vs
+
+
+# phase i: (name, B, L, Hkv, G, C, D, max_pages, starts, lengths or None
+# for starts + C, dtype, int8 pools); page 128
+CHUNKED_CASES = [
+    ("verify", 8, 16, 8, 2, 5, 128, 9, [1051] * 8, None, torch.bfloat16,
+     False),
+    ("prefill start 0", 8, 16, 8, 2, 256, 128, 9, [0] * 8, None,
+     torch.bfloat16, False),
+    ("prefill start 768", 8, 16, 8, 2, 256, 128, 9, [768] * 8, None,
+     torch.bfloat16, False),
+    ("d768", 16, 8, 4, 3, 5, 64, 4, [395] * 16, None, torch.float32, False),
+    ("ragged", 8, 4, 8, 2, 16, 128, 8, [0, 1, 127, 128, 500, 1000, 640, 3],
+     [0, 17, 143, 144, 510, 1016, 656, 10], torch.bfloat16, False),
+    ("verify int8", 8, 16, 8, 2, 5, 128, 9, [1051] * 8, None,
+     torch.bfloat16, True),
+    ("prefill int8 start 768", 8, 16, 8, 2, 256, 128, 9, [768] * 8, None,
+     torch.bfloat16, True),
+]
+NO_LIBRARY_PAGED = ("no single PyTorch call attends through a block "
+                    "table: SDPA needs the pages gathered first")
+
+
+def chunked_vs_plain(pa, dev, gen, card):
+    """Phase i: P3 against its plain version at the shapes of the slice's
+    path (the speculative verify step, chunked prefill, the d768 config,
+    a ragged batch with a length-0 row, int8 pools); CUDA-event times,
+    each launch on the next layer of the pool, as the layers of a step
+    walk it."""
+    page, rows = 128, {}
+    for (name, B, L, Hkv, G, C, D, max_pages, starts, lengths, dt,
+         quant) in CHUNKED_CASES:
+        lengths = lengths or [s + C for s in starts]
+        P = B * max_pages + 5
+        shape = (L, Hkv, P, page, D)
+        q = torch.randn(B, Hkv * G, C, D, generator=gen, device=dev).to(dt)
+        if quant:
+            kp, vp, ks, vs = int8_pools(shape, dev, gen)
+        else:
+            kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                      for _ in range(2))
+            ks = vs = None
+        table = torch.randperm(P, generator=gen, device=dev)[:B * max_pages]
+        table = table.view(B, max_pages).to(torch.int32)
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        sc = dict(k_scales=ks, v_scales=vs)
+        got = pa.paged_attention_chunked(q, kp, vp, table, ln, st,
+                                         layer=L - 1, **sc)
+        torch.cuda.synchronize()
+        what = (f"P3 {name} {_dt(dt)} q{'/int8 KV' if quant else ''} B{B} "
+                f"Hkv{Hkv} G{G} C{C} D{D} page{page} layer{L - 1}/{L}")
+        err = compare(got, pa.paged_attention_chunked_plain(
+            q, kp, vp, table, ln, st, layer=L - 1, **sc), what)
+        if 0 in lengths and got[lengths.index(0)].any():
+            fail(f"{what}: a length-0 row is not zero")
+        layers = iter(range(10**9))
+        ms = cuda_ms(lambda: pa.paged_attention_chunked(
+            q, kp, vp, table, ln, st, layer=next(layers) % L, **sc),
+            iters=32)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_chunked_plain(
+            q, kp, vp, table, ln, st, layer=next(layers) % L, **sc),
+            iters=8, warmup=1)
+        n_live, kv_live = chunked_live(starts, lengths, C)
+        bms, by = paged_bound(dt, 1 if quant else kp.element_size(), D,
+                              Hkv * G, Hkv, n_live, kv_live, quant, B * C)
+        print(f"phase i {what}: max abs err {err} (atol/rtol {TOL[dt]}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it) [{card}]",
+              flush=True)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by)
+        del q, kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paged_int8(pa, dev, gen, card):
+    """Phase j: P1 on int8 pools against its plain version (a ragged batch
+    and the serving shape), then the KV-bound decode of ROADMAP Queue 1
+    item 8: the 0.77B llama's widths (16 layers, 8 kv heads, hd 128, 2
+    query heads per kv head), B 16 at context 2048, bf16 pools against
+    int8 pools; kernel µs and GB/s of KV read."""
+    page, rows = 128, {}
+    for name, B, L, Hkv, G, D, max_pages, lengths, quant in [
+            ("ragged int8", 8, 4, 8, 2, 128, 8,
+             [0, 1, 127, 128, 129, 1000, 640, 1024], True),
+            ("serving int8", 8, 16, 8, 2, 128, 9, [1056] * 8, True),
+            ("KV-bound bf16", 16, 16, 8, 2, 128, 16, [2048] * 16, False),
+            ("KV-bound int8", 16, 16, 8, 2, 128, 16, [2048] * 16, True)]:
+        P = B * max_pages + 5
+        shape = (L, Hkv, P, page, D)
+        q = torch.randn(B, Hkv * G, D, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        if quant:
+            kp, vp, ks, vs = int8_pools(shape, dev, gen)
+        else:
+            kp, vp = (torch.randn(shape, generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+            ks = vs = None
+        table = torch.randperm(P, generator=gen, device=dev)[:B * max_pages]
+        table = table.view(B, max_pages).to(torch.int32)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        sc = dict(k_scales=ks, v_scales=vs)
+        got = pa.paged_attention(q, kp, vp, table, ln, layer=L - 1, **sc)
+        torch.cuda.synchronize()
+        what = (f"P1 {name} pools, bf16 q B{B} Hkv{Hkv} G{G} D{D} "
+                f"page{page} layer{L - 1}/{L}")
+        err = compare(got, pa.paged_attention_plain(
+            q, kp, vp, table, ln, layer=L - 1, **sc), what)
+        if 0 in lengths and got[lengths.index(0)].any():
+            fail(f"{what}: a length-0 row is not zero")
+        layers = iter(range(10**9))
+        ms = cuda_ms(lambda: pa.paged_attention(
+            q, kp, vp, table, ln, layer=next(layers) % L, **sc), iters=32)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_plain(
+            q, kp, vp, table, ln, layer=next(layers) % L, **sc), iters=8,
+            warmup=1)
+        bms, by = paged_bound(torch.bfloat16, kp.element_size(), D, Hkv * G,
+                              Hkv, [max(x, 0) for x in lengths], lengths,
+                              quant, B)
+        kv_gb = sum(lengths) * Hkv * (2 * D * kp.element_size()
+                                      + (8 if quant else 0)) / 1e9
+        print(f"phase j {what}: max abs err {err} (atol/rtol "
+              f"{TOL[torch.bfloat16]}); kernel {1e3 * ms:.1f} µs "
+              f"({kv_gb / ms * 1e3:.0f} GB/s of KV), plain {plain_ms:.4f} "
+              f"ms, bound {1e3 * bms:.1f} µs ({by}; {100 * bms / ms:.1f}% "
+              f"of it) [{card}]", flush=True)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by,
+                          kv_gb_per_s=kv_gb / ms * 1e3)
+        del q, kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def greedy_ref(llama, model, prompt, steps, max_pages, page, kernels=True):
+    """``generate``'s greedy run, written out to keep the logits: tokens
+    (B, steps) and the f32 logits (B, steps, vocab) each was taken from."""
+    cache = llama.init_kv_cache(model.cfg, prompt.shape[0], max_pages, page,
+                                prompt.device)
+    logits, cache = llama.prefill(model, cache, prompt, kernels=kernels)
+    toks, lgs = [], []
+    for _ in range(steps):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        lgs.append(logits.float())
+        logits, cache = llama.decode_step(model, cache, tok, kernels=kernels)
+    return torch.stack(toks, 1), torch.stack(lgs, 1)
+
+
+def teacher_forced_verify(llama, model, cache, want, want_logits, C, what,
+                          tol):
+    """The verify step on the greedy stream: ``want``'s tokens go through
+    ``decode_chunk`` C at a time on ``cache`` (the prompt's prefill), and
+    the logits after each token are held against ``want_logits`` at the
+    next step (computed by ``decode_step``), whatever the top-2 gaps.
+    Returns the max abs error."""
+    steps, err = want.shape[1], 0.0
+    for s0 in range(0, steps, C):
+        logits, cache = llama.decode_chunk(model, cache, want[:, s0:s0 + C])
+        n = min(C, steps - 1 - s0)
+        if n > 0:
+            err = max(err, compare(logits[:, :n],
+                                   want_logits[:, s0 + 1:s0 + 1 + n],
+                                   f"{what} at steps {s0 + 1}..{s0 + n}",
+                                   tol))
+    return err
+
+
+def tie_prefix(got, want, want_logits, gap_tol, what):
+    """Tokens ``got`` must equal ``want`` in each row up to the row's first
+    step whose top-2 logit gap (in ``want_logits``) is below ``gap_tol``,
+    where another rounding may flip the greedy choice. Returns per row the
+    length of that prefix and the steps where the tokens agree from the
+    start."""
+    top2 = want_logits.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < gap_tol
+    prefix, agree = [], []
+    for b in range(want.shape[0]):
+        ties = near[b].nonzero()
+        n = int(ties[0]) if len(ties) else want.shape[1]
+        diff = (got[b] != want[b]).nonzero()
+        first = int(diff[0]) if len(diff) else want.shape[1]
+        if first < n:
+            fail(f"{what}: row {b} differs at step {first}, before its "
+                 f"first near tie at step {n} (gap tolerance {gap_tol})")
+        prefix.append(n)
+        agree.append(first)
+    return prefix, agree
+
+
+def recording(llama, name, log):
+    """Wrap ``llama.<name>`` so that each call appends (args, result) to
+    ``log``; returns the function that undoes it."""
+    orig = getattr(llama, name)
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        log.append((args, out))
+        return out
+
+    setattr(llama, name, wrapped)
+    return lambda: setattr(llama, name, orig)
+
+
+def speculative_checked(llama, pa, fa, model, draft, prompt, steps, gamma,
+                        max_pages, page, want, want_logits, gap_tol,
+                        self_draft, what, kernels=True):
+    """``speculative_generate`` timed, its tokens held against ``want``
+    (the greedy stream, up to each row's first near tie), its kernel
+    launches against what the rounds it ran must launch, and, for a
+    self-draft, every rejection against the verify logits: the target's
+    logit of the rejected proposal within ``gap_tol`` of its top logit.
+    Returns (tokens, acceptance, seconds, rounds, stats)."""
+    verify, drafts = [], []
+    undo = [recording(llama, "decode_chunk", verify),
+            recording(llama, "decode_step", drafts)]
+    fa.flash_attention.launches = pa.paged_attention.launches = 0
+    pa.paged_attention_chunked.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, acc = llama.speculative_generate(
+            model, prompt, steps, draft, gamma, max_pages, page,
+            kernels=kernels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for u in undo:
+            u()
+    L, Ld = model.cfg.n_layers, draft.cfg.n_layers
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "paged_attention": pa.paged_attention.launches,
+                "paged_attention_chunked":
+                    pa.paged_attention_chunked.launches}
+    want_n = ({"flash_attention": L + Ld,
+               "paged_attention": Ld * len(drafts),
+               "paged_attention_chunked": L * len(verify)} if kernels
+              else dict.fromkeys(launches, 0))
+    if launches != want_n:
+        fail(f"{what}: kernel launches {launches}, want {want_n}")
+    if toks.shape != want.shape:
+        fail(f"{what}: tokens {tuple(toks.shape)}, want {tuple(want.shape)}")
+    prefix, _ = tie_prefix(toks, want, want_logits, gap_tol, what)
+    rejections, gaps = 0, []
+    for (args, (logits, _)) in verify:
+        chunk = args[2]
+        props, tstar = chunk[:, 1:], logits.argmax(-1)[:, :gamma]
+        for b in range(chunk.shape[0]):
+            miss = (props[b] != tstar[b]).nonzero()
+            if len(miss):
+                i = int(miss[0])
+                lg = logits[b, i].float()
+                gaps.append((lg.max() - lg[props[b, i].long()]).item())
+                rejections += 1
+    if self_draft and any(g >= gap_tol for g in gaps):
+        fail(f"{what}: the self-draft had proposals rejected at logit gaps "
+             f"{sorted(gaps)[-3:]} >= {gap_tol}")
+    return toks, acc, secs, len(verify), dict(
+        launches=launches, prefix_min=min(prefix),
+        prefix_mean=sum(prefix) / len(prefix), rejections=rejections,
+        max_rejection_gap=max(gaps, default=0.0))
+
+
+def continuous_batching(llama, model, requests, slots, num_pages, page,
+                        table_w, dev, chunk=256, kernels=True):
+    """Serve ``requests`` (prompt token lists with the number of tokens to
+    generate) through ``slots`` batch rows over ``num_pages`` pages, as a
+    vLLM-style server does on the port: a request waits for a free slot and
+    for pages (a stall); on admission ``PageAllocator.admit_cached``
+    attaches the cached full pages of its prompt and ``prefill_chunked``
+    runs only the rest, after which the prompt's full pages are
+    registered; the decode steps batch every slot (empty ones parked on a
+    page of their own); a row that needs a page the pool does not have is
+    preempted (its pages released, the request requeued first, its prompt
+    and tokens so far recomputed on return). Returns (generated tokens per
+    request, stats)."""
+    from cubecl_tpu_torch.runtime.pages import PageAllocator
+
+    alloc = PageAllocator(num_pages, page)
+    assert alloc.admit(-1, 1)                   # the parking page
+    park = alloc.block_table([-1], table_w)[0]
+    cache = llama.init_kv_cache(model.cfg, slots, table_w, page, dev,
+                                num_pages=num_pages)
+    out = [[] for _ in requests]
+    todo, slot = list(range(len(requests))), [None] * slots
+    st = dict(steps=0, stalls=0, preemptions=0, prefill_chunks=0,
+              prefill_tokens=0, cached_tokens=0)
+    finished = 0
+
+    def finish(s):
+        nonlocal finished
+        alloc.release(slot[s])
+        slot[s] = None
+        finished += 1
+
+    while finished < len(requests):
+        for s in range(slots):
+            if slot[s] is not None or not todo:
+                continue
+            rid = todo[0]
+            prompt, _ = requests[rid]
+            toks = prompt + out[rid]
+            cached = alloc.admit_cached(rid, toks)
+            if cached < 0:
+                st["stalls"] += 1
+                break
+            todo.pop(0)
+            if cached >= len(toks):
+                fail(f"continuous batching: request {rid} is cached whole")
+            one = llama.KVCache(
+                cache.k, cache.v,
+                torch.from_numpy(alloc.block_table([rid], table_w)).to(dev),
+                torch.tensor([cached], dtype=torch.int32, device=dev), page,
+                cache.k_scales, cache.v_scales)
+            suffix = torch.tensor([toks[cached:]], dtype=torch.int32,
+                                  device=dev)
+            logits, _ = llama.prefill_chunked(model, one, suffix, chunk,
+                                              kernels=kernels)
+            alloc.register_prefix(rid, prompt)
+            st["prefill_chunks"] += -(-suffix.shape[1] // chunk)
+            st["prefill_tokens"] += suffix.shape[1]
+            st["cached_tokens"] += cached
+            out[rid].append(int(logits.argmax(-1)))
+            slot[s] = rid
+            if len(out[rid]) == requests[rid][1]:
+                finish(s)
+        for s in range(slots):      # the page of the token each row writes
+            if slot[s] is not None and not alloc.extend(slot[s], 1):
+                alloc.release(slot[s])
+                todo.insert(0, slot[s])
+                slot[s] = None
+                st["preemptions"] += 1
+        active = [s for s in range(slots) if slot[s] is not None]
+        if not active:
+            if todo and st["stalls"] > 10 * len(requests) + 100:
+                fail("continuous batching: the pool cannot hold a request")
+            continue
+        cache.page_indices = torch.from_numpy(np.stack([
+            park if r is None else alloc.block_table([r], table_w)[0]
+            for r in slot])).to(dev)
+        cache.lengths = torch.tensor(
+            [0 if r is None else alloc.lengths[r] - 1 for r in slot],
+            dtype=torch.int32, device=dev)
+        feed = torch.tensor([0 if r is None else out[r][-1] for r in slot],
+                            dtype=torch.int32, device=dev)
+        logits, cache = llama.decode_step(model, cache, feed, kernels=kernels)
+        st["steps"] += 1
+        nxt = logits.argmax(-1).tolist()
+        for s in active:
+            out[slot[s]].append(nxt[s])
+            if len(out[slot[s]]) == requests[slot[s]][1]:
+                finish(s)
+    alloc.release(-1)
+    st["free_pages_end"] = alloc.num_free_pages()
+    if st["free_pages_end"] != num_pages:
+        fail(f"continuous batching: {st['free_pages_end']} of {num_pages} "
+             "pages free at the end")
+    return out, st
+
+
+def cb_requests(rng, vocab, n, prefix_len, suffix_max, new_min, new_max):
+    """``n`` requests sharing one ``prefix_len``-token prefix, with ragged
+    suffixes (1 to ``suffix_max`` tokens) and generation lengths."""
+    prefix = rng.integers(0, vocab, prefix_len).tolist()
+    return [(prefix + rng.integers(0, vocab, int(rng.integers(
+        1, suffix_max + 1))).tolist(), int(rng.integers(new_min, new_max + 1)))
+            for _ in range(n)]
+
+
+def serve_slice(llama, pa, fa, dev, card):
+    """Phase k: the slice's path on the 0.77B bf16 llama (phase 5's widths
+    and weights): chunked prefill, speculative decoding with two drafts,
+    decode_chunk against decode steps, int8 KV serving and continuous
+    batching with prefix caching, each with its kernel launches checked."""
+    cfg = llama.LlamaConfig(vocab=8192, d_model=2048, n_heads=16,
+                            n_kv_heads=8, n_layers=16, d_ff=5632, seq=1024,
+                            dtype="bfloat16", use_framework_kernels=False)
+    L = cfg.n_layers
+    model = llama.init_params(cfg, seed=0, device=dev)
+    B, S, steps, page, gamma = 8, 1024, 64, 128, 4
+    max_pages = 12            # 1536 positions: the speculative rounds' slack
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    out = {}
+
+    def reset():
+        fa.flash_attention.launches = pa.paged_attention.launches = 0
+        pa.paged_attention.int8_launches = 0
+        pa.paged_attention_chunked.launches = 0
+
+    def counts():
+        return {"flash_attention": fa.flash_attention.launches,
+                "paged_attention": pa.paged_attention.launches,
+                "paged_attention_int8": pa.paged_attention.int8_launches,
+                "paged_attention_chunked":
+                    pa.paged_attention_chunked.launches}
+
+    def check(what, want):
+        got = counts()
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            fail(f"{what}: kernel launches {got}, want {want}")
+        return got
+
+    # -- chunked prefill against the one-shot prefill
+    c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    llama.prefill_chunked(model, c1, prompt, 256)           # warm
+    c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_chunk, c1 = llama.prefill_chunked(model, c1, prompt, 256)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    n_chunked = check("phase k chunked prefill",
+                      {"paged_attention_chunked": L * S // 256})
+    c2 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_one, c2 = llama.prefill(model, c2, prompt)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    err_l = compare(l_chunk, l_one, "phase k chunked prefill logits",
+                    BF16_PATH_TOL)
+    err_c = max(compare(getattr(c1, n), getattr(c2, n),
+                        f"phase k chunked prefill cache {n}", BF16_PATH_TOL)
+                for n in ("k", "v"))
+    print(f"phase k chunked prefill llama 0.77B bf16: {B} x {S} prompt in "
+          f"chunks of 256, {chunk_s:.4f} s ({B * S / chunk_s:.0f} prompt "
+          f"tok/s) against the one-shot prefill's {one_s:.4f} s; last "
+          f"logits max abs err {err_l}, caches {err_c} (atol/rtol "
+          f"{BF16_PATH_TOL}); launches {n_chunked} [{card}]", flush=True)
+    out["chunked_prefill"] = dict(s=chunk_s, one_shot_s=one_s,
+                                  logit_err=err_l, cache_err=err_c,
+                                  launches=n_chunked)
+    del c1, c2
+
+    # -- decode_chunk against C decode steps, after the prompt
+    c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    _, c1 = llama.prefill(model, c1, prompt)
+    c2 = dataclasses.replace(c1, k=c1.k.clone(), v=c1.v.clone())
+    nxt = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (B, gamma + 1), dtype=np.int32)).to(dev)
+    reset()
+    l_chunk, c1 = llama.decode_chunk(model, c1, nxt)
+    check("phase k decode_chunk", {"paged_attention_chunked": L})
+    l_steps = []
+    for i in range(gamma + 1):
+        lg, c2 = llama.decode_step(model, c2, nxt[:, i])
+        l_steps.append(lg)
+    err = compare(l_chunk, torch.stack(l_steps, 1),
+                  "phase k decode_chunk vs decode steps", BF16_PATH_TOL)
+    print(f"phase k decode_chunk of {gamma + 1} tokens after the {S}-token "
+          f"prompt vs {gamma + 1} decode steps: logits max abs err {err} "
+          f"(atol/rtol {BF16_PATH_TOL}) [{card}]", flush=True)
+    out["decode_chunk_err"] = err
+    for name, fn in (
+            ("verify step (decode_chunk of 5)",
+             lambda m, t: llama.decode_chunk(m, c1, t)[0].float().sum()),
+            ("decode step", lambda m, t: llama.decode_step(
+                m, c2, t[:, 0])[0].float().sum())):
+        prof = profile_step(fn, model, nxt)
+        if prof is None:
+            print(f"phase k profile of one {name}: the trace holds no device "
+                  "time; not measured", flush=True)
+            continue
+        wall, busy, groups, _ = prof
+        print(f"phase k profile of one {name}, B {B} at context {S + 5}: "
+              f"wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+              f"{100 - 100 * busy / wall:.1f}%); device ms by group "
+              f"{ {k: round(v, 3) for k, v in sorted(groups.items())} } "
+              f"[{card}]", flush=True)
+    del c1, c2
+
+    # -- the greedy reference; the verify step fed its tokens
+    want, want_logits = greedy_ref(llama, model, prompt, steps, max_pages,
+                                   page)
+    c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    _, c1 = llama.prefill(model, c1, prompt)
+    reset()
+    err_tf = teacher_forced_verify(llama, model, c1, want, want_logits,
+                                   gamma + 1, "phase k teacher-forced verify",
+                                   BF16_PATH_TOL)
+    del c1
+    check("phase k teacher-forced verify",
+          {"paged_attention_chunked": L * -(-steps // (gamma + 1))})
+    print(f"phase k teacher-forced verify: generate's {steps} tokens fed "
+          f"through decode_chunk in chunks of {gamma + 1} after the "
+          f"{S}-token prompt; every position's logits against the decode "
+          f"steps': max abs err {err_tf} (atol/rtol {BF16_PATH_TOL}) "
+          f"[{card}]", flush=True)
+    out["teacher_forced_err"] = err_tf
+
+    # -- speculative decoding with two drafts
+    draft_cfg = llama.LlamaConfig(vocab=8192, d_model=768, n_heads=12,
+                                  n_kv_heads=4, n_layers=8, d_ff=2048,
+                                  dtype="bfloat16",
+                                  use_framework_kernels=False)
+    spec = {}
+    for name, draft in (("self-draft", model),
+                        ("d768 draft", llama.init_params(draft_cfg, seed=3,
+                                                         device=dev))):
+        what = f"phase k speculative {name}"
+        toks, acc, secs, rounds, st = speculative_checked(
+            llama, pa, fa, model, draft, prompt, steps, gamma, max_pages,
+            page, want, want_logits, BF16_GAP, name == "self-draft", what)
+        print(f"{what}: {B} x {steps} tokens, gamma {gamma}: {rounds} "
+              f"rounds in {secs:.3f} s ({B * steps / secs:.1f} tok/s), mean "
+              f"acceptance {acc:.3f} of {gamma}; {st['rejections']} "
+              f"rejections (largest logit gap {st['max_rejection_gap']:.4f}, "
+              f"tolerance {BF16_GAP}); tokens equal generate's up to the "
+              f"first near tie (prefix {st['prefix_min']}..{steps} steps, "
+              f"mean {st['prefix_mean']:.1f}); launches {st['launches']} "
+              f"[{card}]", flush=True)
+        spec[name] = dict(tok_s=B * steps / secs, acceptance=acc,
+                          rounds=rounds, **st)
+    out["speculative"] = spec
+
+    # -- int8 KV: the same weights fed generate's tokens
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    m8 = llama.Llama(cfg8, device=dev)
+    m8.load_state_dict(model.state_dict())
+    c8 = llama.init_kv_cache(cfg8, B, max_pages, page, dev)
+    reset()
+    logits, c8 = llama.prefill(m8, c8, prompt)
+    diffs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        diffs.append((logits.float() - want_logits[:, i]).abs().max())
+        logits, c8 = llama.decode_step(m8, c8, want[:, i])
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t0
+    n8 = check("phase k int8 serve", {
+        "flash_attention": L, "paged_attention": L * steps,
+        "paged_attention_int8": L * steps})
+    q = torch.randn(B, cfg.n_heads, cfg.head_dim, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev).to(torch.bfloat16)
+    sc = dict(k_scales=c8.k_scales, v_scales=c8.v_scales)
+    err8 = max(compare(
+        pa.paged_attention(q, c8.k, c8.v, c8.page_indices, c8.lengths,
+                           layer=li, **sc),
+        pa.paged_attention_plain(q, c8.k, c8.v, c8.page_indices, c8.lengths,
+                                 layer=li, **sc),
+        f"phase k int8 cache layer {li}") for li in range(L))
+    dmax = max(d.item() for d in diffs)
+    print(f"phase k int8 KV serve llama 0.77B: {B} x {S} prompt + {steps} "
+          f"steps fed generate's tokens, {1e3 * int8_s / steps:.3f} ms/step "
+          f"({B * steps / int8_s:.1f} tok/s); launches {n8}; P1 kernel vs "
+          f"plain on the final int8 cache, every layer: max abs err {err8}; "
+          f"logits against the bf16 cache's: max abs diff {dmax:.4f} (step "
+          f"1 {diffs[0].item():.4f}, step {steps} {diffs[-1].item():.4f}) "
+          f"[{card}]", flush=True)
+    out["int8"] = dict(ms_step=1e3 * int8_s / steps, kernel_err=err8,
+                       logit_diff=dmax, launches=n8)
+    del m8, c8
+
+    # -- continuous batching with prefix caching
+    rng = np.random.default_rng(10)
+    reqs = cb_requests(rng, cfg.vocab, 16, 512, 200, 16, 64)
+    slots, num_pages, table_w = 8, 14, 7
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, st = continuous_batching(llama, model, reqs, slots, num_pages,
+                                   page, table_w, dev)
+    torch.cuda.synchronize()
+    cb_s = time.perf_counter() - t0
+    ncb = check("phase k continuous batching", {
+        "paged_attention": L * st["steps"],
+        "paged_attention_chunked": L * st["prefill_chunks"]})
+    n_tok = sum(len(t) for t in toks)
+    if [len(t) for t in toks] != [n for _, n in reqs]:
+        fail("continuous batching: a request got the wrong token count")
+    if not st["stalls"] or not st["preemptions"]:
+        fail(f"continuous batching: the pool did not force stalls and a "
+             f"preemption ({st})")
+    print(f"phase k continuous batching llama 0.77B bf16: 16 requests "
+          f"sharing a 512-token prefix (suffixes 1-200, 16-64 new tokens) "
+          f"through {slots} slots over {num_pages} pages of {page}: {n_tok} "
+          f"tokens in {cb_s:.3f} s ({n_tok / cb_s:.1f} tok/s); {st} "
+          f"(pages free at the end {st['free_pages_end']}/{num_pages}); "
+          f"launches {ncb} [{card}]", flush=True)
+    out["cb"] = dict(tok_s=n_tok / cb_s, launches=ncb, **st)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice_exactness(llama, pa, fa, dev, card):
+    """Phase l: the slice's path on the d768 f32 llama, kernels against
+    the plain versions: speculative decoding (self and weak draft) against
+    plain greedy tokens, chunked prefill against the plain one-shot
+    prefill, beam search against its plain route, and each request of a
+    continuous batch against its solo plain run. A token may differ only
+    where the plain run's top-2 logit gap is below LOGIT_TOL."""
+    cfg = llama.LlamaConfig(vocab=8192, d_model=768, n_heads=12,
+                            n_kv_heads=4, n_layers=8, d_ff=2048, seq=512,
+                            use_framework_kernels=False)
+    model = llama.init_params(cfg, seed=1, device=dev)
+    B, S, steps, page, gamma, max_pages = 8, 256, 32, 128, 4, 4
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    want, want_logits = greedy_ref(llama, model, prompt, steps, max_pages,
+                                   page, kernels=False)
+    lines = []
+    weak = llama.init_params(dataclasses.replace(cfg, n_layers=2), seed=4,
+                             device=dev)
+    for name, draft in (("self-draft", model), ("2-layer draft", weak)):
+        _, acc, _, rounds, st = speculative_checked(
+            llama, pa, fa, model, draft, prompt, steps, gamma, max_pages,
+            page, want, want_logits, LOGIT_TOL, name == "self-draft",
+            f"phase l speculative {name}")
+        lines.append(f"speculative {name}: acceptance {acc:.3f} over "
+                     f"{rounds} rounds, {st['rejections']} rejections, tokens "
+                     f"equal plain greedy's up to the first near tie "
+                     f"(prefix {st['prefix_min']}..{steps})")
+
+    c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    l1, c1 = llama.prefill_chunked(model, c1, prompt, 96)
+    c2 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    l2, c2 = llama.prefill(model, c2, prompt, kernels=False)
+    err = (l1 - l2).abs().max().item()
+    if err > LOGIT_TOL:
+        fail(f"phase l prefill_chunked logits differ by {err} > {LOGIT_TOL}")
+    errc = max(compare(getattr(c1, n), getattr(c2, n),
+                       f"phase l prefill_chunked cache {n}")
+               for n in ("k", "v"))
+    lines.append(f"prefill_chunked (chunks of 96) vs plain one-shot "
+                 f"prefill: logits max abs err {err} (tol {LOGIT_TOL}), "
+                 f"caches {errc}")
+    del c1, c2
+
+    # a prompt of page - 1 tokens: the beams' first tokens share the last
+    # slot of the prompt's page when they fork
+    for bs in (100, page - 1):
+        bprompt = prompt[0, :bs]
+        tk, sk = llama.beam_generate(model, bprompt, 16, beams=4)
+        tp, sp = llama.beam_generate(model, bprompt, 16, beams=4,
+                                     kernels=False)
+        serr = (sk - sp).abs().max().item()
+        if not torch.equal(tk, tp) or serr > LOGIT_TOL:
+            fail(f"phase l beam_generate {bs} + 16: kernels vs plain route "
+                 f"tokens equal {torch.equal(tk, tp)}, scores differ by "
+                 f"{serr}")
+        # every beam's score is its tokens' log-prob, recomputed whole
+        with torch.no_grad():
+            lps = torch.log_softmax(llama.forward(model, tk[:, :-1].long())[
+                :, bs - 1:].float(), -1)
+        rs = lps.gather(-1, tk[:, bs:, None].long())[..., 0].sum(-1)
+        rerr = (sk.to(dev) - rs).abs().max().item()
+        if rerr > 16 * LOGIT_TOL:
+            fail(f"phase l beam_generate {bs} + 16: scores differ from the "
+                 f"recomputed log-probs by {rerr} > {16 * LOGIT_TOL}")
+        lines.append(f"beam_generate (4 beams, {bs} + 16 tokens): tokens "
+                     f"equal to the plain route's, scores max abs err "
+                     f"{serr}, {rerr} from the beams' recomputed log-probs")
+
+    rng = np.random.default_rng(12)
+    reqs = cb_requests(rng, cfg.vocab, 12, 256, 90, 6, 20)
+    toks, st = continuous_batching(llama, model, reqs, 4, 10, 64, 6, dev,
+                                   chunk=64)
+    pre = []
+    for r, (p, n) in enumerate(reqs):
+        w, wl = greedy_ref(llama, model, torch.tensor([p], dtype=torch.int32,
+                                                      device=dev), n, 6, 64,
+                           kernels=False)
+        pre += tie_prefix(torch.tensor([toks[r]], device=dev), w, wl,
+                          LOGIT_TOL, f"phase l continuous batching request "
+                          f"{r}")[0]
+    lines.append(f"continuous batching (12 requests, 256-token shared "
+                 f"prefix, 4 slots, 10 pages of 64): {st}; every request's "
+                 f"tokens equal its solo plain run up to the first near tie "
+                 f"({sum(p == n for p, (_, n) in zip(pre, reqs))}/12 whole)")
+    del model, weak
+    torch.cuda.empty_cache()
+    return "exactness llama d768 f32, kernels vs plain: " + "; ".join(lines)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -889,9 +1696,14 @@ def main():
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True),
                            iters=10)
-        flash_rows.append((err, ms, plain_ms))
+        lib_ms = cuda_ms(lambda: TF.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        bms, by = flash_bound(B, H, Hkv, S, S, D, dt, True)
+        flash_rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bms, bound_by=by))
         print(f"phase 3 {what}: max abs err {err} (atol/rtol {TOL[dt]}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]",
               flush=True)
 
     # -- phase 4: paged vs plain --------------------------------------------
@@ -923,10 +1735,13 @@ def main():
             q, kp, vp, table, ln, layer=next(layers) % L), iters=32)
         plain_ms = cuda_ms(lambda: pa.paged_attention_plain(
             q, kp, vp, table, ln, layer=next(layers) % L), iters=16)
-        paged_rows.append((err, ms, plain_ms))
+        bms, by = paged_bound(dt, kp.element_size(), D, Hkv * G, Hkv,
+                              [max(x, 0) for x in lengths], lengths, False, B)
+        paged_rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bms, bound_by=by))
         print(f"phase 4 {what}: max abs err {err} (atol/rtol {TOL[dt]}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]",
-              flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{card}]", flush=True)
     del q, kp, vp
 
     # -- phase 5: serve at full width (bench.py:541-545) --------------------
@@ -1028,77 +1843,133 @@ def main():
         fail(f"phases f-h launched K0 kernels that phases a and e did not "
              f"hold against plain: {sorted(unchecked)}")
 
-    def row(name, source, replaces, rows):
-        err, ms, plain_ms = rows[0]
+    # -- phase i: the chunked paged-attention kernel (P3) against plain ------
+    i_rows = chunked_vs_plain(pa, dev, gen, card)
+
+    # -- phase j: paged decode on int8 pools against plain; KV-bound decode -
+    j_rows = paged_int8(pa, dev, gen, card)
+
+    # -- phase k: the slice's path at full width (llama 0.77B bf16) ---------
+    k_out = serve_slice(llama, pa, fa, dev, card)
+
+    # -- phase l: the slice's exactness in f32 (d768), kernels vs plain -----
+    print(f"phase l {slice_exactness(llama, pa, fa, dev, card)} [{card}]",
+          flush=True)
+
+    def row(name, source, replaces, n, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "replaces": replaces, "launches": n,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": library_ms, **extra}
+
+    def k0_row(name, r, n, elem, moved, flops, **extra):
+        bms, by = elementwise_bound(n, elem, moved, flops)
+        return row(name, "cubecl_tpu_torch/ops/functional.py (printed by "
+                   "cubecl_tpu_torch/backend/cuda/printer.py)",
+                   "cubecl_tpu/backend/pallas/emitter.py:48", extra.pop(
+                       "launches"), dict(r, bound_ms=bms, bound_by=by),
+                   r["library_ms"], **extra)
 
     train = bwd_rows["train"]
-
-    def k0_bwd_row(op, case, count):
-        r = e_rows[case]
-        return {"name": f"_{op}_bwd_k", "route": "cuda",
-                "source": "cubecl_tpu_torch/ops/functional.py (printed by "
-                          "cubecl_tpu_torch/backend/cuda/printer.py)",
-                "replaces": "cubecl_tpu/backend/pallas/emitter.py:48",
-                "launches": count, "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "shape": case.split(" ", 1)[1]}
-
+    sdpa_bwd = "the autograd backward of F.scaled_dot_product_attention " \
+               "(dq, dk and dv together)"
     rms = next(r for r in k0_rows if r["name"] == "rmsnorm fwd bf16 8192x2048")
     rms_dec = next(r for r in k0_rows
                    if r["name"] == "rmsnorm fwd bf16 8x2048 (llama serve)")
+    p3_launches = {
+        "chunked_prefill": k_out["chunked_prefill"]["launches"][
+            "paged_attention_chunked"],
+        **{f"speculative_{k}": v["launches"]["paged_attention_chunked"]
+           for k, v in k_out["speculative"].items()},
+        "continuous_batching": k_out["cb"]["launches"][
+            "paged_attention_chunked"]}
+    e = lambda case: e_rows[case]  # noqa: E731
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
-            "cubecl_tpu/ops/attention.py:76", flash_rows),
+            "cubecl_tpu/ops/attention.py:76", launches["flash_attention"],
+            flash_rows[0], flash_rows[0]["library_ms"],
+            library="F.scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True)",
+            shape="bf16 B8 H16/8 S1024 D128 causal"),
         row("paged_attention", "cubecl_tpu_torch/csrc/paged_attention.cu",
-            "cubecl_tpu/ops/paged_attention.py:247", paged_rows[1:]),
-        {"name": "k0_cube_kernels", "route": "cuda",
-         "source": "cubecl_tpu_torch/backend/cuda/printer.py",
-         "replaces": "cubecl_tpu/backend/pallas/emitter.py:48",
-         "launches": k0_serve["launches"],
-         "max_abs_err": rms["max_abs_err"], "ms": rms["ms"],
-         "plain_ms": rms["plain_ms"],
-         "main_path_kernel": "_rmsnorm_fwd_k (llama RMSNorm, prefill "
-                             "8x1024 rows of 2048 bf16)",
-         "decode_8x2048": {k: rms_dec[k] for k in
-                           ("max_abs_err", "ms", "plain_ms")},
-         "cube_kernels_compiled": sorted(
-             {k.name for k in cu.server._cache.values()}),
-         "cube_kernel_launches_phases_b_c": bc_launches,
-         "cube_kernel_launches_phases_f_h": {
-             k: v for k, v in {**f_launches, **h_launches}.items()
-             if k.endswith("_k")},
-         "softmax_bwd_8192x2048": {
-             "note": "_softmax_bwd_k: held in phase e; no model path "
-                     "launches it",
-             **{dt: {k: e_rows[f"_softmax_bwd_k {dt} 8192x2048"][k]
-                     for k in ("max_abs_err", "ms", "plain_ms")}
-                for dt in ("f32", "bf16")}},
-         "build_s": round(build_wall, 3)},
-        {"name": "flash_attention_bwd_dkv", "route": "cuda",
-         "source": "cubecl_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "cubecl_tpu/ops/attention.py:469",
-         "launches": f_launches["flash_bwd_dkv"],
-         "max_abs_err": train["dkv_err"], "ms": train["dkv_ms"],
-         "plain_ms": train["plain_ms"],
-         "plain_ms_is": "the whole plain backward (dq, dk, dv)",
-         "shape": "bf16 B8 H16/8 S1023 D128 causal"},
-        {"name": "flash_attention_bwd_dq", "route": "cuda",
-         "source": "cubecl_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "cubecl_tpu/ops/attention.py:660",
-         "launches": f_launches["flash_bwd_dq"],
-         "max_abs_err": train["dq_err"], "ms": train["dq_ms"],
-         "plain_ms": train["plain_ms"],
-         "plain_ms_is": "the whole plain backward (dq, dk, dv)",
-         "shape": "bf16 B8 H16/8 S1023 D128 causal"},
-        k0_bwd_row("rmsnorm", "_rmsnorm_bwd_k bf16 8x1023x2048",
-                   f_launches["_rmsnorm_bwd_k"]),
-        k0_bwd_row("layernorm", "_layernorm_bwd_k bf16 8x1024x768",
-                   h_launches["_layernorm_bwd_k"]),
-        k0_bwd_row("gelu", "_gelu_bwd_k bf16 8x1024x3072",
-                   h_launches["_gelu_bwd_k"]),
+            "cubecl_tpu/ops/paged_attention.py:247",
+            launches["paged_attention"], paged_rows[1], None,
+            library=NO_LIBRARY_PAGED,
+            shape="bf16 B8 Hkv8 G2 D128 context 1056, 16-layer pool"),
+        row("paged_attention_int8", "cubecl_tpu_torch/csrc/paged_attention.cu",
+            "cubecl_tpu/ops/paged_attention.py:247",
+            k_out["int8"]["launches"]["paged_attention_int8"],
+            j_rows["serving int8"], None, library=NO_LIBRARY_PAGED,
+            shape="int8 KV, bf16 q, B8 Hkv8 G2 D128 context 1056",
+            kv_bound_b16_ctx2048={k: {f: j_rows[k][f] for f in (
+                "ms", "bound_ms", "kv_gb_per_s")} for k in (
+                "KV-bound bf16", "KV-bound int8")}),
+        row("paged_attention_chunked",
+            "cubecl_tpu_torch/csrc/paged_chunked.cu",
+            "cubecl_tpu/ops/paged_attention.py:675",
+            sum(p3_launches.values()), i_rows["verify"], None,
+            library=NO_LIBRARY_PAGED,
+            shape="verify: bf16 B8 Hkv8 G2 C5 D128 context 1056",
+            launches_by_path=p3_launches,
+            **{name.replace(" ", "_"): {f: i_rows[name][f] for f in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+               for name in ("prefill start 0", "prefill start 768",
+                            "verify int8", "prefill int8 start 768")}),
+        k0_row("k0_cube_kernels", dict(rms), 8192 * 2048, 2, 2, 4,
+               launches=k0_serve["launches"],
+               library="F.rms_norm",
+               main_path_kernel="_rmsnorm_fwd_k (llama RMSNorm, prefill "
+                                "8x1024 rows of 2048 bf16)",
+               decode_8x2048={k: rms_dec[k] for k in
+                              ("max_abs_err", "ms", "plain_ms",
+                               "library_ms")},
+               cube_kernels_compiled=sorted(
+                   {k.name for k in cu.server._cache.values()}),
+               cube_kernel_launches_phases_b_c=bc_launches,
+               cube_kernel_launches_phases_f_h={
+                   k: v for k, v in {**f_launches, **h_launches}.items()
+                   if k.endswith("_k")},
+               softmax_bwd_8192x2048={
+                   "note": "_softmax_bwd_k: held in phase e; no model path "
+                           "launches it; library: the autograd backward "
+                           "of torch.softmax",
+                   **{dt: {k: e(f"_softmax_bwd_k {dt} 8192x2048")[k]
+                           for k in ("max_abs_err", "ms", "plain_ms",
+                                     "library_ms")}
+                      for dt in ("f32", "bf16")}},
+               build_s=round(build_wall, 3)),
+        row("flash_attention_bwd_dkv",
+            "cubecl_tpu_torch/csrc/flash_attention_bwd.cu",
+            "cubecl_tpu/ops/attention.py:469", f_launches["flash_bwd_dkv"],
+            dict(max_abs_err=train["dkv_err"], ms=train["dkv_ms"],
+                 plain_ms=train["plain_ms"], bound_ms=train["dkv_bound"][0],
+                 bound_by=train["dkv_bound"][1]), train["library_ms"],
+            plain_ms_is="the whole plain backward (dq, dk, dv)",
+            library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal"),
+        row("flash_attention_bwd_dq",
+            "cubecl_tpu_torch/csrc/flash_attention_bwd.cu",
+            "cubecl_tpu/ops/attention.py:660", f_launches["flash_bwd_dq"],
+            dict(max_abs_err=train["dq_err"], ms=train["dq_ms"],
+                 plain_ms=train["plain_ms"], bound_ms=train["dq_bound"][0],
+                 bound_by=train["dq_bound"][1]), train["library_ms"],
+            plain_ms_is="the whole plain backward (dq, dk, dv)",
+            library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal"),
+        k0_row("_rmsnorm_bwd_k", e("_rmsnorm_bwd_k bf16 8x1023x2048"),
+               8 * 1023 * 2048, 2, 3, 8,
+               launches=f_launches["_rmsnorm_bwd_k"],
+               library="the autograd backward of F.rms_norm (dx and dg)",
+               shape="bf16 8x1023x2048"),
+        k0_row("_layernorm_bwd_k", e("_layernorm_bwd_k bf16 8x1024x768"),
+               8 * 1024 * 768, 2, 3, 10,
+               launches=h_launches["_layernorm_bwd_k"],
+               library="the autograd backward of F.layer_norm (dx, dg, db)",
+               shape="bf16 8x1024x768"),
+        k0_row("_gelu_bwd_k", e("_gelu_bwd_k bf16 8x1024x3072"),
+               8 * 1024 * 3072, 2, 3, 20,
+               launches=h_launches["_gelu_bwd_k"],
+               library="the autograd backward of F.gelu(approximate="
+                       "'none')", shape="bf16 8x1024x3072"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

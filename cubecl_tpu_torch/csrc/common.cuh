@@ -1,5 +1,5 @@
 // Shared helpers for the hand-written Hopper kernels: element loads that
-// widen f32 / bf16 storage to f32 registers, and the matching stores.
+// widen f32 / bf16 / int8 storage to f32 registers, and the matching stores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,7 +9,7 @@
 namespace cubecl {
 
 // dtype codes shared with the Python wrappers (utils/native.py)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -36,8 +36,19 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
 }
+__device__ __forceinline__ void load4(const int8_t* p, float* out) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
 
-// One 16-byte chunk: 4 f32 or 8 bf16 elements -> f32.
+// 4 signed bytes of one 32-bit word -> f32.
+__device__ __forceinline__ void unpack_s8x4(uint32_t w, float* out) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = static_cast<float>(static_cast<int8_t>((w >> (8 * i)) & 0xffu));
+}
+
+// One 16-byte chunk: 4 f32, 8 bf16 or 16 int8 elements -> f32.
 template <typename T> struct Chunk;
 template <> struct Chunk<float> {
   static constexpr int N = 4;
@@ -57,6 +68,16 @@ template <> struct Chunk<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+};
+template <> struct Chunk<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    unpack_s8x4(u.x, out);
+    unpack_s8x4(u.y, out + 4);
+    unpack_s8x4(u.z, out + 8);
+    unpack_s8x4(u.w, out + 12);
   }
 };
 

@@ -11,15 +11,28 @@
 // Math (as P1/P2): the G = H / Hkv query rows of one kv head against that
 // head's pages of layer `layer` in the stacked pool (L, Hkv, P, page, D);
 // base-2 online softmax over positions < lengths[b] with f32 statistics and
-// accumulator; a row of length 0 gets zeros.
+// accumulator; a row of length 0 gets zeros. Table entries are clamped to
+// [0, P) before they are read (P1's scale gather wraps -1 to the last page).
+//
+// int8 KV (P1's k_scales/v_scales option): the pools hold int8 values and
+// the scale pools (L, Hkv, P, page) one f32 scale per (token, head). As in
+// P1, the K scale multiplies each position's score column and the V scale
+// its probability column (the row sum l takes the unscaled probability), so
+// no dequantized K/V tile is ever formed. P1 pre-gathers the scales into
+// table order to keep its DMA windows few; here each position's scale is
+// read through the same table lookup as its K/V row.
 //
 // Bound on the H100: decode reads every cached K/V byte once per step and
-// does ~2G flops per byte, so HBM bandwidth bounds it. Each tile of 64
-// positions is fetched with 16-byte loads, 8 in flight per thread (K and V of
-// a quarter row); K stays in registers for the scores, V goes to shared
-// memory for the P.V product. One block per (kv head, row) keeps the design
-// simple; at small B*Hkv it leaves SMs idle, which a split over positions
-// (flash-decoding) and cp.async double buffering would fix later.
+// does ~2G flops per byte, so HBM bandwidth bounds it (int8 halves the bytes
+// of bf16, plus 8 bytes of scales per position). Each tile of 64 positions
+// is fetched with 16-byte loads, a quarter row of K and of V per thread (at
+// D 128: 8, 4 or 2 loads each for f32, bf16 or int8); K stays in registers for the
+// scores, V goes to shared memory for the P.V product. One block per
+// (kv head, row) keeps the design simple; at small B*Hkv it leaves SMs
+// idle, which a split over positions (flash-decoding) and cp.async double
+// buffering would fix later.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cubecl {
@@ -29,22 +42,28 @@ constexpr int PT = 64;     // positions per tile (one per 4 threads)
 constexpr int PNT = 256;   // threads per block
 constexpr int MAXG = 8;    // query rows per kv head supported
 
-template <typename T, int D>
+template <typename T, typename TK, int D>
 __global__ void __launch_bounds__(PNT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool, const int* __restrict__ table,
+paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
+                    const TK* __restrict__ vpool,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
+                    const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ o, int H,
                     int Hkv, int G, int layer, int P, int page, int max_pages,
                     float scale_log2) {
-  constexpr int EPC = Chunk<T>::N;        // elements per 16-byte chunk
+  constexpr bool QUANT = std::is_same<TK, int8_t>::value;
+  constexpr int EPC = Chunk<TK>::N;       // elements per 16-byte chunk
   constexpr int CPT = D / 4 / EPC;        // chunks per thread (a quarter row)
   constexpr int PARTS = PNT / D;          // position groups of the P.V phase
-  // V rows padded so the float4 stores of 8 lanes hit 8 distinct bank groups
-  constexpr int VS = D + (EPC == 8 ? 4 : 16);
+  // V rows padded so the float4 stores of 8 lanes spread over bank groups
+  constexpr int VS = D + (EPC == 4 ? 16 : 4);
+  static_assert(CPT >= 1, "a quarter row must hold one 16-byte chunk");
   static_assert(PARTS * MAXG * D <= PT * VS, "combine buffer must fit in vs");
   __shared__ __align__(16) float qs[MAXG * D];
   __shared__ __align__(16) float vs[PT * VS];
   __shared__ float ss[MAXG * PT];
+  __shared__ float vsc[PT];  // int8: the V scale of each position of the tile
   __shared__ float m_s[MAXG], l_s[MAXG], a_s[MAXG];
 
   const int tid = threadIdx.x;
@@ -79,18 +98,25 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     const int t = t0 + tl;
     const bool valid = t < len;
     float kx[CPT * EPC], vx[CPT * EPC];
+    float ksc = 1.f;
     if (valid) {
-      const int64_t row = (head_page0 + tab[t / page]) * page + (t % page);
-      const T* kr = kpool + row * D;
-      const T* vr = vpool + row * D;
+      const int pid = min(max(tab[t / page], 0), P - 1);
+      const int64_t row = (head_page0 + pid) * page + (t % page);
+      const TK* kr = kpool + row * D;
+      const TK* vr = vpool + row * D;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        Chunk<T>::load(kr + (c * 4 + quarter) * EPC, kx + c * EPC);
-        Chunk<T>::load(vr + (c * 4 + quarter) * EPC, vx + c * EPC);
+        Chunk<TK>::load(kr + (c * 4 + quarter) * EPC, kx + c * EPC);
+        Chunk<TK>::load(vr + (c * 4 + quarter) * EPC, vx + c * EPC);
+      }
+      if (QUANT) {
+        ksc = kscale[row];
+        if (quarter == 0) vsc[tl] = vscale[row];
       }
     } else {
 #pragma unroll
       for (int e = 0; e < CPT * EPC; ++e) kx[e] = vx[e] = 0.f;
+      if (QUANT && quarter == 0) vsc[tl] = 0.f;
     }
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
@@ -110,7 +136,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
             s = fmaf(qs[g * D + (c * 4 + quarter) * EPC + e], kx[c * EPC + e], s);
         s += __shfl_xor_sync(0xffffffffu, s, 1);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (quarter == 0) ss[g * PT + tl] = valid ? s * scale_log2 : -INFINITY;
+        // int8: the K scale on the score column, after the base-2 scaling
+        if (quarter == 0)
+          ss[g * PT + tl] = valid ? s * scale_log2 * ksc : -INFINITY;
       }
     }
     __syncthreads();
@@ -123,8 +151,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const float m_old = m_s[warp];
       const float m_new = fmaxf(m_old, warp_max32(fmaxf(s0, s1)));
       const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
+      // int8: the V scale on the probability column; l sums the unscaled p
+      row[lane] = QUANT ? p0 * vsc[lane] : p0;
+      row[lane + 32] = QUANT ? p1 * vsc[lane + 32] : p1;
       const float sum = warp_sum32(p0 + p1);
       if (lane == 0) {
         const float alpha = exp2f(m_old - m_new);
@@ -144,7 +173,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
         acc[g] = a;
       }
     }
-    __syncthreads();  // vs and ss are rewritten by the next tile
+    __syncthreads();  // vs, vsc and ss are rewritten by the next tile
   }
 
   // sum the PARTS partial accumulators (vs is free now)
@@ -162,15 +191,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TK, int D>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
-                         const void* table, const void* lengths, void* o,
-                         int B, int H, int Hkv, int layer, int P, int page,
-                         int max_pages, float scale_log2, cudaStream_t stream) {
+                         const float* ks, const float* vsc, const void* table,
+                         const void* lengths, void* o, int B, int H, int Hkv,
+                         int layer, int P, int page, int max_pages,
+                         float scale_log2, cudaStream_t stream) {
   const dim3 grid(Hkv, B);
-  paged_decode_kernel<T, D><<<grid, PNT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(table),
+  paged_decode_kernel<T, TK, D><<<grid, PNT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const TK*>(kp),
+      static_cast<const TK*>(vp), ks, vsc, static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(o), H, Hkv, H / Hkv,
       layer, P, page, max_pages, scale_log2);
   return cudaGetLastError();
@@ -180,25 +210,42 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
 }  // namespace cubecl
 
 // q (B, H, D); k_pages/v_pages (L, Hkv, P, page, D); table (B, max_pages)
-// int32; lengths (B,) int32; o (B, H, D). Contiguous, q/pools/o one dtype.
+// int32; lengths (B,) int32; o (B, H, D). Contiguous; q and o of `dtype`
+// (f32 or bf16), the pools of `kv_dtype`: the same dtype, or int8 with f32
+// scale pools k_scales/v_scales (L, Hkv, P, page) (null otherwise).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a dtype / head_dim / group size this kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* table,
+                                   const void* v_pages, const float* k_scales,
+                                   const float* v_scales, const void* table,
                                    const void* lengths, void* o, int dtype,
-                                   int B, int H, int Hkv, int D, int layer,
-                                   int P, int page, int max_pages,
+                                   int kv_dtype, int B, int H, int Hkv, int D,
+                                   int layer, int P, int page, int max_pages,
                                    float scale_log2, void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG) return cudaErrorInvalidValue;
-#define CUBECL_PAGED(T, HD)                                                 \
-  launch_paged<T, HD>(q, k_pages, v_pages, table, lengths, o, B, H, Hkv,    \
-                      layer, P, page, max_pages, scale_log2, st)
-  if (dtype == kF32 && D == 64) return CUBECL_PAGED(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_PAGED(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_PAGED(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_PAGED(__nv_bfloat16, 128);
+  const bool quant = kv_dtype == kI8;
+  if (quant != (k_scales != nullptr && v_scales != nullptr))
+    return cudaErrorInvalidValue;
+  if (!quant && kv_dtype != dtype) return cudaErrorInvalidValue;
+#define CUBECL_PAGED(T, TK, HD)                                              \
+  launch_paged<T, TK, HD>(q, k_pages, v_pages, k_scales, v_scales, table,    \
+                          lengths, o, B, H, Hkv, layer, P, page, max_pages,  \
+                          scale_log2, st)
+  if (dtype == kF32) {
+    if (D == 64) return quant ? CUBECL_PAGED(float, int8_t, 64)
+                              : CUBECL_PAGED(float, float, 64);
+    if (D == 128) return quant ? CUBECL_PAGED(float, int8_t, 128)
+                               : CUBECL_PAGED(float, float, 128);
+  }
+  if (dtype == kBF16) {
+    if (D == 64) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 64)
+                              : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 64);
+    if (D == 128)
+      return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 128)
+                   : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 128);
+  }
 #undef CUBECL_PAGED
   return cudaErrorInvalidValue;
 }

@@ -4,16 +4,22 @@ SGD training.
 The PyTorch counterpart of ``cubecl_tpu.models.llama``'s single-device
 paths: ``init_params`` / ``params_from_jax`` give a :class:`Llama` module;
 ``prefill``, ``decode_step`` and ``generate`` serve it over a stacked paged
-KV cache, and ``loss_fn`` / ``make_train_step`` train it (``cfg.remat``
-recomputes each layer in the backward through ``torch.utils.checkpoint``).
-Weights keep the JAX orientation ``(d_in, d_out)`` and are used as
-``x @ W``, so JAX parameters load without transposes. They are built
-frozen (``requires_grad=False``) for serving; a train step makes them
-trainable.
+KV cache (model dtype or int8 with per-(token, head) scales);
+``decode_chunk``, ``prefill_chunked`` (also the suffix of a prefix-cache
+hit), ``speculative_generate`` and ``beam_generate`` (pages from
+``runtime.pages.PageAllocator``, ``fork_seq``) serve it in chunks;
+``loss_fn`` / ``make_train_step`` train it (``cfg.remat`` recomputes each
+layer in the backward through ``torch.utils.checkpoint``). Weights keep the
+JAX orientation ``(d_in, d_out)`` and are used as ``x @ W``, so JAX
+parameters load without transposes. They are built frozen
+(``requires_grad=False``) for serving; a train step makes them trainable.
+Models and caches are built on the card unless ``device`` says otherwise;
+functions that take tensors follow their inputs' device.
 
 Prefill and training attention go through ``ops.attention.flash_attention``
 (hand-written CUDA forward; in training also its dK/dV and dQ backward
-kernels), each decode step's through ``ops.paged_attention.paged_attention``.
+kernels), each decode step's through ``ops.paged_attention.paged_attention``
+and each chunk's through ``ops.paged_attention.paged_attention_chunked``.
 With ``use_framework_kernels=True`` (the default, as in the JAX package)
 every RMSNorm whose rows fit the DSL kernels (``ops.functional.fits``) is
 the ``@cube`` kernel ``ops.functional.rmsnorm``, launched through K0 (the
@@ -23,14 +29,14 @@ backward. ``kernels=False`` runs the plain PyTorch versions of all of them
 on any device; it is the reference the kernels are checked against. RoPE,
 SwiGLU and the projections are plain tensor code.
 
-Unlike the functional JAX code, the KV cache and, in a train step, the
+Unlike the functional JAX code, the KV pools and, in a train step, the
 weights are updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,7 +45,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
 from ..ops.attention import flash_attention, flash_attention_plain
-from ..ops.paged_attention import paged_attention, paged_attention_plain
+from ..ops.paged_attention import (
+    paged_attention,
+    paged_attention_chunked,
+    paged_attention_chunked_plain,
+    paged_attention_plain,
+    quantize_kv,
+)
 
 
 @dataclasses.dataclass
@@ -86,7 +98,6 @@ def check_supported(cfg: LlamaConfig) -> None:
     todo = [
         (cfg.n_experts > 0 or cfg.moe_capacity > 0,
          "MoE layers (n_experts, moe_capacity) are ROADMAP Queue 1 item 12"),
-        (cfg.kv_dtype == "int8", "int8 KV is ROADMAP Queue 1 item 8"),
         (cfg.attn_window > 0 or cfg.attn_sinks > 0 or cfg.ring_cache,
          "windowed / ring KV decode (attn_window, attn_sinks, ring_cache) "
          "is ROADMAP Queue 1 item 8"),
@@ -107,7 +118,7 @@ def _param(shape, dtype, device, fill=None):
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         d, hd, dt = cfg.d_model, cfg.head_dim, cfg.torch_dtype
         self.rms1 = _param((d,), dt, device, 1.0)
@@ -126,7 +137,7 @@ class Llama(nn.Module):
     Built with uninitialized weights: use :func:`init_params` or load
     :func:`params_from_jax`."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -140,7 +151,7 @@ class Llama(nn.Module):
         return forward(self, tokens, kernels=kernels)
 
 
-def init_params(cfg: LlamaConfig, seed: int = 0, device="cpu") -> Llama:
+def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Llama:
     """Random weights, N(0, 0.02) cast to ``cfg.dtype``, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed`` (not the JAX numbers:
     load :func:`params_from_jax` to compare with the JAX package)."""
@@ -325,64 +336,128 @@ def make_train_step(cfg: LlamaConfig, lr: float = 1e-3, *,
 
 @dataclasses.dataclass
 class KVCache:
-    """Stacked paged KV cache. k, v: (L, Hkv, P, page, hd); page_indices:
-    (B, max_pages) int32 block table; lengths: (B,) int32 tokens cached."""
+    """Stacked paged KV cache. k, v: (L, Hkv, P, page, hd) in the model
+    dtype, or int8 with f32 ``k_scales`` / ``v_scales`` (L, Hkv, P, page),
+    one per (token, head); page_indices: (B, max_pages) int32 block table;
+    lengths: (B,) int32 tokens cached. The serving functions update the
+    pools in place; a caller driving the table from a
+    :class:`~cubecl_tpu_torch.runtime.pages.PageAllocator` assigns
+    ``page_indices`` and ``lengths`` between steps."""
     k: torch.Tensor
     v: torch.Tensor
     page_indices: torch.Tensor
     lengths: torch.Tensor
     page_size: int
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_pages: int,
-                  page: int = 128, device="cpu") -> KVCache:
-    """Zeroed pools in which row b owns the preassigned pages
-    ``b * max_pages .. (b + 1) * max_pages - 1``."""
-    P = batch * max_pages
+                  page: int = 128, device="cuda", *,
+                  num_pages: Optional[int] = None) -> KVCache:
+    """Zeroed pools (int8 ones with unit scales where ``cfg.kv_dtype`` is
+    ``"int8"``, else of ``cfg.dtype``). By default row b owns the
+    preassigned pages ``b * max_pages .. (b + 1) * max_pages - 1``. With
+    ``num_pages`` the pool holds that many pages and every row starts
+    parked at page 0 with length 0, for a ``PageAllocator`` to drive."""
+    kind = cfg.kv_dtype or cfg.dtype
+    quant = kind == "int8"
+    dt = torch.int8 if quant else getattr(torch, kind)
+    P = int(num_pages) if num_pages is not None else batch * max_pages
     shape = (cfg.n_layers, cfg.n_kv_heads, P, page, cfg.head_dim)
-    return KVCache(
-        k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        page_indices=torch.arange(P, dtype=torch.int32,
-                                  device=device).view(batch, max_pages),
+    if num_pages is None:
+        table = torch.arange(P, dtype=torch.int32,
+                             device=device).view(batch, max_pages)
+    else:
+        table = torch.zeros(batch, max_pages, dtype=torch.int32,
+                            device=device)
+    cache = KVCache(
+        k=torch.zeros(shape, dtype=dt, device=device),
+        v=torch.zeros(shape, dtype=dt, device=device),
+        page_indices=table,
         lengths=torch.zeros(batch, dtype=torch.int32, device=device),
         page_size=page)
+    if quant:
+        cache.k_scales = torch.ones(shape[:4], device=device)
+        cache.v_scales = torch.ones(shape[:4], device=device)
+    return cache
 
 
-def _cache_write_stacked(pages, layer: int, pid, slot, new):
-    """Write one (B, Hkv, hd) token per row into layer ``layer`` of the
-    stacked pool at (page ``pid[b]``, slot ``slot[b]``): one indexed
-    in-place write, where the functional JAX code chains a
-    dynamic_update_slice per row."""
-    pages[layer][:, pid, slot] = new.transpose(0, 1).to(pages.dtype)
+def fork_seq(cache: KVCache, alloc, src: int, dst: int):
+    """Fork sequence ``src`` into ``dst`` (beam search, parallel sampling):
+    the allocator shares every page by refcount; where the fork point is
+    in mid-page, ``dst`` gets a private copy of the partial last page (and
+    its scales), copied once in place on the device. Returns (cache, ok)."""
+    if not alloc.fork(src, dst):
+        return cache, False
+    if alloc.lengths[dst] % cache.page_size:
+        _unshare_last(cache, alloc, dst)
+    return cache, True
+
+
+def _unshare_last(cache: KVCache, alloc, seq: int):
+    """Give ``seq`` a private copy of its last page (and its scales) if it
+    shares it, copied once in place on the device."""
+    pair = alloc.unshare_last(seq)
+    if pair is not None:
+        old, new = pair
+        for pool in (cache.k, cache.v, cache.k_scales, cache.v_scales):
+            if pool is not None:
+                pool[:, :, new] = pool[:, :, old]
+
+
+def _cache_write(cache: KVCache, layer: int, pid, slot, k, v):
+    """Write tokens k, v (..., Hkv, hd) into layer ``layer`` at (page
+    ``pid``, slot ``slot``), index tensors of shape (...): one indexed
+    in-place write per pool, where the functional JAX code chains a
+    dynamic_update_slice per row. int8 pools take ``quantize_kv``'s values
+    and their scales."""
+    nd = pid.dim()
+    perm = (nd, *range(nd), nd + 1)          # (..., Hkv, hd) -> (Hkv, ..., hd)
+    if cache.k_scales is not None:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        cache.k_scales[layer][:, pid, slot] = ks.permute(perm[:-1])
+        cache.v_scales[layer][:, pid, slot] = vs.permute(perm[:-1])
+    cache.k[layer][:, pid, slot] = k.permute(perm).to(cache.k.dtype)
+    cache.v[layer][:, pid, slot] = v.permute(perm).to(cache.v.dtype)
+
+
+def _scales(cache: KVCache):
+    return dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
+
+
+def _check_capacity(cache: KVCache, end: int, what: str):
+    cap = cache.page_indices.shape[1] * cache.page_size
+    if end > cap:
+        raise ValueError(f"{what} reaches position {end - 1}, past the "
+                         f"cache's {cache.page_indices.shape[1]} pages of "
+                         f"{cache.page_size}")
 
 
 @torch.no_grad()
 def prefill(model: Llama, cache: KVCache, tokens, *, kernels: bool = True):
     """Run the prompt (B, S) through the model once, write every layer's
-    post-rope K/V into the pages of each row's table, and set the lengths
-    to S. Returns (last-position logits (B, vocab), cache)."""
+    post-rope K/V (quantized for int8 pools) into the pages of the first B
+    rows of the table, and set the lengths to S. Returns (last-position
+    logits (B, vocab), cache)."""
     cfg = model.cfg
     B, S = tokens.shape
     page = cache.page_size
-    if S > cache.page_indices.shape[1] * page:
-        raise ValueError(f"prompt of {S} tokens exceeds the cache's "
-                         f"{cache.page_indices.shape[1]} pages of {page}")
+    _check_capacity(cache, S, f"a prompt of {S} tokens")
     pos = torch.arange(S, device=tokens.device)
-    pid = cache.page_indices[:, pos // page].long()           # (B, S)
+    pid = cache.page_indices[:B, pos // page].long()          # (B, S)
     slot = (pos % page).expand(B, S)
     rope = _rope_tables(pos, cfg)
     x = model.embed[tokens]
     for li, layer in enumerate(model.layers):
         o, (k, v) = _attention(_rmsnorm(x, layer.rms1, cfg, kernels),
                                layer, cfg, rope, kernels)
-        # (B, S, Hkv, hd) -> pool[li][:, pid, slot] of shape (Hkv, B, S, hd)
-        cache.k[li][:, pid, slot] = k.permute(2, 0, 1, 3).to(cache.k.dtype)
-        cache.v[li][:, pid, slot] = v.permute(2, 0, 1, 3).to(cache.v.dtype)
+        _cache_write(cache, li, pid, slot, k, v)
         x = x + o
         x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
     x = _rmsnorm(x, model.rms_out, cfg, kernels)
-    cache.lengths.fill_(S)
+    cache.lengths = torch.full((B,), S, dtype=torch.int32,
+                               device=tokens.device)
     return x[:, -1] @ model.embed.T, cache
 
 
@@ -410,15 +485,242 @@ def decode_step(model: Llama, cache: KVCache, tokens, *,
         q = _rope((h @ layer.wq).view(B, nh, hd), cos, sin)
         k = _rope((h @ layer.wk).view(B, nkv, hd), cos, sin)
         v = (h @ layer.wv).view(B, nkv, hd)
-        _cache_write_stacked(cache.k, li, pid, slot, k)
-        _cache_write_stacked(cache.v, li, pid, slot, v)
+        _cache_write(cache, li, pid, slot, k, v)
         o = attend(q, cache.k, cache.v, cache.page_indices, attend_len,
-                   layer=li)
+                   layer=li, **_scales(cache))
         x = x + o.reshape(B, nh * hd) @ layer.wo
         x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
     x = _rmsnorm(x, model.rms_out, cfg, kernels)
-    cache.lengths.add_(1)
+    cache.lengths = attend_len
     return x @ model.embed.T, cache
+
+
+@torch.no_grad()
+def decode_chunk(model: Llama, cache: KVCache, tokens, *,
+                 kernels: bool = True):
+    """C tokens per row in one pass, tokens (B, C): writes the chunk's K/V
+    at positions ``lengths[b] .. lengths[b] + C - 1`` (one indexed write
+    per pool and layer), then ``paged_attention_chunked`` scores every
+    chunk token against the whole cache, causal inside the chunk. The
+    verify pass of speculative decoding and the step of chunked prefill.
+    No host sync and no check: the caller keeps ``lengths + C`` within the
+    table (``prefill_chunked`` and ``speculative_generate`` check it once on
+    the host). Past the table, the lookup fails on the CPU; on the card the
+    gather is a device-side assert and the kernels read past the table's
+    row. Returns (logits (B, C, vocab), cache with lengths + C)."""
+    cfg = model.cfg
+    B, C = tokens.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    page = cache.page_size
+    starts = cache.lengths
+    pos = starts.view(B, 1) + torch.arange(C, device=tokens.device)
+    pid = cache.page_indices.gather(1, (pos // page).long()).long()
+    slot = (pos % page).long()
+    ends = starts + C
+    attend = paged_attention_chunked if kernels \
+        else paged_attention_chunked_plain
+    cos, sin = (t[:, :, None, :] for t in _rope_tables(pos, cfg))
+    x = model.embed[tokens]
+    for li, layer in enumerate(model.layers):
+        h = _rmsnorm(x, layer.rms1, cfg, kernels)
+        q = _rope((h @ layer.wq).view(B, C, nh, hd), cos, sin)
+        k = _rope((h @ layer.wk).view(B, C, nkv, hd), cos, sin)
+        v = (h @ layer.wv).view(B, C, nkv, hd)
+        _cache_write(cache, li, pid, slot, k, v)
+        o = attend(q.transpose(1, 2), cache.k, cache.v, cache.page_indices,
+                   ends, starts, layer=li, **_scales(cache))  # (B, H, C, hd)
+        x = x + o.transpose(1, 2).reshape(B, C, nh * hd) @ layer.wo
+        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+    x = _rmsnorm(x, model.rms_out, cfg, kernels)
+    cache.lengths = ends
+    return x @ model.embed.T, cache
+
+
+@torch.no_grad()
+def prefill_chunked(model: Llama, cache: KVCache, tokens, chunk: int = 256,
+                    *, kernels: bool = True):
+    """Prefill through ``decode_chunk`` in pieces of ``chunk`` tokens,
+    from each row's current length (0 for a fresh cache; the cached prefix
+    after ``PageAllocator.admit_cached``). Attention memory is O(chunk · S)
+    instead of O(S²), and each piece can share a batch with decode
+    traffic. Returns (last-position logits (B, vocab), cache)."""
+    _check_capacity(cache, int(cache.lengths.max()) + tokens.shape[1],
+                    f"a prompt of {tokens.shape[1]} tokens")
+    logits = None
+    for s0 in range(0, tokens.shape[1], chunk):
+        logits, cache = decode_chunk(model, cache, tokens[:, s0:s0 + chunk],
+                                     kernels=kernels)
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def speculative_generate(model: Llama, prompt, steps: int, draft: Llama,
+                         gamma: int = 4, max_pages: int = 8, page: int = 128,
+                         *, kernels: bool = True):
+    """Greedy speculative decoding: each round the draft proposes
+    ``gamma`` tokens, one at a time; the target scores the committed token
+    and the proposal in one ``decode_chunk`` (C = gamma + 1) and commits
+    the longest agreeing prefix plus its own next token. The output equals
+    the target's greedy stream. Rollback rewinds ``lengths``: rejected
+    positions are overwritten by the next chunk. Returns ((B, steps) int32
+    tokens, mean accepted proposals per round)."""
+    B, S = prompt.shape
+    dev = prompt.device
+    tc = init_kv_cache(model.cfg, B, max_pages, page, dev)
+    dc = init_kv_cache(draft.cfg, B, max_pages, page, dev)
+    t_logits, tc = prefill(model, tc, prompt, kernels=kernels)
+    _, dc = prefill(draft, dc, prompt, kernels=kernels)
+    t_next = t_logits.argmax(-1).to(torch.int32)
+    out = [[] for _ in range(B)]
+    accepted = []
+    while min(len(o) for o in out) < steps:
+        t_pos0, d_pos0 = tc.lengths, dc.lengths
+        _check_capacity(tc, int(t_pos0.max()) + gamma + 1,
+                        "a speculative round")
+        props, feed = [], t_next
+        for _ in range(gamma):
+            d_logits, dc = decode_step(draft, dc, feed, kernels=kernels)
+            feed = d_logits.argmax(-1).to(torch.int32)
+            props.append(feed)
+        props = torch.stack(props, dim=1)                   # (B, gamma)
+        logits, tc = decode_chunk(model, tc,
+                                  torch.cat([t_next[:, None], props], 1),
+                                  kernels=kernels)
+        pn = props.cpu().numpy()
+        tn = logits.argmax(-1).to(torch.int32).cpu().numpy()  # (B, gamma+1)
+        acc = np.zeros(B, np.int64)
+        for b in range(B):
+            while acc[b] < gamma and pn[b, acc[b]] == tn[b, acc[b]]:
+                acc[b] += 1
+        accepted.append(acc.mean())
+        for b, tok in enumerate(t_next.cpu().numpy()):
+            out[b].append(int(tok))
+            out[b].extend(int(x) for x in pn[b, :acc[b]])
+        # the target's token at the first disagreement (or its bonus token
+        # where every proposal was accepted)
+        t_next = torch.from_numpy(tn[np.arange(B), acc]).to(dev)
+        if (acc == gamma).any():
+            # the draft proposed d_gamma but never wrote its K/V: one
+            # batch-wide step writes it; other rows' writes are rolled back
+            _, dc = decode_step(draft, dc, props[:, -1], kernels=kernels)
+        keep = torch.from_numpy(acc.astype(np.int32) + 1).to(dev)
+        tc.lengths, dc.lengths = t_pos0 + keep, d_pos0 + keep
+    toks = np.asarray([o[:steps] for o in out], np.int32)
+    return torch.from_numpy(toks).to(dev), float(np.mean(accepted))
+
+
+@torch.no_grad()
+def beam_generate(model: Llama, prompt, steps: int, beams: int = 4,
+                  page: int = 128, *, kernels: bool = True):
+    """Beam search on the paged cache: prefill once, fork the beams
+    (prefix pages shared by refcount, the partial page copied once), and at
+    every step reorder the beam set with allocator forks and releases:
+    dead beams release their pages first, a parent's first child takes its
+    sequence, further children fork it. prompt: (S,) int. Returns
+    (tokens (beams, S + steps) int32, scores (beams,) f32 summed
+    log-probs), best beam first.
+
+    The allocator's lengths count each beam's pending token, whose K/V the
+    next step writes on the last page even where that page is counted full,
+    so every fork takes a private copy of the last page (``fork_seq``
+    copies only a partial one)."""
+    from ..runtime.pages import PageAllocator
+
+    cfg, dev = model.cfg, prompt.device
+    S = int(prompt.shape[0])
+    pages_per = -(-(S + steps + 1) // page)
+    # every beam private, a parking page, and the transient page of an
+    # unshare while reordering
+    pool = PageAllocator(beams * (pages_per + 1) + 1, page)
+    assert pool.admit(-1, 1)                        # parking row
+    park = pool.block_table([-1], pages_per)[0]
+    cache = init_kv_cache(cfg, beams, pages_per, page, dev,
+                          num_pages=pool.num_pages)
+
+    def rows_for(seqs):
+        rows = [park if s is None else pool.block_table([s], pages_per)[0]
+                for s in seqs]
+        lens = [0 if s is None else pool.lengths[s] - 1 for s in seqs]
+        cache.page_indices = torch.from_numpy(np.stack(rows)).to(dev)
+        cache.lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    hist0 = prompt.cpu().numpy().astype(np.int32).tolist()
+    assert pool.admit(0, S + 1)
+    rows_for([0])
+    logits, cache = prefill(model, cache, prompt.view(1, S), kernels=kernels)
+    def fork(src, dst):
+        assert pool.fork(src, dst)
+        _unshare_last(cache, pool, dst)
+
+    next_id, beam_seqs = 1, [0]
+    for _ in range(beams - 1):
+        fork(0, next_id)
+        beam_seqs.append(next_id)
+        next_id += 1
+    histories = [list(hist0) for _ in range(beams)]
+    lp = torch.log_softmax(logits[0].float(), -1).cpu().numpy()
+    # every beam starts from the prompt's distribution: seed them with its
+    # top `beams` tokens
+    first = np.argsort(-lp)[:beams]
+    pending = [int(x) for x in first]
+    scores = lp[first]
+    for _ in range(steps - 1):
+        rows_for(beam_seqs)
+        logits, cache = decode_step(
+            model, cache, torch.tensor(pending, dtype=torch.int32,
+                                       device=dev), kernels=kernels)
+        for b in range(beams):
+            histories[b].append(pending[b])
+            assert pool.extend(beam_seqs[b], 1)
+        lp = torch.log_softmax(logits.float(), -1).cpu().numpy()
+        flat = (scores[:, None] + lp).ravel()
+        top = np.argsort(-flat)[:beams]
+        parents, toks = top // lp.shape[1], top % lp.shape[1]
+        keep = {int(pb) for pb in parents}
+        for pb in range(beams):
+            if pb not in keep:
+                pool.release(beam_seqs[pb])
+        used, new_seqs, new_hist = set(), [], []
+        for pb in (int(x) for x in parents):
+            if pb not in used:
+                used.add(pb)
+                new_seqs.append(beam_seqs[pb])
+            else:
+                fork(beam_seqs[pb], next_id)
+                new_seqs.append(next_id)
+                next_id += 1
+            new_hist.append(list(histories[pb]))
+        beam_seqs, histories = new_seqs, new_hist
+        scores = flat[top]
+        pending = [int(t) for t in toks]
+    for b in range(beams):
+        histories[b].append(pending[b])
+    order = np.argsort(-scores)
+    toks = np.asarray([histories[b] for b in order], np.int32)
+    return (torch.from_numpy(toks).to(dev),
+            torch.from_numpy(np.asarray(scores[order], np.float32)))
+
+
+def sample_logits(logits, generator: Optional[torch.Generator] = None,
+                  temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0):
+    """The serving sampler: temperature, then a top-k mask, then a top-p
+    (nucleus) mask, then a categorical draw from ``generator``.
+    Temperature 0 (or top_k 1) is argmax. logits (B, V) -> (B,) int32."""
+    if temperature == 0.0 or top_k == 1:
+        return logits.argmax(-1).to(torch.int32)
+    l = logits.float() / max(temperature, 1e-6)
+    if top_k > 0:
+        kth = torch.sort(l, dim=-1).values[:, -top_k][:, None]
+        l = l.masked_fill(l < kth, float("-inf"))
+    if top_p < 1.0:
+        sl = torch.sort(l, dim=-1, descending=True).values
+        probs = torch.softmax(sl, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        kth = torch.where(keep, sl, float("inf")).amin(-1, keepdim=True)
+        l = l.masked_fill(l < kth, float("-inf"))
+    return torch.multinomial(torch.softmax(l, dim=-1), 1,
+                             generator=generator)[:, 0].to(torch.int32)
 
 
 @torch.no_grad()

@@ -69,7 +69,7 @@ class _Norm(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
         self.ln1 = _Norm(d, dt, device)
@@ -89,7 +89,7 @@ class Transformer(nn.Module):
     (``layers.0.ln1.g``, ...). Built frozen with uninitialized weights: use
     :func:`init_params` or load :func:`params_from_jax`."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         dt = cfg.torch_dtype
@@ -107,7 +107,7 @@ _RANDOM = ("embed", "pos", "wq", "wk", "wv", "wo", "w1", "w2")
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
-                device="cpu") -> Transformer:
+                device="cuda") -> Transformer:
     """N(0, 0.02) matrices cast to ``cfg.dtype``, unit gains and zero
     biases, drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed`` (not the JAX numbers: load :func:`params_from_jax` to compare

@@ -1,21 +1,35 @@
-"""Paged-KV decode attention: the attention of each decode step.
+"""Paged-KV attention: the attention of each decode step (P1/P2) and of a
+chunk of C tokens per sequence (P3).
 
 The KV cache is a stacked whole-model pool ``(L, Hkv, P, page, D)``; each
 sequence owns a row of the block table ``page_indices`` (B, max_pages)
 int32, which maps its position t to slot ``t % page`` of page
-``page_indices[b, t // page]``. ``paged_attention`` attends one query per
-head, q (B, H, D), to positions ``< lengths[b]`` of layer ``layer`` and
-returns (B, H, D) in q's dtype; a row of length 0 gets zeros. Query head h
-reads kv head h // (H // Hkv).
+``page_indices[b, t // page]``. Query head h reads kv head h // (H // Hkv).
+Table entries are clamped to ``[0, P)`` before they are read (the JAX
+package's scale gather wraps -1 to the last page instead).
 
-On a CUDA tensor it launches the hand-written kernel of
-``csrc/paged_attention.cu`` (f32 or bf16, D in {64, 128}, at most 8 query
-heads per kv head), which replaces the TPU kernels P1
-``_paged_call_headed`` and P2 ``_paged_call_live``; anything the kernel
-does not take raises. The caller keeps the table's entries below P and
-``lengths`` within ``max_pages * page``: the kernel reads them on the device
-and does not check them. On a CPU tensor it runs ``paged_attention_plain``,
-which is also the kernel's reference on the card.
+``paged_attention`` attends one query per head, q (B, H, D), to positions
+``< lengths[b]`` of layer ``layer`` and returns (B, H, D) in q's dtype; a
+row of length 0 gets zeros. ``paged_attention_chunked`` attends C queries
+per row, q (B, H, C, D): query token i of row b sits at position
+``starts[b] + i`` and attends the positions ``t <= starts[b] + i`` with
+``t < lengths[b]`` (``lengths`` counts the chunk, whose K/V are already in
+the pages); a row with no live position gets zeros.
+
+int8 KV: the pools hold int8 values and ``k_scales`` / ``v_scales``
+``(L, Hkv, P, page)`` one f32 scale per (token, head), as
+:func:`quantize_kv` makes them; the value of a cached element is
+``int8 * scale``.
+
+On CUDA tensors ``paged_attention`` launches the hand-written kernel of
+``csrc/paged_attention.cu`` (replaces the TPU kernels P1
+``_paged_call_headed`` and P2 ``_paged_call_live``) and
+``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
+``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
+in {64, 128}, and for decode at most 8 query heads per kv head; anything
+else raises. The caller keeps ``lengths`` within ``max_pages * page``: the
+kernels read it on the device and do not check it. On CPU tensors each
+runs its plain version, which is also the kernel's reference on the card.
 """
 
 from __future__ import annotations
@@ -28,40 +42,102 @@ import torch
 from ..utils import native
 from .attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS, LOG2E
 
-MAX_GROUP = 8  # query heads per kv head the kernel takes (csrc MAXG)
+MAX_GROUP = 8  # query heads per kv head the decode kernel takes (csrc MAXG)
 
 
-def _check_shapes(q, k_pages, v_pages, page_indices, lengths):
-    if q.dim() != 3 or k_pages.dim() != 5 or v_pages.shape != k_pages.shape:
-        raise ValueError(f"want q (B, H, D) and stacked pools (L, Hkv, P, "
-                         f"page, D); got {tuple(q.shape)}, "
+def quantize_kv(x):
+    """Symmetric int8 per (token, head) over the last axis: x (..., D)
+    float -> (int8 values (..., D), f32 scales (...)); ``scale = amax /
+    127`` (1 where amax is 0), values rounded half to even."""
+    f = x.float()
+    amax = f.abs().amax(-1)
+    scales = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    return torch.round(f / scales[..., None]).to(torch.int8), scales
+
+
+def _check_pools(k_pages, v_pages, k_scales, v_scales) -> bool:
+    """Whether the pools are int8; raises on shapes that do not agree."""
+    if k_pages.dim() != 5 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"want stacked pools (L, Hkv, P, page, D); got "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
-    B, H, D = q.shape
-    Hkv = k_pages.shape[1]
-    if k_pages.shape[4] != D or H % Hkv:
-        raise ValueError(f"pools {tuple(k_pages.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    quant = k_scales is not None
+    if quant != (k_pages.dtype == torch.int8) \
+            or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"int8 pools need scales and scales need int8 "
+                         f"pools; got {k_pages.dtype}, {v_pages.dtype}, "
+                         f"scales {'given' if quant else 'none'}")
+    if quant and (k_scales.shape != k_pages.shape[:4]
+                  or v_scales.shape != k_pages.shape[:4]):
+        raise ValueError(f"want scales {tuple(k_pages.shape[:4])}; got "
+                         f"{tuple(k_scales.shape)}, {tuple(v_scales.shape)}")
+    return quant
+
+
+def _check_table(B, page_indices, lengths, starts=None):
     if page_indices.dim() != 2 or page_indices.shape[0] != B \
-            or tuple(lengths.shape) != (B,):
-        raise ValueError(f"want page_indices (B, max_pages) and lengths (B,) "
+            or tuple(lengths.shape) != (B,) \
+            or (starts is not None and tuple(starts.shape) != (B,)):
+        raise ValueError(f"want page_indices (B, max_pages) and lengths"
+                         f"{', starts' if starts is not None else ''} (B,) "
                          f"for B={B}; got {tuple(page_indices.shape)}, "
                          f"{tuple(lengths.shape)}")
 
 
-def paged_attention_plain(q, k_pages, v_pages, page_indices, lengths,
-                          sm_scale: Optional[float] = None, layer: int = 0):
-    """Gathers the table's pages into contiguous K/V and runs masked
-    softmax attention in f32."""
-    _check_shapes(q, k_pages, v_pages, page_indices, lengths)
+def _check_shapes(q, k_pages, v_pages, page_indices, lengths, k_scales,
+                  v_scales) -> bool:
+    if q.dim() != 3:
+        raise ValueError(f"want q (B, H, D); got {tuple(q.shape)}")
+    quant = _check_pools(k_pages, v_pages, k_scales, v_scales)
     B, H, D = q.shape
-    _, Hkv, _, page, _ = k_pages.shape
+    if k_pages.shape[4] != D or H % k_pages.shape[1]:
+        raise ValueError(f"pools {tuple(k_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    _check_table(B, page_indices, lengths)
+    return quant
+
+
+def _check_chunk_shapes(q, k_pages, v_pages, page_indices, lengths, starts,
+                        k_scales, v_scales) -> bool:
+    if q.dim() != 4:
+        raise ValueError(f"want q (B, H, C, D); got {tuple(q.shape)}")
+    quant = _check_pools(k_pages, v_pages, k_scales, v_scales)
+    B, H, _, D = q.shape
+    if k_pages.shape[4] != D or H % k_pages.shape[1]:
+        raise ValueError(f"pools {tuple(k_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    _check_table(B, page_indices, lengths, starts)
+    return quant
+
+
+def _gather(pages, scales, layer: int, page_indices):
+    """Layer ``layer``'s pages of every table row, as contiguous f32
+    (B, Hkv, max_pages * page, D), dequantized where ``scales`` is given."""
+    _, Hkv, P, page, D = pages.shape
+    idx = page_indices.long().clamp(0, P - 1)
+    B, S = idx.shape[0], idx.shape[1] * page
+    x = pages[layer][:, idx].reshape(Hkv, B, S, D).transpose(0, 1).float()
+    if scales is not None:
+        s = scales[layer][:, idx].reshape(Hkv, B, S).transpose(0, 1)
+        x = x * s.float()[..., None]
+    return x
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_indices, lengths,
+                          sm_scale: Optional[float] = None, layer: int = 0,
+                          k_scales=None, v_scales=None):
+    """Gathers the table's pages into contiguous (dequantized) K/V and
+    runs masked softmax attention in f32."""
+    _check_shapes(q, k_pages, v_pages, page_indices, lengths, k_scales,
+                  v_scales)
+    B, H, D = q.shape
+    Hkv = k_pages.shape[1]
     G = H // Hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    idx = page_indices.long()
-    S = idx.shape[1] * page
-    # (Hkv, B, max_pages, page, D) -> (B, Hkv, S, D)
-    k = k_pages[layer][:, idx].reshape(Hkv, B, S, D).transpose(0, 1).float()
-    v = v_pages[layer][:, idx].reshape(Hkv, B, S, D).transpose(0, 1).float()
+    k = _gather(k_pages, k_scales, layer, page_indices)
+    v = _gather(v_pages, v_scales, layer, page_indices)
+    S = k.shape[2]
     qg = q.reshape(B, Hkv, G, D).float()
     s = torch.matmul(qg, k.transpose(-1, -2)) * scale          # (B, Hkv, G, S)
     live = torch.arange(S, device=q.device) < lengths.view(B, 1).long()
@@ -72,36 +148,85 @@ def paged_attention_plain(q, k_pages, v_pages, page_indices, lengths,
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def paged_attention_chunked_plain(q, k_pages, v_pages, page_indices, lengths,
+                                  starts, sm_scale: Optional[float] = None,
+                                  layer: int = 0, k_scales=None,
+                                  v_scales=None):
+    """Gathers the table's pages into contiguous (dequantized) K/V and
+    runs softmax attention in f32 under the chunk's causal and length
+    masks."""
+    _check_chunk_shapes(q, k_pages, v_pages, page_indices, lengths, starts,
+                        k_scales, v_scales)
+    B, H, C, D = q.shape
+    Hkv = k_pages.shape[1]
+    G = H // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    k = _gather(k_pages, k_scales, layer, page_indices)
+    v = _gather(v_pages, v_scales, layer, page_indices)
+    S = k.shape[2]
+    qg = q.reshape(B, Hkv, G * C, D).float()                # row g * C + i
+    s = torch.matmul(qg, k.transpose(-1, -2)) * scale      # (B, Hkv, GC, S)
+    t = torch.arange(S, device=q.device)
+    qpos = starts.long().view(B, 1) + torch.arange(C, device=q.device)
+    live = (t <= qpos[..., None]) & (t < lengths.long().view(B, 1, 1))
+    live = live.view(B, 1, 1, C, S)                         # (B, ., G, C, S)
+    s = s.view(B, Hkv, G, C, S).masked_fill(~live, float("-inf"))
+    p = torch.softmax(s, dim=-1).masked_fill(~live.any(-1, keepdim=True), 0.0)
+    o = torch.matmul(p.view(B, Hkv, G * C, S), v)
+    return o.view(B, H, C, D).to(q.dtype)
+
+
+def _check_kernel_inputs(what, q, k_pages, v_pages, ints, scales, quant):
+    tensors = (q, k_pages, v_pages, *ints, *scales)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: the kernel wants every tensor on one CUDA "
+                         f"device; got {[str(t.device) for t in tensors]}")
+    if q.dtype not in KERNEL_DTYPES or k_pages.dtype not in (q.dtype,
+                                                             torch.int8):
+        raise ValueError(f"{what} kernel takes q of one dtype of "
+                         f"{KERNEL_DTYPES} and pools of q's dtype or int8; "
+                         f"got {q.dtype}, {k_pages.dtype}")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{what} kernel wants int32 page_indices, lengths "
+                         "and starts")
+    if quant and any(s.dtype != torch.float32 or not s.is_contiguous()
+                     for s in scales):
+        raise ValueError(f"{what} kernel wants contiguous f32 scales")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}; got {q.shape[-1]}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError(f"{what} kernel wants contiguous pools")
+
+
+def _layer_in(layer, L):
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside the pool's {L} layers")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def paged_attention(q, k_pages, v_pages, page_indices, lengths,
-                    sm_scale: Optional[float] = None, layer: int = 0):
+                    sm_scale: Optional[float] = None, layer: int = 0,
+                    k_scales=None, v_scales=None):
     """Paged decode attention; see the module docstring."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_indices,
-                                     lengths, sm_scale, layer)
-    _check_shapes(q, k_pages, v_pages, page_indices, lengths)
-    tensors = (q, k_pages, v_pages, page_indices, lengths)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("paged_attention: the kernel wants every tensor on "
-                         "one CUDA device; got "
-                         f"{[str(t.device) for t in tensors]}")
-    if q.dtype not in KERNEL_DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise ValueError(f"paged_attention kernel takes one dtype of "
-                         f"{KERNEL_DTYPES}; got {q.dtype}, {k_pages.dtype}, "
-                         f"{v_pages.dtype}")
-    if page_indices.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("paged_attention kernel wants int32 page_indices "
-                         "and lengths")
+                                     lengths, sm_scale, layer, k_scales,
+                                     v_scales)
+    quant = _check_shapes(q, k_pages, v_pages, page_indices, lengths,
+                          k_scales, v_scales)
+    scales = (k_scales, v_scales) if quant else ()
+    _check_kernel_inputs("paged_attention", q, k_pages, v_pages,
+                         (page_indices, lengths), scales, quant)
     B, H, D = q.shape
     L, Hkv, P, page, _ = k_pages.shape
-    if D not in KERNEL_HEAD_DIMS or H // Hkv > MAX_GROUP:
-        raise ValueError(f"paged_attention kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS} and at most {MAX_GROUP} query "
-                         f"heads per kv head; got D={D}, {H // Hkv}")
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} outside the pool's {L} layers")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged_attention kernel wants contiguous pools")
+    if H // Hkv > MAX_GROUP:
+        raise ValueError(f"paged_attention kernel takes at most {MAX_GROUP} "
+                         f"query heads per kv head; got {H // Hkv}")
+    _layer_in(layer, L)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     q = q.contiguous()
     page_indices, lengths = page_indices.contiguous(), lengths.contiguous()
@@ -111,16 +236,60 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
         return o
     lib = native.kernels()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.cubecl_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_indices.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-            native.DTYPE_CODES[q.dtype],
-            B, H, Hkv, D, layer, P, page, page_indices.shape[1],
-            scale * LOG2E, stream)
+            _ptr(k_scales), _ptr(v_scales), page_indices.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), native.DTYPE_CODES[q.dtype],
+            native.DTYPE_CODES[k_pages.dtype], B, H, Hkv, D, layer, P, page,
+            page_indices.shape[1], scale * LOG2E,
+            torch.cuda.current_stream().cuda_stream)
     native.check(lib, rc, "paged_attention")
     paged_attention.launches += 1
+    if quant:
+        paged_attention.int8_launches += 1
     return o
 
 
 paged_attention.launches = 0
+paged_attention.int8_launches = 0  # the launches on int8 pools among them
+
+
+def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
+                            starts, sm_scale: Optional[float] = None,
+                            layer: int = 0, k_scales=None, v_scales=None):
+    """Chunked paged attention; see the module docstring."""
+    if q.device.type == "cpu":
+        return paged_attention_chunked_plain(
+            q, k_pages, v_pages, page_indices, lengths, starts, sm_scale,
+            layer, k_scales, v_scales)
+    quant = _check_chunk_shapes(q, k_pages, v_pages, page_indices, lengths,
+                                starts, k_scales, v_scales)
+    scales = (k_scales, v_scales) if quant else ()
+    _check_kernel_inputs("paged_attention_chunked", q, k_pages, v_pages,
+                         (page_indices, lengths, starts), scales, quant)
+    B, H, C, D = q.shape
+    L, Hkv, P, page, _ = k_pages.shape
+    _layer_in(layer, L)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    q = q.contiguous()
+    page_indices, lengths, starts = (t.contiguous() for t in
+                                     (page_indices, lengths, starts))
+    native.check_aligned(q, k_pages, v_pages)
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    lib = native.kernels()
+    with torch.cuda.device(q.device):
+        rc = lib.cubecl_paged_chunked(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            _ptr(k_scales), _ptr(v_scales), page_indices.data_ptr(),
+            lengths.data_ptr(), starts.data_ptr(), o.data_ptr(),
+            native.DTYPE_CODES[q.dtype], native.DTYPE_CODES[k_pages.dtype],
+            B, H, Hkv, C, D, layer, P, page, page_indices.shape[1],
+            scale * LOG2E, torch.cuda.current_stream().cuda_stream)
+    native.check(lib, rc, "paged_attention_chunked")
+    paged_attention_chunked.launches += 1
+    return o
+
+
+paged_attention_chunked.launches = 0

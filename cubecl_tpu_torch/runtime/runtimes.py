@@ -75,11 +75,14 @@ def eval_client(device="cpu") -> ComputeClient:
 
 
 def default_client(device: int = 0) -> ComputeClient:
-    """CUDA when a card is visible, else the CPU twin (as the JAX
-    package's ``default_client`` picks the TPU, else its interpreter)."""
-    if torch.cuda.is_available():
-        return CudaRuntime.client(device)
-    return CpuRuntime.client(device)
+    """The CUDA client of card ``device``. Raises where no card is
+    visible: the CPU twin is asked for by name (``CpuRuntime.client()`` or
+    ``client_for("cpu")``), never taken in silence."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("default_client: no CUDA device is visible; use "
+                           "CpuRuntime.client() or client_for('cpu') for the "
+                           "CPU twin")
+    return CudaRuntime.client(device)
 
 
 def _with_index(dev: torch.device) -> torch.device:

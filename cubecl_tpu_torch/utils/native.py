@@ -9,7 +9,9 @@ so an edited kernel is rebuilt and an unchanged one is loaded as is.
 Counterpart of ``cubecl_tpu/utils/native.py``, without its silent fallbacks:
 a missing ``nvcc``, a compile error or a library that does not load raises
 :class:`KernelBuildError` with the compiler's output. Nothing is built at
-import time; :func:`kernels` builds on first use.
+import time; :func:`kernels` builds on first use. The host page pool
+(``csrc/page_pool.cc``, not a ``.cu`` file) is built apart by g++ in
+:func:`page_pool`.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +48,8 @@ _SIGNATURES = {
                          _I, _F, _I, _VP],
     "cubecl_flash_bwd_dkv": [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_flash_bwd_dq": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
-    "cubecl_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _VP],
+    "cubecl_paged_decode": [_VP] * 8 + [_I] * 10 + [_F, _VP],
+    "cubecl_paged_chunked": [_VP] * 9 + [_I] * 11 + [_F, _VP],
 }
 
 
@@ -160,6 +162,67 @@ def kernels() -> ctypes.CDLL:
             lib.cubecl_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
+
+
+PAGE_POOL_SRC = os.path.join(CSRC_DIR, "page_pool.cc")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+_I32, _I64 = ctypes.c_int32, ctypes.c_int64
+_POOL_SIGNATURES = {
+    "page_pool_create": ([_I32], _I64),
+    "page_pool_destroy": ([_I64], _I32),
+    "page_pool_num_free": ([_I64], _I32),
+    "page_pool_seq_pages": ([_I64, _I64], _I32),
+    "page_pool_alloc_seq": ([_I64, _I64, _I32], _I32),
+    "page_pool_append": ([_I64, _I64], _I32),
+    "page_pool_fork": ([_I64, _I64, _I64], _I32),
+    "page_pool_free_seq": ([_I64, _I64], _I32),
+    "page_pool_fill_table": ([_I64, _VP, _I32, _VP, _I32], _I32),
+    "page_pool_unshare_last": ([_I64, _I64], _I64),
+    "page_pool_register_prefix": ([_I64, _I64, _VP, _I32], _I32),
+    "page_pool_admit_cached": ([_I64, _I64, _VP, _I32], _I32),
+    "page_pool_refcount": ([_I64, _I32], _I32),
+}
+_POOL_LIB: Optional[ctypes.CDLL] = None
+
+
+def page_pool() -> ctypes.CDLL:
+    """The host page pool of ``csrc/page_pool.cc`` (the block manager of
+    ``runtime/pages.py``): plain C++ built by ``$CXX`` (default ``g++``)
+    into ``build/`` at first use, under a name that hashes the source and
+    flags, and loaded with ctypes. Raises :class:`KernelBuildError` when it
+    cannot be compiled or loaded."""
+    global _POOL_LIB
+    with _LOCK:
+        if _POOL_LIB is not None:
+            return _POOL_LIB
+        with open(PAGE_POOL_SRC, "rb") as fh:
+            h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + fh.read())
+        so = os.path.join(BUILD_DIR, f"page_pool_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(so):
+            cxx = os.environ.get("CXX") or "g++"
+            if shutil.which(cxx) is None:
+                raise KernelBuildError(f"{cxx} not found: the page pool of "
+                                       "cubecl_tpu_torch needs a C++ compiler")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            p = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, PAGE_POOL_SRC],
+                               capture_output=True, text=True)
+            if p.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise KernelBuildError(f"{cxx} failed (exit {p.returncode}) "
+                                       f"on {PAGE_POOL_SRC}:\n{p.stderr}")
+            os.replace(tmp, so)
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {so}: {e}") from e
+        for name, (argtypes, restype) in _POOL_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _POOL_LIB = lib
+        return lib
 
 
 def check_aligned(*tensors) -> None:

@@ -30,7 +30,10 @@ from cubecl_tpu_torch.ops.attention import (
 )
 from cubecl_tpu_torch.ops.paged_attention import (
     paged_attention,
+    paged_attention_chunked,
+    paged_attention_chunked_plain,
     paged_attention_plain,
+    quantize_kv,
 )
 
 pytestmark = pytest.mark.cuda
@@ -265,3 +268,105 @@ def test_train_step_kernels_match_plain(dev):
             tol = 1e-4 * b.grad.abs().max().item()
             assert (a.grad - b.grad).abs().max().item() <= tol, name
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _int8_pools(g, dev, shape):
+    """int8 pools and their f32 scales, from N(0, 1) pools."""
+    kq, ks = quantize_kv(torch.randn(shape, generator=g, device=dev))
+    vq, vs = quantize_kv(torch.randn(shape, generator=g, device=dev))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 2, 2, 64), (3, 4, 8, 128)],
+                         ids=["B6-Hkv2-G2-D64", "B3-Hkv4-G8-D128"])
+def test_paged_int8_kernel_matches_plain(dev, dtype, shape):
+    """P1 on int8 pools: lengths 0, 1, mid-page, a page boundary and past
+    it, against the plain version on the same int8 pools and scales."""
+    B, Hkv, G, D = shape
+    g = torch.Generator(device=dev).manual_seed(B * D)
+    L, page, max_pages = 3, 16, 5
+    P = B * max_pages + 3
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(dtype)
+    kq, vq, ks, vs = _int8_pools(g, dev, (L, Hkv, P, page, D))
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    lengths = torch.tensor([0, 1, 15, 16, 17, 80][:B], dtype=torch.int32,
+                           device=dev)
+    n = (paged_attention.launches, paged_attention.int8_launches)
+    got = paged_attention(q, kq, vq, table, lengths, layer=1, k_scales=ks,
+                          v_scales=vs)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.int8_launches) == \
+        (n[0] + 1, n[1] + 1)
+    _close(got, paged_attention_plain(q, kq, vq, table, lengths, layer=1,
+                                      k_scales=ks, v_scales=vs))
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2, 2, 5, 64), (2, 2, 3, 70, 128)],
+                         ids=["B4-Hkv2-G2-C5-D64", "B2-Hkv2-G3-C70-D128"])
+def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape):
+    """P3: chunks starting at 0, in mid-page and on a page boundary, one
+    row of length 0 and one whose length stops inside its chunk, against
+    the plain version."""
+    B, Hkv, G, C, D = shape
+    g = torch.Generator(device=dev).manual_seed(C * D + quant)
+    L, page, max_pages = 2, 16, 10
+    P = B * max_pages + 3
+    q = torch.randn(B, Hkv * G, C, D, generator=g, device=dev).to(dtype)
+    if quant:
+        kp, vp, ks, vs = _int8_pools(g, dev, (L, Hkv, P, page, D))
+    else:
+        kp, vp = (torch.randn(L, Hkv, P, page, D, generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    for starts, lengths in (([0, 7, 16, 40][:B], None),
+                            ([0, 9, 3, 20][:B], [0, 12, 30, 25][:B])):
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ln = st + C if lengths is None else torch.tensor(
+            lengths, dtype=torch.int32, device=dev)
+        n = paged_attention_chunked.launches
+        got = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                      k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        assert paged_attention_chunked.launches == n + 1
+        _close(got, paged_attention_chunked_plain(
+            q, kp, vp, table, ln, st, layer=1, k_scales=ks, v_scales=vs))
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"], ids=["f32", "int8"])
+def test_chunked_serving_kernels_match_plain(dev, kv_dtype):
+    """prefill_chunked, decode steps and speculative decoding (self-draft)
+    with the kernels against the plain versions, f32: equal tokens; logits
+    to f32 summation order, and on an int8 cache to 1e-3, where a K/V value
+    quantized from a slightly other f32 number may land one int8 step
+    away."""
+    cfg = llama.LlamaConfig(vocab=128, d_model=256, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512, kv_dtype=kv_dtype,
+                            use_framework_kernels=False)
+    model = llama.init_params(cfg, seed=0, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 70), dtype=np.int32)).to(dev)
+    out = []
+    for kernels in (True, False):
+        n = paged_attention_chunked.launches
+        c = llama.init_kv_cache(cfg, 3, 4, 32, dev)
+        lg, c = llama.prefill_chunked(model, c, prompt, chunk=32,
+                                      kernels=kernels)
+        assert paged_attention_chunked.launches == n + (
+            3 * cfg.n_layers if kernels else 0)
+        toks, acc = llama.speculative_generate(model, prompt, 6, model,
+                                               gamma=3, max_pages=4,
+                                               page=32, kernels=kernels)
+        out.append((lg, toks, acc))
+    (lk, tk, ak), (lp, tp, ap) = out
+    tol = 1e-3 if kv_dtype else 2e-5
+    torch.testing.assert_close(lk, lp, atol=tol, rtol=max(tol, 1e-4))
+    assert torch.equal(tk, tp) and ak == ap == 3.0
+    assert torch.equal(tk, llama.generate(model, prompt, 6, max_pages=4,
+                                          page=32))

@@ -32,7 +32,7 @@ B, S, PAGE, MAX_PAGES = 2, 20, 8, 4
 def models():
     jcfg = jllama.LlamaConfig(**CFG)
     jparams = jllama.init_params(jcfg, seed=3)
-    model = llama.Llama(llama.LlamaConfig(**CFG))
+    model = llama.Llama(llama.LlamaConfig(**CFG), device="cpu")
     model.load_state_dict(llama.params_from_jax(
         jax.tree.map(np.asarray, jparams)))
     return jcfg, jparams, model
@@ -58,7 +58,7 @@ def test_prefill_and_decode_steps(models, prompt):
     jcfg, jparams, model = models
     jc = jllama.init_kv_cache(jcfg, B, MAX_PAGES, PAGE)
     jl, jc = jllama.prefill(jparams, jc, jnp.asarray(prompt), jcfg)
-    c = llama.init_kv_cache(model.cfg, B, MAX_PAGES, PAGE)
+    c = llama.init_kv_cache(model.cfg, B, MAX_PAGES, PAGE, "cpu")
     lg, c = llama.prefill(model, c, torch.from_numpy(prompt))
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), atol=ATOL,
                                rtol=RTOL)
@@ -99,13 +99,13 @@ def test_prefill_matches_token_by_token():
     cfg = llama.LlamaConfig(vocab=64, d_model=64, n_heads=2, n_kv_heads=1,
                             n_layers=2, d_ff=128, seq=32,
                             use_framework_kernels=False)
-    model = llama.init_params(cfg, seed=2)
+    model = llama.init_params(cfg, seed=2, device="cpu")
     page = 16                       # S = 20 crosses a page boundary
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (B, S), dtype=np.int32))
-    c1 = llama.init_kv_cache(cfg, B, 4, page)
+    c1 = llama.init_kv_cache(cfg, B, 4, page, "cpu")
     lg1, c1 = llama.prefill(model, c1, prompt)
-    c2 = llama.init_kv_cache(cfg, B, 4, page)
+    c2 = llama.init_kv_cache(cfg, B, 4, page, "cpu")
     for t in range(S):
         lg2, c2 = llama.decode_step(model, c2, prompt[:, t])
     np.testing.assert_allclose(lg1.numpy(), lg2.numpy(), atol=2e-5, rtol=1e-5)
@@ -125,7 +125,7 @@ def test_prefill_matches_token_by_token():
 def test_generate_plain_equals_kernel_route_on_cpu(prompt):
     """On the CPU both routes are the plain versions: kernels=False must
     not change a thing."""
-    model = llama.init_params(llama.LlamaConfig(**CFG), seed=5)
+    model = llama.init_params(llama.LlamaConfig(**CFG), seed=5, device="cpu")
     p = torch.from_numpy(prompt)
     np.testing.assert_array_equal(
         llama.generate(model, p, 3, MAX_PAGES, PAGE).numpy(),
@@ -134,7 +134,8 @@ def test_generate_plain_equals_kernel_route_on_cpu(prompt):
 
 @pytest.mark.parametrize("option", [
     dict(attn_sinks=2), dict(n_experts=4),
-    dict(moe_capacity=8), dict(kv_dtype="int8"), dict(attn_window=16),
+    dict(moe_capacity=8), dict(attn_window=16, attn_sinks=4),
+    dict(attn_window=16),
     dict(ring_cache=True), dict(attn_window=16, ring_cache=True)])
 def test_unsupported_options_raise(option):
     cfg = llama.LlamaConfig(**{**CFG, **option})
@@ -142,8 +143,31 @@ def test_unsupported_options_raise(option):
         llama.Llama(cfg)
 
 
+def test_builders_default_to_the_card():
+    """Models and caches are built on the card unless asked otherwise
+    (checked by signature: nothing is built here)."""
+    import inspect
+
+    from cubecl_tpu_torch.models import transformer
+
+    for fn in (llama.init_params, llama.init_kv_cache, llama.Llama,
+               llama.LlamaLayer, transformer.init_params,
+               transformer.Transformer, transformer.TransformerLayer):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_default_client_raises_without_a_card():
+    from cubecl_tpu_torch.runtime import client_for, default_client
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_client()
+    assert client_for("cpu") is CpuRuntime.client()
+
+
 def test_lora_and_capacity_errors(prompt):
-    model = llama.init_params(llama.LlamaConfig(**CFG))
+    model = llama.init_params(llama.LlamaConfig(**CFG), device="cpu")
     p = torch.from_numpy(prompt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama.forward(model, p, lora={})
@@ -164,7 +188,7 @@ def fw_models():
     jcfg = jllama.LlamaConfig(**FW)
     assert jcfg.use_framework_kernels       # the JAX default
     jparams = jllama.init_params(jcfg, seed=4)
-    model = llama.Llama(llama.LlamaConfig(**FW))
+    model = llama.Llama(llama.LlamaConfig(**FW), device="cpu")
     model.load_state_dict(llama.params_from_jax(
         jax.tree.map(np.asarray, jparams)))
     prompt = np.random.default_rng(4).integers(0, FW["vocab"], (FW_B, FW_S),
@@ -223,7 +247,7 @@ def test_params_layout_independent_of_framework_flag():
             seed=4)
         sd = llama.params_from_jax(jax.tree.map(np.asarray, jp))
         model = llama.Llama(llama.LlamaConfig(
-            **{**FW, "use_framework_kernels": not flag}))
+            **{**FW, "use_framework_kernels": not flag}), device="cpu")
         model.load_state_dict(sd, strict=True)
         sds.append(sd)
     assert sds[0].keys() == sds[1].keys()

@@ -59,3 +59,14 @@ def test_compile_error_raises_with_compiler_output(fresh_build, monkeypatch):
                        match=r"(?s)exit 2.*expected a"):
         native.build()
     assert not os.listdir(fresh_build / "build")  # no partial library left
+
+
+def test_page_pool_without_a_compiler_raises(monkeypatch, tmp_path):
+    """PageAllocator takes the C++ pool or raises: there is no fallback."""
+    from cubecl_tpu_torch.runtime.pages import PageAllocator
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_POOL_LIB", None)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(native.KernelBuildError, match="not found"):
+        PageAllocator(4, 16)

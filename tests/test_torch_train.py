@@ -70,7 +70,8 @@ def case(request):
 
 
 def _model(case, **over):
-    model = llama.Llama(llama.LlamaConfig(**{**case["cfg"], **over}))
+    model = llama.Llama(llama.LlamaConfig(**{**case["cfg"], **over}),
+                        device="cpu")
     model.load_state_dict(case["state"])
     return model
 

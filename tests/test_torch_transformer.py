@@ -50,7 +50,8 @@ def ref():
 
 
 def _model(ref, **over):
-    model = tr.Transformer(tr.TransformerConfig(**{**CFG, **over}))
+    model = tr.Transformer(tr.TransformerConfig(**{**CFG, **over}),
+                           device="cpu")
     model.load_state_dict(ref["state"])
     return model
 
@@ -112,7 +113,8 @@ def test_flash_route_matches_plain_route():
     out = []
     for flash, kernels in ((True, True), (False, True), (True, False)):
         model = tr.init_params(tr.TransformerConfig(
-            **cfg, use_flash_attention=flash), seed=4).requires_grad_(True)
+            **cfg, use_flash_attention=flash), seed=4,
+            device="cpu").requires_grad_(True)
         loss = tr.loss_fn(model, tokens, kernels=kernels)
         loss.backward()
         out.append((loss.item(), _grads(model)))
@@ -122,5 +124,5 @@ def test_flash_route_matches_plain_route():
 
 
 def test_params_from_jax_names_every_leaf(ref):
-    model = tr.init_params(tr.TransformerConfig(**CFG), seed=0)
+    model = tr.init_params(tr.TransformerConfig(**CFG), seed=0, device="cpu")
     assert set(ref["state"]) == set(model.state_dict())
