@@ -35,23 +35,37 @@ k the 0.77B bf16 llama through ``prefill_chunked``, ``decode_chunk``,
 and continuous batching with prefix caching on the ``PageAllocator``,
 each with its kernel launches checked, l the same paths on the d768 f32
 llama against the plain versions (and each batched request against its
-solo run). Each kernel's line gives its time beside its bound (bytes over
-3.35 TB/s or operations over the dtype's peak) and, where one PyTorch
-call computes the same function, that call's time. Then a
+solo run). Then the autotuned matmul (BASELINE config 4): m the matmul
+kernel (M1; M1 with device scales; M2 with host scales) against plain at
+4096^3 and the llama FFN projection 8192 x 2048 x 5632, for bf16, f32,
+fp8 e4m3/e5m2 and int8 (exact) operands and both B layouts, every tile
+instance checked, n ``matmul_autotuned`` at bf16 and e4m3 4096^3 and the
+llama shape, each tuned through captured CUDA graphs timed by CUDA events
+into a fresh sqlite store (``CUBECL_ENVIRONMENT_ROOT`` in a temp dir),
+the store read back by a second call and by a new tuner, one tune with
+checks, the headline TFLOP/s, ``matmul_scaled`` and ``matmul_quantized``,
+o ``matmul_cmma`` through K0 with cmma printed (f32 512^3, bf16 512^3
+and 4096^3) against plain and the evaluator, and the K0 quant kernels
+against plain, bit for bit. Each kernel's line gives its time beside its
+bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
+where one PyTorch call computes the same function, that call's time. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero before the last line; without a CUDA device
 (or without the package beside it) the script exits non-zero and prints no
 result. Imports only torch, numpy and cubecl_tpu_torch.
 """
 
+import atexit
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,8 +87,10 @@ LOGIT_TOL = 1e-4
 CHAIN_TOL = (3e-2, 3e-2)
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
-# bf16 on the tensor cores, f32 off them, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# bf16/f16, fp8 and int8 on the tensor cores, f32 off them, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float8_e4m3fn: 1979e12, torch.float8_e5m2: 1979e12,
+              torch.int8: 1979e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # phase k, the 0.77B bf16 llama served by two paths that round in other
 # places (chunked against one-shot prefill, decode_chunk against decode
@@ -344,6 +360,8 @@ def k0_ptxas(cu):
     """'kernel: stack/spill bytes' of each K0 build, from ptxas -v."""
     out = []
     for c in cu.server._cache.values():
+        if not hasattr(c.fn, "build"):  # a hand-written kernel's task
+            continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       c.fn.build.log)
         if m:
@@ -493,8 +511,14 @@ def _plain_softmax_bwd(y, dy):
     return ((dyf - (yf * dyf).sum(-1, keepdim=True)) * yf).to(y.dtype)
 
 
+_DT_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16", torch.float8_e4m3fn: "e4m3",
+              torch.float8_e5m2: "e5m2", torch.int8: "int8",
+              torch.int32: "int32"}
+
+
 def _dt(dtype):
-    return "bf16" if dtype == torch.bfloat16 else "f32"
+    return _DT_NAMES[dtype]
 
 
 def bwd_cases(dev, gen):
@@ -1616,13 +1640,490 @@ def slice_exactness(llama, pa, fa, dev, card):
     return "exactness llama d768 f32, kernels vs plain: " + "; ".join(lines)
 
 
+# -- the matmul slice (phases m-o) -------------------------------------------
+
+# the slice's shapes: BASELINE config 4's 4096^3 (M = N = K = MM_S) and
+# the 0.77B llama's FFN up-projection at its training batch (B 8 x S 1024
+# tokens, d 2048 -> d_ff 5632), (M, N, K)
+MM_S = 4096
+MM_FFN = (8192, 5632, 2048)
+# phase m's shapes, (name, M, N, K)
+MM_SHAPES = [(f"{MM_S}^3", MM_S, MM_S, MM_S),
+             ("llama FFN 8192x2048x5632", *MM_FFN)]
+# phase m's cases: (operands, output, B given as (N, K), epilogue: None,
+# "device" scales (M1 scaled, the quantized route) or "host" scales (M2))
+MM_CASES = [
+    (torch.bfloat16, torch.bfloat16, False, None),
+    (torch.bfloat16, torch.float32, False, None),
+    (torch.bfloat16, torch.bfloat16, True, None),
+    (torch.float32, torch.float32, False, None),
+    (torch.float32, torch.bfloat16, True, None),
+    (torch.float8_e4m3fn, torch.float32, False, None),
+    (torch.float8_e4m3fn, torch.float32, True, None),
+    (torch.float8_e5m2, torch.float32, False, None),
+    (torch.float8_e5m2, torch.float32, True, None),
+    (torch.int8, torch.int32, False, None),
+    (torch.int8, torch.int32, True, None),
+    (torch.int8, torch.float32, False, "device"),  # matmul_quantized's
+    (torch.int8, torch.float32, True, "device"),
+    (torch.float8_e4m3fn, torch.bfloat16, True, "host"),
+]
+MM_SCALES = (0.5, 0.25)  # sa, sb of the scaled epilogues; sa * sb exact
+# phase o: matmul_cmma's (operands, M = N = K), as examples/matmul.py
+CMMA_CASES = [(torch.float32, 512), (torch.bfloat16, 512),
+              (torch.bfloat16, 4096)]
+QUANT_N = 4096 * 4096  # matmul_quantized's operands at 4096^2
+QUANT_BLOCK = 4096
+
+
+def mm_compile_only(mm, qk, co):
+    """Phase 2: start the nvcc of every K0 kernel of phases n and o
+    (``matmul_cmma`` at CMMA_CASES, the quant kernels at 4096^2) through
+    the compile-only client ``co``."""
+    from cubecl_tpu_torch.std.quant import QuantLevel, QuantScheme
+
+    for dt, S in CMMA_CASES:
+        name = str(dt).replace("torch.", "")
+        mm.matmul_cmma(co, co.empty((S * S,), name), co.empty((S * S,), name),
+                       co.empty((S * S,), "float32"), S, S, S)
+    x = co.empty((QUANT_N,), "float32")
+    for scheme in (QuantScheme(), QuantScheme(level=QuantLevel.BLOCK,
+                                              block_size=QUANT_BLOCK)):
+        vals, scales = qk.quantize(co, x, scheme)
+        qk.dequantize(co, vals, scales, scheme)
+    S = MM_S  # phase n's matmul_quantized, on 2-D handles
+    mm.matmul_quantized(co, *(co.empty((S, S), "float32") for _ in range(3)),
+                        S, S, S)
+
+
+def mm_operand(gen, dev, dtype, shape, K):
+    """N(0, K^-1/2) entries, so that a sum of K products is ~N(0, 1), in
+    ``dtype``; int8 uniform over its whole range."""
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    return (torch.randn(shape, generator=gen, device=dev)
+            * K ** -0.25).to(dtype)
+
+
+def mm_bound(M, N, K, in_dt, out_dt):
+    """2MNK operations at the operands' peak; a and b read once, the
+    output written once."""
+    nbytes = (M * K + K * N) * in_dt.itemsize + M * N * out_dt.itemsize
+    return bound_ms(2 * M * N * K, nbytes, in_dt)
+
+
+def mm_library(a, b, out_dt, bt, epilogue):
+    """(one PyTorch call computing the case's function on the same
+    operands, its name), or (None, why there is none). Timed only."""
+    bb = b.t() if bt else b
+    if epilogue is None and a.dtype == torch.float32 \
+            and out_dt == torch.float32:
+        return (lambda: torch.matmul(a, bb)), "torch.matmul (TF32 off)"
+    if epilogue is None and a.dtype == torch.bfloat16:
+        if out_dt == torch.bfloat16:
+            return (lambda: torch.matmul(a, bb)), "torch.matmul"
+        return (lambda: torch.mm(a, bb, out_dtype=out_dt)), \
+            "torch.mm(out_dtype=float32)"
+    if a.dtype == torch.float8_e4m3fn and bt and epilogue != "device":
+        # cuBLASLt's fp8 GEMM wants B column-major: B given as (N, K)
+        sa, sb = (torch.tensor(s if epilogue else 1.0, device=a.device)
+                  for s in MM_SCALES)
+        return (lambda: torch._scaled_mm(a, bb, scale_a=sa, scale_b=sb,
+                                         out_dtype=out_dt)), \
+            "torch._scaled_mm"
+    if epilogue is None and a.dtype == torch.int8:
+        return (lambda: torch._int_mm(a, bb)), "torch._int_mm"
+    return None, "none: no one call computes this"
+
+
+def _ranked(times, unit):
+    """'tile: time, ...' fastest first, each time times ``unit``."""
+    return ", ".join(f"{t}: {v * unit:.4f}" for t, v in
+                     sorted(times.items(), key=lambda kv: kv[1]))
+
+
+def _mm_what(sname, in_dt, out_dt, bt, epilogue):
+    kern = "M2" if epilogue == "host" else "M1"
+    scaled = {"device": " x sa*sb (device scalars)",
+              "host": " x sa*sb (host floats)"}.get(epilogue, "")
+    return (f"{kern} {sname} {_dt(in_dt)} B as {'(N, K)' if bt else '(K, N)'}"
+            f" -> {_dt(out_dt)}{scaled}")
+
+
+def matmul_vs_plain(mm, dev, gen, card):
+    """Phase m: the matmul kernel (M1, its device-scaled form, and M2)
+    against its plain version at phase m's shapes, by dtype and B layout,
+    every tile instance that divides the shape checked; the fastest
+    tile's time beside the bound, the plain version's and one library
+    call's. int8 -> int32 must be exact."""
+    rows = []
+    for sname, M, N, K in MM_SHAPES:
+        for in_dt, out_dt, bt, epi in MM_CASES:
+            a = mm_operand(gen, dev, in_dt, (M, K), K)
+            b = mm_operand(gen, dev, in_dt, (N, K) if bt else (K, N), K)
+            if epi == "device":
+                sa, sb = (torch.tensor([s], device=dev) for s in MM_SCALES)
+                scale = sa[0] * sb[0]
+            elif epi == "host":
+                sa, sb = MM_SCALES
+                scale = sa * sb
+            else:
+                sa = sb = scale = None
+            counter = mm.matmul_scaled if epi == "host" else mm.matmul_pallas
+            what = _mm_what(sname, in_dt, out_dt, bt, epi)
+            want = mm.matmul_plain(a, b, out_dt, bt, scale)
+            o = torch.empty(M, N, device=dev, dtype=out_dt)
+            times, err = {}, 0.0
+            tiles = mm._tile_candidates(M, N, K, in_dt.itemsize)
+            for tile in tiles:
+                def run(t=tile):
+                    mm._gemm(a, b, o, t, bt, sa, sb, counter=counter)
+                o.zero_()
+                run()
+                torch.cuda.synchronize()
+                if out_dt == torch.int32:
+                    if not torch.equal(o, want):
+                        fail(f"phase m {what} tile {tile}: not exact, "
+                             f"{int((o != want).sum())} elements differ")
+                else:
+                    err = max(err, compare(o, want, f"{what} tile {tile}"))
+                times[tile] = cuda_ms(run, iters=10, warmup=2)
+            best = min(times, key=times.get)
+            plain_ms = cuda_ms(lambda: mm.matmul_plain(a, b, out_dt, bt,
+                                                       scale),
+                               iters=5, warmup=1)
+            lib, lib_name = mm_library(a, b, out_dt, bt, epi)
+            lib_ms = cuda_ms(lib, iters=10) if lib else None
+            bms, by = mm_bound(M, N, K, in_dt, out_dt)
+            ms = times[best]
+            lib_txt = f"{lib_name} {lib_ms:.4f} ms" if lib else lib_name
+            agree = "exact" if out_dt == torch.int32 else \
+                f"max abs err {err}"
+            print(f"phase m {what}: {len(tiles)} tiles {agree} vs plain; "
+                  f"fastest {best}: {ms:.4f} ms "
+                  f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s, "
+                  f"{100 * bms / ms:.1f}% of the bound {bms:.4f} ms, {by}); "
+                  f"tiles {_ranked(times, 1.0)} ms; plain {plain_ms:.4f} ms; "
+                  f"library {lib_txt} [{card}]", flush=True)
+            rows.append(dict(case=what, tile=list(best), max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library=lib_name,
+                             library_ms=lib_ms))
+            del a, b, o, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _no_tune(*args, **kwargs):
+    fail("phase n: a key already tuned (in memory or in the store) was "
+         "timed again")
+
+
+def autotuned_path(mm, cu, dev, gen, card):
+    """Phase n: the slice's main path through the entry points a user
+    calls (``examples/matmul.py``, ``bench.py``'s matmul rows):
+    ``autotune_top_tiles`` (``matmul_autotuned``) at bf16 4096^3 (the
+    headline), fp8 e4m3 4096^3 and the llama FFN projection, each tuned on
+    first use through captured CUDA graphs timed by CUDA events into the
+    fresh sqlite store; ``matmul_scaled`` (M2) on fp8 weights given as
+    (N, K); ``matmul_quantized`` (the K0 quantize kernels, then M1 with
+    device scales) at 4096^2 f32. The counts are zeroed just before and
+    read just after. Then: a second call and a new ``LocalTuner`` run the
+    stored winner without timing, and one tune with ``checks=True``
+    cross-validates every candidate."""
+    from cubecl_tpu_torch.runtime.config import cache_root
+    from cubecl_tpu_torch.tune import LocalTuner, Tuner
+
+    S, e4m3 = MM_S, torch.float8_e4m3fn
+    fm, fn, fk = MM_FFN
+    x = mm_operand(gen, dev, torch.float32, (S, S), S)
+    y = mm_operand(gen, dev, torch.float32, (S, S), S)
+    head = f"bf16 {S}^3"
+    keys = [(head, x.bfloat16(), y.bfloat16(), S, S, S),
+            (f"e4m3 {S}^3", x.to(e4m3), y.to(e4m3), S, S, S),
+            (f"llama FFN bf16 {fm}x{fk}x{fn}",
+             mm_operand(gen, dev, torch.bfloat16, (fm, fk), fk),
+             mm_operand(gen, dev, torch.bfloat16, (fk, fn), fk), fm, fn, fk)]
+    handles = [(name, cu.create(a), cu.create(b),
+                cu.empty((m, n), "bfloat16"), m, n, k)
+               for name, a, b, m, n, k in keys]
+    a8, w8 = x.to(e4m3), y.t().contiguous().to(e4m3)  # weights as (N, K)
+    m2 = (cu.create(a8), cu.create(w8), cu.empty((S, S), "bfloat16"))
+    q = (cu.create(x), cu.create(y), cu.empty((S, S), "float32"))
+    torch.cuda.synchronize()
+
+    mm.matmul_pallas.launches = 0
+    mm.matmul_scaled.launches = 0
+    cu.server.reset_counts()
+    t_path = time.perf_counter()
+    tuned = []
+    for name, a, b, o, m, n, k in handles:
+        t0 = time.perf_counter()
+        top = mm.autotune_top_tiles(cu, a, b, o, m, n, k, top=8)
+        torch.cuda.synchronize()
+        tuned.append((top, time.perf_counter() - t0))
+    mm.matmul_scaled(cu, *m2, S, S, S, *MM_SCALES, b_transposed=True)
+    t0 = time.perf_counter()
+    mm.matmul_quantized(cu, *q, S, S, S)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    path_s = time.perf_counter() - t_path
+    launches = {"matmul_pallas": mm.matmul_pallas.launches,
+                "matmul_scaled": mm.matmul_scaled.launches,
+                "quantize_block_kernel":
+                    cu.server.launches["quantize_block_kernel"]}
+    if not all(launches.values()):
+        fail(f"phase n: a kernel of the path never launched: {launches} "
+             f"(server: {dict(cu.server.launches)})")
+
+    store = os.path.join(cache_root(), "store.sqlite")
+    if not store.startswith(os.environ["CUBECL_ENVIRONMENT_ROOT"]) \
+            or not os.path.exists(store):
+        fail(f"phase n: the tune store is not in the fresh root: {store}")
+    out = {"launches": launches, "keys": {}}
+    for (name, a, b, o, m, n, k), (top, tune_s) in zip(handles, tuned):
+        in_dt = str(a.dtype).replace("torch.", "")
+        key = mm._tune_key(m, n, k, in_dt, "bfloat16")
+        tuner = mm._matmul_tuner.tuner_for(cu, key)
+        times = tuner.cache.timings(key)
+        cands = mm._tile_candidates(m, n, k, a.tensor.element_size())
+        if len(times) != len(cands) or not all(
+                math.isfinite(t) and t > 0 for t in times.values()):
+            fail(f"phase n {name}: timed {times}, candidates {cands}")
+        err = compare(o.tensor, mm.matmul_plain(a.tensor, b.tensor,
+                                                torch.bfloat16),
+                      f"phase n matmul_autotuned {name}")
+        bms, by = mm_bound(m, n, k, a.dtype, torch.bfloat16)
+        best = top[0]
+        win = times[f"t{best[0]}x{best[1]}x{best[2]}"] * 1e3
+        print(f"phase n matmul_autotuned {name} -> bf16: tuned in "
+              f"{tune_s:.2f} s ({len(times)} candidates, each captured as a "
+              f"CUDA graph, CUDA-event median of replays): "
+              f"{_ranked(times, 1e3)} ms; shortlist {top[:3]}; winner {best} {win:.4f} ms = "
+              f"{2 * m * n * k / win / 1e9:.1f} TFLOP/s, "
+              f"{100 * bms / win:.1f}% of the bound {bms:.4f} ms ({by}); "
+              f"max abs err {err} vs plain [{card}]", flush=True)
+        out["keys"][name] = dict(tile=list(best), tune_s=tune_s,
+                                 graph_ms=win, max_abs_err=err,
+                                 candidates_ms={t: v * 1e3 for t, v in
+                                                times.items()})
+
+    # the store: a second call runs the winner without timing, and so
+    # does a new LocalTuner, which loads the entry from sqlite
+    tune = Tuner._tune
+    Tuner._tune = _no_tune
+    try:
+        fresh = LocalTuner("matmul")
+        for name, a, b, o, m, n, k in handles:
+            in_dt = str(a.dtype).replace("torch.", "")
+            key = mm._tune_key(m, n, k, in_dt, "bfloat16")
+            n0 = mm.matmul_pallas.launches
+            mm.matmul_autotuned(cu, a, b, o, m, n, k)
+            fresh.execute(cu, mm.matmul_tunables(m, n, k, in_dt, "bfloat16"),
+                          cu, a, b, o)
+            torch.cuda.synchronize()
+            want = mm._matmul_tuner.tuner_for(cu, key).cache.get(key)
+            if mm.matmul_pallas.launches != n0 + 2 or \
+                    fresh.tuner_for(cu, key).cache.get(key) != want:
+                fail(f"phase n {name}: the stored winner did not run alone "
+                     f"({mm.matmul_pallas.launches - n0} launches)")
+    finally:
+        Tuner._tune = tune
+    name, a, b, o, m, n, k = handles[0]
+    chk = Tuner(mm.matmul_tunables(m, n, k, "bfloat16", "bfloat16"), cu,
+                checks=True)
+    chk.cache.store = None
+    chk.cache.mem.clear()
+    t0 = time.perf_counter()
+    chk.execute(cu, a, b, o)
+    torch.cuda.synchronize()
+    chk_s = time.perf_counter() - t0
+    if chk.check_failures:
+        fail(f"phase n checks: {chk.check_failures}")
+    print(f"phase n tune store {os.path.relpath(store, os.environ['CUBECL_ENVIRONMENT_ROOT'])}"
+          f" ({os.path.getsize(store)} bytes) under a fresh "
+          f"CUBECL_ENVIRONMENT_ROOT: a second matmul_autotuned call and a "
+          f"new LocalTuner ran each stored winner with no timing; checks="
+          f"True cross-validated all {len(chk.tunables.tunables)} "
+          f"{head} candidates in {chk_s:.2f} s", flush=True)
+
+    # the headline (bench.py's bf16_4096_matmul_pct_mxu_peak), per call of
+    # the entry point and per launch of the winner's kernel
+    _, a, b, o, m, n, k = handles[0]
+    best = tuple(out["keys"][head]["tile"])
+    call_ms = cuda_ms(lambda: mm.matmul_autotuned(cu, a, b, o, m, n, k))
+    ms = cuda_ms(lambda: mm._gemm(a.tensor, b.tensor, o.tensor, best, False,
+                                  counter=mm.matmul_pallas))
+    plain_ms = cuda_ms(lambda: mm.matmul_plain(a.tensor, b.tensor,
+                                               torch.bfloat16), iters=5)
+    lib_ms = cuda_ms(lambda: torch.matmul(a.tensor, b.tensor))
+    bms, by = mm_bound(m, n, k, torch.bfloat16, torch.bfloat16)
+    tflops = 2 * m * n * k / ms / 1e9
+    print(f"phase n headline {head} -> bf16, tile {best}: kernel "
+          f"{ms:.4f} ms = {tflops:.1f} TFLOP/s = {100 * tflops / 989:.1f}% "
+          f"of 989 TFLOP/s; matmul_autotuned per call {call_ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; torch.matmul {lib_ms:.4f} ms "
+          f"({2 * m * n * k / lib_ms / 1e9:.1f} TFLOP/s); bound {bms:.4f} "
+          f"ms ({by}) [{card}]", flush=True)
+    out["matmul"] = dict(max_abs_err=out["keys"][head]["max_abs_err"],
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by, per_call_ms=call_ms,
+                         tflops=tflops, pct_of_989=100 * tflops / 989,
+                         tile=list(best))
+
+    # M2 on fp8 weights
+    scale = MM_SCALES[0] * MM_SCALES[1]
+    err = compare(m2[2].tensor, mm.matmul_plain(a8, w8, torch.bfloat16, True,
+                                                scale),
+                  f"phase n matmul_scaled e4m3 {S}^3")
+    ms = cuda_ms(lambda: mm.matmul_scaled(cu, *m2, S, S, S, *MM_SCALES,
+                                          b_transposed=True))
+    plain_ms = cuda_ms(lambda: mm.matmul_plain(a8, w8, torch.bfloat16, True,
+                                               scale), iters=5)
+    lib, lib_name = mm_library(a8, w8, torch.bfloat16, True, "host")
+    lib_ms = cuda_ms(lib)
+    bms, by = mm_bound(S, S, S, e4m3, torch.bfloat16)
+    print(f"phase n matmul_scaled (M2) e4m3 {S}^3, weights (N, K), x "
+          f"{MM_SCALES[0]} x {MM_SCALES[1]} -> bf16: max abs err {err}; "
+          f"kernel {ms:.4f} ms ({2 * S ** 3 / ms / 1e9:.1f} TFLOP/s); plain "
+          f"{plain_ms:.4f} ms; {lib_name} {lib_ms:.4f} ms; bound {bms:.4f} "
+          f"ms ({by}) [{card}]", flush=True)
+    out["matmul_scaled"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+    # the quantized route: quantization noise, as the JAX test's bound
+    ref = mm.matmul_plain(x, y, torch.float32)
+    rel = ((q[2].tensor - ref).abs().max() / ref.abs().max()).item()
+    if not rel < 3e-2:
+        fail(f"phase n matmul_quantized: relative error {rel} >= 3e-2")
+    print(f"phase n matmul_quantized f32 {S}^2 (K0 per-tensor int8 "
+          f"quantize of a and b, M1 int8 -> int32 with the dequant scale "
+          f"in its epilogue): max relative error {rel} (bound 3e-2), one "
+          f"call {quant_s:.3f} s; the path took {path_s:.2f} s; launches "
+          f"{launches} [{card}]", flush=True)
+    out["quantized_rel_err"] = rel
+    return out
+
+
+def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
+    """Phase o: ``examples/matmul.py``'s DSL path, ``matmul_cmma`` through
+    K0 with cmma printed as CUDA C++ (fragments in shared memory), at
+    CMMA_CASES, each against plain and against the torch evaluator on the
+    card (the counts zeroed before the three calls, read after); then the
+    K0 quant kernels of phase n against their plain versions, bit for
+    bit, and the block-level ones against the evaluator."""
+    from cubecl_tpu_torch.std.quant import QuantLevel, QuantScheme
+
+    ops = [(dt, S, mm_operand(gen, dev, dt, (S, S), S),
+            mm_operand(gen, dev, dt, (S, S), S)) for dt, S in CMMA_CASES]
+    hs = [(cu.create(a.reshape(-1)), cu.create(b.reshape(-1)),
+           cu.empty((S * S,), "float32")) for _, S, a, b in ops]
+    torch.cuda.synchronize()
+    cu.server.reset_counts()
+    for (_, S, _, _), h in zip(ops, hs):
+        mm.matmul_cmma(cu, *h, S, S, S)
+    torch.cuda.synchronize()
+    launches = dict(cu.server.launches)
+    if launches != {"matmul_cmma_nd_kernel": len(CMMA_CASES)}:
+        fail(f"phase o: launches {launches}, want "
+             f"{len(CMMA_CASES)} of matmul_cmma_nd_kernel")
+    row = None
+    for (dt, S, a, b), h in zip(ops, hs):
+        what = f"matmul_cmma {_dt(dt)} {S}^3 -> f32"
+        e = [ev.create(a.reshape(-1)), ev.create(b.reshape(-1)),
+             ev.empty((S * S,), "float32")]
+        mm.matmul_cmma(ev, *e, S, S, S)
+        got = h[2].tensor.view(S, S)
+        want = mm.matmul_plain(a, b, torch.float32)
+        err = compare(got, want, f"phase o {what} vs plain")
+        err_ev = compare(got, e[2].tensor.view(S, S),
+                         f"phase o {what} vs the evaluator")
+        iters = 3 if S > 1024 else 10
+        ms = cuda_ms(lambda: mm.matmul_cmma(cu, *h, S, S, S), iters=iters,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: mm.matmul_plain(a, b, torch.float32),
+                           iters=iters)
+        lib_name = "torch.matmul (TF32 off)" if dt == torch.float32 else \
+            "torch.mm(out_dtype=float32)"
+        lib_ms = cuda_ms((lambda: torch.matmul(a, b)) if dt == torch.float32
+                         else (lambda: torch.mm(a, b,
+                                                out_dtype=torch.float32)))
+        bms, by = mm_bound(S, S, S, dt, torch.float32)
+        tm, tn, tk = mm._cmma_plan(S, S, S, dt.itemsize, 128)
+        print(f"phase o K0 {what} (fragments {tm}x{tn}x{tk}, "
+              f"{mm.CMMA_CUBE_DIM} units a cube): max abs err {err} vs plain, "
+              f"{err_ev} vs the torch evaluator (atol/rtol "
+              f"{TOL[torch.float32]}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{card}]", flush=True)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library=lib_name, bound_ms=bms,
+                   bound_by=by, shape=f"{_dt(dt)} {S}^3 -> f32")
+        del e
+    out = {"k0_cmma": dict(row, launches=launches["matmul_cmma_nd_kernel"])}
+
+    x = torch.randn(QUANT_N, generator=gen, device=dev) * 3
+    xh = cu.create(x)
+    for scheme in (QuantScheme(), QuantScheme(level=QuantLevel.BLOCK,
+                                              block_size=QUANT_BLOCK)):
+        level = scheme.level.value
+        vals, scales = qk.quantize(cu, xh, scheme)
+        back = qk.dequantize(cu, vals, scales, scheme)
+        pv, ps = qk.quantize_plain(x, scheme)
+        torch.cuda.synchronize()
+        differ = {k: int((t != p).sum()) for k, t, p in (
+            ("values", vals.tensor, pv), ("scales", scales.tensor, ps),
+            ("dequantized", back.tensor,
+             qk.dequantize_plain(pv, ps, scheme)))}
+        if any(differ.values()):
+            fail(f"phase o K0 quantize/dequantize {level}: elements that "
+                 f"differ from the plain version's bits: {differ}")
+        if scheme.level == QuantLevel.BLOCK:
+            ev_v, ev_s = qk.quantize(ev, ev.create(x), scheme)
+            differ = {k: int((t != e).sum()) for k, t, e in (
+                ("values", vals.tensor, ev_v.tensor),
+                ("scales", scales.tensor, ev_s.tensor))}
+            if any(differ.values()):
+                fail(f"phase o K0 quantize block: elements that differ from "
+                     f"the evaluator's bits: {differ}")
+        iters = 2 if scheme.level == QuantLevel.TENSOR else 10
+        ms = cuda_ms(lambda: qk.quantize(cu, xh, scheme), iters=iters,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: qk.quantize_plain(x, scheme))
+        n_blocks = ps.numel()
+        bms, by = bound_ms(2 * QUANT_N, QUANT_N * 5 + 4 * n_blocks,
+                           torch.float32)
+        also = " and the evaluator's" if n_blocks > 1 else ""
+        print(f"phase o K0 quantize_block_kernel {level} f32 4096^2 -> int8"
+              f" ({n_blocks} scales): values and scales equal the plain "
+              f"version's bits{also}, dequantize_block_kernel's output the "
+              f"plain version's; quantize {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]",
+              flush=True)
+        if scheme.level == QuantLevel.TENSOR:
+            out["k0_quantize"] = dict(max_abs_err=0.0, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bms,
+                                      bound_by=by)
+        else:
+            out["k0_quantize_block"] = dict(ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bms)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    # phase n tunes into a fresh store, removed at exit
+    tune_root = tempfile.mkdtemp(prefix="cubecl_tune_")
+    atexit.register(shutil.rmtree, tune_root, True)
+    os.environ["CUBECL_ENVIRONMENT_ROOT"] = tune_root
     from cubecl_tpu_torch.models import llama
     from cubecl_tpu_torch.ops import attention as fa
+    from cubecl_tpu_torch.ops import matmul as mm
     from cubecl_tpu_torch.ops import paged_attention as pa
+    from cubecl_tpu_torch.std import quant_kernels as qk
     from cubecl_tpu_torch.utils import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1665,15 +2166,25 @@ def main():
     co = compile_only(cu)
     for c in cases + train_cases:
         c["prepare"](co)()
+    mm_compile_only(mm, qk, co)
     build = native.build()
     native.kernels()
     cu.server.wait_builds()
     build_wall = time.perf_counter() - t0
-    regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in
-                     ptxas_summary(build.log))
+    summary = ptxas_summary(build.log)
+    regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in summary
+                     if "gemm_kernel" not in n)
+    gemm = [(r, s) for n, r, s in summary if "gemm_kernel" in n]
+    spills = sorted({s for _, s in gemm if not s.startswith(
+        "0 bytes stack frame, 0 bytes spill stores")})
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
-          f"{os.path.relpath(build.path)}; ptxas: {regs}", flush=True)
-    print(f"phase 2 build K0: {cu.server.compile_count} @cube kernels "
+          f"{os.path.relpath(build.path)}; ptxas: {regs}; matmul: "
+          f"{len(gemm)} tile instances, {min(r for r, _ in gemm)}-"
+          f"{max(r for r, _ in gemm)} registers, stack or spills in "
+          f"{sum(1 for _, s in gemm if s in spills)} ({'; '.join(spills)})",
+          flush=True)
+    n_k0 = sum(hasattr(c.fn, "build") for c in cu.server._cache.values())
+    print(f"phase 2 build K0: {n_k0} @cube kernels "
           f"printed and built by nvcc in parallel with csrc, "
           f"{build_wall:.1f} s wall for all, {cu.server.build_seconds():.1f}"
           f" s of nvcc summed; ptxas stack/spill per kernel: "
@@ -1856,6 +2367,15 @@ def main():
     print(f"phase l {slice_exactness(llama, pa, fa, dev, card)} [{card}]",
           flush=True)
 
+    # -- phase m: the matmul kernel (M1, M2) against plain, by dtype --------
+    m_rows = matmul_vs_plain(mm, dev, gen, card)
+
+    # -- phase n: the autotuned matmul path (BASELINE config 4) -------------
+    n_out = autotuned_path(mm, cu, dev, gen, card)
+
+    # -- phase o: K0 cmma (matmul_cmma) and the K0 quant kernels ------------
+    o_out = cmma_and_quant(mm, qk, cu, ev, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
@@ -1925,7 +2445,8 @@ def main():
                               ("max_abs_err", "ms", "plain_ms",
                                "library_ms")},
                cube_kernels_compiled=sorted(
-                   {k.name for k in cu.server._cache.values()}),
+                   {k.name for k in cu.server._cache.values()
+                    if hasattr(k.fn, "build")}),
                cube_kernel_launches_phases_b_c=bc_launches,
                cube_kernel_launches_phases_f_h={
                    k: v for k, v in {**f_launches, **h_launches}.items()
@@ -1970,6 +2491,38 @@ def main():
                launches=h_launches["_gelu_bwd_k"],
                library="the autograd backward of F.gelu(approximate="
                        "'none')", shape="bf16 8x1024x3072"),
+        row("matmul", "cubecl_tpu_torch/csrc/matmul.cu",
+            "cubecl_tpu/ops/matmul.py:43", n_out["launches"]["matmul_pallas"],
+            n_out["matmul"], n_out["matmul"]["library_ms"],
+            library="torch.matmul",
+            shape="bf16 4096^3 -> bf16, matmul_autotuned's winner",
+            **{k: n_out["matmul"][k] for k in ("tile", "tflops",
+                                               "pct_of_989", "per_call_ms")},
+            autotuned={k: {f: v[f] for f in ("tile", "tune_s", "graph_ms")}
+                       for k, v in n_out["keys"].items()},
+            quantized_rel_err=n_out["quantized_rel_err"],
+            by_case=m_rows),
+        row("matmul_scaled", "cubecl_tpu_torch/csrc/matmul.cu",
+            "cubecl_tpu/ops/matmul.py:477",
+            n_out["launches"]["matmul_scaled"], n_out["matmul_scaled"],
+            n_out["matmul_scaled"]["library_ms"], library="torch._scaled_mm",
+            shape="e4m3 4096^3, B as (N, K), x sa*sb -> bf16"),
+        row("k0_cmma", "cubecl_tpu_torch/ops/matmul.py (matmul_cmma_nd_"
+            "kernel, printed by cubecl_tpu_torch/backend/cuda/printer.py)",
+            "cubecl_tpu/backend/pallas/emitter.py:48",
+            o_out["k0_cmma"]["launches"], o_out["k0_cmma"],
+            o_out["k0_cmma"]["library_ms"],
+            library=o_out["k0_cmma"]["library"],
+            shape=o_out["k0_cmma"]["shape"]),
+        row("k0_quantize", "cubecl_tpu_torch/std/quant_kernels.py "
+            "(quantize_block_kernel, printed by "
+            "cubecl_tpu_torch/backend/cuda/printer.py)",
+            "cubecl_tpu/backend/pallas/emitter.py:48",
+            n_out["launches"]["quantize_block_kernel"], o_out["k0_quantize"],
+            None, library="none: no one call takes a tensor's absmax scale "
+                          "and quantizes with it",
+            shape="f32 4096^2 -> int8, one per-tensor scale",
+            block_4096=o_out["k0_quantize_block"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -60,12 +60,22 @@ class CompiledKernel:
     ``fn(tensors, scalars)`` runs the kernel on torch tensors in parameter
     order and writes the mutable ones (``mutable_indices``) in place.
     ``source`` is the CUDA C++ the printer wrote, or the scope listing the
-    evaluator runs."""
+    evaluator runs, or a description of a hand-written kernel.
+
+    What the launch asks of the card, for ``runtime/validation.py``:
+    ``block`` and ``grid`` (threads and blocks per dimension) and
+    ``smem_bytes`` of dynamic shared memory; ``smem_opt_in`` says that the
+    launcher sets ``cudaFuncAttributeMaxDynamicSharedMemorySize``, which a
+    kernel needs above 48 KiB."""
 
     fn: Callable
     mutable_indices: List[int]
     source: str
     name: str
+    block: Tuple[int, int, int] = (1, 1, 1)
+    grid: Tuple[int, int, int] = (1, 1, 1)
+    smem_bytes: int = 0
+    smem_opt_in: bool = False
 
     def __call__(self, buffers, scalars=()):
         return self.fn(buffers, scalars)
@@ -78,6 +88,23 @@ def unsupported(what: str, backend: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not lowered by {backend} yet (ROADMAP Queue 1 item 3: "
         "K0 op families still to lower)")
+
+
+SMEM_ALIGN = 16  # bytes: a fragment region starts on a 16-byte boundary
+
+
+def fragment_layout(state) -> Tuple[Dict[int, int], int]:
+    """Where the cmma fragments of a kernel (``state.matrices``, each a
+    whole cube-scope tile) live in its dynamic shared memory: the byte
+    offset of each by vid, and the total bytes."""
+    offsets: Dict[int, int] = {}
+    total = 0
+    for m in state.matrices:
+        offsets[m.vid] = total
+        rows, cols = m.shape
+        nbytes = rows * cols * m.ty.elem.size
+        total += -(-nbytes // SMEM_ALIGN) * SMEM_ALIGN
+    return offsets, total
 
 
 def prepare_scope(defn: KernelDefinition) -> None:

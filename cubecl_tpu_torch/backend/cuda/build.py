@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from ...utils.native import BUILD_DIR as _NATIVE_BUILD_DIR
-from ...utils.native import KernelBuildError, find_nvcc
+from ...utils.native import CudaError, KernelBuildError, find_nvcc
 
 BUILD_DIR = os.path.join(_NATIVE_BUILD_DIR, "k0")
 
@@ -150,6 +150,5 @@ class Launcher:
         gx, gy, gz = self.grid
         code = lib.cubecl_launch(gx, gy, gz, stream, args)
         if code != 0:
-            msg = lib.cubecl_error_string(code).decode()
-            raise RuntimeError(f"{self.name}: CUDA launch error {code} "
-                               f"({msg})")
+            raise CudaError(self.name, code,
+                            lib.cubecl_error_string(code).decode())

@@ -37,7 +37,23 @@ The mapping:
   ``plane.all/any`` are ``__all_sync``/``__any_sync``, broadcasts and
   shuffles ``__shfl_*_sync``; ``sync.cube`` is ``__syncthreads()``;
 - ``erf``, ``rsqrt`` and ``exp`` print as ``erff``, ``rsqrtf`` and ``expf``
-  (no fast-math flag of the IR selects the ``__expf`` intrinsics yet).
+  (no fast-math flag of the IR selects the ``__expf`` intrinsics yet);
+- cmma (``mma.*``): a fragment is cube-scope, one whole tile per cube, as
+  in the JAX package (``frontend/cmma.py``), not CUDA's warp-scope
+  ``wmma``. Each ``Matrix`` is a region of the kernel's dynamic shared
+  memory, its offset fixed at print time (``fragment_layout``); the
+  launcher opts in above 48 KiB, and fragments over the 227 KiB a block
+  may use raise, naming the kernel and the bytes. ``fill``, ``load``
+  (row- or col-major, the ``load_tensor`` form included: offsets and
+  strides are in elements) and ``store`` are cube-cooperative strided
+  loops, ``execute`` a cube-cooperative product in which each thread owns
+  output elements and sums over K in the accumulator's compute type
+  (f32 FMA for f32 and 16-bit fragments, never TF32, as the JAX
+  evaluator's ``Precision.HIGHEST``; int32 for int8), then adds C.
+  ``execute_scaled`` scales the operands first, as the JAX evaluator
+  does; ``cast`` converts element by element. Every fragment op sits
+  between ``__syncthreads()``, so it must run in cube-uniform control
+  flow, as the JAX package requires too.
 
 What bounds a printed kernel: it is the DSL kernel as written, one thread
 per unit. A kernel with wide lines (the ``*_lines`` normalization kernels
@@ -50,7 +66,7 @@ vector loads are later work; PERF.md keeps each time beside the plain
 torch version.
 
 Ops this printer does not lower raise ``NotImplementedError`` naming the
-op (``backend.compiler.unsupported``): atomics, cmma, ``mem.block_reduce``,
+op (``backend.compiler.unsupported``): atomics, ``mem.block_reduce``,
 ``mem.slice``, shared memory and per-unit arrays, barriers and
 ``memcpy_async``, plane scans and ballots, ``op.reinterpret``, the
 saturating and bit-counting ops, ``debug.print``, and a runtime grid.
@@ -67,9 +83,10 @@ from ...ir.scope import Scope, walk
 from ...ir.types import ElemType, bool_, elem_from_dtype, i32, i64, u32
 from ...ir.value import Builtin, Value, VarKind
 from ..compiler import (CompiledKernel, Compiler, KernelDefinition,
-                        prepare_scope, unsupported)
+                        fragment_layout, prepare_scope, unsupported)
 
 _BACKEND = "the CUDA printer"
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (sm_90)
 
 # longest per-element expression a line value is inlined as (longer ones
 # are materialized in an array, so that nesting cannot blow up the source)
@@ -206,6 +223,9 @@ class _Printer:
         # buffers are one memory: a store to one is a store to all.
         self.stored = {i.op.args[0].vid for _s, i in walk(defn.scope)
                        if i.op.opcode in (O.STORE, O.STORE_MASKED)}
+        self.stored |= {i.op.args[1].vid for _s, i in walk(defn.scope)
+                        if i.op.opcode == O.MMA_STORE}
+        self.frag_offsets, self.smem_bytes = fragment_layout(st)
         if self.stored & st.aliased:
             self.stored |= st.aliased
 
@@ -242,6 +262,8 @@ class _Printer:
             return f"b{v.vid}"
         if v.kind in (VarKind.LOCAL, VarKind.LOCAL_MUT):
             return f"v{v.vid}"
+        if v.kind == VarKind.MATRIX:
+            return f"m{v.vid}"
         raise unsupported(f"{v.kind.value} values", _BACKEND)
 
     def ref(self, v: Value, l: Optional[str] = None) -> str:
@@ -314,8 +336,11 @@ class _Printer:
             raise unsupported("a runtime grid (CubeCount.runtime)", _BACKEND)
         if st.shareds:
             raise unsupported("shared memory / per-unit arrays", _BACKEND)
-        if st.matrices:
-            raise unsupported("cmma matrices", _BACKEND)
+        if self.smem_bytes > MAX_SMEM:
+            raise ValueError(
+                f"kernel {self.name}: its cmma fragments need "
+                f"{self.smem_bytes} bytes of shared memory, over the "
+                f"{MAX_SMEM} bytes a block may use")
         params = []
         for bp in st.buffers:
             const = "" if bp.mutable else "const "
@@ -353,6 +378,13 @@ class _Printer:
         ]
         for b in builtins:
             self.emit(b)
+        if st.matrices:
+            self.emit("extern __shared__ __align__(16) unsigned char "
+                      "cc_smem[];")
+            for m in st.matrices:
+                t = _storage(m.ty.elem)
+                self.emit(f"{t}* const m{m.vid} = reinterpret_cast<{t}*>("
+                          f"cc_smem + {self.frag_offsets[m.vid]});")
         # mutable locals may be first written inside a branch and read
         # after it: declare them all up front
         muts: Dict[int, Value] = {}
@@ -445,6 +477,12 @@ class _Printer:
             self.emit(f"__syncwarp({self.plane_mask()});")
         elif oc == O.SYNC_STORAGE:
             self.emit("__threadfence();")
+        elif oc.startswith("mma."):
+            self.emit("__syncthreads();")
+            self.open("")
+            self.mma(inst)
+            self.close()
+            self.emit("__syncthreads();")
         elif inst.out is None:
             raise unsupported(oc, _BACKEND)
         else:
@@ -721,6 +759,86 @@ class _Printer:
             rhs = f"({m}) ? {src} : {zero}" if masked else src
             self.emit(f"{n} = {rhs};")
 
+    def conv_expr(self, expr: str, src: ElemType, dst: ElemType,
+                  storage: bool = True) -> str:
+        """``expr`` (of ``src``'s storage type) in ``dst``'s storage type,
+        or its compute type when ``storage`` is false."""
+        if src == dst and storage:
+            return expr
+        e = _NARROW[src.name][0].format(expr) if src.name in _NARROW \
+            else expr
+        if _compute(src) != _compute(dst):
+            e = f"(({_compute(dst)})({e}))"
+        return self.store_as(e, dst) if storage else e
+
+    def mma(self, inst) -> None:
+        """One cube-cooperative fragment op (the thread loop strides the
+        fragment's elements by the cube's units)."""
+        op = inst.op
+        oc = op.opcode
+        args = op.args
+        U = self.U
+        mat = args[0]
+        R, C = mat.shape
+        me = mat.ty.elem
+        loop = f"for (int i = unit_pos; i < {R * C}; i += {U})"
+        if oc == O.MMA_FILL:
+            self.emit(f"const {_storage(me)} fv = "
+                      f"{self.convert(args[1], me, None)};")
+            self.open(loop)
+            self.emit(f"m{mat.vid}[i] = fv;")
+            self.close()
+        elif oc in (O.MMA_LOAD, O.MMA_STORE):
+            buf, off, stride = args[1], args[2], args[3]
+            bp = self.buffer(buf)
+            be = bp.ty.elem
+            self.emit(f"const int64_t off = {self.cval(off, i64)}, "
+                      f"st = {self.cval(stride, i64)};")
+            self.open(loop)
+            self.emit(f"const int r = i / {C}, c = i % {C};")
+            if op.attrs.get("layout", "row_major") == "row_major":
+                g = f"b{bp.value.vid}[off + (int64_t)r * st + c]"
+            else:
+                g = f"b{bp.value.vid}[off + (int64_t)c * st + r]"
+            if oc == O.MMA_LOAD:
+                self.emit(f"m{mat.vid}[i] = {self.conv_expr(g, be, me)};")
+            else:
+                self.emit(f"{g} = {self.conv_expr(f'm{mat.vid}[i]', me, be)};")
+            self.close()
+        elif oc in (O.MMA_EXECUTE, O.MMA_EXECUTE_SCALED):
+            a, b, c, d = args[:4]
+            M, K = a.shape
+            N = b.shape[1]
+            de = d.ty.elem
+            ct = _compute(de)
+            ae, be_ = a.ty.elem, b.ty.elem
+            if oc == O.MMA_EXECUTE_SCALED:
+                self.emit(f"const {ct} sa = {self.cval(args[4], de)}, "
+                          f"sb = {self.cval(args[5], de)};")
+            self.open(f"for (int i = unit_pos; i < {M * N}; i += {U})")
+            self.emit(f"const int r = i / {N}, c = i % {N};")
+            self.emit(f"{ct} s = 0;")
+            x = self.conv_expr(f"m{a.vid}[r * {K} + kk]", ae, de, False)
+            y = self.conv_expr(f"m{b.vid}[kk * {N} + c]", be_, de, False)
+            if oc == O.MMA_EXECUTE_SCALED:
+                x, y = f"({x} * sa)", f"({y} * sb)"
+            step = f"s = fmaf({x}, {y}, s);" if ct == "float" else \
+                f"s += {x} * {y};"
+            self.emit(f"for (int kk = 0; kk < {K}; ++kk) {step}")
+            # the product rounds to the accumulator type, then adds C
+            prod = self.conv_expr(self.store_as("s", de), de, de, False)
+            cc = self.conv_expr(f"m{c.vid}[i]", c.ty.elem, de, False)
+            self.emit(f"m{d.vid}[i] = {self.store_as(f'{prod} + {cc}', de)};")
+            self.close()
+        elif oc == O.MMA_CAST:
+            src = args[1]
+            self.open(loop)
+            self.emit(f"m{mat.vid}[i] = "
+                      f"{self.conv_expr(f'm{src.vid}[i]', src.ty.elem, me)};")
+            self.close()
+        else:
+            raise unsupported(oc, _BACKEND)
+
     def line_reduce(self, inst) -> None:
         op = inst.op
         oc = op.opcode
@@ -823,14 +941,24 @@ def kernel_symbol(defn: KernelDefinition, digest: str) -> str:
 def print_kernel(defn: KernelDefinition, symbol: str) -> str:
     """CUDA C++ of an optimized definition: the ``__global__`` function
     and an ``extern "C"`` launcher ``cubecl_launch(gx, gy, gz, stream,
-    args)`` that returns ``cudaGetLastError()``."""
+    args)`` that returns ``cudaGetLastError()``; a kernel with cmma
+    fragments launches with their dynamic shared memory, opting in once
+    above 48 KiB."""
     body = _Printer(defn, symbol).print_kernel()
     ux, uy, uz = defn.cube_dim
+    _, smem = fragment_layout(defn.state)
+    opt_in = ""
+    if smem > 48 * 1024:
+        opt_in = f"""
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      (const void*){symbol}, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      {smem});
+  if (attr != cudaSuccess) return (int)attr;"""
     return body + f"""
 extern "C" int cubecl_launch(unsigned gx, unsigned gy, unsigned gz,
-                             void* stream, void** args) {{
+                             void* stream, void** args) {{{opt_in}
   cudaError_t e = cudaLaunchKernel((const void*){symbol}, dim3(gx, gy, gz),
-                                   dim3({ux}, {uy}, {uz}), args, 0,
+                                   dim3({ux}, {uy}, {uz}), args, {smem},
                                    (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -870,4 +998,7 @@ class CudaCompiler(Compiler):
         mut = [i for i, bp in enumerate(st.buffers) if bp.mutable]
         launcher = build.Launcher(job, defn)
         return CompiledKernel(fn=launcher, mutable_indices=mut, source=src,
-                              name=defn.options.name)
+                              name=defn.options.name, block=defn.cube_dim,
+                              grid=defn.cube_count,
+                              smem_bytes=fragment_layout(st)[1],
+                              smem_opt_in=True)

@@ -19,7 +19,14 @@ Execution model (SIMT in lockstep):
   ``index_put_``; ``mem.*_masked`` read 0 / drop the write where the mask
   is false; an unmasked access out of bounds raises ``IndexError``;
 - ``plane.*`` reduce or gather over groups of ``plane_dim`` units;
-- ``sync.*`` order nothing: the units already run in lockstep.
+- ``sync.*`` order nothing: the units already run in lockstep;
+- a cmma fragment (``mma.*``) is cube-scope: one ``(cubes, rows, cols)``
+  tensor holds every cube's tile. ``load``/``store`` gather and scatter
+  the buffer's elements at each cube's offset (which must be the same for
+  all units of a cube), ``execute`` is ``torch.bmm`` in f32 (TF32 off),
+  or exact for int8 operands, rounded to the accumulator's type and added
+  to C, as the JAX evaluator's ``jnp.dot`` at ``Precision.HIGHEST``;
+  a cube with no live unit keeps its fragments.
 
 The same ops as the CUDA printer are lowered; the rest raise
 ``NotImplementedError`` through :func:`unsupported`. The TPU memory
@@ -38,7 +45,7 @@ from ..ir import ops as O
 from ..ir.scope import Scope
 from ..ir.value import Builtin, Value, VarKind
 from .compiler import (CompiledKernel, Compiler, KernelDefinition,
-                       prepare_scope, unsupported)
+                       fragment_layout, prepare_scope, unsupported)
 
 
 def _unary(fn):
@@ -127,6 +134,25 @@ _PLANE_GATHER = (O.PLANE_BROADCAST, O.PLANE_SHUFFLE, O.PLANE_SHUFFLE_XOR,
 
 _NO_OP = (O.COMMENT, O.SYNC_CUBE, O.SYNC_PLANE, O.SYNC_STORAGE)
 
+_MMA_OPS = (O.MMA_FILL, O.MMA_LOAD, O.MMA_STORE, O.MMA_EXECUTE,
+            O.MMA_EXECUTE_SCALED, O.MMA_CAST)
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Batched a @ b exactly as the fragments' execute: float operands in
+    f32 with TF32 off; integer operands exactly (int64 on the CPU, float64
+    on a card, exact while |sum| < 2^53), wrapped to ``out_dtype``."""
+    if not out_dtype.is_floating_point:
+        if a.device.type == "cpu":
+            return torch.bmm(a.long(), b.long()).to(out_dtype)
+        return torch.bmm(a.double(), b.double()).long().to(out_dtype)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.bmm(a.float(), b.float()).to(out_dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
 # the value ops _pure lowers besides the tables above
 _PURE_OPS = frozenset(_SAME_TYPE) | frozenset(_COMPARE) | frozenset(_LOGIC) \
     | {O.DIV, O.CAST, O.SELECT, O.VEC_SPLAT, O.VEC_INIT, O.VEC_EXTRACT,
@@ -168,6 +194,8 @@ class Evaluator:
         self.all_lanes = ones
         self.returned = torch.zeros_like(ones)
         self.loops: List[_Loop] = []
+        self.cubes = math.prod(defn.cube_count)
+        self.frags: Dict[int, torch.Tensor] = {}
 
     # ------------------------------------------------------------ values
 
@@ -288,6 +316,8 @@ class Evaluator:
             self._store(inst, act)
         elif oc in _NO_OP:
             pass
+        elif oc in _MMA_OPS:
+            self._mma(inst, act)
         elif inst.out is None:
             raise unsupported(oc, "the torch evaluator")
         else:
@@ -407,6 +437,84 @@ class Evaluator:
         v = self.val(op.args[2]).to(t.dtype).expand(self.N, t.shape[1])
         sel = live.view(-1)
         t.index_put_((rows[sel],), v[sel])
+
+    # -------------------------------------------------------------- cmma
+
+    def _per_cube(self, v: Value, what: str) -> torch.Tensor:
+        """(cubes,) values of ``v``, the same for every unit of a cube."""
+        t = self.val(v).expand(self.N, 1).reshape(self.cubes, self.U)
+        if not bool((t == t[:, :1]).all()):
+            raise unsupported(f"a unit-varying {what}", "the torch evaluator")
+        return t[:, 0]
+
+    def _frag(self, m: Value) -> torch.Tensor:
+        t = self.frags.get(m.vid)
+        if t is None:  # never written: an uninitialized tile reads 0
+            t = torch.zeros((self.cubes, *m.shape),
+                            dtype=m.ty.elem.torch_dtype(), device=self.dev)
+        return t
+
+    def _set_frag(self, m: Value, new: torch.Tensor, live) -> None:
+        new = new.to(m.ty.elem.torch_dtype())
+        self.frags[m.vid] = torch.where(live.view(-1, 1, 1), new,
+                                        self._frag(m))
+
+    def _frag_index(self, inst, live) -> torch.Tensor:
+        """(cubes, rows, cols) element indices into the buffer of a load
+        or store, bounds-checked on the live cubes."""
+        op = inst.op
+        mat, buf = op.args[0], op.args[1]
+        rows, cols = mat.shape
+        off = self._per_cube(op.args[2], "cmma offset").long()
+        st = _uniform_int(self.val(op.args[3]), "cmma stride")
+        r = torch.arange(rows, device=self.dev).view(1, rows, 1)
+        c = torch.arange(cols, device=self.dev).view(1, 1, cols)
+        if op.attrs.get("layout", "row_major") == "row_major":
+            idx = off.view(-1, 1, 1) + r * st + c
+        else:
+            idx = off.view(-1, 1, 1) + c * st + r
+        n = self.bufs[buf.vid].numel()
+        bad = live.view(-1, 1, 1) & ((idx < 0) | (idx >= n))
+        if bool(bad.any()):
+            raise IndexError(
+                f"{self.defn.options.name}: cmma {op.opcode} of "
+                f"{buf.name or buf!r} outside its {n} elements")
+        return idx.clamp(0, max(n - 1, 0))
+
+    def _mma(self, inst, act) -> None:
+        op = inst.op
+        oc = op.opcode
+        args = op.args
+        live = act.expand(self.N, 1).reshape(self.cubes, self.U).any(1)
+        if oc == O.MMA_FILL:
+            mat = args[0]
+            v = self._per_cube(args[1], "cmma fill value")
+            new = v.view(-1, 1, 1).expand(self.cubes, *mat.shape)
+            self._set_frag(mat, new, live)
+        elif oc == O.MMA_LOAD:
+            mat, buf = args[0], args[1]
+            idx = self._frag_index(inst, live)
+            flat = self.bufs[buf.vid].reshape(-1)
+            self._set_frag(mat, flat[idx.reshape(-1)].view(idx.shape), live)
+        elif oc == O.MMA_STORE:
+            mat, buf = args[0], args[1]
+            idx = self._frag_index(inst, live)[live]
+            flat = self.bufs[buf.vid].view(-1)
+            flat.index_put_((idx.reshape(-1),),
+                            self._frag(mat)[live].reshape(-1).to(flat.dtype))
+        elif oc in (O.MMA_EXECUTE, O.MMA_EXECUTE_SCALED):
+            a, b, c, d = args[:4]
+            am, bm = self._frag(a), self._frag(b)
+            dt = d.ty.elem.torch_dtype()
+            if oc == O.MMA_EXECUTE_SCALED:
+                sa = self._per_cube(args[4], "cmma scale").float()
+                sb = self._per_cube(args[5], "cmma scale").float()
+                am = am.float() * sa.view(-1, 1, 1)
+                bm = bm.float() * sb.view(-1, 1, 1)
+            prod = _bmm(am, bm, dt)
+            self._set_frag(d, prod + self._frag(c).to(dt), live)
+        else:  # O.MMA_CAST
+            self._set_frag(args[0], self._frag(args[1]), live)
 
     # ------------------------------------------------------------- pure
 
@@ -535,4 +643,7 @@ class TorchEvalCompiler(Compiler):
 
         return CompiledKernel(fn=fn, mutable_indices=mut,
                               source=repr(defn.scope),
-                              name=defn.options.name)
+                              name=defn.options.name, block=defn.cube_dim,
+                              grid=defn.cube_count,
+                              smem_bytes=fragment_layout(st)[1],
+                              smem_opt_in=True)

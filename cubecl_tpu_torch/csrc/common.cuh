@@ -9,7 +9,9 @@
 namespace cubecl {
 
 // dtype codes shared with the Python wrappers (utils/native.py)
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType : int {
+  kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3, kE5M2 = 4, kI32 = 5, kF16 = 6
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

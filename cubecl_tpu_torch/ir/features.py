@@ -10,8 +10,13 @@ memory per block; the SM count is read from the card when there is one.
 
 What the CUDA printer lowers today is narrower than what the card offers:
 ``backend/cuda/printer.py`` raises for the ops it has no lowering for
-(atomics, cmma, shared memory, barriers), so those features are not
-advertised here.
+(atomics, shared memory, barriers), so those features are not advertised
+here.
+
+``GpuGeneration`` is the peak table the autotuner's roofline bound and
+``ops.matmul`` read (``properties().generation``), the counterpart of the
+JAX package's ``TpuGeneration``: NVIDIA's data-sheet peaks of the card,
+dense, at its full power limit, chosen by device name.
 """
 
 from __future__ import annotations
@@ -25,6 +30,44 @@ from .types import ElemType
 
 #: threads of a warp, the plane of the CUDA backend
 WARP = 32
+
+
+@dataclass(frozen=True)
+class GpuGeneration:
+    """Peak rates of one card (operations or bytes per second)."""
+
+    name: str
+    bf16_flops: float     # tensor cores, bf16 and f16
+    fp8_flops: float      # tensor cores, e4m3 and e5m2
+    int8_ops: float       # tensor cores
+    f32_flops: float      # CUDA cores
+    hbm_bw: float         # device memory, bytes/s
+
+    def peak(self, dtype: str) -> float:
+        """The peak rate of a GEMM on ``dtype`` operands (a numpy/torch
+        dtype name): f32 runs off the tensor cores (no TF32)."""
+        if dtype in ("float8_e4m3fn", "float8_e5m2"):
+            return self.fp8_flops
+        if dtype in ("int8", "uint8"):
+            return self.int8_ops
+        if dtype in ("bfloat16", "float16"):
+            return self.bf16_flops
+        return self.f32_flops
+
+
+GPU_GENERATIONS = {
+    "h100-sxm": GpuGeneration("h100-sxm", 989e12, 1979e12, 1979e12, 67e12,
+                              3.35e12),
+    "h100-pcie": GpuGeneration("h100-pcie", 756e12, 1513e12, 1513e12,
+                               51e12, 2.0e12),
+}
+
+
+def generation_for(device_name: str) -> GpuGeneration:
+    """The peak table of a card by its name: "PCIe" in the name picks the
+    H100 PCIe's, anything else the H100 SXM's (the CPU twin too)."""
+    return GPU_GENERATIONS["h100-pcie" if "pcie" in device_name.lower()
+                           else "h100-sxm"]
 
 
 @dataclass
@@ -71,10 +114,11 @@ class DeviceProperties:
     """reference DeviceProperties, properties.rs:98."""
 
     def __init__(self, identity: DeviceIdentity, hardware: HardwareProperties,
-                 features: Features):
+                 features: Features, generation: GpuGeneration):
         self.identity = identity
         self.hardware = hardware
         self.features = features
+        self.generation = generation
 
     def feature_enabled(self, name: str) -> bool:
         return bool(getattr(self.features, name, False))
@@ -104,11 +148,13 @@ def cuda_device_properties(index: int = 0) -> DeviceProperties:
     hw = HardwareProperties(num_streaming_multiprocessors=p.multi_processor_count)
     fp = hashlib.sha256(
         f"cuda:{p.name}:{p.major}.{p.minor}".encode()).hexdigest()[:16]
-    return DeviceProperties(DeviceIdentity(p.name, fp), hw, _features())
+    return DeviceProperties(DeviceIdentity(p.name, fp), hw, _features(),
+                            generation_for(p.name))
 
 
 def cpu_device_properties(name: str = "cpu-torch-eval") -> DeviceProperties:
-    """Properties of the CPU twin (the torch evaluator): the H100's table,
-    without an SM count."""
+    """Properties of the CPU twin (the torch evaluator): the H100 SXM's
+    tables, without an SM count."""
     return DeviceProperties(DeviceIdentity(name, "cpu0000torcheval"),
-                            HardwareProperties(), _features())
+                            HardwareProperties(), _features(),
+                            GPU_GENERATIONS["h100-sxm"])

@@ -16,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from ..backend.compiler import KernelDefinition
+from ..backend.compiler import CompiledKernel, KernelDefinition
 from ..utils.hashing import stable_hash_str
 
 
@@ -47,3 +47,22 @@ class KernelTask:
 
     def define(self) -> KernelDefinition:
         return self._define()
+
+
+class NativeKernelTask(KernelTask):
+    """A hand-written kernel (``csrc/*.cu``) launched through the same
+    server, ``KernelId`` cache, validation and launch counts as a ``@cube``
+    kernel: the analogue of the reference's ``intrinsic!`` escape hatch
+    (cubecl-macros/src/lib.rs:196-210). ``build`` returns the
+    ``CompiledKernel`` whose ``fn`` launches the kernel on CUDA tensors and
+    runs its plain version on CPU tensors; it also states the block, grid
+    and shared memory the launch asks for."""
+
+    def __init__(self, kernel_id: KernelId,
+                 build: Callable[[], CompiledKernel], name: str = "native"):
+        super().__init__(kernel_id, self._no_definition, name)
+        self.build = build
+
+    def _no_definition(self):
+        raise TypeError(f"{self.name} is a hand-written kernel: it has no "
+                        "traced definition; compile it with build()")

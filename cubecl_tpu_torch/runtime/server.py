@@ -7,8 +7,12 @@ model: per-device state and compile-if-miss (context.rs:106-230).
 :class:`TorchServer` owns one ``torch.device`` and one compiler: the CUDA
 printer on a card, the torch evaluator on the CPU (or, as an oracle, on a
 card). Kernels write their mutable tensors in place. The compile cache is
-keyed by ``KernelId``; the server counts compiles and launches. Streams,
-graphs, profiling and autotune are ROADMAP Queue 1 item 4.
+keyed by ``KernelId`` and holds ``@cube`` kernels and hand-written ones
+(``NativeKernelTask``) alike; every kernel is validated against the card's
+limits (``runtime/validation.py``) before its first launch, and the server
+counts compiles and launches. Graph capture and profiling live on the
+client (``runtime/graph.py``, ``runtime/profile.py``); streams are
+PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 from ..backend.compiler import CompiledKernel, Compiler
 from ..ir.features import DeviceProperties
 from .handle import Handle
-from .kernel import KernelTask
+from .kernel import KernelTask, NativeKernelTask
+from .validation import validate_compiled, validate_launch
 
 
 class TorchServer:
@@ -42,7 +47,7 @@ class TorchServer:
     def create(self, data) -> Handle:
         """Upload a copy of ``data`` (a numpy array or a tensor)."""
         if not isinstance(data, torch.Tensor):
-            data = torch.from_numpy(np.array(data))
+            data = _from_numpy(np.array(data))
         return Handle(data.detach().to(self.device, copy=True)
                       .contiguous())
 
@@ -55,35 +60,30 @@ class TorchServer:
 
     def write(self, handle: Handle, data) -> None:
         src = data if isinstance(data, torch.Tensor) else \
-            torch.as_tensor(np.asarray(data))
+            _from_numpy(np.asarray(data))
         handle.tensor.copy_(src.reshape(handle.tensor.shape))
 
     # ---------------------------------------------------------- execution
 
     def compile_kernel(self, task: KernelTask) -> CompiledKernel:
-        """Compile-if-miss, keyed by the task's ``KernelId``."""
+        """Compile-if-miss, keyed by the task's ``KernelId``: a ``@cube``
+        kernel is traced, validated and handed to the compiler, a
+        hand-written one built; both are validated before they are
+        cached, so a kernel over the card's limits raises here."""
         key = str(task.kernel_id)
         hit = self._cache.get(key)
         if hit is not None:
             return hit
-        defn = task.define()
-        self._validate(defn)
-        compiled = self.compiler.compile(defn, kernel_id=key)
+        if isinstance(task, NativeKernelTask):
+            compiled = task.build()
+        else:
+            defn = task.define()
+            validate_launch(defn, self.props)
+            compiled = self.compiler.compile(defn, kernel_id=key)
+        validate_compiled(compiled, self.props)
         self._cache[key] = compiled
         self.compile_count += 1
         return compiled
-
-    def _validate(self, defn) -> None:
-        hw = self.props.hardware
-        units = int(np.prod(defn.cube_dim))
-        if units > hw.max_units_per_cube or any(
-                d > m for d, m in zip(defn.cube_dim, hw.max_cube_dim)):
-            raise ValueError(f"{defn.options.name}: cube dim {defn.cube_dim}"
-                             f" exceeds {hw.max_cube_dim} / "
-                             f"{hw.max_units_per_cube} units")
-        if any(c > m for c, m in zip(defn.cube_count, hw.max_cube_count)):
-            raise ValueError(f"{defn.options.name}: cube count "
-                             f"{defn.cube_count} exceeds {hw.max_cube_count}")
 
     def launch(self, task: KernelTask, buffers: Sequence[Handle],
                scalars: Sequence[Any] = ()) -> None:
@@ -135,10 +135,29 @@ def _torch_dtype(dtype) -> torch.dtype:
     return elem_from_dtype(dtype).torch_dtype()
 
 
+# torch dtypes numpy lacks: (the integer view of the same width, the
+# ml_dtypes name)
+_ML_DTYPES = {torch.bfloat16: (torch.int16, "bfloat16"),
+              torch.float8_e4m3fn: (torch.uint8, "float8_e4m3fn"),
+              torch.float8_e5m2: (torch.uint8, "float8_e5m2")}
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in _ML_DTYPES:
         import ml_dtypes
 
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        view, name = _ML_DTYPES[t.dtype]
+        return t.view(view).numpy().view(getattr(ml_dtypes, name))
     return t.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A tensor of ``a`` (sharing its memory); bf16 and fp8 arrays of
+    ml_dtypes cross as their integer bits."""
+    for dt, (view, name) in _ML_DTYPES.items():
+        if a.dtype.name == name:
+            ints = np.ascontiguousarray(a).view(
+                np.int16 if view == torch.int16 else np.uint8)
+            return torch.from_numpy(ints).view(dt)
+    return torch.from_numpy(a)

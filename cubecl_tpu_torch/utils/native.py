@@ -38,7 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3, torch.float8_e5m2: 4, torch.int32: 5,
+               torch.float16: 6}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +52,7 @@ _SIGNATURES = {
     "cubecl_flash_bwd_dq": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_paged_decode": [_VP] * 8 + [_I] * 10 + [_F, _VP],
     "cubecl_paged_chunked": [_VP] * 9 + [_I] * 11 + [_F, _VP],
+    "cubecl_matmul": [_VP] * 5 + [_I] * 10 + [_F, _VP],
 }
 
 
@@ -233,8 +236,31 @@ def check_aligned(*tensors) -> None:
                              "is not 16-byte aligned")
 
 
+# cudaError_t codes that leave the context unusable: an illegal address
+# (700), a launch timeout (702), a device assert (710), a hardware stack
+# error, an illegal instruction, a misaligned address, an invalid address
+# space or pc (714-718), a launch failure (719); every later call fails too.
+# 701 (too many resources requested for a launch) is not among them.
+STICKY_CUDA_ERRORS = frozenset({700, 702, 710, 714, 715, 716, 717, 718, 719})
+
+
+class CudaError(RuntimeError):
+    """A kernel launch returned a CUDA error. ``sticky`` is true for the
+    errors that poison the context; the others (a launch refused for its
+    resources, ``cudaErrorInvalidValue`` for a type or tile the library
+    was not built for) leave it usable."""
+
+    def __init__(self, what: str, code: int, msg: str):
+        super().__init__(f"{what}: CUDA error {code} ({msg})")
+        self.code = code
+
+    @property
+    def sticky(self) -> bool:
+        return self.code in STICKY_CUDA_ERRORS
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error."""
+    """Raise :class:`CudaError` if a kernel entry point returned a CUDA
+    error."""
     if code != 0:
-        msg = lib.cubecl_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise CudaError(what, code, lib.cubecl_error_string(code).decode())

@@ -13,6 +13,8 @@ output apart. The DSL kernels (K0) are held against the torch evaluator run
 on the card, which rounds at the same ops, at the same tolerances.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -370,3 +372,142 @@ def test_chunked_serving_kernels_match_plain(dev, kv_dtype):
     assert torch.equal(tk, tp) and ak == ap == 3.0
     assert torch.equal(tk, llama.generate(model, prompt, 6, max_pages=4,
                                           page=32))
+
+
+# -- slice 5: the matmul kernel (M1/M2), its tuner, K0 cmma ---------------
+
+_MM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2, "int8": torch.int8}
+
+
+def _mm_operand(g, dev, dtype, shape, K):
+    if dtype == "int8":
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    # N(0, K^-1/2) entries: sums of K products are N(0, 1)
+    return (torch.randn(shape, generator=g, device=dev)
+            * K ** -0.25).to(_MM_DTYPES[dtype])
+
+
+@pytest.mark.parametrize("b_transposed", [False, True])
+@pytest.mark.parametrize("dtype", list(_MM_DTYPES))
+def test_matmul_kernel_matches_plain(dev, dtype, b_transposed):
+    """Every built tile of M1 against plain, per dtype and B layout:
+    int8 -> int32 exact; float operands to f32 summation order (f32 out)
+    and one bf16 rounding (bf16 out); M2 (host scales) and M1 scaled
+    (device scales) on the first tile."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=dev).manual_seed(len(dtype))
+    M, N, K = 256, 256, 256
+    a = _mm_operand(g, dev, dtype, (M, K), K)
+    b = _mm_operand(g, dev, dtype, (N, K) if b_transposed else (K, N), K)
+    outs = (torch.int32, torch.float32) if dtype == "int8" else \
+        (torch.float32, torch.bfloat16)
+    tiles = mm._tile_candidates(M, N, K, mm._itemsize(dtype))
+    assert tiles
+    for od in outs:
+        want = mm.matmul_plain(a, b, od, b_transposed)
+        for tile in tiles:
+            o = torch.empty(M, N, device=dev, dtype=od)
+            n = mm.matmul_pallas.launches
+            mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+            torch.cuda.synchronize()
+            assert mm.matmul_pallas.launches == n + 1
+            if od == torch.int32:
+                assert torch.equal(o, want), tile
+            else:
+                _close(o, want)
+    o = torch.empty(M, N, device=dev)
+    mm._gemm(a, b, o, tiles[0], b_transposed, 4.0, 0.5,
+             counter=mm.matmul_scaled)
+    _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed, 2.0))
+    sa = torch.tensor([0.5], device=dev)
+    sb = torch.tensor([0.25], device=dev)
+    mm._gemm(a, b, o, tiles[0], b_transposed, sa, sb,
+             counter=mm.matmul_pallas)
+    _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed,
+                              sa[0] * sb[0]))
+
+
+def test_matmul_graph_replay_equals_eager(dev):
+    """A captured M1 launch, replayed as a CUDA graph, writes what the
+    eager launch writes; the capture counts its warm launch only (not the
+    recording), and a replay does not count as a launch."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    c = CudaRuntime.client()
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = c.create(_mm_operand(g, dev, "bfloat16", (512, 256), 256))
+    b = c.create(_mm_operand(g, dev, "bfloat16", (256, 512), 256))
+    eager, o = c.empty((512, 512), "float32"), c.empty((512, 512), "float32")
+    mm.matmul_pallas(c, a, b, eager, 512, 512, 256)
+    n = mm.matmul_pallas.launches
+    graph = c.capture(mm.matmul_pallas, c, a, b, o, 512, 512, 256)
+    assert mm.matmul_pallas.launches == n + 1
+    n += 1
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert mm.matmul_pallas.launches == n
+    assert torch.equal(o.tensor, eager.tensor)
+
+
+def test_matmul_tuner_on_the_card(dev, monkeypatch, tmp_path):
+    """matmul_autotuned on the card: every candidate timed through its
+    CUDA graph (finite, positive, not below half the roofline bound), the
+    winner one of them, the output the plain version's."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    monkeypatch.setenv("CUBECL_ENVIRONMENT_ROOT", str(tmp_path))
+    c = CudaRuntime.client()
+    g = torch.Generator(device=dev).manual_seed(2)
+    m, n, k = 1024, 768, 512
+    a = c.create(_mm_operand(g, dev, "bfloat16", (m, k), k))
+    b = c.create(_mm_operand(g, dev, "bfloat16", (k, n), k))
+    o = c.empty((m, n), "float32")
+    best = mm.autotune_best_tile(c, a, b, o, m, n, k)
+    key = mm._tune_key(m, n, k, "bfloat16", "float32")
+    times = mm._matmul_tuner.tuner_for(c, key).cache.timings(key)
+    bound = 2 * m * n * k / 989e12
+    assert times and all(math.isfinite(t) and t > 0.5 * bound
+                         for t in times.values())
+    assert f"t{best[0]}x{best[1]}x{best[2]}" in times
+    _close(o.tensor, mm.matmul_plain(a.tensor, b.tensor, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cmma_kernel_matches_evaluator(dev, dtype):
+    """K0 cmma (matmul_cmma: fragments in shared memory) against the torch
+    evaluator on the card and against plain."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    M, N, K = 256, 256, 128
+    a = (torch.randn(M, K, generator=g, device=dev) * K ** -0.25).to(dtype)
+    b = (torch.randn(K, N, generator=g, device=dev) * K ** -0.25).to(dtype)
+    outs = []
+    for c in (CudaRuntime.client(), eval_client(dev)):
+        o = c.empty((M * N,), "float32")
+        mm.matmul_cmma(c, c.create(a.reshape(-1)), c.create(b.reshape(-1)),
+                       o, M, N, K)
+        outs.append(o.tensor.view(M, N))
+    torch.cuda.synchronize()
+    _close(outs[0], outs[1])
+    _close(outs[0], mm.matmul_plain(a, b, torch.float32))
+
+
+def test_quant_kernels_match_plain(dev):
+    """The K0 quantize kernel on the card gives the evaluator's int8
+    values and scales, bit for bit."""
+    from cubecl_tpu_torch.std.quant import QuantScheme
+    from cubecl_tpu_torch.std.quant_kernels import quantize
+
+    x = torch.randn(1 << 16, generator=torch.Generator(device=dev)
+                    .manual_seed(4), device=dev) * 3
+    got = [quantize(c, c.create(x), QuantScheme())
+           for c in (CudaRuntime.client(), eval_client(dev))]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0].tensor, got[1][0].tensor)
+    assert torch.equal(got[0][1].tensor, got[1][1].tensor)

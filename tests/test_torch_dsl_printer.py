@@ -1,8 +1,8 @@
 """The CUDA printer (K0 on Hopper) without nvcc: it prints a kernel for
-each of the 18 slice kernels, maps the IR as its docstring says, and
-raises ``NotImplementedError`` naming the op for what it does not lower.
-Compiling and running the printed sources is the card's part
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+each of the 18 slice kernels, maps the IR as its docstring says (cmma
+fragments included), and raises ``NotImplementedError`` naming the op for
+what it does not lower. Compiling and running the printed sources is the
+card's part (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import re
 
@@ -112,11 +112,20 @@ def _atomic_k(buf: MutSlice):
     atomic_add(buf, ABSOLUTE_POS, 1.0)
 
 
-@cube
-def _cmma_k(a: Slice, out: MutSlice):
-    m = cmma.Matrix("accumulator", 16, 16, 16, f32)
-    cmma.fill(m, 0.0)
-    cmma.store(m, out, 16)
+def _cmma_body(cmma_mod, f32_):
+    def _cmma_k(a: Slice, out: MutSlice):
+        m = cmma_mod.Matrix("accumulator", 16, 16, 16, f32_)
+        cmma_mod.fill(m, 0.5)
+        x = cmma_mod.Matrix("a", 16, 16, 16, f32_)
+        cmma_mod.load(x, a, 16)
+        y = cmma_mod.Matrix("b", 16, 16, 16, f32_, cmma_mod.COL_MAJOR)
+        cmma_mod.load(y, a, 16)
+        cmma_mod.execute(x, y, m, m)
+        cmma_mod.store(m, out, 16)
+    return _cmma_k
+
+
+_cmma_k = cube(_cmma_body(cmma, f32))
 
 
 def test_atomic_kernel_raises():
@@ -126,10 +135,45 @@ def test_atomic_kernel_raises():
 
 
 def test_cmma_kernel_raises():
+    """A positive test under the name it had when the printer refused
+    cmma (the name is kept so that its history stays one test): cmma
+    prints and does not raise. ``_cmma_k`` (out = A A^T + 0.5 through
+    fill, row- and col-major loads, execute and store) prints, its three
+    16 x 16 f32 fragments in dynamic shared memory, and on the CPU twin it
+    equals the JAX evaluator (Pallas interpret) on the same input, within
+    f32 summation order (atol 1e-5)."""
+    from cubecl_tpu import CpuRuntime as JCpu
+    from cubecl_tpu.frontend import ArrayArg as JArrayArg
+    from cubecl_tpu.frontend import MutSlice as JMutSlice
+    from cubecl_tpu.frontend import Slice as JSlice
+    from cubecl_tpu.frontend import cmma as jcmma
+    from cubecl_tpu.frontend import cube as jcube
+    from cubecl_tpu.ir.types import f32 as jf32
+    from cubecl_tpu_torch.runtime import CpuRuntime
+
     d = _cmma_k.define(1, 32, ArrayArg(torch.zeros(256)),
                        ArrayArg(torch.zeros(256), mutable=True))
-    with pytest.raises(NotImplementedError, match=r"cmma.*ROADMAP"):
-        cuda_source(d)
+    src = cuda_source(d)
+    assert src.count("cc_smem + ") == 3 and "args, 3072," in src
+    assert "fmaf(" in src and "NotImplemented" not in src
+
+    a = np.random.default_rng(0).standard_normal(256).astype(np.float32)
+    body = _cmma_body(jcmma, jf32)
+    body.__annotations__ = {"a": JSlice, "out": JMutSlice}
+    jk = jcube(body)
+    jc = JCpu.client()
+    jo = jc.empty((256,), "float32")
+    jk.launch_unchecked(jc, 1, 8, JArrayArg(jc.create(a)),
+                        JArrayArg(jo, mutable=True))
+    tc = CpuRuntime.client()
+    to = tc.empty((256,), "float32")
+    _cmma_k.launch_unchecked(tc, 1, 32, ArrayArg(tc.create(a)),
+                             ArrayArg(to, mutable=True))
+    want = np.asarray(jc.read_one(jo))
+    np.testing.assert_allclose(tc.read_one(to), want, atol=1e-5, rtol=0)
+    x = a.reshape(16, 16)
+    np.testing.assert_allclose(want.reshape(16, 16), x @ x.T + 0.5,
+                               atol=1e-5)
 
 
 def test_evaluator_raises_for_the_same_ops():
