@@ -46,7 +46,19 @@ the store read back by a second call and by a new tuner, one tune with
 checks, the headline TFLOP/s, ``matmul_scaled`` and ``matmul_quantized``,
 o ``matmul_cmma`` through K0 with cmma printed (f32 512^3, bf16 512^3
 and 4096^3) against plain and the evaluator, and the K0 quant kernels
-against plain, bit for bit. Each kernel's line gives its time beside its
+against plain, bit for bit. Then reductions and comptime fusion (BASELINE
+configs 2 and 5): p at 64M f32 ``reduce_sum_autotuned`` (R1, the
+``block_sum`` route and the K0 tree, tuned into the temp store, then a
+second call untimed), ``reduce_sum``, ``reduce_max``, ``reduce_mean`` and
+``reduce_sum_blockwise``, each against the float64 sum or torch's max and
+the K0 routes against the evaluator; R1 (``csrc/reduce.cu``) at 64M f32
+and bf16 and 128 x 1000 against plain, beside its bound and ``torch.sum``;
+block max/min exact; ``sum_things``' four variants and the book's
+reduction progression; q ``launch_fused`` for relu((a+b)*c) and
+add -> gelu on 16M f32 (one K0 launch each) against the evaluator and
+plain, ``into_contiguous`` of a strided 3-D view and ``identity(4096)``;
+r ``ThroughputCache``'s four runners measured into the temp store and read
+back. Each kernel's line gives its time beside its
 bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -1885,7 +1897,8 @@ def autotuned_path(mm, cu, dev, gen, card):
     for (name, a, b, o, m, n, k), (top, tune_s) in zip(handles, tuned):
         in_dt = str(a.dtype).replace("torch.", "")
         key = mm._tune_key(m, n, k, in_dt, "bfloat16")
-        tuner = mm._matmul_tuner.tuner_for(cu, key)
+        tuner = mm._matmul_tuner.tuner_for(
+            cu, key, mm.matmul_tunables(m, n, k, in_dt, "bfloat16"))
         times = tuner.cache.timings(key)
         cands = mm._tile_candidates(m, n, k, a.tensor.element_size())
         if len(times) != len(cands) or not all(
@@ -1918,14 +1931,14 @@ def autotuned_path(mm, cu, dev, gen, card):
         for name, a, b, o, m, n, k in handles:
             in_dt = str(a.dtype).replace("torch.", "")
             key = mm._tune_key(m, n, k, in_dt, "bfloat16")
+            ts = mm.matmul_tunables(m, n, k, in_dt, "bfloat16")
             n0 = mm.matmul_pallas.launches
             mm.matmul_autotuned(cu, a, b, o, m, n, k)
-            fresh.execute(cu, mm.matmul_tunables(m, n, k, in_dt, "bfloat16"),
-                          cu, a, b, o)
+            fresh.execute(cu, ts, cu, a, b, o)
             torch.cuda.synchronize()
-            want = mm._matmul_tuner.tuner_for(cu, key).cache.get(key)
+            want = mm._matmul_tuner.tuner_for(cu, key, ts).cache.get(key)
             if mm.matmul_pallas.launches != n0 + 2 or \
-                    fresh.tuner_for(cu, key).cache.get(key) != want:
+                    fresh.tuner_for(cu, key, ts).cache.get(key) != want:
                 fail(f"phase n {name}: the stored winner did not run alone "
                      f"({mm.matmul_pallas.launches - n0} launches)")
     finally:
@@ -2111,6 +2124,467 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
     return out
 
 
+# -- reductions and comptime fusion (phases p-r) -----------------------------
+
+# BASELINE config 2: sums over 64M elements; R1 also at the JAX test's
+# 128 x 1000 (one ragged block)
+RED_N = 64 << 20
+RED_SMALL = 128 * 1000
+NATIVE_BRS = (512, 1024, 2048, 4096)  # reduce_sum_autotuned's native_br*
+BLOCK_CUBES = 32                      # reduce_sum_blockwise's default
+FUSE_N = 16 << 20                     # phase q: launch_fused on 16M f32
+FUSE_CASES = [(("add", "mul", "relu"), 3), (("add", "gelu"), 2)]
+# phase q: into_contiguous of every other row of (64, 512, 512) f32, and
+# identity(4096)
+CONTIG_SRC, CONTIG_VIEW = (64, 512, 512), (64, 256, 512)
+CONTIG_STRIDES = (512 * 512, 2 * 512, 1)
+EYE_N = 4096
+# the whole-array sums of phase p against the float64 sum, on zero-mean
+# input: |err| <= SUM_TOL * sum|x|. At 64M that is about 0.54, some 800x
+# R1's f32 rounding and 20x the block_sum route's (H100 runs), while one
+# dropped block partial (131072 elements, standard deviation 362) or one
+# thread's share (512 elements, 23) moves the sum far past it
+SUM_TOL = 1e-8
+# reduce_block_partial's 2M-element windows against torch's f32 window
+# sums: 8 threads fold a window, each through 262144 serial f32 additions,
+# so the limit is 1e-6 * sum|x| of a window (about 1.7); one dropped
+# 128-element line moves a window's sum by 11 (one standard deviation)
+BLOCK_TOL = 1e-6
+# R1 with more chunks than blocks (its grid-stride step): 64M f32 at
+# block_rows 8 is 65536 chunks over 1024 blocks
+STRIDE_BR = 8
+
+
+def red_compile_only(R, FU, S, ex_sum, ex_prog, T, co, block_extremes):
+    """Phase 2: start the nvcc of every K0 kernel of phases p-r through the
+    compile-only client ``co`` (the wrappers' own launches on handles of
+    the phases' shapes, so that the kernel ids are the phases')."""
+    x = co.empty((RED_N,), "float32")
+    for bc in (16, 32, 64):
+        R.reduce_sum_blockwise(co, x, cubes=bc)
+    for tc in (256, 512, 1024):
+        R.reduce_sum(co, x, target_cubes=tc)
+    R.reduce_max(co, x)
+    block_extremes.launch_unchecked(
+        co, BLOCK_CUBES, 256, array_arg(x, 128), array_arg(co.empty(
+            (2 * BLOCK_CUBES,), "float32"), 1, True),
+        RED_N // 128 // BLOCK_CUBES)
+    for ops, k in FUSE_CASES:
+        FU.launch_fused(co, [co.empty((FUSE_N,), "float32")] * k,
+                        co.empty((FUSE_N,), "float32"), list(ops))
+    src = S.TensorHandle(co.empty((math.prod(CONTIG_SRC),), "float32"),
+                         CONTIG_VIEW, CONTIG_STRIDES)
+    S.into_contiguous(co, src)
+    S.identity(co, EYE_N)
+    i, o = co.empty((ex_sum.N,), "float32"), co.empty((ex_sum.N,), "float32")
+    for run in ex_sum.variants(co, i, o).values():
+        run()
+    rows, cols, nr, nc = ex_prog.BOOK
+    h, out = co.empty((rows * cols,), "float32"), co.empty((rows,), "float32")
+    hn, outn = co.empty((nr * nc,), "float32"), co.empty((nr,), "float32")
+    for k, cc, cd, args in ex_prog.stages(h, out, hn, outn, rows, cols, nr,
+                                          nc).values():
+        k.launch_unchecked(co, cc, cd, *args)
+    n = 1 << 24
+    T._fma_chain.launch_unchecked(
+        co, n // (T.FMA_LINE * T.FMA_CUBE), T.FMA_CUBE,
+        array_arg(co.empty((n,), "float32"), T.FMA_LINE, True), T.FMA_CHAIN)
+    T._add_one.launch_unchecked(co, 4, 256, array_arg(co.empty((1024,),
+                                                           "float32"),
+                                                  1, True))
+
+
+def array_arg(h, line=1, mutable=None):
+    from cubecl_tpu_torch.frontend import ArrayArg
+
+    return ArrayArg(h, line_size=line, mutable=mutable)
+
+
+def make_block_extremes():
+    """A K0 kernel of phase p: ``block_max`` and ``block_min`` of each
+    cube's window, one pair of values per cube."""
+    from cubecl_tpu_torch.frontend import CUBE_POS_X, MutSlice, Slice, cube
+
+    @cube
+    def block_extremes(inp: Slice, out: MutSlice, lines: int):
+        out[CUBE_POS_X * 2] = inp.block_max(CUBE_POS_X * lines, lines)
+        out[CUBE_POS_X * 2 + 1] = inp.block_min(CUBE_POS_X * lines, lines)
+
+    return block_extremes
+
+
+def _no_measure(*args, **kwargs):
+    fail("phase r: a peak already in the store was measured again")
+
+
+def _tuned_winner(R, key):
+    tuner = next(t for (_f, k, _c), t in R._sum_tuner._tuners.items()
+                 if k == str(key))
+    return tuner.cache.mem[str(key)][1], tuner.cache.timings(key)
+
+
+def reduction_path(R, cu):
+    """Phase p's main path at 64M f32, with every count zeroed just before
+    and read just after: ``reduce_sum_autotuned`` (tuned on first use into
+    the temp store: each candidate's launches captured as a CUDA graph and
+    timed by CUDA events), a second call that runs the stored winner
+    untimed, ``reduce_sum``, ``reduce_max``, ``reduce_mean`` and
+    ``reduce_sum_blockwise``. Returns the inputs, results and counts."""
+    from cubecl_tpu_torch.tune import Tuner
+
+    g = torch.Generator(device=cu.device).manual_seed(61)
+    x = torch.randn(RED_N, generator=g, device=cu.device)
+    h = cu.create(x)
+    torch.cuda.synchronize()
+    R.reduce_sum_native.launches = 0
+    cu.server.reset_counts()
+    t0 = time.perf_counter()
+    tuned = R.reduce_sum_autotuned(cu, h).tensor.clone()
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune = Tuner._tune
+    Tuner._tune = _no_tune
+    try:
+        again = R.reduce_sum_autotuned(cu, h).tensor.clone()
+    finally:
+        Tuner._tune = tune
+    res = {"sum": R.reduce_sum(cu, h).tensor, "max": R.reduce_max(cu, h)
+           .tensor, "mean": R.reduce_mean(cu, h).tensor,
+           "blockwise": R.reduce_sum_blockwise(cu, h).tensor}
+    torch.cuda.synchronize()
+    launches = {"reduce_native": R.reduce_sum_native.launches,
+                **{k: cu.server.launches[k] for k in (
+                    "reduce_block_partial", "reduce_sum_partial",
+                    "reduce_final_sum", "reduce_max_partial",
+                    "reduce_final_max")}}
+    if not all(launches.values()):
+        fail(f"phase p: a kernel of the path never launched: {launches}")
+    if not torch.equal(again, tuned):
+        fail(f"phase p: the stored winner gave {again.item()}, the tuned "
+             f"call {tuned.item()}")
+    return dict(x=x, h=h, tuned=tuned, res=res, launches=launches,
+                tune_s=tune_s)
+
+
+def reductions(R, ex_sum, ex_prog, cu, ev, dev, gen, card, block_extremes):
+    """Phase p (BASELINE config 2): the path of ``reduction_path``, each
+    result against the float64 sum (or torch's max, exact) and the K0
+    routes against the torch evaluator on the card; R1 at 64M f32 and
+    bf16 and at 128 x 1000 against its plain version, timed beside its
+    bound and ``torch.sum(x, dtype=torch.float32)``; the K0 routes' times;
+    block max/min exact; sum_things' four variants and the book's
+    reduction progression (512 x 8192, naive at 256 x 4096)."""
+    p = reduction_path(R, cu)
+    x, h = p["x"], p["h"]
+    x64 = x.double()
+    ref, scale = x64.sum().item(), x64.abs().sum().item()
+    key = ("sum", RED_N, "float32")
+    winner, times = _tuned_winner(R, key)
+    if len(times) != 10 or not all(math.isfinite(t) and t > 0
+                                   for t in times.values()):
+        fail(f"phase p reduce_sum_autotuned timed {times}")
+    for what, v in (("reduce_sum_autotuned", p["tuned"]),
+                    ("reduce_sum", p["res"]["sum"]),
+                    ("reduce_sum_blockwise", p["res"]["blockwise"])):
+        if abs(v.double().item() - ref) > SUM_TOL * scale:
+            fail(f"phase p {what} 64M f32: {v.item()} vs the float64 sum "
+                 f"{ref} (tolerance {SUM_TOL} * {scale})")
+    if p["res"]["max"].item() != x.max().item():
+        fail(f"phase p reduce_max: {p['res']['max'].item()} != "
+             f"{x.max().item()}")
+    if abs(p["res"]["mean"].double().item() - ref / RED_N) > \
+            SUM_TOL * scale / RED_N:
+        fail(f"phase p reduce_mean: {p['res']['mean'].item()}")
+    # the K0 routes against the torch evaluator on the card
+    eh = ev.create(x)
+    evs = {"sum": R.reduce_sum(ev, eh).tensor, "max": R.reduce_max(ev, eh)
+           .tensor, "blockwise": R.reduce_sum_blockwise(ev, eh).tensor}
+    torch.cuda.synchronize()
+    if not torch.equal(evs["max"], p["res"]["max"]):
+        fail("phase p reduce_max: kernel and evaluator differ")
+    for k in ("sum", "blockwise"):
+        if abs(evs[k].item() - p["res"][k].item()) > SUM_TOL * scale:
+            fail(f"phase p {k}: kernel {p['res'][k].item()} vs evaluator "
+                 f"{evs[k].item()}")
+    neg = cu.create(-x)
+    mn = -R.reduce_max(cu, neg).tensor
+    win = RED_N // BLOCK_CUBES
+    ext = cu.empty((2 * BLOCK_CUBES,), "float32")
+    block_extremes.launch_unchecked(cu, BLOCK_CUBES, 256, array_arg(h, 128),
+                                    array_arg(ext, 1, True), win // 128)
+    torch.cuda.synchronize()
+    xw = x.view(BLOCK_CUBES, win)
+    if mn.item() != x.min().item() or not torch.equal(
+            ext.tensor.view(BLOCK_CUBES, 2),
+            torch.stack([xw.amax(1), xw.amin(1)], 1)):
+        fail("phase p: min or the block max/min are not exact")
+    print(f"phase p reductions 64M f32 (path): reduce_sum_autotuned tuned "
+          f"in {p['tune_s']:.2f} s over {len(times)} candidates, each a "
+          f"CUDA graph timed by CUDA events: {_ranked(times, 1e3)} ms; "
+          f"winner {winner}; a second call ran it untimed; sums within "
+          f"{SUM_TOL} * sum|x| of the float64 sum, reduce_max and -max(-x) "
+          f"and block_max/block_min exact; K0 routes vs the torch evaluator "
+          f"on the card: sum {abs(evs['sum'].item() - p['res']['sum'].item())}"
+          f", blockwise {abs(evs['blockwise'].item() - p['res']['blockwise'].item())}"
+          f"; launches {p['launches']} [{card}]", flush=True)
+
+    # R1 against plain, the bound and torch.sum
+    r1 = {}
+    best_br = int(winner[len("native_br"):]) if winner.startswith(
+        "native_br") else 4096
+    for name, xs in (("f32 64M", x), ("bf16 64M", x.bfloat16()),
+                     ("f32 128x1000", torch.randn(RED_SMALL, generator=gen,
+                                                  device=dev))):
+        n = xs.numel()
+        hs = cu.create(xs)
+        got = R.reduce_sum_native(cu, hs, block_rows=best_br).tensor
+        plain = R.reduce_sum_native_plain(xs)
+        torch.cuda.synchronize()
+        xd = xs.double()
+        err64 = abs(got.double().item() - xd.sum().item())
+        lim = SUM_TOL * xd.abs().sum().item()
+        err = abs(got.item() - plain.item())
+        if err64 > lim or err > lim:
+            fail(f"phase p R1 {name}: {got.item()}, float64 sum "
+                 f"{xd.sum().item()}, plain {plain.item()} (limit {lim})")
+        br_ms = {}
+        for br in NATIVE_BRS:
+            k = R._build_reduce_native(n, br, xs.dtype)
+            part = torch.empty(R._native_blocks(n, br), device=dev)
+            o = torch.empty(1, device=dev)
+            br_ms[br] = cuda_ms(lambda: k.fn([xs, part, o]), iters=50)
+        ms = br_ms[best_br]
+        plain_ms = cuda_ms(lambda: R.reduce_sum_native_plain(xs), iters=20)
+        lib_ms = cuda_ms(lambda: torch.sum(xs, dtype=torch.float32), iters=50)
+        bms, by = bound_ms(n, n * xs.element_size(), torch.float32)
+        gbs = n * xs.element_size() / ms / 1e6
+        print(f"phase p R1 reduce_native {name} (block_rows {best_br}): "
+              f"{got.item()} vs the float64 sum {xd.sum().item()} (err "
+              f"{err64}, limit {lim}), vs plain {err}; kernel {ms:.4f} ms = "
+              f"{gbs:.0f} GB/s, {100 * bms / ms:.1f}% of the bound "
+              f"{bms:.4f} ms ({by}); by block_rows "
+              f"{', '.join(f'{b}: {t:.4f}' for b, t in br_ms.items())} ms; "
+              f"plain {plain_ms:.4f} ms; torch.sum(dtype=float32) "
+              f"{lib_ms:.4f} ms [{card}]", flush=True)
+        r1[name] = dict(max_abs_err=err, err_vs_float64=err64, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                        bound_by=by, gb_per_s=gbs, block_rows=best_br,
+                        ms_by_block_rows=br_ms)
+        del hs
+    chunks = RED_N // (STRIDE_BR * 128)
+    got = R.reduce_sum_native(cu, h, block_rows=STRIDE_BR).tensor
+    torch.cuda.synchronize()
+    err64 = abs(got.double().item() - ref)
+    if chunks <= R.MAX_BLOCKS or err64 > SUM_TOL * scale:
+        fail(f"phase p R1 grid-stride ({chunks} chunks): {got.item()} vs "
+             f"the float64 sum {ref} (limit {SUM_TOL * scale})")
+    print(f"phase p R1 reduce_native f32 64M at block_rows {STRIDE_BR}: "
+          f"{chunks} chunks over {R.MAX_BLOCKS} blocks, err {err64} vs the "
+          f"float64 sum (limit {SUM_TOL * scale}) [{card}]", flush=True)
+
+    # the K0 routes: times (each call as a user makes it: its output and
+    # partials allocated, two launches)
+    routes = {}
+    for name, fn, plain in (
+            ("reduce_sum", lambda: R.reduce_sum(cu, h), lambda: x.sum()),
+            ("reduce_max", lambda: R.reduce_max(cu, h), lambda: x.max()),
+            ("reduce_sum_blockwise", lambda: R.reduce_sum_blockwise(cu, h),
+             lambda: x.view(BLOCK_CUBES, -1).sum(1).sum())):
+        routes[name] = dict(ms=cuda_ms(fn, iters=5, warmup=1),
+                            plain_ms=cuda_ms(plain, iters=20))
+    # a call through the tuner, and the winner's route called directly,
+    # alternated five times (the host's speed drifts): the difference of
+    # the medians is the tuner's host work per call
+    wins, directs = [], []
+    for _ in range(5):
+        wins.append(cuda_ms(lambda: R.reduce_sum_autotuned(cu, h), iters=50))
+        directs.append(cuda_ms(lambda: R.reduce_sum_native(
+            cu, h, block_rows=best_br), iters=50))
+    win_ms, direct_ms = statistics.median(wins), statistics.median(directs)
+    bms, by = bound_ms(RED_N, RED_N * 4, torch.float32)
+    # reduce_block_partial alone: one block_sum per cube over its window
+    part = cu.empty((BLOCK_CUBES,), "float32")
+    blk = lambda: R.reduce_block_partial.launch_unchecked(  # noqa: E731
+        cu, BLOCK_CUBES, R.CD, array_arg(h, 128), array_arg(part, 1, True),
+        win // 128)
+    blk()
+    eparts = ev.empty((BLOCK_CUBES,), "float32")
+    R.reduce_block_partial.launch_unchecked(
+        ev, BLOCK_CUBES, R.CD, array_arg(eh, 128), array_arg(eparts, 1, True),
+        win // 128)
+    plain_parts = xw.sum(1)
+    torch.cuda.synchronize()
+    blk_err = (part.tensor - plain_parts).abs().max().item()
+    blk_lim = BLOCK_TOL * xw.abs().sum(1).min().item()
+    if blk_err > blk_lim or \
+            (part.tensor - eparts.tensor).abs().max().item() > blk_lim:
+        fail(f"phase p reduce_block_partial: max abs err {blk_err}")
+    blk_ms = cuda_ms(blk, iters=5, warmup=1)
+    blk_plain = cuda_ms(lambda: xw.sum(1), iters=20)
+    blk_lib = cuda_ms(lambda: torch.sum(xw, dim=1), iters=20)
+    print(f"phase p K0 routes 64M f32 (cubes of {R.CD} units): "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f})"
+                      for k, v in routes.items())
+          + f"; reduce_block_partial alone ({BLOCK_CUBES} cubes): "
+          f"{blk_ms:.4f} ms, max abs err {blk_err} vs plain, torch.sum(dim=1)"
+          f" {blk_lib:.4f} ms; reduce_sum_autotuned per call ({winner}) "
+          f"{win_ms:.4f} ms, reduce_sum_native(block_rows={best_br}) per "
+          f"call {direct_ms:.4f} ms (medians of 5 alternated; "
+          f"{min(wins):.4f}-{max(wins):.4f}, {min(directs):.4f}-"
+          f"{max(directs):.4f}); bound {bms:.4f} ms ({by}) [{card}]",
+          flush=True)
+    block = dict(max_abs_err=blk_err, ms=blk_ms, plain_ms=blk_plain,
+                 library_ms=blk_lib, bound_ms=bms, bound_by=by,
+                 launches=p["launches"]["reduce_block_partial"])
+
+    # examples/sum_things.py's four variants
+    data = torch.arange(ex_sum.N, dtype=torch.float32, device=dev)
+    sums = {}
+    for name in ("basic", "subgroup", "trait:plane", "trait:basic"):
+        i, o = cu.create(data), cu.empty((ex_sum.N,), "float32")
+        run = ex_sum.variants(cu, i, o)[name]
+        run()
+        torch.cuda.synchronize()
+        if o.tensor[0].item() != data.sum().item():
+            fail(f"phase p sum_things {name}: {o.tensor.tolist()}")
+        sums[name] = cuda_ms(run, iters=20)
+    # examples/reduction_progression.py at the book's shape
+    rows, cols, nr, nc = ex_prog.BOOK
+    xm = torch.rand(rows, cols, generator=gen, device=dev)
+    xn = xm[:nr, :nc].contiguous()
+    hm, hn = cu.create(xm.reshape(-1)), cu.create(xn.reshape(-1))
+    out, outn = cu.empty((rows,), "float32"), cu.empty((nr,), "float32")
+    stage_ms = {}
+    for name, (k, cc, cd, args) in ex_prog.stages(
+            hm, out, hn, outn, rows, cols, nr, nc).items():
+        def run(k=k, cc=cc, cd=cd, args=args):
+            k.launch_unchecked(cu, cc, cd, *args)
+        run()
+        torch.cuda.synchronize()
+        want = (xn if name == "naive" else xm).double().sum(1)
+        got = args[1].handle.tensor.double()
+        if ((got - want).abs() > 1e-4 * want.abs()).any():
+            fail(f"phase p reduction_progression {name}: max abs err "
+                 f"{(got - want).abs().max().item()}")
+        naive = name == "naive"
+        t = cuda_ms(run, iters=2 if naive else 10, warmup=1)
+        # the naive stage runs on a quarter of the elements: scaled, as
+        # the script scales it
+        stage_ms[name] = t * (rows * cols) / (nr * nc) if naive else t
+    base = stage_ms["naive"]
+    print(f"phase p sum_things (8 f32, one cube of 8): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items())
+          + f"; reduction_progression {rows}x{cols} f32 -> [{rows}] "
+          f"(naive at {nr}x{nc}, scaled): "
+          + ", ".join(f"{k} {v:.4f} ms ({base / v:.1f}x)"
+                      for k, v in stage_ms.items())
+          + f" [{card}]", flush=True)
+    return dict(r1=r1, block=block, launches=p["launches"], winner=winner,
+                candidates_ms={k: v * 1e3 for k, v in times.items()},
+                tune_s=p["tune_s"], routes=routes, progression=stage_ms,
+                sum_things=sums)
+
+
+def fusion_and_std(FU, S, cu, ev, dev, gen, card):
+    """Phase q (BASELINE config 5): ``launch_fused`` for relu((a+b)*c) and
+    add -> gelu on 16M f32, exactly one K0 launch each, against the torch
+    evaluator on the card and plain, timed beside the bytes bound; then
+    ``into_contiguous`` of a strided 3-D view (``_copy_permuted``) and
+    ``identity(4096)`` against plain. Counts zeroed before the path's
+    launches, read after."""
+    ins = [torch.randn(FUSE_N, generator=gen, device=dev) for _ in range(3)]
+    hs = [cu.create(t) for t in ins]
+    outs = [cu.empty((FUSE_N,), "float32") for _ in FUSE_CASES]
+    src = torch.randn(math.prod(CONTIG_SRC), generator=gen, device=dev)
+    th = S.TensorHandle(cu.create(src), CONTIG_VIEW, CONTIG_STRIDES)
+    torch.cuda.synchronize()
+    cu.server.reset_counts()
+    for (ops, k), o in zip(FUSE_CASES, outs):
+        FU.launch_fused(cu, hs[:k], o, list(ops))
+    dense = S.into_contiguous(cu, th)
+    eye = S.identity(cu, EYE_N)
+    torch.cuda.synchronize()
+    launches = dict(cu.server.launches)
+    want = {"fused_chain": len(FUSE_CASES), "_copy_permuted": 1,
+            "_identity_kernel": 1}
+    if launches != want:
+        fail(f"phase q: launches {launches}, want {want}")
+    a, b, c = ins
+    plains = [lambda: torch.relu((a + b) * c), lambda: _plain_gelu(a + b)]
+    rows = {}
+    for (ops, k), o, plain in zip(FUSE_CASES, outs, plains):
+        what = " -> ".join(ops)
+        eo = ev.empty((FUSE_N,), "float32")
+        FU.launch_fused(ev, [ev.create(t) for t in ins[:k]], eo, list(ops))
+        torch.cuda.synchronize()
+        err_ev = compare(o.tensor, eo.tensor, f"phase q {what} vs evaluator")
+        err = compare(o.tensor, plain(), f"phase q {what} vs plain")
+        ms = cuda_ms(lambda: FU.launch_fused(cu, hs[:k], o, list(ops)))
+        plain_ms = cuda_ms(plain)
+        bms, by = bound_ms(len(ops) * FUSE_N, (k + 1) * FUSE_N * 4,
+                           torch.float32)
+        print(f"phase q K0 fused_chain {what} f32 16M (one launch): max abs "
+              f"err {err} vs plain, {err_ev} vs the torch evaluator; kernel "
+              f"{ms:.4f} ms ({(k + 1) * FUSE_N * 4 / ms / 1e6:.0f} GB/s), "
+              f"plain {plain_ms:.4f} ms (eager torch ops), bound {bms:.4f} "
+              f"ms ({by}); no one PyTorch call computes it [{card}]",
+              flush=True)
+        rows[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+    view = src.view(CONTIG_SRC)[:, ::2, :]
+    if not torch.equal(dense.handle.tensor, view.reshape(-1)) or \
+            not torch.equal(eye.tensor.view(EYE_N, EYE_N),
+                            torch.eye(EYE_N, device=dev)):
+        fail("phase q: into_contiguous or identity differs from plain")
+    n = math.prod(CONTIG_VIEW)
+    c_ms = cuda_ms(lambda: S.into_contiguous(cu, th), iters=10)
+    c_plain = cuda_ms(lambda: view.contiguous(), iters=10)
+    c_b, c_by = bound_ms(0, 2 * n * 4, torch.float32)
+    e_ms = cuda_ms(lambda: S.identity(cu, EYE_N), iters=10)
+    e_plain = cuda_ms(lambda: torch.eye(EYE_N, device=dev), iters=10)
+    e_b, e_by = bound_ms(0, EYE_N * EYE_N * 4, torch.float32)
+    print(f"phase q into_contiguous {CONTIG_VIEW} view of {CONTIG_SRC} f32 "
+          f"(strides {CONTIG_STRIDES}, _copy_permuted on K0): equal to "
+          f"plain; {c_ms:.4f} ms, .contiguous() {c_plain:.4f} ms, bound "
+          f"{c_b:.4f} ms ({c_by}); identity({EYE_N}) (_identity_kernel): "
+          f"equal to torch.eye; {e_ms:.4f} ms, torch.eye {e_plain:.4f} ms, "
+          f"bound {e_b:.4f} ms ({e_by}) [{card}]", flush=True)
+    return dict(rows=rows, launches=launches,
+                contiguous=dict(ms=c_ms, plain_ms=c_plain, bound_ms=c_b),
+                identity=dict(ms=e_ms, plain_ms=e_plain, bound_ms=e_b))
+
+
+def throughput(S, T, cu, card):
+    """Phase r: ``ThroughputCache`` on the card: each runner measures once
+    into the temp store, then a new cache reads every peak back without
+    measuring."""
+    cu.server.reset_counts()
+    t0 = time.perf_counter()
+    peaks = S.ThroughputCache(cu).all()
+    took = time.perf_counter() - t0
+    launches = dict(cu.server.launches)
+    if not launches.get("_fma_chain") or not launches.get("_add_one"):
+        fail(f"phase r: the K0 runners did not launch: {launches}")
+    modes = T.ThroughputCache.MODES
+    T.ThroughputCache.MODES = {m: _no_measure for m in modes}
+    try:
+        back = S.ThroughputCache(cu).all()
+    finally:
+        T.ThroughputCache.MODES = modes
+    if back != peaks or not all(math.isfinite(v) and v > 0
+                                for v in peaks.values()):
+        fail(f"phase r: measured {peaks}, read back {back}")
+    print(f"phase r ThroughputCache ({took:.2f} s, stored and read back): "
+          f"memory {peaks['memory'] / 1e9:.0f} GB/s "
+          f"({100 * peaks['memory'] / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s); "
+          f"compute_cmma bf16 {peaks['compute_cmma'] / 1e12:.1f} TFLOP/s "
+          f"({100 * peaks['compute_cmma'] / 989e12:.1f}% of 989); "
+          f"compute_direct f32 FMA {peaks['compute_direct'] / 1e12:.1f} "
+          f"TFLOP/s ({100 * peaks['compute_direct'] / 67e12:.1f}% of 67); "
+          f"launch {peaks['launch'] * 1e6:.2f} us [{card}]", flush=True)
+    return peaks
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2123,7 +2597,13 @@ def main():
     from cubecl_tpu_torch.ops import attention as fa
     from cubecl_tpu_torch.ops import matmul as mm
     from cubecl_tpu_torch.ops import paged_attention as pa
+    from cubecl_tpu_torch import std as cstd
+    from cubecl_tpu_torch.examples import reduction_progression as ex_prog
+    from cubecl_tpu_torch.examples import sum_things as ex_sum
+    from cubecl_tpu_torch.ops import fusion as FU
+    from cubecl_tpu_torch.ops import reduce as R
     from cubecl_tpu_torch.std import quant_kernels as qk
+    from cubecl_tpu_torch.std import throughput as T
     from cubecl_tpu_torch.utils import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2167,6 +2647,8 @@ def main():
     for c in cases + train_cases:
         c["prepare"](co)()
     mm_compile_only(mm, qk, co)
+    block_extremes = make_block_extremes()
+    red_compile_only(R, FU, cstd, ex_sum, ex_prog, T, co, block_extremes)
     build = native.build()
     native.kernels()
     cu.server.wait_builds()
@@ -2375,6 +2857,19 @@ def main():
 
     # -- phase o: K0 cmma (matmul_cmma) and the K0 quant kernels ------------
     o_out = cmma_and_quant(mm, qk, cu, ev, dev, gen, card)
+    torch.cuda.empty_cache()
+
+    # -- phase p: reductions (BASELINE config 2) -----------------------------
+    p_out = reductions(R, ex_sum, ex_prog, cu, ev, dev, gen, card,
+                       block_extremes)
+    torch.cuda.empty_cache()
+
+    # -- phase q: comptime fusion (config 5), into_contiguous, identity -----
+    q_out = fusion_and_std(FU, cstd, cu, ev, dev, gen, card)
+    torch.cuda.empty_cache()
+
+    # -- phase r: the throughput runners, stored and read back ---------------
+    throughput(cstd, T, cu, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -2523,6 +3018,39 @@ def main():
                           "and quantizes with it",
             shape="f32 4096^2 -> int8, one per-tensor scale",
             block_4096=o_out["k0_quantize_block"]),
+        row("reduce_native", "cubecl_tpu_torch/csrc/reduce.cu",
+            "cubecl_tpu/ops/reduce.py:219", p_out["launches"]["reduce_native"],
+            p_out["r1"]["f32 64M"], p_out["r1"]["f32 64M"]["library_ms"],
+            library="torch.sum(x, dtype=torch.float32)",
+            shape="f32 64M -> f32 (BASELINE config 2)",
+            **{k: p_out["r1"]["f32 64M"][k] for k in (
+                "gb_per_s", "block_rows", "ms_by_block_rows")},
+            bf16_64M=p_out["r1"]["bf16 64M"],
+            f32_128x1000=p_out["r1"]["f32 128x1000"],
+            reduce_sum_autotuned=dict(winner=p_out["winner"],
+                                      tune_s=p_out["tune_s"],
+                                      candidates_ms=p_out["candidates_ms"])),
+        row("k0_block_reduce", "cubecl_tpu_torch/ops/reduce.py "
+            "(reduce_block_partial: mem.block_reduce, printed by "
+            "cubecl_tpu_torch/backend/cuda/printer.py)",
+            "cubecl_tpu/backend/pallas/emitter.py:48",
+            p_out["block"]["launches"], p_out["block"],
+            p_out["block"]["library_ms"], library="torch.sum(x, dim=1)",
+            shape=f"f32 64M as {BLOCK_CUBES} windows, cubes of 8 units",
+            k0_routes_64M=p_out["routes"],
+            reduction_progression_ms=p_out["progression"],
+            sum_things_ms=p_out["sum_things"],
+            path_launches=p_out["launches"]),
+        row("k0_fused_chain", "cubecl_tpu_torch/ops/fusion.py (fused_chain, "
+            "printed by cubecl_tpu_torch/backend/cuda/printer.py)",
+            "cubecl_tpu/backend/pallas/emitter.py:48",
+            q_out["launches"]["fused_chain"],
+            q_out["rows"]["add -> mul -> relu"], None,
+            library="none: no one PyTorch call computes relu((a+b)*c)",
+            shape="relu((a+b)*c), f32 16M",
+            add_gelu=q_out["rows"]["add -> gelu"],
+            into_contiguous=q_out["contiguous"],
+            identity=q_out["identity"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

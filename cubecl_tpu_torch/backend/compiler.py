@@ -81,13 +81,21 @@ class CompiledKernel:
         return self.fn(buffers, scalars)
 
 
+#: the op families that neither K0 backend (the CUDA printer, the torch
+#: evaluator) lowers yet: the leftovers of ROADMAP Queue 1 item 3
+UNLOWERED = ("atomics", "mem.slice", "shared memory and per-unit arrays",
+             "barriers and memcpy_async", "plane scans and ballots",
+             "the saturating, mulhi and bit-counting ops", "debug.print",
+             "a runtime grid (CubeCount.runtime)")
+
+
 def unsupported(what: str, backend: str) -> NotImplementedError:
     """The error a backend raises for an IR op (or builtin, or memory
-    kind) it does not lower, naming it and the ROADMAP item that brings
-    it; no backend emits a stub."""
+    kind) it does not lower, naming it, the families still to lower and
+    the ROADMAP item that brings them; no backend emits a stub."""
     return NotImplementedError(
-        f"{what} is not lowered by {backend} yet (ROADMAP Queue 1 item 3: "
-        "K0 op families still to lower)")
+        f"{what} is not lowered by {backend} yet (ROADMAP Queue 1 item 3; "
+        f"still to lower: {'; '.join(UNLOWERED)})")
 
 
 SMEM_ALIGN = 16  # bytes: a fragment region starts on a 16-byte boundary

@@ -53,7 +53,16 @@ The mapping:
   ``execute_scaled`` scales the operands first, as the JAX evaluator
   does; ``cast`` converts element by element. Every fragment op sits
   between ``__syncthreads()``, so it must run in cube-uniform control
-  flow, as the JAX package requires too.
+  flow, as the JAX package requires too;
+- ``mem.block_reduce`` (``Slice.block_sum`` and its kin) is
+  cube-cooperative too: the threads stride over the window's elements,
+  neighbouring threads on neighbouring addresses, accumulating in f32 for
+  sub-f32 sums and products; a ``__shfl_xor_sync`` butterfly folds each
+  plane and a static ``__shared__`` array of one value per plane folds the
+  planes, between ``__syncthreads()``, so that every unit holds the
+  result. Its start must be cube-uniform and its control flow too;
+- ``op.reinterpret`` is a bit copy (``memcpy``) of the value's storage,
+  the line absorbing the width ratio.
 
 What bounds a printed kernel: it is the DSL kernel as written, one thread
 per unit. A kernel with wide lines (the ``*_lines`` normalization kernels
@@ -66,10 +75,10 @@ vector loads are later work; PERF.md keeps each time beside the plain
 torch version.
 
 Ops this printer does not lower raise ``NotImplementedError`` naming the
-op (``backend.compiler.unsupported``): atomics, ``mem.block_reduce``,
-``mem.slice``, shared memory and per-unit arrays, barriers and
-``memcpy_async``, plane scans and ballots, ``op.reinterpret``, the
-saturating and bit-counting ops, ``debug.print``, and a runtime grid.
+op (``backend.compiler.unsupported``): atomics, ``mem.slice``, shared
+memory and per-unit arrays, barriers and ``memcpy_async``, plane scans
+and ballots, the saturating, ``mulhi`` and bit-counting ops,
+``debug.print``, and a runtime grid.
 """
 
 from __future__ import annotations
@@ -91,6 +100,9 @@ MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (sm_90)
 # longest per-element expression a line value is inlined as (longer ones
 # are materialized in an array, so that nesting cannot blow up the source)
 _INLINE_LIMIT = 600
+
+# accumulators (and loads in flight) per thread of a block reduction
+_BR_ACC = 8
 
 _STORAGE = {
     "f64": "double", "f32": "float", "flex32": "float",
@@ -604,6 +616,12 @@ class _Printer:
         if oc.startswith("plane."):
             self.plane(inst)
             return
+        if oc == O.BLOCK_REDUCE:
+            self.block_reduce(inst)
+            return
+        if oc == O.REINTERPRET:
+            self.reinterpret(inst)
+            return
         if oc == O.VEC_INIT:
             n = self.declare(out)
             for i, a in enumerate(op.args):
@@ -867,6 +885,124 @@ class _Printer:
         self.emit(f"{n} = {self.store_as('acc', elem)};")
         self.close()
 
+    def block_reduce(self, inst) -> None:
+        """``mem.block_reduce``: the cube reduces the buffer's elements of
+        lines [start, start + lines) together. The threads stride over the
+        window, neighbouring threads on neighbouring 16-byte vectors when
+        the window's start is 16-byte aligned (single elements otherwise),
+        each with ``_BR_ACC`` accumulators of the compute type (f32 for
+        sub-f32 floats), so that as many loads are in flight; a
+        ``__shfl_xor_sync`` butterfly folds each plane, a static
+        ``__shared__`` array of one value per plane folds the planes in a
+        fixed order, and every unit ends with the same value, converted
+        back to the buffer's type."""
+        op = inst.op
+        out = inst.out
+        bp = self.buffer(op.args[0])
+        kind, lines = op.attrs["kind"], int(op.attrs["lines"])
+        elem, L = bp.ty.elem, bp.ty.line
+        U, P, K = self.U, self.P, _BR_ACC
+        if U % P or P & (P - 1) or elem.is_bool:
+            raise unsupported(f"{O.BLOCK_REDUCE} of {elem.name} on a plane "
+                              f"of {P} lanes in a cube of {U} units",
+                              _BACKEND)
+        ct, sh, st = _compute(elem), _shfl_type(elem), _storage(elem)
+        fold = {"sum": "{a} + {b}", "prod": "{a} * {b}",
+                "max": "cc_max({a}, {b})", "min": "cc_min({a}, {b})"}[kind]
+        comb = fold.format(a="acc", b="t")
+        W, V = lines * L, 16 // elem.size
+        n = self.declare(out)
+        nw = U // P
+        red = f"cc_red{out.vid}"
+        self.open("")
+        self.emit(f"const {st}* p = b{bp.value.vid} + "
+                  f"{self.cval(op.args[1], i64)} * {L};")
+        self.emit(f"{ct} accs[{K}];")
+        self.emit(f"for (int k = 0; k < {K}; ++k) accs[k] = "
+                  f"{_identity(kind, elem)};")
+
+        def sweep(width: int) -> None:
+            # K loads a step per thread, each ``width`` elements
+            self.open(f"for (int64_t i = (int64_t)unit_pos * {width}; "
+                      f"i < {W}; i += {U * width * K}LL)")
+            self.emit("#pragma unroll")
+            self.open(f"for (int k = 0; k < {K}; ++k)")
+            self.emit(f"const int64_t j = i + (int64_t)k * {U * width};")
+            self.open(f"if (j < {W})")
+            if width > 1:
+                self.emit("const uint4 u = *reinterpret_cast<const uint4*>"
+                          "(p + j);")
+                self.emit(f"const {st}* e = reinterpret_cast<const {st}*>"
+                          f"(&u);")
+                self.emit("#pragma unroll")
+                self.open(f"for (int v = 0; v < {width}; ++v)")
+                src = "e[v]"
+            else:
+                src = "p[j]"
+            self.emit(f"const {ct} t = "
+                      f"{self.conv_expr(src, elem, elem, False)};")
+            self.emit(f"accs[k] = {fold.format(a='accs[k]', b='t')};")
+            if width > 1:
+                self.close()
+            self.close()
+            self.close()
+            self.close()
+
+        if V > 1 and W % V == 0:
+            self.open("if ((reinterpret_cast<uintptr_t>(p) & 15) == 0)")
+            sweep(V)
+            self.close("} else {")
+            self.depth += 1
+            self.blocks.append(set())
+            sweep(1)
+            self.close()
+        else:
+            sweep(1)
+        self.emit(f"{ct} acc = accs[0];")
+        self.open(f"for (int k = 1; k < {K}; ++k)")
+        self.emit(f"const {ct} t = accs[k];")
+        self.emit(f"acc = {comb};")
+        self.close()
+        self.open(f"for (int o = {P // 2}; o > 0; o >>= 1)")
+        self.emit(f"const {ct} t = ({ct})__shfl_xor_sync("
+                  f"{self.plane_mask()}, ({sh})acc, o, {P});")
+        self.emit(f"acc = {comb};")
+        self.close()
+        if nw > 1:
+            self.emit(f"__shared__ {ct} {red}[{nw}];")
+            self.emit(f"if (unit_pos_plane == 0) {red}[plane_pos] = acc;")
+            self.emit("__syncthreads();")
+            self.emit(f"acc = {red}[0];")
+            self.open(f"for (int w = 1; w < {nw}; ++w)")
+            self.emit(f"const {ct} t = {red}[w];")
+            self.emit(f"acc = {comb};")
+            self.close()
+            self.emit("__syncthreads();")  # the array is read before reuse
+        self.emit(f"{n} = {self.store_as('acc', elem)};")
+        self.close()
+
+    def reinterpret(self, inst) -> None:
+        """``op.reinterpret``: the bits of a value as another element type;
+        the line absorbs the width ratio (a line of 4 f32 is a line of 16
+        u8). The source is gathered in its storage type and copied."""
+        x, out = inst.op.args[0], inst.out
+        src, Ls = x.ty.elem, x.ty.line
+        if Ls * src.size != out.ty.line * out.ty.elem.size:
+            raise unsupported(f"{O.REINTERPRET} of {Ls} x {src.name} as "
+                              f"{out.ty.line} x {out.ty.elem.name}", _BACKEND)
+        n = self.declare(out)
+        self.open("")
+        if Ls > 1:
+            self.emit(f"{_storage(src)} src[{Ls}];")
+            self.emit(f"for (int l = 0; l < {Ls}; ++l) src[l] = "
+                      f"{self.convert(x, src, 'l')};")
+        else:
+            self.emit(f"{_storage(src)} src = {self.convert(x, src, None)};")
+        dst = n if out.ty.line > 1 else f"&{n}"
+        self.emit(f"memcpy({dst}, {'src' if Ls > 1 else '&src'}, "
+                  f"sizeof(src));")
+        self.close()
+
     def plane(self, inst) -> None:
         op = inst.op
         oc = op.opcode
@@ -920,6 +1056,20 @@ def _writebacks(body: Scope) -> list:
     """(mut, value) of the loop-carry writebacks at the end of ``body``."""
     return [(i.out, i.op.args[0]) for i in body.instructions
             if i.op.opcode == O.COPY and i.op.attrs.get("carry_writeback")]
+
+
+def _identity(kind: str, elem: ElemType) -> str:
+    """The neutral element of a block reduction, in ``elem``'s compute
+    type."""
+    if kind in ("sum", "prod"):
+        return _literal(0 if kind == "sum" else 1, elem)
+    lo = kind == "max"
+    if elem.is_float:
+        return _literal(-math.inf if lo else math.inf, elem)
+    if elem.is_signed:
+        return _literal(-(1 << (elem.bits - 1)) if lo
+                        else (1 << (elem.bits - 1)) - 1, elem)
+    return _literal(0 if lo else (1 << elem.bits) - 1, elem)
 
 
 def _promote(a: ElemType, b: ElemType) -> ElemType:

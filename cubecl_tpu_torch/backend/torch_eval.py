@@ -529,6 +529,12 @@ class Evaluator:
             return self._full(self.lens[op.args[0].vid], out.ty)
         if oc in (O.SHAPE_DIM, O.STRIDE_DIM, O.RANK):
             return self._full(_tensor_meta(self.defn, op), out.ty)
+        if oc == O.BLOCK_REDUCE:
+            return self._block_reduce(inst, act)
+        if oc == O.REINTERPRET:
+            # the bits of each unit's line as dt; the line absorbs the
+            # width ratio ((N, L) of 4-byte elements is (N, 4 L) bytes)
+            return self.val(op.args[0]).contiguous().view(dt)
         if oc in _PLANE_REDUCE or oc in _PLANE_GATHER or \
                 oc == O.PLANE_ELECT:
             return self._plane(inst)
@@ -575,6 +581,33 @@ class Evaluator:
         if oc == O.DOT:
             return (xs[0].to(dt) * xs[1].to(dt)).sum(-1, keepdim=True)
         raise unsupported(oc, "the torch evaluator")
+
+    def _block_reduce(self, inst, act) -> torch.Tensor:
+        """``mem.block_reduce``: every cube reduces the buffer's lines
+        [start, start + lines) to one value that all its units hold; the
+        start must be the same for every unit of a cube. Sums and
+        products of sub-f32 floats accumulate in f32 and are cast back to
+        the buffer's type, as the JAX evaluator does."""
+        op = inst.op
+        buf = op.args[0]
+        t = self._buffer(buf)
+        lines, kind = int(op.attrs["lines"]), op.attrs["kind"]
+        start = self._per_cube(op.args[1], "block_reduce start").long()
+        rows = start.view(-1, 1) + torch.arange(lines, device=self.dev)
+        live = act.expand(self.N, 1).reshape(self.cubes, self.U).any(1)
+        n = self.lens[buf.vid]
+        bad = live.view(-1, 1) & ((rows < 0) | (rows >= n))
+        if bool(bad.any()):
+            raise IndexError(
+                f"{self.defn.options.name}: block_reduce of "
+                f"{buf.name or buf!r} reads lines outside [0, {n})")
+        win = t[rows.clamp(0, max(n - 1, 0))].reshape(self.cubes, -1)
+        acc = torch.float32 if (t.dtype in (torch.bfloat16, torch.float16)
+                                and kind in ("sum", "prod")) else t.dtype
+        red = {"sum": lambda w: w.sum(1), "prod": lambda w: w.prod(1),
+               "max": lambda w: w.amax(1), "min": lambda w: w.amin(1)}[kind]
+        val = red(win.to(acc)).to(t.dtype)
+        return val.repeat_interleave(self.U).view(self.N, 1)
 
     def _plane(self, inst) -> torch.Tensor:
         op = inst.op

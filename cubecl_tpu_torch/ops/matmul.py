@@ -385,7 +385,8 @@ def autotune_best_tile(client, a: Handle, b: Handle, out: Handle,
     in_dtype = _operand_dtype(a, in_dtype)
     matmul_autotuned(client, a, b, out, m, n, k, in_dtype)
     key = _tune_key(m, n, k, in_dtype, _out_dtype(out))
-    tuner = _matmul_tuner.tuner_for(client, key)
+    tuner = _matmul_tuner.tuner_for(
+        client, key, matmul_tunables(m, n, k, in_dtype, _out_dtype(out)))
     hit = tuner.cache.mem.get(str(key)) if tuner is not None else None
     if hit is None:
         raise RuntimeError(
@@ -407,7 +408,8 @@ def autotune_top_tiles(client, a: Handle, b: Handle, out: Handle,
     in_dtype = _operand_dtype(a, in_dtype)
     best = autotune_best_tile(client, a, b, out, m, n, k, in_dtype)
     key = _tune_key(m, n, k, in_dtype, _out_dtype(out))
-    tuner = _matmul_tuner.tuner_for(client, key)
+    tuner = _matmul_tuner.tuner_for(
+        client, key, matmul_tunables(m, n, k, in_dtype, _out_dtype(out)))
     timings = tuner.cache.timings(key) if tuner is not None else {}
     if not timings:
         return [best]

@@ -53,13 +53,23 @@ def time_graph(client, graph, reps: int = 3) -> float:
             graph.replay()
             times.append(time.perf_counter() - t0)
         return statistics.median(times)
+    return time_device(graph.replay, reps)
+
+
+def time_device(fn, reps: int = 3) -> float:
+    """Median seconds of one call of ``fn`` (work it enqueues on the
+    current CUDA stream) over ``reps`` groups, each timed by CUDA events
+    around as many calls as fill ~1 ms, after one warm call. Needs a
+    card: there is no device time to take on the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_device: no CUDA device to time")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
     def group(n: int) -> float:
         start.record()
         for _ in range(n):
-            graph.replay()
+            fn()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) * 1e-3 / n

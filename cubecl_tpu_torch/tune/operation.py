@@ -25,6 +25,9 @@ class Tunable:
     # or (operations, bytes, operand dtype name), the dtype choosing the
     # peak the operations run at (GpuGeneration.peak; bf16's without it)
     work: Optional[Callable[[Any], tuple]] = None
+    # False for a candidate whose preconditions the caller has checked: any
+    # error it raises is a fault and propagates, never a reason to prune it
+    prunable: bool = True
 
 
 @dataclass
@@ -46,12 +49,15 @@ class TunableSet:
         self.key_fn = key_fn
         self.input_gen = input_gen
         self.tunables: List[Tunable] = []
+        self._checksum: Optional[str] = None  # of the names, kept by checksum
 
     def with_tunable(self, fn: Callable, name: Optional[str] = None,
                      group: Optional[TuneGroup] = None, priority: int = 0,
-                     work: Optional[Callable] = None) -> "TunableSet":
+                     work: Optional[Callable] = None,
+                     prunable: bool = True) -> "TunableSet":
+        self._checksum = None
         self.tunables.append(Tunable(name or getattr(fn, "__name__", "t"),
-                                     fn, group, priority, work))
+                                     fn, group, priority, work, prunable))
         return self
 
     def generate_key(self, *args, **kwargs):
@@ -84,7 +90,13 @@ def checksum(tunables: TunableSet) -> str:
     against code changes (reference tune_cache.rs:231)."""
     from ..utils.hashing import stable_hash_str
 
+    cached = getattr(tunables, "_checksum", None)
+    if cached is not None:
+        return cached
     names = ",".join(t.name for t in tunables.tunables)
     # the leading version invalidates persisted entries when the timing
     # methodology changes (cuda1: CUDA-graph replays between CUDA events)
-    return stable_hash_str(f"cuda1|{tunables.name}|{names}")
+    value = stable_hash_str(f"cuda1|{tunables.name}|{names}")
+    if isinstance(tunables, TunableSet):  # with_tunable clears it
+        tunables._checksum = value
+    return value

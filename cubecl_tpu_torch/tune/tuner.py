@@ -18,7 +18,9 @@ Pruning: a candidate that raises ``ValueError`` (the validation's
 ``KernelBuildError`` or a ``CudaError`` that leaves the context usable is
 pruned with its reason. A sticky CUDA error (an illegal or misaligned
 address) and any other exception propagate: the context is poisoned and
-every later candidate would fail for it.
+every later candidate would fail for it. So does every error of a
+candidate marked ``prunable=False``, whose preconditions the caller has
+checked: such a candidate fails loudly and is never replaced by another.
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ log = logging.getLogger("cubecl_tpu_torch.tune")
 _PRUNABLE = (ValueError, NotImplementedError, KernelBuildError, CudaError)
 
 
-def _prunable(e: Exception) -> bool:
-    return isinstance(e, _PRUNABLE) and not getattr(e, "sticky", False)
+def _prunable(t, e: Exception) -> bool:
+    return t.prunable and isinstance(e, _PRUNABLE) and \
+        not getattr(e, "sticky", False)
 
 
 def _tolerances(dtype: torch.dtype) -> Tuple[float, float]:
@@ -83,7 +86,10 @@ class Tuner:
     # ------------------------------------------------------------------
 
     def execute(self, *args, **kwargs):
-        key = self.tunables.generate_key(*args, **kwargs)
+        return self._execute(self.tunables.generate_key(*args, **kwargs),
+                             *args, **kwargs)
+
+    def _execute(self, key, *args, **kwargs):
         idx = self.cache.get(key)
         if idx is None:
             idx = self._tune(key, *args, **kwargs)
@@ -137,7 +143,7 @@ class Tuner:
                 try:
                     per = self._bench_candidate(t.fn, inputs, kwargs)
                 except Exception as e:
-                    if not _prunable(e):
+                    if not _prunable(t, e):
                         raise
                     log.debug("tunable %s pruned for %s: %s",
                               t.name, key, e)
@@ -202,7 +208,7 @@ class Tuner:
                 else:
                     arrs = [_as_tensor(out)]
             except Exception as exc:
-                if not _prunable(exc):
+                if not _prunable(t, exc):
                     raise
                 # a candidate that fails during checks must not vanish
                 # silently (tune/local.rs:100-117): record, warn, go on
@@ -232,11 +238,18 @@ class LocalTuner:
     """Static per-key tuner registry (reference LocalTuner, tune/local.rs:17
     and the local_tuner! macro).
 
-    Callers build a fresh TunableSet per call with shapes and dtypes baked
-    into the candidate closures, so the registry keys Tuners by (device
+    Callers build a TunableSet with shapes and dtypes baked into the
+    candidate closures (a fresh one per call, or one kept per exact shape
+    and dtype), so the registry keys Tuners by (device
     fingerprint, tune key, candidate checksum): keyed by fingerprint only,
     an fp8 matmul would reuse a bf16 call's Tuner, hit its cache and run
-    bf16 candidates."""
+    bf16 candidates.
+
+    Two shapes can share that key (the key anchors each dimension to a
+    power of two and the checksum hashes only names), so a cached Tuner is
+    handed the *calling* TunableSet before it runs: its candidates carry
+    this call's shapes, and an equal checksum means the same names in the
+    same order, so the cached winner's index picks the same candidate."""
 
     def __init__(self, name: str):
         self.name = name
@@ -250,13 +263,13 @@ class LocalTuner:
         if tuner is None:
             tuner = Tuner(tunables, client)
             self._tuners[reg] = tuner
-        return tuner.execute(*args, **kwargs)
+        tuner.tunables = tunables
+        return tuner._execute(key, *args, **kwargs)
 
-    def tuner_for(self, client, key) -> Optional[Tuner]:
-        """The Tuner that tuned ``key`` on this client's device (any
-        checksum), or None if this process never tuned it."""
+    def tuner_for(self, client, key, tunables: TunableSet) -> Optional[Tuner]:
+        """The Tuner that tuned ``key`` with candidates named as
+        ``tunables``' on this client's device, or None if this process
+        never tuned it: another TunableSet under the same key (another
+        shape's candidates) is never returned."""
         fp = client.properties().identity.fingerprint
-        for (rfp, rkey, _ck), tuner in self._tuners.items():
-            if rfp == fp and rkey == str(key):
-                return tuner
-        return None
+        return self._tuners.get((fp, str(key), checksum(tunables)))

@@ -44,8 +44,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
+    "cubecl_reduce_sum": [_VP, _VP, _VP, _I64, _I64, _I, _I, _VP],
     "cubecl_flash_fwd": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _VP],
     "cubecl_flash_bwd_dkv": [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP],
@@ -169,7 +171,7 @@ def kernels() -> ctypes.CDLL:
 
 PAGE_POOL_SRC = os.path.join(CSRC_DIR, "page_pool.cc")
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
-_I32, _I64 = ctypes.c_int32, ctypes.c_int64
+_I32 = ctypes.c_int32
 _POOL_SIGNATURES = {
     "page_pool_create": ([_I32], _I64),
     "page_pool_destroy": ([_I64], _I32),

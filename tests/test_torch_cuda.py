@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from cubecl_tpu_torch.frontend import (ABSOLUTE_POS, CUBE_POS_X, ArrayArg,
+                                       MutSlice, Slice, cube)
 from cubecl_tpu_torch.models import llama
 from cubecl_tpu_torch.ops import functional as F
 from cubecl_tpu_torch.ops import gelu as G
@@ -469,7 +471,9 @@ def test_matmul_tuner_on_the_card(dev, monkeypatch, tmp_path):
     o = c.empty((m, n), "float32")
     best = mm.autotune_best_tile(c, a, b, o, m, n, k)
     key = mm._tune_key(m, n, k, "bfloat16", "float32")
-    times = mm._matmul_tuner.tuner_for(c, key).cache.timings(key)
+    times = mm._matmul_tuner.tuner_for(
+        c, key, mm.matmul_tunables(m, n, k, "bfloat16", "float32")
+    ).cache.timings(key)
     bound = 2 * m * n * k / 989e12
     assert times and all(math.isfinite(t) and t > 0.5 * bound
                          for t in times.values())
@@ -511,3 +515,235 @@ def test_quant_kernels_match_plain(dev):
     torch.cuda.synchronize()
     assert torch.equal(got[0][0].tensor, got[1][0].tensor)
     assert torch.equal(got[0][1].tensor, got[1][1].tensor)
+
+
+# -- slice 6: R1, K0's block_reduce and reinterpret, reductions, fusion ----
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,br", [(1 << 14, 512), (128 * 1000, 64),
+                                  (128 * 24, 8), (1 << 22, 4096)])
+def test_reduce_native_kernel_matches_plain(dev, dtype, n, br):
+    """R1 (csrc/reduce.cu) at the JAX test's (n, block_rows) and a larger
+    n: within 1e-5 * sum|x| of the float64 sum and of the plain version,
+    one counted launch a call, the same bits on a second call (no
+    atomics)."""
+    from cubecl_tpu_torch.ops import reduce as R
+
+    c = CudaRuntime.client()
+    g = torch.Generator(device=dev).manual_seed(n + br)
+    x = torch.randn(n, generator=g, device=dev).to(dtype)
+    k = R.reduce_sum_native.launches
+    got = R.reduce_sum_native(c, c.create(x), block_rows=br).tensor
+    torch.cuda.synchronize()
+    assert R.reduce_sum_native.launches == k + 1
+    assert got.dtype == torch.float32 and got.shape == (1,)
+    scale = x.double().abs().sum().item()
+    assert abs(got.double().item() - x.double().sum().item()) <= 1e-5 * scale
+    plain = R.reduce_sum_native_plain(x)
+    assert abs(got.item() - plain.item()) <= 1e-5 * scale
+    again = R.reduce_sum_native(c, c.create(x), block_rows=br).tensor
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_native_grid_stride(dev, dtype):
+    """R1 with more chunks than blocks: 128 * 8 * 2048 elements at
+    block_rows 8 make 2048 chunks over 1024 blocks, two a block. Zero-mean
+    input against the float64 sum at 1e-8 * sum|x| (about 0.017, above f32
+    rounding here and below one dropped 1024-element chunk's sum, whose
+    standard deviation is 32)."""
+    from cubecl_tpu_torch.ops import reduce as R
+
+    n, br = 128 * 8 * 2048, 8
+    assert -(-n // (br * 128)) > R.MAX_BLOCKS
+    c = CudaRuntime.client()
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev).to(dtype)
+    got = R.reduce_sum_native(c, c.create(x), block_rows=br).tensor
+    torch.cuda.synchronize()
+    xd = x.double()
+    assert abs(got.double().item() - xd.sum().item()) <= \
+        1e-8 * xd.abs().sum().item()
+
+
+def test_reduce_native_graph_replay_equals_eager(dev):
+    """A captured R1 call allocates nothing in the graph (the wrapper
+    allocated its workspace before), replays to the eager bits, and
+    counts its warm launch only."""
+    from cubecl_tpu_torch.ops import reduce as R
+
+    c = CudaRuntime.client()
+    x = c.create(torch.randn(1 << 20, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev))
+    eager = R.reduce_sum_native(c, x, block_rows=1024).tensor.clone()
+    k = R.reduce_sum_native.launches
+    outs = []
+    graph = c.capture(lambda: outs.append(R.reduce_sum_native(
+        c, x, block_rows=1024)))
+    assert R.reduce_sum_native.launches == k + 1
+    outs[0].tensor.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert R.reduce_sum_native.launches == k + 1
+    assert torch.equal(outs[0].tensor, eager)
+
+
+@cube
+def _block_kinds_k(inp: Slice, out: MutSlice, lines: int):
+    out[CUBE_POS_X * 4] = inp.block_sum(CUBE_POS_X * lines, lines)
+    out[CUBE_POS_X * 4 + 1] = inp.block_max(CUBE_POS_X * lines, lines)
+    out[CUBE_POS_X * 4 + 2] = inp.block_min(CUBE_POS_X * lines, lines)
+    out[CUBE_POS_X * 4 + 3] = inp.block_prod(CUBE_POS_X * lines, lines)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cd", [1, 8, 32, 256])
+def test_block_reduce_matches_evaluator(dev, dtype, cd):
+    """mem.block_reduce printed by K0 (sum, max, min, prod over each
+    cube's window, in cubes of 1, 8, 32 and 256 units) against the torch
+    evaluator on the card; reduce_sum_blockwise against it and the
+    float64 sum."""
+    from cubecl_tpu_torch.ops import reduce as R
+
+    g = torch.Generator(device=dev).manual_seed(cd)
+    x = (torch.rand(6 * 40 * 4, generator=g, device=dev) * 0.04 + 0.98) \
+        .to(dtype)
+    outs = []
+    for c in (CudaRuntime.client(), eval_client(dev)):
+        o = c.empty((24,), str(dtype).replace("torch.", ""))
+        _block_kinds_k.launch_unchecked(c, 6, cd, ArrayArg(c.create(x),
+                                                           line_size=4),
+                                        ArrayArg(o, mutable=True), 40)
+        outs.append(o.tensor)
+    torch.cuda.synchronize()
+    got, want = outs[0].view(6, 4), outs[1].view(6, 4)
+    _close(got[:, 1:3], want[:, 1:3])
+    assert torch.equal(got[:, 1:3], want[:, 1:3])  # max, min: exact
+    _close(got[:, 0], want[:, 0])
+    torch.testing.assert_close(got[:, 3].float(), want[:, 3].float(),
+                               rtol=1e-4 if dtype == torch.float32
+                               else 1e-2, atol=0)
+    xs = torch.randn(1 << 18, generator=g, device=dev).to(dtype)
+    sums = [R.reduce_sum_blockwise(c, c.create(xs), cubes=32).tensor
+            for c in (CudaRuntime.client(), eval_client(dev))]
+    torch.cuda.synchronize()
+    scale = xs.double().abs().sum().item()
+    for s in sums:
+        assert abs(s.double().item() - xs.double().sum().item()) <= \
+            1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_routes_match_evaluator(dev, dtype):
+    """reduce_sum, reduce_max and reduce_mean (the 8-unit K0 tree) on the
+    card against the torch evaluator on the card; max exact."""
+    from cubecl_tpu_torch.ops import reduce as R
+
+    x = torch.randn(1 << 20, generator=torch.Generator(device=dev)
+                    .manual_seed(6), device=dev).to(dtype)
+    res = []
+    for c in (CudaRuntime.client(), eval_client(dev)):
+        h = c.create(x)
+        res.append([f(c, h).tensor for f in (R.reduce_sum, R.reduce_max,
+                                             R.reduce_mean)])
+    torch.cuda.synchronize()
+    (s, m, mu), (es, em, emu) = res
+    scale = x.double().abs().sum().item()
+    assert abs(s.item() - es.item()) <= 1e-5 * scale
+    assert torch.equal(m, em) and m.item() == x.max().item()
+    assert abs(mu.item() - emu.item()) <= 1e-5 * scale / x.numel()
+
+
+def test_reduce_autotuned_on_the_card(dev, monkeypatch, tmp_path):
+    """reduce_sum_autotuned: each of the ten candidates timed through its
+    CUDA graph (finite, not below half the bytes bound), the winner's sum
+    within 1e-5 * sum|x|, and a second call runs the winner untimed."""
+    from cubecl_tpu_torch.ops import reduce as R
+    from cubecl_tpu_torch.tune import Tuner
+
+    monkeypatch.setenv("CUBECL_ENVIRONMENT_ROOT", str(tmp_path))
+    c = CudaRuntime.client()
+    n = 1 << 22
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    h = c.create(x)
+    got = R.reduce_sum_autotuned(c, h).tensor
+    torch.cuda.synchronize()
+    scale = x.double().abs().sum().item()
+    assert abs(got.double().item() - x.double().sum().item()) <= 1e-5 * scale
+    key = str(("sum", n, "float32"))
+    tuner = next(t for (_f, k, _c), t in R._sum_tuner._tuners.items()
+                 if k == key)
+    times = tuner.cache.timings(key)
+    assert len(times) == 10 and all(
+        math.isfinite(t) and t > 0.5 * n * 4 / 3.35e12
+        for t in times.values())
+    monkeypatch.setattr(Tuner, "_tune", None)
+    again = R.reduce_sum_autotuned(c, h).tensor
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+def test_fused_chain_matches_evaluator(dev):
+    """launch_fused for relu((a + b) * c) and add -> gelu on the card: one
+    K0 launch each, against the evaluator on the card and plain."""
+    from cubecl_tpu_torch.ops import fusion as FU
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    xs = [torch.randn(1 << 16, generator=g, device=dev) for _ in range(3)]
+    for ops, k, plain in ((["add", "mul", "relu"], 3,
+                           torch.relu((xs[0] + xs[1]) * xs[2])),
+                          (["add", "gelu"], 2, torch.nn.functional.gelu(
+                              xs[0] + xs[1]))):
+        outs = []
+        for c in (CudaRuntime.client(), eval_client(dev)):
+            o = c.empty((1 << 16,), "float32")
+            n = c.server.launches["fused_chain"]
+            FU.launch_fused(c, [c.create(t) for t in xs[:k]], o, ops)
+            assert c.server.launches["fused_chain"] == n + 1
+            outs.append(o.tensor)
+        torch.cuda.synchronize()
+        _close(outs[0], outs[1])
+        _close(outs[0], plain)
+
+
+def test_std_kernels_on_the_card(dev):
+    """into_contiguous through _copy_permuted on a strided 3-D view,
+    identity, and reinterpret_slice (f32 bits as i32 and as u8) on K0."""
+    from cubecl_tpu_torch import std as S
+    from cubecl_tpu_torch.ir.types import i32, u8
+    from cubecl_tpu_torch.std.misc import reinterpret_slice
+
+    c = CudaRuntime.client()
+    x = torch.arange(4 * 6 * 5, dtype=torch.float32, device=dev)
+    t = S.TensorHandle(c.create(x), (4, 3, 5), strides=(30, 10, 1))
+    got = S.into_contiguous(c, t)
+    want = x.view(4, 6, 5)[:, ::2, :].reshape(-1)
+    eye = S.identity(c, 33)
+    torch.cuda.synchronize()
+    assert torch.equal(got.handle.tensor, want)
+    assert torch.equal(eye.tensor.view(33, 33), torch.eye(33, device=dev))
+
+    @cube
+    def as_i32(inp: Slice, out: MutSlice):
+        v = reinterpret_slice(inp, i32)
+        out[ABSOLUTE_POS] = v[ABSOLUTE_POS]
+
+    @cube
+    def as_u8(inp: Slice, out: MutSlice):
+        v = reinterpret_slice(inp, u8)
+        out[ABSOLUTE_POS] = v[ABSOLUTE_POS]
+
+    f = torch.randn(256, generator=torch.Generator(device=dev)
+                    .manual_seed(9), device=dev)
+    oi = c.empty((256,), "int32")
+    as_i32.launch_unchecked(c, 1, 256, ArrayArg(c.create(f)),
+                            ArrayArg(oi, mutable=True))
+    ou = c.empty((1024,), "uint8")
+    as_u8.launch_unchecked(c, 1, 256, ArrayArg(c.create(f)),
+                           ArrayArg(ou, line_size=4, mutable=True))
+    torch.cuda.synchronize()
+    assert torch.equal(oi.tensor, f.view(torch.int32))
+    assert torch.equal(ou.tensor, f.view(torch.uint8))

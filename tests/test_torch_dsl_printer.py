@@ -14,7 +14,9 @@ from cubecl_tpu_torch.backend.cuda.printer import cuda_source
 from cubecl_tpu_torch.frontend import (ABSOLUTE_POS, ArrayArg, MutSlice,
                                        Slice, atomic_add, cmma, cube)
 from cubecl_tpu_torch.ir.types import f32
-from test_torch_dsl_scope import IDS, KERNELS, MODULES, _torch_args
+from test_torch_dsl_scope import (IDS, KERNELS, MODULES, SLICE6,
+                                  SLICE6_IDS, SLICE6_MODULES, _seq_args,
+                                  _torch_args)
 
 
 def _source(name, cc, cd, checked, spec, mod):
@@ -184,3 +186,101 @@ def test_evaluator_raises_for_the_same_ops():
     buf = c.create(np.zeros(32, np.float32))
     with pytest.raises(NotImplementedError, match=r"atomic\.add"):
         _atomic_k.launch_unchecked(c, 1, 32, ArrayArg(buf, mutable=True))
+
+
+@pytest.mark.parametrize("mod,name,cc,cd,checked,spec", SLICE6,
+                         ids=SLICE6_IDS)
+def test_prints_each_reduce_and_fusion_kernel(mod, name, cc, cd, checked,
+                                              spec):
+    kernel = getattr(SLICE6_MODULES[mod][1], name)
+    src = cuda_source(kernel.define(cc, cd, *_seq_args(spec, False),
+                                    checked=checked))
+    assert re.search(r"__launch_bounds__\(%d\)" % cd, src)
+    assert src.count("{") == src.count("}")
+    assert "NotImplemented" not in src
+
+
+def test_mapping_of_block_reduce():
+    """``block_sum`` over a bf16 buffer in a cube of 256: the threads
+    stride over the window with 16-byte loads when it is aligned (single
+    elements otherwise), eight accumulators in f32, a warp butterfly, the
+    eight warps folded through a static shared array between barriers,
+    and one bf16 rounding; in a cube of 8 (one plane) no shared memory."""
+    from cubecl_tpu_torch.ops.reduce import reduce_block_partial
+
+    n = 4 * 2048 * 128
+    src = cuda_source(reduce_block_partial.define(
+        4, 256, ArrayArg(torch.zeros(n, dtype=torch.bfloat16),
+                         line_size=128),
+        ArrayArg(torch.zeros(4), mutable=True), 2048, checked=False))
+    assert "if ((reinterpret_cast<uintptr_t>(p) & 15) == 0)" in src
+    assert "*reinterpret_cast<const uint4*>(p + j)" in src
+    assert "float accs[8];" in src and "__bfloat162float(e[v])" in src
+    assert "__shfl_xor_sync(0xffffffffu, (float)acc, o, 32)" in src
+    assert re.search(r"__shared__ float cc_red\d+\[8\];", src)
+    assert src.count("__syncthreads();") == 2
+    assert "i < 262144;" in src
+    small = cuda_source(reduce_block_partial.define(
+        32, 8, ArrayArg(torch.zeros(32 * 16 * 128), line_size=128),
+        ArrayArg(torch.zeros(32), mutable=True), 16, checked=False))
+    assert "__shared__" not in small and "__syncthreads" not in small
+    assert "__shfl_xor_sync(0xffu, (float)acc, o, 8)" in small
+
+
+@cube
+def _block_kinds(inp: Slice, out: MutSlice):
+    out[0] = inp.block_max(0, 2) + inp.block_min(0, 2)
+    out[1] = inp.block_prod(0, 2)
+
+
+def test_block_reduce_kinds_print_neutral_elements():
+    """max starts at -inf, min at +inf, prod at 1; an int32 buffer keeps
+    its own type with its extreme values."""
+    src = cuda_source(_block_kinds.define(
+        1, 32, ArrayArg(torch.zeros(6)), ArrayArg(torch.zeros(2),
+                                                  mutable=True),
+        checked=False))
+    assert "accs[k] = (-(float)INFINITY);" in src
+    assert "accs[k] = ((float)INFINITY);" in src
+    assert "accs[k] = 0x1.0000000000000p+0f;" in src
+    assert "cc_max(accs[k], t)" in src and "cc_min(accs[k], t)" in src
+    assert "accs[k] * t" in src
+    ints = cuda_source(_block_kinds.define(
+        1, 32, ArrayArg(torch.zeros(6, dtype=torch.int32)),
+        ArrayArg(torch.zeros(2, dtype=torch.int32), mutable=True),
+        checked=False))
+    assert "int32_t accs[8];" in ints
+    assert "((int32_t)-2147483648LL)" in ints
+    assert "((int32_t)2147483647LL)" in ints
+
+
+def test_mapping_of_reinterpret():
+    """``op.reinterpret``: the source gathered in its storage type and
+    copied bit for bit, the line absorbing the width ratio (one f32 to
+    four u8, four u8 to one i32)."""
+    from test_torch_std import k_reinterp_i32, k_reinterp_u8
+
+    src = cuda_source(k_reinterp_u8.define(
+        1, 8, ArrayArg(torch.zeros(8)),
+        ArrayArg(torch.zeros(32, dtype=torch.uint8), line_size=4,
+                 mutable=True), checked=False))
+    assert re.search(r"uint8_t v\d+\[4\];", src)
+    assert re.search(r"float src = v\d+;\n\s+memcpy\(v\d+, &src, "
+                     r"sizeof\(src\)\);", src)
+    src = cuda_source(k_reinterp_i32.define(
+        1, 8, ArrayArg(torch.zeros(8)),
+        ArrayArg(torch.zeros(8, dtype=torch.int32), mutable=True),
+        checked=False))
+    assert re.search(r"memcpy\(&v\d+, &src, sizeof\(src\)\);", src)
+
+
+def test_unsupported_names_the_families_left():
+    """The error names the op and every family still to lower."""
+    from cubecl_tpu_torch.backend.compiler import UNLOWERED
+
+    d = _atomic_k.define(1, 32, ArrayArg(torch.zeros(32), mutable=True))
+    with pytest.raises(NotImplementedError) as ei:
+        cuda_source(d)
+    msg = str(ei.value)
+    assert "atomic.add" in msg and all(f in msg for f in UNLOWERED)
+    assert "block_reduce" not in msg and "reinterpret" not in msg

@@ -29,6 +29,34 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert r.returncode == 0, r.stderr
 
 
+SLICE6_MODULES = [
+    "cubecl_tpu_torch.ops.reduce", "cubecl_tpu_torch.ops.fusion",
+    "cubecl_tpu_torch.std", "cubecl_tpu_torch.std.contiguous",
+    "cubecl_tpu_torch.std.fastmath", "cubecl_tpu_torch.std.layout",
+    "cubecl_tpu_torch.std.misc", "cubecl_tpu_torch.std.throughput",
+    "cubecl_tpu_torch.std.view", "cubecl_tpu_torch.std.zspace",
+    "cubecl_tpu_torch.examples.sum_things",
+    "cubecl_tpu_torch.examples.reduction_progression",
+]
+
+
+def test_reduce_fusion_and_std_modules_import_without_jax():
+    """The reductions, fusion, std and example modules alone, in a fresh
+    interpreter: jax and cubecl_tpu stay out of sys.modules, and nothing
+    is built (no nvcc, no card)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE6_MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cubecl_tpu')]\n"
+        "assert not bad, bad\n"
+        "from cubecl_tpu_torch.utils import native\n"
+        "assert native._BUILD is None and native._LIB is None\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 @pytest.fixture
 def fresh_build(monkeypatch, tmp_path):
     """No cached library and no earlier build in this process."""

@@ -1,11 +1,13 @@
 """The port's autotuner and the runtime it stands on (config, graph
 capture, profiling, validation), on the CPU twin: eight of the nine tests
-of ``tests/test_tune.py`` (``test_autotuned_reduce`` waits for the reduce
-kernel), ``tests/test_runtime.py::test_anchoring`` and
-``test_autotune_checks_cross_validation``, each held against the JAX
+of ``tests/test_tune.py`` (``test_autotuned_reduce`` is in
+``tests/test_torch_reduce.py``), ``tests/test_runtime.py::test_anchoring``
+and ``test_autotune_checks_cross_validation``, each held against the JAX
 package where both compute the same thing (anchors, plans, checksum
-rules), and the matmul autotune with its sqlite store. Every test gives
-the store a ``tmp_path``."""
+rules), the matmul autotune with its sqlite store, and the repair of a
+fault the port copied from the JAX package (ROADMAP Queue 3, F7): two
+shapes under one anchored tune key. Every test gives the store a
+``tmp_path``."""
 
 import math
 import os
@@ -26,7 +28,7 @@ from cubecl_tpu_torch.runtime.config import cache_root
 from cubecl_tpu_torch.tune import (LocalTuner, TunableSet, TuneGroup, Tuner,
                                    checksum)
 from cubecl_tpu_torch.tune.anchor import LEVELS, anchor
-from cubecl_tpu_torch.utils.native import CudaError
+from cubecl_tpu_torch.utils.native import CudaError, KernelBuildError
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +95,7 @@ def test_local_tuner_keys_by_tunable_set(client):
     lt.execute(client, mk("bf16"), np.arange(4.0))
     lt.execute(client, mk("fp8"), np.arange(4.0))
     assert "fp8" in ran, "second TunableSet's candidate never ran"
-    t8 = lt.tuner_for(client, ("k", "fp8"))
+    t8 = lt.tuner_for(client, ("k", "fp8"), mk("fp8"))
     assert t8 is not None and t8.cache.mem.get(str(("k", "fp8"))) is not None
 
 
@@ -127,6 +129,25 @@ def test_tuner_raises_on_a_sticky_cuda_error(client):
     ts.with_tunable(lambda x: x, "fine")
     tuner = _memory_only(Tuner(ts, client))
     with pytest.raises(CudaError, match="700"):
+        tuner._tune("k", np.arange(4.0))
+
+
+@pytest.mark.parametrize("error", [
+    ValueError("misaligned"), CudaError("reduce_native", 701, "resources"),
+    KernelBuildError("nvcc failed")])
+def test_tuner_never_prunes_an_unprunable_candidate(client, error):
+    """A candidate marked ``prunable=False`` raises through the tuner, even
+    with an error that would prune another candidate and a survivor
+    beside it."""
+    ts = TunableSet("unprunable", lambda x: "k")
+
+    def broken(x):
+        raise error
+
+    ts.with_tunable(lambda x: x, "fine")
+    ts.with_tunable(broken, "broken", prunable=False)
+    tuner = _memory_only(Tuner(ts, client))
+    with pytest.raises(type(error)):
         tuner._tune("k", np.arange(4.0))
 
 
@@ -369,7 +390,8 @@ def test_matmul_autotune_store_and_reload(client, store_root, monkeypatch):
     a, b, o = _handles(client, m, n, k, torch.bfloat16)
     best = mm.autotune_best_tile(client, a, b, o, m, n, k)
     key = mm._tune_key(m, n, k, "bfloat16", "float32")
-    tuner = mm._matmul_tuner.tuner_for(client, key)
+    tuner = mm._matmul_tuner.tuner_for(
+        client, key, mm.matmul_tunables(m, n, k, "bfloat16", "float32"))
     timed = tuner.cache.timings(key)
     assert set(timed) == {f"t{x}x{y}x{z}" for x, y, z in
                           mm._tile_candidates(m, n, k, 2)}
@@ -390,7 +412,7 @@ def test_matmul_autotune_store_and_reload(client, store_root, monkeypatch):
     o.tensor.zero_()
     fresh.execute(client, ts, client, a, b, o)
     assert torch.equal(o.tensor, want)
-    assert fresh.tuner_for(client, key).cache.timings(key) == timed
+    assert fresh.tuner_for(client, key, ts).cache.timings(key) == timed
 
 
 def test_matmul_autotune_checks_all_candidates(client):
@@ -409,3 +431,68 @@ def test_matmul_autotune_checks_all_candidates(client):
     tuner.execute(client, a, b, o)
     assert not tuner.check_failures
     assert len(tuner.cache.timings("k")) == len(ts.tunables) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_shapes_under_one_tune_key(client, dtype):
+    """(1024, 256, 128), then (768, 256, 128), in one process: both anchor
+    to the key of 1024 and have candidates of the same names, so they share
+    one Tuner and its cached winner; each call must run its own shape's
+    candidates (the first call's closures raised "shape '[1024, 128]' is
+    invalid" on the second shape) and equal ``matmul_plain``."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    lt = LocalTuner("matmul_f7")
+    dt = str(dtype).replace("torch.", "")
+    keys = set()
+    for m in (1024, 768):
+        n, k = 256, 128
+        a, b, _ = _handles(client, m, n, k, dtype)
+        o = client.empty((m, n), dt)
+        ts = mm.matmul_tunables(m, n, k, dt, dt)
+        lt.execute(client, ts, client, a, b, o)
+        assert torch.equal(o.tensor, mm.matmul_plain(a.tensor, b.tensor,
+                                                     dtype))
+        key = mm._tune_key(m, n, k, dt, dt)
+        keys.add(str(key))
+        tuner = lt.tuner_for(client, key, ts)
+        assert tuner is not None and tuner.tunables is ts
+    assert len(keys) == 1 and len(lt._tuners) == 1
+
+
+def test_tuner_for_never_returns_another_sets_tuner(client):
+    """Two candidate sets under one key (other names: another shape's
+    tiles) get two Tuners; ``tuner_for`` hands back the one whose names it
+    is asked for, and None for a set this process never tuned."""
+    lt = LocalTuner("f7_sets")
+
+    def mk(names):
+        ts = TunableSet("f7_sets", lambda x: ("k", 8))
+        for nm in names:
+            ts.with_tunable(lambda x, _n=nm: (_n, x), nm)
+        return ts
+
+    first, second = mk(["t64", "t128"]), mk(["t64"])
+    assert lt.execute(client, first, 1)[1] == 1
+    assert lt.execute(client, second, 2) == ("t64", 2)
+    assert lt.tuner_for(client, ("k", 8), first).tunables is first
+    assert lt.tuner_for(client, ("k", 8), second).tunables is second
+    assert lt.tuner_for(client, ("k", 8), mk(["t256"])) is None
+
+
+def test_autotuned_reduce_two_anchored_sizes(client):
+    """reduce_sum_autotuned at 3 * 2^13 and then 2^15 elements: both
+    anchor to 2^15 with the same ten candidate names, so the second call
+    reuses the first call's Tuner and winner; each sums its own input
+    (within rtol 1e-4 of the float64 sum)."""
+    from cubecl_tpu_torch.ops import reduce as R
+
+    R._sum_tuner._tuners.clear()
+    rng = np.random.default_rng(11)
+    for n in (3 << 13, 1 << 15):
+        x = rng.standard_normal(n).astype(np.float32)
+        got = client.read_one(R.reduce_sum_autotuned(client,
+                                                     client.create(x)))
+        np.testing.assert_allclose(got[0], x.astype(np.float64).sum(),
+                                   rtol=1e-4)
+    assert len(R._sum_tuner._tuners) == 1
