@@ -58,7 +58,22 @@ reduction progression; q ``launch_fused`` for relu((a+b)*c) and
 add -> gelu on 16M f32 (one K0 launch each) against the evaluator and
 plain, ``into_contiguous`` of a strided 3-D view and ``identity(4096)``;
 r ``ThroughputCache``'s four runners measured into the temp store and read
-back. Each kernel's line gives its time beside its
+back. Then sparse MoE and Mamba serving: s the expert GEMM (E1,
+``csrc/expert_matmul.cu``) against plain on the live rows at the 0.77B MoE
+prefill shape with a router's counts, bench.py's skewed counts, a decode
+step's 16 live rows, f32 at d768 and counts of 0 and cap over a ragged
+capacity, beside ``torch.bmm`` over all rows; t the 0.77B llama with 8
+experts, top-2 and capacity 2560 through ``generate`` (8 x 1024 + 64 steps,
+3120 E1 launches checked), its prefill logits against the dense route's;
+u the selective scan (S1, ``csrc/selective_scan.cu``) against plain at
+Mamba-130M's (8, 2048, 24576), bench.py's (8, 2048, 16384), B 1 x L 1 and
+a DN no multiple of 32; v Mamba at Mamba-130M's widths (24 layers, f32):
+``forward`` at B 8 x L 2048 (24 S1 launches checked) and 32 teacher-forced
+``decode_step``s against it; w f32 exactness: the d768 llama with 4
+experts, sparse on E1 against its plain version and the dense route
+through ``prefill``, ``decode_step`` and ``decode_chunk``, and Mamba at 4
+layers, S1 against plain and the doubling scan. Each kernel's line gives
+its time beside its
 bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -2585,6 +2600,398 @@ def throughput(S, T, cu, card):
     return peaks
 
 
+# -- phases s-w: the sparse-MoE llama (E1) and Mamba (S1) ---------------------
+
+# phase t: the 0.77B llama of phase 5 with 8 experts, top-2 (the JAX
+# default), moe_capacity 1.25 x T·k/E for 8 x 1024 prompt tokens
+MOE_CFG = dict(vocab=8192, d_model=2048, n_heads=16, n_kv_heads=8,
+               n_layers=16, d_ff=5632, seq=1024, dtype="bfloat16",
+               use_framework_kernels=False, n_experts=8, top_k=2,
+               moe_capacity=2560)
+MOE_B, MOE_S, MOE_STEPS, MOE_PAGE = 8, 1024, 64, 128
+# phase s: bench.py's skewed expert counts (bench.py:404-406)
+SKEW_COUNTS = [2048, 1536, 1024, 512, 256, 128, 128, 64]
+# phases v and w: Mamba-130M's published widths (state-spaces/mamba-130m
+# config.json: d_model 768, n_layer 24, vocab 50277 padded to a multiple of
+# 8, d_state 16, d_conv 4, expand 2), f32 as the JAX family
+MAMBA_130M = dict(vocab=50280, d_model=768, n_layers=24, d_state=16,
+                  d_conv=4, expand=2, seq=2048)
+MAMBA_B, MAMBA_L, MAMBA_DECODE = 8, 2048, 32
+# phase u: (name, B, L, DN); the slice's (8, 2048, d_inner 1536 x 16) and
+# bench.py's (bench.py:387), one step, and a DN no multiple of 32
+SCAN_CASES = [("mamba-130m", 8, 2048, 1536 * 16), ("bench", 8, 2048, 16384),
+              ("B1 L1", 1, 1, 24576), ("ragged", 3, 777, 1000)]
+# Mamba decode against its forward at the same positions: a recurrent step
+# against a scan, f32 summed in other orders through 24 layers; the JAX
+# package's own serving contract (tests/test_models.py:787-809)
+DECODE_TOL = (2e-4, 1e-3)
+NO_LIBRARY_SCAN = ("none: no one PyTorch call computes a first-order linear "
+                   "recurrence (torch.cumsum and torch.cumprod do not compose "
+                   "a decay with an input)")
+DENSE_EQUIVALENT = "torch.bmm over all E·cap rows (dense equivalent)"
+E1_MAIN = "prefill bf16 E8 cap2560 d2048 f5632"   # the kernels line's shape
+# phase s: (name, E, cap, d, f, dtype, counts), counts a list or the number
+# of tokens a random top-2 router sends through moe_dispatch
+E1_CASES = [
+    (E1_MAIN, 8, 2560, 2048, 5632, torch.bfloat16, MOE_B * MOE_S),
+    ("skewed bf16 E8 cap2048 d4096 f4096", 8, 2048, 4096, 4096,
+     torch.bfloat16, SKEW_COUNTS),
+    ("decode bf16 E8 cap2560 d2048 f5632", 8, 2560, 2048, 5632,
+     torch.bfloat16, MOE_B),
+    ("f32 E4 cap2048 d768 f2048", 4, 2048, 768, 2048, torch.float32, 2048),
+    ("counts cap/0/130/1 bf16 E4 cap200 d256 f384", 4, 200, 256, 384,
+     torch.bfloat16, [200, 0, 130, 1]),
+]
+# phase w: the d768 f32 llama (bench.py:604-609) with 4 experts, top-2, a
+# capacity of every prompt token; (B, S, decode steps, chunk, page); and
+# Mamba-130M's widths at 4 layers, (B, L)
+W_LLAMA = dict(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4, n_layers=8,
+               d_ff=2048, seq=512, n_experts=4, top_k=2,
+               use_framework_kernels=False)
+W_SERVE = (8, 256, 8, 4, 128)
+W_MAMBA = (4, 1024)
+
+
+def expert_bound(counts, cap, d, f, dtype):
+    """Bound of E1 on these counts: two operations per live row and
+    (d, f) pair; bytes: the live rows of xg and out and the weights of
+    every expert with a live row."""
+    live = [min(max(c, 0), cap) for c in counts]
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = elem * (sum(live) * (d + f) + sum(1 for n in live if n) * d * f)
+    return bound_ms(2 * sum(live) * d * f, nbytes, dtype)
+
+
+def routed(moe, gen, dev, T, E, cap, d, dtype):
+    """Capacity-grouped tokens and the counts a router gives: T random
+    tokens through a random (d, E) router, top-2, ``moe_dispatch``.
+    Returns (xg, counts, routes dropped)."""
+    x = torch.randn(T, d, generator=gen, device=dev).to(dtype)
+    router = (torch.randn(d, E, generator=gen, device=dev) * 0.02).to(dtype)
+    xg, _g, _s, _e, counts, live = moe.moe_dispatch(x, x @ router, 2, cap)
+    return xg, counts, int((~live).sum())
+
+
+def experts_vs_plain(moe, dev, gen, card):
+    """Phase s: E1 against ``expert_matmul_plain`` on the live rows, each
+    case of E1_CASES with its time, bound, plain time and the
+    dense-equivalent ``torch.bmm``."""
+    rows = {}
+    for name, E, cap, d, f, dtype, spec in E1_CASES:
+        if isinstance(spec, int):
+            xg, counts, drops = routed(moe, gen, dev, spec, E, cap, d, dtype)
+        else:
+            xg = (torch.randn(E, cap, d, generator=gen, device=dev)
+                  * .1).to(dtype)
+            counts = torch.tensor(spec, dtype=torch.int32, device=dev)
+            drops = 0
+        w = (torch.randn(E, d, f, generator=gen, device=dev) * .02).to(dtype)
+        got = moe.expert_matmul(xg, w, counts)
+        torch.cuda.synchronize()
+        ref = moe.expert_matmul_plain(xg, w, counts)
+        cl = counts.tolist()
+        err = max([compare(got[e, :n], ref[e, :n], f"E1 {name} expert {e}")
+                   for e, n in enumerate(cl) if n] + [0.0])
+        del got, ref
+        big = cap * d * f > 1 << 30
+        ms = cuda_ms(lambda: moe.expert_matmul(xg, w, counts))
+        plain_ms = cuda_ms(lambda: moe.expert_matmul_plain(xg, w, counts),
+                           iters=3 if big else 10, warmup=1)
+        lib_ms = cuda_ms(lambda: torch.bmm(xg, w))
+        bms, by = expert_bound(cl, cap, d, f, dtype)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                          counts=cl, routes_dropped=drops)
+        print(f"phase s E1 {name}: counts {cl} ({drops} routes dropped), max "
+              f"abs err {err} (atol/rtol {TOL[dtype]}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, {DENSE_EQUIVALENT} {lib_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it) "
+              f"[{card}]", flush=True)
+        del xg, w, counts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_moe(llama, moe, fa, pa, dev, card):
+    """Phase t: the 0.77B MoE llama (bf16, 8 experts, top-2, capacity
+    2560) through ``generate``: 8 x 1024 prompt and 64 greedy steps on the
+    sparse route, 3 E1 launches a layer per forward (3 x 16 x 65); a warm
+    re-run timed in its two phases; the sparse route against the dense one
+    (``moe_capacity = 0``) layer by layer on untied tokens, and end to end
+    where no router logit tied; the routes the capacity dropped."""
+    cfg = llama.LlamaConfig(**MOE_CFG)
+    model = llama.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S, steps, page = MOE_B, MOE_S, MOE_STEPS, MOE_PAGE
+    max_pages = math.ceil((S + steps) / page)
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    moe.expert_matmul.launches = 0
+    fa.flash_attention.launches = 0
+    pa.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    toks = llama.generate(model, prompt, steps, max_pages, page)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {"expert_matmul": moe.expert_matmul.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "paged_attention": pa.paged_attention.launches}
+    want = {"expert_matmul": 3 * cfg.n_layers * (steps + 1),
+            "flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * steps}
+    if launches != want:
+        fail(f"phase t: kernel launches {launches}, want {want}")
+    if toks.shape != (B, steps) or not ((toks >= 0)
+                                        & (toks < cfg.vocab)).all():
+        fail(f"phase t: bad tokens {toks.shape} {toks.dtype}")
+
+    # warm re-run, timed in its two phases; the prefill's dispatches are
+    # recorded to count the routes the capacity dropped
+    log = []
+    undo = recording(llama, "moe_dispatch", log)
+    cache = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        logits, cache = llama.prefill(model, cache, prompt)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    prefill_s = time.perf_counter() - t0
+    dropped = int(sum(int((~out[5]).sum()) for _args, out in log))
+    sparse = logits.float()
+    tok = logits.argmax(-1).to(torch.int32)
+    again = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = llama.decode_step(model, cache, tok)
+        tok = logits.argmax(-1).to(torch.int32)
+        again.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.equal(torch.stack(again[:steps], 1), toks):
+        fail("phase t: the warm re-run gave other tokens than generate")
+    del cache
+
+    # the sparse route against the dense one, layer by layer on the sparse
+    # prefill's own FFN inputs: where a token's k-th and (k+1)-th bf16 router
+    # logits tie, the dense route keeps both (the JAX semantics), so tied
+    # tokens are counted and left out; within a layer the two routes round
+    # otherwise by a few bf16 ulps (CHAIN_TOL); a token with a dropped
+    # route is left out too
+    k, ties, layer_err = cfg.top_k, 0, 0.0
+    for li, (args, dispatched) in enumerate(log):
+        xf, router_logits = args[0], args[1]
+        vals = moe.top_k_stable(router_logits, k + 1)[0]
+        untied = vals[:, k - 1] != vals[:, k]
+        ties += int((~untied).sum())
+        keep = untied & dispatched[5].all(-1)
+        layer = model.layers[li]
+        layer_err = max(layer_err, compare(
+            llama._moe_sparse(xf, layer, cfg, True)[keep],
+            llama._moe_dense(xf, layer, cfg)[keep],
+            f"phase t: layer {li} sparse against dense FFN", CHAIN_TOL))
+    del log
+    # end to end: each tie perturbs a token's residual stream by a third
+    # expert, which 16 random bf16 layers carry far past rounding, so the
+    # prefill logits are held at BF16_PATH_TOL only where no token tied
+    # and no route was dropped
+    model.cfg = dataclasses.replace(cfg, moe_capacity=0)
+    dense = llama.prefill(model, llama.init_kv_cache(model.cfg, B, max_pages,
+                                                     page, dev), prompt)[0]
+    if ties == 0 and dropped == 0:
+        err = compare(sparse, dense.float(), "phase t: sparse against dense "
+                      "prefill logits", BF16_PATH_TOL)
+    else:
+        err = (sparse - dense.float()).abs().max().item()
+    held = (f"held at {BF16_PATH_TOL}" if ties + dropped == 0 else
+            "not held: ties or drops")
+    out = dict(launches=launches, prefill_s=prefill_s,
+               decode_ms=1e3 * decode_s / steps,
+               decode_tok_s=B * steps / decode_s, dropped=dropped,
+               ties=ties, layer_err=layer_err, sparse_vs_dense_err=err)
+    print(f"phase t serve MoE llama {n_params / 1e9:.3f}B bf16 (d2048, 16 "
+          f"layers, 8 experts top-2, capacity {cfg.moe_capacity}): {B} "
+          f"requests x {S} prompt + {steps} greedy steps; generate "
+          f"{gen_s:.3f} s cold; launches {launches}; warm prefill "
+          f"{prefill_s:.4f} s ({B * S / prefill_s:.0f} prompt tok/s), decode "
+          f"{out['decode_tok_s']:.1f} tok/s ({out['decode_ms']:.3f} ms/step); "
+          f"sparse against dense FFN, layer by layer on untied tokens, max "
+          f"abs err {layer_err} (atol/rtol {CHAIN_TOL}); {ties} of "
+          f"{B * S * cfg.n_layers} token-layers tied at the k-th router "
+          f"logit; prefill logits sparse against dense max abs err {err} "
+          f"({held}); {dropped} of {2 * B * S * cfg.n_layers} prefill routes dropped "
+          f"by the capacity [{card}]", flush=True)
+    del model, logits, dense, sparse
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_vs_plain(ssm, dev, gen, card):
+    """Phase u: S1 against ``scan_chunked_core_plain`` (f32), with its time,
+    bound (3 array passes) and plain time; no library call computes it."""
+    rows = {}
+    for name, B, L, DN in SCAN_CASES:
+        af = torch.exp(-torch.rand(B, L, DN, generator=gen, device=dev)) * .9
+        uf = torch.randn(B, L, DN, generator=gen, device=dev) * .1
+        got = ssm.scan_chunked_core(af, uf)
+        torch.cuda.synchronize()
+        what = f"S1 {name} f32 ({B}, {L}, {DN})"
+        err = compare(got, ssm.scan_chunked_core_plain(af, uf), what)
+        ms = cuda_ms(lambda: ssm.scan_chunked_core(af, uf))
+        plain_ms = cuda_ms(lambda: ssm.scan_chunked_core_plain(af, uf),
+                           iters=2 if L > 1 else 10, warmup=1)
+        bms, by = bound_ms(2 * B * L * DN, 3 * B * L * DN * 4, torch.float32)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by,
+                          gb_per_s=3 * B * L * DN * 4 / ms / 1e6)
+        print(f"phase u {what}: max abs err {err} (atol/rtol "
+              f"{TOL[torch.float32]}); kernel {ms:.4f} ms "
+              f"({rows[name]['gb_per_s']:.0f} GB/s), plain {plain_ms:.4f} ms,"
+              f" bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it); "
+              f"library: none [{card}]", flush=True)
+        del af, uf, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_mamba(mamba, ssm, dev, card):
+    """Phase v: Mamba at Mamba-130M's widths, f32: ``forward`` at B 8 x L
+    2048 through S1 (one launch a layer, 24), timed warm; then 32
+    ``decode_step``s teacher-forced on the prompt, their logits held
+    against the forward's at the same positions (DECODE_TOL)."""
+    cfg = mamba.MambaConfig(**MAMBA_130M)
+    model = mamba.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, L = MAMBA_B, MAMBA_L
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (B, L), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    ssm.scan_chunked_core.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    logits = mamba.forward(model, tokens)
+    torch.cuda.synchronize()
+    launches = ssm.scan_chunked_core.launches
+    if launches != cfg.n_layers:
+        fail(f"phase v: {launches} S1 launches in forward, want "
+             f"{cfg.n_layers}")
+    if logits.shape != (B, L, cfg.vocab) or not torch.isfinite(logits).all():
+        fail(f"phase v: bad logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    again = mamba.forward(model, tokens)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if not torch.equal(again, logits):
+        fail("phase v: a second forward gave other logits")
+    del again
+    state = mamba.decode_init(cfg, B, device=dev)
+    step_logits = []
+    t0 = time.perf_counter()
+    for t in range(MAMBA_DECODE):
+        lg, state = mamba.decode_step(model, state, tokens[:, t])
+        step_logits.append(lg)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    err = max(compare(lg, logits[:, t], f"phase v: decode step {t} against "
+                      "forward", DECODE_TOL)
+              for t, lg in enumerate(step_logits))
+    out = dict(launches=launches, forward_s=fwd_s, tok_s=B * L / fwd_s,
+               decode_ms=1e3 * dec_s / MAMBA_DECODE, decode_err=err,
+               peak_gib=peak)
+    print(f"phase v Mamba {n_params / 1e6:.1f}M f32 (Mamba-130M widths: "
+          f"d768, 24 layers, d_state 16, expand 2, vocab {cfg.vocab}): "
+          f"forward B{B} x L{L} {fwd_s:.4f} s warm ({out['tok_s']:.0f} tok/s)"
+          f", {launches} S1 launches, peak {peak:.2f} GiB; {MAMBA_DECODE} "
+          f"teacher-forced decode steps {out['decode_ms']:.3f} ms/step, "
+          f"logits against forward max abs err {err} (atol/rtol "
+          f"{DECODE_TOL}) [{card}]", flush=True)
+    del model, logits, state, step_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_exactness(llama, fa, dev, card):
+    """Phase w (llama): the d768 f32 llama (bench.py:604-609) with 4
+    experts, top-2 and a capacity of every prompt token (no route can be
+    dropped): the sparse route on E1, its plain version and the dense route
+    through ``prefill``, 8 teacher-forced ``decode_step``s and a
+    ``decode_chunk`` of 4, logits within LOGIT_TOL; each route's greedy
+    tokens equal the kernels' up to a near tie."""
+    B, S, steps, C, page = W_SERVE
+    cfg = llama.LlamaConfig(**W_LLAMA, moe_capacity=B * S)
+    model = llama.init_params(cfg, seed=3, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    max_pages = math.ceil((S + steps + C) / page)
+    feed = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab, (B, steps + C), dtype=np.int32)).to(dev)
+
+    def serve(kernels):
+        cache = llama.init_kv_cache(cfg, B, max_pages, page, dev)
+        lg, cache = llama.prefill(model, cache, prompt, kernels=kernels)
+        out = [lg[:, None]]
+        for t in range(steps):
+            lg, cache = llama.decode_step(model, cache, feed[:, t],
+                                          kernels=kernels)
+            out.append(lg[:, None])
+        out.append(llama.decode_chunk(model, cache, feed[:, steps:],
+                                      kernels=kernels)[0])
+        return torch.cat(out, 1).float()             # (B, 1 + steps + C, V)
+
+    fa.flash_attention.launches = 0
+    kern = serve(True)
+    hd64_launches = fa.flash_attention.launches
+    plain = serve(False)
+    model.cfg = dataclasses.replace(cfg, moe_capacity=0)
+    dense = serve(True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, ref in (("plain E1", plain), ("dense route", dense)):
+        errs[name] = compare(kern, ref, f"phase w: sparse on E1 against "
+                             f"{name}", (LOGIT_TOL, 0.0))
+        tie_prefix(ref.argmax(-1), kern.argmax(-1), kern, LOGIT_TOL,
+                   f"phase w: greedy tokens against {name}")
+    print(f"phase w MoE llama d768 f32 (8 layers, 4 experts top-2, capacity "
+          f"{cfg.moe_capacity}): {B} x {S} prefill, {steps} decode steps and "
+          f"a chunk of {C}, sparse on E1 against plain E1 max abs err "
+          f"{errs['plain E1']}, against the dense route {errs['dense route']}"
+          f" (tol {LOGIT_TOL}); greedy tokens equal up to near ties; "
+          f"{hd64_launches} flash launches at head_dim 64 (A8) [{card}]",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(errs, hd64_flash_launches=hd64_launches)
+
+
+def mamba_exactness(mamba, dev, card):
+    """Phase w (Mamba): Mamba-130M's widths at 4 layers, f32, W_MAMBA:
+    ``forward`` with S1 against S1's plain version (the same recurrence,
+    one fused multiply-add apart) and against the doubling scan."""
+    cfg = mamba.MambaConfig(**dict(MAMBA_130M, n_layers=4))
+    model = mamba.init_params(cfg, seed=4, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, W_MAMBA, dtype=np.int32)).to(dev)
+    kern = mamba.forward(model, tokens)
+    plain = mamba.forward(model, tokens, kernels=False)
+    model.cfg = dataclasses.replace(cfg, scan_impl="assoc")
+    assoc = mamba.forward(model, tokens)
+    torch.cuda.synchronize()
+    e_plain = compare(kern, plain, "phase w: Mamba S1 against plain")
+    # the doubling scan associates the recurrence otherwise: DECODE_TOL
+    e_assoc = compare(kern, assoc, "phase w: Mamba S1 against the doubling "
+                      "scan", DECODE_TOL)
+    print(f"phase w Mamba-130M widths, 4 layers, f32, B{W_MAMBA[0]} x L"
+          f"{W_MAMBA[1]}: S1 against "
+          f"plain max abs err {e_plain} (atol/rtol {TOL[torch.float32]}), "
+          f"against the doubling scan {e_assoc} (atol/rtol {DECODE_TOL}) "
+          f"[{card}]", flush=True)
+    del model, kern, plain, assoc
+    torch.cuda.empty_cache()
+    return dict(plain=e_plain, assoc=e_assoc)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2594,7 +3001,10 @@ def main():
     atexit.register(shutil.rmtree, tune_root, True)
     os.environ["CUBECL_ENVIRONMENT_ROOT"] = tune_root
     from cubecl_tpu_torch.models import llama
+    from cubecl_tpu_torch.models import mamba
     from cubecl_tpu_torch.ops import attention as fa
+    from cubecl_tpu_torch.ops import moe
+    from cubecl_tpu_torch.ops import ssm
     from cubecl_tpu_torch.ops import matmul as mm
     from cubecl_tpu_torch.ops import paged_attention as pa
     from cubecl_tpu_torch import std as cstd
@@ -2870,6 +3280,23 @@ def main():
 
     # -- phase r: the throughput runners, stored and read back ---------------
     throughput(cstd, T, cu, card)
+    torch.cuda.empty_cache()
+
+    # -- phase s: the expert GEMM (E1) against plain --------------------------
+    s_rows = experts_vs_plain(moe, dev, gen, card)
+
+    # -- phase t: the MoE llama at 0.77B widths, 8 experts, sparse route ------
+    t_out = serve_moe(llama, moe, fa, pa, dev, card)
+
+    # -- phase u: the selective scan (S1) against plain -----------------------
+    u_rows = scan_vs_plain(ssm, dev, gen, card)
+
+    # -- phase v: Mamba at Mamba-130M's widths --------------------------------
+    v_out = serve_mamba(mamba, ssm, dev, card)
+
+    # -- phase w: exactness in f32, MoE llama d768 and Mamba, kernels vs plain 
+    w_out = moe_exactness(llama, fa, dev, card)
+    w_out["mamba"] = mamba_exactness(mamba, dev, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -3051,6 +3478,24 @@ def main():
             add_gelu=q_out["rows"]["add -> gelu"],
             into_contiguous=q_out["contiguous"],
             identity=q_out["identity"]),
+        row("expert_matmul", "cubecl_tpu_torch/csrc/expert_matmul.cu",
+            "cubecl_tpu/ops/moe.py:29", t_out["launches"]["expert_matmul"],
+            s_rows[E1_MAIN], s_rows[E1_MAIN]["library_ms"],
+            library=DENSE_EQUIVALENT, shape=E1_MAIN,
+            launches_path="phase t: generate, 8 x 1024 + 64 steps, 16 layers",
+            **{k.split(" ")[0]: {f: v[f] for f in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for k, v in s_rows.items() if k != E1_MAIN},
+            moe_llama=t_out, exactness_d768_f32=w_out),
+        row("selective_scan", "cubecl_tpu_torch/csrc/selective_scan.cu",
+            "cubecl_tpu/ops/ssm.py:126", v_out["launches"],
+            u_rows["mamba-130m"], None, library=NO_LIBRARY_SCAN,
+            shape="f32 (8, 2048, 24576): Mamba-130M's B 8 x L 2048 x d_inner "
+                  "1536 x d_state 16",
+            launches_path="phase v: forward, B 8 x L 2048, 24 layers",
+            **{k.replace(" ", "_"): v for k, v in u_rows.items()
+               if k != "mamba-130m"},
+            mamba_130m=v_out),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,12 @@ KV cache (model dtype or int8 with per-(token, head) scales);
 hit), ``speculative_generate`` and ``beam_generate`` (pages from
 ``runtime.pages.PageAllocator``, ``fork_seq``) serve it in chunks;
 ``loss_fn`` / ``make_train_step`` train it (``cfg.remat`` recomputes each
-layer in the backward through ``torch.utils.checkpoint``). Weights keep the
+layer in the backward through ``torch.utils.checkpoint``). With
+``n_experts > 0`` every FFN is a mixture of experts (:func:`_ffn`): the
+dense route computes every expert and gates it by the top-k router
+weights; with ``moe_capacity > 0`` the sparse route dispatches tokens to
+fixed-capacity expert slots (``ops.moe``) and runs the per-expert GEMMs on
+E1 (``csrc/expert_matmul.cu``), three launches a layer. Weights keep the
 JAX orientation ``(d_in, d_out)`` and are used as ``x @ W``, so JAX
 parameters load without transposes. They are built frozen
 (``requires_grad=False``) for serving; a train step makes them trainable.
@@ -27,7 +32,7 @@ CUDA printer's kernel on a card, the torch evaluator on the CPU): 2·L+1
 launches per forward or decode step, and as many of ``_rmsnorm_bwd_k`` per
 backward. ``kernels=False`` runs the plain PyTorch versions of all of them
 on any device; it is the reference the kernels are checked against. RoPE,
-SwiGLU and the projections are plain tensor code.
+SwiGLU, the dense MoE route and the projections are plain tensor code.
 
 Unlike the functional JAX code, the KV pools and, in a train step, the
 weights are updated in place.
@@ -45,6 +50,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
 from ..ops.attention import flash_attention, flash_attention_plain
+from ..ops.moe import (
+    expert_matmul,
+    expert_matmul_plain,
+    moe_combine,
+    moe_dispatch,
+    top_k_stable,
+)
 from ..ops.paged_attention import (
     paged_attention,
     paged_attention_chunked,
@@ -96,8 +108,6 @@ def check_supported(cfg: LlamaConfig) -> None:
     """Raise for every option of the JAX config this port does not run,
     naming the ROADMAP item that brings it."""
     todo = [
-        (cfg.n_experts > 0 or cfg.moe_capacity > 0,
-         "MoE layers (n_experts, moe_capacity) are ROADMAP Queue 1 item 12"),
         (cfg.attn_window > 0 or cfg.attn_sinks > 0 or cfg.ring_cache,
          "windowed / ring KV decode (attn_window, attn_sinks, ring_cache) "
          "is ROADMAP Queue 1 item 8"),
@@ -127,9 +137,16 @@ class LlamaLayer(nn.Module):
         self.wk = _param((d, cfg.n_kv_heads * hd), dt, device)
         self.wv = _param((d, cfg.n_kv_heads * hd), dt, device)
         self.wo = _param((cfg.n_heads * hd, d), dt, device)
-        self.w1 = _param((d, cfg.d_ff), dt, device)
-        self.w3 = _param((d, cfg.d_ff), dt, device)
-        self.w2 = _param((cfg.d_ff, d), dt, device)
+        if cfg.n_experts:  # stacked experts: w1, w3 (E, d, f), w2 (E, f, d)
+            e = cfg.n_experts
+            self.router = _param((d, e), dt, device)
+            self.w1 = _param((e, d, cfg.d_ff), dt, device)
+            self.w3 = _param((e, d, cfg.d_ff), dt, device)
+            self.w2 = _param((e, cfg.d_ff, d), dt, device)
+        else:
+            self.w1 = _param((d, cfg.d_ff), dt, device)
+            self.w3 = _param((d, cfg.d_ff), dt, device)
+            self.w2 = _param((cfg.d_ff, d), dt, device)
 
 
 class Llama(nn.Module):
@@ -181,12 +198,11 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     sd = {"embed": _to_torch(tree["embed"]),
           "rms_out": _to_torch(tree["rms_out"])}
     for i, layer in enumerate(tree["layers"]):
-        if "moe" in layer:
-            raise NotImplementedError("MoE layers are ROADMAP Queue 1 item 12")
         for name in ("rms1", "rms2", "wq", "wk", "wv", "wo"):
             sd[f"layers.{i}.{name}"] = _to_torch(layer[name])
-        for name in ("w1", "w3", "w2"):
-            sd[f"layers.{i}.{name}"] = _to_torch(layer["mlp"][name])
+        ffn = layer["moe"] if "moe" in layer else layer["mlp"]
+        for name in ffn:  # mlp: w1, w3, w2; moe: router and stacked w1, w3, w2
+            sd[f"layers.{i}.{name}"] = _to_torch(ffn[name])
     return sd
 
 
@@ -244,6 +260,59 @@ def _swiglu(x, layer: LlamaLayer):
     return (nn.functional.silu(x @ layer.w1) * (x @ layer.w3)) @ layer.w2
 
 
+def _moe_dense(x, layer: LlamaLayer, cfg: LlamaConfig):
+    """Every expert computed, gated by the top-k router weights: the
+    router's logits at or above the k-th largest keep their value (a tie
+    with the k-th keeps more than k experts, as in the JAX package), the
+    others -1e30, then a softmax. x (..., d) -> (..., d)."""
+    logits = x @ layer.router                               # (..., E)
+    k = min(cfg.top_k, cfg.n_experts)
+    thresh = top_k_stable(logits, k)[0][..., -1:]
+    masked = torch.where(logits >= thresh, logits,
+                         torch.tensor(-1e30, dtype=logits.dtype,
+                                      device=logits.device))
+    gates = torch.softmax(masked, dim=-1)                   # zeros off top-k
+    h = nn.functional.silu(torch.einsum("...d,edf->e...f", x, layer.w1)) * \
+        torch.einsum("...d,edf->e...f", x, layer.w3)
+    y = torch.einsum("e...f,efd->e...d", h, layer.w2)
+    return torch.einsum("...e,e...d->...d", gates.to(y.dtype), y)
+
+
+def _moe_sparse(x, layer: LlamaLayer, cfg: LlamaConfig, kernels: bool):
+    """Capacity-grouped dispatch: tokens scattered to ``moe_capacity``
+    slots per expert, the three expert GEMMs on E1 (``expert_matmul``;
+    ``kernels=False`` its plain version), outputs gathered back and mixed
+    by the renormalized gates. x (..., d) -> (..., d). E1 has no backward
+    (nor has the JAX kernel): under autograd this raises."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in (layer.router, layer.w1, layer.w3,
+                                      layer.w2))):
+        raise NotImplementedError(
+            "the sparse MoE route (moe_capacity > 0) has no backward: E1 "
+            "(expert_matmul) has none; train with moe_capacity = 0 (the "
+            "dense route)")
+    xf = x.reshape(-1, x.shape[-1])
+    k = min(cfg.top_k, cfg.n_experts)
+    xg, gates, slot, tope, counts, live = moe_dispatch(
+        xf, xf @ layer.router, k, cfg.moe_capacity)
+    mm = expert_matmul if kernels else expert_matmul_plain
+    h = nn.functional.silu(mm(xg, layer.w1, counts)) * mm(xg, layer.w3, counts)
+    y = mm(h.to(xg.dtype), layer.w2, counts)
+    return moe_combine(y, gates, slot, tope, live).view(x.shape)
+
+
+def _ffn(x, layer: LlamaLayer, cfg: LlamaConfig, kernels: bool):
+    """The layer's FFN on x (B, T, d) or, in a decode step, (B, d): SwiGLU,
+    or with ``n_experts`` the MoE route the config picks (sparse when
+    ``moe_capacity > 0``, else dense; with ``n_experts == 0``
+    ``moe_capacity`` is not read)."""
+    if not cfg.n_experts:
+        return _swiglu(x, layer)
+    if cfg.moe_capacity:
+        return _moe_sparse(x, layer, cfg, kernels)
+    return _moe_dense(x, layer, cfg)
+
+
 def _attention(x, layer: LlamaLayer, cfg: LlamaConfig, rope, kernels: bool):
     """Causal self-attention of a (B, S, d) block, ``rope`` the (S, hd/2)
     tables of positions 0..S-1; also returns the post-rope k, v
@@ -270,7 +339,8 @@ def _no_lora(lora):
 def _layer(x, layer: LlamaLayer, cfg: LlamaConfig, rope, kernels: bool):
     x = x + _attention(_rmsnorm(x, layer.rms1, cfg, kernels), layer, cfg,
                        rope, kernels)[0]
-    return x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+    return x + _ffn(_rmsnorm(x, layer.rms2, cfg, kernels), layer, cfg,
+                    kernels)
 
 
 def forward(model: Llama, tokens, *, kernels: bool = True, lora=None):
@@ -454,7 +524,8 @@ def prefill(model: Llama, cache: KVCache, tokens, *, kernels: bool = True):
                                layer, cfg, rope, kernels)
         _cache_write(cache, li, pid, slot, k, v)
         x = x + o
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+        x = x + _ffn(_rmsnorm(x, layer.rms2, cfg, kernels), layer, cfg,
+                     kernels)
     x = _rmsnorm(x, model.rms_out, cfg, kernels)
     cache.lengths = torch.full((B,), S, dtype=torch.int32,
                                device=tokens.device)
@@ -489,7 +560,8 @@ def decode_step(model: Llama, cache: KVCache, tokens, *,
         o = attend(q, cache.k, cache.v, cache.page_indices, attend_len,
                    layer=li, **_scales(cache))
         x = x + o.reshape(B, nh * hd) @ layer.wo
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+        x = x + _ffn(_rmsnorm(x, layer.rms2, cfg, kernels), layer, cfg,
+                     kernels)
     x = _rmsnorm(x, model.rms_out, cfg, kernels)
     cache.lengths = attend_len
     return x @ model.embed.T, cache
@@ -530,7 +602,8 @@ def decode_chunk(model: Llama, cache: KVCache, tokens, *,
         o = attend(q.transpose(1, 2), cache.k, cache.v, cache.page_indices,
                    ends, starts, layer=li, **_scales(cache))  # (B, H, C, hd)
         x = x + o.transpose(1, 2).reshape(B, C, nh * hd) @ layer.wo
-        x = x + _swiglu(_rmsnorm(x, layer.rms2, cfg, kernels), layer)
+        x = x + _ffn(_rmsnorm(x, layer.rms2, cfg, kernels), layer, cfg,
+                     kernels)
     x = _rmsnorm(x, model.rms_out, cfg, kernels)
     cache.lengths = ends
     return x @ model.embed.T, cache

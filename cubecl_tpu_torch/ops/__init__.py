@@ -1,6 +1,8 @@
 """Kernels of the port, each beside its plain version:
-``attention.flash_attention`` (forward and backward) and
-``paged_attention.paged_attention`` (hand-written CUDA), and the ``@cube``
+``attention.flash_attention`` (forward and backward),
+``paged_attention.paged_attention``, ``matmul.matmul_pallas``,
+``reduce.reduce_sum_native``, ``moe.expert_matmul`` and
+``ssm.scan_chunked_core`` (hand-written CUDA), and the ``@cube``
 kernels of ``gelu``, ``normalization`` and ``functional`` (K0: the CUDA
 printer on a card, the torch evaluator on the CPU; ``functional``'s ops
 are autograd Functions).

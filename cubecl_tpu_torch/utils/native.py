@@ -55,6 +55,8 @@ _SIGNATURES = {
     "cubecl_paged_decode": [_VP] * 8 + [_I] * 10 + [_F, _VP],
     "cubecl_paged_chunked": [_VP] * 9 + [_I] * 11 + [_F, _VP],
     "cubecl_matmul": [_VP] * 5 + [_I] * 10 + [_F, _VP],
+    "cubecl_expert_matmul": [_VP] * 4 + [_I] * 8 + [_VP],
+    "cubecl_selective_scan": [_VP] * 3 + [_I] * 3 + [_I64, _VP],
 }
 
 

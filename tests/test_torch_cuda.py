@@ -13,6 +13,7 @@ output apart. The DSL kernels (K0) are held against the torch evaluator run
 on the card, which rounds at the same ops, at the same tolerances.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -747,3 +748,106 @@ def test_std_kernels_on_the_card(dev):
     torch.cuda.synchronize()
     assert torch.equal(oi.tensor, f.view(torch.int32))
     assert torch.equal(ou.tensor, f.view(torch.uint8))
+
+
+# -- E1 (csrc/expert_matmul.cu) and S1 (csrc/selective_scan.cu) ---------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [200, 256], ids=["ragged_cap", "cap256"])
+def test_expert_matmul_kernel_matches_plain(dev, dtype, cap):
+    """Live rows only (the rest are undefined): counts of cap, 0, a ragged
+    count and one row; a capacity of 200 is no multiple of either tile."""
+    from cubecl_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(cap)
+    E, d, f = 4, 256, 384
+    xg = (torch.randn(E, cap, d, generator=g, device=dev) * .2).to(dtype)
+    w = (torch.randn(E, d, f, generator=g, device=dev) * .2).to(dtype)
+    counts = [cap, 0, 130, 1]
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    n = moe.expert_matmul.launches
+    got = moe.expert_matmul(xg, w, c)
+    torch.cuda.synchronize()
+    assert moe.expert_matmul.launches == n + 1
+    assert got.shape == (E, cap, f) and got.dtype == dtype
+    ref = moe.expert_matmul_plain(xg, w, c)
+    for e, k in enumerate(counts):
+        _close(got[e, :k], ref[e, :k])
+
+
+def test_expert_matmul_kernel_refuses_other_shapes(dev):
+    from cubecl_tpu_torch.ops import moe
+
+    xg = torch.zeros(2, 64, 256, dtype=torch.bfloat16, device=dev)
+    counts = torch.tensor([64, 3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=r"\(d, f\) = \(256, 200\)"):
+        moe.expert_matmul(xg, torch.zeros(2, 256, 200, dtype=torch.bfloat16,
+                                          device=dev), counts)
+    with pytest.raises(ValueError, match=r"\(d, f\) = \(72, 128\)"):
+        moe.expert_matmul(xg[..., :72].contiguous(),
+                          torch.zeros(2, 72, 128, dtype=torch.bfloat16,
+                                      device=dev), counts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,DN", [(1, 1, 128), (2, 37, 100), (3, 64, 33),
+                                    (1, 300, 4099)])
+def test_selective_scan_kernel_matches_plain(dev, dtype, B, L, DN):
+    from cubecl_tpu_torch.ops import ssm
+
+    g = torch.Generator(device=dev).manual_seed(L * DN)
+    af = (torch.exp(-torch.rand(B, L, DN, generator=g, device=dev)) * .9
+          ).to(dtype)
+    uf = (torch.randn(B, L, DN, generator=g, device=dev) * .1).to(dtype)
+    n = ssm.scan_chunked_core.launches
+    got = ssm.scan_chunked_core(af, uf)
+    torch.cuda.synchronize()
+    assert ssm.scan_chunked_core.launches == n + 1
+    assert got.dtype == dtype
+    _close(got, ssm.scan_chunked_core_plain(af, uf))
+
+
+def test_moe_llama_forward_on_the_card(dev):
+    """The sparse route through E1 (3 launches a layer) against its plain
+    version, and against the dense route where no route is dropped (f32:
+    the same math in other orders)."""
+    from cubecl_tpu_torch.ops import moe
+
+    cfg = llama.LlamaConfig(vocab=128, d_model=256, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512, n_experts=4,
+                            moe_capacity=192, use_framework_kernels=False)
+    model = llama.init_params(cfg, seed=0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 64), dtype=np.int32)).to(dev)
+    n = moe.expert_matmul.launches
+    got = llama.forward(model, tokens)
+    torch.cuda.synchronize()
+    assert moe.expert_matmul.launches == n + 3 * cfg.n_layers
+    _close(got, llama.forward(model, tokens, kernels=False))
+    model.cfg = dataclasses.replace(cfg, moe_capacity=0)
+    _close(got, llama.forward(model, tokens))
+
+
+def test_mamba_forward_on_the_card(dev):
+    """scan_impl "auto" on the card runs S1 (one launch a layer): against
+    the plain version and the doubling scan; decode against forward."""
+    from cubecl_tpu_torch.models import mamba
+    from cubecl_tpu_torch.ops import ssm
+
+    cfg = mamba.MambaConfig(vocab=97, d_model=64, n_layers=3, seq=40)
+    model = mamba.init_params(cfg, seed=0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40), dtype=np.int32)).to(dev)
+    n = ssm.scan_chunked_core.launches
+    got = mamba.forward(model, tokens)
+    torch.cuda.synchronize()
+    assert ssm.scan_chunked_core.launches == n + cfg.n_layers
+    _close(got, mamba.forward(model, tokens, kernels=False))
+    model.cfg = mamba.MambaConfig(vocab=97, d_model=64, n_layers=3, seq=40,
+                                  scan_impl="assoc")
+    _close(got, mamba.forward(model, tokens))
+    state = mamba.decode_init(cfg, 2, device=dev)
+    for t in range(8):
+        lg, state = mamba.decode_step(model, state, tokens[:, t])
+        torch.testing.assert_close(lg, got[:, t], atol=2e-4, rtol=1e-3)

@@ -132,15 +132,37 @@ def test_generate_plain_equals_kernel_route_on_cpu(prompt):
         llama.generate(model, p, 3, MAX_PAGES, PAGE, kernels=False).numpy())
 
 
+# ids as before the MoE options (option1, option2) left this list for
+# test_moe_options_build
 @pytest.mark.parametrize("option", [
-    dict(attn_sinks=2), dict(n_experts=4),
-    dict(moe_capacity=8), dict(attn_window=16, attn_sinks=4),
+    dict(attn_sinks=2), dict(attn_window=16, attn_sinks=4),
     dict(attn_window=16),
-    dict(ring_cache=True), dict(attn_window=16, ring_cache=True)])
+    dict(ring_cache=True), dict(attn_window=16, ring_cache=True)],
+    ids=["option0", "option3", "option4", "option5", "option6"])
 def test_unsupported_options_raise(option):
     cfg = llama.LlamaConfig(**{**CFG, **option})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama.Llama(cfg)
+
+
+@pytest.mark.parametrize("option", [dict(n_experts=4), dict(moe_capacity=8)],
+                         ids=["n_experts", "moe_capacity"])
+def test_moe_options_build(option, prompt):
+    """The MoE options build (their parity with the JAX package is
+    ``tests/test_torch_llama_moe.py``). With ``n_experts == 0``
+    ``moe_capacity`` is not read: the model is the dense SwiGLU one, weight
+    for weight and logit for logit."""
+    model = llama.Llama(llama.LlamaConfig(**{**CFG, **option}), device="cpu")
+    dense = llama.init_params(llama.LlamaConfig(**CFG), seed=5, device="cpu")
+    names = set(model.state_dict())
+    if "n_experts" in option:
+        assert model.layers[0].w1.shape == (4, CFG["d_model"], CFG["d_ff"])
+        assert model.layers[0].router.shape == (CFG["d_model"], 4)
+        return
+    assert names == set(dense.state_dict())
+    model.load_state_dict(dense.state_dict())
+    p = torch.from_numpy(prompt)
+    assert torch.equal(llama.forward(model, p), llama.forward(dense, p))
 
 
 def test_builders_default_to_the_card():
