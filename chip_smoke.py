@@ -72,9 +72,23 @@ a DN no multiple of 32; v Mamba at Mamba-130M's widths (24 layers, f32):
 ``decode_step``s against it; w f32 exactness: the d768 llama with 4
 experts, sparse on E1 against its plain version and the dense route
 through ``prefill``, ``decode_step`` and ``decode_chunk``, and Mamba at 4
-layers, S1 against plain and the doubling scan. Each kernel's line gives
-its time beside its
-bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
+layers, S1 against plain and the doubling scan. Then the last four TPU
+kernels: x block-sparse flash attention (A5, A6, A7 on the block-sparse
+schedules of ``csrc/flash_tiles.cuh``) at the 0.77B llama's attention widths,
+B 1 x H 16 x S 8192 x D 128 bf16, block 512, the band i-1..i plus global
+tile 0, causal: forward and backward through autograd (one launch each,
+counted from 0), each kernel against plain on its own o and lse, its time,
+bound and SDPA's with the element mask; at S 1024 f32 D64 non-causal, a
+random mask with a kv tile nobody attends (dk = dv = 0) and bq 128 x bk 64
+(F9's rows); A1, A3 and A4 re-timed beside their earlier times; y the
+small-channel 3x3 conv (C1, ``csrc/conv3x3.cu``) against plain at
+ResNet-50's conv2_x (32, 56, 56, 64) -> 64 in bf16 and f32 and at (1, 6,
+10, 32) -> 48 with garbage in the padded lanes, beside ``F.conv2d``; the
+three-layer packed stack of the ``examples/conv_pairs`` twin (3 C1
+launches, counted from 0) against F.conv2d + ReLU; ``conv2d_autotuned`` at
+(32, 56, 56, 64) -> 64 (native against pairs) and (16, 28, 28, 256) -> 256
+(native against im2col on M1), each candidate's time and the winner. Each
+kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero before the last line; without a CUDA device
@@ -173,9 +187,15 @@ def ptxas_summary(log):
         if m:
             k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)"
                           r"(S\d*_|[af])?Li(\d+)E", m.group(1))
+            c = re.search(r"(conv3x3_kernel)I(13__nv_bfloat16|f)E",
+                          m.group(1))
             name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
                     f"{', int8 KV' if k.group(3) == 'a' else ''}, "
-                    f"{k.group(4)}>" if k else m.group(1))
+                    f"{k.group(4)}"
+                    f"{', block-sparse' if 'Sparse' in m.group(1) else ''}>"
+                    if k else f"{c.group(1)}<"
+                    f"{'f32' if c.group(2) == 'f' else 'bf16'}>" if c
+                    else m.group(1))
         elif "spill" in line:
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
@@ -2992,6 +3012,377 @@ def mamba_exactness(mamba, dev, card):
     return dict(plain=e_plain, assoc=e_assoc)
 
 
+
+# -- phases x-y: block-sparse attention (A5-A7) and the small-channel conv (C1)
+
+# phase x: the 0.77B llama's attention widths (16 heads of 128), long-context
+# training at B 1 x S 8192 with the JAX default block 512, causal
+BSP_MAIN = dict(B=1, H=16, S=8192, D=128, dtype=torch.bfloat16, block=512)
+# then at S 1024: (name, H, D, dtype, causal, block_q, block_k, mask)
+BSP_CASES = [
+    ("f32 D64 non-causal band", 16, 64, torch.float32, False, 128, 128,
+     "band"),
+    ("bf16 random block 128, kv tile 3 empty", 16, 128, torch.bfloat16, True,
+     128, 128, "holed"),
+    ("bf16 bq 128 x bk 64, F9 rows", 16, 128, torch.bfloat16, True, 128, 64,
+     "f9"),
+]
+# phase y: ResNet-50's conv2_x 3x3 (bench.py:366-370) and bench.py:348's
+# fat-channel conv
+CONV_MAIN = (32, 56, 56, 64, 64)
+CONV_FAT = (16, 28, 28, 256, 256)
+STACK_TOL = 0.15  # examples/conv_pairs.py's bound on the bf16 stack
+LIB_CONV_TOL = {torch.float32: (1e-4, 1e-3)}
+
+
+def bsp_mask(kind, n_q, n_kv):
+    """Block masks of phase x: "band" (examples/attention.py's BigBird
+    style: the band i-1..i and the global tile 0), "holed" (random tiles,
+    the diagonal, tile 0, and kv tile 3 attended by no q tile) and "f9"
+    (q tile 0 attends only kv tile 1: with bq > bk its first rows see no
+    live column, ROADMAP Queue 3 F9)."""
+    bm = np.zeros((n_q, n_kv), bool)
+    if kind == "band":
+        for i in range(n_q):
+            j = i * n_kv // n_q
+            bm[i, max(0, j - 1):j + 1] = True
+            bm[i, 0] = True
+    elif kind == "holed":
+        bm = np.random.default_rng(3).random((n_q, n_kv)) < 0.3
+        for i in range(n_q):
+            bm[i, i * n_kv // n_q] = True
+        bm[:, 0] = True
+        bm[:, 3] = False
+    else:
+        bm[:] = True
+        bm[0] = False
+        bm[0, 1] = True
+    return bm
+
+
+def live_pairs(bm, bq, bk, causal):
+    """(row, column) pairs of one head whose score is live: in an active
+    tile of the pruned mask and, if causal, col <= row."""
+    if not causal:
+        return int(bm.sum()) * bq * bk
+    total = 0
+    for qi, ki in zip(*np.nonzero(bm)):
+        rows = np.arange(qi * bq, (qi + 1) * bq)
+        total += int(np.clip(rows - ki * bk + 1, 0, bk).sum())
+    return total
+
+
+def bsp_bounds(pairs, B, H, S, D, dtype):
+    """Bounds of A5, A6, A7 on these live pairs: 2, 3 and 4 matrix products
+    a pair and head; bytes: q, k, v and o, (q, k, v, do) -> dq, (q, k, v,
+    do) -> (dk, dv), each (B, H, S, D), and the f32 (B, H, S) lse (and di)."""
+    elem = torch.finfo(dtype).bits // 8
+    t = elem * B * H * S * D
+    st = 4 * B * H * S
+    return {"fwd": bound_ms(4 * D * pairs * B * H, 4 * t + st, dtype),
+            "dq": bound_ms(6 * D * pairs * B * H, 5 * t + 2 * st, dtype),
+            "dkv": bound_ms(8 * D * pairs * B * H, 6 * t + 2 * st, dtype)}
+
+
+def _bsp_launches(fa):
+    return {"bsp_forward": fa.bsp_forward.launches,
+            "bsp_dq": fa.bsp_dq.launches, "bsp_dkv": fa.bsp_dkv.launches}
+
+
+def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
+             timed):
+    """One block-sparse case: forward and backward through autograd (A5,
+    A6, A7 once each, counted from 0), then each kernel against the plain
+    version on the kernel's own o and lse; with ``timed`` each kernel's
+    time, the plain versions' and SDPA's with the element mask as a bool
+    (1, 1, S, S) ``attn_mask`` (it does the dense work)."""
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+                   for _ in range(4))
+    bq_, bk_ = fa._fit_block(bq, S), fa._fit_block(bk, S)
+    bm = bsp_mask(kind, S // bq_, S // bk_)
+    what = (f"{name}: {_dt(dt)} B{B} H{H} S{S} D{D} blocks {bq_}x{bk_} "
+            f"{'causal' if causal else 'non-causal'}")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.bsp_forward.launches = fa.bsp_dq.launches = fa.bsp_dkv.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fa.flash_attention_block_sparse(*leaves, bm, causal, None, bq, bk)
+    out.backward(do)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = _bsp_launches(fa)
+    if launches != {"bsp_forward": 1, "bsp_dq": 1, "bsp_dkv": 1}:
+        fail(f"phase x {what}: kernel launches {launches}, want one each")
+    pruned = fa._pruned_mask(bm, causal, bq_, bk_, S // bq_, S // bk_)
+    sched = fa._schedule(pruned, bq_, bk_, dev)
+    scale = D ** -0.5
+    o, lse = fa.bsp_forward(q, k, v, sched, causal, scale, bq_, bk_, True)
+    o_ref, lse_ref = fa.flash_attention_block_sparse_plain(
+        q, k, v, bm, causal, None, bq, bk, return_lse=True)
+    torch.cuda.synchronize()
+    err_o = compare(o, o_ref, f"phase x {what}: o")
+    err_lse = compare(lse, lse_ref, f"phase x {what}: lse",
+                      TOL[torch.float32])
+    if not torch.equal(out.detach(), o):
+        fail(f"phase x {what}: the autograd forward is not A5's")
+    di = (do.float() * o.float()).sum(-1)
+    dq = fa.bsp_dq(q, k, v, do, lse, di, sched, causal, scale, bq_, bk_)
+    dk, dv = fa.bsp_dkv(q, k, v, do, lse, di, sched, causal, scale, bq_, bk_)
+    ref = fa.flash_attention_block_sparse_backward_plain(
+        q, k, v, o, lse, do, bm, causal, None, bq, bk)
+    torch.cuda.synchronize()
+    err = [compare(a, r, f"phase x {what}: d{n}")
+           for n, a, r in zip("qkv", (dq, dk, dv), ref)]
+    if not all(torch.equal(t.grad, a) for t, a in zip(leaves, (dq, dk, dv))):
+        fail(f"phase x {what}: the autograd Function's grads are not the "
+             "kernels'")
+    empty = np.nonzero(~pruned.any(0))[0]
+    for ki in empty:
+        if dk[:, :, ki * bk_:(ki + 1) * bk_].any() \
+                or dv[:, :, ki * bk_:(ki + 1) * bk_].any():
+            fail(f"phase x {what}: kv tile {ki}, attended by no q tile, "
+                 "has non-zero dk or dv")
+    f9 = ""
+    if kind == "f9":  # rows 0..bk-1 see only masked columns: the mean of V
+        mean = v[:, :, bk_:2 * bk_].float().mean(2, keepdim=True)
+        e9 = compare(o[:, :, :bk_], mean.expand(B, H, bk_, D).to(dt),
+                     f"phase x {what}: F9 rows against the mean of V")
+        if dq[:, :, :bk_].any():
+            fail(f"phase x {what}: F9 rows have a non-zero dq")
+        f9 = f"; F9 rows: o = mean of V over their columns ({e9}), dq = 0"
+    row = dict(max_abs_err=max(err_o, *err), o_err=err_o, lse_err=err_lse,
+               dq_err=err[0], dkv_err=max(err[1:]), launches=launches,
+               path_s=path_s, mask_tiles=int(pruned.sum()),
+               empty_kv_tiles=len(empty))
+    msg = ""
+    if timed:
+        pairs = live_pairs(pruned, bq_, bk_, causal)
+        bounds = bsp_bounds(pairs, B, H, S, D, dt)
+        row.update(
+            live_pairs_per_head=pairs,
+            fwd_ms=cuda_ms(lambda: fa.bsp_forward(q, k, v, sched, causal,
+                                                  scale, bq_, bk_, True)),
+            dq_ms=cuda_ms(lambda: fa.bsp_dq(q, k, v, do, lse, di, sched,
+                                            causal, scale, bq_, bk_)),
+            dkv_ms=cuda_ms(lambda: fa.bsp_dkv(q, k, v, do, lse, di, sched,
+                                              causal, scale, bq_, bk_)),
+            plain_fwd_ms=cuda_ms(
+                lambda: fa.flash_attention_block_sparse_plain(
+                    q, k, v, bm, causal, None, bq, bk, return_lse=True),
+                iters=5, warmup=1),
+            plain_bwd_ms=cuda_ms(
+                lambda: fa.flash_attention_block_sparse_backward_plain(
+                    q, k, v, o, lse, do, bm, causal, None, bq, bk),
+                iters=5, warmup=1),
+            bounds={k_: dict(zip(("bound_ms", "bound_by"), b))
+                    for k_, b in bounds.items()})
+        el = np.kron(pruned, np.ones((bq_, bk_), bool))
+        if causal:
+            el &= np.tril(np.ones((S, S), bool))
+        el = torch.from_numpy(el).to(dev)[None, None]
+        sdpa = lambda q_, k_, v_: TF.scaled_dot_product_attention(  # noqa
+            q_, k_, v_, attn_mask=el)
+        row["library_fwd_ms"] = cuda_ms(lambda: sdpa(q, k, v))
+        row["library_bwd_ms"] = cuda_ms(grad_call(sdpa, (q, k, v), do))
+        del el
+        msg = (f"; live pairs a head {pairs}; A5 {row['fwd_ms']:.4f} ms "
+               f"(bound {bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), A6 "
+               f"{row['dq_ms']:.4f} ms (bound {bounds['dq'][0]:.4f}), A7 "
+               f"{row['dkv_ms']:.4f} ms (bound {bounds['dkv'][0]:.4f}); "
+               f"plain forward {row['plain_fwd_ms']:.4f} ms, backward "
+               f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
+               f"forward {row['library_fwd_ms']:.4f} ms, backward "
+               f"{row['library_bwd_ms']:.4f} ms")
+    print(f"phase x {what}: {int(pruned.sum())} live tiles, {len(empty)} kv "
+          f"tiles attended by none; launches {launches}, forward + backward "
+          f"{path_s:.4f} s; max abs err o {err_o}, lse {err_lse}, dq "
+          f"{err[0]}, dk {err[1]}, dv {err[2]} (atol/rtol {TOL[dt]}){f9}"
+          f"{msg} [{card}]", flush=True)
+    del q, k, v, do, leaves, out, o, lse, dq, dk, dv, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def block_sparse(fa, dev, gen, card):
+    """Phase x: ``flash_attention_block_sparse`` forward and backward at the
+    0.77B llama's attention widths (BSP_MAIN, the band mask), each kernel
+    against plain with its time, bound and SDPA's; the S 1024 cases; then A1,
+    A3 and A4 re-timed at phases 3 and d's main shapes (the dense instances
+    of the tile bodies they share with A5-A7)."""
+    m = BSP_MAIN
+    rows = {"main": bsp_case(fa, dev, gen, card, "main", m["B"], m["H"],
+                             m["S"], m["D"], m["dtype"], True, m["block"],
+                             m["block"], "band", True)}
+    for name, H, D, dt, causal, bq, bk, kind in BSP_CASES:
+        rows[name] = bsp_case(fa, dev, gen, card, name, 1, H, 1024, D, dt,
+                              causal, bq, bk, kind, False)
+    def randn(H, S):
+        return torch.randn(8, H, S, 128, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    q, k, v = randn(16, 1024), randn(8, 1024), randn(8, 1024)
+    dense = {"A1": cuda_ms(lambda: fa.flash_attention(q, k, v, True))}
+    q, do, k, v = randn(16, 1023), randn(16, 1023), randn(8, 1023), \
+        randn(8, 1023)
+    o, lse = fa._flash_forward(q, k, v, True, None, True)
+    di = (do.float() * o.float()).sum(-1)
+    dense["A3"] = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di))
+    dense["A4"] = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, di))
+    print("phase x dense instances of the shared tile bodies: " + "; ".join(
+        f"{n} {t:.4f} ms" for n, t in dense.items())
+        + f" (A1: bf16 B8 H16/8 S1024 D128 causal; A3, A4: S1023) [{card}]",
+        flush=True)
+    rows["dense_ms"] = dense
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+    return rows
+
+
+def convolutions(conv, ex_conv, cu, dev, gen, card):
+    """Phase y: C1 against plain at ResNet-50's conv2_x shape in bf16 and
+    f32 and at (1, 6, 10, 32) -> 48 (padded lanes), with its time, bound and
+    ``F.conv2d``'s (channels_last); the example's three-layer packed stack
+    (C1's path, launches counted from 0) against F.conv2d + ReLU;
+    ``conv2d_autotuned`` at CONV_MAIN (native against pairs) and CONV_FAT
+    (native against im2col on M1), each candidate's time and the winner, and
+    each candidate called alone on the same handles against F.conv2d."""
+    plan = conv.c1_kernel_plan()
+    if plan != (conv.C1_THREADS, conv.C1_TILE, conv.C1_SMEM):
+        fail(f"phase y: C1's launch plan in ops/conv.py ({conv.C1_THREADS}, "
+             f"{conv.C1_TILE}, {conv.C1_SMEM}) is not the kernel's {plan}")
+    rows = {}
+    for name, (n, h, w, c, k), dt in [
+            ("bf16 32x56x56x64->64", CONV_MAIN, torch.bfloat16),
+            ("f32 32x56x56x64->64", CONV_MAIN, torch.float32),
+            ("f32 1x6x10x32->48", (1, 6, 10, 32, 48), torch.float32),
+            ("bf16 1x6x10x32->48", (1, 6, 10, 32, 48), torch.bfloat16)]:
+        x = (torch.randn(n, h, w, c, generator=gen, device=dev) * .1).to(dt)
+        wgt = torch.randn(3, 3, c, k, generator=gen, device=dev) * .1
+        xp = conv.pack_pairs(x)
+        xp.view(n, h, w, 64)[..., c:] = 1e4  # must not reach the output
+        got = conv.conv2d_pairs_packed(xp, wgt, h)
+        wd = conv._pad_weights(wgt, dt)
+        x64 = xp.view(n, h, w, 64)
+        ref = conv.conv2d_pairs_plain(x64, wd, c)
+        torch.cuda.synchronize()
+        what = f"phase y C1 {name}"
+        err = compare(got.view(n, h, w, 64), ref, what)
+        if got.view(n, h, w, 64)[..., k:].any():
+            fail(f"{what}: output lanes {k}..63 are not zero")
+        xcl = x.permute(0, 3, 1, 2)  # NHWC memory: channels_last
+        wcl = wgt.to(dt).permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        lib = TF.conv2d(xcl, wcl, padding=1)
+        # cuDNN may pick a Winograd or FFT algorithm, which rounds otherwise
+        # than a direct sum: f32 within 1e-4 + 1e-3 |ref|
+        e_lib = compare(got.view(n, h, w, 64)[..., :k],
+                        lib.permute(0, 2, 3, 1), f"{what} against F.conv2d",
+                        LIB_CONV_TOL.get(dt))
+        ms = cuda_ms(lambda: conv.conv3x3(x64, wd, c))
+        plain_ms = cuda_ms(lambda: conv.conv2d_pairs_plain(x64, wd, c),
+                           iters=5, warmup=1)
+        lib_ms = cuda_ms(lambda: TF.conv2d(xcl, wcl, padding=1))
+        elem = torch.finfo(dt).bits // 8
+        bms, by = bound_ms(2 * n * h * w * 9 * c * k,
+                           elem * (n * h * w * (c + 64) + 9 * c * k), dt)
+        rows[name] = dict(max_abs_err=err, library_err=e_lib, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                          bound_by=by)
+        print(f"{what}: max abs err {err} (atol/rtol {TOL[dt]}), against "
+              f"F.conv2d {e_lib}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, F.conv2d (channels_last) {lib_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it) [{card}]",
+              flush=True)
+        del x, xp, got, ref, lib, x64, xcl
+    # the main path: the example's packed stack at its card size
+    N, H, W, C = ex_conv.CARD_SHAPE
+    x, ws = ex_conv.inputs(N, H, W, C, device=dev)
+    conv.conv2d_pairs_packed.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ex_conv.stack_packed(x, ws, H)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    launches = conv.conv2d_pairs_packed.launches
+    if launches != ex_conv.DEPTH:
+        fail(f"phase y stack: {launches} C1 launches, want {ex_conv.DEPTH}")
+    err = ex_conv.check(got, x, ws)
+    if not (err < STACK_TOL and torch.isfinite(got.float()).all()
+            and got.shape == x.shape):
+        fail(f"phase y stack: max |err| {err} against F.conv2d + ReLU (bound "
+             f"{STACK_TOL}), shape {tuple(got.shape)}")
+    stack_ms = cuda_ms(lambda: ex_conv.stack_packed(x, ws, H))
+    ref_ms = cuda_ms(lambda: ex_conv.stack_reference(x, ws))
+    print(f"phase y examples/conv_pairs twin: {ex_conv.DEPTH}-layer packed "
+          f"stack bf16 {N}x{H}x{W}x{C}: {launches} C1 launches, max |err| "
+          f"against F.conv2d + ReLU {err:.4f} (bound {STACK_TOL}); "
+          f"{stack_s:.4f} s cold, {stack_ms:.4f} ms warm against "
+          f"{ref_ms:.4f} ms for F.conv2d + ReLU [{card}]", flush=True)
+    rows["stack"] = dict(launches=launches, max_abs_err=err, ms=stack_ms,
+                         library_ms=ref_ms)
+    del x, ws, got
+    # conv2d_autotuned: every candidate timed as a captured CUDA graph
+    for shape in (CONV_MAIN, CONV_FAT):
+        n, h, w, c, k = shape
+        x = (torch.randn(n * h * w * c, generator=gen, device=dev) * .1
+             ).to(torch.bfloat16)
+        wgt = (torch.randn(9 * c * k, generator=gen, device=dev) * .1
+               ).to(torch.bfloat16)
+        hx, hw = cu.create(x), cu.create(wgt)
+        t0 = time.perf_counter()
+        out = conv.conv2d_autotuned(cu, hx, hw, n, h, w, c, 3, 3, k)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        result = conv.conv2d_autotune_result(cu, hx, hw, n, h, w, c, 3, 3,
+                                             k)
+        if result is None:
+            fail(f"phase y autotuned {shape}: the conv tuner recorded "
+                 "nothing")
+        cands = {n_: 1e3 * t for n_, t in result[0].items()}
+        winner = result[1]
+        want = {"native", "pairs"} if c <= 64 else {"native", "im2col"}
+        if set(cands) != want:
+            fail(f"phase y autotuned {shape}: timed {sorted(cands)}, want "
+                 f"{sorted(want)}")
+        ref = conv.conv2d_native(x.view(n, h, w, c), wgt.view(3, 3, c, k))
+        e = compare(out.tensor.view(n, h, w, k), ref,
+                    f"phase y autotuned {shape} against F.conv2d")
+        # the candidate that is not the library's, called alone on the same
+        # handles: C1 against its plain version and F.conv2d, im2col on M1
+        # against F.conv2d
+        if c <= 64:
+            alone = conv._conv_pairs_task(cu, hx, hw, n, h, w, c, k)
+            xp = x.view(n, h, w, c)
+            plain = conv.conv2d_pairs_plain(
+                xp, conv._pad_weights(wgt.view(3, 3, c, k), xp.dtype), c)
+            torch.cuda.synchronize()
+            compare(alone.tensor.view(n, h, w, k), plain[..., :k],
+                    f"phase y pairs candidate {shape} against plain")
+        else:
+            alone = conv.conv2d_im2col(cu, hx, hw, n, h, w, c, 3, 3, k)
+            torch.cuda.synchronize()
+        e_alone = compare(alone.tensor.view(n, h, w, k), ref,
+                          f"phase y {sorted(want - {'native'})[0]} "
+                          f"candidate {shape} against F.conv2d")
+        again = conv.conv2d_autotuned(cu, hx, hw, n, h, w, c, 3, 3, k)
+        torch.cuda.synchronize()
+        if not torch.equal(again.tensor, out.tensor):
+            fail(f"phase y autotuned {shape}: the tuned call differs from "
+                 "the tuning call")
+        rows[f"autotuned {n}x{h}x{w}x{c}->{k}"] = dict(
+            candidates_ms=cands, winner=winner, tune_s=tune_s, max_abs_err=e,
+            candidate_err=e_alone)
+        print(f"phase y conv2d_autotuned bf16 {n}x{h}x{w}x{c} -> {k}: "
+              + ", ".join(f"{n_} {t:.4f} ms" for n_, t in sorted(
+                  cands.items(), key=lambda kv: kv[1]))
+              + f"; winner {winner}, tuned in {tune_s:.2f} s; max abs err "
+              f"against F.conv2d {e}, of the "
+              f"{sorted(want - {'native'})[0]} candidate alone {e_alone} "
+              f"[{card}]", flush=True)
+        del x, wgt, hx, hw, out, again, ref, alone
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3003,6 +3394,8 @@ def main():
     from cubecl_tpu_torch.models import llama
     from cubecl_tpu_torch.models import mamba
     from cubecl_tpu_torch.ops import attention as fa
+    from cubecl_tpu_torch.ops import conv
+    from cubecl_tpu_torch.examples import conv_pairs as ex_conv
     from cubecl_tpu_torch.ops import moe
     from cubecl_tpu_torch.ops import ssm
     from cubecl_tpu_torch.ops import matmul as mm
@@ -3298,6 +3691,12 @@ def main():
     w_out = moe_exactness(llama, fa, dev, card)
     w_out["mamba"] = mamba_exactness(mamba, dev, card)
 
+    # -- phase x: block-sparse attention (A5, A6, A7) -------------------------
+    x_rows = block_sparse(fa, dev, gen, card)
+
+    # -- phase y: the small-channel conv (C1) and conv2d_autotuned ------------
+    y_rows = convolutions(conv, ex_conv, cu, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
@@ -3327,6 +3726,37 @@ def main():
         "continuous_batching": k_out["cb"]["launches"][
             "paged_attention_chunked"]}
     e = lambda case: e_rows[case]  # noqa: E731
+    xm = x_rows["main"]
+    bsp_shape = "bf16 B1 H16 S8192 D128 causal, blocks 512, band i-1..i " \
+                "+ global tile 0"
+    bsp_lib = "F.scaled_dot_product_attention with the element mask as a " \
+              "bool (1, 1, S, S) attn_mask"
+    bsp_small = {k: {f: v[f] for f in ("max_abs_err", "o_err", "dq_err",
+                                       "dkv_err", "empty_kv_tiles")}
+                 for k, v in x_rows.items() if k not in ("main", "dense_ms")}
+
+    def bsp_row(name, source, replaces, what, plain):
+        b = xm["bounds"][what]
+        err = {"fwd": xm["o_err"], "dq": xm["dq_err"], "dkv": xm["dkv_err"]}
+        return row(name, source, replaces, xm["launches"][
+                       {"fwd": "bsp_forward", "dq": "bsp_dq",
+                        "dkv": "bsp_dkv"}[what]],
+                   dict(max_abs_err=err[what], ms=xm[f"{what}_ms"],
+                        plain_ms=xm[plain], **b),
+                   xm["library_fwd_ms" if what == "fwd"
+                      else "library_bwd_ms"],
+                   library=bsp_lib + ("" if what == "fwd" else
+                                      ", its autograd backward (dq, dk, "
+                                      "dv together)"),
+                   shape=bsp_shape,
+                   live_pairs_per_head=xm["live_pairs_per_head"],
+                   **({"plain_ms_is": "the whole plain backward (dq, dk, "
+                       "dv)"} if what != "fwd" else {}),
+                   **({"s1024_cases": bsp_small,
+                       "dense_a1_a3_a4_ms": x_rows["dense_ms"]}
+                      if what == "fwd" else {}))
+
+    c1 = y_rows["bf16 32x56x56x64->64"]
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
             "cubecl_tpu/ops/attention.py:76", launches["flash_attention"],
@@ -3496,6 +3926,27 @@ def main():
             **{k.replace(" ", "_"): v for k, v in u_rows.items()
                if k != "mamba-130m"},
             mamba_130m=v_out),
+        bsp_row("flash_attention_block_sparse",
+                "cubecl_tpu_torch/csrc/flash_attention.cu (with "
+                "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1109",
+                "fwd", "plain_fwd_ms"),
+        bsp_row("flash_attention_block_sparse_dq",
+                "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
+                "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1228",
+                "dq", "plain_bwd_ms"),
+        bsp_row("flash_attention_block_sparse_dkv",
+                "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
+                "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1316",
+                "dkv", "plain_bwd_ms"),
+        row("conv2d_pairs_packed", "cubecl_tpu_torch/csrc/conv3x3.cu",
+            "cubecl_tpu/ops/conv.py:274", y_rows["stack"]["launches"], c1,
+            c1["library_ms"],
+            library="F.conv2d(padding=1) on channels_last bf16 (cuDNN)",
+            shape="bf16 (32, 56, 56, 64) -> 64, 3x3 SAME (ResNet-50 "
+                  "conv2_x)",
+            launches_path="phase y: examples/conv_pairs twin, 3 layers",
+            **{k.replace(" ", "_"): v for k, v in y_rows.items()
+               if k != "bf16 32x56x56x64->64"}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

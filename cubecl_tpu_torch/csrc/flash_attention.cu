@@ -28,7 +28,13 @@
 // bandwidth, is the limit. Tiles wholly above the diagonal are never
 // visited. GQA: head h reads kv head h / (H / Hkv) directly, with no repeat.
 // wgmma, TMA and a pipelined ring of kv tiles are for later versions.
-#include "common.cuh"
+//
+// The same kernel body, with the block-sparse schedule of flash_tiles.cuh
+// in place of the dense causal range, replaces A5 _bsp_fwd_call
+// (block-sparse forward over build_block_schedule's kv_ids and counts):
+// a block owns 64 rows of one user q tile and visits the kernel tiles of
+// that tile's active kv tiles, with the JAX kernels' finite mask value.
+#include "flash_tiles.cuh"
 
 namespace cubecl {
 namespace {
@@ -44,12 +50,12 @@ constexpr int flash_smem_bytes() {
   return (D * BM + D * BN + BN * D + BN * PS) * 4;
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Tiles>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
-                 float scale_log2, int causal) {
+                 float scale_log2, int causal, Tiles tiles) {
   constexpr int DC = D / 64;  // 4-wide column groups of the output per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][BM]  (q transposed)
@@ -60,8 +66,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // score columns tx*4.., output columns tx*4 + 64*c
   const int ty = tid / 16;  // rows ty*4..ty*4+3
-  // the causal tiles near the bottom do the most work: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  int q0, q_end;  // the block's rows; rows from q_end on are not its own
+  tiles.own(q0, q_end);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -70,11 +76,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + ((int64_t)b * Hkv + hk) * Skv * D;
   T* op = o + ((int64_t)b * H + h) * Sq * D;
 
-  // q tile -> Qs[d][m]; rows past Sq are zero (their output is not stored)
+  // q tile -> Qs[d][m]; rows past q_end are zero (their output is not stored)
   for (int i = tid; i < BM * D / 4; i += NT) {
     const int m = i % BM, c = i / BM;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + m < Sq) load4(qp + (int64_t)(q0 + m) * D + c * 4, x);
+    if (q0 + m < q_end) load4(qp + (int64_t)(q0 + m) * D + c * 4, x);
 #pragma unroll
     for (int e = 0; e < 4; ++e) Qs[(c * 4 + e) * BM + m] = x[e];
   }
@@ -89,17 +95,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
   }
 
-  // causal: columns <= the tile's last row; everything past is never loaded
-  const int kv_end = causal ? min(Skv, q0 + BM) : Skv;
-  const int n_tiles = (kv_end + BN - 1) / BN;
+  const int n_tiles = tiles.count(q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
+    int k0, k_end;  // the tile's columns; those from k_end on are absent
+    if (!tiles.visit(kt, q0, q_end, k0, k_end)) continue;
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BN * D / 4; i += NT) {
       const int n = i % BN, c = i / BN;
       float x[4] = {0.f, 0.f, 0.f, 0.f};
       float y[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + n < Skv) {
+      if (k0 + n < k_end) {
         load4(kp + (int64_t)(k0 + n) * D + c * 4, x);
         load4(vp + (int64_t)(k0 + n) * D + c * 4, y);
       }
@@ -135,8 +140,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = col < Skv && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale_log2 : -INFINITY;
+        const bool ok = col < k_end && (!causal || col <= row);
+        if constexpr (Tiles::kSparse)  // causal: the finite mask value
+          s[i][j] = ok ? s[i][j] * scale_log2
+                       : (col < k_end ? kMaskValue : -INFINITY);
+        else
+          s[i][j] = ok ? s[i][j] * scale_log2 : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = warp_max16(mx);
@@ -183,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
+    if (row >= q_end) continue;
     const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
     // every lane of the row's 16 holds its stats; a row with nothing live
     // gets 0, finite, and its masked columns give exp2(s - 0) = 0 anyway
@@ -199,22 +208,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Tiles>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int H, int Hkv, int Sq, int Skv,
-                         float scale_log2, int causal, cudaStream_t stream) {
+                         float scale_log2, int causal, int blocks,
+                         Tiles tiles, cudaStream_t stream) {
   constexpr int smem = flash_smem_bytes<D>();
   // above 48 KB a kernel must opt in to dynamic shared memory, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<T, D, Tiles>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((Sq + BM - 1) / BM, H, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const dim3 grid(blocks, H, B);
+  flash_fwd_kernel<T, D, Tiles><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Sq, Skv,
-      scale_log2, causal);
+      scale_log2, causal, tiles);
   return cudaGetLastError();
+}
+
+// the four (dtype, head_dim) instances of one schedule
+template <typename Tiles>
+int launch_flash_any(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int dtype, int B, int H, int Hkv, int Sq,
+                     int Skv, int D, float scale_log2, int causal, int blocks,
+                     Tiles tiles, cudaStream_t st) {
+#define CUBECL_FLASH(T, HD)                                                   \
+  launch_flash<T, HD, Tiles>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, scale_log2, \
+                             causal, blocks, tiles, st)
+  if (dtype == kF32 && D == 64) return CUBECL_FLASH(float, 64);
+  if (dtype == kF32 && D == 128) return CUBECL_FLASH(float, 128);
+  if (dtype == kBF16 && D == 64) return CUBECL_FLASH(__nv_bfloat16, 64);
+  if (dtype == kBF16 && D == 128) return CUBECL_FLASH(__nv_bfloat16, 128);
+#undef CUBECL_FLASH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -233,14 +260,29 @@ extern "C" int cubecl_flash_fwd(const void* q, const void* k, const void* v,
                                 int Hkv, int Sq, int Skv, int D,
                                 float scale_log2, int causal, void* stream) {
   using namespace cubecl;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CUBECL_FLASH(T, HD) \
-  launch_flash<T, HD>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, scale_log2, \
-                      causal, st)
-  if (dtype == kF32 && D == 64) return CUBECL_FLASH(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_FLASH(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_FLASH(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_FLASH(__nv_bfloat16, 128);
-#undef CUBECL_FLASH
-  return cudaErrorInvalidValue;
+  return launch_flash_any(q, k, v, o, lse, dtype, B, H, Hkv, Sq, Skv, D,
+                          scale_log2, causal, (Sq + BM - 1) / BM,
+                          DenseQTiles{Sq, Skv, causal},
+                          static_cast<cudaStream_t>(stream));
+}
+
+// A5, the block-sparse forward: q, k, v, o (B, H, S, D), one head count;
+// lse (B, H, Sq) f32 or null; ids (n_q, stride) and counts (n_q,) int32, the
+// schedule of the causally pruned block mask at user tiles (bq, bk) that
+// divide Sq and Skv, every count >= 1. Returns as cubecl_flash_fwd.
+extern "C" int cubecl_flash_bsp_fwd(const void* q, const void* k,
+                                    const void* v, void* o, float* lse,
+                                    const int* ids, const int* counts,
+                                    int stride, int bq, int bk, int dtype,
+                                    int B, int H, int Sq, int Skv, int D,
+                                    float scale_log2, int causal,
+                                    void* stream) {
+  using namespace cubecl;
+  const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
+  const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
+  const SparseQTiles tiles{ids, counts, stride, bq, bk, q_sub, k_sub,
+                           causal, /*keep_f9=*/1, 0};
+  return launch_flash_any(q, k, v, o, lse, dtype, B, H, H, Sq, Skv, D,
+                          scale_log2, causal, (Sq / bq) * q_sub, tiles,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -44,10 +44,24 @@
 // the rounding of q * scale). Outputs are written once, in the inputs'
 // dtype, from f32 accumulators.
 //
+// The same kernel bodies, with the block-sparse schedules of
+// flash_tiles.cuh in place of the dense causal ranges, replace
+//   A6 _bsp_dq_call  (dQ over the forward schedule: a block owns 64 rows of
+//                     one user q tile and visits its active kv tiles) and
+//   A7 _bsp_dkv_call (dK, dV over the transposed schedule: a block owns 64
+//                     rows of one user kv tile and visits the q tiles that
+//                     attend it; a kv tile no q tile attends has count 0 and
+//                     stores zeros).
+// They give the gradient of the block-sparse forward (A5), which masks with
+// the JAX kernels' finite value. Where that differs from A6/A7 (ROADMAP
+// Queue 3, F9: a row whose every visited column is causally masked, for
+// bq != bk; the forward gives it the mean of V over those columns), each of
+// its visited columns gets 1/n of the row's dO in dV, and dQ, dK nothing;
+// A6/A7 take p = 1 there from an lse that rounds to the mask value.
+//
 // Left for later: tensor cores (mma.sync / wgmma), TMA and a pipelined ring
-// of tiles; A1/A3/A4's kv_len, segment and sliding-window options; the
-// block-sparse schedules of A6/A7.
-#include "common.cuh"
+// of tiles; A1/A3/A4's kv_len, segment and sliding-window options.
+#include "flash_tiles.cuh"
 
 namespace cubecl {
 namespace {
@@ -159,14 +173,14 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
 
 // ---------------------------------------------------------------- dK, dV
 
-template <typename T, int D>
+template <typename T, int D, typename Tiles>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
-                     float scale, float scale_log2, int causal) {
+                     float scale, float scale_log2, int causal, Tiles tiles) {
   constexpr int DC = D / 64;
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // [D][BN]
@@ -182,14 +196,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // q columns tx*4.. of the (kv, q) score block
   const int ty = tid / 16;  // kv rows ty*4.., output rows of dK / dV
-  const int k0 = blockIdx.x * BN;  // small k0 = most causal work: first
+  int k0, k_end;  // the block's kv rows; rows from k_end on are not its own
+  tiles.own(k0, k_end);
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / Hkv;
   const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
 
-  stage<T, D, BN>(k + kvo, k0, Skv, Kt, nullptr);
-  stage<T, D, BN>(v + kvo, k0, Skv, Vt, nullptr);
+  stage<T, D, BN>(k + kvo, k0, k_end, Kt, nullptr);
+  stage<T, D, BN>(v + kvo, k0, k_end, Vt, nullptr);
 
   float dk_acc[4][4 * DC], dv_acc[4][4 * DC];
 #pragma unroll
@@ -197,17 +212,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4 * DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // causal: only rows >= k0 see this tile (BM == BN: the tile at k0)
-  const int q_start = causal ? k0 : 0;
+  const int n_tiles = tiles.count(k0);
   for (int g = 0; g < rep; ++g) {
     const int h = hk * rep + g;
     const int64_t qo = ((int64_t)b * H + h) * Sq;
-    for (int q0 = q_start; q0 < Sq; q0 += BM) {
+    for (int t = 0; t < n_tiles; ++t) {
+      // q rows [q0, q_end); rows below f9_end have no live column (F9)
+      int q0, q_end, f9_end;
+      float inv_n;
+      if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
       __syncthreads();  // the previous tile's readers are done
-      stage<T, D, BM>(q + qo * D, q0, Sq, Qt, Qr);
-      stage<T, D, BM>(dout + qo * D, q0, Sq, dOt, dOr);
+      stage<T, D, BM>(q + qo * D, q0, q_end, Qt, Qr);
+      stage<T, D, BM>(dout + qo * D, q0, q_end, dOt, dOr);
       if (tid < BM) {
-        const bool in = q0 + tid < Sq;
+        const bool in = q0 + tid < q_end;
         lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
         di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
       }
@@ -228,10 +246,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int col = k0 + ty * 4 + i;
-          const bool ok = row < Sq && col < Skv && (!causal || col <= row);
+          const bool in = row < q_end && col < k_end;
+          const bool ok = in && (!causal || col <= row);
           const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
-          s[i][j] = p;
-          dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
+          if constexpr (Tiles::kSparse) {
+            // an F9 row: p = 1/n on each visited column, for dV only
+            s[i][j] = in && row < f9_end ? inv_n : p;
+            dp[i][j] = ok ? p * (dp[i][j] - di_s[m]) * scale : 0.f;  // dS
+          } else {
+            s[i][j] = p;
+            dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
+          }
         }
       }
       // Ps[m][n] = p: dV[n][:] += sum_m p[m][n] dO[m][:]
@@ -245,20 +270,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       accum<D>(Ps, Qr, ty, tx, dk_acc);
     }
   }
-  store_rows<T, D>(dk + kvo, k0, Skv, ty, tx, dk_acc);
-  store_rows<T, D>(dv + kvo, k0, Skv, ty, tx, dv_acc);
+  store_rows<T, D>(dk + kvo, k0, k_end, ty, tx, dk_acc);
+  store_rows<T, D>(dv + kvo, k0, k_end, ty, tx, dv_acc);
 }
 
 // ------------------------------------------------------------------- dQ
 
-template <typename T, int D>
+template <typename T, int D, typename Tiles>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ di, T* __restrict__ dq, int H,
                     int Hkv, int Sq, int Skv, float scale, float scale_log2,
-                    int causal) {
+                    int causal, Tiles tiles) {
   constexpr int DC = D / 64;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][BM]
@@ -273,18 +298,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // kv columns tx*4.., dQ columns tx*4 + 64c
   const int ty = tid / 16;  // q rows ty*4..
-  // the causal tiles near the bottom do the most work: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  int q0, q_end;  // the block's rows; rows from q_end on are not its own
+  tiles.own(q0, q_end);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int64_t qo = ((int64_t)b * H + h) * Sq;
   const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
 
-  stage<T, D, BM>(q + qo * D, q0, Sq, Qt, nullptr);
-  stage<T, D, BM>(dout + qo * D, q0, Sq, dOt, nullptr);
+  stage<T, D, BM>(q + qo * D, q0, q_end, Qt, nullptr);
+  stage<T, D, BM>(dout + qo * D, q0, q_end, dOt, nullptr);
   if (tid < BM) {
-    const bool in = q0 + tid < Sq;
+    const bool in = q0 + tid < q_end;
     lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
     di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
   }
@@ -295,11 +320,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
 
-  const int kv_end = causal ? min(Skv, q0 + BM) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
+  const int n_tiles = tiles.count(q0);
+  for (int t = 0; t < n_tiles; ++t) {
+    int k0, k_end;  // the tile's columns; those from k_end on are absent
+    if (!tiles.visit(t, q0, q_end, k0, k_end)) continue;
     __syncthreads();  // the previous tile's readers are done
-    stage<T, D, BN>(k + kvo, k0, Skv, Kt, Kr);
-    stage<T, D, BN>(v + kvo, k0, Skv, Vt, nullptr);
+    stage<T, D, BN>(k + kvo, k0, k_end, Kt, Kr);
+    stage<T, D, BN>(v + kvo, k0, k_end, Vt, nullptr);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -316,7 +343,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = row < Sq && col < Skv && (!causal || col <= row);
+        const bool ok = row < q_end && col < k_end && (!causal || col <= row);
         const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
         dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
       }
@@ -326,7 +353,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     accum<D>(Ss, Kr, ty, tx, acc);
   }
-  store_rows<T, D>(dq + qo * D, q0, Sq, ty, tx, acc);
+  store_rows<T, D>(dq + qo * D, q0, q_end, ty, tx, acc);
 }
 
 template <typename Kernel>
@@ -336,41 +363,76 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Tiles>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
                        void* dk, void* dv, int B, int H, int Hkv, int Sq,
                        int Skv, float scale, float scale_log2, int causal,
-                       cudaStream_t stream) {
+                       int blocks, Tiles tiles, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<D>();
   static const cudaError_t attr =
-      opt_in_smem(flash_bwd_dkv_kernel<T, D>, smem);
+      opt_in_smem(flash_bwd_dkv_kernel<T, D, Tiles>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((Skv + BN - 1) / BN, Hkv, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const dim3 grid(blocks, Hkv, B);
+  flash_bwd_dkv_kernel<T, D, Tiles><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
       static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Skv, scale,
-      scale_log2, causal);
+      scale_log2, causal, tiles);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Tiles>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* di,
                       void* dq, int B, int H, int Hkv, int Sq, int Skv,
-                      float scale, float scale_log2, int causal,
-                      cudaStream_t stream) {
+                      float scale, float scale_log2, int causal, int blocks,
+                      Tiles tiles, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();
   static const cudaError_t attr =
-      opt_in_smem(flash_bwd_dq_kernel<T, D>, smem);
+      opt_in_smem(flash_bwd_dq_kernel<T, D, Tiles>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((Sq + BM - 1) / BM, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const dim3 grid(blocks, H, B);
+  flash_bwd_dq_kernel<T, D, Tiles><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dq), H, Hkv, Sq, Skv, scale, scale_log2, causal);
+      static_cast<T*>(dq), H, Hkv, Sq, Skv, scale, scale_log2, causal, tiles);
   return cudaGetLastError();
+}
+
+// the four (dtype, head_dim) instances of one schedule
+template <typename Tiles>
+int launch_dkv_any(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* di,
+                   void* dk, void* dv, int dtype, int B, int H, int Hkv,
+                   int Sq, int Skv, int D, float scale, float scale_log2,
+                   int causal, int blocks, Tiles tiles, cudaStream_t st) {
+#define CUBECL_DKV(T, HD)                                                    \
+  launch_dkv<T, HD, Tiles>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq,    \
+                           Skv, scale, scale_log2, causal, blocks, tiles, st)
+  if (dtype == kF32 && D == 64) return CUBECL_DKV(float, 64);
+  if (dtype == kF32 && D == 128) return CUBECL_DKV(float, 128);
+  if (dtype == kBF16 && D == 64) return CUBECL_DKV(__nv_bfloat16, 64);
+  if (dtype == kBF16 && D == 128) return CUBECL_DKV(__nv_bfloat16, 128);
+#undef CUBECL_DKV
+  return cudaErrorInvalidValue;
+}
+
+template <typename Tiles>
+int launch_dq_any(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* di,
+                  void* dq, int dtype, int B, int H, int Hkv, int Sq, int Skv,
+                  int D, float scale, float scale_log2, int causal,
+                  int blocks, Tiles tiles, cudaStream_t st) {
+#define CUBECL_DQ(T, HD)                                                     \
+  launch_dq<T, HD, Tiles>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Skv,    \
+                          scale, scale_log2, causal, blocks, tiles, st)
+  if (dtype == kF32 && D == 64) return CUBECL_DQ(float, 64);
+  if (dtype == kF32 && D == 128) return CUBECL_DQ(float, 128);
+  if (dtype == kBF16 && D == 64) return CUBECL_DQ(__nv_bfloat16, 64);
+  if (dtype == kBF16 && D == 128) return CUBECL_DQ(__nv_bfloat16, 128);
+#undef CUBECL_DQ
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -388,16 +450,11 @@ extern "C" int cubecl_flash_bwd_dkv(const void* q, const void* k,
                                     float scale, float scale_log2, int causal,
                                     void* stream) {
   using namespace cubecl;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CUBECL_DKV(T, HD)                                                    \
-  launch_dkv<T, HD>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq, Skv,      \
-                    scale, scale_log2, causal, st)
-  if (dtype == kF32 && D == 64) return CUBECL_DKV(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_DKV(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_DKV(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_DKV(__nv_bfloat16, 128);
-#undef CUBECL_DKV
-  return cudaErrorInvalidValue;
+  return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, Hkv, Sq,
+                        Skv, D, scale, scale_log2, causal,
+                        (Skv + BN - 1) / BN,
+                        DenseKVTiles{Sq, Skv, causal, 0},
+                        static_cast<cudaStream_t>(stream));
 }
 
 // the same inputs; dq (B, H, Sq, D) in their dtype
@@ -409,14 +466,54 @@ extern "C" int cubecl_flash_bwd_dq(const void* q, const void* k,
                                    float scale_log2, int causal,
                                    void* stream) {
   using namespace cubecl;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CUBECL_DQ(T, HD)                                                     \
-  launch_dq<T, HD>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Skv, scale,    \
-                   scale_log2, causal, st)
-  if (dtype == kF32 && D == 64) return CUBECL_DQ(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_DQ(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_DQ(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_DQ(__nv_bfloat16, 128);
-#undef CUBECL_DQ
-  return cudaErrorInvalidValue;
+  return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
+                       D, scale, scale_log2, causal, (Sq + BM - 1) / BM,
+                       DenseQTiles{Sq, Skv, causal},
+                       static_cast<cudaStream_t>(stream));
+}
+
+// A6, dQ of the block-sparse forward: the inputs of cubecl_flash_bwd_dq with
+// one head count, and the forward's schedule (ids (n_q, stride), counts) at
+// user tiles (bq, bk)
+extern "C" int cubecl_flash_bsp_dq(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* di,
+                                   void* dq, const int* ids,
+                                   const int* counts, int stride, int bq,
+                                   int bk, int dtype, int B, int H, int Sq,
+                                   int Skv, int D, float scale,
+                                   float scale_log2, int causal,
+                                   void* stream) {
+  using namespace cubecl;
+  const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
+  const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
+  const SparseQTiles tiles{ids, counts, stride, bq, bk, q_sub, k_sub,
+                           causal, /*keep_f9=*/0, 0};
+  return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, H, Sq, Skv,
+                       D, scale, scale_log2, causal, (Sq / bq) * q_sub,
+                       tiles, static_cast<cudaStream_t>(stream));
+}
+
+// A7, dK and dV of the block-sparse forward: the inputs of
+// cubecl_flash_bwd_dkv with one head count, the transposed schedule (t_ids
+// (n_kv, t_stride), t_counts, zero counts allowed) and the forward's (f_ids
+// (n_q, f_stride), f_counts) at user tiles (bq, bk)
+extern "C" int cubecl_flash_bsp_dkv(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* di,
+                                    void* dk, void* dv, const int* t_ids,
+                                    const int* t_counts, int t_stride,
+                                    const int* f_ids, const int* f_counts,
+                                    int f_stride, int bq, int bk, int dtype,
+                                    int B, int H, int Sq, int Skv, int D,
+                                    float scale, float scale_log2, int causal,
+                                    void* stream) {
+  using namespace cubecl;
+  const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
+  const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
+  const SparseKVTiles tiles{t_ids, t_counts, f_ids, f_counts, t_stride,
+                            f_stride, bq, bk, k_sub, q_sub, causal, 0};
+  return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, H, Sq,
+                        Skv, D, scale, scale_log2, causal, (Skv / bk) * k_sub,
+                        tiles, static_cast<cudaStream_t>(stream));
 }

@@ -25,13 +25,31 @@ runs the plain PyTorch versions, ``flash_attention_plain`` and
 ``flash_attention_backward_plain``, which are also the kernels' references
 on the card. Each wrapper counts its launches (``flash_attention.launches``
 for the forward, ``flash_bwd_dkv.launches``, ``flash_bwd_dq.launches``).
+
+``flash_attention_block_sparse`` attends over a block mask: q tile ``qi``
+(of ``block_q`` rows) attends kv tile ``ki`` (of ``block_k``) where
+``block_mask[qi, ki]``. ``build_block_schedule`` turns the mask into per-tile
+lists of active tiles, which the kernels walk: ``bsp_forward`` (A5,
+``_bsp_fwd_call``), ``bsp_dq`` (A6, ``_bsp_dq_call``) and ``bsp_dkv`` (A7,
+``_bsp_dkv_call``, over the transposed schedule), the dense kernels' bodies
+on the block-sparse schedules of ``csrc/flash_tiles.cuh``. Its
+``_FlashBlockSparse`` is the counterpart of the JAX ``_flash_bsp``
+custom_vjp; on CPU tensors it runs ``flash_attention_block_sparse_plain``
+and ``flash_attention_block_sparse_backward_plain``. Causally masked scores
+take the JAX kernels' finite ``DEFAULT_MASK_VALUE``, so a row whose every
+visited column is masked (only with block_q != block_k) gets the mean of V
+over those columns, as the JAX forward gives it; the backward is the true
+gradient of that forward, which the JAX backward is not there (ROADMAP
+Queue 3, F9).
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils import native
@@ -270,3 +288,339 @@ def flash_attention(q, k, v, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse attention (A5, A6, A7)
+# ---------------------------------------------------------------------------
+
+DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+MIN_BLOCK = 128  # the JAX package's lane tile, which _fit_block prefers
+
+
+def _fit_block(block: int, s: int) -> int:
+    """Largest divisor of ``s`` not exceeding ``block``, preferring
+    multiples of 128 (``cubecl_tpu/ops/attention.py:41``): it fixes the
+    tile grid, and so the shape of the block mask a caller passes. The
+    kernels tile at 64 rows whatever it returns."""
+    b = min(block, s)
+    if s % b == 0:
+        return b
+    best = 1
+    best_tile = 0
+    for d in range(1, int(math.isqrt(s)) + 1):
+        if s % d == 0:
+            for cand in (d, s // d):
+                if cand <= b:
+                    if cand % MIN_BLOCK == 0:
+                        best_tile = max(best_tile, cand)
+                    best = max(best, cand)
+    return best_tile or best
+
+
+def build_block_schedule(block_mask, allow_empty: bool = False) -> tuple:
+    """(kv_ids, counts) of a (n_q, n_kv) block mask, int32 numpy arrays:
+    per q tile its active kv tiles in order, padded by repeating the last,
+    and how many there are. ``allow_empty`` admits rows with none (ids
+    0, count 0): the transposed schedule of the backward has kv tiles no q
+    tile attends."""
+    bm = np.asarray(block_mask, bool)
+    n_q, n_kv = bm.shape
+    counts = bm.sum(1).astype(np.int32)
+    if not allow_empty:
+        assert counts.min() > 0, "every q tile must attend >= 1 kv tile"
+    max_active = max(int(counts.max()), 1)
+    kv_ids = np.zeros((n_q, max_active), np.int32)
+    for qi in range(n_q):
+        ids = np.nonzero(bm[qi])[0]
+        if len(ids) == 0:
+            continue
+        kv_ids[qi, :len(ids)] = ids
+        kv_ids[qi, len(ids):] = ids[-1]
+    return kv_ids, counts
+
+
+def _pruned_mask(block_mask, causal, bq, bk, n_q, n_kv) -> np.ndarray:
+    """The caller's mask, checked against the tile grid, with the tiles
+    wholly above the diagonal dropped when causal."""
+    bm = np.asarray(block_mask, bool)
+    assert bm.shape == (n_q, n_kv), \
+        f"block_mask {bm.shape} != tile grid {(n_q, n_kv)} for blocks " \
+        f"({bq},{bk})"
+    if causal:
+        qr = np.arange(n_q)[:, None]
+        kr = np.arange(n_kv)[None, :]
+        bm = bm & (kr * bk <= qr * bq + bq - 1)
+    assert bm.sum(1).min() > 0, "every q tile must attend >= 1 kv tile"
+    return bm
+
+
+class _Schedule:
+    """The forward schedule of a pruned mask and its transpose, on one
+    device (int32)."""
+
+    def __init__(self, bm: np.ndarray, device):
+        ids, counts = build_block_schedule(bm)
+        t_ids, t_counts = build_block_schedule(bm.T, allow_empty=True)
+        self.bm = bm
+        self.ids = torch.from_numpy(ids).to(device)
+        self.counts = torch.from_numpy(counts).to(device)
+        self.t_ids = torch.from_numpy(t_ids).to(device)
+        self.t_counts = torch.from_numpy(t_counts).to(device)
+
+
+_SCHEDULES: "collections.OrderedDict" = collections.OrderedDict()
+_MAX_SCHEDULES = 64
+
+
+def _schedule(bm: np.ndarray, bq: int, bk: int, device) -> _Schedule:
+    """The schedule of a pruned mask, built and copied to ``device`` once
+    per (mask, bq, bk, device): a training loop calls with the same mask
+    every step (the 64 latest are kept)."""
+    key = (bm.shape, np.packbits(bm).tobytes(), bq, bk, str(device))
+    hit = _SCHEDULES.get(key)
+    if hit is None:
+        hit = _SCHEDULES[key] = _Schedule(bm, device)
+        if len(_SCHEDULES) > _MAX_SCHEDULES:
+            _SCHEDULES.popitem(last=False)
+    else:
+        _SCHEDULES.move_to_end(key)
+    return hit
+
+
+def _bsp_shapes(q, k, v):
+    _check_shapes(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"block-sparse attention takes as many k/v heads "
+                         f"as q heads (the JAX kernel's layout); got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def _tile_columns(ids, b: int, device) -> torch.Tensor:
+    """The positions of the tiles ``ids`` (of ``b`` rows each), in order."""
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=device)
+    return (ids[:, None] * b + torch.arange(b, device=device)).reshape(-1)
+
+
+def _bsp_tile_scores(q, k, bm, qi, causal, scale, bq, bk):
+    """For q tile ``qi``: its active kv tiles' columns, the base-2 scaled
+    f32 scores of its rows against them (B, H, bq, n) with causally masked
+    ones at DEFAULT_MASK_VALUE, and the live mask (bq, n)."""
+    cols = _tile_columns(np.nonzero(bm[qi])[0], bk, q.device)
+    rows = torch.arange(qi * bq, (qi + 1) * bq, device=q.device)
+    s = torch.matmul(q[:, :, qi * bq:(qi + 1) * bq].float(),
+                     k[:, :, cols].float().transpose(-1, -2)) \
+        * (scale * LOG2E)
+    live = (cols[None, :] <= rows[:, None]) if causal else \
+        torch.ones(bq, len(cols), dtype=torch.bool, device=q.device)
+    return cols, torch.where(live, s, DEFAULT_MASK_VALUE), live
+
+
+def flash_attention_block_sparse_plain(q, k, v, block_mask,
+                                       causal: bool = True,
+                                       sm_scale: Optional[float] = None,
+                                       block_q: int = 512,
+                                       block_k: int = 512,
+                                       return_lse: bool = False):
+    """The block-sparse forward in plain PyTorch, one q tile at a time
+    against its active kv tiles, in f32 (no (S, S) scores): the softmax of
+    the base-2 scores with causally masked ones at DEFAULT_MASK_VALUE, so a
+    row with no live column gets the mean of V over its visited columns
+    (F9), as the JAX kernel. Differentiable by autograd. With
+    ``return_lse`` also the base-2 log-sum-exp of each row, f32 (B, H, S)."""
+    _bsp_shapes(q, k, v)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    bq, bk = _fit_block(block_q, Sq), _fit_block(block_k, Skv)
+    bm = _pruned_mask(block_mask, causal, bq, bk, Sq // bq, Skv // bk)
+    scale = _scale(q, sm_scale)
+    outs, lses = [], []
+    for qi in range(Sq // bq):
+        cols, s, _ = _bsp_tile_scores(q, k, bm, qi, causal, scale, bq, bk)
+        m = s.amax(-1, keepdim=True).detach()
+        p = torch.exp2(s - m)
+        l = p.sum(-1, keepdim=True)
+        outs.append(torch.matmul(p, v[:, :, cols].float()) / l)
+        lses.append((m + torch.log2(l))[..., 0])
+    o = torch.cat(outs, 2).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.cat(lses, 2)
+
+
+def flash_attention_block_sparse_backward_plain(
+        q, k, v, o, lse, do, block_mask, causal: bool = True,
+        sm_scale: Optional[float] = None, block_q: int = 512,
+        block_k: int = 512):
+    """(dq, dk, dv) of the block-sparse forward in plain PyTorch, from its
+    residuals (o, base-2 lse) and do, one q tile at a time, f32: the math
+    of A6 and A7 (p = exp2(s - lse) on live entries, dS = p (dP - di)
+    sm_scale), and for a row with no live column (F9) the true gradient of
+    the forward's mean: 1/n of its dO to each of its n visited columns of
+    dV, nothing to dQ or dK. Cast to the inputs' dtypes."""
+    _bsp_shapes(q, k, v)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    bq, bk = _fit_block(block_q, Sq), _fit_block(block_k, Skv)
+    bm = _pruned_mask(block_mask, causal, bq, bk, Sq // bq, Skv // bk)
+    scale = _scale(q, sm_scale)
+    dof = do.float()
+    di = (dof * o.float()).sum(-1, keepdim=True)
+    dq = torch.zeros(B, H, Sq, D, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, H, Skv, D, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for qi in range(Sq // bq):
+        sl = slice(qi * bq, (qi + 1) * bq)
+        cols, s, live = _bsp_tile_scores(q, k, bm, qi, causal, scale, bq, bk)
+        p = torch.where(live, torch.exp2(s - lse[:, :, sl, None].float()),
+                        0.0)
+        dead = ~live.any(-1, keepdim=True)  # F9 rows: the mean of V
+        p_v = torch.where(dead, 1.0 / len(cols), p)
+        dp = torch.matmul(dof[:, :, sl], v[:, :, cols].float()
+                          .transpose(-1, -2))
+        ds = p * (dp - di[:, :, sl]) * scale
+        dq[:, :, sl] = torch.matmul(ds, k[:, :, cols].float())
+        dk.index_add_(2, cols, torch.matmul(ds.transpose(-1, -2),
+                                            q[:, :, sl].float()))
+        dv.index_add_(2, cols, torch.matmul(p_v.transpose(-1, -2),
+                                            dof[:, :, sl]))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bsp_inputs(what, q, k, v, *more):
+    _bsp_shapes(q, k, v)
+    return _kernel_inputs(what, q, k, v, *more)
+
+
+def bsp_forward(q, k, v, sched: _Schedule, causal, scale, bq, bk,
+                need_lse: bool):
+    """A5 on CUDA tensors: o and, with ``need_lse``, the base-2 lse."""
+    q, k, v = _bsp_inputs("flash_attention_block_sparse", q, k, v)
+    B, H, Sq, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) \
+        if need_lse else None
+    if o.numel() == 0:
+        return o, lse
+    lib = native.kernels()
+    with torch.cuda.device(q.device):
+        rc = lib.cubecl_flash_bsp_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if need_lse else None, sched.ids.data_ptr(),
+            sched.counts.data_ptr(), sched.ids.shape[1], bq, bk,
+            native.DTYPE_CODES[q.dtype], B, H, Sq, k.shape[2], D,
+            scale * LOG2E, int(causal), _stream(q))
+    native.check(lib, rc, "flash_attention_block_sparse")
+    bsp_forward.launches += 1
+    return o, lse
+
+
+def bsp_dq(q, k, v, do, lse, di, sched: _Schedule, causal, scale, bq, bk):
+    """A6 on CUDA tensors: dq over the forward schedule."""
+    q, k, v, do = _bsp_inputs("bsp_dq", q, k, v, do)
+    lse, di = _stats("bsp_dq", q, lse, di)
+    B, H, Sq, D = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    lib = native.kernels()
+    with torch.cuda.device(q.device):
+        rc = lib.cubecl_flash_bsp_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            sched.ids.data_ptr(), sched.counts.data_ptr(),
+            sched.ids.shape[1], bq, bk, native.DTYPE_CODES[q.dtype], B, H,
+            Sq, k.shape[2], D, scale, scale * LOG2E, int(causal), _stream(q))
+    native.check(lib, rc, "bsp_dq")
+    bsp_dq.launches += 1
+    return dq
+
+
+def bsp_dkv(q, k, v, do, lse, di, sched: _Schedule, causal, scale, bq, bk):
+    """A7 on CUDA tensors: dk, dv over the transposed schedule (a kv tile
+    no q tile attends gets zeros)."""
+    q, k, v, do = _bsp_inputs("bsp_dkv", q, k, v, do)
+    lse, di = _stats("bsp_dkv", q, lse, di)
+    B, H, Sq, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = native.kernels()
+    with torch.cuda.device(q.device):
+        rc = lib.cubecl_flash_bsp_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            sched.t_ids.data_ptr(), sched.t_counts.data_ptr(),
+            sched.t_ids.shape[1], sched.ids.data_ptr(),
+            sched.counts.data_ptr(), sched.ids.shape[1], bq, bk,
+            native.DTYPE_CODES[q.dtype], B, H, Sq, k.shape[2], D, scale,
+            scale * LOG2E, int(causal), _stream(q))
+    native.check(lib, rc, "bsp_dkv")
+    bsp_dkv.launches += 1
+    return dk, dv
+
+
+bsp_forward.launches = 0
+bsp_dq.launches = 0
+bsp_dkv.launches = 0
+
+
+class _FlashBlockSparse(torch.autograd.Function):
+    """Counterpart of the JAX ``_flash_bsp`` custom_vjp: A5 forward with
+    lse, A6 and A7 backward on CUDA tensors; the plain versions on CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bm, causal, scale, bq, bk):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_block_sparse_plain(
+                q, k, v, bm, causal, scale, bq, bk, return_lse=True)
+        else:
+            o, lse = bsp_forward(q, k, v, _schedule(bm, bq, bk, q.device),
+                                 causal, scale, bq, bk, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (bm, causal, scale, bq, bk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bm, causal, scale, bq, bk = ctx.args
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_block_sparse_backward_plain(
+                q, k, v, o, lse, do, bm, causal, scale, bq, bk)
+        else:
+            sched = _schedule(bm, bq, bk, q.device)
+            # rowsum(dO * O) in f32 from o in its own dtype, as the JAX _bwd
+            di = (do.float() * o.float()).sum(-1)
+            dq = bsp_dq(q, k, v, do, lse, di, sched, causal, scale, bq, bk)
+            dk, dv = bsp_dkv(q, k, v, do, lse, di, sched, causal, scale, bq,
+                             bk)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_block_sparse(q, k, v, block_mask, causal: bool = True,
+                                 sm_scale: Optional[float] = None,
+                                 block_q: int = 512, block_k: int = 512):
+    """Flash attention over a block mask (the JAX signature without
+    ``interpret``): ``block_mask[qi, ki]`` says whether q tile ``qi``
+    attends kv tile ``ki``, for tiles of ``_fit_block(block_q, Sq)`` and
+    ``_fit_block(block_k, Skv)`` rows; ``causal`` adds the in-tile causal
+    mask at absolute positions, and tiles wholly above the diagonal are
+    pruned. q, k, v (B, H, S, D) with as many k/v heads as q heads. Cost
+    and gradients scale with the mask's live tiles. See the module
+    docstring for the kernels and F9."""
+    _bsp_shapes(q, k, v)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    bq, bk = _fit_block(block_q, Sq), _fit_block(block_k, Skv)
+    bm = _pruned_mask(block_mask, causal, bq, bk, Sq // bq, Skv // bk)
+    scale = _scale(q, sm_scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashBlockSparse.apply(q, k, v, bm, causal, scale, bq, bk)
+    if q.device.type == "cpu":
+        return flash_attention_block_sparse_plain(q, k, v, bm, causal, scale,
+                                                  bq, bk)
+    return bsp_forward(q, k, v, _schedule(bm, bq, bk, q.device), causal,
+                       scale, bq, bk, False)[0]

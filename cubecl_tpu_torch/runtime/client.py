@@ -8,6 +8,7 @@ read, write, empty, launch, sync, properties, graph capture
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, List, Optional, Sequence
 
@@ -80,6 +81,18 @@ class ComputeClient:
             raise RuntimeError("no active capture")
         self._capture = None
         return Graph(self, cap.recorded, cap.handles)
+
+    @contextlib.contextmanager
+    def capture_paused(self):
+        """Launch for real while a capture records: an autotuned call made
+        inside another candidate's capture (``conv2d_im2col``'s matmul in
+        ``conv2d_autotuned``) tunes in this block, and then records its
+        winner into the outer capture."""
+        cap, self._capture = self._capture, None
+        try:
+            yield
+        finally:
+            self._capture = cap
 
     def capture(self, fn, *args, **kwargs) -> Graph:
         """``fn(*args, **kwargs)`` between ``start_capture`` and

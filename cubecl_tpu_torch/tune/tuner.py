@@ -92,7 +92,9 @@ class Tuner:
     def _execute(self, key, *args, **kwargs):
         idx = self.cache.get(key)
         if idx is None:
-            idx = self._tune(key, *args, **kwargs)
+            # a call inside another tuner's capture tunes for real first
+            with self.client.capture_paused():
+                idx = self._tune(key, *args, **kwargs)
         return self.tunables.tunables[idx].fn(*args, **kwargs)
 
     # ------------------------------------------------------------------

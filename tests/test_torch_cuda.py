@@ -851,3 +851,153 @@ def test_mamba_forward_on_the_card(dev):
     for t in range(8):
         lg, state = mamba.decode_step(model, state, tokens[:, t])
         torch.testing.assert_close(lg, got[:, t], atol=2e-4, rtol=1e-3)
+
+
+# -- A5, A6, A7 (the block-sparse schedules of csrc/flash_tiles.cuh) and C1
+# (csrc/conv3x3.cu)
+
+
+def _band_mask(n_q, n_kv):
+    """The local band i-1..i plus the global tile 0 (BigBird-style)."""
+    bm = np.zeros((n_q, n_kv), bool)
+    for i in range(n_q):
+        j = i * n_kv // n_q
+        bm[i, max(0, j - 1):j + 1] = True
+        bm[i, 0] = True
+    return bm
+
+
+def _holed_mask(n_q, n_kv):
+    """Random tiles, the diagonal, and kv tile 1 attended by nobody."""
+    bm = np.random.default_rng(n_q * n_kv).random((n_q, n_kv)) < 0.4
+    for i in range(n_q):
+        bm[i, i * n_kv // n_q] = True
+    bm[:, 1] = False
+    bm[:, 0] = True
+    return bm
+
+
+def _f9_mask(n_q, n_kv):
+    """q tile 0 attends only kv tile 1: with bq > bk its first rows see
+    nothing live (ROADMAP Queue 3, F9)."""
+    bm = np.ones((n_q, n_kv), bool)
+    bm[0] = False
+    bm[0, 1] = True
+    return bm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,bq,bk,mask", [
+    (512, 128, 128, _band_mask), (480, 96, 160, _band_mask),
+    (512, 64, 64, _holed_mask), (512, 128, 64, _f9_mask),
+    (384, 200, 100, _holed_mask)],
+    ids=["band128", "ragged96x160", "holed64", "f9_128x64", "fit200x100"])
+def test_block_sparse_kernels_match_plain(dev, dtype, D, causal, S, bq, bk,
+                                         mask):
+    """A5 (o, lse), and A6 and A7 through the autograd Function, against
+    the plain forward and backward on the kernel's own o and lse; a kv tile
+    nobody attends gets dk = dv = 0 exactly."""
+    g = torch.Generator(device=dev).manual_seed(S + bq + D)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    bq_, bk_ = fa._fit_block(bq, S), fa._fit_block(bk, S)
+    bm = mask(S // bq_, S // bk_)
+    n = (fa.bsp_forward.launches, fa.bsp_dq.launches, fa.bsp_dkv.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_block_sparse(*leaves, bm, causal, None, bq, bk)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.bsp_forward.launches, fa.bsp_dq.launches,
+            fa.bsp_dkv.launches) == tuple(c + 1 for c in n)
+    pruned = fa._pruned_mask(bm, causal, bq_, bk_, S // bq_, S // bk_)
+    sched = fa._schedule(pruned, bq_, bk_, dev)
+    o, lse = fa.bsp_forward(q, k, v, sched, causal, D ** -0.5, bq_, bk_,
+                            True)
+    o_ref, lse_ref = fa.flash_attention_block_sparse_plain(
+        q, k, v, bm, causal, None, bq, bk, return_lse=True)
+    _close(o, o_ref)
+    assert torch.equal(out.detach(), o)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+    refs = fa.flash_attention_block_sparse_backward_plain(
+        q, k, v, o, lse, do, bm, causal, None, bq, bk)
+    for t, r in zip(leaves, refs):
+        _close(t.grad, r)
+    dead = ~pruned.any(0)
+    for ki in np.nonzero(dead)[0]:
+        for t in leaves[1:]:
+            assert not t.grad[:, :, ki * bk_:(ki + 1) * bk_].any()
+
+
+def test_block_sparse_refuses_other_shapes(dev):
+    q = torch.zeros(1, 4, 256, 64, device=dev)
+    kv = torch.zeros(1, 2, 256, 64, device=dev)
+    with pytest.raises(ValueError, match="as many k/v heads"):
+        fa.flash_attention_block_sparse(q, kv, kv, np.ones((2, 2), bool),
+                                        True, None, 128, 128)
+    q32 = torch.zeros(1, 2, 256, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_block_sparse(q32, q32, q32, np.ones((2, 2), bool),
+                                        True, None, 128, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k", [(2, 8, 8, 64, 64), (1, 6, 10, 32, 48),
+                                       (3, 5, 130, 64, 17), (1, 1, 2, 3, 64)])
+def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, k):
+    """C1 on the packed layout against its plain version: input lanes
+    c..63 hold garbage that must not reach the output, output lanes k..63
+    are exact zeros; W = 130 takes three column blocks, H = 5 a half row
+    pair."""
+    from cubecl_tpu_torch.ops import conv
+
+    g = torch.Generator(device=dev).manual_seed(n * h * w + c)
+    x = (torch.randn(n, h, w, c, generator=g, device=dev) * .1).to(dtype)
+    wgt = torch.randn(3, 3, c, k, generator=g, device=dev) * .1
+    xp = conv.pack_pairs(x)
+    xp.view(n, h, w, 64)[..., c:] = 1e4
+    before = conv.conv2d_pairs_packed.launches
+    got = conv.conv2d_pairs_packed(xp, wgt, h)
+    torch.cuda.synchronize()
+    assert conv.conv2d_pairs_packed.launches == before + 1
+    assert got.shape == xp.shape and got.dtype == dtype
+    ref = conv.conv2d_pairs_plain(xp.view(n, h, w, 64),
+                                  conv._pad_weights(wgt, dtype), c)
+    _close(got.view(n, h, w, 64), ref)
+    assert not got.view(n, h, w, 64)[..., k:].any()
+
+
+def test_conv3x3_plan_matches_the_kernel(dev):
+    """The launch plan ops/conv.py validates C1's launches with is the
+    built kernel's (csrc/conv3x3.cu's cubecl_conv3x3_plan)."""
+    from cubecl_tpu_torch.ops import conv
+
+    assert conv.c1_kernel_plan() == (conv.C1_THREADS, conv.C1_TILE,
+                                     conv.C1_SMEM)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64, 3, 3, 64),
+                                   (2, 8, 8, 128, 2, 2, 128)],
+                         ids=["pairs", "im2col"])
+def test_conv_autotuned_on_the_card(dev, monkeypatch, tmp_path, shape):
+    """conv2d_autotuned tunes native (cuDNN) against C1 or im2col on M1
+    (the matmul tuning inside the conv tuner's capture) and its result
+    matches F.conv2d in f32 (TF32 off)."""
+    from cubecl_tpu_torch.ops import conv
+
+    monkeypatch.setenv("CUBECL_ENVIRONMENT_ROOT", str(tmp_path))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    n, h, w, c, r, s, k = shape
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn(n, h, w, c, generator=g, device=dev) * .1
+    wgt = torch.randn(r, s, c, k, generator=g, device=dev) * .1
+    client = CudaRuntime.client()
+    hx, hw = client.create(x.reshape(-1)), client.create(wgt.reshape(-1))
+    got = conv.conv2d_autotuned(client, hx, hw, n, h, w, c, r, s, k)
+    ref = conv.conv2d_native(x, wgt)
+    _close(got.tensor.view(ref.shape), ref)
+    got = conv._conv_pairs_task(client, hx, hw, n, h, w, c, k) \
+        if shape[4] == 3 else conv.conv2d_im2col(client, hx, hw, n, h, w, c,
+                                                  r, s, k)
+    _close(got.tensor.view(ref.shape), ref)
