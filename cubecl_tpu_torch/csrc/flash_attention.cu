@@ -19,22 +19,55 @@
 // into q and rounded to q's dtype first, so in bf16 the two differ by that
 // one rounding of q.
 //
-// Bound on the H100: at prefill sizes (S ~ 1k, D 64/128) attention is
-// compute-bound. This first version runs the two inner products on the f32
-// CUDA cores (no tensor cores): each 256-thread block owns a 64-row q tile of
-// one (batch, head) and sweeps 64-row kv tiles staged in shared memory; every
-// thread computes a 4x4 block of scores and a 4 x D/16 block of the output
-// from float4 shared-memory reads, so the FMA pipe, not shared-memory
-// bandwidth, is the limit. Tiles wholly above the diagonal are never
-// visited. GQA: head h reads kv head h / (H / Hkv) directly, with no repeat.
-// wgmma, TMA and a pipelined ring of kv tiles are for later versions.
+// Bound on the H100: at prefill and training sizes (S ~ 1k, D 64/128)
+// attention does 4 D flops per live (query, key) pair against 4 D bytes of
+// q, k, v and o per row, so it is compute-bound in bf16 from D 128 (the
+// 0.77B llama's bf16 B8 H16/8 S1024 causal: 34.4 GFLOP, 0.035 ms at
+// 989 TFLOP/s against 0.030 ms for its bytes) and close to balanced at
+// D 64. Two bodies, chosen by dtype:
 //
-// The same kernel body, with the block-sparse schedule of flash_tiles.cuh
-// in place of the dense causal range, replaces A5 _bsp_fwd_call
+// bf16: the tensor cores (flash_fwd_wgmma_kernel). Both products are wgmma:
+// S = Q K^T (m64n64k16, Q and K from shared memory) and O += P V
+// (m64nDk16, P from registers, V from shared memory as the MN-major B with
+// the transpose bit). The f32 accumulator fragment of S, after the online
+// softmax, is packed into bf16 pairs in registers and is the A fragment of
+// the second product, one k16 slice at a time: P never touches shared
+// memory. Rounding P to bf16 for P.V is A1's own rounding (p.astype(v's
+// dtype), f32 accumulation); m, l and O stay f32 in registers, l sums the
+// unrounded p. The block is warp-specialised: one thread of a producer
+// warpgroup issues TMA copies (3-D tensor maps (D, S, B*H) with the
+// 128-byte swizzle the wgmma descriptors name; rows past S arrive as
+// zeros) of the q tiles and of K/V tiles into a ring of kStages stages
+// completed on mbarriers, so the next tiles' copies overlap the current
+// tile's products; consumer warpgroups of 64 q rows each run the products
+// and the softmax, with setmaxnreg moving the producer's registers to
+// them. Two consumers a block (128 q rows), so each K/V tile read from L2
+// serves 128 rows; block-sparse, both tiles lie in one user q tile (the
+// same kv walk), and where it has fewer the second has no rows. The
+// producer loads the union of the consumers' tiles; each consumer
+// computes on its own and releases every stage. The causal mask is applied only on the tiles that cross the
+// diagonal or the tile's column end; exp2 is the special-function unit's
+// ex2.approx alone (16 results a clock an SM: half the tensor cores' time
+// per score at D 128, all of it at D 64).
+//
+// f32: the CUDA cores (flash_fwd_kernel), on purpose. A TF32 product keeps
+// about three decimal digits and would break the f32 exactness the port's
+// f32 paths hold against their plain versions (atol 2e-5, rtol 1e-4); at
+// D 64 the f32 kernel is already faster than SDPA. Each 256-thread block
+// owns a 64-row q tile of one (batch, head) and sweeps 64-row kv tiles
+// staged in shared memory; every thread computes a 4x4 block of scores and
+// a 4 x D/16 block of the output from float4 shared-memory reads.
+//
+// Both: tiles wholly above the diagonal are never visited; GQA reads kv
+// head h / (H / Hkv) directly, with no repeat.
+//
+// The same kernel bodies, with the block-sparse schedule of flash_tiles.cuh
+// in place of the dense causal range, replace A5 _bsp_fwd_call
 // (block-sparse forward over build_block_schedule's kv_ids and counts):
-// a block owns 64 rows of one user q tile and visits the kernel tiles of
-// that tile's active kv tiles, with the JAX kernels' finite mask value.
+// a 64-row kernel tile lies in one user q tile and visits the kernel tiles
+// of that tile's active kv tiles, with the JAX kernels' finite mask value.
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace cubecl {
 namespace {
@@ -227,19 +260,376 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// the four (dtype, head_dim) instances of one schedule
+// -- the bf16 body: wgmma fed by TMA, warp-specialised ---------------------
+
+constexpr int kStages = 3;        // K/V stages of the ring
+constexpr int kPanel = 64 * 128;  // one 64-row x 64-column bf16 panel, bytes
+constexpr int NC = 2;             // consumer warpgroups (64 q rows each)
+constexpr int kWgThreads = 128 * (NC + 1);
+
+// dynamic shared memory of the bf16 body: NC q tiles, then the K and V
+// rings, each tile D / 64 panels; then the mbarriers (the q tiles', and
+// each stage's full and empty); plus the slack to align the base to 1024
+template <int D>
+struct WgSmem {
+  static constexpr int kTile = D / 64 * kPanel;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + NC * kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ o, float* __restrict__ lse, int H,
+                       int Hkv, int Sq, float scale_log2, int causal,
+                       Tiles tiles) {
+  static_assert(sizeof(T) == 2, "the wgmma body takes 16-bit inputs");
+  using L = WgSmem<D>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  // the block's NC kernel q tiles, one per consumer warpgroup; a tile at or
+  // past its r_end has no rows (the grid's padding)
+  int r0[NC], r_end[NC], count[NC];
+  int n_tiles = 0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    tiles.own(blockIdx.x * NC + c, gridDim.x * NC, r0[c], r_end[c]);
+    count[c] = r0[c] < r_end[c] ? tiles.count(r0[c]) : 0;
+    n_tiles = max(n_tiles, count[c]);
+  }
+  // does the consumer of rows [q0, q_end) and n tiles compute on tile t
+  // (its columns [c0, c_end))?
+  auto visits = [&](int q0, int q_end, int n, int t, int& c0, int& c_end) {
+    return t < n && tiles.visit(t, q0, q_end, c0, c_end);
+  };
+  // the tiles the block loads: the union of its consumers' tiles, walked in
+  // the same order by the producer and by every consumer
+  auto loaded = [&](int t, int& c0, int& c_end) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      any |= visits(r0[c], r_end[c], count[c], t, c0, c_end);
+    return any;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: one thread issues every copy -----------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(&tq);
+    tma_prefetch_map(&tk);
+    tma_prefetch_map(&tv);
+    mbar_expect_tx(q_full, NC * L::kTile);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p)
+        tma_load_3d(smem + L::kQ + c * L::kTile + p * kPanel, &tq, q_full,
+                    p * 64, r0[c], b * H + h);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      int c0 = 0, c_end = 0;
+      if (!loaded(t, c0, c_end)) continue;
+      mbar_wait(&empty[st], phase ^ 1);  // the first round passes at once
+      mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(smem + L::kK + st * L::kTile + p * kPanel, &tk, &full[st],
+                    p * 64, c0, b * Hkv + hk);
+        tma_load_3d(smem + L::kV + st * L::kTile + p * kPanel, &tv, &full[st],
+                    p * 64, c0, b * Hkv + hk);
+      }
+      if (++st == kStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup c owns 64 q rows --------------------------------
+  setmaxnreg_inc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  int q0 = r0[0], q_end = r_end[0], n_own = count[0];
+#pragma unroll
+  for (int cc = 1; cc < NC; ++cc)
+    if (cc == c) {
+      q0 = r0[cc];
+      q_end = r_end[cc];
+      n_own = count[cc];
+    }
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows of the m64nN accumulator: row_a and row_a + 8; its
+  // columns 8 j + col_l + {0, 1}
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+
+  float acc[D / 2];  // O, (64 x D) f32
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+
+  const uint32_t q_s = smem_addr(smem + L::kQ + c * L::kTile);
+  uint64_t dq[D / 16];  // Q's descriptors, k16 steps, 4 to a 128-byte panel
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    dq[kk] = sw128_desc(q_s + (kk / 4) * kPanel + (kk % 4) * 32, 16, 1024);
+
+  mbar_wait(q_full, 0);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    int c0 = 0, c_end = 0;
+    if (!loaded(t, c0, c_end)) continue;
+    mbar_wait(&full[st], phase);
+    if (visits(q0, q_end, n_own, t, c0, c_end)) {
+      // S = Q K^T over D in k16 steps (the first overwrites s)
+      const uint32_t k_s = smem_addr(smem + L::kK + st * L::kTile);
+      float s[32];
+      uint64_t dk[D / 16];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        dk[kk] = sw128_desc(k_s + (kk / 4) * kPanel + (kk % 4) * 32, 16,
+                            1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64(s, dq[kk], dk[kk], kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(s);
+
+      // online softmax, base 2; a row's 64 columns live in 4 lanes
+      const bool edge =
+          c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row_a + 8 * i;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * i + e];
+            if (edge) {
+              const int col = c0 + 8 * j + col_l + e;
+              const bool ok = col < c_end && (!causal || col <= row);
+              if constexpr (Tiles::kSparse)  // causal: the finite mask value
+                x = ok ? x * scale_log2
+                       : (col < c_end ? kMaskValue : -INFINITY);
+              else
+                x = ok ? x * scale_log2 : -INFINITY;
+            } else {
+              x *= scale_log2;
+            }
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[i], mx);
+        // a row with nothing live yet keeps p = 0 instead of exp2(nan)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2_approx(m_i[i] - m_use);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * i + e];
+            x = exp2_approx(x - m_use);
+            rs += x;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l_i[i] = l_i[i] * alpha + rs;
+        m_i[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 2 * i] *= alpha;
+          acc[4 * j + 2 * i + 1] *= alpha;
+        }
+      }
+
+      // O += P V over the tile's 64 columns in k16 steps: the accumulator
+      // of S for columns 16 kk.. is, in bf16 pairs, the A fragment (all
+      // operands ready before the fence, none written while the products
+      // run)
+      const uint32_t v_s = smem_addr(smem + L::kV + st * L::kTile);
+      uint32_t pa[4][4];
+      uint64_t dv[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        dv[kk] = sw128_desc(v_s + kk * 2048, kPanel, 1024);
+      }
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_m64n128(acc, pa[kk], dv[kk]);
+        else
+          wgmma_rs_m64n64(acc, pa[kk], dv[kk]);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
+    if (++st == kStages) {
+      st = 0;
+      phase ^= 1;
+    }
+  }
+
+  T* op = o + ((int64_t)b * H + h) * Sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= q_end) continue;
+    const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
+    // a row with nothing live gets lse 0, finite
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((int64_t)b * H + h) * Sq + row] =
+          l_i[i] == 0.f ? 0.f : m_i[i] + log2f(l_i[i]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + (int64_t)row * D + 8 * j +
+                                         col_l) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                acc[4 * j + 2 * i + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (n, S, D) bf16 array as a 3-D tensor map of 64 x 64 boxes, 128-byte
+// swizzle; rows past S (and whole boxes past it) read as zeros
+cudaError_t rows_map(CUtensorMap* map, const void* base, int D, int S, int n) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, typename Tiles>
+cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v,
+                               void* o, float* lse, int B, int H, int Hkv,
+                               int Sq, int Skv, float scale_log2, int causal,
+                               int blocks, Tiles tiles, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  constexpr int smem = WgSmem<D>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<T, D, Tiles>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  // the maps are kernel parameters (__grid_constant__), encoded per call:
+  // a captured CUDA graph keeps them with the launch
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = rows_map(&tq, q, D, Sq, B * H);
+  // no keys: no tile is visited, the maps only have to be valid
+  if (e == cudaSuccess)
+    e = Skv > 0 ? rows_map(&tk, k, D, Skv, B * Hkv)
+                : rows_map(&tk, q, D, Sq, 1);
+  if (e == cudaSuccess)
+    e = Skv > 0 ? rows_map(&tv, v, D, Skv, B * Hkv)
+                : rows_map(&tv, q, D, Sq, 1);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, H, B);
+  flash_fwd_wgmma_kernel<T, D, Tiles><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), lse, H, Hkv, Sq, scale_log2, causal,
+      tiles);
+  return cudaGetLastError();
+}
+
+// the f32 instances of one schedule (the CUDA-core body, 64-row blocks)
 template <typename Tiles>
-int launch_flash_any(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int dtype, int B, int H, int Hkv, int Sq,
-                     int Skv, int D, float scale_log2, int causal, int blocks,
-                     Tiles tiles, cudaStream_t st) {
-#define CUBECL_FLASH(T, HD)                                                   \
-  launch_flash<T, HD, Tiles>(q, k, v, o, lse, B, H, Hkv, Sq, Skv, scale_log2, \
-                             causal, blocks, tiles, st)
-  if (dtype == kF32 && D == 64) return CUBECL_FLASH(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_FLASH(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_FLASH(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_FLASH(__nv_bfloat16, 128);
+int launch_f32_any(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int Hkv, int Sq, int Skv, int D,
+                   float scale_log2, int causal, int blocks, Tiles tiles,
+                   cudaStream_t st) {
+#define CUBECL_FLASH(HD)                                                     \
+  launch_flash<float, HD, Tiles>(q, k, v, o, lse, B, H, Hkv, Sq, Skv,        \
+                                 scale_log2, causal, blocks, tiles, st)
+  if (D == 64) return CUBECL_FLASH(64);
+  if (D == 128) return CUBECL_FLASH(128);
+#undef CUBECL_FLASH
+  return cudaErrorInvalidValue;
+}
+
+// the bf16 instances of one schedule (the wgmma body, NC 64-row tiles to a
+// block; `tiles` counts the launch's tiles so)
+template <typename Tiles>
+int launch_bf16_any(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int H, int Hkv, int Sq, int Skv, int D,
+                    float scale_log2, int causal, int blocks, Tiles tiles,
+                    cudaStream_t st) {
+#define CUBECL_FLASH(HD)                                                     \
+  launch_flash_wgmma<HD, Tiles>(q, k, v, o, lse, B, H, Hkv, Sq, Skv,         \
+                                    scale_log2, causal, blocks, tiles, st)
+  if (D == 64) return CUBECL_FLASH(64);
+  if (D == 128) return CUBECL_FLASH(128);
 #undef CUBECL_FLASH
   return cudaErrorInvalidValue;
 }
@@ -260,10 +650,16 @@ extern "C" int cubecl_flash_fwd(const void* q, const void* k, const void* v,
                                 int Hkv, int Sq, int Skv, int D,
                                 float scale_log2, int causal, void* stream) {
   using namespace cubecl;
-  return launch_flash_any(q, k, v, o, lse, dtype, B, H, Hkv, Sq, Skv, D,
-                          scale_log2, causal, (Sq + BM - 1) / BM,
-                          DenseQTiles{Sq, Skv, causal},
-                          static_cast<cudaStream_t>(stream));
+  const DenseQTiles tiles{Sq, Skv, causal};
+  const int n = (Sq + BM - 1) / BM;  // 64-row kernel tiles
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)  // NC to a block
+    return launch_bf16_any(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D,
+                           scale_log2, causal, (n + NC - 1) / NC, tiles, st);
+  if (dtype == kF32)
+    return launch_f32_any(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, scale_log2,
+                          causal, n, tiles, st);
+  return cudaErrorInvalidValue;
 }
 
 // A5, the block-sparse forward: q, k, v, o (B, H, S, D), one head count;
@@ -280,9 +676,22 @@ extern "C" int cubecl_flash_bsp_fwd(const void* q, const void* k,
   using namespace cubecl;
   const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
   const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    // NC kernel tiles of one user tile to a block, never two user tiles
+    // (their kv walks differ): where NC does not divide q_sub, the last
+    // block's later tiles have no rows
+    const int slots = (q_sub + NC - 1) / NC * NC;
+    const SparseQTiles tiles{ids, counts, stride, bq, bk, slots, k_sub,
+                             causal, /*keep_f9=*/1, 0};
+    return launch_bf16_any(q, k, v, o, lse, B, H, H, Sq, Skv, D, scale_log2,
+                           causal, (Sq / bq) * slots / NC, tiles, st);
+  }
   const SparseQTiles tiles{ids, counts, stride, bq, bk, q_sub, k_sub,
                            causal, /*keep_f9=*/1, 0};
-  return launch_flash_any(q, k, v, o, lse, dtype, B, H, H, Sq, Skv, D,
-                          scale_log2, causal, (Sq / bq) * q_sub, tiles,
-                          static_cast<cudaStream_t>(stream));
+  const int blocks = (Sq / bq) * q_sub;
+  if (dtype == kF32)
+    return launch_f32_any(q, k, v, o, lse, B, H, H, Sq, Skv, D, scale_log2,
+                          causal, blocks, tiles, st);
+  return cudaErrorInvalidValue;
 }

@@ -8,6 +8,9 @@
 // A schedule is a small struct passed by value to the kernel:
 //   own(r0, r_end)          the block's 64 rows start at r0; rows at or past
 //                           r_end are neither read nor written
+//   own(i, n, r0, r_end)    the same for the i-th of the launch's n kernel
+//                           tiles, where a block owns several (the bf16
+//                           forward: one per consumer warpgroup)
 //   count(r0)               how many tiles the block visits
 //   visit(t, r0, r_end, ..) the t-th tile's first row c0 and its end c_end
 //                           (rows at or past it are masked as absent);
@@ -49,8 +52,12 @@ struct DenseQTiles {
   static constexpr bool kSparse = false;
   int Sq, Skv, causal;
   __device__ __forceinline__ void own(int& r0, int& r_end) {
+    own(blockIdx.x, gridDim.x, r0, r_end);
+  }
+  // the i-th of the launch's n kernel tiles (a block may own several)
+  __device__ __forceinline__ void own(int i, int n, int& r0, int& r_end) {
     // the causal tiles near the bottom do the most work: schedule them first
-    r0 = (gridDim.x - 1 - blockIdx.x) * kFlashTile;
+    r0 = (n - 1 - i) * kFlashTile;
     r_end = Sq;
   }
   __device__ __forceinline__ int count(int r0) const {
@@ -71,13 +78,21 @@ struct SparseQTiles {
   const int* ids;     // (n_q, stride): the active kv tiles of each q tile
   const int* counts;  // (n_q,)
   int stride, bq, bk;
-  int q_sub, k_sub;   // kernel tiles per user q tile, per user kv tile
+  // kernel tiles per user q tile (ceil(bq / 64), or more where a block owns
+  // several: a tile at or past the user tile's end has no rows), per user
+  // kv tile
+  int q_sub, k_sub;
   int causal;
   int keep_f9;        // the forward: never skip a tile a fully masked row sees
   int ti;             // the block's user q tile, set by own()
   __device__ __forceinline__ void own(int& r0, int& r_end) {
-    ti = blockIdx.x / q_sub;
-    r0 = ti * bq + (blockIdx.x % q_sub) * kFlashTile;
+    own(blockIdx.x, gridDim.x, r0, r_end);
+  }
+  // the i-th kernel tile of the launch (a block may own several of one
+  // user tile)
+  __device__ __forceinline__ void own(int i, int n, int& r0, int& r_end) {
+    ti = i / q_sub;
+    r0 = ti * bq + (i % q_sub) * kFlashTile;
     r_end = (ti + 1) * bq;
   }
   __device__ __forceinline__ int count(int r0) const {

@@ -20,7 +20,12 @@ On CUDA tensors every half is a hand-written kernel (f32 or bf16, D in
 ``csrc/flash_attention.cu``, which replaces the TPU kernels A1
 ``_fwd_call``, A2 ``_fwd_call_tri`` and A8 ``_fwd_call_packed``, and the
 dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu``, which replace A3
-``_bwd_dkv_call`` and A4 ``_bwd_dq_call``. On CPU tensors the same Function
+``_bwd_dkv_call`` and A4 ``_bwd_dq_call``. The forward has two bodies: bf16
+runs both products on the tensor cores (``wgmma`` fed by TMA copies) and
+rounds the probabilities to bf16 for the P.V product, as the JAX forward
+does; f32 runs on the CUDA cores, because a TF32 product would not hold
+f32's exactness against the plain version. The backward kernels run on
+the CUDA cores in both dtypes. On CPU tensors the same Function
 runs the plain PyTorch versions, ``flash_attention_plain`` and
 ``flash_attention_backward_plain``, which are also the kernels' references
 on the card. Each wrapper counts its launches (``flash_attention.launches``
@@ -173,7 +178,8 @@ def _stream(q):
 
 
 def _flash_forward(q, k, v, causal, sm_scale, need_lse):
-    """The forward kernel: o and, with ``need_lse``, the base-2 lse."""
+    """The forward kernel (bf16: the tensor-core body; f32: the CUDA-core
+    body): o and, with ``need_lse``, the base-2 lse."""
     q, k, v = _kernel_inputs("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -494,7 +500,9 @@ def _bsp_inputs(what, q, k, v, *more):
 
 def bsp_forward(q, k, v, sched: _Schedule, causal, scale, bq, bk,
                 need_lse: bool):
-    """A5 on CUDA tensors: o and, with ``need_lse``, the base-2 lse."""
+    """A5 on CUDA tensors (the forward's bodies on the block-sparse
+    schedule, bf16 on the tensor cores): o and, with ``need_lse``, the
+    base-2 lse."""
     q, k, v = _bsp_inputs("flash_attention_block_sparse", q, k, v)
     B, H, Sq, D = q.shape
     o = torch.empty_like(q)

@@ -59,11 +59,20 @@ def _close(got, ref):
                                rtol=rtol)
 
 
+# sequence lengths around the kernels' 64-row tiles (the bf16 body's
+# 128-row blocks, TMA's zero-filled rows past S), a ragged one and the
+# training length
+FLASH_S = [1, 63, 64, 65, 77, 127, 128, 200, 1021]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [1, 77, 200])
+@pytest.mark.parametrize("S", FLASH_S)
 def test_flash_kernel_matches_plain(dev, dtype, D, causal, S):
+    """o, and the forward's lse, against the plain version: bf16 runs the
+    tensor-core body (P rounded to bf16, inside the bf16 tolerance), f32
+    the CUDA-core one."""
     g = torch.Generator(device=dev).manual_seed(S + D)
     q = torch.randn(2, 6, S, D, generator=g, device=dev).to(dtype)
     k = torch.randn(2, 2, S, D, generator=g, device=dev).to(dtype)
@@ -73,6 +82,51 @@ def test_flash_kernel_matches_plain(dev, dtype, D, causal, S):
     torch.cuda.synchronize()
     assert flash_attention.launches == n + 1
     _close(got, flash_attention_plain(q, k, v, causal))
+    o, lse = fa._flash_forward(q, k, v, causal, None, True)
+    assert torch.equal(o, got)
+    _, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Skv", [(200, 200), (40, 72), (100, 37),
+                                    (130, 300)])
+def test_flash_kernel_gqa_and_cross_lengths(dev, dtype, D, G, causal, Sq,
+                                            Skv):
+    """GQA groups of 1, 2 and 8 query heads a kv head, and Sq != Skv
+    (causal: col <= row in absolute positions): o and lse against plain."""
+    g = torch.Generator(device=dev).manual_seed(Sq * Skv + G)
+    q = torch.randn(2, 8, Sq, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 8 // G, Skv, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 8 // G, Skv, D, generator=g, device=dev).to(dtype)
+    n = flash_attention.launches
+    o, lse = fa._flash_forward(q, k, v, causal, None, True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
+    _close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+
+
+def test_flash_f32_keeps_the_cuda_core_body(dev):
+    """The f32 instances are the CUDA-core body on purpose (a TF32 product
+    keeps about three decimal digits): causal S 200 holds f32's tolerance,
+    o and lse."""
+    g = torch.Generator(device=dev).manual_seed(200)
+    q = torch.randn(2, 6, 200, 128, generator=g, device=dev)
+    k = torch.randn(2, 2, 200, 128, generator=g, device=dev)
+    v = torch.randn(2, 2, 200, 128, generator=g, device=dev)
+    n = flash_attention.launches
+    o, lse = fa._flash_forward(q, k, v, True, None, True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    o_ref, lse_ref = flash_attention_plain(q, k, v, True, return_lse=True)
+    torch.testing.assert_close(o, o_ref, atol=TOL[torch.float32][0],
+                               rtol=TOL[torch.float32][1])
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -199,7 +253,7 @@ def test_generate_framework_kernels_match_plain(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [1, 77, 200])
+@pytest.mark.parametrize("S", FLASH_S)
 def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, S):
     """dq, dk, dv of the autograd Function (forward kernel with lse, dK/dV
     and dQ kernels) against flash_attention_backward_plain on the kernel's
