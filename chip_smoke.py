@@ -12,8 +12,9 @@ checks smaller f32 configs end to end against the plain versions.
     python3 chip_smoke.py          # from the repository root; one card
 
 Phases (lines before the last): 1 device, 2 build (failing unless every
-bf16 flash forward instance, dense and block-sparse at D 64 and 128,
-issues wgmma: HGMMA in ``cuobjdump -sass``), 3 flash vs plain (with
+bf16 instance of the flash forward, dK/dV and dQ kernels, dense and
+block-sparse at D 64 and 128, issues wgmma: HGMMA in ``cuobjdump -sass``;
+their registers and spills), 3 flash vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
 bf16 D 64 at GPT-2's widths), 4 paged vs plain, 5 serve at full width, 6 serve exactness; then K0:
 a the DSL kernels at BASELINE sizes, and RMSNorm at every shape phases b
@@ -21,8 +22,13 @@ and c give it, against the torch evaluator on the card and a plain
 formula, b serve at full width with RMSNorm through K0
 (``use_framework_kernels=True``), c serve exactness with it (which fails
 if b or c launched a K0 kernel that phase a did not check). Then
-training: d the flash backward kernels (dK/dV, dQ) and the forward's lse
-against the plain backward, e the K0 backward kernels (and the forwards
+training: d the flash backward kernels (dK/dV, dQ; bf16 on the tensor
+cores) and the forward's lse against the plain backward that rounds p
+and dS to bf16 as the kernels do and the exact one (``EXACT_BWD_TOL``),
+two calls bit-identical, their TFLOP/s, at the llama's widths, GPT-2's
+(head_dim 64) and with 8 query heads a kv head, and bf16 over the card
+tests' grid of lengths, kv groups and head dims, e the K0
+backward kernels (and the forwards
 at the train shapes) against the torch evaluator and plain formulas, and
 the Functions' dg/db against plain autograd, f train llama 0.77B bf16 at
 B 8 x S 1024 (ms/step, peak memory, launches per step, a profiled step,
@@ -182,6 +188,36 @@ def compare(got, ref, what, tol=None):
     return err.max().item()
 
 
+# The flash backward kernels round p and dS to the inputs' dtype for their
+# products, as the JAX kernels do, and are held at TOL to the plain backward
+# that rounds so. Against the exact plain backward the rounding alone can
+# pass TOL in bf16 (dv under GQA: a kv head sums several heads' rounded p),
+# so there they are held to this fixed bound, set above the largest atol
+# that phase d's sweep reads (PERF.md); in f32 the rounding is the identity.
+EXACT_BWD_TOL = {torch.float32: TOL[torch.float32],
+                 torch.bfloat16: (2e-2, 1e-2)}
+
+
+def atol_needed(got, ref, rtol):
+    """The least atol with |got - ref| <= atol + rtol * |ref| everywhere."""
+    g, r = got.float(), ref.float()
+    return max(((g - r).abs() - rtol * r.abs()).max().item(), 0.0)
+
+
+def compare_bwd(got, rounded, exact, what):
+    """A gradient of the flash backward kernels: within TOL of the plain
+    backward that rounds p and dS as the kernels do (``rounded``), and
+    within EXACT_BWD_TOL of the exact one. Returns the max abs errors
+    against ``rounded`` and ``exact``, and the atol (at EXACT_BWD_TOL's
+    rtol) that the kernel and the rounding plain version each need against
+    the exact one."""
+    err_r = compare(got, rounded, f"{what} against the rounding plain")
+    tol = EXACT_BWD_TOL[exact.dtype]
+    err = compare(got, exact, f"{what} against the exact plain", tol)
+    return err_r, err, (atol_needed(got, exact, tol[1]),
+                        atol_needed(rounded, exact, tol[1]))
+
+
 def kernel_name(mangled):
     """A compiled csrc kernel's readable name: kernel<dtype, D, ...>."""
     k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)"
@@ -212,33 +248,37 @@ def ptxas_summary(log):
     return out
 
 
-def flash_fwd_sass(nvcc, so, summary):
-    """Phase 2: the flash forward instances in the built library's SASS
-    (cuobjdump): (name, HGMMA count, registers, spill line) each. Fails
-    unless every bf16 instance issues wgmma (HGMMA) and the bf16 instances
-    cover D 64 and 128 on the dense and the block-sparse schedule."""
+def flash_sass(nvcc, so, summary):
+    """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
+    library's SASS (cuobjdump): (name, HGMMA count, registers, spill line)
+    each. Fails unless every bf16 instance of each of the three kernels
+    issues wgmma (HGMMA) and they cover D 64 and 128 on the dense and the
+    block-sparse schedule."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", so], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     regs = {n: (r, sp) for n, r, sp in summary}
-    rows, covered = [], set()
+    kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    rows, covered = [], {k: set() for k in kinds}
     for chunk in sass.split("Function : ")[1:]:
         mangled = chunk.split("\n", 1)[0].strip()
-        if "flash_fwd" not in mangled:
+        kind = next((k for k in kinds if k in mangled), None)
+        if kind is None:
             continue
         name = kernel_name(mangled)
         n = chunk.count("HGMMA")
         r, sp = regs.get(name, (None, "not in the ptxas log"))
         rows.append((name, n, r, sp))
-        if name.startswith("flash_fwd") and "<bf16" in name:
+        if "<bf16" in name:
             if n == 0:
                 fail(f"phase 2: {name} issues no HGMMA (wgmma)")
-            covered.add((re.search(r", (\d+)", name).group(1),
-                         "block-sparse" in name))
+            covered[kind].add((re.search(r", (\d+)", name).group(1),
+                               "block-sparse" in name))
     want = {(d, sp) for d in ("64", "128") for sp in (False, True)}
-    if covered != want:
-        fail(f"phase 2: bf16 flash forward instances with HGMMA cover "
-             f"{sorted(covered)}, want {sorted(want)}")
+    for kind, got in covered.items():
+        if got != want:
+            fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
+                 f"{sorted(got)}, want {sorted(want)}")
     return rows
 
 
@@ -265,11 +305,25 @@ K0_TRAIN_SHAPES = [((8, 1023, 2048), torch.bfloat16, "rmsnorm"),   # f
                    ((4, 384, 768), torch.float32, "rmsnorm"),      # g
                    ((8, 1024, 768), torch.bfloat16, "layernorm"),  # h
                    ((8, 1024, 3072), torch.bfloat16, "gelu")]      # h
-# phase d: (name, B, H, Hkv, S, D, dtype, causal)
+# phase d: (name, B, H, Hkv, S, D, dtype, causal); "gpt2" is phase h's
+# attention (head_dim 64)
 FLASH_BWD_CASES = [("train", 8, 16, 8, 1023, 128, torch.bfloat16, True),
                    ("d768", 2, 12, 4, 384, 64, torch.float32, True),
                    ("ragged", 2, 16, 8, 1021, 128, torch.bfloat16, True),
-                   ("non-causal", 2, 8, 8, 512, 64, torch.bfloat16, False)]
+                   ("non-causal", 2, 8, 8, 512, 64, torch.bfloat16, False),
+                   ("gpt2", 8, 12, 12, 1024, 64, torch.bfloat16, True),
+                   ("gqa8", 2, 8, 1, 1021, 128, torch.bfloat16, True)]
+# phase d's sweep: the card tests' lengths around the 64-row tiles (the
+# bf16 bodies' 128-row blocks, rows past S), a ragged one and the training
+# length
+BWD_SWEEP_S = [1, 63, 64, 65, 77, 127, 128, 200, 1021]
+# The flash backward's numbers before its bf16 bodies ran on the tensor
+# cores (both dtypes on the CUDA cores), taken by this script on an H100
+# 80GB HBM3 at 700 W: ms of A3 and A4 at phase d's "train" row, of A6 and
+# A7 at phase x's main shape, and phase f's and h's ms/step. Printed
+# beside this run's.
+CUDA_CORE_BWD_MS = {"A3": 3.0899, "A4": 2.6739, "A6": 5.4057, "A7": 8.0546,
+                    "train llama": 221.44, "train transformer": 106.79}
 
 
 def compile_only(client):
@@ -736,17 +790,24 @@ def flash_backward(fa, dev, gen, card):
         di = (do.float() * o.float()).sum(-1)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
         dq = fa.flash_bwd_dq(q, k, v, do, lse, di, causal)
-        ref = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+        exact, rounded = (fa.flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal, round_p_ds=rnd)
+            for rnd in (False, True))
         torch.cuda.synchronize()
-        err = [compare(a, r, f"{what}: d{n}")
-               for n, a, r in zip("qkv", (dq, dk, dv), ref)]
+        err_r, err, need = zip(*(compare_bwd(a, r, e, f"{what}: d{n}")
+                                for n, a, r, e in zip("qkv", (dq, dk, dv),
+                                                      rounded, exact)))
+        again = (fa.flash_bwd_dq(q, k, v, do, lse, di, causal),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse, di, causal))
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            fail(f"{what}: a second call of the kernels differs")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         fa.flash_attention(*leaves, causal).backward(do)
         if not all(torch.equal(t.grad, a)
                    for t, a in zip(leaves, (dq, dk, dv))):
             fail(f"{what}: the autograd Function's grads are not the "
                  "kernels'")
-        del ref, leaves
+        del exact, rounded, leaves
         fwd_ms = cuda_ms(lambda: fa._flash_forward(q, k, v, causal, None,
                                                    True))
         dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di,
@@ -758,22 +819,86 @@ def flash_backward(fa, dev, gen, card):
         lib_ms = cuda_ms(grad_call(
             lambda q, k, v: TF.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), (q, k, v), do))
-        print(f"phase d {what}: max abs err o {err_o}, lse {err_lse}, dq "
-              f"{err[0]}, dk {err[1]}, dv {err[2]} (atol/rtol {TOL[dt]}; "
-              f"lse {TOL[torch.float32]}); kernels: forward with lse "
-              f"{fwd_ms:.4f} ms, dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} ms; "
-              f"plain backward {plain_ms:.4f} ms, SDPA's backward "
-              f"{lib_ms:.4f} ms [{card}]", flush=True)
+        # the kernels' own products: s, dP, dV, dK (dK/dV) and s, dP, dQ
+        pair_flops = 2 * D * B * H * (S * (S + 1) // 2 if causal else S * S)
+        tf = {"dK/dV": 4 * pair_flops / dkv_ms / 1e9,
+              "dQ": 3 * pair_flops / dq_ms / 1e9,
+              "both": 7 * pair_flops / (dkv_ms + dq_ms) / 1e9}
+        was = (f" (on the CUDA cores, a constant of this script from an "
+               f"earlier run: dK/dV {CUDA_CORE_BWD_MS['A3']:.4f}, dQ "
+               f"{CUDA_CORE_BWD_MS['A4']:.4f} ms)" if name == "train"
+               else "")
+        print(f"phase d {what}: max abs err o {err_o}, lse {err_lse} "
+              f"(atol/rtol {TOL[dt]}; lse {TOL[torch.float32]}); against "
+              f"the plain backward that rounds p and dS as the kernels do: "
+              f"dq {err_r[0]}, dk {err_r[1]}, dv {err_r[2]} (atol/rtol "
+              f"{TOL[dt]}); against the exact plain backward: dq {err[0]}, "
+              f"dk {err[1]}, dv {err[2]} (atol/rtol {EXACT_BWD_TOL[dt]}; "
+              f"the atol each needs there at that rtol, kernel and "
+              f"rounding plain: dq {need[0]}, dk {need[1]}, dv {need[2]}); "
+              f"two calls bit-identical; kernels: forward with "
+              f"lse {fwd_ms:.4f} ms, dK/dV {dkv_ms:.4f} ms, dQ {dq_ms:.4f} "
+              f"ms{was}; TFLOP/s dK/dV {tf['dK/dV']:.1f}, dQ {tf['dQ']:.1f},"
+              f" both {tf['both']:.1f}; plain backward {plain_ms:.4f} ms, "
+              f"SDPA's backward {lib_ms:.4f} ms [{card}]", flush=True)
         lse_bytes = 8 * B * H * S           # lse and di, f32
         elem = torch.finfo(dt).bits // 8
         rows[name] = dict(
-            dq_err=err[0], dkv_err=max(err[1:]), fwd_ms=fwd_ms,
+            dq_err=err[0], dkv_err=max(err[1:]), dq_err_rounded=err_r[0],
+            dkv_err_rounded=max(err_r[1:]), atol_vs_exact=dict(
+                zip(("dq", "dk", "dv"), need)), fwd_ms=fwd_ms,
             dkv_ms=dkv_ms, dq_ms=dq_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            tflops=tf,
             dkv_bound=flash_bound(B, H, Hkv, S, S, D, dt, causal, 4,
                                   elem * D * 2 * B * Hkv * S + lse_bytes),
             dq_bound=flash_bound(B, H, Hkv, S, S, D, dt, causal, 3,
                                  elem * D * B * H * S + lse_bytes))
     return rows
+
+
+def flash_backward_sweep(fa, dev, gen, card):
+    """Phase d: the bf16 dK/dV and dQ kernels against both plain backwards
+    over the card tests' grid: B2 with 8 query heads in kv groups of 1, 2
+    and 8 and with 6 in groups of 3, every length of ``BWD_SWEEP_S``, D 64
+    and 128, causal or not. Prints the largest atol (at EXACT_BWD_TOL's
+    rtol) that the kernels and the rounding plain version need against the
+    exact plain backward, with the case."""
+    worst = {"kernels": (0.0, ""), "rounding plain": (0.0, "")}
+    dt = torch.bfloat16
+    for S in BWD_SWEEP_S:
+        for H, Hkv in ((8, 8), (8, 4), (8, 1), (6, 2)):
+            for D in (64, 128):
+                for causal in (True, False):
+                    q, do = (torch.randn(2, H, S, D, generator=gen,
+                                         device=dev).to(dt) for _ in range(2))
+                    k, v = (torch.randn(2, Hkv, S, D, generator=gen,
+                                        device=dev).to(dt) for _ in range(2))
+                    o, lse = fa._flash_forward(q, k, v, causal, None, True)
+                    di = (do.float() * o.float()).sum(-1)
+                    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
+                    dq = fa.flash_bwd_dq(q, k, v, do, lse, di, causal)
+                    exact, rounded = (fa.flash_attention_backward_plain(
+                        q, k, v, o, lse, do, causal, round_p_ds=rnd)
+                        for rnd in (False, True))
+                    case = (f"H{H}/{Hkv} S{S} D{D} "
+                            f"{'causal' if causal else 'non-causal'}")
+                    for n, a, r, e in zip("qkv", (dq, dk, dv), rounded,
+                                          exact):
+                        _, _, need = compare_bwd(
+                            a, r, e, f"phase d sweep {case}: d{n}")
+                        for who, x in zip(worst, need):
+                            if x > worst[who][0]:
+                                worst[who] = (x, f"d{n} {case}")
+    print(f"phase d sweep of the bf16 backward, {len(BWD_SWEEP_S) * 16} "
+          f"cases (B2, H 8/8, 8/4, 8/1, 6/2, S {BWD_SWEEP_S}, D 64 and "
+          f"128, causal or not): all within atol/rtol {TOL[dt]} of the "
+          f"rounding plain backward and {EXACT_BWD_TOL[dt]} of the exact "
+          f"one; largest atol needed against the exact one at rtol "
+          f"{EXACT_BWD_TOL[dt][1]}: kernels {worst['kernels'][0]} "
+          f"({worst['kernels'][1]}), rounding plain "
+          f"{worst['rounding plain'][0]} ({worst['rounding plain'][1]}) "
+          f"[{card}]", flush=True)
+    return worst
 
 
 def _reset_counts(fa, cu):
@@ -872,7 +997,10 @@ def train_llama(llama, fa, cu, dev, card):
           f"use_framework_kernels=True, no remat): B {B} x S {S} tokens, "
           f"SGD lr {TRAIN_LR}, {steps} steps on one batch: losses {losses}; "
           f"{ms:.2f} ms/step warm (median of steps 2-{steps}; step 1 "
-          f"{1e3 * secs[0]:.2f} ms), {B * (S - 1) / ms * 1e3:.0f} tok/s; "
+          f"{1e3 * secs[0]:.2f} ms; with the backward on the CUDA cores, "
+          f"a constant of this script from an earlier run, "
+          f"{CUDA_CORE_BWD_MS['train llama']} ms/step), "
+          f"{B * (S - 1) / ms * 1e3:.0f} tok/s; "
           f"peak memory {peak:.2f} GiB; launches per step "
           f"{ {k: v // steps for k, v in launches.items()} } [{card}]",
           flush=True)
@@ -984,7 +1112,10 @@ def train_transformer(fa, cu, dev, card):
           f"small widths: d768, 12 layers, 12 heads, d_ff 3072, vocab "
           f"50257): B {B} x S {cfg.seq - 1}, SGD lr {TRAIN_LR}, {steps} "
           f"steps on one batch: losses {losses}; {ms:.2f} ms/step warm "
-          f"(median of steps 2-{steps}), peak memory {peak:.2f} GiB; "
+          f"(median of steps 2-{steps}; with the backward on the CUDA "
+          f"cores, a constant of this script from an earlier run, "
+          f"{CUDA_CORE_BWD_MS['train transformer']} ms/step), peak memory "
+          f"{peak:.2f} GiB; "
           f"launches per step { {k: v // steps for k, v in launches.items()} }"
           f" [{card}]", flush=True)
     del model, step
@@ -3186,11 +3317,13 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
     di = (do.float() * o.float()).sum(-1)
     dq = fa.bsp_dq(q, k, v, do, lse, di, sched, causal, scale, bq_, bk_)
     dk, dv = fa.bsp_dkv(q, k, v, do, lse, di, sched, causal, scale, bq_, bk_)
-    ref = fa.flash_attention_block_sparse_backward_plain(
-        q, k, v, o, lse, do, bm, causal, None, bq, bk)
+    exact, rounded = (fa.flash_attention_block_sparse_backward_plain(
+        q, k, v, o, lse, do, bm, causal, None, bq, bk, round_p_ds=rnd)
+        for rnd in (False, True))
     torch.cuda.synchronize()
-    err = [compare(a, r, f"phase x {what}: d{n}")
-           for n, a, r in zip("qkv", (dq, dk, dv), ref)]
+    err_r, err, need = zip(*(compare_bwd(a, r, e, f"phase x {what}: d{n}")
+                             for n, a, r, e in zip("qkv", (dq, dk, dv),
+                                                   rounded, exact)))
     if not all(torch.equal(t.grad, a) for t, a in zip(leaves, (dq, dk, dv))):
         fail(f"phase x {what}: the autograd Function's grads are not the "
              "kernels'")
@@ -3209,7 +3342,8 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
             fail(f"phase x {what}: F9 rows have a non-zero dq")
         f9 = f"; F9 rows: o = mean of V over their columns ({e9}), dq = 0"
     row = dict(max_abs_err=max(err_o, *err), o_err=err_o, lse_err=err_lse,
-               dq_err=err[0], dkv_err=max(err[1:]), launches=launches,
+               dq_err=err[0], dkv_err=max(err[1:]), dq_err_rounded=err_r[0],
+               dkv_err_rounded=max(err_r[1:]), launches=launches,
                path_s=path_s, mask_tiles=int(pruned.sum()),
                empty_kv_tiles=len(empty))
     msg = ""
@@ -3245,18 +3379,25 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
         del el
         msg = (f"; live pairs a head {pairs}; A5 {row['fwd_ms']:.4f} ms "
                f"(bound {bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), A6 "
-               f"{row['dq_ms']:.4f} ms (bound {bounds['dq'][0]:.4f}), A7 "
-               f"{row['dkv_ms']:.4f} ms (bound {bounds['dkv'][0]:.4f}); "
+               f"{row['dq_ms']:.4f} ms (bound {bounds['dq'][0]:.4f}; on the "
+               f"CUDA cores, a constant from an earlier run, "
+               f"{CUDA_CORE_BWD_MS['A6']}), A7 {row['dkv_ms']:.4f} ms "
+               f"(bound {bounds['dkv'][0]:.4f}; on the CUDA cores, the same, "
+               f"{CUDA_CORE_BWD_MS['A7']}); "
                f"plain forward {row['plain_fwd_ms']:.4f} ms, backward "
                f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
                f"forward {row['library_fwd_ms']:.4f} ms, backward "
                f"{row['library_bwd_ms']:.4f} ms")
     print(f"phase x {what}: {int(pruned.sum())} live tiles, {len(empty)} kv "
           f"tiles attended by none; launches {launches}, forward + backward "
-          f"{path_s:.4f} s; max abs err o {err_o}, lse {err_lse}, dq "
-          f"{err[0]}, dk {err[1]}, dv {err[2]} (atol/rtol {TOL[dt]}){f9}"
+          f"{path_s:.4f} s; max abs err o {err_o}, lse {err_lse}; dq, dk, "
+          f"dv against the plain backward that rounds p and dS as the "
+          f"kernels do {err_r[0]}, {err_r[1]}, {err_r[2]} (atol/rtol "
+          f"{TOL[dt]}), against the exact one {err[0]}, {err[1]}, {err[2]} "
+          f"(atol/rtol {EXACT_BWD_TOL[dt]}; the atol each needs there, "
+          f"kernel and rounding plain: {need[0]}, {need[1]}, {need[2]}){f9}"
           f"{msg} [{card}]", flush=True)
-    del q, k, v, do, leaves, out, o, lse, dq, dk, dv, ref
+    del q, k, v, do, leaves, out, o, lse, dq, dk, dv, exact, rounded
     torch.cuda.empty_cache()
     return row
 
@@ -3290,7 +3431,9 @@ def block_sparse(fa, dev, gen, card):
     print("phase x dense instances of the shared tile bodies: " + "; ".join(
         f"{n} {t:.4f} ms" for n, t in dense.items())
         + f" (A1: bf16 B8 H16/8 S1024 D128 causal, {a1_tf:.1f} TFLOP/s; "
-        f"A3, A4: S1023) [{card}]", flush=True)
+        f"A3, A4: S1023, on the CUDA cores, constants from an earlier run, "
+        f"{CUDA_CORE_BWD_MS['A3']}, {CUDA_CORE_BWD_MS['A4']}) [{card}]",
+        flush=True)
     rows["dense_ms"] = dense
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
@@ -3521,8 +3664,8 @@ def main():
     gemm = [(r, s) for n, r, s in summary if "gemm_kernel" in n]
     spills = sorted({s for _, s in gemm if not s.startswith(
         "0 bytes stack frame, 0 bytes spill stores")})
-    sass_rows = flash_fwd_sass(native.find_nvcc(), build.path, summary)
-    print("phase 2 flash forward SASS (cuobjdump): " + "; ".join(
+    sass_rows = flash_sass(native.find_nvcc(), build.path, summary)
+    print("phase 2 flash SASS (cuobjdump): " + "; ".join(
         f"{n}: {h} HGMMA, {r} regs, {sp}" for n, h, r, sp in sass_rows),
         flush=True)
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
@@ -3687,6 +3830,7 @@ def main():
 
     # -- phase d: flash backward kernels vs plain ---------------------------
     bwd_rows = flash_backward(fa, dev, gen, card)
+    flash_backward_sweep(fa, dev, gen, card)
 
     # -- phase e: the K0 backward kernels at the train shapes ---------------
     e_rows = {c["name"]: run_case(c, cu, ev, card, "e") for c in train_cases}
@@ -3782,6 +3926,17 @@ def main():
                    r["library_ms"], **extra)
 
     train = bwd_rows["train"]
+
+    def bwd_other(what):  # phase d's other rows of one backward kernel
+        return {"other_shapes": {n: {
+            "max_abs_err": r[f"{what}_err"],
+            "max_abs_err_vs_rounding_plain": r[f"{what}_err_rounded"],
+            "ms": r[f"{what}_ms"], "bound_ms": r[f"{what}_bound"][0],
+            "bound_by": r[f"{what}_bound"][1],
+            "tflops": r["tflops"]["dK/dV" if what == "dkv" else "dQ"],
+            "library_ms": r["library_ms"],
+            "atol_vs_exact": r["atol_vs_exact"]}
+            for n, r in bwd_rows.items() if n != "train"}}
     sdpa_bwd = "the autograd backward of F.scaled_dot_product_attention " \
                "(dq, dk and dv together)"
     rms = next(r for r in k0_rows if r["name"] == "rmsnorm fwd bf16 8192x2048")
@@ -3894,7 +4049,10 @@ def main():
                  plain_ms=train["plain_ms"], bound_ms=train["dkv_bound"][0],
                  bound_by=train["dkv_bound"][1]), train["library_ms"],
             plain_ms_is="the whole plain backward (dq, dk, dv)",
-            library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal"),
+            library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal",
+            max_abs_err_vs_rounding_plain=train["dkv_err_rounded"],
+            atol_vs_exact=train["atol_vs_exact"],
+            tflops=train["tflops"]["dK/dV"], **bwd_other("dkv")),
         row("flash_attention_bwd_dq",
             "cubecl_tpu_torch/csrc/flash_attention_bwd.cu",
             "cubecl_tpu/ops/attention.py:660", f_launches["flash_bwd_dq"],
@@ -3902,7 +4060,10 @@ def main():
                  plain_ms=train["plain_ms"], bound_ms=train["dq_bound"][0],
                  bound_by=train["dq_bound"][1]), train["library_ms"],
             plain_ms_is="the whole plain backward (dq, dk, dv)",
-            library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal"),
+            library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal",
+            max_abs_err_vs_rounding_plain=train["dq_err_rounded"],
+            atol_vs_exact=train["atol_vs_exact"],
+            tflops=train["tflops"]["dQ"], **bwd_other("dq")),
         k0_row("_rmsnorm_bwd_k", e("_rmsnorm_bwd_k bf16 8x1023x2048"),
                8 * 1023 * 2048, 2, 3, 8,
                launches=f_launches["_rmsnorm_bwd_k"],

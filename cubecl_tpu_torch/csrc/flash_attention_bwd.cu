@@ -16,39 +16,79 @@
 //
 // The TPU grid carries the dK/dV (or dQ) accumulator across sequential grid
 // steps; here blocks run in parallel and in no order, so each block owns its
-// output tile and loops over the other side itself:
-//   dkv: one block per 64-row kv tile of one (batch, kv head). It loops over
-//        the H / Hkv query heads of the kv head's group and, for each, over
-//        the q tiles that can see the tile: under causal, from the tile that
-//        holds row k0 to the end (A3's triangular schedule as a loop bound).
-//        The group sum that JAX gets from the transpose of jnp.repeat happens
-//        in the block's registers: no atomics, a deterministic result.
-//        Blocks with small k0 have the most causal work and are scheduled
-//        first.
-//   dq:  one block per 64-row q tile of one (batch, head), looping over the
-//        kv tiles up to the diagonal; the bottom tiles (most work) go first.
-// Rows past Sq / Skv of a staged tile are zero-filled and never stored, so
-// any S works (the train shape is S = 1023); no padding to 128.
+// output rows and loops over the other side itself, as the JAX
+// decomposition does: two kernels, no atomics, a deterministic result.
+//   dkv: a block owns kv rows of one (batch, kv head). It loops over the
+//        H / Hkv query heads of the kv head's group and, for each, over the
+//        q tiles that can see its rows: under causal, from the tile that
+//        holds its first row to the end (A3's triangular schedule as a loop
+//        bound). The group sum that JAX gets from the transpose of
+//        jnp.repeat happens in the block's registers. Blocks with small k0
+//        have the most causal work and are scheduled first.
+//   dq:  a block owns q rows of one (batch, head), looping over the kv
+//        tiles up to the diagonal; the bottom tiles (most work) go first.
+// Rows past Sq / Skv of a tile are zero and never stored, so any S works
+// (the train shape is S = 1023); no padding to 128.
 //
-// Bound on the H100: like the forward, this first version is compute-bound
-// on the f32 CUDA cores (no tensor cores). 256 threads; every thread holds a
-// 4x4 block of s/p/dS and a 4 x D/16 block of each output accumulator, and
-// reads its operands as float4 from shared memory, where every tile is
-// staged in f32: q, dO and k, v transposed for the two score products, and
-// row-major where they are the right operand of a product. That is 210 KB
-// (dkv) and 178 KB (dq) of the 227 KB a block may have at D = 128.
+// Bound on the H100: dK/dV does four products of 2 D flops per live
+// (query, key) pair and dQ three, against 2-4 D bytes a row, so both are
+// compute-bound in bf16 (the 0.77B llama's bf16 B8 H16/8 S1023 causal:
+// 0.069 ms and 0.052 ms at 989 TFLOP/s). Two bodies, chosen by dtype:
 //
-// Rounding against the JAX kernels: A3/A4 feed p and dS to the MXU at the
-// storage dtype (attention.py:560-572); these kernels keep them in f32, so
-// in bf16 the two differ by that one rounding (as the forward differs by
-// the rounding of q * scale). Outputs are written once, in the inputs'
-// dtype, from f32 accumulators.
+// bf16: the tensor cores (flash_bwd_dkv_wgmma_kernel,
+// flash_bwd_dq_wgmma_kernel), warp-specialised as the bf16 forward
+// (flash_attention.cu): one thread of a producer warpgroup issues TMA
+// copies (128-byte-swizzled 64 x 64 boxes; rows past S arrive as zeros)
+// into a ring of kStages stages on mbarriers, and two consumer warpgroups
+// of 64 rows each run wgmma (setmaxnreg 24/240). The block's own rows sit
+// stationary in shared memory; the other side streams through the ring.
+//   dkv: K and V of the block's 128 kv rows stay; (q, dO) 64-row tiles
+//        stream, with their lse and di, which a second producer warp
+//        stages by plain loads (a TMA box cannot start at any row of a
+//        (B, H, Sq) f32 array when Sq * 4 is no multiple of 16). A consumer
+//        computes the TRANSPOSED scores s^T = K q^T and dP^T = V dO^T
+//        (both operands K-major in shared memory), so that p^T and dS^T,
+//        packed in bf16 pairs, are already the register A fragments of
+//        dV += p^T dO and dK += dS^T q (m64nDk16, dO and q as MN-major B
+//        with the transpose bit: one swizzled tile serves as K-major B of
+//        the score products and as MN-major B here). lse and di are
+//        indexed by the accumulator's column and read from shared memory.
+//        dK and dV (2 x D / 2 f32 registers a thread) stay in registers
+//        across the whole walk: at D 128 the consumer holds 128 of them
+//        beside s^T and dP^T (64), inside the 240 that setmaxnreg grants
+//        (hopper.cuh's mbar_wait says what kept ptxas from using them).
+//   dq:  q, dO, and each row's lse and di (in registers) stay; K and V
+//        stream. s = q K^T, dP = dO V^T (m64n64), then dQ += dS K with dS
+//        from registers and K as MN-major B.
+// Both consumers of a block walk the same tiles of the other side (the
+// union of their ranges, which differ by one tile under the causal mask):
+// each computes on its own and releases every stage, so the barrier phases
+// cannot drift; a wait of seconds traps. The mask is applied only on tiles
+// that cross the diagonal or an end of the rows, by selects (no branch per
+// element); exp2 is the special-function unit's ex2.approx. The role of a
+// warpgroup is taken through __shfl_sync, so that the compiler sees it
+// warp-uniform.
+// Rounding, as the JAX kernels: p and dS are fed to the products at the
+// storage dtype with f32 accumulation (p.astype(do.dtype) and
+// ds.astype(q.dtype) in _bwd_dkv_call / _bwd_dq_call); dS is computed from
+// the unrounded f32 p. Outputs are written once, in bf16, from f32
+// accumulators.
+//
+// f32: the CUDA cores (flash_bwd_dkv_kernel, flash_bwd_dq_kernel), on
+// purpose, as the f32 forward: a TF32 product keeps about three decimal
+// digits and would break f32's 2e-5/1e-4 against the plain version. 256
+// threads; every thread holds a 4x4 block of s/p/dS and a 4 x D/16 block
+// of each output accumulator, and reads its operands as float4 from shared
+// memory, where every tile is staged in f32: q, dO and k, v transposed for
+// the two score products, and row-major where they are the right operand
+// of a product. That is 210 KB (dkv) and 178 KB (dq) of the 227 KB a block
+// may have at D = 128.
 //
 // The same kernel bodies, with the block-sparse schedules of
 // flash_tiles.cuh in place of the dense causal ranges, replace
-//   A6 _bsp_dq_call  (dQ over the forward schedule: a block owns 64 rows of
+//   A6 _bsp_dq_call  (dQ over the forward schedule: a block owns rows of
 //                     one user q tile and visits its active kv tiles) and
-//   A7 _bsp_dkv_call (dK, dV over the transposed schedule: a block owns 64
+//   A7 _bsp_dkv_call (dK, dV over the transposed schedule: a block owns
 //                     rows of one user kv tile and visits the q tiles that
 //                     attend it; a kv tile no q tile attends has count 0 and
 //                     stores zeros).
@@ -59,9 +99,9 @@
 // its visited columns gets 1/n of the row's dO in dV, and dQ, dK nothing;
 // A6/A7 take p = 1 there from an lse that rounds to the mask value.
 //
-// Left for later: tensor cores (mma.sync / wgmma), TMA and a pipelined ring
-// of tiles; A1/A3/A4's kv_len, segment and sliding-window options.
+// Left for later: A1/A3/A4's kv_len, segment and sliding-window options.
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace cubecl {
 namespace {
@@ -400,20 +440,618 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the four (dtype, head_dim) instances of one schedule
+// -- the bf16 bodies: wgmma fed by TMA, warp-specialised ------------------
+
+constexpr int kStages = 3;        // stages of the streamed side's ring
+constexpr int kPanel = 64 * 128;  // one 64-row x 64-column bf16 panel, bytes
+constexpr int NC = 2;             // consumer warpgroups (64 rows each)
+constexpr int kWgThreads = 128 * (NC + 1);
+constexpr int kStat = kFlashTile * 4;  // one tile's lse (or di), f32 bytes
+
+// dynamic shared memory of the bf16 bodies: the stationary side's NC tiles
+// of two operands (K and V for dkv, q and dO for dq), each tile D / 64
+// panels; the ring of the streamed side's two operands (q and dO, or K and
+// V); for dkv the ring's lse and di; the mbarriers (the stationary tiles',
+// and each stage's full and empty); plus the slack to align the base to
+// 1024
+template <int D, bool kStats>
+struct BwdSmem {
+  static constexpr int kTile = D / 64 * kPanel;
+  static constexpr int kA = 0;
+  static constexpr int kB = kA + NC * kTile;
+  static constexpr int kRa = kB + NC * kTile;
+  static constexpr int kRb = kRa + kStages * kTile;
+  static constexpr int kLse = kRb + kStages * kTile;
+  static constexpr int kDi = kLse + (kStats ? kStages * kStat : 0);
+  static constexpr int kBar = kDi + (kStats ? kStages * kStat : 0);
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// wgmma descriptors of the k16 step kk over a tile of TMA's swizzled
+// panels: K-major (the reduction along a row's D columns; 4 steps to a
+// panel) and MN-major (the reduction down the tile's 64 rows, read through
+// the transpose bit; the next 64 columns one panel on)
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * kPanel + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2048, kPanel, 1024);
+}
+
+__device__ __forceinline__ void next_stage(int& st, uint32_t& phase) {
+  if (++st == kStages) {
+    st = 0;
+    phase ^= 1;
+  }
+}
+
+// d (64 x D) += A (64 x 64 bf16, four k16 fragments in registers) . B (the
+// 64 x D tile at b_s, MN-major)
+template <int D>
+__device__ __forceinline__ void rs_tile(float (&d)[D / 2],
+                                        const uint32_t (&a)[4][4],
+                                        uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 128)
+      wgmma_rs_m64n128(d, a[kk], mnmajor(b_s, kk));
+    else
+      wgmma_rs_m64n64(d, a[kk], mnmajor(b_s, kk));
+  }
+}
+
+// an m64n64 f32 accumulator in bf16 pairs: the A fragments of its four
+// k16 column slices
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// this thread's rows r, r + 8 (r = warp * 16 + lane / 4) of an m64nN
+// accumulator d[4 j + 2 i + e], columns 8 j + (lane % 4) * 2 + e, stored
+// in bf16 where the row is below r_end
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
+                                          int row_a, int r_end, int col_l,
+                                          const float (&d)[D / 2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= r_end) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (int64_t)row * D + 8 * j +
+                                         col_l) =
+          __floats2bfloat162_rn(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+  }
+}
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           T* __restrict__ dk, T* __restrict__ dv, int H,
+                           int Hkv, int Sq, int Skv, float scale,
+                           float scale_log2, int causal, Tiles tiles) {
+  static_assert(sizeof(T) == 2, "the wgmma body takes 16-bit inputs");
+  using L = BwdSmem<D, true>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = H / Hkv;
+  // the block's NC kernel kv tiles, one per consumer warpgroup; a tile at
+  // or past its k_end has no rows (the grid's padding)
+  int r0[NC], r_end[NC], count[NC];
+  int n_tiles = 0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    tiles.own(blockIdx.x * NC + c, gridDim.x * NC, r0[c], r_end[c]);
+    count[c] = r0[c] < r_end[c] ? tiles.count(r0[c]) : 0;
+    n_tiles = max(n_tiles, count[c]);
+  }
+  // does the consumer of kv rows [k0, k_end) and n tiles compute on q tile
+  // t (its rows [q0, q_end), F9's rows below f9_end)? The tile's rows are
+  // the same whichever consumer asks.
+  auto visits = [&](int k0, int k_end, int n, int t, int& q0, int& q_end,
+                    int& f9_end, float& inv_n) {
+    return t < n && tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n);
+  };
+  // the tiles the block loads: the union of its consumers' tiles, walked in
+  // the same order by the producer and by every consumer, once for each
+  // query head of the kv head's group
+  auto loaded = [&](int t, int& q0, int& q_end, int& f9_end, float& inv_n) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      any |= visits(r0[c], r_end[c], count[c], t, q0, q_end, f9_end, inv_n);
+    return any;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      // the copies' issuer, and the 32 lanes that stage lse and di
+      mbar_init(&full[st], 1 + 32);
+      mbar_init(&empty[st], 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's role, warp-uniform for the compiler
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // -- producer: one thread issues every copy; warp 1 stages each q
+    // tile's lse and di (a row statistic: (B, H, Sq) with any Sq, which a
+    // TMA box cannot start at) with plain loads ---------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      int st = 0;
+      uint32_t phase = 0;
+      for (int g = 0; g < rep; ++g) {
+        const int64_t bh = (int64_t)b * H + hk * rep + g;
+        for (int t = 0; t < n_tiles; ++t) {
+          int q0 = 0, q_end = 0, f9_end = 0;
+          float inv_n = 0.f;
+          if (!loaded(t, q0, q_end, f9_end, inv_n)) continue;
+          mbar_wait(&empty[st], phase ^ 1);
+          float* lse_s =
+              reinterpret_cast<float*>(smem + L::kLse + st * kStat);
+          float* di_s = reinterpret_cast<float*>(smem + L::kDi + st * kStat);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int r = q0 + lane + 32 * u;  // rows past q_end: 0
+            lse_s[lane + 32 * u] = r < q_end ? lse[bh * Sq + r] : 0.f;
+            di_s[lane + 32 * u] = r < q_end ? di[bh * Sq + r] : 0.f;
+          }
+          mbar_arrive(&full[st]);  // release: the stores above are seen
+          next_stage(st, phase);
+        }
+      }
+      return;
+    }
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(&tq);
+    tma_prefetch_map(&tk);
+    tma_prefetch_map(&tv);
+    tma_prefetch_map(&tdo);
+    mbar_expect_tx(kv_full, 2 * NC * L::kTile);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(smem + L::kA + c * L::kTile + p * kPanel, &tk, kv_full,
+                    p * 64, r0[c], b * Hkv + hk);
+        tma_load_3d(smem + L::kB + c * L::kTile + p * kPanel, &tv, kv_full,
+                    p * 64, r0[c], b * Hkv + hk);
+      }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < rep; ++g) {
+      const int bh = b * H + hk * rep + g;
+      for (int t = 0; t < n_tiles; ++t) {
+        int q0 = 0, q_end = 0, f9_end = 0;
+        float inv_n = 0.f;
+        if (!loaded(t, q0, q_end, f9_end, inv_n)) continue;
+        mbar_wait(&empty[st], phase ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load_3d(smem + L::kRa + st * L::kTile + p * kPanel, &tq,
+                      &full[st], p * 64, q0, bh);
+          tma_load_3d(smem + L::kRb + st * L::kTile + p * kPanel, &tdo,
+                      &full[st], p * 64, q0, bh);
+        }
+        next_stage(st, phase);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup c owns 64 kv rows -------------------------------
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  int k0 = r0[0], k_end = r_end[0], n_own = count[0];
+#pragma unroll
+  for (int cc = 1; cc < NC; ++cc)
+    if (cc == c) {
+      k0 = r0[cc];
+      k_end = r_end[cc];
+      n_own = count[cc];
+    }
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows of the transposed m64n64 scores (kv rows) and of
+  // dK, dV: row_l and row_l + 8 of the tile; its columns (q rows of the
+  // scores) 8 j + col_l + {0, 1}
+  const int row_l = warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+
+  float dk_acc[D / 2], dv_acc[D / 2];  // (64 x D) f32 each
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+  const uint32_t k_s = smem_addr(smem + L::kA + c * L::kTile);
+  const uint32_t v_s = smem_addr(smem + L::kB + c * L::kTile);
+
+  mbar_wait(kv_full, 0);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int g = 0; g < rep; ++g) {
+    for (int t = 0; t < n_tiles; ++t) {
+      int q0 = 0, q_end = 0, f9_end = 0;
+      float inv_n = 0.f;
+      if (!loaded(t, q0, q_end, f9_end, inv_n)) continue;
+      mbar_wait(&full[st], phase);
+      if (visits(k0, k_end, n_own, t, q0, q_end, f9_end, inv_n)) {
+        const uint32_t q_s = smem_addr(smem + L::kRa + st * L::kTile);
+        const uint32_t do_s = smem_addr(smem + L::kRb + st * L::kTile);
+        const float* lse_s =
+            reinterpret_cast<const float*>(smem + L::kLse + st * kStat);
+        const float* di_s =
+            reinterpret_cast<const float*>(smem + L::kDi + st * kStat);
+        // the mask on edge tiles only: q rows past q_end, kv rows past
+        // k_end, the diagonal, F9's rows
+        const bool edge = q0 + kFlashTile > q_end ||
+                          k0 + kFlashTile > k_end ||
+                          (causal && k0 + kFlashTile - 1 > q0) ||
+                          q0 < f9_end;
+        // s^T = K q^T and dP^T = V dO^T over D in k16 steps (the first
+        // overwrites)
+        float s[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_m64n64(s, kmajor(k_s, kk), kmajor(q_s, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_m64n64(dp, kmajor(v_s, kk), kmajor(do_s, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(s);
+        reg_fence(dp);
+
+        // p^T (into s) and dS^T (into dp)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = 8 * j + col_l + e;
+            const float l = lse_s[m], d = di_s[m];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float& x = s[4 * j + 2 * i + e];
+              bool ok = true, f9 = false;
+              if (edge) {
+                const int row = q0 + m;
+                const int col = k0 + row_l + 8 * i;
+                const bool in = row < q_end && col < k_end;
+                ok = in && (!causal || col <= row);
+                // an F9 row: p = 1/n on each visited column, for dV only
+                f9 = Tiles::kSparse && in && row < f9_end;
+              }
+              // masked: p = 0 by a select (the exp2 may be inf there)
+              const float p = ok ? exp2_approx(x * scale_log2 - l) : 0.f;
+              x = f9 ? inv_n : p;
+              float& y = dp[4 * j + 2 * i + e];
+              y = p * (y - d) * scale;
+            }
+          }
+
+        // dV += p^T dO and dK += dS^T q: p^T and dS^T in bf16 pairs are
+        // the A fragments (all operands ready before the fence, none
+        // written while the products run)
+        uint32_t pa[4][4], da[4][4];
+        pack_a(s, pa);
+        pack_a(dp, da);
+        reg_fence(dv_acc);
+        reg_fence(dk_acc);
+        wgmma_fence();
+        rs_tile<D>(dv_acc, pa, do_s);
+        rs_tile<D>(dk_acc, da, q_s);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(dv_acc);
+        reg_fence(dk_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
+      next_stage(st, phase);
+    }
+  }
+
+  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
+  store_acc<D>(dk + kvo, k0 + row_l, k_end, col_l, dk_acc);
+  store_acc<D>(dv + kvo, k0 + row_l, k_end, col_l, dv_acc);
+}
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di, T* __restrict__ dq,
+                          int H, int Hkv, int Sq, float scale,
+                          float scale_log2, int causal, Tiles tiles) {
+  static_assert(sizeof(T) == 2, "the wgmma body takes 16-bit inputs");
+  using L = BwdSmem<D, false>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  // the block's NC kernel q tiles, one per consumer warpgroup, as the bf16
+  // forward's
+  int r0[NC], r_end[NC], count[NC];
+  int n_tiles = 0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    tiles.own(blockIdx.x * NC + c, gridDim.x * NC, r0[c], r_end[c]);
+    count[c] = r0[c] < r_end[c] ? tiles.count(r0[c]) : 0;
+    n_tiles = max(n_tiles, count[c]);
+  }
+  auto visits = [&](int q0, int q_end, int n, int t, int& c0, int& c_end) {
+    return t < n && tiles.visit(t, q0, q_end, c0, c_end);
+  };
+  auto loaded = [&](int t, int& c0, int& c_end) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      any |= visits(r0[c], r_end[c], count[c], t, c0, c_end);
+    return any;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's role, warp-uniform for the compiler
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // -- producer -----------------------------------------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(&tq);
+    tma_prefetch_map(&tk);
+    tma_prefetch_map(&tv);
+    tma_prefetch_map(&tdo);
+    mbar_expect_tx(q_full, 2 * NC * L::kTile);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(smem + L::kA + c * L::kTile + p * kPanel, &tq, q_full,
+                    p * 64, r0[c], b * H + h);
+        tma_load_3d(smem + L::kB + c * L::kTile + p * kPanel, &tdo, q_full,
+                    p * 64, r0[c], b * H + h);
+      }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      int c0 = 0, c_end = 0;
+      if (!loaded(t, c0, c_end)) continue;
+      mbar_wait(&empty[st], phase ^ 1);
+      mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_3d(smem + L::kRa + st * L::kTile + p * kPanel, &tk,
+                    &full[st], p * 64, c0, b * Hkv + hk);
+        tma_load_3d(smem + L::kRb + st * L::kTile + p * kPanel, &tv,
+                    &full[st], p * 64, c0, b * Hkv + hk);
+      }
+      next_stage(st, phase);
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup c owns 64 q rows --------------------------------
+  setmaxnreg_inc<240>();
+  const int c = wg - 1;
+  int q0 = r0[0], q_end = r_end[0], n_own = count[0];
+#pragma unroll
+  for (int cc = 1; cc < NC; ++cc)
+    if (cc == c) {
+      q0 = r0[cc];
+      q_end = r_end[cc];
+      n_own = count[cc];
+    }
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows of the m64nN accumulators: row_a and row_a + 8; its
+  // columns 8 j + col_l + {0, 1}
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+  const int64_t qo = ((int64_t)b * H + h) * Sq;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row_a + 8 * i < q_end;
+    lse_r[i] = in ? lse[qo + row_a + 8 * i] : 0.f;
+    di_r[i] = in ? di[qo + row_a + 8 * i] : 0.f;
+  }
+
+  float acc[D / 2];  // dQ, (64 x D) f32
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  const uint32_t q_s = smem_addr(smem + L::kA + c * L::kTile);
+  const uint32_t do_s = smem_addr(smem + L::kB + c * L::kTile);
+
+  mbar_wait(q_full, 0);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    int c0 = 0, c_end = 0;
+    if (!loaded(t, c0, c_end)) continue;
+    mbar_wait(&full[st], phase);
+    if (visits(q0, q_end, n_own, t, c0, c_end)) {
+      const uint32_t k_s = smem_addr(smem + L::kRa + st * L::kTile);
+      const uint32_t v_s = smem_addr(smem + L::kRb + st * L::kTile);
+      // s = q K^T and dP = dO V^T over D in k16 steps
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64(s, kmajor(q_s, kk), kmajor(k_s, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64(dp, kmajor(do_s, kk), kmajor(v_s, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(s);
+      reg_fence(dp);
+
+      // dS (into dp); the mask on tiles that cross the diagonal or the
+      // columns' end only (rows past q_end are never stored, and a row of
+      // dQ sees only its own row of dS)
+      const bool edge =
+          c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row_a + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e;
+            const int col = c0 + 8 * j + col_l + e;
+            const bool ok =
+                !edge || (col < c_end && (!causal || col <= row));
+            const float p =
+                ok ? exp2_approx(s[x] * scale_log2 - lse_r[i]) : 0.f;
+            dp[x] = p * (dp[x] - di_r[i]) * scale;
+          }
+      }
+
+      // dQ += dS K: dS in bf16 pairs is the A fragment, K the MN-major B
+      uint32_t da[4][4];
+      pack_a(dp, da);
+      reg_fence(acc);
+      wgmma_fence();
+      rs_tile<D>(acc, da, k_s);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    next_stage(st, phase);
+  }
+
+  store_acc<D>(dq + qo * D, row_a, q_end, col_l, acc);
+}
+
+template <int D, typename Tiles>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* di, void* dk, void* dv, int B,
+                             int H, int Hkv, int Sq, int Skv, float scale,
+                             float scale_log2, int causal, int blocks,
+                             Tiles tiles, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if (Sq == 0) {  // no query: dK and dV are sums of nothing
+    const size_t n = (size_t)B * Hkv * Skv * D * sizeof(T);
+    cudaMemsetAsync(dk, 0, n, stream);
+    cudaMemsetAsync(dv, 0, n, stream);
+    return cudaGetLastError();
+  }
+  constexpr int smem = BwdSmem<D, true>::kBytes;
+  static const cudaError_t attr =
+      opt_in_smem(flash_bwd_dkv_wgmma_kernel<T, D, Tiles>, smem);
+  if (attr != cudaSuccess) return attr;
+  // the maps are kernel parameters (__grid_constant__), encoded per call
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e = rows_map(&tq, q, D, Sq, B * H);
+  if (e == cudaSuccess) e = rows_map(&tdo, dout, D, Sq, B * H);
+  if (e == cudaSuccess) e = rows_map(&tk, k, D, Skv, B * Hkv);
+  if (e == cudaSuccess) e = rows_map(&tv, v, D, Skv, B * Hkv);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, Hkv, B);
+  flash_bwd_dkv_wgmma_kernel<T, D, Tiles><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<T*>(dk), static_cast<T*>(dv),
+      H, Hkv, Sq, Skv, scale, scale_log2, causal, tiles);
+  return cudaGetLastError();
+}
+
+template <int D, typename Tiles>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* di, void* dq, int B, int H, int Hkv,
+                            int Sq, int Skv, float scale, float scale_log2,
+                            int causal, int blocks, Tiles tiles,
+                            cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if (Skv == 0) {  // no key: dQ is a sum of nothing
+    cudaMemsetAsync(dq, 0, (size_t)B * H * Sq * D * sizeof(T), stream);
+    return cudaGetLastError();
+  }
+  constexpr int smem = BwdSmem<D, false>::kBytes;
+  static const cudaError_t attr =
+      opt_in_smem(flash_bwd_dq_wgmma_kernel<T, D, Tiles>, smem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e = rows_map(&tq, q, D, Sq, B * H);
+  if (e == cudaSuccess) e = rows_map(&tdo, dout, D, Sq, B * H);
+  if (e == cudaSuccess) e = rows_map(&tk, k, D, Skv, B * Hkv);
+  if (e == cudaSuccess) e = rows_map(&tv, v, D, Skv, B * Hkv);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, H, B);
+  flash_bwd_dq_wgmma_kernel<T, D, Tiles><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<T*>(dq), H, Hkv, Sq, scale,
+      scale_log2, causal, tiles);
+  return cudaGetLastError();
+}
+
+// The four (dtype, head_dim) instances of one schedule: f32 on the
+// CUDA-core bodies (one 64-row tile to a block), bf16 on the wgmma bodies
+// (NC 64-row tiles to a block; `tiles` counts the launch's tiles so). The
+// launchers of both bodies take the same arguments. Neither falls back on
+// the other: an error of the chosen body is returned as it is.
+constexpr int tiles_per_block(int dtype) { return dtype == kBF16 ? NC : 1; }
+
 template <typename Tiles>
 int launch_dkv_any(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* di,
                    void* dk, void* dv, int dtype, int B, int H, int Hkv,
                    int Sq, int Skv, int D, float scale, float scale_log2,
                    int causal, int blocks, Tiles tiles, cudaStream_t st) {
-#define CUBECL_DKV(T, HD)                                                    \
-  launch_dkv<T, HD, Tiles>(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq,    \
-                           Skv, scale, scale_log2, causal, blocks, tiles, st)
-  if (dtype == kF32 && D == 64) return CUBECL_DKV(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_DKV(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_DKV(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_DKV(__nv_bfloat16, 128);
+#define CUBECL_DKV(LAUNCH)                                                   \
+  LAUNCH(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq, Skv, scale,          \
+         scale_log2, causal, blocks, tiles, st)
+  if (dtype == kF32 && D == 64)
+    return CUBECL_DKV((launch_dkv<float, 64, Tiles>));
+  if (dtype == kF32 && D == 128)
+    return CUBECL_DKV((launch_dkv<float, 128, Tiles>));
+  if (dtype == kBF16 && D == 64)
+    return CUBECL_DKV((launch_dkv_wgmma<64, Tiles>));
+  if (dtype == kBF16 && D == 128)
+    return CUBECL_DKV((launch_dkv_wgmma<128, Tiles>));
 #undef CUBECL_DKV
   return cudaErrorInvalidValue;
 }
@@ -424,13 +1062,17 @@ int launch_dq_any(const void* q, const void* k, const void* v,
                   void* dq, int dtype, int B, int H, int Hkv, int Sq, int Skv,
                   int D, float scale, float scale_log2, int causal,
                   int blocks, Tiles tiles, cudaStream_t st) {
-#define CUBECL_DQ(T, HD)                                                     \
-  launch_dq<T, HD, Tiles>(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Skv,    \
-                          scale, scale_log2, causal, blocks, tiles, st)
-  if (dtype == kF32 && D == 64) return CUBECL_DQ(float, 64);
-  if (dtype == kF32 && D == 128) return CUBECL_DQ(float, 128);
-  if (dtype == kBF16 && D == 64) return CUBECL_DQ(__nv_bfloat16, 64);
-  if (dtype == kBF16 && D == 128) return CUBECL_DQ(__nv_bfloat16, 128);
+#define CUBECL_DQ(LAUNCH)                                                    \
+  LAUNCH(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Skv, scale, scale_log2,  \
+         causal, blocks, tiles, st)
+  if (dtype == kF32 && D == 64)
+    return CUBECL_DQ((launch_dq<float, 64, Tiles>));
+  if (dtype == kF32 && D == 128)
+    return CUBECL_DQ((launch_dq<float, 128, Tiles>));
+  if (dtype == kBF16 && D == 64)
+    return CUBECL_DQ((launch_dq_wgmma<64, Tiles>));
+  if (dtype == kBF16 && D == 128)
+    return CUBECL_DQ((launch_dq_wgmma<128, Tiles>));
 #undef CUBECL_DQ
   return cudaErrorInvalidValue;
 }
@@ -450,10 +1092,11 @@ extern "C" int cubecl_flash_bwd_dkv(const void* q, const void* k,
                                     float scale, float scale_log2, int causal,
                                     void* stream) {
   using namespace cubecl;
+  const int rows = tiles_per_block(dtype) * kFlashTile;  // kv rows a block
   return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, Hkv, Sq,
                         Skv, D, scale, scale_log2, causal,
-                        (Skv + BN - 1) / BN,
-                        DenseKVTiles{Sq, Skv, causal, 0},
+                        (Skv + rows - 1) / rows,
+                        DenseKVTiles{Sq, Skv, causal, rows},
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -466,8 +1109,9 @@ extern "C" int cubecl_flash_bwd_dq(const void* q, const void* k,
                                    float scale_log2, int causal,
                                    void* stream) {
   using namespace cubecl;
+  const int rows = tiles_per_block(dtype) * kFlashTile;  // q rows a block
   return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
-                       D, scale, scale_log2, causal, (Sq + BM - 1) / BM,
+                       D, scale, scale_log2, causal, (Sq + rows - 1) / rows,
                        DenseQTiles{Sq, Skv, causal},
                        static_cast<cudaStream_t>(stream));
 }
@@ -487,10 +1131,13 @@ extern "C" int cubecl_flash_bsp_dq(const void* q, const void* k,
   using namespace cubecl;
   const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
   const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
-  const SparseQTiles tiles{ids, counts, stride, bq, bk, q_sub, k_sub,
+  // a block's kernel tiles lie in one user tile, as in the bf16 forward
+  const int per = tiles_per_block(dtype);
+  const int slots = (q_sub + per - 1) / per * per;
+  const SparseQTiles tiles{ids, counts, stride, bq, bk, slots, k_sub,
                            causal, /*keep_f9=*/0, 0};
   return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, H, Sq, Skv,
-                       D, scale, scale_log2, causal, (Sq / bq) * q_sub,
+                       D, scale, scale_log2, causal, (Sq / bq) * slots / per,
                        tiles, static_cast<cudaStream_t>(stream));
 }
 
@@ -511,9 +1158,12 @@ extern "C" int cubecl_flash_bsp_dkv(const void* q, const void* k,
   using namespace cubecl;
   const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
   const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
+  const int per = tiles_per_block(dtype);
+  const int slots = (k_sub + per - 1) / per * per;
   const SparseKVTiles tiles{t_ids, t_counts, f_ids, f_counts, t_stride,
-                            f_stride, bq, bk, k_sub, q_sub, causal, 0};
+                            f_stride, bq, bk, slots, q_sub, causal, 0};
   return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, H, Sq,
-                        Skv, D, scale, scale_log2, causal, (Skv / bk) * k_sub,
-                        tiles, static_cast<cudaStream_t>(stream));
+                        Skv, D, scale, scale_log2, causal,
+                        (Skv / bk) * slots / per, tiles,
+                        static_cast<cudaStream_t>(stream));
 }

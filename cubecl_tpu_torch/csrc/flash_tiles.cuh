@@ -10,7 +10,8 @@
 //                           r_end are neither read nor written
 //   own(i, n, r0, r_end)    the same for the i-th of the launch's n kernel
 //                           tiles, where a block owns several (the bf16
-//                           forward: one per consumer warpgroup)
+//                           bodies: one per consumer warpgroup, all of
+//                           them walking the same tiles of the other side)
 //   count(r0)               how many tiles the block visits
 //   visit(t, r0, r_end, ..) the t-th tile's first row c0 and its end c_end
 //                           (rows at or past it are masked as absent);
@@ -115,25 +116,37 @@ struct SparseQTiles {
 struct DenseKVTiles {
   static constexpr bool kSparse = false;
   int Sq, Skv, causal;
-  int q_start;  // set by own()
+  // kv rows a block owns (64, or 128 where it owns two kernel tiles): the
+  // block's consumers walk the same q tiles, from the block's first row
+  int block_rows;
   __device__ __forceinline__ void own(int& k0, int& k_end) {
-    k0 = blockIdx.x * kFlashTile;  // small k0 = most causal work: first
+    own(blockIdx.x, gridDim.x, k0, k_end);
+  }
+  // the i-th of the launch's n kernel tiles; small k0 = most causal work:
+  // first
+  __device__ __forceinline__ void own(int i, int n, int& k0, int& k_end) {
+    k0 = i * kFlashTile;
     k_end = Skv;
-    // causal: only rows >= k0 see this tile (64-row tiles on both sides)
-    q_start = causal ? k0 : 0;
+  }
+  // causal: only rows >= k0 see the tile (64-row tiles on both sides), so
+  // the walk starts at the block's first row
+  __device__ __forceinline__ int first(int k0) const {
+    return causal ? k0 - k0 % block_rows : 0;
   }
   __device__ __forceinline__ int count(int k0) const {
+    const int q_start = first(k0);
     return q_start < Sq ? (Sq - q_start + kFlashTile - 1) / kFlashTile : 0;
   }
-  // q rows [q0, q_end); f9_end: rows below it have no live column (none)
+  // q rows [q0, q_end); f9_end: rows below it have no live column (none);
+  // false for a q tile wholly above the kv tile's first column
   __device__ __forceinline__ bool visit(int t, int k0, int k_end, int& q0,
                                         int& q_end, int& f9_end,
                                         float& inv_n) const {
-    q0 = q_start + t * kFlashTile;
+    q0 = first(k0) + t * kFlashTile;
     q_end = Sq;
     f9_end = 0;
     inv_n = 0.f;
-    return true;
+    return !causal || q0 + kFlashTile - 1 >= k0;
   }
 };
 
@@ -144,12 +157,19 @@ struct SparseKVTiles {
   const int* fwd_ids;   // (n_q, fwd_stride): the forward schedule
   const int* fwd_counts;
   int stride, fwd_stride, bq, bk;
-  int k_sub, q_sub;     // kernel tiles per user kv tile, per user q tile
+  int k_sub, q_sub;     // kernel tiles per user kv tile (or more, as in
+                        // SparseQTiles), per user q tile
   int causal;
   int ti;               // the block's user kv tile, set by own()
   __device__ __forceinline__ void own(int& k0, int& k_end) {
-    ti = blockIdx.x / k_sub;
-    k0 = ti * bk + (blockIdx.x % k_sub) * kFlashTile;
+    own(blockIdx.x, gridDim.x, k0, k_end);
+  }
+  // the i-th kernel tile of the launch (a block may own several of one
+  // user tile; k_sub then counts them so, and a tile at or past the user
+  // tile's end has no rows)
+  __device__ __forceinline__ void own(int i, int n, int& k0, int& k_end) {
+    ti = i / k_sub;
+    k0 = ti * bk + (i % k_sub) * kFlashTile;
     k_end = (ti + 1) * bk;
   }
   __device__ __forceinline__ int count(int k0) const {

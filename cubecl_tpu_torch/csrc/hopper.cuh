@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX for the tensor-core flash
-// kernels: mbarriers, TMA tensor copies, the 128-byte-swizzle shared-memory
-// descriptors of wgmma, the wgmma instructions themselves and setmaxnreg.
+// kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+// mbarriers, TMA tensor copies, the 128-byte-swizzle shared-memory
+// descriptors of wgmma, the wgmma instructions themselves and setmaxnreg;
+// on the host, the tensor maps the copies read.
 //
 // Layout convention: a tile of 16-bit elements is stored as 64-column
 // "panels", each rows x 128 bytes as TMA writes it with
@@ -47,29 +49,28 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 // Wait until the barrier's phase of the given parity has completed. A wait
-// that lasts some seconds (the clock at ~1.7 GHz) cannot be a slow copy: it
-// is a schedule fault (producer and consumers walking different tiles), and
-// it traps, so that the launch fails with an error instead of hanging the
-// card.
+// that lasts some seconds (2^33 clocks at ~1.7 GHz) cannot be a slow copy:
+// it is a schedule fault (producer and consumers walking different tiles),
+// and it traps, so that the launch fails with an error instead of hanging
+// the card. The loop is one block of PTX (labels are local to its braces):
+// written as a C++ loop around __trap(), it cost the dK/dV consumers of
+// flash_attention_bwd.cu their setmaxnreg headroom (ptxas allocated them
+// ~180 of the 240 registers, spilled, and serialized their wgmma).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done;
-  long long t0 = -1;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (t0 < 0)
-      t0 = now;
-    else if (now - t0 > (1ll << 33))
-      __trap();
-  }
+  asm volatile(
+      "{\n .reg .pred p;\n .reg .u64 t0, t1;\n"
+      " mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra DONE;\n"
+      " mov.u64 t1, %%clock64;\n"
+      " sub.u64 t1, t1, t0;\n"
+      " setp.gt.u64 p, t1, 8589934592;\n"
+      " @p trap;\n"
+      " bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // -- TMA -------------------------------------------------------------------
@@ -203,6 +204,53 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- tensor maps (host) ----------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
+// library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (n, S, D) bf16 array as a 3-D tensor map of 64 x 64 boxes, 128-byte
+// swizzle; rows past S (and whole boxes past it) read as zeros
+inline cudaError_t rows_map(CUtensorMap* map, const void* base, int D, int S,
+                            int n) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

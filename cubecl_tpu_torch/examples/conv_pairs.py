@@ -25,9 +25,10 @@ DEPTH = 3
 TOL = 0.15                     # the JAX example's bound on max |err|
 
 
-def inputs(N, H, W, C, depth=DEPTH, device="cpu"):
+def inputs(N, H, W, C, depth=DEPTH, device="cuda"):
     """The JAX example's inputs: numpy's default_rng(0), x then each
-    filter, standard normal x 0.1, in bf16."""
+    filter, standard normal x 0.1, in bf16, on ``device`` (the card unless
+    the caller asks for the CPU)."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((N, H, W, C)) * 0.1)
     ws = [torch.from_numpy(rng.standard_normal((3, 3, C, C)) * 0.1)
@@ -64,7 +65,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("conv_pairs: needs a CUDA device")
     N, H, W, C = CARD_SHAPE
-    x, ws = inputs(N, H, W, C, device="cuda")
+    x, ws = inputs(N, H, W, C)
     got = stack_packed(x, ws, H)
     err = check(got, x, ws)
     print(f"{DEPTH}-layer packed conv stack: max |err| vs F.conv2d = "

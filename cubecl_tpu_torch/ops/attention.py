@@ -24,9 +24,11 @@ dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu``, which replace A3
 runs both products on the tensor cores (``wgmma`` fed by TMA copies) and
 rounds the probabilities to bf16 for the P.V product, as the JAX forward
 does; f32 runs on the CUDA cores, because a TF32 product would not hold
-f32's exactness against the plain version. The backward kernels run on
-the CUDA cores in both dtypes. On CPU tensors the same Function
-runs the plain PyTorch versions, ``flash_attention_plain`` and
+f32's exactness against the plain version. The backward kernels have the
+same two bodies: bf16 on the tensor cores, rounding p and dS to bf16 for
+their products as the JAX kernels do (``round_p_ds`` of the plain
+versions gives that rounding), f32 on the CUDA cores. On CPU tensors the
+same Function runs the plain PyTorch versions, ``flash_attention_plain`` and
 ``flash_attention_backward_plain``, which are also the kernels' references
 on the card. Each wrapper counts its launches (``flash_attention.launches``
 for the forward, ``flash_bwd_dkv.launches``, ``flash_bwd_dq.launches``).
@@ -107,15 +109,28 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     return o, lse.masked_fill(torch.isinf(lse), 0.0)
 
 
+def _rounder(dtype, round_p_ds: bool):
+    """f32 -> f32 through ``dtype`` (the storage dtype at which the JAX
+    kernels feed p and dS to the matrix unit) when ``round_p_ds``; else
+    the identity."""
+    if not round_p_ds:
+        return lambda t: t
+    return lambda t: t.to(dtype).float()
+
+
 def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
-                                   sm_scale: Optional[float] = None):
+                                   sm_scale: Optional[float] = None,
+                                   round_p_ds: bool = False):
     """(dq, dk, dv) of flash attention in plain PyTorch, from the forward's
     residuals (o, base-2 lse) and the upstream do: the math of the dK/dV
     and dQ kernels with the (Sq, Skv) probabilities materialized, f32
     throughout, each kv head's gradient summed over its query heads; cast
-    to the inputs' dtypes."""
+    to the inputs' dtypes. ``round_p_ds`` rounds p and dS to the inputs'
+    dtype before their products (dS from the unrounded p), as the JAX
+    kernels A3/A4 and the bf16 kernels do; off, the reference is exact."""
     _check_shapes(q, k, v)
     scale = _scale(q, sm_scale)
+    rnd = _rounder(q.dtype, round_p_ds)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -127,8 +142,8 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
     if causal:
         p = p.masked_fill(~_causal_mask(q, k), 0.0)
     di = (dof * o.float()).sum(-1, keepdim=True)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
-    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - di) * scale
+    dv = torch.matmul(rnd(p).transpose(-1, -2), dof)
+    ds = rnd(p * (torch.matmul(dof, vf.transpose(-1, -2)) - di) * scale)
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
 
@@ -203,7 +218,9 @@ def _flash_forward(q, k, v, causal, sm_scale, need_lse):
 def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True,
                   sm_scale: Optional[float] = None):
     """dk, dv (B, Hkv, Skv, D) by the dK/dV kernel (A3), each kv head's
-    gradient summed over its query heads; CUDA tensors only."""
+    gradient summed over its query heads; CUDA tensors only. bf16 runs the
+    tensor-core body (p and dS rounded to bf16 for their products), f32
+    the CUDA-core one."""
     q, k, v, do = _kernel_inputs("flash_bwd_dkv", q, k, v, do)
     lse, di = _stats("flash_bwd_dkv", q, lse, di)
     B, H, Sq, D = q.shape
@@ -226,7 +243,9 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True,
 
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True,
                  sm_scale: Optional[float] = None):
-    """dq (B, H, Sq, D) by the dQ kernel (A4); CUDA tensors only."""
+    """dq (B, H, Sq, D) by the dQ kernel (A4); CUDA tensors only. bf16 on
+    the tensor cores (dS rounded to bf16 for dS K), f32 on the CUDA
+    cores."""
     q, k, v, do = _kernel_inputs("flash_bwd_dq", q, k, v, do)
     lse, di = _stats("flash_bwd_dq", q, lse, di)
     B, H, Sq, D = q.shape
@@ -457,14 +476,16 @@ def flash_attention_block_sparse_plain(q, k, v, block_mask,
 def flash_attention_block_sparse_backward_plain(
         q, k, v, o, lse, do, block_mask, causal: bool = True,
         sm_scale: Optional[float] = None, block_q: int = 512,
-        block_k: int = 512):
+        block_k: int = 512, round_p_ds: bool = False):
     """(dq, dk, dv) of the block-sparse forward in plain PyTorch, from its
     residuals (o, base-2 lse) and do, one q tile at a time, f32: the math
     of A6 and A7 (p = exp2(s - lse) on live entries, dS = p (dP - di)
     sm_scale), and for a row with no live column (F9) the true gradient of
     the forward's mean: 1/n of its dO to each of its n visited columns of
-    dV, nothing to dQ or dK. Cast to the inputs' dtypes."""
+    dV, nothing to dQ or dK. Cast to the inputs' dtypes. ``round_p_ds`` as
+    in ``flash_attention_backward_plain`` (the JAX kernels A6/A7)."""
     _bsp_shapes(q, k, v)
+    rnd = _rounder(q.dtype, round_p_ds)
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     bq, bk = _fit_block(block_q, Sq), _fit_block(block_k, Skv)
@@ -484,11 +505,11 @@ def flash_attention_block_sparse_backward_plain(
         p_v = torch.where(dead, 1.0 / len(cols), p)
         dp = torch.matmul(dof[:, :, sl], v[:, :, cols].float()
                           .transpose(-1, -2))
-        ds = p * (dp - di[:, :, sl]) * scale
+        ds = rnd(p * (dp - di[:, :, sl]) * scale)
         dq[:, :, sl] = torch.matmul(ds, k[:, :, cols].float())
         dk.index_add_(2, cols, torch.matmul(ds.transpose(-1, -2),
                                             q[:, :, sl].float()))
-        dv.index_add_(2, cols, torch.matmul(p_v.transpose(-1, -2),
+        dv.index_add_(2, cols, torch.matmul(rnd(p_v).transpose(-1, -2),
                                             dof[:, :, sl]))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -524,7 +545,7 @@ def bsp_forward(q, k, v, sched: _Schedule, causal, scale, bq, bk,
 
 
 def bsp_dq(q, k, v, do, lse, di, sched: _Schedule, causal, scale, bq, bk):
-    """A6 on CUDA tensors: dq over the forward schedule."""
+    """A6 on CUDA tensors: dq over the forward schedule (A4's bodies)."""
     q, k, v, do = _bsp_inputs("bsp_dq", q, k, v, do)
     lse, di = _stats("bsp_dq", q, lse, di)
     B, H, Sq, D = q.shape
@@ -545,8 +566,8 @@ def bsp_dq(q, k, v, do, lse, di, sched: _Schedule, causal, scale, bq, bk):
 
 
 def bsp_dkv(q, k, v, do, lse, di, sched: _Schedule, causal, scale, bq, bk):
-    """A7 on CUDA tensors: dk, dv over the transposed schedule (a kv tile
-    no q tile attends gets zeros)."""
+    """A7 on CUDA tensors: dk, dv over the transposed schedule (A3's
+    bodies; a kv tile no q tile attends gets zeros)."""
     q, k, v, do = _bsp_inputs("bsp_dkv", q, k, v, do)
     lse, di = _stats("bsp_dkv", q, lse, di)
     B, H, Sq, D = q.shape

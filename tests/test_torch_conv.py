@@ -279,7 +279,7 @@ def test_conv_pairs_example_twin():
 
     jex = _jax_example()
     assert (jex.N, jex.H, jex.W, jex.C) == ex.CPU_SHAPE
-    x, ws = ex.inputs(*ex.CPU_SHAPE, depth=jex.DEPTH)
+    x, ws = ex.inputs(*ex.CPU_SHAPE, depth=jex.DEPTH, device="cpu")
 
     def bf16(t):
         return jnp.asarray(t.view(torch.int16).numpy().view(

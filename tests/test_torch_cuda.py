@@ -59,6 +59,25 @@ def _close(got, ref):
                                rtol=rtol)
 
 
+# The flash backward kernels against the exact f32 plain backward: bf16
+# rounds p and dS for their products as the JAX kernels do, and that
+# rounding alone can pass TOL (dv under GQA, where a kv head sums several
+# heads' rounded p). This bound sits above the largest atol that
+# chip_smoke.py's phase-d sweep reads at rtol 1e-2; f32 rounds nothing.
+EXACT_BWD_TOL = {torch.float32: TOL[torch.float32],
+                 torch.bfloat16: (2e-2, 1e-2)}
+
+
+def _close_bwd(got, rounded, exact):
+    """A gradient of the flash backward kernels: within TOL of the plain
+    backward that rounds p and dS as the kernels do (``round_p_ds=True``),
+    and within EXACT_BWD_TOL of the exact one."""
+    _close(got, rounded)
+    atol, rtol = EXACT_BWD_TOL[exact.dtype]
+    torch.testing.assert_close(got.float(), exact.float(), atol=atol,
+                               rtol=rtol)
+
+
 # sequence lengths around the kernels' 64-row tiles (the bf16 body's
 # 128-row blocks, TMA's zero-filled rows past S), a ragged one and the
 # training length
@@ -257,7 +276,8 @@ def test_generate_framework_kernels_match_plain(dev):
 def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, S):
     """dq, dk, dv of the autograd Function (forward kernel with lse, dK/dV
     and dQ kernels) against flash_attention_backward_plain on the kernel's
-    own o and lse; the lse against the plain logsumexp."""
+    own o and lse, by ``_close_bwd`` (bf16: the kernels round p and dS as
+    the JAX kernels do); the lse against the plain logsumexp."""
     g = torch.Generator(device=dev).manual_seed(S * D + causal)
     q, do = (torch.randn(2, 6, S, D, generator=g, device=dev).to(dtype)
              for _ in range(2))
@@ -274,9 +294,66 @@ def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, S):
     assert torch.equal(o2, o.detach())
     _, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
-    ref = fa.flash_attention_backward_plain(q, k, v, o2, lse, do, causal)
-    for t, r in zip(leaves, ref):
-        _close(t.grad, r)
+    rounded = fa.flash_attention_backward_plain(q, k, v, o2, lse, do, causal,
+                                                round_p_ds=True)
+    exact = fa.flash_attention_backward_plain(q, k, v, o2, lse, do, causal)
+    for t, r, e in zip(leaves, rounded, exact):
+        _close_bwd(t.grad, r, e)
+
+
+def _bwd_bf16_inputs(dev, seed, H, Hkv, Sq, Skv, D):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(2, H, Sq, D, generator=g, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, Hkv, Skv, D, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+def _bwd_kernels_vs_plain(q, k, v, do, causal):
+    """dq, dk, dv of the bf16 dK/dV and dQ kernels (one launch each, on the
+    forward kernel's o and lse), held by ``_close_bwd`` against the plain
+    backward that rounds p and dS to bf16 as the JAX kernels do and the
+    exact f32 one; a second call is bit-identical (no atomics)."""
+    o, lse = fa._flash_forward(q, k, v, causal, None, True)
+    di = (do.float() * o.float()).sum(-1)
+    n = (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, di, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
+        (n[0] + 1, n[1] + 1)
+    rounded = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal,
+                                                round_p_ds=True)
+    exact = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    for t, r, e in zip((dq, dk, dv), rounded, exact):
+        _close_bwd(t, r, e)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse, di, causal)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("S", FLASH_S)
+def test_flash_backward_bf16_kernels_round_as_jax(dev, D, causal, G, S):
+    """The tensor-core bodies of A3 and A4 at every FLASH_S and GQA group
+    of 1, 2 and 8 query heads a kv head."""
+    _bwd_kernels_vs_plain(*_bwd_bf16_inputs(dev, S * G + D, 8, 8 // G, S,
+                                            S, D), causal)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Skv", [(40, 72), (100, 37), (130, 300),
+                                    (1, 200), (200, 1)])
+def test_flash_backward_bf16_kernels_cross_lengths(dev, D, causal, Sq, Skv):
+    """Sq != Skv (causal: col <= row in absolute positions; kv tiles no
+    query sees get zero dk, dv)."""
+    _bwd_kernels_vs_plain(*_bwd_bf16_inputs(dev, Sq * Skv + D, 4, 2, Sq,
+                                            Skv, D), causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -982,6 +1059,51 @@ def test_block_sparse_kernels_match_plain(dev, dtype, D, causal, S, bq, bk,
     for ki in np.nonzero(dead)[0]:
         for t in leaves[1:]:
             assert not t.grad[:, :, ki * bk_:(ki + 1) * bk_].any()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,bq,bk,mask", [
+    (512, 128, 128, _band_mask), (512, 64, 64, _holed_mask),
+    (512, 128, 64, _f9_mask), (384, 200, 100, _holed_mask)],
+    ids=["band128", "holed64", "f9_128x64", "fit200x100"])
+def test_block_sparse_backward_bf16_rounds_as_jax(dev, D, causal, S, bq, bk,
+                                                  mask):
+    """A6 and A7 in bf16 (the tensor-core bodies on the block-sparse
+    schedules) by ``_close_bwd`` against the plain backward that rounds p
+    and dS to bf16 and the exact one, on the plain forward's o and lse; a
+    kv tile nobody attends gets dk = dv = 0 and F9's rows dq = 0, exactly;
+    a second call is bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(S + bq + bk + D + causal)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    bq_, bk_ = fa._fit_block(bq, S), fa._fit_block(bk, S)
+    bm = mask(S // bq_, S // bk_)
+    pruned = fa._pruned_mask(bm, causal, bq_, bk_, S // bq_, S // bk_)
+    sched = fa._schedule(pruned, bq_, bk_, dev)
+    o, lse = fa.flash_attention_block_sparse_plain(
+        q, k, v, bm, causal, None, bq, bk, return_lse=True)
+    di = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, di, sched, causal, D ** -0.5, bq_, bk_)
+    n = (fa.bsp_dq.launches, fa.bsp_dkv.launches)
+    dq = fa.bsp_dq(*args)
+    dk, dv = fa.bsp_dkv(*args)
+    torch.cuda.synchronize()
+    assert (fa.bsp_dq.launches, fa.bsp_dkv.launches) == (n[0] + 1, n[1] + 1)
+    rounded, exact = (fa.flash_attention_block_sparse_backward_plain(
+        q, k, v, o, lse, do, bm, causal, None, bq, bk, round_p_ds=rnd)
+        for rnd in (True, False))
+    for t, r, e in zip((dq, dk, dv), rounded, exact):
+        _close_bwd(t, r, e)
+    for ki in np.nonzero(~pruned.any(0))[0]:
+        assert not dk[:, :, ki * bk_:(ki + 1) * bk_].any()
+        assert not dv[:, :, ki * bk_:(ki + 1) * bk_].any()
+    if mask is _f9_mask and causal:  # rows 0..bk-1 see no live column
+        assert not dq[:, :, :bk_].any()
+    dq2 = fa.bsp_dq(*args)
+    dk2, dv2 = fa.bsp_dkv(*args)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
 
 
 def test_block_sparse_refuses_other_shapes(dev):
