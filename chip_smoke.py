@@ -98,7 +98,13 @@ launches, counted from 0) against F.conv2d + ReLU; ``conv2d_autotuned`` at
 (32, 56, 56, 64) -> 64 (native against pairs) and (16, 28, 28, 256) -> 256
 (native against im2col on M1), each candidate's time and the winner. Each
 kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
-where one PyTorch call computes the same function, that call's time. Then a
+where one PyTorch call computes the same function, that call's time. A K0
+kernel's time in phases a, e and q is its device time with a cold L2
+(``cold_ms``), printed beside a call's time back to back (host included),
+with the printer's mapping: "warp-lines" (a unit on a warp, 16-byte
+chunks a lane where the buffers are aligned) or "thread"; phase 2 lists
+the built K0 kernels by mapping, and phases f and h profile a step (K0's
+share of device time). Then a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero before the last line; without a CUDA device
 (or without the package beside it) the script exits non-zero and prints no
@@ -171,6 +177,25 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters=20):
+    """Median device time of one call of ``fn`` with a cold L2: each call
+    follows a read of 1 GiB, which evicts the 50 MB L2 and hides the
+    call's host time (the call is enqueued while the read runs), between
+    CUDA events around the call alone. The buffer is freed on return."""
+    flush = torch.empty(256 << 20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def compare(got, ref, what, tol=None):
@@ -380,6 +405,13 @@ def grad_call(fn, inputs, dy):
     return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
 
+# operations an element of the row-wise K0 kernels (their IR's arithmetic,
+# erf and exp counted as one each), for their bounds
+K0_OPS = {"gelu": 8, "softmax": 5, "normalize": 3, "layernorm": 7,
+          "rmsnorm": 4, "gelu bwd": 20, "softmax bwd": 4,
+          "layernorm bwd": 10, "rmsnorm bwd": 8}
+
+
 def elementwise_bound(n, elem, moved, flops_per_elem):
     """Bound of a row-wise K0 kernel over ``n`` elements of ``elem`` bytes
     that moves ``moved`` such tensors and computes in f32."""
@@ -406,7 +438,8 @@ def dsl_cases(dev, gen):
             return lambda: (G.launch_gelu(c, hx, ho, checked=checked),
                             ho.tensor)[1]
         cases.append(dict(name=what, prepare=prepare,
-                          plain=lambda: _plain_gelu(x), tol=None))
+                          plain=lambda: _plain_gelu(x), tol=None,
+                          bound=(x.numel(), 4, 2, K0_OPS["gelu"])))
 
     gelu_case("gelu exact f32 1M", rn(1 << 20), False, False)
     gelu_case("gelu checked f32 1M (ragged: 10^6)", rn(10**6), True, False)
@@ -439,7 +472,9 @@ def dsl_cases(dev, gen):
                 f"{str(dtype)[6:]} {rows}x{row}")
         cases.append(dict(name=name, prepare=prepare, plain=plain,
                           tol=CHAIN_TOL if dtype == torch.bfloat16
-                          else None))
+                          else None,
+                          bound=(x.numel(), x.element_size(), 2,
+                                 K0_OPS[op])))
 
     for op in ("softmax", "normalize", "layernorm"):
         norm_case(op, rn(4, 1024), torch.float32)
@@ -460,7 +495,8 @@ def dsl_cases(dev, gen):
         def prepare(c, op=op, args=args):
             return lambda: getattr(F, op)(*args, client=c)
         cases.append(dict(name=f"{op} fwd bf16 8192x2048", prepare=prepare,
-                          plain=plain, tol=None))
+                          plain=plain, tol=None,
+                          bound=(x.numel(), 2, 2, K0_OPS[op])))
     cases[-1]["library"] = lambda: TF.rms_norm(x, (2048,), g, RMS_EPS)
     for shape, dtype in K0_SERVE_SHAPES:
         # own names: the plain lambdas above read x and g when called
@@ -473,31 +509,51 @@ def dsl_cases(dev, gen):
                  f" {'x'.join(map(str, shape))} (llama serve)", prepare=prepare,
             plain=lambda xs=xs, gs=gs: _plain_rmsnorm(xs, gs, RMS_EPS),
             tol=None, library=lambda xs=xs, gs=gs: TF.rms_norm(
-                xs, (xs.shape[-1],), gs, RMS_EPS)))
+                xs, (xs.shape[-1],), gs, RMS_EPS),
+            bound=(xs.numel(), xs.element_size(), 2, K0_OPS["rmsnorm"])))
     return cases
+
+
+def k0_mapping(compiled):
+    """(mapping, 16-byte branch) of a built K0 kernel, read from its
+    printed source: "warp-lines" (a unit on a warp) or "thread" (a unit on
+    a thread), and whether it moves 16-byte chunks where aligned."""
+    src = compiled.source
+    return ("warp-lines" if "mapping=warp-lines" in src else "thread",
+            "if (cc_aligned)" in src)
 
 
 def run_case(case, cu, ev, card, phase="a"):
     """Phase a (or e), one case: the K0 kernel against the torch evaluator
-    on the card and against the plain formula; kernel and plain times."""
+    on the card and against the plain formula; kernel and plain times,
+    the bound of its bytes and operations (``case["bound"]``: elements,
+    bytes an element, tensors moved, operations an element) and the
+    kernel's mapping."""
     what = f"K0 {case['name']}"
     got = case["prepare"](cu)()
+    mapping, vec16 = k0_mapping(cu.server.last_launched)
     want = case["prepare"](ev)()
     torch.cuda.synchronize()
     err_ev = compare(got, want, f"{what} vs evaluator")
     err = compare(got, case["plain"](), f"{what} vs plain", case["tol"])
     launch = case["prepare"](cu)
-    ms = cuda_ms(launch)
+    ms = cold_ms(launch)
+    call_ms = cuda_ms(launch)
     plain_ms = cuda_ms(case["plain"])
-    lib_ms = cuda_ms(case["library"]) if "library" in case else None
+    lib_ms = cold_ms(case["library"]) if "library" in case else None
     tol = case["tol"] or TOL[got.dtype]
     lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    bms, by = elementwise_bound(*case["bound"])
     print(f"phase {phase} {what}: max abs err {err} vs plain (atol/rtol {tol}), "
           f"{err_ev} vs the torch evaluator (atol/rtol {TOL[got.dtype]}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib} [{card}]",
+          f"kernel {ms:.4f} ms (cold L2; a call back to back {call_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms{lib}, bound {bms:.4f} ms ({by}); "
+          f"mapping {mapping}{', 16-byte branch' if vec16 else ''} [{card}]",
           flush=True)
     return {"name": case["name"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms}
+            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms,
+            "bound_by": by, "mapping": mapping, "vector_16_byte": vec16}
 
 
 def k0_ptxas(cu):
@@ -714,7 +770,9 @@ def bwd_cases(dev, gen):
             cases.append(dict(
                 name=f"_{op}_{kind}_k {_dt(dt)} {size}", op=op, kind=kind,
                 prepare=lambda c, launch=launch: (lambda: launch(c)),
-                plain=plain, tol=chain, library=library[kind]))
+                plain=plain, tol=chain, library=library[kind],
+                bound=(x.numel(), x.element_size(), 2 if kind == "fwd"
+                       else 3, K0_OPS[op if kind == "fwd" else op + " bwd"])))
     for dt in (torch.float32, torch.bfloat16):
         z = rn(8192, 2048, dtype=torch.float32)
         y = torch.softmax(z, -1).to(dt)
@@ -725,6 +783,7 @@ def bwd_cases(dev, gen):
                 F._softmax_bwd_k, y, [y, dy], client=c)),
             plain=lambda y=y, dy=dy: _plain_softmax_bwd(y, dy),
             tol=CHAIN_TOL if dt == torch.bfloat16 else None,
+            bound=(y.numel(), y.element_size(), 3, K0_OPS["softmax bwd"]),
             library=grad_call(lambda z: torch.softmax(z, -1), (z.to(dt),),
                               dy)))
     return cases
@@ -949,7 +1008,8 @@ def profile_step(step, model, tokens):
                "flash forward" if "flash_fwd" in n else
                "paged chunked (P3)" if "paged_chunked" in n else
                "paged decode (P1)" if "paged_decode" in n else
-               "K0 @cube" if re.search(r"_(rmsnorm|layernorm|gelu)_", n) else
+               "K0 @cube" if re.search(r"_(rmsnorm|layernorm|gelu|softmax)_"
+                                       r"(fwd|bwd)_k", n) else
                "GEMM" if re.search(r"gemm|nvjet|xmma|cutlass|sm90", n, re.I)
                else "other")
         ms = e.time_range.elapsed_us() / 1e3
@@ -1017,6 +1077,10 @@ def train_llama(llama, fa, cu, dev, card):
               f"[{card}]", flush=True)
     del model, step
     torch.cuda.empty_cache()
+    k0_share = None if prof is None else dict(
+        k0_ms=prof[2].get("K0 @cube", 0.0), busy_ms=prof[1],
+        share_of_busy=prof[2].get("K0 @cube", 0.0) / prof[1],
+        step_wall_ms=prof[0])
     cfg_r = dataclasses.replace(cfg, remat=True)
     model = llama.init_params(cfg_r, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1032,7 +1096,7 @@ def train_llama(llama, fa, cu, dev, card):
           f"memory {peak_r:.2f} GiB [{card}]", flush=True)
     del model
     torch.cuda.empty_cache()
-    return {k: v for k, v in launches.items()}
+    return {k: v for k, v in launches.items()}, k0_share
 
 
 def train_exactness(llama, dev, framework):
@@ -1118,6 +1182,18 @@ def train_transformer(fa, cu, dev, card):
           f"{peak:.2f} GiB; "
           f"launches per step { {k: v // steps for k, v in launches.items()} }"
           f" [{card}]", flush=True)
+    prof = profile_step(step, model, tokens)
+    if prof is None:
+        print("phase h profile: the trace holds no device time; device "
+              "busy share not measured", flush=True)
+    else:
+        wall, busy, groups, top = prof
+        print(f"phase h profile of one step: wall {wall:.2f} ms, device "
+              f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%, idle "
+              f"{100 - 100 * busy / wall:.1f}%); device ms by group "
+              f"{ {k: round(v, 3) for k, v in sorted(groups.items())} }; "
+              f"longest in other: { {k: round(v, 3) for k, v in top} } "
+              f"[{card}]", flush=True)
     del model, step
     torch.cuda.empty_cache()
     return launches
@@ -2723,8 +2799,10 @@ def fusion_and_std(FU, S, cu, ev, dev, gen, card):
     th = S.TensorHandle(cu.create(src), CONTIG_VIEW, CONTIG_STRIDES)
     torch.cuda.synchronize()
     cu.server.reset_counts()
+    maps = []
     for (ops, k), o in zip(FUSE_CASES, outs):
         FU.launch_fused(cu, hs[:k], o, list(ops))
+        maps.append(k0_mapping(cu.server.last_launched))
     dense = S.into_contiguous(cu, th)
     eye = S.identity(cu, EYE_N)
     torch.cuda.synchronize()
@@ -2736,25 +2814,31 @@ def fusion_and_std(FU, S, cu, ev, dev, gen, card):
     a, b, c = ins
     plains = [lambda: torch.relu((a + b) * c), lambda: _plain_gelu(a + b)]
     rows = {}
-    for (ops, k), o, plain in zip(FUSE_CASES, outs, plains):
+    for (ops, k), o, plain, (mapping, vec16) in zip(FUSE_CASES, outs, plains,
+                                                    maps):
         what = " -> ".join(ops)
         eo = ev.empty((FUSE_N,), "float32")
         FU.launch_fused(ev, [ev.create(t) for t in ins[:k]], eo, list(ops))
         torch.cuda.synchronize()
         err_ev = compare(o.tensor, eo.tensor, f"phase q {what} vs evaluator")
         err = compare(o.tensor, plain(), f"phase q {what} vs plain")
-        ms = cuda_ms(lambda: FU.launch_fused(cu, hs[:k], o, list(ops)))
+        ms = cold_ms(lambda: FU.launch_fused(cu, hs[:k], o, list(ops)))
+        call_ms = cuda_ms(lambda: FU.launch_fused(cu, hs[:k], o, list(ops)))
         plain_ms = cuda_ms(plain)
         bms, by = bound_ms(len(ops) * FUSE_N, (k + 1) * FUSE_N * 4,
                            torch.float32)
         print(f"phase q K0 fused_chain {what} f32 16M (one launch): max abs "
               f"err {err} vs plain, {err_ev} vs the torch evaluator; kernel "
-              f"{ms:.4f} ms ({(k + 1) * FUSE_N * 4 / ms / 1e6:.0f} GB/s), "
+              f"{ms:.4f} ms ({(k + 1) * FUSE_N * 4 / ms / 1e6:.0f} GB/s; cold "
+              f"L2; a call back to back {call_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms (eager torch ops), bound {bms:.4f} "
-              f"ms ({by}); no one PyTorch call computes it [{card}]",
+              f"ms ({by}); no one PyTorch call computes it; mapping "
+              f"{mapping}{', 16-byte branch' if vec16 else ''} [{card}]",
               flush=True)
-        rows[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+        rows[what] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None,
+                          mapping=mapping, vector_16_byte=vec16)
     view = src.view(CONTIG_SRC)[:, ::2, :]
     if not torch.equal(dense.handle.tensor, view.reshape(-1)) or \
             not torch.equal(eye.tensor.view(EYE_N, EYE_N),
@@ -2767,12 +2851,17 @@ def fusion_and_std(FU, S, cu, ev, dev, gen, card):
     e_ms = cuda_ms(lambda: S.identity(cu, EYE_N), iters=10)
     e_plain = cuda_ms(lambda: torch.eye(EYE_N, device=dev), iters=10)
     e_b, e_by = bound_ms(0, EYE_N * EYE_N * 4, torch.float32)
+    S.into_contiguous(cu, th)
+    c_map = k0_mapping(cu.server.last_launched)[0]
+    S.identity(cu, EYE_N)
+    e_map = k0_mapping(cu.server.last_launched)[0]
     print(f"phase q into_contiguous {CONTIG_VIEW} view of {CONTIG_SRC} f32 "
           f"(strides {CONTIG_STRIDES}, _copy_permuted on K0): equal to "
           f"plain; {c_ms:.4f} ms, .contiguous() {c_plain:.4f} ms, bound "
           f"{c_b:.4f} ms ({c_by}); identity({EYE_N}) (_identity_kernel): "
           f"equal to torch.eye; {e_ms:.4f} ms, torch.eye {e_plain:.4f} ms, "
-          f"bound {e_b:.4f} ms ({e_by}) [{card}]", flush=True)
+          f"bound {e_b:.4f} ms ({e_by}); mappings {c_map}, {e_map} [{card}]",
+          flush=True)
     return dict(rows=rows, launches=launches,
                 contiguous=dict(ms=c_ms, plain_ms=c_plain, bound_ms=c_b),
                 identity=dict(ms=e_ms, plain_ms=e_plain, bound_ms=e_b))
@@ -3674,12 +3763,16 @@ def main():
           f"{max(r for r, _ in gemm)} registers, stack or spills in "
           f"{sum(1 for _, s in gemm if s in spills)} ({'; '.join(spills)})",
           flush=True)
-    n_k0 = sum(hasattr(c.fn, "build") for c in cu.server._cache.values())
-    print(f"phase 2 build K0: {n_k0} @cube kernels "
+    k0_built = [c for c in cu.server._cache.values() if hasattr(c.fn, "build")]
+    k0_maps = {m: sorted({c.name for c in k0_built
+                          if k0_mapping(c)[0] == m})
+               for m in ("warp-lines", "thread")}
+    print(f"phase 2 build K0: {len(k0_built)} @cube kernels "
           f"printed and built by nvcc in parallel with csrc, "
           f"{build_wall:.1f} s wall for all, {cu.server.build_seconds():.1f}"
           f" s of nvcc summed; ptxas stack/spill per kernel: "
-          f"{k0_ptxas(cu)}", flush=True)
+          f"{k0_ptxas(cu)}; the printer's mapping by kernel, at this "
+          f"script's launches: {k0_maps}", flush=True)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -3838,7 +3931,7 @@ def main():
     checked = set(cu.server._cache)
 
     # -- phase f: train llama 0.77B bf16 at full width ----------------------
-    f_launches = train_llama(llama, fa, cu, dev, card)
+    f_launches, f_k0_share = train_llama(llama, fa, cu, dev, card)
 
     # -- phase g: train exactness, kernels vs plain -------------------------
     for framework in (True, False):
@@ -4021,6 +4114,11 @@ def main():
         k0_row("k0_cube_kernels", dict(rms), 8192 * 2048, 2, 2, 4,
                launches=k0_serve["launches"],
                library="F.rms_norm",
+               mapping=rms["mapping"], vector_16_byte=rms["vector_16_byte"],
+               k0_share_of_device_time_phase_f=f_k0_share,
+               mappings_phases_a_e={r["name"]: r["mapping"]
+                                    for r in k0_rows + list(e_rows.values())},
+               kernels_by_mapping=k0_maps,
                main_path_kernel="_rmsnorm_fwd_k (llama RMSNorm, prefill "
                                 "8x1024 rows of 2048 bf16)",
                decode_8x2048={k: rms_dec[k] for k in
@@ -4068,17 +4166,20 @@ def main():
                8 * 1023 * 2048, 2, 3, 8,
                launches=f_launches["_rmsnorm_bwd_k"],
                library="the autograd backward of F.rms_norm (dx and dg)",
-               shape="bf16 8x1023x2048"),
+               shape="bf16 8x1023x2048",
+               mapping=e("_rmsnorm_bwd_k bf16 8x1023x2048")["mapping"]),
         k0_row("_layernorm_bwd_k", e("_layernorm_bwd_k bf16 8x1024x768"),
                8 * 1024 * 768, 2, 3, 10,
                launches=h_launches["_layernorm_bwd_k"],
                library="the autograd backward of F.layer_norm (dx, dg, db)",
-               shape="bf16 8x1024x768"),
+               shape="bf16 8x1024x768",
+               mapping=e("_layernorm_bwd_k bf16 8x1024x768")["mapping"]),
         k0_row("_gelu_bwd_k", e("_gelu_bwd_k bf16 8x1024x3072"),
                8 * 1024 * 3072, 2, 3, 20,
                launches=h_launches["_gelu_bwd_k"],
                library="the autograd backward of F.gelu(approximate="
-                       "'none')", shape="bf16 8x1024x3072"),
+                       "'none')", shape="bf16 8x1024x3072",
+               mapping=e("_gelu_bwd_k bf16 8x1024x3072")["mapping"]),
         row("matmul", "cubecl_tpu_torch/csrc/matmul.cu",
             "cubecl_tpu/ops/matmul.py:43", n_out["launches"]["matmul_pallas"],
             n_out["matmul"], n_out["matmul"]["library_ms"],
@@ -4141,6 +4242,9 @@ def main():
             q_out["rows"]["add -> mul -> relu"], None,
             library="none: no one PyTorch call computes relu((a+b)*c)",
             shape="relu((a+b)*c), f32 16M",
+            mapping=q_out["rows"]["add -> mul -> relu"]["mapping"],
+            vector_16_byte=q_out["rows"]["add -> mul -> relu"][
+                "vector_16_byte"],
             add_gelu=q_out["rows"]["add -> gelu"],
             into_contiguous=q_out["contiguous"],
             identity=q_out["identity"]),

@@ -64,15 +64,41 @@ The mapping:
 - ``op.reinterpret`` is a bit copy (``memcpy``) of the value's storage,
   the line absorbing the width ratio.
 
-What bounds a printed kernel: it is the DSL kernel as written, one thread
-per unit. A kernel with wide lines (the ``*_lines`` normalization kernels
-and ``ops/functional.py``: a whole row of up to 16384 elements on one
-line) reads its row with one thread, element by element, once per
-reduction and once for the store; with the chains inlined it needs no
-local memory. An in-place kernel (``softmax_lines_inplace``) still keeps
-its row in an array, which lives in local memory. Rows over a block and
-vector loads are later work; PERF.md keeps each time beside the plain
-torch version.
+Warp lines. A kernel whose lines are all wide runs each unit on a warp
+instead of a thread (``mapping=warp-lines`` in the printed comment), so
+that a warp's loads are 32 neighbouring 16-byte chunks instead of 32 rows
+a row apart. :func:`warp_vector` decides it from the definition alone: V
+= 16 bytes / the storage bytes of the narrowest buffer with lines (4 for
+f32, 8 for bf16/f16), and the kernel qualifies when every line value has
+at least 32·V elements and it has no ``plane.*``, ``sync.*``,
+``mem.block_reduce``, ``mma.*``, atomic or ``op.reinterpret`` op, reads no
+``UNIT_POS_PLANE``/``PLANE_POS``/``PLANE_DIM`` and takes or sets no single
+element of a line (``vec_extract``/``vec_insert``/``vec_init``). Then:
+
+- ``blockDim.x`` is units × 32 (over 1024 raises ``ValueError``),
+  ``unit_pos = threadIdx.x >> 5`` and ``lane = threadIdx.x & 31``; every
+  unit-level builtin keeps its value, so the body's indexing and the
+  launch's cube count and dim do not change;
+- scalars and control flow are computed by the 32 lanes redundantly:
+  they are uniform across them, so branches do not diverge;
+- each loop over a line's elements runs over the lane's share only: lane
+  ``lane`` owns the chunks of V contiguous elements ``(k·32 + lane)·V +
+  j``, and a per-thread line array holds ``L / 32`` elements (its local
+  index ``k·V + j``);
+- where ``L % (32·V) == 0`` a loop moves each chunk as 16-byte loads and
+  stores (``uint4``) when every such buffer is 16-byte aligned
+  (``cc_aligned``, uniform over the launch), and element by element in
+  the other branch of the same kernel; other lines are walked element by
+  element, past ``L`` skipped;
+- a line reduction folds the lane's share in the compute type (f32 for
+  sub-f32 floats), then the warp with a ``__shfl_xor_sync`` butterfly, so
+  every lane holds the row's value; a store writes the lane's elements
+  only.
+
+Every other kernel keeps the mapping above, one thread per unit: a line
+is walked by one thread, element by element, once per reduction and once
+for the store (the 8-unit ``*_rows`` kernels with ``plane_sum``, the
+reductions, cmma, quant, gelu's 4-element lines).
 
 Ops this printer does not lower raise ``NotImplementedError`` naming the
 op (``backend.compiler.unsupported``): atomics, ``mem.slice``, shared
@@ -103,6 +129,23 @@ _INLINE_LIMIT = 600
 
 # accumulators (and loads in flight) per thread of a block reduction
 _BR_ACC = 8
+
+# warp lines: lanes of a warp, the bytes of a chunk a lane moves at once,
+# and the most threads a block may have
+LANES = 32
+_CHUNK = 16
+MAX_THREADS = 1024
+# a line loop over this many chunks a lane or fewer is unrolled; a longer
+# one is left to nvcc (unrolled in full, a long chain such as gelu's
+# backward holds every chunk's loads in registers and runs slower)
+_UNROLL_CHUNKS = 4
+# what a warp-lined kernel may not hold: ops by prefix and by name, and
+# the plane builtins (read before the passes fold PLANE_DIM)
+_WARP_EXCLUDED_PREFIXES = ("plane.", "sync.", "mma.", "atomic.", "barrier.")
+_WARP_EXCLUDED_OPS = frozenset({O.BLOCK_REDUCE, O.REINTERPRET,
+                                O.VEC_EXTRACT, O.VEC_INSERT, O.VEC_INIT})
+_PLANE_BUILTINS = frozenset({Builtin.UNIT_POS_PLANE, Builtin.PLANE_POS,
+                             Builtin.PLANE_DIM})
 
 _STORAGE = {
     "f64": "double", "f32": "float", "flex32": "float",
@@ -215,12 +258,22 @@ def _shfl_type(elem: ElemType) -> str:
 
 
 class _Printer:
-    def __init__(self, defn: KernelDefinition, kernel_name: str):
+    def __init__(self, defn: KernelDefinition, kernel_name: str,
+                 vec: int = 0):
         self.defn = defn
         self.name = kernel_name
         st = defn.state
         self.U = math.prod(defn.cube_dim)
         self.P = defn.plane_dim
+        # warp lines: V elements a chunk (0: a unit is a thread)
+        self.V = vec
+        self.threads = self.U * LANES if vec else self.U
+        # the vector form of a line loop being printed: its 16-byte chunks,
+        # {(buffer vid, index, stored): name}; None outside such a loop
+        self.chunks: Optional[Dict[tuple, str]] = None
+        # set while inline() measures an expression: buffers print as
+        # under one thread a unit, so both mappings inline alike
+        self.measuring = False
         self.lines: List[str] = []
         self.depth = 1
         self.buffers = {bp.value.vid: bp for bp in st.buffers}
@@ -323,7 +376,12 @@ class _Printer:
         if v.ty.line == 1 or any(a.kind == VarKind.LOCAL_MUT
                                  for a in operands):
             return False
-        if len(elem_expr("l")) > _INLINE_LIMIT:
+        self.measuring = True
+        try:
+            n = len(elem_expr("l"))
+        finally:
+            self.measuring = False
+        if n > _INLINE_LIMIT:
             return False
         self.exprs[v.vid] = elem_expr
         self.blocks[-1].add(v.vid)
@@ -334,7 +392,7 @@ class _Printer:
         name."""
         n = self.name_of(v)
         if v.kind == VarKind.LOCAL and not self.visible(v):
-            arr = f"[{v.ty.line}]" if v.ty.line > 1 else ""
+            arr = f"[{self.local_len(v.ty.line)}]" if v.ty.line > 1 else ""
             self.emit(f"{_storage(v.ty.elem)} {n}{arr};")
             self.blocks[-1].add(v.vid)
         return n
@@ -353,6 +411,11 @@ class _Printer:
                 f"kernel {self.name}: its cmma fragments need "
                 f"{self.smem_bytes} bytes of shared memory, over the "
                 f"{MAX_SMEM} bytes a block may use")
+        if self.threads > MAX_THREADS:
+            raise ValueError(
+                f"kernel {self.name}: warp lines give each of its {self.U} "
+                f"units a warp, {self.threads} threads, over the "
+                f"{MAX_THREADS} a block may have")
         params = []
         for bp in st.buffers:
             const = "" if bp.mutable else "const "
@@ -365,18 +428,29 @@ class _Printer:
             params.append(f"{_storage(sp.ty.elem)} s{sp.value.vid}")
         ux, uy, uz = d.cube_dim
         cx, cy, _cz = d.cube_count
+        mapping = f" mapping=warp-lines vector={self.V}" if self.V else ""
         out = [PRELUDE,
                f"// {self.name}: cube_dim={d.cube_dim} "
                f"cube_count={d.cube_count} plane={self.P} "
-               f"checked={d.options.checked}",
-               f"extern \"C\" __global__ void __launch_bounds__({self.U}) "
-               f"{self.name}(",
+               f"checked={d.options.checked}{mapping}",
+               f"extern \"C\" __global__ void __launch_bounds__"
+               f"({self.threads}) {self.name}(",
                "    " + ",\n    ".join(params) + ") {"]
-        builtins = [
-            f"const int32_t unit_pos_x = threadIdx.x, unit_pos_y = "
-            f"threadIdx.y, unit_pos_z = threadIdx.z;",
-            f"const int32_t unit_pos = unit_pos_x + unit_pos_y * {ux} + "
-            f"unit_pos_z * {ux * uy};",
+        if self.V:
+            # a unit is a warp: the block is units x 32 threads in x
+            builtins = [
+                "const int32_t lane = threadIdx.x & 31, unit_pos = "
+                "threadIdx.x >> 5;",
+                f"const int32_t unit_pos_x = unit_pos % {ux}, unit_pos_y = "
+                f"unit_pos / {ux} % {uy}, unit_pos_z = unit_pos / "
+                f"{ux * uy};"]
+        else:
+            builtins = [
+                f"const int32_t unit_pos_x = threadIdx.x, unit_pos_y = "
+                f"threadIdx.y, unit_pos_z = threadIdx.z;",
+                f"const int32_t unit_pos = unit_pos_x + unit_pos_y * {ux} + "
+                f"unit_pos_z * {ux * uy};"]
+        builtins += [
             "const int32_t cube_pos_x = blockIdx.x, cube_pos_y = "
             "blockIdx.y, cube_pos_z = blockIdx.z;",
             f"const int32_t cube_pos = cube_pos_x + cube_pos_y * {cx} + "
@@ -385,11 +459,17 @@ class _Printer:
             f"const int32_t absolute_pos_x = cube_pos_x * {ux} + unit_pos_x;",
             f"const int32_t absolute_pos_y = cube_pos_y * {uy} + unit_pos_y;",
             f"const int32_t absolute_pos_z = cube_pos_z * {uz} + unit_pos_z;",
-            f"const int32_t unit_pos_plane = unit_pos % {self.P}, "
-            f"plane_pos = unit_pos / {self.P};",
         ]
+        if not self.V:
+            builtins.append(f"const int32_t unit_pos_plane = unit_pos % "
+                            f"{self.P}, plane_pos = unit_pos / {self.P};")
         for b in builtins:
             self.emit(b)
+        vec_bufs = [f"reinterpret_cast<uintptr_t>(b{bp.value.vid})"
+                    for bp in st.buffers if self.vector_form(bp.ty.line)]
+        if vec_bufs:
+            self.emit(f"const bool cc_aligned = (({' | '.join(vec_bufs)}) "
+                      f"& {_CHUNK - 1}) == 0;")
         if st.matrices:
             self.emit("extern __shared__ __align__(16) unsigned char "
                       "cc_smem[];")
@@ -405,7 +485,7 @@ class _Printer:
             if o is not None and o.kind == VarKind.LOCAL_MUT:
                 muts[o.vid] = o
         for m in muts.values():
-            arr = f"[{m.ty.line}]" if m.ty.line > 1 else ""
+            arr = f"[{self.local_len(m.ty.line)}]" if m.ty.line > 1 else ""
             self.emit(f"{_storage(m.ty.elem)} v{m.vid}{arr};")
         self.scope(d.scope)
         out.extend(self.lines)
@@ -538,6 +618,104 @@ class _Printer:
             return "0xffffffffu"
         return f"0x{(1 << self.P) - 1:x}u"
 
+    # ------------------------------------------------------- warp lines
+
+    def local_len(self, L: int) -> int:
+        """Elements of a line of ``L`` a thread holds: all of them, or
+        under warp lines its lane's chunks."""
+        if not self.V:
+            return L
+        return -(-L // (LANES * self.V)) * self.V
+
+    def vector_form(self, L: int) -> bool:
+        """Are a line loop's chunks moved as 16-byte vectors?"""
+        return bool(self.V) and L > 1 and L % (LANES * self.V) == 0
+
+    def lane_elem(self, l: str) -> str:
+        """The element of a line that local element ``l`` of a lane is."""
+        V = self.V
+        if V == 1:
+            return f"({l}) * {LANES} + lane"
+        return (f"(({l}) >> {V.bit_length() - 1}) * {LANES * V} + lane * {V}"
+                f" + (({l}) & {V - 1})")
+
+    def lane_loop(self, L: int, body: Callable[[str], List[str]],
+                  vector: bool = True) -> None:
+        """Under warp lines, the statements ``body(l)`` for each local
+        element ``l`` of the lane's share of a line of ``L``: in the vector
+        form (16-byte chunks) under ``cc_aligned`` and element by element
+        in its other branch where ``L % (32·V) == 0`` (and ``vector``) and
+        the statements touch a buffer, else element by element only."""
+        chunks = None
+        if vector and self.vector_form(L):
+            self.chunks = {}
+            try:
+                stmts = body("l")
+                chunks = self.chunks
+            finally:
+                self.chunks = None
+        if chunks:
+            self.open("if (cc_aligned)")
+            self.vector_loop(L, stmts, chunks)
+            self.close("} else {")
+            self.depth += 1
+            self.blocks.append(set())
+            self.scalar_lane_loop(L, body)
+            self.close()
+        else:
+            self.scalar_lane_loop(L, body)
+
+    def scalar_lane_loop(self, L: int, body) -> None:
+        n = self.local_len(L)
+        if n <= _UNROLL_CHUNKS * self.V:
+            self.emit("#pragma unroll")
+        self.open(f"for (int l = 0; l < {n}; ++l)")
+        if L % (LANES * self.V):
+            self.emit(f"if ({self.lane_elem('l')} >= {L}) break;")
+        for st in body("l"):
+            self.emit(st)
+        self.close()
+
+    def vector_loop(self, L: int, stmts: List[str], chunks) -> None:
+        """Chunk k of the lane: its loads (``chunks``) as ``uint4``s into
+        registers, the V elements' statements, then its stores as
+        ``uint4``s."""
+        V = self.V
+        K = L // (LANES * V)
+        if K <= _UNROLL_CHUNKS:
+            self.emit("#pragma unroll")
+        self.open(f"for (int k = 0; k < {K}; ++k)")
+        self.emit(f"const int64_t cc_e = (int64_t)(k * {LANES} + lane) * {V};")
+
+        def at(vid, i):
+            return f"b{vid} + {i} * {L} + cc_e"
+
+        for (vid, i, stored), name in chunks.items():
+            bp = self.buffers[vid]
+            t = _storage(bp.ty.elem)
+            nq = V * bp.ty.elem.size // _CHUNK
+            self.emit(f"uint4 {name}_u[{nq}];")
+            if stored:
+                self.emit(f"{t}* {name} = reinterpret_cast<{t}*>({name}_u);")
+                continue
+            for q in range(nq):
+                self.emit(f"{name}_u[{q}] = reinterpret_cast<const uint4*>("
+                          f"{at(vid, i)})[{q}];")
+            self.emit(f"const {t}* {name} = reinterpret_cast<const {t}*>("
+                      f"{name}_u);")
+        self.emit("#pragma unroll")
+        self.open(f"for (int j = 0; j < {V}; ++j)")
+        self.emit(f"const int l = k * {V} + j;")
+        for st in stmts:
+            self.emit(st)
+        self.close()
+        for (vid, i, stored), name in chunks.items():
+            if stored:
+                for q in range(V * self.buffers[vid].ty.elem.size // _CHUNK):
+                    self.emit(f"reinterpret_cast<uint4*>({at(vid, i)})[{q}] "
+                              f"= {name}_u[{q}];")
+        self.close()
+
     # ------------------------------------------------------------ memory
 
     def buffer(self, v: Value):
@@ -545,11 +723,24 @@ class _Printer:
             raise unsupported(f"{v.kind.value} memory", _BACKEND)
         return self.buffers[v.vid]
 
-    def elem_at(self, bp, idx: Value, l: str) -> str:
+    def elem_at(self, bp, idx: Value, l: str, stored: bool = False) -> str:
+        """Element ``l`` of line ``idx`` of a buffer; under warp lines
+        ``l`` is the lane's local element (in a vector-form loop, element
+        ``j`` of the chunk; ``stored``: the chunk to be stored)."""
         L = bp.ty.line
         i = self.cval(idx, i64)
-        return f"b{bp.value.vid}[{i} * {L} + {l}]" if L > 1 else \
-            f"b{bp.value.vid}[{i}]"
+        vid = bp.value.vid
+        if L == 1:
+            return f"b{vid}[{i}]"
+        if self.V and not self.measuring:
+            if self.chunks is not None:
+                key = (vid, i, stored)
+                if key not in self.chunks:
+                    self.chunks[key] = f"cc_{'s' if stored else 'c'}" \
+                                       f"{len(self.chunks)}"
+                return f"{self.chunks[key]}[j]"
+            l = self.lane_elem(l)
+        return f"b{vid}[{i} * {L} + {l}]"
 
     def store(self, inst) -> None:
         op = inst.op
@@ -560,7 +751,11 @@ class _Printer:
         if guarded:
             self.open(f"if ({self.cval(op.args[3], bool_)})")
         elem = bp.ty.elem
-        if L > 1:
+        if L > 1 and self.V:
+            self.lane_loop(L, lambda l: [
+                f"{self.elem_at(bp, idx, l, stored=True)} = "
+                f"{self.convert(val, elem, l if val.ty.line > 1 else None)};"])
+        elif L > 1:
             self.open(f"for (int l = 0; l < {L}; ++l)")
             rhs = self.convert(val, elem, "l" if val.ty.line > 1 else None)
             self.emit(f"{self.elem_at(bp, idx, 'l')} = {rhs};")
@@ -579,7 +774,11 @@ class _Printer:
 
     def copy_into(self, m: Value, v: Value) -> None:
         n = self.name_of(m)
-        if m.ty.line > 1:
+        if m.ty.line > 1 and self.V:
+            self.lane_loop(m.ty.line, lambda l: [
+                f"{n}[{l}] = "
+                f"{self.convert(v, m.ty.elem, l if v.ty.line > 1 else None)};"])
+        elif m.ty.line > 1:
             self.emit(f"for (int l = 0; l < {m.ty.line}; ++l) {n}[l] = "
                       f"{self.convert(v, m.ty.elem, 'l' if v.ty.line > 1 else None)};")
         else:
@@ -645,7 +844,10 @@ class _Printer:
                        op.args):
             return
         n = self.declare(out)
-        if L > 1:
+        if L > 1 and self.V:
+            self.lane_loop(L, lambda l: [
+                f"{n}[{l}] = {self.store_as(expr_of(l), elem)};"])
+        elif L > 1:
             self.emit(f"for (int l = 0; l < {L}; ++l) {n}[l] = "
                       f"{self.store_as(expr_of('l'), elem)};")
         else:
@@ -768,7 +970,14 @@ class _Printer:
         L = out.ty.line
         zero = self.lit_storage(0, out.ty.elem)
         m = self.cval(op.args[2], bool_) if masked else None
-        if L > 1:
+        if L > 1 and self.V:
+            # a masked line is read element by element: a chunk's vector
+            # load would not wait for the mask
+            self.lane_loop(L, lambda l: [
+                f"{n}[{l}] = "
+                + (f"({m}) ? {self.elem_at(bp, idx, l)} : {zero};" if masked
+                   else f"{self.elem_at(bp, idx, l)};")], vector=not masked)
+        elif L > 1:
             src = self.elem_at(bp, idx, "l")
             rhs = f"({m}) ? {src} : {zero}" if masked else src
             self.emit(f"for (int l = 0; l < {L}; ++l) {n}[l] = {rhs};")
@@ -876,6 +1085,23 @@ class _Printer:
 
         comb = {O.VEC_SUM: "acc + t", O.DOT: "acc + t",
                 O.VEC_MAX: "cc_max(acc, t)", O.VEC_MIN: "cc_min(acc, t)"}[oc]
+        if self.V and L > 1:
+            # the lane's share, then a butterfly over the warp: every lane
+            # ends with the line's value
+            kind = {O.VEC_SUM: "sum", O.DOT: "sum", O.VEC_MAX: "max",
+                    O.VEC_MIN: "min"}[oc]
+            self.open("")
+            self.emit(f"{ct} acc = {_identity(kind, elem)};")
+            self.lane_loop(L, lambda l: [f"const {ct} t = {term(l)};",
+                                         f"acc = {comb};"])
+            self.open(f"for (int o = {LANES // 2}; o > 0; o >>= 1)")
+            self.emit(f"const {ct} t = ({ct})__shfl_xor_sync(0xffffffffu, "
+                      f"({_shfl_type(elem)})acc, o, {LANES});")
+            self.emit(f"acc = {comb};")
+            self.close()
+            self.emit(f"{n} = {self.store_as('acc', elem)};")
+            self.close()
+            return
         self.open("")
         self.emit(f"{ct} acc = {term('0')};")
         self.open(f"for (int l = 1; l < {L}; ++l)")
@@ -1082,20 +1308,74 @@ def _promote(a: ElemType, b: ElemType) -> ElemType:
                                                b.torch_dtype()))
 
 
+def _values(inst):
+    op = inst.op
+    yield from op.args
+    if inst.out is not None:
+        yield inst.out
+    if "cond_value" in op.attrs:
+        yield op.attrs["cond_value"]
+
+
+def reads_plane_builtins(scope: Scope) -> bool:
+    """Does the scope read ``UNIT_POS_PLANE``, ``PLANE_POS`` or
+    ``PLANE_DIM``? (Ask before the passes, which fold ``PLANE_DIM``.)"""
+    return any(v.kind == VarKind.BUILTIN and v.payload in _PLANE_BUILTINS
+               for _s, inst in walk(scope) for v in _values(inst))
+
+
+def least_warp_line(elem_bytes: int) -> int:
+    """The fewest elements a line needs for warp lines when the narrowest
+    buffer with lines stores ``elem_bytes`` an element: 32 chunks of 16
+    bytes."""
+    return LANES * max(1, _CHUNK // elem_bytes)
+
+
+def warp_vector(defn: KernelDefinition, plane_builtins: bool = False) -> int:
+    """V of the warp-lines mapping for an optimized definition, or 0 when
+    it keeps one thread a unit (the rule of the module docstring).
+    ``plane_builtins``: the traced scope read a plane builtin."""
+    lines = [bp.ty.elem.size for bp in defn.state.buffers if bp.ty.line > 1]
+    if plane_builtins or not lines:
+        return 0
+    least = least_warp_line(min(lines))
+    V = least // LANES
+    if any(1 < bp.ty.line < least for bp in defn.state.buffers):
+        return 0
+    for _s, inst in walk(defn.scope):
+        oc = inst.op.opcode
+        if oc.startswith(_WARP_EXCLUDED_PREFIXES) or oc in _WARP_EXCLUDED_OPS:
+            return 0
+        for v in _values(inst):
+            if v.kind == VarKind.BUILTIN and v.payload in _PLANE_BUILTINS:
+                return 0
+            if 1 < v.ty.line < least:
+                return 0
+    return V
+
+
 def kernel_symbol(defn: KernelDefinition, digest: str) -> str:
     """A C identifier for the kernel: its name and its id's digest."""
     base = "".join(c if c.isalnum() else "_" for c in defn.options.name)
     return f"{base}_{digest[:12]}"
 
 
-def print_kernel(defn: KernelDefinition, symbol: str) -> str:
+def block_of(defn: KernelDefinition, vec: int):
+    """The threads of a block, (x, y, z): the cube dim, or under warp
+    lines its units x 32 in x."""
+    if vec:
+        return (math.prod(defn.cube_dim) * LANES, 1, 1)
+    return tuple(defn.cube_dim)
+
+
+def print_kernel(defn: KernelDefinition, symbol: str, vec: int = 0) -> str:
     """CUDA C++ of an optimized definition: the ``__global__`` function
     and an ``extern "C"`` launcher ``cubecl_launch(gx, gy, gz, stream,
     args)`` that returns ``cudaGetLastError()``; a kernel with cmma
     fragments launches with their dynamic shared memory, opting in once
-    above 48 KiB."""
-    body = _Printer(defn, symbol).print_kernel()
-    ux, uy, uz = defn.cube_dim
+    above 48 KiB. ``vec``: V of the warp-lines mapping (0: none)."""
+    body = _Printer(defn, symbol, vec).print_kernel()
+    ux, uy, uz = block_of(defn, vec)
     _, smem = fragment_layout(defn.state)
     opt_in = ""
     if smem > 48 * 1024:
@@ -1120,13 +1400,21 @@ extern "C" const char* cubecl_error_string(int code) {{
 """
 
 
-def cuda_source(defn: KernelDefinition, kernel_id: str = "") -> str:
-    """Optimize ``defn`` (in place) and print its CUDA C++; no nvcc."""
+def _print(defn: KernelDefinition, kernel_id: str = ""):
+    """Optimize ``defn`` (in place) and print it: (source, symbol, V of
+    the warp-lines mapping or 0)."""
+    plane = reads_plane_builtins(defn.scope)
     prepare_scope(defn)
     from .build import digest
 
     symbol = kernel_symbol(defn, kernel_id or digest(repr(defn.scope)))
-    return print_kernel(defn, symbol)
+    vec = warp_vector(defn, plane)
+    return print_kernel(defn, symbol, vec), symbol, vec
+
+
+def cuda_source(defn: KernelDefinition, kernel_id: str = "") -> str:
+    """Optimize ``defn`` (in place) and print its CUDA C++; no nvcc."""
+    return _print(defn, kernel_id)[0]
 
 
 class CudaCompiler(Compiler):
@@ -1141,14 +1429,14 @@ class CudaCompiler(Compiler):
                 kernel_id: str = "") -> CompiledKernel:
         from . import build
 
-        src = cuda_source(defn, kernel_id)
-        job = build.start(src, kernel_symbol(defn, kernel_id or build.digest(
-            repr(defn.scope))))
+        src, symbol, vec = _print(defn, kernel_id)
+        job = build.start(src, symbol)
         st = defn.state
         mut = [i for i, bp in enumerate(st.buffers) if bp.mutable]
         launcher = build.Launcher(job, defn)
         return CompiledKernel(fn=launcher, mutable_indices=mut, source=src,
-                              name=defn.options.name, block=defn.cube_dim,
+                              name=defn.options.name,
+                              block=block_of(defn, vec),
                               grid=defn.cube_count,
                               smem_bytes=fragment_layout(st)[1],
                               smem_opt_in=True)

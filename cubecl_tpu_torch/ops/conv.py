@@ -362,7 +362,11 @@ def conv2d_pairs_plain(x, w, cin: int = PAIR_CH):
 def conv3x3(x, w, cin: int = PAIR_CH):
     """C1 on NHWC-64: x (N, H, W, 64) and w (3, 3, 64, 64) in x's dtype ->
     (N, H, W, 64). The kernel on CUDA tensors (f32 or bf16; anything else
-    raises), :func:`conv2d_pairs_plain` on CPU tensors."""
+    raises), :func:`conv2d_pairs_plain` on CPU tensors. C1 has no
+    backward: under autograd this raises, on either device."""
+    native.refuse_grad("conv3x3 (C1, under conv2d_pairs and "
+                       "conv2d_pairs_packed)", "conv2d_pairs_plain or "
+                       "F.conv2d", x, w)
     if x.dim() != 4 or x.shape[-1] != PAIR_CH \
             or tuple(w.shape) != (3, 3, PAIR_CH, PAIR_CH):
         raise ValueError(f"C1 takes x (N, H, W, 64) and w (3, 3, 64, 64); "

@@ -41,7 +41,7 @@ from ..frontend import (
 from ..ir.types import f32
 from ..runtime.base import CubeCount, CubeDim
 from ..runtime.runtimes import client_for
-from .normalization import _wide_plan
+from .normalization import _wide_plan, warp_lines
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -59,12 +59,14 @@ def fits(x) -> bool:
 def _apply_rows(kernel, out_like, arrays, scalars=(), client=None):
     """Launch a rows x lines kernel over (rows, D) views of torch tensors
     on ``client`` (default: the client of their device); returns the
-    mutable output, shaped as ``out_like``. One row per thread (the plan
-    of ``normalization._wide_plan``, which bounds the threads per block
-    where the JAX package's ``_plan`` bounded VMEM)."""
+    mutable output, shaped as ``out_like``. One row a unit, the plan of
+    ``normalization._wide_plan``: on a warp where the row is wide enough
+    for the CUDA printer's warp lines, else on a thread (where the JAX
+    package's ``_plan`` bounded VMEM)."""
     client = client or client_for(out_like.device)
     rows = int(np.prod(out_like.shape[:-1]))
-    units, _iters, cubes = _wide_plan(rows)
+    units, _iters, cubes = _wide_plan(rows, warp_lines(
+        out_like.shape[-1], *(a.dtype for a, _mut in arrays)))
     args = [ArrayArg(a.reshape(-1), line_size=a.shape[-1] if a.ndim else 1,
                      mutable=mut) for a, mut in arrays]
     out = kernel.apply(client, CubeCount(cubes), CubeDim.new_1d(units),

@@ -7,11 +7,14 @@ kernel. Ops and buffer counts are comptime, so each (ops, n_buffers) combo
 is its own KernelId — exactly the reference's comptime-fusion capability.
 On a card the fused chain is one K0 kernel printed as CUDA C++: the chain
 is inlined, element by element, into the store loop, so every input is
-read once and the output written once (bound by bytes).
+read once and the output written once (bound by bytes). Its 128-element
+f32 lines are wide enough for the printer's warp lines: each unit is a
+warp and each lane moves 16 bytes of every buffer.
 """
 
 from __future__ import annotations
 
+from typing import Optional
 from typing import Sequence as PySeq
 
 import numpy as np
@@ -26,6 +29,7 @@ from ..frontend import (
 from ..frontend import functions as F
 from ..runtime.base import CubeCount, CubeDim
 from ..runtime.handle import Handle
+from .normalization import MAX_WARP_UNITS, warp_lines
 
 # comptime op vocabulary (host lambdas over traced values)
 FUSABLE = {
@@ -78,16 +82,28 @@ def fused_chain(inputs: Sequence, out: MutSlice, ops: tuple):
     out[pos] = acc
 
 
+#: units a cube of the one-thread-a-unit plan (lines narrower than warp
+#: lines take, or single elements)
+THREAD_UNITS = 64
+
+
 def launch_fused(client, inputs: PySeq[Handle], out: Handle,
                  ops: PySeq[str], line_size: int = 128,
-                 cube_dim: int = 64) -> None:
+                 cube_dim: Optional[int] = None) -> None:
     """One launch of ``fused_chain`` over ``inputs`` (one more than the
     binary ops) into ``out``: lines of ``line_size`` where whole cubes
-    tile the output, else single elements."""
+    tile the output, else single elements. The cube (``cube_dim`` unless
+    given): MAX_WARP_UNITS warps where the lines are warp lines on CUDA
+    (f32's 128: 16M elements are 16384 cubes of 256 threads), else
+    THREAD_UNITS threads."""
     n = int(np.prod(out.shape))
     binary = sum(1 for op in ops if op in BINARY)
     assert len(inputs) == binary + 1, \
         f"{binary} binary ops need {binary + 1} inputs, got {len(inputs)}"
+    if cube_dim is None:
+        warps = warp_lines(line_size, *(h.dtype for h in (*inputs, out)))
+        cube_dim = MAX_WARP_UNITS if warps and \
+            n % (line_size * MAX_WARP_UNITS) == 0 else THREAD_UNITS
     line = line_size if n % (line_size * cube_dim) == 0 else 1
     cubes = -(-n // (line * cube_dim))
     seq = Sequence([ArrayArg(h, line_size=line) for h in inputs])

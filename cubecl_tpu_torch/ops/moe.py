@@ -83,7 +83,10 @@ def expert_matmul(xg, w, counts, bt: int = 128):
     ``bt`` is the JAX signature's capacity tile; the kernel's tile is its
     own (``EXPERT_TILES``) and ``bt`` changes no result. On CUDA tensors
     the kernel runs, or a ``ValueError`` names what it does not take; on
-    CPU tensors the plain version runs."""
+    CPU tensors the plain version runs. E1 has no backward: under
+    autograd this raises, on either device."""
+    native.refuse_grad("expert_matmul (E1)", "expert_matmul_plain or "
+                       "kernels=False", xg, w)
     if xg.device.type == "cpu":
         return expert_matmul_plain(xg, w, counts)
     _check_kernel_inputs(xg, w, counts)

@@ -11,12 +11,16 @@ kernels give one 8-unit cube to a row and fold its statistics with
 stays 8 units on CUDA too, and the plane is the whole cube (8 lanes of one
 warp, the others masked). One warp per row would need a body that steps by
 the cube width. The ``*_lines`` kernels put a whole row on one line and
-one row on each thread; on CUDA their plan bounds the threads per block
-(:func:`_wide_plan`) where the TPU plan bounded VMEM.
+one row on each unit. Where the row is wide enough (:func:`warp_lines`)
+the CUDA printer runs each unit on a warp, and :func:`_wide_plan` then
+picks at most 8 units a cube, spread over the SMs; a narrower row keeps
+one thread a unit, and the plan bounds the threads per block, where the
+TPU plan bounded VMEM.
 """
 
 from __future__ import annotations
 
+from ..backend.cuda.printer import least_warp_line
 from ..frontend import (
     CUBE_POS_X,
     UNIT_POS,
@@ -151,13 +155,31 @@ def normalize_lines(inp: Slice, out: MutSlice, iters: int, stride: int,
 #: cover the H100's 132 SMs comes first, so the plan takes the largest
 #: width up to this bound that still gives that many
 MAX_ROW_UNITS = 128
+#: units (warps) per block of the warp-lined kernels: 256 threads
+MAX_WARP_UNITS = 8
 _SMS = 132
 
 
-def _wide_plan(rows: int):
+def warp_lines(row: int, *dtypes) -> bool:
+    """Does the CUDA printer run a unit of these row kernels on a warp? A
+    row (one line) of at least 32 chunks of 16 bytes of the narrowest of
+    the kernel's buffers (``backend/cuda/printer.py::warp_vector``; the
+    bodies here hold nothing else that rule refuses)."""
+    return row >= least_warp_line(min(d.itemsize for d in dtypes))
+
+
+def _wide_plan(rows: int, warps: bool = False):
     """(units, iters, cubes) for ``rows`` rows (a multiple of 8), one row
-    per thread: the widest cube of 8..MAX_ROW_UNITS threads that divides
-    the rows and still gives every SM a cube, else 8."""
+    a unit. Warp-lined (``warps``): the widest cube of up to
+    MAX_WARP_UNITS units that divides the rows and still gives every SM a
+    cube, else one unit a cube, so that few rows (decode's 8) spread over
+    as many SMs. Else one row per thread: the widest cube of
+    8..MAX_ROW_UNITS threads that divides the rows and still gives every
+    SM a cube, else 8."""
+    if warps:
+        units = next((u for u in (8, 4, 2) if u <= MAX_WARP_UNITS
+                      and rows % u == 0 and rows // u >= _SMS), 1)
+        return units, 1, rows // units
     widths = [u for u in (128, 64, 32, 16, 8)
               if u <= MAX_ROW_UNITS and rows % u == 0]
     units = next((u for u in widths if rows // u >= _SMS), CD)
@@ -177,7 +199,8 @@ def launch_layernorm(client, inp: Handle, gamma: Handle, beta: Handle,
                      out: Handle, rows: int, row: int,
                      line_size: int = 4, eps: float = 1e-5) -> None:
     if row % 128 == 0 and rows % CD == 0:
-        units, iters, cubes = _wide_plan(rows)
+        units, iters, cubes = _wide_plan(rows, warp_lines(
+            row, inp.dtype, gamma.dtype, beta.dtype, out.dtype))
         layernorm_lines.launch_unchecked(
             client, CubeCount(cubes), CubeDim.new_1d(units),
             ArrayArg(inp, line_size=row), ArrayArg(gamma, line_size=row),
@@ -198,13 +221,13 @@ def launch_softmax(client, inp: Handle, out: Handle, rows: int, row: int,
                    line_size: int = 4) -> None:
     if row % 128 == 0 and rows % CD == 0:
         # wide path: one line per row, one fat (units, row) op per step
+        units, iters, cubes = _wide_plan(rows, warp_lines(row, inp.dtype,
+                                                          out.dtype))
         if out is inp or out.id == inp.id:
-            units, iters, cubes = _wide_plan(rows)
             softmax_lines_inplace.launch_unchecked(
                 client, CubeCount(cubes), CubeDim.new_1d(units),
                 ArrayArg(inp, line_size=row, mutable=True), iters, units)
             return
-        units, iters, cubes = _wide_plan(rows)
         softmax_lines.launch_unchecked(
             client, CubeCount(cubes), CubeDim.new_1d(units),
             ArrayArg(inp, line_size=row),
@@ -220,7 +243,8 @@ def launch_softmax(client, inp: Handle, out: Handle, rows: int, row: int,
 def launch_normalize(client, inp: Handle, out: Handle, rows: int, row: int,
                      line_size: int = 4, eps: float = 0.0) -> None:
     if row % 128 == 0 and rows % CD == 0:
-        units, iters, cubes = _wide_plan(rows)
+        units, iters, cubes = _wide_plan(rows, warp_lines(row, inp.dtype,
+                                                          out.dtype))
         normalize_lines.launch_unchecked(
             client, CubeCount(cubes), CubeDim.new_1d(units),
             ArrayArg(inp, line_size=row),

@@ -211,7 +211,10 @@ def _ptr(t):
 def paged_attention(q, k_pages, v_pages, page_indices, lengths,
                     sm_scale: Optional[float] = None, layer: int = 0,
                     k_scales=None, v_scales=None):
-    """Paged decode attention; see the module docstring."""
+    """Paged decode attention; see the module docstring. P1 has no
+    backward: under autograd this raises, on either device."""
+    native.refuse_grad("paged_attention (P1)", "paged_attention_plain", q,
+                       k_pages, v_pages, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_indices,
                                      lengths, sm_scale, layer, k_scales,
@@ -257,7 +260,11 @@ paged_attention.int8_launches = 0  # the launches on int8 pools among them
 def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
                             starts, sm_scale: Optional[float] = None,
                             layer: int = 0, k_scales=None, v_scales=None):
-    """Chunked paged attention; see the module docstring."""
+    """Chunked paged attention; see the module docstring. P3 has no
+    backward: under autograd this raises, on either device."""
+    native.refuse_grad("paged_attention_chunked (P3)",
+                       "paged_attention_chunked_plain", q, k_pages, v_pages,
+                       k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_attention_chunked_plain(
             q, k_pages, v_pages, page_indices, lengths, starts, sm_scale,

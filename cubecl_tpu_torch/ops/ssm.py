@@ -116,7 +116,11 @@ def scan_chunked_core(af, uf, chunk: int = 1024, hier=None):
     scan); they change no result and are kept for the API. On CUDA tensors
     the kernel runs (any B ≤ 65535, L ≥ 1 and DN; f32 or bf16), or a
     ``ValueError`` names what it does not take; on CPU tensors the plain
-    version runs."""
+    version runs. S1 has no backward: under autograd this raises, on
+    either device (``scan_chunked_core_plain`` or ``kernels=False`` is the
+    differentiable route)."""
+    native.refuse_grad("scan_chunked_core (S1)", "scan_chunked_core_plain "
+                       "or kernels=False", af, uf)
     if af.device.type == "cpu":
         return scan_chunked_core_plain(af, uf)
     if uf.device != af.device:

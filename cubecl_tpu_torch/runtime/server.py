@@ -18,7 +18,7 @@ PyTorch's current stream.
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +41,9 @@ class TorchServer:
         self.compile_count = 0
         self.launch_count = 0
         self.launches: collections.Counter = collections.Counter()
+        # the kernel of the latest launch (its printed source tells a K0
+        # kernel's mapping)
+        self.last_launched: Optional[CompiledKernel] = None
 
     # ------------------------------------------------------------- memory
 
@@ -98,6 +101,7 @@ class TorchServer:
                 raise ValueError(f"{compiled.name}: tensors must be "
                                  "contiguous")
         compiled.fn(tensors, tuple(scalars))
+        self.last_launched = compiled
         self.launch_count += 1
         self.launches[compiled.name] += 1
 

@@ -246,6 +246,19 @@ def check_aligned(*tensors) -> None:
                              "is not 16-byte aligned")
 
 
+def refuse_grad(kernel: str, alternative: str, *tensors) -> None:
+    """A hand kernel writes its output through ``data_ptr()`` and has no
+    backward: under grad mode with an input that requires grad it would cut
+    the autograd graph silently, so it raises, naming ``alternative``, the
+    differentiable route. Checked on every device, before the device
+    branch, so that the CPU holds the same contract as the card."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward (nor has the JAX kernel); under "
+            f"autograd use {alternative}")
+
+
 # cudaError_t codes that leave the context unusable: an illegal address
 # (700), a launch timeout (702), a device assert (710), a hardware stack
 # error, an illegal instruction, a misaligned address, an invalid address

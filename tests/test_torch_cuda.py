@@ -1177,3 +1177,235 @@ def test_conv_autotuned_on_the_card(dev, monkeypatch, tmp_path, shape):
         if shape[4] == 3 else conv.conv2d_im2col(client, hx, hw, n, h, w, c,
                                                   r, s, k)
     _close(got.tensor.view(ref.shape), ref)
+
+
+# -- K0's warp lines (a unit on a warp, backend/cuda/printer.py) --------------
+
+# bf16 K0 kernels that compute op by op in bf16 (the normalization bodies
+# on bf16 buffers, gelu) against plain formulas in f32 rounded once: a few
+# bf16 ulps apart, as chip_smoke.py's CHAIN_TOL. Against the evaluator,
+# which rounds at the same ops, such a chain still rounds its bf16 row sums
+# from sums taken in another order: one ulp of a variance, say, moves every
+# element of the row, and where the final add cancels (layernorm's + b)
+# that is a few ulps of the addends, so these are held at CHAIN_TOL too
+CHAIN_TOL = (3e-2, 3e-2)
+_BF16_CHAINS = {"gelu fwd", "softmax fwd", "gelu bwd", "softmax bwd",
+                "softmax_lines", "softmax_lines_inplace", "layernorm_lines",
+                "normalize_lines"}
+_BF16, _F32 = torch.bfloat16, torch.float32
+# (rows, D, dtype): the smallest warp lines (f32 128, bf16 256, one chunk
+# a lane), decode's 8 rows and phase f's ragged 8 x 1023, the llama's
+# width, a bf16 row of 384 (two chunks' room a lane, the second partly
+# past the row: no 16-byte branch) and the widest row the ops take
+WARP_SHAPES = [(8, 128, _F32), (8184, 128, _F32), (8, 256, _BF16),
+               (8184, 256, _BF16), (8184, 2048, _BF16), (64, 384, _BF16),
+               (8, 16384, _F32), (64, 16384, _BF16)]
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+def _p_softmax(x, *_):
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
+
+
+def _p_layernorm(x, g, b, *_):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + 1e-5) * g.float()
+            + b.float()).to(x.dtype)
+
+
+def _p_rmsnorm(x, g, *_):
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-5)
+            * g.float()).to(x.dtype)
+
+
+def _p_gelu(x, *_):
+    xf = x.float()
+    return (xf * (torch.erf(xf * _INV_SQRT2) + 1.0) * 0.5).to(x.dtype)
+
+
+def _p_normalize(x, *_):
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().sum(-1, keepdim=True) + 1e-6)) \
+        .to(x.dtype)
+
+
+def _p_backward(op):
+    """dx of ``op`` by f32 autograd, for x, g, b, dy (y for softmax)."""
+    def f(x, g, b, dy):
+        leaf = x.float().requires_grad_()
+        fn = {"gelu": lambda t: _p_gelu(t), "softmax": lambda t: t,
+              "layernorm": lambda t: _p_layernorm(t, g.float(), b.float()),
+              "rmsnorm": lambda t: _p_rmsnorm(t, g.float())}[op]
+        if op == "softmax":  # dx from y: (dy - sum(y dy)) y
+            yf, dyf = x.float(), dy.float()
+            return ((dyf - (yf * dyf).sum(-1, keepdim=True)) * yf).to(x.dtype)
+        (dx,) = torch.autograd.grad(fn(leaf), leaf, dy.float())
+        return dx.to(x.dtype)
+    return f
+
+
+def _clone_at_offset(t):
+    """A copy of contiguous ``t`` at the same offset from 16 bytes."""
+    off = t.data_ptr() % 16 // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    out = buf[off:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _lines(launch):
+    """A ``normalization.launch_*`` wide path on a client, its buffers the
+    tensors themselves (no aligned copy): the output tensor (in place: the
+    input's)."""
+    from cubecl_tpu_torch.runtime.handle import Handle
+
+    def run(c, x, g, b, dy, inplace=False):
+        rows, row = x.shape
+        hx = Handle(_clone_at_offset(x) if inplace else x)
+        ho = hx if inplace else Handle(torch.empty_like(x))
+        if launch == "layernorm":
+            N.launch_layernorm(c, hx, Handle(g), Handle(b), ho, rows, row)
+        elif launch == "normalize":
+            N.launch_normalize(c, hx, ho, rows, row, eps=1e-6)
+        else:
+            N.launch_softmax(c, hx, ho, rows, row)
+        return ho.tensor
+    return run
+
+
+# name -> (kernel the path launches, launch(client, x, g, b, dy), plain);
+# the backward kernels are launched as the Functions launch them
+WARP_OPS = {
+    "gelu fwd": ("_gelu_fwd_k", lambda c, x, g, b, dy: F.gelu(x, client=c),
+                 _p_gelu),
+    "softmax fwd": ("_softmax_fwd_k",
+                    lambda c, x, g, b, dy: F.softmax(x, client=c), _p_softmax),
+    "layernorm fwd": ("_layernorm_fwd_k", lambda c, x, g, b, dy: F.layernorm(
+        x, g, b, client=c), _p_layernorm),
+    "rmsnorm fwd": ("_rmsnorm_fwd_k", lambda c, x, g, b, dy: F.rmsnorm(
+        x, g, client=c), _p_rmsnorm),
+    "gelu bwd": ("_gelu_bwd_k", lambda c, x, g, b, dy: F._rows(
+        F._gelu_bwd_k, x, [x, dy], client=c), _p_backward("gelu")),
+    "softmax bwd": ("_softmax_bwd_k", lambda c, x, g, b, dy: F._rows(
+        F._softmax_bwd_k, x, [x, dy], client=c), _p_backward("softmax")),
+    "layernorm bwd": ("_layernorm_bwd_k", lambda c, x, g, b, dy: F._rows(
+        F._layernorm_bwd_k, x, [x, g, dy], (1.0 / x.shape[-1], 1e-5), c),
+        _p_backward("layernorm")),
+    "rmsnorm bwd": ("_rmsnorm_bwd_k", lambda c, x, g, b, dy: F._rows(
+        F._rmsnorm_bwd_k, x, [x, g, dy], (1.0 / x.shape[-1], 1e-5), c),
+        _p_backward("rmsnorm")),
+    "softmax_lines": ("softmax_lines", _lines("softmax"), _p_softmax),
+    "softmax_lines_inplace": ("softmax_lines_inplace",
+                              lambda c, x, g, b, dy: _lines("softmax")(
+                                  c, x, g, b, dy, inplace=True), _p_softmax),
+    "layernorm_lines": ("layernorm_lines", _lines("layernorm"), _p_layernorm),
+    "normalize_lines": ("normalize_lines", _lines("normalize"),
+                        _p_normalize),
+}
+
+
+def _warp_inputs(dev, rows, D, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    x = rn(rows, D)
+    return x, rn(D), rn(D), rn(rows, D)
+
+
+def _warp_lined(server, name, D):
+    """Was a warp-lined build of kernel ``name`` over lines of D made?"""
+    return any(k.name == name and "mapping=warp-lines" in k.source
+               and f" * {D} + " in k.source for k in server._cache.values())
+
+
+@pytest.mark.parametrize("shape", WARP_SHAPES,
+                         ids=[f"{r}x{d}-{str(t)[6:]}" for r, d, t in WARP_SHAPES])
+@pytest.mark.parametrize("op", list(WARP_OPS))
+def test_warp_lined_kernels_match_evaluator_and_plain(dev, op, shape):
+    """Each warp-lined K0 kernel, as its path launches it, against the
+    torch evaluator on the card (TOL; CHAIN_TOL for the bf16 chains) and
+    its plain formula (TOL in f32, CHAIN_TOL in bf16): one launch, printed
+    with ``mapping=warp-lines``."""
+    rows, D, dtype = shape
+    name, launch, plain = WARP_OPS[op]
+    x, g, b, dy = _warp_inputs(dev, rows, D, dtype, 11)
+    if op == "softmax bwd":
+        x = torch.softmax(x.float(), -1).to(dtype)
+    cu = CudaRuntime.client()
+    n = cu.server.launches[name]
+    got = launch(cu, x, g, b, dy)
+    torch.cuda.synchronize()
+    assert cu.server.launches[name] == n + 1
+    assert _warp_lined(cu.server, name, D)
+    ev = launch(eval_client(dev), x, g, b, dy)
+    if dtype == _BF16 and op in _BF16_CHAINS:
+        torch.testing.assert_close(got.float(), ev.float(), atol=CHAIN_TOL[0],
+                                   rtol=CHAIN_TOL[1])
+    else:
+        _close(got, ev)
+    want = plain(x, g, b, dy)
+    atol, rtol = CHAIN_TOL if dtype == _BF16 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("shape", [(64, 256, _BF16), (64, 128, _F32),
+                                   (8, 2048, _BF16)],
+                         ids=["64x256-bf16", "64x128-f32", "8x2048-bf16"])
+@pytest.mark.parametrize("op", list(WARP_OPS))
+def test_warp_lines_scalar_branch_equals_the_vector_one(dev, op, shape):
+    """The same launch on a view one element off 16-byte alignment takes
+    the kernel's element-by-element branch: the same elements in the same
+    order a lane, so its output equals the aligned launch's bit for bit."""
+    rows, D, dtype = shape
+    name, launch, _plain = WARP_OPS[op]
+    x, g, b, dy = _warp_inputs(dev, rows, D, dtype, 12)
+    if op == "softmax bwd":
+        x = torch.softmax(x.float(), -1).to(dtype)
+    offs = []
+    for t in (x, dy):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(t.reshape(-1))
+        offs.append(buf[1:].view(t.shape))
+    assert offs[0].data_ptr() % 16 and offs[0].is_contiguous()
+    cu = CudaRuntime.client()
+    aligned = launch(cu, x, g, b, dy)
+    off = launch(cu, offs[0], g, b, offs[1])
+    torch.cuda.synchronize()
+    assert torch.equal(off, aligned)
+
+
+def test_warp_lined_aliased_launches(dev):
+    """One tensor passed as a warp-lined kernel's input and output (the
+    buffers lose ``__restrict__``, the line is read into the lane's array
+    before the store): gelu over rows and a fused chain written into its
+    first input, each against the evaluator."""
+    from cubecl_tpu_torch.ops import fusion as FU
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    outs = []
+    for c in (CudaRuntime.client(), eval_client(dev)):
+        x = torch.randn(8184, 2048, generator=g, device=dev).to(_BF16)
+        F._apply_rows(F._gelu_fwd_k, x, [(x, False), (x, True)], client=c)
+        a, b = (torch.randn(1 << 20, generator=g, device=dev)
+                for _ in range(2))
+        ha = c.create(a)
+        FU.launch_fused(c, [ha, c.create(b)], ha, ["add", "relu"])
+        outs.append((x, ha.tensor))
+        g.manual_seed(13)
+    torch.cuda.synchronize()
+    cu = CudaRuntime.client().server
+    assert _warp_lined(cu, "_gelu_fwd_k", 2048)
+    # of a, b and out, only b (not aliased) keeps __restrict__
+    assert any(k.name == "fused_chain" and "mapping=warp-lines" in k.source
+               and k.source.count("__restrict__") == 1
+               for k in cu._cache.values())
+    for got, want in zip(*outs):
+        _close(got, want)

@@ -1,22 +1,39 @@
 """The CUDA printer (K0 on Hopper) without nvcc: it prints a kernel for
 each of the 18 slice kernels, maps the IR as its docstring says (cmma
-fragments included), and raises ``NotImplementedError`` naming the op for
-what it does not lower. Compiling and running the printed sources is the
-card's part (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+fragments and warp lines included), and raises ``NotImplementedError``
+naming the op for what it does not lower. Compiling and running the
+printed sources is the card's part (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
 
+import hashlib
 import re
 
 import numpy as np
 import pytest
 import torch
 
-from cubecl_tpu_torch.backend.cuda.printer import cuda_source
+from cubecl_tpu_torch.backend.compiler import prepare_scope
+from cubecl_tpu_torch.backend.cuda.printer import (cuda_source,
+                                                   reads_plane_builtins,
+                                                   warp_vector)
 from cubecl_tpu_torch.frontend import (ABSOLUTE_POS, ArrayArg, MutSlice,
                                        Slice, atomic_add, cmma, cube)
+from cubecl_tpu_torch.ir import ops as O
+from cubecl_tpu_torch.ir.scope import walk
 from cubecl_tpu_torch.ir.types import f32
 from test_torch_dsl_scope import (IDS, KERNELS, MODULES, SLICE6,
                                   SLICE6_IDS, SLICE6_MODULES, _seq_args,
                                   _torch_args)
+
+# the kernels of the two lists that the warp-lines rule takes at their
+# launches there: every line 256 elements (32 x 8 bf16, 64 x 4 f32) or
+# f32 lines of 128 (32 x 4), and no plane op, barrier, block reduction,
+# cmma, atomic or reinterpret
+WARP_LINED = {"softmax_lines", "softmax_lines_inplace", "layernorm_lines",
+              "normalize_lines", "_gelu_fwd_k", "_gelu_bwd_k",
+              "_softmax_fwd_k", "_softmax_bwd_k", "_layernorm_fwd_k",
+              "_layernorm_bwd_k", "_rmsnorm_fwd_k", "_rmsnorm_bwd_k",
+              "reduce_sum_naive-6", "fused_chain-7"}
 
 
 def _source(name, cc, cd, checked, spec, mod):
@@ -27,10 +44,15 @@ def _source(name, cc, cd, checked, spec, mod):
 
 @pytest.mark.parametrize("mod,name,cc,cd,checked,spec", KERNELS, ids=IDS)
 def test_prints_each_slice_kernel(mod, name, cc, cd, checked, spec):
+    """Each kernel prints, its block a thread a unit or, warp-lined, a
+    warp a unit (launch bounds and launcher cd x 32)."""
     src = _source(name, cc, cd, checked, spec, mod)
     sym = re.search(r'extern "C" __global__ void __launch_bounds__\((\d+)\) '
                     r'(\w+)\(', src)
-    assert sym and int(sym.group(1)) == cd
+    threads = cd * 32 if name in WARP_LINED else cd
+    assert sym and int(sym.group(1)) == threads
+    assert ("mapping=warp-lines" in src) == (name in WARP_LINED)
+    assert f"dim3({threads}, 1, 1)" in src
     assert f"cudaLaunchKernel((const void*){sym.group(2)}" in src
     assert "return (int)cudaGetLastError();" in src
     assert src.count("{") == src.count("}")
@@ -41,22 +63,34 @@ def test_prints_each_slice_kernel(mod, name, cc, cd, checked, spec):
 def test_mapping_of_the_rmsnorm_kernel():
     """bf16 in, f32 math, one rounding out; rsqrt is rsqrtf; the
     elementwise chains fuse into the sum and the store loop, so the row
-    needs no per-thread array."""
+    needs no per-thread array. A row of 256 bf16 is a warp's: lane
+    ``lane`` owns elements lane·8 .. lane·8 + 7, read as one 16-byte load
+    when the buffers are aligned and element by element otherwise, and
+    stored the same two ways."""
     src = _source("_rmsnorm_fwd_k", 2, 8, False, KERNELS[16][5], "fn")
-    assert "[256];" not in src
+    assert "[256];" not in src and "[8];" not in src
     assert "__bfloat162float(" in src and "__float2bfloat16_rn(" in src
     assert "rsqrtf(" in src
-    assert "b0[((int64_t)(absolute_pos)) * 256 + l]" in src
-    assert re.search(r"b2\[\(\(int64_t\)\(absolute_pos\)\) \* 256 \+ l\] = "
-                     r"\(__float2bfloat16_rn\(", src)
+    assert "reinterpret_cast<const uint4*>(b0 + ((int64_t)(absolute_pos)) " \
+           "* 256 + cc_e)[0]" in src
+    lane = "((l) >> 3) * 256 + lane * 8 + ((l) & 7)"
+    assert f"b0[((int64_t)(absolute_pos)) * 256 + {lane}]" in src
+    assert "const int64_t cc_e = (int64_t)(k * 32 + lane) * 8;" in src
+    assert "reinterpret_cast<uint4*>(b2 + ((int64_t)(absolute_pos)) * 256 " \
+           "+ cc_e)[0] = cc_s0_u[0];" in src
+    assert re.search(r"cc_s0\[j\] = \(__float2bfloat16_rn\(", src)
+    assert re.search(re.escape(f"b2[((int64_t)(absolute_pos)) * 256 + {lane}]")
+                     + r" = \(__float2bfloat16_rn\(", src)
 
 
 def test_in_place_kernel_keeps_its_row_in_an_array():
     """A kernel that stores to the buffer it reads loads the line into an
-    array once: an inlined re-read after the store would see new data."""
+    array once: an inlined re-read after the store would see new data.
+    Under warp lines the array holds the lane's share, L / 32."""
     src = _source("softmax_lines_inplace", 2, 8, False, KERNELS[7][5],
                   "norm")
-    assert re.search(r"__nv_bfloat16 v\d+\[256\];", src)
+    assert re.search(r"__nv_bfloat16 v\d+\[8\];", src)
+    assert "[256];" not in src
 
 
 def test_aliased_buffers_are_not_restrict():
@@ -195,7 +229,11 @@ def test_prints_each_reduce_and_fusion_kernel(mod, name, cc, cd, checked,
     kernel = getattr(SLICE6_MODULES[mod][1], name)
     src = cuda_source(kernel.define(cc, cd, *_seq_args(spec, False),
                                     checked=checked))
-    assert re.search(r"__launch_bounds__\(%d\)" % cd, src)
+    warp = f"{name}-{SLICE6.index((mod, name, cc, cd, checked, spec))}" \
+        in WARP_LINED
+    assert re.search(r"__launch_bounds__\(%d\)" % (cd * 32 if warp else cd),
+                     src)
+    assert ("mapping=warp-lines" in src) == warp
     assert src.count("{") == src.count("}")
     assert "NotImplemented" not in src
 
@@ -284,3 +322,210 @@ def test_unsupported_names_the_families_left():
     msg = str(ei.value)
     assert "atomic.add" in msg and all(f in msg for f in UNLOWERED)
     assert "block_reduce" not in msg and "reinterpret" not in msg
+
+
+# -- warp lines ----------------------------------------------------------------
+
+def _all_launches():
+    """(id, kernel, cc, cd, checked, args) of both lists' launches."""
+    for mod, name, cc, cd, checked, spec in KERNELS:
+        yield (name, getattr(MODULES[mod][1], name), cc, cd, checked,
+               lambda spec=spec: _torch_args(spec))
+    for i, (mod, name, cc, cd, checked, spec) in enumerate(SLICE6):
+        yield (f"{name}-{i}", getattr(SLICE6_MODULES[mod][1], name), cc, cd,
+               checked, lambda spec=spec: _seq_args(spec, False))
+
+
+WARP_CASES = [c for c in _all_launches() if c[0] in WARP_LINED]
+
+
+def _line_reductions(defn):
+    """Line reductions (vec_sum/max/min, dot over a line) left after the
+    passes."""
+    return sum(1 for _s, i in walk(defn.scope)
+               if i.op.opcode in (O.VEC_SUM, O.VEC_MAX, O.VEC_MIN, O.DOT)
+               and i.op.args[0].ty.line > 1)
+
+
+@pytest.mark.parametrize("case", WARP_CASES, ids=[c[0] for c in WARP_CASES])
+def test_warp_lines_of_each_kernel_under_the_rule(case):
+    """A kernel under the rule runs a unit on a warp: the mapping in its
+    comment, units x 32 threads, the unit and lane from ``threadIdx.x``,
+    one butterfly over the warp per line reduction, line loops over the
+    lane's share (a 16-byte branch and an element branch on
+    ``cc_aligned``) and no per-thread array of a whole line."""
+    _id, kernel, cc, cd, checked, args = case
+    defn = kernel.define(cc, cd, *args(), checked=checked)
+    lines = {bp.ty.line for bp in defn.state.buffers if bp.ty.line > 1}
+    src = cuda_source(defn)
+    assert "mapping=warp-lines" in src
+    assert f"__launch_bounds__({cd * 32})" in src
+    assert "const int32_t lane = threadIdx.x & 31, unit_pos = " \
+           "threadIdx.x >> 5;" in src
+    assert "unit_pos_plane" not in src
+    assert src.count("__shfl_xor_sync(0xffffffffu, (float)acc, o, 32)") \
+        == _line_reductions(defn)
+    assert "if (cc_aligned) {" in src and "} else {" in src
+    assert "reinterpret_cast<const uint4*>(" in src
+    if any(bp.mutable and bp.ty.line > 1 for bp in defn.state.buffers):
+        assert re.search(r"reinterpret_cast<uint4\*>\(b\d+ \+ .* = "
+                         r"cc_s\d+_u\[0\];", src)
+    for L in lines:
+        assert not re.search(r"\w+ \w+\[%d\];" % L, src)
+        assert f"for (int l = 0; l < {L // 32}; ++l)" in src
+
+
+def _outside_rule():
+    from cubecl_tpu_torch.ops import functional as F
+    from cubecl_tpu_torch.ops import gelu as G
+    from cubecl_tpu_torch.ops import normalization as N
+
+    def z(n, dt=torch.float32):
+        return torch.zeros(n, dtype=dt)
+
+    bf = torch.bfloat16
+    return {
+        # plane_sum / plane_max over an 8-unit cube (the reference's CD)
+        "softmax_rows": lambda: N.softmax_rows.define(
+            4, 8, ArrayArg(z(4096), line_size=4),
+            ArrayArg(z(4096), line_size=4, mutable=True), 32,
+            checked=False),
+        # cube-scope cmma fragments
+        "cmma": lambda: _cmma_k.define(
+            1, 32, ArrayArg(z(256)), ArrayArg(z(256), mutable=True),
+            checked=False),
+        # launch_gelu's 4-element f32 lines (< 32 x 4)
+        "gelu line 4": lambda: G.gelu_array_exact.define(
+            4, 256, ArrayArg(z(4096), line_size=4),
+            ArrayArg(z(4096), line_size=4, mutable=True), checked=False),
+        # a bf16 row of 128 (< 32 x 8)
+        "rmsnorm bf16 line 128": lambda: F._rmsnorm_fwd_k.define(
+            2, 8, ArrayArg(z(16 * 128, bf), line_size=128),
+            ArrayArg(z(128, bf), line_size=128),
+            ArrayArg(z(16 * 128, bf), line_size=128, mutable=True),
+            1 / 128, 1e-5, checked=False),
+    }
+
+
+# sha256 of the source each kernel just outside the rule printed before
+# warp lines existed (the printer's one-thread-a-unit mapping)
+OUTSIDE_DIGESTS = {"softmax_rows": "ee17cfe240bebfbc",
+                   "cmma": "8990a2dfe32a9769",
+                   "gelu line 4": "4f2da2173ff2d78d",
+                   "rmsnorm bf16 line 128": "b01e2546b2c5da14"}
+
+
+@pytest.mark.parametrize("name", list(OUTSIDE_DIGESTS))
+def test_kernels_outside_the_rule_keep_their_source(name):
+    """Just outside the rule, a kernel keeps today's source byte for byte:
+    a thread a unit, the cube dim as the block."""
+    defn = _outside_rule()[name]()
+    src = cuda_source(defn)
+    assert warp_vector(defn) == 0
+    assert "mapping=warp-lines" not in src and "threadIdx.x >> 5" not in src
+    assert "const int32_t unit_pos_x = threadIdx.x" in src
+    assert hashlib.sha256(src.encode()).hexdigest()[:16] == \
+        OUTSIDE_DIGESTS[name]
+
+
+@cube
+def _reads_plane_dim(inp: Slice, out: MutSlice):
+    from cubecl_tpu_torch.frontend import PLANE_DIM
+    out[ABSOLUTE_POS] = inp[ABSOLUTE_POS] * PLANE_DIM
+
+
+def test_warp_rule_refuses_plane_builtins():
+    """``PLANE_DIM`` folds to a constant in the passes, so the rule reads
+    the traced scope for it: a wide-lined kernel that reads it keeps a
+    thread a unit."""
+    defn = _reads_plane_dim.define(
+        2, 8, ArrayArg(torch.zeros(16 * 256), line_size=256),
+        ArrayArg(torch.zeros(16 * 256), line_size=256, mutable=True),
+        checked=False)
+    assert reads_plane_builtins(defn.scope)
+    src = cuda_source(defn)
+    assert "mapping=warp-lines" not in src and "__launch_bounds__(8)" in src
+
+
+def test_warp_lines_over_1024_threads_raise():
+    """33 units of a warp each are 1056 threads: the printer names the
+    kernel and the units."""
+    from cubecl_tpu_torch.ops import functional as F
+
+    args = [ArrayArg(torch.zeros(33 * 2 * 256), line_size=256),
+            ArrayArg(torch.zeros(33 * 2 * 256), line_size=256, mutable=True)]
+    with pytest.raises(ValueError, match=r"_gelu_fwd_k.*33 units.*1056"):
+        cuda_source(F._gelu_fwd_k.define(2, 33, *args, checked=False))
+
+
+def test_ragged_warp_line_skips_past_its_end():
+    """A bf16 row of 384 (>= 32 x 8, not a multiple of 256): every lane
+    holds two chunks' room, the second past the row for lanes 16..31;
+    there is no 16-byte branch."""
+    from cubecl_tpu_torch.ops import functional as F
+
+    bf = torch.bfloat16
+    src = cuda_source(F._rmsnorm_fwd_k.define(
+        2, 8, ArrayArg(torch.zeros(16 * 384, dtype=bf), line_size=384),
+        ArrayArg(torch.zeros(384, dtype=bf), line_size=384),
+        ArrayArg(torch.zeros(16 * 384, dtype=bf), line_size=384,
+                 mutable=True), 1 / 384, 1e-5, checked=False))
+    assert "mapping=warp-lines vector=8" in src
+    assert "cc_aligned" not in src and "uint4" not in src
+    assert "for (int l = 0; l < 16; ++l)" in src
+    assert "if (((l) >> 3) * 256 + lane * 8 + ((l) & 7) >= 384) break;" in src
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,rows", [(128, 8), (256, 8), (768, 8192),
+                                    (2048, 8184), (2048, 8), (3072, 8192),
+                                    (16384, 16)])
+def test_row_plans_agree_with_the_printer(dtype, D, rows):
+    """The plans of ``ops/functional.py`` and ``ops/normalization.py`` pick
+    warps exactly where the printer does: at most 8 warps a cube, at least
+    132 cubes where the rows allow, one unit a cube for decode's 8 rows;
+    a thread a unit otherwise, as before."""
+    from cubecl_tpu_torch.ops import functional as F
+    from cubecl_tpu_torch.ops import normalization as N
+
+    warps = N.warp_lines(D, dtype)
+    units, _iters, cubes = N._wide_plan(rows, warps)
+    assert units * cubes == rows
+    defn = F._rmsnorm_fwd_k.define(
+        cubes, units, ArrayArg(torch.zeros(rows * D, dtype=dtype),
+                               line_size=D),
+        ArrayArg(torch.zeros(D, dtype=dtype), line_size=D),
+        ArrayArg(torch.zeros(rows * D, dtype=dtype), line_size=D,
+                 mutable=True), 1 / D, 1e-5, checked=False)
+    prepare_scope(defn)
+    assert bool(warp_vector(defn)) == warps
+    assert warps == (D * dtype.itemsize >= 512)
+    if warps:
+        assert units <= 8 and (cubes >= 132 or units == 1)
+        assert units == (8 if rows // 8 >= 132 else 1)
+    else:
+        assert units == N._wide_plan(rows)[0]
+
+
+def test_fused_chain_plan_is_warp_lined_for_f32():
+    """``launch_fused`` keeps 128-element lines: on f32 they are warp
+    lines on cubes of 8 warps (16M elements: 16384 cubes); on bf16 a
+    thread a unit on cubes of 64, as before."""
+    from cubecl_tpu_torch.ops import fusion as FU
+    from cubecl_tpu_torch.runtime import CpuRuntime
+
+    c = CpuRuntime.client()
+    for dtype, want in ((torch.float32, 8), (torch.bfloat16, 64)):
+        hs = [c.create(torch.ones(8 * 1024, dtype=dtype)) for _ in range(3)]
+        seen = []
+        orig = FU.fused_chain.launch
+        FU.fused_chain.launch = lambda client, count, dim, *a: seen.append(
+            (count, dim)) or orig(client, count, dim, *a)
+        try:
+            FU.launch_fused(c, hs[:2], hs[2], ["add"])
+        finally:
+            FU.fused_chain.launch = orig
+        (count, dim), = seen
+        assert dim.num_units == want
+        assert torch.equal(hs[2].tensor, torch.full((8 * 1024,), 2.0,
+                                                    dtype=dtype))
