@@ -13,8 +13,9 @@ checks smaller f32 configs end to end against the plain versions.
 
 Phases (lines before the last): 1 device, 2 build (failing unless every
 bf16 instance of the flash forward, dK/dV and dQ kernels, dense and
-block-sparse at D 64 and 128, issues wgmma: HGMMA in ``cuobjdump -sass``;
-their registers and spills), 3 flash vs plain (with
+block-sparse at D 64 and 128, C1's bf16 body and every 8-bit GEMM
+instance issue wgmma: HGMMA in ``cuobjdump -sass``, IGMMA for the int8
+GEMM; their registers and spills), 3 flash vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
 bf16 D 64 at GPT-2's widths), 4 paged vs plain, 5 serve at full width, 6 serve exactness; then K0:
 a the DSL kernels at BASELINE sizes, and RMSNorm at every shape phases b
@@ -45,10 +46,12 @@ and continuous batching with prefix caching on the ``PageAllocator``,
 each with its kernel launches checked, l the same paths on the d768 f32
 llama against the plain versions (and each batched request against its
 solo run). Then the autotuned matmul (BASELINE config 4): m the matmul
-kernel (M1; M1 with device scales; M2 with host scales) against plain at
-4096^3 and the llama FFN projection 8192 x 2048 x 5632, for bf16, f32,
-fp8 e4m3/e5m2 and int8 (exact) operands and both B layouts, every tile
-instance checked, n ``matmul_autotuned`` at bf16 and e4m3 4096^3 and the
+kernel (M1; M1 with device scales; M2 with host scales, B as (N, K) and
+as the JAX reference's (K, N)) against plain at 4096^3 and the llama FFN
+projection 8192 x 2048 x 5632, for bf16, f32, fp8 e4m3/e5m2 and int8
+(exact) operands and both B layouts, every tile instance checked, each
+case's body named (8-bit: ``csrc/matmul8.cu`` on wgmma) and the mma.sync
+times before it beside, n ``matmul_autotuned`` at bf16 and e4m3 4096^3 and the
 llama shape, each tuned through captured CUDA graphs timed by CUDA events
 into a fresh sqlite store (``CUBECL_ENVIRONMENT_ROOT`` in a temp dir),
 the store read back by a second call and by a new tuner, one tune with
@@ -90,9 +93,11 @@ counted from 0), each kernel against plain on its own o and lse, its time,
 bound and SDPA's with the element mask; at S 1024 f32 D64 non-causal, a
 random mask with a kv tile nobody attends (dk = dv = 0) and bq 128 x bk 64
 (F9's rows); A1, A3 and A4 re-timed beside their earlier times; y the
-small-channel 3x3 conv (C1, ``csrc/conv3x3.cu``) against plain at
+small-channel 3x3 conv (C1, ``csrc/conv3x3.cu``: bf16 on wgmma, f32 on the
+CUDA cores; its launch plans held to the kernel's) against plain at
 ResNet-50's conv2_x (32, 56, 56, 64) -> 64 in bf16 and f32 and at (1, 6,
-10, 32) -> 48 with garbage in the padded lanes, beside ``F.conv2d``; the
+10, 32) -> 48 with garbage in the padded lanes, beside ``F.conv2d``, each
+also timed as device time with a cold L2; the
 three-layer packed stack of the ``examples/conv_pairs`` twin (3 C1
 launches, counted from 0) against F.conv2d + ReLU; ``conv2d_autotuned`` at
 (32, 56, 56, 64) -> 64 (native against pairs) and (16, 28, 28, 256) -> 256
@@ -248,6 +253,15 @@ def kernel_name(mangled):
     k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)"
                   r"(S\d*_|[af])?Li(\d+)E", mangled)
     c = re.search(r"(conv3x3_kernel)I(13__nv_bfloat16|f)E", mangled)
+    g = re.search(r"(gemm8_wgmma_kernel)INS\d*_\d+(E4M3|E5M2|S8)ELi(\d+)"
+                  r"ELi(\d+)E", mangled)
+    if "conv3x3_wgmma_kernel" in mangled:
+        return "conv3x3_wgmma_kernel<bf16>"
+    if g:
+        return (f"{g.group(1)}<{g.group(2).lower()}, {g.group(3)}, "
+                f"{g.group(4)}>")
+    if "byte_transpose_kernel" in mangled:
+        return "byte_transpose_kernel"
     if k:
         return (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
                 f"{', int8 KV' if k.group(3) == 'a' else ''}, {k.group(4)}"
@@ -273,15 +287,19 @@ def ptxas_summary(log):
     return out
 
 
-def flash_sass(nvcc, so, summary):
-    """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
-    library's SASS (cuobjdump): (name, HGMMA count, registers, spill line)
-    each. Fails unless every bf16 instance of each of the three kernels
-    issues wgmma (HGMMA) and they cover D 64 and 128 on the dense and the
-    block-sparse schedule."""
+def sass_of(nvcc, so):
+    """The built library's SASS (cuobjdump -sass)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+    return subprocess.run([tool, "-sass", so], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def flash_sass(sass, summary):
+    """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
+    library's SASS: (name, HGMMA count, registers, spill line) each. Fails
+    unless every bf16 instance of each of the three kernels issues wgmma
+    (HGMMA) and they cover D 64 and 128 on the dense and the block-sparse
+    schedule."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     rows, covered = [], {k: set() for k in kinds}
@@ -304,6 +322,44 @@ def flash_sass(nvcc, so, summary):
         if got != want:
             fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
                  f"{sorted(got)}, want {sorted(want)}")
+    return rows
+
+
+# the 8-bit GEMM's instances (csrc/matmul8.cu's CUBECL_WG_TILES by operand
+# type) and the wgmma SASS each must issue: HGMMA for fp8 (run as f16 on
+# the 16-bit wgmma), IGMMA (the SASS of wgmma .s8) for int8
+GEMM8_SASS = {"e4m3": "HGMMA", "e5m2": "HGMMA", "s8": "IGMMA"}
+
+
+def wgmma_body_sass(sass, summary, tiles):
+    """Phase 2: C1's bf16 body and every 8-bit GEMM instance in the SASS:
+    (name, wgmma count, registers, spill line) each. Fails unless C1 bf16
+    issues HGMMA, each 8-bit instance issues its GEMM8_SASS instruction,
+    and the instances are exactly ``tiles`` (ops/matmul.py's
+    ``kernel_tiles(1)``) for each of the three types."""
+    regs = {n: (r, sp) for n, r, sp in summary}
+    rows, got = [], set()
+    for chunk in sass.split("Function : ")[1:]:
+        mangled = chunk.split("\n", 1)[0].strip()
+        if "conv3x3_wgmma_kernel" not in mangled \
+                and "gemm8_wgmma_kernel" not in mangled:
+            continue
+        name = kernel_name(mangled)
+        m = re.search(r"<(\w+), (\d+), (\d+)>", name)
+        want = "HGMMA" if m is None else GEMM8_SASS[m.group(1)]
+        n = chunk.count(want)
+        r, sp = regs.get(name, (None, "not in the ptxas log"))
+        rows.append((name, f"{n} {want}", r, sp))
+        if n == 0:
+            fail(f"phase 2: {name} issues no {want} (wgmma)")
+        if m:
+            got.add((m.group(1), int(m.group(2)), int(m.group(3))))
+        else:
+            got.add("conv")
+    want = {(t, bm, bn) for t in GEMM8_SASS for bm, bn, _ in tiles}
+    if got != want | {"conv"}:
+        fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want C1 "
+             f"bf16 and {sorted(want)}")
     return rows
 
 
@@ -1979,8 +2035,16 @@ MM_CASES = [
     (torch.int8, torch.float32, False, "device"),  # matmul_quantized's
     (torch.int8, torch.float32, True, "device"),
     (torch.float8_e4m3fn, torch.bfloat16, True, "host"),
+    (torch.float8_e4m3fn, torch.bfloat16, False, "host"),  # the JAX layout
 ]
 MM_SCALES = (0.5, 0.25)  # sa, sb of the scaled epilogues; sa * sb exact
+# The GEMM's times at 4096^3 before the 8-bit operands ran on wgmma (all
+# types on mma.sync, csrc/matmul.cu), taken by this script on an H100 80GB
+# HBM3 at 700 W (phase m's fastest tile, phase n's M2); printed beside
+# this run's. M2 with B as (K, N) had no case then.
+MMA_SYNC_MS = {"M2 e4m3 B (N, K) -> bf16": 0.499,
+               "M1 e4m3 B (N, K) -> f32": 0.484,
+               "M1 int8 B (N, K) -> int32": 0.2405}
 # phase o: matmul_cmma's (operands, M = N = K), as examples/matmul.py
 CMMA_CASES = [(torch.float32, 512), (torch.bfloat16, 512),
               (torch.bfloat16, 4096)]
@@ -2037,6 +2101,9 @@ def mm_library(a, b, out_dt, bt, epilogue):
             return (lambda: torch.matmul(a, bb)), "torch.matmul"
         return (lambda: torch.mm(a, bb, out_dtype=out_dt)), \
             "torch.mm(out_dtype=float32)"
+    if a.dtype == torch.float8_e4m3fn and not bt:
+        return None, ("none: torch._scaled_mm wants B column-major, "
+                      "(N, K) in memory")
     if a.dtype == torch.float8_e4m3fn and bt and epilogue != "device":
         # cuBLASLt's fp8 GEMM wants B column-major: B given as (N, K)
         sa, sb = (torch.tensor(s if epilogue else 1.0, device=a.device)
@@ -2053,6 +2120,15 @@ def _ranked(times, unit):
     """'tile: time, ...' fastest first, each time times ``unit``."""
     return ", ".join(f"{t}: {v * unit:.4f}" for t, v in
                      sorted(times.items(), key=lambda kv: kv[1]))
+
+
+def mm_body(in_dt):
+    """The GEMM body that runs ``in_dt`` operands."""
+    if in_dt.itemsize == 1:
+        return ("wgmma " + ("s8" if in_dt == torch.int8 else "f16 (fp8 as "
+                            "exact f16)") + ", csrc/matmul8.cu")
+    return ("f32 FMA" if in_dt == torch.float32 else "mma.sync") + \
+        ", csrc/matmul.cu"
 
 
 def _mm_what(sname, in_dt, out_dt, bt, epilogue):
@@ -2112,13 +2188,21 @@ def matmul_vs_plain(mm, dev, gen, card):
             lib_txt = f"{lib_name} {lib_ms:.4f} ms" if lib else lib_name
             agree = "exact" if out_dt == torch.int32 else \
                 f"max abs err {err}"
-            print(f"phase m {what}: {len(tiles)} tiles {agree} vs plain; "
+            before = MMA_SYNC_MS.get(
+                f"{'M2' if epi == 'host' else 'M1'} {_dt(in_dt)} B "
+                f"{'(N, K)' if bt else '(K, N)'} -> {_dt(out_dt)}") \
+                if (M, N, K) == (MM_S,) * 3 and epi != "device" else None
+            if before is not None:
+                lib_txt += f"; mma.sync before: {before} ms"
+            print(f"phase m {what} [{mm_body(in_dt)}]: {len(tiles)} tiles "
+                  f"{agree} vs plain; "
                   f"fastest {best}: {ms:.4f} ms "
                   f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s, "
                   f"{100 * bms / ms:.1f}% of the bound {bms:.4f} ms, {by}); "
                   f"tiles {_ranked(times, 1.0)} ms; plain {plain_ms:.4f} ms; "
                   f"library {lib_txt} [{card}]", flush=True)
-            rows.append(dict(case=what, tile=list(best), max_abs_err=err,
+            rows.append(dict(case=what, body=mm_body(in_dt),
+                             tile=list(best), max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bms,
                              bound_by=by, library=lib_name,
                              library_ms=lib_ms))
@@ -3310,6 +3394,12 @@ BSP_CASES = [
 CONV_MAIN = (32, 56, 56, 64, 64)
 CONV_FAT = (16, 28, 28, 256, 256)
 STACK_TOL = 0.15  # examples/conv_pairs.py's bound on the bf16 stack
+# C1's times before its bf16 body ran on wgmma (both dtypes on the f32
+# CUDA cores), taken by this script on an H100 80GB HBM3 at 700 W; printed
+# beside this run's
+CUDA_CORE_C1_MS = {"bf16 32x56x56x64->64": 0.3694,
+                   "f32 32x56x56x64->64": 0.3769,
+                   "bf16 1x6x10x32->48": 0.042, "stack": 1.16}
 LIB_CONV_TOL = {torch.float32: (1e-4, 1e-3)}
 
 
@@ -3536,11 +3626,18 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
     (C1's path, launches counted from 0) against F.conv2d + ReLU;
     ``conv2d_autotuned`` at CONV_MAIN (native against pairs) and CONV_FAT
     (native against im2col on M1), each candidate's time and the winner, and
-    each candidate called alone on the same handles against F.conv2d."""
-    plan = conv.c1_kernel_plan()
-    if plan != (conv.C1_THREADS, conv.C1_TILE, conv.C1_SMEM):
-        fail(f"phase y: C1's launch plan in ops/conv.py ({conv.C1_THREADS}, "
-             f"{conv.C1_TILE}, {conv.C1_SMEM}) is not the kernel's {plan}")
+    each candidate called alone on the same handles against F.conv2d.
+    C1's launch plans in ``ops/conv.py`` are held to the built kernel's at
+    every shape of the phase, both dtypes."""
+    N_, H_, W_, _ = ex_conv.CARD_SHAPE
+    for dt in conv.C1_DTYPES:
+        for n, h, w in [CONV_MAIN[:3], (1, 6, 10), (N_, H_, W_),
+                        CONV_FAT[:3]]:
+            plan = conv.c1_kernel_plan(dt, n, h, w)
+            if plan != conv.c1_plan(dt, n, h, w):
+                fail(f"phase y: C1's launch plan in ops/conv.py "
+                     f"{conv.c1_plan(dt, n, h, w)} is not the kernel's "
+                     f"{plan} ({dt}, {n}x{h}x{w})")
     rows = {}
     for name, (n, h, w, c, k), dt in [
             ("bf16 32x56x56x64->64", CONV_MAIN, torch.bfloat16),
@@ -3569,6 +3666,10 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
                         lib.permute(0, 2, 3, 1), f"{what} against F.conv2d",
                         LIB_CONV_TOL.get(dt))
         ms = cuda_ms(lambda: conv.conv3x3(x64, wd, c))
+        # the kernel alone: device time with a cold L2, the call's host
+        # time hidden behind the L2-evicting read (back to back, a call's
+        # host time can exceed the bf16 kernel's)
+        dev_ms = cold_ms(lambda: conv.conv3x3(x64, wd, c))
         plain_ms = cuda_ms(lambda: conv.conv2d_pairs_plain(x64, wd, c),
                            iters=5, warmup=1)
         lib_ms = cuda_ms(lambda: TF.conv2d(xcl, wcl, padding=1))
@@ -3577,12 +3678,18 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
                            elem * (n * h * w * (c + 64) + 9 * c * k), dt)
         rows[name] = dict(max_abs_err=err, library_err=e_lib, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                          bound_by=by)
-        print(f"{what}: max abs err {err} (atol/rtol {TOL[dt]}), against "
-              f"F.conv2d {e_lib}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, F.conv2d (channels_last) {lib_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it) [{card}]",
-              flush=True)
+                          bound_by=by, body=conv.c1_body(dt),
+                          device_ms_cold_l2=dev_ms)
+        before = CUDA_CORE_C1_MS.get(name)
+        print(f"{what} [body {conv.c1_body(dt)}, plan "
+              f"{conv.c1_plan(dt, n, h, w)}]: max abs err {err} (atol/rtol "
+              f"{TOL[dt]}), against F.conv2d {e_lib}; kernel {ms:.4f} ms"
+              + (f" (CUDA cores before: {before} ms)" if before and
+                 dt == torch.bfloat16 else "")
+              + f", device time with a cold L2 {dev_ms:.4f} ms"
+              + f", plain {plain_ms:.4f} ms, F.conv2d (channels_last) "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+              f"{100 * bms / ms:.1f}% of it) [{card}]", flush=True)
         del x, xp, got, ref, lib, x64, xcl
     # the main path: the example's packed stack at its card size
     N, H, W, C = ex_conv.CARD_SHAPE
@@ -3606,7 +3713,8 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
     print(f"phase y examples/conv_pairs twin: {ex_conv.DEPTH}-layer packed "
           f"stack bf16 {N}x{H}x{W}x{C}: {launches} C1 launches, max |err| "
           f"against F.conv2d + ReLU {err:.4f} (bound {STACK_TOL}); "
-          f"{stack_s:.4f} s cold, {stack_ms:.4f} ms warm against "
+          f"{stack_s:.4f} s cold, {stack_ms:.4f} ms warm (CUDA cores "
+          f"before: {CUDA_CORE_C1_MS['stack']} ms) against "
           f"{ref_ms:.4f} ms for F.conv2d + ReLU [{card}]", flush=True)
     rows["stack"] = dict(launches=launches, max_abs_err=err, ms=stack_ms,
                          library_ms=ref_ms)
@@ -3662,7 +3770,8 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
         rows[f"autotuned {n}x{h}x{w}x{c}->{k}"] = dict(
             candidates_ms=cands, winner=winner, tune_s=tune_s, max_abs_err=e,
             candidate_err=e_alone)
-        print(f"phase y conv2d_autotuned bf16 {n}x{h}x{w}x{c} -> {k}: "
+        print(f"phase y conv2d_autotuned bf16 {n}x{h}x{w}x{c} -> {k} (C1 "
+              f"body {conv.c1_body(torch.bfloat16)}): "
               + ", ".join(f"{n_} {t:.4f} ms" for n_, t in sorted(
                   cands.items(), key=lambda kv: kv[1]))
               + f"; winner {winner}, tuned in {tune_s:.2f} s; max abs err "
@@ -3749,14 +3858,18 @@ def main():
     build_wall = time.perf_counter() - t0
     summary = ptxas_summary(build.log)
     regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in summary
-                     if "gemm_kernel" not in n)
+                     if "gemm_kernel" not in n and "wgmma_kernel" not in n)
     gemm = [(r, s) for n, r, s in summary if "gemm_kernel" in n]
     spills = sorted({s for _, s in gemm if not s.startswith(
         "0 bytes stack frame, 0 bytes spill stores")})
-    sass_rows = flash_sass(native.find_nvcc(), build.path, summary)
+    sass = sass_of(native.find_nvcc(), build.path)
+    sass_rows = flash_sass(sass, summary)
     print("phase 2 flash SASS (cuobjdump): " + "; ".join(
         f"{n}: {h} HGMMA, {r} regs, {sp}" for n, h, r, sp in sass_rows),
         flush=True)
+    wg_rows = wgmma_body_sass(sass, summary, mm.kernel_tiles(1))
+    print("phase 2 C1 bf16 and 8-bit GEMM SASS (cuobjdump): " + "; ".join(
+        f"{n}: {h}, {r} regs, {sp}" for n, h, r, sp in wg_rows), flush=True)
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
           f"{os.path.relpath(build.path)}; ptxas: {regs}; matmul: "
           f"{len(gemm)} tile instances, {min(r for r, _ in gemm)}-"
@@ -4191,11 +4304,19 @@ def main():
                        for k, v in n_out["keys"].items()},
             quantized_rel_err=n_out["quantized_rel_err"],
             by_case=m_rows),
-        row("matmul_scaled", "cubecl_tpu_torch/csrc/matmul.cu",
-            "cubecl_tpu/ops/matmul.py:477",
+        row("matmul_scaled", "cubecl_tpu_torch/csrc/matmul8.cu (with "
+            "csrc/wgmma_gemm.cuh)", "cubecl_tpu/ops/matmul.py:477",
             n_out["launches"]["matmul_scaled"], n_out["matmul_scaled"],
             n_out["matmul_scaled"]["library_ms"], library="torch._scaled_mm",
-            shape="e4m3 4096^3, B as (N, K), x sa*sb -> bf16"),
+            shape="e4m3 4096^3, B as (N, K), x sa*sb -> bf16",
+            body=mm_body(torch.float8_e4m3fn),
+            b_layouts_phase_m={r["case"]: {f: r[f] for f in (
+                "tile", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms")} for r in m_rows
+                if r["case"].startswith(f"M2 {MM_S}^3")},
+            parent_body="mma.sync with two cp.async stages "
+                        "(csrc/matmul.cu, csrc/mma_tile.cuh); its times are "
+                        "printed in phase m as constants of an earlier run"),
         row("k0_cmma", "cubecl_tpu_torch/ops/matmul.py (matmul_cmma_nd_"
             "kernel, printed by cubecl_tpu_torch/backend/cuda/printer.py)",
             "cubecl_tpu/backend/pallas/emitter.py:48",
@@ -4285,6 +4406,12 @@ def main():
             shape="bf16 (32, 56, 56, 64) -> 64, 3x3 SAME (ResNet-50 "
                   "conv2_x)",
             launches_path="phase y: examples/conv_pairs twin, 3 layers",
+            body={str(dt).replace("torch.", ""): conv.c1_body(dt)
+                  for dt in conv.C1_DTYPES},
+            device_ms_cold_l2=c1["device_ms_cold_l2"],
+            parent_body="both dtypes on the f32 CUDA cores; its times "
+                        "are printed in phase y as constants of an earlier "
+                        "run",
             **{k.replace(" ", "_"): v for k, v in y_rows.items()
                if k != "bf16 32x56x56x64->64"}),
     ]}))

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks in inline PTX for the tensor-core flash
-// kernels (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+// Hopper (sm_90a) building blocks in inline PTX for the tensor-core kernels
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, the bf16 body of
+// csrc/conv3x3.cu, csrc/wgmma_gemm.cuh):
 // mbarriers, TMA tensor copies, the 128-byte-swizzle shared-memory
 // descriptors of wgmma, the wgmma instructions themselves and setmaxnreg;
 // on the host, the tensor maps the copies read.
@@ -84,6 +85,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -179,6 +191,15 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
 #undef CUBECL_F8
 #undef CUBECL_F32
 #undef CUBECL_R32
+
+// four 8 x 8 matrices of 16-bit elements from shared memory, one row
+// address a lane (lanes 8 i .. 8 i + 7 give matrix i's rows)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
 // -- registers -------------------------------------------------------------
 

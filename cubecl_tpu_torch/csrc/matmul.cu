@@ -1,4 +1,5 @@
-// Tiled GEMM for Hopper (sm_90a): the autotuned matmul and its scaled form.
+// Tiled GEMM for Hopper (sm_90a): the autotuned matmul and its scaled form,
+// for f32 and 16-bit operands; the 8-bit ones (fp8, int8) run matmul8.cu.
 //
 // Replaces the TPU kernels of cubecl_tpu/ops/matmul.py:
 //   M1 _build_matmul (pallas_call :112): out = cast(a @ b) for f32 / bf16 /
@@ -21,14 +22,15 @@
 // kernel's Precision.HIGHEST by some 10x. The bytes (a, b and out once)
 // are 0.03 ms at 3.35 TB/s, so the kernel is bound by operations.
 //
-// Design, simple and right first: the tile loops of mma_tile.cuh (16- and
-// 8-bit operands on the tensor cores through mma.sync with two cp.async
-// stages and ldmatrix; f32 on the CUDA cores, never TF32), one block per
-// BM x BN output tile. The tile sizes are template instances chosen by a
+// Design, simple and right first: the tile loops of mma_tile.cuh (16-bit
+// operands on the tensor cores through mma.sync with two cp.async stages
+// and ldmatrix; f32 on the CUDA cores, never TF32), one block per BM x BN
+// output tile. The tile sizes are template instances chosen by a
 // switch at launch (the tunables of ops/matmul.py are exactly this list),
 // so one nvcc build covers every tunable. Shapes the tile does not divide
 // are refused by the Python wrapper; there is no masking here.
-// wgmma, TMA, deeper pipelines and persistent blocks are later work.
+// wgmma and TMA for 16-bit operands are later work (matmul8.cu's mainloop,
+// wgmma_gemm.cuh).
 #include "mma_tile.cuh"
 
 namespace cubecl {
@@ -117,7 +119,8 @@ cudaError_t launch_fma(const void* a, const void* b, void* c, int M, int N,
 // out_dtype: kF32, kBF16, kF16 or kI32 (int8 operands only, unscaled).
 // scaled: 0 none, 1 multiply by sa[0] * sb[0] (device scalars), 2 by
 // scale. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a type or tile this library was not built for.
+// cudaErrorInvalidValue for a type or tile this library was not built for:
+// kE4M3, kE5M2 and kI8 are matmul8.cu's (cubecl_matmul8), not this one's.
 extern "C" int cubecl_matmul(const void* a, const void* b, void* c,
                              const float* sa, const float* sb, int in_dtype,
                              int out_dtype, int M, int N, int K, int tm,
@@ -153,13 +156,7 @@ extern "C" int cubecl_matmul(const void* a, const void* b, void* c,
                                                    scale, st);
 #define CUBECL_MMA_TILE_BF16(BM, BN, BKB) CUBECL_MMA_TILE(BF16, BM, BN, BKB)
 #define CUBECL_MMA_TILE_F16(BM, BN, BKB) CUBECL_MMA_TILE(F16, BM, BN, BKB)
-#define CUBECL_MMA_TILE_E4M3(BM, BN, BKB) CUBECL_MMA_TILE(E4M3, BM, BN, BKB)
-#define CUBECL_MMA_TILE_E5M2(BM, BN, BKB) CUBECL_MMA_TILE(E5M2, BM, BN, BKB)
-#define CUBECL_MMA_TILE_S8(BM, BN, BKB) CUBECL_MMA_TILE(S8, BM, BN, BKB)
   CUBECL_MMA_TYPE(kBF16, BF16)
   CUBECL_MMA_TYPE(kF16, F16)
-  CUBECL_MMA_TYPE(kE4M3, E4M3)
-  CUBECL_MMA_TYPE(kE5M2, E5M2)
-  CUBECL_MMA_TYPE(kI8, S8)
   return cudaErrorInvalidValue;
 }

@@ -16,7 +16,8 @@ flat handles with their sizes.
    ((N, H·W/2, 128), ``pack_pairs``); that layout is NHWC with 64 channels a
    pixel in memory, so the port keeps the layout at its API and runs C1 as
    the direct convolution it computes: ``csrc/conv3x3.cu`` on CUDA tensors
-   (``conv2d_pairs_packed.launches`` counts its launches),
+   (bf16 an implicit GEMM on ``wgmma``, f32 on the CUDA cores;
+   ``conv2d_pairs_packed.launches`` counts its launches),
    ``conv2d_pairs_plain`` — nine shifted (N, H, W, 64) x (64, 64) products
    summed in f32, independent of cuDNN — on CPU tensors and as the kernel's
    reference on the card. Weights are zero-padded to 64 x 64 and rounded to
@@ -36,6 +37,7 @@ algorithm and workspace outside the CUDA graph.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple, Union
 
 import torch
@@ -55,12 +57,63 @@ Pad = Union[str, int, Tuple[int, int]]
 
 PAIR_CH = 64                 # channels a pixel carries in the pair layout
 C1_DTYPES = (torch.float32, torch.bfloat16)
-# C1's launch plan, copied from csrc/conv3x3.cu (NT, TR and TW, SMEM) for
-# the launch's validation on any client; ``c1_kernel_plan`` reads the
-# built kernel's (``cubecl_conv3x3_plan``) on a card to hold these to it
-C1_THREADS = 256             # a block's threads,
-C1_TILE = (2, 64)            # its output rows and columns,
-C1_SMEM = (9 * 64 * 64 + 4 * 64 * 67) * 4  # its shared memory (bytes)
+# C1's launch plans, copied from csrc/conv3x3.cu for the launch's
+# validation on any client; ``c1_kernel_plan`` reads the built kernel's
+# (``cubecl_conv3x3_plan``) on a card to hold ``c1_plan`` to it.
+# f32 (the CUDA cores): a block's threads, output rows and columns, and
+# shared memory (the f32 weights and 4 x 66 staged pixels)
+C1_THREADS = 256
+C1_TILE = (2, 64)
+C1_SMEM = (9 * 64 * 64 + 4 * 64 * 67) * 4
+# bf16 (wgmma): a producer and two consumer warpgroups, persistent blocks
+# (at most one an SM of the H100), the resident bf16 weights, a ring of 2
+# halo stages of at most 600 pixels of 128 bytes, tiles at most 198 columns
+# wide
+C1_WG_THREADS = 384
+C1_WG_MAX_BLOCKS = 132
+C1_WG_WEIGHTS = 9 * 64 * 64 * 2
+C1_WG_STAGES = 2
+C1_WG_MAX_HALO = 600
+C1_WG_MAX_TW = 198
+
+
+@dataclasses.dataclass(frozen=True)
+class C1Plan:
+    """One launch of C1: ``threads`` a block, a block's (f32) or a tile's
+    (bf16) output ``tile`` (rows, columns), dynamic shared memory
+    ``smem_bytes`` and the ``grid``."""
+    threads: int
+    tile: Tuple[int, int]
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def c1_body(dtype) -> str:
+    """The body C1 runs for ``dtype``: "wgmma" (bf16, the tensor cores) or
+    "cuda-cores" (f32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "cuda-cores"
+
+
+def c1_plan(dtype, n: int, h: int, w: int) -> C1Plan:
+    """C1's launch plan for an (n, h, w) input of ``dtype``: the arithmetic
+    of csrc/conv3x3.cu (``wg_plan`` for bf16, the f32 body's constants).
+    The bf16 tile is ``tr`` rows x ``tw`` columns of one image, its halo
+    (tr + 2) x (tw + 2) pixels of 128 bytes in a stage on a 1024-byte
+    boundary; one persistent block a tile up to 132."""
+    if dtype == torch.float32:
+        return C1Plan(C1_THREADS, C1_TILE, C1_SMEM,
+                      (-(-w // C1_TILE[1]), -(-h // C1_TILE[0]), n))
+    if dtype != torch.bfloat16:
+        raise ValueError(f"C1 takes {C1_DTYPES}; got {dtype}")
+    wb = -(-w // C1_WG_MAX_TW)
+    tw = -(-w // wb)
+    tr = min(h, C1_WG_MAX_HALO // (tw + 2) - 2)
+    tiles = n * -(-h // tr) * wb
+    stage = -(-(tr + 2) * (tw + 2) * 2 * PAIR_CH // 1024) * 1024
+    smem = C1_WG_WEIGHTS + C1_WG_STAGES * stage \
+        + (1 + 2 * C1_WG_STAGES) * 8 + 1024
+    return C1Plan(C1_WG_THREADS, (tr, tw), smem,
+                  (min(tiles, C1_WG_MAX_BLOCKS), 1, 1))
 
 
 def _norm_pad(padding: Pad, r: int, s: int):
@@ -298,12 +351,12 @@ def _conv_pairs_task(client, x: Handle, wgt: Handle,
             o.view(n, h, w, k).copy_(conv2d_pairs(xx.view(n, h, w, c),
                                                   ww.view(3, 3, c, k)))
 
+        plan = c1_plan(x.dtype, n, h, w)
         return CompiledKernel(
             fn=fn, mutable_indices=[2],
             source=f"csrc/conv3x3.cu {n}x{h}x{w}x{c} -> {k}",
-            name="conv2d_pairs", block=(C1_THREADS, 1, 1),
-            grid=(-(-w // C1_TILE[1]), -(-h // C1_TILE[0]), n),
-            smem_bytes=C1_SMEM, smem_opt_in=True)
+            name="conv2d_pairs", block=(plan.threads, 1, 1), grid=plan.grid,
+            smem_bytes=plan.smem_bytes, smem_opt_in=True)
 
     client.launch(NativeKernelTask(kid, _build, name="conv2d_pairs"),
                   [x, wgt, out])
@@ -397,15 +450,17 @@ def conv3x3(x, w, cin: int = PAIR_CH):
     return out
 
 
-def c1_kernel_plan():
-    """(threads, (rows, columns), shared memory bytes) of a block of the
-    built C1, from ``cubecl_conv3x3_plan``: the launch plan that
-    ``C1_THREADS``, ``C1_TILE`` and ``C1_SMEM`` must equal (builds the
+def c1_kernel_plan(dtype, n: int, h: int, w: int) -> C1Plan:
+    """The built C1's launch plan for an (n, h, w) input of ``dtype``, from
+    ``cubecl_conv3x3_plan``: what :func:`c1_plan` must equal (builds the
     CUDA kernels on first use)."""
     lib = native.kernels()
-    plan = (ctypes.c_int * 4)()
-    lib.cubecl_conv3x3_plan(ctypes.cast(plan, ctypes.c_void_p))
-    return plan[0], (plan[1], plan[2]), plan[3]
+    plan = (ctypes.c_int * 7)()
+    rc = lib.cubecl_conv3x3_plan(native.DTYPE_CODES[dtype], n, h, w,
+                                 ctypes.cast(plan, ctypes.c_void_p))
+    native.check(lib, rc, "conv3x3_plan")
+    return C1Plan(plan[0], (plan[1], plan[2]), plan[3],
+                  (plan[4], plan[5], plan[6]))
 
 
 def conv2d_pairs(x, w):

@@ -5,22 +5,28 @@ Two implementations behind one autotuned entry point, as in the JAX
 package:
 
 1. ``matmul_pallas`` — the hand-written GEMM. On CUDA tensors it launches
-   ``csrc/matmul.cu``, which replaces the TPU kernels M1
-   ``_build_matmul`` (``pallas_call`` :112) and M2 ``_build_matmul_scaled``
-   (:508): tensor-core ``mma.sync`` for bf16/f16/fp8/int8 operands, f32
-   FMA on the CUDA cores for f32 (never TF32: the TPU kernel runs f32 at
+   the kernels that replace the TPU kernels M1 ``_build_matmul``
+   (``pallas_call`` :112) and M2 ``_build_matmul_scaled`` (:508):
+   ``csrc/matmul8.cu`` for fp8/int8 operands (``wgmma`` fed by TMA,
+   ``csrc/wgmma_gemm.cuh``: int8 on the 8-bit ``wgmma``, fp8 as exact f16
+   values on the 16-bit one, whose sums hold f32's tolerance where the
+   8-bit one's do not; B given as (K, N) is byte-transposed into a scratch
+   (N, K) first, in the same call), ``csrc/matmul.cu`` for the
+   others: tensor-core ``mma.sync`` for bf16/f16, f32 FMA on the CUDA
+   cores for f32 (never TF32: the TPU kernel runs f32 at
    ``Precision.HIGHEST``). int8 accumulates exactly in int32. B comes as
    (K, N) or, with ``b_transposed``, as (N, K). An epilogue multiplies the
    accumulator by ``sa * sb``: device scalars for M1's scaled form (the
    ``matmul_quantized`` route), host floats for M2 (``matmul_scaled``).
    On CPU tensors the same entry points run :func:`matmul_plain`.
    Bound at 4096^3 on the H100: 2 * 4096^3 operations over the dtype's
-   peak — bf16 0.139 ms, fp8 and int8 0.069 ms, f32 on the CUDA cores
-   2.05 ms; the bytes are 0.03 ms. The kernel's design (two cp.async
-   stages, ldmatrix, warp mma.sync) is simple first; wgmma and TMA are
-   later work. ``matmul_pallas.launches`` and ``matmul_scaled.launches``
-   count the kernel's launches that run outside a CUDA graph: eager calls
-   and a graph's warm launch, not its recording nor its replays.
+   peak — bf16 0.139 ms, fp8 and int8 0.069 ms (fp8 on the f16 route:
+   0.139), f32 on the CUDA cores 2.05 ms; the bytes are 0.03 ms. The
+   16-bit design (two cp.async stages, ldmatrix, warp mma.sync) is simple
+   first; wgmma for it is later work. ``matmul_pallas.launches`` and
+   ``matmul_scaled.launches`` count the kernel's launches that run
+   outside a CUDA graph: eager calls and a graph's warm launch, not its
+   recording nor its replays.
 2. ``matmul_cmma`` — the DSL path (K0): ``matmul_cmma_kernel`` and
    ``matmul_cmma_nd_kernel``, cube-scope cmma fragments that the CUDA
    printer keeps in shared memory and the torch evaluator computes with
@@ -61,13 +67,21 @@ from ..utils import native
 # ---------------------------------------------------------------------------
 
 NT = 256                 # threads per block (8 warps as 2 x 4)
+GEMM8_THREADS = 384      # the 8-bit kernel: producer + 2 consumer warpgroups
 MAX_SMEM = 227 * 1024    # dynamic shared memory a block may use
 MAX_ACC_REGS = 128       # accumulator registers per thread (of 255)
-# the tile grid the tensor-core kernel is built over: (BM, BN) and the
-# bytes of K a stage holds; the H100's limits keep every combination
-# (ops over 16-bit or 8-bit elements read the same bytes per mma step)
+# the tile grid the 16-bit tensor-core kernel (csrc/matmul.cu) is built
+# over: (BM, BN) and the bytes of K a stage holds; the H100's limits keep
+# every combination
 _MMA_MN = ((64, 128), (128, 128), (128, 256), (256, 128))
 _MMA_KB = (64, 128)
+# the 8-bit wgmma kernel (csrc/matmul8.cu's CUBECL_WG_TILES): (BM, BN),
+# 128 bytes of K a stage (one swizzle row), a ring of up to 5 stages in
+# 144 KiB and two f16 panels of B (csrc/wgmma_gemm.cuh's WgGemmTile)
+_WG_MN = ((128, 128), (256, 128))
+_WG_KB = 128
+_WG_RING = 144 * 1024
+_WG_MAX_STAGES = 5
 # the f32 kernel: (BM, BN) x K per stage
 _FMA_MN = ((64, 64), (128, 128))
 _FMA_K = (8, 16)
@@ -82,22 +96,37 @@ def _itemsize(dtype: str) -> int:
     return elem_from_dtype(dtype).size
 
 
+def _wg_stages(tm: int, tn: int) -> int:
+    """Stages of the 8-bit kernel's ring: as many as 144 KiB hold, at most
+    5 (wgmma_gemm.cuh's WgGemmTile::STAGES)."""
+    return min(_WG_MAX_STAGES, _WG_RING // ((tm + tn) * _WG_KB))
+
+
 def _matmul_smem(tm: int, tn: int, tk: int, in_bytes: int,
                  b_transposed: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/matmul.cu's MmaTile and
-    fma_smem_bytes): f32 stages A and B once; the tensor-core kernel two
-    stages of A rows and B (n-major rows, or k-major rows for 16-bit B
-    given as (K, N)), each row padded by 16 bytes."""
+    fma_smem_bytes, csrc/wgmma_gemm.cuh's WgGemmTile): f32 stages A and B
+    once; the 16-bit tensor-core kernel two stages of A rows and B
+    (n-major rows, or k-major rows for B given as (K, N)), each row padded
+    by 16 bytes; the 8-bit kernel its ring of 128-byte rows of A and B (B
+    is (N, K) in both layouts: a (K, N) B is transposed before), two f16
+    copies of a stage's B (fp8 runs as f16), a full and an empty mbarrier
+    a stage and 1024 bytes to align the base."""
     if in_bytes == 4:
         return (tk * tm + tk * tn) * 4
+    if in_bytes == 1:
+        stages = _wg_stages(tm, tn)
+        return stages * (tm + tn) * tk + 2 * tn * 2 * tk + 2 * 8 * stages \
+            + 1024
     kb = tk * in_bytes
     a = tm * (kb + 16)
-    b = tn * (kb + 16) if (b_transposed or in_bytes == 1) \
-        else tk * (tn * 2 + 16)
+    b = tn * (kb + 16) if b_transposed else tk * (tn * 2 + 16)
     return 2 * (a + b)
 
 
 def _acc_regs(tm: int, tn: int) -> int:
+    # every kernel spreads the tile over NT threads (the 8-bit one over
+    # its two consumer warpgroups)
     return tm * tn // NT
 
 
@@ -109,11 +138,15 @@ def _admitted(tm, tn, tk, in_bytes) -> bool:
 
 
 def kernel_tiles(in_bytes: int):
-    """The (tm, tn, tk) instances csrc/matmul.cu is built with for
-    ``in_bytes``-byte operands (its CUBECL_MMA_TILES, in bytes of K, and
-    CUBECL_FMA_TILES): the grid above, kept where the card admits it."""
+    """The (tm, tn, tk) instances the kernels are built with for
+    ``in_bytes``-byte operands (csrc/matmul.cu's CUBECL_MMA_TILES, in
+    bytes of K, and CUBECL_FMA_TILES; csrc/matmul8.cu's CUBECL_WG_TILES
+    for 8-bit operands): the grids above, kept where the card admits
+    them."""
     if in_bytes == 4:
         grid = [(m, n, k) for m, n in _FMA_MN for k in _FMA_K]
+    elif in_bytes == 1:
+        grid = [(m, n, _WG_KB) for m, n in _WG_MN]
     else:
         grid = [(m, n, kb // in_bytes) for m, n in _MMA_MN for kb in _MMA_KB]
     return [t for t in grid if _admitted(*t, in_bytes)]
@@ -123,8 +156,8 @@ def _tile_candidates(m: int, n: int, k: int, in_bytes: int,
                      out_bytes: int = 4, limit: int = 8):
     """Tile shapes for autotune: the kernel's instances that divide (m, n,
     k) — the JAX rule at ``cubecl_tpu/ops/matmul.py:217`` — largest output
-    tile first, then deeper K. 8-bit operands get their own, deeper-K list
-    (the same bytes of K per stage). ``out_bytes`` is taken for the JAX
+    tile first, then deeper K. 8-bit operands get the wgmma kernel's list
+    (128 of K a stage). ``out_bytes`` is taken for the JAX
     signature: the epilogue writes from registers, so the output does not
     size a tile."""
     out = [t for t in kernel_tiles(in_bytes)
@@ -200,9 +233,12 @@ def _scale_product(sa, sb):
 def _gemm(a, b, out, tile, b_transposed: bool, sa=None, sb=None,
           counter=None) -> None:
     """``out = cast(epilogue(a @ b))`` on 2-D tensors: the kernel on CUDA
-    tensors, :func:`matmul_plain` on CPU tensors. ``sa``/``sb``: None
-    (unscaled), two device scalars (f32 tensors, M1 scaled) or two host
-    floats (M2)."""
+    tensors (``csrc/matmul8.cu`` for 8-bit operands, ``csrc/matmul.cu``
+    for the others), :func:`matmul_plain` on CPU tensors. ``sa``/``sb``:
+    None (unscaled), two device scalars (f32 tensors, M1 scaled) or two
+    host floats (M2). 8-bit B given as (K, N) is transposed into a scratch
+    (N, K) by the same call, before its GEMM: an 8-bit ``wgmma`` reads
+    K-major operands only."""
     m, k = a.shape
     n = b.shape[0] if b_transposed else b.shape[1]
     if out.device.type == "cpu":
@@ -228,12 +264,21 @@ def _gemm(a, b, out, tile, b_transposed: bool, sa=None, sb=None,
     else:
         mode, ps, scale = 2, (None, None), _scale_product(sa, sb)
     lib = native.kernels()
+    args = (ps[0], ps[1], native.DTYPE_CODES[a.dtype],
+            native.DTYPE_CODES[out.dtype], m, n, k, tile[0], tile[1],
+            tile[2], int(b_transposed), mode, scale)
     with torch.cuda.device(out.device):
-        rc = lib.cubecl_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), ps[0], ps[1],
-            native.DTYPE_CODES[a.dtype], native.DTYPE_CODES[out.dtype],
-            m, n, k, tile[0], tile[1], tile[2], int(b_transposed), mode,
-            scale, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if a.element_size() == 1:
+            scratch = None if b_transposed else torch.empty(
+                (n, k), dtype=torch.uint8, device=out.device)
+            rc = lib.cubecl_matmul8(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), *args,
+                stream)
+        else:
+            rc = lib.cubecl_matmul(a.data_ptr(), b.data_ptr(),
+                                   out.data_ptr(), *args, stream)
     native.check(lib, rc, "matmul")
     if not torch.cuda.is_current_stream_capturing():
         counter.launches += 1  # a graph's recording runs nothing
@@ -252,10 +297,16 @@ def _check_types(in_dtype, out_dtype, acc_dtype, scaled) -> None:
         raise ValueError("an int32 output is the unscaled int8 GEMM's")
 
 
-def _native_compiled(name, fn, mutable, source, m, n, tile,
-                     smem) -> CompiledKernel:
+def _source(in_bytes: int) -> str:
+    """The kernel file of ``in_bytes``-byte operands."""
+    return "csrc/matmul8.cu" if in_bytes == 1 else "csrc/matmul.cu"
+
+
+def _native_compiled(name, fn, mutable, source, m, n, tile, smem,
+                     in_bytes) -> CompiledKernel:
+    threads = GEMM8_THREADS if in_bytes == 1 else NT
     return CompiledKernel(fn=fn, mutable_indices=[mutable], source=source,
-                          name=name, block=(NT, 1, 1),
+                          name=name, block=(threads, 1, 1),
                           grid=(n // tile[1], m // tile[0], 1),
                           smem_bytes=smem, smem_opt_in=True)
 
@@ -281,12 +332,13 @@ def _build_matmul(m: int, n: int, k: int, tm: int, tn: int, tk: int,
         _gemm(a.view(m, k), b.view(b_shape), o.view(m, n), tile,
               b_transposed, sa, sb, counter=matmul_pallas)
 
+    in_bytes = _itemsize(in_dtype)
     return _native_compiled(
         f"matmul_{tm}x{tn}x{tk}", fn, 4 if scaled else 2,
-        f"csrc/matmul.cu {m}x{n}x{k} tiles {tm}x{tn}x{tk} {in_dtype}->"
+        f"{_source(in_bytes)} {m}x{n}x{k} tiles {tm}x{tn}x{tk} {in_dtype}->"
         f"{out_dtype}{' bT' if b_transposed else ''}"
         f"{' scaled' if scaled else ''}", m, n, tile,
-        _matmul_smem(tm, tn, tk, _itemsize(in_dtype), b_transposed))
+        _matmul_smem(tm, tn, tk, in_bytes, b_transposed), in_bytes)
 
 
 def _operand_dtype(a: Handle, in_dtype: Optional[str]) -> str:
@@ -575,11 +627,12 @@ def _build_matmul_scaled(m: int, n: int, k: int, tm: int, tn: int, tk: int,
         _gemm(a.view(m, k), b.view(b_shape), o.view(m, n), tile,
               b_transposed, float(sa), float(sb), counter=matmul_scaled)
 
+    in_bytes = _itemsize(in_dtype)
     return _native_compiled(
         f"matmul_scaled_{tm}x{tn}x{tk}", fn, 2,
-        f"csrc/matmul.cu scaled {m}x{n}x{k} tiles {tm}x{tn}x{tk} "
+        f"{_source(in_bytes)} scaled {m}x{n}x{k} tiles {tm}x{tn}x{tk} "
         f"{in_dtype}->{out_dtype}{' bT' if b_transposed else ''}", m, n,
-        tile, _matmul_smem(tm, tn, tk, _itemsize(in_dtype), b_transposed))
+        tile, _matmul_smem(tm, tn, tk, in_bytes, b_transposed), in_bytes)
 
 
 def matmul_scaled(client, a: Handle, b: Handle, out: Handle,

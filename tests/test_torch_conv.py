@@ -292,3 +292,37 @@ def test_conv_pairs_example_twin():
                                rtol=2e-2)
     err = ex.check(got, x, ws)
     assert err < ex.TOL, err
+
+
+@pytest.mark.parametrize("n,h,w", [(32, 56, 56), (1, 6, 10), (3, 5, 130),
+                                   (1, 1, 2), (3, 1, 56), (1, 7, 400),
+                                   (16, 28, 28), (600, 8, 8), (1, 3, 1000)])
+def test_c1_plan_covers_the_image_and_fits_the_card(n, h, w):
+    """C1's bf16 launch plan (the wgmma body of csrc/conv3x3.cu): tiles of
+    at most 198 columns whose halo ((tr + 2) x (tw + 2) pixels) is at most
+    600 pixels, together covering every row and column once; a persistent
+    grid of at most 132 blocks, one a tile below that; the weights (72 KiB)
+    and two 1024-aligned halo stages within the 227 KiB a block may use.
+    At ResNet-50's conv2_x shape a tile is 8 rows x 56 columns (7 m64
+    blocks). The f32 plan is the CUDA-core body's fixed 2 x 64 blocks."""
+    p = tconv.c1_plan(torch.bfloat16, n, h, w)
+    tr, tw = p.tile
+    assert 1 <= tr <= h and 1 <= tw <= min(w, 198)
+    assert (tr + 2) * (tw + 2) <= 600
+    wb, hb = -(-w // tw), -(-h // tr)
+    assert (wb - 1) * tw < w <= wb * tw and (hb - 1) * tr < h <= hb * tr
+    assert -(-w // wb) == tw  # equal column blocks
+    assert p.threads == 384 and p.grid == (min(n * hb * wb, 132), 1, 1)
+    stage = -(-(tr + 2) * (tw + 2) * 128 // 1024) * 1024
+    assert p.smem_bytes == 9 * 64 * 64 * 2 + 2 * stage + 5 * 8 + 1024
+    assert p.smem_bytes <= 227 * 1024
+    if (n, h, w) == (32, 56, 56):
+        assert p.tile == (8, 56) and p.grid == (132, 1, 1)
+    f = tconv.c1_plan(torch.float32, n, h, w)
+    assert (f.threads, f.tile, f.smem_bytes) == (
+        tconv.C1_THREADS, tconv.C1_TILE, tconv.C1_SMEM)
+    assert f.grid == (-(-w // 64), -(-h // 2), n)
+    assert tconv.c1_body(torch.bfloat16) == "wgmma"
+    assert tconv.c1_body(torch.float32) == "cuda-cores"
+    with pytest.raises(ValueError, match="C1 takes"):
+        tconv.c1_plan(torch.float16, n, h, w)

@@ -565,6 +565,89 @@ def test_matmul_kernel_matches_plain(dev, dtype, b_transposed):
                               sa[0] * sb[0]))
 
 
+@pytest.mark.parametrize("b_transposed", [False, True])
+@pytest.mark.parametrize("dtype", ["float8_e4m3fn", "float8_e5m2", "int8"])
+def test_matmul8_wgmma_every_tile(dev, dtype, b_transposed):
+    """The 8-bit body (csrc/matmul8.cu): every tile instance in both B
+    layouts against plain at a shape both tiles divide, K five stages
+    deep: int8 -> int32 exact, fp8 -> f32 at f32's tolerance (summation
+    order only), and M2's host-scaled bf16 output within one bf16
+    rounding. B as (K, N) goes through the byte transpose in the call."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=dev).manual_seed(7 + len(dtype))
+    M, N, K = 512, 384, 640
+    a = _mm_operand(g, dev, dtype, (M, K), K)
+    b = _mm_operand(g, dev, dtype, (N, K) if b_transposed else (K, N), K)
+    tiles = mm._tile_candidates(M, N, K, 1)
+    assert sorted(tiles) == sorted(mm.kernel_tiles(1))
+    od = torch.int32 if dtype == "int8" else torch.float32
+    want = mm.matmul_plain(a, b, od, b_transposed)
+    want_m2 = mm.matmul_plain(a, b, torch.bfloat16, b_transposed, 0.125)
+    for tile in tiles:
+        o = torch.empty(M, N, device=dev, dtype=od)
+        mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+        o2 = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        n = mm.matmul_scaled.launches
+        mm._gemm(a, b, o2, tile, b_transposed, 0.5, 0.25,
+                 counter=mm.matmul_scaled)
+        torch.cuda.synchronize()
+        assert mm.matmul_scaled.launches == n + 1
+        if od == torch.int32:
+            assert torch.equal(o, want), tile
+        else:
+            _close(o, want)
+        _close(o2, want_m2)
+
+
+def test_matmul_bodies_by_entry_point(dev, monkeypatch):
+    """Which library entry each GEMM reaches: 16-bit and f32 operands
+    csrc/matmul.cu's cubecl_matmul (whose 8-bit types now return
+    cudaErrorInvalidValue), 8-bit ones csrc/matmul8.cu's cubecl_matmul8,
+    E1 csrc/expert_matmul.cu's cubecl_expert_matmul."""
+    from cubecl_tpu_torch.ops import matmul as mm
+    from cubecl_tpu_torch.ops import moe
+    from cubecl_tpu_torch.utils import native
+
+    lib = native.kernels()
+    calls = []
+    for name in ("cubecl_matmul", "cubecl_matmul8", "cubecl_expert_matmul"):
+        fn = getattr(lib, name)
+        monkeypatch.setattr(lib, name, lambda *a, _f=fn, _n=name:
+                            calls.append(_n) or _f(*a))
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dtype, want in [("bfloat16", "cubecl_matmul"),
+                        ("float16", "cubecl_matmul"),
+                        ("float32", "cubecl_matmul"),
+                        ("float8_e4m3fn", "cubecl_matmul8"),
+                        ("int8", "cubecl_matmul8")]:
+        a = _mm_operand(g, dev, dtype, (256, 256), 256)
+        b = _mm_operand(g, dev, dtype, (256, 256), 256)
+        o = torch.empty(256, 256, device=dev,
+                        dtype=torch.int32 if dtype == "int8"
+                        else torch.float32)
+        calls.clear()
+        mm._gemm(a, b, o, mm._tile_candidates(256, 256, 256,
+                                               mm._itemsize(dtype))[0],
+                 False, counter=mm.matmul_pallas)
+        assert calls == [want], (dtype, calls)
+    xg = torch.zeros(2, 64, 256, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(2, 256, 128, dtype=torch.bfloat16, device=dev)
+    calls.clear()
+    moe.expert_matmul(xg, w, torch.tensor([64, 3], dtype=torch.int32,
+                                          device=dev))
+    assert calls == ["cubecl_expert_matmul"]
+    a8 = torch.zeros(256, 256, dtype=torch.float8_e4m3fn, device=dev)
+    o = torch.empty(256, 256, device=dev)
+    torch.cuda.synchronize()
+    rc = lib.cubecl_matmul(a8.data_ptr(), a8.data_ptr(), o.data_ptr(), None,
+                           None, native.DTYPE_CODES[a8.dtype],
+                           native.DTYPE_CODES[o.dtype], 256, 256, 256, 128,
+                           128, 128, 1, 0, 1.0,
+                           torch.cuda.current_stream().cuda_stream)
+    assert rc == 1  # cudaErrorInvalidValue: no 8-bit instance there
+
+
 def test_matmul_graph_replay_equals_eager(dev):
     """A captured M1 launch, replayed as a CUDA graph, writes what the
     eager launch writes; the capture counts its warm launch only (not the
@@ -1120,12 +1203,20 @@ def test_block_sparse_refuses_other_shapes(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,c,k", [(2, 8, 8, 64, 64), (1, 6, 10, 32, 48),
-                                       (3, 5, 130, 64, 17), (1, 1, 2, 3, 64)])
+                                       (3, 5, 130, 64, 17), (1, 1, 2, 3, 64),
+                                       (2, 56, 56, 64, 64),
+                                       (2, 56, 56, 3, 64),
+                                       (2, 56, 56, 32, 64),
+                                       (3, 1, 56, 64, 64),
+                                       (1, 7, 400, 64, 64)])
 def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, k):
     """C1 on the packed layout against its plain version: input lanes
     c..63 hold garbage that must not reach the output, output lanes k..63
-    are exact zeros; W = 130 takes three column blocks, H = 5 a half row
-    pair."""
+    are exact zeros. f32: W = 130 takes three column blocks, H = 5 a half
+    row pair. bf16 (the wgmma body): 56 columns make 448-pixel tiles of 7
+    m64 blocks (the second consumer takes 3), H 56 = 7 tiles of 8 rows, H 1
+    a one-row tile whose halo rows are both padding, W 400 two column
+    blocks of 134, cin 3 and 32 the tensor map's channel extent."""
     from cubecl_tpu_torch.ops import conv
 
     g = torch.Generator(device=dev).manual_seed(n * h * w + c)
@@ -1145,12 +1236,16 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, k):
 
 
 def test_conv3x3_plan_matches_the_kernel(dev):
-    """The launch plan ops/conv.py validates C1's launches with is the
-    built kernel's (csrc/conv3x3.cu's cubecl_conv3x3_plan)."""
+    """The launch plans ops/conv.py validates C1's launches with are the
+    built kernel's (csrc/conv3x3.cu's cubecl_conv3x3_plan), per dtype and
+    shape."""
     from cubecl_tpu_torch.ops import conv
 
-    assert conv.c1_kernel_plan() == (conv.C1_THREADS, conv.C1_TILE,
-                                     conv.C1_SMEM)
+    for dtype in conv.C1_DTYPES:
+        for n, h, w in [(32, 56, 56), (1, 6, 10), (3, 5, 130), (1, 1, 2),
+                        (3, 1, 56), (1, 7, 400), (16, 28, 28), (600, 8, 8)]:
+            assert conv.c1_kernel_plan(dtype, n, h, w) \
+                == conv.c1_plan(dtype, n, h, w), (dtype, n, h, w)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 8, 64, 3, 3, 64),

@@ -210,8 +210,11 @@ SHAPES = [(4096, 4096, 4096), (8192, 5632, 2048), (256, 256, 256),
 def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
     """Every autotune candidate is a built instance, fits the 227 KiB of
     shared memory in both B layouts, keeps its accumulator within 128
-    registers a thread and divides the shape; 8-bit operands stage the
-    same bytes of K as 16-bit ones, so their tiles are twice as deep."""
+    registers a thread and divides the shape. 16-bit operands stage 64 or
+    128 bytes of K in two stages; the 8-bit wgmma kernel stages 128 bytes
+    of K (one swizzle row) in a ring of as many stages as 144 KiB hold, at
+    most 5, beside two f16 copies of a stage's B, with its mbarriers and
+    1024 bytes of alignment slack."""
     m, n, k = shape
     cands = tmm._tile_candidates(m, n, k, in_bytes)
     for tm, tn, tk in cands:
@@ -220,30 +223,74 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
             assert tmm._matmul_smem(tm, tn, tk, in_bytes, bt) <= 227 * 1024
         assert tm * tn // 256 <= 128
         assert m % tm == n % tn == k % tk == 0
+        if in_bytes == 1:
+            stages = min(5, 144 * 1024 // ((tm + tn) * 128))
+            assert stages >= 3
+            for bt in (False, True):
+                assert tmm._matmul_smem(tm, tn, tk, 1, bt) \
+                    == stages * ((tm + tn) * 128 + 16) + 2 * tn * 256 + 1024
     if shape != (512, 384, 96):
         assert cands, shape
-    if in_bytes < 4:
+    if in_bytes == 2:
         assert {t[2] * in_bytes for t in tmm.kernel_tiles(in_bytes)} \
             == {64, 128}
+    if in_bytes == 1:
+        assert sorted(tmm.kernel_tiles(1)) == [(128, 128, 128),
+                                               (256, 128, 128)]
 
 
 def test_kernel_tiles_match_the_cuda_source():
-    """The Python tile table is the list the .cu file instantiates."""
-    path = os.path.join(os.path.dirname(tmm.__file__), "..", "csrc",
-                        "matmul.cu")
-    src = open(path).read()
+    """The Python tile tables are the lists the .cu files instantiate:
+    csrc/matmul.cu's for f32 and 16-bit operands, csrc/matmul8.cu's (the
+    wgmma kernel) for 8-bit ones; matmul.cu no longer dispatches 8-bit
+    operands."""
+    csrc = os.path.join(os.path.dirname(tmm.__file__), "..", "csrc")
 
-    def tiles(macro):
+    def tiles(name, macro):
+        src = open(os.path.join(csrc, name)).read()
         # the macro's lines: continued by a trailing backslash
         body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)",
                          src)
         return [tuple(map(int, t)) for t in
                 re.findall(r"X\((\d+), (\d+), (\d+)\)", body.group(1))]
 
-    assert sorted(tiles("CUBECL_FMA_TILES")) == sorted(tmm.kernel_tiles(4))
-    for e in (1, 2):
-        assert sorted(tiles("CUBECL_MMA_TILES")) == sorted(
-            (m, n, k * e) for m, n, k in tmm.kernel_tiles(e))
+    assert sorted(tiles("matmul.cu", "CUBECL_FMA_TILES")) \
+        == sorted(tmm.kernel_tiles(4))
+    assert sorted(tiles("matmul.cu", "CUBECL_MMA_TILES")) == sorted(
+        (m, n, k * 2) for m, n, k in tmm.kernel_tiles(2))
+    assert sorted(tiles("matmul8.cu", "CUBECL_WG_TILES")) \
+        == sorted(tmm.kernel_tiles(1))
+    mm_src = open(os.path.join(csrc, "matmul.cu")).read()
+    assert "CUBECL_MMA_TYPE(kBF16, BF16)" in mm_src
+    for code in ("kE4M3", "kE5M2", "kI8"):
+        assert f"CUBECL_MMA_TYPE({code}" not in mm_src
+
+
+@pytest.mark.parametrize("in_dtype,acc", [("float8_e4m3fn", "float32"),
+                                          ("float8_e5m2", "float32"),
+                                          ("int8", "int32"),
+                                          ("bfloat16", "float32"),
+                                          ("float32", "float32")])
+def test_matmul_launch_plan_by_body(in_dtype, acc):
+    """The launch each operand type validates: 8-bit operands run
+    csrc/matmul8.cu's wgmma body (384 threads: a producer and two consumer
+    warpgroups; its ring's shared memory), the others csrc/matmul.cu's
+    256-thread blocks; one block a tile either way, M2 as M1."""
+    m, n, k = 512, 384, 640
+    in_bytes = tmm._itemsize(in_dtype)
+    tile = tmm._default_tile(m, n, k, in_bytes)
+    for bt in (False, True):
+        ck = tmm._build_matmul(m, n, k, *tile, in_dtype,
+                               "int32" if acc == "int32" else "float32", acc,
+                               b_transposed=bt)
+        m2 = tmm._build_matmul_scaled(m, n, k, *tile, in_dtype, "bfloat16",
+                                      bt)
+        for c in (ck, m2):
+            assert c.block == ((384 if in_bytes == 1 else 256), 1, 1)
+            assert c.grid == (n // tile[1], m // tile[0], 1)
+            assert c.smem_bytes == tmm._matmul_smem(*tile, in_bytes, bt)
+            assert ("csrc/matmul8.cu" if in_bytes == 1
+                    else "csrc/matmul.cu") in c.source
 
 
 def test_bad_tiles_and_types_raise(tc):
