@@ -48,9 +48,10 @@ llama against the plain versions (and each batched request against its
 solo run). Then the autotuned matmul (BASELINE config 4): m the matmul
 kernel (M1; M1 with device scales; M2 with host scales, B as (N, K) and
 as the JAX reference's (K, N)) against plain at 4096^3 and the llama FFN
-projection 8192 x 2048 x 5632, for bf16, f32, fp8 e4m3/e5m2 and int8
-(exact) operands and both B layouts, every tile instance checked, each
-case's body named (8-bit: ``csrc/matmul8.cu`` on wgmma) and the mma.sync
+projection 8192 x 2048 x 5632, for bf16, f16, f32, fp8 e4m3/e5m2 and
+int8 (exact) operands and both B layouts, every tile instance checked,
+each case's body named (16-bit: ``csrc/matmul.cu`` on wgmma; 8-bit:
+``csrc/matmul8.cu`` on wgmma; f32 on the CUDA cores) and the mma.sync
 times before it beside, n ``matmul_autotuned`` at bf16 and e4m3 4096^3 and the
 llama shape, each tuned through captured CUDA graphs timed by CUDA events
 into a fresh sqlite store (``CUBECL_ENVIRONMENT_ROOT`` in a temp dir),
@@ -73,8 +74,10 @@ r ``ThroughputCache``'s four runners measured into the temp store and read
 back. Then sparse MoE and Mamba serving: s the expert GEMM (E1,
 ``csrc/expert_matmul.cu``) against plain on the live rows at the 0.77B MoE
 prefill shape with a router's counts, bench.py's skewed counts, a decode
-step's 16 live rows, f32 at d768 and counts of 0 and cap over a ragged
-capacity, beside ``torch.bmm`` over all rows; t the 0.77B llama with 8
+step's 16 live rows in the gate/up and the down projection, f32 at d768
+and counts of 0 and cap over a ragged capacity, beside ``torch.bmm`` over
+all rows, with a call's host time back to back and the mma.sync times
+before its wgmma body; t the 0.77B llama with 8
 experts, top-2 and capacity 2560 through ``generate`` (8 x 1024 + 64 steps,
 3120 E1 launches checked), its prefill logits against the dense route's;
 u the selective scan (S1, ``csrc/selective_scan.cu``) against plain at
@@ -138,7 +141,9 @@ import torch.nn.functional as TF
 # in different orders; as tests/test_models.py:221.
 # bf16: both compute in f32 from the same bf16 inputs and round the output
 # once to bf16, so they may differ by one bf16 ulp (2^-8 relative).
-TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2),
+       # one f16 rounding (2^-11 relative) of sums of order 1
+       torch.float16: (1e-3, 1e-3)}
 # serve exactness (phase 6, f32, 8 layers): prefill logits within LOGIT_TOL;
 # a greedy token may differ only where the top-2 logit gap is below it
 LOGIT_TOL = 1e-4
@@ -255,8 +260,15 @@ def kernel_name(mangled):
     c = re.search(r"(conv3x3_kernel)I(13__nv_bfloat16|f)E", mangled)
     g = re.search(r"(gemm8_wgmma_kernel)INS\d*_\d+(E4M3|E5M2|S8)ELi(\d+)"
                   r"ELi(\d+)E", mangled)
+    g16 = re.search(r"(gemm16_wgmma_kernel)INS\d*_\d+(BF16|F16)ELi(\d+)"
+                    r"ELi(\d+)ELb([01])E", mangled)
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
+    if "expert_wgmma_kernel" in mangled:
+        return "expert_wgmma_kernel<bf16>"
+    if g16:
+        return (f"{g16.group(1)}<{g16.group(2).lower()}, {g16.group(3)}, "
+                f"{g16.group(4)}, B {'(K, N)' if g16.group(5) == '1' else '(N, K)'}>")
     if g:
         return (f"{g.group(1)}<{g.group(2).lower()}, {g.group(3)}, "
                 f"{g.group(4)}>")
@@ -329,37 +341,51 @@ def flash_sass(sass, summary):
 # type) and the wgmma SASS each must issue: HGMMA for fp8 (run as f16 on
 # the 16-bit wgmma), IGMMA (the SASS of wgmma .s8) for int8
 GEMM8_SASS = {"e4m3": "HGMMA", "e5m2": "HGMMA", "s8": "IGMMA"}
+# the 16-bit GEMM's instances (csrc/matmul.cu's CUBECL_WG16_TILES by
+# operand type and B layout), each HGMMA
+GEMM16_TYPES = ("bf16", "f16")
+B_LAYOUTS = ("(K, N)", "(N, K)")
 
 
-def wgmma_body_sass(sass, summary, tiles):
-    """Phase 2: C1's bf16 body and every 8-bit GEMM instance in the SASS:
-    (name, wgmma count, registers, spill line) each. Fails unless C1 bf16
-    issues HGMMA, each 8-bit instance issues its GEMM8_SASS instruction,
-    and the instances are exactly ``tiles`` (ops/matmul.py's
-    ``kernel_tiles(1)``) for each of the three types."""
+def wgmma_body_sass(sass, summary, tiles8, tiles16):
+    """Phase 2: C1's bf16 body, E1's bf16 body and every 8- and 16-bit
+    GEMM instance in the SASS: (name, wgmma count, registers, spill line)
+    each. Fails unless C1 bf16 and E1 bf16 issue HGMMA, each 8-bit
+    instance its GEMM8_SASS instruction and each 16-bit instance HGMMA,
+    and the instances are exactly ``tiles8`` (ops/matmul.py's
+    ``kernel_tiles(1)``) for each of the three 8-bit types and ``tiles16``
+    (``kernel_tiles(2)``) for bf16 and f16 in both B layouts."""
     regs = {n: (r, sp) for n, r, sp in summary}
     rows, got = [], set()
     for chunk in sass.split("Function : ")[1:]:
         mangled = chunk.split("\n", 1)[0].strip()
-        if "conv3x3_wgmma_kernel" not in mangled \
-                and "gemm8_wgmma_kernel" not in mangled:
+        if not any(k in mangled for k in (
+                "conv3x3_wgmma_kernel", "gemm8_wgmma_kernel",
+                "gemm16_wgmma_kernel", "expert_wgmma_kernel")):
             continue
         name = kernel_name(mangled)
-        m = re.search(r"<(\w+), (\d+), (\d+)>", name)
-        want = "HGMMA" if m is None else GEMM8_SASS[m.group(1)]
+        m8 = re.search(r"gemm8_wgmma_kernel<(\w+), (\d+), (\d+)>", name)
+        m16 = re.search(r"gemm16_wgmma_kernel<(\w+), (\d+), (\d+), "
+                        r"B (.+)>", name)
+        want = GEMM8_SASS[m8.group(1)] if m8 else "HGMMA"
         n = chunk.count(want)
         r, sp = regs.get(name, (None, "not in the ptxas log"))
         rows.append((name, f"{n} {want}", r, sp))
         if n == 0:
             fail(f"phase 2: {name} issues no {want} (wgmma)")
-        if m:
-            got.add((m.group(1), int(m.group(2)), int(m.group(3))))
+        if m8:
+            got.add((m8.group(1), int(m8.group(2)), int(m8.group(3))))
+        elif m16:
+            got.add((m16.group(1), int(m16.group(2)), int(m16.group(3)),
+                     m16.group(4)))
         else:
-            got.add("conv")
-    want = {(t, bm, bn) for t in GEMM8_SASS for bm, bn, _ in tiles}
-    if got != want | {"conv"}:
-        fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want C1 "
-             f"bf16 and {sorted(want)}")
+            got.add(name.split("_wgmma")[0])
+    want = {(t, bm, bn) for t in GEMM8_SASS for bm, bn, _ in tiles8} | {
+        (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
+        for lay in B_LAYOUTS} | {"conv3x3", "expert"}
+    if got != want:
+        fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
+             f"{sorted(map(str, want))}")
     return rows
 
 
@@ -2024,6 +2050,7 @@ MM_CASES = [
     (torch.bfloat16, torch.bfloat16, False, None),
     (torch.bfloat16, torch.float32, False, None),
     (torch.bfloat16, torch.bfloat16, True, None),
+    (torch.float16, torch.float16, False, None),
     (torch.float32, torch.float32, False, None),
     (torch.float32, torch.bfloat16, True, None),
     (torch.float8_e4m3fn, torch.float32, False, None),
@@ -2038,13 +2065,17 @@ MM_CASES = [
     (torch.float8_e4m3fn, torch.bfloat16, False, "host"),  # the JAX layout
 ]
 MM_SCALES = (0.5, 0.25)  # sa, sb of the scaled epilogues; sa * sb exact
-# The GEMM's times at 4096^3 before the 8-bit operands ran on wgmma (all
-# types on mma.sync, csrc/matmul.cu), taken by this script on an H100 80GB
-# HBM3 at 700 W (phase m's fastest tile, phase n's M2); printed beside
-# this run's. M2 with B as (K, N) had no case then.
+# The GEMM's times before its 8-bit and 16-bit operands ran on
+# wgmma (all types on mma.sync with two cp.async stages, csrc/matmul.cu),
+# taken by this script on an H100 80GB HBM3 at 700 W (phase m's fastest
+# tile at 4096^3, unless the key names another shape; phase n's M2);
+# printed beside this run's (the kernels line carries only this run's
+# numbers). M2 with B as (K, N) had no case then, nor f16 -> f16.
 MMA_SYNC_MS = {"M2 e4m3 B (N, K) -> bf16": 0.499,
                "M1 e4m3 B (N, K) -> f32": 0.484,
-               "M1 int8 B (N, K) -> int32": 0.2405}
+               "M1 int8 B (N, K) -> int32": 0.2405,
+               "M1 bf16 B (K, N) -> bf16": 0.4735,
+               "M1 bf16 llama FFN B (K, N) -> bf16": 0.663}
 # phase o: matmul_cmma's (operands, M = N = K), as examples/matmul.py
 CMMA_CASES = [(torch.float32, 512), (torch.bfloat16, 512),
               (torch.bfloat16, 4096)]
@@ -2096,8 +2127,8 @@ def mm_library(a, b, out_dt, bt, epilogue):
     if epilogue is None and a.dtype == torch.float32 \
             and out_dt == torch.float32:
         return (lambda: torch.matmul(a, bb)), "torch.matmul (TF32 off)"
-    if epilogue is None and a.dtype == torch.bfloat16:
-        if out_dt == torch.bfloat16:
+    if epilogue is None and a.dtype in (torch.bfloat16, torch.float16):
+        if out_dt == a.dtype:
             return (lambda: torch.matmul(a, bb)), "torch.matmul"
         return (lambda: torch.mm(a, bb, out_dtype=out_dt)), \
             "torch.mm(out_dtype=float32)"
@@ -2127,8 +2158,10 @@ def mm_body(in_dt):
     if in_dt.itemsize == 1:
         return ("wgmma " + ("s8" if in_dt == torch.int8 else "f16 (fp8 as "
                             "exact f16)") + ", csrc/matmul8.cu")
-    return ("f32 FMA" if in_dt == torch.float32 else "mma.sync") + \
-        ", csrc/matmul.cu"
+    if in_dt == torch.float32:
+        return "f32 FMA, csrc/matmul.cu"
+    return (f"wgmma {_dt(in_dt)} + TMA, persistent, csrc/matmul.cu on "
+            f"csrc/wgmma_gemm.cuh")
 
 
 def _mm_what(sname, in_dt, out_dt, bt, epilogue):
@@ -2139,10 +2172,47 @@ def _mm_what(sname, in_dt, out_dt, bt, epilogue):
             f" -> {_dt(out_dt)}{scaled}")
 
 
+# launches of each phase-m tile held to plain after the first: a race
+# between a kernel's warps shows in a few launches of many (the fp8 body's
+# stage release once failed 1-2% of its 256 x 128 launches)
+MM_REPEATS = 24
+
+
+def disagreeing_launches(run, out, want, n, mask=None):
+    """Of ``n`` launches of ``run`` into ``out``, those whose ``out``
+    disagrees with ``want`` (exactly for int32, else outside TOL; NaN
+    disagrees) where ``mask`` holds, counted on the device: (launches,
+    elements)."""
+    if want.dtype == torch.int32:
+        lim = None
+    else:
+        atol, rtol = TOL[want.dtype]
+        wf = want.float()
+        lim = atol + rtol * wf.abs()
+    bad = torch.zeros(n, dtype=torch.int64, device=out.device)
+    for i in range(n):
+        run()
+        b = (out != want) if lim is None else \
+            ~((out.float() - wf).abs() <= lim)
+        bad[i] = (b if mask is None else b & mask).sum()
+    bad = bad.cpu()
+    return int((bad > 0).sum()), int(bad.sum())
+
+
+def repeats_agree(run, o, want, what):
+    """MM_REPEATS more launches of ``run`` into ``o``, each held to
+    ``want`` as the first was; fails if any launch disagrees."""
+    nbad, nel = disagreeing_launches(run, o, want, MM_REPEATS)
+    if nbad:
+        fail(f"{what}: {nbad} of {MM_REPEATS} repeated launches disagree "
+             f"with plain ({nel} elements)")
+
+
 def matmul_vs_plain(mm, dev, gen, card):
     """Phase m: the matmul kernel (M1, its device-scaled form, and M2)
     against its plain version at phase m's shapes, by dtype and B layout,
-    every tile instance that divides the shape checked; the fastest
+    every tile instance that divides the shape checked, in its first
+    launch and MM_REPEATS more; the fastest
     tile's time beside the bound, the plain version's and one library
     call's. int8 -> int32 must be exact."""
     rows = []
@@ -2176,6 +2246,7 @@ def matmul_vs_plain(mm, dev, gen, card):
                              f"{int((o != want).sum())} elements differ")
                 else:
                     err = max(err, compare(o, want, f"{what} tile {tile}"))
+                repeats_agree(run, o, want, f"phase m {what} tile {tile}")
                 times[tile] = cuda_ms(run, iters=10, warmup=2)
             best = min(times, key=times.get)
             plain_ms = cuda_ms(lambda: mm.matmul_plain(a, b, out_dt, bt,
@@ -2188,10 +2259,12 @@ def matmul_vs_plain(mm, dev, gen, card):
             lib_txt = f"{lib_name} {lib_ms:.4f} ms" if lib else lib_name
             agree = "exact" if out_dt == torch.int32 else \
                 f"max abs err {err}"
+            shape_key = "" if (M, N, K) == (MM_S,) * 3 else (
+                " llama FFN" if (M, N, K) == MM_FFN else None)
             before = MMA_SYNC_MS.get(
-                f"{'M2' if epi == 'host' else 'M1'} {_dt(in_dt)} B "
+                f"{'M2' if epi == 'host' else 'M1'} {_dt(in_dt)}{shape_key} B "
                 f"{'(N, K)' if bt else '(K, N)'} -> {_dt(out_dt)}") \
-                if (M, N, K) == (MM_S,) * 3 and epi != "device" else None
+                if shape_key is not None and epi != "device" else None
             if before is not None:
                 lib_txt += f"; mma.sync before: {before} ms"
             print(f"phase m {what} [{mm_body(in_dt)}]: {len(tiles)} tiles "
@@ -3020,10 +3093,22 @@ E1_CASES = [
      torch.bfloat16, SKEW_COUNTS),
     ("decode bf16 E8 cap2560 d2048 f5632", 8, 2560, 2048, 5632,
      torch.bfloat16, MOE_B),
+    # phase t's third E1 launch a layer: the down projection of a decode step
+    ("decode_down bf16 E8 cap2560 d5632 f2048", 8, 2560, 5632, 2048,
+     torch.bfloat16, MOE_B),
     ("f32 E4 cap2048 d768 f2048", 4, 2048, 768, 2048, torch.float32, 2048),
     ("counts cap/0/130/1 bf16 E4 cap200 d256 f384", 4, 200, 256, 384,
      torch.bfloat16, [200, 0, 130, 1]),
 ]
+# E1's times before its bf16 body ran on wgmma (mma.sync with two cp.async
+# stages, csrc/mma_tile.cuh), taken by this script on an H100 80GB HBM3 at
+# 700 W (phase s); printed beside this run's (the kernels line carries only
+# this run's numbers). The decode down projection had no case then.
+E1_MMA_SYNC_MS = {E1_MAIN: 1.677,
+                  "skewed bf16 E8 cap2048 d4096 f4096": 0.831,
+                  "decode bf16 E8 cap2560 d2048 f5632": 0.2355}
+# back-to-back calls that time E1's host cost
+E1_HOST_CALLS = 200
 # phase w: the d768 f32 llama (bench.py:604-609) with 4 experts, top-2, a
 # capacity of every prompt token; (B, S, decode steps, chunk, page); and
 # Mamba-130M's widths at 4 layers, (B, L)
@@ -3081,13 +3166,28 @@ def experts_vs_plain(moe, dev, gen, card):
                            iters=3 if big else 10, warmup=1)
         lib_ms = cuda_ms(lambda: torch.bmm(xg, w))
         bms, by = expert_bound(cl, cap, d, f, dtype)
+        # host time: E1_HOST_CALLS calls enqueued back to back, the host's
+        # clock read before the queue drains and after
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(E1_HOST_CALLS):
+            moe.expert_matmul(xg, w, counts)
+        host_ms = 1e3 * (time.perf_counter() - t0) / E1_HOST_CALLS
+        torch.cuda.synchronize()
+        b2b_ms = 1e3 * (time.perf_counter() - t0) / E1_HOST_CALLS
+        before = E1_MMA_SYNC_MS.get(name)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                          counts=cl, routes_dropped=drops)
+                          counts=cl, routes_dropped=drops,
+                          host_ms_per_call=host_ms,
+                          back_to_back_ms_per_call=b2b_ms)
         print(f"phase s E1 {name}: counts {cl} ({drops} routes dropped), max "
               f"abs err {err} (atol/rtol {TOL[dtype]}); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, {DENSE_EQUIVALENT} {lib_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it) "
+              f"bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of it); "
+              f"host {host_ms:.4f} ms a call, {b2b_ms:.4f} ms a call back to "
+              f"back against {ms:.4f} of device time"
+              f"{f'; mma.sync before: {before} ms' if before else ''} "
               f"[{card}]", flush=True)
         del xg, w, counts
     torch.cuda.empty_cache()
@@ -3859,7 +3959,8 @@ def main():
     summary = ptxas_summary(build.log)
     regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in summary
                      if "gemm_kernel" not in n and "wgmma_kernel" not in n)
-    gemm = [(r, s) for n, r, s in summary if "gemm_kernel" in n]
+    gemm = [(r, s) for n, r, s in summary if "gemm_kernel" in n
+            or "gemm16_wgmma" in n]
     spills = sorted({s for _, s in gemm if not s.startswith(
         "0 bytes stack frame, 0 bytes spill stores")})
     sass = sass_of(native.find_nvcc(), build.path)
@@ -3867,8 +3968,10 @@ def main():
     print("phase 2 flash SASS (cuobjdump): " + "; ".join(
         f"{n}: {h} HGMMA, {r} regs, {sp}" for n, h, r, sp in sass_rows),
         flush=True)
-    wg_rows = wgmma_body_sass(sass, summary, mm.kernel_tiles(1))
-    print("phase 2 C1 bf16 and 8-bit GEMM SASS (cuobjdump): " + "; ".join(
+    wg_rows = wgmma_body_sass(sass, summary, mm.kernel_tiles(1),
+                              mm.kernel_tiles(2))
+    print("phase 2 C1 bf16, E1 bf16, 16- and 8-bit GEMM SASS (cuobjdump): "
+          + "; ".join(
         f"{n}: {h}, {r} regs, {sp}" for n, h, r, sp in wg_rows), flush=True)
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
           f"{os.path.relpath(build.path)}; ptxas: {regs}; matmul: "
@@ -4293,11 +4396,16 @@ def main():
                library="the autograd backward of F.gelu(approximate="
                        "'none')", shape="bf16 8x1024x3072",
                mapping=e("_gelu_bwd_k bf16 8x1024x3072")["mapping"]),
-        row("matmul", "cubecl_tpu_torch/csrc/matmul.cu",
+        row("matmul", "cubecl_tpu_torch/csrc/matmul.cu (with "
+            "csrc/wgmma_gemm.cuh)",
             "cubecl_tpu/ops/matmul.py:43", n_out["launches"]["matmul_pallas"],
             n_out["matmul"], n_out["matmul"]["library_ms"],
             library="torch.matmul",
             shape="bf16 4096^3 -> bf16, matmul_autotuned's winner",
+            body=mm_body(torch.bfloat16),
+            parent_body="mma.sync with two cp.async stages "
+                        "(csrc/matmul.cu, csrc/mma_tile.cuh); its times are "
+                        "printed in phase m as constants of an earlier run",
             **{k: n_out["matmul"][k] for k in ("tile", "tflops",
                                                "pct_of_989", "per_call_ms")},
             autotuned={k: {f: v[f] for f in ("tile", "tune_s", "graph_ms")}
@@ -4369,14 +4477,25 @@ def main():
             add_gelu=q_out["rows"]["add -> gelu"],
             into_contiguous=q_out["contiguous"],
             identity=q_out["identity"]),
-        row("expert_matmul", "cubecl_tpu_torch/csrc/expert_matmul.cu",
+        row("expert_matmul", "cubecl_tpu_torch/csrc/expert_matmul.cu (with "
+            "csrc/wgmma_gemm.cuh)",
             "cubecl_tpu/ops/moe.py:29", t_out["launches"]["expert_matmul"],
             s_rows[E1_MAIN], s_rows[E1_MAIN]["library_ms"],
             library=DENSE_EQUIVALENT, shape=E1_MAIN,
+            body="bf16: wgmma + TMA, persistent blocks over the live tiles "
+                 "(128 x 256 where they fill the card, else 128 x 128); "
+                 "f32: FMA on the CUDA cores",
+            parent_body="mma.sync with two cp.async stages "
+                        "(csrc/mma_tile.cuh); its times are printed in "
+                        "phase s as constants of an earlier run",
+            **{f: s_rows[E1_MAIN][f] for f in (
+                "host_ms_per_call", "back_to_back_ms_per_call")},
             launches_path="phase t: generate, 8 x 1024 + 64 steps, 16 layers",
             **{k.split(" ")[0]: {f: v[f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for k, v in s_rows.items() if k != E1_MAIN},
+                "library_ms", "host_ms_per_call",
+                "back_to_back_ms_per_call")}
+               for k, v in s_rows.items() if k != E1_MAIN},
             moe_llama=t_out, exactness_d768_f32=w_out),
         row("selective_scan", "cubecl_tpu_torch/csrc/selective_scan.cu",
             "cubecl_tpu/ops/ssm.py:126", v_out["launches"],

@@ -10,47 +10,62 @@
 //      as host floats. One kernel with an epilogue flag serves both.
 //
 // Math (as M1): out[m, n] = cast_out(epilogue(sum_k a[m, k] * b[k, n])).
-// The accumulator is f32 (int32 for int8 operands: exact). The epilogue,
-// when scaled, is f32(acc) * (sa * sb) with the scale product taken in f32
-// first, as the TPU kernel does. Outputs are f32, bf16, f16 or int32; bf16
-// and f16 round to nearest even, as torch's .to() does.
+// The accumulator is f32. The epilogue, when scaled, is f32(acc) * (sa *
+// sb) with the scale product taken in f32 first, as the TPU kernel does.
+// Outputs are f32, bf16 or f16; bf16 and f16 round to nearest even, as
+// torch's .to() does.
 //
 // Bound on the H100 at 4096^3: 2 * 4096^3 operations over the dtype's
-// tensor-core peak (bf16/f16 989 TFLOP/s: 0.139 ms; fp8 and int8 1979:
-// 0.069 ms); f32 runs off the tensor cores (67 TFLOP/s: 2.05 ms), because
-// TF32 keeps 10 mantissa bits and misses the f32 tolerance of the TPU
-// kernel's Precision.HIGHEST by some 10x. The bytes (a, b and out once)
-// are 0.03 ms at 3.35 TB/s, so the kernel is bound by operations.
+// tensor-core peak (bf16/f16 989 TFLOP/s: 0.139 ms); f32 runs off the
+// tensor cores (67 TFLOP/s: 2.05 ms), because TF32 keeps 10 mantissa bits
+// and misses the f32 tolerance of the TPU kernel's Precision.HIGHEST by
+// some 10x. The bytes (a, b and out once) are 0.03 ms at 3.35 TB/s, so the
+// kernel is bound by operations. Two bodies, by dtype:
 //
-// Design, simple and right first: the tile loops of mma_tile.cuh (16-bit
-// operands on the tensor cores through mma.sync with two cp.async stages
-// and ldmatrix; f32 on the CUDA cores, never TF32), one block per BM x BN
-// output tile. The tile sizes are template instances chosen by a
-// switch at launch (the tunables of ops/matmul.py are exactly this list),
-// so one nvcc build covers every tunable. Shapes the tile does not divide
-// are refused by the Python wrapper; there is no masking here.
-// wgmma and TMA for 16-bit operands are later work (matmul8.cu's mainloop,
-// wgmma_gemm.cuh).
-#include "mma_tile.cuh"
+// bf16 / f16: wgmma fed by TMA (gemm16_wgmma_kernel on wgmma_gemm.cuh), the
+// instruction that reaches the tensor cores' full rate on Hopper:
+// - a ring of 3-6 stages of 128 bytes of K (64 elements) on mbarriers,
+//   filled by one producer thread, so device-memory latency hides behind
+//   the products; two consumer warpgroups run SS wgmma m64nNk16 with f32
+//   accumulators in registers (at most 128 a thread);
+// - a 16-bit output leaves through shared memory by TMA stores, which
+//   drain while the next tile's products run; an f32 output is stored from
+//   the registers;
+// - B given as (N, K) is K-major and copied like A; B given as (K, N), the
+//   JAX reference's layout, is copied as it lies in 64-column panels and
+//   read by wgmma with its transpose bit: no transposing pass;
+// - persistent blocks (at most 132) walk the tiles in raster groups of
+//   kRasterM row tiles, so a tile's epilogue overlaps the next tile's
+//   copies and no wave is left half empty beyond the last one;
+// - K is taken in stages of 64; a K that is a multiple of 32 but not of 64
+//   leaves a last stage that the tensor maps zero-fill (exact: the zeros
+//   add nothing to the sums).
+// f32: the CUDA cores, never TF32 (fma_tile_mainloop of mma_tile.cuh), one
+// 256-thread block per BM x BN output tile.
+// The tile sizes are template instances chosen by a switch at launch (the
+// tunables of ops/matmul.py are exactly these lists), so one nvcc build
+// covers every tunable. Shapes the tile does not divide are refused by the
+// Python wrapper; there is no masking beyond the zero-filled K stage.
+#include "wgmma_gemm.cuh"
 
 namespace cubecl {
 namespace {
 
-// -- tensor-core kernel -------------------------------------------------------
+// -- bf16 / f16 on wgmma ------------------------------------------------------
 
-template <typename T, int BM, int BN, int BKB, bool BT>
-__global__ void __launch_bounds__(NT)
-mma_gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-                void* __restrict__ c, int N, int K, int out_dtype, int scaled,
-                const float* __restrict__ sa, const float* __restrict__ sb,
-                float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  typename T::Acc acc[BM / 32][BN / 32][4];
-  mma_tile_mainloop<T, BM, BN, BKB, BT>(
-      smem, a + static_cast<int64_t>(m0) * K * T::E, BM, b, N, K, n0, acc);
-  const Epilogue ep = make_epilogue(out_dtype, scaled, sa, sb, scale);
-  mma_tile_store<BM, BN>(ep, c, m0, BM, N, n0, acc);
+template <typename T, int BM, int BN, bool BMN>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm16_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb,
+                    const __grid_constant__ CUtensorMap tc,
+                    void* __restrict__ c, int tiles_m, int tiles_n, int N,
+                    int KT, int out_dtype, int scaled,
+                    const float* __restrict__ sa,
+                    const float* __restrict__ sb, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  wgmma_gemm16<T, BM, BN, BMN, false>(
+      smem_raw, &ta, &tb, &tc, GemmTiles<BM, BN>{tiles_m, tiles_n}, c, N, KT,
+      out_dtype, scaled, sa, sb, scale);
 }
 
 // -- f32 kernel on the CUDA cores ---------------------------------------------
@@ -75,19 +90,35 @@ fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // Above 48 KB a kernel must opt in to dynamic shared memory: once per
 // instance (the static below), at its first launch, which comes before any
-// graph capture (the capture's warm launch).
-template <typename T, int BM, int BN, int BKB, bool BT>
-cudaError_t launch_mma(const void* a, const void* b, void* c, int M, int N,
-                       int K, int out_dtype, int scaled, const float* sa,
-                       const float* sb, float scale, cudaStream_t st) {
-  constexpr int smem = MmaTile<BM, BN, BKB, BT, T::E>::SMEM;
+// graph capture (the capture's warm launch). The tensor maps are kernel
+// parameters (__grid_constant__), encoded per call: a captured CUDA graph
+// keeps them with the launch. B (N, K) maps as rows of K bytes in boxes of
+// BN rows; B (K, N) as rows of N bytes in boxes of 64 rows of K; a 16-bit
+// output as rows of N bytes in boxes of 64 rows (an f32 output is stored
+// from the registers: its map is not read).
+template <typename T, int BM, int BN, bool BMN>
+cudaError_t launch_gemm16(const void* a, const void* b, void* c, int M,
+                          int N, int K, int out_dtype, int scaled,
+                          const float* sa, const float* sb, float scale,
+                          cudaStream_t st) {
+  constexpr int smem = WgGemmTile<BM, BN, 2>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      mma_gemm_kernel<T, BM, BN, BKB, BT>,
+      gemm16_wgmma_kernel<T, BM, BN, BMN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  mma_gemm_kernel<T, BM, BN, BKB, BT><<<dim3(N / BN, M / BM), NT, smem, st>>>(
-      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), c, N, K,
-      out_dtype, scaled, sa, sb, scale);
+  CUtensorMap ta, tb, tc;
+  cudaError_t e = bytes_map(&ta, a, K * 2, M, BM);
+  if (e == cudaSuccess)
+    e = BMN ? bytes_map(&tb, b, N * 2, K, 64) : bytes_map(&tb, b, K * 2, N, BN);
+  if (e == cudaSuccess)
+    e = out_dtype == kF32 ? (tc = ta, cudaSuccess)
+                          : bytes_map(&tc, c, N * 2, M, 64);
+  if (e != cudaSuccess) return e;
+  const int tm = M / BM, tn = N / BN;
+  const int blocks = tm * tn < kGemmMaxBlocks ? tm * tn : kGemmMaxBlocks;
+  gemm16_wgmma_kernel<T, BM, BN, BMN><<<blocks, kGemmThreads, smem, st>>>(
+      ta, tb, tc, c, tm, tn, N, (K * 2 + kGemmKB - 1) / kGemmKB, out_dtype,
+      scaled, sa, sb, scale);
   return cudaGetLastError();
 }
 
@@ -106,17 +137,17 @@ cudaError_t launch_fma(const void* a, const void* b, void* c, int M, int N,
 }  // namespace
 }  // namespace cubecl
 
-// The tile instances: (BM, BN, bytes of K per stage) for the tensor cores,
-// (BM, BN, K per stage) for f32. ops/matmul.py's TILES lists the same.
-#define CUBECL_MMA_TILES(X)                                  \
-  X(64, 128, 64) X(64, 128, 128) X(128, 128, 64) X(128, 128, 128) \
-  X(128, 256, 64) X(128, 256, 128) X(256, 128, 64) X(256, 128, 128)
+// The tile instances: (BM, BN, bytes of K a stage) for the wgmma body,
+// (BM, BN, K per stage) for f32. ops/matmul.py's kernel_tiles lists the
+// same.
+#define CUBECL_WG16_TILES(X) \
+  X(64, 128, 128) X(128, 128, 128) X(128, 256, 128) X(256, 128, 128)
 #define CUBECL_FMA_TILES(X) X(64, 64, 8) X(64, 64, 16) X(128, 128, 8) X(128, 128, 16)
 
 // a (M, K); b (K, N), or (N, K) when b_transposed; c (M, N); all
-// contiguous and 16-byte aligned, M % tm == N % tn == K % tk == 0 (the
-// wrapper checks). in_dtype: kF32, kBF16, kF16, kE4M3, kE5M2 or kI8;
-// out_dtype: kF32, kBF16, kF16 or kI32 (int8 operands only, unscaled).
+// contiguous and 16-byte aligned, M % tm == N % tn == 0 and K % tk == 0
+// for f32, K % 32 == 0 for 16-bit operands (the wrapper checks). in_dtype:
+// kF32, kBF16 or kF16; out_dtype: kF32, kBF16 or kF16.
 // scaled: 0 none, 1 multiply by sa[0] * sb[0] (device scalars), 2 by
 // scale. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a type or tile this library was not built for:
@@ -140,23 +171,21 @@ extern "C" int cubecl_matmul(const void* a, const void* b, void* c,
 #undef CUBECL_FMA
     return cudaErrorInvalidValue;
   }
-#define CUBECL_MMA_TYPE(CODE, T)                                              \
+#define CUBECL_WG16_TYPE(CODE, T)                                             \
   if (in_dtype == CODE) {                                                     \
-    CUBECL_MMA_TILES(CUBECL_MMA_TILE_##T)                                     \
+    CUBECL_WG16_TILES(CUBECL_WG16_TILE_##T)                                   \
     return cudaErrorInvalidValue;                                             \
   }
-#define CUBECL_MMA_TILE(T, BM, BN, BKB)                                       \
+#define CUBECL_WG16_TILE(T, BM, BN, BKB)                                      \
   if (tm == BM && tn == BN && tk * T::E == BKB)                               \
     return b_transposed                                                       \
-               ? launch_mma<T, BM, BN, BKB, true>(a, b, c, M, N, K,           \
-                                                  out_dtype, scaled, sa, sb,  \
-                                                  scale, st)                  \
-               : launch_mma<T, BM, BN, BKB, false>(a, b, c, M, N, K,          \
-                                                   out_dtype, scaled, sa, sb, \
-                                                   scale, st);
-#define CUBECL_MMA_TILE_BF16(BM, BN, BKB) CUBECL_MMA_TILE(BF16, BM, BN, BKB)
-#define CUBECL_MMA_TILE_F16(BM, BN, BKB) CUBECL_MMA_TILE(F16, BM, BN, BKB)
-  CUBECL_MMA_TYPE(kBF16, BF16)
-  CUBECL_MMA_TYPE(kF16, F16)
+               ? launch_gemm16<T, BM, BN, false>(a, b, c, M, N, K, out_dtype, \
+                                                 scaled, sa, sb, scale, st)   \
+               : launch_gemm16<T, BM, BN, true>(a, b, c, M, N, K, out_dtype,  \
+                                                scaled, sa, sb, scale, st);
+#define CUBECL_WG16_TILE_BF16(BM, BN, BKB) CUBECL_WG16_TILE(BF16, BM, BN, BKB)
+#define CUBECL_WG16_TILE_F16(BM, BN, BKB) CUBECL_WG16_TILE(F16, BM, BN, BKB)
+  CUBECL_WG16_TYPE(kBF16, BF16)
+  CUBECL_WG16_TYPE(kF16, F16)
   return cudaErrorInvalidValue;
 }

@@ -45,12 +45,11 @@ gemm8_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                    void* __restrict__ c, int N, int K, int out_dtype,
                    int scaled, const float* __restrict__ sa,
                    const float* __restrict__ sb, float scale) {
-  using L = WgGemmTile<BM, BN>;
+  using L = WgGemmTile<BM, BN, 1>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* empty = full + L::STAGES;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int KT = K / kGemmKB;
 
   if (threadIdx.x == 0) {
@@ -65,7 +64,8 @@ gemm8_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0)
-      wgmma_gemm_produce<BM, BN>(smem, full, empty, &ta, &tb, m0, n0, KT);
+      wgmma_gemm_produce<BM, BN, 1, false>(smem, full, empty, &ta, &tb,
+                                           OneTile<BM, BN>{}, KT);
     return;
   }
   setmaxnreg_inc<240>();
@@ -73,7 +73,8 @@ gemm8_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   typename T::Acc acc[L::MI][64];
   wgmma_gemm_consume<BM, BN>(T{}, smem, full, empty, wg, KT, acc);
   const Epilogue ep = make_epilogue(out_dtype, scaled, sa, sb, scale);
-  wgmma_gemm_store<L::MI>(ep, c, m0 + wg * (BM / 2), N, n0, acc);
+  wgmma_gemm_store<false>(ep, c, blockIdx.y * BM + wg * (BM / 2), 0, N,
+                          blockIdx.x * BN, acc);
 }
 
 // bt (N, K) = b (K, N)^T, bytes; K % 128 == N % 128 == 0. A block of 256
@@ -133,7 +134,7 @@ template <typename T, int BM, int BN>
 cudaError_t launch_gemm8(const void* a, const void* b, void* c, int M, int N,
                          int K, int out_dtype, int scaled, const float* sa,
                          const float* sb, float scale, cudaStream_t st) {
-  constexpr int smem = WgGemmTile<BM, BN>::SMEM;
+  constexpr int smem = WgGemmTile<BM, BN, 1>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm8_wgmma_kernel<T, BM, BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -6,24 +6,24 @@ package:
 
 1. ``matmul_pallas`` — the hand-written GEMM. On CUDA tensors it launches
    the kernels that replace the TPU kernels M1 ``_build_matmul``
-   (``pallas_call`` :112) and M2 ``_build_matmul_scaled`` (:508):
-   ``csrc/matmul8.cu`` for fp8/int8 operands (``wgmma`` fed by TMA,
-   ``csrc/wgmma_gemm.cuh``: int8 on the 8-bit ``wgmma``, fp8 as exact f16
-   values on the 16-bit one, whose sums hold f32's tolerance where the
-   8-bit one's do not; B given as (K, N) is byte-transposed into a scratch
-   (N, K) first, in the same call), ``csrc/matmul.cu`` for the
-   others: tensor-core ``mma.sync`` for bf16/f16, f32 FMA on the CUDA
-   cores for f32 (never TF32: the TPU kernel runs f32 at
-   ``Precision.HIGHEST``). int8 accumulates exactly in int32. B comes as
-   (K, N) or, with ``b_transposed``, as (N, K). An epilogue multiplies the
-   accumulator by ``sa * sb``: device scalars for M1's scaled form (the
-   ``matmul_quantized`` route), host floats for M2 (``matmul_scaled``).
-   On CPU tensors the same entry points run :func:`matmul_plain`.
-   Bound at 4096^3 on the H100: 2 * 4096^3 operations over the dtype's
-   peak — bf16 0.139 ms, fp8 and int8 0.069 ms (fp8 on the f16 route:
-   0.139), f32 on the CUDA cores 2.05 ms; the bytes are 0.03 ms. The
-   16-bit design (two cp.async stages, ldmatrix, warp mma.sync) is simple
-   first; wgmma for it is later work. ``matmul_pallas.launches`` and
+   (``pallas_call`` :112) and M2 ``_build_matmul_scaled`` (:508). bf16,
+   f16, fp8 and int8 operands run on ``wgmma`` fed by TMA, one mainloop
+   (``csrc/wgmma_gemm.cuh``): ``csrc/matmul.cu`` for 16-bit operands
+   (persistent blocks, B given as (K, N) read in place through the
+   ``wgmma`` transpose bit), ``csrc/matmul8.cu`` for 8-bit ones (int8 on
+   the 8-bit ``wgmma``, fp8 as exact f16 values on the 16-bit one, whose
+   sums hold f32's tolerance where the 8-bit one's do not; 8-bit B given
+   as (K, N) is byte-transposed into a scratch (N, K) first, in the same
+   call). f32 runs FMA on the CUDA cores (``csrc/matmul.cu``; never TF32:
+   the TPU kernel runs f32 at ``Precision.HIGHEST``). int8 accumulates
+   exactly in int32. B comes as (K, N) or, with ``b_transposed``, as (N,
+   K). An epilogue multiplies the accumulator by ``sa * sb``: device
+   scalars for M1's scaled form (the ``matmul_quantized`` route), host
+   floats for M2 (``matmul_scaled``). On CPU tensors the same entry points
+   run :func:`matmul_plain`. Bound at 4096^3 on the H100: 2 * 4096^3
+   operations over the dtype's peak — bf16/f16 0.139 ms, fp8 and int8
+   0.069 ms (fp8 on the f16 route: 0.139), f32 on the CUDA cores 2.05 ms;
+   the bytes are 0.03 ms. ``matmul_pallas.launches`` and
    ``matmul_scaled.launches`` count the kernel's launches that run
    outside a CUDA graph: eager calls and a graph's warm launch, not its
    recording nor its replays.
@@ -37,7 +37,10 @@ captured CUDA graph (``tune/``) and keeps the winner in the sqlite store.
 The candidates are the kernel's compiled tile instances (``kernel_tiles``)
 that the H100 admits for the shape (``_tile_candidates``); tunable names
 stay ``t{tm}x{tn}x{tk}``. Shapes a tile does not divide raise
-``ValueError``, as the JAX wrapper asserts.
+``ValueError``, as the JAX wrapper asserts; a 16-bit tile's ``tk`` is
+64 (a stage of 128 bytes), but K need only be a multiple of 32
+(``_k_unit``): the kernel's tensor maps zero-fill a last half stage,
+which adds nothing to the sums.
 """
 
 from __future__ import annotations
@@ -66,22 +69,21 @@ from ..utils import native
 # 1. the hand-written GEMM (csrc/matmul.cu)
 # ---------------------------------------------------------------------------
 
-NT = 256                 # threads per block (8 warps as 2 x 4)
-GEMM8_THREADS = 384      # the 8-bit kernel: producer + 2 consumer warpgroups
+NT = 256                 # threads per block of the f32 kernel
+WG_THREADS = 384         # the wgmma kernels: producer + 2 consumer warpgroups
+WG_MAX_BLOCKS = 132      # persistent blocks of the 16-bit kernel: the SMs
 MAX_SMEM = 227 * 1024    # dynamic shared memory a block may use
 MAX_ACC_REGS = 128       # accumulator registers per thread (of 255)
-# the tile grid the 16-bit tensor-core kernel (csrc/matmul.cu) is built
-# over: (BM, BN) and the bytes of K a stage holds; the H100's limits keep
-# every combination
-_MMA_MN = ((64, 128), (128, 128), (128, 256), (256, 128))
-_MMA_KB = (64, 128)
-# the 8-bit wgmma kernel (csrc/matmul8.cu's CUBECL_WG_TILES): (BM, BN),
-# 128 bytes of K a stage (one swizzle row), a ring of up to 5 stages in
-# 144 KiB and two f16 panels of B (csrc/wgmma_gemm.cuh's WgGemmTile)
-_WG_MN = ((128, 128), (256, 128))
+# the wgmma kernels (csrc/wgmma_gemm.cuh's WgGemmTile): (BM, BN) and 128
+# bytes of K a stage (one swizzle row); 8-bit (csrc/matmul8.cu's
+# CUBECL_WG_TILES) a ring of up to 5 stages in 144 KiB and two f16 panels
+# of B, 16-bit (csrc/matmul.cu's CUBECL_WG16_TILES) its output tile staged
+# for TMA stores (BM x BN x 2 bytes) and a ring of up to 6 stages in the
+# rest of MAX_SMEM
 _WG_KB = 128
-_WG_RING = 144 * 1024
-_WG_MAX_STAGES = 5
+_WG_MN = {1: ((128, 128), (256, 128)),
+          2: ((64, 128), (128, 128), (128, 256), (256, 128))}
+_WG_MAX_STAGES = {1: 5, 2: 6}
 # the f32 kernel: (BM, BN) x K per stage
 _FMA_MN = ((64, 64), (128, 128))
 _FMA_K = (8, 16)
@@ -96,38 +98,40 @@ def _itemsize(dtype: str) -> int:
     return elem_from_dtype(dtype).size
 
 
-def _wg_stages(tm: int, tn: int) -> int:
-    """Stages of the 8-bit kernel's ring: as many as 144 KiB hold, at most
-    5 (wgmma_gemm.cuh's WgGemmTile::STAGES)."""
-    return min(_WG_MAX_STAGES, _WG_RING // ((tm + tn) * _WG_KB))
+def _wg_out_bytes(tm: int, tn: int, in_bytes: int) -> int:
+    """The 16-bit kernel's staged output tile (WgGemmTile::OUT_BYTES)."""
+    return tm * tn * 2 if in_bytes == 2 else 0
+
+
+def _wg_stages(tm: int, tn: int, in_bytes: int = 1) -> int:
+    """Stages of a wgmma kernel's ring: as many as its ring's bytes hold, at
+    most its cap (wgmma_gemm.cuh's WgGemmTile::STAGES)."""
+    cap = _WG_MAX_STAGES[in_bytes]
+    ring = 144 * 1024 if in_bytes == 1 else \
+        MAX_SMEM - 1024 - 16 * cap - _wg_out_bytes(tm, tn, in_bytes)
+    return min(cap, ring // ((tm + tn) * _WG_KB))
 
 
 def _matmul_smem(tm: int, tn: int, tk: int, in_bytes: int,
                  b_transposed: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/matmul.cu's MmaTile and
-    fma_smem_bytes, csrc/wgmma_gemm.cuh's WgGemmTile): f32 stages A and B
-    once; the 16-bit tensor-core kernel two stages of A rows and B
-    (n-major rows, or k-major rows for B given as (K, N)), each row padded
-    by 16 bytes; the 8-bit kernel its ring of 128-byte rows of A and B (B
-    is (N, K) in both layouts: a (K, N) B is transposed before), two f16
-    copies of a stage's B (fp8 runs as f16), a full and an empty mbarrier
-    a stage and 1024 bytes to align the base."""
+    """Dynamic shared memory of one block (csrc/matmul.cu's fma_smem_bytes,
+    csrc/wgmma_gemm.cuh's WgGemmTile): f32 stages A and B once; the wgmma
+    kernels their ring of 128-byte rows of A and B (the same bytes in both
+    B layouts), the 8-bit kernel's two f16 copies of a stage's B (fp8 runs
+    as f16) or the 16-bit kernel's staged output tile, a full and an empty
+    mbarrier a stage and 1024 bytes to align the base."""
     if in_bytes == 4:
         return (tk * tm + tk * tn) * 4
-    if in_bytes == 1:
-        stages = _wg_stages(tm, tn)
-        return stages * (tm + tn) * tk + 2 * tn * 2 * tk + 2 * 8 * stages \
-            + 1024
-    kb = tk * in_bytes
-    a = tm * (kb + 16)
-    b = tn * (kb + 16) if b_transposed else tk * (tn * 2 + 16)
-    return 2 * (a + b)
+    stages = _wg_stages(tm, tn, in_bytes)
+    f16b = 2 * tn * 2 * _WG_KB if in_bytes == 1 else 0
+    return stages * (tm + tn) * _WG_KB + f16b \
+        + _wg_out_bytes(tm, tn, in_bytes) + 2 * 8 * stages + 1024
 
 
 def _acc_regs(tm: int, tn: int) -> int:
-    # every kernel spreads the tile over NT threads (the 8-bit one over
-    # its two consumer warpgroups)
-    return tm * tn // NT
+    # every kernel spreads the tile over 256 threads: the f32 kernel's
+    # block, the wgmma kernels' two consumer warpgroups
+    return tm * tn // 256
 
 
 def _admitted(tm, tn, tk, in_bytes) -> bool:
@@ -139,29 +143,42 @@ def _admitted(tm, tn, tk, in_bytes) -> bool:
 
 def kernel_tiles(in_bytes: int):
     """The (tm, tn, tk) instances the kernels are built with for
-    ``in_bytes``-byte operands (csrc/matmul.cu's CUBECL_MMA_TILES, in
-    bytes of K, and CUBECL_FMA_TILES; csrc/matmul8.cu's CUBECL_WG_TILES
-    for 8-bit operands): the grids above, kept where the card admits
-    them."""
+    ``in_bytes``-byte operands (csrc/matmul.cu's CUBECL_FMA_TILES and
+    CUBECL_WG16_TILES, the latter in bytes of K; csrc/matmul8.cu's
+    CUBECL_WG_TILES for 8-bit operands): the grids above, kept where the
+    card admits them."""
     if in_bytes == 4:
         grid = [(m, n, k) for m, n in _FMA_MN for k in _FMA_K]
-    elif in_bytes == 1:
-        grid = [(m, n, _WG_KB) for m, n in _WG_MN]
     else:
-        grid = [(m, n, kb // in_bytes) for m, n in _MMA_MN for kb in _MMA_KB]
+        grid = [(m, n, _WG_KB // in_bytes) for m, n in _WG_MN[in_bytes]]
     return [t for t in grid if _admitted(*t, in_bytes)]
+
+
+def _k_unit(tile, in_bytes: int) -> int:
+    """What K must be a multiple of for ``tile``: its tk, but 32 for a
+    16-bit tile, whose last stage of 64 may be half past K (the tensor
+    maps zero-fill it: exact)."""
+    return 32 if in_bytes == 2 else tile[2]
+
+
+def _grid(m: int, n: int, tile, in_bytes: int):
+    """Blocks of a launch: one a tile for f32 and 8-bit operands; the
+    16-bit kernel's persistent blocks, one a tile up to WG_MAX_BLOCKS."""
+    tiles_n, tiles_m = n // tile[1], m // tile[0]
+    if in_bytes == 2:
+        return (min(tiles_m * tiles_n, WG_MAX_BLOCKS), 1, 1)
+    return (tiles_n, tiles_m, 1)
 
 
 def _tile_candidates(m: int, n: int, k: int, in_bytes: int,
                      out_bytes: int = 4, limit: int = 8):
     """Tile shapes for autotune: the kernel's instances that divide (m, n,
-    k) — the JAX rule at ``cubecl_tpu/ops/matmul.py:217`` — largest output
-    tile first, then deeper K. 8-bit operands get the wgmma kernel's list
-    (128 of K a stage). ``out_bytes`` is taken for the JAX
-    signature: the epilogue writes from registers, so the output does not
-    size a tile."""
+    k) — the JAX rule at ``cubecl_tpu/ops/matmul.py:217``, with K taken in
+    ``_k_unit`` — largest output tile first, then deeper K. ``out_bytes``
+    is taken for the JAX signature: the epilogue writes from registers, so
+    the output does not size a tile."""
     out = [t for t in kernel_tiles(in_bytes)
-           if not (m % t[0] or n % t[1] or k % t[2])]
+           if not (m % t[0] or n % t[1] or k % _k_unit(t, in_bytes))]
     out.sort(key=lambda t: (-t[0] * t[1], -t[2], t[0]))
     return out[:limit]
 
@@ -180,7 +197,7 @@ def _check_tile(m, n, k, tile, in_dtype: str) -> None:
     if tuple(tile) not in kernel_tiles(in_bytes):
         raise ValueError(f"matmul: tile {tuple(tile)} is not built for "
                          f"{in_dtype}; tiles: {kernel_tiles(in_bytes)}")
-    if m % tile[0] or n % tile[1] or k % tile[2]:
+    if m % tile[0] or n % tile[1] or k % _k_unit(tile, in_bytes):
         raise ValueError(f"matmul: tile {tuple(tile)} does not divide "
                          f"(M, N, K) = ({m}, {n}, {k})")
 
@@ -304,10 +321,10 @@ def _source(in_bytes: int) -> str:
 
 def _native_compiled(name, fn, mutable, source, m, n, tile, smem,
                      in_bytes) -> CompiledKernel:
-    threads = GEMM8_THREADS if in_bytes == 1 else NT
+    threads = NT if in_bytes == 4 else WG_THREADS
     return CompiledKernel(fn=fn, mutable_indices=[mutable], source=source,
                           name=name, block=(threads, 1, 1),
-                          grid=(n // tile[1], m // tile[0], 1),
+                          grid=_grid(m, n, tile, in_bytes),
                           smem_bytes=smem, smem_opt_in=True)
 
 

@@ -10,9 +10,13 @@ stay on the device end to end: nothing on the path syncs with the host.
 
 ``expert_matmul`` on CUDA tensors launches ``csrc/expert_matmul.cu``, which
 replaces the TPU kernel E1 (``cubecl_tpu/ops/moe.py::expert_matmul``,
-``pallas_call`` :97): M1's tile loops on an (n-tile, m-tile, expert) grid
-whose blocks return at once past ``counts[e]``; bf16 on the tensor cores,
-f32 on the CUDA cores. On CPU tensors it runs :func:`expert_matmul_plain`.
+``pallas_call`` :97): bf16 on M1's ``wgmma`` body fed by TMA
+(``csrc/wgmma_gemm.cuh``), persistent blocks that read ``counts`` on the
+device and walk only the live tiles, in 128 x 256 tiles where those give
+every block two or more (prefill) and 128 x 128 ones otherwise (decode);
+f32 on the CUDA cores, on an
+(n-tile, m-tile, expert) grid whose blocks return at once past
+``counts[e]``. On CPU tensors it runs :func:`expert_matmul_plain`.
 ``expert_matmul.launches`` counts the kernel's launches.
 
 ``moe_ep_ffn`` (expert parallelism over an all_to_all) waits for the port's
@@ -26,9 +30,15 @@ import torch
 from ..utils import native
 from .matmul import _full_f32
 
-# E1's tile per dtype, (tm, tn, tk) as csrc/expert_matmul.cu builds it:
-# d must be a multiple of tk and f of tn; the capacity may be any size
-EXPERT_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+# E1's tile per dtype, (tm, tn, tk) as csrc/expert_matmul.cu builds it: f
+# must be a multiple of tn, d of tk for f32 and of 32 for bf16 (a last
+# stage of 64 may be half past d: the tensor maps zero-fill it, which adds
+# nothing to the sums); the capacity may be any size
+EXPERT_TILES = {torch.bfloat16: (128, 128, 64), torch.float32: (64, 64, 16)}
+EXPERT_K_UNIT = {torch.bfloat16: 32, torch.float32: 16}
+# the bf16 kernel's wide tile, (tm, EXPERT_WIDE_BN), which it takes on the
+# device where f is a multiple of it and the live tiles fill the card
+EXPERT_WIDE_BN = 256
 
 
 def expert_matmul_plain(xg, w, counts=None):
@@ -65,11 +75,12 @@ def _check_kernel_inputs(xg, w, counts):
                          f"{counts.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("expert_matmul: the kernel wants contiguous tensors")
-    _tm, tn, tk = EXPERT_TILES[xg.dtype]
+    tn, unit = EXPERT_TILES[xg.dtype][1], EXPERT_K_UNIT[xg.dtype]
     f = w.shape[2]
-    if d % tk or f % tn:
-        raise ValueError(f"expert_matmul: the {xg.dtype} tile (tn {tn}, tk "
-                         f"{tk}) does not divide (d, f) = ({d}, {f})")
+    if d % unit or f % tn:
+        raise ValueError(f"expert_matmul: the {xg.dtype} kernel takes d a "
+                         f"multiple of {unit} and f of {tn}; got (d, f) = "
+                         f"({d}, {f})")
 
 
 def expert_matmul(xg, w, counts, bt: int = 128):

@@ -42,7 +42,9 @@ from cubecl_tpu_torch.ops.paged_attention import (
 )
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2),
+       # one f16 rounding (2^-11 relative) of sums of order 1
+       torch.float16: (1e-3, 1e-3)}
 
 
 @pytest.fixture
@@ -529,18 +531,24 @@ def _mm_operand(g, dev, dtype, shape, K):
 def test_matmul_kernel_matches_plain(dev, dtype, b_transposed):
     """Every built tile of M1 against plain, per dtype and B layout:
     int8 -> int32 exact; float operands to f32 summation order (f32 out)
-    and one bf16 rounding (bf16 out); M2 (host scales) and M1 scaled
-    (device scales) on the first tile."""
+    and one rounding (bf16 out; f16 out for 16-bit operands). M2 (host
+    scales) and M1 scaled (device scales) on the first tile, and on every
+    tile for 16-bit operands (the wgmma body of csrc/matmul.cu, each of
+    whose instances 256^3 runs)."""
     from cubecl_tpu_torch.ops import matmul as mm
 
     g = torch.Generator(device=dev).manual_seed(len(dtype))
     M, N, K = 256, 256, 256
     a = _mm_operand(g, dev, dtype, (M, K), K)
     b = _mm_operand(g, dev, dtype, (N, K) if b_transposed else (K, N), K)
+    sixteen = mm._itemsize(dtype) == 2
     outs = (torch.int32, torch.float32) if dtype == "int8" else \
+        (torch.float32, torch.bfloat16, torch.float16) if sixteen else \
         (torch.float32, torch.bfloat16)
     tiles = mm._tile_candidates(M, N, K, mm._itemsize(dtype))
     assert tiles
+    if sixteen:
+        assert sorted(tiles) == sorted(mm.kernel_tiles(2))
     for od in outs:
         want = mm.matmul_plain(a, b, od, b_transposed)
         for tile in tiles:
@@ -553,16 +561,58 @@ def test_matmul_kernel_matches_plain(dev, dtype, b_transposed):
                 assert torch.equal(o, want), tile
             else:
                 _close(o, want)
-    o = torch.empty(M, N, device=dev)
-    mm._gemm(a, b, o, tiles[0], b_transposed, 4.0, 0.5,
-             counter=mm.matmul_scaled)
-    _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed, 2.0))
+    for tile in tiles if sixteen else tiles[:1]:
+        o = torch.empty(M, N, device=dev)
+        mm._gemm(a, b, o, tile, b_transposed, 4.0, 0.5,
+                 counter=mm.matmul_scaled)
+        _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed, 2.0))
+        sa = torch.tensor([0.5], device=dev)
+        sb = torch.tensor([0.25], device=dev)
+        mm._gemm(a, b, o, tile, b_transposed, sa, sb,
+                 counter=mm.matmul_pallas)
+        _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed,
+                                  sa[0] * sb[0]))
+
+
+@pytest.mark.parametrize("K", [160, 640], ids=["half_stage", "ten_stages"])
+@pytest.mark.parametrize("b_transposed", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_matmul16_wgmma_every_tile(dev, dtype, b_transposed, K):
+    """The 16-bit body (csrc/matmul.cu on csrc/wgmma_gemm.cuh): every tile
+    instance in both B layouts (B as (K, N) read through the wgmma
+    transpose bit), the three epilogues and the three float outputs,
+    against plain, at M 512 x N 768 (persistent blocks walking several
+    tiles each for the small tiles: 48 of 64 x 128) and a K whose last
+    stage of 64 is half past K (zero-filled by the tensor maps) or ten
+    stages deep (more than the ring holds)."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=dev).manual_seed(K + len(dtype))
+    M, N = 512, 768
+    a = _mm_operand(g, dev, dtype, (M, K), K)
+    b = _mm_operand(g, dev, dtype, (N, K) if b_transposed else (K, N), K)
+    tiles = mm._tile_candidates(M, N, K, 2)
+    assert sorted(tiles) == sorted(mm.kernel_tiles(2))
+    wants = {od: mm.matmul_plain(a, b, od, b_transposed)
+             for od in (torch.float32, torch.bfloat16, torch.float16)}
+    want_m2 = mm.matmul_plain(a, b, torch.bfloat16, b_transposed, 0.125)
     sa = torch.tensor([0.5], device=dev)
     sb = torch.tensor([0.25], device=dev)
-    mm._gemm(a, b, o, tiles[0], b_transposed, sa, sb,
-             counter=mm.matmul_pallas)
-    _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed,
-                              sa[0] * sb[0]))
+    want_m1s = mm.matmul_plain(a, b, torch.float16, b_transposed,
+                               sa[0] * sb[0])
+    for tile in tiles:
+        for od, want in wants.items():
+            o = torch.full((M, N), float("nan"), device=dev, dtype=od)
+            mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+            _close(o, want)
+        o = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        mm._gemm(a, b, o, tile, b_transposed, 0.5, 0.25,
+                 counter=mm.matmul_scaled)
+        _close(o, want_m2)
+        o = torch.empty(M, N, device=dev, dtype=torch.float16)
+        mm._gemm(a, b, o, tile, b_transposed, sa, sb,
+                 counter=mm.matmul_pallas)
+        _close(o, want_m1s)
 
 
 @pytest.mark.parametrize("b_transposed", [False, True])
@@ -600,11 +650,63 @@ def test_matmul8_wgmma_every_tile(dev, dtype, b_transposed):
         _close(o2, want_m2)
 
 
+FP8_LAUNCHES = 400
+
+
+@pytest.mark.parametrize("b_transposed", [False, True])
+@pytest.mark.parametrize("tile", [(128, 128, 128), (256, 128, 128)])
+def test_matmul8_fp8_every_launch_of_many_agrees(dev, tile, b_transposed):
+    """A race between the fp8 body's consumers and its producer shows in a
+    few launches of many, not in one: before the consumers fenced their
+    reads of a stage ahead of releasing it (csrc/wgmma_gemm.cuh), the
+    producer's next copy overwrote A rows an ldmatrix had not read in 1-2%
+    of the 256 x 128 tile's launches at the llama FFN shape on the H100.
+    FP8_LAUNCHES launches at that shape, each held against plain at f32's
+    tolerance."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    assert tile in mm.kernel_tiles(1)
+    g = torch.Generator(device=dev).manual_seed(11)
+    M, N, K = 8192, 5632, 2048
+    a = _mm_operand(g, dev, "float8_e4m3fn", (M, K), K)
+    b = _mm_operand(g, dev, "float8_e4m3fn",
+                    (N, K) if b_transposed else (K, N), K)
+    want = mm.matmul_plain(a, b, torch.float32, b_transposed)
+    atol, rtol = TOL[torch.float32]
+    lim = atol + rtol * want.abs()
+    o = torch.empty_like(want)
+    bad = torch.zeros(FP8_LAUNCHES, dtype=torch.int64, device=dev)
+    for i in range(FP8_LAUNCHES):
+        mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+        bad[i] = ((o - want).abs() > lim).sum()
+    bad = bad.cpu()
+    assert not bad.any(), (f"{int((bad > 0).sum())} of {FP8_LAUNCHES} "
+                           f"launches wrong, {int(bad.sum())} elements")
+
+
+def _kernels_run(fn):
+    """The names of the CUDA kernels that ``fn()`` launches (torch.profiler
+    on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def test_matmul_bodies_by_entry_point(dev, monkeypatch):
-    """Which library entry each GEMM reaches: 16-bit and f32 operands
-    csrc/matmul.cu's cubecl_matmul (whose 8-bit types now return
-    cudaErrorInvalidValue), 8-bit ones csrc/matmul8.cu's cubecl_matmul8,
-    E1 csrc/expert_matmul.cu's cubecl_expert_matmul."""
+    """Which library entry and which kernel body each GEMM reaches: 16-bit
+    operands csrc/matmul.cu's cubecl_matmul and its wgmma body
+    (gemm16_wgmma_kernel), f32 the same entry's CUDA-core body
+    (fma_gemm_kernel), 8-bit ones csrc/matmul8.cu's cubecl_matmul8
+    (gemm8_wgmma_kernel), E1 csrc/expert_matmul.cu's cubecl_expert_matmul,
+    bf16 on its wgmma body (expert_wgmma_kernel), f32 on the CUDA cores
+    (expert_fma_kernel). cubecl_matmul refuses 8-bit operands
+    (cudaErrorInvalidValue), and no kernel of these launches is an
+    mma.sync body."""
     from cubecl_tpu_torch.ops import matmul as mm
     from cubecl_tpu_torch.ops import moe
     from cubecl_tpu_torch.utils import native
@@ -616,27 +718,34 @@ def test_matmul_bodies_by_entry_point(dev, monkeypatch):
         monkeypatch.setattr(lib, name, lambda *a, _f=fn, _n=name:
                             calls.append(_n) or _f(*a))
     g = torch.Generator(device=dev).manual_seed(3)
-    for dtype, want in [("bfloat16", "cubecl_matmul"),
-                        ("float16", "cubecl_matmul"),
-                        ("float32", "cubecl_matmul"),
-                        ("float8_e4m3fn", "cubecl_matmul8"),
-                        ("int8", "cubecl_matmul8")]:
+    for dtype, want, body in [
+            ("bfloat16", "cubecl_matmul", "gemm16_wgmma_kernel"),
+            ("float16", "cubecl_matmul", "gemm16_wgmma_kernel"),
+            ("float32", "cubecl_matmul", "fma_gemm_kernel"),
+            ("float8_e4m3fn", "cubecl_matmul8", "gemm8_wgmma_kernel"),
+            ("int8", "cubecl_matmul8", "gemm8_wgmma_kernel")]:
         a = _mm_operand(g, dev, dtype, (256, 256), 256)
         b = _mm_operand(g, dev, dtype, (256, 256), 256)
         o = torch.empty(256, 256, device=dev,
                         dtype=torch.int32 if dtype == "int8"
                         else torch.float32)
+        for tile in mm._tile_candidates(256, 256, 256, mm._itemsize(dtype)):
+            calls.clear()
+            ran = _kernels_run(lambda: mm._gemm(a, b, o, tile, False,
+                                                counter=mm.matmul_pallas))
+            assert calls == [want], (dtype, calls)
+            assert any(body in k for k in ran), (dtype, tile, ran)
+            assert not any("mma_gemm_kernel" in k for k in ran), ran
+    for dtype, body in [(torch.bfloat16, "expert_wgmma_kernel"),
+                        (torch.float32, "expert_fma_kernel")]:
+        xg = torch.zeros(2, 64, 256, dtype=dtype, device=dev)
+        w = torch.zeros(2, 256, 128, dtype=dtype, device=dev)
         calls.clear()
-        mm._gemm(a, b, o, mm._tile_candidates(256, 256, 256,
-                                               mm._itemsize(dtype))[0],
-                 False, counter=mm.matmul_pallas)
-        assert calls == [want], (dtype, calls)
-    xg = torch.zeros(2, 64, 256, dtype=torch.bfloat16, device=dev)
-    w = torch.zeros(2, 256, 128, dtype=torch.bfloat16, device=dev)
-    calls.clear()
-    moe.expert_matmul(xg, w, torch.tensor([64, 3], dtype=torch.int32,
-                                          device=dev))
-    assert calls == ["cubecl_expert_matmul"]
+        ran = _kernels_run(lambda: moe.expert_matmul(
+            xg, w, torch.tensor([64, 3], dtype=torch.int32, device=dev)))
+        assert calls == ["cubecl_expert_matmul"]
+        assert any(body in k for k in ran), (dtype, ran)
+        assert not any("expert_mma_kernel" in k for k in ran), ran
     a8 = torch.zeros(256, 256, dtype=torch.float8_e4m3fn, device=dev)
     o = torch.empty(256, 256, device=dev)
     torch.cuda.synchronize()
@@ -967,18 +1076,31 @@ def test_std_kernels_on_the_card(dev):
 # -- E1 (csrc/expert_matmul.cu) and S1 (csrc/selective_scan.cu) ---------------
 
 
+# E1's card cases: (E, cap, d, f, counts)
+_E1_CASES = {
+    # counts of cap, 0, a ragged count and one row; a capacity of 200 is
+    # no multiple of either tile
+    "ragged_cap": (4, 200, 256, 384, [200, 0, 130, 1]),
+    "cap256": (4, 256, 256, 384, [256, 0, 130, 1]),
+    # a decode step's few live rows, at the decode shape's capacity, and a
+    # d that leaves a zero-filled half stage of K
+    "decode": (4, 2560, 96, 384, [2, 0, 3, 1]),
+    # eight experts with every row live: enough tiles for the wide
+    # 128 x 256 tile (f a multiple of 256)
+    "all_at_cap": (8, 2048, 256, 1024, [2048] * 8),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cap", [200, 256], ids=["ragged_cap", "cap256"])
-def test_expert_matmul_kernel_matches_plain(dev, dtype, cap):
-    """Live rows only (the rest are undefined): counts of cap, 0, a ragged
-    count and one row; a capacity of 200 is no multiple of either tile."""
+@pytest.mark.parametrize("case", list(_E1_CASES))
+def test_expert_matmul_kernel_matches_plain(dev, dtype, case):
+    """Live rows only (the rest are undefined), for each of _E1_CASES."""
     from cubecl_tpu_torch.ops import moe
 
+    E, cap, d, f, counts = _E1_CASES[case]
     g = torch.Generator(device=dev).manual_seed(cap)
-    E, d, f = 4, 256, 384
     xg = (torch.randn(E, cap, d, generator=g, device=dev) * .2).to(dtype)
     w = (torch.randn(E, d, f, generator=g, device=dev) * .2).to(dtype)
-    counts = [cap, 0, 130, 1]
     c = torch.tensor(counts, dtype=torch.int32, device=dev)
     n = moe.expert_matmul.launches
     got = moe.expert_matmul(xg, w, c)
@@ -988,6 +1110,53 @@ def test_expert_matmul_kernel_matches_plain(dev, dtype, cap):
     ref = moe.expert_matmul_plain(xg, w, c)
     for e, k in enumerate(counts):
         _close(got[e, :k], ref[e, :k])
+
+
+def test_expert_matmul_wide_and_narrow_tiles_on_ragged_counts(dev):
+    """The bf16 kernel's two tiles on ragged counts: the same inputs with
+    f 1024 (its live tiles fill the card: the wide 128 x 256 tile) and
+    f 384 (no multiple of 256: 128 x 128), live rows against plain; a d of
+    96 leaves a zero-filled half stage."""
+    from cubecl_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    counts = [2000, 0, 1999, 2560, 1, 130, 2048, 777]
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    xg = (torch.randn(8, 2560, 96, generator=g, device=dev) * .2).to(
+        torch.bfloat16)
+    for f in (1024, 384):
+        w = (torch.randn(8, 96, f, generator=g, device=dev) * .2).to(
+            torch.bfloat16)
+        got = moe.expert_matmul(xg, w, c)
+        ref = moe.expert_matmul_plain(xg, w, c)
+        for e, k in enumerate(counts):
+            _close(got[e, :k], ref[e, :k])
+
+
+def test_expert_matmul_never_syncs_with_the_host(dev):
+    """E1's path reads the counts on the device only: under
+    torch.cuda.set_sync_debug_mode("error") a call that synchronized with
+    the host would raise. Both dtypes; the weights' tensor map is then
+    taken from the kernel's cache on the second call."""
+    from cubecl_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        xg = (torch.randn(4, 256, 256, generator=g, device=dev) * .2).to(
+            dtype)
+        w = (torch.randn(4, 256, 384, generator=g, device=dev) * .2).to(
+            dtype)
+        c = torch.tensor([256, 0, 130, 1], dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [moe.expert_matmul(xg, w, c) for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = moe.expert_matmul_plain(xg, w, c)
+        for got in outs:
+            for e, k in enumerate([256, 0, 130, 1]):
+                _close(got[e, :k], ref[e, :k])
 
 
 def test_expert_matmul_kernel_refuses_other_shapes(dev):

@@ -210,11 +210,14 @@ SHAPES = [(4096, 4096, 4096), (8192, 5632, 2048), (256, 256, 256),
 def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
     """Every autotune candidate is a built instance, fits the 227 KiB of
     shared memory in both B layouts, keeps its accumulator within 128
-    registers a thread and divides the shape. 16-bit operands stage 64 or
-    128 bytes of K in two stages; the 8-bit wgmma kernel stages 128 bytes
-    of K (one swizzle row) in a ring of as many stages as 144 KiB hold, at
-    most 5, beside two f16 copies of a stage's B, with its mbarriers and
-    1024 bytes of alignment slack."""
+    registers a thread and divides the shape. The wgmma kernels stage 128
+    bytes of K (one swizzle row) in a ring: 8-bit as many stages as 144 KiB
+    hold, at most 5, beside two f16 copies of a stage's B; 16-bit as many
+    as the block's 227 KiB hold beside the output tile staged for its TMA
+    stores, at most 6, and at least 3; each with its mbarriers and 1024
+    bytes of alignment slack. A 16-bit K need only be a multiple of 32 (the last
+    stage of 64 may be half past K: the tensor maps zero-fill it), so every
+    shape the 16-bit kernel took with its 64-byte stages keeps a tile."""
     m, n, k = shape
     cands = tmm._tile_candidates(m, n, k, in_bytes)
     for tm, tn, tk in cands:
@@ -222,18 +225,27 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
         for bt in (False, True):
             assert tmm._matmul_smem(tm, tn, tk, in_bytes, bt) <= 227 * 1024
         assert tm * tn // 256 <= 128
-        assert m % tm == n % tn == k % tk == 0
+        assert m % tm == n % tn == 0
+        assert k % (32 if in_bytes == 2 else tk) == 0
         if in_bytes == 1:
             stages = min(5, 144 * 1024 // ((tm + tn) * 128))
             assert stages >= 3
             for bt in (False, True):
                 assert tmm._matmul_smem(tm, tn, tk, 1, bt) \
                     == stages * ((tm + tn) * 128 + 16) + 2 * tn * 256 + 1024
-    if shape != (512, 384, 96):
+        if in_bytes == 2:
+            out = tm * tn * 2  # the output tile, staged for TMA stores
+            stages = min(6, (227 * 1024 - 1024 - 96 - out)
+                         // ((tm + tn) * 128))
+            assert stages >= 3
+            for bt in (False, True):
+                assert tmm._matmul_smem(tm, tn, tk, 2, bt) \
+                    == stages * ((tm + tn) * 128 + 16) + out + 1024
+    if shape != (512, 384, 96) or in_bytes != 1:
         assert cands, shape
     if in_bytes == 2:
-        assert {t[2] * in_bytes for t in tmm.kernel_tiles(in_bytes)} \
-            == {64, 128}
+        assert sorted(tmm.kernel_tiles(2)) == [(64, 128, 64), (128, 128, 64),
+                                               (128, 256, 64), (256, 128, 64)]
     if in_bytes == 1:
         assert sorted(tmm.kernel_tiles(1)) == [(128, 128, 128),
                                                (256, 128, 128)]
@@ -241,9 +253,10 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
 
 def test_kernel_tiles_match_the_cuda_source():
     """The Python tile tables are the lists the .cu files instantiate:
-    csrc/matmul.cu's for f32 and 16-bit operands, csrc/matmul8.cu's (the
-    wgmma kernel) for 8-bit ones; matmul.cu no longer dispatches 8-bit
-    operands."""
+    csrc/matmul.cu's for f32 and 16-bit operands (the 16-bit ones in bytes
+    of K a stage), csrc/matmul8.cu's for 8-bit ones; matmul.cu dispatches
+    no 8-bit operands, and no kernel source keeps a warp-level mma.sync
+    GEMM body: every 16- and 8-bit GEMM runs on wgmma."""
     csrc = os.path.join(os.path.dirname(tmm.__file__), "..", "csrc")
 
     def tiles(name, macro):
@@ -256,29 +269,40 @@ def test_kernel_tiles_match_the_cuda_source():
 
     assert sorted(tiles("matmul.cu", "CUBECL_FMA_TILES")) \
         == sorted(tmm.kernel_tiles(4))
-    assert sorted(tiles("matmul.cu", "CUBECL_MMA_TILES")) == sorted(
+    assert sorted(tiles("matmul.cu", "CUBECL_WG16_TILES")) == sorted(
         (m, n, k * 2) for m, n, k in tmm.kernel_tiles(2))
     assert sorted(tiles("matmul8.cu", "CUBECL_WG_TILES")) \
         == sorted(tmm.kernel_tiles(1))
     mm_src = open(os.path.join(csrc, "matmul.cu")).read()
-    assert "CUBECL_MMA_TYPE(kBF16, BF16)" in mm_src
+    assert "CUBECL_WG16_TYPE(kBF16, BF16)" in mm_src
+    assert "CUBECL_WG16_TYPE(kF16, F16)" in mm_src
     for code in ("kE4M3", "kE5M2", "kI8"):
-        assert f"CUBECL_MMA_TYPE({code}" not in mm_src
+        assert f"CUBECL_WG16_TYPE({code}" not in mm_src
+    for name in os.listdir(csrc):
+        if name.endswith((".cu", ".cuh")):
+            src = open(os.path.join(csrc, name)).read()
+            assert "mma.sync.aligned" not in src, name
 
 
 @pytest.mark.parametrize("in_dtype,acc", [("float8_e4m3fn", "float32"),
                                           ("float8_e5m2", "float32"),
                                           ("int8", "int32"),
                                           ("bfloat16", "float32"),
+                                          ("float16", "float32"),
                                           ("float32", "float32")])
 def test_matmul_launch_plan_by_body(in_dtype, acc):
     """The launch each operand type validates: 8-bit operands run
-    csrc/matmul8.cu's wgmma body (384 threads: a producer and two consumer
-    warpgroups; its ring's shared memory), the others csrc/matmul.cu's
-    256-thread blocks; one block a tile either way, M2 as M1."""
+    csrc/matmul8.cu's wgmma body, one block a tile; 16-bit ones
+    csrc/matmul.cu's wgmma body, persistent blocks, one a tile up to the
+    H100's 132 SMs; both 384 threads (a producer and two consumer
+    warpgroups) and their ring's shared memory. f32 runs csrc/matmul.cu's
+    256-thread blocks, one a tile. M2 as M1."""
     m, n, k = 512, 384, 640
     in_bytes = tmm._itemsize(in_dtype)
     tile = tmm._default_tile(m, n, k, in_bytes)
+    tiles = (m // tile[0], n // tile[1])
+    grid = (min(tiles[0] * tiles[1], 132), 1, 1) if in_bytes == 2 \
+        else (tiles[1], tiles[0], 1)
     for bt in (False, True):
         ck = tmm._build_matmul(m, n, k, *tile, in_dtype,
                                "int32" if acc == "int32" else "float32", acc,
@@ -286,11 +310,30 @@ def test_matmul_launch_plan_by_body(in_dtype, acc):
         m2 = tmm._build_matmul_scaled(m, n, k, *tile, in_dtype, "bfloat16",
                                       bt)
         for c in (ck, m2):
-            assert c.block == ((384 if in_bytes == 1 else 256), 1, 1)
-            assert c.grid == (n // tile[1], m // tile[0], 1)
+            assert c.block == ((256 if in_bytes == 4 else 384), 1, 1)
+            assert c.grid == grid
             assert c.smem_bytes == tmm._matmul_smem(*tile, in_bytes, bt)
             assert ("csrc/matmul8.cu" if in_bytes == 1
                     else "csrc/matmul.cu") in c.source
+    big = tmm._build_matmul(4096, 4096, 4096, 128, 256, 64, in_dtype,
+                            "float32", acc) if in_bytes == 2 else None
+    if big is not None:
+        assert big.grid == (132, 1, 1)
+
+
+@pytest.mark.parametrize("k", [32, 96, 160, 640])
+def test_16bit_k_takes_a_zero_filled_half_stage(k):
+    """A 16-bit tile stages 64 of K; K needs to be a multiple of 32 only
+    (the tensor maps zero-fill a last half stage), so each of these K keeps
+    every tile that divides M and N, and a K off the 32 grid is refused
+    with ValueError as before."""
+    m, n = 512, 512
+    assert sorted(tmm._tile_candidates(m, n, k, 2)) == sorted(
+        tmm.kernel_tiles(2))
+    for tile in tmm.kernel_tiles(2):
+        tmm._check_tile(m, n, k, tile, "bfloat16")
+        with pytest.raises(ValueError, match="does not divide"):
+            tmm._check_tile(m, n, k + 16, tile, "float16")
 
 
 def test_bad_tiles_and_types_raise(tc):

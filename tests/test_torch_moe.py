@@ -160,7 +160,10 @@ def test_expert_kernel_refuses_what_it_does_not_take():
 
 
 def test_expert_tiles_match_the_cuda_source():
-    """The wrapper's tile table is the one csrc/expert_matmul.cu builds."""
+    """The wrapper's tile table is the one csrc/expert_matmul.cu builds: the
+    bf16 tiles (128 x 128 and the wide 128 x 256) stage 128 bytes of K (64
+    elements) on the wgmma body, and d need only be a multiple of 32 there
+    (a half stage is zero-filled)."""
     import os
     import re
 
@@ -172,7 +175,10 @@ def test_expert_tiles_match_the_cuda_source():
         return tuple(int(re.search(rf"{prefix}_{n} = (\d+)", src).group(1))
                      for n in names)
 
-    bm, bn, bkb = consts("MMA", ("BM", "BN", "BKB"))
+    bm, bn, bkb, wide = consts("WG", ("BM", "BN", "BKB", "WIDE_BN"))
     assert moe.EXPERT_TILES[torch.bfloat16] == (bm, bn, bkb // 2)
+    assert moe.EXPERT_WIDE_BN == wide
+    assert moe.EXPERT_K_UNIT == {torch.bfloat16: 32, torch.float32: 16}
+    assert "wgmma_gemm16<BF16" in src
     assert moe.EXPERT_TILES[torch.float32] == consts("FMA", ("BM", "BN",
                                                             "BK"))
