@@ -13,9 +13,10 @@ checks smaller f32 configs end to end against the plain versions.
 
 Phases (lines before the last): 1 device, 2 build (failing unless every
 bf16 instance of the flash forward, dK/dV and dQ kernels, dense and
-block-sparse at D 64 and 128, C1's bf16 body and every 8-bit GEMM
-instance issue wgmma: HGMMA in ``cuobjdump -sass``, IGMMA for the int8
-GEMM; their registers and spills), 3 flash vs plain (with
+block-sparse at D 64 and 128, C1's bf16 body, every 8-bit GEMM
+instance and the K0 bf16/f16 cmma kernels issue wgmma: HGMMA in
+``cuobjdump -sass``, IGMMA for the int8 GEMM; their registers and
+spills), 3 flash vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
 bf16 D 64 at GPT-2's widths), 4 paged vs plain, 5 serve at full width, 6 serve exactness; then K0:
 a the DSL kernels at BASELINE sizes, and RMSNorm at every shape phases b
@@ -57,14 +58,16 @@ llama shape, each tuned through captured CUDA graphs timed by CUDA events
 into a fresh sqlite store (``CUBECL_ENVIRONMENT_ROOT`` in a temp dir),
 the store read back by a second call and by a new tuner, one tune with
 checks, the headline TFLOP/s, ``matmul_scaled`` and ``matmul_quantized``,
-o ``matmul_cmma`` through K0 with cmma printed (f32 512^3, bf16 512^3
-and 4096^3) against plain and the evaluator, and the K0 quant kernels
+o ``matmul_cmma`` through K0 with cmma printed (f32 512^3 on FMA, bf16
+512^3 and 4096^3 and f16 4096^3 on the tensor-core route, each 16-bit
+case in 25 launches) against plain and the evaluator, and the K0 quant kernels
 against plain, bit for bit. Then reductions and comptime fusion (BASELINE
 configs 2 and 5): p at 64M f32 ``reduce_sum_autotuned`` (R1, the
 ``block_sum`` route and the K0 tree, tuned into the temp store, then a
 second call untimed), ``reduce_sum``, ``reduce_max``, ``reduce_mean`` and
 ``reduce_sum_blockwise``, each against the float64 sum or torch's max and
-the K0 routes against the evaluator; R1 (``csrc/reduce.cu``) at 64M f32
+the K0 routes against the evaluator, ``reduce_block_partial`` at the
+blockwise plan (32 windows split over cubes of 256 units); R1 (``csrc/reduce.cu``) at 64M f32
 and bf16 and 128 x 1000 against plain, beside its bound and ``torch.sum``;
 block max/min exact; ``sum_things``' four variants and the book's
 reduction progression; q ``launch_fused`` for relu((a+b)*c) and
@@ -2076,9 +2079,11 @@ MMA_SYNC_MS = {"M2 e4m3 B (N, K) -> bf16": 0.499,
                "M1 int8 B (N, K) -> int32": 0.2405,
                "M1 bf16 B (K, N) -> bf16": 0.4735,
                "M1 bf16 llama FFN B (K, N) -> bf16": 0.663}
-# phase o: matmul_cmma's (operands, M = N = K), as examples/matmul.py
+# phase o: matmul_cmma's (operands, M = N = K), as examples/matmul.py; the
+# 16-bit cases run on the printer's tensor-core route, f32 on FMA
 CMMA_CASES = [(torch.float32, 512), (torch.bfloat16, 512),
-              (torch.bfloat16, 4096)]
+              (torch.bfloat16, 4096), (torch.float16, 4096)]
+CMMA_16 = (torch.bfloat16, torch.float16)
 QUANT_N = 4096 * 4096  # matmul_quantized's operands at 4096^2
 QUANT_BLOCK = 4096
 
@@ -2476,13 +2481,45 @@ def autotuned_path(mm, cu, dev, gen, card):
     return out
 
 
+def cmma_sass(cu, nvcc):
+    """Phase 2: each ``matmul_cmma_nd_kernel`` built for phase o, its
+    route (the printed ``mapping``), the HGMMA (``wgmma``) in its SASS,
+    and ptxas' registers and spills: (operand type, route, HGMMA count,
+    registers, spill line) each. Fails unless every bf16/f16 kernel is on
+    the tensor-core route and every kernel there issues HGMMA."""
+    rows = []
+    for c in cu.server._cache.values():
+        if c.name != "matmul_cmma_nd_kernel" or not hasattr(c.fn, "build"):
+            continue
+        elem = re.search(r"const (\w+)\* __restrict__ b0", c.source).group(1)
+        wgmma = "mapping=cmma-wgmma" in c.source
+        n = sass_of(nvcc, c.fn.build.path).count("HGMMA")
+        regs = re.search(r"Used (\d+) registers", c.fn.build.log)
+        spill = re.search(r"\d+ bytes stack frame, \d+ bytes spill stores, "
+                          r"\d+ bytes spill loads", c.fn.build.log)
+        if elem in ("__nv_bfloat16", "__half") and not wgmma:
+            fail(f"phase 2: a {elem} matmul_cmma kernel printed the FMA "
+                 f"route")
+        if wgmma and not n:
+            fail(f"phase 2: a {elem} matmul_cmma kernel issues no HGMMA")
+        rows.append((elem, "cmma-wgmma" if wgmma else "fma", n,
+                     int(regs.group(1)) if regs else None,
+                     spill.group(0) if spill else "no spill line"))
+    if not any(r[1] == "cmma-wgmma" for r in rows):
+        fail("phase 2: no matmul_cmma kernel on the tensor-core route")
+    return rows
+
+
 def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
     """Phase o: ``examples/matmul.py``'s DSL path, ``matmul_cmma`` through
-    K0 with cmma printed as CUDA C++ (fragments in shared memory), at
-    CMMA_CASES, each against plain and against the torch evaluator on the
-    card (the counts zeroed before the three calls, read after); then the
-    K0 quant kernels of phase n against their plain versions, bit for
-    bit, and the block-level ones against the evaluator."""
+    K0 with cmma printed as CUDA C++ (bf16 and f16 on the tensor-core
+    route: ``wgmma`` from the swizzled operand fragments, a pipelined K
+    loop, the accumulator in registers; f32 on FMA, fragments in shared
+    memory), at CMMA_CASES, each against plain and against the torch
+    evaluator on the card (the counts zeroed before each case's call, read
+    after), each 16-bit case in MM_REPEATS more launches; then the K0
+    quant kernels of phase n against their plain versions, bit for bit,
+    and the block-level ones against the evaluator."""
     from cubecl_tpu_torch.std.quant import QuantLevel, QuantScheme
 
     ops = [(dt, S, mm_operand(gen, dev, dt, (S, S), S),
@@ -2490,16 +2527,18 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
     hs = [(cu.create(a.reshape(-1)), cu.create(b.reshape(-1)),
            cu.empty((S * S,), "float32")) for _, S, a, b in ops]
     torch.cuda.synchronize()
-    cu.server.reset_counts()
+    # each case's launches, counted from 0 around its one call
+    launches = []
     for (_, S, _, _), h in zip(ops, hs):
+        cu.server.reset_counts()
         mm.matmul_cmma(cu, *h, S, S, S)
-    torch.cuda.synchronize()
-    launches = dict(cu.server.launches)
-    if launches != {"matmul_cmma_nd_kernel": len(CMMA_CASES)}:
-        fail(f"phase o: launches {launches}, want "
-             f"{len(CMMA_CASES)} of matmul_cmma_nd_kernel")
-    row = None
-    for (dt, S, a, b), h in zip(ops, hs):
+        torch.cuda.synchronize()
+        launches.append(dict(cu.server.launches))
+        if launches[-1] != {"matmul_cmma_nd_kernel": 1}:
+            fail(f"phase o: launches {launches[-1]} at {S}^3, want one "
+                 "of matmul_cmma_nd_kernel")
+    rows = {}
+    for (dt, S, a, b), h, n in zip(ops, hs, launches):
         what = f"matmul_cmma {_dt(dt)} {S}^3 -> f32"
         e = [ev.create(a.reshape(-1)), ev.create(b.reshape(-1)),
              ev.empty((S * S,), "float32")]
@@ -2509,29 +2548,43 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
         err = compare(got, want, f"phase o {what} vs plain")
         err_ev = compare(got, e[2].tensor.view(S, S),
                          f"phase o {what} vs the evaluator")
+        run = lambda h=h, S=S: mm.matmul_cmma(cu, *h, S, S, S)  # noqa: E731
+        if dt in CMMA_16:
+            repeats_agree(run, got, want, f"phase o {what}")
         iters = 3 if S > 1024 else 10
-        ms = cuda_ms(lambda: mm.matmul_cmma(cu, *h, S, S, S), iters=iters,
-                     warmup=1)
+        ms = cuda_ms(run, iters=iters, warmup=1)
+        route = "cmma-wgmma" if "mapping=cmma-wgmma" in \
+            cu.server.last_launched.source else "fma"
+        if route != ("cmma-wgmma" if dt in CMMA_16 else "fma"):
+            fail(f"phase o {what}: printed the {route} route")
+        cold = cold_ms(run, iters=iters)
         plain_ms = cuda_ms(lambda: mm.matmul_plain(a, b, torch.float32),
                            iters=iters)
         lib_name = "torch.matmul (TF32 off)" if dt == torch.float32 else \
             "torch.mm(out_dtype=float32)"
-        lib_ms = cuda_ms((lambda: torch.matmul(a, b)) if dt == torch.float32
-                         else (lambda: torch.mm(a, b,
-                                                out_dtype=torch.float32)))
+        lib = (lambda: torch.matmul(a, b)) if dt == torch.float32 else \
+            (lambda: torch.mm(a, b, out_dtype=torch.float32))
+        lib_ms, lib_cold = cuda_ms(lib), cold_ms(lib, iters=iters)
         bms, by = mm_bound(S, S, S, dt, torch.float32)
         tm, tn, tk = mm._cmma_plan(S, S, S, dt.itemsize, 128)
-        print(f"phase o K0 {what} (fragments {tm}x{tn}x{tk}, "
+        print(f"phase o K0 {what} (route {route}, fragments {tm}x{tn}x{tk}, "
               f"{mm.CMMA_CUBE_DIM} units a cube): max abs err {err} vs plain, "
               f"{err_ev} vs the torch evaluator (atol/rtol "
-              f"{TOL[torch.float32]}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}) [{card}]", flush=True)
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, library=lib_name, bound_ms=bms,
-                   bound_by=by, shape=f"{_dt(dt)} {S}^3 -> f32")
+              f"{TOL[torch.float32]})"
+              f"{f', {MM_REPEATS} more launches agree' if dt in CMMA_16 else ''}"
+              f"; kernel {ms:.4f} ms back to back, {cold:.4f} ms cold L2 "
+              f"({2 * S ** 3 / cold / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms ({lib_cold:.4f}"
+              f" cold L2), bound {bms:.4f} ms ({by}) [{card}]", flush=True)
+        rows[f"{_dt(dt)} {S}^3"] = dict(
+            max_abs_err=err, ms=cold, call_ms=ms, plain_ms=plain_ms,
+            library_ms=lib_cold, library=lib_name, bound_ms=bms, bound_by=by,
+            route=route, fragments=f"{tm}x{tn}x{tk}",
+            launches=n["matmul_cmma_nd_kernel"],
+            shape=f"{_dt(dt)} {S}^3 -> f32 (ms: cold L2)")
         del e
-    out = {"k0_cmma": dict(row, launches=launches["matmul_cmma_nd_kernel"])}
+    out = {"k0_cmma": dict(rows[f"bf16 {MM_S}^3"], by_case=rows),
+           "k0_cmma_f16": dict(rows[f"f16 {MM_S}^3"])}
 
     x = torch.randn(QUANT_N, generator=gen, device=dev) * 3
     xh = cu.create(x)
@@ -2603,9 +2656,11 @@ EYE_N = 4096
 # thread's share (512 elements, 23) moves the sum far past it
 SUM_TOL = 1e-8
 # reduce_block_partial's 2M-element windows against torch's f32 window
-# sums: 8 threads fold a window, each through 262144 serial f32 additions,
-# so the limit is 1e-6 * sum|x| of a window (about 1.7); one dropped
-# 128-element line moves a window's sum by 11 (one standard deviation)
+# sums, a window's sum the f32 sum of its sub-partials: the limit is 1e-6 *
+# sum|x| of a window (about 1.7), and each sub-partial against the
+# evaluator's 1e-6 * sum|x| of its sub-window (about 0.05; 256 threads fold
+# 65536 elements, 256 serial f32 additions each); one dropped 128-element
+# line moves a sum by 11 (one standard deviation)
 BLOCK_TOL = 1e-6
 # R1 with more chunks than blocks (its grid-stride step): 64M f32 at
 # block_rows 8 is 65536 chunks over 1024 blocks
@@ -2859,39 +2914,61 @@ def reductions(R, ex_sum, ex_prog, cu, ev, dev, gen, card, block_extremes):
             cu, h, block_rows=best_br), iters=50))
     win_ms, direct_ms = statistics.median(wins), statistics.median(directs)
     bms, by = bound_ms(RED_N, RED_N * 4, torch.float32)
-    # reduce_block_partial alone: one block_sum per cube over its window
-    part = cu.empty((BLOCK_CUBES,), "float32")
+    # reduce_block_partial alone at reduce_sum_blockwise's plan: each of
+    # the BLOCK_CUBES windows split over cubes of R.BLOCK_UNITS units, one
+    # block_sum per cube over its sub-window; a window's sum is the f32 sum
+    # of its sub-partials
+    windows, split, sub = R.block_plan(RED_N // 128, 128, BLOCK_CUBES)
+    parts = windows * split
+    part = cu.empty((parts,), "float32")
     blk = lambda: R.reduce_block_partial.launch_unchecked(  # noqa: E731
-        cu, BLOCK_CUBES, R.CD, array_arg(h, 128), array_arg(part, 1, True),
-        win // 128)
+        cu, parts, R.BLOCK_UNITS, array_arg(h, 128), array_arg(part, 1, True),
+        sub)
     blk()
-    eparts = ev.empty((BLOCK_CUBES,), "float32")
+    eparts = ev.empty((parts,), "float32")
     R.reduce_block_partial.launch_unchecked(
-        ev, BLOCK_CUBES, R.CD, array_arg(eh, 128), array_arg(eparts, 1, True),
-        win // 128)
+        ev, parts, R.BLOCK_UNITS, array_arg(eh, 128),
+        array_arg(eparts, 1, True), sub)
     plain_parts = xw.sum(1)
     torch.cuda.synchronize()
-    blk_err = (part.tensor - plain_parts).abs().max().item()
+    if windows != BLOCK_CUBES:
+        fail(f"phase p reduce_block_partial: plan {windows, split, sub}")
+    blk_err = (part.tensor.view(windows, split).sum(1)
+               - plain_parts).abs().max().item()
     blk_lim = BLOCK_TOL * xw.abs().sum(1).min().item()
+    sub_lim = BLOCK_TOL * x.view(parts, -1).abs().sum(1).min().item()
     if blk_err > blk_lim or \
-            (part.tensor - eparts.tensor).abs().max().item() > blk_lim:
+            (part.tensor - eparts.tensor).abs().max().item() > sub_lim:
         fail(f"phase p reduce_block_partial: max abs err {blk_err}")
     blk_ms = cuda_ms(blk, iters=5, warmup=1)
+    blk_cold = cold_ms(blk)
+    fold_cold = cold_ms(lambda: R.reduce_sum_blockwise(cu, h))
     blk_plain = cuda_ms(lambda: xw.sum(1), iters=20)
-    blk_lib = cuda_ms(lambda: torch.sum(xw, dim=1), iters=20)
-    print(f"phase p K0 routes 64M f32 (cubes of {R.CD} units): "
+    blk_lib = cold_ms(lambda: torch.sum(xw, dim=1))
+    print(f"phase p K0 routes 64M f32 (reduce_sum and reduce_max on cubes "
+          f"of {R.CD} units, reduce_sum_blockwise on {parts} of "
+          f"{R.BLOCK_UNITS}): "
           + "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f})"
                       for k, v in routes.items())
-          + f"; reduce_block_partial alone ({BLOCK_CUBES} cubes): "
-          f"{blk_ms:.4f} ms, max abs err {blk_err} vs plain, torch.sum(dim=1)"
-          f" {blk_lib:.4f} ms; reduce_sum_autotuned per call ({winner}) "
+          + f"; reduce_block_partial alone: {BLOCK_CUBES} windows of "
+          f"{win} elements, each split over {split} cubes of "
+          f"{R.BLOCK_UNITS} units (a sub-window {sub} lines of 128, "
+          f"{sub * 128} elements): {blk_ms:.4f} ms back to back, "
+          f"{blk_cold:.4f} ms cold L2, with reduce_final_sum's fold "
+          f"{fold_cold:.4f} ms cold L2, windows' max abs err {blk_err} vs "
+          f"plain (limit {blk_lim}), torch.sum(dim=1)"
+          f" {blk_lib:.4f} ms cold L2; reduce_sum_autotuned per call "
+          f"({winner}) "
           f"{win_ms:.4f} ms, reduce_sum_native(block_rows={best_br}) per "
           f"call {direct_ms:.4f} ms (medians of 5 alternated; "
           f"{min(wins):.4f}-{max(wins):.4f}, {min(directs):.4f}-"
           f"{max(directs):.4f}); bound {bms:.4f} ms ({by}) [{card}]",
           flush=True)
-    block = dict(max_abs_err=blk_err, ms=blk_ms, plain_ms=blk_plain,
+    block = dict(max_abs_err=blk_err, ms=blk_cold, call_ms=blk_ms,
+                 with_fold_ms=fold_cold, plain_ms=blk_plain,
                  library_ms=blk_lib, bound_ms=bms, bound_by=by,
+                 plan=dict(windows=windows, cubes=parts,
+                           units=R.BLOCK_UNITS, sub_window_lines=sub),
                  launches=p["launches"]["reduce_block_partial"])
 
     # examples/sum_things.py's four variants
@@ -3979,6 +4056,10 @@ def main():
           f"{max(r for r, _ in gemm)} registers, stack or spills in "
           f"{sum(1 for _, s in gemm if s in spills)} ({'; '.join(spills)})",
           flush=True)
+    cmma_rows = cmma_sass(cu, native.find_nvcc())
+    print("phase 2 K0 cmma SASS (cuobjdump): " + "; ".join(
+        f"{e} {r}: {h} HGMMA, {g} regs, {sp}"
+        for e, r, h, g, sp in cmma_rows), flush=True)
     k0_built = [c for c in cu.server._cache.values() if hasattr(c.fn, "build")]
     k0_maps = {m: sorted({c.name for c in k0_built
                           if k0_mapping(c)[0] == m})
@@ -4425,13 +4506,15 @@ def main():
             parent_body="mma.sync with two cp.async stages "
                         "(csrc/matmul.cu, csrc/mma_tile.cuh); its times are "
                         "printed in phase m as constants of an earlier run"),
-        row("k0_cmma", "cubecl_tpu_torch/ops/matmul.py (matmul_cmma_nd_"
-            "kernel, printed by cubecl_tpu_torch/backend/cuda/printer.py)",
-            "cubecl_tpu/backend/pallas/emitter.py:48",
-            o_out["k0_cmma"]["launches"], o_out["k0_cmma"],
-            o_out["k0_cmma"]["library_ms"],
-            library=o_out["k0_cmma"]["library"],
-            shape=o_out["k0_cmma"]["shape"]),
+        *(row(key, "cubecl_tpu_torch/ops/matmul.py (matmul_cmma_nd_"
+              "kernel, printed by cubecl_tpu_torch/backend/cuda/printer.py "
+              "on the tensor-core route, with csrc/wgmma_gemm.cuh)",
+              "cubecl_tpu/backend/pallas/emitter.py:48",
+              o_out[key]["launches"], o_out[key], o_out[key]["library_ms"],
+              **{k: o_out[key][k] for k in o_out[key] if k not in (
+                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "launches")})
+          for key in ("k0_cmma", "k0_cmma_f16")),
         row("k0_quantize", "cubecl_tpu_torch/std/quant_kernels.py "
             "(quantize_block_kernel, printed by "
             "cubecl_tpu_torch/backend/cuda/printer.py)",
@@ -4459,7 +4542,10 @@ def main():
             "cubecl_tpu/backend/pallas/emitter.py:48",
             p_out["block"]["launches"], p_out["block"],
             p_out["block"]["library_ms"], library="torch.sum(x, dim=1)",
-            shape=f"f32 64M as {BLOCK_CUBES} windows, cubes of 8 units",
+            shape=f"f32 64M as {BLOCK_CUBES} windows, each split over "
+                  f"cubes of 256 units (ms: cold L2)",
+            **{k: p_out["block"][k] for k in ("call_ms", "with_fold_ms",
+                                              "plan")},
             k0_routes_64M=p_out["routes"],
             reduction_progression_ms=p_out["progression"],
             sum_things_ms=p_out["sum_things"],

@@ -101,18 +101,24 @@ def unsupported(what: str, backend: str) -> NotImplementedError:
 SMEM_ALIGN = 16  # bytes: a fragment region starts on a 16-byte boundary
 
 
-def fragment_layout(state) -> Tuple[Dict[int, int], int]:
+def fragment_layout(state, align: Optional[Dict[int, int]] = None,
+                    skip=(), double=()) -> Tuple[Dict[int, int], int]:
     """Where the cmma fragments of a kernel (``state.matrices``, each a
     whole cube-scope tile) live in its dynamic shared memory: the byte
-    offset of each by vid, and the total bytes."""
+    offset of each by vid, and the total bytes. A region starts on
+    ``SMEM_ALIGN`` bytes, or on ``align[vid]``; the fragments in ``skip``
+    live elsewhere (registers) and those in ``double`` take two stages."""
     offsets: Dict[int, int] = {}
     total = 0
     for m in state.matrices:
+        if m.vid in skip:
+            continue
+        a = (align or {}).get(m.vid, SMEM_ALIGN)
+        total = -(-total // a) * a
         offsets[m.vid] = total
         rows, cols = m.shape
-        nbytes = rows * cols * m.ty.elem.size
-        total += -(-nbytes // SMEM_ALIGN) * SMEM_ALIGN
-    return offsets, total
+        total += rows * cols * m.ty.elem.size * (2 if m.vid in double else 1)
+    return offsets, -(-total // SMEM_ALIGN) * SMEM_ALIGN
 
 
 def prepare_scope(defn: KernelDefinition) -> None:

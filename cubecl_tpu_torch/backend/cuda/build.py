@@ -17,8 +17,10 @@ import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -27,12 +29,14 @@ from typing import Optional
 import torch
 
 from ...utils.native import BUILD_DIR as _NATIVE_BUILD_DIR
-from ...utils.native import CudaError, KernelBuildError, find_nvcc
+from ...utils.native import CSRC_DIR, CudaError, KernelBuildError, find_nvcc
 
 BUILD_DIR = os.path.join(_NATIVE_BUILD_DIR, "k0")
 
+# -I csrc: a kernel on the tensor-core route includes csrc/wgmma_gemm.cuh
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC_DIR)
 
 
 def digest(text: str) -> str:
@@ -87,10 +91,31 @@ class Build:
             return lib
 
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
+
+
+@functools.lru_cache(maxsize=None)
+def _header(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def _included(source: str) -> str:
+    """The text of the csrc headers that ``source`` includes, directly or
+    through another: a kernel's library name hashes them with it."""
+    seen, todo = set(), _INCLUDE.findall(source)
+    while todo:
+        name = todo.pop()
+        if name not in seen:
+            seen.add(name)
+            todo += _INCLUDE.findall(_header(name))
+    return "".join(_header(n) for n in sorted(seen))
+
+
 def start(source: str, symbol: str) -> Build:
     """Write ``source`` and start nvcc on it (or reuse an earlier build of
     the same source and flags)."""
-    h = digest(" ".join(NVCC_FLAGS) + "\n" + source)
+    h = digest(" ".join(NVCC_FLAGS) + "\n" + _included(source) + source)
     os.makedirs(BUILD_DIR, exist_ok=True)
     stem = os.path.join(BUILD_DIR, f"{symbol}_{h}")
     b = Build(stem + ".so", stem + ".cu")

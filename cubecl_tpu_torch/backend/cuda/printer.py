@@ -40,20 +40,45 @@ The mapping:
   (no fast-math flag of the IR selects the ``__expf`` intrinsics yet);
 - cmma (``mma.*``): a fragment is cube-scope, one whole tile per cube, as
   in the JAX package (``frontend/cmma.py``), not CUDA's warp-scope
-  ``wmma``. Each ``Matrix`` is a region of the kernel's dynamic shared
-  memory, its offset fixed at print time (``fragment_layout``); the
-  launcher opts in above 48 KiB, and fragments over the 227 KiB a block
-  may use raise, naming the kernel and the bytes. ``fill``, ``load``
-  (row- or col-major, the ``load_tensor`` form included: offsets and
-  strides are in elements) and ``store`` are cube-cooperative strided
-  loops, ``execute`` a cube-cooperative product in which each thread owns
-  output elements and sums over K in the accumulator's compute type
-  (f32 FMA for f32 and 16-bit fragments, never TF32, as the JAX
-  evaluator's ``Precision.HIGHEST``; int32 for int8), then adds C.
-  ``execute_scaled`` scales the operands first, as the JAX evaluator
-  does; ``cast`` converts element by element. Every fragment op sits
-  between ``__syncthreads()``, so it must run in cube-uniform control
-  flow, as the JAX package requires too;
+  ``wmma``. Two routes, chosen from the definition
+  (:func:`tensor_core_plan`); neither falls back at run time:
+
+  - FMA (f32, int8, ``execute_scaled``, shapes the tensor cores do not
+    tile): each ``Matrix`` is a row-major region of the kernel's dynamic
+    shared memory, its offset fixed at print time (``fragment_layout``).
+    ``fill``, ``load`` (row- or col-major, the ``load_tensor`` form
+    included: offsets and strides are in elements) and ``store`` are
+    cube-cooperative strided loops, ``execute`` a cube-cooperative
+    product in which each thread owns output elements and sums over K in
+    the accumulator's compute type (f32 FMA for float fragments, never
+    TF32, as the JAX evaluator's ``Precision.HIGHEST``; int32 for int8),
+    then adds C. ``execute_scaled`` scales the operands first, as the JAX
+    evaluator does; ``cast`` converts element by element;
+  - tensor cores (``mapping=cmma-wgmma``: every ``execute`` on bf16 or
+    f16 operands with f32 C and D, M, N and K multiples of 64, a cube of
+    whole warpgroups): the operand fragments are 64-column panels of rows
+    x 128 bytes with the 128-byte swizzle (``cc_sw``), 1024-byte
+    aligned, which SS ``wgmma`` m64nNk16 reads through the descriptors of
+    ``csrc/wgmma_gemm.cuh`` (A K-major, B MN-major by the transpose bit);
+    ``load`` moves 16 bytes a thread where the source is aligned (single
+    elements otherwise) and fences its writes for the async proxy. An
+    accumulator that only ``fill``, ``execute`` with C = D, ``store`` and
+    ``cast`` (as the source) touch lives in registers: each warpgroup
+    owns m64 x nc units of it (64-row bands x N chunks of 256, 128 or
+    64) in ``wgmma``'s layout, and ``execute`` issues the units'
+    ``wgmma``s over K, then ``wgmma.wait_group 0``; any other accumulator
+    stays in shared memory, its C read into registers and D written
+    back. A ``RangeLoop`` whose body loads two operand fragments and ends
+    with their ``execute`` (:func:`canonical_k_loop`), when nothing else
+    touches those two, runs on a ring of two stages of them: step i + 1's
+    copies (cp.async) are issued before step i's products. The launch's
+    shared memory counts only the fragments in shared memory (and 1024
+    bytes that align the base).
+
+  The launcher opts in above 48 KiB, and fragments over the 227 KiB a
+  block may use raise, naming the kernel and the bytes. Every fragment op
+  sits between ``__syncthreads()``, so it must run in cube-uniform
+  control flow, as the JAX package requires too;
 - ``mem.block_reduce`` (``Slice.block_sum`` and its kin) is
   cube-cooperative too: the threads stride over the window's elements,
   neighbouring threads on neighbouring addresses, accumulating in f32 for
@@ -98,7 +123,7 @@ element of a line (``vec_extract``/``vec_insert``/``vec_init``). Then:
 Every other kernel keeps the mapping above, one thread per unit: a line
 is walked by one thread, element by element, once per reduction and once
 for the store (the 8-unit ``*_rows`` kernels with ``plane_sum``, the
-reductions, cmma, quant, gelu's 4-element lines).
+reductions, cmma on either route, quant, gelu's 4-element lines).
 
 Ops this printer does not lower raise ``NotImplementedError`` naming the
 op (``backend.compiler.unsupported``): atomics, ``mem.slice``, shared
@@ -110,15 +135,17 @@ and ballots, the saturating, ``mulhi`` and bit-counting ops,
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Set
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ...ir import ops as O
 from ...ir.features import WARP
 from ...ir.scope import Scope, walk
 from ...ir.types import ElemType, bool_, elem_from_dtype, i32, i64, u32
 from ...ir.value import Builtin, Value, VarKind
-from ..compiler import (CompiledKernel, Compiler, KernelDefinition,
-                        fragment_layout, prepare_scope, unsupported)
+from ..compiler import (CompiledKernel, Compiler,
+                        KernelDefinition, fragment_layout, prepare_scope,
+                        unsupported)
 
 _BACKEND = "the CUDA printer"
 MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (sm_90)
@@ -221,6 +248,20 @@ template <typename T> __device__ __forceinline__ T cc_min(T a, T b) {
 """
 
 
+# the tensor-core route's own: the PTX helpers of csrc/ (descriptors,
+# fences, wgmma; build.py passes the include path) and the index of element
+# (r, c) of a 16-bit operand fragment of R rows: 64-column panels of R x
+# 128 bytes, as a wgmma descriptor with the 128-byte swizzle reads them (the
+# 16-byte chunks of row r XOR-permuted by r % 8)
+TC_PRELUDE = r"""#include "wgmma_gemm.cuh"
+
+__device__ __forceinline__ int cc_sw(int r, int c, int R) {
+  return (c >> 6) * (R * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+"""
+
+
 def _storage(elem: ElemType) -> str:
     try:
         return _STORAGE[elem.name]
@@ -290,7 +331,16 @@ class _Printer:
                        if i.op.opcode in (O.STORE, O.STORE_MASKED)}
         self.stored |= {i.op.args[1].vid for _s, i in walk(defn.scope)
                         if i.op.opcode == O.MMA_STORE}
-        self.frag_offsets, self.smem_bytes = fragment_layout(st)
+        # the cmma route: None (FMA) or where the tensor-core route keeps
+        # each fragment
+        self.tc = tensor_core_plan(defn)
+        # in the pipelined K loop: the stage pointer of each ring fragment
+        self.stage_ptrs: Dict[int, str] = {}
+        if self.tc is not None:
+            self.frag_offsets = self.tc.offsets
+            self.smem_bytes = self.tc.smem_bytes
+        else:
+            self.frag_offsets, self.smem_bytes = fragment_layout(st)
         if self.stored & st.aliased:
             self.stored |= st.aliased
 
@@ -429,7 +479,11 @@ class _Printer:
         ux, uy, uz = d.cube_dim
         cx, cy, _cz = d.cube_count
         mapping = f" mapping=warp-lines vector={self.V}" if self.V else ""
-        out = [PRELUDE,
+        tc = self.tc
+        if tc is not None:
+            mapping = (f" mapping=cmma-wgmma warpgroups={tc.warpgroups} "
+                       f"register_accumulators={len(tc.regs)}")
+        out = [PRELUDE + (TC_PRELUDE if tc is not None else ""),
                f"// {self.name}: cube_dim={d.cube_dim} "
                f"cube_count={d.cube_count} plane={self.P} "
                f"checked={d.options.checked}{mapping}",
@@ -470,7 +524,24 @@ class _Printer:
         if vec_bufs:
             self.emit(f"const bool cc_aligned = (({' | '.join(vec_bufs)}) "
                       f"& {_CHUNK - 1}) == 0;")
-        if st.matrices:
+        if tc is not None:
+            # the swizzled panels need a 1024-byte aligned base: the launch
+            # gives 1024 bytes of slack
+            self.emit("const int32_t cc_wg = unit_pos >> 7, cc_warp = "
+                      "(unit_pos >> 5) & 3, cc_lane = unit_pos & 31;")
+            self.emit("extern __shared__ __align__(16) unsigned char "
+                      "cc_smem_raw[];")
+            self.emit("unsigned char* const cc_smem = cc_smem_raw + ((1024 - "
+                      "(cubecl::smem_addr(cc_smem_raw) & 1023)) & 1023);")
+            for m in st.matrices:
+                if m.vid in tc.regs:
+                    r = tc.regs[m.vid]
+                    self.emit(f"float cc_acc{m.vid}[{r.per_wg}][{r.nc // 2}];")
+                    continue
+                t = _storage(m.ty.elem)
+                self.emit(f"{t}* const m{m.vid} = reinterpret_cast<{t}*>("
+                          f"cc_smem + {self.frag_offsets[m.vid]});")
+        elif st.matrices:
             self.emit("extern __shared__ __align__(16) unsigned char "
                       "cc_smem[];")
             for m in st.matrices:
@@ -572,7 +643,10 @@ class _Printer:
         elif oc.startswith("mma."):
             self.emit("__syncthreads();")
             self.open("")
-            self.mma(inst)
+            if self.tc is not None:
+                self.mma_wgmma(inst)
+            else:
+                self.mma(inst)
             self.close()
             self.emit("__syncthreads();")
         elif inst.out is None:
@@ -593,25 +667,37 @@ class _Printer:
 
     def range_loop(self, inst) -> None:
         op = inst.op
-        start, stop, step = op.args
+        if self.tc is not None and self.tc.rings:
+            loop = canonical_k_loop(op, self.tc.swizzled)
+            if loop is not None and loop[1].op.args[0].vid in self.tc.rings:
+                self.pipelined_loop(inst, *loop)
+                return
         var = op.attrs["var"]
-        incl = bool(op.attrs.get("inclusive", False))
-        ct = _storage(var.ty.elem)
-        s = self.cval(start, var.ty.elem)
-        e = self.cval(stop, var.ty.elem)
-        st = self.cval(step, var.ty.elem)
-        lt, gt = ("<=", ">=") if incl else ("<", ">")
-        n = f"v{var.vid}"
-        if step.kind == VarKind.CONSTANT:
-            cond = f"{n} {lt if step.const > 0 else gt} {e}"
-        else:
-            cond = f"({st} > 0) ? ({n} {lt} {e}) : ({n} {gt} {e})"
+        ct, n, s, st, cond = self.loop_bounds(op)
         self.loops.append(_writebacks(op.attrs["body"]))
-        self.open(f"for ({ct} {n} = {s}; {cond}; {n} += {st})")
+        self.open(f"for ({ct} {n} = {s}; {cond(n)}; {n} += {st})")
         self.blocks[-1].add(var.vid)
         self.scope(op.attrs["body"])
         self.close()
         self.loops.pop()
+
+    def loop_bounds(self, op):
+        """A ``RangeLoop``'s (C type, variable name, start, step, and the
+        condition on a value of the variable, as a function)."""
+        start, stop, step = op.args
+        var = op.attrs["var"]
+        lt, gt = ("<=", ">=") if op.attrs.get("inclusive", False) \
+            else ("<", ">")
+        e = self.cval(stop, var.ty.elem)
+        st = self.cval(step, var.ty.elem)
+
+        def cond(x):
+            if step.kind == VarKind.CONSTANT:
+                return f"{x} {lt if step.const > 0 else gt} {e}"
+            return f"({st} > 0) ? ({x} {lt} {e}) : ({x} {gt} {e})"
+
+        return (_storage(var.ty.elem), f"v{var.vid}",
+                self.cval(start, var.ty.elem), st, cond)
 
     def plane_mask(self) -> str:
         if self.P == WARP:
@@ -1066,6 +1152,282 @@ class _Printer:
         else:
             raise unsupported(oc, _BACKEND)
 
+    # ------------------------------------------------ cmma on tensor cores
+
+    def frag(self, mat: Value) -> str:
+        """The pointer a fragment is read and written through: its region,
+        or in the pipelined K loop the stage being filled or read."""
+        return self.stage_ptrs.get(mat.vid, f"m{mat.vid}")
+
+    def frag_at(self, mat: Value, r: str, c: str) -> str:
+        """Element (r, c) of a shared-memory fragment of the tensor-core
+        route: swizzled panels for an operand, row-major otherwise."""
+        R, C = mat.shape
+        if mat.vid in self.tc.swizzled:
+            return f"{self.frag(mat)}[cc_sw({r}, {c}, {R})]"
+        return f"{self.frag(mat)}[({r}) * {C} + ({c})]"
+
+    def acc_loop(self, mat: Value, body: Callable[[str, str, str], str],
+                 reg: Optional[str] = None) -> None:
+        """``body(r, c, value)`` for each element of an accumulator unit
+        this thread holds, in ``wgmma``'s layout: register j of unit u is
+        row 16 warp + lane / 4 + 8 ((j / 2) % 2) of the unit's band and
+        column 8 (j / 4) + 2 (lane % 4) + j % 2 of its chunk. Every unit of
+        a register accumulator, or with ``reg`` (the registers of unit
+        ``cc_u`` of a shared-memory accumulator) that one."""
+        N = mat.shape[1]
+        nc = _chunk(N)
+        if reg is None:
+            acc = self.tc.regs[mat.vid]
+            self.emit("#pragma unroll")
+            self.open(f"for (int u = 0; u < {acc.per_wg}; ++u)")
+            self.emit(f"const int cc_u = cc_wg + {self.tc.warpgroups} * u;")
+            reg = f"cc_acc{mat.vid}[u]"
+        else:
+            self.open("")
+        self.emit(f"const int r0 = cc_u / {N // nc} * 64 + cc_warp * 16 + "
+                  f"(cc_lane >> 2), c0 = cc_u % {N // nc} * {nc} + "
+                  f"(cc_lane & 3) * 2;")
+        self.emit("#pragma unroll")
+        self.open(f"for (int j = 0; j < {nc // 2}; ++j)")
+        self.emit("const int r = r0 + ((j >> 1) & 1) * 8, "
+                  "c = c0 + (j >> 2) * 8 + (j & 1);")
+        self.emit(body("r", "c", f"{reg}[j]"))
+        self.close()
+        self.close()
+
+    def wgmma_products(self, a: Value, b: Value, acc: str, unit: str) -> None:
+        """The m64 x nc ``wgmma``s of one accumulator unit over all of K
+        (k16 steps; A K-major, B MN-major through the transpose bit)."""
+        (M, K), N = a.shape, b.shape[1]
+        nc = _chunk(N)
+        tag = "cubecl::BF16{}" if a.ty.elem.name == "bf16" else "cubecl::F16{}"
+        self.emit(f"const uint32_t cc_a = cubecl::smem_addr({self.frag(a)}) + "
+                  f"({unit}) / {N // nc} * {64 * 128}, cc_b = "
+                  f"cubecl::smem_addr({self.frag(b)}) + ({unit}) % {N // nc} * "
+                  f"{nc // 64 * K * 128};")
+        self.emit("#pragma unroll")
+        self.open(f"for (int ks = 0; ks < {K // 16}; ++ks)")
+        self.emit(f"cubecl::wgmma_ss<true>({tag}, {acc}, cubecl::sw128_desc("
+                  f"cc_a + (ks >> 2) * {M * 128} + (ks & 3) * 32, 16, 1024), "
+                  f"cubecl::sw128_desc(cc_b + ks * 2048, {K * 128}, 1024));")
+        self.close()
+
+    def load_fragment(self, op, cp_async: bool = False) -> None:
+        """``mma.load`` into a shared-memory fragment of the tensor-core
+        route. Into an operand fragment from a row-major buffer of its
+        type, 16 bytes a thread (a row's 8-element chunk is one swizzled
+        chunk of the fragment) where the source is 16-byte aligned, every
+        load of the thread issued before its first store, or as cp.async
+        copies (``cp_async``: the caller waits for them); element by
+        element otherwise."""
+        mat, buf, off, stride = op.args[:4]
+        R, C = mat.shape
+        U = self.U
+        me = mat.ty.elem
+        bp = self.buffer(buf)
+        be = bp.ty.elem
+        row = op.attrs.get("layout", "row_major") == "row_major"
+        self.emit(f"const int64_t off = {self.cval(off, i64)}, "
+                  f"st = {self.cval(stride, i64)};")
+        src = f"b{bp.value.vid} + off"
+
+        def scalar():
+            g = "(int64_t)r * st + c" if row else "(int64_t)c * st + r"
+            self.open(f"for (int i = unit_pos; i < {R * C}; i += {U})")
+            self.emit(f"const int r = i / {C}, c = i % {C};")
+            self.emit(f"{self.frag_at(mat, 'r', 'c')} = "
+                      f"{self.conv_expr(f'b{bp.value.vid}[off + {g}]', be, me)};")
+            self.close()
+
+        if not (mat.vid in self.tc.swizzled and row and be == me
+                and R * C % (8 * U) == 0):
+            scalar()
+            return
+        n = R * C // (8 * U)
+        self.open(f"if (((reinterpret_cast<uintptr_t>({src}) & 15) == 0) && "
+                  f"((st & 7) == 0))")
+        if not cp_async:
+            self.emit(f"uint4 cc_t[{n}];")
+        for phase in (("copy",) if cp_async else ("load", "store")):
+            self.emit("#pragma unroll")
+            self.open(f"for (int q = 0; q < {n}; ++q)")
+            self.emit(f"const int i = unit_pos + q * {U}, r = i / {C // 8}, "
+                      f"c = i % {C // 8} * 8;")
+            dst = f"&{self.frag_at(mat, 'r', 'c')}"
+            at = f"{src} + (int64_t)r * st + c"
+            if phase == "copy":
+                self.emit(f"cubecl::cp_async16({dst}, {at});")
+            elif phase == "load":
+                self.emit(f"cc_t[q] = *reinterpret_cast<const uint4*>({at});")
+            else:
+                self.emit(f"*reinterpret_cast<uint4*>({dst}) = cc_t[q];")
+            self.close()
+        self.close("} else {")
+        self.depth += 1
+        self.blocks.append(set())
+        scalar()
+        self.close()
+
+    def pipelined_loop(self, inst, pre, ex) -> None:
+        """The canonical K loop on a ring of two stages of its operand
+        fragments: step i + 1's scalars and copies (cp.async) are issued
+        into the other stage before step i's products, which wait for
+        their own stage's copies (``cp.async.wait_group 1``), fence them
+        for the async proxy and meet at a barrier; the barrier after the
+        products frees their stage for the copies of step i + 2."""
+        var = inst.op.attrs["var"]
+        ct, n, s, st, cond = self.loop_bounds(inst.op)
+        ring = [ex.op.args[0], ex.op.args[1]]
+
+        def stage(which):
+            # the body's scalars and its loads into stage ``which``
+            for m in ring:
+                t = _storage(m.ty.elem)
+                self.emit(f"{t}* const cc_s{m.vid} = m{m.vid} + ({which}) * "
+                          f"{m.shape[0] * m.shape[1]};")
+                self.stage_ptrs[m.vid] = f"cc_s{m.vid}"
+            for i in pre:
+                if i.op.opcode == O.MMA_LOAD:
+                    self.open("")
+                    self.load_fragment(i.op, cp_async=True)
+                    self.close()
+                else:
+                    self.inst(i)
+            self.stage_ptrs.clear()
+
+        self.emit("// the K loop on a ring of two stages")
+        self.open("")
+        self.emit("int cc_stage = 0;")
+        self.open(f"if ({cond(s)})")
+        self.emit(f"const {ct} {n} = {s};")
+        self.blocks[-1].add(var.vid)
+        stage("0")
+        self.close()
+        self.emit("cubecl::cp_async_commit();")
+        self.loops.append([])
+        self.open(f"for ({ct} {n} = {s}; {cond(n)}; {n} += {st})")
+        self.blocks[-1].add(var.vid)
+        self.emit(f"const {ct} cc_next = {n} + {st};")
+        self.open(f"if ({cond('cc_next')})")
+        self.emit(f"const {ct} {n} = cc_next;")
+        stage("cc_stage ^ 1")
+        self.close()
+        self.emit("cubecl::cp_async_commit();")
+        self.emit("cubecl::cp_async_wait<1>();")
+        self.emit("cubecl::fence_proxy_async();")
+        self.emit("__syncthreads();")
+        self.open("")
+        for m in ring:
+            t = _storage(m.ty.elem)
+            self.emit(f"{t}* const cc_s{m.vid} = m{m.vid} + cc_stage * "
+                      f"{m.shape[0] * m.shape[1]};")
+            self.stage_ptrs[m.vid] = f"cc_s{m.vid}"
+        self.mma_wgmma(ex)
+        self.stage_ptrs.clear()
+        self.close()
+        self.emit("__syncthreads();")
+        self.emit("cc_stage ^= 1;")
+        self.close()
+        self.loops.pop()
+        self.emit("cubecl::cp_async_wait<0>();")
+        self.close()
+
+    def mma_wgmma(self, inst) -> None:
+        """One fragment op of the tensor-core route (module docstring)."""
+        op = inst.op
+        oc = op.opcode
+        args = op.args
+        U = self.U
+        tc = self.tc
+        mat = args[0]
+        R, C = mat.shape
+        me = mat.ty.elem
+        fence = mat.vid in tc.swizzled
+        if oc == O.MMA_FILL:
+            self.emit(f"const {_storage(me)} fv = "
+                      f"{self.convert(args[1], me, None)};")
+            if mat.vid in tc.regs:
+                self.acc_loop(mat, lambda r, c, v: f"{v} = fv;")
+            else:
+                self.emit(f"for (int i = unit_pos; i < {R * C}; i += {U}) "
+                          f"m{mat.vid}[i] = fv;")
+        elif oc == O.MMA_LOAD:
+            self.load_fragment(op)
+        elif oc == O.MMA_STORE:
+            bp = self.buffer(args[1])
+            be = bp.ty.elem
+            self.emit(f"const int64_t off = {self.cval(args[2], i64)}, "
+                      f"st = {self.cval(args[3], i64)};")
+            row = op.attrs.get("layout", "row_major") == "row_major"
+
+            def g(r, c):
+                return (f"b{bp.value.vid}[off + (int64_t)({r}) * st + ({c})]"
+                        if row else
+                        f"b{bp.value.vid}[off + (int64_t)({c}) * st + ({r})]")
+
+            if mat.vid in tc.regs:
+                self.acc_loop(mat, lambda r, c, v: f"{g(r, c)} = "
+                              f"{self.conv_expr(v, me, be)};")
+            else:
+                self.open(f"for (int i = unit_pos; i < {R * C}; i += {U})")
+                self.emit(f"const int r = i / {C}, c = i % {C};")
+                self.emit(f"{g('r', 'c')} = "
+                          f"{self.conv_expr(self.frag_at(mat, 'r', 'c'), me, be)};")
+                self.close()
+            fence = False
+        elif oc == O.MMA_EXECUTE:
+            a, b, c, d = args[:4]
+            M, N = d.shape
+            self.emit("cubecl::wgmma_fence();")
+            if d.vid in tc.regs:
+                acc = tc.regs[d.vid]
+                self.emit("#pragma unroll")
+                self.open(f"for (int u = 0; u < {acc.per_wg}; ++u)")
+                self.wgmma_products(a, b, f"cc_acc{d.vid}[u]",
+                                    f"cc_wg + {tc.warpgroups} * u")
+                self.close()
+                self.emit("cubecl::wgmma_commit();")
+                self.emit("cubecl::wgmma_wait0();")
+                self.emit("#pragma unroll")
+                self.emit(f"for (int u = 0; u < {acc.per_wg}; ++u) "
+                          f"cubecl::acc_fence(cc_acc{d.vid}[u]);")
+            else:
+                # the accumulator in shared memory: each unit's C into
+                # registers, the products, D back
+                nc = _chunk(N)
+                self.open(f"for (int cc_u = cc_wg; cc_u < {M // 64 * (N // nc)}"
+                          f"; cc_u += {tc.warpgroups})")
+                self.emit(f"float cc_d[{nc // 2}];")
+                self.acc_loop(d, lambda r, col, v: f"{v} = "
+                              f"{self.frag_at(c, r, col)};", "cc_d")
+                self.emit("cubecl::wgmma_fence();")
+                self.wgmma_products(a, b, "cc_d", "cc_u")
+                self.emit("cubecl::wgmma_commit();")
+                self.emit("cubecl::wgmma_wait0();")
+                self.emit("cubecl::acc_fence(cc_d);")
+                self.acc_loop(d, lambda r, col, v: f"{self.frag_at(d, r, col)}"
+                              f" = {v};", "cc_d")
+                self.close()
+            fence = False
+        elif oc == O.MMA_CAST:
+            src = args[1]
+            if src.vid in tc.regs:
+                self.acc_loop(src, lambda r, c, v: f"{self.frag_at(mat, r, c)}"
+                              f" = {self.conv_expr(v, src.ty.elem, me)};")
+            else:
+                self.open(f"for (int i = unit_pos; i < {R * C}; i += {U})")
+                self.emit(f"const int r = i / {C}, c = i % {C};")
+                s = self.conv_expr(self.frag_at(src, "r", "c"), src.ty.elem,
+                                   me)
+                self.emit(f"{self.frag_at(mat, 'r', 'c')} = {s};")
+                self.close()
+        else:
+            raise unsupported(oc, _BACKEND)
+        if fence:
+            # these generic stores are read next by wgmma (the async proxy)
+            self.emit("cubecl::fence_proxy_async();")
+
     def line_reduce(self, inst) -> None:
         op = inst.op
         oc = op.opcode
@@ -1354,6 +1716,140 @@ def warp_vector(defn: KernelDefinition, plane_builtins: bool = False) -> int:
     return V
 
 
+@dataclass
+class _RegAcc:
+    """A register accumulator of the tensor-core route: its M/64 bands x
+    N/nc chunks, units of m64 x nc, are dealt to the warpgroups in turn,
+    ``per_wg`` each, nc/2 f32 registers a unit."""
+    nc: int
+    per_wg: int
+
+
+@dataclass
+class TensorCorePlan:
+    """Where the tensor-core route keeps a kernel's fragments: the 16-bit
+    operand fragments (``swizzled``: vid -> rows) in 64-column panels of
+    rows x 128 bytes with the 128-byte swizzle, 1024-byte aligned; the
+    register accumulators (``regs``); every other fragment row-major in
+    shared memory. ``offsets`` and ``smem_bytes`` are the shared-memory
+    fragments' only, plus 1024 bytes of slack that aligns the base."""
+    warpgroups: int
+    swizzled: Dict[int, int]
+    regs: Dict[int, _RegAcc]
+    offsets: Dict[int, int]
+    smem_bytes: int
+    # the operand fragments of pipelined K loops: two stages each
+    rings: Set[int]
+
+
+def _chunk(n: int) -> int:
+    """The widest ``wgmma`` N (256, 128 or 64) that divides ``n``."""
+    return next(c for c in (256, 128, 64) if n % c == 0)
+
+
+def tensor_core_plan(defn: KernelDefinition) -> Optional[TensorCorePlan]:
+    """The cmma route of a definition: a :class:`TensorCorePlan` when its
+    fragment products can run on ``wgmma``, else None (the FMA route).
+
+    The route needs a cube of whole warpgroups (units a multiple of 128),
+    no ``execute_scaled``, and every ``execute`` on bf16 or f16 operands
+    of one type with f32 C and D, M, N and K multiples of 64 (the bands of
+    64 rows, the 64-column swizzle panels of A over K and of B over N). An
+    f32 accumulator lives in registers when only ``fill``, ``execute``
+    with C and D both it, ``store`` and ``cast`` (as the source) touch it,
+    its units deal evenly over the warpgroups and a thread holds at most
+    128 of its values; else in shared memory. The two operand fragments
+    of a canonical K loop that nothing else touches get two stages each
+    (the loop's ring: step i + 1's cp.async copies are issued before step
+    i's products)."""
+    st = defn.state
+    U = math.prod(defn.cube_dim)
+    ops = [inst.op for _s, inst in walk(defn.scope)
+           if inst.op.opcode.startswith("mma.")]
+    executes = [op for op in ops if op.opcode == O.MMA_EXECUTE]
+    if (not executes or U % 128 or U > MAX_THREADS
+            or any(op.opcode == O.MMA_EXECUTE_SCALED for op in ops)):
+        return None
+    W = U // 128
+    swizzled: Dict[int, int] = {}
+    accs: Dict[int, Value] = {}
+    for op in executes:
+        a, b, c, d = op.args[:4]
+        (M, K), N = a.shape, b.shape[1]
+        if (a.ty.elem.name not in ("bf16", "f16") or b.ty.elem != a.ty.elem
+                or c.ty.elem.name != "f32" or d.ty.elem.name != "f32"
+                or M % 64 or N % 64 or K % 64):
+            return None
+        swizzled[a.vid], swizzled[b.vid] = M, K
+        accs[c.vid], accs[d.vid] = c, d
+    regs: Dict[int, _RegAcc] = {}
+    for vid, x in accs.items():
+        M, N = x.shape
+        nc = _chunk(N)
+        units = M // 64 * (N // nc)
+        if units % W or units // W * nc // 2 > 128:
+            continue
+        if all(_register_use(op, vid) for op in ops):
+            regs[vid] = _RegAcc(nc, units // W)
+    rings: Set[int] = set()
+    for _s, inst in walk(defn.scope):
+        loop = canonical_k_loop(inst.op, swizzled)
+        if loop is not None:
+            ex = loop[1].op
+            ab = {ex.args[0].vid, ex.args[1].vid}
+            # the ring fragments are the loop's alone
+            if all(sum(a.kind == VarKind.MATRIX and a.vid == v
+                       for o in ops for a in o.args) == 2 for v in ab):
+                rings |= ab
+    offsets, total = fragment_layout(
+        st, align={v: 1024 for v in swizzled}, skip=regs, double=rings)
+    return TensorCorePlan(W, swizzled, regs, offsets, total + 1024, rings)
+
+
+def canonical_k_loop(op, swizzled: Dict[int, int]):
+    """(the body's instructions before the product, the ``execute``) of
+    a canonical K loop, else None: a ``RangeLoop`` whose body loads two
+    operand fragments (row-major, one ``mma.load`` each), computes only
+    scalars besides (no store, carry or control flow) and ends with the
+    ``execute`` of those two."""
+    if op.opcode != O.RANGE_LOOP:
+        return None
+    body = op.attrs["body"].instructions
+    if not body or body[-1].op.opcode != O.MMA_EXECUTE or _writebacks(
+            op.attrs["body"]):
+        return None
+    ex = body[-1]
+    a, b = ex.op.args[:2]
+    if a.vid == b.vid or a.vid not in swizzled or b.vid not in swizzled:
+        return None
+    loaded = []
+    for inst in body[:-1]:
+        o, oc = inst.out, inst.op.opcode
+        if oc == O.MMA_LOAD:
+            if inst.op.attrs.get("layout", "row_major") != "row_major":
+                return None
+            loaded.append(inst.op.args[0].vid)
+        elif (o is None or o.kind != VarKind.LOCAL or o.ty.line > 1
+              or oc.startswith("mma.")):
+            return None
+    if sorted(loaded) != sorted((a.vid, b.vid)):
+        return None
+    return body[:-1], ex
+
+
+def _register_use(op, vid: int) -> bool:
+    """May fragment ``vid`` live in registers as far as ``op`` goes?"""
+    args = [a.vid if a.kind == VarKind.MATRIX else None for a in op.args]
+    if vid not in args:
+        return True
+    oc = op.opcode
+    if oc in (O.MMA_FILL, O.MMA_STORE):
+        return True
+    if oc == O.MMA_EXECUTE:
+        return args[2] == args[3] == vid and vid not in args[:2]
+    return oc == O.MMA_CAST and args[0] != vid
+
+
 def kernel_symbol(defn: KernelDefinition, digest: str) -> str:
     """A C identifier for the kernel: its name and its id's digest."""
     base = "".join(c if c.isalnum() else "_" for c in defn.options.name)
@@ -1368,15 +1864,20 @@ def block_of(defn: KernelDefinition, vec: int):
     return tuple(defn.cube_dim)
 
 
-def print_kernel(defn: KernelDefinition, symbol: str, vec: int = 0) -> str:
+def print_kernel(defn: KernelDefinition, symbol: str,
+                 vec: int = 0) -> Tuple[str, int]:
     """CUDA C++ of an optimized definition: the ``__global__`` function
     and an ``extern "C"`` launcher ``cubecl_launch(gx, gy, gz, stream,
     args)`` that returns ``cudaGetLastError()``; a kernel with cmma
     fragments launches with their dynamic shared memory, opting in once
-    above 48 KiB. ``vec``: V of the warp-lines mapping (0: none)."""
-    body = _Printer(defn, symbol, vec).print_kernel()
+    above 48 KiB. ``vec``: V of the warp-lines mapping (0: none).
+    Returns (the source, the launch's dynamic shared memory in bytes:
+    every fragment's on the FMA route, the shared-memory fragments' and
+    the alignment slack on the tensor-core route)."""
+    p = _Printer(defn, symbol, vec)
+    body = p.print_kernel()
     ux, uy, uz = block_of(defn, vec)
-    _, smem = fragment_layout(defn.state)
+    smem = p.smem_bytes
     opt_in = ""
     if smem > 48 * 1024:
         opt_in = f"""
@@ -1397,19 +1898,20 @@ extern "C" int cubecl_launch(unsigned gx, unsigned gy, unsigned gz,
 extern "C" const char* cubecl_error_string(int code) {{
   return cudaGetErrorString((cudaError_t)code);
 }}
-"""
+""", smem
 
 
 def _print(defn: KernelDefinition, kernel_id: str = ""):
     """Optimize ``defn`` (in place) and print it: (source, symbol, V of
-    the warp-lines mapping or 0)."""
+    the warp-lines mapping or 0, dynamic shared memory bytes)."""
     plane = reads_plane_builtins(defn.scope)
     prepare_scope(defn)
     from .build import digest
 
     symbol = kernel_symbol(defn, kernel_id or digest(repr(defn.scope)))
     vec = warp_vector(defn, plane)
-    return print_kernel(defn, symbol, vec), symbol, vec
+    src, smem = print_kernel(defn, symbol, vec)
+    return src, symbol, vec, smem
 
 
 def cuda_source(defn: KernelDefinition, kernel_id: str = "") -> str:
@@ -1429,7 +1931,7 @@ class CudaCompiler(Compiler):
                 kernel_id: str = "") -> CompiledKernel:
         from . import build
 
-        src, symbol, vec = _print(defn, kernel_id)
+        src, symbol, vec, smem = _print(defn, kernel_id)
         job = build.start(src, symbol)
         st = defn.state
         mut = [i for i, bp in enumerate(st.buffers) if bp.mutable]
@@ -1438,5 +1940,5 @@ class CudaCompiler(Compiler):
                               name=defn.options.name,
                               block=block_of(defn, vec),
                               grid=defn.cube_count,
-                              smem_bytes=fragment_layout(st)[1],
+                              smem_bytes=smem,
                               smem_opt_in=True)

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX for the tensor-core kernels
 // (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, the bf16 body of
-// csrc/conv3x3.cu, csrc/wgmma_gemm.cuh):
-// mbarriers, TMA tensor copies, the 128-byte-swizzle shared-memory
-// descriptors of wgmma, the wgmma instructions themselves and setmaxnreg;
-// on the host, the tensor maps the copies read.
+// csrc/conv3x3.cu, csrc/wgmma_gemm.cuh, and the K0 printer's cmma kernels,
+// which include wgmma_gemm.cuh):
+// mbarriers, TMA tensor copies, cp.async copies, the 128-byte-swizzle
+// shared-memory descriptors of wgmma, the wgmma instructions themselves and
+// setmaxnreg; on the host, the tensor maps the copies read.
 //
 // Layout convention: a tile of 16-bit elements is stored as 64-column
 // "panels", each rows x 128 bytes as TMA writes it with
@@ -102,6 +103,24 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// -- cp.async: 16 bytes a thread from global to shared memory, through L2
+// (the K0 printer's pipelined cmma K loop) ---------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// this thread's cp.async groups but the newest N have completed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // -- wgmma -----------------------------------------------------------------

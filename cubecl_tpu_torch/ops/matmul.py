@@ -532,15 +532,18 @@ def matmul_cmma_nd_kernel(a: Tensor, b: Tensor, out: MutTensor,
     cmma.store_tensor(acc, out, row, col_l)
 
 
-CMMA_CUBE_DIM = 256  # a multiple of 32; the cmma bodies are cube-scope
+CMMA_CUBE_DIM = 256  # two warpgroups: the tensor-core route's 64-row bands
 CMMA_LINE = 4        # the printer's vector width
 
 
 def _cmma_plan(m, n, k, elem_bytes, tile):
     """(tm, tn, tk) of ``matmul_cmma``: fragments that fit shared memory —
     an f32 accumulator (tm, tn) and operand tiles (tm, tk), (tk, tn) —
-    128 x 128 x 32 where the shape allows (80 KiB in bf16, 96 KiB in f32),
-    else the largest power-of-two divisors from ``tile`` down. The JAX
+    128 x 128 where the shape allows, tk 64 for 16-bit operands (one
+    128-byte swizzle row: the printer's tensor-core route, the accumulator
+    in registers, 32 KiB of shared memory) and 32 otherwise (f32 and int8
+    on the FMA route, all three fragments in shared memory: 96 KiB in
+    f32), else the largest power-of-two divisors from those down. The JAX
     wrapper's whole-K 512 x 1024 fragments are a TPU VMEM plan; on the
     H100 they would need megabytes of shared memory."""
     def fit(dim, start):
@@ -550,7 +553,7 @@ def _cmma_plan(m, n, k, elem_bytes, tile):
         return t
 
     tm, tn = fit(m, min(tile, 128)), fit(n, min(tile, 128))
-    tk = fit(k, 32)
+    tk = fit(k, 64 if elem_bytes == 2 else 32)
     smem = tm * tn * 4 + (tm * tk + tk * tn) * elem_bytes
     if smem > MAX_SMEM:  # only a caller's tile > 128 gets here
         raise ValueError(f"matmul_cmma: fragments {tm}x{tn}x{tk} need "
@@ -560,9 +563,10 @@ def _cmma_plan(m, n, k, elem_bytes, tile):
 
 def matmul_cmma(client, a: Handle, b: Handle, out: Handle,
                 m: int, n: int, k: int, tile: int = 128) -> None:
-    """DSL CMMA matmul (K0). On a card the CUDA printer keeps each
-    fragment in shared memory and computes ``execute`` in f32 FMA with
-    one output element per thread at a time; on the CPU the torch
+    """DSL CMMA matmul (K0). On a card the CUDA printer runs bf16 and f16
+    fragments on the tensor cores (``wgmma`` from the operand fragments in
+    shared memory, the accumulator in registers) and f32 or int8 ones in
+    FMA, one output element per thread at a time; on the CPU the torch
     evaluator runs it. With ``tn`` and ``tk`` multiples of the printer's
     4-element lines the ND kernel runs over 2-D tensors, else the 1-line
     array kernel over square ``tile`` fragments."""

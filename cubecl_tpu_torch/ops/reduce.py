@@ -8,7 +8,9 @@ Three routes to ``sum(x)``, as in the JAX package:
    ``reduce_final_{sum,max}``), whose plane reductions span the whole
    8-unit cube;
 2. ``reduce_sum_blockwise``: one cube-cooperative ``block_sum``
-   (``mem.block_reduce``) per cube, then ``reduce_final_sum``;
+   (``mem.block_reduce``) per cube, then ``reduce_final_sum``; on the
+   H100 each of the TPU's windows is split over cubes of 256 units that
+   fill the card (``block_plan``);
 3. ``reduce_sum_native``: the hand-written kernel R1 (``csrc/reduce.cu``),
    which replaces the TPU kernel ``_build_reduce_native`` (``pallas_call``
    :246): on CUDA tensors a grid-stride sum with 16-byte loads into one
@@ -18,9 +20,10 @@ Three routes to ``sum(x)``, as in the JAX package:
 
 ``reduce_sum_autotuned`` times the three through the repaired
 ``LocalTuner``. The ``@cube`` bodies are the JAX package's, unchanged, and
-so are the launch plans the TPU chose (CD = 8 units a cube, lines of 128,
-128-aligned cube counts), so that the two packages compare call for call;
-8-thread cubes leave the H100 mostly idle, and R1 is the fast route.
+so are the launch plans the TPU chose for the plane tree (CD = 8 units a
+cube, lines of 128, 128-aligned cube counts), so that the two packages
+compare call for call; 8-thread cubes leave the H100 mostly idle, and R1
+and the split block sums are the fast routes.
 """
 
 from __future__ import annotations
@@ -113,29 +116,55 @@ def reduce_block_partial(inp: Slice, partials: MutSlice, lines: int):
     partials[CUBE_POS_X] = inp.block_sum(CUBE_POS_X * lines, lines)
 
 
-def reduce_sum_blockwise(client, inp: Handle, cubes: int = 32,
-                         line_size: int = 128) -> Handle:
-    """sum(inp) via cube-cooperative block reductions: ``cubes`` cubes of
-    CD units, each folding one contiguous window with ``block_sum``, then
-    one cube of ``reduce_final_sum`` over the f32 partials. The TPU chose
-    few, large windows (its per-grid-step cost); on the H100 a window is
-    walked by the cube's 8 threads, so few cubes leave most SMs idle."""
-    n = int(np.prod(inp.shape))
-    line = line_size if n % line_size == 0 else 1
-    n_lines = n // line
+# reduce_sum_blockwise on the H100: cubes of eight warps (the printer's
+# block_reduce folds planes of 32), enough of them to give each of the 132
+# SMs four, and a sub-window no smaller than one sweep of the cube's
+# threads with all eight accumulators of 16-byte f32 loads in flight
+BLOCK_UNITS = 256
+FILL_CUBES = 4 * 132
+MIN_SUB_ELEMS = BLOCK_UNITS * 8 * 4
+
+
+def block_plan(n_lines: int, line: int, cubes: int):
+    """(windows, split, lines) of ``reduce_sum_blockwise``: the caller's
+    ``cubes`` windows (halved until they divide ``n_lines``), each split
+    into ``split`` sub-windows of ``lines`` whole lines, one cube each,
+    doubling the split while the cubes do not fill the card, the window
+    divides evenly and a sub-window keeps ``MIN_SUB_ELEMS``."""
     while cubes > 1 and n_lines % cubes:
         cubes //= 2
     lines = n_lines // cubes
-    partials = client.empty((cubes,), "float32")
+    split = 1
+    while (cubes * split < FILL_CUBES and lines % (2 * split) == 0
+           and lines // (2 * split) * line >= MIN_SUB_ELEMS):
+        split *= 2
+    return cubes, split, lines // split
+
+
+def reduce_sum_blockwise(client, inp: Handle, cubes: int = 32,
+                         line_size: int = 128) -> Handle:
+    """sum(inp) via cube-cooperative block reductions: ``cubes`` windows
+    (the TPU's plan: few, large windows, for its per-grid-step cost), each
+    split over cubes of ``BLOCK_UNITS`` units by :func:`block_plan`, each
+    cube folding one contiguous sub-window with ``block_sum``; then one
+    cube of ``reduce_final_sum`` over the f32 partials, window by window
+    in order (partials ``w * split`` to ``(w + 1) * split - 1`` are window
+    ``w``'s)."""
+    n = int(np.prod(inp.shape))
+    line = line_size if n % line_size == 0 else 1
+    windows, split, lines = block_plan(n // line, line, cubes)
+    parts = windows * split
+    partials = client.empty((parts,), "float32")
     reduce_block_partial.launch_unchecked(
-        client, CubeCount(cubes), CubeDim.new_1d(CD),
+        client, CubeCount(parts), CubeDim.new_1d(BLOCK_UNITS),
         ArrayArg(inp, line_size=line), ArrayArg(partials, mutable=True),
         lines)
     out = client.empty((1,), "float32")
-    f_iters = -(-cubes // CD)
+    f_line = 128 if parts % 128 == 0 else 1
+    f_iters = -(-parts // f_line // CD)
     reduce_final_sum.launch(
         client, CubeCount(1), CubeDim.new_1d(CD),
-        ArrayArg(partials, line_size=1), ArrayArg(out, mutable=True),
+        ArrayArg(partials, line_size=f_line), ArrayArg(out, mutable=True),
         f_iters)
     return out
 

@@ -12,11 +12,14 @@ of this checkout. For each kernel at the shape of ``chip_smoke.py``'s
 phases a, e and q: its cold device time, the time of a call back to back
 (host included), its bound (bytes over 3.35 TB/s or operations over 67
 TFLOP/s f32, the larger) and the library call's cold time. Then the
-cold times of K0 kernels outside the warp-lines rule (gelu's 4-element
-lines, the 8-unit ``*_rows`` kernels, the plane-tree and block
-reductions, cmma) and a digest of every K0 source built: a kernel whose
-source is the same in both trees is the same kernel. Prints the card
-(``nvidia-smi``) and one JSON line; needs a card.
+cold times of ``matmul_cmma`` at bf16 and f16 4096^3 (beside
+``torch.mm(out_dtype=float32)``) and of ``reduce_sum_blockwise`` at 64M
+f32 in 32 windows (beside ``torch.sum(dim=1)`` over the windows); then
+the cold times of K0 kernels outside the warp-lines rule
+(gelu's 4-element lines, the 8-unit ``*_rows`` kernels, the plane-tree
+reductions, f32 cmma) and a digest of every K0 source built: a
+kernel whose source is the same in both trees is the same kernel. Prints
+the card (``nvidia-smi``) and one JSON line; needs a card.
 """
 
 import argparse
@@ -68,13 +71,14 @@ def main():
     cu = CudaRuntime.client()
     rows = {}
 
-    def time_row(name, launch, library, n, elem, moved, flops):
+    def time_row(name, launch, library, n, elem, moved, flops, bound=None):
         launch()
         torch.cuda.synchronize()
         rows[name] = dict(
             ms=cs.cold_ms(launch), call_ms=cs.cuda_ms(launch),
             library_ms=None if library is None else cs.cold_ms(library),
-            bound_ms=cs.elementwise_bound(n, elem, moved, flops)[0])
+            bound_ms=bound if bound is not None else cs.elementwise_bound(
+                n, elem, moved, flops)[0])
 
     x, g = rn(8192, 2048), rn(2048)
     time_row("_rmsnorm_fwd_k bf16 8192x2048",
@@ -108,13 +112,31 @@ def main():
     rows["fused_chain relu((a+b)*c) f32 16M"]["eager_torch_ms"] = \
         cs.cold_ms(lambda: torch.relu((ins[0] + ins[1]) * ins[2]))
 
+    # cmma at 16 bits on the tensor cores, and the block sums over
+    # windows split across full cubes
+    for dt, S in ((torch.bfloat16, 512), (torch.bfloat16, cs.MM_S),
+                  (torch.float16, cs.MM_S)):
+        a, b = (cs.mm_operand(gen, dev, dt, (S, S), S) for _ in range(2))
+        hc = [cu.create(a.reshape(-1)), cu.create(b.reshape(-1)),
+              cu.empty((S * S,), "float32")]
+        time_row(f"matmul_cmma {cs._dt(dt)} {S}^3 -> f32",
+                 lambda hc=hc, S=S: MM.matmul_cmma(cu, *hc, S, S, S),
+                 lambda a=a, b=b: torch.mm(a, b, out_dtype=torch.float32),
+                 None, None, None, None,
+                 bound=cs.mm_bound(S, S, S, dt, torch.float32)[0])
+    big = cu.create(rn(cs.RED_N, dt=torch.float32))
+    time_row("reduce_sum_blockwise f32 64M, 32 windows (block + fold)",
+             lambda: R.reduce_sum_blockwise(cu, big, cubes=cs.BLOCK_CUBES),
+             lambda: torch.sum(big.tensor.view(cs.BLOCK_CUBES, -1), dim=1),
+             None, None, None, None,
+             bound=cs.bound_ms(cs.RED_N, cs.RED_N * 4, torch.float32)[0])
+
     outside = {}
     x1 = cu.create(rn(1 << 20, dt=torch.float32))
     o1 = cu.create(torch.empty(1 << 20, device=dev))
     xr = cu.create(rn(4, 1024, dt=torch.float32))
     orow = cu.create(torch.empty(4, 1024, device=dev))
     gb = [cu.create(rn(1024, dt=torch.float32)) for _ in range(2)]
-    big = cu.create(rn(cs.RED_N, dt=torch.float32))
     S = 512
     mats = [cu.create(rn(S * S, dt=torch.float32)) for _ in range(2)]
     mo = cu.empty((S * S,), "float32")
@@ -132,8 +154,6 @@ def main():
              lambda: R.reduce_sum(cu, big)),
             ("reduce_max f32 64M (plane tree)",
              lambda: R.reduce_max(cu, big)),
-            ("reduce_sum_blockwise f32 64M (block_reduce)",
-             lambda: R.reduce_sum_blockwise(cu, big)),
             ("matmul_cmma f32 512^3", lambda: MM.matmul_cmma(
                 cu, *mats, mo, S, S, S))):
         launch()

@@ -805,16 +805,29 @@ def test_matmul_tuner_on_the_card(dev, monkeypatch, tmp_path):
     _close(o.tensor, mm.matmul_plain(a.tensor, b.tensor, torch.float32))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cmma_kernel_matches_evaluator(dev, dtype):
-    """K0 cmma (matmul_cmma: fragments in shared memory) against the torch
-    evaluator on the card and against plain."""
-    from cubecl_tpu_torch.ops import matmul as mm
+CMMA_SHAPES = [(256, 256, 128), (4096, 1024, 2048)]
+CMMA_16 = [torch.bfloat16, torch.float16]
 
-    g = torch.Generator(device=dev).manual_seed(3)
-    M, N, K = 256, 256, 128
+
+def _cmma_operands(dev, dtype, M, N, K, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
     a = (torch.randn(M, K, generator=g, device=dev) * K ** -0.25).to(dtype)
     b = (torch.randn(K, N, generator=g, device=dev) * K ** -0.25).to(dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("shape", CMMA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32] + CMMA_16)
+def test_cmma_kernel_matches_evaluator(dev, dtype, shape):
+    """K0 cmma (``matmul_cmma``) against the torch evaluator on the card
+    and against plain, at f32 (the FMA route, fragments in shared memory)
+    and bf16/f16 (the tensor-core route at the tk-64 plan: ``wgmma`` from
+    the swizzled operand fragments, the accumulator in registers), f32
+    out at TOL's 2e-5/1e-4 for all three."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = shape
+    a, b = _cmma_operands(dev, dtype, M, N, K)
     outs = []
     for c in (CudaRuntime.client(), eval_client(dev)):
         o = c.empty((M * N,), "float32")
@@ -822,8 +835,98 @@ def test_cmma_kernel_matches_evaluator(dev, dtype):
                        o, M, N, K)
         outs.append(o.tensor.view(M, N))
     torch.cuda.synchronize()
+    src = CudaRuntime.client().server.last_launched.source
+    assert ("mapping=cmma-wgmma" in src) == (dtype != torch.float32)
+    if dtype != torch.float32:
+        assert mm._cmma_plan(M, N, K, 2, 128) == (128, 128, 64)
     _close(outs[0], outs[1])
     _close(outs[0], mm.matmul_plain(a, b, torch.float32))
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 512), (4096, 1024, 2048),
+                                   (4096, 4096, 4096)])
+@pytest.mark.parametrize("dtype", CMMA_16)
+def test_cmma_16_bit_every_launch_of_many_agrees(dev, dtype, shape):
+    """The tensor-core route in 200 launches, each held to plain on an
+    output first filled with NaN: a race between the copies of the ring
+    and the products that read it (F11's kind) shows in few launches of
+    many, not in one."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = shape
+    a, b = _cmma_operands(dev, dtype, M, N, K, seed=M + K)
+    want = mm.matmul_plain(a, b, torch.float32)
+    c = CudaRuntime.client()
+    ha, hb = c.create(a.reshape(-1)), c.create(b.reshape(-1))
+    o = c.empty((M * N,), "float32")
+    atol, rtol = TOL[torch.float32]
+    bad = []
+    for i in range(200):
+        o.tensor.fill_(float("nan"))
+        mm.matmul_cmma(c, ha, hb, o, M, N, K)
+        err = (o.tensor.view(M, N) - want).abs()
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            bad.append(i)
+    torch.cuda.synchronize()
+    assert not bad, f"launches {bad} disagree with plain"
+
+
+@pytest.mark.parametrize("dtype", CMMA_16)
+def test_cmma_16_bit_sass_issues_hgmma(dev, dtype, tmp_path):
+    """The K0 cmma library of a 16-bit ``matmul_cmma`` issues HGMMA (the
+    SASS of ``wgmma``) and no FFMA in ``cuobjdump -sass``, and ptxas
+    spills nothing (its source built again with the K0 flags: the library
+    may be an earlier build's, which kept no log)."""
+    import os
+    import subprocess
+
+    from cubecl_tpu_torch.backend.cuda.build import NVCC_FLAGS
+    from cubecl_tpu_torch.ops import matmul as mm
+    from cubecl_tpu_torch.utils.native import find_nvcc
+
+    M = N = K = 512
+    a, b = _cmma_operands(dev, dtype, M, N, K)
+    c = CudaRuntime.client()
+    mm.matmul_cmma(c, c.create(a.reshape(-1)), c.create(b.reshape(-1)),
+                   c.empty((M * N,), "float32"), M, N, K)
+    torch.cuda.synchronize()
+    build = c.server.last_launched.fn.build
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    assert "HGMMA" in sass and "FFMA" not in sass
+    log = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o",
+                          str(tmp_path / "again.so"), build.source_path],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    assert "0 bytes spill stores, 0 bytes spill loads" in log.stdout + \
+        log.stderr
+
+
+@pytest.mark.parametrize("name", ["loaded", "c_not_d"])
+def test_cmma_shared_memory_accumulator_on_the_card(dev, name):
+    """The tensor-core route with its accumulator in shared memory (a
+    loaded accumulator; a C other than D): A B + C on 64 x 64 x 64 bf16
+    fragments in a cube of one warpgroup, against the evaluator on the
+    card and against the f32 product (small integers: exact)."""
+    from test_torch_dsl_printer import ACC_KERNELS, acc_args
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    a, b, cc = (torch.randint(-3, 4, (4096,), generator=g, device=dev)
+                .float() for _ in range(3))
+    k = ACC_KERNELS[name]
+    outs = []
+    for c in (CudaRuntime.client(), eval_client(dev)):
+        o = c.empty((4096,), "float32")
+        k.launch_unchecked(c, 1, 128, *acc_args(
+            c.create(a.bfloat16()), c.create(b.bfloat16()), c.create(cc), o))
+        outs.append(o.tensor.view(64, 64))
+    torch.cuda.synchronize()
+    assert "mapping=cmma-wgmma" in CudaRuntime.client().server.last_launched \
+        .source
+    want = a.view(64, 64) @ b.view(64, 64) + (
+        cc.view(64, 64) if name == "loaded" else 0.25)
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
 
 
 def test_quant_kernels_match_plain(dev):
@@ -957,6 +1060,49 @@ def test_block_reduce_matches_evaluator(dev, dtype, cd):
     for s in sums:
         assert abs(s.double().item() - xs.double().sum().item()) <= \
             1e-5 * scale
+    if cd != 256:
+        return
+    # 64M in the split plan: 32 windows of 32 sub-windows each, on
+    # 1024 cubes of 256 units, the same bits on a second call. f32 within
+    # 1e-8 * sum|x| (chip_smoke.py's SUM_TOL) of the float64 sum; bf16
+    # within the 1e-5 above, as block_sum returns the buffer's type: each
+    # bf16 partial is rounded, by half an ulp, at most 2^-8 of it. So each
+    # of the 1024 sub-partials is held too: to the float64 sum of its
+    # sub-window and to the evaluator's partial at the same plan on the
+    # card, within that rounding and 1e-6 * sum|x| of the sub-window (a
+    # dropped line of 128 or a doubled cube is far outside it); and the
+    # fold to the float64 sum of the partials, within 1e-6 * sum|p|
+    big = torch.randn(64 << 20, generator=g, device=dev).to(dtype)
+    c, ev = CudaRuntime.client(), eval_client(dev)
+    h = c.create(big)
+    first = R.reduce_sum_blockwise(c, h, cubes=32).tensor.clone()
+    again = R.reduce_sum_blockwise(c, h, cubes=32).tensor
+    windows, split, lines = R.block_plan((64 << 20) // 128, 128, 32)
+    assert (windows, split, lines) == (32, 32, 512)
+    parts = []
+    for cl, hh in ((c, h), (ev, ev.create(big))):
+        p = cl.empty((windows * split,), "float32")
+        R.reduce_block_partial.launch_unchecked(
+            cl, windows * split, R.BLOCK_UNITS, ArrayArg(hh, line_size=128),
+            ArrayArg(p, mutable=True), lines)
+        parts.append(p.tensor.double())
+    torch.cuda.synchronize()
+    part = [k for k in c.server._cache.values()
+            if k.name == "reduce_block_partial" and k.grid == (1024, 1, 1)]
+    assert part and part[0].block == (256, 1, 1)
+    bd = big.double()
+    assert abs(first.double().item() - bd.sum().item()) <= \
+        (1e-8 if dtype == torch.float32 else 1e-5) * bd.abs().sum().item()
+    assert torch.equal(first, again)
+    got, want_ev = parts
+    sub = bd.view(windows * split, -1)
+    rnd = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    lim = 1e-6 * sub.abs().sum(1)
+    assert ((got - sub.sum(1)).abs() <= rnd * got.abs() + lim).all()
+    assert ((got - want_ev).abs()
+            <= rnd * (got.abs() + want_ev.abs()) + lim).all()
+    assert abs(first.double().item() - got.sum().item()) <= \
+        1e-6 * got.abs().sum().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

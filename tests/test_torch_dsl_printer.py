@@ -17,10 +17,11 @@ from cubecl_tpu_torch.backend.cuda.printer import (cuda_source,
                                                    reads_plane_builtins,
                                                    warp_vector)
 from cubecl_tpu_torch.frontend import (ABSOLUTE_POS, ArrayArg, MutSlice,
-                                       Slice, atomic_add, cmma, cube)
+                                       Slice, atomic_add, cmma, cube,
+                                       cube_range)
 from cubecl_tpu_torch.ir import ops as O
 from cubecl_tpu_torch.ir.scope import walk
-from cubecl_tpu_torch.ir.types import f32
+from cubecl_tpu_torch.ir.types import bf16, f32, i8, i32
 from test_torch_dsl_scope import (IDS, KERNELS, MODULES, SLICE6,
                                   SLICE6_IDS, SLICE6_MODULES, _seq_args,
                                   _torch_args)
@@ -529,3 +530,221 @@ def test_fused_chain_plan_is_warp_lined_for_f32():
         assert dim.num_units == want
         assert torch.equal(hs[2].tensor, torch.full((8 * 1024,), 2.0,
                                                     dtype=dtype))
+
+
+# -- cmma on the tensor cores (the printer's cmma-wgmma route) --------------
+
+def _cmma_nd(dtype, M=512, N=512, K=512, plan=None):
+    """``matmul_cmma_nd_kernel`` traced as ``matmul_cmma`` launches it
+    (``plan``: other fragments than ``_cmma_plan``'s)."""
+    from cubecl_tpu_torch.frontend import TensorArg
+    from cubecl_tpu_torch.ir.types import elem_from_dtype
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    tm, tn, tk = plan or mm._cmma_plan(M, N, K, dtype.itemsize, 128)
+    L = mm.CMMA_LINE
+    return mm.matmul_cmma_nd_kernel.define(
+        (N // tn, M // tm), mm.CMMA_CUBE_DIM,
+        TensorArg(torch.zeros(M * K, dtype=dtype), shape=(M, K),
+                  line_size=L),
+        TensorArg(torch.zeros(K * N, dtype=dtype), shape=(K, N),
+                  line_size=L),
+        TensorArg(torch.zeros(M * N), shape=(M, N), line_size=L,
+                  mutable=True), tm, tn, tk, K, elem_from_dtype(dtype),
+        checked=False)
+
+
+@pytest.mark.parametrize("dtype,tag", [(torch.bfloat16, "BF16"),
+                                       (torch.float16, "F16")])
+@pytest.mark.parametrize("size", [512, 4096])
+def test_cmma_16_bit_prints_the_tensor_core_route(dtype, tag, size):
+    """``matmul_cmma_nd_kernel`` at bf16 and f16 (128 x 128 x 64
+    fragments, two warpgroups) prints the tensor-core route: SS ``wgmma``
+    m64n128k16 from csrc/wgmma_gemm.cuh (whose PTX is
+    ``wgmma.mma_async``), the accumulator in registers (64 a thread), no
+    FMA; its K loop pipelined on two stages of A and B filled by cp.async,
+    so the shared memory is those stages only (2 x 32 KiB) and the
+    alignment slack, with the launcher's opt-in above 48 KiB."""
+    from cubecl_tpu_torch.utils.native import CSRC_DIR
+
+    defn = _cmma_nd(dtype, size, size, size)
+    src = cuda_source(defn)
+    assert "mapping=cmma-wgmma warpgroups=2 register_accumulators=1" in src
+    assert '#include "wgmma_gemm.cuh"' in src
+    assert src.count(f"cubecl::wgmma_ss<true>(cubecl::{tag}{{}}, ") == 1
+    with open(f"{CSRC_DIR}/wgmma_gemm.cuh") as f:
+        assert "wgmma.mma_async.sync.aligned.m64n\" #N \"k16.f32." in f.read()
+    assert "fmaf(" not in src and "kk <" not in src
+    assert re.search(r"float cc_acc\d+\[1\]\[64\];", src)
+    assert "cc_smem + 0);" in src and "cc_smem + 32768);" in src
+    assert src.count("cubecl::cp_async16(") == 4  # prologue and loop, A, B
+    assert "cubecl::cp_async_wait<1>();" in src
+    assert src.index("cubecl::cp_async_wait<1>();") < src.index(
+        "cubecl::fence_proxy_async();") < src.index("wgmma_fence();")
+    assert "cubecl::wgmma_wait0();" in src
+    want = 2 * (128 * 64 + 64 * 128) * 2 + 1024
+    assert f"args, {want}," in src
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+
+
+@cube
+def _k_loop_peeled(a: Slice, b: Slice, out: MutSlice, k: int):
+    acc = cmma.Matrix("accumulator", 128, 128, 64, f32)
+    cmma.fill(acc, 0.0)
+    x = cmma.Matrix("a", 128, 128, 64, bf16)
+    y = cmma.Matrix("b", 128, 128, 64, bf16)
+    for kk in cube_range(0, k // 64 - 1):
+        cmma.load(x, a, k, kk * 64)
+        cmma.load(y, b, 128, kk * 64 * 128)
+        cmma.execute(x, y, acc, acc)
+    cmma.load(x, a, k, k - 64)
+    cmma.load(y, b, 128, (k - 64) * 128)
+    cmma.execute(x, y, acc, acc)
+    cmma.store(acc, out, 128)
+
+
+def test_cmma_k_loop_without_the_ring():
+    """A K loop whose last step is peeled off after it: its operand
+    fragments are not the loop's alone, so it gets no ring. Each step's A
+    and B are 16-byte loads into registers and then stores into one
+    stage, fenced for the async proxy, between the barriers of every
+    fragment op; 32 KiB and the slack. On the CPU twin the kernel
+    computes A B (the evaluator, exact for these integers)."""
+    from cubecl_tpu_torch.runtime import CpuRuntime
+
+    K = 256
+    zb = torch.zeros(128 * K, dtype=torch.bfloat16)
+    args = lambda a, b, o: (ArrayArg(a), ArrayArg(b),  # noqa: E731
+                            ArrayArg(o, mutable=True), K)
+    src = cuda_source(_k_loop_peeled.define(
+        1, 256, *args(zb, zb, torch.zeros(128 * 128)), checked=False))
+    assert "mapping=cmma-wgmma" in src and "cp_async" not in src
+    assert src.count("uint4 cc_t[4];") == 4
+    assert src.count("cubecl::fence_proxy_async();") == 4
+    assert f"args, {(128 * 64 + 64 * 128) * 2 + 1024}," in src
+    r = np.random.default_rng(4)
+    a = r.integers(-3, 4, (128, K)).astype(np.float32)
+    b = r.integers(-3, 4, (K, 128)).astype(np.float32)
+    tc = CpuRuntime.client()
+    ha, hb = (tc.create(torch.from_numpy(x).reshape(-1).to(torch.bfloat16))
+              for x in (a, b))
+    out = tc.empty((128 * 128,), "float32")
+    _k_loop_peeled.launch_unchecked(tc, 1, 256, *args(ha, hb, out))
+    np.testing.assert_array_equal(tc.read_one(out).reshape(128, 128), a @ b)
+
+
+@cube
+def _acc_loaded(a: Slice, b: Slice, c: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 64, 64, 64, f32)
+    cmma.load(acc, c, 64)
+    x = cmma.Matrix("a", 64, 64, 64, bf16)
+    cmma.load(x, a, 64)
+    y = cmma.Matrix("b", 64, 64, 64, bf16)
+    cmma.load(y, b, 64)
+    cmma.execute(x, y, acc, acc)
+    cmma.store(acc, out, 64)
+
+
+@cube
+def _acc_c_not_d(a: Slice, b: Slice, c: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 64, 64, 64, f32)
+    cmma.fill(acc, 0.25)
+    d = cmma.Matrix("accumulator", 64, 64, 64, f32)
+    x = cmma.Matrix("a", 64, 64, 64, bf16)
+    cmma.load(x, a, 64)
+    y = cmma.Matrix("b", 64, 64, 64, bf16)
+    cmma.load(y, b, 64)
+    cmma.execute(x, y, acc, d)
+    cmma.store(d, out, 64)
+
+
+# ``out = A B + C`` on 64 x 64 x 64 bf16 fragments in a cube of one
+# warpgroup, with an accumulator that ``load`` fills (``loaded``: C is the
+# input ``c``) or a C other than D (``c_not_d``: C = 0.25)
+ACC_KERNELS = {"loaded": _acc_loaded, "c_not_d": _acc_c_not_d}
+
+
+def acc_args(a, b, c, out):
+    return (ArrayArg(a), ArrayArg(b), ArrayArg(c), ArrayArg(out, mutable=True))
+
+
+@pytest.mark.parametrize("name", ["loaded", "c_not_d"])
+def test_cmma_accumulator_in_shared_memory(name):
+    """An accumulator that is loaded, or whose C is not its D, stays in
+    shared memory on the tensor-core route: each warpgroup's units read C
+    into registers, run ``wgmma`` and write D back. On the CPU twin the
+    kernel computes A B + C (the evaluator, exact for these integers)."""
+    from cubecl_tpu_torch.runtime import CpuRuntime
+
+    z = torch.zeros(4096)
+    zb = torch.zeros(4096, dtype=torch.bfloat16)
+    k = ACC_KERNELS[name]
+    defn = k.define(1, 128, *acc_args(zb, zb, z, z), checked=False)
+    src = cuda_source(defn)
+    assert "mapping=cmma-wgmma warpgroups=1 register_accumulators=0" in src
+    assert "float cc_d[32];" in src and "cc_acc" not in src
+    assert "fmaf(" not in src
+    r = np.random.default_rng(3)
+    a = r.integers(-3, 4, (64, 64)).astype(np.float32)
+    b = r.integers(-3, 4, (64, 64)).astype(np.float32)
+    c = r.integers(-3, 4, (64, 64)).astype(np.float32)
+    tc = CpuRuntime.client()
+    hs = [tc.create(torch.from_numpy(x).reshape(-1).to(dt))
+          for x, dt in ((a, torch.bfloat16), (b, torch.bfloat16),
+                        (c, torch.float32))]
+    out = tc.empty((4096,), "float32")
+    k.launch_unchecked(tc, 1, 128, *acc_args(*hs, out))
+    want = a @ b + (c if name == "loaded" else 0.25)
+    np.testing.assert_array_equal(tc.read_one(out).reshape(64, 64), want)
+
+
+@cube
+def _int8_cmma(a: Slice, b: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 64, 64, 64, i32)
+    cmma.fill(acc, 0)
+    x = cmma.Matrix("a", 64, 64, 64, i8)
+    cmma.load(x, a, 64)
+    y = cmma.Matrix("b", 64, 64, 64, i8)
+    cmma.load(y, b, 64)
+    cmma.execute(x, y, acc, acc)
+    cmma.store(acc, out, 64)
+
+
+@cube
+def _scaled_cmma(a: Slice, b: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 64, 64, 64, f32)
+    cmma.fill(acc, 0.0)
+    x = cmma.Matrix("a", 64, 64, 64, bf16)
+    cmma.load(x, a, 64)
+    y = cmma.Matrix("b", 64, 64, 64, bf16)
+    cmma.load(y, b, 64)
+    cmma.execute_scaled(x, y, acc, acc, 0.5, 2.0)
+    cmma.store(acc, out, 64)
+
+
+def _fma_route_cases():
+    bf = torch.bfloat16
+    zb, z8 = torch.zeros(4096, dtype=bf), torch.zeros(4096, dtype=torch.int8)
+    return {
+        "f32": lambda: _cmma_nd(torch.float32),
+        "bf16 tk 32": lambda: _cmma_nd(bf, plan=(128, 128, 32)),
+        "int8": lambda: _int8_cmma.define(
+            1, 128, ArrayArg(z8), ArrayArg(z8),
+            ArrayArg(torch.zeros(4096, dtype=torch.int32), mutable=True),
+            checked=False),
+        "execute_scaled": lambda: _scaled_cmma.define(
+            1, 128, ArrayArg(zb), ArrayArg(zb),
+            ArrayArg(torch.zeros(4096), mutable=True), checked=False),
+    }
+
+
+@pytest.mark.parametrize("name", list(_fma_route_cases()))
+def test_cmma_outside_the_tensor_core_route_keeps_fma(name):
+    """f32 fragments (never TF32), int8 ones, ``execute_scaled`` and a K
+    step of 32 (under one 128-byte swizzle row) keep the FMA route: every
+    fragment in shared memory, a thread's output elements summed over K
+    one product at a time, no ``wgmma``."""
+    src = cuda_source(_fma_route_cases()[name]())
+    assert "mapping=cmma-wgmma" not in src and "wgmma" not in src
+    assert "for (int kk = 0; kk <" in src
+    assert ("s += " if name == "int8" else "fmaf(") in src

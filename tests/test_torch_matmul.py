@@ -72,6 +72,29 @@ def test_matmul_cmma(jc, tc, shape):
     np.testing.assert_allclose(got, A @ B, atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [ml_dtypes.bfloat16, np.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (256, 128, 256)])
+def test_matmul_cmma_16_bit(jc, tc, shape, dtype):
+    """bf16 and f16 operands at the plan of the printer's tensor-core
+    route (128 x 128 fragments, tk 64: one 128-byte swizzle row) on the
+    torch evaluator, against the JAX package's ``matmul_cmma`` on the same
+    inputs: the products of 16-bit values are exact in f32 and both sum
+    in f32, so F32 holds."""
+    M, N, K = shape
+    assert tmm._cmma_plan(M, N, K, 2, 128) == (128, 128, 64)
+    r = _rng(M + N + K)
+    A = r.standard_normal((M, K)).astype(dtype)
+    B = r.standard_normal((K, N)).astype(dtype)
+    want = _run(jc, jmm.matmul_cmma, (A, B), (M, N), "float32", M, N, K,
+                tile=128)
+    got = _run(tc, tmm.matmul_cmma, (A, B), (M, N), "float32", M, N, K,
+               tile=128)
+    np.testing.assert_allclose(got, want, **F32)
+    np.testing.assert_allclose(
+        got, A.astype(np.float64) @ B.astype(np.float64), **F32)
+
+
 def test_cmma_nd_windowed_matmul(jc, tc):
     """The ND kernel over 2-D tensors: in the port its three fragments are
     regions of dynamic shared memory (128 x 128 f32 accumulator, 128 x 32

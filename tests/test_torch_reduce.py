@@ -143,15 +143,38 @@ def test_reduce_sum_bf16(jc, tc):
 
 
 @pytest.mark.parametrize("n,cubes", [(1 << 14, 4), (512 * 48, 6),
-                                     (4096, 64)])
+                                     (4096, 64), (1 << 20, 4), (3 << 18, 6)])
 def test_reduce_sum_blockwise(jc, tc, n, cubes):
     """``block_sum`` (``mem.block_reduce``) per cube at the JAX test's
-    three (n, cubes)."""
+    three (n, cubes), and at two where the port splits each window over
+    cubes of 256 units (sub-windows of 8192 elements): 128 partials, which
+    the final cube folds as one line of 128, and 96, folded one by one."""
     x = _normal(4 + n, n)
     j, t = _run(jc, tc,
                 lambda c, h: jR.reduce_sum_blockwise(c, h, cubes=cubes),
                 lambda c, h: tR.reduce_sum_blockwise(c, h, cubes=cubes), x)
     _sums_agree(j, t, x)
+
+
+@pytest.mark.parametrize("n_lines,line,cubes,plan", [
+    ((64 << 20) // 128, 128, 32, (32, 32, 512)),
+    ((64 << 20) // 128, 128, 16, (16, 64, 512)),
+    ((64 << 20) // 128, 128, 64, (64, 16, 512)),
+    (8192, 128, 4, (4, 32, 64)),
+    (128, 128, 4, (4, 1, 32)),
+    (4096, 1, 64, (64, 1, 64)),
+    (100, 128, 32, (4, 1, 25))])
+def test_block_plan_fills_the_card(n_lines, line, cubes, plan):
+    """``reduce_sum_blockwise``'s plan: at 64M f32 each of the caller's
+    windows splits until the cubes of 256 units fill the card (at least
+    4 x 132 of them), every sub-window whole lines and one sweep of the
+    cube's loads or more; small inputs keep one cube a window."""
+    windows, split, lines = tR.block_plan(n_lines, line, cubes)
+    assert (windows, split, lines) == plan
+    assert windows * split * lines == n_lines
+    if n_lines * line == 64 << 20:
+        assert windows * split >= tR.FILL_CUBES
+    assert split == 1 or lines * line >= tR.MIN_SUB_ELEMS
 
 
 def test_autotuned_reduce(jc, tc):
