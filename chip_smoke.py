@@ -160,6 +160,12 @@ INV_SQRT2 = 1.0 / math.sqrt(2.0)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float8_e4m3fn: 1979e12, torch.float8_e5m2: 1979e12,
               torch.int8: 1979e12, torch.float32: 67e12}
+# TF32 on the tensor cores (the same data sheet). An f32 matrix product
+# holds f32's tolerance as three TF32 products (3xTF32, as csrc/
+# wgmma_gemm.cuh and K0's cmma run it), so its operations are bounded by
+# the lesser of the CUDA cores' time and three times the TF32 time
+PEAK_TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 HBM_BYTES_PER_S = 3.35e12
 # phase k, the 0.77B bf16 llama served by two paths that round in other
 # places (chunked against one-shot prefill, decode_chunk against decode
@@ -265,6 +271,7 @@ def kernel_name(mangled):
                   r"ELi(\d+)E", mangled)
     g16 = re.search(r"(gemm16_wgmma_kernel)INS\d*_\d+(BF16|F16)ELi(\d+)"
                     r"ELi(\d+)ELb([01])E", mangled)
+    g32 = re.search(r"(gemm_tf32x3_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
     if "expert_wgmma_kernel" in mangled:
@@ -272,11 +279,14 @@ def kernel_name(mangled):
     if g16:
         return (f"{g16.group(1)}<{g16.group(2).lower()}, {g16.group(3)}, "
                 f"{g16.group(4)}, B {'(K, N)' if g16.group(5) == '1' else '(N, K)'}>")
+    if g32:
+        return f"{g32.group(1)}<{g32.group(2)}, {g32.group(3)}>"
     if g:
         return (f"{g.group(1)}<{g.group(2).lower()}, {g.group(3)}, "
                 f"{g.group(4)}>")
-    if "byte_transpose_kernel" in mangled:
-        return "byte_transpose_kernel"
+    for name in ("byte_transpose_kernel", "f32_transpose_kernel"):
+        if name in mangled:
+            return name
     if k:
         return (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
                 f"{', int8 KV' if k.group(3) == 'a' else ''}, {k.group(4)}"
@@ -350,26 +360,29 @@ GEMM16_TYPES = ("bf16", "f16")
 B_LAYOUTS = ("(K, N)", "(N, K)")
 
 
-def wgmma_body_sass(sass, summary, tiles8, tiles16):
-    """Phase 2: C1's bf16 body, E1's bf16 body and every 8- and 16-bit
-    GEMM instance in the SASS: (name, wgmma count, registers, spill line)
-    each. Fails unless C1 bf16 and E1 bf16 issue HGMMA, each 8-bit
-    instance its GEMM8_SASS instruction and each 16-bit instance HGMMA,
-    and the instances are exactly ``tiles8`` (ops/matmul.py's
-    ``kernel_tiles(1)``) for each of the three 8-bit types and ``tiles16``
-    (``kernel_tiles(2)``) for bf16 and f16 in both B layouts."""
+def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
+    """Phase 2: C1's bf16 body, E1's bf16 body and every 8-, 16-bit and
+    f32 GEMM instance in the SASS: (name, wgmma count, registers, spill
+    line) each. Fails unless C1 bf16 and E1 bf16 issue HGMMA, each 8-bit
+    instance its GEMM8_SASS instruction, each 16-bit instance HGMMA and
+    each f32 (3xTF32) instance HGMMA, and the instances are exactly
+    ``tiles8`` (ops/matmul.py's ``kernel_tiles(1)``) for each of the three
+    8-bit types, ``tiles16`` (``kernel_tiles(2)``) for bf16 and f16 in
+    both B layouts and ``tiles32`` (``kernel_tiles(4)``) for f32."""
     regs = {n: (r, sp) for n, r, sp in summary}
     rows, got = [], set()
     for chunk in sass.split("Function : ")[1:]:
         mangled = chunk.split("\n", 1)[0].strip()
         if not any(k in mangled for k in (
                 "conv3x3_wgmma_kernel", "gemm8_wgmma_kernel",
-                "gemm16_wgmma_kernel", "expert_wgmma_kernel")):
+                "gemm16_wgmma_kernel", "expert_wgmma_kernel",
+                "gemm_tf32x3_kernel")):
             continue
         name = kernel_name(mangled)
         m8 = re.search(r"gemm8_wgmma_kernel<(\w+), (\d+), (\d+)>", name)
         m16 = re.search(r"gemm16_wgmma_kernel<(\w+), (\d+), (\d+), "
                         r"B (.+)>", name)
+        m32 = re.search(r"gemm_tf32x3_kernel<(\d+), (\d+)>", name)
         want = GEMM8_SASS[m8.group(1)] if m8 else "HGMMA"
         n = chunk.count(want)
         r, sp = regs.get(name, (None, "not in the ptxas log"))
@@ -381,11 +394,14 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16):
         elif m16:
             got.add((m16.group(1), int(m16.group(2)), int(m16.group(3)),
                      m16.group(4)))
+        elif m32:
+            got.add(("f32", int(m32.group(1)), int(m32.group(2))))
         else:
             got.add(name.split("_wgmma")[0])
     want = {(t, bm, bn) for t in GEMM8_SASS for bm, bn, _ in tiles8} | {
         (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
-        for lay in B_LAYOUTS} | {"conv3x3", "expert"}
+        for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
+        | {"conv3x3", "expert"}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -1284,13 +1300,20 @@ def train_transformer(fa, cu, dev, card):
     return launches
 
 
-def bound_ms(flops, nbytes, dtype):
+def bound_ms(flops, nbytes, dtype, products=False):
     """The least time the card could take for ``flops`` operations of
     ``dtype`` and ``nbytes`` moved (each input byte read once, each output
-    byte written once): (ms, the term that bounds it)."""
+    byte written once): (ms, the term that bounds it). ``products``: the
+    operations are matrix products, which in f32 may run as three TF32
+    products (the lesser time of the two, "operations, 3xTF32" when the
+    TF32 term bounds)."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    ops = "operations"
+    if products and dtype == torch.float32:
+        t_tf32 = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS
+        if t_tf32 < t_ops:
+            t_ops, ops = t_tf32, "operations, 3xTF32"
+    return 1e3 * max(t_ops, t_bytes), (ops if t_ops > t_bytes else "bytes")
 
 
 def flash_bound(B, H, Hkv, Sq, Sk, D, dtype, causal, products=2,
@@ -1303,7 +1326,8 @@ def flash_bound(B, H, Hkv, Sq, Sk, D, dtype, causal, products=2,
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * D * (2 * B * H * Sq + 2 * B * Hkv * Sk) + extra_bytes
-    return bound_ms(2 * products * D * B * H * pairs, nbytes, dtype)
+    return bound_ms(2 * products * D * B * H * pairs, nbytes, dtype,
+                    products=True)
 
 
 def paged_bound(q_dtype, kv_elem, D, H, Hkv, n_live, kv_live, quant,
@@ -1316,7 +1340,8 @@ def paged_bound(q_dtype, kv_elem, D, H, Hkv, n_live, kv_live, quant,
     flops = 4 * D * H * sum(n_live)
     elem = torch.finfo(q_dtype).bits // 8
     kv = sum(kv_live) * Hkv * (2 * D * kv_elem + (8 if quant else 0))
-    return bound_ms(flops, 2 * rows * H * D * elem + kv, q_dtype)
+    return bound_ms(flops, 2 * rows * H * D * elem + kv, q_dtype,
+                    products=True)
 
 
 def chunked_live(starts, lengths, C):
@@ -2080,10 +2105,24 @@ MMA_SYNC_MS = {"M2 e4m3 B (N, K) -> bf16": 0.499,
                "M1 bf16 B (K, N) -> bf16": 0.4735,
                "M1 bf16 llama FFN B (K, N) -> bf16": 0.663}
 # phase o: matmul_cmma's (operands, M = N = K), as examples/matmul.py; the
-# 16-bit cases run on the printer's tensor-core route, f32 on FMA
+# 16-bit cases run on the printer's tensor-core route, f32 on its 3xTF32
+# route (three TF32 products a k8 step)
 CMMA_CASES = [(torch.float32, 512), (torch.bfloat16, 512),
-              (torch.bfloat16, 4096), (torch.float16, 4096)]
+              (torch.bfloat16, 4096), (torch.float16, 4096),
+              (torch.float32, 4096)]
 CMMA_16 = (torch.bfloat16, torch.float16)
+
+
+def cmma_route(dtype):
+    """The printed mapping of ``matmul_cmma`` on ``dtype`` operands."""
+    return "cmma-wgmma" if dtype in CMMA_16 else "cmma-wgmma-tf32x3"
+
+
+def printed_route(source):
+    """The cmma route a printed K0 source names: the tensor-core mapping,
+    or "fma"."""
+    m = re.search(r"mapping=(cmma-wgmma\S*)", source)
+    return m.group(1) if m else "fma"
 QUANT_N = 4096 * 4096  # matmul_quantized's operands at 4096^2
 QUANT_BLOCK = 4096
 
@@ -2119,10 +2158,11 @@ def mm_operand(gen, dev, dtype, shape, K):
 
 
 def mm_bound(M, N, K, in_dt, out_dt):
-    """2MNK operations at the operands' peak; a and b read once, the
-    output written once."""
+    """2MNK operations at the operands' peak (f32: the lesser of the CUDA
+    cores' and three TF32 products'); a and b read once, the output
+    written once."""
     nbytes = (M * K + K * N) * in_dt.itemsize + M * N * out_dt.itemsize
-    return bound_ms(2 * M * N * K, nbytes, in_dt)
+    return bound_ms(2 * M * N * K, nbytes, in_dt, products=True)
 
 
 def mm_library(a, b, out_dt, bt, epilogue):
@@ -2164,7 +2204,8 @@ def mm_body(in_dt):
         return ("wgmma " + ("s8" if in_dt == torch.int8 else "f16 (fp8 as "
                             "exact f16)") + ", csrc/matmul8.cu")
     if in_dt == torch.float32:
-        return "f32 FMA, csrc/matmul.cu"
+        return ("wgmma tf32, three products a k8 step (3xTF32) + TMA, "
+                "persistent, csrc/matmul.cu on csrc/wgmma_gemm.cuh")
     return (f"wgmma {_dt(in_dt)} + TMA, persistent, csrc/matmul.cu on "
             f"csrc/wgmma_gemm.cuh")
 
@@ -2298,9 +2339,10 @@ def autotuned_path(mm, cu, dev, gen, card):
     """Phase n: the slice's main path through the entry points a user
     calls (``examples/matmul.py``, ``bench.py``'s matmul rows):
     ``autotune_top_tiles`` (``matmul_autotuned``) at bf16 4096^3 (the
-    headline), fp8 e4m3 4096^3 and the llama FFN projection, each tuned on
-    first use through captured CUDA graphs timed by CUDA events into the
-    fresh sqlite store; ``matmul_scaled`` (M2) on fp8 weights given as
+    headline), fp8 e4m3 4096^3, the llama FFN projection and f32 4096^3
+    (the 3xTF32 body), each tuned on first use through captured CUDA
+    graphs timed by CUDA events into the fresh sqlite store, each key's
+    launches counted; ``matmul_scaled`` (M2) on fp8 weights given as
     (N, K); ``matmul_quantized`` (the K0 quantize kernels, then M1 with
     device scales) at 4096^2 f32. The counts are zeroed just before and
     read just after. Then: a second call and a new ``LocalTuner`` run the
@@ -2318,7 +2360,8 @@ def autotuned_path(mm, cu, dev, gen, card):
             (f"e4m3 {S}^3", x.to(e4m3), y.to(e4m3), S, S, S),
             (f"llama FFN bf16 {fm}x{fk}x{fn}",
              mm_operand(gen, dev, torch.bfloat16, (fm, fk), fk),
-             mm_operand(gen, dev, torch.bfloat16, (fk, fn), fk), fm, fn, fk)]
+             mm_operand(gen, dev, torch.bfloat16, (fk, fn), fk), fm, fn, fk),
+            (f"f32 {S}^3", x, y, S, S, S)]
     handles = [(name, cu.create(a), cu.create(b),
                 cu.empty((m, n), "bfloat16"), m, n, k)
                for name, a, b, m, n, k in keys]
@@ -2331,12 +2374,14 @@ def autotuned_path(mm, cu, dev, gen, card):
     mm.matmul_scaled.launches = 0
     cu.server.reset_counts()
     t_path = time.perf_counter()
-    tuned = []
+    tuned, key_launches = [], {}
     for name, a, b, o, m, n, k in handles:
         t0 = time.perf_counter()
+        n0 = mm.matmul_pallas.launches
         top = mm.autotune_top_tiles(cu, a, b, o, m, n, k, top=8)
         torch.cuda.synchronize()
         tuned.append((top, time.perf_counter() - t0))
+        key_launches[name] = mm.matmul_pallas.launches - n0
     mm.matmul_scaled(cu, *m2, S, S, S, *MM_SCALES, b_transposed=True)
     t0 = time.perf_counter()
     mm.matmul_quantized(cu, *q, S, S, S)
@@ -2344,6 +2389,7 @@ def autotuned_path(mm, cu, dev, gen, card):
     quant_s = time.perf_counter() - t0
     path_s = time.perf_counter() - t_path
     launches = {"matmul_pallas": mm.matmul_pallas.launches,
+                "matmul_pallas f32 (3xTF32)": key_launches[f"f32 {S}^3"],
                 "matmul_scaled": mm.matmul_scaled.launches,
                 "quantize_block_kernel":
                     cu.server.launches["quantize_block_kernel"]}
@@ -2486,27 +2532,30 @@ def cmma_sass(cu, nvcc):
     route (the printed ``mapping``), the HGMMA (``wgmma``) in its SASS,
     and ptxas' registers and spills: (operand type, route, HGMMA count,
     registers, spill line) each. Fails unless every bf16/f16 kernel is on
-    the tensor-core route and every kernel there issues HGMMA."""
+    the tensor-core route, every f32 one on the 3xTF32 route, and every
+    kernel issues HGMMA."""
     rows = []
+    want = {"__nv_bfloat16": "cmma-wgmma", "__half": "cmma-wgmma",
+            "float": "cmma-wgmma-tf32x3"}
     for c in cu.server._cache.values():
         if c.name != "matmul_cmma_nd_kernel" or not hasattr(c.fn, "build"):
             continue
         elem = re.search(r"const (\w+)\* __restrict__ b0", c.source).group(1)
-        wgmma = "mapping=cmma-wgmma" in c.source
+        route = printed_route(c.source)
         n = sass_of(nvcc, c.fn.build.path).count("HGMMA")
         regs = re.search(r"Used (\d+) registers", c.fn.build.log)
         spill = re.search(r"\d+ bytes stack frame, \d+ bytes spill stores, "
                           r"\d+ bytes spill loads", c.fn.build.log)
-        if elem in ("__nv_bfloat16", "__half") and not wgmma:
-            fail(f"phase 2: a {elem} matmul_cmma kernel printed the FMA "
-                 f"route")
-        if wgmma and not n:
+        if route != want.get(elem):
+            fail(f"phase 2: a {elem} matmul_cmma kernel printed the {route} "
+                 f"route, want {want.get(elem)}")
+        if not n:
             fail(f"phase 2: a {elem} matmul_cmma kernel issues no HGMMA")
-        rows.append((elem, "cmma-wgmma" if wgmma else "fma", n,
-                     int(regs.group(1)) if regs else None,
+        rows.append((elem, route, n, int(regs.group(1)) if regs else None,
                      spill.group(0) if spill else "no spill line"))
-    if not any(r[1] == "cmma-wgmma" for r in rows):
-        fail("phase 2: no matmul_cmma kernel on the tensor-core route")
+    if {r[0] for r in rows} != set(want):
+        fail(f"phase 2: matmul_cmma kernels of {sorted({r[0] for r in rows})}"
+             f", want {sorted(want)}")
     return rows
 
 
@@ -2514,12 +2563,13 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
     """Phase o: ``examples/matmul.py``'s DSL path, ``matmul_cmma`` through
     K0 with cmma printed as CUDA C++ (bf16 and f16 on the tensor-core
     route: ``wgmma`` from the swizzled operand fragments, a pipelined K
-    loop, the accumulator in registers; f32 on FMA, fragments in shared
-    memory), at CMMA_CASES, each against plain and against the torch
+    loop, the accumulator in registers; f32 on the same route as three
+    TF32 products a k8 step, its operands split into big and small tf32
+    halves), at CMMA_CASES, each against plain and against the torch
     evaluator on the card (the counts zeroed before each case's call, read
-    after), each 16-bit case in MM_REPEATS more launches; then the K0
-    quant kernels of phase n against their plain versions, bit for bit,
-    and the block-level ones against the evaluator."""
+    after), each case in MM_REPEATS more launches; then the K0 quant
+    kernels of phase n against their plain versions, bit for bit, and the
+    block-level ones against the evaluator."""
     from cubecl_tpu_torch.std.quant import QuantLevel, QuantScheme
 
     ops = [(dt, S, mm_operand(gen, dev, dt, (S, S), S),
@@ -2549,14 +2599,13 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
         err_ev = compare(got, e[2].tensor.view(S, S),
                          f"phase o {what} vs the evaluator")
         run = lambda h=h, S=S: mm.matmul_cmma(cu, *h, S, S, S)  # noqa: E731
-        if dt in CMMA_16:
-            repeats_agree(run, got, want, f"phase o {what}")
+        repeats_agree(run, got, want, f"phase o {what}")
         iters = 3 if S > 1024 else 10
         ms = cuda_ms(run, iters=iters, warmup=1)
-        route = "cmma-wgmma" if "mapping=cmma-wgmma" in \
-            cu.server.last_launched.source else "fma"
-        if route != ("cmma-wgmma" if dt in CMMA_16 else "fma"):
-            fail(f"phase o {what}: printed the {route} route")
+        route = printed_route(cu.server.last_launched.source)
+        if route != cmma_route(dt):
+            fail(f"phase o {what}: printed the {route} route, want "
+                 f"{cmma_route(dt)}")
         cold = cold_ms(run, iters=iters)
         plain_ms = cuda_ms(lambda: mm.matmul_plain(a, b, torch.float32),
                            iters=iters)
@@ -2570,8 +2619,7 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
         print(f"phase o K0 {what} (route {route}, fragments {tm}x{tn}x{tk}, "
               f"{mm.CMMA_CUBE_DIM} units a cube): max abs err {err} vs plain, "
               f"{err_ev} vs the torch evaluator (atol/rtol "
-              f"{TOL[torch.float32]})"
-              f"{f', {MM_REPEATS} more launches agree' if dt in CMMA_16 else ''}"
+              f"{TOL[torch.float32]}), {MM_REPEATS} more launches agree"
               f"; kernel {ms:.4f} ms back to back, {cold:.4f} ms cold L2 "
               f"({2 * S ** 3 / cold / 1e9:.1f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms ({lib_cold:.4f}"
@@ -2584,7 +2632,8 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
             shape=f"{_dt(dt)} {S}^3 -> f32 (ms: cold L2)")
         del e
     out = {"k0_cmma": dict(rows[f"bf16 {MM_S}^3"], by_case=rows),
-           "k0_cmma_f16": dict(rows[f"f16 {MM_S}^3"])}
+           "k0_cmma_f16": dict(rows[f"f16 {MM_S}^3"]),
+           "k0_cmma_f32": dict(rows[f"f32 {MM_S}^3"])}
 
     x = torch.randn(QUANT_N, generator=gen, device=dev) * 3
     xh = cu.create(x)
@@ -2868,6 +2917,14 @@ def reductions(R, ex_sum, ex_prog, cu, ev, dev, gen, card, block_extremes):
         ms = br_ms[best_br]
         plain_ms = cuda_ms(lambda: R.reduce_sum_native_plain(xs), iters=20)
         lib_ms = cuda_ms(lambda: torch.sum(xs, dtype=torch.float32), iters=50)
+        # device time with a cold L2 and the host's time hidden (back to
+        # back, a small case measures the launch path: two launches
+        # through ctypes against torch.sum's one)
+        k = R._build_reduce_native(n, best_br, xs.dtype)
+        part = torch.empty(R._native_blocks(n, best_br), device=dev)
+        o = torch.empty(1, device=dev)
+        cold = cold_ms(lambda: k.fn([xs, part, o]))
+        lib_cold = cold_ms(lambda: torch.sum(xs, dtype=torch.float32))
         bms, by = bound_ms(n, n * xs.element_size(), torch.float32)
         gbs = n * xs.element_size() / ms / 1e6
         print(f"phase p R1 reduce_native {name} (block_rows {best_br}): "
@@ -2877,11 +2934,14 @@ def reductions(R, ex_sum, ex_prog, cu, ev, dev, gen, card, block_extremes):
               f"{bms:.4f} ms ({by}); by block_rows "
               f"{', '.join(f'{b}: {t:.4f}' for b, t in br_ms.items())} ms; "
               f"plain {plain_ms:.4f} ms; torch.sum(dtype=float32) "
-              f"{lib_ms:.4f} ms [{card}]", flush=True)
+              f"{lib_ms:.4f} ms; cold L2 (device time, host hidden): kernel "
+              f"{cold:.4f} ms, torch.sum {lib_cold:.4f} ms [{card}]",
+              flush=True)
         r1[name] = dict(max_abs_err=err, err_vs_float64=err64, ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                         bound_by=by, gb_per_s=gbs, block_rows=best_br,
-                        ms_by_block_rows=br_ms)
+                        ms_by_block_rows=br_ms, device_ms_cold_l2=cold,
+                        library_ms_cold_l2=lib_cold)
         del hs
     chunks = RED_N // (STRIDE_BR * 128)
     got = R.reduce_sum_native(cu, h, block_rows=STRIDE_BR).tensor
@@ -3203,7 +3263,7 @@ def expert_bound(counts, cap, d, f, dtype):
     live = [min(max(c, 0), cap) for c in counts]
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * (sum(live) * (d + f) + sum(1 for n in live if n) * d * f)
-    return bound_ms(2 * sum(live) * d * f, nbytes, dtype)
+    return bound_ms(2 * sum(live) * d * f, nbytes, dtype, products=True)
 
 
 def routed(moe, gen, dev, T, E, cap, d, dtype):
@@ -3624,9 +3684,11 @@ def bsp_bounds(pairs, B, H, S, D, dtype):
     elem = torch.finfo(dtype).bits // 8
     t = elem * B * H * S * D
     st = 4 * B * H * S
-    return {"fwd": bound_ms(4 * D * pairs * B * H, 4 * t + st, dtype),
-            "dq": bound_ms(6 * D * pairs * B * H, 5 * t + 2 * st, dtype),
-            "dkv": bound_ms(8 * D * pairs * B * H, 6 * t + 2 * st, dtype)}
+    return {"fwd": bound_ms(4 * D * pairs * B * H, 4 * t + st, dtype, True),
+            "dq": bound_ms(6 * D * pairs * B * H, 5 * t + 2 * st, dtype,
+                           True),
+            "dkv": bound_ms(8 * D * pairs * B * H, 6 * t + 2 * st, dtype,
+                            True)}
 
 
 def _bsp_launches(fa):
@@ -3852,7 +3914,8 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
         lib_ms = cuda_ms(lambda: TF.conv2d(xcl, wcl, padding=1))
         elem = torch.finfo(dt).bits // 8
         bms, by = bound_ms(2 * n * h * w * 9 * c * k,
-                           elem * (n * h * w * (c + 64) + 9 * c * k), dt)
+                           elem * (n * h * w * (c + 64) + 9 * c * k), dt,
+                           products=True)
         rows[name] = dict(max_abs_err=err, library_err=e_lib, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                           bound_by=by, body=conv.c1_body(dt),
@@ -4035,8 +4098,8 @@ def main():
     build_wall = time.perf_counter() - t0
     summary = ptxas_summary(build.log)
     regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in summary
-                     if "gemm_kernel" not in n and "wgmma_kernel" not in n)
-    gemm = [(r, s) for n, r, s in summary if "gemm_kernel" in n
+                     if "gemm_tf32x3" not in n and "wgmma_kernel" not in n)
+    gemm = [(r, s) for n, r, s in summary if "gemm_tf32x3" in n
             or "gemm16_wgmma" in n]
     spills = sorted({s for _, s in gemm if not s.startswith(
         "0 bytes stack frame, 0 bytes spill stores")})
@@ -4046,8 +4109,9 @@ def main():
         f"{n}: {h} HGMMA, {r} regs, {sp}" for n, h, r, sp in sass_rows),
         flush=True)
     wg_rows = wgmma_body_sass(sass, summary, mm.kernel_tiles(1),
-                              mm.kernel_tiles(2))
-    print("phase 2 C1 bf16, E1 bf16, 16- and 8-bit GEMM SASS (cuobjdump): "
+                              mm.kernel_tiles(2), mm.kernel_tiles(4))
+    print("phase 2 C1 bf16, E1 bf16, 16-, 8-bit and f32 GEMM SASS "
+          "(cuobjdump): "
           + "; ".join(
         f"{n}: {h}, {r} regs, {sp}" for n, h, r, sp in wg_rows), flush=True)
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
@@ -4257,6 +4321,9 @@ def main():
 
     # -- phase m: the matmul kernel (M1, M2) against plain, by dtype --------
     m_rows = matmul_vs_plain(mm, dev, gen, card)
+    m_f32 = next(r for r in m_rows
+                 if r["case"] == _mm_what(f"{MM_S}^3", torch.float32,
+                                          torch.float32, False, None))
 
     # -- phase n: the autotuned matmul path (BASELINE config 4) -------------
     n_out = autotuned_path(mm, cu, dev, gen, card)
@@ -4301,11 +4368,17 @@ def main():
     y_rows = convolutions(conv, ex_conv, cu, dev, gen, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
+        # bound_by is "bytes" or "operations"; an f32 product bounded by
+        # three TF32 products says so in bound_term
+        by = r["bound_by"]
+        if "," in by:
+            extra["bound_term"] = by
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": library_ms, **extra}
+                "bound_by": by.split(",")[0], "library_ms": library_ms,
+                **extra}
 
     def k0_row(name, r, n, elem, moved, flops, **extra):
         bms, by = elementwise_bound(n, elem, moved, flops)
@@ -4493,6 +4566,17 @@ def main():
                        for k, v in n_out["keys"].items()},
             quantized_rel_err=n_out["quantized_rel_err"],
             by_case=m_rows),
+        row("matmul_f32", "cubecl_tpu_torch/csrc/matmul.cu "
+            "(gemm_tf32x3_kernel, with csrc/wgmma_gemm.cuh)",
+            "cubecl_tpu/ops/matmul.py:43",
+            n_out["launches"]["matmul_pallas f32 (3xTF32)"], m_f32, m_f32[
+                "library_ms"], library=m_f32["library"],
+            shape=f"f32 {MM_S}^3, B as (K, N) (transposed in the call) -> "
+                  "f32, phase m's fastest tile; launches: phase n's f32 key",
+            body=mm_body(torch.float32), tile=m_f32["tile"],
+            other_cases={r["case"]: {f: r[f] for f in (
+                "tile", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms")} for r in m_rows if " f32 B as" in r["case"]}),
         row("matmul_scaled", "cubecl_tpu_torch/csrc/matmul8.cu (with "
             "csrc/wgmma_gemm.cuh)", "cubecl_tpu/ops/matmul.py:477",
             n_out["launches"]["matmul_scaled"], n_out["matmul_scaled"],
@@ -4514,7 +4598,7 @@ def main():
               **{k: o_out[key][k] for k in o_out[key] if k not in (
                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "launches")})
-          for key in ("k0_cmma", "k0_cmma_f16")),
+          for key in ("k0_cmma", "k0_cmma_f16", "k0_cmma_f32")),
         row("k0_quantize", "cubecl_tpu_torch/std/quant_kernels.py "
             "(quantize_block_kernel, printed by "
             "cubecl_tpu_torch/backend/cuda/printer.py)",

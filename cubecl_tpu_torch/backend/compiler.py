@@ -102,12 +102,15 @@ SMEM_ALIGN = 16  # bytes: a fragment region starts on a 16-byte boundary
 
 
 def fragment_layout(state, align: Optional[Dict[int, int]] = None,
-                    skip=(), double=()) -> Tuple[Dict[int, int], int]:
+                    skip=(), double=(),
+                    halves=()) -> Tuple[Dict[int, int], int]:
     """Where the cmma fragments of a kernel (``state.matrices``, each a
     whole cube-scope tile) live in its dynamic shared memory: the byte
     offset of each by vid, and the total bytes. A region starts on
     ``SMEM_ALIGN`` bytes, or on ``align[vid]``; the fragments in ``skip``
-    live elsewhere (registers) and those in ``double`` take two stages."""
+    live elsewhere (registers), those in ``halves`` take two copies of
+    the tile (the big and small halves of a split f32 operand) and those
+    in ``double`` two stages of that."""
     offsets: Dict[int, int] = {}
     total = 0
     for m in state.matrices:
@@ -117,7 +120,8 @@ def fragment_layout(state, align: Optional[Dict[int, int]] = None,
         total = -(-total // a) * a
         offsets[m.vid] = total
         rows, cols = m.shape
-        total += rows * cols * m.ty.elem.size * (2 if m.vid in double else 1)
+        total += rows * cols * m.ty.elem.size * (2 if m.vid in double else 1) \
+            * (2 if m.vid in halves else 1)
     return offsets, -(-total // SMEM_ALIGN) * SMEM_ALIGN
 
 

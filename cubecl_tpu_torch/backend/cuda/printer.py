@@ -43,17 +43,18 @@ The mapping:
   ``wmma``. Two routes, chosen from the definition
   (:func:`tensor_core_plan`); neither falls back at run time:
 
-  - FMA (f32, int8, ``execute_scaled``, shapes the tensor cores do not
-    tile): each ``Matrix`` is a row-major region of the kernel's dynamic
-    shared memory, its offset fixed at print time (``fragment_layout``).
-    ``fill``, ``load`` (row- or col-major, the ``load_tensor`` form
-    included: offsets and strides are in elements) and ``store`` are
-    cube-cooperative strided loops, ``execute`` a cube-cooperative
-    product in which each thread owns output elements and sums over K in
-    the accumulator's compute type (f32 FMA for float fragments, never
-    TF32, as the JAX evaluator's ``Precision.HIGHEST``; int32 for int8),
-    then adds C. ``execute_scaled`` scales the operands first, as the JAX
-    evaluator does; ``cast`` converts element by element;
+  - FMA (int8, ``execute_scaled``, shapes the tensor cores do not tile,
+    and f32 operand fragments that are filled, stored, cast or
+    accumulated into): each ``Matrix`` is a row-major region of the
+    kernel's dynamic shared memory, its offset fixed at print time
+    (``fragment_layout``). ``fill``, ``load`` (row- or col-major, the
+    ``load_tensor`` form included: offsets and strides are in elements)
+    and ``store`` are cube-cooperative strided loops, ``execute`` a
+    cube-cooperative product in which each thread owns output elements
+    and sums over K in the accumulator's compute type (f32 FMA for float
+    fragments; int32 for int8), then adds C. ``execute_scaled`` scales
+    the operands first, as the JAX evaluator does; ``cast`` converts
+    element by element;
   - tensor cores (``mapping=cmma-wgmma``: every ``execute`` on bf16 or
     f16 operands with f32 C and D, M, N and K multiples of 64, a cube of
     whole warpgroups): the operand fragments are 64-column panels of rows
@@ -73,7 +74,24 @@ The mapping:
     touches those two, runs on a ring of two stages of them: step i + 1's
     copies (cp.async) are issued before step i's products. The launch's
     shared memory counts only the fragments in shared memory (and 1024
-    bytes that align the base).
+    bytes that align the base);
+  - f32 on the tensor cores (``mapping=cmma-wgmma-tf32x3``: the same
+    conditions with f32 operands and K a multiple of 32): three TF32
+    products a k8 step, A_small B_big + A_big B_small + A_big B_big into
+    the f32 accumulator, each operand split into big = tf32(x) and small
+    = tf32(x - big), which drops only A_small B_small (about 2^-22 of a
+    product; one TF32 product would miss f32's 2e-5 / 1e-4, as the JAX
+    evaluator runs f32 at ``Precision.HIGHEST``). TF32 ``wgmma`` has no
+    transpose bit, so both operands are K-major: 32-column panels of K
+    (``cc_sw32``), B transposed on its way in, each fragment a big and a
+    small half that ``load`` writes (the halves go through registers, so
+    the K loop's ring is filled by loads, splits and stores issued while
+    the previous step's products run, not by cp.async); SS ``wgmma``
+    m64nNk8 reads each half through its own descriptor. The tensor
+    cores' f32 sums round toward zero, so an ``execute`` sums its
+    products from zero in wgmma accumulators of its own and adds them to
+    C by ordinary f32 additions (a register accumulator holds at most 64
+    values a thread, the products' sums as many beside it).
 
   The launcher opts in above 48 KiB, and fragments over the 227 KiB a
   block may use raise, naming the kernel and the bytes. Every fragment op
@@ -249,15 +267,20 @@ template <typename T> __device__ __forceinline__ T cc_min(T a, T b) {
 
 
 # the tensor-core route's own: the PTX helpers of csrc/ (descriptors,
-# fences, wgmma; build.py passes the include path) and the index of element
-# (r, c) of a 16-bit operand fragment of R rows: 64-column panels of R x
-# 128 bytes, as a wgmma descriptor with the 128-byte swizzle reads them (the
-# 16-byte chunks of row r XOR-permuted by r % 8)
+# fences, wgmma, the tf32 split; build.py passes the include path) and the
+# index of element (r, c) of an operand fragment stored with R rows: a
+# 16-bit one in 64-column panels of R x 128 bytes (cc_sw), an f32 one in
+# 32-column panels (cc_sw32), as a wgmma descriptor with the 128-byte
+# swizzle reads them (the 16-byte chunks of row r XOR-permuted by r % 8)
 TC_PRELUDE = r"""#include "wgmma_gemm.cuh"
 
 __device__ __forceinline__ int cc_sw(int r, int c, int R) {
   return (c >> 6) * (R * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
          (c & 7);
+}
+__device__ __forceinline__ int cc_sw32(int r, int c, int R) {
+  return (c >> 5) * (R * 32) + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
 }
 """
 
@@ -481,7 +504,8 @@ class _Printer:
         mapping = f" mapping=warp-lines vector={self.V}" if self.V else ""
         tc = self.tc
         if tc is not None:
-            mapping = (f" mapping=cmma-wgmma warpgroups={tc.warpgroups} "
+            route = "cmma-wgmma-tf32x3" if tc.split else "cmma-wgmma"
+            mapping = (f" mapping={route} warpgroups={tc.warpgroups} "
                        f"register_accumulators={len(tc.regs)}")
         out = [PRELUDE + (TC_PRELUDE if tc is not None else ""),
                f"// {self.name}: cube_dim={d.cube_dim} "
@@ -1159,10 +1183,16 @@ class _Printer:
         or in the pipelined K loop the stage being filled or read."""
         return self.stage_ptrs.get(mat.vid, f"m{mat.vid}")
 
-    def frag_at(self, mat: Value, r: str, c: str) -> str:
+    def frag_at(self, mat: Value, r: str, c: str, half: int = 0) -> str:
         """Element (r, c) of a shared-memory fragment of the tensor-core
-        route: swizzled panels for an operand, row-major otherwise."""
+        route: swizzled panels for an operand, row-major otherwise; of a
+        split (f32) operand, K-major (a B fragment transposed), in its big
+        (``half`` 0) or small (1) half."""
         R, C = mat.shape
+        if mat.vid in self.tc.split:
+            at = f"cc_sw32({c}, {r}, {C})" if self.tc.split[mat.vid] else \
+                f"cc_sw32({r}, {c}, {R})"
+            return f"{self.frag(mat)}[{f'{R * C} + ' if half else ''}{at}]"
         if mat.vid in self.tc.swizzled:
             return f"{self.frag(mat)}[cc_sw({r}, {c}, {R})]"
         return f"{self.frag(mat)}[({r}) * {C} + ({c})]"
@@ -1197,10 +1227,34 @@ class _Printer:
         self.close()
 
     def wgmma_products(self, a: Value, b: Value, acc: str, unit: str) -> None:
-        """The m64 x nc ``wgmma``s of one accumulator unit over all of K
-        (k16 steps; A K-major, B MN-major through the transpose bit)."""
+        """The m64 x nc ``wgmma``s of one accumulator unit over all of K:
+        16-bit in k16 steps (A K-major, B MN-major through the transpose
+        bit), added to ``acc``; f32 in k8 steps of three TF32 products,
+        A_small B_big, A_big B_small and A_big B_big (both K-major, each
+        half a descriptor), summed into ``acc`` from zero."""
         (M, K), N = a.shape, b.shape[1]
         nc = _chunk(N)
+        if a.vid in self.tc.split:
+            self.emit(f"const uint32_t cc_a = cubecl::smem_addr("
+                      f"{self.frag(a)}) + ({unit}) / {N // nc} * {64 * 128}, "
+                      f"cc_b = cubecl::smem_addr({self.frag(b)}) + ({unit}) "
+                      f"% {N // nc} * {nc * 128};")
+            self.emit("#pragma unroll")
+            self.open(f"for (int ks = 0; ks < {K // 8}; ++ks)")
+            self.emit(f"const uint32_t oa = (ks >> 2) * {M * 128} + (ks & 3) "
+                      f"* 32, ob = (ks >> 2) * {N * 128} + (ks & 3) * 32;")
+            self.emit(
+                f"const uint64_t cc_ab = cubecl::sw128_desc(cc_a + oa, 16, "
+                f"1024), cc_as = cubecl::sw128_desc(cc_a + {M * K * 4} + oa, "
+                f"16, 1024), cc_bb = cubecl::sw128_desc(cc_b + ob, 16, 1024), "
+                f"cc_bs = cubecl::sw128_desc(cc_b + {K * N * 4} + ob, 16, "
+                f"1024);")
+            # the first product starts the sum from zero
+            self.emit(f"cubecl::wgmma_tf32({acc}, cc_as, cc_bb, ks > 0);")
+            self.emit(f"cubecl::wgmma_tf32({acc}, cc_ab, cc_bs);")
+            self.emit(f"cubecl::wgmma_tf32({acc}, cc_ab, cc_bb);")
+            self.close()
+            return
         tag = "cubecl::BF16{}" if a.ty.elem.name == "bf16" else "cubecl::F16{}"
         self.emit(f"const uint32_t cc_a = cubecl::smem_addr({self.frag(a)}) + "
                   f"({unit}) / {N // nc} * {64 * 128}, cc_b = "
@@ -1213,6 +1267,137 @@ class _Printer:
                   f"cubecl::sw128_desc(cc_b + ks * 2048, {K * 128}, 1024));")
         self.close()
 
+    def split_chunks(self, op) -> int:
+        """Chunks of 4 elements a thread of a split load's 16-byte path, or
+        0 when the load has none (a column-major or converted source, or a
+        fragment the threads do not tile in such chunks)."""
+        mat, buf = op.args[:2]
+        R, C = mat.shape
+        row = op.attrs.get("layout", "row_major") == "row_major"
+        if not (row and self.buffer(buf).ty.elem == mat.ty.elem
+                and R * C % (4 * self.U) == 0
+                and (not self.tc.split[mat.vid]
+                     or (R % 32 == 0 and C % 16 == 0
+                         and R * C % (16 * self.U) == 0))):
+            return 0
+        return R * C // (4 * self.U)
+
+    def split_vars(self, op, tag: str) -> None:
+        """Declare what a split load carries from its fetch to its put:
+        the source offset and stride, whether its 16-byte path runs, and
+        that path's chunks in registers."""
+        n = self.split_chunks(op)
+        self.emit(f"int64_t cc_off{tag}, cc_st{tag}; bool cc_v{tag};")
+        if n:
+            self.emit(f"uint4 cc_r{tag}[{n}];")
+
+    def split_index(self, op) -> None:
+        """(r, c) of the first element of chunk q of a split load's 16-byte
+        path. An A chunk is 4 of K, one swizzled chunk of each half. A B
+        (K x N) fragment goes in 4 x 4 blocks, chunks q to q + 3 of a
+        thread rows r to r + 3 of one block (``q`` a multiple of 4), so
+        that a thread transposes its block in registers and stores 4 of K
+        at each n, one swizzled chunk of each half: a warp's blocks are 8
+        along K by 4 along N, so that its loads take 64 bytes of a row and
+        each quarter's stores 8 distinct chunks (all 32 banks)."""
+        mat = op.args[0]
+        R, C = mat.shape
+        if self.tc.split[mat.vid]:
+            self.emit(f"const int i = unit_pos + (q >> 2) * {self.U};")
+            self.emit(f"const int r = ((i >> 5) % {R // 32} * 8 + (i & 7)) * "
+                      f"4, c = ((i >> 5) / {R // 32} * 4 + ((i >> 3) & 3)) "
+                      "* 4;")
+        else:
+            self.emit(f"const int i = unit_pos + q * {self.U};")
+            self.emit(f"const int r = i / {C // 4}, c = i % {C // 4} * 4;")
+
+    def split_fetch(self, op, tag: str) -> None:
+        """A split load's first half: its source offset and stride, and,
+        where the source rows are 16-byte aligned, its chunks' global loads
+        into registers (``split_vars``)."""
+        mat, buf, off, stride = op.args[:4]
+        b = f"b{self.buffer(buf).value.vid}"
+        n = self.split_chunks(op)
+        self.emit(f"cc_off{tag} = {self.cval(off, i64)}; "
+                  f"cc_st{tag} = {self.cval(stride, i64)};")
+        if not n:
+            self.emit(f"cc_v{tag} = false;")
+            return
+        self.emit(f"cc_v{tag} = ((reinterpret_cast<uintptr_t>({b} + "
+                  f"cc_off{tag}) & 15) == 0) && ((cc_st{tag} & 3) == 0);")
+        row = "r + (q & 3)" if self.tc.split[mat.vid] else "r"
+        self.open(f"if (cc_v{tag})")
+        self.emit("#pragma unroll")
+        self.open(f"for (int q = 0; q < {n}; ++q)")
+        self.split_index(op)
+        self.emit(f"cc_r{tag}[q] = *reinterpret_cast<const uint4*>({b} + "
+                  f"cc_off{tag} + (int64_t)({row}) * cc_st{tag} + c);")
+        self.close()
+        self.close()
+
+    def split_put(self, op, tag: str) -> None:
+        """A split load's second half, into the fragment (or its stage):
+        each fetched chunk's big and small tf32 halves
+        (``cubecl::tf32_split4``) into the two halves of the K-major
+        fragment, an A fragment as it is, a B one transposed (a thread's
+        4 x 4 block in registers: 16-byte stores either way); element by
+        element from the source where no chunk was fetched."""
+        mat, buf = op.args[:2]
+        R, C = mat.shape
+        U = self.U
+        bp = self.buffer(buf)
+        row = op.attrs.get("layout", "row_major") == "row_major"
+        n = self.split_chunks(op)
+
+        def put(r, c, big, small):
+            return [f"{self.frag_at(mat, r, c, h)} = __uint_as_float({v});"
+                    for h, v in ((0, big), (1, small))]
+
+        if n:
+            tr = self.tc.split[mat.vid]
+            self.open(f"if (cc_v{tag})")
+            self.emit("#pragma unroll")
+            self.open(f"for (int q = 0; q < {n}; q += {4 if tr else 1})")
+            self.split_index(op)
+            self.emit("uint4 cc_big, cc_small;")
+            # an A chunk as it is; a B block's column j (rows r .. r + 3:
+            # 4 of K at n = c + j)
+            cols = [("c", f"cc_r{tag}[q]")] if not tr else [
+                (f"c + {j}", "make_uint4(" + ", ".join(
+                    f"cc_r{tag}[q + {i}].{w}" for i in range(4)) + ")")
+                for j, w in enumerate("xyzw")]
+            for col, x in cols:
+                self.emit(f"cubecl::tf32_split4({x}, cc_big, cc_small);")
+                for h, v in ((0, "cc_big"), (1, "cc_small")):
+                    self.emit(f"*reinterpret_cast<uint4*>(&"
+                              f"{self.frag_at(mat, 'r', col, h)}) = {v};")
+            self.close()
+            self.close("} else {")
+            self.depth += 1
+            self.blocks.append(set())
+        g = "(int64_t)r * cc_st" if row else "(int64_t)c * cc_st"
+        g = f"{g}{tag} + {'c' if row else 'r'}"
+        self.open(f"for (int i = unit_pos; i < {R * C}; i += {U})")
+        self.emit(f"const int r = i / {C}, c = i % {C};")
+        self.emit("uint32_t cc_big, cc_small;")
+        x = self.conv_expr(f"b{bp.value.vid}[cc_off{tag} + {g}]", bp.ty.elem,
+                           mat.ty.elem)
+        self.emit(f"cubecl::tf32_split(__float_as_uint({x}), cc_big, "
+                  "cc_small);")
+        for line in put("r", "c", "cc_big", "cc_small"):
+            self.emit(line)
+        self.close()
+        if n:
+            self.close()
+
+    def load_split(self, op) -> None:
+        """``mma.load`` into a split (f32) operand fragment, its fetch and
+        put at once: every global load of the thread issued before its
+        first store."""
+        self.split_vars(op, "")
+        self.split_fetch(op, "")
+        self.split_put(op, "")
+
     def load_fragment(self, op, cp_async: bool = False) -> None:
         """``mma.load`` into a shared-memory fragment of the tensor-core
         route. Into an operand fragment from a row-major buffer of its
@@ -1222,6 +1407,9 @@ class _Printer:
         copies (``cp_async``: the caller waits for them); element by
         element otherwise."""
         mat, buf, off, stride = op.args[:4]
+        if mat.vid in self.tc.split:
+            self.load_split(op)
+            return
         R, C = mat.shape
         U = self.U
         me = mat.ty.elem
@@ -1275,18 +1463,18 @@ class _Printer:
         into the other stage before step i's products, which wait for
         their own stage's copies (``cp.async.wait_group 1``), fence them
         for the async proxy and meet at a barrier; the barrier after the
-        products frees their stage for the copies of step i + 2."""
+        products frees their stage for the copies of step i + 2. Split
+        (f32) operands: :meth:`split_loop`."""
+        if ex.op.args[0].vid in self.tc.split:
+            self.split_loop(inst, pre, ex)
+            return
         var = inst.op.attrs["var"]
         ct, n, s, st, cond = self.loop_bounds(inst.op)
         ring = [ex.op.args[0], ex.op.args[1]]
 
         def stage(which):
             # the body's scalars and its loads into stage ``which``
-            for m in ring:
-                t = _storage(m.ty.elem)
-                self.emit(f"{t}* const cc_s{m.vid} = m{m.vid} + ({which}) * "
-                          f"{m.shape[0] * m.shape[1]};")
-                self.stage_ptrs[m.vid] = f"cc_s{m.vid}"
+            self.stage_pointers(ring, which)
             for i in pre:
                 if i.op.opcode == O.MMA_LOAD:
                     self.open("")
@@ -1318,11 +1506,7 @@ class _Printer:
         self.emit("cubecl::fence_proxy_async();")
         self.emit("__syncthreads();")
         self.open("")
-        for m in ring:
-            t = _storage(m.ty.elem)
-            self.emit(f"{t}* const cc_s{m.vid} = m{m.vid} + cc_stage * "
-                      f"{m.shape[0] * m.shape[1]};")
-            self.stage_ptrs[m.vid] = f"cc_s{m.vid}"
+        self.stage_pointers(ring, "cc_stage")
         self.mma_wgmma(ex)
         self.stage_ptrs.clear()
         self.close()
@@ -1333,8 +1517,92 @@ class _Printer:
         self.emit("cubecl::cp_async_wait<0>();")
         self.close()
 
-    def mma_wgmma(self, inst) -> None:
-        """One fragment op of the tensor-core route (module docstring)."""
+    def split_loop(self, inst, pre, ex) -> None:
+        """The canonical K loop of split (f32) operands on a ring of two
+        stages. Their halves go through registers, so no cp.async: a
+        load's fetch (its global loads into registers) runs two steps
+        ahead and its put (the split and the stores into a stage) one.
+        Step i's products are issued first (their stage was put and fenced
+        in step i - 1; the barrier at the top of step i makes every
+        thread's stores visible and every product of step i - 1
+        complete), then, while the tensor cores work, step i + 1 is put
+        into the other stage and step i + 2 fetched; then the products are
+        waited for: one barrier a step, and a global load's latency hidden
+        behind a whole step."""
+        var = inst.op.attrs["var"]
+        ct, n, s, st, cond = self.loop_bounds(inst.op)
+        ring = [ex.op.args[0], ex.op.args[1]]
+        loads = [i.op for i in pre if i.op.opcode == O.MMA_LOAD]
+
+        def fetch(at):
+            # step ``at``'s scalars and the fetches of its loads
+            self.open(f"if ({cond(at)})")
+            self.emit(f"const {ct} {n} = {at};")
+            self.blocks[-1].add(var.vid)
+            for i in pre:
+                if i.op.opcode == O.MMA_LOAD:
+                    self.split_fetch(i.op, str(i.op.args[0].vid))
+                else:
+                    self.inst(i)
+            self.close()
+
+        def put(at, which):
+            # the puts of step ``at``'s loads into stage ``which``
+            self.open(f"if ({cond(at)})")
+            self.stage_pointers(ring, which)
+            for op in loads:
+                self.open("")
+                self.split_put(op, str(op.args[0].vid))
+                self.close()
+            self.stage_ptrs.clear()
+            self.close()
+
+        def ahead():
+            put("cc_next", "cc_stage ^ 1")
+            fetch("cc_next2")
+
+        self.emit("// the K loop on a ring of two stages, fetched two steps "
+                  "ahead")
+        self.open("")
+        self.emit("int cc_stage = 0;")
+        for op in loads:
+            self.split_vars(op, str(op.args[0].vid))
+        fetch(s)
+        put(s, "0")
+        fetch(f"{s} + {st}")
+        self.loops.append([])
+        self.open(f"for ({ct} {n} = {s}; {cond(n)}; {n} += {st})")
+        self.blocks[-1].add(var.vid)
+        self.emit(f"const {ct} cc_next = {n} + {st}, cc_next2 = cc_next + "
+                  f"{st};")
+        self.emit("cubecl::fence_proxy_async();")
+        self.emit("__syncthreads();")
+        self.open("")
+        self.stage_pointers(ring, "cc_stage")
+        self.mma_wgmma(ex, between=ahead)
+        self.stage_ptrs.clear()
+        self.close()
+        self.emit("cc_stage ^= 1;")
+        self.close()
+        self.loops.pop()
+        self.close()
+
+    def stage_pointers(self, ring, which: str) -> None:
+        """Point the ring fragments at their stage ``which``: a stage is
+        the whole fragment (both halves of a split one)."""
+        for m in ring:
+            t = _storage(m.ty.elem)
+            size = m.shape[0] * m.shape[1] * (2 if m.vid in self.tc.split
+                                              else 1)
+            self.emit(f"{t}* const cc_s{m.vid} = m{m.vid} + ({which}) * "
+                      f"{size};")
+            self.stage_ptrs[m.vid] = f"cc_s{m.vid}"
+
+    def mma_wgmma(self, inst, between=None) -> None:
+        """One fragment op of the tensor-core route (module docstring).
+        ``between``: for an ``execute``, what to print while its products
+        run (after the commit of a register accumulator's ``wgmma``s,
+        before their wait; after the products of one in shared memory)."""
         op = inst.op
         oc = op.opcode
         args = op.args
@@ -1379,36 +1647,57 @@ class _Printer:
         elif oc == O.MMA_EXECUTE:
             a, b, c, d = args[:4]
             M, N = d.shape
+            # split (f32) products are summed from zero in wgmma
+            # accumulators of their own, whose sums round toward zero, and
+            # added to the f32 accumulator by ordinary additions
+            split = a.vid in tc.split
             self.emit("cubecl::wgmma_fence();")
             if d.vid in tc.regs:
                 acc = tc.regs[d.vid]
+                regs = f"cc_acc{d.vid}"
+                if split:
+                    regs = "cc_part"
+                    self.emit(f"float cc_part[{acc.per_wg}][{acc.nc // 2}];")
                 self.emit("#pragma unroll")
                 self.open(f"for (int u = 0; u < {acc.per_wg}; ++u)")
-                self.wgmma_products(a, b, f"cc_acc{d.vid}[u]",
+                self.wgmma_products(a, b, f"{regs}[u]",
                                     f"cc_wg + {tc.warpgroups} * u")
                 self.close()
                 self.emit("cubecl::wgmma_commit();")
+                if between is not None:
+                    between()
                 self.emit("cubecl::wgmma_wait0();")
                 self.emit("#pragma unroll")
                 self.emit(f"for (int u = 0; u < {acc.per_wg}; ++u) "
-                          f"cubecl::acc_fence(cc_acc{d.vid}[u]);")
+                          f"cubecl::acc_fence({regs}[u]);")
+                if split:
+                    self.emit("#pragma unroll")
+                    self.emit(f"for (int u = 0; u < {acc.per_wg}; ++u) for "
+                              f"(int j = 0; j < {acc.nc // 2}; ++j) "
+                              f"cc_acc{d.vid}[u][j] += cc_part[u][j];")
             else:
                 # the accumulator in shared memory: each unit's C into
-                # registers, the products, D back
+                # registers, the products, D back (split: the products
+                # from zero, D = C + them)
                 nc = _chunk(N)
                 self.open(f"for (int cc_u = cc_wg; cc_u < {M // 64 * (N // nc)}"
                           f"; cc_u += {tc.warpgroups})")
                 self.emit(f"float cc_d[{nc // 2}];")
-                self.acc_loop(d, lambda r, col, v: f"{v} = "
-                              f"{self.frag_at(c, r, col)};", "cc_d")
+                if not split:
+                    self.acc_loop(d, lambda r, col, v: f"{v} = "
+                                  f"{self.frag_at(c, r, col)};", "cc_d")
                 self.emit("cubecl::wgmma_fence();")
                 self.wgmma_products(a, b, "cc_d", "cc_u")
                 self.emit("cubecl::wgmma_commit();")
                 self.emit("cubecl::wgmma_wait0();")
                 self.emit("cubecl::acc_fence(cc_d);")
+                c_plus = (lambda r, col: f"{self.frag_at(c, r, col)} + ") \
+                    if split else (lambda r, col: "")
                 self.acc_loop(d, lambda r, col, v: f"{self.frag_at(d, r, col)}"
-                              f" = {v};", "cc_d")
+                              f" = {c_plus(r, col)}{v};", "cc_d")
                 self.close()
+                if between is not None:
+                    between()
             fence = False
         elif oc == O.MMA_CAST:
             src = args[1]
@@ -1727,9 +2016,12 @@ class _RegAcc:
 
 @dataclass
 class TensorCorePlan:
-    """Where the tensor-core route keeps a kernel's fragments: the 16-bit
-    operand fragments (``swizzled``: vid -> rows) in 64-column panels of
-    rows x 128 bytes with the 128-byte swizzle, 1024-byte aligned; the
+    """Where the tensor-core route keeps a kernel's fragments: the operand
+    fragments (``swizzled``: vid -> rows) in panels of rows x 128 bytes
+    with the 128-byte swizzle, 1024-byte aligned: a 16-bit fragment as its
+    64-column panels, an f32 one (``split``) K-major as 32-column panels of
+    K, a big and a small tf32 half, the second after the first (an A
+    fragment row-major, a B fragment transposed: ``split[vid]``); the
     register accumulators (``regs``); every other fragment row-major in
     shared memory. ``offsets`` and ``smem_bytes`` are the shared-memory
     fragments' only, plus 1024 bytes of slack that aligns the base."""
@@ -1740,6 +2032,8 @@ class TensorCorePlan:
     smem_bytes: int
     # the operand fragments of pipelined K loops: two stages each
     rings: Set[int]
+    # the f32 operand fragments, split for 3xTF32: vid -> stored transposed
+    split: Dict[int, bool]
 
 
 def _chunk(n: int) -> int:
@@ -1752,16 +2046,32 @@ def tensor_core_plan(defn: KernelDefinition) -> Optional[TensorCorePlan]:
     fragment products can run on ``wgmma``, else None (the FMA route).
 
     The route needs a cube of whole warpgroups (units a multiple of 128),
-    no ``execute_scaled``, and every ``execute`` on bf16 or f16 operands
-    of one type with f32 C and D, M, N and K multiples of 64 (the bands of
-    64 rows, the 64-column swizzle panels of A over K and of B over N). An
-    f32 accumulator lives in registers when only ``fill``, ``execute``
+    no ``execute_scaled``, and every ``execute`` with f32 C and D, M and N
+    multiples of 64 (the bands of 64 rows, the 64-column chunks of N) and
+    one of:
+
+    - bf16 or f16 operands of one type, K a multiple of 64 (one 128-byte
+      swizzle row of K);
+    - f32 operands, K a multiple of 32 (one swizzle row of f32), run as
+      three TF32 products (3xTF32). TF32 ``wgmma`` has no transpose bit, so
+      both operands are stored K-major, A as it is and B transposed, each
+      as a big and a small tf32 half that ``load`` writes; such a fragment
+      is only loaded and multiplied, always in one role (A or B): one that
+      is filled, stored, cast or accumulated into keeps the kernel on FMA
+      (a store of it would return big + small, not the value loaded).
+
+    An f32 accumulator lives in registers when only ``fill``, ``execute``
     with C and D both it, ``store`` and ``cast`` (as the source) touch it,
     its units deal evenly over the warpgroups and a thread holds at most
-    128 of its values; else in shared memory. The two operand fragments
+    128 of its values (64 when it takes split products: their sums, from
+    zero, take as many registers beside it); else in shared memory. The
+    tensor cores' f32 sums round toward zero, so a split ``execute`` sums
+    its products from zero and adds them to C by ordinary f32 additions:
+    in one wgmma accumulator over all of K they drift out of f32's
+    tolerance. The two operand fragments
     of a canonical K loop that nothing else touches get two stages each
-    (the loop's ring: step i + 1's cp.async copies are issued before step
-    i's products)."""
+    (the loop's ring: step i + 1's copies are issued before step i's
+    products complete)."""
     st = defn.state
     U = math.prod(defn.cube_dim)
     ops = [inst.op for _s, inst in walk(defn.scope)
@@ -1772,22 +2082,35 @@ def tensor_core_plan(defn: KernelDefinition) -> Optional[TensorCorePlan]:
         return None
     W = U // 128
     swizzled: Dict[int, int] = {}
+    split: Dict[int, bool] = {}
     accs: Dict[int, Value] = {}
     for op in executes:
         a, b, c, d = op.args[:4]
         (M, K), N = a.shape, b.shape[1]
-        if (a.ty.elem.name not in ("bf16", "f16") or b.ty.elem != a.ty.elem
+        kind = a.ty.elem.name
+        if (kind not in ("bf16", "f16", "f32") or b.ty.elem != a.ty.elem
                 or c.ty.elem.name != "f32" or d.ty.elem.name != "f32"
-                or M % 64 or N % 64 or K % 64):
+                or M % 64 or N % 64 or K % (32 if kind == "f32" else 64)):
             return None
-        swizzled[a.vid], swizzled[b.vid] = M, K
+        if kind == "f32":
+            for x, transposed in ((a, False), (b, True)):
+                if split.setdefault(x.vid, transposed) != transposed:
+                    return None
+            swizzled[a.vid], swizzled[b.vid] = M, N
+        else:
+            swizzled[a.vid], swizzled[b.vid] = M, K
         accs[c.vid], accs[d.vid] = c, d
+    if any(_split_use(op, split) is False for op in ops):
+        return None
+    split_accs = {op.args[3].vid for op in executes
+                  if op.args[0].vid in split}
     regs: Dict[int, _RegAcc] = {}
     for vid, x in accs.items():
         M, N = x.shape
         nc = _chunk(N)
         units = M // 64 * (N // nc)
-        if units % W or units // W * nc // 2 > 128:
+        if units % W or units // W * nc // 2 > (64 if vid in split_accs
+                                                 else 128):
             continue
         if all(_register_use(op, vid) for op in ops):
             regs[vid] = _RegAcc(nc, units // W)
@@ -1802,8 +2125,10 @@ def tensor_core_plan(defn: KernelDefinition) -> Optional[TensorCorePlan]:
                        for o in ops for a in o.args) == 2 for v in ab):
                 rings |= ab
     offsets, total = fragment_layout(
-        st, align={v: 1024 for v in swizzled}, skip=regs, double=rings)
-    return TensorCorePlan(W, swizzled, regs, offsets, total + 1024, rings)
+        st, align={v: 1024 for v in swizzled}, skip=regs, double=rings,
+        halves=split)
+    return TensorCorePlan(W, swizzled, regs, offsets, total + 1024, rings,
+                          split)
 
 
 def canonical_k_loop(op, swizzled: Dict[int, int]):
@@ -1835,6 +2160,20 @@ def canonical_k_loop(op, swizzled: Dict[int, int]):
     if sorted(loaded) != sorted((a.vid, b.vid)):
         return None
     return body[:-1], ex
+
+
+def _split_use(op, split: Dict[int, bool]) -> Optional[bool]:
+    """False when ``op`` touches a split (f32 operand) fragment other than
+    by ``load`` into it or as an operand of ``execute``; else None."""
+    mats = [a.vid if a.kind == VarKind.MATRIX else None for a in op.args]
+    if not any(v in split for v in mats):
+        return None
+    if op.opcode == O.MMA_LOAD:
+        return None
+    if op.opcode == O.MMA_EXECUTE and not any(v in split
+                                              for v in mats[2:4]):
+        return None
+    return False
 
 
 def _register_use(op, vid: int) -> bool:

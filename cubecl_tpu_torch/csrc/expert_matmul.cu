@@ -14,7 +14,7 @@
 // (16384 live rows, d 2048, f 5632) is bound by operations at 0.382 ms, a
 // decode step (16 live rows) by the live experts' weights (0.048 ms).
 //
-// bf16: M1's wgmma body (wgmma_gemm.cuh's wgmma_gemm16), persistent blocks
+// bf16: M1's wgmma body (wgmma_gemm.cuh's wgmma_gemm), persistent blocks
 // on a schedule of the live tiles only (ExpertTiles):
 // - the counts are read on the device by every block (no host sync), and a
 //   block walks tile indices of the live (expert, n-tile, m-tile) tiles
@@ -109,12 +109,12 @@ expert_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   for (int e = 0; e < E; ++e)
     wide_tiles += (live_rows(counts, e, cap) + BM - 1) / BM * (N / WBN);
   if (N % WBN == 0 && wide_tiles >= 2 * static_cast<int>(gridDim.x))
-    wgmma_gemm16<BF16, BM, WBN, true, true>(
+    wgmma_gemm<BF16, BM, WBN, true, true>(
         smem_raw, &ta, &tb, &tc,
         ExpertTiles<BM, WBN>{counts, E, cap, N / WBN},
         out, N, KT, kBF16, 0, nullptr, nullptr, 1.f);
   else
-    wgmma_gemm16<BF16, BM, BN, true, true>(
+    wgmma_gemm<BF16, BM, BN, true, true>(
         smem_raw, &ta, &tb, &tc, ExpertTiles<BM, BN>{counts, E, cap, N / BN},
         out,
         N, KT, kBF16, 0, nullptr, nullptr, 1.f);

@@ -16,32 +16,45 @@
 // torch's .to() does.
 //
 // Bound on the H100 at 4096^3: 2 * 4096^3 operations over the dtype's
-// tensor-core peak (bf16/f16 989 TFLOP/s: 0.139 ms); f32 runs off the
-// tensor cores (67 TFLOP/s: 2.05 ms), because TF32 keeps 10 mantissa bits
-// and misses the f32 tolerance of the TPU kernel's Precision.HIGHEST by
-// some 10x. The bytes (a, b and out once) are 0.03 ms at 3.35 TB/s, so the
-// kernel is bound by operations. Two bodies, by dtype:
-//
-// bf16 / f16: wgmma fed by TMA (gemm16_wgmma_kernel on wgmma_gemm.cuh), the
-// instruction that reaches the tensor cores' full rate on Hopper:
-// - a ring of 3-6 stages of 128 bytes of K (64 elements) on mbarriers,
-//   filled by one producer thread, so device-memory latency hides behind
-//   the products; two consumer warpgroups run SS wgmma m64nNk16 with f32
+// tensor-core peak (bf16/f16 989 TFLOP/s: 0.139 ms). f32 takes the lesser
+// of the CUDA cores' (67 TFLOP/s: 2.05 ms) and three TF32 products' (3 x
+// 2 * 4096^3 at 495 TFLOP/s: 0.833 ms): one TF32 product keeps 10
+// mantissa bits and misses the f32 tolerance of the TPU kernel's
+// Precision.HIGHEST by some 10x, three (3xTF32) hold it. The bytes (a, b
+// and out once) are 0.03 ms at 3.35 TB/s, so the kernel is bound by
+// operations. Both bodies are wgmma fed by TMA (wgmma_gemm.cuh's
+// wgmma_gemm), the instruction that reaches the tensor cores' full rate on
+// Hopper:
+// - a ring of stages of 128 bytes of K (64 16-bit or 32 f32 elements) on
+//   mbarriers, filled by one producer thread, so device-memory latency
+//   hides behind the products; two consumer warpgroups with f32
 //   accumulators in registers (at most 128 a thread);
+// - persistent blocks (at most 132) walk the tiles in raster groups of
+//   kRasterM row tiles, so a tile's epilogue overlaps the next tile's
+//   copies and no wave is left half empty beyond the last one.
+// bf16 / f16 (gemm16_wgmma_kernel): SS wgmma m64nNk16, 3-6 stages;
 // - a 16-bit output leaves through shared memory by TMA stores, which
 //   drain while the next tile's products run; an f32 output is stored from
 //   the registers;
 // - B given as (N, K) is K-major and copied like A; B given as (K, N), the
 //   JAX reference's layout, is copied as it lies in 64-column panels and
 //   read by wgmma with its transpose bit: no transposing pass;
-// - persistent blocks (at most 132) walk the tiles in raster groups of
-//   kRasterM row tiles, so a tile's epilogue overlaps the next tile's
-//   copies and no wave is left half empty beyond the last one;
 // - K is taken in stages of 64; a K that is a multiple of 32 but not of 64
 //   leaves a last stage that the tensor maps zero-fill (exact: the zeros
 //   add nothing to the sums).
-// f32: the CUDA cores, never TF32 (fma_tile_mainloop of mma_tile.cuh), one
-// 256-thread block per BM x BN output tile.
+// f32 (gemm_tf32x3_kernel): three TF32 products a k8 step, RS wgmma
+// m64nNk8 with A split in registers and B split into two tf32 panels by
+// the consumers (wgmma_gemm.cuh's wgmma_gemm_consume_tf32x3), 5-6 stages;
+// - a stage's products are summed in the wgmma accumulators, which round
+//   toward zero, and added to f32 registers by ordinary additions: over
+//   all of K in the wgmma accumulators the sums drifted out of f32's
+//   tolerance;
+// - TF32 has no transpose bit: B given as (K, N) is first transposed into a
+//   scratch (N, K) the wrapper allocates (f32_transpose_kernel: 2 K N x 4
+//   bytes moved, about 0.04 ms at 4096^2, inside the same call);
+// - every output (f32, bf16, f16) is stored from the registers;
+// - K is taken in stages of 32; a K that is a multiple of 8 but not of 32
+//   leaves a last stage that the tensor maps zero-fill.
 // The tile sizes are template instances chosen by a switch at launch (the
 // tunables of ops/matmul.py are exactly these lists), so one nvcc build
 // covers every tunable. Shapes the tile does not divide are refused by the
@@ -63,27 +76,44 @@ gemm16_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                     const float* __restrict__ sa,
                     const float* __restrict__ sb, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  wgmma_gemm16<T, BM, BN, BMN, false>(
+  wgmma_gemm<T, BM, BN, BMN, false>(
       smem_raw, &ta, &tb, &tc, GemmTiles<BM, BN>{tiles_m, tiles_n}, c, N, KT,
       out_dtype, scaled, sa, sb, scale);
 }
 
-// -- f32 kernel on the CUDA cores ---------------------------------------------
+// -- f32 on wgmma, three TF32 products a k8 step ------------------------------
 
-template <int BM, int BN, int BK, bool BT>
-__global__ void __launch_bounds__(NT)
-fma_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                void* __restrict__ c, int N, int K, int out_dtype, int scaled,
-                const float* __restrict__ sa, const float* __restrict__ sb,
-                float scale) {
-  extern __shared__ float4 smem4[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[BM / 16][BN / 16];
-  fma_tile_mainloop<BM, BN, BK, BT>(reinterpret_cast<float*>(smem4),
-                                    a + static_cast<int64_t>(m0) * K, BM, b, N,
-                                    K, n0, acc);
-  const Epilogue ep = make_epilogue(out_dtype, scaled, sa, sb, scale);
-  fma_tile_store<BM, BN>(ep, c, m0, BM, N, n0, acc);
+template <int BM, int BN>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   void* __restrict__ c, int tiles_m, int tiles_n, int N,
+                   int KT, int out_dtype, int scaled,
+                   const float* __restrict__ sa,
+                   const float* __restrict__ sb, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  wgmma_gemm<TF32, BM, BN, false, false>(
+      smem_raw, &ta, &tb, nullptr, GemmTiles<BM, BN>{tiles_m, tiles_n}, c, N,
+      KT, out_dtype, scaled, sa, sb, scale);
+}
+
+// bt (N, K) = b (K, N)^T in f32; N % 32 == 0, any K. A block of 256
+// threads moves a 32 x 32 tile through shared memory (a padded row, so the
+// column reads do not share banks): coalesced reads of b's rows, coalesced
+// writes of bt's.
+__global__ void __launch_bounds__(256)
+f32_transpose_kernel(const float* __restrict__ b, float* __restrict__ bt,
+                     int K, int N) {
+  __shared__ float s[32][33];
+  const int k0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
+  const int x = threadIdx.x % 32, y = threadIdx.x / 32;
+#pragma unroll
+  for (int r = y; r < 32; r += 8)
+    if (k0 + r < K) s[r][x] = b[static_cast<int64_t>(k0 + r) * N + n0 + x];
+  __syncthreads();
+#pragma unroll
+  for (int r = y; r < 32; r += 8)
+    if (k0 + x < K) bt[static_cast<int64_t>(n0 + r) * K + k0 + x] = s[x][r];
 }
 
 // -- launch -------------------------------------------------------------------
@@ -122,53 +152,76 @@ cudaError_t launch_gemm16(const void* a, const void* b, void* c, int M,
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int BK, bool BT>
-cudaError_t launch_fma(const void* a, const void* b, void* c, int M, int N,
-                       int K, int out_dtype, int scaled, const float* sa,
-                       const float* sb, float scale, cudaStream_t st) {
-  constexpr int smem = fma_smem_bytes<BM, BN, BK>();
-  static_assert(smem <= 48 * 1024, "the f32 tiles need no opt-in");
-  fma_gemm_kernel<BM, BN, BK, BT><<<dim3(N / BN, M / BM), NT, smem, st>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), c, N, K,
-      out_dtype, scaled, sa, sb, scale);
+// a (M, K) and b (N, K), f32, as rows of K x 4 bytes in boxes of BM and BN
+// rows; the output is stored from the registers (no map)
+template <int BM, int BN>
+cudaError_t launch_tf32x3(const void* a, const void* b, void* c, int M,
+                          int N, int K, int out_dtype, int scaled,
+                          const float* sa, const float* sb, float scale,
+                          cudaStream_t st) {
+  constexpr int smem = WgGemmTile<BM, BN, 4>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_tf32x3_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap ta, tb;
+  cudaError_t e = bytes_map(&ta, a, K * 4, M, BM);
+  if (e == cudaSuccess) e = bytes_map(&tb, b, K * 4, N, BN);
+  if (e != cudaSuccess) return e;
+  const int tm = M / BM, tn = N / BN;
+  const int blocks = tm * tn < kGemmMaxBlocks ? tm * tn : kGemmMaxBlocks;
+  gemm_tf32x3_kernel<BM, BN><<<blocks, kGemmThreads, smem, st>>>(
+      ta, tb, c, tm, tn, N, (K * 4 + kGemmKB - 1) / kGemmKB, out_dtype,
+      scaled, sa, sb, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace cubecl
 
-// The tile instances: (BM, BN, bytes of K a stage) for the wgmma body,
-// (BM, BN, K per stage) for f32. ops/matmul.py's kernel_tiles lists the
-// same.
+// The tile instances, (BM, BN, bytes of K a stage), of the 16-bit body and
+// of the f32 one: ops/matmul.py's kernel_tiles(2) and kernel_tiles(4) list
+// the same.
 #define CUBECL_WG16_TILES(X) \
   X(64, 128, 128) X(128, 128, 128) X(128, 256, 128) X(256, 128, 128)
-#define CUBECL_FMA_TILES(X) X(64, 64, 8) X(64, 64, 16) X(128, 128, 8) X(128, 128, 16)
+#define CUBECL_TF32_TILES(X) X(64, 64, 128) X(128, 128, 128)
 
-// a (M, K); b (K, N), or (N, K) when b_transposed; c (M, N); all
-// contiguous and 16-byte aligned, M % tm == N % tn == 0 and K % tk == 0
-// for f32, K % 32 == 0 for 16-bit operands (the wrapper checks). in_dtype:
-// kF32, kBF16 or kF16; out_dtype: kF32, kBF16 or kF16.
-// scaled: 0 none, 1 multiply by sa[0] * sb[0] (device scalars), 2 by
-// scale. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a type or tile this library was not built for:
-// kE4M3, kE5M2 and kI8 are matmul8.cu's (cubecl_matmul8), not this one's.
+// a (M, K); b (K, N), or (N, K) when b_transposed; c (M, N); scratch (N,
+// K) f32 when the operands are f32 and b is (K, N), else unused; all
+// contiguous and 16-byte aligned, M % tm == N % tn == 0, K % 8 == 0 for
+// f32 and K % 32 == 0 for 16-bit operands (the wrapper checks). in_dtype:
+// kF32, kBF16 or kF16; out_dtype: kF32, kBF16 or kF16. scaled: 0 none, 1
+// multiply by sa[0] * sb[0] (device scalars), 2 by scale. Returns
+// cudaGetLastError() after the last launch, or cudaErrorInvalidValue for a
+// type or tile this library was not built for: kE4M3, kE5M2 and kI8 are
+// matmul8.cu's (cubecl_matmul8), not this one's.
 extern "C" int cubecl_matmul(const void* a, const void* b, void* c,
-                             const float* sa, const float* sb, int in_dtype,
-                             int out_dtype, int M, int N, int K, int tm,
-                             int tn, int tk, int b_transposed, int scaled,
-                             float scale, void* stream) {
+                             void* scratch, const float* sa, const float* sb,
+                             int in_dtype, int out_dtype, int M, int N, int K,
+                             int tm, int tn, int tk, int b_transposed,
+                             int scaled, float scale, void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == kF32) {
-#define CUBECL_FMA(BM, BN, BK)                                                \
-  if (tm == BM && tn == BN && tk == BK)                                       \
-    return b_transposed                                                       \
-               ? launch_fma<BM, BN, BK, true>(a, b, c, M, N, K, out_dtype,    \
-                                              scaled, sa, sb, scale, st)      \
-               : launch_fma<BM, BN, BK, false>(a, b, c, M, N, K, out_dtype,   \
-                                               scaled, sa, sb, scale, st);
-    CUBECL_FMA_TILES(CUBECL_FMA)
-#undef CUBECL_FMA
+    bool built = false;
+#define CUBECL_TF32_BUILT(BM, BN, BKB) \
+  built |= tm == BM && tn == BN && tk * 4 == BKB;
+    CUBECL_TF32_TILES(CUBECL_TF32_BUILT)
+#undef CUBECL_TF32_BUILT
+    if (!built) return cudaErrorInvalidValue;
+    if (!b_transposed) {
+      f32_transpose_kernel<<<dim3(N / 32, (K + 31) / 32), 256, 0, st>>>(
+          static_cast<const float*>(b), static_cast<float*>(scratch), K, N);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      b = scratch;
+    }
+#define CUBECL_TF32(BM, BN, BKB)                                           \
+  if (tm == BM && tn == BN)                                                \
+    return launch_tf32x3<BM, BN>(a, b, c, M, N, K, out_dtype, scaled, sa,  \
+                                 sb, scale, st);
+    CUBECL_TF32_TILES(CUBECL_TF32)
+#undef CUBECL_TF32
     return cudaErrorInvalidValue;
   }
 #define CUBECL_WG16_TYPE(CODE, T)                                             \

@@ -5,14 +5,13 @@
 // - the epilogue that scales, converts and stores two neighbouring output
 //   columns (none, device scalars sa * sb, or a host scale), used by every
 //   GEMM body;
-// - the f32 tile loop on the CUDA cores, never TF32: each of 256 threads
-//   owns a (BM/16) x (BN/16) block of a BM x BN output tile and accumulates
-//   with fmaf over all of K. It takes `rows`, the number of the tile's BM
-//   rows of A that exist: a row at or past it is read as row rows - 1 (so
-//   a ragged tile reads nothing past its rows) and the store skips it. The
-//   matmul kernel passes BM.
+// - E1's f32 tile loop on the CUDA cores: each of 256 threads owns a
+//   (BM/16) x (BN/16) block of a BM x BN output tile and accumulates with
+//   fmaf over all of K. It takes `rows`, the number of the tile's BM rows
+//   of A that exist: a row at or past it is read as row rows - 1 (so a
+//   ragged tile reads nothing past its rows) and the store skips it.
 //
-// The 16- and 8-bit GEMMs run on wgmma (wgmma_gemm.cuh).
+// M1's GEMMs run on wgmma (wgmma_gemm.cuh), f32 as three TF32 products.
 #pragma once
 
 #include "common.cuh"
@@ -31,6 +30,8 @@ struct F16 { static constexpr int E = 2; using Acc = float; };
 struct E4M3 { static constexpr int E = 1; using Acc = float; };
 struct E5M2 { static constexpr int E = 1; using Acc = float; };
 struct S8 { static constexpr int E = 1; using Acc = int; };
+// f32 operands, run as three TF32 products (3xTF32)
+struct TF32 { static constexpr int E = 4; using Acc = float; };
 
 // -- the epilogue: scale, convert, store two neighbouring columns
 

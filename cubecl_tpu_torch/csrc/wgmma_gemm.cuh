@@ -2,16 +2,16 @@
 // tiles of out = epilogue(a @ b), fed by TMA into a ring of shared-memory
 // stages on mbarriers and multiplied by warpgroup wgmma. Every GEMM of the
 // port's tensor cores is built on it: the 8-bit matmul (matmul8.cu: M1's
-// fp8 and int8 cases, M2), the 16-bit matmul (matmul.cu: M1's bf16 and
-// f16 cases) and the per-expert GEMM (expert_matmul.cu: E1 bf16).
+// fp8 and int8 cases, M2), the 16-bit and f32 matmul (matmul.cu: M1's bf16,
+// f16 and f32 cases) and the per-expert GEMM (expert_matmul.cu: E1 bf16).
 //
-// - A stage holds 128 bytes of K (one 128-byte swizzle row: 128 8-bit or
-//   64 16-bit elements) of BM rows of A and BN columns of B, as TMA writes
-//   them with CU_TENSOR_MAP_SWIZZLE_128B (hopper.cuh's layout). A is
-//   K-major: one panel of BM rows x 128 bytes. B given as (N, K) is K-major
-//   too: one panel of BN rows. B given as (K, N) (16-bit only) is MN-major:
-//   BN / 64 panels of 64 rows of K x 64 columns (128 bytes), which the
-//   16-bit wgmma reads with its transpose bit.
+// - A stage holds 128 bytes of K (one 128-byte swizzle row: 128 8-bit, 64
+//   16-bit or 32 f32 elements) of BM rows of A and BN columns of B, as TMA
+//   writes them with CU_TENSOR_MAP_SWIZZLE_128B (hopper.cuh's layout). A
+//   is K-major: one panel of BM rows x 128 bytes. B given as (N, K) is
+//   K-major too: one panel of BN rows. B given as (K, N) (16-bit only) is
+//   MN-major: BN / 64 panels of 64 rows of K x 64 columns (128 bytes),
+//   which the 16-bit wgmma reads with its transpose bit.
 // - The block is warp-specialised: one thread of the producer warpgroup
 //   walks the block's tiles and issues every copy of every stage
 //   (wgmma_gemm_produce); two consumer warpgroups multiply and release a
@@ -26,14 +26,19 @@
 //   in shared memory by the consumers.
 // - bf16 and f16 run wgmma m64nNk16.f32 (N = WN: 64, 128 or 256) on both
 //   operands in shared memory, four k16 steps a stage, f32 accumulators.
+// - f32 runs as three TF32 products a k8 step (3xTF32, see its consumer
+//   below): wgmma m64nNk8.f32.tf32.tf32 (N = WN: 32 or 128), A split in
+//   registers, B split into two tf32 panels in shared memory by the
+//   consumers, a stage's products summed in the wgmma accumulators and
+//   added to f32 accumulators in registers.
 // - Tiles come from a schedule. The 8-bit kernel takes one tile a block
-//   (OneTile); the 16-bit kernels are persistent: at most 132 blocks (the
-//   H100's SMs), each walking the tiles of a schedule in a static stride
-//   (block b takes tiles b, b + grid, ...), the ring running on from one
-//   tile into the next, so a tile's epilogue overlaps the next one's
-//   copies. M1's schedule (GemmTiles) walks groups of kRasterM row tiles
-//   column by column, so that the blocks in flight share B's panels in
-//   L2; E1's (expert_matmul.cu) walks only the live tiles.
+//   (OneTile); the 16-bit and f32 kernels are persistent: at most 132
+//   blocks (the H100's SMs), each walking the tiles of a schedule in a
+//   static stride (block b takes tiles b, b + grid, ...), the ring running
+//   on from one tile into the next, so a tile's epilogue overlaps the next
+//   one's copies. M1's schedule (GemmTiles) walks groups of kRasterM row
+//   tiles column by column, so that the blocks in flight share B's panels
+//   in L2; E1's (expert_matmul.cu) walks only the live tiles.
 // - The accumulators stay in registers (f32, s32 for int8) and the epilogue
 //   (mma_tile.cuh's Epilogue: none, device scalars or a host scale) stores
 //   them straight from there, except a 16-bit body's 16-bit output: a
@@ -45,11 +50,12 @@
 //   registers.
 //
 // K: a stage past the end of K (a 16-bit K that is a multiple of 32 but
-// not of 64) is zero-filled by the tensor map in both operands, and a
-// product of zeros adds exactly 0 to every sum, so the ragged last stage
-// needs no masking. 8-bit wgmma has no transpose bit: both 8-bit operands
-// must be K-major, so 8-bit B given as (K, N) is transposed to (N, K)
-// before the GEMM (matmul8.cu).
+// not of 64, an f32 K that is a multiple of 8 but not of 32) is
+// zero-filled by the tensor map in both operands, and a product of zeros
+// adds exactly 0 to every sum, so the ragged last stage needs no masking.
+// 8-bit and TF32 wgmma have no transpose bit: both operands must be
+// K-major, so 8-bit and f32 B given as (K, N) is transposed to (N, K)
+// before the GEMM (matmul8.cu, matmul.cu).
 #pragma once
 
 #include "hopper.cuh"
@@ -66,30 +72,34 @@ constexpr int kPanel = 64 * kGemmKB;  // an MN-major B panel: 64 rows of K
 constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
 
 // the tile's shared memory for E-byte operands: the ring of stages, the
-// fp8 route's two f16 B panels (2 x 128 rows x 256 bytes) or the 16-bit
-// route's output tile (BM x BN x 2 bytes, staged for its TMA stores), then
-// the full and empty barriers of each stage, plus the slack that aligns the
-// base to 1024 bytes. The 8-bit ring holds as many stages as 144 KiB hold,
-// at most 5; the 16-bit one as many as the rest of the block's 227 KiB
-// holds, at most 6. ops/matmul.py's _matmul_smem repeats this arithmetic.
+// B panels the consumers write (two buffers: fp8's two f16 panels of 64 k,
+// f32's big and small tf32 panels, BN rows x 256 bytes a buffer either
+// way) or the 16-bit route's output tile (BM x BN x 2 bytes, staged for its
+// TMA stores), then the full and empty barriers of each stage, plus the
+// slack that aligns the base to 1024 bytes. The 8-bit ring holds as many
+// stages as 144 KiB hold, at most 5; the 16-bit and f32 ones as many as the
+// rest of the block's 227 KiB holds, at most 6. ops/matmul.py's
+// _matmul_smem repeats this arithmetic.
 template <int BM, int BN, int E>
 struct WgGemmTile {
   static_assert(E == 1 ? BM % 128 == 0 && BM <= 256 && BN == 128
-                       : (BM == 64 || BM == 128 || BM == 256) &&
-                             (BN == 128 || BN == 256) && BM * BN <= 32768,
+                : E == 2 ? (BM == 64 || BM == 128 || BM == 256) &&
+                               (BN == 128 || BN == 256) && BM * BN <= 32768
+                         : (BM == 64 || BM == 128) && (BN == 64 || BN == 128),
                 "tile");
   static constexpr int A_BYTES = BM * kGemmKB;
   static constexpr int STAGE = A_BYTES + BN * kGemmKB;
   static constexpr int MAX_STAGES = E == 1 ? 5 : 6;
-  static constexpr int OUT_BYTES = E == 1 ? 0 : BM * BN * 2;
+  static constexpr int OUT_BYTES = E == 2 ? BM * BN * 2 : 0;
+  static constexpr int F16B_BYTES = E == 2 ? 0 : BN * 2 * kGemmKB;
   static constexpr int RING =
       E == 1 ? 144 * 1024
-             : kSmemMax - 1024 - 2 * MAX_STAGES * 8 - OUT_BYTES;
+             : kSmemMax - 1024 - 2 * MAX_STAGES * 8 - OUT_BYTES -
+                   2 * F16B_BYTES;
   static constexpr int STAGES =
       RING / STAGE < MAX_STAGES ? RING / STAGE : MAX_STAGES;
-  static constexpr int F16B = STAGES * STAGE;   // the f16 B panels
+  static constexpr int F16B = STAGES * STAGE;   // the converted B panels
   static constexpr int OUT = F16B;              // the 16-bit output tile
-  static constexpr int F16B_BYTES = E == 1 ? BN * 2 * kGemmKB : 0;
   static constexpr int BAR = F16B + 2 * F16B_BYTES + OUT_BYTES;
   static constexpr int SMEM = BAR + 2 * STAGES * 8 + 1024;
   // a consumer's share of the tile
@@ -107,13 +117,15 @@ struct WgGemmTile {
 #define CUBECL_WG_32(C, o)                                                 \
   CUBECL_WG_8(C, o), CUBECL_WG_8(C, o + 8), CUBECL_WG_8(C, o + 16),        \
       CUBECL_WG_8(C, o + 24)
+#define CUBECL_WG_16(C) CUBECL_WG_8(C, 0), CUBECL_WG_8(C, 8)
 #define CUBECL_WG_64(C) CUBECL_WG_32(C, 0), CUBECL_WG_32(C, 32)
 #define CUBECL_WG_128(C) CUBECL_WG_64(C), CUBECL_WG_32(C, 64), \
                          CUBECL_WG_32(C, 96)
-#define CUBECL_WG_R32                                                      \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
+#define CUBECL_WG_R16                                                      \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define CUBECL_WG_R32 CUBECL_WG_R16                                        \
+  ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "    \
+  "%29, %30, %31"
 #define CUBECL_WG_R64 CUBECL_WG_R32                                        \
   ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "    \
   "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, " \
@@ -163,21 +175,34 @@ __device__ __forceinline__ void wgmma_f16_rs_n128(float (&d)[64],
                  : OUTS                                                     \
                  : "l"(da), "l"(db), "r"(1), "n"(int(TB)));                 \
   }
+#define CUBECL_AFTER16(i) CUBECL_AFTER16_##i
+#define CUBECL_AFTER16_0 "16"
+#define CUBECL_AFTER16_1 "17"
+#define CUBECL_AFTER16_2 "18"
+#define CUBECL_AFTER16_3 "19"
+#define CUBECL_AFTER16_4 "20"
+#define CUBECL_AFTER16_5 "21"
 #define CUBECL_AFTER32(i) CUBECL_AFTER32_##i
 #define CUBECL_AFTER32_0 "32"
 #define CUBECL_AFTER32_1 "33"
 #define CUBECL_AFTER32_2 "34"
 #define CUBECL_AFTER32_3 "35"
+#define CUBECL_AFTER32_4 "36"
+#define CUBECL_AFTER32_5 "37"
 #define CUBECL_AFTER64(i) CUBECL_AFTER64_##i
 #define CUBECL_AFTER64_0 "64"
 #define CUBECL_AFTER64_1 "65"
 #define CUBECL_AFTER64_2 "66"
 #define CUBECL_AFTER64_3 "67"
+#define CUBECL_AFTER64_4 "68"
+#define CUBECL_AFTER64_5 "69"
 #define CUBECL_AFTER128(i) CUBECL_AFTER128_##i
 #define CUBECL_AFTER128_0 "128"
 #define CUBECL_AFTER128_1 "129"
 #define CUBECL_AFTER128_2 "130"
 #define CUBECL_AFTER128_3 "131"
+#define CUBECL_AFTER128_4 "132"
+#define CUBECL_AFTER128_5 "133"
 #define CUBECL_WG16_TYPE(T, PTX)                                            \
   CUBECL_WG16(T, PTX, 64, CUBECL_WG_32(CUBECL_WG_F, 0), CUBECL_WG_R32,     \
               CUBECL_AFTER32)                                               \
@@ -188,28 +213,79 @@ __device__ __forceinline__ void wgmma_f16_rs_n128(float (&d)[64],
 CUBECL_WG16_TYPE(BF16, "bf16.bf16")
 CUBECL_WG16_TYPE(F16, "f16.f16")
 #undef CUBECL_WG16_TYPE
+
+// d (64 x N, f32) = A (64 x 8, tf32) . B (8 x N, tf32, K-major in shared
+// memory: descriptor db) + d, or + 0 when acc is 0; N = 2 x the
+// accumulators a thread. A in registers (RS): a[0..3] are A's rows g, g +
+// 8, g, g + 8 and columns t, t, t + 4, t + 4 of the warp's 16 rows (g =
+// lane / 4, t = lane % 4); or A K-major in shared memory (SS: descriptor
+// da). TF32 has no transpose bit. A tf32 operand is an f32 bit pattern
+// whose low 13 bits are zero.
+#define CUBECL_TF32(N, OUTS, REGS, NEXT)                                   \
+  __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],            \
+                                             const uint32_t (&a)[4],       \
+                                             uint64_t db, int acc = 1) {   \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" NEXT(5) ", 0;\n"   \
+                 " wgmma.mma_async.sync.aligned.m64n" #N                   \
+                 "k8.f32.tf32.tf32 {" REGS "}, {%" NEXT(0) ", %" NEXT(1)   \
+                 ", %" NEXT(2) ", %" NEXT(3) "}, %" NEXT(4) ", p, 1, 1;\n}\n" \
+                 : OUTS                                                     \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                   "r"(acc));                                               \
+  }                                                                         \
+  __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],            \
+                                             uint64_t da, uint64_t db,     \
+                                             int acc = 1) {                \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" NEXT(2) ", 0;\n"   \
+                 " wgmma.mma_async.sync.aligned.m64n" #N                   \
+                 "k8.f32.tf32.tf32 {" REGS "}, %" NEXT(0) ", %" NEXT(1)    \
+                 ", p, 1, 1;\n}\n"                                          \
+                 : OUTS                                                     \
+                 : "l"(da), "l"(db), "r"(acc));                            \
+  }
+CUBECL_TF32(32, CUBECL_WG_16(CUBECL_WG_F), CUBECL_WG_R16, CUBECL_AFTER16)
+CUBECL_TF32(64, CUBECL_WG_32(CUBECL_WG_F, 0), CUBECL_WG_R32, CUBECL_AFTER32)
+CUBECL_TF32(128, CUBECL_WG_64(CUBECL_WG_F), CUBECL_WG_R64, CUBECL_AFTER64)
+CUBECL_TF32(256, CUBECL_WG_128(CUBECL_WG_F), CUBECL_WG_R128,
+            CUBECL_AFTER128)
+#undef CUBECL_TF32
+#undef CUBECL_AFTER128_5
+#undef CUBECL_AFTER128_4
 #undef CUBECL_AFTER128_3
 #undef CUBECL_AFTER128_2
 #undef CUBECL_AFTER128_1
 #undef CUBECL_AFTER128_0
 #undef CUBECL_AFTER128
+#undef CUBECL_AFTER64_5
+#undef CUBECL_AFTER64_4
 #undef CUBECL_AFTER64_3
 #undef CUBECL_AFTER64_2
 #undef CUBECL_AFTER64_1
 #undef CUBECL_AFTER64_0
 #undef CUBECL_AFTER64
+#undef CUBECL_AFTER32_5
+#undef CUBECL_AFTER32_4
 #undef CUBECL_AFTER32_3
 #undef CUBECL_AFTER32_2
 #undef CUBECL_AFTER32_1
 #undef CUBECL_AFTER32_0
 #undef CUBECL_AFTER32
+#undef CUBECL_AFTER16_5
+#undef CUBECL_AFTER16_4
+#undef CUBECL_AFTER16_3
+#undef CUBECL_AFTER16_2
+#undef CUBECL_AFTER16_1
+#undef CUBECL_AFTER16_0
+#undef CUBECL_AFTER16
 #undef CUBECL_WG16
 #undef CUBECL_WG_R128
 #undef CUBECL_WG_R64
 #undef CUBECL_WG_R32
+#undef CUBECL_WG_R16
 #undef CUBECL_WG_128
 #undef CUBECL_WG_64
 #undef CUBECL_WG_32
+#undef CUBECL_WG_16
 #undef CUBECL_WG_8
 #undef CUBECL_WG_I
 #undef CUBECL_WG_F
@@ -251,6 +327,62 @@ template <int N>
 __device__ __forceinline__ void acc_fence(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// acc += part, after the wait that completes part's group (ordinary f32
+// additions, rounded to nearest)
+template <int MI, int N>
+__device__ __forceinline__ void acc_fence_add(float (&acc)[MI][N],
+                                              float (&part)[MI][N]) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    acc_fence(part[mi]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[mi][j] += part[mi][j];
+  }
+}
+
+// -- 3xTF32: an f32 operand as the sum of two tf32 values ------------------
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as the f32 bit pattern that a tf32 wgmma operand is: cvt.rna.tf32.f32's
+// rounding (half a tf32 ulp added to the magnitude's bits, the 13 low bits
+// cleared; an overflow rounds to infinity, as cvt.rna's does; an infinity
+// stays one) in two integer instructions. Not for a NaN: the addition
+// carries a NaN's mantissa into its exponent and sign (0x7fffffff, the
+// NaN that CUDA's arithmetic returns, comes out as -0) or rounds it to
+// infinity (0x7f800001).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// the split of x: big = tf32(x) and small = tf32(x - big), x - big being
+// exact in f32; x = big + small to about 2^-22 of |x|. A NaN's big is
+// 0x7fffffff, a NaN to the tensor cores too (they read the 19 high bits
+// only: a NaN whose mantissa is all in the 13 low bits would be an
+// infinity there). Where big is not finite, x - big is NaN (0x7fffffff)
+// and small -0. So an output whose row of A and column of B are finite is
+// the f32 product to 3xTF32's precision; a NaN operand gives NaN wherever
+// the f32 product does; an infinite operand gives NaN or an infinity of
+// the f32 product's sign where that product is infinite (the cross terms
+// inf . small are NaN where the other operand's small half is 0, a value
+// that tf32 holds exactly, and an infinity of the other sign where that
+// half's sign is not the value's). A finite operand that tf32 rounds to
+// infinity (|x| at least (2 - 2^-11) 2^127) acts as an infinity. The
+// guard is one compare and select a value: the split is a large share of
+// the consumers' work (a finite-check on each half as well ran the 4096^3
+// GEMM 31% slower, PERF.md).
+__device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& big,
+                                           uint32_t& small) {
+  const float f = __uint_as_float(x);
+  big = isnan(f) ? 0x7fffffffu : tf32_rna(f);
+  small = tf32_rna(f - __uint_as_float(big));
+}
+// the split of four neighbouring values (a 16-byte chunk)
+__device__ __forceinline__ void tf32_split4(const uint4& x, uint4& big,
+                                            uint4& small) {
+  tf32_split(x.x, big.x, small.x);
+  tf32_split(x.y, big.y, small.y);
+  tf32_split(x.z, big.z, small.z);
+  tf32_split(x.w, big.w, small.w);
 }
 
 // -- schedules: which tiles a block computes ---------------------------------
@@ -558,6 +690,116 @@ __device__ __forceinline__ void wgmma_gemm_consume16(
   for (int mi = 0; mi < L::MI; ++mi) acc_fence(acc[mi]);
 }
 
+// f32 (3xTF32), one tile: out = a @ b in f32 from three TF32 products a
+// k8 step. One TF32 product keeps 10 mantissa bits of each operand and
+// misses f32's 2e-5 / 1e-4 by far; with each operand split into big =
+// tf32(x) and small = tf32(x - big), A_small B_big + A_big B_small + A_big
+// B_big drops only A_small B_small (about 2^-22 of a product): as close to
+// the float64 product as an f32 FMA loop is (the TPU kernel runs f32 at
+// Precision.HIGHEST, several bf16 passes on its matrix unit, for the same
+// reason). The tensor cores' f32 sums round toward zero: kept in the
+// wgmma accumulators over all of K they drift out of f32's 2e-5 / 1e-4 on
+// the H100 (a build that kept them so failed the f32 card checks at K
+// 4096: tests/test_torch_cuda.py, chip_smoke.py's phase m). So each
+// stage's twelve products go into `part`, started from zero, and
+// part is added to the f32 accumulator `acc` by ordinary (round to
+// nearest) additions once the stage's group has completed: the drift is
+// a stage's, on sums of 32 products. TF32 wgmma has no transpose bit, so
+// both operands are K-major. Each landed stage:
+// - B: the consumers split the stage's BN x 32 f32 into a big and a small
+//   tf32 panel in shared memory, each 16-byte chunk at the same swizzled
+//   offset it had (the layout does not change), double-buffered so that
+//   one stage's split overlaps the previous stage's products;
+// - A: ldmatrix.x4 of the stage's 32-byte k8 column gives a thread its
+//   four f32 of the step in the RS fragment's order (each 32-bit word of
+//   an 8 x 8 b16 matrix is one f32: row lane / 4, column lane % 4), split
+//   in registers; all four k8 steps' halves stay live until their group
+//   completes;
+// - the stage is released after the proxy fence (F11's order, as fp8's),
+//   the consumers meet at a barrier (every share of B split), and each
+//   k8 step issues A_small B_big, A_big B_small, then A_big B_big into
+//   part, one group a stage.
+// acc[mi] is the m64 x WN f32 tile of the consumer's rows 64 mi (part's
+// registers beside it: at most 64 each, so BM x BN is at most 128 x 128);
+// a_off and b_off its offsets into a stage's A and into a B panel; `pos`
+// and `panel` (the B panel buffer next written) run on from the previous
+// tile.
+template <int BM, int BN>
+__device__ __forceinline__ void wgmma_gemm_consume_tf32x3(
+    uint8_t* smem, uint64_t* full, uint64_t* empty, int a_off, int b_off,
+    int KT, RingPos<WgGemmTile<BM, BN, 4>::STAGES>& pos, int& panel,
+    float (&acc)[WgGemmTile<BM, BN, 4>::MI][WgGemmTile<BM, BN, 4>::WN / 2]) {
+  using L = WgGemmTile<BM, BN, 4>;
+  constexpr int PB = BN * kGemmKB;  // a panel: the small one follows the big
+  const int tid = threadIdx.x - 128;  // 0..255 over both consumers
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float part[L::MI][L::WN / 2];
+#pragma unroll
+  for (int mi = 0; mi < L::MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < L::WN / 2; ++j) acc[mi][j] = part[mi][j] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    mbar_wait(&full[pos.st], pos.phase);
+    const uint8_t* stage = smem + pos.st * L::STAGE;
+    // 1. B's split, this thread's 16-byte chunks; the buffer's last reader
+    //    (the group of two stages ago) was waited for before the last
+    //    barrier
+    uint8_t* pb = smem + L::F16B + panel * L::F16B_BYTES;
+#pragma unroll
+    for (int i = tid; i < PB / 16; i += 256) {
+      uint4 big, small;
+      tf32_split4(*reinterpret_cast<const uint4*>(stage + L::A_BYTES + 16 * i),
+                  big, small);
+      *reinterpret_cast<uint4*>(pb + 16 * i) = big;
+      *reinterpret_cast<uint4*>(pb + PB + 16 * i) = small;
+    }
+    // 2. the previous group has completed: its part joins acc, and the A
+    //    registers are free
+    wgmma_wait0();
+    acc_fence_add(acc, part);
+    // 3. A's halves, 4 k8 steps of each m64 block
+    uint32_t ab[L::MI][4][4], as[L::MI][4][4];
+    const uint32_t a_s = smem_addr(stage) + a_off;
+#pragma unroll
+    for (int mi = 0; mi < L::MI; ++mi) {
+      const int row = mi * 64 + warp * 16 + (lane & 15);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t r[4];
+        ldsm_x4(r, a_s + row * kGemmKB +
+                       (((2 * s + (lane >> 4)) ^ (row & 7)) << 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tf32_split(r[j], ab[mi][s][j], as[mi][s][j]);
+      }
+    }
+    // 4. this warp is done with the stage: fence, then release (F11)
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[pos.st]);
+    // 5. every consumer's share of B is split
+    consumers_sync();
+    const uint32_t b_s = smem_addr(pb) + b_off;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t big = sw128_desc(b_s + s * 32, 16, 1024);
+      const uint64_t small = sw128_desc(b_s + PB + s * 32, 16, 1024);
+#pragma unroll
+      for (int mi = 0; mi < L::MI; ++mi) {
+        wgmma_tf32(part[mi], as[mi][s], big, s);  // s 0: part from zero
+        wgmma_tf32(part[mi], ab[mi][s], small);
+        wgmma_tf32(part[mi], ab[mi][s], big);
+      }
+    }
+    wgmma_commit();
+    panel ^= 1;
+    pos.advance();
+  }
+  wgmma_wait0();
+  acc_fence_add(acc, part);
+}
+
 // Store a consumer's tile through the epilogue: c has rows of N elements,
 // row0 is the consumer's first row, n0 its first column; when BOUNDED,
 // rows at or past row_end are skipped.
@@ -671,20 +913,24 @@ __device__ __forceinline__ void wgmma_gemm_store_tma(
   }
 }
 
-// The 16-bit GEMM body of a persistent block (M1's bf16 / f16 kernels, E1
-// bf16): every tile of `sched` that this block walks, KT stages each, into
-// c (rows of N elements) through the epilogue. A 16-bit output leaves by
-// TMA stores through tc (c as (z, rows, N bytes) in boxes of 64 rows x
-// 128 bytes) where all of a consumer's rows are stored, else (a tile with
-// rows past row_end, or an f32 output) from the registers. smem: the
-// kernel's dynamic shared memory, WgGemmTile<BM, BN, 2>::SMEM bytes.
+// The GEMM body of a persistent block, 16-bit (T = BF16 or F16: M1's bf16
+// / f16 kernels, E1 bf16) or f32 (T = TF32: M1's f32 kernels, 3xTF32,
+// B K-major): every tile of `sched` that this block walks, KT stages
+// each, into c (rows of N elements) through the epilogue. A 16-bit body's
+// 16-bit output leaves by TMA stores through tc (c as (z, rows, N bytes)
+// in boxes of 64 rows x 128 bytes) where all of a consumer's rows are
+// stored; every other output (a tile with rows past row_end, an f32
+// output, any output of the f32 body) from the registers. smem: the
+// kernel's dynamic shared memory, WgGemmTile<BM, BN, T::E>::SMEM bytes.
 template <typename T, int BM, int BN, bool BMN, bool BOUNDED, typename Sched>
-__device__ __forceinline__ void wgmma_gemm16(
+__device__ __forceinline__ void wgmma_gemm(
     uint8_t* smem_raw, const CUtensorMap* ta, const CUtensorMap* tb,
     const CUtensorMap* tc, Sched sched, void* c, int N, int KT,
     int out_dtype, int scaled, const float* sa, const float* sb,
     float scale) {
-  using L = WgGemmTile<BM, BN, 2>;
+  constexpr bool F32 = T::E == 4;
+  static_assert(!(F32 && BMN), "TF32 wgmma reads K-major B only");
+  using L = WgGemmTile<BM, BN, T::E>;
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* empty = full + L::STAGES;
@@ -700,8 +946,8 @@ __device__ __forceinline__ void wgmma_gemm16(
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0)
-      wgmma_gemm_produce<BM, BN, 2, BMN>(smem, full, empty, ta, tb, sched,
-                                         KT);
+      wgmma_gemm_produce<BM, BN, T::E, BMN>(smem, full, empty, ta, tb, sched,
+                                            KT);
     return;
   }
   setmaxnreg_inc<240>();
@@ -713,21 +959,29 @@ __device__ __forceinline__ void wgmma_gemm16(
   const int b_off = BMN ? (wn0 / 64) * kPanel : wn0 * kGemmKB;
   const Epilogue ep = make_epilogue(out_dtype, scaled, sa, sb, scale);
   RingPos<L::STAGES> pos;
+  int panel = 0;  // the f32 body's next B panel buffer
   float acc[L::MI][L::WN / 2];
-  uint8_t* out = smem + L::OUT + wg * L::WM * L::WN * 2;  // this consumer's
   GemmJob j;
   for (int t = blockIdx.x; sched.get(t, j); t += gridDim.x) {
-    wgmma_gemm_consume16<BM, BN, BMN>(T{}, smem, full, empty, a_off, b_off,
-                                      KT, pos, acc);
-    if (out_dtype != kF32 &&
-        (!BOUNDED || j.crow0 + wm0 + L::WM <= j.row_end))
-      wgmma_gemm_store_tma(ep, out, tc, (j.n0 + wn0) * 2, j.m0 + wm0, j.z, wg,
-                           acc);
-    else
-      wgmma_gemm_store<BOUNDED>(ep, c, j.crow0 + wm0, j.row_end, N,
-                                j.n0 + wn0, acc);
+    if constexpr (F32) {
+      wgmma_gemm_consume_tf32x3<BM, BN>(smem, full, empty, a_off, b_off, KT,
+                                        pos, panel, acc);
+    } else {
+      wgmma_gemm_consume16<BM, BN, BMN>(T{}, smem, full, empty, a_off, b_off,
+                                        KT, pos, acc);
+    }
+    if constexpr (!F32) {
+      if (out_dtype != kF32 &&
+          (!BOUNDED || j.crow0 + wm0 + L::WM <= j.row_end)) {
+        wgmma_gemm_store_tma(ep, smem + L::OUT + wg * L::WM * L::WN * 2, tc,
+                             (j.n0 + wn0) * 2, j.m0 + wm0, j.z, wg, acc);
+        continue;
+      }
+    }
+    wgmma_gemm_store<BOUNDED>(ep, c, j.crow0 + wm0, j.row_end, N, j.n0 + wn0,
+                              acc);
   }
-  if (threadIdx.x % 128 == 0) tma_store_wait();
+  if (!F32 && threadIdx.x % 128 == 0) tma_store_wait();
 }
 
 // -- tensor maps (host) ----------------------------------------------------

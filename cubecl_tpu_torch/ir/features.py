@@ -42,24 +42,27 @@ class GpuGeneration:
     int8_ops: float       # tensor cores
     f32_flops: float      # CUDA cores
     hbm_bw: float         # device memory, bytes/s
+    tf32_flops: float     # tensor cores, TF32
 
     def peak(self, dtype: str) -> float:
         """The peak rate of a GEMM on ``dtype`` operands (a numpy/torch
-        dtype name): f32 runs off the tensor cores (no TF32)."""
+        dtype name). An f32 GEMM runs at the faster of the CUDA cores and
+        three TF32 products (3xTF32: one TF32 product does not hold f32's
+        tolerance, three do; ``csrc/wgmma_gemm.cuh``)."""
         if dtype in ("float8_e4m3fn", "float8_e5m2"):
             return self.fp8_flops
         if dtype in ("int8", "uint8"):
             return self.int8_ops
         if dtype in ("bfloat16", "float16"):
             return self.bf16_flops
-        return self.f32_flops
+        return max(self.f32_flops, self.tf32_flops / 3)
 
 
 GPU_GENERATIONS = {
     "h100-sxm": GpuGeneration("h100-sxm", 989e12, 1979e12, 1979e12, 67e12,
-                              3.35e12),
+                              3.35e12, 495e12),
     "h100-pcie": GpuGeneration("h100-pcie", 756e12, 1513e12, 1513e12,
-                               51e12, 2.0e12),
+                               51e12, 2.0e12, 378e12),
 }
 
 

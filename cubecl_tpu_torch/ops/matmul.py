@@ -14,23 +14,29 @@ package:
    the 8-bit ``wgmma``, fp8 as exact f16 values on the 16-bit one, whose
    sums hold f32's tolerance where the 8-bit one's do not; 8-bit B given
    as (K, N) is byte-transposed into a scratch (N, K) first, in the same
-   call). f32 runs FMA on the CUDA cores (``csrc/matmul.cu``; never TF32:
-   the TPU kernel runs f32 at ``Precision.HIGHEST``). int8 accumulates
-   exactly in int32. B comes as (K, N) or, with ``b_transposed``, as (N,
-   K). An epilogue multiplies the accumulator by ``sa * sb``: device
-   scalars for M1's scaled form (the ``matmul_quantized`` route), host
-   floats for M2 (``matmul_scaled``). On CPU tensors the same entry points
-   run :func:`matmul_plain`. Bound at 4096^3 on the H100: 2 * 4096^3
+   call). f32 runs on the same mainloop as three TF32 products a k8 step
+   (3xTF32: each operand split into big = tf32(x) and small = tf32(x -
+   big), A_small B_big + A_big B_small + A_big B_big summed in f32, as
+   close to the float64 product as an f32 FMA loop; one TF32 product would
+   miss the f32 tolerance of the TPU kernel's ``Precision.HIGHEST``); TF32
+   has no transpose bit, so f32 B given as (K, N) is transposed into a
+   scratch (N, K) first, in the same call. int8 accumulates exactly in
+   int32. B comes as (K, N) or, with ``b_transposed``, as (N, K). An
+   epilogue multiplies the accumulator by ``sa * sb``: device scalars for
+   M1's scaled form (the ``matmul_quantized`` route), host floats for M2
+   (``matmul_scaled``). On CPU tensors the same entry points run
+   :func:`matmul_plain`. Bound at 4096^3 on the H100: 2 * 4096^3
    operations over the dtype's peak — bf16/f16 0.139 ms, fp8 and int8
-   0.069 ms (fp8 on the f16 route: 0.139), f32 on the CUDA cores 2.05 ms;
-   the bytes are 0.03 ms. ``matmul_pallas.launches`` and
+   0.069 ms (fp8 on the f16 route: 0.139), f32 the lesser of the CUDA
+   cores' 2.05 ms and three TF32 products' 0.833 ms; the bytes are 0.03
+   ms. ``matmul_pallas.launches`` and
    ``matmul_scaled.launches`` count the kernel's launches that run
    outside a CUDA graph: eager calls and a graph's warm launch, not its
    recording nor its replays.
 2. ``matmul_cmma`` — the DSL path (K0): ``matmul_cmma_kernel`` and
    ``matmul_cmma_nd_kernel``, cube-scope cmma fragments that the CUDA
-   printer keeps in shared memory and the torch evaluator computes with
-   ``torch.bmm``.
+   printer runs on ``wgmma`` (16-bit, and f32 as 3xTF32) and the torch
+   evaluator computes with ``torch.bmm``.
 
 ``matmul_autotuned`` times every tile candidate of the shape through a
 captured CUDA graph (``tune/``) and keeps the winner in the sqlite store.
@@ -38,9 +44,9 @@ The candidates are the kernel's compiled tile instances (``kernel_tiles``)
 that the H100 admits for the shape (``_tile_candidates``); tunable names
 stay ``t{tm}x{tn}x{tk}``. Shapes a tile does not divide raise
 ``ValueError``, as the JAX wrapper asserts; a 16-bit tile's ``tk`` is
-64 (a stage of 128 bytes), but K need only be a multiple of 32
-(``_k_unit``): the kernel's tensor maps zero-fill a last half stage,
-which adds nothing to the sums.
+64 and an f32 tile's 32 (a stage of 128 bytes), but K need only be a
+multiple of 32 and of 8 (``_k_unit``): the kernel's tensor maps
+zero-fill a last partial stage, which adds nothing to the sums.
 """
 
 from __future__ import annotations
@@ -69,24 +75,23 @@ from ..utils import native
 # 1. the hand-written GEMM (csrc/matmul.cu)
 # ---------------------------------------------------------------------------
 
-NT = 256                 # threads per block of the f32 kernel
 WG_THREADS = 384         # the wgmma kernels: producer + 2 consumer warpgroups
-WG_MAX_BLOCKS = 132      # persistent blocks of the 16-bit kernel: the SMs
+WG_MAX_BLOCKS = 132      # persistent blocks of the 16-bit and f32 kernels
 MAX_SMEM = 227 * 1024    # dynamic shared memory a block may use
 MAX_ACC_REGS = 128       # accumulator registers per thread (of 255)
 # the wgmma kernels (csrc/wgmma_gemm.cuh's WgGemmTile): (BM, BN) and 128
 # bytes of K a stage (one swizzle row); 8-bit (csrc/matmul8.cu's
-# CUBECL_WG_TILES) a ring of up to 5 stages in 144 KiB and two f16 panels
-# of B, 16-bit (csrc/matmul.cu's CUBECL_WG16_TILES) its output tile staged
-# for TMA stores (BM x BN x 2 bytes) and a ring of up to 6 stages in the
-# rest of MAX_SMEM
+# CUBECL_WG_TILES) a ring of up to 5 stages in 144 KiB and two buffers of
+# B's f16 panels, 16-bit (csrc/matmul.cu's CUBECL_WG16_TILES) its output
+# tile staged for TMA stores (BM x BN x 2 bytes) and a ring of up to 6
+# stages in the rest of MAX_SMEM, f32 (csrc/matmul.cu's CUBECL_TF32_TILES)
+# two buffers of B's big and small tf32 panels and a ring of up to 6
+# stages in the rest
 _WG_KB = 128
 _WG_MN = {1: ((128, 128), (256, 128)),
-          2: ((64, 128), (128, 128), (128, 256), (256, 128))}
-_WG_MAX_STAGES = {1: 5, 2: 6}
-# the f32 kernel: (BM, BN) x K per stage
-_FMA_MN = ((64, 64), (128, 128))
-_FMA_K = (8, 16)
+          2: ((64, 128), (128, 128), (128, 256), (256, 128)),
+          4: ((64, 64), (128, 128))}
+_WG_MAX_STAGES = {1: 5, 2: 6, 4: 6}
 
 # the operand dtypes the kernel takes, and its output dtypes
 IN_DTYPES = ("float32", "bfloat16", "float16", "float8_e4m3fn",
@@ -103,34 +108,38 @@ def _wg_out_bytes(tm: int, tn: int, in_bytes: int) -> int:
     return tm * tn * 2 if in_bytes == 2 else 0
 
 
+def _wg_panel_bytes(tn: int, in_bytes: int) -> int:
+    """One buffer of the B panels the consumers write
+    (WgGemmTile::F16B_BYTES): fp8's two f16 panels of 64 k, f32's big and
+    small tf32 panels; the 16-bit kernel writes none."""
+    return 0 if in_bytes == 2 else tn * 2 * _WG_KB
+
+
 def _wg_stages(tm: int, tn: int, in_bytes: int = 1) -> int:
     """Stages of a wgmma kernel's ring: as many as its ring's bytes hold, at
     most its cap (wgmma_gemm.cuh's WgGemmTile::STAGES)."""
     cap = _WG_MAX_STAGES[in_bytes]
     ring = 144 * 1024 if in_bytes == 1 else \
-        MAX_SMEM - 1024 - 16 * cap - _wg_out_bytes(tm, tn, in_bytes)
+        MAX_SMEM - 1024 - 16 * cap - _wg_out_bytes(tm, tn, in_bytes) \
+        - 2 * _wg_panel_bytes(tn, in_bytes)
     return min(cap, ring // ((tm + tn) * _WG_KB))
 
 
 def _matmul_smem(tm: int, tn: int, tk: int, in_bytes: int,
                  b_transposed: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/matmul.cu's fma_smem_bytes,
-    csrc/wgmma_gemm.cuh's WgGemmTile): f32 stages A and B once; the wgmma
-    kernels their ring of 128-byte rows of A and B (the same bytes in both
-    B layouts), the 8-bit kernel's two f16 copies of a stage's B (fp8 runs
-    as f16) or the 16-bit kernel's staged output tile, a full and an empty
-    mbarrier a stage and 1024 bytes to align the base."""
-    if in_bytes == 4:
-        return (tk * tm + tk * tn) * 4
+    """Dynamic shared memory of one block (csrc/wgmma_gemm.cuh's
+    WgGemmTile): the ring of 128-byte rows of A and B (the same bytes in
+    both B layouts), two buffers of the B panels the consumers write (fp8
+    runs as f16, f32 as big and small tf32) or the 16-bit kernel's staged
+    output tile, a full and an empty mbarrier a stage and 1024 bytes to
+    align the base."""
     stages = _wg_stages(tm, tn, in_bytes)
-    f16b = 2 * tn * 2 * _WG_KB if in_bytes == 1 else 0
-    return stages * (tm + tn) * _WG_KB + f16b \
+    return stages * (tm + tn) * _WG_KB + 2 * _wg_panel_bytes(tn, in_bytes) \
         + _wg_out_bytes(tm, tn, in_bytes) + 2 * 8 * stages + 1024
 
 
 def _acc_regs(tm: int, tn: int) -> int:
-    # every kernel spreads the tile over 256 threads: the f32 kernel's
-    # block, the wgmma kernels' two consumer warpgroups
+    # every kernel spreads the tile over its two consumer warpgroups
     return tm * tn // 256
 
 
@@ -143,29 +152,25 @@ def _admitted(tm, tn, tk, in_bytes) -> bool:
 
 def kernel_tiles(in_bytes: int):
     """The (tm, tn, tk) instances the kernels are built with for
-    ``in_bytes``-byte operands (csrc/matmul.cu's CUBECL_FMA_TILES and
-    CUBECL_WG16_TILES, the latter in bytes of K; csrc/matmul8.cu's
-    CUBECL_WG_TILES for 8-bit operands): the grids above, kept where the
-    card admits them."""
-    if in_bytes == 4:
-        grid = [(m, n, k) for m, n in _FMA_MN for k in _FMA_K]
-    else:
-        grid = [(m, n, _WG_KB // in_bytes) for m, n in _WG_MN[in_bytes]]
+    ``in_bytes``-byte operands (csrc/matmul.cu's CUBECL_WG16_TILES and
+    CUBECL_TF32_TILES, csrc/matmul8.cu's CUBECL_WG_TILES, all three in
+    bytes of K): the grids above, kept where the card admits them."""
+    grid = [(m, n, _WG_KB // in_bytes) for m, n in _WG_MN[in_bytes]]
     return [t for t in grid if _admitted(*t, in_bytes)]
 
 
 def _k_unit(tile, in_bytes: int) -> int:
     """What K must be a multiple of for ``tile``: its tk, but 32 for a
-    16-bit tile, whose last stage of 64 may be half past K (the tensor
-    maps zero-fill it: exact)."""
-    return 32 if in_bytes == 2 else tile[2]
+    16-bit tile and 8 for an f32 one, whose last stage may be partly past
+    K (the tensor maps zero-fill it: exact)."""
+    return {2: 32, 4: 8}.get(in_bytes, tile[2])
 
 
 def _grid(m: int, n: int, tile, in_bytes: int):
-    """Blocks of a launch: one a tile for f32 and 8-bit operands; the
-    16-bit kernel's persistent blocks, one a tile up to WG_MAX_BLOCKS."""
+    """Blocks of a launch: one a tile for 8-bit operands; the 16-bit and
+    f32 kernels' persistent blocks, one a tile up to WG_MAX_BLOCKS."""
     tiles_n, tiles_m = n // tile[1], m // tile[0]
-    if in_bytes == 2:
+    if in_bytes != 1:
         return (min(tiles_m * tiles_n, WG_MAX_BLOCKS), 1, 1)
     return (tiles_n, tiles_m, 1)
 
@@ -253,9 +258,9 @@ def _gemm(a, b, out, tile, b_transposed: bool, sa=None, sb=None,
     tensors (``csrc/matmul8.cu`` for 8-bit operands, ``csrc/matmul.cu``
     for the others), :func:`matmul_plain` on CPU tensors. ``sa``/``sb``:
     None (unscaled), two device scalars (f32 tensors, M1 scaled) or two
-    host floats (M2). 8-bit B given as (K, N) is transposed into a scratch
-    (N, K) by the same call, before its GEMM: an 8-bit ``wgmma`` reads
-    K-major operands only."""
+    host floats (M2). 8-bit and f32 B given as (K, N) is transposed into a
+    scratch (N, K) by the same call, before its GEMM: an 8-bit or TF32
+    ``wgmma`` reads K-major operands only."""
     m, k = a.shape
     n = b.shape[0] if b_transposed else b.shape[1]
     if out.device.type == "cpu":
@@ -286,16 +291,13 @@ def _gemm(a, b, out, tile, b_transposed: bool, sa=None, sb=None,
             tile[2], int(b_transposed), mode, scale)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if a.element_size() == 1:
-            scratch = None if b_transposed else torch.empty(
-                (n, k), dtype=torch.uint8, device=out.device)
-            rc = lib.cubecl_matmul8(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), *args,
-                stream)
-        else:
-            rc = lib.cubecl_matmul(a.data_ptr(), b.data_ptr(),
-                                   out.data_ptr(), *args, stream)
+        scratch = None if b_transposed or a.element_size() == 2 else \
+            torch.empty((n, k), dtype=a.dtype, device=out.device)
+        entry = lib.cubecl_matmul8 if a.element_size() == 1 else \
+            lib.cubecl_matmul
+        rc = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(), *args,
+                   stream)
     native.check(lib, rc, "matmul")
     if not torch.cuda.is_current_stream_capturing():
         counter.launches += 1  # a graph's recording runs nothing
@@ -321,9 +323,8 @@ def _source(in_bytes: int) -> str:
 
 def _native_compiled(name, fn, mutable, source, m, n, tile, smem,
                      in_bytes) -> CompiledKernel:
-    threads = NT if in_bytes == 4 else WG_THREADS
     return CompiledKernel(fn=fn, mutable_indices=[mutable], source=source,
-                          name=name, block=(threads, 1, 1),
+                          name=name, block=(WG_THREADS, 1, 1),
                           grid=_grid(m, n, tile, in_bytes),
                           smem_bytes=smem, smem_opt_in=True)
 

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "cubecl_flash_bwd_dq": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_paged_decode": [_VP] * 8 + [_I] * 10 + [_F, _VP],
     "cubecl_paged_chunked": [_VP] * 9 + [_I] * 11 + [_F, _VP],
-    "cubecl_matmul": [_VP] * 5 + [_I] * 10 + [_F, _VP],
+    "cubecl_matmul": [_VP] * 6 + [_I] * 10 + [_F, _VP],
     "cubecl_matmul8": [_VP] * 6 + [_I] * 10 + [_F, _VP],
     "cubecl_expert_matmul": [_VP] * 4 + [_I] * 8 + [_VP],
     "cubecl_selective_scan": [_VP] * 3 + [_I] * 3 + [_I64, _VP],

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Device and host times of the 16-bit GEMM (M1) and the bf16 expert GEMM
-(E1) on one CUDA card, measured alike for two checkouts.
+"""Device and host times of the 16-bit and f32 GEMM (M1) and the bf16
+expert GEMM (E1) on one CUDA card, measured alike for two checkouts.
 
     python3 scripts/gemm16_times.py [--tree DIR]
 
 Imports ``cubecl_tpu_torch`` from DIR (default: the checkout this script
 is in), so that an older checkout's kernels are timed by the same method
 as this one's; the method and the cases are ``chip_smoke.py``'s of this
-checkout. For M1: bf16 and f16 at 4096^3 and bf16 at the llama FFN
-projection (8192 x 5632 x 2048), B as (K, N) and as (N, K), every tile
-of the tree's that divides the shape, each by CUDA events (``cuda_ms``),
-the fastest kept, beside ``torch.matmul``. For E1: phase s's bf16 cases
+checkout. For M1: bf16 and f16 at 4096^3, bf16 at the llama FFN
+projection (8192 x 5632 x 2048), and f32 at both (the 3xTF32 body in
+this checkout; an older tree's f32 body, whatever it is, by the same
+method), B as (K, N) and as (N, K), every tile of the tree's that
+divides the shape, each by CUDA events back to back (``cuda_ms``), the
+fastest kept and also timed with a cold L2 (``cold_ms``: each call after
+a read of 1 GiB), beside ``torch.matmul`` (TF32 off) timed both ways,
+and the worst error of all tiles as a share of ``TOL`` against plain.
+For E1: phase s's bf16 cases
 (``E1_CASES``) on the counts of a router (a seeded generator), the
 device time by CUDA events, a call's host time (calls enqueued back to
 back, the clock read before the queue drains) and its time back to back
 (after it drains), beside ``torch.bmm`` over all rows. Each with its
-bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, the larger).
+bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, f32 the
+lesser of 67 TFLOP/s and three TF32 products at 495, the larger).
 Prints the card (``nvidia-smi``) and one JSON line; needs a card.
 """
 
@@ -32,7 +38,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MM_CASES = [(torch.bfloat16, 4096, 4096, 4096), (torch.float16, 4096, 4096,
                                                  4096),
-            (torch.bfloat16, 8192, 5632, 2048)]
+            (torch.bfloat16, 8192, 5632, 2048),
+            (torch.float32, 4096, 4096, 4096),
+            (torch.float32, 8192, 5632, 2048)]
 HOST_CALLS = 200
 
 
@@ -71,24 +79,35 @@ def main():
             b = cs.mm_operand(gen, dev, dt, (N, K) if bt else (K, N), K)
             o = torch.empty(M, N, device=dev, dtype=dt)
             want = mm.matmul_plain(a, b, dt, bt)
-            times = {}
-            for tile in mm._tile_candidates(M, N, K, 2):
+            times, margin = {}, 0.0
+            atol, rtol = cs.TOL[dt]
+            for tile in mm._tile_candidates(M, N, K, dt.itemsize):
                 def run(t=tile):
                     mm._gemm(a, b, o, t, bt, counter=mm.matmul_pallas)
                 run()
                 cs.compare(o, want, f"M1 {dt} {M}x{N}x{K} {tile}")
+                # the worst error as a share of its tolerance
+                margin = max(margin, ((o.float() - want.float()).abs() / (
+                    atol + rtol * want.float().abs())).max().item())
                 times[str(tuple(tile))] = cs.cuda_ms(run, iters=20)
             bb = b.t() if bt else b
             lib = cs.cuda_ms(lambda: torch.matmul(a, bb), iters=20)
+            lib_cold = cs.cold_ms(lambda: torch.matmul(a, bb))
             bms, by = cs.mm_bound(M, N, K, dt, dt)
             best = min(times, key=times.get)
+            tile = tuple(int(x) for x in best.strip("()").split(","))
+            cold = cs.cold_ms(lambda: mm._gemm(a, b, o, tile, bt,
+                                               counter=mm.matmul_pallas))
             key = (f"{cs._dt(dt)} {M}x{N}x{K} B {'(N, K)' if bt else '(K, N)'}"
                    f" -> {cs._dt(dt)}")
             out["m1"][key] = dict(ms=times[best], tile=best, tiles_ms=times,
-                                  library_ms=lib, bound_ms=bms, bound_by=by)
-            print(f"M1 {key}: fastest {best} {times[best]:.4f} ms; "
-                  f"torch.matmul {lib:.4f} ms; bound {bms:.4f} ms ({by}) "
-                  f"[{card}]", flush=True)
+                                  cold_ms=cold, library_ms=lib,
+                                  library_cold_ms=lib_cold, bound_ms=bms,
+                                  bound_by=by, worst_err_over_tol=margin)
+            print(f"M1 {key}: fastest {best} {times[best]:.4f} ms, cold L2 "
+                  f"{cold:.4f}; torch.matmul {lib:.4f} ms, cold L2 "
+                  f"{lib_cold:.4f}; bound {bms:.4f} ms ({by}); worst "
+                  f"|err| / tolerance {margin:.3f} [{card}]", flush=True)
             del a, b, o, want
     for name, E, cap, d, f, dtype, spec in cs.E1_CASES:
         if dtype != torch.bfloat16:

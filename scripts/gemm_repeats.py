@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Repeated launches of the tensor-core GEMMs (M1/M2's 8- and 16-bit
-bodies, E1 bf16) on one CUDA card, each launch held against plain: a race
+"""Repeated launches of the tensor-core GEMMs (M1/M2's 8-bit, 16-bit and
+f32 bodies, E1 bf16) on one CUDA card, each launch held against plain: a race
 between a kernel's warps shows in a few launches of many, not in one.
 
     python3 scripts/gemm_repeats.py [--tree DIR] [--launches N]
@@ -9,8 +9,8 @@ Imports ``cubecl_tpu_torch`` from DIR (default: the checkout this script
 is in), so that an older checkout's kernels are run by the same method and
 on the same inputs as this one's; the cases, tolerances and timing are
 ``chip_smoke.py``'s of this checkout. For M1/M2: phase m's cases
-(``MM_SHAPES`` x ``MM_CASES``) with 8- or 16-bit operands, every tile of
-the tree's that divides the shape. For E1: phase s's bf16 cases
+(``MM_SHAPES`` x ``MM_CASES``), every tile of the tree's that divides the
+shape. For E1: phase s's bf16 cases
 (``E1_CASES``), the live rows only. Each case runs N launches (default
 1000) into one output, each compared on the device with the plain result
 (``disagreeing_launches``: int32 exactly, else at ``TOL``), and is timed by CUDA events
@@ -64,8 +64,6 @@ def main():
     rows, failed = {}, 0
     for sname, M, N, K in cs.MM_SHAPES:
         for in_dt, out_dt, bt, epi in cs.MM_CASES:
-            if in_dt.itemsize == 4:
-                continue  # the CUDA-core loop: no warps in a pipeline
             a = cs.mm_operand(gen, dev, in_dt, (M, K), K)
             b = cs.mm_operand(gen, dev, in_dt, (N, K) if bt else (K, N), K)
             if epi == "device":

@@ -12,14 +12,17 @@ of this checkout. For each kernel at the shape of ``chip_smoke.py``'s
 phases a, e and q: its cold device time, the time of a call back to back
 (host included), its bound (bytes over 3.35 TB/s or operations over 67
 TFLOP/s f32, the larger) and the library call's cold time. Then the
-cold times of ``matmul_cmma`` at bf16 and f16 4096^3 (beside
-``torch.mm(out_dtype=float32)``) and of ``reduce_sum_blockwise`` at 64M
-f32 in 32 windows (beside ``torch.sum(dim=1)`` over the windows); then
-the cold times of K0 kernels outside the warp-lines rule
-(gelu's 4-element lines, the 8-unit ``*_rows`` kernels, the plane-tree
-reductions, f32 cmma) and a digest of every K0 source built: a
-kernel whose source is the same in both trees is the same kernel. Prints
-the card (``nvidia-smi``) and one JSON line; needs a card.
+cold times of ``matmul_cmma`` at bf16 512^3 and bf16 and f16 4096^3
+(beside ``torch.mm(out_dtype=float32)``) and f32 512^3 and 4096^3 (beside
+``torch.matmul``, TF32 off; bound: the lesser of the CUDA cores' and
+three TF32 products'; and the worst error against plain as a share of
+f32's tolerance), and of ``reduce_sum_blockwise`` at 64M f32 in 32
+windows (beside ``torch.sum(dim=1)`` over the windows); then the cold
+times of K0 kernels outside the warp-lines rule (gelu's 4-element lines,
+the 8-unit ``*_rows`` kernels, the plane-tree reductions) and a digest of
+every K0 source built: a kernel whose source is the same in both trees
+is the same kernel. Prints the card (``nvidia-smi``) and one JSON line;
+needs a card.
 """
 
 import argparse
@@ -64,6 +67,7 @@ def main():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 library calls
 
     def rn(*shape, dt=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -112,18 +116,26 @@ def main():
     rows["fused_chain relu((a+b)*c) f32 16M"]["eager_torch_ms"] = \
         cs.cold_ms(lambda: torch.relu((ins[0] + ins[1]) * ins[2]))
 
-    # cmma at 16 bits on the tensor cores, and the block sums over
-    # windows split across full cubes
+    # cmma on the tensor cores (16-bit, and f32 as three TF32 products),
+    # and the block sums over windows split across full cubes
     for dt, S in ((torch.bfloat16, 512), (torch.bfloat16, cs.MM_S),
-                  (torch.float16, cs.MM_S)):
+                  (torch.float16, cs.MM_S), (torch.float32, 512),
+                  (torch.float32, cs.MM_S)):
         a, b = (cs.mm_operand(gen, dev, dt, (S, S), S) for _ in range(2))
         hc = [cu.create(a.reshape(-1)), cu.create(b.reshape(-1)),
               cu.empty((S * S,), "float32")]
-        time_row(f"matmul_cmma {cs._dt(dt)} {S}^3 -> f32",
-                 lambda hc=hc, S=S: MM.matmul_cmma(cu, *hc, S, S, S),
-                 lambda a=a, b=b: torch.mm(a, b, out_dtype=torch.float32),
-                 None, None, None, None,
+        lib = (lambda a=a, b=b: torch.matmul(a, b)) if dt == torch.float32 \
+            else (lambda a=a, b=b: torch.mm(a, b, out_dtype=torch.float32))
+        name = f"matmul_cmma {cs._dt(dt)} {S}^3 -> f32"
+        time_row(name, lambda hc=hc, S=S: MM.matmul_cmma(cu, *hc, S, S, S),
+                 lib, None, None, None, None,
                  bound=cs.mm_bound(S, S, S, dt, torch.float32)[0])
+        # the worst error against plain as a share of f32's tolerance
+        want = MM.matmul_plain(a, b, torch.float32)
+        atol, rtol = cs.TOL[torch.float32]
+        rows[name]["worst_err_over_tol"] = ((hc[2].tensor.view(S, S) - want)
+                                            .abs() / (atol + rtol * want.abs())
+                                            ).max().item()
     big = cu.create(rn(cs.RED_N, dt=torch.float32))
     time_row("reduce_sum_blockwise f32 64M, 32 windows (block + fold)",
              lambda: R.reduce_sum_blockwise(cu, big, cubes=cs.BLOCK_CUBES),
@@ -137,9 +149,6 @@ def main():
     xr = cu.create(rn(4, 1024, dt=torch.float32))
     orow = cu.create(torch.empty(4, 1024, device=dev))
     gb = [cu.create(rn(1024, dt=torch.float32)) for _ in range(2)]
-    S = 512
-    mats = [cu.create(rn(S * S, dt=torch.float32)) for _ in range(2)]
-    mo = cu.empty((S * S,), "float32")
     for name, launch in (
             ("gelu_array_exact f32 1M", lambda: G.launch_gelu(cu, x1, o1)),
             ("gelu_array checked f32 1M",
@@ -153,9 +162,7 @@ def main():
             ("reduce_sum f32 64M (plane tree)",
              lambda: R.reduce_sum(cu, big)),
             ("reduce_max f32 64M (plane tree)",
-             lambda: R.reduce_max(cu, big)),
-            ("matmul_cmma f32 512^3", lambda: MM.matmul_cmma(
-                cu, *mats, mo, S, S, S))):
+             lambda: R.reduce_max(cu, big))):
         launch()
         torch.cuda.synchronize()
         outside[name] = cs.cold_ms(launch)

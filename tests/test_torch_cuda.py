@@ -530,11 +530,12 @@ def _mm_operand(g, dev, dtype, shape, K):
 @pytest.mark.parametrize("dtype", list(_MM_DTYPES))
 def test_matmul_kernel_matches_plain(dev, dtype, b_transposed):
     """Every built tile of M1 against plain, per dtype and B layout:
-    int8 -> int32 exact; float operands to f32 summation order (f32 out)
-    and one rounding (bf16 out; f16 out for 16-bit operands). M2 (host
-    scales) and M1 scaled (device scales) on the first tile, and on every
-    tile for 16-bit operands (the wgmma body of csrc/matmul.cu, each of
-    whose instances 256^3 runs)."""
+    int8 -> int32 exact; float operands to f32 summation order (f32 out,
+    f32 operands as three TF32 products) and one rounding (bf16 out; f16
+    out for 16-bit operands). M2 (host scales) and M1 scaled (device
+    scales) on the first tile, and on every tile for 16-bit and f32
+    operands (the wgmma bodies of csrc/matmul.cu, each of whose instances
+    256^3 runs)."""
     from cubecl_tpu_torch.ops import matmul as mm
 
     g = torch.Generator(device=dev).manual_seed(len(dtype))
@@ -561,7 +562,9 @@ def test_matmul_kernel_matches_plain(dev, dtype, b_transposed):
                 assert torch.equal(o, want), tile
             else:
                 _close(o, want)
-    for tile in tiles if sixteen else tiles[:1]:
+    if dtype == "float32":
+        assert sorted(tiles) == sorted(mm.kernel_tiles(4))
+    for tile in tiles if mm._itemsize(dtype) != 1 else tiles[:1]:
         o = torch.empty(M, N, device=dev)
         mm._gemm(a, b, o, tile, b_transposed, 4.0, 0.5,
                  counter=mm.matmul_scaled)
@@ -613,6 +616,133 @@ def test_matmul16_wgmma_every_tile(dev, dtype, b_transposed, K):
         mm._gemm(a, b, o, tile, b_transposed, sa, sb,
                  counter=mm.matmul_pallas)
         _close(o, want_m1s)
+
+
+@pytest.mark.parametrize("K", [40, 640], ids=["partial_stage",
+                                               "twenty_stages"])
+@pytest.mark.parametrize("b_transposed", [False, True])
+def test_matmul_tf32x3_every_tile(dev, b_transposed, K):
+    """The f32 body (csrc/matmul.cu's gemm_tf32x3_kernel on
+    csrc/wgmma_gemm.cuh: three TF32 products a k8 step): every tile
+    instance in both B layouts (B as (K, N) transposed into a scratch in
+    the call), the three epilogues and the three float outputs, against
+    plain in full f32 at f32's 2e-5 / 1e-4, at M 512 x N 768 (persistent
+    blocks walking several tiles each) and a K whose last stage of 32 is
+    a quarter full (zero-filled by the tensor maps) or twenty stages deep
+    (more than the ring holds); then a shape only the 64 x 64 tile takes
+    (M 192 x N 320, K 72), as the CUDA-core body took it."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    g = torch.Generator(device=dev).manual_seed(K + 5)
+    M, N = 512, 768
+    a = _mm_operand(g, dev, "float32", (M, K), K)
+    b = _mm_operand(g, dev, "float32", (N, K) if b_transposed else (K, N), K)
+    tiles = mm._tile_candidates(M, N, K, 4)
+    assert sorted(tiles) == sorted(mm.kernel_tiles(4))
+    wants = {od: mm.matmul_plain(a, b, od, b_transposed)
+             for od in (torch.float32, torch.bfloat16, torch.float16)}
+    want_m2 = mm.matmul_plain(a, b, torch.bfloat16, b_transposed, 0.125)
+    sa = torch.tensor([0.5], device=dev)
+    sb = torch.tensor([0.25], device=dev)
+    want_m1s = mm.matmul_plain(a, b, torch.float32, b_transposed,
+                               sa[0] * sb[0])
+    for tile in tiles:
+        for od, want in wants.items():
+            o = torch.full((M, N), float("nan"), device=dev, dtype=od)
+            mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+            _close(o, want)
+        o = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+        mm._gemm(a, b, o, tile, b_transposed, 0.5, 0.25,
+                 counter=mm.matmul_scaled)
+        _close(o, want_m2)
+        o = torch.empty(M, N, device=dev)
+        mm._gemm(a, b, o, tile, b_transposed, sa, sb,
+                 counter=mm.matmul_pallas)
+        _close(o, want_m1s)
+    M, N, K = 192, 320, 72
+    a = _mm_operand(g, dev, "float32", (M, K), K)
+    b = _mm_operand(g, dev, "float32", (N, K) if b_transposed else (K, N), K)
+    assert mm._tile_candidates(M, N, K, 4) == [(64, 64, 32)]
+    o = torch.full((M, N), float("nan"), device=dev)
+    mm._gemm(a, b, o, (64, 64, 32), b_transposed, counter=mm.matmul_pallas)
+    _close(o, mm.matmul_plain(a, b, torch.float32, b_transposed))
+
+
+def _f32_bits(dev, *bits):
+    return torch.from_numpy(np.array(bits, np.uint32).view(np.float32)).to(
+        dev)
+
+
+def _non_finite_operands(dev, M, N, K, seed):
+    """f32 operands, A (M, K) and B (K, N), N(0, K^-1/2) but for rows of A
+    and columns of B that hold a NaN made by 0 / 0 on the card, NaNs whose
+    bits a rounding by integer addition would carry into the exponent or
+    the sign (0x7f800001, 0xffffffff, 0xffc00000), +inf, -inf, and both
+    infinities in one row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = _mm_operand(g, dev, "float32", (M, K), K)
+    b = _mm_operand(g, dev, "float32", (K, N), K)
+    zero = torch.zeros((), device=dev)
+    inf = float("inf")
+    odd = _f32_bits(dev, 0x7F800001, 0xFFFFFFFF, 0xFFC00000)
+    a[1, 3] = zero / zero
+    a[2, 5], a[3, 7], a[70, 40] = odd
+    a[4, 9], a[5, K - 1], a[13, 1], a[13, 2] = inf, -inf, inf, -inf
+    b[3, 6] = zero / zero
+    b[0, 12], b[K - 1, 65], b[17, 100] = odd
+    b[13, 8], b[2, 10], b[6, 14], b[7, 14] = inf, -inf, inf, -inf
+    return a, b
+
+
+def _non_finite_agree(o, want):
+    """The 3xTF32 routes on non-finite operands: NaN wherever the f32
+    product is NaN, finite and within TOL wherever it is finite, and an
+    infinity of its sign or NaN wherever it is infinite (the cross terms
+    inf . small: csrc/wgmma_gemm.cuh, tf32_split)."""
+    nan, inf, fin = want.isnan(), want.isinf(), want.isfinite()
+    assert nan.any() and inf.any() and fin.any()
+    assert bool(o[nan].isnan().all()), "a NaN of the f32 product was lost"
+    assert torch.equal(o.isfinite(), fin)
+    assert bool((o[inf].isnan() | (o[inf] == want[inf])).all())
+    _close(o[fin], want[fin])
+
+
+@pytest.mark.parametrize("b_transposed", [False, True])
+def test_matmul_tf32x3_non_finite_operands(dev, b_transposed):
+    """M1's f32 body, every tile in both B layouts, on operands holding
+    NaN and infinities (``_non_finite_operands``) against plain f32 on an
+    output first filled with zeros: the split leaves a NaN or an infinity
+    as it is, so NaN propagates as in an f32 product."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = 256, 384, 96
+    a, b = _non_finite_operands(dev, M, N, K, seed=11)
+    if b_transposed:
+        b = b.t().contiguous()
+    want = mm.matmul_plain(a, b, torch.float32, b_transposed)
+    for tile in mm._tile_candidates(M, N, K, 4):
+        o = torch.zeros(M, N, device=dev)
+        mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+        _non_finite_agree(o, want)
+
+
+def test_cmma_f32_non_finite_operands(dev):
+    """K0's f32 cmma (the 3xTF32 route) on operands holding NaN and
+    infinities (``_non_finite_operands``), against plain f32 on an output
+    first filled with zeros."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = 256, 256, 128
+    a, b = _non_finite_operands(dev, M, N, K, seed=12)
+    c = CudaRuntime.client()
+    o = c.empty((M * N,), "float32")
+    o.tensor.zero_()
+    mm.matmul_cmma(c, c.create(a.reshape(-1)), c.create(b.reshape(-1)), o,
+                   M, N, K)
+    torch.cuda.synchronize()
+    assert "mapping=cmma-wgmma-tf32x3 " in c.server.last_launched.source
+    _non_finite_agree(o.tensor.view(M, N),
+                      mm.matmul_plain(a, b, torch.float32))
 
 
 @pytest.mark.parametrize("b_transposed", [False, True])
@@ -700,8 +830,9 @@ def _kernels_run(fn):
 def test_matmul_bodies_by_entry_point(dev, monkeypatch):
     """Which library entry and which kernel body each GEMM reaches: 16-bit
     operands csrc/matmul.cu's cubecl_matmul and its wgmma body
-    (gemm16_wgmma_kernel), f32 the same entry's CUDA-core body
-    (fma_gemm_kernel), 8-bit ones csrc/matmul8.cu's cubecl_matmul8
+    (gemm16_wgmma_kernel), f32 the same entry's 3xTF32 wgmma body
+    (gemm_tf32x3_kernel, after f32_transpose_kernel for B given as (K,
+    N)), 8-bit ones csrc/matmul8.cu's cubecl_matmul8
     (gemm8_wgmma_kernel), E1 csrc/expert_matmul.cu's cubecl_expert_matmul,
     bf16 on its wgmma body (expert_wgmma_kernel), f32 on the CUDA cores
     (expert_fma_kernel). cubecl_matmul refuses 8-bit operands
@@ -721,7 +852,7 @@ def test_matmul_bodies_by_entry_point(dev, monkeypatch):
     for dtype, want, body in [
             ("bfloat16", "cubecl_matmul", "gemm16_wgmma_kernel"),
             ("float16", "cubecl_matmul", "gemm16_wgmma_kernel"),
-            ("float32", "cubecl_matmul", "fma_gemm_kernel"),
+            ("float32", "cubecl_matmul", "gemm_tf32x3_kernel"),
             ("float8_e4m3fn", "cubecl_matmul8", "gemm8_wgmma_kernel"),
             ("int8", "cubecl_matmul8", "gemm8_wgmma_kernel")]:
         a = _mm_operand(g, dev, dtype, (256, 256), 256)
@@ -735,7 +866,10 @@ def test_matmul_bodies_by_entry_point(dev, monkeypatch):
                                                 counter=mm.matmul_pallas))
             assert calls == [want], (dtype, calls)
             assert any(body in k for k in ran), (dtype, tile, ran)
-            assert not any("mma_gemm_kernel" in k for k in ran), ran
+            assert not any("mma_gemm_kernel" in k or "fma_gemm" in k
+                           for k in ran), ran
+            assert any("f32_transpose_kernel" in k for k in ran) == (
+                dtype == "float32"), ran
     for dtype, body in [(torch.bfloat16, "expert_wgmma_kernel"),
                         (torch.float32, "expert_fma_kernel")]:
         xg = torch.zeros(2, 64, 256, dtype=dtype, device=dev)
@@ -750,7 +884,7 @@ def test_matmul_bodies_by_entry_point(dev, monkeypatch):
     o = torch.empty(256, 256, device=dev)
     torch.cuda.synchronize()
     rc = lib.cubecl_matmul(a8.data_ptr(), a8.data_ptr(), o.data_ptr(), None,
-                           None, native.DTYPE_CODES[a8.dtype],
+                           None, None, native.DTYPE_CODES[a8.dtype],
                            native.DTYPE_CODES[o.dtype], 256, 256, 256, 128,
                            128, 128, 1, 0, 1.0,
                            torch.cuda.current_stream().cuda_stream)
@@ -820,10 +954,11 @@ def _cmma_operands(dev, dtype, M, N, K, seed=3):
 @pytest.mark.parametrize("dtype", [torch.float32] + CMMA_16)
 def test_cmma_kernel_matches_evaluator(dev, dtype, shape):
     """K0 cmma (``matmul_cmma``) against the torch evaluator on the card
-    and against plain, at f32 (the FMA route, fragments in shared memory)
+    and against plain, at f32 (the 3xTF32 route at the tk-32 plan: three
+    TF32 ``wgmma`` a k8 step from the split K-major operand fragments)
     and bf16/f16 (the tensor-core route at the tk-64 plan: ``wgmma`` from
-    the swizzled operand fragments, the accumulator in registers), f32
-    out at TOL's 2e-5/1e-4 for all three."""
+    the swizzled operand fragments), the accumulator in registers, f32 out
+    at TOL's 2e-5/1e-4 for all three."""
     from cubecl_tpu_torch.ops import matmul as mm
 
     M, N, K = shape
@@ -836,9 +971,11 @@ def test_cmma_kernel_matches_evaluator(dev, dtype, shape):
         outs.append(o.tensor.view(M, N))
     torch.cuda.synchronize()
     src = CudaRuntime.client().server.last_launched.source
-    assert ("mapping=cmma-wgmma" in src) == (dtype != torch.float32)
-    if dtype != torch.float32:
-        assert mm._cmma_plan(M, N, K, 2, 128) == (128, 128, 64)
+    f32 = dtype == torch.float32
+    assert ("mapping=cmma-wgmma-tf32x3 " in src) == f32
+    assert ("mapping=cmma-wgmma " in src) == (not f32)
+    assert mm._cmma_plan(M, N, K, dtype.itemsize, 128) == (
+        128, 128, 32 if f32 else 64)
     _close(outs[0], outs[1])
     _close(outs[0], mm.matmul_plain(a, b, torch.float32))
 
@@ -895,6 +1032,66 @@ def test_cmma_16_bit_sass_issues_hgmma(dev, dtype, tmp_path):
     sass = subprocess.run([tool, "-sass", build.path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     assert "HGMMA" in sass and "FFMA" not in sass
+    log = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o",
+                          str(tmp_path / "again.so"), build.source_path],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    assert "0 bytes spill stores, 0 bytes spill loads" in log.stdout + \
+        log.stderr
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 512), (4096, 1024, 2048)])
+def test_cmma_f32_every_launch_of_many_agrees(dev, shape):
+    """The 3xTF32 route in 200 launches, each held to plain (full f32) at
+    f32's 2e-5/1e-4 on an output first filled with NaN: its ring is filled
+    by stores issued while the previous step's products run, so a missing
+    barrier or fence would show in few launches of many."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = shape
+    a, b = _cmma_operands(dev, torch.float32, M, N, K, seed=M + K + 1)
+    want = mm.matmul_plain(a, b, torch.float32)
+    c = CudaRuntime.client()
+    ha, hb = c.create(a.reshape(-1)), c.create(b.reshape(-1))
+    o = c.empty((M * N,), "float32")
+    atol, rtol = TOL[torch.float32]
+    bad = []
+    for i in range(200):
+        o.tensor.fill_(float("nan"))
+        mm.matmul_cmma(c, ha, hb, o, M, N, K)
+        err = (o.tensor.view(M, N) - want).abs()
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            bad.append(i)
+    torch.cuda.synchronize()
+    assert "mapping=cmma-wgmma-tf32x3" in c.server.last_launched.source
+    assert not bad, f"launches {bad} disagree with plain"
+
+
+def test_cmma_f32_sass_issues_tf32_hgmma(dev, tmp_path):
+    """The K0 cmma library of an f32 ``matmul_cmma`` issues HGMMA with
+    TF32 operands (the SASS of ``wgmma`` .tf32) and no FFMA in ``cuobjdump
+    -sass`` (no product runs on the CUDA cores), and ptxas spills nothing
+    (its source built again with the K0 flags)."""
+    import os
+    import subprocess
+
+    from cubecl_tpu_torch.backend.cuda.build import NVCC_FLAGS
+    from cubecl_tpu_torch.ops import matmul as mm
+    from cubecl_tpu_torch.utils.native import find_nvcc
+
+    M = N = K = 512
+    a, b = _cmma_operands(dev, torch.float32, M, N, K)
+    c = CudaRuntime.client()
+    mm.matmul_cmma(c, c.create(a.reshape(-1)), c.create(b.reshape(-1)),
+                   c.empty((M * N,), "float32"), M, N, K)
+    torch.cuda.synchronize()
+    build = c.server.last_launched.fn.build
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    gmma = [ln for ln in sass.splitlines() if "HGMMA" in ln]
+    assert gmma and all("TF32" in ln for ln in gmma), gmma[:4]
+    assert "FFMA" not in sass
     log = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o",
                           str(tmp_path / "again.so"), build.source_path],
                          capture_output=True, text=True, check=True,

@@ -722,11 +722,39 @@ def _scaled_cmma(a: Slice, b: Slice, out: MutSlice):
     cmma.store(acc, out, 64)
 
 
+@cube
+def _f32_operand_stored(a: Slice, b: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 64, 64, 64, f32)
+    cmma.fill(acc, 0.0)
+    x = cmma.Matrix("a", 64, 64, 64, f32)
+    cmma.load(x, a, 64)
+    y = cmma.Matrix("b", 64, 64, 64, f32)
+    cmma.load(y, b, 64)
+    cmma.execute(x, y, acc, acc)
+    cmma.store(x, out, 64)
+
+
+@cube
+def _f32_both_roles(a: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 64, 64, 64, f32)
+    cmma.fill(acc, 0.0)
+    x = cmma.Matrix("a", 64, 64, 64, f32)
+    cmma.load(x, a, 64)
+    cmma.execute(x, x, acc, acc)
+    cmma.store(acc, out, 64)
+
+
 def _fma_route_cases():
     bf = torch.bfloat16
     zb, z8 = torch.zeros(4096, dtype=bf), torch.zeros(4096, dtype=torch.int8)
+    z = torch.zeros(4096)
     return {
-        "f32": lambda: _cmma_nd(torch.float32),
+        "f32 tk 16": lambda: _cmma_nd(torch.float32, plan=(128, 128, 16)),
+        "f32 operand stored": lambda: _f32_operand_stored.define(
+            1, 128, ArrayArg(z), ArrayArg(z), ArrayArg(z, mutable=True),
+            checked=False),
+        "f32 in both roles": lambda: _f32_both_roles.define(
+            1, 128, ArrayArg(z), ArrayArg(z, mutable=True), checked=False),
         "bf16 tk 32": lambda: _cmma_nd(bf, plan=(128, 128, 32)),
         "int8": lambda: _int8_cmma.define(
             1, 128, ArrayArg(z8), ArrayArg(z8),
@@ -740,11 +768,226 @@ def _fma_route_cases():
 
 @pytest.mark.parametrize("name", list(_fma_route_cases()))
 def test_cmma_outside_the_tensor_core_route_keeps_fma(name):
-    """f32 fragments (never TF32), int8 ones, ``execute_scaled`` and a K
-    step of 32 (under one 128-byte swizzle row) keep the FMA route: every
-    fragment in shared memory, a thread's output elements summed over K
-    one product at a time, no ``wgmma``."""
+    """int8 fragments, ``execute_scaled``, a 16-bit K step of 32 (under one
+    128-byte swizzle row), an f32 K step of 16 (under one row of f32), an
+    f32 operand fragment that is stored (its halves would not give back
+    the value loaded) and one used as both A and B (A is stored as it is,
+    B transposed) keep the FMA route: every fragment in shared memory, a
+    thread's output elements summed over K one product at a time, no
+    ``wgmma``."""
     src = cuda_source(_fma_route_cases()[name]())
     assert "mapping=cmma-wgmma" not in src and "wgmma" not in src
     assert "for (int kk = 0; kk <" in src
     assert ("s += " if name == "int8" else "fmaf(") in src
+
+
+# -- f32 cmma on the tensor cores, three TF32 products (cmma-wgmma-tf32x3) --
+
+@pytest.mark.parametrize("size", [512, 4096])
+def test_cmma_f32_prints_the_tf32x3_route(size):
+    """``matmul_cmma_nd_kernel`` at f32 (128 x 128 x 32 fragments, two
+    warpgroups) prints the 3xTF32 route: each k8 step (K 32: four) issues
+    three SS ``wgmma`` m64n128k8.tf32, A_small B_big, A_big B_small, A_big
+    B_big, each half through its own descriptor, into a sum of its own
+    (from zero at the first product), which is then added to the
+    accumulator in registers (64 a thread) in f32, no FMA: the tensor
+    cores' sums round toward zero. ``load`` splits every element into
+    its big and small tf32 halves (``cubecl::tf32_split``) and writes them
+    K-major: A as it is (a 4-element chunk of K is one swizzled chunk of
+    each half), B transposed (each of its 4 elements to its own row). The
+    K loop runs on two stages filled by loads issued between the products'
+    commit and their wait, not by cp.async; the shared memory is those
+    stages of both halves of both operands (2 x 2 x 2 x 16 KiB) and the
+    alignment slack. A load's global loads run two steps ahead of its
+    products, its split and stores one."""
+    from cubecl_tpu_torch.utils.native import CSRC_DIR
+
+    src = cuda_source(_cmma_nd(torch.float32, size, size, size))
+    assert ("mapping=cmma-wgmma-tf32x3 warpgroups=2 "
+            "register_accumulators=1") in src
+    assert '#include "wgmma_gemm.cuh"' in src
+    with open(f"{CSRC_DIR}/wgmma_gemm.cuh") as f:
+        cuh = f.read()
+    assert '"k8.f32.tf32.tf32' in cuh
+    # cvt.rna.tf32.f32's rounding in integer instructions, a NaN kept one
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in cuh
+    assert "big = isnan(f) ? 0x7fffffffu : tf32_rna(f);" in cuh
+    products = re.findall(r"cubecl::wgmma_tf32\(cc_part\[u\], (\w+), "
+                          r"(\w+)(, ks > 0)?\);", src)
+    assert products == [("cc_as", "cc_bb", ", ks > 0"), ("cc_ab", "cc_bs", ""),
+                        ("cc_ab", "cc_bb", "")]
+    # the step's products are summed from zero, then added in f32
+    assert "float cc_part[1][64];" in src
+    assert re.search(r"cc_acc\d+\[u\]\[j\] \+= cc_part\[u\]\[j\];", src)
+    assert "for (int ks = 0; ks < 4; ++ks)" in src
+    assert "cubecl::sw128_desc(cc_a + 16384 + oa, 16, 1024)" in src
+    assert "cubecl::sw128_desc(cc_b + 16384 + ob, 16, 1024)" in src
+    assert "fmaf(" not in src and "kk <" not in src and "cp_async" not in src
+    assert "wgmma_ss" not in src
+    assert re.search(r"float cc_acc\d+\[1\]\[64\];", src)
+    # each load fetched three times (steps 0 and 1 before the loop, step
+    # i + 2 in it) into registers it carries, and put twice (step 0, step
+    # i + 1), each chunk split once
+    # (B in 4 x 4 blocks a thread, transposed in registers: 16-byte
+    # stores of 4 of K at each of the block's n)
+    for vid in re.findall(r"uint4 cc_r(\d+)\[4\];", src):
+        assert src.count(f"cc_r{vid}[q] = *reinterpret_cast<const uint4*>(") \
+            == 3
+    assert len(re.findall(r"uint4 cc_r(\d+)\[4\];", src)) == 2
+    assert src.count("cubecl::tf32_split4(cc_r6[q], cc_big, cc_small);") == 2
+    assert src.count("*reinterpret_cast<uint4*>(&cc_s6[cc_sw32(r, c, 128)])"
+                     " = cc_big;") == 2
+    assert src.count("cubecl::tf32_split4(make_uint4(cc_r7[q + 0].w, "
+                     "cc_r7[q + 1].w, cc_r7[q + 2].w, cc_r7[q + 3].w), "
+                     "cc_big, cc_small);") == 2
+    assert src.count("*reinterpret_cast<uint4*>(&cc_s7[4096 + cc_sw32(c + 3, "
+                     "r, 128)]) = cc_small;") == 2
+    assert "cc_s7[cc_sw32(c + 0, r, 128)] = __uint_as_float" not in src
+    body = src[src.index("cubecl::wgmma_commit();"):]
+    assert body.index("cc_stage ^ 1") < body.index("if (cc_next2 <") \
+        < body.index("cubecl::wgmma_wait0();")
+    want = 2 * 2 * 2 * 128 * 32 * 4 + 1024
+    assert f"args, {want}," in src
+
+
+def test_cmma_f32_plan_splits_both_operands():
+    """The plan of the f32 route: A and B split (B stored transposed), both
+    on the loop's ring, 1024-byte aligned, the accumulator in registers;
+    the launch's bytes are the four halves of each of the two stages and
+    the slack."""
+    from cubecl_tpu_torch.backend.cuda.printer import tensor_core_plan
+
+    defn = _cmma_nd(torch.float32, 512, 512, 512)
+    prepare_scope(defn)
+    tc = tensor_core_plan(defn)
+    mats = {m.vid: m for m in defn.state.matrices}
+    split = tc.split
+    assert sorted(split.values()) == [False, True]
+    for vid, transposed in split.items():
+        assert mats[vid].shape == ((32, 128) if transposed else (128, 32))
+        assert vid in tc.rings and tc.offsets[vid] % 1024 == 0
+    assert len(tc.regs) == 1 and not set(tc.regs) & set(split)
+    assert tc.smem_bytes == 2 * 2 * 2 * 128 * 32 * 4 + 1024
+
+
+@cube
+def _f32_wide_acc(a: Slice, b: Slice, out: MutSlice):
+    acc = cmma.Matrix("accumulator", 128, 256, 32, f32)
+    cmma.fill(acc, 0.5)
+    x = cmma.Matrix("a", 128, 256, 32, f32)
+    cmma.load(x, a, 32)
+    y = cmma.Matrix("b", 128, 256, 32, f32)
+    cmma.load(y, b, 256)
+    cmma.execute(x, y, acc, acc)
+    cmma.store(acc, out, 256)
+
+
+def test_cmma_f32_wide_accumulator_stays_in_shared_memory():
+    """An f32 accumulator of more than 64 values a thread (128 x 256 over
+    two warpgroups: 128) stays in shared memory on the 3xTF32 route (the
+    products' own sums take as many registers beside it): each unit's
+    products are summed from zero and added to C there. On the CPU twin
+    the kernel computes A B + C (the evaluator, exact for these
+    integers)."""
+    from cubecl_tpu_torch.backend.cuda.printer import tensor_core_plan
+    from cubecl_tpu_torch.runtime import CpuRuntime
+
+    z = torch.zeros(128 * 256)
+    args = (ArrayArg(z[:128 * 32]), ArrayArg(z[:32 * 256]),
+            ArrayArg(z, mutable=True))
+    defn = _f32_wide_acc.define(1, 256, *args, checked=False)
+    prepare_scope(defn)
+    assert not tensor_core_plan(defn).regs
+    src = cuda_source(_f32_wide_acc.define(1, 256, *args, checked=False))
+    assert "mapping=cmma-wgmma-tf32x3 warpgroups=2 register_accumulators=0" \
+        in src
+    assert "float cc_d[128];" in src and "cc_part" not in src
+    assert re.search(r"(m\d+)\[\(r\) \* 256 \+ \(c\)\] = \1\[\(r\) \* 256 "
+                     r"\+ \(c\)\] \+ cc_d\[j\];", src)
+    r = np.random.default_rng(6)
+    a = r.integers(-3, 4, (128, 32)).astype(np.float32)
+    b = r.integers(-3, 4, (32, 256)).astype(np.float32)
+    tc = CpuRuntime.client()
+    ha, hb = (tc.create(torch.from_numpy(x).reshape(-1)) for x in (a, b))
+    out = tc.empty((128 * 256,), "float32")
+    _f32_wide_acc.launch_unchecked(tc, 1, 256, ArrayArg(ha), ArrayArg(hb),
+                                   ArrayArg(out, mutable=True))
+    np.testing.assert_array_equal(tc.read_one(out).reshape(128, 256),
+                                  a @ b + 0.5)
+
+
+@cube
+def _f32_k_loop_peeled(a: Slice, b: Slice, out: MutSlice, k: int):
+    acc = cmma.Matrix("accumulator", 128, 128, 32, f32)
+    cmma.fill(acc, 0.0)
+    x = cmma.Matrix("a", 128, 128, 32, f32)
+    y = cmma.Matrix("b", 128, 128, 32, f32)
+    for kk in cube_range(0, k // 32 - 1):
+        cmma.load(x, a, k, kk * 32)
+        cmma.load(y, b, 128, kk * 32 * 128)
+        cmma.execute(x, y, acc, acc)
+    cmma.load(x, a, k, k - 32)
+    cmma.load(y, b, 128, (k - 32) * 128)
+    cmma.execute(x, y, acc, acc)
+    cmma.store(acc, out, 128)
+
+
+def test_cmma_f32_k_loop_without_the_ring():
+    """An f32 K loop whose last step is peeled off: no ring, so each load
+    splits into one stage between the barriers of every fragment op and
+    fences for the async proxy; the bytes are the halves of A and B once
+    and the slack. On the CPU twin the kernel computes A B (the evaluator,
+    exact for these integers)."""
+    from cubecl_tpu_torch.runtime import CpuRuntime
+
+    K = 128
+    z = torch.zeros(128 * K)
+    args = lambda a, b, o: (ArrayArg(a), ArrayArg(b),  # noqa: E731
+                            ArrayArg(o, mutable=True), K)
+    src = cuda_source(_f32_k_loop_peeled.define(
+        1, 256, *args(z, z, torch.zeros(128 * 128)), checked=False))
+    assert "mapping=cmma-wgmma-tf32x3" in src and "cp_async" not in src
+    assert "cc_stage" not in src
+    # A: a split a chunk; B: one a column of its 4 x 4 block; each twice
+    assert src.count("cubecl::tf32_split4(") == 2 * (1 + 4)
+    assert src.count("cubecl::fence_proxy_async();") == 4
+    assert f"args, {2 * (128 * 32 + 32 * 128) * 4 + 1024}," in src
+    r = np.random.default_rng(5)
+    a = r.integers(-3, 4, (128, K)).astype(np.float32)
+    b = r.integers(-3, 4, (K, 128)).astype(np.float32)
+    tc = CpuRuntime.client()
+    ha, hb = (tc.create(torch.from_numpy(x).reshape(-1)) for x in (a, b))
+    out = tc.empty((128 * 128,), "float32")
+    _f32_k_loop_peeled.launch_unchecked(tc, 1, 256, *args(ha, hb, out))
+    np.testing.assert_array_equal(tc.read_one(out).reshape(128, 128), a @ b)
+
+
+@pytest.mark.parametrize("layout", ["row_major", "col_major"])
+def test_cmma_f32_unaligned_or_col_major_load_splits_element_by_element(
+        layout):
+    """A split load from a source that is not 16-byte aligned, or read
+    column-major, takes its element path: one split a thread an element,
+    each half written at the element's K-major place (a B fragment
+    transposed)."""
+
+    @cube
+    def k(a: Slice, b: Slice, out: MutSlice):
+        acc = cmma.Matrix("accumulator", 64, 64, 32, f32)
+        cmma.fill(acc, 0.0)
+        x = cmma.Matrix("a", 64, 64, 32, f32, layout)
+        cmma.load(x, a, 32 if layout == "row_major" else 64, 1)
+        y = cmma.Matrix("b", 64, 64, 32, f32, layout)
+        cmma.load(y, b, 64 if layout == "row_major" else 32, 1)
+        cmma.execute(x, y, acc, acc)
+        cmma.store(acc, out, 64)
+
+    z = torch.zeros(4097)
+    src = cuda_source(k.define(1, 128, ArrayArg(z), ArrayArg(z),
+                               ArrayArg(torch.zeros(4096), mutable=True),
+                               checked=False))
+    assert "mapping=cmma-wgmma-tf32x3" in src
+    assert src.count("cubecl::tf32_split(__float_as_uint(") == 2
+    assert "cc_sw32(c, r, 64)] = __uint_as_float(cc_big);" in src
+    assert "[2048 + cc_sw32(r, c, 64)] = __uint_as_float(cc_small);" in src
+    if layout == "col_major":
+        assert "tf32_split4" not in src

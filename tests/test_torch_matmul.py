@@ -96,10 +96,13 @@ def test_matmul_cmma_16_bit(jc, tc, shape, dtype):
 
 
 def test_cmma_nd_windowed_matmul(jc, tc):
-    """The ND kernel over 2-D tensors: in the port its three fragments are
-    regions of dynamic shared memory (128 x 128 f32 accumulator, 128 x 32
-    operand tiles: 96 KiB, so the launcher opts in), and it computes what
-    the JAX package's windowed kernel computes."""
+    """The ND kernel over 2-D tensors: on the CPU twin its three fragments
+    are regions of dynamic shared memory (128 x 128 f32 accumulator, 128 x
+    32 operand tiles: 96 KiB); the CUDA printer runs it on the 3xTF32
+    route, its two operand fragments in shared memory (a big and a small
+    half each, two stages of the K loop's ring: 128 KiB and the alignment
+    slack, so the launcher opts in), the accumulator in registers; and it
+    computes what the JAX package's windowed kernel computes."""
     from cubecl_tpu_torch.backend.cuda.printer import cuda_source
     from cubecl_tpu_torch.frontend import TensorArg
     from cubecl_tpu_torch.ir.types import f32
@@ -117,9 +120,10 @@ def test_cmma_nd_windowed_matmul(jc, tc):
     assert ck.smem_bytes == (128 * 128 + 2 * 128 * 32) * 4 and ck.smem_opt_in
     src = cuda_source(tmm.matmul_cmma_nd_kernel.define(
         (N // 128, M // 128), 256, *args, checked=False))
-    assert src.count("cc_smem + ") == 3
+    assert "mapping=cmma-wgmma-tf32x3" in src
+    assert src.count("cc_smem + ") == 2
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
-    assert "dim3(256, 1, 1), args, 98304" in src
+    assert f"dim3(256, 1, 1), args, {2 * 2 * 2 * 128 * 32 * 4 + 1024}" in src
     want = _run(jc, jmm.matmul_cmma, (A, B), (M, N), "float32", M, N, K,
                 tile=128)
     got = _run(tc, tmm.matmul_cmma, (A, B), (M, N), "float32", M, N, K,
@@ -136,7 +140,7 @@ def test_matmul_pallas_small(jc, tc):
                 tm=128, tn=128, tk=128)
     n = tmm.matmul_pallas.launches
     got = _run(tc, tmm.matmul_pallas, (A, B), (M, N), "float32", M, N, K,
-               tm=128, tn=128, tk=16)
+               tm=128, tn=128, tk=32)
     assert tmm.matmul_pallas.launches == n  # the CPU runs the plain version
     np.testing.assert_allclose(got, want, **F32)
 
@@ -237,10 +241,13 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
     bytes of K (one swizzle row) in a ring: 8-bit as many stages as 144 KiB
     hold, at most 5, beside two f16 copies of a stage's B; 16-bit as many
     as the block's 227 KiB hold beside the output tile staged for its TMA
-    stores, at most 6, and at least 3; each with its mbarriers and 1024
-    bytes of alignment slack. A 16-bit K need only be a multiple of 32 (the last
-    stage of 64 may be half past K: the tensor maps zero-fill it), so every
-    shape the 16-bit kernel took with its 64-byte stages keeps a tile."""
+    stores, at most 6, and at least 3; f32 as many as the rest holds beside
+    two buffers of B's big and small tf32 panels, at most 6, and at least
+    3; each with its mbarriers and 1024 bytes of alignment slack. A 16-bit
+    K need only be a multiple of 32 and an f32 K of 8 (the last stage may
+    be partly past K: the tensor maps zero-fill it), so every shape the
+    16-bit kernel took with its 64-byte stages keeps a tile, and every
+    shape the f32 CUDA-core kernel took (K a multiple of 8) too."""
     m, n, k = shape
     cands = tmm._tile_candidates(m, n, k, in_bytes)
     for tm, tn, tk in cands:
@@ -249,7 +256,7 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
             assert tmm._matmul_smem(tm, tn, tk, in_bytes, bt) <= 227 * 1024
         assert tm * tn // 256 <= 128
         assert m % tm == n % tn == 0
-        assert k % (32 if in_bytes == 2 else tk) == 0
+        assert k % {2: 32, 4: 8}.get(in_bytes, tk) == 0
         if in_bytes == 1:
             stages = min(5, 144 * 1024 // ((tm + tn) * 128))
             assert stages >= 3
@@ -264,6 +271,14 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
             for bt in (False, True):
                 assert tmm._matmul_smem(tm, tn, tk, 2, bt) \
                     == stages * ((tm + tn) * 128 + 16) + out + 1024
+        if in_bytes == 4:
+            panels = 2 * 2 * tn * 128  # two buffers of a big and a small
+            stages = min(6, (227 * 1024 - 1024 - 96 - panels)
+                         // ((tm + tn) * 128))
+            assert stages >= 3
+            for bt in (False, True):
+                assert tmm._matmul_smem(tm, tn, tk, 4, bt) \
+                    == stages * ((tm + tn) * 128 + 16) + panels + 1024
     if shape != (512, 384, 96) or in_bytes != 1:
         assert cands, shape
     if in_bytes == 2:
@@ -272,14 +287,18 @@ def test_matmul_tile_candidates_fit_and_divide(in_bytes, shape):
     if in_bytes == 1:
         assert sorted(tmm.kernel_tiles(1)) == [(128, 128, 128),
                                                (256, 128, 128)]
+    if in_bytes == 4:
+        # at most 64 accumulators a thread: beside them, as many of a
+        # stage's own sums (the tensor cores' sums round toward zero)
+        assert sorted(tmm.kernel_tiles(4)) == [(64, 64, 32), (128, 128, 32)]
 
 
 def test_kernel_tiles_match_the_cuda_source():
-    """The Python tile tables are the lists the .cu files instantiate:
-    csrc/matmul.cu's for f32 and 16-bit operands (the 16-bit ones in bytes
-    of K a stage), csrc/matmul8.cu's for 8-bit ones; matmul.cu dispatches
-    no 8-bit operands, and no kernel source keeps a warp-level mma.sync
-    GEMM body: every 16- and 8-bit GEMM runs on wgmma."""
+    """The Python tile tables are the lists the .cu files instantiate, in
+    bytes of K a stage: csrc/matmul.cu's for f32 and 16-bit operands,
+    csrc/matmul8.cu's for 8-bit ones; matmul.cu dispatches no 8-bit
+    operands and keeps no CUDA-core f32 body, and no kernel source keeps a
+    warp-level mma.sync GEMM body: every M1 GEMM runs on wgmma."""
     csrc = os.path.join(os.path.dirname(tmm.__file__), "..", "csrc")
 
     def tiles(name, macro):
@@ -290,8 +309,8 @@ def test_kernel_tiles_match_the_cuda_source():
         return [tuple(map(int, t)) for t in
                 re.findall(r"X\((\d+), (\d+), (\d+)\)", body.group(1))]
 
-    assert sorted(tiles("matmul.cu", "CUBECL_FMA_TILES")) \
-        == sorted(tmm.kernel_tiles(4))
+    assert sorted(tiles("matmul.cu", "CUBECL_TF32_TILES")) == sorted(
+        (m, n, k * 4) for m, n, k in tmm.kernel_tiles(4))
     assert sorted(tiles("matmul.cu", "CUBECL_WG16_TILES")) == sorted(
         (m, n, k * 2) for m, n, k in tmm.kernel_tiles(2))
     assert sorted(tiles("matmul8.cu", "CUBECL_WG_TILES")) \
@@ -301,6 +320,8 @@ def test_kernel_tiles_match_the_cuda_source():
     assert "CUBECL_WG16_TYPE(kF16, F16)" in mm_src
     for code in ("kE4M3", "kE5M2", "kI8"):
         assert f"CUBECL_WG16_TYPE({code}" not in mm_src
+    assert "fma_gemm_kernel" not in mm_src and "fma_tile" not in mm_src
+    assert "launch_tf32x3<BM, BN>" in mm_src
     for name in os.listdir(csrc):
         if name.endswith((".cu", ".cuh")):
             src = open(os.path.join(csrc, name)).read()
@@ -315,16 +336,15 @@ def test_kernel_tiles_match_the_cuda_source():
                                           ("float32", "float32")])
 def test_matmul_launch_plan_by_body(in_dtype, acc):
     """The launch each operand type validates: 8-bit operands run
-    csrc/matmul8.cu's wgmma body, one block a tile; 16-bit ones
-    csrc/matmul.cu's wgmma body, persistent blocks, one a tile up to the
-    H100's 132 SMs; both 384 threads (a producer and two consumer
-    warpgroups) and their ring's shared memory. f32 runs csrc/matmul.cu's
-    256-thread blocks, one a tile. M2 as M1."""
+    csrc/matmul8.cu's wgmma body, one block a tile; 16-bit and f32 ones
+    csrc/matmul.cu's wgmma bodies, persistent blocks, one a tile up to the
+    H100's 132 SMs; all 384 threads (a producer and two consumer
+    warpgroups) and their ring's shared memory. M2 as M1."""
     m, n, k = 512, 384, 640
     in_bytes = tmm._itemsize(in_dtype)
     tile = tmm._default_tile(m, n, k, in_bytes)
     tiles = (m // tile[0], n // tile[1])
-    grid = (min(tiles[0] * tiles[1], 132), 1, 1) if in_bytes == 2 \
+    grid = (min(tiles[0] * tiles[1], 132), 1, 1) if in_bytes != 1 \
         else (tiles[1], tiles[0], 1)
     for bt in (False, True):
         ck = tmm._build_matmul(m, n, k, *tile, in_dtype,
@@ -333,13 +353,14 @@ def test_matmul_launch_plan_by_body(in_dtype, acc):
         m2 = tmm._build_matmul_scaled(m, n, k, *tile, in_dtype, "bfloat16",
                                       bt)
         for c in (ck, m2):
-            assert c.block == ((256 if in_bytes == 4 else 384), 1, 1)
+            assert c.block == (384, 1, 1)
             assert c.grid == grid
             assert c.smem_bytes == tmm._matmul_smem(*tile, in_bytes, bt)
             assert ("csrc/matmul8.cu" if in_bytes == 1
                     else "csrc/matmul.cu") in c.source
-    big = tmm._build_matmul(4096, 4096, 4096, 128, 256, 64, in_dtype,
-                            "float32", acc) if in_bytes == 2 else None
+    big = tmm._build_matmul(4096, 4096, 4096, *tmm._default_tile(
+        4096, 4096, 4096, in_bytes), in_dtype, "float32", acc) \
+        if in_bytes != 1 else None
     if big is not None:
         assert big.grid == (132, 1, 1)
 
@@ -366,7 +387,7 @@ def test_bad_tiles_and_types_raise(tc):
     with pytest.raises(ValueError, match="not built"):
         tmm.matmul_pallas(tc, a, b, o, 256, 256, 256, 128, 128, 128)
     with pytest.raises(ValueError, match="does not divide"):
-        tmm.matmul_pallas(tc, a, b, o, 256, 256, 100, 64, 64, 8)
+        tmm.matmul_pallas(tc, a, b, o, 256, 256, 100, 64, 64, 32)
     oi = tc.empty((256, 256), "int32")
     with pytest.raises(ValueError, match="int32 output"):
         tmm.matmul_pallas(tc, a, b, oi, 256, 256, 256)
@@ -387,3 +408,134 @@ def test_matmul_plain_is_the_kernel_arithmetic():
                            tmm._scale_product(0.1, 0.3))
     s = np.float32(0.1) * np.float32(0.3)
     assert torch.equal(got, (acc.float() * float(s)).to(torch.bfloat16))
+
+
+# -- f32 as three TF32 products (3xTF32) -----------------------------------
+
+_TF32_KEEP = np.uint32(0xFFFFE000)  # sign, exponent and 10 mantissa bits
+
+
+_CUDA_NAN = np.uint32(0x7FFFFFFF)  # the NaN that CUDA's arithmetic returns
+
+
+def _tf32(x):
+    """x rounded to tf32, to nearest with ties away from zero (PTX's
+    cvt.rna.tf32.f32): half a tf32 ulp added to the magnitude's bits, the
+    13 low bits cleared."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & _TF32_KEEP).view(np.float32)
+
+
+def _split(x, guard=True):
+    """csrc/wgmma_gemm.cuh's tf32_split: big = tf32(x), small = tf32(x -
+    big), a NaN's big 0x7fffffff (``guard``), x - big's NaN CUDA's."""
+    big = _tf32(x)
+    if guard:
+        big = np.where(np.isnan(x), _CUDA_NAN.view(np.float32), big)
+    with np.errstate(invalid="ignore"):
+        d = (x - big).astype(np.float32)
+    d = np.where(np.isnan(d), _CUDA_NAN.view(np.float32), d)
+    return big, _tf32(d)
+
+
+# phase m's shapes (chip_smoke.py: 4096^3 and the llama FFN projection,
+# (M, N, K)) cut to 256 rows and 256 columns: K, along which the errors
+# add up, is whole
+TF32_CUTS = [(256, 256, 4096), (256, 256, 2048)]
+
+
+@pytest.mark.parametrize("shape", TF32_CUTS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_three_tf32_products_hold_f32_where_one_does_not(shape):
+    """Why the f32 GEMM (csrc/wgmma_gemm.cuh's 3xTF32 consumer) and K0's
+    f32 cmma (the printer's cmma-wgmma-tf32x3 route) issue three TF32
+    products a k8 step: on phase m's operands (N(0, K^-1/2), so that the
+    sums are ~N(0, 1)), an emulation of the split by bit masks (big =
+    tf32(x), small = tf32(x - big); A_small B_big + A_big B_small + A_big
+    B_big, products of tf32 values exact in f32, sums in f32) is within
+    the card's f32 tolerance (2e-5 + 1e-4 |ref|) of plain f32, with a
+    margin of 4x, and as close to the float64 product as plain f32 is
+    (within 2x); one TF32 product (A_big B_big) is outside it."""
+    M, N, K = shape
+    r = _rng(K)
+    a = (r.standard_normal((M, K)) * K ** -0.25).astype(np.float32)
+    b = (r.standard_normal((K, N)) * K ** -0.25).astype(np.float32)
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    assert np.all(np.abs(a - ab - as_) <= 2.0 ** -21 * np.abs(a))
+
+    def mm(x, y):
+        return torch.matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+
+    plain = mm(a, b)
+    three = mm(as_, bb) + mm(ab, bs) + mm(ab, bb)
+    one = mm(ab, bb)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    lim = 2e-5 + 1e-4 * np.abs(plain)
+    assert np.max(np.abs(three - plain) / lim) < 0.25
+    assert np.max(np.abs(three - exact)) < 2 * np.max(np.abs(plain - exact))
+    assert np.sum(np.abs(one - plain) > lim) > 0.01 * M * N
+
+
+def test_three_tf32_products_keep_nan_and_infinities():
+    """The split on operands holding NaN (CUDA's 0 / 0, 0x7fffffff, and
+    others whose bits an unguarded rounding carries into the exponent or
+    the sign) and infinities, emulated by bit masks as in the test above:
+    NaN wherever the f32 product is NaN, finite and within f32's
+    tolerance wherever it is finite, an infinity of its sign or NaN
+    wherever it is infinite (the cross terms inf . small), the tensor
+    cores reading each operand's 19 high bits (0x7f800001 would be an
+    infinity there: a NaN's big is 0x7fffffff). Rounded without the
+    guard, a NaN comes out finite (0x7fffffff as -0). The card holds the
+    kernels to the same (tests/test_torch_cuda.py, non_finite)."""
+    M, N, K = 64, 96, 64
+    r = _rng(7)
+    a = (r.standard_normal((M, K)) * K ** -0.25).astype(np.float32)
+    b = (r.standard_normal((K, N)) * K ** -0.25).astype(np.float32)
+    odd = np.array([0x7FFFFFFF, 0x7F800001, 0xFFFFFFFF, 0xFFC00000],
+                   np.uint32).view(np.float32)
+    a[1, 3], a[2, 5], a[3, 7], a[40, 40] = odd
+    a[4, 9], a[5, K - 1], a[13, 1], a[13, 2] = np.inf, -np.inf, np.inf, -np.inf
+    b[3, 6], b[0, 12], b[K - 1, 65], b[17, 90] = odd
+    b[13, 8], b[2, 10], b[6, 14], b[7, 14] = np.inf, -np.inf, np.inf, -np.inf
+
+    def mm(x, y):
+        return torch.matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+
+    def tc(x):  # as the tensor cores read a tf32 operand: 19 high bits
+        return (x.view(np.uint32) & _TF32_KEEP).view(np.float32)
+
+    def three(guard):
+        (ab, as_), (bb, bs) = _split(a, guard), _split(b, guard)
+        ab, as_, bb, bs = tc(ab), tc(as_), tc(bb), tc(bs)
+        with np.errstate(invalid="ignore"):
+            return mm(as_, bb) + mm(ab, bs) + mm(ab, bb)
+
+    plain = mm(a, b)
+    nan, inf, fin = np.isnan(plain), np.isinf(plain), np.isfinite(plain)
+    assert nan.any() and inf.any() and fin.any()
+    got = three(True)
+    assert np.isnan(got[nan]).all()
+    assert np.array_equal(np.isfinite(got), fin)
+    assert (np.isnan(got[inf]) | (got[inf] == plain[inf])).all()
+    lim = 2e-5 + 1e-4 * np.abs(plain[fin])
+    assert np.max(np.abs(got[fin] - plain[fin]) / lim) < 1
+    assert _tf32(odd[:1]).view(np.uint32)[0] == 0x80000000
+    assert not np.isnan(three(False)[nan]).all()
+
+
+def test_f32_route_takes_every_shape_the_cuda_core_route_took():
+    """The CUDA-core f32 GEMM took M and N multiples of 64 and K a multiple
+    of 8 (its 64 x 64 x 8 tile); the 3xTF32 body keeps a tile for each such
+    shape (its 64 x 64 tile, K zero-filled past its end), and refuses
+    another, naming its tiles."""
+    for m in (64, 192, 256, 4096):
+        for n in (64, 320, 5632):
+            for k in (8, 24, 40, 100 - 4, 4096):
+                tiles = tmm._tile_candidates(m, n, k, 4)
+                assert tiles, (m, n, k)
+                assert (64, 64, 32) in tiles
+                for t in tiles:
+                    tmm._check_tile(m, n, k, t, "float32")
+    for m, n, k in ((96, 64, 64), (64, 100, 64), (64, 64, 12)):
+        with pytest.raises(ValueError, match=r"tiles: \[\(64, 64, 32\)"):
+            tmm._default_tile(m, n, k, 4)

@@ -179,6 +179,6 @@ def test_expert_tiles_match_the_cuda_source():
     assert moe.EXPERT_TILES[torch.bfloat16] == (bm, bn, bkb // 2)
     assert moe.EXPERT_WIDE_BN == wide
     assert moe.EXPERT_K_UNIT == {torch.bfloat16: 32, torch.float32: 16}
-    assert "wgmma_gemm16<BF16" in src
+    assert "wgmma_gemm<BF16" in src
     assert moe.EXPERT_TILES[torch.float32] == consts("FMA", ("BM", "BN",
                                                             "BK"))
