@@ -38,8 +38,10 @@ one step with remat), g train exactness, a d768 f32 step with the kernels
 against one with the plain versions, h train the transformer at GPT-2
 small's widths (phases f-h fail on a K0 kernel id that a and e did not
 hold). Then the serving slice of chunks, int8 KV and pages: i the chunked
-paged-attention kernel (P3) against plain at the verify, chunked-prefill,
-d768, ragged and int8 shapes, j paged decode on int8 pools against plain
+paged-attention kernel (P3: bf16 q on wgmma with its positions split where
+the chunk is decode-shaped, f32 on the CUDA cores; its launch plans held to
+the kernel's) against plain at the verify, chunked-prefill, d768, ragged
+and int8 shapes, j paged decode on int8 pools against plain
 and the KV-bound decode (B 16, context 2048) on bf16 against int8 pools,
 k the 0.77B bf16 llama through ``prefill_chunked``, ``decode_chunk``,
 ``speculative_generate`` (a self-draft and a d768 draft), an int8 cache
@@ -99,8 +101,9 @@ counted from 0), each kernel against plain on its own o and lse, its time,
 bound and SDPA's with the element mask; at S 1024 f32 D64 non-causal, a
 random mask with a kv tile nobody attends (dk = dv = 0) and bq 128 x bk 64
 (F9's rows); A1, A3 and A4 re-timed beside their earlier times; y the
-small-channel 3x3 conv (C1, ``csrc/conv3x3.cu``: bf16 on wgmma, f32 on the
-CUDA cores; its launch plans held to the kernel's) against plain at
+small-channel 3x3 conv (C1, ``csrc/conv3x3.cu``: bf16 on wgmma, f32 on
+wgmma as three TF32 products; its launch plans held to the kernel's) against
+plain at
 ResNet-50's conv2_x (32, 56, 56, 64) -> 64 in bf16 and f32 and at (1, 6,
 10, 32) -> 48 with garbage in the padded lanes, beside ``F.conv2d``, each
 also timed as device time with a cold L2; the
@@ -266,14 +269,23 @@ def kernel_name(mangled):
     """A compiled csrc kernel's readable name: kernel<dtype, D, ...>."""
     k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)"
                   r"(S\d*_|[af])?Li(\d+)E", mangled)
-    c = re.search(r"(conv3x3_kernel)I(13__nv_bfloat16|f)E", mangled)
     g = re.search(r"(gemm8_wgmma_kernel)INS\d*_\d+(E4M3|E5M2|S8)ELi(\d+)"
                   r"ELi(\d+)E", mangled)
     g16 = re.search(r"(gemm16_wgmma_kernel)INS\d*_\d+(BF16|F16)ELi(\d+)"
                     r"ELi(\d+)ELb([01])E", mangled)
     g32 = re.search(r"(gemm_tf32x3_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    p3 = re.search(r"(paged_chunked_wgmma_kernel)ILi(\d+)ELb([01])E", mangled)
+    p3c = re.search(r"(paged_chunked_combine_kernel)ILi(\d+)E", mangled)
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
+    for name in ("conv3x3_tf32x3_kernel", "conv3x3_split_weights_kernel"):
+        if name in mangled:
+            return f"{name}<f32>"
+    if p3:
+        int8 = ", int8 KV" if p3.group(3) == "1" else ""
+        return f"{p3.group(1)}<bf16{int8}, {p3.group(2)}>"
+    if p3c:
+        return f"{p3c.group(1)}<bf16, {p3c.group(2)}>"
     if "expert_wgmma_kernel" in mangled:
         return "expert_wgmma_kernel<bf16>"
     if g16:
@@ -291,8 +303,6 @@ def kernel_name(mangled):
         return (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
                 f"{', int8 KV' if k.group(3) == 'a' else ''}, {k.group(4)}"
                 f"{', block-sparse' if 'Sparse' in mangled else ''}>")
-    if c:
-        return f"{c.group(1)}<{'f32' if c.group(2) == 'f' else 'bf16'}>"
     return mangled
 
 
@@ -361,14 +371,16 @@ B_LAYOUTS = ("(K, N)", "(N, K)")
 
 
 def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
-    """Phase 2: C1's bf16 body, E1's bf16 body and every 8-, 16-bit and
+    """Phase 2: C1's bf16 and f32 (3xTF32) bodies, E1's bf16 body, P3's
+    bf16 body (D 64 and 128, bf16 and int8 pools) and every 8-, 16-bit and
     f32 GEMM instance in the SASS: (name, wgmma count, registers, spill
-    line) each. Fails unless C1 bf16 and E1 bf16 issue HGMMA, each 8-bit
-    instance its GEMM8_SASS instruction, each 16-bit instance HGMMA and
-    each f32 (3xTF32) instance HGMMA, and the instances are exactly
-    ``tiles8`` (ops/matmul.py's ``kernel_tiles(1)``) for each of the three
-    8-bit types, ``tiles16`` (``kernel_tiles(2)``) for bf16 and f16 in
-    both B layouts and ``tiles32`` (``kernel_tiles(4)``) for f32."""
+    line) each. Fails unless each issues HGMMA (each 8-bit GEMM instance
+    its GEMM8_SASS instruction), C1 f32 and P3 spill nothing (where a
+    fresh build's ptxas log reports them), and the
+    instances are exactly ``tiles8`` (ops/matmul.py's ``kernel_tiles(1)``)
+    for each of the three 8-bit types, ``tiles16`` (``kernel_tiles(2)``)
+    for bf16 and f16 in both B layouts and ``tiles32``
+    (``kernel_tiles(4)``) for f32."""
     regs = {n: (r, sp) for n, r, sp in summary}
     rows, got = [], set()
     for chunk in sass.split("Function : ")[1:]:
@@ -376,20 +388,32 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
         if not any(k in mangled for k in (
                 "conv3x3_wgmma_kernel", "gemm8_wgmma_kernel",
                 "gemm16_wgmma_kernel", "expert_wgmma_kernel",
-                "gemm_tf32x3_kernel")):
+                "gemm_tf32x3_kernel", "conv3x3_tf32x3_kernel",
+                "paged_chunked_wgmma_kernel")):
             continue
         name = kernel_name(mangled)
         m8 = re.search(r"gemm8_wgmma_kernel<(\w+), (\d+), (\d+)>", name)
         m16 = re.search(r"gemm16_wgmma_kernel<(\w+), (\d+), (\d+), "
                         r"B (.+)>", name)
         m32 = re.search(r"gemm_tf32x3_kernel<(\d+), (\d+)>", name)
+        mp3 = re.search(r"paged_chunked_wgmma_kernel<bf16(, int8 KV)?, "
+                        r"(\d+)>", name)
         want = GEMM8_SASS[m8.group(1)] if m8 else "HGMMA"
         n = chunk.count(want)
         r, sp = regs.get(name, (None, "not in the ptxas log"))
         rows.append((name, f"{n} {want}", r, sp))
         if n == 0:
             fail(f"phase 2: {name} issues no {want} (wgmma)")
-        if m8:
+        # (a library reused from an earlier build has no ptxas log)
+        if (mp3 or "conv3x3_tf32x3" in name) and r is not None \
+                and not sp.startswith("0 bytes stack frame, 0 bytes spill "
+                                      "stores"):
+            fail(f"phase 2: {name} spills or keeps a stack frame: {sp}")
+        if mp3:
+            got.add(("p3", int(mp3.group(2)), bool(mp3.group(1))))
+        elif "conv3x3_tf32x3" in name:
+            got.add("conv3x3 f32")
+        elif m8:
             got.add((m8.group(1), int(m8.group(2)), int(m8.group(3))))
         elif m16:
             got.add((m16.group(1), int(m16.group(2)), int(m16.group(3)),
@@ -401,7 +425,8 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
     want = {(t, bm, bn) for t in GEMM8_SASS for bm, bn, _ in tiles8} | {
         (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
         for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
-        | {"conv3x3", "expert"}
+        | {"conv3x3", "conv3x3 f32", "expert"} \
+        | {("p3", d, q) for d in (64, 128) for q in (False, True)}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -1387,6 +1412,11 @@ CHUNKED_CASES = [
 ]
 NO_LIBRARY_PAGED = ("no single PyTorch call attends through a block "
                     "table: SDPA needs the pages gathered first")
+# P3's times before its bf16 body ran on the tensor cores (the CUDA-core
+# body for every dtype), taken by this script on an H100 80GB HBM3 at 700
+# W; printed beside this run's
+CUDA_CORE_P3_MS = {"verify": 0.179, "prefill start 0": 0.182,
+                   "prefill start 768": 0.826, "verify int8": 0.160}
 
 
 def chunked_vs_plain(pa, dev, gen, card):
@@ -1394,11 +1424,19 @@ def chunked_vs_plain(pa, dev, gen, card):
     path (the speculative verify step, chunked prefill, the d768 config,
     a ragged batch with a length-0 row, int8 pools); CUDA-event times,
     each launch on the next layer of the pool, as the layers of a step
-    walk it."""
+    walk it, and device times with a cold L2; each case's launch plan
+    (body, position splits) in ops/paged_attention.py held to the built
+    kernel's. No library call computes the function (NO_LIBRARY_PAGED)."""
     page, rows = 128, {}
     for (name, B, L, Hkv, G, C, D, max_pages, starts, lengths, dt,
          quant) in CHUNKED_CASES:
         lengths = lengths or [s + C for s in starts]
+        kv_dt = torch.int8 if quant else dt
+        plan = pa.p3_plan(dt, kv_dt, B, Hkv * G, Hkv, C, D, page, max_pages)
+        if pa.p3_kernel_plan(dt, kv_dt, B, Hkv * G, Hkv, C, D, page,
+                             max_pages) != plan:
+            fail(f"phase i {name}: P3's launch plan in "
+                 f"ops/paged_attention.py {plan} is not the kernel's")
         P = B * max_pages + 5
         shape = (L, Hkv, P, page, D)
         q = torch.randn(B, Hkv * G, C, D, generator=gen, device=dev).to(dt)
@@ -1426,18 +1464,27 @@ def chunked_vs_plain(pa, dev, gen, card):
         ms = cuda_ms(lambda: pa.paged_attention_chunked(
             q, kp, vp, table, ln, st, layer=next(layers) % L, **sc),
             iters=32)
+        cold = cold_ms(lambda: pa.paged_attention_chunked(
+            q, kp, vp, table, ln, st, layer=L - 1, **sc))
         plain_ms = cuda_ms(lambda: pa.paged_attention_chunked_plain(
             q, kp, vp, table, ln, st, layer=next(layers) % L, **sc),
             iters=8, warmup=1)
         n_live, kv_live = chunked_live(starts, lengths, C)
         bms, by = paged_bound(dt, 1 if quant else kp.element_size(), D,
                               Hkv * G, Hkv, n_live, kv_live, quant, B * C)
-        print(f"phase i {what}: max abs err {err} (atol/rtol {TOL[dt]}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it) [{card}]",
-              flush=True)
+        before = CUDA_CORE_P3_MS.get(name)
+        print(f"phase i {what} [body {plan.body}, {plan.splits} position "
+              f"split(s) of {plan.split_len}, grid {plan.grid}"
+              f"{', a combine launch' if plan.splits > 1 else ''}]: max abs "
+              f"err {err} (atol/rtol {TOL[dt]}); kernel {ms:.4f} ms"
+              + (f" (CUDA cores before: {before} ms)" if before
+                 and plan.body == "wgmma" else "")
+              + f", device time with a cold L2 {cold:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library none, bound {bms:.4f} ms ({by}; "
+              f"{100 * bms / ms:.1f}% of it) [{card}]", flush=True)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by)
+                          bound_ms=bms, bound_by=by, body=plan.body,
+                          splits=plan.splits, device_ms_cold_l2=cold)
         del q, kp, vp, ks, vs
     torch.cuda.empty_cache()
     return rows
@@ -3631,8 +3678,8 @@ BSP_CASES = [
 CONV_MAIN = (32, 56, 56, 64, 64)
 CONV_FAT = (16, 28, 28, 256, 256)
 STACK_TOL = 0.15  # examples/conv_pairs.py's bound on the bf16 stack
-# C1's times before its bf16 body ran on wgmma (both dtypes on the f32
-# CUDA cores), taken by this script on an H100 80GB HBM3 at 700 W; printed
+# C1's times before its bodies ran on wgmma (both dtypes on the f32 CUDA
+# cores), taken by this script on an H100 80GB HBM3 at 700 W; printed
 # beside this run's
 CUDA_CORE_C1_MS = {"bf16 32x56x56x64->64": 0.3694,
                    "f32 32x56x56x64->64": 0.3769,
@@ -3924,8 +3971,7 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
         print(f"{what} [body {conv.c1_body(dt)}, plan "
               f"{conv.c1_plan(dt, n, h, w)}]: max abs err {err} (atol/rtol "
               f"{TOL[dt]}), against F.conv2d {e_lib}; kernel {ms:.4f} ms"
-              + (f" (CUDA cores before: {before} ms)" if before and
-                 dt == torch.bfloat16 else "")
+              + (f" (CUDA cores before: {before} ms)" if before else "")
               + f", device time with a cold L2 {dev_ms:.4f} ms"
               + f", plain {plain_ms:.4f} ms, F.conv2d (channels_last) "
               f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
@@ -4098,7 +4144,7 @@ def main():
     build_wall = time.perf_counter() - t0
     summary = ptxas_summary(build.log)
     regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in summary
-                     if "gemm_tf32x3" not in n and "wgmma_kernel" not in n)
+                     if "tf32x3" not in n and "wgmma_kernel" not in n)
     gemm = [(r, s) for n, r, s in summary if "gemm_tf32x3" in n
             or "gemm16_wgmma" in n]
     spills = sorted({s for _, s in gemm if not s.startswith(
@@ -4110,8 +4156,8 @@ def main():
         flush=True)
     wg_rows = wgmma_body_sass(sass, summary, mm.kernel_tiles(1),
                               mm.kernel_tiles(2), mm.kernel_tiles(4))
-    print("phase 2 C1 bf16, E1 bf16, 16-, 8-bit and f32 GEMM SASS "
-          "(cuobjdump): "
+    print("phase 2 C1 bf16 and f32, E1 bf16, P3 bf16, 16-, 8-bit and f32 "
+          "GEMM SASS (cuobjdump): "
           + "; ".join(
         f"{n}: {h}, {r} regs, {sp}" for n, h, r, sp in wg_rows), flush=True)
     print(f"phase 2 build: {build.seconds:.1f} s nvcc -> "
@@ -4477,10 +4523,21 @@ def main():
             library=NO_LIBRARY_PAGED,
             shape="verify: bf16 B8 Hkv8 G2 C5 D128 context 1056",
             launches_by_path=p3_launches,
+            kernel_symbols={
+                "bf16": "paged_chunked_wgmma_kernel<D, QUANT> (wgmma, "
+                        "cp.async through the table), then "
+                        "paged_chunked_combine_kernel<D> where the "
+                        "positions are split (a second launch a call, "
+                        "not counted in launches)",
+                "f32": "paged_chunked_kernel<float, TK, D> (CUDA cores)"},
+            splits={n: r["splits"] for n, r in i_rows.items()},
+            device_ms_cold_l2=i_rows["verify"]["device_ms_cold_l2"],
             **{name.replace(" ", "_"): {f: i_rows[name][f] for f in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "body", "splits", "device_ms_cold_l2")}
                for name in ("prefill start 0", "prefill start 768",
-                            "verify int8", "prefill int8 start 768")}),
+                            "ragged", "d768", "verify int8",
+                            "prefill int8 start 768")}),
         k0_row("k0_cube_kernels", dict(rms), 8192 * 2048, 2, 2, 4,
                launches=k0_serve["launches"],
                library="F.rms_norm",
@@ -4697,10 +4754,15 @@ def main():
             launches_path="phase y: examples/conv_pairs twin, 3 layers",
             body={str(dt).replace("torch.", ""): conv.c1_body(dt)
                   for dt in conv.C1_DTYPES},
+            kernel_symbols={
+                "bf16": "conv3x3_wgmma_kernel",
+                "f32": "conv3x3_split_weights_kernel, then "
+                       "conv3x3_tf32x3_kernel (a second launch a call, "
+                       "not counted in launches)"},
             device_ms_cold_l2=c1["device_ms_cold_l2"],
-            parent_body="both dtypes on the f32 CUDA cores; its times "
-                        "are printed in phase y as constants of an earlier "
-                        "run",
+            parent_body="both dtypes on the f32 CUDA cores before their "
+                        "wgmma bodies; their times are printed in phase y "
+                        "as constants of an earlier run",
             **{k.replace(" ", "_"): v for k, v in y_rows.items()
                if k != "bf16 32x56x56x64->64"}),
     ]}))

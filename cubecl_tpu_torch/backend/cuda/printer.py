@@ -78,9 +78,9 @@ The mapping:
   - f32 on the tensor cores (``mapping=cmma-wgmma-tf32x3``: the same
     conditions with f32 operands and K a multiple of 32): three TF32
     products a k8 step, A_small B_big + A_big B_small + A_big B_big into
-    the f32 accumulator, each operand split into big = tf32(x) and small
-    = tf32(x - big), which drops only A_small B_small (about 2^-22 of a
-    product; one TF32 product would miss f32's 2e-5 / 1e-4, as the JAX
+    the f32 accumulator, each operand split into big = x truncated to
+    tf32 and small = tf32(x - big), which drops only A_small B_small (at
+    most 2^-20 of a product; one TF32 product would miss f32's 2e-5 / 1e-4, as the JAX
     evaluator runs f32 at ``Precision.HIGHEST``). TF32 ``wgmma`` has no
     transpose bit, so both operands are K-major: 32-column panels of K
     (``cc_sw32``), B transposed on its way in, each fragment a big and a

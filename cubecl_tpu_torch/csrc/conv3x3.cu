@@ -18,8 +18,10 @@
 //
 // Bound on the H100: at ResNet-50's conv2_x shape (32, 56, 56, 64) -> 64 the
 // work is 7.4 GFLOP over 25.7 MB (bf16): at the card's ridge, 7.5 us on the
-// tensor cores (989 TFLOP/s) against 7.7 us for the bytes; in f32, off the
-// tensor cores, 110 us of operations (67 TFLOP/s). Two bodies, by dtype:
+// tensor cores (989 TFLOP/s) against 7.7 us for the bytes; in f32 as three
+// TF32 products (495 TFLOP/s each) 44.8 us of operations against 110 us on
+// the CUDA cores (67 TFLOP/s). Two bodies, by dtype, both on the tensor
+// cores:
 //
 // bf16: an implicit GEMM on the tensor cores (conv3x3_wgmma_kernel). The
 // output is a GEMM of M = the pixels, N = 64 output channels and K = 9 taps
@@ -50,122 +52,58 @@
 // - The epilogue rounds the sums to bf16 (nearest even) and stores them from
 //   the registers, skipping pixels past H and W.
 //
-// f32: the CUDA cores (conv3x3_kernel), on purpose (TF32 would not hold
-// f32's 2e-5 / 1e-4, as for A8 and M1; the products are exact in f32):
-// - a 256-thread block owns 2 output rows x 64 columns of one image, all 64
-//   output channels; it stages the 4 input rows x 66 columns it needs, all
-//   64 channels, as f32 in shared memory (zero outside the image), and the
-//   whole (3, 3, 64, 64) weight tensor as f32: 211 KB, one block an SM;
-// - warp w owns output channels 8w..8w+7, lane l the pixels (row 0 and 1,
-//   columns l and l + 32): 32 accumulators a thread, fed per (tap, channel)
-//   by two broadcast float4 weight reads and four conflict-free input reads.
+// f32: the same implicit GEMM as three TF32 products a k8 step
+// (conv3x3_tf32x3_kernel), with wgmma_gemm.cuh's split (tf32_split: big =
+// x truncated to tf32, small = tf32(x - big); A_small B_big + A_big B_small
+// + A_big B_big): one TF32 product would miss f32's 2e-5 / 1e-4, three hold
+// it, as for M1's f32 GEMM. What does not carry over from the bf16 body:
+// - The weights do not fit resident: 9 taps of 64 x 64 f32 are 147 KB, as
+//   big and small tf32 halves 295 KB, more than a block's 227 KB. A small
+//   kernel (conv3x3_split_weights_kernel) splits them once a call into a
+//   scratch of 9 taps x {big, small} x 64 output x 64 input channels, and a
+//   ring of 3 tap stages (each the tap's two halves, 2 x 16 KB) streams them
+//   beside the halo: every m64 block pair of a tile reads the 9 taps anew
+//   from L2 (288 KB for 128 pixels; L2's bandwidth, not the tensor cores,
+//   is what this body's plan trades against).
+// - TF32 wgmma has no transpose bit: both operands are K-major. A, the
+//   shifted pixels with the channels contiguous, already is; B is W[tap]
+//   laid out as (64 output, 64 input) with the input channel contiguous
+//   (the transpose of the bf16 body's MN-major B), written so by the
+//   split kernel. A 128-byte swizzle row holds 32 f32 channels, so a tap
+//   is 2 panels (input channels 0-31, 32-63) of each half: 4 boxes of 64
+//   rows x 128 bytes, 32 KB.
+// - The f32 halo is twice the bf16 one: a pixel is 256 bytes, 2 panels
+//   of 128 (channels 0-31 and 32-63), copied by 2 TMA boxes of 32 channels
+//   x (TW + 2) x (TR + 2) from the same 4-D map (C extent cin: a box past
+//   cin arrives as zeros). A stage holds at most 256 halo pixels (64 KB),
+//   so TW is at most 83 columns (wider images in equal column blocks) and
+//   TR as many rows as fit, at most H: at (32, 56, 56, 64) TR 2 x TW 56 =
+//   112 pixels (2 m64 blocks, one a consumer), a 4 x 58 halo (58 KB a
+//   stage). Shared memory: 3 tap stages (96 KB) + 2 halo stages (at most
+//   128 KB) + barriers + the 1 KB alignment slack, at most 225 KB.
+// - The tensor cores' f32 sums round toward zero (as the f32 GEMM found):
+//   each tap's sums (K 64: 8 k8 steps x 3 products) start from zero in
+//   their own wgmma accumulator and are added to f32 registers, never one
+//   accumulator over all of K = 576.
+// - The activations are split in registers after the row loads, as M1
+//   f32's A is: ldmatrix.x4 of a 32-byte k8 column gives a lane its four
+//   f32 of the RS fragment (each 32-bit word of an 8 x 8 b16 matrix is one
+//   f32), with the per-lane shifted row address of the bf16 body (the shift
+//   is free). The two consumers walk a tile's m64 blocks in pairs, in step
+//   with the weight ring (a consumer without a block of its own still
+//   waits on and releases each tap stage); each releases a halo stage after
+//   a proxy fence (its ldmatrix reads before the next TMA copy, F11).
+// - The epilogue stores the f32 sums from the registers, skipping pixels
+//   past H and W.
 #include <algorithm>
 
 #include "hopper.cuh"
+#include "wgmma_gemm.cuh"  // tf32_split, wgmma_tf32
 
 namespace cubecl {
 namespace {
 
-// the f32 body's launch plan: ops/conv.py's c1_plan repeats NT, (TR, TW),
-// SMEM and the grid, and is held against cubecl_conv3x3_plan on the card
-constexpr int CH = 64;            // channels in and out
-constexpr int NT = 256;           // threads: 8 warps
-constexpr int TW = 64;            // output columns a block covers
-constexpr int TR = 2;             // output rows a block covers
-constexpr int XR = TR + 2;        // staged input rows
-constexpr int XC = TW + 2;        // staged input columns
-constexpr int XS = XC + 1;        // row stride of a staged (row, channel)
-constexpr int SMEM = (9 * CH * CH + XR * CH * XS) * 4;
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, int H, int W, int cin) {
-  extern __shared__ float4 smem4[];
-  float* Ws = reinterpret_cast<float*>(smem4);  // [tap][c][k]
-  float* Xs = Ws + 9 * CH * CH;                 // [row][c][col], stride XS
-
-  const int tid = threadIdx.x;
-  const int w0 = blockIdx.x * TW;
-  const int h0 = blockIdx.y * TR;
-  const int n = blockIdx.z;
-
-  for (int i = tid; i < 9 * CH * CH / 4; i += NT) {
-    float e[4];
-    load4(w + i * 4, e);
-    *reinterpret_cast<float4*>(&Ws[i * 4]) = make_float4(e[0], e[1], e[2], e[3]);
-  }
-  // input (h0 - 1 + r, w0 - 1 + col, c): 4 channels a thread, neighbouring
-  // threads on neighbouring channels of a pixel
-  const T* xn = x + (int64_t)n * H * W * CH;
-  for (int i = tid; i < XR * XC * (CH / 4); i += NT) {
-    const int c4 = i % (CH / 4);
-    const int col = (i / (CH / 4)) % XC;
-    const int r = i / (CH / 4 * XC);
-    const int h = h0 - 1 + r, ww = w0 - 1 + col;
-    float e[4] = {0.f, 0.f, 0.f, 0.f};
-    if (h >= 0 && h < H && ww >= 0 && ww < W && c4 * 4 < cin) {
-      load4(xn + ((int64_t)h * W + ww) * CH + c4 * 4, e);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c4 * 4 + j >= cin) e[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Xs[(r * CH + c4 * 4 + j) * XS + col] = e[j];
-  }
-  __syncthreads();
-
-  const int lane = tid % 32;
-  const int k0 = (tid / 32) * 8;  // this warp's 8 output channels
-  // pixel p: row p / 2, column lane + 32 * (p % 2)
-  float acc[4][8];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[p][j] = 0.f;
-
-  for (int dy = 0; dy < 3; ++dy) {
-    for (int dx = 0; dx < 3; ++dx) {
-      const float* wt = Ws + (dy * 3 + dx) * CH * CH + k0;
-      const float* xt = Xs + dy * CH * XS + lane + dx;
-#pragma unroll 4
-      for (int c = 0; c < CH; ++c) {
-        const float4 wa = *reinterpret_cast<const float4*>(wt + c * CH);
-        const float4 wb = *reinterpret_cast<const float4*>(wt + c * CH + 4);
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-        const float* xc = xt + c * XS;
-        const float xv[4] = {xc[0], xc[32], xc[CH * XS], xc[CH * XS + 32]};
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[p][j] = fmaf(xv[p], wv[j], acc[p][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int h = h0 + p / 2, ww = w0 + lane + 32 * (p % 2);
-    if (h >= H || ww >= W) continue;
-    T* o = out + (((int64_t)n * H + h) * W + ww) * CH + k0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = from_float<T>(acc[p][j]);
-  }
-}
-
-template <typename T>
-cudaError_t launch_conv3x3(const void* x, const void* w, void* out, int N,
-                           int H, int W, int cin, cudaStream_t stream) {
-  // above 48 KB a kernel must opt in to dynamic shared memory, once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((W + TW - 1) / TW, (H + TR - 1) / TR, N);
-  conv3x3_kernel<T><<<grid, NT, SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), H, W, cin);
-  return cudaGetLastError();
-}
+constexpr int CH = 64;  // channels in and out
 
 // -- the bf16 body: an implicit GEMM on wgmma --------------------------------
 
@@ -381,19 +319,294 @@ cudaError_t launch_conv3x3_wgmma(const void* x, const void* w, void* out,
   return cudaGetLastError();
 }
 
+// -- the f32 body: the implicit GEMM as three TF32 products a k8 step -------
+
+constexpr int kF32Halo = 256;      // halo pixels a stage may hold (64 KB)
+constexpr int kF32MaxTW = kF32Halo / 3 - 2;  // 83: a tile of one row fits
+constexpr int kF32WStages = 3;     // tap stages of the weight ring
+constexpr int kF32Panel = 64 * 128;  // 64 rows x 32 f32 (128 bytes)
+constexpr int kF32TapBytes = 4 * kF32Panel;  // a tap's big and small halves
+
+// The f32 launch plan of an (N, H, W) input; ops/conv.py's c1_plan repeats
+// this arithmetic. A halo panel (one of the pixel's two 128-byte halves)
+// starts on a 1024-byte boundary.
+struct F32Plan {
+  int tw, tr;          // output columns and rows of a tile
+  int wb, hb;          // tiles across an image's W and down its H
+  int tiles, blocks;   // tiles in all, persistent blocks
+  int rounds;          // m64 block pairs of a tile
+  int halo_px, panel;  // halo pixels, a halo panel's stride in bytes
+  int smem;
+};
+
+inline F32Plan f32_plan(int N, int H, int W) {
+  F32Plan p;
+  p.wb = (W + kF32MaxTW - 1) / kF32MaxTW;
+  p.tw = (W + p.wb - 1) / p.wb;
+  p.tr = std::min(H, kF32Halo / (p.tw + 2) - 2);
+  p.hb = (H + p.tr - 1) / p.tr;
+  p.tiles = N * p.hb * p.wb;
+  p.blocks = std::min(p.tiles, kMaxBlocks);
+  p.rounds = ((p.tr * p.tw + 63) / 64 + 1) / 2;
+  p.halo_px = (p.tr + 2) * (p.tw + 2);
+  p.panel = (p.halo_px * 128 + 1023) / 1024 * 1024;
+  p.smem = kF32WStages * kF32TapBytes + kWgStages * 2 * p.panel +
+           2 * (kF32WStages + kWgStages) * 8 + 1024;
+  return p;
+}
+
+// the largest plan's shared memory, which the kernel opts in to once
+constexpr int kF32MaxSmem = kF32WStages * kF32TapBytes +
+                            kWgStages * 2 * kF32Halo * 128 +
+                            2 * (kF32WStages + kWgStages) * 8 + 1024;
+static_assert(kF32MaxSmem <= 232448, "weight and halo rings fit an SM");
+
+// w (3, 3, 64 in, 64 out) f32 -> ws [tap][big, small][out][in]: each weight
+// split once (tf32_split) and transposed to the K-major B of TF32 wgmma
+__global__ void conv3x3_split_weights_kernel(const float* __restrict__ w,
+                                             float* __restrict__ ws) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // (tap, out, in)
+  if (i >= 9 * CH * CH) return;
+  const int k = i % CH, n = i / CH % CH, tap = i / (CH * CH);
+  uint32_t big, small;
+  tf32_split(__float_as_uint(w[(tap * CH + k) * CH + n]), big, small);
+  ws[((tap * 2) * CH + n) * CH + k] = __uint_as_float(big);
+  ws[((tap * 2 + 1) * CH + n) * CH + k] = __uint_as_float(small);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw,
+                      float* __restrict__ out, int H, int W, F32Plan p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* wring = smem;                                // the tap stages
+  uint8_t* halo = smem + kF32WStages * kF32TapBytes;    // the halo stages
+  const int hstride = 2 * p.panel;                      // a halo stage
+  uint64_t* hfull = reinterpret_cast<uint64_t*>(halo + kWgStages * hstride);
+  uint64_t* hempty = hfull + kWgStages;
+  uint64_t* wfull = hempty + kWgStages;
+  uint64_t* wempty = wfull + kF32WStages;
+  const int per_image = p.hb * p.wb;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(&hfull[st], 1);
+      mbar_init(&hempty[st], 8);  // lane 0 of every consumer warp
+    }
+    for (int st = 0; st < kF32WStages; ++st) {
+      mbar_init(&wfull[st], 1);
+      mbar_init(&wempty[st], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: one thread issues every copy -----------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(&tx);
+    tma_prefetch_map(&tw);
+    RingPos<kWgStages> hp;
+    RingPos<kF32WStages> wp;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int n = t / per_image, hb = t / p.wb % p.hb, wb = t % p.wb;
+      mbar_wait(&hempty[hp.st], hp.phase ^ 1);  // the first round passes
+      mbar_expect_tx(&hfull[hp.st], 2 * p.halo_px * 128);
+      // the halo starts one row above and one column left of the tile;
+      // rows, columns and channels outside the tensor arrive as zeros
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        tma_load_4d(halo + hp.st * hstride + c * p.panel, &tx, &hfull[hp.st],
+                    32 * c, wb * p.tw - 1, hb * p.tr - 1, n);
+      hp.advance();
+      for (int r = 0; r < p.rounds; ++r)
+        for (int tap = 0; tap < 9; ++tap) {
+          mbar_wait(&wempty[wp.st], wp.phase ^ 1);
+          mbar_expect_tx(&wfull[wp.st], kF32TapBytes);
+          // boxes [big, small] x [in 0-31, in 32-63] of the tap
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            tma_load_3d(wring + wp.st * kF32TapBytes + q * kF32Panel, &tw,
+                        &wfull[wp.st], 32 * (q % 2),
+                        (tap * 2 + q / 2) * CH, 0);
+          wp.advance();
+        }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup c takes m64 block 2 r + c of round r ----------
+  setmaxnreg_inc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int hw = p.tw + 2;  // halo pixels a halo row
+  const int pix = p.tr * p.tw;
+  const int mblocks = (pix + 63) / 64;
+  RingPos<kWgStages> hp;
+  RingPos<kF32WStages> wp;
+  float part[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) part[j] = 0.f;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int n = t / per_image, hb = t / p.wb % p.hb, wb = t % p.wb;
+    const int h0 = hb * p.tr, w0 = wb * p.tw;
+    mbar_wait(&hfull[hp.st], hp.phase);
+    const uint32_t x_s = smem_addr(halo + hp.st * hstride);
+    for (int r = 0; r < p.rounds; ++r) {
+      const int mb = 2 * r + c;
+      const bool live = mb < mblocks;
+      // the A row this lane addresses for ldmatrix: pixel q of the tile
+      // (rows 16 warp + lane % 16 of the block; k half lane / 16)
+      int q = mb * 64 + warp * 16 + (lane & 15);
+      if (q >= pix) q = 0;  // a padding row: its sums are not stored
+      const int qr = q / p.tw;
+      const int hp0 = qr * hw + (q - qr * p.tw);  // its halo pixel at tap 0
+      float acc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+      for (int tap = 0; tap < 9; ++tap) {
+        mbar_wait(&wfull[wp.st], wp.phase);
+        if (live) {
+          const int hpx = hp0 + (tap / 3) * hw + tap % 3;
+          const uint32_t row = x_s + hpx * 128;
+          // A's halves, the tap's 8 k8 steps (4 in each 32-channel panel)
+          uint32_t ab[8][4], as[8][4];
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            uint32_t v[4];
+            ldsm_x4(v, row + (s / 4) * p.panel +
+                           ((((2 * (s % 4)) | (lane >> 4)) ^ (hpx & 7)) << 4));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) tf32_split(v[j], ab[s][j], as[s][j]);
+          }
+          const uint32_t w_s = smem_addr(wring + wp.st * kF32TapBytes);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const uint32_t k = w_s + (s / 4) * kF32Panel + (s % 4) * 32;
+            const uint64_t big = sw128_desc(k, 16, 1024);
+            const uint64_t small = sw128_desc(k + 2 * kF32Panel, 16, 1024);
+            wgmma_tf32(part, as[s], big, s);  // s 0: the tap's sums from 0
+            wgmma_tf32(part, ab[s], small);
+            wgmma_tf32(part, ab[s], big);
+          }
+          wgmma_commit();
+          wgmma_wait0();
+          acc_fence(part);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) acc[j] += part[j];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&wempty[wp.st]);  // done with the tap
+        wp.advance();
+      }
+      if (!live) continue;
+      // this thread's sums: rows 16 warp + lane / 4 (+ 8), channels
+      // 8 j + 2 (lane % 4) (+ 1)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qo = mb * 64 + warp * 16 + lane / 4 + 8 * i;
+        if (qo >= pix) continue;
+        const int rr = qo / p.tw;
+        const int h = h0 + rr, w = w0 + qo - rr * p.tw;
+        if (h >= H || w >= W) continue;
+        float* o = out + (((int64_t)n * H + h) * W + w) * CH + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(o + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+    // this warp's ldmatrix reads of the stage come before the next TMA
+    // copy into it (F11's order)
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&hempty[hp.st]);
+    hp.advance();
+  }
+}
+
+// x (N, H, W, 64) f32 as a 4-D tensor map of half-pixel halo boxes: C of
+// extent cin (channels from cin on read as zeros), a pixel's row 256 bytes
+// apart, box 32 channels (128 bytes) x (TW + 2) x (TR + 2) x 1, 128-byte
+// swizzle
+inline cudaError_t halo_map_f32(CUtensorMap* map, const void* x, int N,
+                                int H, int W, int cin, const F32Plan& p) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)CH * 4,
+                                 (cuuint64_t)W * CH * 4,
+                                 (cuuint64_t)H * W * CH * 4};
+  const cuuint32_t box[4] = {32, (cuuint32_t)(p.tw + 2),
+                             (cuuint32_t)(p.tr + 2), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the split weights (9 x 2 x 64 rows of 64 f32) as a tensor map of 64-row
+// x 32-column boxes, 128-byte swizzle
+inline cudaError_t split_weights_map(CUtensorMap* map, const void* ws) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)CH, (cuuint64_t)(9 * 2 * CH), 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)CH * 4,
+                                 (cuuint64_t)9 * 2 * CH * CH * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)CH, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ws), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_conv3x3_tf32x3(const void* x, const void* w, void* out,
+                                  float* ws, int N, int H, int W, int cin,
+                                  cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kF32MaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const F32Plan p = f32_plan(N, H, W);
+  conv3x3_split_weights_kernel<<<(9 * CH * CH + 255) / 256, 256, 0,
+                                 stream>>>(static_cast<const float*>(w), ws);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap tx, tw;
+  e = halo_map_f32(&tx, x, N, H, W, cin, p);
+  if (e == cudaSuccess) e = split_weights_map(&tw, ws);
+  if (e != cudaSuccess) return e;
+  conv3x3_tf32x3_kernel<<<p.blocks, kWgThreads, p.smem, stream>>>(
+      tx, tw, static_cast<float*>(out), H, W, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace cubecl
 
 // x (N, H, W, 64) and out (N, H, W, 64), w (3, 3, 64, 64): contiguous, one
 // dtype (f32 or bf16), N, H, W >= 1; input channels from cin on read as
-// zero. Returns cudaGetLastError() after the launch, or
+// zero. scratch: f32's split weights, 9 x 2 x 64 x 64 floats (unused
+// for bf16). Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for another dtype.
 extern "C" int cubecl_conv3x3(const void* x, const void* w, void* out,
-                              int dtype, int N, int H, int W, int cin,
-                              void* stream) {
+                              void* scratch, int dtype, int N, int H, int W,
+                              int cin, void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_conv3x3<float>(x, w, out, N, H, W, cin, st);
+  if (dtype == kF32)
+    return launch_conv3x3_tf32x3(x, w, out, static_cast<float*>(scratch), N,
+                                 H, W, cin, st);
   if (dtype == kBF16) return launch_conv3x3_wgmma(x, w, out, N, H, W, cin, st);
   return cudaErrorInvalidValue;
 }
@@ -406,13 +619,14 @@ extern "C" int cubecl_conv3x3_plan(int dtype, int N, int H, int W,
                                    int* plan) {
   using namespace cubecl;
   if (dtype == kF32) {
-    plan[0] = NT;
-    plan[1] = TR;
-    plan[2] = TW;
-    plan[3] = SMEM;
-    plan[4] = (W + TW - 1) / TW;
-    plan[5] = (H + TR - 1) / TR;
-    plan[6] = N;
+    const F32Plan p = f32_plan(N, H, W);
+    plan[0] = kWgThreads;
+    plan[1] = p.tr;
+    plan[2] = p.tw;
+    plan[3] = p.smem;
+    plan[4] = p.blocks;
+    plan[5] = 1;
+    plan[6] = 1;
     return 0;
   }
   if (dtype == kBF16) {

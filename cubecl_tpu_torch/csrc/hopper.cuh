@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX for the tensor-core kernels
-// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, the bf16 body of
-// csrc/conv3x3.cu, csrc/wgmma_gemm.cuh, and the K0 printer's cmma kernels,
-// which include wgmma_gemm.cuh):
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, csrc/conv3x3.cu,
+// csrc/paged_chunked.cu's bf16 body, csrc/wgmma_gemm.cuh, and the K0
+// printer's cmma kernels, which include wgmma_gemm.cuh):
 // mbarriers, TMA tensor copies, cp.async copies, the 128-byte-swizzle
 // shared-memory descriptors of wgmma, the wgmma instructions themselves and
 // setmaxnreg; on the host, the tensor maps the copies read.
@@ -114,6 +114,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// the same, 16 bytes of zeros where !valid (nothing is read from src)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes (through L1), or 4 bytes of zeros where !valid
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -148,6 +162,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// make this thread's shared-memory stores visible to wgmma's reads and
+// TMA's writes (the async proxy), and its reads ordered before them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // keep the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma region

@@ -20,20 +20,74 @@
 //
 // Bound on the H100: the work ranges from decode-like to prefill-like. The
 // speculative verify step (C = 5, G = 2: 10 query rows per kv head) reads
-// every cached K/V byte for a few rows and is bandwidth-bound, like P1;
+// every cached K/V byte for a few rows and is bound by bytes, like P1;
 // chunked prefill (C = 256, G = 2: 512 rows) is a causal flash forward whose
-// K/V come through the table and is compute-bound. This first version is
-// A1's kernel (flash_attention.cu) with the table lookup in its K/V staging:
-// one 256-thread block per (64-row tile of the G*C rows, kv head, batch
-// row), f32 CUDA-core math from shared memory, and a loop over 64-position
-// tiles that ends at the tile's last live position,
-// min(lengths[b], starts[b] + max i of its rows + 1). At small G*C most of a
-// tile's rows are idle (their threads skip the products), and at small
-// B*Hkv SMs are idle: tensor cores, cp.async/TMA staging and a split over
-// positions are for later versions.
+// K/V come through the table and is bound by operations. Two bodies, by
+// q's dtype:
+//
+// bf16 q (bf16 or int8 pools): the tensor cores
+// (paged_chunked_wgmma_kernel). A block is one warpgroup that owns a
+// 64-row tile of the G*C rows of one (batch row, kv head) and walks
+// 64-position tiles of its range, as A1's consumers do
+// (flash_attention.cu): S = Q K^T by wgmma m64n64k16 with Q and K in
+// shared memory, the online softmax (base 2, f32 statistics) on the
+// accumulator fragment, P packed in registers as the A operand of O += P
+// V (wgmma m64nDk16, V the MN-major B with the transpose bit). P is
+// rounded as the path that the chunk continues rounds it: one bf16 P,
+// A1's, in a prefill-shaped chunk; two bf16 halves (hi and the rounding's
+// remainder, two products a k16 step, about 17 bits) in a decode-shaped
+// one, whose steps before it ran P1 with f32 P, and on int8 pools.
+// - Staging: cp.async through the table, a ring of 3 stages. A K or V row
+//   of a position is D contiguous elements of the (L, Hkv, P, page, D)
+//   pool, found by one table lookup; each thread copies 16-byte chunks of
+//   its rows to where the 128-byte swizzle puts them (the layout TMA would
+//   write and the wgmma descriptors read), positions past the block's
+//   range as zeros (the copy's source size 0). cp.async rather than TMA:
+//   the unit the table maps is a row, so every page size that the wrapper
+//   takes (1, 7, 16, 128, ...) is the same code, with no box that a page
+//   must hold whole and no tensor map to encode per call; the bytes in
+//   flight come from the ring and from the split below. The copies of
+//   the stage two tiles ahead are issued before each tile's products; a
+//   thread fences the async proxy after its copies land, and a barrier
+//   precedes the wgmma that reads them.
+// - int8 pools arrive as int8 (64 x D bytes a stage) and are converted to
+//   bf16 into one swizzled K/V tile before the products (exact: |v| <=
+//   127); each position's K and V scales ride the same table lookup (4-byte
+//   copies) and go on the score column (after the base-2 scaling) and on
+//   the probability column of P V, l taking the unscaled p, as P3 does.
+// - Decode-shaped tiles (G*C <= 64 rows: the verify step's 10, the ragged
+//   batch's 32) are bound by bytes, and B*Hkv blocks leave most SMs idle,
+//   so the positions are split: when one row tile a (b, kv head) makes
+//   fewer than 264 blocks (132 SMs twice), the table's span (max_pages *
+//   page) is cut into splits of equal 64-position multiples, enough for
+//   264 blocks; each block writes its partial (acc, m, l) in f32 and a
+//   second, small launch (paged_chunked_combine_kernel) rescales and adds
+//   the splits of each row. wgmma m64 with the idle rows, not mma.sync
+//   m16n8k16: the work is bound by bytes, so the idle rows cost tensor-core
+//   time that is not the bound, and the prefill tiles' body is the same.
+// - Prefill-shaped tiles (more than 64 rows) are bound by operations: one
+//   block a 64-row tile and the whole range, no split; the tiles of late
+//   chunk tokens (the most positions) go first.
+// - The range of a row tile ends at its last live position,
+//   min(lengths[b], starts[b] + max i of its rows + 1); the mask (t <
+//   lengths[b], t <= the row's position) runs on the tiles that cross the
+//   first row's position or the length. Rows past G*C (the m64 tile's
+//   padding) read zeros and are not stored.
+// Shared memory (D 128): Q 16 KB + 3 stages x (K + V) 32 KB = 112 KB bf16,
+// two blocks an SM; int8: Q + 3 x 16 KB + the converted 32 KB + scales.
+//
+// f32 q: the CUDA cores (paged_chunked_kernel), the first version: one
+// TF32 pass would not hold f32's tolerance (three would: wgmma_gemm.cuh's
+// split is a candidate). A1's f32 kernel (flash_attention.cu) with the table lookup in
+// its K/V staging: one 256-thread block per (64-row tile of the G*C rows,
+// kv head, batch row), f32 math from shared memory, and a loop over
+// 64-position tiles that ends at the tile's last live position. At small
+// G*C most of a tile's rows are idle (their threads skip the products).
+#include <algorithm>
+#include <climits>
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace cubecl {
 namespace {
@@ -268,6 +322,435 @@ cudaError_t launch_chunked(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+// -- bf16 q: the tensor cores ----------------------------------------------
+
+constexpr int kTcThreads = 128;  // one warpgroup
+constexpr int kTcStages = 3;     // K/V stages of the cp.async ring
+constexpr int kTcRows = 64;      // query rows (of the G*C) a block: m64
+constexpr int kTcCols = 64;      // positions a stage
+constexpr int kTcFill = 264;     // blocks that fill the H100's 132 SMs twice
+constexpr int kTcPanel = 64 * 128;  // 64 rows x 64 bf16, 128-byte swizzle
+
+// dynamic shared memory: the Q tile, the ring (each stage K then V: bf16
+// tiles of D / 64 panels, or int8 rows of D bytes), for int8 the bf16 K/V
+// tile they are converted into and each stage's K and V scales, and the
+// slack that aligns the base to 1024
+template <int D, bool QUANT>
+struct TcSmem {
+  static constexpr int kTile = D / 64 * kTcPanel;  // 64 rows of D bf16
+  static constexpr int kRaw = QUANT ? kTcCols * D : kTile;  // K (or V)
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + kTile;
+  static constexpr int kConv = kRing + kTcStages * 2 * kRaw;
+  static constexpr int kScale = kConv + (QUANT ? 2 * kTile : 0);
+  static constexpr int kBytes =
+      kScale + (QUANT ? kTcStages * 2 * kTcCols * 4 : 0) + 1024;
+};
+
+// The split of the positions; ops/paged_attention.py's p3_plan repeats
+// this arithmetic. A block owns row tile blockIdx.x / splits (the last
+// first) and the positions [split * split_len, (split + 1) * split_len)
+// of it (split = blockIdx.x % splits), cut at the tile's last live one.
+struct TcPlan {
+  int row_tiles;  // 64-row tiles of the G*C rows
+  int splits;     // position splits of a row tile (1: none)
+  int split_len;  // positions a split: a multiple of kTcCols
+};
+
+inline TcPlan tc_plan(int B, int Hkv, int GC, int page, int max_pages) {
+  TcPlan p;
+  p.row_tiles = (GC + kTcRows - 1) / kTcRows;
+  // the positions a table row addresses, in 64-position tiles
+  const int kv_tiles =
+      std::max(1, (int)(((int64_t)page * max_pages + kTcCols - 1) / kTcCols));
+  p.splits = 1;
+  p.split_len = kv_tiles * kTcCols;
+  const int base = p.row_tiles * B * Hkv;
+  if (p.row_tiles == 1 && base < kTcFill) {
+    // at least `want` splits of `per` tiles (fewer only where the span
+    // has fewer tiles)
+    const int want = (kTcFill + base - 1) / base;
+    const int per = std::max(1, kv_tiles / want);
+    p.splits = (kv_tiles + per - 1) / per;
+    p.split_len = per * kTcCols;
+  }
+  return p;
+}
+
+// part (splits > 1): per (b, kv head, split, row < G*C) the row's
+// unnormalised f32 accumulator (D), then its m and l
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(kTcThreads)
+paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const void* __restrict__ kpool_,
+                           const void* __restrict__ vpool_,
+                           const float* __restrict__ kscale,
+                           const float* __restrict__ vscale,
+                           const int* __restrict__ table,
+                           const int* __restrict__ lengths,
+                           const int* __restrict__ starts,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ part, int H, int Hkv, int C,
+                           int layer, int P, int page, int max_pages,
+                           float scale_log2, TcPlan plan) {
+  using TK = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
+  using L = TcSmem<D, QUANT>;
+  constexpr int kChunks = D * (int)sizeof(TK) / 16;  // 16-byte chunks a row
+  constexpr int kEl = 16 / (int)sizeof(TK);          // elements a chunk
+  const TK* kpool = static_cast<const TK*>(kpool_);
+  const TK* vpool = static_cast<const TK*>(vpool_);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s_base = smem_addr(smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int G = H / Hkv;
+  const int GC = G * C;
+  const int split = blockIdx.x % plan.splits;
+  const int r0 = (plan.row_tiles - 1 - blockIdx.x / plan.splits) * kTcRows;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int len = lengths[b];
+  const int start = starts[b];
+  const int64_t head_page0 = ((int64_t)layer * Hkv + hk) * P;
+  const int* tab = table + (int64_t)b * max_pages;
+  // row r = g * C + i is query head hk * G + g, token i: (B, H, C, D)
+  const int64_t qrow0 = ((int64_t)b * H + (int64_t)hk * G) * C;
+
+  // the tile's first and last chunk tokens: the positions every live row
+  // sees, and the tile's last live position
+  const int r_end = min(r0 + kTcRows, GC);
+  int i_min = 0, i_max = C - 1;
+  if (r_end - r0 < C) {
+    i_min = C - 1;
+    i_max = 0;
+    for (int r = r0; r < r_end; ++r) {
+      i_min = min(i_min, r % C);
+      i_max = max(i_max, r % C);
+    }
+  }
+  const int kv_end = min(len, start + i_max + 1);
+  const int full_end = min(len, start + i_min + 1);
+  const int p0 = split * plan.split_len;
+  const int p1 = min(kv_end, p0 + plan.split_len);
+  const int n_tiles = p1 > p0 ? (p1 - p0 + kTcCols - 1) / kTcCols : 0;
+  // P into P V as two bf16 halves (about 17 bits) or one (8): P3 rounds P
+  // as the path it continues does. A decode-shaped chunk (the verify step)
+  // continues the decode steps, whose P1 keeps P in f32: one bf16 P put the
+  // 0.77B llama's verify logits 0.117 from the decode steps', outside
+  // phase k's bound. A prefill-shaped chunk continues the prefill, whose
+  // A1 (and the JAX kernel on bf16 pools) rounds P to bf16: two halves
+  // put chunked prefill's logits 0.105 from the one-shot prefill's, one
+  // rounds as A1 (0 apart). int8 pools: two halves always, as the JAX
+  // kernel's f32 P there. The block's choice is uniform (plan.row_tiles).
+  const bool halves = QUANT || plan.row_tiles == 1;
+
+  // stage st <- K and V of positions [p0 + 64 t, + 64), zeros from p1 on;
+  // thread tid copies chunk tid % kChunks of every (128 / kChunks)-th row
+  auto load_kv = [&](int t, int st) {
+    const int k0 = p0 + t * kTcCols;
+    const uint32_t ks0 = s_base + L::kRing + st * 2 * L::kRaw;
+#pragma unroll 4
+    for (int i = tid; i < kTcCols * kChunks; i += kTcThreads) {
+      const int n = i / kChunks, c = i % kChunks;
+      const int pos = k0 + n;
+      const bool ok = pos < p1;
+      int64_t row = 0;
+      if (ok) {
+        const int pid = min(max(tab[pos / page], 0), P - 1);
+        row = (head_page0 + pid) * page + pos % page;
+      }
+      const uint32_t dst = QUANT ? ks0 + n * D + c * 16
+                                 : ks0 + (c / 8) * kTcPanel + n * 128 +
+                                       (((c % 8) ^ (n % 8)) << 4);
+      cp_async16_zfill(dst, kpool + row * D + c * kEl, ok);
+      cp_async16_zfill(dst + L::kRaw, vpool + row * D + c * kEl, ok);
+      if (QUANT && c == 0) {
+        const uint32_t sc = s_base + L::kScale + (st * 2 * kTcCols + n) * 4;
+        cp_async4_zfill(sc, kscale + row, ok);
+        cp_async4_zfill(sc + kTcCols * 4, vscale + row, ok);
+      }
+    }
+  };
+
+  // Q (rows past G*C as zeros) with stage 0, then stage 1: a group each
+  for (int i = tid; i < kTcRows * (D / 8); i += kTcThreads) {
+    const int m = i / (D / 8), c = i % (D / 8);
+    const bool ok = r0 + m < GC;
+    cp_async16_zfill(s_base + L::kQ + (c / 8) * kTcPanel + m * 128 +
+                         (((c % 8) ^ (m % 8)) << 4),
+                     q + (ok ? (qrow0 + r0 + m) * D + c * 8 : 0), ok);
+  }
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (st < n_tiles) load_kv(st, st);
+    cp_async_commit();
+  }
+
+  // this thread's rows of the m64nN accumulator: row_a and row_a + 8; its
+  // columns 8 j + col_l + {0, 1}; a row's position (rows past G*C: none
+  // masked, their sums are not stored)
+  const int row_a = r0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row_a + 8 * i;
+    qpos[i] = r < GC ? start + r % C : INT_MAX;
+  }
+
+  float acc[D / 2];  // O, (64 x D) f32
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  const uint32_t q_s = s_base + L::kQ;
+  uint64_t dq[D / 16];  // Q's descriptors, k16 steps, 4 to a 128-byte panel
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    dq[kk] = sw128_desc(q_s + (kk / 4) * kTcPanel + (kk % 4) * 32, 16, 1024);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kTcStages;
+    cp_async_wait<kTcStages - 2>();  // this thread's copies of tile t
+    fence_proxy_async();             // ... visible to wgmma
+    __syncthreads();                 // everyone's; tile t - 1 is done
+    if (t + kTcStages - 1 < n_tiles)
+      load_kv(t + kTcStages - 1, (t + kTcStages - 1) % kTcStages);
+    cp_async_commit();
+    uint32_t k_s = s_base + L::kRing + st * 2 * L::kRaw;
+    uint32_t v_s = k_s + L::kRaw;
+    const float* ksc =
+        reinterpret_cast<const float*>(smem + L::kScale) + st * 2 * kTcCols;
+    if constexpr (QUANT) {
+      // int8 -> bf16 (exact) into the swizzled K/V tile: 16 values a chunk
+      const uint8_t* raw = smem + L::kRing + st * 2 * L::kRaw;
+      uint8_t* conv = smem + L::kConv;
+#pragma unroll 4
+      for (int i = tid; i < 2 * kTcCols * (D / 16); i += kTcThreads) {
+        const int kv = i / (kTcCols * (D / 16));
+        const int n = i / (D / 16) % kTcCols, c = i % (D / 16);
+        const uint4 x = *reinterpret_cast<const uint4*>(raw + kv * L::kRaw +
+                                                        n * D + c * 16);
+        const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+        uint32_t h[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float f[4];
+          unpack_s8x4(w[j], f);
+          h[2 * j] = pack_bf16(f[0], f[1]);
+          h[2 * j + 1] = pack_bf16(f[2], f[3]);
+        }
+        // bf16 chunks 2c and 2c + 1 of row n (one panel: 2c % 8 <= 6)
+        uint8_t* row = conv + kv * L::kTile + (c / 4) * kTcPanel + n * 128;
+        const int c0 = (2 * c) % 8;
+        *reinterpret_cast<uint4*>(row + ((c0 ^ (n % 8)) << 4)) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ (n % 8)) << 4)) =
+            make_uint4(h[4], h[5], h[6], h[7]);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      k_s = s_base + L::kConv;
+      v_s = k_s + L::kTile;
+    }
+
+    // S = Q K^T over D in k16 steps (the first overwrites s)
+    float s[32];
+    uint64_t dk[D / 16];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dk[kk] = sw128_desc(k_s + (kk / 4) * kTcPanel + (kk % 4) * 32, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64(s, dq[kk], dk[kk], kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+
+    // online softmax, base 2; a row's 64 columns live in 4 lanes
+    const int k0 = p0 + t * kTcCols;
+    const bool edge = k0 + kTcCols > full_end;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x *= scale_log2;
+          // int8: the K scale on the score column, after the base-2 scaling
+          if constexpr (QUANT) x *= ksc[8 * j + col_l + e];
+          if (edge) {
+            const int col = k0 + 8 * j + col_l + e;
+            if (!(col < len && col <= qpos[i])) x = -INFINITY;
+          }
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[i], mx);
+      // a row with nothing live yet keeps p = 0 instead of exp2(nan)
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2_approx(m_i[i] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = exp2_approx(x - m_use);
+          rs += x;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l_i[i] = l_i[i] * alpha + rs;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * i] *= alpha;
+        acc[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P V over the tile's 64 columns in k16 steps: the accumulator of
+    // S for columns 16 kk.., in bf16 pairs, is the A fragment; int8: the V
+    // scale on the probability column (l took the unscaled p). With
+    // `halves`, P goes in as p = hi + lo (lo = bf16(p - hi), the rounding's
+    // remainder, exact in f32), two products a k16 step: P V to about
+    // 2^-17 of p. V is exact in bf16 (bf16 pools, or int8 values).
+    uint32_t pa[4][4], pl[4][4];
+    uint64_t dv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float lo = s[8 * kk + 2 * r], hi = s[8 * kk + 2 * r + 1];
+        if constexpr (QUANT) {
+          // s[8 kk + 2 r + e] is column 16 kk + 8 (r / 2) + col_l + e
+          const int col = 16 * kk + 8 * (r / 2) + col_l;
+          lo *= ksc[kTcCols + col];
+          hi *= ksc[kTcCols + col + 1];
+        }
+        pa[kk][r] = pack_bf16(lo, hi);
+        if (halves) {
+          const float2 back = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]));
+          pl[kk][r] = pack_bf16(lo - back.x, hi - back.y);
+        }
+      }
+      dv[kk] = sw128_desc(v_s + kk * 2048, kTcPanel, 1024);
+    }
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D == 128) {
+        wgmma_rs_m64n128(acc, pa[kk], dv[kk]);
+        if (halves) wgmma_rs_m64n128(acc, pl[kk], dv[kk]);
+      } else {
+        wgmma_rs_m64n64(acc, pa[kk], dv[kk]);
+        if (halves) wgmma_rs_m64n64(acc, pl[kk], dv[kk]);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(acc);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= GC) continue;
+    if (plan.splits == 1) {
+      const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
+      __nv_bfloat16* orow = o + (qrow0 + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col_l) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                  acc[4 * j + 2 * i + 1] * inv);
+    } else {
+      float* pr = part + (((int64_t)(b * Hkv + hk) * plan.splits + split) *
+                              GC + row) * (D + 2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(pr + 8 * j + col_l) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      if (lane % 4 == 0) {
+        pr[D] = m_i[i];
+        pr[D + 1] = l_i[i];
+      }
+    }
+  }
+}
+
+// The splits of each row into its output: block (b * Hkv + kv head, row <
+// G*C), D / 4 threads of 4 columns; a row no split saw gets zeros
+template <int D>
+__global__ void __launch_bounds__(D / 4)
+paged_chunked_combine_kernel(const float* __restrict__ part,
+                             __nv_bfloat16* __restrict__ o, int H, int Hkv,
+                             int C, int splits) {
+  const int bh = blockIdx.x, row = blockIdx.y;
+  const int G = H / Hkv, GC = G * C;
+  const int b = bh / Hkv, hk = bh % Hkv;
+  const int64_t stride = (int64_t)GC * (D + 2);  // one split to the next
+  const float* pr = part + ((int64_t)bh * splits * GC + row) * (D + 2);
+  float m = -INFINITY;
+  for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, pr[sp * stride + D]);
+  const float m_use = m == -INFINITY ? 0.f : m;
+  float l = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* ps = pr + sp * stride;
+    const float w = exp2f(ps[D] - m_use);  // 0 for a split with no position
+    l += ps[D + 1] * w;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] += ps[4 * threadIdx.x + e] * w;
+  }
+  const float inv = l == 0.f ? 1.f : 1.f / l;
+  __nv_bfloat16* orow =
+      o + (((int64_t)b * H + (int64_t)hk * G) * C + row) * D + 4 * threadIdx.x;
+  *reinterpret_cast<__nv_bfloat162*>(orow) =
+      __floats2bfloat162_rn(a[0] * inv, a[1] * inv);
+  *reinterpret_cast<__nv_bfloat162*>(orow + 2) =
+      __floats2bfloat162_rn(a[2] * inv, a[3] * inv);
+}
+
+template <int D, bool QUANT>
+cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
+                                 const float* ks, const float* vsc,
+                                 const void* table, const void* lengths,
+                                 const void* starts, void* o, void* part,
+                                 int B, int H, int Hkv, int C, int layer,
+                                 int P, int page, int max_pages,
+                                 float scale_log2, cudaStream_t stream) {
+  constexpr int smem = TcSmem<D, QUANT>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_chunked_wgmma_kernel<D, QUANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int GC = (H / Hkv) * C;
+  const TcPlan p = tc_plan(B, Hkv, GC, page, max_pages);
+  if (p.splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid(p.row_tiles * p.splits, Hkv, B);
+  paged_chunked_wgmma_kernel<D, QUANT><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), kp, vp, ks, vsc,
+      static_cast<const int*>(table), static_cast<const int*>(lengths),
+      static_cast<const int*>(starts), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(part), H, Hkv, C, layer, P, page, max_pages,
+      scale_log2, p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  paged_chunked_combine_kernel<D><<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(o), H,
+      Hkv, C, p.splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace cubecl
 
@@ -275,16 +758,20 @@ cudaError_t launch_chunked(const void* q, const void* kp, const void* vp,
 // int32; lengths and starts (B,) int32; o (B, H, C, D). Contiguous; q and o
 // of `dtype` (f32 or bf16), the pools of `kv_dtype`: the same dtype, or int8
 // with f32 scale pools k_scales/v_scales (L, Hkv, P, page) (null
-// otherwise). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a dtype / head_dim this kernel was not built for.
+// otherwise). part: the bf16 body's partial sums where it splits the
+// positions, cubecl_paged_chunked_plan's plan[8] floats (null where that
+// is 0). Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a dtype / head_dim this kernel was not built
+// for.
 extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                     const void* v_pages, const float* k_scales,
                                     const float* v_scales, const void* table,
                                     const void* lengths, const void* starts,
-                                    void* o, int dtype, int kv_dtype, int B,
-                                    int H, int Hkv, int C, int D, int layer,
-                                    int P, int page, int max_pages,
-                                    float scale_log2, void* stream) {
+                                    void* o, void* part, int dtype,
+                                    int kv_dtype, int B, int H, int Hkv, int C,
+                                    int D, int layer, int P, int page,
+                                    int max_pages, float scale_log2,
+                                    void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || H % Hkv != 0 || C <= 0) return cudaErrorInvalidValue;
@@ -296,6 +783,11 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
   launch_chunked<T, TK, HD>(q, k_pages, v_pages, k_scales, v_scales, table,  \
                             lengths, starts, o, B, H, Hkv, C, layer, P, page, \
                             max_pages, scale_log2, st)
+#define CUBECL_CHUNKED_WG(HD, QUANT)                                          \
+  launch_chunked_wgmma<HD, QUANT>(q, k_pages, v_pages, k_scales, v_scales,   \
+                                  table, lengths, starts, o, part, B, H, Hkv, \
+                                  C, layer, P, page, max_pages, scale_log2,  \
+                                  st)
   if (dtype == kF32) {
     if (D == 64) return quant ? CUBECL_CHUNKED(float, int8_t, 64)
                               : CUBECL_CHUNKED(float, float, 64);
@@ -304,12 +796,57 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
   }
   if (dtype == kBF16) {
     if (D == 64)
-      return quant ? CUBECL_CHUNKED(__nv_bfloat16, int8_t, 64)
-                   : CUBECL_CHUNKED(__nv_bfloat16, __nv_bfloat16, 64);
+      return quant ? CUBECL_CHUNKED_WG(64, true)
+                   : CUBECL_CHUNKED_WG(64, false);
     if (D == 128)
-      return quant ? CUBECL_CHUNKED(__nv_bfloat16, int8_t, 128)
-                   : CUBECL_CHUNKED(__nv_bfloat16, __nv_bfloat16, 128);
+      return quant ? CUBECL_CHUNKED_WG(128, true)
+                   : CUBECL_CHUNKED_WG(128, false);
   }
+#undef CUBECL_CHUNKED_WG
 #undef CUBECL_CHUNKED
   return cudaErrorInvalidValue;
+}
+
+// P3's launch plan for q of `dtype`, pools of `kv_dtype` and the shapes:
+// plan[0..8] = the body (0: the CUDA cores, 1: wgmma), threads a block,
+// dynamic shared memory bytes, the grid (x, y, z), position splits, the
+// positions a split, and the floats of `part` (0 without a split).
+// Returns 0, or cudaErrorInvalidValue for what cubecl_paged_chunked
+// refuses.
+extern "C" int cubecl_paged_chunked_plan(int dtype, int kv_dtype, int B,
+                                         int H, int Hkv, int C, int D,
+                                         int page, int max_pages, int* plan) {
+  using namespace cubecl;
+  if (Hkv <= 0 || H % Hkv != 0 || C <= 0 || (D != 64 && D != 128) ||
+      (kv_dtype != kI8 && kv_dtype != dtype))
+    return cudaErrorInvalidValue;
+  const bool quant = kv_dtype == kI8;
+  const int GC = (H / Hkv) * C;
+  if (dtype == kF32) {
+    plan[0] = 0;
+    plan[1] = NT;
+    plan[2] = D == 64 ? chunked_smem_bytes<64>() : chunked_smem_bytes<128>();
+    plan[3] = (GC + BM - 1) / BM;
+    plan[4] = Hkv;
+    plan[5] = B;
+    plan[6] = 1;
+    plan[7] = 0;
+    plan[8] = 0;
+    return 0;
+  }
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  const TcPlan p = tc_plan(B, Hkv, GC, page, max_pages);
+  plan[0] = 1;
+  plan[1] = kTcThreads;
+  plan[2] = D == 64 ? (quant ? TcSmem<64, true>::kBytes
+                             : TcSmem<64, false>::kBytes)
+                    : (quant ? TcSmem<128, true>::kBytes
+                             : TcSmem<128, false>::kBytes);
+  plan[3] = p.row_tiles * p.splits;
+  plan[4] = Hkv;
+  plan[5] = B;
+  plan[6] = p.splits;
+  plan[7] = p.split_len;
+  plan[8] = p.splits > 1 ? B * Hkv * p.splits * GC * (D + 2) : 0;
+  return 0;
 }

@@ -303,11 +303,6 @@ __device__ __forceinline__ uint32_t f16x2_of(E5M2, uint32_t v) {
   return d;
 }
 
-// make this thread's shared-memory stores visible to wgmma's reads (the
-// async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // the two consumer warpgroups' barrier (the producer's threads have left)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -354,26 +349,34 @@ __device__ __forceinline__ void acc_fence_add(float (&acc)[MI][N],
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
-// the split of x: big = tf32(x) and small = tf32(x - big), x - big being
-// exact in f32; x = big + small to about 2^-22 of |x|. A NaN's big is
-// 0x7fffffff, a NaN to the tensor cores too (they read the 19 high bits
-// only: a NaN whose mantissa is all in the 13 low bits would be an
-// infinity there). Where big is not finite, x - big is NaN (0x7fffffff)
-// and small -0. So an output whose row of A and column of B are finite is
-// the f32 product to 3xTF32's precision; a NaN operand gives NaN wherever
-// the f32 product does; an infinite operand gives NaN or an infinity of
-// the f32 product's sign where that product is infinite (the cross terms
-// inf . small are NaN where the other operand's small half is 0, a value
-// that tf32 holds exactly, and an infinity of the other sign where that
-// half's sign is not the value's). A finite operand that tf32 rounds to
-// infinity (|x| at least (2 - 2^-11) 2^127) acts as an infinity. The
-// guard is one compare and select a value: the split is a large share of
-// the consumers' work (a finite-check on each half as well ran the 4096^3
-// GEMM 31% slower, PERF.md).
+// the split of x: big = x truncated to tf32 (its 13 low bits cleared) and
+// small = tf32(x - big), x - big being exact in f32 and of x's sign; x =
+// big + small to about 2^-22 of |x|. Truncation never leaves the finite
+// range, so every finite x has a finite big and small, up to FLT_MAX (F12:
+// big rounded to nearest took |x| >= (2 - 2^-11) 2^127 to infinity, x - big
+// to -infinity and the cross terms to inf - inf = NaN, where the f32
+// product is finite); it is also one instruction where rounding was two.
+// Truncation leaves small up to one tf32 ulp of big instead of half of
+// one, so the one dropped term A_small B_small is at most 2^-20 of a
+// product: the emulation (tests/test_torch_matmul.py) keeps 3xTF32 as
+// close to plain f32 as rounding did. A NaN's big is 0x7fffffff, a NaN to
+// the tensor cores too (they read the 19 high bits only: truncated, a NaN
+// whose mantissa is all in the 13 low bits, 0x7f800001, would be an
+// infinity there). Where big is not finite (x an infinity or a NaN), x -
+// big is NaN (0x7fffffff) and small -0. So an output whose row of A and
+// column of B are finite is the f32 product to 3xTF32's precision; a NaN
+// operand gives NaN wherever the f32 product does; an infinite operand
+// gives NaN or an infinity of the f32 product's sign where that product
+// is infinite (the cross terms inf . small are NaN where the other
+// operand's small half is 0, a value that tf32 holds exactly, and an
+// infinity of the other sign where that half's sign is not the value's).
+// The guard is one compare and select a value: the split is a large share
+// of the consumers' work (a finite-check on each half as well ran the
+// 4096^3 GEMM 31% slower, PERF.md).
 __device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& big,
                                            uint32_t& small) {
   const float f = __uint_as_float(x);
-  big = isnan(f) ? 0x7fffffffu : tf32_rna(f);
+  big = isnan(f) ? 0x7fffffffu : x & 0xffffe000u;
   small = tf32_rna(f - __uint_as_float(big));
 }
 // the split of four neighbouring values (a 16-byte chunk)
@@ -692,9 +695,10 @@ __device__ __forceinline__ void wgmma_gemm_consume16(
 
 // f32 (3xTF32), one tile: out = a @ b in f32 from three TF32 products a
 // k8 step. One TF32 product keeps 10 mantissa bits of each operand and
-// misses f32's 2e-5 / 1e-4 by far; with each operand split into big =
-// tf32(x) and small = tf32(x - big), A_small B_big + A_big B_small + A_big
-// B_big drops only A_small B_small (about 2^-22 of a product): as close to
+// misses f32's 2e-5 / 1e-4 by far; with each operand split into big = x
+// truncated to tf32 and small = tf32(x - big) (tf32_split), A_small B_big +
+// A_big B_small + A_big B_big drops only A_small B_small (at most 2^-20 of
+// a product): as close to
 // the float64 product as an f32 FMA loop is (the TPU kernel runs f32 at
 // Precision.HIGHEST, several bf16 passes on its matrix unit, for the same
 // reason). The tensor cores' f32 sums round toward zero: kept in the

@@ -16,7 +16,9 @@ flat handles with their sizes.
    ((N, H·W/2, 128), ``pack_pairs``); that layout is NHWC with 64 channels a
    pixel in memory, so the port keeps the layout at its API and runs C1 as
    the direct convolution it computes: ``csrc/conv3x3.cu`` on CUDA tensors
-   (bf16 an implicit GEMM on ``wgmma``, f32 on the CUDA cores;
+   (an implicit GEMM on ``wgmma``: bf16 in one product a k16 step, f32 as
+   three TF32 products a k8 step, its weights split once a call by a small
+   kernel into a scratch the wrapper allocates;
    ``conv2d_pairs_packed.launches`` counts its launches),
    ``conv2d_pairs_plain`` — nine shifted (N, H, W, 64) x (64, 64) products
    summed in f32, independent of cuDNN — on CPU tensors and as the kernel's
@@ -60,28 +62,33 @@ C1_DTYPES = (torch.float32, torch.bfloat16)
 # C1's launch plans, copied from csrc/conv3x3.cu for the launch's
 # validation on any client; ``c1_kernel_plan`` reads the built kernel's
 # (``cubecl_conv3x3_plan``) on a card to hold ``c1_plan`` to it.
-# f32 (the CUDA cores): a block's threads, output rows and columns, and
-# shared memory (the f32 weights and 4 x 66 staged pixels)
-C1_THREADS = 256
-C1_TILE = (2, 64)
-C1_SMEM = (9 * 64 * 64 + 4 * 64 * 67) * 4
-# bf16 (wgmma): a producer and two consumer warpgroups, persistent blocks
-# (at most one an SM of the H100), the resident bf16 weights, a ring of 2
-# halo stages of at most 600 pixels of 128 bytes, tiles at most 198 columns
-# wide
+# Both bodies (wgmma): a producer and two consumer warpgroups, persistent
+# blocks (at most one an SM of the H100), a ring of 2 halo stages. bf16: the
+# resident bf16 weights, halo stages of at most 600 pixels of 128 bytes,
+# tiles at most 198 columns wide
 C1_WG_THREADS = 384
 C1_WG_MAX_BLOCKS = 132
 C1_WG_WEIGHTS = 9 * 64 * 64 * 2
 C1_WG_STAGES = 2
 C1_WG_MAX_HALO = 600
 C1_WG_MAX_TW = 198
+# f32 (three TF32 wgmma products a k8 step): the split weights streamed
+# through a ring of 3 tap stages of 32 KiB (a tap's big and small halves),
+# a halo stage of at most 256 pixels as two 1024-aligned panels of 128
+# bytes a pixel, tiles at most 83 columns wide; the split weights' scratch
+# (9 taps x 2 halves x 64 x 64 f32)
+C1_F32_W_STAGES = 3
+C1_F32_TAP_BYTES = 4 * 64 * 128
+C1_F32_MAX_HALO = 256
+C1_F32_MAX_TW = C1_F32_MAX_HALO // 3 - 2
+C1_F32_SCRATCH = 9 * 2 * 64 * 64
 
 
 @dataclasses.dataclass(frozen=True)
 class C1Plan:
-    """One launch of C1: ``threads`` a block, a block's (f32) or a tile's
-    (bf16) output ``tile`` (rows, columns), dynamic shared memory
-    ``smem_bytes`` and the ``grid``."""
+    """One launch of C1: ``threads`` a block, a tile's output ``tile``
+    (rows, columns), dynamic shared memory ``smem_bytes`` and the
+    ``grid``."""
     threads: int
     tile: Tuple[int, int]
     smem_bytes: int
@@ -89,20 +96,29 @@ class C1Plan:
 
 
 def c1_body(dtype) -> str:
-    """The body C1 runs for ``dtype``: "wgmma" (bf16, the tensor cores) or
-    "cuda-cores" (f32)."""
-    return "wgmma" if dtype == torch.bfloat16 else "cuda-cores"
+    """The body C1 runs for ``dtype``, both on the tensor cores: "wgmma"
+    (bf16) or "wgmma-tf32x3" (f32, three TF32 products a k8 step)."""
+    return "wgmma" if dtype == torch.bfloat16 else "wgmma-tf32x3"
 
 
 def c1_plan(dtype, n: int, h: int, w: int) -> C1Plan:
     """C1's launch plan for an (n, h, w) input of ``dtype``: the arithmetic
-    of csrc/conv3x3.cu (``wg_plan`` for bf16, the f32 body's constants).
-    The bf16 tile is ``tr`` rows x ``tw`` columns of one image, its halo
-    (tr + 2) x (tw + 2) pixels of 128 bytes in a stage on a 1024-byte
-    boundary; one persistent block a tile up to 132."""
+    of csrc/conv3x3.cu (``wg_plan`` for bf16, ``f32_plan`` for f32). A tile
+    is ``tr`` rows x ``tw`` columns of one image, its halo (tr + 2) x
+    (tw + 2) pixels in a stage on a 1024-byte boundary (bf16: 128 bytes a
+    pixel; f32: two 1024-aligned panels of 128 bytes a pixel); one
+    persistent block a tile up to 132."""
     if dtype == torch.float32:
-        return C1Plan(C1_THREADS, C1_TILE, C1_SMEM,
-                      (-(-w // C1_TILE[1]), -(-h // C1_TILE[0]), n))
+        wb = -(-w // C1_F32_MAX_TW)
+        tw = -(-w // wb)
+        tr = min(h, C1_F32_MAX_HALO // (tw + 2) - 2)
+        tiles = n * -(-h // tr) * wb
+        panel = -(-(tr + 2) * (tw + 2) * 128 // 1024) * 1024
+        smem = C1_F32_W_STAGES * C1_F32_TAP_BYTES \
+            + C1_WG_STAGES * 2 * panel \
+            + 2 * (C1_F32_W_STAGES + C1_WG_STAGES) * 8 + 1024
+        return C1Plan(C1_WG_THREADS, (tr, tw), smem,
+                      (min(tiles, C1_WG_MAX_BLOCKS), 1, 1))
     if dtype != torch.bfloat16:
         raise ValueError(f"C1 takes {C1_DTYPES}; got {dtype}")
     wb = -(-w // C1_WG_MAX_TW)
@@ -441,7 +457,12 @@ def conv3x3(x, w, cin: int = PAIR_CH):
         return out
     lib = native.kernels()
     with torch.cuda.device(x.device):
+        # f32: the weights split into tf32 halves by the call's first kernel
+        scratch = torch.empty(C1_F32_SCRATCH, device=x.device) \
+            if x.dtype == torch.float32 else None
         rc = lib.cubecl_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                None if scratch is None
+                                else scratch.data_ptr(),
                                 native.DTYPE_CODES[x.dtype], N, H, W, cin,
                                 torch.cuda.current_stream().cuda_stream)
     native.check(lib, rc, "conv2d_pairs_packed")

@@ -15,13 +15,13 @@ package:
    sums hold f32's tolerance where the 8-bit one's do not; 8-bit B given
    as (K, N) is byte-transposed into a scratch (N, K) first, in the same
    call). f32 runs on the same mainloop as three TF32 products a k8 step
-   (3xTF32: each operand split into big = tf32(x) and small = tf32(x -
-   big), A_small B_big + A_big B_small + A_big B_big summed in f32, as
-   close to the float64 product as an f32 FMA loop; one TF32 product would
-   miss the f32 tolerance of the TPU kernel's ``Precision.HIGHEST``); TF32
-   has no transpose bit, so f32 B given as (K, N) is transposed into a
-   scratch (N, K) first, in the same call. int8 accumulates exactly in
-   int32. B comes as (K, N) or, with ``b_transposed``, as (N, K). An
+   (3xTF32: each operand split into big = x truncated to tf32 and small =
+   tf32(x - big), A_small B_big + A_big B_small + A_big B_big summed in
+   f32, as close to the float64 product as an f32 FMA loop; one TF32
+   product would miss the f32 tolerance of the TPU kernel's
+   ``Precision.HIGHEST``); TF32 has no transpose bit, so f32 B given as
+   (K, N) is transposed into a scratch (N, K) first, in the same call.
+   int8 accumulates exactly in int32. B comes as (K, N) or, with ``b_transposed``, as (N, K). An
    epilogue multiplies the accumulator by ``sa * sb``: device scalars for
    M1's scaled form (the ``matmul_quantized`` route), host floats for M2
    (``matmul_scaled``). On CPU tensors the same entry points run

@@ -27,15 +27,22 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
 ``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
 in {64, 128}, and for decode at most 8 query heads per kv head; anything
-else raises. The caller keeps ``lengths`` within ``max_pages * page``: the
-kernels read it on the device and do not check it. On CPU tensors each
+else raises. P3 runs bf16 q (bf16 or int8 pools) on the tensor cores
+(``wgmma``, cp.async staging through the table; decode-shaped chunks split
+their positions over blocks and a second, small launch combines the
+splits: :func:`p3_plan`) and f32 q on the CUDA cores. The caller keeps
+``lengths`` within ``max_pages * page``: the kernels read it on the
+device and do not check it. On CPU tensors each
 runs its plain version, which is also the kernel's reference on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +50,86 @@ from ..utils import native
 from .attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS, LOG2E
 
 MAX_GROUP = 8  # query heads per kv head the decode kernel takes (csrc MAXG)
+
+# P3's bodies (csrc/paged_chunked.cu), for p3_plan. bf16 q on wgmma: one
+# warpgroup a block owning 64 of the G*C rows, positions staged 64 a stage
+# in a ring of 3 (K then V; int8 as raw rows, converted into one bf16 tile,
+# with their scales); the positions split over blocks where one row tile
+# a (b, kv head) makes fewer than P3_FILL blocks. f32 q on the CUDA cores:
+# 256 threads, a 64-row tile, the f32 tiles in shared memory.
+P3_ROWS = 64
+P3_COLS = 64
+P3_STAGES = 3
+P3_FILL = 264  # blocks that fill the H100's 132 SMs twice
+P3_WG_THREADS = 128
+P3_FMA_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class P3Plan:
+    """One call of P3: its ``body`` ("wgmma" or "cuda-cores"), ``threads``
+    a block, dynamic shared memory ``smem_bytes``, the ``grid``, the
+    position ``splits`` of a row tile and the positions ``split_len`` of
+    a split (a multiple of 64), and the f32 ``scratch`` (floats) of the
+    splits' partial sums: the arithmetic of csrc/paged_chunked.cu's
+    ``cubecl_paged_chunked_plan``."""
+    body: str
+    threads: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    splits: int
+    split_len: int
+    scratch: int
+
+
+# cached: a call's host time is what the verify step's launches wait on
+@functools.lru_cache(maxsize=256)
+def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
+            page: int, max_pages: int) -> P3Plan:
+    """P3's launch plan for q of ``dtype`` and pools of ``kv_dtype``."""
+    quant = kv_dtype == torch.int8
+    if kv_dtype not in (dtype, torch.int8) or D not in (64, 128) \
+            or H % Hkv or C <= 0:
+        raise ValueError(f"P3 takes pools of q's dtype or int8 and D 64 or "
+                         f"128; got {dtype}, {kv_dtype}, D {D}")
+    GC = H // Hkv * C
+    rows = -(-GC // P3_ROWS)
+    if dtype == torch.float32:
+        smem = (D * 64 * 3 + 64 * 68 + 2 * 64) * 4
+        return P3Plan("cuda-cores", P3_FMA_THREADS, smem, (rows, Hkv, B), 1,
+                      0, 0)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"P3 takes q of {KERNEL_DTYPES}; got {dtype}")
+    tile = D * P3_ROWS * 2
+    raw = P3_COLS * D if quant else tile
+    smem = tile + P3_STAGES * 2 * raw + (2 * tile + P3_STAGES * 2 * P3_COLS
+                                        * 4 if quant else 0) + 1024
+    kv_tiles = max(1, -(-page * max_pages // P3_COLS))
+    splits, split_len = 1, kv_tiles * P3_COLS
+    base = rows * B * Hkv
+    if rows == 1 and base < P3_FILL:
+        per = max(1, kv_tiles // -(-P3_FILL // base))
+        splits, split_len = -(-kv_tiles // per), per * P3_COLS
+    scratch = B * Hkv * splits * GC * (D + 2) if splits > 1 else 0
+    return P3Plan("wgmma", P3_WG_THREADS, smem, (rows * splits, Hkv, B),
+                  splits, split_len, scratch)
+
+
+def p3_block_positions(plan: P3Plan, C: int, G: int, start: int,
+                       length: int, x: int):
+    """The rows and positions of block ``x`` of a batch row (kv head
+    alike) under ``plan``: (first row, end row, first position, end
+    position) of the G*C rows, the positions cut at the tile's last live
+    one, min(length, start + its last chunk token + 1)."""
+    GC = G * C
+    rows = -(-GC // P3_ROWS)
+    r0 = (rows - 1 - x // plan.splits) * P3_ROWS
+    r_end = min(r0 + P3_ROWS, GC)
+    i_max = C - 1 if r_end - r0 >= C else max(r % C for r in
+                                               range(r0, r_end))
+    kv_end = min(length, start + i_max + 1)
+    p0 = (x % plan.splits) * plan.split_len
+    return r0, r_end, p0, max(p0, min(kv_end, p0 + plan.split_len))
 
 
 def quantize_kv(x):
@@ -286,11 +373,16 @@ def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
     if o.numel() == 0:
         return o
     lib = native.kernels()
+    plan = p3_plan(q.dtype, k_pages.dtype, B, H, Hkv, C, D, page,
+                   page_indices.shape[1])
     with torch.cuda.device(q.device):
+        # the splits' partial sums, combined by the call's second launch
+        part = torch.empty(plan.scratch, device=q.device) \
+            if plan.scratch else None
         rc = lib.cubecl_paged_chunked(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scales), _ptr(v_scales), page_indices.data_ptr(),
-            lengths.data_ptr(), starts.data_ptr(), o.data_ptr(),
+            lengths.data_ptr(), starts.data_ptr(), o.data_ptr(), _ptr(part),
             native.DTYPE_CODES[q.dtype], native.DTYPE_CODES[k_pages.dtype],
             B, H, Hkv, C, D, layer, P, page, page_indices.shape[1],
             scale * LOG2E, torch.cuda.current_stream().cuda_stream)
@@ -300,3 +392,17 @@ def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
 
 
 paged_attention_chunked.launches = 0
+
+
+def p3_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int,
+                   D: int, page: int, max_pages: int) -> P3Plan:
+    """The built P3's launch plan (``cubecl_paged_chunked_plan``): what
+    :func:`p3_plan` must equal (builds the CUDA kernels on first use)."""
+    lib = native.kernels()
+    plan = (ctypes.c_int * 9)()
+    rc = lib.cubecl_paged_chunked_plan(
+        native.DTYPE_CODES[dtype], native.DTYPE_CODES[kv_dtype], B, H, Hkv,
+        C, D, page, max_pages, ctypes.cast(plan, ctypes.c_void_p))
+    native.check(lib, rc, "paged_chunked_plan")
+    return P3Plan("wgmma" if plan[0] else "cuda-cores", plan[1], plan[2],
+                  (plan[3], plan[4], plan[5]), plan[6], plan[7], plan[8])

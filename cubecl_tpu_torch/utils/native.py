@@ -53,7 +53,8 @@ _SIGNATURES = {
     "cubecl_flash_bwd_dkv": [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_flash_bwd_dq": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_paged_decode": [_VP] * 8 + [_I] * 10 + [_F, _VP],
-    "cubecl_paged_chunked": [_VP] * 9 + [_I] * 11 + [_F, _VP],
+    "cubecl_paged_chunked": [_VP] * 10 + [_I] * 11 + [_F, _VP],
+    "cubecl_paged_chunked_plan": [_I] * 9 + [_VP],
     "cubecl_matmul": [_VP] * 6 + [_I] * 10 + [_F, _VP],
     "cubecl_matmul8": [_VP] * 6 + [_I] * 10 + [_F, _VP],
     "cubecl_expert_matmul": [_VP] * 4 + [_I] * 8 + [_VP],
@@ -62,7 +63,7 @@ _SIGNATURES = {
     "cubecl_flash_bsp_dq": [_VP] * 9 + [_I] * 9 + [_F, _F, _I, _VP],
     "cubecl_flash_bsp_dkv": [_VP] * 10 + [_I] + [_VP] * 2 + [_I] * 9
     + [_F, _F, _I, _VP],
-    "cubecl_conv3x3": [_VP] * 3 + [_I] * 5 + [_VP],
+    "cubecl_conv3x3": [_VP] * 4 + [_I] * 5 + [_VP],
     "cubecl_conv3x3_plan": [_I] * 4 + [_VP],
 }
 

@@ -304,7 +304,11 @@ def test_c1_plan_covers_the_image_and_fits_the_card(n, h, w):
     grid of at most 132 blocks, one a tile below that; the weights (72 KiB)
     and two 1024-aligned halo stages within the 227 KiB a block may use.
     At ResNet-50's conv2_x shape a tile is 8 rows x 56 columns (7 m64
-    blocks). The f32 plan is the CUDA-core body's fixed 2 x 64 blocks."""
+    blocks. The f32 plan (three TF32 products on wgmma): tiles of at most
+    83 columns whose halo is at most 256 pixels (two 1024-aligned panels
+    of 128 bytes a pixel), covering the image once, beside a ring of 3
+    tap stages of the split weights (32 KiB each), within 227 KiB; at
+    conv2_x a tile is 2 rows x 56 columns (2 m64 blocks)."""
     p = tconv.c1_plan(torch.bfloat16, n, h, w)
     tr, tw = p.tile
     assert 1 <= tr <= h and 1 <= tw <= min(w, 198)
@@ -319,10 +323,84 @@ def test_c1_plan_covers_the_image_and_fits_the_card(n, h, w):
     if (n, h, w) == (32, 56, 56):
         assert p.tile == (8, 56) and p.grid == (132, 1, 1)
     f = tconv.c1_plan(torch.float32, n, h, w)
-    assert (f.threads, f.tile, f.smem_bytes) == (
-        tconv.C1_THREADS, tconv.C1_TILE, tconv.C1_SMEM)
-    assert f.grid == (-(-w // 64), -(-h // 2), n)
+    tr, tw = f.tile
+    assert 1 <= tr <= h and 1 <= tw <= min(w, 83)
+    assert (tr + 2) * (tw + 2) <= 256
+    wb, hb = -(-w // tw), -(-h // tr)
+    assert (wb - 1) * tw < w <= wb * tw and (hb - 1) * tr < h <= hb * tr
+    assert -(-w // wb) == tw
+    assert f.threads == 384 and f.grid == (min(n * hb * wb, 132), 1, 1)
+    panel = -(-(tr + 2) * (tw + 2) * 128 // 1024) * 1024
+    assert f.smem_bytes == 3 * 32768 + 2 * 2 * panel + 10 * 8 + 1024
+    assert f.smem_bytes <= 227 * 1024
+    if (n, h, w) == (32, 56, 56):
+        assert f.tile == (2, 56) and f.grid == (132, 1, 1)
     assert tconv.c1_body(torch.bfloat16) == "wgmma"
-    assert tconv.c1_body(torch.float32) == "cuda-cores"
+    assert tconv.c1_body(torch.float32) == "wgmma-tf32x3"
     with pytest.raises(ValueError, match="C1 takes"):
         tconv.c1_plan(torch.float16, n, h, w)
+
+
+_TF32_KEEP = np.uint32(0xFFFFE000)
+
+
+def _tf32_split(x):
+    """csrc/wgmma_gemm.cuh's tf32_split on finite f32: big = x truncated to
+    tf32, small = x - big (exact) rounded to tf32, to nearest with ties
+    away from zero (cvt.rna.tf32.f32)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    big = (u & _TF32_KEEP).view(np.float32)
+    d = (x - big).astype(np.float32).view(np.uint32)
+    return big, ((d + np.uint32(0x1000)) & _TF32_KEEP).view(np.float32)
+
+
+@pytest.mark.parametrize("n,h,w,ch,k", [(1, 6, 10, 32, 48),
+                                        (1, 3, 100, 16, 8)],
+                         ids=["1x6x10x32-48", "1x3x100x16-8"])
+def test_c1_f32_plan_three_tf32_products_match_the_jax_kernel(n, h, w, ch,
+                                                              k):
+    """C1's f32 body (csrc/conv3x3.cu, conv3x3_tf32x3_kernel) emulated in
+    numpy on its own plan (``c1_plan``: tiles of tr x tw pixels, each
+    output pixel computed once): per tap, the 8 k8 steps' three TF32
+    products (A_small B_big + A_big B_small + A_big B_big, products of
+    tf32 values exact in f32) summed from zero, the tap's sum added to the
+    pixel's f32 accumulator; the input's channels from ``ch`` on (garbage
+    here) read as zeros and the image's edges as zero, as the halo map's
+    fill gives them. Held against the JAX kernel (conv2d_pairs_packed in
+    interpret mode) at f32's tolerance; the second shape takes the plan's
+    equal column blocks (W 100 in two tiles of 50)."""
+    rng = np.random.default_rng(h * w + ch)
+    x = (rng.standard_normal((n, h, w, ch)) * 0.1).astype(np.float32)
+    wgt = (rng.standard_normal((3, 3, ch, k)) * 0.1).astype(np.float32)
+    want = np.asarray(jconv.conv2d_pairs_packed(
+        jconv.pack_pairs(jnp.asarray(x)), jnp.asarray(wgt), h,
+        interpret=True)).reshape(n, h, w, 64)
+    x64 = np.full((n, h, w, 64), 1e4, np.float32)
+    x64[..., :ch] = x
+    halo = np.zeros((n, h + 2, w + 2, 64), np.float32)
+    halo[:, 1:-1, 1:-1, :ch] = x64[..., :ch]      # C extent ch: zeros after
+    wd = tconv._pad_weights(torch.from_numpy(wgt), torch.float32).numpy()
+    (xb, xs), (wb_, ws) = _tf32_split(halo), _tf32_split(wd)
+    p = tconv.c1_plan(torch.float32, n, h, w)
+    tr, tw = p.tile
+    got = np.full((n, h, w, 64), np.nan, np.float32)
+    for img in range(n):
+        for h0 in range(0, h, tr):
+            for w0 in range(0, w, tw):
+                rows, cols = min(tr, h - h0), min(tw, w - w0)
+                acc = np.zeros((rows, cols, 64), np.float32)
+                for tap in range(9):
+                    dy, dx = divmod(tap, 3)
+                    sl = np.s_[img, h0 + dy:h0 + dy + rows,
+                               w0 + dx:w0 + dx + cols]
+                    a_b = torch.from_numpy(xb[sl].copy())
+                    a_s = torch.from_numpy(xs[sl].copy())
+                    b_b = torch.from_numpy(wb_[dy, dx])
+                    b_s = torch.from_numpy(ws[dy, dx])
+                    part = (a_s @ b_b + a_b @ b_s + a_b @ b_b).numpy()
+                    acc = (acc + part).astype(np.float32)
+                assert np.isnan(got[img, h0:h0 + rows, w0:w0 + cols]).all()
+                got[img, h0:h0 + rows, w0:w0 + cols] = acc
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **SMALL)
+    assert np.all(got[..., k:] == 0.0)

@@ -442,18 +442,31 @@ def test_paged_int8_kernel_matches_plain(dev, dtype, shape):
     assert not got[0].any()
 
 
+@pytest.mark.parametrize("page", [16, 7, 48, 128])
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 2, 2, 5, 64), (2, 2, 3, 70, 128)],
                          ids=["B4-Hkv2-G2-C5-D64", "B2-Hkv2-G3-C70-D128"])
-def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape):
+def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape, page):
     """P3: chunks starting at 0, in mid-page and on a page boundary, one
-    row of length 0 and one whose length stops inside its chunk, against
-    the plain version."""
+    row of length 0 (zeros) and one whose length stops inside its chunk,
+    against the plain version, at page sizes that 64 positions hold whole
+    or not (7, 48) and that hold 64 (128). bf16 runs the wgmma body: the
+    decode-shaped chunk (10 rows) with its positions in several splits
+    and the combine (p3_plan), the C 70 chunk's 210 rows in 4 row tiles
+    without a split; f32 the CUDA-core body."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
     B, Hkv, G, C, D = shape
-    g = torch.Generator(device=dev).manual_seed(C * D + quant)
-    L, page, max_pages = 2, 16, 10
+    g = torch.Generator(device=dev).manual_seed(C * D + quant + page)
+    L, max_pages = 2, -(-128 // page) + 2  # at least 128 positions a row
     P = B * max_pages + 3
+    plan = pa.p3_plan(dtype, torch.int8 if quant else dtype, B, Hkv * G,
+                      Hkv, C, D, page, max_pages)
+    assert plan.body == ("wgmma" if dtype == torch.bfloat16
+                         else "cuda-cores")
+    if dtype == torch.bfloat16:
+        assert (plan.splits > 1) == (G * C <= 64)
     q = torch.randn(B, Hkv * G, C, D, generator=g, device=dev).to(dtype)
     if quant:
         kp, vp, ks, vs = _int8_pools(g, dev, (L, Hkv, P, page, D))
@@ -475,6 +488,81 @@ def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape):
         assert paged_attention_chunked.launches == n + 1
         _close(got, paged_attention_chunked_plain(
             q, kp, vp, table, ln, st, layer=1, k_scales=ks, v_scales=vs))
+        if lengths is not None:
+            assert not got[0].any()
+
+
+# (B, Hkv, G, C, D, max_pages, starts, lengths or None for starts + C):
+# chip_smoke.py's phase i bf16 shapes, page 128: the verify step (its
+# positions in 6 splits of 3 stages), a ragged batch with a length-0 row
+# (4 splits), a prefill chunk from 768 (8 row tiles, up to 16 stages)
+P3_REPEAT_CASES = {
+    "verify": (8, 8, 2, 5, 128, 9, [1051] * 8, None),
+    "ragged": (8, 8, 2, 16, 128, 8, [0, 1, 127, 128, 500, 1000, 640, 3],
+               [0, 17, 143, 144, 510, 1016, 656, 10]),
+    "prefill start 768": (8, 8, 2, 256, 128, 9, [768] * 8, None),
+}
+P3_LAUNCHES = 200
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", list(P3_REPEAT_CASES))
+def test_paged_chunked_every_launch_of_many_agrees(dev, case, quant):
+    """P3's wgmma body at phase i's shapes: a race in its ring of cp.async
+    stages (a stage refilled before every warp read it, a copy read
+    before it landed) or in the split's partial sums shows in a few
+    launches of many, not in one. The first launch within TOL of plain,
+    each of P3_LAUNCHES launches equal to it bit for bit (the kernel's
+    sums run in one order)."""
+    B, Hkv, G, C, D, max_pages, starts, lengths = P3_REPEAT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(len(case) + quant)
+    L, page = 2, 128
+    P = B * max_pages + 5
+    shape = (L, Hkv, P, page, D)
+    q = torch.randn(B, Hkv * G, C, D, generator=g,
+                    device=dev).to(torch.bfloat16)
+    if quant:
+        kp, vp, ks, vs = _int8_pools(g, dev, shape)
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = st + C if lengths is None else torch.tensor(
+        lengths, dtype=torch.int32, device=dev)
+    first = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                    k_scales=ks, v_scales=vs)
+    _close(first, paged_attention_chunked_plain(
+        q, kp, vp, table, ln, st, layer=1, k_scales=ks, v_scales=vs))
+    bad = torch.zeros(P3_LAUNCHES, dtype=torch.int64, device=dev)
+    for i in range(P3_LAUNCHES):
+        got = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                      k_scales=ks, v_scales=vs)
+        bad[i] = (got != first).sum()
+    bad = bad.cpu()
+    assert not bad.any(), (f"{int((bad > 0).sum())} of {P3_LAUNCHES} "
+                           f"launches differ, {int(bad.sum())} elements")
+
+
+def test_paged_chunked_plan_matches_the_kernel(dev):
+    """The launch plans ops/paged_attention.py sizes P3's scratch with
+    (p3_plan) are the built kernel's (csrc/paged_chunked.cu's
+    cubecl_paged_chunked_plan), per q dtype, pool dtype and shape."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    for dt in (torch.float32, torch.bfloat16):
+        for kv in (dt, torch.int8):
+            for B, H, Hkv, C, D, page, max_pages in [
+                    (8, 16, 8, 5, 128, 128, 9), (8, 16, 8, 256, 128, 128, 9),
+                    (8, 16, 8, 16, 128, 128, 8), (16, 12, 4, 5, 64, 128, 4),
+                    (4, 4, 2, 5, 64, 7, 21), (2, 6, 2, 70, 128, 16, 10),
+                    (1, 32, 8, 1, 128, 16, 4096), (300, 16, 8, 5, 64, 128, 9)]:
+                assert pa.p3_kernel_plan(dt, kv, B, H, Hkv, C, D, page,
+                                         max_pages) \
+                    == pa.p3_plan(dt, kv, B, H, Hkv, C, D, page, max_pages), \
+                    (dt, kv, B, H, Hkv, C, D, page, max_pages)
 
 
 @pytest.mark.parametrize("kv_dtype", ["", "int8"], ids=["f32", "int8"])
@@ -743,6 +831,65 @@ def test_cmma_f32_non_finite_operands(dev):
     assert "mapping=cmma-wgmma-tf32x3 " in c.server.last_launched.source
     _non_finite_agree(o.tensor.view(M, N),
                       mm.matmul_plain(a, b, torch.float32))
+
+
+def _top_of_range_operands(dev, M, N, K, seed):
+    """F12's operands: f32 A (M, K), N(0, K^-1/2) but for rows at the top
+    of f32's range (FLT_MAX whole, values just under it, the least value
+    that rounding to tf32 takes to infinity, -FLT_MAX), and B (K, N) small
+    and positive (|N(0, 1)| 1e-30), so every product and sum is finite and
+    the top rows' outputs are of order 1e10."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = _mm_operand(g, dev, "float32", (M, K), K)
+    b = torch.randn(K, N, generator=g, device=dev).abs() * 1e-30
+    top = float(np.finfo(np.float32).max)
+    near = float(np.nextafter(np.float32(top), np.float32(0)))
+    a[0, :] = top
+    a[1, ::3] = near
+    a[2, 5], a[3, 7] = (2 - 2.0 ** -11) * 2.0 ** 127, -top
+    return a, b
+
+
+@pytest.mark.parametrize("b_transposed", [False, True])
+def test_matmul_tf32x3_top_of_range_stays_finite(dev, b_transposed):
+    """F12: M1's f32 body, every tile in both B layouts, on finite
+    operands at the top of f32's range (``_top_of_range_operands``): the
+    f32 product, finite, within TOL (big truncated to tf32 stays finite;
+    rounded to nearest it was an infinity and the cross terms NaN)."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = 256, 384, 96
+    a, b = _top_of_range_operands(dev, M, N, K, seed=14)
+    if b_transposed:
+        b = b.t().contiguous()
+    want = mm.matmul_plain(a, b, torch.float32, b_transposed)
+    assert bool(want.isfinite().all()) and want.abs().max() > 1e9
+    for tile in mm._tile_candidates(M, N, K, 4):
+        o = torch.zeros(M, N, device=dev)
+        mm._gemm(a, b, o, tile, b_transposed, counter=mm.matmul_pallas)
+        assert bool(o.isfinite().all()), tile
+        _close(o, want)
+
+
+def test_cmma_f32_top_of_range_stays_finite(dev):
+    """F12: K0's f32 cmma (the 3xTF32 route) on finite operands at the
+    top of f32's range (``_top_of_range_operands``): finite, within TOL
+    of plain f32."""
+    from cubecl_tpu_torch.ops import matmul as mm
+
+    M, N, K = 256, 256, 128
+    a, b = _top_of_range_operands(dev, M, N, K, seed=15)
+    c = CudaRuntime.client()
+    o = c.empty((M * N,), "float32")
+    o.tensor.zero_()
+    mm.matmul_cmma(c, c.create(a.reshape(-1)), c.create(b.reshape(-1)), o,
+                   M, N, K)
+    torch.cuda.synchronize()
+    assert "mapping=cmma-wgmma-tf32x3 " in c.server.last_launched.source
+    want = mm.matmul_plain(a, b, torch.float32)
+    assert bool(want.isfinite().all())
+    assert bool(o.tensor.isfinite().all())
+    _close(o.tensor.view(M, N), want)
 
 
 @pytest.mark.parametrize("b_transposed", [False, True])
@@ -1724,11 +1871,16 @@ def test_block_sparse_refuses_other_shapes(dev):
 def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, k):
     """C1 on the packed layout against its plain version: input lanes
     c..63 hold garbage that must not reach the output, output lanes k..63
-    are exact zeros. f32: W = 130 takes three column blocks, H = 5 a half
-    row pair. bf16 (the wgmma body): 56 columns make 448-pixel tiles of 7
-    m64 blocks (the second consumer takes 3), H 56 = 7 tiles of 8 rows, H 1
-    a one-row tile whose halo rows are both padding, W 400 two column
-    blocks of 134, cin 3 and 32 the tensor map's channel extent."""
+    are exact zeros. bf16 (the wgmma body): 56 columns make 448-pixel
+    tiles of 7 m64 blocks (the second consumer takes 3), H 56 = 7 tiles of
+    8 rows, H 1 a one-row tile whose halo rows are both padding, W 400 two
+    column blocks of 134, cin 3 and 32 the tensor map's channel extent.
+    f32 (three TF32 products on wgmma): W 56 makes 2-row tiles of 112
+    pixels (one m64 block a consumer), W 130 two column blocks of 65, W
+    400 five of 80 (one-row tiles), H 1 a tile whose halo rows are both
+    padding, 6 x 10 one m64 block (the second consumer only walks the
+    weight ring), cin 3 and 32 a channel extent inside the first or at
+    the end of the first of the pixel's two 32-channel boxes."""
     from cubecl_tpu_torch.ops import conv
 
     g = torch.Generator(device=dev).manual_seed(n * h * w + c)
@@ -1745,6 +1897,48 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, n, h, w, c, k):
                                   conv._pad_weights(wgt, dtype), c)
     _close(got.view(n, h, w, 64), ref)
     assert not got.view(n, h, w, 64)[..., k:].any()
+
+
+@pytest.mark.parametrize("case", ["top_of_range", "non_finite"])
+def test_conv3x3_f32_extreme_inputs(dev, case):
+    """C1's f32 body (3xTF32) on inputs at the top of f32's range (F12:
+    FLT_MAX, values just under it, -FLT_MAX, weights ~1e-31 so every sum
+    is finite): finite and within TOL of plain f32; and on inputs holding
+    NaN (0 / 0 and NaNs whose bits a rounding by integer addition would
+    carry into the exponent or the sign) and infinities: NaN wherever the
+    plain f32 conv is NaN, finite and within TOL wherever it is finite,
+    NaN or an infinity of its sign wherever it is infinite, as M1's and
+    K0's non_finite tests hold them."""
+    from cubecl_tpu_torch.ops import conv
+
+    n, h, w = 2, 8, 10
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(n, h, w, 64, generator=g, device=dev) * .1
+    wgt = torch.randn(3, 3, 64, 64, generator=g, device=dev) * .1
+    if case == "top_of_range":
+        top = float(np.finfo(np.float32).max)
+        x[0, 3, 4, :] = top
+        x[1, 0, 0, 5] = -top
+        x[1, 7, 9, ::2] = float(np.nextafter(np.float32(top),
+                                             np.float32(0)))
+        x[0, 5, 0, 7] = (2 - 2.0 ** -11) * 2.0 ** 127
+        wgt = wgt.abs() * 1e-30
+    else:
+        zero = torch.zeros((), device=dev)
+        x[0, 1, 1, 3] = zero / zero
+        x[0, 4, 6, 10], x[1, 2, 2, 20], x[1, 6, 7, 30] = _f32_bits(
+            dev, 0x7F800001, 0xFFFFFFFF, 0xFFC00000)
+        x[0, 6, 2, 40], x[1, 5, 9, 50] = float("inf"), -float("inf")
+        x[1, 0, 4, 60] = float("inf")
+    got = conv.conv3x3(x, wgt)
+    torch.cuda.synchronize()
+    want = conv.conv2d_pairs_plain(x, wgt)
+    if case == "top_of_range":
+        assert bool(want.isfinite().all()) and want.abs().max() > 1e6
+        assert bool(got.isfinite().all())
+        _close(got, want)
+    else:
+        _non_finite_agree(got, want)
 
 
 def test_conv3x3_plan_matches_the_kernel(dev):

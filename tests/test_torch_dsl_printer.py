@@ -809,9 +809,10 @@ def test_cmma_f32_prints_the_tf32x3_route(size):
     with open(f"{CSRC_DIR}/wgmma_gemm.cuh") as f:
         cuh = f.read()
     assert '"k8.f32.tf32.tf32' in cuh
-    # cvt.rna.tf32.f32's rounding in integer instructions, a NaN kept one
+    # big truncated (finite for every finite x, F12), a NaN kept one;
+    # small rounded as cvt.rna.tf32.f32 in integer instructions
     assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in cuh
-    assert "big = isnan(f) ? 0x7fffffffu : tf32_rna(f);" in cuh
+    assert "big = isnan(f) ? 0x7fffffffu : x & 0xffffe000u;" in cuh
     products = re.findall(r"cubecl::wgmma_tf32\(cc_part\[u\], (\w+), "
                           r"(\w+)(, ks > 0)?\);", src)
     assert products == [("cc_as", "cc_bb", ", ks > 0"), ("cc_ab", "cc_bs", ""),

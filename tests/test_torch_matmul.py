@@ -426,10 +426,13 @@ def _tf32(x):
     return ((u + np.uint32(0x1000)) & _TF32_KEEP).view(np.float32)
 
 
-def _split(x, guard=True):
-    """csrc/wgmma_gemm.cuh's tf32_split: big = tf32(x), small = tf32(x -
-    big), a NaN's big 0x7fffffff (``guard``), x - big's NaN CUDA's."""
-    big = _tf32(x)
+def _split(x, guard=True, truncate=True):
+    """csrc/wgmma_gemm.cuh's tf32_split: big = x truncated to tf32 (its 13
+    low bits cleared; ``truncate=False``: rounded as ``_tf32``, the split
+    before F12), small = tf32(x - big), a NaN's big 0x7fffffff
+    (``guard``), x - big's NaN CUDA's."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    big = (u & _TF32_KEEP).view(np.float32) if truncate else _tf32(x)
     if guard:
         big = np.where(np.isnan(x), _CUDA_NAN.view(np.float32), big)
     with np.errstate(invalid="ignore"):
@@ -462,6 +465,8 @@ def test_three_tf32_products_hold_f32_where_one_does_not(shape):
     b = (r.standard_normal((K, N)) * K ** -0.25).astype(np.float32)
     (ab, as_), (bb, bs) = _split(a), _split(b)
     assert np.all(np.abs(a - ab - as_) <= 2.0 ** -21 * np.abs(a))
+    # truncated, big keeps x's sign and small does too
+    assert np.all(np.abs(ab) <= np.abs(a)) and np.all(as_ * a >= 0)
 
     def mm(x, y):
         return torch.matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy()
@@ -486,7 +491,9 @@ def test_three_tf32_products_keep_nan_and_infinities():
     cores reading each operand's 19 high bits (0x7f800001 would be an
     infinity there: a NaN's big is 0x7fffffff). Rounded without the
     guard, a NaN comes out finite (0x7fffffff as -0). The card holds the
-    kernels to the same (tests/test_torch_cuda.py, non_finite)."""
+    kernels to the same (tests/test_torch_cuda.py, non_finite). And F12:
+    FLT_MAX times small finite values gives the f32 product, not NaN
+    (``_top_of_range_case``)."""
     M, N, K = 64, 96, 64
     r = _rng(7)
     a = (r.standard_normal((M, K)) * K ** -0.25).astype(np.float32)
@@ -521,6 +528,63 @@ def test_three_tf32_products_keep_nan_and_infinities():
     assert np.max(np.abs(got[fin] - plain[fin]) / lim) < 1
     assert _tf32(odd[:1]).view(np.uint32)[0] == 0x80000000
     assert not np.isnan(three(False)[nan]).all()
+    # F12: FLT_MAX is finite through the split
+    _top_of_range_case(np.finfo(np.float32).max)
+
+
+def _top_of_range_case(top):
+    """F12: finite operands at the top of f32's range (``top``, the value
+    just under it, -top) times small positive finite values give the f32
+    product to the tolerance through the split (emulated by bit masks, the
+    tensor cores reading 19 high bits), not NaN: big truncated to tf32
+    stays finite where big rounded to nearest was an infinity, from (2 -
+    2^-11) 2^127 on (then small = -inf and the cross terms inf - inf =
+    NaN: the split before F12, checked too)."""
+    M, N, K = 32, 48, 64
+    r = _rng(5)
+    a = (r.standard_normal((M, K)) * K ** -0.25).astype(np.float32)
+    # b >= 0: row 0's sum of K products of FLT_MAX's size does not cancel
+    b = (np.abs(r.standard_normal((K, N))) * 1e-30).astype(np.float32)
+    near = np.nextafter(np.float32(top), np.float32(0))
+    a[0, :] = top
+    a[1, 3], a[2, 5], a[3, 7], a[4, K - 1] = top, -top, near, -near
+    b[:, 0] = 1e-30
+
+    def mm(x, y):
+        return torch.matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+
+    def tc(x):
+        return (x.view(np.uint32) & _TF32_KEEP).view(np.float32)
+
+    overflow = np.float32((2 - 2.0 ** -11) * 2.0 ** 127)
+
+    def three(truncate):
+        (ab, as_), (bb, bs) = (_split(a, truncate=truncate),
+                               _split(b, truncate=truncate))
+        assert np.isfinite(ab).all() == (truncate or top < overflow)
+        ab, as_, bb, bs = tc(ab), tc(as_), tc(bb), tc(bs)
+        with np.errstate(invalid="ignore", over="ignore"):
+            return mm(as_, bb) + mm(ab, bs) + mm(ab, bb)
+
+    plain = mm(a, b)
+    assert np.isfinite(plain).all() and np.abs(plain).max() > 1e7
+    got = three(True)
+    assert np.isfinite(got).all()
+    lim = 2e-5 + 1e-4 * np.abs(plain)
+    assert np.max(np.abs(got - plain) / lim) < 1
+    assert np.isnan(three(False)).any() == (top >= overflow)
+
+
+@pytest.mark.parametrize("top", [
+    np.nextafter(np.finfo(np.float32).max, np.float32(0)),
+    np.float32(3.4e38), np.float32((2 - 2.0 ** -11) * 2.0 ** 127)],
+    ids=["under_flt_max", "3.4e38", "rounds_to_inf"])
+def test_three_tf32_products_keep_the_top_of_the_range_finite(top):
+    """F12 below FLT_MAX (which test_three_tf32_products_keep_nan_and_
+    infinities takes): the value just under it, 3.4e38 (finite under both
+    splits) and the least value that rounding to tf32 takes to infinity;
+    see ``_top_of_range_case``."""
+    _top_of_range_case(top)
 
 
 def test_f32_route_takes_every_shape_the_cuda_core_route_took():

@@ -9,7 +9,9 @@ mid-page, on a page boundary and in mid-page again, so that the lengths
 the two sides sum in different orders.
 """
 
+import dataclasses
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,8 @@ import pytest
 import torch
 
 from cubecl_tpu_torch.ops.paged_attention import (
+    p3_block_positions,
+    p3_plan,
     paged_attention,
     paged_attention_chunked,
     paged_attention_chunked_plain,
@@ -206,3 +210,138 @@ def test_other_devices_and_bad_arguments_raise():
     with pytest.raises(ValueError):
         paged_attention_chunked(q, k, v, table, starts[:2] + 2, starts,
                                 k_scales=ks, v_scales=vs)
+
+
+# (name, B, Hkv, G, C, D, page, max_pages, starts, lengths): the ragged and
+# length-0 rows of test_chunked_masks_lengths_and_empty_rows, and
+# chip_smoke.py's phase i shapes (the verify step, the ragged batch with a
+# length-0 row, a prefill chunk), page sizes that do not divide 64 included
+P3_PLAN_CASES = [
+    ("masks", 4, 2, 2, 5, 64, 8, 4, [0, 5, 8, 3], [0, 7, 13, 30]),
+    ("masks page 7", 4, 2, 2, 5, 64, 7, 5, [0, 5, 8, 3], [0, 7, 13, 30]),
+    ("verify", 8, 8, 2, 5, 128, 128, 9, [1051] * 8, [1056] * 8),
+    ("ragged", 8, 8, 2, 16, 128, 128, 8, [0, 1, 127, 128, 500, 1000, 640, 3],
+     [0, 17, 143, 144, 510, 1016, 656, 10]),
+    ("ragged page 48", 8, 8, 2, 16, 128, 48, 22,
+     [0, 1, 127, 128, 500, 1000, 640, 3],
+     [0, 17, 143, 144, 510, 1016, 656, 10]),
+    ("prefill", 8, 8, 2, 256, 128, 128, 9, [768] * 8, [1024] * 8),
+]
+
+
+@pytest.mark.parametrize("case", P3_PLAN_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_p3_plan_gives_every_position_to_one_split(case, kv):
+    """P3's bf16 plan (csrc/paged_chunked.cu's tc_plan, repeated by
+    ops/paged_attention.py's p3_plan): decode-shaped chunks (G*C <= 64)
+    split the table's span into equal multiples of 64 positions, enough
+    for 264 blocks (132 SMs twice), prefill-shaped ones do not split; for
+    every batch row and row tile the blocks' position ranges are disjoint
+    and their union is [0, the tile's last live position], so each
+    position a row attends (t < length, t <= start + i) is some one
+    block's, and a length-0 row's blocks have none."""
+    name, B, Hkv, G, C, D, page, max_pages, starts, lengths = case
+    plan = p3_plan(torch.bfloat16, torch.int8 if kv == "int8"
+                   else torch.bfloat16, B, Hkv * G, Hkv, C, D, page,
+                   max_pages)
+    rows = -(-G * C // 64)
+    assert plan.body == "wgmma" and plan.threads == 128
+    assert plan.grid == (rows * plan.splits, Hkv, B)
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.split_len % 64 == 0
+    assert plan.splits * plan.split_len >= page * max_pages
+    if G * C <= 64 and B * Hkv < 264:
+        assert B * Hkv * plan.splits >= 264 or plan.split_len == 64
+        assert plan.scratch == (B * Hkv * plan.splits * G * C * (D + 2)
+                                if plan.splits > 1 else 0)
+    else:
+        assert plan.splits == 1 and plan.scratch == 0
+    for b in range(B):
+        live = {}
+        for x in range(plan.grid[0]):
+            r0, r_end, p0, p1 = p3_block_positions(plan, C, G, starts[b],
+                                                   lengths[b], x)
+            for r in range(r0, r_end):
+                got = live.setdefault(r, [])
+                assert not set(got) & set(range(p0, p1))
+                got.extend(range(p0, p1))
+        assert sorted(live) == list(range(G * C))
+        for r, got in live.items():
+            want = range(min(lengths[b], starts[b] + r % C + 1))
+            assert set(want) <= set(got), (b, r)
+            if lengths[b] == 0:
+                assert not got
+
+
+def _split_combine(q, k, v, table, lengths, starts, layer, ks, vs,
+                   split_len):
+    """P3's split over positions and its combine, emulated in f32 numpy:
+    per (b, kv head) and split of ``split_len`` positions, the rows'
+    partial base-2 softmax (m, l over the unscaled p, acc = (p . V scale)
+    V), then the combine's rescaling by 2^(m - max m) (a split without a
+    live position adds 0; a row without one gets zeros)."""
+    Bq, H, C, Dq = q.shape
+    Hkv, Pn, page = k.shape[1], k.shape[2], k.shape[3]
+    G = H // Hkv
+    idx = np.clip(table, 0, Pn - 1)
+    S = idx.shape[1] * page
+    scale = 1.0 / math.sqrt(Dq) * math.log2(math.e)
+    out = np.zeros(q.shape, np.float32)
+    for b in range(Bq):
+        for hk in range(Hkv):
+            kc = k[layer, hk][idx[b]].reshape(S, Dq).astype(np.float32)
+            vc = v[layer, hk][idx[b]].reshape(S, Dq).astype(np.float32)
+            ksc = np.ones(S, np.float32) if ks is None \
+                else ks[layer, hk][idx[b]].reshape(S)
+            vsc = np.ones(S, np.float32) if vs is None \
+                else vs[layer, hk][idx[b]].reshape(S)
+            qr = q[b, hk * G:(hk + 1) * G].reshape(G * C, Dq)
+            pos = starts[b] + np.arange(G * C) % C
+            parts = []
+            for p0 in range(0, S, split_len):
+                t = np.arange(p0, min(p0 + split_len, S))
+                sc = (qr @ kc[t].T) * scale * ksc[t]
+                live = (t[None] < lengths[b]) & (t[None] <= pos[:, None])
+                sc = np.where(live, sc, -np.inf)
+                m = sc.max(1)
+                mu = np.where(np.isinf(m), 0.0, m)
+                p = np.where(live, np.exp2(sc - mu[:, None]), 0.0)
+                parts.append((m, p.sum(1), (p * vsc[t]) @ vc[t]))
+            big = np.max([m for m, _, _ in parts], 0)
+            big = np.where(np.isinf(big), 0.0, big)
+            l_sum = sum(l * np.exp2(m - big) for m, l, _ in parts)
+            acc = sum(a * np.exp2(m - big)[:, None] for m, _, a in parts)
+            o = acc / np.where(l_sum == 0, 1.0, l_sum)[:, None]
+            out[b, hk * G:(hk + 1) * G] = o.reshape(G, C, Dq)
+    return out
+
+
+@pytest.mark.parametrize("split_len", [8, 16, 64])
+@pytest.mark.parametrize("quant, G, C", [
+    (False, 1, 1), (False, 2, 5), (False, 2, 16),
+    (True, 1, 5), (True, 2, 1), (True, 1, 16)],
+    ids=["f32-G1-C1", "f32-G2-C5", "f32-G2-C16", "int8-G1-C5", "int8-G2-C1",
+         "int8-G1-C16"])
+def test_p3_split_and_combine_matches_jax_kernel(quant, G, C, split_len):
+    """The bf16 body's split over positions and its combine
+    (paged_chunked_combine_kernel), emulated in f32 on the cases of
+    test_chunked_matches_jax_kernel with the table's 32 positions in 4, 2
+    and 1 splits, against the JAX kernel (interpret mode): the combine of
+    partial softmaxes is the softmax of the whole range."""
+    rng = np.random.default_rng(100 * C + 10 * G + quant)
+    k, v, ks, vs = _pools(rng, quant)
+    q = rng.standard_normal((B, HKV * G, C, D), dtype=np.float32)
+    table = _table(rng)
+    lengths = STARTS + C
+    layer = 1 if quant else 2
+    ref = jax_paged.paged_attention_chunked(
+        *(jnp.asarray(a) for a in (q, k, v, table, lengths, STARTS)),
+        interpret=True, k_scales=_j(ks), v_scales=_j(vs), layer=layer)
+    got = _split_combine(q, k, v, table, lengths, STARTS, layer, ks, vs,
+                         split_len)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL, rtol=RTOL)
+    # the plan's own split length at these shapes: one split of 64
+    plan = p3_plan(torch.bfloat16, torch.int8 if quant else torch.bfloat16,
+                   B, HKV * G, HKV, C, D, PAGE, MAX_PAGES)
+    assert (plan.splits, plan.split_len) == (1, 64)
+    assert dataclasses.replace(plan, splits=4, split_len=8).splits == 4
