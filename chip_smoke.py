@@ -16,9 +16,11 @@ bf16 instance of the flash forward, dK/dV and dQ kernels, dense and
 block-sparse at D 64 and 128, C1's bf16 body, every 8-bit GEMM
 instance and the K0 bf16/f16 cmma kernels issue wgmma: HGMMA in
 ``cuobjdump -sass``, IGMMA for the int8 GEMM; their registers and
-spills), 3 flash vs plain (with
+spills; P1 spilling nothing), 3 flash vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
-bf16 D 64 at GPT-2's widths), 4 paged vs plain, 5 serve at full width, 6 serve exactness; then K0:
+bf16 D 64 at GPT-2's widths), 4 paged decode (P1: positions split over
+blocks, a cp.async ring per warp) vs plain, back to back and with a cold
+L2, 5 serve at full width, 6 serve exactness; then K0:
 a the DSL kernels at BASELINE sizes, and RMSNorm at every shape phases b
 and c give it, against the torch evaluator on the card and a plain
 formula, b serve at full width with RMSNorm through K0
@@ -63,7 +65,9 @@ checks, the headline TFLOP/s, ``matmul_scaled`` and ``matmul_quantized``,
 o ``matmul_cmma`` through K0 with cmma printed (f32 512^3 on FMA, bf16
 512^3 and 4096^3 and f16 4096^3 on the tensor-core route, each 16-bit
 case in 25 launches) against plain and the evaluator, and the K0 quant kernels
-against plain, bit for bit. Then reductions and comptime fusion (BASELINE
+(one per-tensor scale: two passes over many cubes; block scales: a cube
+a block) against plain and the evaluator, bit for bit, their launches
+and cold-L2 times. Then reductions and comptime fusion (BASELINE
 configs 2 and 5): p at 64M f32 ``reduce_sum_autotuned`` (R1, the
 ``block_sum`` route and the K0 tree, tuned into the temp store, then a
 second call untimed), ``reduce_sum``, ``reduce_max``, ``reduce_mean`` and
@@ -275,7 +279,6 @@ def kernel_name(mangled):
                     r"ELi(\d+)ELb([01])E", mangled)
     g32 = re.search(r"(gemm_tf32x3_kernel)ILi(\d+)ELi(\d+)E", mangled)
     p3 = re.search(r"(paged_chunked_wgmma_kernel)ILi(\d+)ELb([01])E", mangled)
-    p3c = re.search(r"(paged_chunked_combine_kernel)ILi(\d+)E", mangled)
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
     for name in ("conv3x3_tf32x3_kernel", "conv3x3_split_weights_kernel"):
@@ -284,8 +287,6 @@ def kernel_name(mangled):
     if p3:
         int8 = ", int8 KV" if p3.group(3) == "1" else ""
         return f"{p3.group(1)}<bf16{int8}, {p3.group(2)}>"
-    if p3c:
-        return f"{p3c.group(1)}<bf16, {p3c.group(2)}>"
     if "expert_wgmma_kernel" in mangled:
         return "expert_wgmma_kernel<bf16>"
     if g16:
@@ -1410,6 +1411,10 @@ CHUNKED_CASES = [
     ("prefill int8 start 768", 8, 16, 8, 2, 256, 128, 9, [768] * 8, None,
      torch.bfloat16, True),
 ]
+P1_SYMBOLS = ("paged_decode_kernel<T, TK, D> (positions split over blocks, "
+              "a cp.async ring per warp through the table), then "
+              "paged_combine_kernel<T, D> where the positions are split (a "
+              "second launch a call, counted as one)")
 NO_LIBRARY_PAGED = ("no single PyTorch call attends through a block "
                     "table: SDPA needs the pages gathered first")
 # P3's times before its bf16 body ran on the tensor cores (the CUDA-core
@@ -1531,19 +1536,26 @@ def paged_int8(pa, dev, gen, card):
         plain_ms = cuda_ms(lambda: pa.paged_attention_plain(
             q, kp, vp, table, ln, layer=next(layers) % L, **sc), iters=8,
             warmup=1)
+        cold = cold_ms(lambda: pa.paged_attention(q, kp, vp, table, ln,
+                                                  layer=L - 1, **sc))
+        splits = pa.p1_plan(torch.bfloat16, kp.dtype, B, Hkv * G, Hkv, D,
+                            page, max_pages).splits
         bms, by = paged_bound(torch.bfloat16, kp.element_size(), D, Hkv * G,
                               Hkv, [max(x, 0) for x in lengths], lengths,
                               quant, B)
         kv_gb = sum(lengths) * Hkv * (2 * D * kp.element_size()
                                       + (8 if quant else 0)) / 1e9
         print(f"phase j {what}: max abs err {err} (atol/rtol "
-              f"{TOL[torch.bfloat16]}); kernel {1e3 * ms:.1f} µs "
-              f"({kv_gb / ms * 1e3:.0f} GB/s of KV), plain {plain_ms:.4f} "
-              f"ms, bound {1e3 * bms:.1f} µs ({by}; {100 * bms / ms:.1f}% "
-              f"of it) [{card}]", flush=True)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by,
-                          kv_gb_per_s=kv_gb / ms * 1e3)
+              f"{TOL[torch.bfloat16]}); kernel {1e3 * ms:.1f} µs back to "
+              f"back ({kv_gb / ms * 1e3:.0f} GB/s of KV), {1e3 * cold:.1f} "
+              f"µs cold L2 ({kv_gb / cold * 1e3:.0f} GB/s; {splits} position "
+              f"splits), plain {plain_ms:.4f} ms, bound {1e3 * bms:.1f} µs "
+              f"({by}; {100 * bms / cold:.1f}% of it cold) [{card}]",
+              flush=True)
+        rows[name] = dict(max_abs_err=err, ms=ms, cold_ms=cold,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          kv_gb_per_s=kv_gb / ms * 1e3,
+                          kv_gb_per_s_cold=kv_gb / cold * 1e3, splits=splits)
         del q, kp, vp, ks, vs
     torch.cuda.empty_cache()
     return rows
@@ -2438,8 +2450,8 @@ def autotuned_path(mm, cu, dev, gen, card):
     launches = {"matmul_pallas": mm.matmul_pallas.launches,
                 "matmul_pallas f32 (3xTF32)": key_launches[f"f32 {S}^3"],
                 "matmul_scaled": mm.matmul_scaled.launches,
-                "quantize_block_kernel":
-                    cu.server.launches["quantize_block_kernel"]}
+                **{k: cu.server.launches[k] for k in (
+                    "quantize_tensor_absmax", "quantize_tensor_values")}}
     if not all(launches.values()):
         fail(f"phase n: a kernel of the path never launched: {launches} "
              f"(server: {dict(cu.server.launches)})")
@@ -2684,10 +2696,19 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
 
     x = torch.randn(QUANT_N, generator=gen, device=dev) * 3
     xh = cu.create(x)
+    want_launches = {QuantLevel.TENSOR: {"quantize_tensor_absmax": 1,
+                                         "quantize_tensor_values": 1},
+                     QuantLevel.BLOCK: {"quantize_block_kernel": 1}}
     for scheme in (QuantScheme(), QuantScheme(level=QuantLevel.BLOCK,
                                               block_size=QUANT_BLOCK)):
         level = scheme.level.value
+        cu.server.reset_counts()
         vals, scales = qk.quantize(cu, xh, scheme)
+        torch.cuda.synchronize()
+        n_launch = dict(cu.server.launches)
+        if n_launch != want_launches[scheme.level]:
+            fail(f"phase o K0 quantize {level}: launches {n_launch}, want "
+                 f"{want_launches[scheme.level]}")
         back = qk.dequantize(cu, vals, scales, scheme)
         pv, ps = qk.quantize_plain(x, scheme)
         torch.cuda.synchronize()
@@ -2698,35 +2719,45 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
         if any(differ.values()):
             fail(f"phase o K0 quantize/dequantize {level}: elements that "
                  f"differ from the plain version's bits: {differ}")
-        if scheme.level == QuantLevel.BLOCK:
-            ev_v, ev_s = qk.quantize(ev, ev.create(x), scheme)
-            differ = {k: int((t != e).sum()) for k, t, e in (
-                ("values", vals.tensor, ev_v.tensor),
-                ("scales", scales.tensor, ev_s.tensor))}
-            if any(differ.values()):
-                fail(f"phase o K0 quantize block: elements that differ from "
-                     f"the evaluator's bits: {differ}")
-        iters = 2 if scheme.level == QuantLevel.TENSOR else 10
-        ms = cuda_ms(lambda: qk.quantize(cu, xh, scheme), iters=iters,
-                     warmup=1)
+        ev_v, ev_s = qk.quantize(ev, ev.create(x), scheme)
+        differ = {k: int((t != e).sum()) for k, t, e in (
+            ("values", vals.tensor, ev_v.tensor),
+            ("scales", scales.tensor, ev_s.tensor))}
+        if any(differ.values()):
+            fail(f"phase o K0 quantize {level}: elements that differ from "
+                 f"the evaluator's bits: {differ}")
+        del ev_v, ev_s
+        run = lambda scheme=scheme: qk.quantize(cu, xh, scheme)  # noqa: E731
+        ms = cuda_ms(run, iters=10, warmup=1)
+        cold = cold_ms(run)
         plain_ms = cuda_ms(lambda: qk.quantize_plain(x, scheme))
+        tensor = scheme.level == QuantLevel.TENSOR
+        deq_cold = cold_ms(lambda: qk.dequantize(cu, vals, scales, scheme),
+                           iters=3 if tensor else 20)
         n_blocks = ps.numel()
         bms, by = bound_ms(2 * QUANT_N, QUANT_N * 5 + 4 * n_blocks,
                            torch.float32)
-        also = " and the evaluator's" if n_blocks > 1 else ""
-        print(f"phase o K0 quantize_block_kernel {level} f32 4096^2 -> int8"
-              f" ({n_blocks} scales): values and scales equal the plain "
-              f"version's bits{also}, dequantize_block_kernel's output the "
-              f"plain version's; quantize {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]",
-              flush=True)
-        if scheme.level == QuantLevel.TENSOR:
-            out["k0_quantize"] = dict(max_abs_err=0.0, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=bms,
-                                      bound_by=by)
-        else:
-            out["k0_quantize_block"] = dict(ms=ms, plain_ms=plain_ms,
-                                            bound_ms=bms)
+        # two passes read x twice: the floor without L2 hits
+        floor_ms = bound_ms(2 * QUANT_N, QUANT_N * 9 + 4 * n_blocks,
+                            torch.float32)[0]
+        kern = ("quantize_tensor_absmax + quantize_tensor_values (two "
+                "passes over many cubes)" if tensor else
+                "quantize_block_kernel (one 8-unit cube a block)")
+        print(f"phase o K0 {kern} {level} f32 4096^2 -> int8 ({n_blocks} "
+              f"scales): launches {n_launch}; values and scales equal the "
+              f"plain version's and the evaluator's bits, "
+              f"dequantize_block_kernel's output the plain version's; "
+              f"quantize {cold:.4f} ms cold L2, {ms:.4f} ms back to back, "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{100 * bms / cold:.1f}% of it; two reads of x "
+              f"{floor_ms:.4f}); dequantize {deq_cold:.4f} ms cold L2 "
+              f"[{card}]", flush=True)
+        row = dict(max_abs_err=0.0, ms=cold, call_ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, two_read_floor_ms=floor_ms,
+                   launches_a_call=n_launch, dequantize_cold_ms=deq_cold,
+                   shape=f"f32 4096^2 -> int8, {n_blocks} scales (ms: cold "
+                         f"L2)")
+        out["k0_quantize" if tensor else "k0_quantize_block"] = row
     return out
 
 
@@ -4143,6 +4174,12 @@ def main():
     cu.server.wait_builds()
     build_wall = time.perf_counter() - t0
     summary = ptxas_summary(build.log)
+    # (a library reused from an earlier build has no ptxas log)
+    p1_spill = [(n, sp) for n, _, sp in summary
+                if n.startswith("paged_decode_kernel") and not sp.startswith(
+                    "0 bytes stack frame, 0 bytes spill stores")]
+    if p1_spill:
+        fail(f"phase 2: P1 spills or keeps a stack frame: {p1_spill}")
     regs = "; ".join(f"{n}: {r} regs, {s}" for n, r, s in summary
                      if "tf32x3" not in n and "wgmma_kernel" not in n)
     gemm = [(r, s) for n, r, s in summary if "gemm_tf32x3" in n
@@ -4243,13 +4280,20 @@ def main():
             q, kp, vp, table, ln, layer=next(layers) % L), iters=32)
         plain_ms = cuda_ms(lambda: pa.paged_attention_plain(
             q, kp, vp, table, ln, layer=next(layers) % L), iters=16)
+        cold = cold_ms(lambda: pa.paged_attention(q, kp, vp, table, ln,
+                                                  layer=L - 1))
+        splits = pa.p1_plan(dt, dt, B, Hkv * G, Hkv, D, page,
+                            max_pages).splits
         bms, by = paged_bound(dt, kp.element_size(), D, Hkv * G, Hkv,
                               [max(x, 0) for x in lengths], lengths, False, B)
-        paged_rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bms, bound_by=by))
+        paged_rows.append(dict(max_abs_err=err, ms=ms, cold_ms=cold,
+                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                               splits=splits))
         print(f"phase 4 {what}: max abs err {err} (atol/rtol {TOL[dt]}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}) [{card}]", flush=True)
+              f"kernel {ms:.4f} ms back to back, {cold:.4f} ms cold L2 "
+              f"({splits} position splits), plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}; {100 * bms / cold:.1f}% of it cold) "
+              f"[{card}]", flush=True)
     del q, kp, vp
 
     # -- phase 5: serve at full width (bench.py:541-545) --------------------
@@ -4507,14 +4551,24 @@ def main():
             "cubecl_tpu/ops/paged_attention.py:247",
             launches["paged_attention"], paged_rows[1], None,
             library=NO_LIBRARY_PAGED,
-            shape="bf16 B8 Hkv8 G2 D128 context 1056, 16-layer pool"),
+            shape="bf16 B8 Hkv8 G2 D128 context 1056, 16-layer pool (ms: "
+                  "back to back, each launch on the next layer)",
+            cold_ms=paged_rows[1]["cold_ms"],
+            splits=paged_rows[1]["splits"], kernel_symbols=P1_SYMBOLS,
+            d768_f32={f: paged_rows[2][f] for f in (
+                "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+                "splits")}),
         row("paged_attention_int8", "cubecl_tpu_torch/csrc/paged_attention.cu",
             "cubecl_tpu/ops/paged_attention.py:247",
             k_out["int8"]["launches"]["paged_attention_int8"],
             j_rows["serving int8"], None, library=NO_LIBRARY_PAGED,
             shape="int8 KV, bf16 q, B8 Hkv8 G2 D128 context 1056",
+            cold_ms=j_rows["serving int8"]["cold_ms"],
+            splits=j_rows["serving int8"]["splits"],
+            kernel_symbols=P1_SYMBOLS,
             kv_bound_b16_ctx2048={k: {f: j_rows[k][f] for f in (
-                "ms", "bound_ms", "kv_gb_per_s")} for k in (
+                "ms", "cold_ms", "bound_ms", "kv_gb_per_s",
+                "kv_gb_per_s_cold", "splits")} for k in (
                 "KV-bound bf16", "KV-bound int8")}),
         row("paged_attention_chunked",
             "cubecl_tpu_torch/csrc/paged_chunked.cu",
@@ -4526,7 +4580,7 @@ def main():
             kernel_symbols={
                 "bf16": "paged_chunked_wgmma_kernel<D, QUANT> (wgmma, "
                         "cp.async through the table), then "
-                        "paged_chunked_combine_kernel<D> where the "
+                        "paged_combine_kernel<bf16, D> where the "
                         "positions are split (a second launch a call, "
                         "not counted in launches)",
                 "f32": "paged_chunked_kernel<float, TK, D> (CUDA cores)"},
@@ -4657,14 +4711,19 @@ def main():
                   "library_ms", "launches")})
           for key in ("k0_cmma", "k0_cmma_f16", "k0_cmma_f32")),
         row("k0_quantize", "cubecl_tpu_torch/std/quant_kernels.py "
-            "(quantize_block_kernel, printed by "
-            "cubecl_tpu_torch/backend/cuda/printer.py)",
+            "(quantize_tensor_absmax then quantize_tensor_values, printed "
+            "by cubecl_tpu_torch/backend/cuda/printer.py)",
             "cubecl_tpu/backend/pallas/emitter.py:48",
-            n_out["launches"]["quantize_block_kernel"], o_out["k0_quantize"],
+            n_out["launches"]["quantize_tensor_absmax"], o_out["k0_quantize"],
             None, library="none: no one call takes a tensor's absmax scale "
                           "and quantizes with it",
-            shape="f32 4096^2 -> int8, one per-tensor scale",
-            block_4096=o_out["k0_quantize_block"]),
+            launches_by_kernel={k: n_out["launches"][k] for k in (
+                "quantize_tensor_absmax", "quantize_tensor_values")},
+            **{k: v for k, v in o_out["k0_quantize"].items()
+               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by")},
+            block_4096=dict(o_out["k0_quantize_block"],
+                            kernel="quantize_block_kernel")),
         row("reduce_native", "cubecl_tpu_torch/csrc/reduce.cu",
             "cubecl_tpu/ops/reduce.py:219", p_out["launches"]["reduce_native"],
             p_out["r1"]["f32 64M"], p_out["r1"]["f32 64M"]["library_ms"],

@@ -4,44 +4,100 @@
 //   P1 _paged_call_headed (static capacity grid, used under jit) and
 //   P2 _paged_call_live (grid over a compacted list of live work, used in
 //   eager decode). Both compute the same function; they differ only in how
-//   Mosaic's grid skips dead pages. Here one block per (kv head, batch row)
-//   reads its own block-table row and loops over exactly ceil(len / 64)
-//   position tiles, so dead pages cost nothing and no work list is built.
+//   Mosaic's grid skips dead pages. Here a block reads its own block-table
+//   row and walks only the 64-position tiles below lengths[b], so dead
+//   pages cost nothing and no work list is built.
 //
 // Math (as P1/P2): the G = H / Hkv query rows of one kv head against that
 // head's pages of layer `layer` in the stacked pool (L, Hkv, P, page, D);
-// base-2 online softmax over positions < lengths[b] with f32 statistics and
-// accumulator; a row of length 0 gets zeros. Table entries are clamped to
-// [0, P) before they are read (P1's scale gather wraps -1 to the last page).
+// base-2 online softmax over positions < lengths[b] with f32 statistics,
+// accumulator and probabilities; a row of length 0 gets zeros. Table
+// entries are clamped to [0, P) before they are read (P1's scale gather
+// wraps -1 to the last page).
 //
 // int8 KV (P1's k_scales/v_scales option): the pools hold int8 values and
 // the scale pools (L, Hkv, P, page) one f32 scale per (token, head). As in
 // P1, the K scale multiplies each position's score column and the V scale
 // its probability column (the row sum l takes the unscaled probability), so
-// no dequantized K/V tile is ever formed. P1 pre-gathers the scales into
-// table order to keep its DMA windows few; here each position's scale is
-// read through the same table lookup as its K/V row.
+// no dequantized K/V tile is ever formed. Each position's scales ride the
+// same table lookup as its K/V rows.
 //
 // Bound on the H100: decode reads every cached K/V byte once per step and
 // does ~2G flops per byte, so HBM bandwidth bounds it (int8 halves the bytes
-// of bf16, plus 8 bytes of scales per position). Each tile of 64 positions
-// is fetched with 16-byte loads, a quarter row of K and of V per thread (at
-// D 128: 8, 4 or 2 loads each for f32, bf16 or int8); K stays in registers for the
-// scores, V goes to shared memory for the P.V product. One block per
-// (kv head, row) keeps the design simple; at small B*Hkv it leaves SMs
-// idle, which a split over positions (flash-decoding) and cp.async double
-// buffering would fix later.
+// of bf16, plus 8 bytes of scales per position); the CUDA cores do the
+// f32 products. What this design does about it:
+// - A split over positions (flash-decoding). B * Hkv blocks leave most of
+//   the 132 SMs idle at serving batch sizes, so each (batch row, kv head)
+//   is cut into `splits` blocks, enough that the grid fills the card once
+//   at two blocks an SM (p1_splits; ops/paged_attention.py's p1_plan
+//   repeats it). A block owns whole 64-position tiles: the row's
+//   ceil(len / 64) tiles shared out ceil(tiles / splits) a split, from
+//   lengths[b] on the device, so the splits of a row are as long as its
+//   actual length allows. Where B * Hkv fills the card alone, one split.
+//   Each split writes its partial (acc, m, l) in f32 and a second, small
+//   launch (paged_combine.cuh, P3's combine) rescales and adds them.
+// - Bytes in flight: a ring of 3 stages of K and V rows per warp, copied
+//   with cp.async (16 bytes a copy, zeros past the split's end) through
+//   the block table, the copies of two tiles ahead issued before each
+//   tile's products. A warp owns 8 positions of each tile and its own
+//   online softmax, so it copies, reads and frees its stages alone: the
+//   loop has no __syncthreads, only __syncwarp; the block's 8 warps meet
+//   once at the end and combine their (acc, m, l) in shared memory.
+// - Lane (p, quarter) of a warp computes position p's score on an
+//   interleaved quarter of the row (16-byte chunks c * 4 + quarter), two
+//   shuffles finish it; rows of 8 chunks or more put chunk j of odd rows
+//   at j ^ 4, so that the 8 lanes of a 16-byte load hit 32 banks. For P V
+//   each lane owns D / 32 output columns of every query row and reads V's
+//   8 rows of the warp, the probabilities by shuffle.
+// What holds it back: the f32 products and shuffles per position (G of
+// each) run on the CUDA cores; at B * Hkv near one wave the split is 1 and
+// the tail of the wave idles.
+#include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
+#include "paged_combine.cuh"
 
 namespace cubecl {
 namespace {
 
-constexpr int PT = 64;     // positions per tile (one per 4 threads)
-constexpr int PNT = 256;   // threads per block
-constexpr int MAXG = 8;    // query rows per kv head supported
+constexpr int PT = 64;          // positions per tile
+constexpr int PNT = 256;        // threads per block
+constexpr int PNW = PNT / 32;   // warps per block
+constexpr int WR = PT / PNW;    // positions of a tile a warp owns
+constexpr int MAXG = 8;         // query rows per kv head supported
+constexpr int STAGES = 3;       // ring of K/V stages per warp
+constexpr int kSMs = 132;       // the H100's SMs
+constexpr int kSmSmem = 233472;  // shared memory of an SM (228 KB)
 
+// dynamic shared memory: q (MAXG x D f32), then the warps' rings (a
+// stage: WR K rows, WR V rows, for int8 their WR K and WR V scales); the
+// rings are reused at the end for the warps' (acc, m, l)
+template <typename TK, int D>
+struct P1Smem {
+  static constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  static constexpr int kRow = D * (int)sizeof(TK);
+  static constexpr int kStage = 2 * WR * kRow + (kQuant ? 2 * WR * 4 : 0);
+  static constexpr int kRing = MAXG * D * 4;
+  static constexpr int kRingBytes = PNW * STAGES * kStage;
+  static constexpr int kComb = PNW * MAXG * (D + 2) * 4;
+  static constexpr int kBytes =
+      kRing + (kRingBytes > kComb ? kRingBytes : kComb);
+};
+
+// splits of each (batch row, kv head): enough blocks to fill the card once
+// at two blocks an SM (one where shared memory holds one), at most the
+// tiles the table addresses; 1 where B * Hkv fills it alone
+inline int p1_splits(int B, int Hkv, int page, int max_pages, int smem) {
+  const int per_sm = kSmSmem / (smem + 1024) >= 2 ? 2 : 1;
+  const int rows = B * Hkv;
+  const int tiles = (int)std::max<int64_t>(
+      1, ((int64_t)page * max_pages + PT - 1) / PT);
+  return std::max(1, std::min(kSMs * per_sm / rows, tiles));
+}
+
+// part (splits > 1): per (b, kv head, split, query row g < G) the row's
+// unnormalised f32 accumulator (D), then its m and l
 template <typename T, typename TK, int D>
 __global__ void __launch_bounds__(PNT)
 paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
@@ -49,161 +105,283 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                     const float* __restrict__ kscale,
                     const float* __restrict__ vscale,
                     const int* __restrict__ table,
-                    const int* __restrict__ lengths, T* __restrict__ o, int H,
-                    int Hkv, int G, int layer, int P, int page, int max_pages,
-                    float scale_log2) {
-  constexpr bool QUANT = std::is_same<TK, int8_t>::value;
-  constexpr int EPC = Chunk<TK>::N;       // elements per 16-byte chunk
-  constexpr int CPT = D / 4 / EPC;        // chunks per thread (a quarter row)
-  constexpr int PARTS = PNT / D;          // position groups of the P.V phase
-  // V rows padded so the float4 stores of 8 lanes spread over bank groups
-  constexpr int VS = D + (EPC == 4 ? 16 : 4);
+                    const int* __restrict__ lengths, T* __restrict__ o,
+                    float* __restrict__ part, int H, int Hkv, int G,
+                    int layer, int P, int page, int max_pages,
+                    float scale_log2, int splits) {
+  using L = P1Smem<TK, D>;
+  constexpr bool QUANT = L::kQuant;
+  constexpr int EPC = Chunk<TK>::N;    // elements per 16-byte chunk
+  constexpr int RC = L::kRow / 16;     // chunks per row
+  constexpr int CPT = RC / 4;          // chunks per lane: a quarter row
+  constexpr int SWZ = RC >= 8 ? 4 : 0;  // odd rows: chunk j at j ^ SWZ
+  constexpr int CW = D / 32;           // P V: output columns per lane
   static_assert(CPT >= 1, "a quarter row must hold one 16-byte chunk");
-  static_assert(PARTS * MAXG * D <= PT * VS, "combine buffer must fit in vs");
-  __shared__ __align__(16) float qs[MAXG * D];
-  __shared__ __align__(16) float vs[PT * VS];
-  __shared__ float ss[MAXG * PT];
-  __shared__ float vsc[PT];  // int8: the V scale of each position of the tile
-  __shared__ float m_s[MAXG], l_s[MAXG], a_s[MAXG];
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);
 
-  const int tid = threadIdx.x;
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = lengths[b];
-  T* op = o + ((int64_t)b * H + (int64_t)hk * G) * D;
-  if (len <= 0) {  // nothing cached yet: zeros, as P1's l == 0 guard gives
-    for (int i = tid; i < G * D; i += PNT) op[i] = from_float<T>(0.f);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int len = max(lengths[b], 0);
+  // this split's positions [p0, p1): whole tiles, ceil(tiles / splits) each
+  const int tiles = (len + PT - 1) / PT;
+  const int per = (tiles + splits - 1) / splits;
+  const int p0 = min(len, split * per * PT);
+  const int p1 = min(len, p0 + per * PT);
+  const int n_tiles = (p1 - p0 + PT - 1) / PT;
+  const int64_t orow0 = (int64_t)b * H + (int64_t)hk * G;  // query head row
+  float* pr = splits == 1 ? nullptr
+                          : part + (((int64_t)b * Hkv + hk) * splits + split) *
+                                       G * (D + 2);
+  if (n_tiles == 0) {  // no position: zeros (and an empty partial)
+    for (int i = tid; i < G * (D + 2); i += PNT) {
+      if (splits == 1) {
+        if (i < G * D) o[orow0 * D + i] = from_float<T>(0.f);
+      } else {
+        pr[i] = i % (D + 2) == D ? -INFINITY : 0.f;
+      }
+    }
     return;
   }
-  const T* qp = q + ((int64_t)b * H + (int64_t)hk * G) * D;
-  for (int i = tid; i < G * D; i += PNT) qs[i] = to_float(qp[i]);
-  if (tid < MAXG) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
+  for (int i = tid; i < G * D; i += PNT) qs[i] = to_float(q[orow0 * D + i]);
   const int64_t head_page0 = ((int64_t)layer * Hkv + hk) * P;
   const int* tab = table + (int64_t)b * max_pages;
 
-  const int tl = tid / 4;         // score phase: position in the tile
-  const int quarter = tid % 4;    //   and which interleaved quarter of the row
-  const int dcol = tid % D;       // P.V phase: output column
-  const int part = tid / D;       //   and position group
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-  __syncthreads();
+  const int p = lane / 4, quarter = lane % 4;  // score phase
+  const int swz = (p & 1) * SWZ;
+  uint8_t* ring = smem + L::kRing + warp * STAGES * L::kStage;
+  const uint32_t ring_s = smem_addr(ring);
 
-  for (int t0 = 0; t0 < len; t0 += PT) {
-    const int t = t0 + tl;
-    const bool valid = t < len;
-    float kx[CPT * EPC], vx[CPT * EPC];
-    float ksc = 1.f;
-    if (valid) {
-      const int pid = min(max(tab[t / page], 0), P - 1);
-      const int64_t row = (head_page0 + pid) * page + (t % page);
-      const TK* kr = kpool + row * D;
-      const TK* vr = vpool + row * D;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        Chunk<TK>::load(kr + (c * 4 + quarter) * EPC, kx + c * EPC);
-        Chunk<TK>::load(vr + (c * 4 + quarter) * EPC, vx + c * EPC);
-      }
-      if (QUANT) {
-        ksc = kscale[row];
-        if (quarter == 0) vsc[tl] = vscale[row];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < CPT * EPC; ++e) kx[e] = vx[e] = 0.f;
-      if (QUANT && quarter == 0) vsc[tl] = 0.f;
+  // stage st <- K and V rows (and scales) of this warp's positions of tile
+  // t; lane (p, quarter) copies the chunks of row p that it reads itself
+  auto issue = [&](int t, int st) {
+    const int pos = p0 + t * PT + warp * WR + p;
+    const bool ok = pos < p1;
+    int64_t row = 0;
+    if (ok) {
+      const int pid = min(max(tab[pos / page], 0), P - 1);
+      row = (head_page0 + pid) * page + pos % page;
     }
+    const uint32_t kd = ring_s + st * L::kStage + p * L::kRow;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-#pragma unroll
-      for (int e = 0; e < EPC; e += 4)
-        *reinterpret_cast<float4*>(&vs[tl * VS + (c * 4 + quarter) * EPC + e]) =
-            make_float4(vx[c * EPC + e], vx[c * EPC + e + 1],
-                        vx[c * EPC + e + 2], vx[c * EPC + e + 3]);
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-#pragma unroll
-          for (int e = 0; e < EPC; ++e)
-            s = fmaf(qs[g * D + (c * 4 + quarter) * EPC + e], kx[c * EPC + e], s);
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        // int8: the K scale on the score column, after the base-2 scaling
-        if (quarter == 0)
-          ss[g * PT + tl] = valid ? s * scale_log2 * ksc : -INFINITY;
+    for (int c = 0; c < CPT; ++c) {
+      const int j = c * 4 + quarter;
+      cp_async16_zfill(kd + (j ^ swz) * 16, kpool + row * D + j * EPC, ok);
+      cp_async16_zfill(kd + WR * L::kRow + (j ^ swz) * 16,
+                       vpool + row * D + j * EPC, ok);
+    }
+    if constexpr (QUANT) {
+      if (quarter < 2) {
+        const uint32_t sd = ring_s + st * L::kStage + 2 * WR * L::kRow +
+                            (quarter * WR + p) * 4;
+        cp_async4_zfill(sd, (quarter == 0 ? kscale : vscale) + row, ok);
       }
     }
-    __syncthreads();
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) issue(st, st);
+    cp_async_commit();
+  }
+  __syncthreads();  // qs
 
-    // online softmax: warp g owns query row g (the tile holds >= 1 live
-    // position, so the new max is finite)
-    if (warp < G) {
-      float* row = ss + warp * PT;
-      const float s0 = row[lane], s1 = row[lane + 32];
-      const float m_old = m_s[warp];
-      const float m_new = fmaxf(m_old, warp_max32(fmaxf(s0, s1)));
-      const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      // int8: the V scale on the probability column; l sums the unscaled p
-      row[lane] = QUANT ? p0 * vsc[lane] : p0;
-      row[lane + 32] = QUANT ? p1 * vsc[lane + 32] : p1;
-      const float sum = warp_sum32(p0 + p1);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        m_s[warp] = m_new;
-        l_s[warp] = l_s[warp] * alpha + sum;
-        a_s[warp] = alpha;
-      }
-    }
-    __syncthreads();
-
+  float m[MAXG], l[MAXG], acc[MAXG][CW];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        float a = acc[g] * a_s[g];
-        for (int tt = part; tt < PT; tt += PARTS)
-          a = fmaf(ss[g * PT + tt], vs[tt * VS + dcol], a);
-        acc[g] = a;
-      }
-    }
-    __syncthreads();  // vs, vsc and ss are rewritten by the next tile
+  for (int g = 0; g < MAXG; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < CW; ++e) acc[g][e] = 0.f;
   }
 
-  // sum the PARTS partial accumulators (vs is free now)
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    cp_async_wait<STAGES - 2>();  // this lane's copies of tile t
+    __syncwarp();                 // the warp's; its tile t - 1 is read
+    if (t + STAGES - 1 < n_tiles)
+      issue(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const uint8_t* stage = ring + st * L::kStage;
+
+    // scores of position p: its quarter of the row, then two shuffles
+    float s[MAXG];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    if (g < G) vs[(part * MAXG + g) * D + dcol] = acc[g];
+    for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
+    const TK* krow = reinterpret_cast<const TK*>(stage + p * L::kRow);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = c * 4 + quarter;
+      float kx[EPC];
+      Chunk<TK>::load(krow + (j ^ swz) * EPC, kx);
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G)
+#pragma unroll
+          for (int e = 0; e < EPC; ++e)
+            s[g] = fmaf(qs[g * D + j * EPC + e], kx[e], s[g]);
+    }
+    const bool valid = p0 + t * PT + warp * WR + p < p1;
+    float ksc = 1.f, vsc = 1.f;
+    if constexpr (QUANT) {
+      const float* sc =
+          reinterpret_cast<const float*>(stage + 2 * WR * L::kRow);
+      ksc = sc[p];
+      vsc = sc[WR + p];
+    }
+
+    // online softmax over the warp's 8 positions, per query row; pv: the
+    // probability of position p (int8: times its V scale)
+    float pv[MAXG];
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g < G) {
+        float x = s[g];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        // int8: the K scale on the score column, after the base-2 scaling
+        x = valid ? x * scale_log2 * ksc : -INFINITY;
+        float mx = x;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[g], mx);
+        // a warp with no live position yet keeps p = 0, not exp2(nan)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float pg = exp2f(x - m_use);
+        const float alpha = exp2f(m[g] - m_use);
+        float sum = pg;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        l[g] = l[g] * alpha + sum;  // l sums the unscaled p
+        m[g] = m_new;
+        pv[g] = QUANT ? pg * vsc : pg;
+#pragma unroll
+        for (int e = 0; e < CW; ++e) acc[g][e] *= alpha;
+      }
+    }
+
+    // O += P V over the warp's 8 positions: lane owns columns lane * CW..
+    const uint8_t* vrows = stage + WR * L::kRow;
+    const int cb = lane * CW * (int)sizeof(TK);  // byte of the lane's columns
+#pragma unroll
+    for (int r = 0; r < WR; ++r) {
+      const uint8_t* vp = vrows + r * L::kRow +
+                          (((cb / 16) ^ ((r & 1) * SWZ)) * 16) + cb % 16;
+      float v[CW];
+      if constexpr (CW == 4) {
+        load4(reinterpret_cast<const TK*>(vp), v);
+      } else if constexpr (std::is_same<TK, float>::value) {
+        const float2 f = *reinterpret_cast<const float2*>(vp);
+        v[0] = f.x;
+        v[1] = f.y;
+      } else if constexpr (std::is_same<TK, __nv_bfloat16>::value) {
+        const float2 f =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp));
+        v[0] = f.x;
+        v[1] = f.y;
+      } else {
+        const char2 c2 = *reinterpret_cast<const char2*>(vp);
+        v[0] = c2.x;
+        v[1] = c2.y;
+      }
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          const float pr_g = __shfl_sync(0xffffffffu, pv[g], r * 4);
+#pragma unroll
+          for (int e = 0; e < CW; ++e)
+            acc[g][e] = fmaf(pr_g, v[e], acc[g][e]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  __syncthreads();     // every warp is done with its ring
+
+  // the warps' (acc, m, l) into the block's, then the output or the partial
+  float* comb = reinterpret_cast<float*>(smem + L::kRing);
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    if (g < G) {
+      float* cw = comb + (warp * MAXG + g) * (D + 2);
+#pragma unroll
+      for (int e = 0; e < CW; ++e) cw[lane * CW + e] = acc[g][e];
+      if (lane == 0) {
+        cw[D] = m[g];
+        cw[D + 1] = l[g];
+      }
+    }
+  }
   __syncthreads();
   for (int i = tid; i < G * D; i += PNT) {
     const int g = i / D, d = i % D;
-    float s = 0.f;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int p = 0; p < PARTS; ++p) s += vs[(p * MAXG + g) * D + d];
-    const float l = l_s[g];
-    op[i] = from_float<T>(l == 0.f ? 0.f : s * (1.f / l));
+    for (int w = 0; w < PNW; ++w)
+      mx = fmaxf(mx, comb[(w * MAXG + g) * (D + 2) + D]);
+    const float m_use = mx == -INFINITY ? 0.f : mx;
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < PNW; ++w) {
+      const float* cw = comb + (w * MAXG + g) * (D + 2);
+      const float wt = exp2f(cw[D] - m_use);  // 0 for a warp with no position
+      lsum += cw[D + 1] * wt;
+      a += cw[d] * wt;
+    }
+    if (splits == 1) {
+      o[orow0 * D + i] = from_float<T>(lsum == 0.f ? 0.f : a * (1.f / lsum));
+    } else {
+      float* pg = pr + g * (D + 2);
+      pg[d] = a;
+      if (d == 0) {
+        pg[D] = mx;
+        pg[D + 1] = lsum;
+      }
+    }
   }
 }
 
 template <typename T, typename TK, int D>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const float* ks, const float* vsc, const void* table,
-                         const void* lengths, void* o, int B, int H, int Hkv,
-                         int layer, int P, int page, int max_pages,
-                         float scale_log2, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  paged_decode_kernel<T, TK, D><<<grid, PNT, 0, stream>>>(
+                         const void* lengths, void* o, void* part, int B,
+                         int H, int Hkv, int layer, int P, int page,
+                         int max_pages, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = P1Smem<TK, D>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_kernel<T, TK, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int splits = p1_splits(B, Hkv, page, max_pages, smem);
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  paged_decode_kernel<T, TK, D><<<dim3(splits, Hkv, B), PNT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TK*>(kp),
       static_cast<const TK*>(vp), ks, vsc, static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(o), H, Hkv, H / Hkv,
-      layer, P, page, max_pages, scale_log2);
+      static_cast<const int*>(lengths), static_cast<T*>(o),
+      static_cast<float*>(part), H, Hkv, H / Hkv, layer, P, page, max_pages,
+      scale_log2, splits);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  paged_combine_kernel<T, D><<<dim3(B * Hkv, H / Hkv), D / 4, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(o), H, Hkv, 1, splits);
   return cudaGetLastError();
+}
+
+// dynamic shared memory of the instance for (dtype, kv_dtype, D), or -1
+inline int p1_smem(int dtype, int kv_dtype, int D) {
+  const bool quant = kv_dtype == kI8;
+#define CUBECL_P1_SMEM(TK, HD) P1Smem<TK, HD>::kBytes
+  if (D == 64)
+    return quant ? CUBECL_P1_SMEM(int8_t, 64)
+                 : dtype == kF32 ? CUBECL_P1_SMEM(float, 64)
+                                 : CUBECL_P1_SMEM(__nv_bfloat16, 64);
+  if (D == 128)
+    return quant ? CUBECL_P1_SMEM(int8_t, 128)
+                 : dtype == kF32 ? CUBECL_P1_SMEM(float, 128)
+                                 : CUBECL_P1_SMEM(__nv_bfloat16, 128);
+#undef CUBECL_P1_SMEM
+  return -1;
 }
 
 }  // namespace
@@ -212,16 +390,19 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
 // q (B, H, D); k_pages/v_pages (L, Hkv, P, page, D); table (B, max_pages)
 // int32; lengths (B,) int32; o (B, H, D). Contiguous; q and o of `dtype`
 // (f32 or bf16), the pools of `kv_dtype`: the same dtype, or int8 with f32
-// scale pools k_scales/v_scales (L, Hkv, P, page) (null otherwise).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a dtype / head_dim / group size this kernel was not built for.
+// scale pools k_scales/v_scales (L, Hkv, P, page) (null otherwise). part:
+// the splits' partial sums where the positions are split,
+// cubecl_paged_decode_plan's plan[6] floats (null where that is 0).
+// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
+// for a dtype / head_dim / group size this kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const float* k_scales,
                                    const float* v_scales, const void* table,
-                                   const void* lengths, void* o, int dtype,
-                                   int kv_dtype, int B, int H, int Hkv, int D,
-                                   int layer, int P, int page, int max_pages,
-                                   float scale_log2, void* stream) {
+                                   const void* lengths, void* o, void* part,
+                                   int dtype, int kv_dtype, int B, int H,
+                                   int Hkv, int D, int layer, int P, int page,
+                                   int max_pages, float scale_log2,
+                                   void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG) return cudaErrorInvalidValue;
@@ -231,8 +412,8 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
   if (!quant && kv_dtype != dtype) return cudaErrorInvalidValue;
 #define CUBECL_PAGED(T, TK, HD)                                              \
   launch_paged<T, TK, HD>(q, k_pages, v_pages, k_scales, v_scales, table,    \
-                          lengths, o, B, H, Hkv, layer, P, page, max_pages,  \
-                          scale_log2, st)
+                          lengths, o, part, B, H, Hkv, layer, P, page,       \
+                          max_pages, scale_log2, st)
   if (dtype == kF32) {
     if (D == 64) return quant ? CUBECL_PAGED(float, int8_t, 64)
                               : CUBECL_PAGED(float, float, 64);
@@ -248,4 +429,30 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
   }
 #undef CUBECL_PAGED
   return cudaErrorInvalidValue;
+}
+
+// P1's launch plan for q of `dtype`, pools of `kv_dtype` and the shapes:
+// plan[0..6] = threads a block, dynamic shared memory bytes, the grid (x:
+// the splits of a (batch row, kv head), y: Hkv, z: B), the splits, the
+// floats of `part` (0 without a split). Returns 0, or
+// cudaErrorInvalidValue for what cubecl_paged_decode refuses.
+extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
+                                        int Hkv, int D, int page,
+                                        int max_pages, int* plan) {
+  using namespace cubecl;
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || B <= 0 ||
+      (dtype != kF32 && dtype != kBF16) ||
+      (kv_dtype != kI8 && kv_dtype != dtype))
+    return cudaErrorInvalidValue;
+  const int smem = p1_smem(dtype, kv_dtype, D);
+  if (smem < 0) return cudaErrorInvalidValue;
+  const int splits = p1_splits(B, Hkv, page, max_pages, smem);
+  plan[0] = PNT;
+  plan[1] = smem;
+  plan[2] = splits;
+  plan[3] = Hkv;
+  plan[4] = B;
+  plan[5] = splits;
+  plan[6] = splits > 1 ? B * Hkv * splits * (H / Hkv) * (D + 2) : 0;
+  return 0;
 }

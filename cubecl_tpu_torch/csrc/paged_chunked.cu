@@ -36,7 +36,10 @@
 // rounded as the path that the chunk continues rounds it: one bf16 P,
 // A1's, in a prefill-shaped chunk; two bf16 halves (hi and the rounding's
 // remainder, two products a k16 step, about 17 bits) in a decode-shaped
-// one, whose steps before it ran P1 with f32 P, and on int8 pools.
+// one, whose steps before it ran P1 with f32 P, and on int8 pools; there
+// each tile's P V is summed from zero and added to O in f32 (rounded to
+// nearest, as P1 sums), so that the tensor cores' round-toward-zero sums
+// do not run across the tiles of the range.
 // - Staging: cp.async through the table, a ring of 3 stages. A K or V row
 //   of a position is D contiguous elements of the (L, Hkv, P, page, D)
 //   pool, found by one table lookup; each thread copies 16-byte chunks of
@@ -61,8 +64,8 @@
 //   fewer than 264 blocks (132 SMs twice), the table's span (max_pages *
 //   page) is cut into splits of equal 64-position multiples, enough for
 //   264 blocks; each block writes its partial (acc, m, l) in f32 and a
-//   second, small launch (paged_chunked_combine_kernel) rescales and adds
-//   the splits of each row. wgmma m64 with the idle rows, not mma.sync
+//   second, small launch (paged_combine.cuh's paged_combine_kernel, which
+//   P1 shares) rescales and adds the splits of each row. wgmma m64 with the idle rows, not mma.sync
 //   m16n8k16: the work is bound by bytes, so the idle rows cost tensor-core
 //   time that is not the bound, and the prefill tiles' body is the same.
 // - Prefill-shaped tiles (more than 64 rows) are bound by operations: one
@@ -88,6 +91,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "paged_combine.cuh"
 
 namespace cubecl {
 namespace {
@@ -644,20 +648,44 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       dv[kk] = sw128_desc(v_s + kk * 2048, kTcPanel, 1024);
     }
     reg_fence(acc);
-    wgmma_fence();
+    if (halves) {
+      // a decode-shaped chunk continues the decode steps, whose P1 sums in
+      // f32 rounded to nearest: the tile's P V is summed from zero in its
+      // own accumulator and added to O in f32, so that the tensor cores'
+      // round-toward-zero sums do not run across the tiles of the range
+      float ot[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (D == 128) {
-        wgmma_rs_m64n128(acc, pa[kk], dv[kk]);
-        if (halves) wgmma_rs_m64n128(acc, pl[kk], dv[kk]);
-      } else {
-        wgmma_rs_m64n64(acc, pa[kk], dv[kk]);
-        if (halves) wgmma_rs_m64n64(acc, pl[kk], dv[kk]);
+      for (int j = 0; j < D / 2; ++j) ot[j] = 0.f;
+      reg_fence(ot);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (D == 128) {
+          wgmma_rs_m64n128(ot, pa[kk], dv[kk]);
+          wgmma_rs_m64n128(ot, pl[kk], dv[kk]);
+        } else {
+          wgmma_rs_m64n64(ot, pa[kk], dv[kk]);
+          wgmma_rs_m64n64(ot, pl[kk], dv[kk]);
+        }
       }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(ot);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] += ot[j];
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (D == 128)
+          wgmma_rs_m64n128(acc, pa[kk], dv[kk]);
+        else
+          wgmma_rs_m64n64(acc, pa[kk], dv[kk]);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(acc);
     }
-    wgmma_commit();
-    wgmma_wait0();
-    reg_fence(acc);
   }
   cp_async_wait<0>();  // no copy outlives the block
 
@@ -688,38 +716,6 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The splits of each row into its output: block (b * Hkv + kv head, row <
-// G*C), D / 4 threads of 4 columns; a row no split saw gets zeros
-template <int D>
-__global__ void __launch_bounds__(D / 4)
-paged_chunked_combine_kernel(const float* __restrict__ part,
-                             __nv_bfloat16* __restrict__ o, int H, int Hkv,
-                             int C, int splits) {
-  const int bh = blockIdx.x, row = blockIdx.y;
-  const int G = H / Hkv, GC = G * C;
-  const int b = bh / Hkv, hk = bh % Hkv;
-  const int64_t stride = (int64_t)GC * (D + 2);  // one split to the next
-  const float* pr = part + ((int64_t)bh * splits * GC + row) * (D + 2);
-  float m = -INFINITY;
-  for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, pr[sp * stride + D]);
-  const float m_use = m == -INFINITY ? 0.f : m;
-  float l = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int sp = 0; sp < splits; ++sp) {
-    const float* ps = pr + sp * stride;
-    const float w = exp2f(ps[D] - m_use);  // 0 for a split with no position
-    l += ps[D + 1] * w;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[e] += ps[4 * threadIdx.x + e] * w;
-  }
-  const float inv = l == 0.f ? 1.f : 1.f / l;
-  __nv_bfloat16* orow =
-      o + (((int64_t)b * H + (int64_t)hk * G) * C + row) * D + 4 * threadIdx.x;
-  *reinterpret_cast<__nv_bfloat162*>(orow) =
-      __floats2bfloat162_rn(a[0] * inv, a[1] * inv);
-  *reinterpret_cast<__nv_bfloat162*>(orow + 2) =
-      __floats2bfloat162_rn(a[2] * inv, a[3] * inv);
-}
-
 template <int D, bool QUANT>
 cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
                                  const float* ks, const float* vsc,
@@ -745,7 +741,8 @@ cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
       scale_log2, p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.splits == 1) return e;
-  paged_chunked_combine_kernel<D><<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(
+  paged_combine_kernel<__nv_bfloat16, D>
+      <<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(o), H,
       Hkv, C, p.splits);
   return cudaGetLastError();

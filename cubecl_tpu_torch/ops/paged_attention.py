@@ -27,7 +27,11 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
 ``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
 in {64, 128}, and for decode at most 8 query heads per kv head; anything
-else raises. P3 runs bf16 q (bf16 or int8 pools) on the tensor cores
+else raises. P1 splits the positions of each (batch row, kv head) over
+blocks where B * Hkv leaves the card idle, copies K and V through the
+table with cp.async into a ring per warp, and combines the splits in a
+second, small launch (:func:`p1_plan`). P3 runs bf16 q (bf16 or int8
+pools) on the tensor cores
 (``wgmma``, cp.async staging through the table; decode-shaped chunks split
 their positions over blocks and a second, small launch combines the
 splits: :func:`p3_plan`) and f32 q on the CUDA cores. The caller keeps
@@ -50,6 +54,69 @@ from ..utils import native
 from .attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS, LOG2E
 
 MAX_GROUP = 8  # query heads per kv head the decode kernel takes (csrc MAXG)
+
+# P1's body (csrc/paged_attention.cu), for p1_plan: 256 threads (8 warps)
+# a block, 64-position tiles (8 positions a warp), a ring of 3 stages of
+# K and V rows per warp, q in f32 ahead of the rings; the positions of a
+# (batch row, kv head) split over blocks until the grid fills the 132 SMs
+# once at two blocks an SM (one where shared memory holds one)
+P1_THREADS = 256
+P1_TILE = 64
+P1_STAGES = 3
+P1_SMS = 132
+P1_SM_SMEM = 233472  # shared memory of an SM (228 KB)
+
+
+@dataclasses.dataclass(frozen=True)
+class P1Plan:
+    """One call of P1: ``threads`` a block, dynamic shared memory
+    ``smem_bytes``, the ``grid`` (splits, Hkv, B), the position
+    ``splits`` of a (batch row, kv head) and the f32 ``scratch`` (floats)
+    of the splits' partial sums: the arithmetic of
+    csrc/paged_attention.cu's ``cubecl_paged_decode_plan``."""
+    threads: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    splits: int
+    scratch: int
+
+
+# cached: a decode step's host time is what its launches wait on
+@functools.lru_cache(maxsize=256)
+def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
+            max_pages: int) -> P1Plan:
+    """P1's launch plan for q of ``dtype`` and pools of ``kv_dtype``."""
+    if dtype not in KERNEL_DTYPES or kv_dtype not in (dtype, torch.int8) \
+            or D not in (64, 128) or Hkv <= 0 or H % Hkv \
+            or H // Hkv > MAX_GROUP or B <= 0:
+        raise ValueError(f"P1 takes q of {KERNEL_DTYPES}, pools of q's "
+                         f"dtype or int8, D 64 or 128 and at most "
+                         f"{MAX_GROUP} query heads a kv head; got {dtype}, "
+                         f"{kv_dtype}, D {D}, H {H}, Hkv {Hkv}")
+    warps = P1_THREADS // 32
+    rows = P1_TILE // warps  # a warp's positions of a tile
+    quant = kv_dtype == torch.int8
+    stage = 2 * rows * D * (1 if quant else dtype.itemsize) + (
+        2 * rows * 4 if quant else 0)
+    ring = warps * P1_STAGES * stage
+    comb = warps * MAX_GROUP * (D + 2) * 4  # the warps' (acc, m, l)
+    smem = MAX_GROUP * D * 4 + max(ring, comb)
+    per_sm = 2 if P1_SM_SMEM // (smem + 1024) >= 2 else 1
+    tiles = max(1, -(-page * max_pages // P1_TILE))
+    splits = max(1, min(P1_SMS * per_sm // (B * Hkv), tiles))
+    scratch = B * H * splits * (D + 2) if splits > 1 else 0
+    return P1Plan(P1_THREADS, smem, (splits, Hkv, B), splits, scratch)
+
+
+def p1_split_positions(plan: P1Plan, length: int, split: int):
+    """The positions [first, end) of split ``split`` of a row of
+    ``length`` under ``plan``: the row's ceil(length / 64) tiles shared out
+    ceil(tiles / splits) a split, as the kernel cuts them on the device."""
+    length = max(length, 0)
+    tiles = -(-length // P1_TILE)
+    per = -(-tiles // plan.splits)
+    p0 = min(length, split * per * P1_TILE)
+    return p0, min(length, p0 + per * P1_TILE)
 
 # P3's bodies (csrc/paged_chunked.cu), for p3_plan. bf16 q on wgmma: one
 # warpgroup a block owning 64 of the G*C rows, positions staged 64 a stage
@@ -325,14 +392,19 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
     if o.numel() == 0:
         return o
     lib = native.kernels()
+    plan = p1_plan(q.dtype, k_pages.dtype, B, H, Hkv, D, page,
+                   page_indices.shape[1])
     with torch.cuda.device(q.device):
+        # the splits' partial sums, combined by the call's second launch
+        part = torch.empty(plan.scratch, device=q.device) \
+            if plan.scratch else None
         rc = lib.cubecl_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scales), _ptr(v_scales), page_indices.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), native.DTYPE_CODES[q.dtype],
-            native.DTYPE_CODES[k_pages.dtype], B, H, Hkv, D, layer, P, page,
-            page_indices.shape[1], scale * LOG2E,
-            torch.cuda.current_stream().cuda_stream)
+            lengths.data_ptr(), o.data_ptr(), _ptr(part),
+            native.DTYPE_CODES[q.dtype], native.DTYPE_CODES[k_pages.dtype],
+            B, H, Hkv, D, layer, P, page, page_indices.shape[1],
+            scale * LOG2E, torch.cuda.current_stream().cuda_stream)
     native.check(lib, rc, "paged_attention")
     paged_attention.launches += 1
     if quant:
@@ -392,6 +464,20 @@ def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
 
 
 paged_attention_chunked.launches = 0
+
+
+def p1_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int,
+                   page: int, max_pages: int) -> P1Plan:
+    """The built P1's launch plan (``cubecl_paged_decode_plan``): what
+    :func:`p1_plan` must equal (builds the CUDA kernels on first use)."""
+    lib = native.kernels()
+    plan = (ctypes.c_int * 7)()
+    rc = lib.cubecl_paged_decode_plan(
+        native.DTYPE_CODES[dtype], native.DTYPE_CODES[kv_dtype], B, H, Hkv,
+        D, page, max_pages, ctypes.cast(plan, ctypes.c_void_p))
+    native.check(lib, rc, "paged_decode_plan")
+    return P1Plan(plan[0], plan[1], (plan[2], plan[3], plan[4]), plan[5],
+                  plan[6])
 
 
 def p3_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int,

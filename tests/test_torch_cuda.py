@@ -150,26 +150,56 @@ def test_flash_f32_keeps_the_cuda_core_body(dev):
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
 
 
+# P1's table layouts: (B or None for the test's own, page, max_pages,
+# lengths): the first test's batch (a few splits of one tile), one and two
+# rows at context 4096 (tens of splits), and ragged lengths around a tile
+# on pages of 128 and of 16
+P1_LAYOUTS = {
+    "page16": (None, 16, 5, [0, 1, 15, 16, 17, 80]),
+    "B1-ctx4096": (1, 128, 32, [4096]),
+    "B2-ctx4096-page16": (2, 16, 256, [4096, 4001]),
+    "ragged-page128": (8, 128, 2, [0, 1, 63, 64, 65, 127, 128, 129]),
+    "ragged-page16": (8, 16, 16, [0, 1, 63, 64, 65, 127, 128, 129]),
+}
+
+
+def _p1_table(g, dev, layout, B):
+    """(B, page, max_pages, P, table, lengths) of a P1 layout."""
+    b, page, max_pages, lengths = P1_LAYOUTS[layout]
+    B = b or B
+    lengths = lengths[:B]
+    P = B * max_pages + 3
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    return (B, page, max_pages, P, table,
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("layout", list(P1_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 3, 8])
-def test_paged_kernel_matches_plain(dev, dtype, D, G):
-    g = torch.Generator(device=dev).manual_seed(G * D)
-    B, Hkv, L, page, max_pages = 6, 2, 3, 16, 5
-    P = B * max_pages + 3
+def test_paged_kernel_matches_plain(dev, dtype, D, G, layout):
+    """P1 against its plain version on each of P1_LAYOUTS: the positions
+    split over blocks as p1_plan says (many splits at B 1 and 2) and the
+    splits combined, a length-0 row's zeros."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(G * D + len(layout))
+    Hkv, L = 2, 3
+    B, page, max_pages, P, table, lengths = _p1_table(g, dev, layout, 6)
+    plan = pa.p1_plan(dtype, dtype, B, Hkv * G, Hkv, D, page, max_pages)
+    assert plan.splits > (8 if layout.endswith("ctx4096") else 1)
     q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(dtype)
     kp = torch.randn(L, Hkv, P, page, D, generator=g, device=dev).to(dtype)
     vp = torch.randn(L, Hkv, P, page, D, generator=g, device=dev).to(dtype)
-    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
-    table = table.view(B, max_pages).to(torch.int32)
-    lengths = torch.tensor([0, 1, 15, 16, 17, 80], dtype=torch.int32,
-                           device=dev)
     n = paged_attention.launches
     got = paged_attention(q, kp, vp, table, lengths, layer=2)
     torch.cuda.synchronize()
     assert paged_attention.launches == n + 1
     _close(got, paged_attention_plain(q, kp, vp, table, lengths, layer=2))
-    assert not got[0].any()
+    if 0 in lengths.tolist():
+        assert not got[lengths.tolist().index(0)].any()
 
 
 def test_generate_kernels_match_plain(dev):
@@ -415,22 +445,21 @@ def _int8_pools(g, dev, shape):
     return kq, vq, ks, vs
 
 
+@pytest.mark.parametrize("layout", list(P1_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(6, 2, 2, 64), (3, 4, 8, 128)],
                          ids=["B6-Hkv2-G2-D64", "B3-Hkv4-G8-D128"])
-def test_paged_int8_kernel_matches_plain(dev, dtype, shape):
+def test_paged_int8_kernel_matches_plain(dev, dtype, shape, layout):
     """P1 on int8 pools: lengths 0, 1, mid-page, a page boundary and past
-    it, against the plain version on the same int8 pools and scales."""
+    it, and the other P1_LAYOUTS (splits over positions, each position's
+    scales copied with its rows), against the plain version on the same
+    int8 pools and scales."""
     B, Hkv, G, D = shape
-    g = torch.Generator(device=dev).manual_seed(B * D)
-    L, page, max_pages = 3, 16, 5
-    P = B * max_pages + 3
+    g = torch.Generator(device=dev).manual_seed(B * D + len(layout))
+    L = 3
+    B, page, max_pages, P, table, lengths = _p1_table(g, dev, layout, B)
     q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(dtype)
     kq, vq, ks, vs = _int8_pools(g, dev, (L, Hkv, P, page, D))
-    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
-    table = table.view(B, max_pages).to(torch.int32)
-    lengths = torch.tensor([0, 1, 15, 16, 17, 80][:B], dtype=torch.int32,
-                           device=dev)
     n = (paged_attention.launches, paged_attention.int8_launches)
     got = paged_attention(q, kq, vq, table, lengths, layer=1, k_scales=ks,
                           v_scales=vs)
@@ -439,7 +468,80 @@ def test_paged_int8_kernel_matches_plain(dev, dtype, shape):
         (n[0] + 1, n[1] + 1)
     _close(got, paged_attention_plain(q, kq, vq, table, lengths, layer=1,
                                       k_scales=ks, v_scales=vs))
-    assert not got[0].any()
+    if 0 in lengths.tolist():
+        assert not got[lengths.tolist().index(0)].any()
+
+
+# P1 at chip_smoke.py's shapes (phases 4, j, 6: B, Hkv, G, D, max_pages,
+# lengths, q dtype, int8 pools), page 128: the serving decode (4 splits of
+# 17 tiles), its int8 form, the KV-bound decode (2 splits of 16), a
+# ragged batch with a length-0 row, the d768 f32 model (G 3, D 64)
+P1_REPEAT_CASES = {
+    "serving bf16": (8, 8, 2, 128, 9, [1056] * 8, torch.bfloat16, False),
+    "serving int8": (8, 8, 2, 128, 9, [1056] * 8, torch.bfloat16, True),
+    "KV-bound bf16": (16, 8, 2, 128, 16, [2048] * 16, torch.bfloat16, False),
+    "ragged int8": (8, 8, 2, 128, 8, [0, 1, 127, 128, 129, 1000, 640, 1024],
+                    torch.bfloat16, True),
+    "d768 f32": (16, 4, 3, 64, 4, [400] * 16, torch.float32, False),
+}
+P1_LAUNCHES = 200
+
+
+@pytest.mark.parametrize("case", list(P1_REPEAT_CASES))
+def test_paged_every_launch_of_many_agrees(dev, case):
+    """P1 at phase 4/j/6's shapes: a race in a warp's cp.async ring (a
+    stage refilled before every lane read it, a copy read before it
+    landed), in the block's combine of its warps or in the splits'
+    partial sums shows in a few launches of many, not in one. The first
+    launch within TOL of plain, each of P1_LAUNCHES launches equal to it
+    bit for bit (the kernel's sums run in one order)."""
+    B, Hkv, G, D, max_pages, lengths, dt, quant = P1_REPEAT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    L, page = 2, 128
+    P = B * max_pages + 5
+    shape = (L, Hkv, P, page, D)
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(dt)
+    if quant:
+        kp, vp, ks, vs = _int8_pools(g, dev, shape)
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device=dev).to(dt)
+                  for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    first = paged_attention(q, kp, vp, table, ln, layer=1, k_scales=ks,
+                            v_scales=vs)
+    _close(first, paged_attention_plain(q, kp, vp, table, ln, layer=1,
+                                        k_scales=ks, v_scales=vs))
+    bad = torch.zeros(P1_LAUNCHES, dtype=torch.int64, device=dev)
+    for i in range(P1_LAUNCHES):
+        got = paged_attention(q, kp, vp, table, ln, layer=1, k_scales=ks,
+                              v_scales=vs)
+        bad[i] = (got != first).sum()
+    bad = bad.cpu()
+    assert not bad.any(), (f"{int((bad > 0).sum())} of {P1_LAUNCHES} "
+                           f"launches differ, {int(bad.sum())} elements")
+
+
+def test_paged_kernel_plan_matches_the_kernel(dev):
+    """The launch plans ops/paged_attention.py sizes P1's scratch with
+    (p1_plan) are the built kernel's (csrc/paged_attention.cu's
+    cubecl_paged_decode_plan), per q dtype, pool dtype and shape."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    for dt in (torch.float32, torch.bfloat16):
+        for kv in (dt, torch.int8):
+            for B, H, Hkv, D, page, max_pages in [
+                    (8, 16, 8, 128, 128, 9), (16, 16, 8, 128, 128, 16),
+                    (16, 12, 4, 64, 128, 4), (1, 8, 1, 128, 16, 256),
+                    (2, 16, 8, 128, 16, 256), (6, 6, 2, 128, 7, 21),
+                    (40, 16, 8, 64, 16, 8), (300, 16, 8, 128, 128, 9),
+                    (3, 32, 4, 64, 1, 5)]:
+                assert pa.p1_kernel_plan(dt, kv, B, H, Hkv, D, page,
+                                         max_pages) \
+                    == pa.p1_plan(dt, kv, B, H, Hkv, D, page, max_pages), \
+                    (dt, kv, B, H, Hkv, D, page, max_pages)
 
 
 @pytest.mark.parametrize("page", [16, 7, 48, 128])
@@ -1273,19 +1375,35 @@ def test_cmma_shared_memory_accumulator_on_the_card(dev, name):
     assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
 
 
-def test_quant_kernels_match_plain(dev):
-    """The K0 quantize kernel on the card gives the evaluator's int8
-    values and scales, bit for bit."""
+@pytest.mark.parametrize("n", [1 << 16, 4096 * 4096, 8 * 1009,
+                               4096 * 4096 + 8 * 1009])
+def test_quant_kernels_match_plain(dev, n):
+    """The K0 quantize kernels on the card (one per-tensor scale: the two
+    passes over many cubes; at 4096^2, 1024 cubes each, and at ragged
+    sizes whose last chunk is cut short) give the evaluator's int8 values
+    and scales and the plain version's, bit for bit, with the absmax in
+    the first and in the last chunk too; two launches a call."""
     from cubecl_tpu_torch.std.quant import QuantScheme
-    from cubecl_tpu_torch.std.quant_kernels import quantize
+    from cubecl_tpu_torch.std.quant_kernels import quantize, quantize_plain
 
-    x = torch.randn(1 << 16, generator=torch.Generator(device=dev)
+    x = torch.randn(n, generator=torch.Generator(device=dev)
                     .manual_seed(4), device=dev) * 3
-    got = [quantize(c, c.create(x), QuantScheme())
-           for c in (CudaRuntime.client(), eval_client(dev))]
-    torch.cuda.synchronize()
-    assert torch.equal(got[0][0].tensor, got[1][0].tensor)
-    assert torch.equal(got[0][1].tensor, got[1][1].tensor)
+    cu = CudaRuntime.client()
+    for spike in (None, (0, -50.0), (n - 1, 60.0)):
+        if spike is not None:
+            x[spike[0]] = spike[1]
+        cu.server.reset_counts()
+        got = [quantize(c, c.create(x), QuantScheme())
+               for c in (cu, eval_client(dev))]
+        torch.cuda.synchronize()
+        assert dict(cu.server.launches) == {"quantize_tensor_absmax": 1,
+                                            "quantize_tensor_values": 1}
+        pv, ps = quantize_plain(x, QuantScheme())
+        for want in (got[1], (pv, ps)):
+            v, s = (t if isinstance(t, torch.Tensor) else t.tensor
+                    for t in want)
+            assert torch.equal(got[0][0].tensor, v)
+            assert torch.equal(got[0][1].tensor, s)
 
 
 # -- slice 6: R1, K0's block_reduce and reinterpret, reductions, fusion ----

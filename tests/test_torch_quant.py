@@ -60,18 +60,58 @@ def _kernels(client, mod, x, scheme):
     return [np.asarray(client.read_one(t)) for t in (values, scales, back)]
 
 
-@pytest.mark.parametrize("level", ["block", "tensor"])
+# (n, spikes {index: value}, zeros) of the per-tensor cases: 1024 cubes
+# in pass 1 with the absmax in the last or the first chunk, a ragged last
+# chunk, lines of 1 in the JAX kernel (8 x 1009), several strides a unit,
+# an all-zero tensor (scale 1e-12). The spikes' quotients by 127 are the
+# same with the JAX kernel's arithmetic (see
+# test_tensor_scale_is_the_quotient)
+TENSOR_CASES = {
+    "tensor": (8192, {}, False),
+    "tensor-cubes-max-last": (1 << 17, {(1 << 17) - 1: 40.0}, False),
+    "tensor-cubes-max-first": (1 << 17, {0: -50.0}, False),
+    "tensor-ragged-chunk": (20000, {}, False),
+    "tensor-lines-of-1": (8 * 1009, {}, False),
+    "tensor-strides": (1 << 20, {12345: -40.0}, False),
+    "tensor-zeros": (20000, {}, True),
+}
+
+
+def _tensor_input(case):
+    n, spikes, zeros = TENSOR_CASES[case]
+    x = np.random.default_rng(2).standard_normal(n).astype(np.float32) * 3
+    if zeros:
+        x[:] = 0
+    for i, v in spikes.items():
+        x[i] = v
+    return x
+
+
+@pytest.mark.parametrize("level", ["block", *TENSOR_CASES])
 def test_quantize_dequantize_kernels(jc, tc, level):
     """Block level (blocks of 2048) and tensor level (the twin of
-    test_quantize_tensor_level): the port's kernels against the JAX
-    package's and against the host oracle."""
-    n = 8192
-    x = np.random.default_rng(2).standard_normal(n).astype(np.float32) * 3
+    test_quantize_tensor_level, and the cases of TENSOR_CASES, which run
+    the two passes of ``quantize_tensor_absmax`` and
+    ``quantize_tensor_values`` over one or several cubes): the port's
+    kernels against the JAX package's and against the host oracle."""
     if level == "block":
+        n = 8192
+        x = np.random.default_rng(2).standard_normal(n).astype(
+            np.float32) * 3
         kw = dict(level=tq.QuantLevel.BLOCK, block_size=2048)
         jkw = dict(level=jq.QuantLevel.BLOCK, block_size=2048)
     else:
-        kw = jkw = {}
+        x, n, kw, jkw = _tensor_input(level), TENSOR_CASES[level][0], {}, {}
+        n_lines = n // tqk.TENSOR_LINE
+        for (cubes, iters), units in zip(tqk.tensor_plan(n),
+                                         (tqk.TENSOR_PLANE,
+                                          tqk.TENSOR_UNITS)):
+            # every line in one chunk, the last one cut at the end
+            assert (cubes - 1) * iters * units < n_lines
+            assert cubes * iters * units >= n_lines
+            assert cubes <= tqk.TENSOR_CUBES
+        assert tqk.tensor_plan(n)[0][0] > 1
+        assert (tqk.tensor_plan(n)[0][1] > 1) == (n == 1 << 20)
     values, scales, back = _kernels(tc, tqk, x, tq.QuantScheme(**kw))
     jvalues, jscales, jback = _kernels(jc, jqk, x, jq.QuantScheme(**jkw))
     assert values.dtype == np.int8 and scales.dtype == np.float32
@@ -82,7 +122,11 @@ def test_quantize_dequantize_kernels(jc, tc, level):
     hv, hs = tq.quantize_np(x, tq.QuantScheme(**kw))
     np.testing.assert_array_equal(values, hv)
     np.testing.assert_array_equal(scales, np.asarray(hs).reshape(-1))
-    assert np.abs(back - x).max() < np.abs(x).max() / 40
+    if x.any():
+        assert np.abs(back - x).max() < np.abs(x).max() / 40
+    else:
+        np.testing.assert_array_equal(scales, np.float32(1e-12))
+        np.testing.assert_array_equal(back, 0)
     # the plain PyTorch versions the card holds the kernels against
     pv, ps = tqk.quantize_plain(torch.from_numpy(x), tq.QuantScheme(**kw))
     np.testing.assert_array_equal(pv.numpy(), values)
@@ -91,9 +135,33 @@ def test_quantize_dequantize_kernels(jc, tc, level):
         tqk.dequantize_plain(pv, ps, tq.QuantScheme(**kw)).numpy(), back)
 
 
+def test_tensor_scale_is_the_quotient(jc, tc):
+    """The port's per-tensor scale is the f32 quotient absmax / 127, as
+    the host oracle and the plain version give it. The JAX kernel on its
+    CPU runtime takes absmax * (1 / 127), one ulp away for some absmax
+    (this input's 14.74795); its values agree all the same."""
+    n = 1 << 17
+    x = np.random.default_rng(2).standard_normal(n).astype(np.float32) * 3
+    values, scales, _ = _kernels(tc, tqk, x, tq.QuantScheme())
+    jvalues, jscales, _ = _kernels(jc, jqk, x, jq.QuantScheme())
+    amax = np.abs(x).max()
+    np.testing.assert_array_equal(scales, amax / np.float32(127))
+    np.testing.assert_array_equal(
+        scales, np.asarray(tq.quantize_np(x, tq.QuantScheme())[1]).reshape(-1))
+    np.testing.assert_array_equal(
+        scales, tqk.quantize_plain(torch.from_numpy(x),
+                                   tq.QuantScheme())[1].numpy())
+    np.testing.assert_array_equal(jscales,
+                                  amax * (np.float32(1) / np.float32(127)))
+    assert np.abs(scales.view(np.int32) - jscales.view(np.int32)).max() <= 1
+    np.testing.assert_array_equal(values, jvalues)
+
+
 def test_quant_kernels_print_for_the_card():
-    """The three kernels print as CUDA C++: i8 casts, ``rintf`` rounding
-    and the 8-lane plane max of a cube of 8 units."""
+    """The kernels print as CUDA C++: i8 casts, ``rintf`` rounding, the
+    8-lane plane max of a cube of 8 units, and the per-tensor passes: a
+    plane's max over its lines, then the partials' block max over eight
+    warps."""
     import torch
 
     from cubecl_tpu_torch.backend.cuda.printer import cuda_source
@@ -107,6 +175,33 @@ def test_quant_kernels_print_for_the_card():
         ArrayArg(torch.zeros(4), mutable=True), 64, 127.0, checked=False))
     assert "rintf(" in src and "int8_t" in src
     assert "__shfl_xor_sync(0xffu," in src
+    # one per-tensor scale: the two passes over many cubes of 256 units
+    n = 1 << 20
+    (c1, iters1), (c2, iters) = tqk.tensor_plan(n)
+    assert c1 > 64 and c2 > 64
+    src1 = cuda_source(tqk.quantize_tensor_absmax.define(
+        c1, tqk.TENSOR_PLANE, ArrayArg(torch.zeros(n), line_size=4),
+        ArrayArg(torch.zeros(c1), mutable=True), iters1, n // 4,
+        checked=False))
+    src2 = cuda_source(tqk.quantize_tensor_values.define(
+        c2, tqk.TENSOR_UNITS, ArrayArg(torch.zeros(n), line_size=4),
+        ArrayArg(torch.zeros(c1)),
+        ArrayArg(torch.zeros(n, dtype=torch.int8), line_size=4,
+                 mutable=True),
+        ArrayArg(torch.zeros(1), mutable=True), iters, n // 4, 127.0,
+        checked=False))
+    # pass 1: one plane of 32 units, |x| folded a line a step, the plane's
+    # max by a butterfly; pass 2: the partials' cube-cooperative block max
+    # over eight warps, then the values
+    assert "__launch_bounds__(32)" in src1 and "fabsf(" in src1
+    assert "__shfl_xor_sync(0xffffffffu," in src1
+    assert "__syncthreads();" not in src1
+    assert "__launch_bounds__(256)" in src2
+    assert "__shfl_xor_sync(0xffffffffu," in src2
+    assert "__syncthreads();" in src2 and "const uint4 u" in src2
+    assert "cc_max(accs[k], t)" in src2
+    assert "rintf(" in src2 and "(int8_t)" in src2
+    assert f"{c2 - 1}LL) - cube_pos_x" in src2  # the chunks in reverse
     for k, args in ((tqk.dequantize_block_kernel,
                      (ArrayArg(torch.zeros(8192, dtype=torch.int8)),
                       ArrayArg(torch.zeros(4)),
