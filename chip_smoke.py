@@ -66,8 +66,9 @@ o ``matmul_cmma`` through K0 with cmma printed (f32 512^3 on FMA, bf16
 512^3 and 4096^3 and f16 4096^3 on the tensor-core route, each 16-bit
 case in 25 launches) against plain and the evaluator, and the K0 quant kernels
 (one per-tensor scale: two passes over many cubes; block scales: a cube
-a block) against plain and the evaluator, bit for bit, their launches
-and cold-L2 times. Then reductions and comptime fusion (BASELINE
+a block; the dequantize at both levels: many cubes) against plain and
+the evaluator, bit for bit, their launches and cold-L2 times. Then
+reductions and comptime fusion (BASELINE
 configs 2 and 5): p at 64M f32 ``reduce_sum_autotuned`` (R1, the
 ``block_sum`` route and the K0 tree, tuned into the temp store, then a
 second call untimed), ``reduce_sum``, ``reduce_max``, ``reduce_mean`` and
@@ -2626,9 +2627,9 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
     TF32 products a k8 step, its operands split into big and small tf32
     halves), at CMMA_CASES, each against plain and against the torch
     evaluator on the card (the counts zeroed before each case's call, read
-    after), each case in MM_REPEATS more launches; then the K0 quant
-    kernels of phase n against their plain versions, bit for bit, and the
-    block-level ones against the evaluator."""
+    after), each case in MM_REPEATS more launches; then the K0 quantize
+    and dequantize at both levels against their plain versions and the
+    evaluator, bit for bit, each call's launches counted."""
     from cubecl_tpu_torch.std.quant import QuantLevel, QuantScheme
 
     ops = [(dt, S, mm_operand(gen, dev, dt, (S, S), S),
@@ -2699,6 +2700,7 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
     want_launches = {QuantLevel.TENSOR: {"quantize_tensor_absmax": 1,
                                          "quantize_tensor_values": 1},
                      QuantLevel.BLOCK: {"quantize_block_kernel": 1}}
+    deq_launches = {"dequantize_chunk_kernel": 1}
     for scheme in (QuantScheme(), QuantScheme(level=QuantLevel.BLOCK,
                                               block_size=QUANT_BLOCK)):
         level = scheme.level.value
@@ -2709,55 +2711,87 @@ def cmma_and_quant(mm, qk, cu, ev, dev, gen, card):
         if n_launch != want_launches[scheme.level]:
             fail(f"phase o K0 quantize {level}: launches {n_launch}, want "
                  f"{want_launches[scheme.level]}")
+        cu.server.reset_counts()
         back = qk.dequantize(cu, vals, scales, scheme)
+        torch.cuda.synchronize()
+        d_launch = dict(cu.server.launches)
+        if d_launch != deq_launches:
+            fail(f"phase o K0 dequantize {level}: launches {d_launch}, want "
+                 f"{deq_launches}")
         pv, ps = qk.quantize_plain(x, scheme)
+        plain_back = qk.dequantize_plain(pv, ps, scheme)
         torch.cuda.synchronize()
         differ = {k: int((t != p).sum()) for k, t, p in (
             ("values", vals.tensor, pv), ("scales", scales.tensor, ps),
-            ("dequantized", back.tensor,
-             qk.dequantize_plain(pv, ps, scheme)))}
+            ("dequantized", back.tensor, plain_back))}
         if any(differ.values()):
             fail(f"phase o K0 quantize/dequantize {level}: elements that "
                  f"differ from the plain version's bits: {differ}")
         ev_v, ev_s = qk.quantize(ev, ev.create(x), scheme)
+        ev_back = qk.dequantize(ev, ev.create(vals.tensor),
+                                ev.create(scales.tensor), scheme)
         differ = {k: int((t != e).sum()) for k, t, e in (
             ("values", vals.tensor, ev_v.tensor),
-            ("scales", scales.tensor, ev_s.tensor))}
+            ("scales", scales.tensor, ev_s.tensor),
+            ("dequantized", back.tensor, ev_back.tensor))}
         if any(differ.values()):
-            fail(f"phase o K0 quantize {level}: elements that differ from "
-                 f"the evaluator's bits: {differ}")
-        del ev_v, ev_s
+            fail(f"phase o K0 quantize/dequantize {level}: elements that "
+                 f"differ from the evaluator's bits: {differ}")
+        del ev_v, ev_s, ev_back
+        deq_err = (back.tensor - plain_back).abs().max().item()
         run = lambda scheme=scheme: qk.quantize(cu, xh, scheme)  # noqa: E731
         ms = cuda_ms(run, iters=10, warmup=1)
         cold = cold_ms(run)
         plain_ms = cuda_ms(lambda: qk.quantize_plain(x, scheme))
         tensor = scheme.level == QuantLevel.TENSOR
-        deq_cold = cold_ms(lambda: qk.dequantize(cu, vals, scales, scheme),
-                           iters=3 if tensor else 20)
+        deq = lambda scheme=scheme: qk.dequantize(  # noqa: E731
+            cu, vals, scales, scheme)
+        deq_cold, deq_ms = cold_ms(deq), cuda_ms(deq, iters=10, warmup=1)
+        deq_plain = cuda_ms(lambda: qk.dequantize_plain(pv, ps, scheme))
         n_blocks = ps.numel()
+        block = QUANT_N // n_blocks
+        deq_lib = cold_ms(lambda: torch.mul(pv.view(-1, block),
+                                            ps.view(-1, 1)))
         bms, by = bound_ms(2 * QUANT_N, QUANT_N * 5 + 4 * n_blocks,
                            torch.float32)
+        deq_bms, deq_by = bound_ms(QUANT_N, QUANT_N * 5 + 4 * n_blocks,
+                                   torch.float32)
         # two passes read x twice: the floor without L2 hits
         floor_ms = bound_ms(2 * QUANT_N, QUANT_N * 9 + 4 * n_blocks,
                             torch.float32)[0]
         kern = ("quantize_tensor_absmax + quantize_tensor_values (two "
                 "passes over many cubes)" if tensor else
-                "quantize_block_kernel (one 8-unit cube a block)")
+                "quantize_block_kernel (a cube of "
+                f"{qk.block_plan(QUANT_N, QUANT_N // n_blocks)[1]} units a "
+                "block)")
         print(f"phase o K0 {kern} {level} f32 4096^2 -> int8 ({n_blocks} "
               f"scales): launches {n_launch}; values and scales equal the "
-              f"plain version's and the evaluator's bits, "
-              f"dequantize_block_kernel's output the plain version's; "
-              f"quantize {cold:.4f} ms cold L2, {ms:.4f} ms back to back, "
-              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"plain version's and the evaluator's bits; quantize "
+              f"{cold:.4f} ms cold L2, {ms:.4f} ms back to back, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
               f"{100 * bms / cold:.1f}% of it; two reads of x "
-              f"{floor_ms:.4f}); dequantize {deq_cold:.4f} ms cold L2 "
-              f"[{card}]", flush=True)
+              f"{floor_ms:.4f}) [{card}]", flush=True)
+        print(f"phase o K0 dequantize_chunk_kernel {level} int8 4096^2 -> "
+              f"f32 ({n_blocks} scales, {qk.dequantize_plan(QUANT_N)[0]} "
+              f"cubes of {qk.DEQ_UNITS} units): launches {d_launch}; the "
+              f"plain version's and the evaluator's bits; {deq_cold:.4f} ms "
+              f"cold L2, {deq_ms:.4f} ms back to back, plain "
+              f"{deq_plain:.4f} ms, torch.mul {deq_lib:.4f} ms cold L2, "
+              f"bound {deq_bms:.4f} ms ({deq_by}; "
+              f"{100 * deq_bms / deq_cold:.1f}% of it) [{card}]", flush=True)
         row = dict(max_abs_err=0.0, ms=cold, call_ms=ms, plain_ms=plain_ms,
                    bound_ms=bms, bound_by=by, two_read_floor_ms=floor_ms,
                    launches_a_call=n_launch, dequantize_cold_ms=deq_cold,
                    shape=f"f32 4096^2 -> int8, {n_blocks} scales (ms: cold "
                          f"L2)")
         out["k0_quantize" if tensor else "k0_quantize_block"] = row
+        out["k0_dequantize" if tensor else "k0_dequantize_block"] = dict(
+            max_abs_err=deq_err, ms=deq_cold, call_ms=deq_ms,
+            plain_ms=deq_plain, library_ms=deq_lib,
+            library="torch.mul(values.view(-1, block), scales.view(-1, 1))",
+            bound_ms=deq_bms, bound_by=deq_by,
+            launches=d_launch["dequantize_chunk_kernel"],
+            shape=f"int8 4096^2 -> f32, {n_blocks} scales (ms: cold L2)")
     return out
 
 
@@ -4655,6 +4689,12 @@ def main():
                library="the autograd backward of F.layer_norm (dx, dg, db)",
                shape="bf16 8x1024x768",
                mapping=e("_layernorm_bwd_k bf16 8x1024x768")["mapping"]),
+        k0_row("_gelu_fwd_k", e("_gelu_fwd_k bf16 8x1024x3072"),
+               8 * 1024 * 3072, 2, 2, K0_OPS["gelu"],
+               launches=h_launches["_gelu_fwd_k"],
+               library="F.gelu(approximate='none')",
+               shape="bf16 8x1024x3072",
+               mapping=e("_gelu_fwd_k bf16 8x1024x3072")["mapping"]),
         k0_row("_gelu_bwd_k", e("_gelu_bwd_k bf16 8x1024x3072"),
                8 * 1024 * 3072, 2, 3, 20,
                launches=h_launches["_gelu_bwd_k"],
@@ -4724,6 +4764,15 @@ def main():
                             "bound_by")},
             block_4096=dict(o_out["k0_quantize_block"],
                             kernel="quantize_block_kernel")),
+        *(row(key, "cubecl_tpu_torch/std/quant_kernels.py "
+              "(dequantize_chunk_kernel, printed by "
+              "cubecl_tpu_torch/backend/cuda/printer.py)",
+              "cubecl_tpu/backend/pallas/emitter.py:48",
+              o_out[key]["launches"], o_out[key], o_out[key]["library_ms"],
+              jax_kernel="cubecl_tpu/std/quant_kernels.py:34 "
+                         "(dequantize_block_kernel)",
+              **{k: o_out[key][k] for k in ("library", "call_ms", "shape")})
+          for key in ("k0_dequantize", "k0_dequantize_block")),
         row("reduce_native", "cubecl_tpu_torch/csrc/reduce.cu",
             "cubecl_tpu/ops/reduce.py:219", p_out["launches"]["reduce_native"],
             p_out["r1"]["f32 64M"], p_out["r1"]["f32 64M"]["library_ms"],

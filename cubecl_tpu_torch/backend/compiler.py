@@ -83,7 +83,7 @@ class CompiledKernel:
 
 #: the op families that neither K0 backend (the CUDA printer, the torch
 #: evaluator) lowers yet: the leftovers of ROADMAP Queue 1 item 3
-UNLOWERED = ("atomics", "mem.slice", "shared memory and per-unit arrays",
+UNLOWERED = ("atomics", "mem.slice", "per-unit arrays",
              "barriers and memcpy_async", "plane scans and ballots",
              "the saturating, mulhi and bit-counting ops", "debug.print",
              "a runtime grid (CubeCount.runtime)")

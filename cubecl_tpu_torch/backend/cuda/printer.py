@@ -105,7 +105,12 @@ The mapping:
   planes, between ``__syncthreads()``, so that every unit holds the
   result. Its start must be cube-uniform and its control flow too;
 - ``op.reinterpret`` is a bit copy (``memcpy``) of the value's storage,
-  the line absorbing the width ratio.
+  the line absorbing the width ratio;
+- a shared array (``SharedMemory``) is a static ``__shared__`` array of
+  its lines (16-byte aligned, at most 48 KiB a kernel), each block its
+  own; loads and stores index it as a buffer, and its loads are kept in
+  registers, never re-read by an inlined expression. A kernel with one
+  keeps one thread a unit.
 
 Warp lines. A kernel whose lines are all wide runs each unit on a warp
 instead of a thread (``mapping=warp-lines`` in the printed comment), so
@@ -113,7 +118,7 @@ that a warp's loads are 32 neighbouring 16-byte chunks instead of 32 rows
 a row apart. :func:`warp_vector` decides it from the definition alone: V
 = 16 bytes / the storage bytes of the narrowest buffer with lines (4 for
 f32, 8 for bf16/f16), and the kernel qualifies when every line value has
-at least 32·V elements and it has no ``plane.*``, ``sync.*``,
+at least 32·V elements and it has no shared array, ``plane.*``, ``sync.*``,
 ``mem.block_reduce``, ``mma.*``, atomic or ``op.reinterpret`` op, reads no
 ``UNIT_POS_PLANE``/``PLANE_POS``/``PLANE_DIM`` and takes or sets no single
 element of a line (``vec_extract``/``vec_insert``/``vec_init``). Then:
@@ -144,8 +149,8 @@ for the store (the 8-unit ``*_rows`` kernels with ``plane_sum``, the
 reductions, cmma on either route, quant, gelu's 4-element lines).
 
 Ops this printer does not lower raise ``NotImplementedError`` naming the
-op (``backend.compiler.unsupported``): atomics, ``mem.slice``, shared
-memory and per-unit arrays, barriers and ``memcpy_async``, plane scans
+op (``backend.compiler.unsupported``): atomics, ``mem.slice``,
+per-unit arrays, barriers and ``memcpy_async``, plane scans
 and ballots, the saturating, ``mulhi`` and bit-counting ops,
 ``debug.print``, and a runtime grid.
 """
@@ -167,6 +172,7 @@ from ..compiler import (CompiledKernel, Compiler,
 
 _BACKEND = "the CUDA printer"
 MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (sm_90)
+MAX_STATIC_SMEM = 48 * 1024  # static shared memory a block may declare
 
 # longest per-element expression a line value is inlined as (longer ones
 # are materialized in an array, so that nesting cannot blow up the source)
@@ -341,6 +347,7 @@ class _Printer:
         self.lines: List[str] = []
         self.depth = 1
         self.buffers = {bp.value.vid: bp for bp in st.buffers}
+        self.shareds = {sd.value.vid: sd for sd in st.shareds}
         # loop frames: carry writebacks [(mut, value)] of each open loop
         self.loops: List[list] = []
         # C blocks: vids whose declaration is visible in each open block
@@ -398,6 +405,8 @@ class _Printer:
             return f"s{v.vid}"
         if v.kind == VarKind.BUFFER:
             return f"b{v.vid}"
+        if v.kind == VarKind.SHARED:
+            return f"sh{v.vid}"
         if v.kind in (VarKind.LOCAL, VarKind.LOCAL_MUT):
             return f"v{v.vid}"
         if v.kind == VarKind.MATRIX:
@@ -477,8 +486,15 @@ class _Printer:
         st = d.state
         if d.dynamic_grid_vid is not None:
             raise unsupported("a runtime grid (CubeCount.runtime)", _BACKEND)
-        if st.shareds:
-            raise unsupported("shared memory / per-unit arrays", _BACKEND)
+        if any(_per_unit(sd) for sd in st.shareds):
+            raise unsupported("per-unit arrays", _BACKEND)
+        shared_bytes = sum(sd.shape[0] * sd.ty.line * sd.ty.elem.size
+                           for sd in st.shareds)
+        if shared_bytes > MAX_STATIC_SMEM:
+            raise ValueError(
+                f"kernel {self.name}: its shared arrays need {shared_bytes} "
+                f"bytes, over the {MAX_STATIC_SMEM} bytes of static shared "
+                f"memory a block may declare")
         if self.smem_bytes > MAX_SMEM:
             raise ValueError(
                 f"kernel {self.name}: its cmma fragments need "
@@ -548,6 +564,10 @@ class _Printer:
         if vec_bufs:
             self.emit(f"const bool cc_aligned = (({' | '.join(vec_bufs)}) "
                       f"& {_CHUNK - 1}) == 0;")
+        for sd in st.shareds:
+            self.emit(f"__shared__ __align__(16) {_storage(sd.ty.elem)} "
+                      f"{self.name_of(sd.value)}"
+                      f"[{sd.shape[0] * sd.ty.line}];")
         if tc is not None:
             # the swizzled panels need a 1024-byte aligned base: the launch
             # gives 1024 bytes of slack
@@ -828,7 +848,11 @@ class _Printer:
 
     # ------------------------------------------------------------ memory
 
-    def buffer(self, v: Value):
+    def buffer(self, v: Value, shared: bool = False):
+        """The parameter of buffer ``v``; ``shared``: or the declaration of
+        shared array ``v`` (loads and stores index either alike)."""
+        if shared and v.kind == VarKind.SHARED:
+            return self.shareds[v.vid]
         if v.kind != VarKind.BUFFER:
             raise unsupported(f"{v.kind.value} memory", _BACKEND)
         return self.buffers[v.vid]
@@ -840,8 +864,9 @@ class _Printer:
         L = bp.ty.line
         i = self.cval(idx, i64)
         vid = bp.value.vid
+        name = self.name_of(bp.value)
         if L == 1:
-            return f"b{vid}[{i}]"
+            return f"{name}[{i}]"
         if self.V and not self.measuring:
             if self.chunks is not None:
                 key = (vid, i, stored)
@@ -850,11 +875,11 @@ class _Printer:
                                        f"{len(self.chunks)}"
                 return f"{self.chunks[key]}[j]"
             l = self.lane_elem(l)
-        return f"b{vid}[{i} * {L} + {l}]"
+        return f"{name}[{i} * {L} + {l}]"
 
     def store(self, inst) -> None:
         op = inst.op
-        bp = self.buffer(op.args[0])
+        bp = self.buffer(op.args[0], shared=True)
         idx, val = op.args[1], op.args[2]
         L = bp.ty.line
         guarded = op.opcode == O.STORE_MASKED
@@ -1070,7 +1095,7 @@ class _Printer:
     def load(self, inst) -> None:
         op = inst.op
         out = inst.out
-        bp = self.buffer(op.args[0])
+        bp = self.buffer(op.args[0], shared=True)
         idx = op.args[1]
         masked = op.opcode == O.INDEX_MASKED
         if not masked and bp.value.vid not in self.stored and self.inline(
@@ -1982,12 +2007,19 @@ def least_warp_line(elem_bytes: int) -> int:
     return LANES * max(1, _CHUNK // elem_bytes)
 
 
+def _per_unit(sd) -> bool:
+    """A per-unit array (``frontend.Array``), traced as a shared
+    declaration."""
+    return isinstance(sd.value.payload, dict) and \
+        sd.value.payload.get("per_unit", False)
+
+
 def warp_vector(defn: KernelDefinition, plane_builtins: bool = False) -> int:
     """V of the warp-lines mapping for an optimized definition, or 0 when
     it keeps one thread a unit (the rule of the module docstring).
     ``plane_builtins``: the traced scope read a plane builtin."""
     lines = [bp.ty.elem.size for bp in defn.state.buffers if bp.ty.line > 1]
-    if plane_builtins or not lines:
+    if plane_builtins or not lines or defn.state.shareds:
         return 0
     least = least_warp_line(min(lines))
     V = least // LANES

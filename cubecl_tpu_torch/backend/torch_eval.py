@@ -18,6 +18,9 @@ Execution model (SIMT in lockstep):
 - loads are ``index_select`` over the buffer's lines, stores a masked
   ``index_put_``; ``mem.*_masked`` read 0 / drop the write where the mask
   is false; an unmasked access out of bounds raises ``IndexError``;
+- a shared array (``SharedMemory``) is one zeroed tensor of every cube's
+  lines, cube after cube: a unit's index is offset by its cube's, and is
+  bounds-checked against one cube's length;
 - ``plane.*`` reduce or gather over groups of ``plane_dim`` units;
 - ``sync.*`` order nothing: the units already run in lockstep;
 - a cmma fragment (``mma.*``) is cube-scope: one ``(cubes, rows, cols)``
@@ -189,6 +192,15 @@ class Evaluator:
         for bp in st.buffers:
             if bp.dyn_len is not None:
                 self.lens[bp.value.vid] = int(self.env[bp.dyn_len.vid])
+        cubes = math.prod(defn.cube_count)
+        for sd in st.shareds:
+            if isinstance(sd.value.payload, dict) and \
+                    sd.value.payload.get("per_unit", False):
+                continue  # a per-unit array raises at its first access
+            self.bufs[sd.value.vid] = torch.zeros(
+                cubes * sd.shape[0], sd.ty.line,
+                dtype=sd.ty.elem.torch_dtype(), device=self.dev)
+            self.lens[sd.value.vid] = sd.shape[0]
         self._builtins: Dict[Builtin, torch.Tensor] = {}
         ones = torch.ones(self.N, 1, dtype=torch.bool, device=self.dev)
         self.all_lanes = ones
@@ -391,9 +403,15 @@ class Evaluator:
 
     # ------------------------------------------------------------ memory
 
-    def _buffer(self, v: Value) -> torch.Tensor:
+    def _buffer(self, v: Value, shared: bool = False) -> torch.Tensor:
+        """The lines of buffer ``v``; ``shared``: or of shared array ``v``
+        (loads and stores index either alike)."""
+        if shared and v.kind == VarKind.SHARED and v.vid in self.bufs:
+            return self.bufs[v.vid]
         if v.kind != VarKind.BUFFER:
-            raise unsupported(f"{v.kind.value} memory", "the torch evaluator")
+            what = "per-unit arrays" if v.kind == VarKind.SHARED else \
+                f"{v.kind.value} memory"
+            raise unsupported(what, "the torch evaluator")
         return self.bufs[v.vid]
 
     def _lines(self, buf: Value, idx: torch.Tensor, live: torch.Tensor,
@@ -410,11 +428,14 @@ class Evaluator:
                 f"{buf.name or buf!r} at line "
                 f"{int(idx.expand(self.N, 1)[lane])} outside [0, {n}) by "
                 f"unit {lane}; launch it checked or fix the plan")
-        return idx.clamp(0, max(n - 1, 0))
+        idx = idx.clamp(0, max(n - 1, 0))
+        if buf.kind == VarKind.SHARED:  # each cube's own lines
+            idx = idx + self.builtin(Builtin.CUBE_POS).long() * n
+        return idx
 
     def _load(self, inst, act) -> torch.Tensor:
         op = inst.op
-        t = self._buffer(op.args[0])
+        t = self._buffer(op.args[0], shared=True)
         idx = self.val(op.args[1])
         if op.opcode == O.INDEX_MASKED:
             m = self.val(op.args[2]).bool()
@@ -428,7 +449,7 @@ class Evaluator:
     def _store(self, inst, act) -> None:
         op = inst.op
         buf = op.args[0]
-        t = self._buffer(buf)
+        t = self._buffer(buf, shared=True)
         live = act
         if op.opcode == O.STORE_MASKED:
             live = live & self.val(op.args[3]).bool()
@@ -464,6 +485,7 @@ class Evaluator:
         or store, bounds-checked on the live cubes."""
         op = inst.op
         mat, buf = op.args[0], op.args[1]
+        self._buffer(buf)  # a fragment moves from and to buffers only
         rows, cols = mat.shape
         off = self._per_cube(op.args[2], "cmma offset").long()
         st = _uniform_int(self.val(op.args[3]), "cmma stride")

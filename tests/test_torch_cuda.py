@@ -20,12 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-from cubecl_tpu_torch.frontend import (ABSOLUTE_POS, CUBE_POS_X, ArrayArg,
-                                       MutSlice, Slice, cube)
+from cubecl_tpu_torch.frontend import (ABSOLUTE_POS, CUBE_POS_X, UNIT_POS,
+                                       ArrayArg, MutSlice, SharedMemory,
+                                       Slice, cube, sync_cube)
 from cubecl_tpu_torch.models import llama
 from cubecl_tpu_torch.ops import functional as F
 from cubecl_tpu_torch.ops import gelu as G
 from cubecl_tpu_torch.ops import normalization as N
+from cubecl_tpu_torch.ir.types import i32
 from cubecl_tpu_torch.runtime import CudaRuntime, eval_client
 from cubecl_tpu_torch.models import transformer
 from cubecl_tpu_torch.ops import attention as fa
@@ -1404,6 +1406,88 @@ def test_quant_kernels_match_plain(dev, n):
                     for t in want)
             assert torch.equal(got[0][0].tensor, v)
             assert torch.equal(got[0][1].tensor, s)
+
+
+@pytest.mark.parametrize("n,block", [
+    (4096 * 4096, 4096), (4096 * 4096, 2048), (2048 * 1001, 2048),
+    (8072 * 37, 8072), (4096 * 4096, None), (4096 * 4096 + 8 * 1009, None)],
+    ids=["4096^2-4096", "4096^2-2048", "ragged-2048", "lines-of-1-8072",
+         "tensor-4096^2", "tensor-ragged"])
+def test_quant_block_and_dequantize_kernels_match_plain(dev, n, block):
+    """The block quantize (a cube a block, the planes' maxima through a
+    shared array; ragged: 1001 blocks of 2048, blocks of 8072 that the
+    units' last step overruns) and the dequantize at both levels (one
+    launch of ``dequantize_chunk_kernel`` over chunks cut at the tensor's
+    end) give the evaluator's bits and the plain version's, with the
+    absmax in a block's first and last element and an all-zero block;
+    one launch a call, counted by kernel name."""
+    from cubecl_tpu_torch.std.quant import QuantLevel, QuantScheme
+    from cubecl_tpu_torch.std.quant_kernels import (dequantize,
+                                                    dequantize_plain,
+                                                    quantize, quantize_plain)
+
+    scheme = QuantScheme() if block is None else QuantScheme(
+        level=QuantLevel.BLOCK, block_size=block)
+    x = torch.randn(n, generator=torch.Generator(device=dev)
+                    .manual_seed(5), device=dev) * 3
+    if block is not None:
+        x[block] = -50.0
+        x[3 * block - 1] = 60.0
+        x[4 * block:5 * block] = 0
+    cu, ev = CudaRuntime.client(), eval_client(dev)
+    cu.server.reset_counts()
+    vals, scales = quantize(cu, cu.create(x), scheme)
+    torch.cuda.synchronize()
+    if block is not None:
+        assert dict(cu.server.launches) == {"quantize_block_kernel": 1}
+        assert scales.tensor[4].item() == np.float32(1e-12)
+    pv, ps = quantize_plain(x, scheme)
+    ev_v, ev_s = quantize(ev, ev.create(x), scheme)
+    for want in ((pv, ps), (ev_v.tensor, ev_s.tensor)):
+        assert torch.equal(vals.tensor, want[0])
+        assert torch.equal(scales.tensor, want[1])
+    cu.server.reset_counts()
+    back = dequantize(cu, vals, scales, scheme)
+    torch.cuda.synchronize()
+    assert dict(cu.server.launches) == {"dequantize_chunk_kernel": 1}
+    assert torch.equal(back.tensor, dequantize_plain(pv, ps, scheme))
+    assert torch.equal(back.tensor, dequantize(
+        ev, ev.create(vals.tensor), ev.create(scales.tensor), scheme).tensor)
+
+
+@cube
+def _shared_lines(x: Slice, out: MutSlice, units: int):
+    sh = SharedMemory.new(i32, units, 4)
+    first = SharedMemory.new(i32, 1, 4)
+    i = CUBE_POS_X * units + UNIT_POS
+    sh[UNIT_POS] = x[i]
+    if UNIT_POS == 0:
+        first[0] = x[i] * 3
+    sync_cube()
+    out[i] = sh[units - 1 - UNIT_POS] + sh[UNIT_POS] + first[0]
+
+
+@pytest.mark.parametrize("cubes,units", [(5, 32), (1000, 256)])
+def test_shared_arrays_match_the_evaluator(dev, cubes, units):
+    """K0's shared arrays on the card (static ``__shared__``, each cube its
+    own): a cube's lines reversed through one array and its first unit's
+    line through another, across a barrier, equal the evaluator's and
+    torch's."""
+    n = cubes * units * 4
+    x = torch.randint(-1000, 1000, (n,), generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev, dtype=torch.int32)
+    outs = []
+    for c in (CudaRuntime.client(), eval_client(dev)):
+        o = c.empty((n,), "int32")
+        _shared_lines.launch_unchecked(
+            c, cubes, units, ArrayArg(c.create(x), line_size=4),
+            ArrayArg(o, line_size=4, mutable=True), units)
+        outs.append(o.tensor)
+    torch.cuda.synchronize()
+    lines = x.view(cubes, units, 4)
+    want = (lines.flip(1) + lines + 3 * lines[:, :1]).reshape(-1)
+    assert "__shared__" in CudaRuntime.client().server.last_launched.source
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
 
 
 # -- slice 6: R1, K0's block_reduce and reinterpret, reductions, fusion ----
