@@ -16,7 +16,8 @@ bf16 instance of the flash forward, dK/dV and dQ kernels, dense and
 block-sparse at D 64 and 128, C1's bf16 body, every 8-bit GEMM
 instance and the K0 bf16/f16 cmma kernels issue wgmma: HGMMA in
 ``cuobjdump -sass``, IGMMA for the int8 GEMM; their registers and
-spills; P1 spilling nothing), 3 flash vs plain (with
+spills; P1's plain, window and ring kernels spilling nothing), 3 flash
+vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
 bf16 D 64 at GPT-2's widths), 4 paged decode (P1: positions split over
 blocks, a cp.async ring per warp) vs plain, back to back and with a cold
@@ -115,8 +116,19 @@ also timed as device time with a cold L2; the
 three-layer packed stack of the ``examples/conv_pairs`` twin (3 C1
 launches, counted from 0) against F.conv2d + ReLU; ``conv2d_autotuned`` at
 (32, 56, 56, 64) -> 64 (native against pairs) and (16, 28, 28, 256) -> 256
-(native against im2col on M1), each candidate's time and the winner. Each
-kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
+(native against im2col on M1), each candidate's time and the winner.
+Then StreamingLLM serving: z1 the 0.77B bf16 llama with sinks 4 and
+window 2000 (streaming-llm's defaults) through ``generate``, B 8 x a
+4096-token prompt (full-attention prefill) and 64 windowed decode steps
+(P1's window kernel, 1024 launches checked), tokens against the plain
+path's under the BF16_GAP rule, one windowed P1 call against plain on bf16
+and int8 pools, timed back to back and with a cold L2 beside the same call
+with window 0; z2 the same model on a ring of 17 pages of 16 (sinks 16,
+window 240), 320 steps from an empty cache (5120 ring launches), its
+logits against the same tokens through an unbounded windowed cache, one
+ring call against plain; z3 the d768 f32 llama windowed and on a ring,
+kernels against the plain versions and the ring against the unbounded
+cache within LOGIT_TOL. Each kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. A K0
 kernel's time in phases a, e and q is its device time with a cold L2
 (``cold_ms``), printed beside a call's time back to back (host included),
@@ -1358,17 +1370,18 @@ def flash_bound(B, H, Hkv, Sq, Sk, D, dtype, causal, products=2,
 
 
 def paged_bound(q_dtype, kv_elem, D, H, Hkv, n_live, kv_live, quant,
-                rows):
+                rows, extra_bytes=0):
     """Bound of paged attention. ``n_live``: per query row (of every batch
     row), the positions it attends; ``kv_live``: per batch row, the
     positions its kv heads read. Two products per (query row, position,
     head); bytes: q and o (``rows`` query tokens of H heads), the live K
-    and V of each kv head, their int8 scales."""
+    and V of each kv head, their int8 scales, ``extra_bytes`` (a ring's
+    positions)."""
     flops = 4 * D * H * sum(n_live)
     elem = torch.finfo(q_dtype).bits // 8
     kv = sum(kv_live) * Hkv * (2 * D * kv_elem + (8 if quant else 0))
-    return bound_ms(flops, 2 * rows * H * D * elem + kv, q_dtype,
-                    products=True)
+    return bound_ms(flops, 2 * rows * H * D * elem + kv + extra_bytes,
+                    q_dtype, products=True)
 
 
 def chunked_live(starts, lengths, C):
@@ -4134,6 +4147,359 @@ def convolutions(conv, ex_conv, cu, dev, gen, card):
     return rows
 
 
+# -- StreamingLLM serving (phase z) -------------------------------------------
+
+# z1: mit-han-lab/streaming-llm's run_streaming_llama.py defaults (start_size
+# 4, recent_size 2000) on the 0.77B bf16 llama: B 8 x a 4096-token prompt
+# through generate's full-attention prefill, then 64 windowed steps, in a
+# table of 33 pages of 128 (4224 positions: half of a row's context is
+# dead middle by the last step)
+STREAM = dict(B=8, S=4096, steps=64, page=128, pages=33, sinks=4,
+              window=2000)
+# z2: a ring of 17 pages of 16 (272 = sinks 16 + window 240 + one page):
+# StreamingLLM's 256-token cache with its window rounded to the ring's
+# pages; 320 steps from an empty cache recycle its slots; the same stream
+# through an unbounded windowed cache of 20 pages
+RING = dict(B=8, steps=320, page=16, pages=17, sinks=16, window=240,
+            unbounded_pages=20)
+# z3: the d768 f32 llama (phase l's) windowed after a 256-token prompt
+# (64 steps, sinks 4, window 128) and on a ring of 9 pages of 16 (sinks
+# 16, window 112) for 200 steps, unbounded in 13 pages
+STREAM_F32 = dict(B=8, S=256, steps=64, page=128, pages=3, sinks=4,
+                  window=128)
+RING_F32 = dict(B=8, steps=200, page=16, pages=9, sinks=16, window=112,
+                unbounded_pages=13)
+# the two models: phase k's 0.77B bf16 llama, phase l's d768 f32 one
+Z_LLAMA = dict(vocab=8192, d_model=2048, n_heads=16, n_kv_heads=8,
+               n_layers=16, d_ff=5632, seq=1024, dtype="bfloat16",
+               use_framework_kernels=False)
+Z_F32 = dict(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4, n_layers=8,
+             d_ff=2048, seq=512, use_framework_kernels=False)
+
+
+def with_cfg(llama, model, cfg, dev):
+    """A model of ``cfg`` holding ``model``'s weights (the StreamingLLM
+    options change no weight)."""
+    m = llama.Llama(cfg, device=dev)
+    m.load_state_dict(model.state_dict())
+    return m
+
+
+def ring_meta(table, length, page, sinks, P):
+    """pos_meta (P, page) of a ring whose rows (``table``) each decoded
+    ``length`` tokens: slot j of a row's table order holds j below the
+    sinks, else the newest t with sinks + (t - sinks) % (capacity - sinks)
+    == j; -1 where none came."""
+    cap = table.shape[1] * page
+    ring = cap - sinks
+    j = np.arange(min(length, cap))
+    t = np.where(j < sinks, j, j + (length - 1 - j) // ring * ring)
+    meta = np.full((P, page), -1, np.int32)
+    tab = table.cpu().numpy()
+    for b in range(tab.shape[0]):
+        meta[tab[b, j // page], j % page] = t
+    return torch.from_numpy(meta).to(table.device)
+
+
+def p1_stream_call(pa, dev, gen, card, what, B, L, Hkv, G, D, page,
+                   max_pages, length, window, sinks, ring):
+    """One windowed or ring P1 call at a phase-z shape against its plain
+    version on bf16 and on int8 pools (layer L - 1 of L); the bf16 call
+    timed back to back (each launch on the next layer) and with a cold L2,
+    beside its plain version, its bound on the positions it attends (the
+    sinks and the window) and, windowed, the same call with window 0."""
+    P = B * max_pages + 5
+    shape = (L, Hkv, P, page, D)
+    q = torch.randn(B, Hkv * G, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    table = torch.randperm(P, generator=gen, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    ln = torch.full((B,), length, dtype=torch.int32, device=dev)
+    meta = ring_meta(table, length, page, sinks, P) if ring else None
+    opts = dict(window=window, sinks=sinks, pos_meta=meta)
+    kp, vp = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    row, errs = {}, {}
+    for kind in ("bf16", "int8"):
+        if kind == "int8":
+            del kp, vp
+            kp, vp, ks, vs = int8_pools(shape, dev, gen)
+        else:
+            ks = vs = None
+        sc = dict(k_scales=ks, v_scales=vs, **opts)
+        got = pa.paged_attention(q, kp, vp, table, ln, layer=L - 1, **sc)
+        torch.cuda.synchronize()
+        errs[kind] = compare(got, pa.paged_attention_plain(
+            q, kp, vp, table, ln, layer=L - 1, **sc),
+            f"{what} {kind} pools")
+        if kind == "bf16":
+            layers = iter(range(10**9))
+            row["ms"] = cuda_ms(lambda: pa.paged_attention(
+                q, kp, vp, table, ln, layer=next(layers) % L, **sc),
+                iters=32)
+            row["cold_ms"] = cold_ms(lambda: pa.paged_attention(
+                q, kp, vp, table, ln, layer=L - 1, **sc))
+            row["plain_ms"] = cuda_ms(lambda: pa.paged_attention_plain(
+                q, kp, vp, table, ln, layer=next(layers) % L, **sc),
+                iters=8, warmup=1)
+            if not ring:   # the same call attending every position
+                row["window0_ms"] = cuda_ms(lambda: pa.paged_attention(
+                    q, kp, vp, table, ln, layer=next(layers) % L),
+                    iters=32)
+                row["window0_cold_ms"] = cold_ms(lambda: pa.paged_attention(
+                    q, kp, vp, table, ln, layer=L - 1))
+    pos = np.arange(length)
+    live = int(((pos < sinks) | (pos >= length - window)).sum()) \
+        if window else length
+    read = min(length, max_pages * page)
+    bms, by = paged_bound(torch.bfloat16, 2, D, Hkv * G, Hkv, [live] * B,
+                          [live] * B, False, B,
+                          4 * B * read if ring else 0)
+    plan = pa.p1_plan(torch.bfloat16, torch.bfloat16, B, Hkv * G, Hkv, D,
+                      page, max_pages, window, sinks, ring)
+    row.update(max_abs_err=errs["bf16"], int8_max_abs_err=errs["int8"],
+               bound_ms=bms, bound_by=by, splits=plan.splits,
+               live_positions=live, length=length)
+    if not ring:
+        row["window0_bound_ms"], _ = paged_bound(
+            torch.bfloat16, 2, D, Hkv * G, Hkv, [length] * B, [length] * B,
+            False, B)
+        row["window0_splits"] = pa.p1_plan(
+            torch.bfloat16, torch.bfloat16, B, Hkv * G, Hkv, D, page,
+            max_pages).splits
+    print(f"phase {what} B{B} Hkv{Hkv} G{G} D{D} page{page} x{max_pages} "
+          f"length {length} (window {window}, sinks {sinks}: {live} live "
+          f"positions, {plan.splits} splits): max abs err bf16 "
+          f"{errs['bf16']}, int8 pools {errs['int8']} (atol/rtol "
+          f"{TOL[torch.bfloat16]}); kernel {row['ms']:.4f} ms back to back, "
+          f"{row['cold_ms']:.4f} ms cold L2, plain {row['plain_ms']:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; {100 * bms / row['cold_ms']:.1f}% of "
+          f"it cold)"
+          + ("" if ring else
+             f"; the same call with window 0: {row['window0_ms']:.4f} ms, "
+             f"{row['window0_cold_ms']:.4f} ms cold ({row['window0_splits']}"
+             f" splits, bound {row['window0_bound_ms']:.4f} ms); windowed "
+             f"cold / unwindowed cold "
+             f"{row['cold_ms'] / row['window0_cold_ms']:.3f}")
+          + f" [{card}]", flush=True)
+    del q, kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    return row
+
+
+def stream_steps(llama, model, cache, first, steps, feed=None,
+                 kernels=True):
+    """``steps`` decode steps from ``cache``: greedy from ``first`` (B,),
+    or fed ``feed`` (B, steps). Returns the tokens fed (B, steps) and the
+    f32 logits after each (B, steps, vocab)."""
+    toks, lgs, tok = [], [], first
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[:, i]
+        toks.append(tok)
+        logits, cache = llama.decode_step(model, cache, tok,
+                                          kernels=kernels)
+        lgs.append(logits.float())
+        tok = logits.argmax(-1).to(torch.int32)
+    return torch.stack(toks, 1), torch.stack(lgs, 1)
+
+
+def streaming_serve(llama, pa, fa, dev, gen, card):
+    """Phase z: StreamingLLM serving on the port. z1 the 0.77B bf16 llama
+    with sinks 4 and window 2000 through ``generate`` (4096-token prompt,
+    64 windowed steps; 1024 windowed P1 launches checked, tokens against
+    the plain path's under the BF16_GAP rule), one windowed P1 call against
+    plain (bf16, int8) timed beside the same call with window 0; z2 the
+    same model on a ring (320 steps on 272 slots, 5120 ring launches) held
+    to an unbounded windowed cache fed the same tokens, one ring call
+    against plain; z3 the d768 f32 llama windowed and on a ring, kernels
+    against the plain versions and the ring against the unbounded cache,
+    within LOGIT_TOL."""
+    z, out = STREAM, {}
+    cfg = llama.LlamaConfig(**Z_LLAMA, attn_window=z["window"],
+                            attn_sinks=z["sinks"])
+    L, H, Hkv, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    model = llama.init_params(cfg, seed=0, device=dev)
+    B, S, steps, page, pages = (z[k] for k in ("B", "S", "steps", "page",
+                                               "pages"))
+    prompt = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+
+    def reset():
+        fa.flash_attention.launches = pa.paged_attention.launches = 0
+        pa.paged_attention.int8_launches = 0
+        pa.paged_attention.window_launches = 0
+        pa.paged_attention.ring_launches = 0
+        pa.paged_attention_chunked.launches = 0
+
+    def check(what, want):
+        got = {"flash_attention": fa.flash_attention.launches,
+               "paged_attention": pa.paged_attention.launches,
+               "paged_attention_int8": pa.paged_attention.int8_launches,
+               "paged_attention_window": pa.paged_attention.window_launches,
+               "paged_attention_ring": pa.paged_attention.ring_launches,
+               "paged_attention_chunked":
+                   pa.paged_attention_chunked.launches}
+        want = {k: want.get(k, 0) for k in got}
+        if got != want:
+            fail(f"{what}: kernel launches {got}, want {want}")
+        return got
+
+    # -- z1: windowed serving through generate
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = llama.generate(model, prompt, steps, pages, page)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n1 = check("phase z1 windowed generate", {
+        "flash_attention": L, "paged_attention": L * steps,
+        "paged_attention_window": L * steps})
+    if toks.shape != (B, steps) or not ((toks >= 0)
+                                        & (toks < cfg.vocab)).all():
+        fail(f"phase z1: bad tokens {tuple(toks.shape)}")
+    # warm: the prefill, then the steps timed
+    cache = llama.init_kv_cache(cfg, B, pages, page, dev)
+    logits, cache = llama.prefill(model, cache, prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _ = stream_steps(llama, model, cache,
+                            logits.argmax(-1).to(torch.int32), steps)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    if not torch.equal(again, toks):
+        fail("phase z1: the warm re-run gave other tokens than generate")
+    del cache
+    want, want_logits = greedy_ref(llama, model, prompt, steps, pages, page,
+                                   kernels=False)
+    prefix, agree = tie_prefix(toks, want, want_logits, BF16_GAP,
+                               "phase z1 windowed tokens against the plain "
+                               "path")
+    print(f"phase z1 windowed serve llama 0.77B bf16 (sinks {z['sinks']}, "
+          f"window {z['window']}): {B} x {S} prompt (full-attention "
+          f"prefill) + {steps} windowed steps in {pages} pages of {page}; "
+          f"generate {gen_s:.3f} s cold, warm decode {step_ms:.3f} ms/step "
+          f"({1e3 * B / step_ms:.1f} tok/s) at context {S}-{S + steps}; "
+          f"launches {n1}; tokens equal the plain path's up to the first "
+          f"near tie (gap < {BF16_GAP}): prefix {min(prefix)}..{steps}, "
+          f"agreeing from the start {agree} [{card}]", flush=True)
+    del want, want_logits
+    out["window_serve"] = dict(generate_s=gen_s, ms_step=step_ms,
+                               launches=n1, tie_prefix_min=min(prefix))
+    out["window_call"] = p1_stream_call(
+        pa, dev, gen, card, "z1 windowed P1", B, L, Hkv, H // Hkv, hd, page,
+        pages, S + steps, z["window"], z["sinks"], False)
+
+    # -- z2: the ring, against an unbounded windowed cache
+    r = RING
+    rcfg = dataclasses.replace(cfg, attn_window=r["window"],
+                               attn_sinks=r["sinks"], ring_cache=True)
+    ucfg = dataclasses.replace(rcfg, ring_cache=False)
+    rmodel, umodel = (with_cfg(llama, model, c, dev) for c in (rcfg, ucfg))
+    del model
+    first = torch.from_numpy(np.random.default_rng(20).integers(
+        0, cfg.vocab, (r["B"],), dtype=np.int32)).to(dev)
+    rc = llama.init_kv_cache(rcfg, r["B"], r["pages"], r["page"], dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rtoks, rlogits = stream_steps(llama, rmodel, rc, first, r["steps"])
+    torch.cuda.synchronize()
+    ring_ms = 1e3 * (time.perf_counter() - t0) / r["steps"]
+    n2 = check("phase z2 ring decode", {
+        "paged_attention": L * r["steps"],
+        "paged_attention_ring": L * r["steps"]})
+    if rc.k.shape[2] != r["B"] * r["pages"] or \
+            int(rc.lengths.min()) != r["steps"]:
+        fail("phase z2: the ring grew or lost count")
+    uc = llama.init_kv_cache(ucfg, r["B"], r["unbounded_pages"], r["page"],
+                             dev)
+    reset()
+    _, ulogits = stream_steps(llama, umodel, uc, None, r["steps"],
+                              feed=rtoks)
+    nu = check("phase z2 unbounded windowed decode", {
+        "paged_attention": L * r["steps"],
+        "paged_attention_window": L * r["steps"]})
+    err_r = compare(rlogits, ulogits, "phase z2 ring logits against the "
+                    "unbounded windowed cache's", BF16_PATH_TOL)
+    need = atol_needed(rlogits, ulogits, BF16_PATH_TOL[1])
+    print(f"phase z2 ring serve llama 0.77B bf16 (sinks {r['sinks']}, "
+          f"window {r['window']}, {r['pages']} pages of {r['page']}): "
+          f"{r['B']} rows x {r['steps']} steps from an empty cache, "
+          f"{ring_ms:.3f} ms/step; launches {n2}; logits against the same "
+          f"tokens through {r['unbounded_pages']} unbounded pages (launches "
+          f"{nu}): max abs err {err_r} (atol/rtol {BF16_PATH_TOL}; the "
+          f"least atol at that rtol {need}) [{card}]", flush=True)
+    out["ring_serve"] = dict(ms_step=ring_ms, launches=n2,
+                             logit_err_vs_unbounded=err_r,
+                             atol_needed_vs_unbounded=need)
+    del rmodel, umodel, rc, uc, rlogits, ulogits
+    torch.cuda.empty_cache()
+    out["ring_call"] = p1_stream_call(
+        pa, dev, gen, card, "z2 ring P1", r["B"], L, Hkv, H // Hkv, hd,
+        r["page"], r["pages"], r["steps"], r["window"], r["sinks"], True)
+
+    # -- z3: f32 exactness, kernels against plain
+    fz, fr = STREAM_F32, RING_F32
+    fcfg = llama.LlamaConfig(**Z_F32, attn_window=fz["window"],
+                             attn_sinks=fz["sinks"])
+    fmodel = llama.init_params(fcfg, seed=1, device=dev)
+    fprompt = torch.from_numpy(np.random.default_rng(21).integers(
+        0, fcfg.vocab, (fz["B"], fz["S"]), dtype=np.int32)).to(dev)
+    errs = {}
+    reset()
+    runs = {}
+    for kernels in (True, False):
+        c = llama.init_kv_cache(fcfg, fz["B"], fz["pages"], fz["page"], dev)
+        lg, c = llama.prefill(fmodel, c, fprompt, kernels=kernels)
+        feed = runs[True][0] if not kernels else None
+        runs[kernels] = (*stream_steps(
+            llama, fmodel, c, lg.argmax(-1).to(torch.int32), fz["steps"],
+            feed=feed, kernels=kernels), lg.float())
+    n3w = check("phase z3 windowed f32", {
+        "flash_attention": fcfg.n_layers,
+        "paged_attention": fcfg.n_layers * fz["steps"],
+        "paged_attention_window": fcfg.n_layers * fz["steps"]})
+    errs["windowed prefill"] = (runs[True][2] - runs[False][2]).abs().max()
+    errs["windowed steps"] = (runs[True][1] - runs[False][1]).abs().max()
+    rfcfg = dataclasses.replace(fcfg, attn_window=fr["window"],
+                                attn_sinks=fr["sinks"], ring_cache=True)
+    rf, uf = (with_cfg(llama, fmodel, c, dev) for c in (
+        rfcfg, dataclasses.replace(rfcfg, ring_cache=False)))
+    first = torch.from_numpy(np.random.default_rng(22).integers(
+        0, fcfg.vocab, (fr["B"],), dtype=np.int32)).to(dev)
+    reset()
+    c = llama.init_kv_cache(rfcfg, fr["B"], fr["pages"], fr["page"], dev)
+    ftoks, fk = stream_steps(llama, rf, c, first, fr["steps"])
+    n3r = check("phase z3 ring f32", {
+        "paged_attention": fcfg.n_layers * fr["steps"],
+        "paged_attention_ring": fcfg.n_layers * fr["steps"]})
+    c = llama.init_kv_cache(rfcfg, fr["B"], fr["pages"], fr["page"], dev)
+    _, fp = stream_steps(llama, rf, c, None, fr["steps"], feed=ftoks,
+                         kernels=False)
+    c = llama.init_kv_cache(uf.cfg, fr["B"], fr["unbounded_pages"],
+                            fr["page"], dev)
+    _, fu = stream_steps(llama, uf, c, None, fr["steps"], feed=ftoks)
+    errs["ring steps"] = (fk - fp).abs().max()
+    errs["ring against unbounded"] = (fk - fu).abs().max()
+    errs = {k: v.item() for k, v in errs.items()}
+    bad = {k: v for k, v in errs.items() if not v <= LOGIT_TOL}
+    if bad:
+        fail(f"phase z3: logits differ by more than {LOGIT_TOL}: {bad}")
+    print(f"phase z3 exactness llama d768 f32: windowed (sinks "
+          f"{fz['sinks']}, window {fz['window']}) {fz['B']} x {fz['S']} "
+          f"prompt + {fz['steps']} steps, kernels against plain fed the "
+          f"same tokens (launches {n3w}); a ring (sinks {fr['sinks']}, "
+          f"window {fr['window']}, {fr['pages']} pages of {fr['page']}) "
+          f"{fr['steps']} steps against its plain route and an unbounded "
+          f"cache of {fr['unbounded_pages']} pages (launches {n3r}): max "
+          f"abs err {errs} (tol {LOGIT_TOL}) [{card}]", flush=True)
+    out["f32"] = dict(errs, window_launches=n3w, ring_launches=n3r)
+    del fmodel, rf, uf, c
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4210,7 +4576,8 @@ def main():
     summary = ptxas_summary(build.log)
     # (a library reused from an earlier build has no ptxas log)
     p1_spill = [(n, sp) for n, _, sp in summary
-                if n.startswith("paged_decode_kernel") and not sp.startswith(
+                if n.startswith(("paged_decode_kernel", "paged_window_kernel",
+                                 "paged_ring_kernel")) and not sp.startswith(
                     "0 bytes stack frame, 0 bytes spill stores")]
     if p1_spill:
         fail(f"phase 2: P1 spills or keeps a stack frame: {p1_spill}")
@@ -4491,6 +4858,9 @@ def main():
     # -- phase y: the small-channel conv (C1) and conv2d_autotuned ------------
     y_rows = convolutions(conv, ex_conv, cu, dev, gen, card)
 
+    # -- phase z: StreamingLLM serving (P1's window + sinks and ring) ---------
+    z_out = streaming_serve(llama, pa, fa, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
         # three TF32 products says so in bound_term
@@ -4591,7 +4961,22 @@ def main():
             splits=paged_rows[1]["splits"], kernel_symbols=P1_SYMBOLS,
             d768_f32={f: paged_rows[2][f] for f in (
                 "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
-                "splits")}),
+                "splits")},
+            window={"kernel_symbols": "paged_window_kernel<T, TK, D>",
+                    "shape": "bf16 B8 Hkv8 G2 D128 context 4160, sinks 4, "
+                             "window 2000, 33 pages of 128",
+                    "launches": z_out["window_serve"]["launches"][
+                        "paged_attention_window"],
+                    "launches_path": "phase z1: generate, 8 x 4096 + 64 "
+                                     "steps, 16 layers",
+                    **z_out["window_call"]},
+            ring={"kernel_symbols": "paged_ring_kernel<T, TK, D>",
+                  "shape": "bf16 B8 Hkv8 G2 D128 length 320, sinks 16, "
+                           "window 240, a ring of 17 pages of 16",
+                  "launches": z_out["ring_serve"]["launches"][
+                      "paged_attention_ring"],
+                  "launches_path": "phase z2: 320 decode steps, 16 layers",
+                  **z_out["ring_call"]}),
         row("paged_attention_int8", "cubecl_tpu_torch/csrc/paged_attention.cu",
             "cubecl_tpu/ops/paged_attention.py:247",
             k_out["int8"]["launches"]["paged_attention_int8"],

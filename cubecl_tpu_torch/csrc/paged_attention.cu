@@ -52,6 +52,28 @@
 // What holds it back: the f32 products and shuffles per position (G of
 // each) run on the CUDA cores; at B * Hkv near one wave the split is 1 and
 // the tail of the wave idles.
+//
+// P1's two options (StreamingLLM serving), each a kernel of its own on the
+// same body, chosen at compile time (MODE), so that the plain decode's
+// instances (paged_decode_kernel) are the code they were:
+// - window + sinks (paged_window_kernel): attend only positions < sinks
+//   and >= len - window. A windowed step has to read the window's bytes,
+//   not the context's (the JAX kernel's step guard skips the dead middle's
+//   compute; its DMA is what a TPU grid step costs anyway). So a block
+//   walks only the live tiles: those of [0, min(sinks, len)) and of
+//   [max(0, len - window), len), merged where they meet, shared out over
+//   the splits as the full walk shares out its tiles (WindowTiles); the
+//   dead middle inside a boundary tile is masked like the tail, and never
+//   copied. The split count is sized from the most live tiles a row of
+//   the table can have, not from its capacity.
+// - ring positions (paged_ring_kernel): a bounded cache whose slots are
+//   recycled; each slot's absolute position is in pos_meta (P, page),
+//   shared by every layer and kv head, -1 where nothing was written. A
+//   block walks the table-order slots [0, min(len, capacity)) (a position
+//   t lands at table order <= t, so slots past len hold nothing of this
+//   row) as the full walk does; each position's meta rides its K/V rows
+//   (one 4-byte cp.async into the stage, as the int8 scales do) and the
+//   mask is meta in [0, len) and, with a window, in its window.
 #include <algorithm>
 #include <type_traits>
 
@@ -70,14 +92,21 @@ constexpr int STAGES = 3;       // ring of K/V stages per warp
 constexpr int kSMs = 132;       // the H100's SMs
 constexpr int kSmSmem = 233472;  // shared memory of an SM (228 KB)
 
+// the body's modes: every position below the length, window + sinks, ring
+constexpr int kModeFull = 0;
+constexpr int kModeWindow = 1;
+constexpr int kModeRing = 2;
+
 // dynamic shared memory: q (MAXG x D f32), then the warps' rings (a
-// stage: WR K rows, WR V rows, for int8 their WR K and WR V scales); the
-// rings are reused at the end for the warps' (acc, m, l)
-template <typename TK, int D>
+// stage: WR K rows, WR V rows, for int8 their WR K and WR V scales, for
+// the ring the WR positions' meta); the rings are reused at the end for
+// the warps' (acc, m, l)
+template <typename TK, int D, int MODE = kModeFull>
 struct P1Smem {
   static constexpr bool kQuant = std::is_same<TK, int8_t>::value;
   static constexpr int kRow = D * (int)sizeof(TK);
-  static constexpr int kStage = 2 * WR * kRow + (kQuant ? 2 * WR * 4 : 0);
+  static constexpr int kMeta = 2 * WR * kRow + (kQuant ? 2 * WR * 4 : 0);
+  static constexpr int kStage = kMeta + (MODE == kModeRing ? WR * 4 : 0);
   static constexpr int kRing = MAXG * D * 4;
   static constexpr int kRingBytes = PNW * STAGES * kStage;
   static constexpr int kComb = PNW * MAXG * (D + 2) * 4;
@@ -85,31 +114,73 @@ struct P1Smem {
       kRing + (kRingBytes > kComb ? kRingBytes : kComb);
 };
 
+// the most tiles a row walks: the table's (full walk, ring), or (window)
+// those of the sinks and of a window that starts inside a tile
+inline int p1_walk_tiles(int mode, int page, int max_pages, int window,
+                         int sinks) {
+  const int64_t cap = (int64_t)page * max_pages;
+  const int64_t tiles = std::max<int64_t>(1, (cap + PT - 1) / PT);
+  if (mode != kModeWindow) return (int)tiles;
+  const int64_t live =
+      (std::min<int64_t>(sinks, cap) + PT - 1) / PT + (window - 1) / PT + 2;
+  return (int)std::min(tiles, live);
+}
+
 // splits of each (batch row, kv head): enough blocks to fill the card once
 // at two blocks an SM (one where shared memory holds one), at most the
-// tiles the table addresses; 1 where B * Hkv fills it alone
-inline int p1_splits(int B, int Hkv, int page, int max_pages, int smem) {
+// tiles a row walks; 1 where B * Hkv fills it alone
+inline int p1_splits(int B, int Hkv, int tiles, int smem) {
   const int per_sm = kSmSmem / (smem + 1024) >= 2 ? 2 : 1;
   const int rows = B * Hkv;
-  const int tiles = (int)std::max<int64_t>(
-      1, ((int64_t)page * max_pages + PT - 1) / PT);
   return std::max(1, std::min(kSMs * per_sm / rows, tiles));
 }
 
-// part (splits > 1): per (b, kv head, split, query row g < G) the row's
-// unnormalised f32 accumulator (D), then its m and l
-template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(PNT)
-paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
-                    const TK* __restrict__ vpool,
-                    const float* __restrict__ kscale,
-                    const float* __restrict__ vscale,
-                    const int* __restrict__ table,
-                    const int* __restrict__ lengths, T* __restrict__ o,
-                    float* __restrict__ part, int H, int Hkv, int G,
-                    int layer, int P, int page, int max_pages,
-                    float scale_log2, int splits) {
-  using L = P1Smem<TK, D>;
+// window mode: a row's live tiles, those of the sinks [0, min(sinks, len))
+// then those of the window [max(0, len - window), len) (one run where the
+// two meet), numbered 0.. in that order; split `split` takes
+// ceil(live / splits) of them, as the full walk takes its tiles. Its tile
+// t starts at position first + t * PT, plus the dead middle's gap from
+// tile `jump` on; a position is live below len, outside the dead middle
+// [sinks, sinks + mid)
+struct WindowTiles {
+  int count, jump, first, gap, mid;
+  __device__ __forceinline__ WindowTiles(int len, int window, int sinks,
+                                         int split, int splits) {
+    const int ta = (min(sinks, len) + PT - 1) / PT;
+    const int tb = max(0, len - window) / PT;
+    const int tl = (len + PT - 1) / PT;
+    const int na = tb <= ta ? 0 : ta;  // the sinks' own tiles
+    const int tw = tb <= ta ? 0 : tb;  // the window's first tile
+    const int live = na + tl - tw;
+    const int per = (live + splits - 1) / splits;
+    const int k0 = min(live, split * per);
+    count = min(live, k0 + per) - k0;
+    jump = k0 < na ? na - k0 : count;
+    first = (k0 < na ? k0 : tw + k0 - na) * PT;
+    gap = (tw - na) * PT;
+    mid = max(0, len - window - sinks);
+  }
+  __device__ __forceinline__ int pos0(int t) const {
+    return first + t * PT + (t >= jump ? gap : 0);
+  }
+  __device__ __forceinline__ bool live(int pos, int len, int sinks) const {
+    return pos < len && (unsigned)(pos - sinks) >= (unsigned)mid;
+  }
+};
+
+// the body of the three kernels below, for MODE; part (splits > 1): per
+// (b, kv head, split, query row g < G) the row's unnormalised f32
+// accumulator (D), then its m and l
+template <int MODE, typename T, typename TK, int D>
+__device__ __forceinline__ void paged_decode_body(
+    const T* __restrict__ q, const TK* __restrict__ kpool,
+    const TK* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, T* __restrict__ o,
+    float* __restrict__ part, int H, int Hkv, int G, int layer, int P,
+    int page, int max_pages, float scale_log2, int splits, int window,
+    int sinks, const int* __restrict__ meta) {
+  using L = P1Smem<TK, D, MODE>;
   constexpr bool QUANT = L::kQuant;
   constexpr int EPC = Chunk<TK>::N;    // elements per 16-byte chunk
   constexpr int RC = L::kRow / 16;     // chunks per row
@@ -123,12 +194,17 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int len = max(lengths[b], 0);
+  // the table-order positions walked: those below the length (the ring:
+  // the slots written so far, at most the table's)
+  const int n = MODE == kModeRing ? min(len, max_pages * page) : len;
   // this split's positions [p0, p1): whole tiles, ceil(tiles / splits) each
-  const int tiles = (len + PT - 1) / PT;
+  const int tiles = (n + PT - 1) / PT;
   const int per = (tiles + splits - 1) / splits;
-  const int p0 = min(len, split * per * PT);
-  const int p1 = min(len, p0 + per * PT);
-  const int n_tiles = (p1 - p0 + PT - 1) / PT;
+  const int p0 = min(n, split * per * PT);
+  const int p1 = min(n, p0 + per * PT);
+  // window mode walks its live tiles instead
+  const WindowTiles wt(len, window, sinks, split, splits);
+  const int n_tiles = MODE == kModeWindow ? wt.count : (p1 - p0 + PT - 1) / PT;
   const int64_t orow0 = (int64_t)b * H + (int64_t)hk * G;  // query head row
   float* pr = splits == 1 ? nullptr
                           : part + (((int64_t)b * Hkv + hk) * splits + split) *
@@ -152,14 +228,25 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
   uint8_t* ring = smem + L::kRing + warp * STAGES * L::kStage;
   const uint32_t ring_s = smem_addr(ring);
 
-  // stage st <- K and V rows (and scales) of this warp's positions of tile
-  // t; lane (p, quarter) copies the chunks of row p that it reads itself
+  // stage st <- K and V rows (and scales, the ring's meta) of this warp's
+  // positions of tile t; lane (p, quarter) copies the chunks of row p that
+  // it reads itself (window mode: only where it is live). The modes'
+  // positions are written out in each branch: as lambdas shared with the
+  // products below they changed the plain decode's SASS
   auto issue = [&](int t, int st) {
-    const int pos = p0 + t * PT + warp * WR + p;
-    const bool ok = pos < p1;
+    int pos;
+    bool ok;
+    if constexpr (MODE == kModeWindow) {
+      pos = wt.pos0(t) + warp * WR + p;
+      ok = wt.live(pos, len, sinks);
+    } else {
+      pos = p0 + t * PT + warp * WR + p;
+      ok = pos < p1;
+    }
     int64_t row = 0;
+    int pid = 0;
     if (ok) {
-      const int pid = min(max(tab[pos / page], 0), P - 1);
+      pid = min(max(tab[pos / page], 0), P - 1);
       row = (head_page0 + pid) * page + pos % page;
     }
     const uint32_t kd = ring_s + st * L::kStage + p * L::kRow;
@@ -175,6 +262,12 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
         const uint32_t sd = ring_s + st * L::kStage + 2 * WR * L::kRow +
                             (quarter * WR + p) * 4;
         cp_async4_zfill(sd, (quarter == 0 ? kscale : vscale) + row, ok);
+      }
+    }
+    if constexpr (MODE == kModeRing) {
+      if (quarter == 2) {
+        cp_async4_zfill(ring_s + st * L::kStage + L::kMeta + p * 4,
+                        meta + (int64_t)pid * page + pos % page, ok);
       }
     }
   };
@@ -220,7 +313,19 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
           for (int e = 0; e < EPC; ++e)
             s[g] = fmaf(qs[g * D + j * EPC + e], kx[e], s[g]);
     }
-    const bool valid = p0 + t * PT + warp * WR + p < p1;
+    bool valid;
+    if constexpr (MODE == kModeWindow) {
+      valid = wt.live(wt.pos0(t) + warp * WR + p, len, sinks);
+    } else {
+      valid = p0 + t * PT + warp * WR + p < p1;
+    }
+    if constexpr (MODE == kModeRing) {
+      // the slot's absolute position: written (>= 0), in this row's
+      // context and, with a window, in it or among the sinks
+      const int at = reinterpret_cast<const int*>(stage + L::kMeta)[p];
+      valid = valid && at >= 0 && at < len &&
+              (window <= 0 || at < sinks || at >= len - window);
+    }
     float ksc = 1.f, vsc = 1.f;
     if constexpr (QUANT) {
       const float* sc =
@@ -342,25 +447,104 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
   }
 }
 
+// the plain decode: every position below the length
 template <typename T, typename TK, int D>
+__global__ void __launch_bounds__(PNT)
+paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
+                    const TK* __restrict__ vpool,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths, T* __restrict__ o,
+                    float* __restrict__ part, int H, int Hkv, int G,
+                    int layer, int P, int page, int max_pages,
+                    float scale_log2, int splits) {
+  paged_decode_body<kModeFull, T, TK, D>(
+      q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
+      layer, P, page, max_pages, scale_log2, splits, 0, 0, nullptr);
+}
+
+// window + sinks: positions < sinks and >= len - window (window > 0)
+template <typename T, typename TK, int D>
+__global__ void __launch_bounds__(PNT)
+paged_window_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
+                    const TK* __restrict__ vpool,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths, T* __restrict__ o,
+                    float* __restrict__ part, int H, int Hkv, int G,
+                    int layer, int P, int page, int max_pages,
+                    float scale_log2, int splits, int window, int sinks) {
+  paged_decode_body<kModeWindow, T, TK, D>(
+      q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
+      layer, P, page, max_pages, scale_log2, splits, window, sinks, nullptr);
+}
+
+// the ring: each slot's absolute position in meta (P, page)
+template <typename T, typename TK, int D>
+__global__ void __launch_bounds__(PNT)
+paged_ring_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
+                  const TK* __restrict__ vpool,
+                  const float* __restrict__ kscale,
+                  const float* __restrict__ vscale,
+                  const int* __restrict__ table,
+                  const int* __restrict__ lengths, T* __restrict__ o,
+                  float* __restrict__ part, int H, int Hkv, int G, int layer,
+                  int P, int page, int max_pages, float scale_log2,
+                  int splits, int window, int sinks,
+                  const int* __restrict__ meta) {
+  paged_decode_body<kModeRing, T, TK, D>(
+      q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
+      layer, P, page, max_pages, scale_log2, splits, window, sinks, meta);
+}
+
+template <int MODE, typename T, typename TK, int D>
+const void* p1_kernel() {
+  if constexpr (MODE == kModeFull) {
+    return (const void*)paged_decode_kernel<T, TK, D>;
+  } else if constexpr (MODE == kModeWindow) {
+    return (const void*)paged_window_kernel<T, TK, D>;
+  } else {
+    return (const void*)paged_ring_kernel<T, TK, D>;
+  }
+}
+
+template <int MODE, typename T, typename TK, int D>
 cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          const float* ks, const float* vsc, const void* table,
-                         const void* lengths, void* o, void* part, int B,
-                         int H, int Hkv, int layer, int P, int page,
-                         int max_pages, float scale_log2, cudaStream_t stream) {
-  constexpr int smem = P1Smem<TK, D>::kBytes;
+                         const void* lengths, const int* meta, void* o,
+                         void* part, int B, int H, int Hkv, int layer, int P,
+                         int page, int max_pages, int window, int sinks,
+                         float scale_log2, cudaStream_t stream) {
+  constexpr int smem = P1Smem<TK, D, MODE>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<T, TK, D>,
+      p1_kernel<MODE, T, TK, D>(),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const int splits = p1_splits(B, Hkv, page, max_pages, smem);
+  const int splits = p1_splits(
+      B, Hkv, p1_walk_tiles(MODE, page, max_pages, window, sinks), smem);
   if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
-  paged_decode_kernel<T, TK, D><<<dim3(splits, Hkv, B), PNT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const TK*>(kp),
-      static_cast<const TK*>(vp), ks, vsc, static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(o),
-      static_cast<float*>(part), H, Hkv, H / Hkv, layer, P, page, max_pages,
-      scale_log2, splits);
+  const dim3 grid(splits, Hkv, B);
+  const T* qt = static_cast<const T*>(q);
+  const TK *kt = static_cast<const TK*>(kp), *vt = static_cast<const TK*>(vp);
+  const int* tab = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  T* ot = static_cast<T*>(o);
+  float* pt = static_cast<float*>(part);
+  if constexpr (MODE == kModeFull) {
+    paged_decode_kernel<T, TK, D><<<grid, PNT, smem, stream>>>(
+        qt, kt, vt, ks, vsc, tab, len, ot, pt, H, Hkv, H / Hkv, layer, P,
+        page, max_pages, scale_log2, splits);
+  } else if constexpr (MODE == kModeWindow) {
+    paged_window_kernel<T, TK, D><<<grid, PNT, smem, stream>>>(
+        qt, kt, vt, ks, vsc, tab, len, ot, pt, H, Hkv, H / Hkv, layer, P,
+        page, max_pages, scale_log2, splits, window, sinks);
+  } else {
+    paged_ring_kernel<T, TK, D><<<grid, PNT, smem, stream>>>(
+        qt, kt, vt, ks, vsc, tab, len, ot, pt, H, Hkv, H / Hkv, layer, P,
+        page, max_pages, scale_log2, splits, window, sinks, meta);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   paged_combine_kernel<T, D><<<dim3(B * Hkv, H / Hkv), D / 4, 0, stream>>>(
@@ -368,10 +552,12 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-// dynamic shared memory of the instance for (dtype, kv_dtype, D), or -1
-inline int p1_smem(int dtype, int kv_dtype, int D) {
+// dynamic shared memory of the instance for (dtype, kv_dtype, D, mode), or
+// -1
+template <int MODE>
+int p1_smem(int dtype, int kv_dtype, int D) {
   const bool quant = kv_dtype == kI8;
-#define CUBECL_P1_SMEM(TK, HD) P1Smem<TK, HD>::kBytes
+#define CUBECL_P1_SMEM(TK, HD) P1Smem<TK, HD, MODE>::kBytes
   if (D == 64)
     return quant ? CUBECL_P1_SMEM(int8_t, 64)
                  : dtype == kF32 ? CUBECL_P1_SMEM(float, 64)
@@ -384,36 +570,52 @@ inline int p1_smem(int dtype, int kv_dtype, int D) {
   return -1;
 }
 
+// the mode of a call: the ring where meta is given, else window + sinks
+// where window > 0 (sinks alone change nothing), else the plain decode
+inline int p1_mode(int window, bool ring) {
+  return ring ? kModeRing : window > 0 ? kModeWindow : kModeFull;
+}
+
 }  // namespace
 }  // namespace cubecl
 
 // q (B, H, D); k_pages/v_pages (L, Hkv, P, page, D); table (B, max_pages)
 // int32; lengths (B,) int32; o (B, H, D). Contiguous; q and o of `dtype`
 // (f32 or bf16), the pools of `kv_dtype`: the same dtype, or int8 with f32
-// scale pools k_scales/v_scales (L, Hkv, P, page) (null otherwise). part:
-// the splits' partial sums where the positions are split,
+// scale pools k_scales/v_scales (L, Hkv, P, page) (null otherwise). window
+// > 0: attend only positions < sinks and >= lengths[b] - window (sinks are
+// read only then). pos_meta (P, page) int32, or null: the ring, each
+// slot's absolute position (-1: never written), masked by the window too.
+// part: the splits' partial sums where the positions are split,
 // cubecl_paged_decode_plan's plan[6] floats (null where that is 0).
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
 // for a dtype / head_dim / group size this kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const float* k_scales,
                                    const float* v_scales, const void* table,
-                                   const void* lengths, void* o, void* part,
-                                   int dtype, int kv_dtype, int B, int H,
-                                   int Hkv, int D, int layer, int P, int page,
-                                   int max_pages, float scale_log2,
+                                   const void* lengths, const int* pos_meta,
+                                   void* o, void* part, int dtype,
+                                   int kv_dtype, int B, int H, int Hkv, int D,
+                                   int layer, int P, int page, int max_pages,
+                                   int window, int sinks, float scale_log2,
                                    void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG) return cudaErrorInvalidValue;
+  if (window < 0 || sinks < 0) return cudaErrorInvalidValue;
   const bool quant = kv_dtype == kI8;
   if (quant != (k_scales != nullptr && v_scales != nullptr))
     return cudaErrorInvalidValue;
   if (!quant && kv_dtype != dtype) return cudaErrorInvalidValue;
-#define CUBECL_PAGED(T, TK, HD)                                              \
-  launch_paged<T, TK, HD>(q, k_pages, v_pages, k_scales, v_scales, table,    \
-                          lengths, o, part, B, H, Hkv, layer, P, page,       \
-                          max_pages, scale_log2, st)
+  const int mode = p1_mode(window, pos_meta != nullptr);
+#define CUBECL_PAGED_MODE(M, T, TK, HD)                                      \
+  launch_paged<M, T, TK, HD>(q, k_pages, v_pages, k_scales, v_scales, table, \
+                             lengths, pos_meta, o, part, B, H, Hkv, layer, P, \
+                             page, max_pages, window, sinks, scale_log2, st)
+#define CUBECL_PAGED(T, TK, HD)                                   \
+  (mode == kModeFull     ? CUBECL_PAGED_MODE(kModeFull, T, TK, HD)         \
+   : mode == kModeWindow ? CUBECL_PAGED_MODE(kModeWindow, T, TK, HD)       \
+                     : CUBECL_PAGED_MODE(kModeRing, T, TK, HD))
   if (dtype == kF32) {
     if (D == 64) return quant ? CUBECL_PAGED(float, int8_t, 64)
                               : CUBECL_PAGED(float, float, 64);
@@ -428,25 +630,34 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                    : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 128);
   }
 #undef CUBECL_PAGED
+#undef CUBECL_PAGED_MODE
   return cudaErrorInvalidValue;
 }
 
-// P1's launch plan for q of `dtype`, pools of `kv_dtype` and the shapes:
-// plan[0..6] = threads a block, dynamic shared memory bytes, the grid (x:
-// the splits of a (batch row, kv head), y: Hkv, z: B), the splits, the
-// floats of `part` (0 without a split). Returns 0, or
-// cudaErrorInvalidValue for what cubecl_paged_decode refuses.
+// P1's launch plan for q of `dtype`, pools of `kv_dtype`, the shapes and
+// the options (window, sinks, ring: a pos_meta given): plan[0..7] =
+// threads a block, dynamic shared memory bytes, the grid (x: the splits of
+// a (batch row, kv head), y: Hkv, z: B), the splits, the floats of `part`
+// (0 without a split), the mode (0 plain, 1 window + sinks, 2 ring).
+// Returns 0, or cudaErrorInvalidValue for what cubecl_paged_decode
+// refuses.
 extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
                                         int Hkv, int D, int page,
-                                        int max_pages, int* plan) {
+                                        int max_pages, int window, int sinks,
+                                        int ring, int* plan) {
   using namespace cubecl;
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || B <= 0 ||
       (dtype != kF32 && dtype != kBF16) ||
-      (kv_dtype != kI8 && kv_dtype != dtype))
+      (kv_dtype != kI8 && kv_dtype != dtype) || window < 0 || sinks < 0)
     return cudaErrorInvalidValue;
-  const int smem = p1_smem(dtype, kv_dtype, D);
+  const int mode = p1_mode(window, ring != 0);
+  const int smem =
+      mode == kModeFull     ? p1_smem<kModeFull>(dtype, kv_dtype, D)
+      : mode == kModeWindow ? p1_smem<kModeWindow>(dtype, kv_dtype, D)
+                            : p1_smem<kModeRing>(dtype, kv_dtype, D);
   if (smem < 0) return cudaErrorInvalidValue;
-  const int splits = p1_splits(B, Hkv, page, max_pages, smem);
+  const int splits = p1_splits(
+      B, Hkv, p1_walk_tiles(mode, page, max_pages, window, sinks), smem);
   plan[0] = PNT;
   plan[1] = smem;
   plan[2] = splits;
@@ -454,5 +665,6 @@ extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
   plan[4] = B;
   plan[5] = splits;
   plan[6] = splits > 1 ? B * Hkv * splits * (H / Hkv) * (D + 2) : 0;
+  plan[7] = mode;
   return 0;
 }

@@ -8,6 +8,11 @@ KV cache (model dtype or int8 with per-(token, head) scales);
 ``decode_chunk``, ``prefill_chunked`` (also the suffix of a prefix-cache
 hit), ``speculative_generate`` and ``beam_generate`` (pages from
 ``runtime.pages.PageAllocator``, ``fork_seq``) serve it in chunks;
+StreamingLLM serving (``attn_window``, ``attn_sinks``): each decode step
+attends the first ``attn_sinks`` positions and the last ``attn_window``
+(prefill and chunks attend everything, as in the JAX package), and with
+``ring_cache`` the cache is a ring of fixed capacity whose slots carry
+their absolute positions (``KVCache.pos_meta``), decoded token by token;
 ``loss_fn`` / ``make_train_step`` train it (``cfg.remat`` recomputes each
 layer in the backward through ``torch.utils.checkpoint``). With
 ``n_experts > 0`` every FFN is a mixture of experts (:func:`_ffn`): the
@@ -68,9 +73,8 @@ from ..ops.paged_attention import (
 
 @dataclasses.dataclass
 class LlamaConfig:
-    """Same fields and defaults as ``cubecl_tpu.models.llama.LlamaConfig``.
-    Options this port does not run yet raise ``NotImplementedError`` when a
-    model is built (see :func:`check_supported`)."""
+    """Same fields and defaults as ``cubecl_tpu.models.llama.LlamaConfig``
+    (:func:`check_supported` refuses the values it does not know)."""
     vocab: int = 256
     d_model: int = 128
     n_heads: int = 4
@@ -105,16 +109,7 @@ class LlamaConfig:
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for every option of the JAX config this port does not run,
-    naming the ROADMAP item that brings it."""
-    todo = [
-        (cfg.attn_window > 0 or cfg.attn_sinks > 0 or cfg.ring_cache,
-         "windowed / ring KV decode (attn_window, attn_sinks, ring_cache) "
-         "is ROADMAP Queue 1 item 8"),
-    ]
-    for unsupported, why in todo:
-        if unsupported:
-            raise NotImplementedError(why)
+    """Raise for a kv_dtype or dtype the port does not know."""
     if cfg.kv_dtype not in ("", "int8"):
         raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
     cfg.torch_dtype  # noqa: B018 -- raises for other dtypes
@@ -409,8 +404,11 @@ class KVCache:
     """Stacked paged KV cache. k, v: (L, Hkv, P, page, hd) in the model
     dtype, or int8 with f32 ``k_scales`` / ``v_scales`` (L, Hkv, P, page),
     one per (token, head); page_indices: (B, max_pages) int32 block table;
-    lengths: (B,) int32 tokens cached. The serving functions update the
-    pools in place; a caller driving the table from a
+    lengths: (B,) int32 tokens cached. A ring cache (``attn_window`` and
+    ``ring_cache``) also has ``pos_meta`` (P, page) int32: each slot's
+    absolute position, -1 where nothing was written, shared by every
+    layer and kv head. The serving functions update the pools in place; a
+    caller driving the table from a
     :class:`~cubecl_tpu_torch.runtime.pages.PageAllocator` assigns
     ``page_indices`` and ``lengths`` between steps."""
     k: torch.Tensor
@@ -420,6 +418,7 @@ class KVCache:
     page_size: int
     k_scales: Optional[torch.Tensor] = None
     v_scales: Optional[torch.Tensor] = None
+    pos_meta: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_pages: int,
@@ -429,7 +428,18 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_pages: int,
     ``"int8"``, else of ``cfg.dtype``). By default row b owns the
     preassigned pages ``b * max_pages .. (b + 1) * max_pages - 1``. With
     ``num_pages`` the pool holds that many pages and every row starts
-    parked at page 0 with length 0, for a ``PageAllocator`` to drive."""
+    parked at page 0 with length 0, for a ``PageAllocator`` to drive.
+    With ``attn_window`` and ``ring_cache`` the cache is a ring (its
+    ``pos_meta`` all -1): sinks a multiple of ``page`` and a capacity of
+    at least sinks + window + page, or ``ValueError``."""
+    ring = bool(cfg.attn_window and cfg.ring_cache)
+    if ring and cfg.attn_sinks % page:
+        raise ValueError(f"a ring's sinks must fill whole pages: "
+                         f"attn_sinks {cfg.attn_sinks}, page {page}")
+    if ring and max_pages * page < cfg.attn_sinks + cfg.attn_window + page:
+        raise ValueError(f"a ring of {max_pages} pages of {page} does not "
+                         f"cover sinks {cfg.attn_sinks} + window "
+                         f"{cfg.attn_window} + one page")
     kind = cfg.kv_dtype or cfg.dtype
     quant = kind == "int8"
     dt = torch.int8 if quant else getattr(torch, kind)
@@ -450,6 +460,9 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_pages: int,
     if quant:
         cache.k_scales = torch.ones(shape[:4], device=device)
         cache.v_scales = torch.ones(shape[:4], device=device)
+    if ring:
+        cache.pos_meta = torch.full((P, page), -1, dtype=torch.int32,
+                                    device=device)
     return cache
 
 
@@ -496,6 +509,14 @@ def _scales(cache: KVCache):
     return dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
 
 
+def _no_ring(cache: KVCache, what: str):
+    """A ring's slots recycle, so only ``decode_step`` writes it: a chunk
+    of tokens would write past the ring (the JAX chunked paths do)."""
+    if cache.pos_meta is not None:
+        raise ValueError(f"{what} does not take a ring cache: a ring "
+                         f"decodes token by token (decode_step)")
+
+
 def _check_capacity(cache: KVCache, end: int, what: str):
     cap = cache.page_indices.shape[1] * cache.page_size
     if end > cap:
@@ -513,6 +534,7 @@ def prefill(model: Llama, cache: KVCache, tokens, *, kernels: bool = True):
     cfg = model.cfg
     B, S = tokens.shape
     page = cache.page_size
+    _no_ring(cache, "prefill")
     _check_capacity(cache, S, f"a prompt of {S} tokens")
     pos = torch.arange(S, device=tokens.device)
     pid = cache.page_indices[:B, pos // page].long()          # (B, S)
@@ -536,19 +558,32 @@ def prefill(model: Llama, cache: KVCache, tokens, *, kernels: bool = True):
 def decode_step(model: Llama, cache: KVCache, tokens, *,
                 kernels: bool = True, lora=None):
     """One token per row, tokens (B,): writes its K/V at position
-    ``lengths[b]``, attends positions ``< lengths[b] + 1`` and advances the
-    lengths. Returns (logits (B, vocab), cache)."""
+    ``lengths[b]``, attends positions ``< lengths[b] + 1`` (with
+    ``attn_window``, only the sinks and the window of them) and advances
+    the lengths. A ring cache writes position t at the ring slot
+    ``t`` below the sinks, else ``sinks + (t - sinks) % (capacity -
+    sinks)``, and records t in ``pos_meta``. Returns (logits (B, vocab),
+    cache)."""
     _no_lora(lora)
     cfg = model.cfg
     B = tokens.shape[0]
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     page = cache.page_size
     pos = cache.lengths
+    wpos = pos
+    if cache.pos_meta is not None:
+        st = cfg.attn_sinks
+        ring = cache.page_indices.shape[1] * page - st
+        wpos = torch.where(pos < st, pos, st + (pos - st) % ring)
     rows = torch.arange(B, device=tokens.device)
-    pid = cache.page_indices[rows, (pos // page).long()].long()
-    slot = (pos % page).long()
+    pid = cache.page_indices[rows, (wpos // page).long()].long()
+    slot = (wpos % page).long()
+    if cache.pos_meta is not None:   # once a step, for every layer
+        cache.pos_meta[pid, slot] = pos
     attend_len = pos + 1
     attend = paged_attention if kernels else paged_attention_plain
+    opts = dict(window=cfg.attn_window, sinks=cfg.attn_sinks,
+                pos_meta=cache.pos_meta)
     cos, sin = (t[:, None, :] for t in _rope_tables(pos, cfg))
     x = model.embed[tokens]
     for li, layer in enumerate(model.layers):
@@ -558,7 +593,7 @@ def decode_step(model: Llama, cache: KVCache, tokens, *,
         v = (h @ layer.wv).view(B, nkv, hd)
         _cache_write(cache, li, pid, slot, k, v)
         o = attend(q, cache.k, cache.v, cache.page_indices, attend_len,
-                   layer=li, **_scales(cache))
+                   layer=li, **_scales(cache), **opts)
         x = x + o.reshape(B, nh * hd) @ layer.wo
         x = x + _ffn(_rmsnorm(x, layer.rms2, cfg, kernels), layer, cfg,
                      kernels)
@@ -584,6 +619,7 @@ def decode_chunk(model: Llama, cache: KVCache, tokens, *,
     B, C = tokens.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     page = cache.page_size
+    _no_ring(cache, "decode_chunk")
     starts = cache.lengths
     pos = starts.view(B, 1) + torch.arange(C, device=tokens.device)
     pid = cache.page_indices.gather(1, (pos // page).long()).long()
@@ -617,6 +653,7 @@ def prefill_chunked(model: Llama, cache: KVCache, tokens, chunk: int = 256,
     after ``PageAllocator.admit_cached``). Attention memory is O(chunk · S)
     instead of O(S²), and each piece can share a batch with decode
     traffic. Returns (last-position logits (B, vocab), cache)."""
+    _no_ring(cache, "prefill_chunked")
     _check_capacity(cache, int(cache.lengths.max()) + tokens.shape[1],
                     f"a prompt of {tokens.shape[1]} tokens")
     logits = None
@@ -639,6 +676,10 @@ def speculative_generate(model: Llama, prompt, steps: int, draft: Llama,
     tokens, mean accepted proposals per round)."""
     B, S = prompt.shape
     dev = prompt.device
+    for m in (model, draft):
+        if m.cfg.attn_window and m.cfg.ring_cache:
+            raise ValueError("speculative_generate does not take a ring "
+                             "cache: its verify step writes a chunk")
     tc = init_kv_cache(model.cfg, B, max_pages, page, dev)
     dc = init_kv_cache(draft.cfg, B, max_pages, page, dev)
     t_logits, tc = prefill(model, tc, prompt, kernels=kernels)
@@ -800,8 +841,9 @@ def sample_logits(logits, generator: Optional[torch.Generator] = None,
 def generate(model: Llama, prompt, steps: int, max_pages: int = 4,
              page: int = 128, *, kernels: bool = True):
     """Greedy decode: one batched ``prefill`` of the prompt (B, S), then
-    ``steps`` decode steps. Returns the generated tokens (B, steps) int32,
-    the first of them from the prefill's logits."""
+    ``steps`` decode steps (windowed where ``attn_window`` says so; a ring
+    cache is refused by the prefill). Returns the generated tokens (B,
+    steps) int32, the first of them from the prefill's logits."""
     B, S = prompt.shape
     if S + steps > max_pages * page:
         raise ValueError(f"{S} prompt + {steps} new tokens exceed "

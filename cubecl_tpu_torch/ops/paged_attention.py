@@ -10,8 +10,17 @@ package's scale gather wraps -1 to the last page instead).
 
 ``paged_attention`` attends one query per head, q (B, H, D), to positions
 ``< lengths[b]`` of layer ``layer`` and returns (B, H, D) in q's dtype; a
-row of length 0 gets zeros. ``paged_attention_chunked`` attends C queries
-per row, q (B, H, C, D): query token i of row b sits at position
+row with no position to attend gets zeros. Its two StreamingLLM options, as
+the JAX P1's: ``window > 0`` attends only the positions ``< sinks`` and
+``>= lengths[b] - window`` (``sinks`` is read only then); ``pos_meta``
+(P, page) int32, shared by every layer and kv head, makes the table a ring
+whose slot ``(page_indices[b, i], j)`` holds absolute position
+``pos_meta[page_indices[b, i], j]`` (-1 where nothing was written): a
+position is live where that value is in ``[0, lengths[b])`` (and in the
+window). A ring writes position t at table order ``<= t``, so only the
+table-order slots ``< lengths[b]`` are read. ``paged_attention_chunked``
+attends C queries per row, q (B, H, C, D): query token i of row b sits at
+position
 ``starts[b] + i`` and attends the positions ``t <= starts[b] + i`` with
 ``t < lengths[b]`` (``lengths`` counts the chunk, whose K/V are already in
 the pages); a row with no live position gets zeros.
@@ -30,8 +39,9 @@ in {64, 128}, and for decode at most 8 query heads per kv head; anything
 else raises. P1 splits the positions of each (batch row, kv head) over
 blocks where B * Hkv leaves the card idle, copies K and V through the
 table with cp.async into a ring per warp, and combines the splits in a
-second, small launch (:func:`p1_plan`). P3 runs bf16 q (bf16 or int8
-pools) on the tensor cores
+second, small launch (:func:`p1_plan`); with a window it walks only the
+tiles that hold a live position (:func:`p1_window_tiles`). P3 runs bf16 q
+(bf16 or int8 pools) on the tensor cores
 (``wgmma``, cp.async staging through the table; decode-shaped chunks split
 their positions over blocks and a second, small launch combines the
 splits: :func:`p3_plan`) and f32 q on the CUDA cores. The caller keeps
@@ -67,56 +77,92 @@ P1_SMS = 132
 P1_SM_SMEM = 233472  # shared memory of an SM (228 KB)
 
 
+# P1's modes (the kernel it launches): every position below the length,
+# window + sinks, the ring
+P1_FULL, P1_WINDOW, P1_RING = 0, 1, 2
+
+
 @dataclasses.dataclass(frozen=True)
 class P1Plan:
     """One call of P1: ``threads`` a block, dynamic shared memory
     ``smem_bytes``, the ``grid`` (splits, Hkv, B), the position
-    ``splits`` of a (batch row, kv head) and the f32 ``scratch`` (floats)
-    of the splits' partial sums: the arithmetic of
-    csrc/paged_attention.cu's ``cubecl_paged_decode_plan``."""
+    ``splits`` of a (batch row, kv head), the f32 ``scratch`` (floats)
+    of the splits' partial sums and the ``mode`` (P1_FULL, P1_WINDOW,
+    P1_RING): the arithmetic of csrc/paged_attention.cu's
+    ``cubecl_paged_decode_plan``."""
     threads: int
     smem_bytes: int
     grid: Tuple[int, int, int]
     splits: int
     scratch: int
+    mode: int = P1_FULL
 
 
 # cached: a decode step's host time is what its launches wait on
 @functools.lru_cache(maxsize=256)
 def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
-            max_pages: int) -> P1Plan:
-    """P1's launch plan for q of ``dtype`` and pools of ``kv_dtype``."""
+            max_pages: int, window: int = 0, sinks: int = 0,
+            ring: bool = False) -> P1Plan:
+    """P1's launch plan for q of ``dtype``, pools of ``kv_dtype`` and the
+    options of the call (``ring``: a ``pos_meta`` is given)."""
     if dtype not in KERNEL_DTYPES or kv_dtype not in (dtype, torch.int8) \
             or D not in (64, 128) or Hkv <= 0 or H % Hkv \
-            or H // Hkv > MAX_GROUP or B <= 0:
+            or H // Hkv > MAX_GROUP or B <= 0 or window < 0 or sinks < 0:
         raise ValueError(f"P1 takes q of {KERNEL_DTYPES}, pools of q's "
-                         f"dtype or int8, D 64 or 128 and at most "
-                         f"{MAX_GROUP} query heads a kv head; got {dtype}, "
-                         f"{kv_dtype}, D {D}, H {H}, Hkv {Hkv}")
+                         f"dtype or int8, D 64 or 128, at most "
+                         f"{MAX_GROUP} query heads a kv head and a window "
+                         f"and sinks >= 0; got {dtype}, {kv_dtype}, D {D}, "
+                         f"H {H}, Hkv {Hkv}, window {window}, sinks {sinks}")
+    # the ring where a pos_meta is given, else window + sinks where window
+    # > 0 (sinks alone change nothing), else the full walk
+    mode = P1_RING if ring else P1_WINDOW if window > 0 else P1_FULL
     warps = P1_THREADS // 32
     rows = P1_TILE // warps  # a warp's positions of a tile
     quant = kv_dtype == torch.int8
     stage = 2 * rows * D * (1 if quant else dtype.itemsize) + (
-        2 * rows * 4 if quant else 0)
-    ring = warps * P1_STAGES * stage
+        2 * rows * 4 if quant else 0) + (rows * 4 if mode == P1_RING else 0)
+    ring_bytes = warps * P1_STAGES * stage
     comb = warps * MAX_GROUP * (D + 2) * 4  # the warps' (acc, m, l)
-    smem = MAX_GROUP * D * 4 + max(ring, comb)
+    smem = MAX_GROUP * D * 4 + max(ring_bytes, comb)
     per_sm = 2 if P1_SM_SMEM // (smem + 1024) >= 2 else 1
-    tiles = max(1, -(-page * max_pages // P1_TILE))
+    cap = page * max_pages
+    tiles = max(1, -(-cap // P1_TILE))
+    if mode == P1_WINDOW:  # the sinks' tiles and a window's, at most
+        tiles = min(tiles, -(-min(sinks, cap) // P1_TILE)
+                    + (window - 1) // P1_TILE + 2)
     splits = max(1, min(P1_SMS * per_sm // (B * Hkv), tiles))
     scratch = B * H * splits * (D + 2) if splits > 1 else 0
-    return P1Plan(P1_THREADS, smem, (splits, Hkv, B), splits, scratch)
+    return P1Plan(P1_THREADS, smem, (splits, Hkv, B), splits, scratch, mode)
 
 
 def p1_split_positions(plan: P1Plan, length: int, split: int):
     """The positions [first, end) of split ``split`` of a row of
     ``length`` under ``plan``: the row's ceil(length / 64) tiles shared out
-    ceil(tiles / splits) a split, as the kernel cuts them on the device."""
+    ceil(tiles / splits) a split, as the kernel cuts them on the device
+    (the ring: ``length`` is min(lengths[b], the table's capacity), the
+    table-order slots written)."""
     length = max(length, 0)
     tiles = -(-length // P1_TILE)
     per = -(-tiles // plan.splits)
     p0 = min(length, split * per * P1_TILE)
     return p0, min(length, p0 + per * P1_TILE)
+
+
+def p1_window_tiles(plan: P1Plan, length: int, split: int, window: int,
+                    sinks: int):
+    """The tiles (first positions, in walk order) of split ``split`` of a
+    row of ``length`` under a window-mode ``plan``: the row's live tiles,
+    those of [0, min(sinks, length)) then those of [max(0, length -
+    window), length) (one run where they meet), shared out ceil(live /
+    splits) a split, as the kernel's ``WindowTiles`` cuts them."""
+    length = max(length, 0)
+    ta = -(-min(sinks, length) // P1_TILE)
+    tb = max(0, length - window) // P1_TILE
+    tl = -(-length // P1_TILE)
+    sink_tiles, window_tile = (0, 0) if tb <= ta else (ta, tb)
+    live = [*range(sink_tiles), *range(window_tile, tl)]
+    per = -(-len(live) // plan.splits)
+    return [t * P1_TILE for t in live[split * per:(split + 1) * per]]
 
 # P3's bodies (csrc/paged_chunked.cu), for p3_plan. bf16 q on wgmma: one
 # warpgroup a block owning 64 of the G*C rows, positions staged 64 a stage
@@ -278,13 +324,42 @@ def _gather(pages, scales, layer: int, page_indices):
     return x
 
 
+def _check_options(window, sinks, pos_meta, k_pages):
+    if window < 0 or sinks < 0:
+        raise ValueError(f"want window >= 0 and sinks >= 0; got {window}, "
+                         f"{sinks}")
+    if pos_meta is not None and (tuple(pos_meta.shape) != tuple(
+            k_pages.shape[2:4]) or pos_meta.dtype != torch.int32):
+        raise ValueError(f"want pos_meta (P, page) {tuple(k_pages.shape[2:4])}"
+                         f" int32; got {tuple(pos_meta.shape)} "
+                         f"{pos_meta.dtype}")
+
+
+def _live(page_indices, lengths, S, window, sinks, pos_meta):
+    """(B, S) bool: the table-order positions a row attends."""
+    t = torch.arange(S, device=lengths.device)
+    ln = lengths.long().view(-1, 1)
+    if pos_meta is None:
+        pos = t.expand(ln.shape[0], S)
+        live = pos < ln
+    else:   # the ring: absolute positions from the meta, slots < len read
+        idx = page_indices.long().clamp(0, pos_meta.shape[0] - 1)
+        pos = pos_meta[idx].reshape(ln.shape[0], S).long()
+        live = (pos >= 0) & (pos < ln) & (t < ln)
+    if window > 0:   # StreamingLLM: the sinks and the last `window`
+        live = live & ((pos < sinks) | (pos >= ln - window))
+    return live
+
+
 def paged_attention_plain(q, k_pages, v_pages, page_indices, lengths,
                           sm_scale: Optional[float] = None, layer: int = 0,
-                          k_scales=None, v_scales=None):
+                          k_scales=None, v_scales=None, window: int = 0,
+                          sinks: int = 0, pos_meta=None):
     """Gathers the table's pages into contiguous (dequantized) K/V and
     runs masked softmax attention in f32."""
     _check_shapes(q, k_pages, v_pages, page_indices, lengths, k_scales,
                   v_scales)
+    _check_options(window, sinks, pos_meta, k_pages)
     B, H, D = q.shape
     Hkv = k_pages.shape[1]
     G = H // Hkv
@@ -294,10 +369,11 @@ def paged_attention_plain(q, k_pages, v_pages, page_indices, lengths,
     S = k.shape[2]
     qg = q.reshape(B, Hkv, G, D).float()
     s = torch.matmul(qg, k.transpose(-1, -2)) * scale          # (B, Hkv, G, S)
-    live = torch.arange(S, device=q.device) < lengths.view(B, 1).long()
+    live = _live(page_indices, lengths, S, window, sinks, pos_meta)
     s = s.masked_fill(~live.view(B, 1, 1, S), float("-inf"))
     p = torch.softmax(s, dim=-1)
-    p = p.masked_fill((lengths <= 0).view(B, 1, 1, 1), 0.0)  # length 0: zeros
+    # a row with no live position: zeros
+    p = p.masked_fill(~live.any(-1).view(B, 1, 1, 1), 0.0)
     o = torch.matmul(p, v)
     return o.reshape(B, H, D).to(q.dtype)
 
@@ -364,7 +440,8 @@ def _ptr(t):
 
 def paged_attention(q, k_pages, v_pages, page_indices, lengths,
                     sm_scale: Optional[float] = None, layer: int = 0,
-                    k_scales=None, v_scales=None):
+                    k_scales=None, v_scales=None, window: int = 0,
+                    sinks: int = 0, pos_meta=None):
     """Paged decode attention; see the module docstring. P1 has no
     backward: under autograd this raises, on either device."""
     native.refuse_grad("paged_attention (P1)", "paged_attention_plain", q,
@@ -372,12 +449,17 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_indices,
                                      lengths, sm_scale, layer, k_scales,
-                                     v_scales)
+                                     v_scales, window, sinks, pos_meta)
     quant = _check_shapes(q, k_pages, v_pages, page_indices, lengths,
                           k_scales, v_scales)
+    _check_options(window, sinks, pos_meta, k_pages)
     scales = (k_scales, v_scales) if quant else ()
-    _check_kernel_inputs("paged_attention", q, k_pages, v_pages,
-                         (page_indices, lengths), scales, quant)
+    if pos_meta is not None:
+        pos_meta = pos_meta.contiguous()
+    ints = (page_indices, lengths) if pos_meta is None \
+        else (page_indices, lengths, pos_meta)
+    _check_kernel_inputs("paged_attention", q, k_pages, v_pages, ints,
+                         scales, quant)
     B, H, D = q.shape
     L, Hkv, P, page, _ = k_pages.shape
     if H // Hkv > MAX_GROUP:
@@ -393,7 +475,7 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
         return o
     lib = native.kernels()
     plan = p1_plan(q.dtype, k_pages.dtype, B, H, Hkv, D, page,
-                   page_indices.shape[1])
+                   page_indices.shape[1], window, sinks, pos_meta is not None)
     with torch.cuda.device(q.device):
         # the splits' partial sums, combined by the call's second launch
         part = torch.empty(plan.scratch, device=q.device) \
@@ -401,19 +483,26 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
         rc = lib.cubecl_paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scales), _ptr(v_scales), page_indices.data_ptr(),
-            lengths.data_ptr(), o.data_ptr(), _ptr(part),
+            lengths.data_ptr(), _ptr(pos_meta), o.data_ptr(), _ptr(part),
             native.DTYPE_CODES[q.dtype], native.DTYPE_CODES[k_pages.dtype],
-            B, H, Hkv, D, layer, P, page, page_indices.shape[1],
-            scale * LOG2E, torch.cuda.current_stream().cuda_stream)
+            B, H, Hkv, D, layer, P, page, page_indices.shape[1], window,
+            sinks, scale * LOG2E, torch.cuda.current_stream().cuda_stream)
     native.check(lib, rc, "paged_attention")
     paged_attention.launches += 1
     if quant:
         paged_attention.int8_launches += 1
+    if plan.mode == P1_WINDOW:
+        paged_attention.window_launches += 1
+    elif plan.mode == P1_RING:
+        paged_attention.ring_launches += 1
     return o
 
 
 paged_attention.launches = 0
-paged_attention.int8_launches = 0  # the launches on int8 pools among them
+# among them: the launches on int8 pools, with a window (no ring), on a ring
+paged_attention.int8_launches = 0
+paged_attention.window_launches = 0
+paged_attention.ring_launches = 0
 
 
 def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
@@ -467,17 +556,19 @@ paged_attention_chunked.launches = 0
 
 
 def p1_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int,
-                   page: int, max_pages: int) -> P1Plan:
+                   page: int, max_pages: int, window: int = 0,
+                   sinks: int = 0, ring: bool = False) -> P1Plan:
     """The built P1's launch plan (``cubecl_paged_decode_plan``): what
     :func:`p1_plan` must equal (builds the CUDA kernels on first use)."""
     lib = native.kernels()
-    plan = (ctypes.c_int * 7)()
+    plan = (ctypes.c_int * 8)()
     rc = lib.cubecl_paged_decode_plan(
         native.DTYPE_CODES[dtype], native.DTYPE_CODES[kv_dtype], B, H, Hkv,
-        D, page, max_pages, ctypes.cast(plan, ctypes.c_void_p))
+        D, page, max_pages, window, sinks, int(ring),
+        ctypes.cast(plan, ctypes.c_void_p))
     native.check(lib, rc, "paged_decode_plan")
     return P1Plan(plan[0], plan[1], (plan[2], plan[3], plan[4]), plan[5],
-                  plan[6])
+                  plan[6], plan[7])
 
 
 def p3_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int,

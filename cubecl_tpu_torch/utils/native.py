@@ -52,8 +52,8 @@ _SIGNATURES = {
                          _I, _F, _I, _VP],
     "cubecl_flash_bwd_dkv": [_VP] * 8 + [_I] * 7 + [_F, _F, _I, _VP],
     "cubecl_flash_bwd_dq": [_VP] * 7 + [_I] * 7 + [_F, _F, _I, _VP],
-    "cubecl_paged_decode": [_VP] * 9 + [_I] * 10 + [_F, _VP],
-    "cubecl_paged_decode_plan": [_I] * 8 + [_VP],
+    "cubecl_paged_decode": [_VP] * 10 + [_I] * 12 + [_F, _VP],
+    "cubecl_paged_decode_plan": [_I] * 11 + [_VP],
     "cubecl_paged_chunked": [_VP] * 10 + [_I] * 11 + [_F, _VP],
     "cubecl_paged_chunked_plan": [_I] * 9 + [_VP],
     "cubecl_matmul": [_VP] * 6 + [_I] * 10 + [_F, _VP],

@@ -529,7 +529,8 @@ def test_paged_every_launch_of_many_agrees(dev, case):
 def test_paged_kernel_plan_matches_the_kernel(dev):
     """The launch plans ops/paged_attention.py sizes P1's scratch with
     (p1_plan) are the built kernel's (csrc/paged_attention.cu's
-    cubecl_paged_decode_plan), per q dtype, pool dtype and shape."""
+    cubecl_paged_decode_plan), per q dtype, pool dtype, shape and options
+    (window, sinks, ring)."""
     from cubecl_tpu_torch.ops import paged_attention as pa
 
     for dt in (torch.float32, torch.bfloat16):
@@ -539,11 +540,197 @@ def test_paged_kernel_plan_matches_the_kernel(dev):
                     (16, 12, 4, 64, 128, 4), (1, 8, 1, 128, 16, 256),
                     (2, 16, 8, 128, 16, 256), (6, 6, 2, 128, 7, 21),
                     (40, 16, 8, 64, 16, 8), (300, 16, 8, 128, 128, 9),
-                    (3, 32, 4, 64, 1, 5)]:
-                assert pa.p1_kernel_plan(dt, kv, B, H, Hkv, D, page,
-                                         max_pages) \
-                    == pa.p1_plan(dt, kv, B, H, Hkv, D, page, max_pages), \
-                    (dt, kv, B, H, Hkv, D, page, max_pages)
+                    (3, 32, 4, 64, 1, 5), (8, 16, 8, 128, 128, 33),
+                    (8, 16, 8, 128, 16, 17)]:
+                for opts in [(0, 0, False), (2000, 4, False),
+                             (240, 16, False), (1, 0, False),
+                             (7, 130, False), (0, 9, False),
+                             (240, 16, True), (0, 0, True)]:
+                    args = (dt, kv, B, H, Hkv, D, page, max_pages, *opts)
+                    assert pa.p1_kernel_plan(*args) == pa.p1_plan(*args), \
+                        args
+
+
+# P1's StreamingLLM layouts: (B, Hkv, page, max_pages, lengths, window,
+# sinks). A row at context 4160 in 33 splits with its window starting
+# inside a tile (the streaming phase's, one row); pages of 16 with sinks
+# and a window that end and start inside tiles; 40 rows x 8 kv heads, one
+# split
+P1_WINDOWED = {
+    "B1-ctx4160-w2000-s4": (1, 2, 128, 33, [4160], 2000, 4),
+    "B3-page16-w100-s20": (3, 2, 16, 64, [1000, 37, 0], 100, 20),
+    "B40-one-split": (40, 8, 128, 4, [5 + 12 * b for b in range(40)], 256,
+                      4),
+}
+# P1's ring layouts: (B, Hkv, page, max_pages, lengths, window, sinks), the
+# streaming phase's ring (sinks 16, window 240, 17 pages of 16)
+P1_RINGS = {
+    "B1-many-splits": (1, 2, 16, 17, [1000], 240, 16),
+    "B4": (4, 2, 16, 17, [0, 100, 272, 999], 240, 16),
+    "B40-one-split": (40, 8, 16, 17, [7 * b for b in range(40)], 240, 16),
+}
+
+
+def _stream_pools(g, dev, dtype, quant, B, Hkv, G, D, page, max_pages):
+    L = 2
+    P = B * max_pages + 3
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(dtype)
+    if quant:
+        kp, vp, ks, vs = _int8_pools(g, dev, (L, Hkv, P, page, D))
+    else:
+        kp, vp = (torch.randn(L, Hkv, P, page, D, generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    return q, kp, vp, ks, vs, table.view(B, max_pages).to(torch.int32)
+
+
+def _ring_meta(table, lengths, page, sinks):
+    """pos_meta (P, page) of a ring that decoded each row token by token:
+    position t at table order t below the sinks, else at sinks + (t -
+    sinks) % (capacity - sinks); -1 where nothing came."""
+    tab = table.cpu().numpy()
+    cap = tab.shape[1] * page
+    meta = np.full((int(tab.max()) + 4, page), -1, np.int32)
+    for b, n in enumerate(lengths):
+        for t in range(n):
+            j = t if t < sinks else sinks + (t - sinks) % (cap - sinks)
+            meta[tab[b, j // page], j % page] = t
+    return meta
+
+
+@pytest.mark.parametrize("layout", list(P1_WINDOWED))
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_window_kernel_matches_plain(dev, D, dtype, quant, layout):
+    """P1 with window + sinks (paged_window_kernel) against its plain
+    version: its live tiles split over blocks (one split at 40 rows x 8
+    kv heads), windows and sinks that start and end inside tiles, a
+    length-0 row's zeros; one launch, counted among the windowed ones."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, page, max_pages, lengths, window, sinks = P1_WINDOWED[layout]
+    g = torch.Generator(device=dev).manual_seed(D + len(layout))
+    q, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, quant, B, Hkv,
+                                             2, D, page, max_pages)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    plan = pa.p1_plan(dtype, kp.dtype, B, Hkv * 2, Hkv, D, page, max_pages,
+                      window, sinks)
+    assert plan.mode == pa.P1_WINDOW
+    assert (plan.splits == 1) == (B == 40)
+    n = (paged_attention.launches, paged_attention.window_launches,
+         paged_attention.ring_launches)
+    kw = dict(layer=1, k_scales=ks, v_scales=vs, window=window, sinks=sinks)
+    got = paged_attention(q, kp, vp, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.window_launches,
+            paged_attention.ring_launches) == (n[0] + 1, n[1] + 1, n[2])
+    _close(got, paged_attention_plain(q, kp, vp, table, ln, **kw))
+    if 0 in lengths:
+        assert not got[lengths.index(0)].any()
+
+
+@pytest.mark.parametrize("layout", list(P1_RINGS))
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_ring_kernel_matches_plain(dev, D, dtype, quant, layout):
+    """P1 on a ring (paged_ring_kernel) against its plain version: slots
+    recycled past the capacity, slots never written (-1), a row whose meta
+    is all stale (zeros) and a length-0 row; one launch, counted among the
+    ring's."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, page, max_pages, lengths, window, sinks = P1_RINGS[layout]
+    g = torch.Generator(device=dev).manual_seed(D + 3 * len(layout))
+    q, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, quant, B, Hkv,
+                                             2, D, page, max_pages)
+    meta = _ring_meta(table, lengths, page, sinks)[:kp.shape[2]]
+    stale = lengths.index(max(lengths))
+    if B > 1:   # one row's every slot stale: below its window, past sinks
+        meta[table[stale].cpu().numpy()] = sinks
+    meta = torch.from_numpy(meta).to(dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    plan = pa.p1_plan(dtype, kp.dtype, B, Hkv * 2, Hkv, D, page, max_pages,
+                      window, sinks, True)
+    assert plan.mode == pa.P1_RING
+    assert (plan.splits == 1) == (B == 40)
+    n = (paged_attention.launches, paged_attention.window_launches,
+         paged_attention.ring_launches)
+    kw = dict(layer=1, k_scales=ks, v_scales=vs, window=window, sinks=sinks,
+              pos_meta=meta)
+    got = paged_attention(q, kp, vp, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.window_launches,
+            paged_attention.ring_launches) == (n[0] + 1, n[1], n[2] + 1)
+    want = paged_attention_plain(q, kp, vp, table, ln, **kw)
+    _close(got, want)
+    if B > 1:
+        assert not got[stale].any() and not want[stale].any()
+    if 0 in lengths:
+        assert not got[lengths.index(0)].any()
+
+
+# P1's plain-decode parameters as before the StreamingLLM kernels came
+# beside them (cu++filt names a template's parameter types T1, T2)
+P1_MODE0_PARAMS = ("(const T1 *, const T2 *, const T2 *, const float *, "
+                   "const float *, const int *, const int *, T1 *, float *, "
+                   "int, int, int, int, int, int, int, float, int)")
+
+
+def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
+    """The plain decode keeps its plan (the serving, KV-bound and d768
+    shapes' splits and scratch, mode 0) and its kernels: the library holds
+    paged_decode_kernel<T, TK, D> for the 8 (q, pools, D) instances with
+    their parameters unchanged, beside 8 paged_window_kernel and 8
+    paged_ring_kernel instances (cuobjdump, demangled by cu++filt)."""
+    import os
+    import re
+    import subprocess
+
+    from cubecl_tpu_torch.ops import paged_attention as pa
+    from cubecl_tpu_torch.utils import native
+
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    for args, splits, scratch in [
+            ((bf, bf, 8, 16, 8, 128, 128, 9), 4, 8 * 16 * 4 * 130),
+            ((bf, i8, 8, 16, 8, 128, 128, 9), 4, 8 * 16 * 4 * 130),
+            ((bf, bf, 16, 16, 8, 128, 128, 16), 2, 16 * 16 * 2 * 130),
+            ((f32, f32, 16, 12, 4, 64, 128, 4), 4, 16 * 12 * 4 * 66)]:
+        plan = pa.p1_kernel_plan(*args)
+        assert (plan.splits, plan.scratch, plan.mode) == (splits, scratch, 0)
+        assert plan == pa.p1_plan(*args)
+    path = native.build().path
+    bindir = os.path.dirname(native.find_nvcc())
+    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass", path],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    names = sorted(set(re.findall(
+        r"Function : (\S*paged_(?:decode|window|ring)_kernel\S*)", sass)))
+    demangled = subprocess.run([os.path.join(bindir, "cu++filt")],
+                               input="\n".join(names), capture_output=True,
+                               text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    by_kernel = {}
+    for d in demangled:   # spaces out; "float const*" as "const float*"
+        d = re.sub(r"(\w+)const\*", r"const\1*", re.sub(r"\s+", "", d))
+        k = re.search(r"(paged_(?:decode|window|ring)_kernel)<", d).group(1)
+        by_kernel.setdefault(k, []).append(d)
+    assert {k: len(v) for k, v in by_kernel.items()} == {
+        "paged_decode_kernel": 8, "paged_window_kernel": 8,
+        "paged_ring_kernel": 8}
+    params = re.sub(r"\s+", "", P1_MODE0_PARAMS)
+    for d in by_kernel["paged_decode_kernel"]:
+        assert d.endswith(">" + params), (d, params)
+    for T, TK in (("float", "float"), ("float", "signedchar"),
+                  ("__nv_bfloat16", "__nv_bfloat16"),
+                  ("__nv_bfloat16", "signedchar")):
+        for D in (64, 128):   # a non-type argument may print as (int)64
+            want = rf"paged_decode_kernel<{T},{TK},(\(int\))?{D}>\("
+            assert any(re.search(want, d)
+                       for d in by_kernel["paged_decode_kernel"]), \
+                (want, by_kernel["paged_decode_kernel"])
 
 
 @pytest.mark.parametrize("page", [16, 7, 48, 128])

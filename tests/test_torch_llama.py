@@ -139,10 +139,31 @@ def test_generate_plain_equals_kernel_route_on_cpu(prompt):
     dict(attn_window=16),
     dict(ring_cache=True), dict(attn_window=16, ring_cache=True)],
     ids=["option0", "option3", "option4", "option5", "option6"])
-def test_unsupported_options_raise(option):
-    cfg = llama.LlamaConfig(**{**CFG, **option})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llama.Llama(cfg)
+def test_streaming_options_match_jax(option):
+    """The StreamingLLM options serve: 36 decode steps from an empty cache
+    under each, every step's logits against the JAX package's (jitted).
+    Sinks alone and a ring without a window are the plain decode; the
+    window bites after 16 (20 with sinks) positions; the ring (3 pages of
+    8) recycles its slots after 24."""
+    cfg = {**CFG, **option}
+    jcfg = jllama.LlamaConfig(**cfg)
+    jparams = jllama.init_params(jcfg, seed=3)
+    model = llama.Llama(llama.LlamaConfig(**cfg), device="cpu")
+    model.load_state_dict(llama.params_from_jax(
+        jax.tree.map(np.asarray, jparams)))
+    pages = 3 if option.get("attn_window") and option.get("ring_cache") \
+        else 5
+    toks = np.random.default_rng(4).integers(0, CFG["vocab"], (B, 36),
+                                             dtype=np.int32)
+    jstep = jax.jit(lambda p, c, t: jllama.decode_step(p, c, t, jcfg))
+    jc = jllama.init_kv_cache(jcfg, B, pages, PAGE)
+    c = llama.init_kv_cache(model.cfg, B, pages, PAGE, "cpu")
+    assert (c.pos_meta is not None) == ("pos_meta" in jc)
+    for t in range(toks.shape[1]):
+        jl, jc = jstep(jparams, jc, jnp.asarray(toks[:, t]))
+        lg, c = llama.decode_step(model, c, torch.from_numpy(toks[:, t]))
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jl), atol=ATOL,
+                                   rtol=RTOL)
 
 
 @pytest.mark.parametrize("option", [dict(n_experts=4), dict(moe_capacity=8)],
