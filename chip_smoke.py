@@ -12,8 +12,8 @@ checks smaller f32 configs end to end against the plain versions.
     python3 chip_smoke.py          # from the repository root; one card
 
 Phases (lines before the last): 1 device, 2 build (failing unless every
-bf16 instance of the flash forward, dK/dV and dQ kernels, dense and
-block-sparse at D 64 and 128, C1's bf16 body, every 8-bit GEMM
+bf16 instance of the flash forward, dK/dV and dQ kernels, dense,
+block-sparse and masked at D 64 and 128, C1's bf16 body, every 8-bit GEMM
 instance and the K0 bf16/f16 cmma kernels issue wgmma: HGMMA in
 ``cuobjdump -sass``, IGMMA for the int8 GEMM; their registers and
 spills; P1's plain, window and ring kernels spilling nothing), 3 flash
@@ -128,7 +128,24 @@ window 240), 320 steps from an empty cache (5120 ring launches), its
 logits against the same tokens through an unbounded windowed cache, one
 ring call against plain; z3 the d768 f32 llama windowed and on a ring,
 kernels against the plain versions and the ring against the unbounded
-cache within LOGIT_TOL. Each kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
+cache within LOGIT_TOL. Then flash attention's options (A1/A3/A4 on the
+masked schedule of ``csrc/flash_tiles.cuh``, A8's window): za1
+Mistral-7B's sliding window (32/8 heads, D 128, window 4096) at B 1 x S
+8192 bf16 through ``flash_attention_local``, za2 packed documents (lengths
+256-2048 from the seed, 128 padding positions) at the 0.77B llama's
+attention widths, B 4 x S 8192 bf16, through
+``flash_attention_segmented``, za3 ``flash_attention_packed`` at D 32
+with a window (B 8 x H 16 x S 2048), ``flash_attention(kv_len=...)`` and
+every option through the f32 bodies: each forward and backward through
+autograd (one launch of each masked kernel, counted from 0), each kernel
+against plain (on a subset of heads where the plain scores of all would
+not fit), the bf16 cases timed beside the dense causal kernels, their
+bounds over the live pairs and SDPA with the element mask; the
+``examples/attention`` twin; za4 the llama at Phi-3-mini's widths (head
+dim 96 through ``flash_attention_padded``, 32 layers, bf16) trained at B
+4 x S 1024 and one step at S 1000, A1/A3/A4 launches checked, then f32
+exactness at full width with 2 layers (loss, grads, weights, prefill
+logits) against the plain route. Each kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. A K0
 kernel's time in phases a, e and q is its device time with a cold L2
 (``cold_ms``), printed beside a call's time back to back (host included),
@@ -316,7 +333,8 @@ def kernel_name(mangled):
     if k:
         return (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
                 f"{', int8 KV' if k.group(3) == 'a' else ''}, {k.group(4)}"
-                f"{', block-sparse' if 'Sparse' in mangled else ''}>")
+                f"{', block-sparse' if 'Sparse' in mangled else ''}"
+                f"{', masked' if 'Masked' in mangled else ''}>")
     return mangled
 
 
@@ -347,8 +365,8 @@ def flash_sass(sass, summary):
     """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
     library's SASS: (name, HGMMA count, registers, spill line) each. Fails
     unless every bf16 instance of each of the three kernels issues wgmma
-    (HGMMA) and they cover D 64 and 128 on the dense and the block-sparse
-    schedule."""
+    (HGMMA) and they cover D 64 and 128 on the dense, the block-sparse and
+    the masked (the options') schedule."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     rows, covered = [], {k: set() for k in kinds}
@@ -365,8 +383,11 @@ def flash_sass(sass, summary):
             if n == 0:
                 fail(f"phase 2: {name} issues no HGMMA (wgmma)")
             covered[kind].add((re.search(r", (\d+)", name).group(1),
-                               "block-sparse" in name))
-    want = {(d, sp) for d in ("64", "128") for sp in (False, True)}
+                               "block-sparse" if "block-sparse" in name
+                               else "masked" if "masked" in name
+                               else "dense"))
+    want = {(d, sp) for d in ("64", "128")
+            for sp in ("dense", "block-sparse", "masked")}
     for kind, got in covered.items():
         if got != want:
             fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
@@ -4500,6 +4521,437 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
     return out
 
 
+# -- phase za: flash attention's options (A1/A3/A4 masked, A8's window) ------
+
+# mistralai/Mistral-7B-v0.1 config.json: 32 query heads, 8 kv heads, head
+# dim 128 (hidden 4096), sliding_window 4096 (keys i - 4095 .. i)
+MISTRAL_ATTN = dict(B=1, H=32, Hkv=8, S=8192, D=128, left=4095,
+                    plain_heads=4)
+# packed documents at the 0.77B llama's attention widths (phase x's):
+# lengths uniform in [lo, hi] from the seed until S is full, the last
+# ``pad`` positions the padding id -1
+DOCS = dict(B=4, H=16, Hkv=8, S=8192, D=128, lo=256, hi=2048, pad=128,
+            plain_heads=2)
+# A8 at head dim 32 (padded to 64) with a window, and kv_len at one shape
+PACKED32 = dict(B=8, H=16, Hkv=16, S=2048, D=32, window=(256, 0))
+KV_LEN = dict(B=2, H=16, Hkv=8, S=2048, D=128, kv_len=1900)
+# the f32 bodies (CUDA cores) at smaller shapes: (name, B, H, Hkv, S, D,
+# causal, options)
+ZA_F32 = [("window f32", 1, 8, 2, 1024, 128, True, dict(window=(300, 0))),
+          ("band f32", 1, 8, 8, 1000, 64, False, dict(window=(100, 50))),
+          ("segments f32", 2, 4, 2, 1024, 64, True, "docs"),
+          ("kv_len f32", 2, 4, 4, 1000, 128, False, dict(kv_len=900)),
+          ("packed d32 f32", 2, 8, 8, 1024, 32, True, dict(window=(128, 0)))]
+# microsoft/Phi-3-mini-4k-instruct config.json: hidden_size 3072, 32
+# attention heads of 96, 32 kv heads, intermediate_size 8192, vocab_size
+# 32064, rope_theta 10000, 32 layers; trained at full depth in bf16
+PHI3 = dict(vocab=32064, d_model=3072, n_heads=32, n_kv_heads=32,
+            n_layers=32, d_ff=8192, rope_theta=10000.0)
+PHI3_TRAIN = dict(B=4, S=1024, steps=4, ragged_S=1000, exact_layers=2,
+                  exact_B=2)
+
+
+def doc_ids(rng, B, S, lo, hi, pad, dev):
+    """Segment ids of packed documents, (B, S) int32: lengths uniform in
+    [lo, hi] until S is full, the last ``pad`` positions -1."""
+    ids = np.empty((B, S), np.int32)
+    for b in range(B):
+        pos = doc = 0
+        while pos < S:
+            n = int(rng.integers(lo, hi + 1))
+            ids[b, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    ids[:, S - pad:] = -1
+    return torch.from_numpy(ids).to(dev)
+
+
+def option_bounds(pairs, B, H, Hkv, S, D, dtype):
+    """Bounds of the masked A1, A4 and A3 over ``pairs`` live (query, key)
+    pairs of one head summed over the batch: 2, 3 and 4 matrix products a
+    pair and head; bytes: q, k, v and o (with the f32 lse), q, k, v, do ->
+    dq (lse, di), q, k, v, do -> dk, dv (lse, di)."""
+    elem = torch.finfo(dtype).bits // 8
+    tq, tk, st = elem * B * H * S * D, elem * B * Hkv * S * D, 4 * B * H * S
+    return {"fwd": bound_ms(4 * D * pairs * H, 2 * tq + 2 * tk + st, dtype,
+                            True),
+            "dq": bound_ms(6 * D * pairs * H, 3 * tq + 2 * tk + 2 * st,
+                           dtype, True),
+            "dkv": bound_ms(8 * D * pairs * H, 2 * tq + 4 * tk + 2 * st,
+                            dtype, True)}
+
+
+def _masked_launches(fa):
+    return {"masked_forward": fa.masked_forward.launches,
+            "masked_dkv": fa.masked_dkv.launches,
+            "masked_dq": fa.masked_dq.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches}
+
+
+def _reset_masked(fa):
+    fa.masked_forward.launches = fa.masked_dkv.launches = 0
+    fa.masked_dq.launches = 0
+    fa.flash_attention.launches = fa.flash_bwd_dkv.launches = 0
+    fa.flash_bwd_dq.launches = 0
+
+
+def option_case(fa, dev, gen, card, name, fn, B, H, Hkv, S, D, dt, causal,
+                opts, plain_heads=None, timed=False):
+    """One case of the options: ``fn`` (a public function) forward and
+    backward through autograd, which must launch each masked kernel once
+    and no dense one (counted from 0); then each masked kernel on its own
+    (D below 64 padded to 64, as the wrapper pads) against its plain
+    version on the kernel's own o and lse, on the first ``plain_heads``
+    query heads and their kv heads where the plain (S, S) scores of all
+    would not fit; with ``timed`` each kernel's time, its bound over the
+    live pairs, the dense causal kernels' time at the same shape, the plain
+    versions' (on those heads) and SDPA's with the element mask as a bool
+    ``attn_mask``, forward and backward."""
+    q, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    mask = fa._Mask.of(q, k, **opts)
+    what = (f"{name}: {_dt(dt)} B{B} H{H}/{Hkv} S{S} D{D} "
+            f"{'causal' if causal else 'non-causal'}, options "
+            f"{ {k_: v_ for k_, v_ in opts.items() if k_ != 'seg'} }"
+            f"{' + segment ids' if 'seg' in opts else ''}")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    _reset_masked(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = _masked_launches(fa)
+    want = {"masked_forward": 1, "masked_dkv": 1, "masked_dq": 1,
+            "flash_attention": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    if launches != want:
+        fail(f"phase za {what}: kernel launches {launches}, want {want}")
+    scale = D ** -0.5
+    pad = (lambda t: t) if D >= 64 else \
+        (lambda t: torch.nn.functional.pad(t, (0, 64 - D)))
+    qp, kp, vp, dop = (pad(t) for t in (q, k, v, do))
+    o, lse = fa.masked_forward(qp, kp, vp, mask, causal, scale, True)
+    o = o[..., :D]
+    if not torch.equal(out.detach(), o):
+        fail(f"phase za {what}: the autograd forward is not the kernel's")
+    di = (do.float() * o.float()).sum(-1)
+    dq = fa.masked_dq(qp, kp, vp, dop, lse, di, mask, causal, scale)
+    dk, dv = fa.masked_dkv(qp, kp, vp, dop, lse, di, mask, causal, scale)
+    dq, dk, dv = (t[..., :D] for t in (dq, dk, dv))
+    if not all(torch.equal(t.grad, a) for t, a in zip(leaves, (dq, dk, dv))):
+        fail(f"phase za {what}: the autograd Function's grads are not the "
+             "kernels'")
+    hs = plain_heads or H
+    hk = hs * Hkv // H
+    sub = [t[:, :n] for t, n in ((q, hs), (k, hk), (v, hk))]
+    o_ref, lse_ref = fa.flash_attention_plain(*sub, causal, scale,
+                                              return_lse=True, **mask.plain())
+    err_o = compare(o[:, :hs], o_ref, f"phase za {what}: o")
+    err_lse = compare(lse[:, :hs], lse_ref, f"phase za {what}: lse",
+                      TOL[torch.float32])
+    del o_ref, lse_ref
+    exact, rounded = (fa.flash_attention_backward_plain(
+        *sub, o[:, :hs], lse[:, :hs], do[:, :hs], causal, scale,
+        round_p_ds=rnd, **mask.plain()) for rnd in (False, True))
+    torch.cuda.synchronize()
+    err_r, err, need = zip(*(compare_bwd(a, r, e, f"phase za {what}: d{n}")
+                             for n, a, r, e in zip(
+                                 "qkv", (dq[:, :hs], dk[:, :hk], dv[:, :hk]),
+                                 rounded, exact)))
+    del exact, rounded
+    torch.cuda.empty_cache()
+    live = fa._live_mask(q, k, causal, **mask.plain())
+    pairs = int(live.sum()) * (B if live.dim() == 2 else 1)
+    row = dict(max_abs_err=max(err_o, *err), o_err=err_o, lse_err=err_lse,
+               dq_err=err[0], dkv_err=max(err[1:]), dq_err_rounded=err_r[0],
+               dkv_err_rounded=max(err_r[1:]), atol_vs_exact=max(
+                   n_[0] for n_ in need), launches=launches, path_s=path_s,
+               live_pairs=pairs,
+               plain_heads=f"{hs} of {H} query heads, {hk} of {Hkv} kv heads")
+    msg = ""
+    if timed:
+        bounds = option_bounds(pairs, B, H, Hkv, S, D, dt)
+        dense_pairs = B * (S * (S + 1) // 2 if causal else S * S)
+        row.update(
+            fwd_ms=cuda_ms(lambda: fa.masked_forward(
+                qp, kp, vp, mask, causal, scale, True)),
+            dq_ms=cuda_ms(lambda: fa.masked_dq(qp, kp, vp, dop, lse, di,
+                                               mask, causal, scale)),
+            dkv_ms=cuda_ms(lambda: fa.masked_dkv(qp, kp, vp, dop, lse, di,
+                                                 mask, causal, scale)),
+            bounds={k_: dict(zip(("bound_ms", "bound_by"), b))
+                    for k_, b in bounds.items()})
+        o_d, lse_d = fa._flash_forward(qp, kp, vp, True, scale, True)
+        di_d = (do.float() * o_d[..., :D].float()).sum(-1)
+        row["dense_causal"] = dict(
+            live_pairs=dense_pairs,
+            fwd_ms=cuda_ms(lambda: fa._flash_forward(qp, kp, vp, True, scale,
+                                                     True)),
+            dq_ms=cuda_ms(lambda: fa.flash_bwd_dq(qp, kp, vp, dop, lse_d,
+                                                  di_d, True, scale)),
+            dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv(qp, kp, vp, dop, lse_d,
+                                                    di_d, True, scale)))
+        del o_d, lse_d, di_d
+        sub_o, sub_lse = o[:, :hs], lse[:, :hs]
+        row["plain_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            *sub, causal, scale, return_lse=True, **mask.plain()), iters=3,
+            warmup=1)
+        row["plain_bwd_ms"] = cuda_ms(
+            lambda: fa.flash_attention_backward_plain(
+                *sub, sub_o, sub_lse, do[:, :hs], causal, scale,
+                **mask.plain()), iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        # kv heads repeated outside the timed call: with a mask and
+        # enable_gqa SDPA takes its math route, which would not fit
+        el = live if live.dim() == 4 else live[None, None]
+        kr, vr = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
+        sdpa = lambda q_, k_, v_: TF.scaled_dot_product_attention(  # noqa
+            q_, k_, v_, attn_mask=el)
+        row["library_fwd_ms"] = cuda_ms(lambda: sdpa(q, kr, vr), iters=5)
+        row["library_bwd_ms"] = cuda_ms(grad_call(sdpa, (q, kr, vr), do),
+                                        iters=5)
+        del kr, vr
+        dn = row["dense_causal"]
+        msg = (f"; live pairs {pairs} ({pairs / dense_pairs:.3f} of dense "
+               f"causal's {dense_pairs}); masked A1 {row['fwd_ms']:.4f} ms "
+               f"(bound {bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}; dense "
+               f"causal {dn['fwd_ms']:.4f}), A4 {row['dq_ms']:.4f} ms (bound "
+               f"{bounds['dq'][0]:.4f}; dense {dn['dq_ms']:.4f}), A3 "
+               f"{row['dkv_ms']:.4f} ms (bound {bounds['dkv'][0]:.4f}; dense "
+               f"{dn['dkv_ms']:.4f}); plain on {row['plain_heads']}: "
+               f"forward {row['plain_fwd_ms']:.4f} ms, backward "
+               f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
+               f"forward {row['library_fwd_ms']:.4f} ms, backward "
+               f"{row['library_bwd_ms']:.4f} ms")
+    print(f"phase za {what}: launches {launches}, forward + backward "
+          f"{path_s:.4f} s; against plain on {row['plain_heads']}: max abs "
+          f"err o {err_o}, lse {err_lse}; dq, dk, dv against the plain "
+          f"backward that rounds p and dS as the kernels do {err_r[0]}, "
+          f"{err_r[1]}, {err_r[2]} (atol/rtol {TOL[dt]}), against the exact "
+          f"one {err[0]}, {err[1]}, {err[2]} (atol/rtol {EXACT_BWD_TOL[dt]};"
+          f" the atol each needs there, kernel and rounding plain: {need[0]},"
+          f" {need[1]}, {need[2]}){msg} [{card}]", flush=True)
+    del q, k, v, do, leaves, out, o, lse, dq, dk, dv, live, sub
+    torch.cuda.empty_cache()
+    return row
+
+
+def phi3_rmsnorm(llama, cu, cfg, dev, gen, card):
+    """K0's RMSNorm at Phi-3-mini's width (3072, which phases a-h never
+    run), forward and backward through ``_rmsnorm`` as the llama calls it,
+    against plain f32 autograd of the formula on the same inputs (bf16
+    TOL, as phase e)."""
+    shape = (PHI3_TRAIN["B"], PHI3_TRAIN["S"], cfg.d_model)
+    x, dy = (torch.randn(shape, generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    g = torch.randn(cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    n = cu.server.launches["_rmsnorm_bwd_k"]
+    leaves = [t.clone().requires_grad_() for t in (x, g)]
+    y = llama._rmsnorm(*leaves, cfg, True)
+    y.backward(dy)
+    refs = [t.float().requires_grad_() for t in (x, g)]
+    y_ref = refs[0] * torch.rsqrt(refs[0].square().mean(-1, keepdim=True)
+                                  + cfg.rms_eps) * refs[1]
+    y_ref.backward(dy.float())
+    torch.cuda.synchronize()
+    if cu.server.launches["_rmsnorm_bwd_k"] != n + 1:
+        fail("phase za K0 rmsnorm d3072: the backward kernel did not run")
+    errs = [compare(a, r.to(torch.bfloat16), f"phase za K0 rmsnorm d3072 {w}")
+            for w, a, r in (("y", y, y_ref), ("dx", leaves[0].grad,
+                                               refs[0].grad),
+                            ("dg", leaves[1].grad, refs[1].grad))]
+    print(f"phase za K0 rmsnorm at d3072 (bf16 {shape}), kernels against "
+          f"plain f32 autograd: max abs err y {errs[0]}, dx {errs[1]}, dg "
+          f"{errs[2]} (atol/rtol {TOL[torch.bfloat16]}) [{card}]",
+          flush=True)
+    return errs
+
+
+def phi3_train(llama, fa, cu, dev, gen, card):
+    """Phase za4: the repo's llama at Phi-3-mini's widths (head dim 96: the
+    padded route, D padded to 128 for the dense kernels), bf16 at full depth:
+    SGD steps at B 4 x S 1024 and two at a ragged S 1000, the launches of
+    every kernel of the path counted from 0 (A1, A3, A4 once a layer a step;
+    no masked kernel); then f32 exactness at full width with 2 layers, one
+    SGD step with the kernels against one with the plain versions (loss to
+    1e-5 relative, gradients and weights to 1e-4 of their max-abs, phase
+    g's bounds) and the prefill logits (LOGIT_TOL)."""
+    t = PHI3_TRAIN
+    cfg = llama.LlamaConfig(**PHI3, seq=t["S"], dtype="bfloat16",
+                            use_framework_kernels=True)
+    L, B, S, steps = cfg.n_layers, t["B"], t["S"], t["steps"]
+    k0_errs = phi3_rmsnorm(llama, cu, cfg, dev, gen, card)
+    model = llama.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = llama.make_train_step(cfg, TRAIN_LR)
+    rng = np.random.default_rng(23)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1),
+                                           dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k0 = ("_rmsnorm_fwd_k", "_rmsnorm_bwd_k")
+    _reset_masked(fa)
+    cu.server.reset_counts()
+    losses, secs = _train(step, model, tokens, steps)
+    ragged = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (B, t["ragged_S"] + 1),
+                                           dtype=np.int32)).to(dev)
+    # two steps at the ragged length: the first builds its K0 kernels
+    loss_r, sec_r = _train(step, model, ragged, 2)
+    torch.cuda.synchronize()
+    launches = dict(_masked_launches(fa),
+                    **{n: cu.server.launches[n] for n in k0})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = steps + 2
+    per = 2 * L + 1
+    want = {"masked_forward": 0, "masked_dkv": 0, "masked_dq": 0,
+            "flash_attention": L * n, "flash_bwd_dkv": L * n,
+            "flash_bwd_dq": L * n, "_rmsnorm_fwd_k": per * n,
+            "_rmsnorm_bwd_k": per * n}
+    if launches != want:
+        fail(f"phase za4 train Phi-3-mini widths: kernel launches "
+             f"{launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses + loss_r) \
+            or losses[-1] >= losses[0]:
+        fail(f"phase za4: losses {losses} (ragged {loss_r}) are not finite "
+             "and falling")
+    ms = 1e3 * statistics.median(secs[1:])
+    print(f"phase za4 train llama at Phi-3-mini's widths ({n_params / 1e9:.3f}"
+          f"B bf16: d{cfg.d_model}, {L} layers, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim} through "
+          f"flash_attention_padded, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"use_framework_kernels=True): B {B} x S {S}, SGD lr {TRAIN_LR}, "
+          f"{steps} steps on one batch: losses {losses}; {ms:.2f} ms/step "
+          f"warm (median of steps 2-{steps}; step 1 {1e3 * secs[0]:.2f} ms), "
+          f"{B * S / ms * 1e3:.0f} tok/s; two steps at ragged S "
+          f"{t['ragged_S']}: losses {loss_r}, {1e3 * sec_r[1]:.2f} ms the "
+          f"second (the first, with its K0 builds, {1e3 * sec_r[0]:.2f}); "
+          f"peak memory "
+          f"{peak:.2f} GiB; launches over the {n} steps {launches} [{card}]",
+          flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    # f32 exactness at full width, 2 layers, ragged S
+    ecfg = llama.LlamaConfig(**dict(PHI3, n_layers=t["exact_layers"]),
+                             seq=t["ragged_S"], use_framework_kernels=True)
+    etok = torch.from_numpy(rng.integers(0, ecfg.vocab,
+                                         (t["exact_B"], t["ragged_S"] + 1),
+                                         dtype=np.int32)).to(dev)
+    runs = []
+    for kernels in (True, False):
+        m = llama.init_params(ecfg, seed=1, device=dev)
+        c = llama.init_kv_cache(ecfg, t["exact_B"], 8, 128, dev)
+        logits, _ = llama.prefill(m, c, etok[:, :-1], kernels=kernels)
+        loss = llama.make_train_step(ecfg, 1e-3, kernels=kernels)(m, etok)
+        runs.append((loss.item(), dict(m.named_parameters()), logits))
+    (lk, pk, gk), (lp, pp, gp) = runs
+    if abs(lk - lp) > 1e-5 * abs(lp):
+        fail(f"phase za4 exactness: loss {lk} with kernels, {lp} plain")
+    worst = {"grad": 0.0, "weight": 0.0}
+    for name, p in pp.items():
+        for what, a, b in (("grad", pk[name].grad, p.grad),
+                           ("weight", pk[name], p)):
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            if rel > 1e-4:
+                fail(f"phase za4 exactness: {name} {what} differs by {rel} "
+                     "of its max-abs (> 1e-4)")
+            worst[what] = max(worst[what], rel)
+    err_l = (gk - gp).abs().max().item()
+    if not err_l <= LOGIT_TOL:
+        fail(f"phase za4 exactness: prefill logits differ by {err_l} > "
+             f"{LOGIT_TOL}")
+    print(f"phase za4 exactness at Phi-3-mini's widths, f32, "
+          f"{t['exact_layers']} layers, B {t['exact_B']} x S "
+          f"{t['ragged_S']}: one SGD step with the kernels and one with the "
+          f"plain versions: loss {lk} vs {lp} (rel "
+          f"{abs(lk - lp) / abs(lp):.2e}, tol 1e-5); worst gradient "
+          f"{worst['grad']:.2e} and updated weight {worst['weight']:.2e} of "
+          f"their max-abs (tol 1e-4); prefill logits max abs err {err_l} "
+          f"(tol {LOGIT_TOL}) [{card}]", flush=True)
+    del runs, pk, pp, gk, gp
+    torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, ms_per_step=ms,
+                ragged_losses=loss_r, ragged_ms=1e3 * sec_r[1], peak_gib=peak,
+                params_b=n_params / 1e9, k0_rmsnorm_d3072_err=k0_errs,
+                exact=dict(loss_rel=abs(lk - lp) / abs(lp), **worst,
+                           prefill_logits_err=err_l))
+
+
+def flash_options(llama, fa, cu, ex_attn, dev, gen, card):
+    """Phase za: flash attention's options on the card. za1 Mistral-7B's
+    sliding window (32/8 heads, D 128, window 4096) at B 1 x S 8192 bf16
+    through ``flash_attention_local``; za2 packed documents at the 0.77B
+    llama's attention widths, B 4 x S 8192 bf16, through
+    ``flash_attention_segmented``; za3 A8 at D 32 with a window through
+    ``flash_attention_packed``, ``flash_attention(kv_len=...)``, and every
+    option through the f32 bodies; each forward and backward through
+    autograd (one launch of each masked kernel), each kernel against plain,
+    the main cases timed beside the dense causal kernels, their bounds over
+    the live pairs and SDPA with the element mask; the example twin
+    (``cubecl_tpu_torch/examples/attention.py``); za4 the llama at
+    Phi-3-mini's widths (``phi3_train``)."""
+    out = {}
+    m = MISTRAL_ATTN
+    out["window"] = option_case(
+        fa, dev, gen, card, "za1 Mistral-7B sliding window",
+        lambda q, k, v: fa.flash_attention_local(q, k, v, m["left"], 0),
+        m["B"], m["H"], m["Hkv"], m["S"], m["D"], torch.bfloat16, True,
+        dict(window=(m["left"], 0)), m["plain_heads"], timed=True)
+    d = DOCS
+    seg = doc_ids(np.random.default_rng(29), d["B"], d["S"], d["lo"],
+                  d["hi"], d["pad"], dev)
+    out["segments"] = option_case(
+        fa, dev, gen, card, "za2 packed documents",
+        lambda q, k, v: fa.flash_attention_segmented(q, k, v, seg),
+        d["B"], d["H"], d["Hkv"], d["S"], d["D"], torch.bfloat16, True,
+        dict(seg=(seg, seg)), d["plain_heads"], timed=True)
+    out["segments"]["documents"] = [
+        int((seg[b, 1:] != seg[b, :-1]).sum()) + 1 for b in range(d["B"])]
+    p = PACKED32
+    out["packed_d32"] = option_case(
+        fa, dev, gen, card, "za3 packed (A8) D32 window",
+        lambda q, k, v: fa.flash_attention_packed(q, k, v, True,
+                                                  window=p["window"]),
+        p["B"], p["H"], p["Hkv"], p["S"], p["D"], torch.bfloat16, True,
+        dict(window=p["window"]), timed=True)
+    kv = KV_LEN
+    out["kv_len"] = option_case(
+        fa, dev, gen, card, "za3 kv_len",
+        lambda q, k, v: fa.flash_attention(q, k, v, True,
+                                           kv_len=kv["kv_len"]),
+        kv["B"], kv["H"], kv["Hkv"], kv["S"], kv["D"], torch.bfloat16, True,
+        dict(kv_len=kv["kv_len"]), timed=True)
+    for name, B, H, Hkv, S, D, causal, opts in ZA_F32:
+        if opts == "docs":
+            s = doc_ids(np.random.default_rng(31), B, S, 100, 400, 64, dev)
+            opts = dict(seg=(s, s))
+        mask_kw = dict(opts)
+
+        def fn(q, k, v, causal=causal, kw=mask_kw):
+            return fa._padded_attend(q, k, v, causal, q.shape[-1] ** -0.5,
+                                     fa._Mask.of(q, k, **kw))
+
+        out[name] = option_case(fa, dev, gen, card, f"za3 {name}", fn, B, H,
+                                Hkv, S, D, torch.float32, causal, opts)
+    _reset_masked(fa)
+    got = ex_attn.launch(dev)
+    torch.cuda.synchronize()
+    if fa.masked_forward.launches != 1 or not all(
+            torch.isfinite(t).all() for t in got.values()):
+        fail(f"phase za example twin: masked launches "
+             f"{fa.masked_forward.launches}, finite "
+             f"{[bool(torch.isfinite(t).all()) for t in got.values()]}")
+    print(f"phase za examples/attention twin (f32, B1 H2 S512 D128): dense, "
+          f"window, block-sparse and paged decode ran; launches "
+          f"{_masked_launches(fa)} [{card}]", flush=True)
+    out["phi3"] = phi3_train(llama, fa, cu, dev, gen, card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4512,6 +4964,7 @@ def main():
     from cubecl_tpu_torch.models import mamba
     from cubecl_tpu_torch.ops import attention as fa
     from cubecl_tpu_torch.ops import conv
+    from cubecl_tpu_torch.examples import attention as ex_attn
     from cubecl_tpu_torch.examples import conv_pairs as ex_conv
     from cubecl_tpu_torch.ops import moe
     from cubecl_tpu_torch.ops import ssm
@@ -4861,6 +5314,9 @@ def main():
     # -- phase z: StreamingLLM serving (P1's window + sinks and ring) ---------
     z_out = streaming_serve(llama, pa, fa, dev, gen, card)
 
+    # -- phase za: flash attention's options (A1/A3/A4 masked, A8) -----------
+    za = flash_options(llama, fa, cu, ex_attn, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
         # three TF32 products says so in bound_term
@@ -4936,6 +5392,38 @@ def main():
                    **({"s1024_cases": bsp_small,
                        "dense_a1_a3_a4_ms": x_rows["dense_ms"]}
                       if what == "fwd" else {}))
+
+    za_lib = "F.scaled_dot_product_attention with the element mask as a " \
+             "bool attn_mask (kv heads repeated outside the call)"
+    za_what = {"fwd": ("masked_forward", "o_err", "plain_fwd_ms",
+                       "library_fwd_ms"),
+               "dq": ("masked_dq", "dq_err", "plain_bwd_ms",
+                      "library_bwd_ms"),
+               "dkv": ("masked_dkv", "dkv_err", "plain_bwd_ms",
+                       "library_bwd_ms")}
+
+    def za_row(name, source, replaces, what, case, shape, **extra):
+        r = za[case]
+        n, err, plain, lib = za_what[what]
+        others = {c: dict({"max_abs_err": v[err], "launches": v["launches"][
+            n]}, **({f: v[f] for f in (f"{what}_ms", plain, lib)}
+                    if f"{what}_ms" in v else {}),
+            **({"bound_ms": v["bounds"][what]["bound_ms"]}
+               if "bounds" in v else {}))
+            for c, v in za.items() if c not in (case, "phi3")}
+        return row(name, source, replaces, r["launches"][n],
+                   dict(max_abs_err=r[err], ms=r[f"{what}_ms"],
+                        plain_ms=r[plain], **r["bounds"][what]), r[lib],
+                   library=za_lib + ("" if what == "fwd" else
+                                     ", its autograd backward (dq, dk, dv "
+                                     "together)"),
+                   shape=shape, live_pairs=r["live_pairs"],
+                   dense_causal_ms=r["dense_causal"][f"{what}_ms"],
+                   plain_ms_is=f"the plain version on {r['plain_heads']}"
+                   + ("" if what == "fwd" else ", the whole backward"),
+                   launches_path=f"phase za: {case}, forward and backward "
+                                 "through autograd",
+                   other_cases=others, **extra)
 
     c1 = y_rows["bf16 32x56x56x64->64"]
     print(json.dumps({"kernels": [
@@ -5238,6 +5726,30 @@ def main():
                 "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
                 "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1316",
                 "dkv", "plain_bwd_ms"),
+        za_row("flash_attention_options",
+               "cubecl_tpu_torch/csrc/flash_attention.cu (with "
+               "csrc/flash_tiles.cuh: the masked schedule)",
+               "cubecl_tpu/ops/attention.py:76", "fwd", "window",
+               "bf16 B1 H32/8 S8192 D128 causal, window 4096 (Mistral-7B)",
+               kernel_symbols="flash_fwd_wgmma_kernel<bf16, D, MaskedQTiles>"
+                              ", f32: flash_fwd_kernel<float, D, "
+                              "MaskedQTiles>",
+               padded_route_phi3_mini=za["phi3"]),
+        za_row("flash_attention_options_bwd_dkv",
+               "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
+               "csrc/flash_tiles.cuh: the masked schedule)",
+               "cubecl_tpu/ops/attention.py:469", "dkv", "window",
+               "bf16 B1 H32/8 S8192 D128 causal, window 4096 (Mistral-7B)"),
+        za_row("flash_attention_options_bwd_dq",
+               "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
+               "csrc/flash_tiles.cuh: the masked schedule)",
+               "cubecl_tpu/ops/attention.py:660", "dq", "window",
+               "bf16 B1 H32/8 S8192 D128 causal, window 4096 (Mistral-7B)"),
+        za_row("flash_attention_packed_window",
+               "cubecl_tpu_torch/csrc/flash_attention.cu (A1's masked "
+               "forward at D 64, D 32 padded to it)",
+               "cubecl_tpu/ops/attention.py:1445", "fwd", "packed_d32",
+               "bf16 B8 H16 S2048 D32 causal, window (256, 0)"),
         row("conv2d_pairs_packed", "cubecl_tpu_torch/csrc/conv3x3.cu",
             "cubecl_tpu/ops/conv.py:274", y_rows["stack"]["launches"], c1,
             c1["library_ms"],

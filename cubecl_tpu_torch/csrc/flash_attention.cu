@@ -61,6 +61,15 @@
 // Both: tiles wholly above the diagonal are never visited; GQA reads kv
 // head h / (H / Hkv) directly, with no repeat.
 //
+// A1's options (kv_len, segment ids, a sliding window) and A8's window are
+// the same bodies on the masked schedule of flash_tiles.cuh
+// (cubecl_flash_masked_fwd): the walk covers the band's tiles only, a tile
+// is skipped whole past kv_len, off the band or where the segment id ranges
+// do not overlap, and a tile that is not wholly live has its dead scores
+// set to -inf before the softmax, which then masks nothing. The dense and
+// block-sparse instances keep their code: the masked one differs in
+// `if constexpr` branches only.
+//
 // The same kernel bodies, with the block-sparse schedule of flash_tiles.cuh
 // in place of the dense causal range, replace A5 _bsp_fwd_call
 // (block-sparse forward over build_block_schedule's kv_ids and counts):
@@ -165,6 +174,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
     }
 
+    // the options: the dead scores of a tile not wholly live to -inf
+    if constexpr (Tiles::kMasked)
+      if (!tiles.mask.whole(q0, k0))
+        tiles.mask.template kill<false>(s, q0 + ty * 4, k0 + tx * 4);
     // online softmax, base 2; a row's 64 columns live in 16 lanes of a warp
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -173,7 +186,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = col < k_end && (!causal || col <= row);
+        bool ok = true;
+        if constexpr (!Tiles::kMasked)
+          ok = col < k_end && (!causal || col <= row);
         if constexpr (Tiles::kSparse)  // causal: the finite mask value
           s[i][j] = ok ? s[i][j] * scale_log2
                        : (col < k_end ? kMaskValue : -INFINITY);
@@ -425,8 +440,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       reg_fence(s);
 
       // online softmax, base 2; a row's 64 columns live in 4 lanes
-      const bool edge =
-          c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+      bool edge = false;
+      if constexpr (Tiles::kMasked) {  // the options: dead scores to -inf
+        if (!tiles.mask.whole(q0, c0))
+          tiles.mask.template kill<false>(s, row_a, c0 + col_l);
+      } else {
+        edge = c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = row_a + 8 * i;
@@ -610,6 +630,33 @@ extern "C" int cubecl_flash_fwd(const void* q, const void* k, const void* v,
   const int n = (Sq + BM - 1) / BM;  // 64-row kernel tiles
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)  // NC to a block
+    return launch_bf16_any(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D,
+                           scale_log2, causal, (n + NC - 1) / NC, tiles, st);
+  if (dtype == kF32)
+    return launch_f32_any(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, scale_log2,
+                          causal, n, tiles, st);
+  return cudaErrorInvalidValue;
+}
+
+// A1 with its options (and A8's window): the inputs of cubecl_flash_fwd;
+// keys at or past kv_len absent; the band row - left <= col <= row + right
+// (no band: left = right = Sq + Skv); segment ids seg_q (B, Sq) and seg_kv
+// (B, Skv) int32 with ranges (the per-64-row least and greatest ids, as
+// make_mask reads them), or all three null. Returns as cubecl_flash_fwd.
+extern "C" int cubecl_flash_masked_fwd(const void* q, const void* k,
+                                       const void* v, void* o, float* lse,
+                                       const int* seg_q, const int* seg_kv,
+                                       const int* ranges, int dtype, int B,
+                                       int H, int Hkv, int Sq, int Skv, int D,
+                                       float scale_log2, int causal,
+                                       int kv_len, int left, int right,
+                                       void* stream) {
+  using namespace cubecl;
+  const MaskedQTiles tiles{make_mask(B, Sq, Skv, causal, kv_len, left, right,
+                                     seg_q, seg_kv, ranges)};
+  const int n = (Sq + BM - 1) / BM;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
     return launch_bf16_any(q, k, v, o, lse, B, H, Hkv, Sq, Skv, D,
                            scale_log2, causal, (n + NC - 1) / NC, tiles, st);
   if (dtype == kF32)

@@ -99,7 +99,16 @@
 // its visited columns gets 1/n of the row's dO in dV, and dQ, dK nothing;
 // A6/A7 take p = 1 there from an lse that rounds to the mask value.
 //
-// Left for later: A1/A3/A4's kv_len, segment and sliding-window options.
+// A3/A4's options (kv_len, segment ids, a sliding window) are the same
+// bodies on the masked schedule of flash_tiles.cuh
+// (cubecl_flash_masked_dkv, cubecl_flash_masked_dq): dK/dV walks the
+// transposed band (for kv rows from k, q rows in [k - right, k + 127 +
+// left], from k under the causal mask), dQ the band; a tile is skipped
+// whole past kv_len, off the band or where the segment id ranges do not
+// overlap, and a tile that is not wholly live has its dead scores set to
+// -inf once they are in (exp2 of them is 0), so the loops mask nothing.
+// Masked entries get p = 0, so a row with no live key (F16) gives nothing
+// to any gradient. The dense and block-sparse instances keep their code.
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
 
@@ -279,6 +288,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
       outer4<D>(Kt, BN, ty, Qt, BM, tx, s);
       outer4<D>(Vt, BN, ty, dOt, BM, tx, dp);
+      // the options: the dead scores of a tile not wholly live to -inf
+      if constexpr (Tiles::kMasked)
+        if (!tiles.mask.whole(q0, k0))
+          tiles.mask.template kill<true>(s, k0 + ty * 4, q0 + tx * 4);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int m = tx * 4 + j;
@@ -286,8 +299,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int col = k0 + ty * 4 + i;
-          const bool in = row < q_end && col < k_end;
-          const bool ok = in && (!causal || col <= row);
+          bool in = true, ok = true;
+          if constexpr (!Tiles::kMasked) {
+            in = row < q_end && col < k_end;
+            ok = in && (!causal || col <= row);
+          }
           const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
           if constexpr (Tiles::kSparse) {
             // an F9 row: p = 1/n on each visited column, for dV only
@@ -376,6 +392,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     outer4<D>(Qt, BM, ty, Kt, BN, tx, s);
     outer4<D>(dOt, BM, ty, Vt, BN, tx, dp);
+    // the options: the dead scores of a tile not wholly live to -inf
+    if constexpr (Tiles::kMasked)
+      if (!tiles.mask.whole(q0, k0))
+        tiles.mask.template kill<false>(s, q0 + ty * 4, k0 + tx * 4);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = ty * 4 + i;
@@ -383,7 +403,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = row < q_end && col < k_end && (!causal || col <= row);
+        bool ok = true;
+        if constexpr (!Tiles::kMasked)
+          ok = row < q_end && col < k_end && (!causal || col <= row);
         const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
         dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
       }
@@ -705,11 +727,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const float* di_s =
             reinterpret_cast<const float*>(smem + L::kDi + st * kStat);
         // the mask on edge tiles only: q rows past q_end, kv rows past
-        // k_end, the diagonal, F9's rows
-        const bool edge = q0 + kFlashTile > q_end ||
-                          k0 + kFlashTile > k_end ||
-                          (causal && k0 + kFlashTile - 1 > q0) ||
-                          q0 < f9_end;
+        // k_end, the diagonal, F9's rows (the options: their dead scores
+        // set to -inf below, once the scores are in)
+        bool edge = false;
+        if constexpr (!Tiles::kMasked)
+          edge = q0 + kFlashTile > q_end || k0 + kFlashTile > k_end ||
+                 (causal && k0 + kFlashTile - 1 > q0) || q0 < f9_end;
         // s^T = K q^T and dP^T = V dO^T over D in k16 steps (the first
         // overwrites)
         float s[32], dp[32];
@@ -724,6 +747,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait0();
         reg_fence(s);
         reg_fence(dp);
+        if constexpr (Tiles::kMasked)
+          if (!tiles.mask.whole(q0, k0))
+            tiles.mask.template kill<true>(s, k0 + row_l, q0 + col_l);
 
         // p^T (into s) and dS^T (into dp)
 #pragma unroll
@@ -930,8 +956,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // dS (into dp); the mask on tiles that cross the diagonal or the
       // columns' end only (rows past q_end are never stored, and a row of
       // dQ sees only its own row of dS)
-      const bool edge =
-          c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+      bool edge = false;
+      if constexpr (Tiles::kMasked) {  // the options: dead scores to -inf
+        if (!tiles.mask.whole(q0, c0))
+          tiles.mask.template kill<false>(s, row_a, c0 + col_l);
+      } else {
+        edge = c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = row_a + 8 * i;
@@ -1114,6 +1145,40 @@ extern "C" int cubecl_flash_bwd_dq(const void* q, const void* k,
                        D, scale, scale_log2, causal, (Sq + rows - 1) / rows,
                        DenseQTiles{Sq, Skv, causal},
                        static_cast<cudaStream_t>(stream));
+}
+
+// A3 with its options: the inputs of cubecl_flash_bwd_dkv, and the
+// options and segment ids of cubecl_flash_masked_fwd (which see)
+extern "C" int cubecl_flash_masked_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, void* dk, void* dv, const int* seg_q,
+    const int* seg_kv, const int* ranges, int dtype, int B, int H, int Hkv,
+    int Sq, int Skv, int D, float scale, float scale_log2, int causal,
+    int kv_len, int left, int right, void* stream) {
+  using namespace cubecl;
+  const int rows = tiles_per_block(dtype) * kFlashTile;  // kv rows a block
+  const MaskedKVTiles tiles{make_mask(B, Sq, Skv, causal, kv_len, left, right,
+                                      seg_q, seg_kv, ranges)};
+  return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, Hkv, Sq,
+                        Skv, D, scale, scale_log2, causal,
+                        (Skv + rows - 1) / rows, tiles,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// A4 with its options: the inputs of cubecl_flash_bwd_dq and the options
+extern "C" int cubecl_flash_masked_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, void* dq, const int* seg_q,
+    const int* seg_kv, const int* ranges, int dtype, int B, int H, int Hkv,
+    int Sq, int Skv, int D, float scale, float scale_log2, int causal,
+    int kv_len, int left, int right, void* stream) {
+  using namespace cubecl;
+  const int rows = tiles_per_block(dtype) * kFlashTile;  // q rows a block
+  const MaskedQTiles tiles{make_mask(B, Sq, Skv, causal, kv_len, left, right,
+                                     seg_q, seg_kv, ranges)};
+  return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
+                       D, scale, scale_log2, causal, (Sq + rows - 1) / rows,
+                       tiles, static_cast<cudaStream_t>(stream));
 }
 
 // A6, dQ of the block-sparse forward: the inputs of cubecl_flash_bwd_dq with

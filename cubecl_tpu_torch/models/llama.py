@@ -26,9 +26,12 @@ parameters load without transposes. They are built frozen
 Models and caches are built on the card unless ``device`` says otherwise;
 functions that take tensors follow their inputs' device.
 
-Prefill and training attention go through ``ops.attention.flash_attention``
-(hand-written CUDA forward; in training also its dK/dV and dQ backward
-kernels), each decode step's through ``ops.paged_attention.paged_attention``
+Prefill and training attention go through the flash function that the
+JAX model picks for the head dim (``ops.attention.flash_for_head_dim``:
+``flash_attention`` at 64 and 128, ``flash_attention_packed`` at 32 with
+heads a multiple of 4, ``flash_attention_padded`` otherwise; hand-written
+CUDA forward, in training also its dK/dV and dQ backward kernels), each
+decode step's through ``ops.paged_attention.paged_attention``
 and each chunk's through ``ops.paged_attention.paged_attention_chunked``.
 With ``use_framework_kernels=True`` (the default, as in the JAX package)
 every RMSNorm whose rows fit the DSL kernels (``ops.functional.fits``) is
@@ -54,7 +57,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
-from ..ops.attention import flash_attention, flash_attention_plain
+from ..ops.attention import flash_attention_plain, flash_for_head_dim
 from ..ops.moe import (
     expert_matmul,
     expert_matmul_plain,
@@ -319,8 +322,8 @@ def _attention(x, layer: LlamaLayer, cfg: LlamaConfig, rope, kernels: bool):
     k = _rope((x @ layer.wk).view(b, s, nkv, hd), cos, sin)
     v = (x @ layer.wv).view(b, s, nkv, hd)
     # GQA: the flash function reads kv head h // (nh // nkv) itself
-    attend = flash_attention if kernels and cfg.use_flash_attention \
-        else flash_attention_plain
+    attend = flash_for_head_dim(hd, nh) if kernels and \
+        cfg.use_flash_attention else flash_attention_plain
     o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                causal=True)
     return o.transpose(1, 2).reshape(b, s, nh * hd) @ layer.wo, (k, v)

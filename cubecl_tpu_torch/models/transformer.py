@@ -12,9 +12,10 @@ Routing follows the JAX model. With ``use_framework_kernels`` every
 LayerNorm and GELU whose rows fit the DSL kernels (``ops.functional.fits``)
 is the ``@cube`` op ``F.layernorm`` / ``F.gelu`` (K0 forward and backward
 kernels), else the plain formula. With ``use_flash_attention`` and
-``S % 128 == 0`` attention is ``ops.attention.flash_attention`` (the
-hand-written forward and backward kernels on a card; head_dim 64 or 128
-there), else the plain einsum softmax. ``kernels=False`` takes the plain
+``S % 128 == 0`` attention is the flash function that the JAX model picks
+for the head dim (``ops.attention.flash_for_head_dim``: exact at 64 and
+128, packed at 32, padded otherwise; the hand-written forward and backward
+kernels on a card), else the plain einsum softmax. ``kernels=False`` takes the plain
 PyTorch version of whichever route the configuration picks: the reference
 the kernels are checked against.
 """
@@ -29,7 +30,7 @@ import torch
 from torch import nn
 
 from ..ops import functional as F
-from ..ops.attention import flash_attention, flash_attention_plain
+from ..ops.attention import flash_attention_plain, flash_for_head_dim
 from .llama import _param, _to_torch, sgd_step
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -184,7 +185,8 @@ def _attention(x, layer: TransformerLayer, cfg: TransformerConfig,
 
     q, k, v = heads(layer.wq), heads(layer.wk), heads(layer.wv)
     if cfg.use_flash_attention and S % 128 == 0:
-        attend = flash_attention if kernels else flash_attention_plain
+        attend = flash_for_head_dim(hd, H) if kernels \
+            else flash_attention_plain
         ctx = attend(q, k, v, True)
     else:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \

@@ -48,6 +48,26 @@ visited column is masked (only with block_q != block_k) gets the mean of V
 over those columns, as the JAX forward gives it; the backward is the true
 gradient of that forward, which the JAX backward is not there (ROADMAP
 Queue 3, F9).
+
+The options of A1, A3 and A4 (``kv_len``: keys at or past it absent;
+segment ids: a pair is live where its ids are equal; ``window`` (left,
+right): row - left <= col <= row + right) and A8's window run the same
+kernel bodies on the masked schedule of ``csrc/flash_tiles.cuh``
+(``masked_forward``, ``masked_dkv``, ``masked_dq``, each counting its
+launches), behind the JAX package's public functions without
+``interpret``: ``flash_attention(..., kv_len=)``,
+``flash_attention_padded`` (D padded with zeros to 64 or 128, the scale
+from the real D; D past 128 raises on the card), ``flash_attention_
+segmented``, ``flash_attention_local`` and ``flash_attention_packed``
+(A8: on this card A1's kernel at D 64, a smaller D padded to it; with
+``window``). The last four take any D up to 128 as the padded one does.
+All run ``_FlashAttention`` under autograd, the counterpart of the JAX
+``_flash_seg``, ``_flash_local`` and ``_flash_packed`` custom_vjps; on
+CPU tensors the plain versions with the options as one boolean mask. A
+row with no live key gets zeros, an lse of 0 and no gradient (ROADMAP
+Queue 3, F16: the JAX kernels give it a mean of V that depends on their
+tiles). ``flash_for_head_dim`` picks the function for a model's head dim
+as the JAX models do.
 """
 
 from __future__ import annotations
@@ -86,26 +106,67 @@ def _causal_mask(q, k):
                       device=q.device).tril()
 
 
+def _live_mask(q, k, causal: bool, kv_len=None, seg=None, window=None):
+    """The live (query, key) pairs as one boolean mask: (Sq, Skv), or
+    (B, 1, Sq, Skv) with segment ids; None where every pair is live. The
+    options of A1/A3/A4: ``causal`` col <= row (absolute positions);
+    ``kv_len`` col < kv_len; ``seg`` = (ids_q (B, Sq), ids_kv (B, Skv)),
+    equal ids; ``window`` = (left, right), row - left <= col <= row +
+    right."""
+    live = _causal_mask(q, k) if causal else None
+    if kv_len is None and seg is None and window is None:
+        return live
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    terms = [] if live is None else [live]
+    if kv_len is not None:
+        terms.append(cols < kv_len)
+    if window is not None:
+        left, right = window
+        terms.append((rows - cols <= left) & (cols - rows <= right))
+    if seg is not None:
+        sq, sk = seg
+        terms.append(sq[:, None, :, None] == sk[:, None, None, :])
+    out = terms[0]
+    for t in terms[1:]:
+        out = out & t
+    return out
+
+
 def flash_attention_plain(q, k, v, causal: bool = True,
                           sm_scale: Optional[float] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False, kv_len=None, seg=None,
+                          window=None):
     """softmax(q k^T * sm_scale) v in f32 with the causal mask col <= row;
     materializes the (Sq, Skv) scores. With ``return_lse`` also returns
     the base-2 log-sum-exp of each row's scaled scores, f32 (B, H, Sq), as
-    the forward kernel writes it (0 for a row with nothing live)."""
+    the forward kernel writes it (0 for a row with nothing live).
+    ``kv_len``, ``seg`` and ``window`` mask further, as ``_live_mask``
+    says; a row with no live key then gets zeros and an lse of 0, as the
+    kernels give it (ROADMAP Queue 3, F16)."""
     _check_shapes(q, k, v)
     scale = _scale(q, sm_scale)
     rep = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
-    if causal:
-        s = s.masked_fill(~_causal_mask(q, k), float("-inf"))
+    live = _live_mask(q, k, causal, kv_len, seg, window)
+    if live is not None:
+        s = s.masked_fill(~live, float("-inf"))
+    dead = None
+    if kv_len is not None or seg is not None or window is not None:
+        dead = ~live.any(-1, keepdim=True)  # F16's rows
+        s = s.masked_fill(dead, 0.0)
     p = torch.softmax(s, dim=-1)
-    o = torch.matmul(p, vf).to(q.dtype)
+    o = torch.matmul(p, vf)
+    if dead is not None:
+        o = o.masked_fill(dead, 0.0)
+    o = o.to(q.dtype)
     if not return_lse:
         return o
     lse = torch.logsumexp(s, dim=-1) * LOG2E
+    if dead is not None:
+        lse = lse.masked_fill(dead[..., 0], 0.0)
     return o, lse.masked_fill(torch.isinf(lse), 0.0)
 
 
@@ -120,14 +181,17 @@ def _rounder(dtype, round_p_ds: bool):
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
                                    sm_scale: Optional[float] = None,
-                                   round_p_ds: bool = False):
+                                   round_p_ds: bool = False, kv_len=None,
+                                   seg=None, window=None):
     """(dq, dk, dv) of flash attention in plain PyTorch, from the forward's
     residuals (o, base-2 lse) and the upstream do: the math of the dK/dV
     and dQ kernels with the (Sq, Skv) probabilities materialized, f32
     throughout, each kv head's gradient summed over its query heads; cast
     to the inputs' dtypes. ``round_p_ds`` rounds p and dS to the inputs'
     dtype before their products (dS from the unrounded p), as the JAX
-    kernels A3/A4 and the bf16 kernels do; off, the reference is exact."""
+    kernels A3/A4 and the bf16 kernels do; off, the reference is exact.
+    ``kv_len``, ``seg`` and ``window`` as in ``flash_attention_plain``:
+    masked pairs get p = 0, so F16's rows give nothing."""
     _check_shapes(q, k, v)
     scale = _scale(q, sm_scale)
     rnd = _rounder(q.dtype, round_p_ds)
@@ -139,8 +203,9 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
     vf = v.float().repeat_interleave(rep, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
     p = torch.exp2(s - lse.float()[..., None])
-    if causal:
-        p = p.masked_fill(~_causal_mask(q, k), 0.0)
+    live = _live_mask(q, k, causal, kv_len, seg, window)
+    if live is not None:
+        p = p.masked_fill(~live, 0.0)
     di = (dof * o.float()).sum(-1, keepdim=True)
     dv = torch.matmul(rnd(p).transpose(-1, -2), dof)
     ds = rnd(p * (torch.matmul(dof, vf.transpose(-1, -2)) - di) * scale)
@@ -270,49 +335,345 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 
 
+class _Mask:
+    """The options of one call of A1/A3/A4 (and A8's window) on q (B, H,
+    Sq, D) and k (B, Hkv, Skv, D): ``kv_len`` (keys at or past it absent;
+    None where it is None or >= Skv), ``window`` (left, right) and ``seg``
+    (ids_q (B, Sq), ids_kv (B, Skv) int32 on q's device). ``of`` returns
+    None where there is no option, so that the dense kernels run."""
+
+    def __init__(self, kv_len, seg, window):
+        self.kv_len, self.seg, self.window = kv_len, seg, window
+        self._ranges = None
+
+    @classmethod
+    def of(cls, q, k, kv_len=None, seg=None, window=None):
+        B, _, Sq, _ = q.shape
+        Skv = k.shape[2]
+        if kv_len is not None:
+            kv_len = max(int(kv_len), 0)
+            if kv_len >= Skv:
+                kv_len = None
+        if window is not None:
+            left, right = (int(w) for w in window)
+            if left < 0 or right < 0:
+                raise ValueError(f"window {window}: want left, right >= 0")
+            window = (left, right)
+        if seg is not None:
+            seg = tuple(torch.as_tensor(x, device=q.device)
+                        .to(torch.int32).contiguous() for x in seg)
+            if seg[0].shape != (B, Sq) or seg[1].shape != (B, Skv):
+                raise ValueError(f"segment ids {tuple(seg[0].shape)}, "
+                                 f"{tuple(seg[1].shape)}; want {(B, Sq)}, "
+                                 f"{(B, Skv)}")
+        if kv_len is None and seg is None and window is None:
+            return None
+        return cls(kv_len, seg, window)
+
+    def plain(self) -> dict:
+        """The keyword arguments of the plain versions."""
+        return dict(kv_len=self.kv_len, seg=self.seg, window=self.window)
+
+    def kernel_args(self, Sq: int, Skv: int) -> tuple:
+        """(seg_q, seg_kv, ranges) pointers or None, then kv_len, left,
+        right, as the masked entries of the kernel library take them (no
+        band: Sq + Skv on each side)."""
+        span = Sq + Skv
+        left, right = self.window if self.window is not None \
+            else (span, span)
+        kv_len = Skv if self.kv_len is None else self.kv_len
+        if self.seg is None:
+            ptrs = (None, None, None)
+        else:
+            if self._ranges is None:
+                (qlo, qhi), (klo, khi) = (_tile_ranges(ids)
+                                          for ids in self.seg)
+                self._ranges = torch.cat([t.reshape(-1) for t in (
+                    qlo, qhi, klo, khi, _seg_walk(qlo, qhi, klo, khi),
+                    _seg_walk(klo, khi, qlo, qhi))]).to(
+                        torch.int32).contiguous()
+            ptrs = (self.seg[0].data_ptr(), self.seg[1].data_ptr(),
+                    self._ranges.data_ptr())
+        return ptrs + (kv_len, min(left, span), min(right, span))
+
+
+def _plain_opts(mask) -> dict:
+    """The plain versions' keyword arguments of a ``_Mask`` or None."""
+    return {} if mask is None else mask.plain()
+
+
+def _tile_ranges(ids):
+    """(lo, hi), each (B, ceil(S / 64)) int32: the least and greatest id of
+    every 64-row kernel tile of ids (B, S), which the masked schedule's
+    tile test compares (``csrc/flash_tiles.cuh::FlashMask``)."""
+    B, S = ids.shape
+    n = -(-S // 64)
+    idx = torch.arange(n * 64, device=ids.device).clamp_(max=max(S - 1, 0))
+    t = ids[:, idx].view(B, n, 64)
+    return t.amin(-1), t.amax(-1)
+
+
+def _seg_walk(lo, hi, lo_other, hi_other):
+    """(B, ceil(n / 2), 2) int32: for every pair of 64-row tiles of one side
+    (lo, hi: (B, n), their id ranges), the first and one past the last tile
+    of the other side whose id range overlaps the pair's (an empty range
+    where none does): the walk of a kernel block that owns the pair."""
+    B, n = lo.shape
+    idx = torch.arange(-(-n // 2) * 2, device=lo.device).clamp_(max=n - 1)
+    plo = lo[:, idx].view(B, -1, 2).amin(-1)
+    phi = hi[:, idx].view(B, -1, 2).amax(-1)
+    ov = (plo[:, :, None] <= hi_other[:, None, :]) \
+        & (phi[:, :, None] >= lo_other[:, None, :])
+    m = ov.shape[-1]
+    j = torch.arange(m, device=lo.device)
+    first = torch.where(ov, j, m).amin(-1)
+    last = torch.where(ov, j, -1).amax(-1) + 1
+    return torch.stack([first, last], -1)
+
+
+def _masked_call(what, entry, tensors, mask, q, k, *scalars):
+    """One launch of a masked entry: its tensors (inputs, then outputs;
+    None for no lse), the mask's pointers, the shapes, ``scalars`` (the
+    scales and causal) and the mask's kv_len, left and right."""
+    lib = native.kernels()
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    opts = mask.kernel_args(Sq, Skv)
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() if t is not None else None for t in tensors),
+            *opts[:3], native.DTYPE_CODES[q.dtype], B, H, Hkv, Sq, Skv, D,
+            *scalars, *opts[3:], _stream(q))
+    native.check(lib, rc, what)
+
+
+def masked_forward(q, k, v, mask: _Mask, causal, sm_scale, need_lse):
+    """A1 with its options (kv_len, segment ids, a window) on CUDA tensors:
+    the forward's bodies on the masked schedule of ``csrc/flash_tiles.cuh``
+    (bf16 on the tensor cores, f32 on the CUDA cores); o and, with
+    ``need_lse``, the base-2 lse."""
+    q, k, v = _kernel_inputs("flash_attention (options)", q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
+        if need_lse else None
+    if o.numel() == 0:
+        return o, lse
+    _masked_call("flash_attention (options)", "cubecl_flash_masked_fwd",
+                 [q, k, v, o, lse], mask, q, k,
+                 _scale(q, sm_scale) * LOG2E, int(causal))
+    masked_forward.launches += 1
+    return o, lse
+
+
+def masked_dkv(q, k, v, do, lse, di, mask: _Mask, causal, sm_scale):
+    """A3 with its options on CUDA tensors: dk, dv over the transposed
+    band (kv rows past kv_len get zeros)."""
+    q, k, v, do = _kernel_inputs("masked_dkv", q, k, v, do)
+    lse, di = _stats("masked_dkv", q, lse, di)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    scale = _scale(q, sm_scale)
+    _masked_call("masked_dkv", "cubecl_flash_masked_dkv",
+                 [q, k, v, do, lse, di, dk, dv], mask, q, k, scale,
+                 scale * LOG2E, int(causal))
+    masked_dkv.launches += 1
+    return dk, dv
+
+
+def masked_dq(q, k, v, do, lse, di, mask: _Mask, causal, sm_scale):
+    """A4 with its options on CUDA tensors: dq over the band."""
+    q, k, v, do = _kernel_inputs("masked_dq", q, k, v, do)
+    lse, di = _stats("masked_dq", q, lse, di)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    scale = _scale(q, sm_scale)
+    _masked_call("masked_dq", "cubecl_flash_masked_dq",
+                 [q, k, v, do, lse, di, dq], mask, q, k, scale,
+                 scale * LOG2E, int(causal))
+    masked_dq.launches += 1
+    return dq
+
+
+masked_forward.launches = 0
+masked_dkv.launches = 0
+masked_dq.launches = 0
+
+
+def _forward(q, k, v, causal, sm_scale, need_lse, mask):
+    """The forward kernel with or without options (CUDA tensors)."""
+    if mask is None:
+        return _flash_forward(q, k, v, causal, sm_scale, need_lse)
+    return masked_forward(q, k, v, mask, causal, sm_scale, need_lse)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX ``flash_attention`` custom_vjp (``_fwd`` /
-    ``_bwd``): the kernels on CUDA tensors, the plain versions on CPU
-    tensors."""
+    ``_bwd``) and, with a ``_Mask``, of ``_flash_seg``, ``_flash_local``
+    and ``_flash_packed`` (and ``flash_attention``'s with ``kv_len``): the
+    kernels on CUDA tensors (the dense ones without options, the masked
+    ones with), the plain versions on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, mask):
         if q.device.type == "cpu":
             o, lse = flash_attention_plain(q, k, v, causal, sm_scale,
-                                           return_lse=True)
+                                           return_lse=True,
+                                           **_plain_opts(mask))
         else:
-            o, lse = _flash_forward(q, k, v, causal, sm_scale, True)
+            o, lse = _forward(q, k, v, causal, sm_scale, True, mask)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.mask = causal, sm_scale, mask
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, sm_scale = ctx.causal, ctx.sm_scale
+        causal, sm_scale, mask = ctx.causal, ctx.sm_scale, ctx.mask
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_backward_plain(
-                q, k, v, o, lse, do, causal, sm_scale)
+                q, k, v, o, lse, do, causal, sm_scale, **_plain_opts(mask))
         else:
             # rowsum(dO * O) from o in its own dtype, as the JAX _bwd
             di = (do.float() * o.float()).sum(-1)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, causal, sm_scale)
-            dq = flash_bwd_dq(q, k, v, do, lse, di, causal, sm_scale)
-        return dq, dk, dv, None, None
+            if mask is None:
+                dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, causal,
+                                       sm_scale)
+                dq = flash_bwd_dq(q, k, v, do, lse, di, causal, sm_scale)
+            else:
+                dk, dv = masked_dkv(q, k, v, do, lse, di, mask, causal,
+                                    sm_scale)
+                dq = masked_dq(q, k, v, do, lse, di, mask, causal, sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def _attend(q, k, v, causal, sm_scale, mask):
+    """Flash attention with the options of ``mask`` (or none): the Function
+    under autograd, else the forward alone (no lse)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, sm_scale, mask)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, sm_scale,
+                                     **_plain_opts(mask))
+    return _forward(q, k, v, causal, sm_scale, False, mask)[0]
 
 
 def flash_attention(q, k, v, causal: bool = True,
-                    sm_scale: Optional[float] = None):
-    """Flash attention; see the module docstring."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, sm_scale)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, sm_scale)
-    return _flash_forward(q, k, v, causal, sm_scale, False)[0]
+                    sm_scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    kv_len: Optional[int] = None):
+    """Flash attention; see the module docstring. The JAX signature without
+    ``interpret``: ``block_q`` and ``block_k`` are accepted and fix nothing
+    (the kernels tile at 64 rows); ``kv_len`` masks the keys at or past it
+    (A1's padded keys), through the masked kernels where it is < Skv."""
+    return _attend(q, k, v, causal, sm_scale, _Mask.of(q, k, kv_len=kv_len))
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The options' public functions: padded, segmented, local, packed
+# ---------------------------------------------------------------------------
+
+
+def _padded_attend(q, k, v, causal, scale, mask):
+    """``_attend`` at any head dim up to 128: D is padded with zeros to 64
+    or 128 (zero columns of q and k leave the scores as they are; those of
+    v are sliced off), the scale fixed from the real D by the caller. A D
+    past 128 runs unpadded on the CPU and raises on the card."""
+    D = q.shape[-1]
+    Dp = 64 if D <= 64 else 128 if D <= 128 else D
+    if Dp == D:
+        if D > 128 and q.device.type != "cpu":
+            raise NotImplementedError(
+                f"flash attention at head dim {D} > 128 is not ported to the "
+                "card yet (ROADMAP Queue 2a: the JAX flash_attention_padded "
+                "pads it to 256 for its exact kernel)")
+        return _attend(q, k, v, causal, scale, mask)
+    pad = (0, Dp - D)
+    o = _attend(torch.nn.functional.pad(q, pad),
+                torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad), causal, scale, mask)
+    return o[..., :D]
+
+
+def flash_attention_padded(q, k, v, causal: bool = True,
+                           sm_scale: Optional[float] = None,
+                           block_q: int = 1024, block_k: int = 2048):
+    """flash_attention at any sequence length and head dim up to 128 (the
+    JAX signature without ``interpret``; the blocks fix nothing): D is
+    padded to 64 or 128, the scale taken from the real D. Unlike the JAX
+    function, S is not padded: the kernels mask a ragged tail themselves.
+    Differentiable (the pad and the slice through autograd)."""
+    _check_shapes(q, k, v)
+    return _padded_attend(q, k, v, causal, _scale(q, sm_scale), None)
+
+
+def flash_attention_segmented(q, k, v, segment_ids_q, segment_ids_kv=None,
+                              causal: bool = True,
+                              sm_scale: Optional[float] = None,
+                              block_q: int = 1024, block_k: int = 1024):
+    """Packed-sequence flash attention: a query attends only keys of its own
+    segment id (and, ``causal``, col <= row). segment_ids: (B, S) int,
+    numpy or torch; a reserved id (e.g. -1) for padding slots. Tiles whose
+    rows' and columns' id ranges do not overlap are skipped whole; a row
+    with no live key gets zeros (F16). Differentiable. D up to 128, as
+    ``flash_attention_padded``."""
+    _check_shapes(q, k, v)
+    if segment_ids_kv is None:
+        segment_ids_kv = segment_ids_q
+    mask = _Mask.of(q, k, seg=(segment_ids_q, segment_ids_kv))
+    return _padded_attend(q, k, v, causal, _scale(q, sm_scale), mask)
+
+
+def flash_attention_local(q, k, v, left: int, right: int = 0,
+                          causal: bool = True,
+                          sm_scale: Optional[float] = None,
+                          block_q: int = 1024, block_k: int = 1024):
+    """Sliding-window flash attention: position i attends keys j with
+    i - left <= j <= i + right (Mistral's local attention when ``causal``
+    and ``right == 0``). The kernels walk only the band's tiles, so the
+    cost scales with S * (left + right + 64). Differentiable. D up to 128,
+    as ``flash_attention_padded``."""
+    _check_shapes(q, k, v)
+    if left < 0 or right < 0:
+        raise ValueError(f"left {left}, right {right}: want both >= 0")
+    mask = _Mask.of(q, k, window=(left, right))
+    return _padded_attend(q, k, v, causal, _scale(q, sm_scale), mask)
+
+
+def flash_for_head_dim(head_dim: int, n_heads: int):
+    """The flash function the JAX models pick for a head dim
+    (``cubecl_tpu/models/llama.py:163-184``,
+    ``cubecl_tpu/models/transformer.py:192-214``): the exact kernel at 64
+    and multiples of 128, the packed function where ``128 // head_dim``
+    heads fill a TPU's lanes (32 with heads a multiple of 4), the padded one
+    otherwise. By head dim only: the port pads no sequence."""
+    if head_dim == 64 or head_dim % 128 == 0:
+        return flash_attention
+    if 128 % head_dim == 0 and n_heads % (128 // head_dim) == 0:
+        return flash_attention_packed
+    return flash_attention_padded
+
+
+def flash_attention_packed(q, k, v, causal: bool = True,
+                           sm_scale: Optional[float] = None,
+                           block_q: int = 1024, block_k: int = 1024,
+                           window=None):
+    """The JAX ``flash_attention_packed`` (A8, head dims 32 and 64 packed on
+    a TPU's 128 lanes), with an optional ``window`` (left, right). On this
+    card A8 is A1's kernel: D 64 runs it as it is, a smaller D padded to 64
+    (D 32 does twice the work; no instantiation of its own yet). The JAX
+    function drops ``window`` where it falls back to flash_attention (D a
+    multiple of 128, or H not a multiple of 128 // D); here the window
+    always holds. Differentiable."""
+    _check_shapes(q, k, v)
+    mask = _Mask.of(q, k, window=window)
+    return _padded_attend(q, k, v, causal, _scale(q, sm_scale), mask)
 
 
 # ---------------------------------------------------------------------------

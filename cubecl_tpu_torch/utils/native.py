@@ -64,6 +64,12 @@ _SIGNATURES = {
     "cubecl_flash_bsp_dq": [_VP] * 9 + [_I] * 9 + [_F, _F, _I, _VP],
     "cubecl_flash_bsp_dkv": [_VP] * 10 + [_I] + [_VP] * 2 + [_I] * 9
     + [_F, _F, _I, _VP],
+    "cubecl_flash_masked_fwd": [_VP] * 8 + [_I] * 7 + [_F] + [_I] * 4
+    + [_VP],
+    "cubecl_flash_masked_dkv": [_VP] * 11 + [_I] * 7 + [_F, _F] + [_I] * 4
+    + [_VP],
+    "cubecl_flash_masked_dq": [_VP] * 10 + [_I] * 7 + [_F, _F] + [_I] * 4
+    + [_VP],
     "cubecl_conv3x3": [_VP] * 4 + [_I] * 5 + [_VP],
     "cubecl_conv3x3_plan": [_I] * 4 + [_VP],
 }

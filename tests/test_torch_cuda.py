@@ -2599,3 +2599,189 @@ def test_warp_lined_aliased_launches(dev):
                for k in cu._cache.values())
     for got, want in zip(*outs):
         _close(got, want)
+
+
+# -- A1, A3, A4 with their options (the masked schedule of
+# csrc/flash_tiles.cuh) and A8's window; the four public functions
+
+
+def _doc_ids(g, dev, B, S, lo=20, hi=90, pad=16):
+    """Segment ids of packed documents: lengths uniform in [lo, hi) until S
+    is full, the last ``pad`` positions the padding id -1."""
+    ids = torch.empty(B, S, dtype=torch.int32)
+    for b in range(B):
+        pos, doc = 0, 0
+        while pos < S:
+            n = int(torch.randint(lo, hi, (1,), generator=g,
+                                  device=dev).item())
+            ids[b, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    ids[:, S - pad:] = -1
+    return ids.to(dev)
+
+
+def _options(g, dev, option, causal, B, Sq, Skv):
+    """The options of one case, as ``_Mask.of`` takes them."""
+    if option == "kv_len":
+        return dict(kv_len=Skv - 70)
+    if option == "segments":
+        return dict(seg=(_doc_ids(g, dev, B, Sq),) * 2)
+    if option == "window":
+        return dict(window=(70, 0 if causal else 30))
+    if option == "all":
+        return dict(kv_len=Skv - 40, seg=(_doc_ids(g, dev, B, Sq),) * 2,
+                    window=(100, 0 if causal else 50))
+    return dict(window=(20, 10))  # "f16": Sq > Skv, rows from 150 see none
+
+
+def _pad_d(t, D):
+    return torch.nn.functional.pad(t, (0, (64 if D <= 64 else 128) - D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+@pytest.mark.parametrize("option", ["kv_len", "segments", "window", "all",
+                                    "f16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_option_kernels_match_plain(dev, dtype, D, option, causal):
+    """The masked forward (o, lse), dK/dV and dQ kernels, one launch each
+    through the autograd Function (D 32 and 96 padded to 64 and 128 as
+    ``flash_attention_padded`` pads them), against the plain versions with
+    the same options on the kernel's own o and lse, by ``_close_bwd``; F16's
+    rows get o = 0, lse = 0 and pass nothing back; a second call is
+    bit-identical."""
+    Sq, Skv = (300, 130) if option == "f16" else (200, 200)
+    g = torch.Generator(device=dev).manual_seed(Sq + D + causal)
+    q, do = (torch.randn(2, 4, Sq, D, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, Skv, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    mask = fa._Mask.of(q, k, **_options(g, dev, option, causal, 2, Sq, Skv))
+    scale = D ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (fa.masked_forward.launches, fa.masked_dkv.launches,
+         fa.masked_dq.launches, flash_attention.launches)
+    out = fa._padded_attend(*leaves, causal, scale, mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.masked_forward.launches, fa.masked_dkv.launches,
+            fa.masked_dq.launches, flash_attention.launches) == \
+        (n[0] + 1, n[1] + 1, n[2] + 1, n[3])
+    o, lse = fa.masked_forward(*(_pad_d(t, D) for t in (q, k, v)), mask,
+                               causal, scale, True)
+    o = o[..., :D]
+    assert torch.equal(o, out.detach())
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, scale,
+                                           return_lse=True, **mask.plain())
+    _close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+    rounded, exact = (fa.flash_attention_backward_plain(
+        q, k, v, o, lse, do, causal, scale, round_p_ds=rnd, **mask.plain())
+        for rnd in (True, False))
+    for t, r, e in zip(leaves, rounded, exact):
+        _close_bwd(t.grad, r, e)
+    if option == "f16":
+        assert not o[:, :, 150:].any() and not lse[:, :, 150:].any()
+        assert not leaves[0].grad[:, :, 150:].any()
+    out2 = fa._padded_attend(*leaves, causal, scale, mask)
+    grads = [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    out2.backward(do)
+    assert torch.equal(out2, out)
+    for t, g1 in zip(leaves, grads):
+        assert torch.equal(t.grad, g1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_option_functions_run_the_kernels(dev, dtype):
+    """The four public functions and ``flash_attention(kv_len=...)`` on
+    CUDA tensors: the masked kernels for the options (the packed window at
+    D 32 and 64 too), the dense ones where there is none (the padded
+    function at D 96), each against its plain version, forward and
+    backward."""
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def qkv(D, S=256, H=4, Hkv=2):
+        q, do = (torch.randn(2, H, S, D, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(2, Hkv, S, D, generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        return q, k, v, do
+
+    seg = _doc_ids(g, dev, 2, 256)
+    cases = [
+        ("kv_len", 128, lambda *t: fa.flash_attention(*t, True,
+                                                      kv_len=200),
+         dict(kv_len=200), True),
+        ("segmented", 64, lambda *t: fa.flash_attention_segmented(
+            *t, seg), dict(seg=(seg, seg)), True),
+        ("local", 128, lambda *t: fa.flash_attention_local(*t, 64, 0),
+         dict(window=(64, 0)), True),
+        ("packed d32", 32, lambda *t: fa.flash_attention_packed(
+            *t, True, window=(64, 0)), dict(window=(64, 0)), True),
+        ("packed d64", 64, lambda *t: fa.flash_attention_packed(
+            *t, True, window=(32, 0)), dict(window=(32, 0)), True),
+        ("padded d96", 96, lambda *t: fa.flash_attention_padded(*t),
+         {}, False)]
+    for name, D, fn, opts, masked in cases:
+        q, k, v, do = qkv(D)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        counts = lambda: (fa.masked_forward.launches,  # noqa: E731
+                          fa.masked_dkv.launches, fa.masked_dq.launches,
+                          flash_attention.launches, fa.flash_bwd_dkv.launches,
+                          fa.flash_bwd_dq.launches)
+        n = counts()
+        out = fn(*leaves)
+        out.backward(do)
+        torch.cuda.synchronize()
+        want = (1, 1, 1, 0, 0, 0) if masked else (0, 0, 0, 1, 1, 1)
+        assert tuple(a - b for a, b in zip(counts(), n)) == want, name
+        ref = flash_attention_plain(q, k, v, True, **opts)
+        _close(out.detach(), ref)
+        o, lse = flash_attention_plain(q, k, v, True, return_lse=True,
+                                       **opts)
+        exact = fa.flash_attention_backward_plain(q, k, v, o, lse, do, True,
+                                                  **opts)
+        atol, rtol = EXACT_BWD_TOL[dtype]
+        for t, e in zip(leaves, exact):
+            torch.testing.assert_close(t.grad.float(), e.float(), atol=atol,
+                                       rtol=rtol, msg=name)
+        with torch.no_grad():
+            n = counts()
+            torch.testing.assert_close(fn(q, k, v), out.detach())
+            assert counts()[0] + counts()[3] == n[0] + n[3] + 1, name
+
+
+def test_flash_padded_past_128_raises(dev):
+    q = torch.zeros(1, 2, 64, 160, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_padded(q, q, q)
+
+
+@pytest.mark.parametrize("hd,heads", [(96, 2), (32, 4)])
+def test_train_step_at_other_head_dims_matches_plain(dev, hd, heads):
+    """A llama SGD step, f32, at head dim 96 (the padded route) and 32 (the
+    packed route), with the kernels and with the plain versions: loss,
+    gradients and weights, as test_train_step_kernels_match_plain; the
+    dense kernels ran once a layer each way."""
+    cfg = llama.LlamaConfig(vocab=128, d_model=hd * heads, n_heads=heads,
+                            n_kv_heads=heads // 2, n_layers=2, d_ff=256,
+                            seq=129)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 129), dtype=np.int32)).to(dev)
+    models = []
+    n = (flash_attention.launches, fa.flash_bwd_dkv.launches)
+    for kernels in (True, False):
+        model = llama.init_params(cfg, seed=0, device=dev)
+        loss = llama.make_train_step(cfg, 1e-2, kernels=kernels)(model,
+                                                                 tokens)
+        models.append((loss, model))
+    assert (flash_attention.launches, fa.flash_bwd_dkv.launches) == \
+        (n[0] + 2, n[1] + 2)
+    (lk, mk), (lp, mp) = models
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+    for (name, a), b in zip(mk.named_parameters(), mp.parameters()):
+        tol = 1e-4 * b.grad.abs().max().item()
+        assert (a.grad - b.grad).abs().max().item() <= tol, name
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
