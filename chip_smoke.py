@@ -145,7 +145,23 @@ bounds over the live pairs and SDPA with the element mask; the
 dim 96 through ``flash_attention_padded``, 32 layers, bf16) trained at B
 4 x S 1024 and one step at S 1000, A1/A3/A4 launches checked, then f32
 exactness at full width with 2 layers (loss, grads, weights, prefill
-logits) against the plain route. Each kernel's line gives its time beside its bound (bytes over 3.35 TB/s or operations over the dtype's peak) and,
+logits) against the plain route. Then serving at head dim 96 (phase zb):
+zb1 P1's D 96 instances (every position, window + sinks, the ring) on
+bf16, int8 and f32 pools and P3's (the verify step, chunked prefill from
+0 and 768) against plain at Phi-3-mini's attention widths (B 8 x 32 kv
+heads), G 4 and 8, pages of 16, 7 and 1, ragged rows and a length-0 row,
+each plan held to the built kernel's, every case timed (cold L2) beside
+the D 128 instance at the same B, Hkv and context, by phase j's and
+phase i's harnesses; zb2 the llama at Phi-3-mini's widths (32 layers,
+bf16) served through ``generate`` (8 x 1024 + 32 steps),
+``prefill_chunked``, a verify ``decode_chunk``, ``speculative_generate``
+(a self-draft and a d768 draft of head dim 96), ``beam_generate``, an
+int8 cache, windowed and ring decode, each path's P1 and P3 launches
+counted from 0; zb3 its f32 exactness at 2 layers (decode steps, a
+verify chunk, chunked prefill, windowed and ring steps, beam search)
+against the plain route within LOGIT_TOL, greedy tokens and beams equal. Each kernel's
+line gives its time beside its bound (bytes over 3.35 TB/s or operations
+over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. A K0
 kernel's time in phases a, e and q is its device time with a cold L2
 (``cold_ms``), printed beside a call's time back to back (host included),
@@ -160,6 +176,7 @@ result. Imports only torch, numpy and cubecl_tpu_torch.
 """
 
 import atexit
+import copy
 import dataclasses
 import json
 import math
@@ -407,8 +424,8 @@ B_LAYOUTS = ("(K, N)", "(N, K)")
 
 def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
     """Phase 2: C1's bf16 and f32 (3xTF32) bodies, E1's bf16 body, P3's
-    bf16 body (D 64 and 128, bf16 and int8 pools) and every 8-, 16-bit and
-    f32 GEMM instance in the SASS: (name, wgmma count, registers, spill
+    bf16 body (D 64, 96 and 128, bf16 and int8 pools) and every 8-, 16-bit
+    and f32 GEMM instance in the SASS: (name, wgmma count, registers, spill
     line) each. Fails unless each issues HGMMA (each 8-bit GEMM instance
     its GEMM8_SASS instruction), C1 f32 and P3 spill nothing (where a
     fresh build's ptxas log reports them), and the
@@ -461,7 +478,7 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
         (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
         for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
         | {"conv3x3", "conv3x3 f32", "expert"} \
-        | {("p3", d, q) for d in (64, 128) for q in (False, True)}
+        | {("p3", d, q) for d in (64, 96, 128) for q in (False, True)}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -1429,21 +1446,23 @@ def int8_pools(shape, dev, gen):
     return kq, vq, ks, vs
 
 
-# phase i: (name, B, L, Hkv, G, C, D, max_pages, starts, lengths or None
-# for starts + C, dtype, int8 pools); page 128
+# phase i: (name, B, L, Hkv, G, C, D, page, max_pages, starts, lengths or
+# None for starts + C, dtype, int8 pools)
 CHUNKED_CASES = [
-    ("verify", 8, 16, 8, 2, 5, 128, 9, [1051] * 8, None, torch.bfloat16,
+    ("verify", 8, 16, 8, 2, 5, 128, 128, 9, [1051] * 8, None, torch.bfloat16,
      False),
-    ("prefill start 0", 8, 16, 8, 2, 256, 128, 9, [0] * 8, None,
+    ("prefill start 0", 8, 16, 8, 2, 256, 128, 128, 9, [0] * 8, None,
      torch.bfloat16, False),
-    ("prefill start 768", 8, 16, 8, 2, 256, 128, 9, [768] * 8, None,
+    ("prefill start 768", 8, 16, 8, 2, 256, 128, 128, 9, [768] * 8, None,
      torch.bfloat16, False),
-    ("d768", 16, 8, 4, 3, 5, 64, 4, [395] * 16, None, torch.float32, False),
-    ("ragged", 8, 4, 8, 2, 16, 128, 8, [0, 1, 127, 128, 500, 1000, 640, 3],
+    ("d768", 16, 8, 4, 3, 5, 64, 128, 4, [395] * 16, None, torch.float32,
+     False),
+    ("ragged", 8, 4, 8, 2, 16, 128, 128, 8, [0, 1, 127, 128, 500, 1000, 640,
+                                             3],
      [0, 17, 143, 144, 510, 1016, 656, 10], torch.bfloat16, False),
-    ("verify int8", 8, 16, 8, 2, 5, 128, 9, [1051] * 8, None,
+    ("verify int8", 8, 16, 8, 2, 5, 128, 128, 9, [1051] * 8, None,
      torch.bfloat16, True),
-    ("prefill int8 start 768", 8, 16, 8, 2, 256, 128, 9, [768] * 8, None,
+    ("prefill int8 start 768", 8, 16, 8, 2, 256, 128, 128, 9, [768] * 8, None,
      torch.bfloat16, True),
 ]
 P1_SYMBOLS = ("paged_decode_kernel<T, TK, D> (positions split over blocks, "
@@ -1459,43 +1478,45 @@ CUDA_CORE_P3_MS = {"verify": 0.179, "prefill start 0": 0.182,
                    "prefill start 768": 0.826, "verify int8": 0.160}
 
 
-def chunked_vs_plain(pa, dev, gen, card):
-    """Phase i: P3 against its plain version at the shapes of the slice's
-    path (the speculative verify step, chunked prefill, the d768 config,
-    a ragged batch with a length-0 row, int8 pools); CUDA-event times,
-    each launch on the next layer of the pool, as the layers of a step
-    walk it, and device times with a cold L2; each case's launch plan
-    (body, position splits) in ops/paged_attention.py held to the built
-    kernel's. No library call computes the function (NO_LIBRARY_PAGED)."""
-    page, rows = 128, {}
-    for (name, B, L, Hkv, G, C, D, max_pages, starts, lengths, dt,
-         quant) in CHUNKED_CASES:
+def chunked_vs_plain(pa, dev, gen, card, phase="i", cases=CHUNKED_CASES,
+                     beside=None):
+    """P3 against its plain version, one case (CHUNKED_CASES' columns) a
+    row; phase i at the shapes of the slice's path (the speculative verify
+    step, chunked prefill, the d768 config, a ragged batch with a length-0
+    row, int8 pools). One launch counted; CUDA-event times, each launch on
+    the next layer of the pool, as the layers of a step walk it, and
+    device times with a cold L2; each case's launch plan (body, position
+    splits) in ops/paged_attention.py held to the built kernel's. With
+    ``beside`` (a head dim), also the cold-L2 time of that D's instance at
+    the same shape (``d{beside}_cold_ms``). No library call computes the
+    function (NO_LIBRARY_PAGED)."""
+    rows = {}
+    for (name, B, L, Hkv, G, C, D, page, max_pages, starts, lengths, dt,
+         quant) in cases:
         lengths = lengths or [s + C for s in starts]
         kv_dt = torch.int8 if quant else dt
         plan = pa.p3_plan(dt, kv_dt, B, Hkv * G, Hkv, C, D, page, max_pages)
         if pa.p3_kernel_plan(dt, kv_dt, B, Hkv * G, Hkv, C, D, page,
                              max_pages) != plan:
-            fail(f"phase i {name}: P3's launch plan in "
+            fail(f"phase {phase} {name}: P3's launch plan in "
                  f"ops/paged_attention.py {plan} is not the kernel's")
         P = B * max_pages + 5
-        shape = (L, Hkv, P, page, D)
         q = torch.randn(B, Hkv * G, C, D, generator=gen, device=dev).to(dt)
-        if quant:
-            kp, vp, ks, vs = int8_pools(shape, dev, gen)
-        else:
-            kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                      for _ in range(2))
-            ks = vs = None
+        kind = "int8" if quant else _dt(dt)
+        kp, vp, ks, vs = kv_pools(kind, (L, Hkv, P, page, D), dev, gen)
         table = torch.randperm(P, generator=gen, device=dev)[:B * max_pages]
         table = table.view(B, max_pages).to(torch.int32)
         st = torch.tensor(starts, dtype=torch.int32, device=dev)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         sc = dict(k_scales=ks, v_scales=vs)
+        n0 = pa.paged_attention_chunked.launches
         got = pa.paged_attention_chunked(q, kp, vp, table, ln, st,
                                          layer=L - 1, **sc)
         torch.cuda.synchronize()
         what = (f"P3 {name} {_dt(dt)} q{'/int8 KV' if quant else ''} B{B} "
                 f"Hkv{Hkv} G{G} C{C} D{D} page{page} layer{L - 1}/{L}")
+        if pa.paged_attention_chunked.launches != n0 + 1:
+            fail(f"phase {phase} {what}: the kernel did not launch once")
         err = compare(got, pa.paged_attention_chunked_plain(
             q, kp, vp, table, ln, st, layer=L - 1, **sc), what)
         if 0 in lengths and got[lengths.index(0)].any():
@@ -1510,57 +1531,114 @@ def chunked_vs_plain(pa, dev, gen, card):
             q, kp, vp, table, ln, st, layer=next(layers) % L, **sc),
             iters=8, warmup=1)
         n_live, kv_live = chunked_live(starts, lengths, C)
-        bms, by = paged_bound(dt, 1 if quant else kp.element_size(), D,
-                              Hkv * G, Hkv, n_live, kv_live, quant, B * C)
-        before = CUDA_CORE_P3_MS.get(name)
-        print(f"phase i {what} [body {plan.body}, {plan.splits} position "
-              f"split(s) of {plan.split_len}, grid {plan.grid}"
+        bms, by = paged_bound(dt, kp.element_size(), D, Hkv * G, Hkv,
+                              n_live, kv_live, quant, B * C)
+        row = rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bms, bound_by=by, body=plan.body,
+                                splits=plan.splits, cold_ms=cold)
+        del q, kp, vp, ks, vs
+        if beside:
+            q = torch.randn(B, Hkv * G, C, beside, generator=gen,
+                            device=dev).to(dt)
+            kp, vp, ks, vs = kv_pools(kind, (2, Hkv, P, page, beside), dev,
+                                      gen)
+            row[f"d{beside}_cold_ms"] = cold_ms(
+                lambda: pa.paged_attention_chunked(
+                    q, kp, vp, table, ln, st, layer=1, k_scales=ks,
+                    v_scales=vs))
+            del q, kp, vp, ks, vs
+        before = CUDA_CORE_P3_MS.get(name) if D == 128 else None
+        print(f"phase {phase} {what} [body {plan.body}, {plan.splits} "
+              f"position split(s) of {plan.split_len}, grid {plan.grid}"
               f"{', a combine launch' if plan.splits > 1 else ''}]: max abs "
               f"err {err} (atol/rtol {TOL[dt]}); kernel {ms:.4f} ms"
               + (f" (CUDA cores before: {before} ms)" if before
                  and plan.body == "wgmma" else "")
-              + f", device time with a cold L2 {cold:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library none, bound {bms:.4f} ms ({by}; "
-              f"{100 * bms / ms:.1f}% of it) [{card}]", flush=True)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bms, bound_by=by, body=plan.body,
-                          splits=plan.splits, device_ms_cold_l2=cold)
-        del q, kp, vp, ks, vs
+              + f", device time with a cold L2 {cold:.4f} ms"
+              + (f" (D {beside} at the same shape: "
+                 f"{row[f'd{beside}_cold_ms']:.4f} ms)" if beside else "")
+              + f", plain {plain_ms:.4f} ms, library none, bound {bms:.4f} "
+              f"ms ({by}; {100 * bms / ms:.1f}% of it) [{card}]", flush=True)
     torch.cuda.empty_cache()
     return rows
 
 
-def paged_int8(pa, dev, gen, card):
-    """Phase j: P1 on int8 pools against its plain version (a ragged batch
-    and the serving shape), then the KV-bound decode of ROADMAP Queue 1
-    item 8: the 0.77B llama's widths (16 layers, 8 kv heads, hd 128, 2
-    query heads per kv head), B 16 at context 2048, bf16 pools against
-    int8 pools; kernel µs and GB/s of KV read."""
-    page, rows = 128, {}
-    for name, B, L, Hkv, G, D, max_pages, lengths, quant in [
-            ("ragged int8", 8, 4, 8, 2, 128, 8,
-             [0, 1, 127, 128, 129, 1000, 640, 1024], True),
-            ("serving int8", 8, 16, 8, 2, 128, 9, [1056] * 8, True),
-            ("KV-bound bf16", 16, 16, 8, 2, 128, 16, [2048] * 16, False),
-            ("KV-bound int8", 16, 16, 8, 2, 128, 16, [2048] * 16, True)]:
-        P = B * max_pages + 5
-        shape = (L, Hkv, P, page, D)
-        q = torch.randn(B, Hkv * G, D, generator=gen,
-                        device=dev).to(torch.bfloat16)
-        if quant:
-            kp, vp, ks, vs = int8_pools(shape, dev, gen)
-        else:
-            kp, vp = (torch.randn(shape, generator=gen, device=dev)
-                      .to(torch.bfloat16) for _ in range(2))
-            ks = vs = None
+# q and pool dtypes of each pool kind
+KV_KINDS = {"bf16": (torch.bfloat16, torch.bfloat16),
+            "int8": (torch.bfloat16, torch.int8),
+            "f32": (torch.float32, torch.float32)}
+# phase j, P1 on int8 pools (a ragged batch, the serving shape) and the
+# KV-bound decode of ROADMAP Queue 1 item 8 (the 0.77B llama's widths: 16
+# layers, 8 kv heads of 128, 2 query heads a kv head, B 16 at context
+# 2048) on bf16 and int8 pools: (name, B, L, Hkv, G, D, page, max_pages,
+# lengths, pool kind, mode, window, sinks); mode "full", "window" (window
+# + sinks) or "ring" (the table's pages a ring, pos_meta from ring_meta)
+J_CASES = [
+    ("ragged int8", 8, 4, 8, 2, 128, 128, 8,
+     [0, 1, 127, 128, 129, 1000, 640, 1024], "int8", "full", 0, 0),
+    ("serving int8", 8, 16, 8, 2, 128, 128, 9, [1056] * 8, "int8", "full",
+     0, 0),
+    ("KV-bound bf16", 16, 16, 8, 2, 128, 128, 16, [2048] * 16, "bf16",
+     "full", 0, 0),
+    ("KV-bound int8", 16, 16, 8, 2, 128, 128, 16, [2048] * 16, "int8",
+     "full", 0, 0)]
+
+
+def kv_pools(kind, shape, dev, gen):
+    """(k, v, k_scales, v_scales) of pool kind ``kind``: N(0, 1) pools in
+    its dtype, or int8 quantized from them with their scales."""
+    if kind == "int8":
+        return int8_pools(shape, dev, gen)
+    dt = KV_KINDS[kind][1]
+    return (*(torch.randn(shape, generator=gen, device=dev).to(dt)
+              for _ in range(2)), None, None)
+
+
+def _p1_counts(pa):
+    f = pa.paged_attention
+    return (f.launches, f.int8_launches, f.window_launches, f.ring_launches)
+
+
+def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None):
+    """P1 against its plain version, one case (J_CASES' columns) a row: the
+    call's launch counted in its mode, a length-0 row's zeros, the launch
+    plan in ops/paged_attention.py held to the built kernel's; CUDA-event
+    times back to back (each launch on the next layer, as a decode step's
+    layers walk the pool) and with a cold L2, plain's time, the bound on
+    the positions the call attends and the GB/s of K/V read. With
+    ``beside`` (a head dim), also the cold-L2 time of that D's instance at
+    the same B, Hkv, context and mode (``d{beside}_cold_ms``)."""
+    rows = {}
+    for (name, B, L, Hkv, G, D, page, max_pages, lengths, kind, mode, window,
+         sinks) in cases:
+        qdt, kdt = KV_KINDS[kind]
+        quant, ring = kind == "int8", mode == "ring"
+        P, cap = B * max_pages + 5, page * max_pages
         table = torch.randperm(P, generator=gen, device=dev)[:B * max_pages]
         table = table.view(B, max_pages).to(torch.int32)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        sc = dict(k_scales=ks, v_scales=vs)
+        opts = {} if mode == "full" else dict(window=window, sinks=sinks)
+        if ring:
+            opts["pos_meta"] = ring_meta(table, lengths, page, sinks, P)
+        args = (qdt, kdt, B, Hkv * G, Hkv, D, page, max_pages, window, sinks,
+                ring)
+        plan = pa.p1_plan(*args)
+        what = (f"P1 {name} D{D} {kind} pools, {_dt(qdt)} q, B{B} Hkv{Hkv} "
+                f"G{G} page{page} x{max_pages} layer{L - 1}/{L} {mode}"
+                + (f" (window {window}, sinks {sinks})" if opts else ""))
+        if pa.p1_kernel_plan(*args) != plan:
+            fail(f"phase {phase} {what}: p1_plan {plan} is not the kernel's")
+        q = torch.randn(B, Hkv * G, D, generator=gen, device=dev).to(qdt)
+        kp, vp, ks, vs = kv_pools(kind, (L, Hkv, P, page, D), dev, gen)
+        sc = dict(k_scales=ks, v_scales=vs, **opts)
+        n0 = _p1_counts(pa)
         got = pa.paged_attention(q, kp, vp, table, ln, layer=L - 1, **sc)
         torch.cuda.synchronize()
-        what = (f"P1 {name} pools, bf16 q B{B} Hkv{Hkv} G{G} D{D} "
-                f"page{page} layer{L - 1}/{L}")
+        want_n = (n0[0] + 1, n0[1] + quant, n0[2] + (mode == "window"),
+                  n0[3] + ring)
+        if _p1_counts(pa) != want_n:
+            fail(f"phase {phase} {what}: launches {_p1_counts(pa)}, want "
+                 f"{want_n}")
         err = compare(got, pa.paged_attention_plain(
             q, kp, vp, table, ln, layer=L - 1, **sc), what)
         if 0 in lengths and got[lengths.index(0)].any():
@@ -1573,27 +1651,65 @@ def paged_int8(pa, dev, gen, card):
             warmup=1)
         cold = cold_ms(lambda: pa.paged_attention(q, kp, vp, table, ln,
                                                   layer=L - 1, **sc))
-        splits = pa.p1_plan(torch.bfloat16, kp.dtype, B, Hkv * G, Hkv, D,
-                            page, max_pages).splits
-        bms, by = paged_bound(torch.bfloat16, kp.element_size(), D, Hkv * G,
-                              Hkv, [max(x, 0) for x in lengths], lengths,
-                              quant, B)
-        kv_gb = sum(lengths) * Hkv * (2 * D * kp.element_size()
-                                      + (8 if quant else 0)) / 1e9
-        print(f"phase j {what}: max abs err {err} (atol/rtol "
-              f"{TOL[torch.bfloat16]}); kernel {1e3 * ms:.1f} µs back to "
-              f"back ({kv_gb / ms * 1e3:.0f} GB/s of KV), {1e3 * cold:.1f} "
-              f"µs cold L2 ({kv_gb / cold * 1e3:.0f} GB/s; {splits} position "
-              f"splits), plain {plain_ms:.4f} ms, bound {1e3 * bms:.1f} µs "
-              f"({by}; {100 * bms / cold:.1f}% of it cold) [{card}]",
-              flush=True)
-        rows[name] = dict(max_abs_err=err, ms=ms, cold_ms=cold,
-                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                          kv_gb_per_s=kv_gb / ms * 1e3,
-                          kv_gb_per_s_cold=kv_gb / cold * 1e3, splits=splits)
+        live = pa._live(table.long(), ln, cap, opts.get("window", 0), sinks,
+                        opts.get("pos_meta")).sum(1).tolist()
+        bms, by = paged_bound(qdt, kp.element_size(), D, Hkv * G, Hkv, live,
+                              live, quant, B, 4 * sum(
+                                  min(n, cap) for n in lengths) if ring else 0)
+        kv_gb = sum(live) * Hkv * (2 * D * kp.element_size()
+                                   + (8 if quant else 0)) / 1e9
+        row = rows[name] = dict(
+            max_abs_err=err, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, kv_gb_per_s=kv_gb / ms * 1e3,
+            kv_gb_per_s_cold=kv_gb / cold * 1e3, splits=plan.splits)
         del q, kp, vp, ks, vs
+        if beside:
+            q = torch.randn(B, Hkv * G, beside, generator=gen,
+                            device=dev).to(qdt)
+            kp, vp, ks, vs = kv_pools(kind, (2, Hkv, P, page, beside), dev,
+                                      gen)
+            row[f"d{beside}_cold_ms"] = cold_ms(lambda: pa.paged_attention(
+                q, kp, vp, table, ln, layer=1, k_scales=ks, v_scales=vs,
+                **opts))
+            del q, kp, vp, ks, vs
+        print(f"phase {phase} {what}: max abs err {err} (atol/rtol "
+              f"{TOL[qdt]}); kernel {1e3 * ms:.1f} µs back to back "
+              f"({kv_gb / ms * 1e3:.0f} GB/s of KV), {1e3 * cold:.1f} µs cold "
+              f"L2 ({kv_gb / cold * 1e3:.0f} GB/s; {plan.splits} position "
+              f"splits)" + (f", D {beside} at the same B, Hkv and context "
+                            f"{1e3 * row[f'd{beside}_cold_ms']:.1f} µs cold"
+                            if beside else "")
+              + f"; plain {plain_ms:.4f} ms, bound {1e3 * bms:.1f} µs ({by}; "
+              f"{100 * bms / cold:.1f}% of it cold) [{card}]", flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+def _paged_counts(fa, pa):
+    return {"flash_attention": fa.flash_attention.launches,
+            "paged_attention": pa.paged_attention.launches,
+            "paged_attention_int8": pa.paged_attention.int8_launches,
+            "paged_attention_window": pa.paged_attention.window_launches,
+            "paged_attention_ring": pa.paged_attention.ring_launches,
+            "paged_attention_chunked": pa.paged_attention_chunked.launches}
+
+
+def _reset_paged(fa, pa):
+    fa.flash_attention.launches = pa.paged_attention.launches = 0
+    pa.paged_attention.int8_launches = 0
+    pa.paged_attention.window_launches = 0
+    pa.paged_attention.ring_launches = 0
+    pa.paged_attention_chunked.launches = 0
+
+
+def _check_paged(fa, pa, what, want):
+    """The launches since the last reset: each kernel's count as ``want``
+    says (0 where it says nothing)."""
+    got = _paged_counts(fa, pa)
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{what}: kernel launches {got}, want {want}")
+    return got
 
 
 def greedy_ref(llama, model, prompt, steps, max_pages, page, kernels=True):
@@ -1847,37 +1963,18 @@ def serve_slice(llama, pa, fa, dev, card):
         0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
     out = {}
 
-    def reset():
-        fa.flash_attention.launches = pa.paged_attention.launches = 0
-        pa.paged_attention.int8_launches = 0
-        pa.paged_attention_chunked.launches = 0
-
-    def counts():
-        return {"flash_attention": fa.flash_attention.launches,
-                "paged_attention": pa.paged_attention.launches,
-                "paged_attention_int8": pa.paged_attention.int8_launches,
-                "paged_attention_chunked":
-                    pa.paged_attention_chunked.launches}
-
-    def check(what, want):
-        got = counts()
-        want = {k: want.get(k, 0) for k in got}
-        if got != want:
-            fail(f"{what}: kernel launches {got}, want {want}")
-        return got
-
     # -- chunked prefill against the one-shot prefill
     c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
     llama.prefill_chunked(model, c1, prompt, 256)           # warm
     c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
-    reset()
+    _reset_paged(fa, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     l_chunk, c1 = llama.prefill_chunked(model, c1, prompt, 256)
     torch.cuda.synchronize()
     chunk_s = time.perf_counter() - t0
-    n_chunked = check("phase k chunked prefill",
-                      {"paged_attention_chunked": L * S // 256})
+    n_chunked = _check_paged(fa, pa, "phase k chunked prefill",
+                             {"paged_attention_chunked": L * S // 256})
     c2 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1920,9 +2017,10 @@ def serve_slice(llama, pa, fa, dev, card):
     c2 = dataclasses.replace(c1, k=c1.k.clone(), v=c1.v.clone())
     nxt = torch.from_numpy(np.random.default_rng(6).integers(
         0, cfg.vocab, (B, gamma + 1), dtype=np.int32)).to(dev)
-    reset()
+    _reset_paged(fa, pa)
     l_chunk, c1 = llama.decode_chunk(model, c1, nxt)
-    check("phase k decode_chunk", {"paged_attention_chunked": L})
+    _check_paged(fa, pa, "phase k decode_chunk",
+                 {"paged_attention_chunked": L})
     l_steps = []
     for i in range(gamma + 1):
         lg, c2 = llama.decode_step(model, c2, nxt[:, i])
@@ -1956,13 +2054,13 @@ def serve_slice(llama, pa, fa, dev, card):
                                    page)
     c1 = llama.init_kv_cache(cfg, B, max_pages, page, dev)
     _, c1 = llama.prefill(model, c1, prompt)
-    reset()
+    _reset_paged(fa, pa)
     err_tf = teacher_forced_verify(llama, model, c1, want, want_logits,
                                    gamma + 1, "phase k teacher-forced verify",
                                    BF16_PATH_TOL)
     del c1
-    check("phase k teacher-forced verify",
-          {"paged_attention_chunked": L * -(-steps // (gamma + 1))})
+    _check_paged(fa, pa, "phase k teacher-forced verify",
+                 {"paged_attention_chunked": L * -(-steps // (gamma + 1))})
     print(f"phase k teacher-forced verify: generate's {steps} tokens fed "
           f"through decode_chunk in chunks of {gamma + 1} after the "
           f"{S}-token prompt; every position's logits against the decode "
@@ -2000,7 +2098,7 @@ def serve_slice(llama, pa, fa, dev, card):
     m8 = llama.Llama(cfg8, device=dev)
     m8.load_state_dict(model.state_dict())
     c8 = llama.init_kv_cache(cfg8, B, max_pages, page, dev)
-    reset()
+    _reset_paged(fa, pa)
     logits, c8 = llama.prefill(m8, c8, prompt)
     diffs = []
     torch.cuda.synchronize()
@@ -2010,7 +2108,7 @@ def serve_slice(llama, pa, fa, dev, card):
         logits, c8 = llama.decode_step(m8, c8, want[:, i])
     torch.cuda.synchronize()
     int8_s = time.perf_counter() - t0
-    n8 = check("phase k int8 serve", {
+    n8 = _check_paged(fa, pa, "phase k int8 serve", {
         "flash_attention": L, "paged_attention": L * steps,
         "paged_attention_int8": L * steps})
     q = torch.randn(B, cfg.n_heads, cfg.head_dim, generator=torch.Generator(
@@ -2038,14 +2136,14 @@ def serve_slice(llama, pa, fa, dev, card):
     rng = np.random.default_rng(10)
     reqs = cb_requests(rng, cfg.vocab, 16, 512, 200, 16, 64)
     slots, num_pages, table_w = 8, 14, 7
-    reset()
+    _reset_paged(fa, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, st = continuous_batching(llama, model, reqs, slots, num_pages,
                                    page, table_w, dev)
     torch.cuda.synchronize()
     cb_s = time.perf_counter() - t0
-    ncb = check("phase k continuous batching", {
+    ncb = _check_paged(fa, pa, "phase k continuous batching", {
         "paged_attention": L * st["steps"],
         "paged_attention_chunked": L * st["prefill_chunks"]})
     n_tok = sum(len(t) for t in toks)
@@ -4198,26 +4296,29 @@ Z_F32 = dict(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4, n_layers=8,
              d_ff=2048, seq=512, use_framework_kernels=False)
 
 
-def with_cfg(llama, model, cfg, dev):
-    """A model of ``cfg`` holding ``model``'s weights (the StreamingLLM
-    options change no weight)."""
-    m = llama.Llama(cfg, device=dev)
-    m.load_state_dict(model.state_dict())
+def with_cfg(llama, model, cfg):
+    """``model`` under ``cfg``, its weights shared (the serving options
+    change no weight: no copy of them); ``cfg`` checked as ``Llama(cfg)``
+    checks it."""
+    llama.check_supported(cfg)
+    m = copy.copy(model)
+    m.cfg = cfg
     return m
 
 
 def ring_meta(table, length, page, sinks, P):
     """pos_meta (P, page) of a ring whose rows (``table``) each decoded
-    ``length`` tokens: slot j of a row's table order holds j below the
-    sinks, else the newest t with sinks + (t - sinks) % (capacity - sinks)
-    == j; -1 where none came."""
+    ``length`` tokens (or row b ``length[b]``): slot j of a row's table
+    order holds j below the sinks, else the newest t with sinks + (t -
+    sinks) % (capacity - sinks) == j; -1 where none came."""
     cap = table.shape[1] * page
     ring = cap - sinks
-    j = np.arange(min(length, cap))
-    t = np.where(j < sinks, j, j + (length - 1 - j) // ring * ring)
     meta = np.full((P, page), -1, np.int32)
     tab = table.cpu().numpy()
-    for b in range(tab.shape[0]):
+    lens = [length] * tab.shape[0] if np.isscalar(length) else length
+    for b, n in enumerate(lens):
+        j = np.arange(min(n, cap))
+        t = np.where(j < sinks, j, j + (n - 1 - j) // ring * ring)
         meta[tab[b, j // page], j % page] = t
     return torch.from_numpy(meta).to(table.device)
 
@@ -4346,34 +4447,14 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
     prompt = torch.from_numpy(np.random.default_rng(19).integers(
         0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
 
-    def reset():
-        fa.flash_attention.launches = pa.paged_attention.launches = 0
-        pa.paged_attention.int8_launches = 0
-        pa.paged_attention.window_launches = 0
-        pa.paged_attention.ring_launches = 0
-        pa.paged_attention_chunked.launches = 0
-
-    def check(what, want):
-        got = {"flash_attention": fa.flash_attention.launches,
-               "paged_attention": pa.paged_attention.launches,
-               "paged_attention_int8": pa.paged_attention.int8_launches,
-               "paged_attention_window": pa.paged_attention.window_launches,
-               "paged_attention_ring": pa.paged_attention.ring_launches,
-               "paged_attention_chunked":
-                   pa.paged_attention_chunked.launches}
-        want = {k: want.get(k, 0) for k in got}
-        if got != want:
-            fail(f"{what}: kernel launches {got}, want {want}")
-        return got
-
     # -- z1: windowed serving through generate
-    reset()
+    _reset_paged(fa, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = llama.generate(model, prompt, steps, pages, page)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    n1 = check("phase z1 windowed generate", {
+    n1 = _check_paged(fa, pa, "phase z1 windowed generate", {
         "flash_attention": L, "paged_attention": L * steps,
         "paged_attention_window": L * steps})
     if toks.shape != (B, steps) or not ((toks >= 0)
@@ -4416,18 +4497,18 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
     rcfg = dataclasses.replace(cfg, attn_window=r["window"],
                                attn_sinks=r["sinks"], ring_cache=True)
     ucfg = dataclasses.replace(rcfg, ring_cache=False)
-    rmodel, umodel = (with_cfg(llama, model, c, dev) for c in (rcfg, ucfg))
+    rmodel, umodel = (with_cfg(llama, model, c) for c in (rcfg, ucfg))
     del model
     first = torch.from_numpy(np.random.default_rng(20).integers(
         0, cfg.vocab, (r["B"],), dtype=np.int32)).to(dev)
     rc = llama.init_kv_cache(rcfg, r["B"], r["pages"], r["page"], dev)
-    reset()
+    _reset_paged(fa, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rtoks, rlogits = stream_steps(llama, rmodel, rc, first, r["steps"])
     torch.cuda.synchronize()
     ring_ms = 1e3 * (time.perf_counter() - t0) / r["steps"]
-    n2 = check("phase z2 ring decode", {
+    n2 = _check_paged(fa, pa, "phase z2 ring decode", {
         "paged_attention": L * r["steps"],
         "paged_attention_ring": L * r["steps"]})
     if rc.k.shape[2] != r["B"] * r["pages"] or \
@@ -4435,10 +4516,10 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
         fail("phase z2: the ring grew or lost count")
     uc = llama.init_kv_cache(ucfg, r["B"], r["unbounded_pages"], r["page"],
                              dev)
-    reset()
+    _reset_paged(fa, pa)
     _, ulogits = stream_steps(llama, umodel, uc, None, r["steps"],
                               feed=rtoks)
-    nu = check("phase z2 unbounded windowed decode", {
+    nu = _check_paged(fa, pa, "phase z2 unbounded windowed decode", {
         "paged_attention": L * r["steps"],
         "paged_attention_window": L * r["steps"]})
     err_r = compare(rlogits, ulogits, "phase z2 ring logits against the "
@@ -4468,7 +4549,7 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
     fprompt = torch.from_numpy(np.random.default_rng(21).integers(
         0, fcfg.vocab, (fz["B"], fz["S"]), dtype=np.int32)).to(dev)
     errs = {}
-    reset()
+    _reset_paged(fa, pa)
     runs = {}
     for kernels in (True, False):
         c = llama.init_kv_cache(fcfg, fz["B"], fz["pages"], fz["page"], dev)
@@ -4477,7 +4558,7 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
         runs[kernels] = (*stream_steps(
             llama, fmodel, c, lg.argmax(-1).to(torch.int32), fz["steps"],
             feed=feed, kernels=kernels), lg.float())
-    n3w = check("phase z3 windowed f32", {
+    n3w = _check_paged(fa, pa, "phase z3 windowed f32", {
         "flash_attention": fcfg.n_layers,
         "paged_attention": fcfg.n_layers * fz["steps"],
         "paged_attention_window": fcfg.n_layers * fz["steps"]})
@@ -4485,14 +4566,14 @@ def streaming_serve(llama, pa, fa, dev, gen, card):
     errs["windowed steps"] = (runs[True][1] - runs[False][1]).abs().max()
     rfcfg = dataclasses.replace(fcfg, attn_window=fr["window"],
                                 attn_sinks=fr["sinks"], ring_cache=True)
-    rf, uf = (with_cfg(llama, fmodel, c, dev) for c in (
+    rf, uf = (with_cfg(llama, fmodel, c) for c in (
         rfcfg, dataclasses.replace(rfcfg, ring_cache=False)))
     first = torch.from_numpy(np.random.default_rng(22).integers(
         0, fcfg.vocab, (fr["B"],), dtype=np.int32)).to(dev)
-    reset()
+    _reset_paged(fa, pa)
     c = llama.init_kv_cache(rfcfg, fr["B"], fr["pages"], fr["page"], dev)
     ftoks, fk = stream_steps(llama, rf, c, first, fr["steps"])
-    n3r = check("phase z3 ring f32", {
+    n3r = _check_paged(fa, pa, "phase z3 ring f32", {
         "paged_attention": fcfg.n_layers * fr["steps"],
         "paged_attention_ring": fcfg.n_layers * fr["steps"]})
     c = llama.init_kv_cache(rfcfg, fr["B"], fr["pages"], fr["page"], dev)
@@ -4952,6 +5033,446 @@ def flash_options(llama, fa, cu, ex_attn, dev, gen, card):
     return out
 
 
+# -- phase zb: serving at head dim 96 (P1 and P3's D 96 instances) -----------
+
+D96 = 96
+# zb1, P1 at D 96 (J_CASES' columns): Phi-3-mini's serving decode (32 kv
+# heads of one query head: 256 blocks, one split) at context 1056; B 1 at
+# 4096 (8 splits); G 4 on pages of 16 and G 8 on pages of 7, ragged with a
+# length-0 row; pages of 1. Each layout (name, B, L, Hkv, G, page,
+# max_pages, lengths, (window, sinks)) in full, window + sinks and ring
+# mode on bf16, int8 and f32 pools; a ring row's length is its length
+# plus half the table's capacity (its slots recycled), a length 0 stays 0
+ZB_P1 = [
+    (f"{name} {kind} {mode}", B, L, Hkv, G, D96, page, mp,
+     [n + page * mp // 2 if n and mode == "ring" else n for n in lens],
+     kind, mode, *(opts if mode != "full" else (0, 0)))
+    for name, B, L, Hkv, G, page, mp, lens, opts in [
+        ("phi3 serve", 8, 4, 32, 1, 128, 9, [1056] * 8, (512, 4)),
+        ("phi3 B1 ctx4096", 1, 2, 32, 1, 128, 33, [4096], (2000, 4)),
+        ("G4 page16 ragged", 6, 2, 4, 4, 16, 20, [0, 1, 63, 64, 65, 300],
+         (100, 20)),
+        ("G8 page7 ragged", 5, 2, 2, 8, 7, 40, [0, 7, 70, 129, 280],
+         (50, 9)),
+        ("G2 page1", 3, 2, 4, 2, 1, 300, [0, 150, 300], (64, 3))]
+    for kind in KV_KINDS for mode in ("full", "window", "ring")]
+# zb1, P3 at D 96 (CHUNKED_CASES' columns): the verify step (C 5,
+# decode-shaped: its positions split), chunked prefill from 0 and from 768
+# at Phi-3-mini's widths; a ragged G 4 batch on pages of 7 with a
+# length-0 row; each on bf16, int8 and f32 pools
+ZB_P3 = [
+    (f"{name} {kind}", B, L, Hkv, G, C, D96, page, mp, starts, lens,
+     KV_KINDS[kind][0], kind == "int8")
+    for name, B, L, Hkv, G, C, page, mp, starts, lens in [
+        ("verify", 8, 4, 32, 1, 5, 128, 9, [1051] * 8, None),
+        ("prefill start 0", 8, 4, 32, 1, 256, 128, 9, [0] * 8, None),
+        ("prefill start 768", 8, 4, 32, 1, 256, 128, 9, [768] * 8, None),
+        ("ragged G4 page7", 4, 2, 2, 4, 16, 7, 40, [0, 1, 127, 200],
+         [0, 17, 143, 216])]
+    for kind in KV_KINDS]
+# zb2: the llama at Phi-3-mini's widths (PHI3), bf16, 32 layers: B 8 x a
+# 1024-token prompt, 32 greedy steps, chunks of 256, the verify step of
+# gamma + 1 tokens, 4 beams of 16 tokens after the first prompt; windowed
+# (phase z1's sinks 4 and window 2000 after a 4096-token prompt) and on a
+# ring (phase z2's 17 pages of 16, sinks 16, window 240, 320 steps from an
+# empty cache)
+PHI3_SERVE = dict(B=8, S=1024, steps=32, page=128, pages=9, chunk=256,
+                  gamma=4, beams=4, beam_steps=16)
+PHI3_STREAM = dict(B=4, S=4096, steps=16, page=128, pages=33, sinks=4,
+                   window=2000)
+PHI3_RING = dict(B=8, steps=320, page=16, pages=17, sinks=16, window=240)
+# speculative decoding's drafts as phase k chooses them: the model itself,
+# and a small llama of the target's vocabulary (here also its head dim)
+PHI3_DRAFT = dict(vocab=32064, d_model=768, n_heads=8, n_kv_heads=8,
+                  n_layers=4, d_ff=2048, dtype="bfloat16",
+                  use_framework_kernels=False)
+# zb3: f32 exactness at full width, 2 layers: B 2 x a 200-token prompt on
+# pages of 16, 24 greedy steps, a verify chunk of 5, chunked prefill in
+# chunks of 64, 150 windowed steps (sinks 4, window 64) and 150 on a ring
+# of 9 pages (sinks 16, window 112) from an empty cache, 4 beams of 16
+# tokens after the first prompt
+PHI3_EXACT = dict(layers=2, B=2, S=200, steps=24, C=5, page=16, pages=16,
+                  chunk=64, stream_steps=150, window=64, sinks=4,
+                  ring_pages=9, ring_sinks=16, ring_window=112, beams=4,
+                  beam_steps=16)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phi3_serve(llama, pa, fa, dev, card):
+    """Phase zb2: the llama at Phi-3-mini's widths served at full depth in
+    bf16 through its entry points, each path's P1 and P3 launches counted
+    from 0 against what it must make: ``generate`` (B 8 x 1024 + 32 steps;
+    ms/step, tok/s, peak memory), ``prefill_chunked`` in chunks of 256, a
+    ``decode_chunk`` verify of 5 tokens, ``speculative_generate`` with a
+    self-draft and a small draft (tokens equal to greedy up to the first
+    near tie, as phase k), ``beam_generate``, an int8 cache, windowed and
+    ring decode."""
+    t = PHI3_SERVE
+    cfg = llama.LlamaConfig(**PHI3, seq=t["S"], dtype="bfloat16",
+                            use_framework_kernels=False)
+    L, B, S, steps, page, pages = (cfg.n_layers, t["B"], t["S"], t["steps"],
+                                   t["page"], t["pages"])
+    # what earlier phases leave allocated, apart from this path's peak
+    base = torch.cuda.memory_allocated() / 2**30
+    model = llama.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    out = {}
+    tag = f"llama at Phi-3-mini's widths ({n_params / 1e9:.3f}B bf16)"
+
+    # generate: prefill + steps greedy
+    torch.cuda.reset_peak_memory_stats()
+    _reset_paged(fa, pa)
+    toks, gen_s = _timed(lambda: llama.generate(model, prompt, steps, pages,
+                                                page))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_gen = _check_paged(fa, pa, "phase zb2 generate", {
+        "flash_attention": L, "paged_attention": L * steps})
+    if toks.shape != (B, steps) or not ((toks >= 0)
+                                        & (toks < cfg.vocab)).all():
+        fail(f"phase zb2 generate: bad tokens {tuple(toks.shape)}")
+    cache = llama.init_kv_cache(cfg, B, pages, page, dev)
+    (logits, cache), prefill_s = _timed(lambda: llama.prefill(model, cache,
+                                                              prompt))
+    if not torch.isfinite(logits.float()).all():
+        fail("phase zb2: non-finite prefill logits")
+    (again, _), decode_s = _timed(lambda: stream_steps(
+        llama, model, cache, logits.argmax(-1).to(torch.int32), steps))
+    if not torch.equal(again, toks):
+        fail("phase zb2: the warm re-run gave other tokens than generate")
+    step_ms = 1e3 * decode_s / steps
+    del cache
+    print(f"phase zb2 serve {tag}: d{cfg.d_model}, {L} layers, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}: {B} x {S} prompt + {steps} greedy "
+          f"steps; generate {gen_s:.3f} s cold; warm prefill {prefill_s:.4f} "
+          f"s ({B * S / prefill_s:.0f} prompt tok/s), decode {step_ms:.3f} "
+          f"ms/step ({1e3 * B / step_ms:.1f} tok/s); peak memory "
+          f"{peak - base:.2f} GiB for the path (weights, cache, "
+          f"activations) over {base:.2f} GiB that earlier phases left "
+          f"allocated; launches {n_gen} [{card}]", flush=True)
+    out["generate"] = dict(generate_s=gen_s, prefill_s=prefill_s,
+                           ms_step=step_ms, tok_s=1e3 * B / step_ms,
+                           peak_gib=peak - base, launches=n_gen,
+                           params_b=n_params / 1e9)
+
+    want, want_logits = greedy_ref(llama, model, prompt, steps, pages, page)
+    if not torch.equal(want, toks):
+        fail("phase zb2: generate's greedy stream written out differs")
+
+    # beam_generate after the first prompt, its beams forked on the pages
+    nb, bsteps = t["beams"], t["beam_steps"]
+    _reset_paged(fa, pa)
+    (btoks, bscores), beam_s = _timed(lambda: llama.beam_generate(
+        model, prompt[0], bsteps, beams=nb, page=page))
+    n_beam = _check_paged(fa, pa, "phase zb2 beam_generate", {
+        "flash_attention": L, "paged_attention": L * (bsteps - 1)})
+    if btoks.shape != (nb, S + bsteps) or not torch.equal(
+            btoks[:, :S], prompt[:1].expand(nb, S)) or not torch.isfinite(
+            bscores).all() or (bscores[1:] > bscores[:-1]).any():
+        fail(f"phase zb2 beam_generate: beams {tuple(btoks.shape)} lost "
+             f"the prompt or scores {bscores.tolist()} are not finite and "
+             "descending")
+    print(f"phase zb2 beam_generate {tag}: {nb} beams of {bsteps} tokens "
+          f"after a {S}-token prompt, {beam_s:.3f} s "
+          f"({1e3 * beam_s / bsteps:.2f} ms a token, the prefill "
+          f"included); scores {[round(x, 3) for x in bscores.tolist()]}; "
+          f"launches {n_beam} [{card}]", flush=True)
+    out["beam"] = dict(s=beam_s, scores=bscores.tolist(), launches=n_beam)
+
+    # prefill_chunked in chunks of 256, against the one-shot prefill
+    c1 = llama.init_kv_cache(cfg, B, pages, page, dev)
+    _reset_paged(fa, pa)
+    (l_chunk, c1), chunk_s = _timed(lambda: llama.prefill_chunked(
+        model, c1, prompt, t["chunk"]))
+    n_chunk = _check_paged(fa, pa, "phase zb2 prefill_chunked", {
+        "paged_attention_chunked": L * S // t["chunk"]})
+    if not torch.isfinite(l_chunk.float()).all():
+        fail("phase zb2 prefill_chunked: non-finite logits")
+    d_chunk = (l_chunk.float() - want_logits[:, 0]).abs().max().item()
+    del c1
+    print(f"phase zb2 prefill_chunked {tag}: {B} x {S} in chunks of "
+          f"{t['chunk']}, {chunk_s:.4f} s ({B * S / chunk_s:.0f} prompt "
+          f"tok/s); last logits against the one-shot prefill's (A1, padded "
+          f"to 128): max abs diff {d_chunk:.4f} (bf16 rounding through {L} "
+          f"layers; exactness is zb3's); launches {n_chunk} [{card}]",
+          flush=True)
+    out["prefill_chunked"] = dict(s=chunk_s, logit_diff=d_chunk,
+                                  launches=n_chunk)
+
+    # the verify step: decode_chunk of gamma + 1 tokens after the prompt
+    g = t["gamma"]
+    c1 = llama.init_kv_cache(cfg, B, pages, page, dev)
+    _, c1 = llama.prefill(model, c1, prompt)
+    _reset_paged(fa, pa)
+    (l5, c1), verify_s = _timed(lambda: llama.decode_chunk(
+        model, c1, want[:, :g + 1]))
+    n_verify = _check_paged(fa, pa, "phase zb2 decode_chunk", {
+        "paged_attention_chunked": L})
+    # the logits after chunk token i are the decode steps' after token i
+    d_verify = (l5.float() - want_logits[:, 1:g + 2]).abs().max().item()
+    prof = {}
+    for name, fn in (
+            ("decode step", lambda m, tk: llama.decode_step(
+                m, c1, tk[:, 0])[0].float().sum()),
+            ("verify step (decode_chunk of 5)", lambda m, tk: llama.
+             decode_chunk(m, c1, tk)[0].float().sum())):
+        p = profile_step(fn, model, want[:, g + 1:2 * g + 2])
+        if p is None:
+            print(f"phase zb2 profile of one {name}: the trace holds no "
+                  "device time; not measured", flush=True)
+            continue
+        wall, busy, groups, _ = p
+        prof[name] = dict(wall_ms=wall, busy_ms=busy, groups=groups)
+        print(f"phase zb2 profile of one {name} {tag}, B {B} at context "
+              f"{int(c1.lengths.max())}: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms (idle {100 - 100 * busy / wall:.1f}%); device "
+              f"ms by group "
+              f"{ {k: round(v, 3) for k, v in sorted(groups.items())} } "
+              f"[{card}]", flush=True)
+    del c1
+    print(f"phase zb2 decode_chunk {tag}: a verify step of {g + 1} tokens "
+          f"(generate's) after the {S}-token prompt in {1e3 * verify_s:.2f} "
+          f"ms; logits against the decode steps' max abs diff {d_verify:.4f}"
+          f"; launches {n_verify} [{card}]", flush=True)
+    out["verify"] = dict(ms=1e3 * verify_s, logit_diff=d_verify,
+                         launches=n_verify, profile=prof)
+
+    # speculative decoding, the drafts as phase k chooses them
+    spec = {}
+    draft_cfg = llama.LlamaConfig(**PHI3_DRAFT)
+    for name, draft in (("self-draft", model),
+                        ("d768 draft", llama.init_params(draft_cfg, seed=3,
+                                                         device=dev))):
+        what = f"phase zb2 speculative {name}"
+        _, acc, secs, rounds, st = speculative_checked(
+            llama, pa, fa, model, draft, prompt, steps, g, pages, page, want,
+            want_logits, BF16_GAP, name == "self-draft", what)
+        print(f"{what} {tag} (draft head dim {draft.cfg.head_dim}): {B} x "
+              f"{steps} tokens, gamma {g}: {rounds} rounds in {secs:.3f} s "
+              f"({B * steps / secs:.1f} tok/s), mean acceptance {acc:.3f}; "
+              f"{st['rejections']} rejections (largest logit gap "
+              f"{st['max_rejection_gap']:.4f}, tolerance {BF16_GAP}); tokens "
+              f"equal generate's up to the first near tie (prefix "
+              f"{st['prefix_min']}..{steps}); launches {st['launches']} "
+              f"[{card}]", flush=True)
+        spec[name] = dict(tok_s=B * steps / secs, acceptance=acc,
+                          rounds=rounds, **st)
+        del draft
+    out["speculative"] = spec
+    del want_logits
+
+    # int8 KV, fed generate's tokens
+    m8 = with_cfg(llama, model, dataclasses.replace(cfg, kv_dtype="int8"))
+    c8 = llama.init_kv_cache(m8.cfg, B, pages, page, dev)
+    _reset_paged(fa, pa)
+    lg8, c8 = llama.prefill(m8, c8, prompt)
+    _, s8 = _timed(lambda: stream_steps(llama, m8, c8, None, steps,
+                                        feed=want))
+    n8 = _check_paged(fa, pa, "phase zb2 int8 KV", {
+        "flash_attention": L, "paged_attention": L * steps,
+        "paged_attention_int8": L * steps})
+    agree8 = (lg8.argmax(-1) == want[:, 0]).float().mean().item()
+    del m8, c8
+    torch.cuda.empty_cache()
+    print(f"phase zb2 int8 KV {tag}: {B} x {S} prompt + {steps} steps fed "
+          f"generate's tokens, {1e3 * s8 / steps:.3f} ms/step "
+          f"({B * steps / s8:.1f} tok/s); first token equal to the bf16 "
+          f"cache's in {agree8:.3f} of the rows; launches {n8} [{card}]",
+          flush=True)
+    out["int8"] = dict(ms_step=1e3 * s8 / steps, launches=n8)
+
+    # windowed decode: phase z1's sinks and window after a 4096-token prompt
+    z = PHI3_STREAM
+    mw = with_cfg(llama, model, dataclasses.replace(
+        cfg, attn_window=z["window"], attn_sinks=z["sinks"]))
+    pw = torch.from_numpy(np.random.default_rng(42).integers(
+        0, cfg.vocab, (z["B"], z["S"]), dtype=np.int32)).to(dev)
+    cw = llama.init_kv_cache(mw.cfg, z["B"], z["pages"], z["page"], dev)
+    _reset_paged(fa, pa)
+    lw, cw = llama.prefill(mw, cw, pw)
+    (_, lgw), sw = _timed(lambda: stream_steps(
+        llama, mw, cw, lw.argmax(-1).to(torch.int32), z["steps"]))
+    nw = _check_paged(fa, pa, "phase zb2 windowed decode", {
+        "flash_attention": L, "paged_attention": L * z["steps"],
+        "paged_attention_window": L * z["steps"]})
+    if not torch.isfinite(lgw).all():
+        fail("phase zb2 windowed decode: non-finite logits")
+    del mw, cw, pw, lgw
+    torch.cuda.empty_cache()
+    print(f"phase zb2 windowed decode {tag} (sinks {z['sinks']}, window "
+          f"{z['window']}): {z['B']} x {z['S']} prompt (full-attention "
+          f"prefill) + {z['steps']} windowed steps at "
+          f"{1e3 * sw / z['steps']:.3f} ms/step "
+          f"({z['B'] * z['steps'] / sw:.1f} tok/s); launches {nw} [{card}]",
+          flush=True)
+    out["window"] = dict(ms_step=1e3 * sw / z["steps"], launches=nw)
+
+    # ring decode: phase z2's ring, from an empty cache past its capacity
+    r = PHI3_RING
+    mr = with_cfg(llama, model, dataclasses.replace(
+        cfg, attn_window=r["window"], attn_sinks=r["sinks"], ring_cache=True))
+    rc = llama.init_kv_cache(mr.cfg, r["B"], r["pages"], r["page"], dev)
+    first = torch.from_numpy(np.random.default_rng(43).integers(
+        0, cfg.vocab, (r["B"],), dtype=np.int32)).to(dev)
+    _reset_paged(fa, pa)
+    (_, lgr), sr = _timed(lambda: stream_steps(llama, mr, rc, first,
+                                               r["steps"]))
+    nr = _check_paged(fa, pa, "phase zb2 ring decode", {
+        "paged_attention": L * r["steps"],
+        "paged_attention_ring": L * r["steps"]})
+    if rc.k.shape[2] != r["B"] * r["pages"] or int(rc.lengths.min()) != \
+            r["steps"] or not torch.isfinite(lgr).all():
+        fail("phase zb2 ring decode: the ring grew, lost count or gave "
+             "non-finite logits")
+    del mr, rc, lgr
+    print(f"phase zb2 ring decode {tag} (sinks {r['sinks']}, window "
+          f"{r['window']}, {r['pages']} pages of {r['page']}): {r['B']} rows "
+          f"x {r['steps']} steps from an empty cache, "
+          f"{1e3 * sr / r['steps']:.3f} ms/step; launches {nr} [{card}]",
+          flush=True)
+    out["ring"] = dict(ms_step=1e3 * sr / r["steps"], launches=nr)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phi3_exactness(llama, pa, fa, dev, card):
+    """Phase zb3: the llama at Phi-3-mini's widths in f32 with 2 layers,
+    kernels against the plain route: prefill and decode-step logits (the
+    plain run fed the kernels' tokens), a verify chunk, chunked prefill,
+    windowed and ring decode within LOGIT_TOL; beam search's beams equal
+    and its scores within LOGIT_TOL; the kernels' greedy tokens equal the
+    plain route's own up to the first near tie (LOGIT_TOL)."""
+    e = PHI3_EXACT
+    cfg = llama.LlamaConfig(**dict(PHI3, n_layers=e["layers"]),
+                            seq=e["S"], use_framework_kernels=False)
+    L, B, steps = cfg.n_layers, e["B"], e["steps"]
+    model = llama.init_params(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(44)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, e["S"]),
+                                           dtype=np.int32)).to(dev)
+    chunk5 = torch.from_numpy(rng.integers(0, cfg.vocab, (B, e["C"]),
+                                           dtype=np.int32)).to(dev)
+    first = prompt[:, -1]
+    runs, errs = {}, {}
+    for kernels in (True, False):
+        _reset_paged(fa, pa)
+        c = llama.init_kv_cache(cfg, B, e["pages"], e["page"], dev)
+        lg, c = llama.prefill(model, c, prompt, kernels=kernels)
+        feed = runs[True]["toks"] if not kernels else None
+        toks, lgs = stream_steps(llama, model, c,
+                                 lg.argmax(-1).to(torch.int32), steps,
+                                 feed=feed, kernels=kernels)
+        l5, _ = llama.decode_chunk(model, c, chunk5, kernels=kernels)
+        cc = llama.init_kv_cache(cfg, B, e["pages"], e["page"], dev)
+        lcp, _ = llama.prefill_chunked(model, cc, prompt, e["chunk"],
+                                       kernels=kernels)
+        streams = []
+        for over, pages in ((dict(attn_window=e["window"],
+                                  attn_sinks=e["sinks"]), e["pages"]),
+                            (dict(attn_window=e["ring_window"],
+                                  attn_sinks=e["ring_sinks"],
+                                  ring_cache=True), e["ring_pages"])):
+            m = with_cfg(llama, model, dataclasses.replace(cfg, **over))
+            cs = llama.init_kv_cache(m.cfg, B, pages, e["page"], dev)
+            fs = runs[True]["stream_toks"][len(streams)] if not kernels \
+                else None
+            streams.append(stream_steps(llama, m, cs, first,
+                                        e["stream_steps"], feed=fs,
+                                        kernels=kernels))
+        n = _paged_counts(fa, pa)
+        runs[kernels] = dict(lg=lg.float(), toks=toks, lgs=lgs, l5=l5.float(),
+                             lcp=lcp.float(), stream_toks=[s[0] for s in
+                                                           streams],
+                             stream_lgs=[s[1] for s in streams], launches=n)
+    ns = e["stream_steps"]
+    want_n = {"flash_attention": L, "paged_attention": L * (steps + 2 * ns),
+              "paged_attention_window": L * ns,
+              "paged_attention_ring": L * ns, "paged_attention_int8": 0,
+              "paged_attention_chunked": L * (1 + -(-e["S"] // e["chunk"]))}
+    if runs[True]["launches"] != want_n:
+        fail(f"phase zb3: kernel launches {runs[True]['launches']}, want "
+             f"{want_n}")
+    if any(runs[False]["launches"].values()):
+        fail(f"phase zb3: the plain route launched {runs[False]['launches']}")
+    k, p = runs[True], runs[False]
+    errs = {"prefill": (k["lg"] - p["lg"]).abs().max().item(),
+            "decode steps": (k["lgs"] - p["lgs"]).abs().max().item(),
+            "verify chunk": (k["l5"] - p["l5"]).abs().max().item(),
+            "prefill_chunked": (k["lcp"] - p["lcp"]).abs().max().item(),
+            "windowed steps": (k["stream_lgs"][0]
+                               - p["stream_lgs"][0]).abs().max().item(),
+            "ring steps": (k["stream_lgs"][1]
+                           - p["stream_lgs"][1]).abs().max().item()}
+    bad = {n: v for n, v in errs.items() if not v <= LOGIT_TOL}
+    if bad:
+        fail(f"phase zb3: logits differ by more than {LOGIT_TOL}: {bad}")
+
+    # beam search from the first prompt, kernels against the plain route
+    beams = {}
+    for kernels in (True, False):
+        _reset_paged(fa, pa)
+        beams[kernels] = llama.beam_generate(
+            model, prompt[0], e["beam_steps"], beams=e["beams"],
+            page=e["page"], kernels=kernels)
+        _check_paged(fa, pa, "phase zb3 beam_generate", {
+            "flash_attention": L * kernels,
+            "paged_attention": L * (e["beam_steps"] - 1) * kernels})
+    (tk_b, sk_b), (tp_b, sp_b) = beams[True], beams[False]
+    errs["beam scores"] = (sk_b - sp_b).abs().max().item()
+    if not torch.equal(tk_b, tp_b) or errs["beam scores"] > LOGIT_TOL:
+        fail(f"phase zb3 beam_generate: kernels against the plain route, "
+             f"beams equal {torch.equal(tk_b, tp_b)}, scores differ by "
+             f"{errs['beam scores']} (tol {LOGIT_TOL})")
+    # greedy tokens: the plain route's own run, against the kernels'
+    ptoks, plgs = greedy_ref(llama, model, prompt, steps, e["pages"],
+                             e["page"], kernels=False)
+    prefix, agree = tie_prefix(k["toks"], ptoks, plgs, LOGIT_TOL,
+                               "phase zb3 greedy tokens, kernels against "
+                               "the plain route")
+    print(f"phase zb3 exactness llama at Phi-3-mini's widths, f32, {L} "
+          f"layers: {B} x {e['S']} prompt + {steps} greedy steps, a verify "
+          f"chunk of {e['C']}, prefill_chunked in chunks of {e['chunk']}, "
+          f"{ns} windowed (sinks {e['sinks']}, window {e['window']}) and "
+          f"{ns} ring steps (sinks {e['ring_sinks']}, window "
+          f"{e['ring_window']}, {e['ring_pages']} pages of {e['page']}), "
+          f"{e['beams']} beams of {e['beam_steps']} tokens (beams equal), "
+          f"kernels against plain fed the same tokens: max abs err {errs} "
+          f"(tol {LOGIT_TOL}); greedy tokens equal the plain route's up to "
+          f"the first near tie (prefix {min(prefix)}..{steps}, agreeing from "
+          f"the start {agree}); launches {runs[True]['launches']} [{card}]",
+          flush=True)
+    del model, runs
+    torch.cuda.empty_cache()
+    return dict(errs, launches=k["launches"], tie_prefix_min=min(prefix))
+
+
+def serve_d96(llama, pa, fa, dev, gen, card):
+    """Phase zb: serving at head dim 96 on the card. zb1 P1's and P3's
+    D 96 instances against their plain versions (ZB_P1, ZB_P3), timed
+    beside the D 128 instances, zb2 the llama at Phi-3-mini's widths
+    served at full depth in bf16 (``phi3_serve``), zb3 its f32 exactness
+    with 2 layers (``phi3_exactness``)."""
+    t0 = time.perf_counter()
+    out = dict(p1=p1_vs_plain(pa, dev, gen, card, "zb1", ZB_P1, beside=128),
+               p3=chunked_vs_plain(pa, dev, gen, card, "zb1", ZB_P3,
+                                   beside=128))
+    out["serve"] = phi3_serve(llama, pa, fa, dev, card)
+    out["exact"] = phi3_exactness(llama, pa, fa, dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase zb took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5254,7 +5775,7 @@ def main():
     i_rows = chunked_vs_plain(pa, dev, gen, card)
 
     # -- phase j: paged decode on int8 pools against plain; KV-bound decode -
-    j_rows = paged_int8(pa, dev, gen, card)
+    j_rows = p1_vs_plain(pa, dev, gen, card, "j", J_CASES)
 
     # -- phase k: the slice's path at full width (llama 0.77B bf16) ---------
     k_out = serve_slice(llama, pa, fa, dev, card)
@@ -5316,6 +5837,9 @@ def main():
 
     # -- phase za: flash attention's options (A1/A3/A4 masked, A8) -----------
     za = flash_options(llama, fa, cu, ex_attn, dev, gen, card)
+
+    # -- phase zb: serving at head dim 96 (P1 and P3 at D 96, Phi-3-mini) ----
+    zb = serve_d96(llama, pa, fa, dev, gen, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
@@ -5426,6 +5950,17 @@ def main():
                    other_cases=others, **extra)
 
     c1 = y_rows["bf16 32x56x56x64->64"]
+    zb_serve = zb["serve"]
+
+    def zb_row(name, source, replaces, n, main, table, library, **extra):
+        # a D 96 row: the main case's numbers, every other case beside them
+        r = table[main]
+        return row(name, source, replaces, n, r, library,
+                   library=NO_LIBRARY_PAGED,
+                   **{k: r[k] for k in ("cold_ms", "d128_cold_ms", "splits")},
+                   other_cases={k: v for k, v in table.items() if k != main},
+                   **extra)
+
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
             "cubecl_tpu/ops/attention.py:76", launches["flash_attention"],
@@ -5492,10 +6027,10 @@ def main():
                         "not counted in launches)",
                 "f32": "paged_chunked_kernel<float, TK, D> (CUDA cores)"},
             splits={n: r["splits"] for n, r in i_rows.items()},
-            device_ms_cold_l2=i_rows["verify"]["device_ms_cold_l2"],
+            device_ms_cold_l2=i_rows["verify"]["cold_ms"],
             **{name.replace(" ", "_"): {f: i_rows[name][f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "body", "splits", "device_ms_cold_l2")}
+                "body", "splits", "cold_ms")}
                for name in ("prefill start 0", "prefill start 768",
                             "ragged", "d768", "verify int8",
                             "prefill int8 start 768")}),
@@ -5770,6 +6305,50 @@ def main():
                         "as constants of an earlier run",
             **{k.replace(" ", "_"): v for k, v in y_rows.items()
                if k != "bf16 32x56x56x64->64"}),
+        zb_row("paged_attention_d96",
+               "cubecl_tpu_torch/csrc/paged_attention.cu",
+               "cubecl_tpu/ops/paged_attention.py:247",
+               zb_serve["generate"]["launches"]["paged_attention"],
+               "phi3 serve bf16 full", zb["p1"], None,
+               shape="bf16 B8 Hkv32 G1 D96 context 1056 (Phi-3-mini), "
+                     "4-layer pool (ms: back to back, each launch on the "
+                     "next layer)",
+               kernel_symbols="paged_decode_kernel<T, TK, 96> (window: "
+                              "paged_window_kernel, ring: "
+                              "paged_ring_kernel), then "
+                              "paged_combine_kernel<T, 96> where split",
+               launches_path="phase zb2: generate, 8 x 1024 + 32 steps, "
+                             "32 layers",
+               window_launches=zb_serve["window"]["launches"][
+                   "paged_attention_window"],
+               ring_launches=zb_serve["ring"]["launches"][
+                   "paged_attention_ring"],
+               phi3_serve=zb_serve, exactness_f32=zb["exact"],
+               phase_seconds=zb["seconds"]),
+        zb_row("paged_attention_int8_d96",
+               "cubecl_tpu_torch/csrc/paged_attention.cu",
+               "cubecl_tpu/ops/paged_attention.py:247",
+               zb_serve["int8"]["launches"]["paged_attention_int8"],
+               "phi3 serve int8 full", zb["p1"], None,
+               shape="int8 KV, bf16 q, B8 Hkv32 G1 D96 context 1056",
+               launches_path="phase zb2: int8 KV, 8 x 1024 + 32 steps"),
+        zb_row("paged_attention_chunked_d96",
+               "cubecl_tpu_torch/csrc/paged_chunked.cu",
+               "cubecl_tpu/ops/paged_attention.py:675",
+               zb_serve["prefill_chunked"]["launches"][
+                   "paged_attention_chunked"]
+               + zb_serve["verify"]["launches"]["paged_attention_chunked"]
+               + sum(v["launches"]["paged_attention_chunked"]
+                     for v in zb_serve["speculative"].values()),
+               "verify bf16", zb["p3"], None,
+               shape="verify: bf16 B8 Hkv32 G1 C5 D96 context 1056",
+               kernel_symbols={
+                   "bf16": "paged_chunked_wgmma_kernel<96, QUANT> (D 128's "
+                           "128-byte panels, columns 96..127 unused), then "
+                           "paged_combine_kernel<bf16, 96> where split",
+                   "f32": "paged_chunked_kernel<float, TK, 96>"},
+               launches_path="phase zb2: prefill_chunked, the verify step "
+                             "and speculative decoding's verify rounds"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

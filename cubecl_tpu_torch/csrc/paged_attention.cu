@@ -49,6 +49,17 @@
 //   at j ^ 4, so that the 8 lanes of a 16-byte load hit 32 banks. For P V
 //   each lane owns D / 32 output columns of every query row and reads V's
 //   8 rows of the warp, the probabilities by shuffle.
+// - D 96 (Phi-3-mini's head dim; the pools stay (..., 96), with no padding
+//   read or held): a row is 12 chunks (bf16), 24 (f32) or 6 (int8). Its
+//   quarter is 3 or 6 chunks, or for int8 2 chunks in quarters 0 and 1
+//   and one in 2 and 3. The slots (Slots96): f32 rows (384 bytes) swizzle
+//   as above; bf16 rows (192 bytes) put odd rows 64 bytes over already;
+//   int8 rows (96 bytes) rotate the chunks of even rows by 2 (j at (j + 2)
+//   % 6), which gives each 8-lane phase of a load its 8 bank groups. For
+//   P V a lane owns columns lane, lane + 32 and lane + 64 (three 4-, 2- or
+//   1-byte reads a row, neighbouring lanes on neighbouring addresses). f32
+//   pools, whose 147 KB of shared memory hold one block an SM, let ptxas
+//   use the SM's registers (P1MinBlocks): at its default 128 they spilled.
 // What holds it back: the f32 products and shuffles per position (G of
 // each) run on the CUDA cores; at B * Hkv near one wave the split is 1 and
 // the tail of the wave idles.
@@ -96,6 +107,7 @@ constexpr int kSmSmem = 233472;  // shared memory of an SM (228 KB)
 constexpr int kModeFull = 0;
 constexpr int kModeWindow = 1;
 constexpr int kModeRing = 2;
+
 
 // dynamic shared memory: q (MAXG x D f32), then the warps' rings (a
 // stage: WR K rows, WR V rows, for int8 their WR K and WR V scales, for
@@ -168,6 +180,41 @@ struct WindowTiles {
   }
 };
 
+// D 96's slots: the 16-byte slot of chunk j of a row, from the row's
+// shift (`shift`): j ^ shift where a row is a multiple of 128 bytes (f32),
+// j (bf16: shift 0), or (j + shift) % 6 (int8: 2 on even rows, 0 on odd)
+template <typename TK>
+struct Slots96 {
+  static constexpr int kRow = 96 * (int)sizeof(TK);
+  static constexpr int kChunks = kRow / 16;
+  __device__ __forceinline__ static int shift(int row) {
+    if constexpr (kRow % 128 == 0) return (row & 1) * 4;
+    else if constexpr (kChunks == 6) return (row & 1) ? 0 : 2;
+    else return 0;
+  }
+  __device__ __forceinline__ static int slot(int j, int shift) {
+    if constexpr (kChunks == 6) {
+      return j + shift < 6 ? j + shift : j + shift - 6;
+    } else {
+      return j ^ shift;
+    }
+  }
+  // P V: the element at column d of a row that starts at `row`
+  __device__ __forceinline__ static float at(const uint8_t* row, int shift,
+                                             int d) {
+    const int byte = d * (int)sizeof(TK);
+    // a shift of chunks within 8-chunk groups is the byte offset's XOR
+    const int off = kChunks == 6 ? slot(byte / 16, shift) * 16 + byte % 16
+                                 : byte ^ (shift << 4);
+    const TK x = *reinterpret_cast<const TK*>(row + off);
+    if constexpr (std::is_same<TK, int8_t>::value) {
+      return static_cast<float>(x);
+    } else {
+      return to_float(x);
+    }
+  }
+};
+
 // the body of the three kernels below, for MODE; part (splits > 1): per
 // (b, kv head, split, query row g < G) the row's unnormalised f32
 // accumulator (D), then its m and l
@@ -183,8 +230,12 @@ __device__ __forceinline__ void paged_decode_body(
   using L = P1Smem<TK, D, MODE>;
   constexpr bool QUANT = L::kQuant;
   constexpr int EPC = Chunk<TK>::N;    // elements per 16-byte chunk
+  constexpr bool D96 = D == 96;        // the slots and columns of Slots96
+  using S96 = Slots96<TK>;
+  static_assert(D == 64 || D == 96 || D == 128,
+                "P1 is built for D 64, 96 and 128");
   constexpr int RC = L::kRow / 16;     // chunks per row
-  constexpr int CPT = RC / 4;          // chunks per lane: a quarter row
+  constexpr int CPT = (RC + 3) / 4;    // chunks per lane: a quarter row
   constexpr int SWZ = RC >= 8 ? 4 : 0;  // odd rows: chunk j at j ^ SWZ
   constexpr int CW = D / 32;           // P V: output columns per lane
   static_assert(CPT >= 1, "a quarter row must hold one 16-byte chunk");
@@ -224,7 +275,7 @@ __device__ __forceinline__ void paged_decode_body(
   const int* tab = table + (int64_t)b * max_pages;
 
   const int p = lane / 4, quarter = lane % 4;  // score phase
-  const int swz = (p & 1) * SWZ;
+  const int swz = D96 ? S96::shift(p) : (p & 1) * SWZ;
   uint8_t* ring = smem + L::kRing + warp * STAGES * L::kStage;
   const uint32_t ring_s = smem_addr(ring);
 
@@ -253,9 +304,12 @@ __device__ __forceinline__ void paged_decode_body(
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int j = c * 4 + quarter;
-      cp_async16_zfill(kd + (j ^ swz) * 16, kpool + row * D + j * EPC, ok);
-      cp_async16_zfill(kd + WR * L::kRow + (j ^ swz) * 16,
-                       vpool + row * D + j * EPC, ok);
+      if (RC % 4 == 0 || j < RC) {  // int8 D 96: quarters 2, 3 hold one
+        const int at = D96 ? S96::slot(j, swz) : (j ^ swz);
+        cp_async16_zfill(kd + at * 16, kpool + row * D + j * EPC, ok);
+        cp_async16_zfill(kd + WR * L::kRow + at * 16,
+                         vpool + row * D + j * EPC, ok);
+      }
     }
     if constexpr (QUANT) {
       if (quarter < 2) {
@@ -304,14 +358,17 @@ __device__ __forceinline__ void paged_decode_body(
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int j = c * 4 + quarter;
-      float kx[EPC];
-      Chunk<TK>::load(krow + (j ^ swz) * EPC, kx);
+      if (RC % 4 == 0 || j < RC) {
+        float kx[EPC];
+        Chunk<TK>::load(krow + (D96 ? S96::slot(j, swz) : (j ^ swz)) * EPC,
+                        kx);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G)
+        for (int g = 0; g < MAXG; ++g)
+          if (g < G)
 #pragma unroll
-          for (int e = 0; e < EPC; ++e)
-            s[g] = fmaf(qs[g * D + j * EPC + e], kx[e], s[g]);
+            for (int e = 0; e < EPC; ++e)
+              s[g] = fmaf(qs[g * D + j * EPC + e], kx[e], s[g]);
+      }
     }
     bool valid;
     if constexpr (MODE == kModeWindow) {
@@ -368,35 +425,57 @@ __device__ __forceinline__ void paged_decode_body(
 
     // O += P V over the warp's 8 positions: lane owns columns lane * CW..
     const uint8_t* vrows = stage + WR * L::kRow;
-    const int cb = lane * CW * (int)sizeof(TK);  // byte of the lane's columns
+    if constexpr (D96) {
+      // columns lane, lane + 32, lane + 64
 #pragma unroll
-    for (int r = 0; r < WR; ++r) {
-      const uint8_t* vp = vrows + r * L::kRow +
-                          (((cb / 16) ^ ((r & 1) * SWZ)) * 16) + cb % 16;
-      float v[CW];
-      if constexpr (CW == 4) {
-        load4(reinterpret_cast<const TK*>(vp), v);
-      } else if constexpr (std::is_same<TK, float>::value) {
-        const float2 f = *reinterpret_cast<const float2*>(vp);
-        v[0] = f.x;
-        v[1] = f.y;
-      } else if constexpr (std::is_same<TK, __nv_bfloat16>::value) {
-        const float2 f =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp));
-        v[0] = f.x;
-        v[1] = f.y;
-      } else {
-        const char2 c2 = *reinterpret_cast<const char2*>(vp);
-        v[0] = c2.x;
-        v[1] = c2.y;
+      for (int r = 0; r < WR; ++r) {
+        const int sh = S96::shift(r);
+        float v[CW];
+#pragma unroll
+        for (int e = 0; e < CW; ++e)
+          v[e] = S96::at(vrows + r * L::kRow, sh, e * 32 + lane);
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g) {
+          if (g < G) {
+            const float pr_g = __shfl_sync(0xffffffffu, pv[g], r * 4);
+#pragma unroll
+            for (int e = 0; e < CW; ++e)
+              acc[g][e] = fmaf(pr_g, v[e], acc[g][e]);
+          }
+        }
       }
+    } else {
+      // the byte of the lane's columns
+      const int cb = lane * CW * (int)sizeof(TK);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          const float pr_g = __shfl_sync(0xffffffffu, pv[g], r * 4);
+      for (int r = 0; r < WR; ++r) {
+        const uint8_t* vp = vrows + r * L::kRow +
+                            (((cb / 16) ^ ((r & 1) * SWZ)) * 16) + cb % 16;
+        float v[CW];
+        if constexpr (CW == 4) {
+          load4(reinterpret_cast<const TK*>(vp), v);
+        } else if constexpr (std::is_same<TK, float>::value) {
+          const float2 f = *reinterpret_cast<const float2*>(vp);
+          v[0] = f.x;
+          v[1] = f.y;
+        } else if constexpr (std::is_same<TK, __nv_bfloat16>::value) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(vp));
+          v[0] = f.x;
+          v[1] = f.y;
+        } else {
+          const char2 c2 = *reinterpret_cast<const char2*>(vp);
+          v[0] = c2.x;
+          v[1] = c2.y;
+        }
 #pragma unroll
-          for (int e = 0; e < CW; ++e)
-            acc[g][e] = fmaf(pr_g, v[e], acc[g][e]);
+        for (int g = 0; g < MAXG; ++g) {
+          if (g < G) {
+            const float pr_g = __shfl_sync(0xffffffffu, pv[g], r * 4);
+#pragma unroll
+            for (int e = 0; e < CW; ++e)
+              acc[g][e] = fmaf(pr_g, v[e], acc[g][e]);
+          }
         }
       }
     }
@@ -411,7 +490,8 @@ __device__ __forceinline__ void paged_decode_body(
     if (g < G) {
       float* cw = comb + (warp * MAXG + g) * (D + 2);
 #pragma unroll
-      for (int e = 0; e < CW; ++e) cw[lane * CW + e] = acc[g][e];
+      for (int e = 0; e < CW; ++e)
+        cw[D96 ? e * 32 + lane : lane * CW + e] = acc[g][e];
       if (lane == 0) {
         cw[D] = m[g];
         cw[D + 1] = l[g];
@@ -447,9 +527,18 @@ __device__ __forceinline__ void paged_decode_body(
   }
 }
 
+// the launch bounds' least blocks an SM: f32 pools at D 96 (q and the
+// rings: 147 KB of shared memory) hold one block an SM, so ptxas may give
+// their kernels the SM's registers (at its default of 128 they spilled);
+// every other instance keeps the bounds it was built with (0: none)
+template <typename TK, int D>
+struct P1MinBlocks {
+  static constexpr int value = D == 96 && sizeof(TK) == 4 ? 1 : 0;
+};
+
 // the plain decode: every position below the length
 template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(PNT)
+__global__ void __launch_bounds__(PNT, P1MinBlocks<TK, D>::value)
 paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                     const TK* __restrict__ vpool,
                     const float* __restrict__ kscale,
@@ -466,7 +555,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
 
 // window + sinks: positions < sinks and >= len - window (window > 0)
 template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(PNT)
+__global__ void __launch_bounds__(PNT, P1MinBlocks<TK, D>::value)
 paged_window_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                     const TK* __restrict__ vpool,
                     const float* __restrict__ kscale,
@@ -483,7 +572,7 @@ paged_window_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
 
 // the ring: each slot's absolute position in meta (P, page)
 template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(PNT)
+__global__ void __launch_bounds__(PNT, P1MinBlocks<TK, D>::value)
 paged_ring_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                   const TK* __restrict__ vpool,
                   const float* __restrict__ kscale,
@@ -562,6 +651,10 @@ int p1_smem(int dtype, int kv_dtype, int D) {
     return quant ? CUBECL_P1_SMEM(int8_t, 64)
                  : dtype == kF32 ? CUBECL_P1_SMEM(float, 64)
                                  : CUBECL_P1_SMEM(__nv_bfloat16, 64);
+  if (D == 96)
+    return quant ? CUBECL_P1_SMEM(int8_t, 96)
+                 : dtype == kF32 ? CUBECL_P1_SMEM(float, 96)
+                                 : CUBECL_P1_SMEM(__nv_bfloat16, 96);
   if (D == 128)
     return quant ? CUBECL_P1_SMEM(int8_t, 128)
                  : dtype == kF32 ? CUBECL_P1_SMEM(float, 128)
@@ -589,7 +682,8 @@ inline int p1_mode(int window, bool ring) {
 // part: the splits' partial sums where the positions are split,
 // cubecl_paged_decode_plan's plan[6] floats (null where that is 0).
 // Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for a dtype / head_dim / group size this kernel was not built for.
+// for a dtype / head_dim (D 64, 96 and 128 are built) / group size this
+// kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const float* k_scales,
                                    const float* v_scales, const void* table,
@@ -619,12 +713,16 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
   if (dtype == kF32) {
     if (D == 64) return quant ? CUBECL_PAGED(float, int8_t, 64)
                               : CUBECL_PAGED(float, float, 64);
+    if (D == 96) return quant ? CUBECL_PAGED(float, int8_t, 96)
+                              : CUBECL_PAGED(float, float, 96);
     if (D == 128) return quant ? CUBECL_PAGED(float, int8_t, 128)
                                : CUBECL_PAGED(float, float, 128);
   }
   if (dtype == kBF16) {
     if (D == 64) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 64)
                               : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 64);
+    if (D == 96) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 96)
+                              : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 96);
     if (D == 128)
       return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 128)
                    : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 128);

@@ -78,6 +78,17 @@
 //   padding) read zeros and are not stored.
 // Shared memory (D 128): Q 16 KB + 3 stages x (K + V) 32 KB = 112 KB bf16,
 // two blocks an SM; int8: Q + 3 x 16 KB + the converted 32 KB + scales.
+// - D 96 (Phi-3-mini's head dim): the pools stay (..., 96) and no padded
+//   column is read. Its bf16 tiles take D 128's two 128-byte panels, the
+//   second half used (columns 64..95, its last 32 never written): Q K^T
+//   takes six k16 steps, which read none of them; P V is D 128's
+//   m64n128k16 (an MN-major V under the 128-byte swizzle is 64 columns an
+//   atom), whose columns 96..127 are never stored. 112 KB bf16, as D 128.
+//
+// Each D is a template instance of its own (D 64, 96, 128): the entry
+// points and the plan refuse any other D, the body static_asserts its D
+// and the P V product names each accumulator width (wgmma_pv), so no D
+// can fall into another's layout.
 //
 // f32 q: the CUDA cores (paged_chunked_kernel), the first version: one
 // TF32 pass would not hold f32's tolerance (three would: wgmma_gemm.cuh's
@@ -86,6 +97,8 @@
 // kv head, batch row), f32 math from shared memory, and a loop over
 // 64-position tiles that ends at the tile's last live position. At small
 // G*C most of a tile's rows are idle (their threads skip the products).
+// A thread owns output columns tx * 4 + 64 c; at D 96 the columns 64..95
+// are the first 8 tx's (the others skip that group).
 #include <algorithm>
 #include <climits>
 #include <type_traits>
@@ -119,7 +132,9 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                      int Hkv, int C, int layer, int P, int page, int max_pages,
                      float scale_log2) {
   constexpr bool QUANT = std::is_same<TK, int8_t>::value;
-  constexpr int DC = D / 64;  // 4-wide column groups of the output per thread
+  // 4-wide column groups of the output per thread; at D 96 the second
+  // group (columns 64..95) is the first 8 tx's only
+  constexpr int DC = (D + 63) / 64;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][BM]  (q transposed)
   float* Ks = Qs + D * BM;                      // [D][BN]  (k transposed)
@@ -276,14 +291,16 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
         const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          const float4 v4 =
-              *reinterpret_cast<const float4*>(&Vs[n * D + c * 64 + tx * 4]);
-          const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+          if (D % 64 == 0 || c * 64 + tx * 4 < D) {
+            const float4 v4 = *reinterpret_cast<const float4*>(
+                &Vs[n * D + c * 64 + tx * 4]);
+            const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][c * 4 + j] = fmaf(pv[i], vv[j], acc[i][c * 4 + j]);
+              for (int j = 0; j < 4; ++j)
+                acc[i][c * 4 + j] = fmaf(pv[i], vv[j], acc[i][c * 4 + j]);
+          }
         }
       }
     }
@@ -297,9 +314,10 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
     T* orow = o + (qrow0 + r) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
+      if (D % 64 == 0 || c * 64 + tx * 4 < D)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        orow[c * 64 + tx * 4 + j] = from_float<T>(acc[i][c * 4 + j] * inv);
+        for (int j = 0; j < 4; ++j)
+          orow[c * 64 + tx * 4 + j] = from_float<T>(acc[i][c * 4 + j] * inv);
   }
 }
 
@@ -336,12 +354,14 @@ constexpr int kTcFill = 264;     // blocks that fill the H100's 132 SMs twice
 constexpr int kTcPanel = 64 * 128;  // 64 rows x 64 bf16, 128-byte swizzle
 
 // dynamic shared memory: the Q tile, the ring (each stage K then V: bf16
-// tiles of D / 64 panels, or int8 rows of D bytes), for int8 the bf16 K/V
-// tile they are converted into and each stage's K and V scales, and the
-// slack that aligns the base to 1024
+// tiles of (D + 63) / 64 panels, or int8 rows of D bytes), for int8 the
+// bf16 K/V tile they are converted into and each stage's K and V scales,
+// and the slack that aligns the base to 1024
 template <int D, bool QUANT>
 struct TcSmem {
-  static constexpr int kTile = D / 64 * kTcPanel;  // 64 rows of D bf16
+  // 64 rows of D bf16 in 64-column panels (D 96: two, the last 32 columns
+  // unused)
+  static constexpr int kTile = (D + 63) / 64 * kTcPanel;
   static constexpr int kRaw = QUANT ? kTcCols * D : kTile;  // K (or V)
   static constexpr int kQ = 0;
   static constexpr int kRing = kQ + kTile;
@@ -381,6 +401,19 @@ inline TcPlan tc_plan(int B, int Hkv, int GC, int page, int max_pages) {
   return p;
 }
 
+// O (+)= P V for 16 positions: m64nNk16 over the accumulator's N columns
+// (D 96's is N 128), one instance a built N
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_rs_m64n128(d, a, db);
+  } else {
+    static_assert(N == 64, "P3's P V is built for N 64 and 128");
+    wgmma_rs_m64n64(d, a, db);
+  }
+}
+
 // part (splits > 1): per (b, kv head, split, row < G*C) the row's
 // unnormalised f32 accumulator (D), then its m and l
 template <int D, bool QUANT>
@@ -401,6 +434,10 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   using L = TcSmem<D, QUANT>;
   constexpr int kChunks = D * (int)sizeof(TK) / 16;  // 16-byte chunks a row
   constexpr int kEl = 16 / (int)sizeof(TK);          // elements a chunk
+  // the accumulator's columns: D 96 computes D 128's, 96..127 unstored
+  constexpr int DP = (D + 63) / 64 * 64;
+  static_assert(D == 64 || D == 96 || D == 128,
+                "P3's wgmma body is built for D 64, 96 and 128");
   const TK* kpool = static_cast<const TK*>(kpool_);
   const TK* vpool = static_cast<const TK*>(vpool_);
   extern __shared__ uint8_t smem_raw[];
@@ -504,10 +541,10 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     qpos[i] = r < GC ? start + r % C : INT_MAX;
   }
 
-  float acc[D / 2];  // O, (64 x D) f32
+  float acc[DP / 2];  // O, (64 x DP) f32
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
   const uint32_t q_s = s_base + L::kQ;
   uint64_t dq[D / 16];  // Q's descriptors, k16 steps, 4 to a 128-byte panel
 #pragma unroll
@@ -613,7 +650,7 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       l_i[i] = l_i[i] * alpha + rs;
       m_i[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j + 2 * i] *= alpha;
         acc[4 * j + 2 * i + 1] *= alpha;
       }
@@ -653,35 +690,25 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       // f32 rounded to nearest: the tile's P V is summed from zero in its
       // own accumulator and added to O in f32, so that the tensor cores'
       // round-toward-zero sums do not run across the tiles of the range
-      float ot[D / 2];
+      float ot[DP / 2];
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) ot[j] = 0.f;
+      for (int j = 0; j < DP / 2; ++j) ot[j] = 0.f;
       reg_fence(ot);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (D == 128) {
-          wgmma_rs_m64n128(ot, pa[kk], dv[kk]);
-          wgmma_rs_m64n128(ot, pl[kk], dv[kk]);
-        } else {
-          wgmma_rs_m64n64(ot, pa[kk], dv[kk]);
-          wgmma_rs_m64n64(ot, pl[kk], dv[kk]);
-        }
+        wgmma_pv<DP>(ot, pa[kk], dv[kk]);
+        wgmma_pv<DP>(ot, pl[kk], dv[kk]);
       }
       wgmma_commit();
       wgmma_wait0();
       reg_fence(ot);
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] += ot[j];
+      for (int j = 0; j < DP / 2; ++j) acc[j] += ot[j];
     } else {
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (D == 128)
-          wgmma_rs_m64n128(acc, pa[kk], dv[kk]);
-        else
-          wgmma_rs_m64n64(acc, pa[kk], dv[kk]);
-      }
+      for (int kk = 0; kk < 4; ++kk) wgmma_pv<DP>(acc, pa[kk], dv[kk]);
       wgmma_commit();
       wgmma_wait0();
       reg_fence(acc);
@@ -748,6 +775,26 @@ cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+// dynamic shared memory of the body for (dtype, int8 pools, D): each
+// built D a case of its own; -1 for a D that has no instance
+template <int D>
+int p3_smem_of(int dtype, bool quant) {
+  if (dtype == kF32) return chunked_smem_bytes<D>();
+  return quant ? TcSmem<D, true>::kBytes : TcSmem<D, false>::kBytes;
+}
+inline int p3_smem(int dtype, bool quant, int D) {
+  switch (D) {
+    case 64:
+      return p3_smem_of<64>(dtype, quant);
+    case 96:
+      return p3_smem_of<96>(dtype, quant);
+    case 128:
+      return p3_smem_of<128>(dtype, quant);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
 }  // namespace cubecl
 
@@ -759,7 +806,7 @@ cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
 // positions, cubecl_paged_chunked_plan's plan[8] floats (null where that
 // is 0). Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for a dtype / head_dim this kernel was not built
-// for.
+// for (D 64, 96 and 128 are built).
 extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                     const void* v_pages, const float* k_scales,
                                     const float* v_scales, const void* table,
@@ -788,6 +835,8 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
   if (dtype == kF32) {
     if (D == 64) return quant ? CUBECL_CHUNKED(float, int8_t, 64)
                               : CUBECL_CHUNKED(float, float, 64);
+    if (D == 96) return quant ? CUBECL_CHUNKED(float, int8_t, 96)
+                              : CUBECL_CHUNKED(float, float, 96);
     if (D == 128) return quant ? CUBECL_CHUNKED(float, int8_t, 128)
                                : CUBECL_CHUNKED(float, float, 128);
   }
@@ -795,6 +844,9 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
     if (D == 64)
       return quant ? CUBECL_CHUNKED_WG(64, true)
                    : CUBECL_CHUNKED_WG(64, false);
+    if (D == 96)
+      return quant ? CUBECL_CHUNKED_WG(96, true)
+                   : CUBECL_CHUNKED_WG(96, false);
     if (D == 128)
       return quant ? CUBECL_CHUNKED_WG(128, true)
                    : CUBECL_CHUNKED_WG(128, false);
@@ -814,15 +866,18 @@ extern "C" int cubecl_paged_chunked_plan(int dtype, int kv_dtype, int B,
                                          int H, int Hkv, int C, int D,
                                          int page, int max_pages, int* plan) {
   using namespace cubecl;
-  if (Hkv <= 0 || H % Hkv != 0 || C <= 0 || (D != 64 && D != 128) ||
+  if (Hkv <= 0 || H % Hkv != 0 || C <= 0 ||
+      (dtype != kF32 && dtype != kBF16) ||
       (kv_dtype != kI8 && kv_dtype != dtype))
     return cudaErrorInvalidValue;
   const bool quant = kv_dtype == kI8;
+  const int smem = p3_smem(dtype, quant, D);
+  if (smem < 0) return cudaErrorInvalidValue;
   const int GC = (H / Hkv) * C;
   if (dtype == kF32) {
     plan[0] = 0;
     plan[1] = NT;
-    plan[2] = D == 64 ? chunked_smem_bytes<64>() : chunked_smem_bytes<128>();
+    plan[2] = smem;
     plan[3] = (GC + BM - 1) / BM;
     plan[4] = Hkv;
     plan[5] = B;
@@ -831,14 +886,10 @@ extern "C" int cubecl_paged_chunked_plan(int dtype, int kv_dtype, int B,
     plan[8] = 0;
     return 0;
   }
-  if (dtype != kBF16) return cudaErrorInvalidValue;
   const TcPlan p = tc_plan(B, Hkv, GC, page, max_pages);
   plan[0] = 1;
   plan[1] = kTcThreads;
-  plan[2] = D == 64 ? (quant ? TcSmem<64, true>::kBytes
-                             : TcSmem<64, false>::kBytes)
-                    : (quant ? TcSmem<128, true>::kBytes
-                             : TcSmem<128, false>::kBytes);
+  plan[2] = smem;
   plan[3] = p.row_tiles * p.splits;
   plan[4] = Hkv;
   plan[5] = B;

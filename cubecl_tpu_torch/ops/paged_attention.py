@@ -35,11 +35,13 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``_paged_call_headed`` and P2 ``_paged_call_live``) and
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
 ``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
-in {64, 128}, and for decode at most 8 query heads per kv head; anything
-else raises. P1 splits the positions of each (batch row, kv head) over
-blocks where B * Hkv leaves the card idle, copies K and V through the
-table with cp.async into a ring per warp, and combines the splits in a
-second, small launch (:func:`p1_plan`); with a window it walks only the
+in ``PAGED_HEAD_DIMS`` (64, 96, 128: each an instance of its own; D 96 is
+Phi-3-mini's head dim, its pools unpadded), and for decode at most 8 query
+heads per kv head; anything else raises. P1 splits the positions of each
+(batch row, kv head) over blocks where B * Hkv leaves the card idle,
+copies K and V through the table with cp.async into a ring per warp, and
+combines the splits in a second, small launch (:func:`p1_plan`); with a
+window it walks only the
 tiles that hold a live position (:func:`p1_window_tiles`). P3 runs bf16 q
 (bf16 or int8 pools) on the tensor cores
 (``wgmma``, cp.async staging through the table; decode-shaped chunks split
@@ -61,9 +63,12 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import native
-from .attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS, LOG2E
+from .attention import KERNEL_DTYPES, LOG2E
 
 MAX_GROUP = 8  # query heads per kv head the decode kernel takes (csrc MAXG)
+# the head dims P1 and P3 are built for (flash's KERNEL_HEAD_DIMS are 64 and
+# 128; flash at 96 pads to 128, a paged pool is never padded)
+PAGED_HEAD_DIMS = (64, 96, 128)
 
 # P1's body (csrc/paged_attention.cu), for p1_plan: 256 threads (8 warps)
 # a block, 64-position tiles (8 positions a warp), a ring of 3 stages of
@@ -106,10 +111,10 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
     """P1's launch plan for q of ``dtype``, pools of ``kv_dtype`` and the
     options of the call (``ring``: a ``pos_meta`` is given)."""
     if dtype not in KERNEL_DTYPES or kv_dtype not in (dtype, torch.int8) \
-            or D not in (64, 128) or Hkv <= 0 or H % Hkv \
+            or D not in PAGED_HEAD_DIMS or Hkv <= 0 or H % Hkv \
             or H // Hkv > MAX_GROUP or B <= 0 or window < 0 or sinks < 0:
         raise ValueError(f"P1 takes q of {KERNEL_DTYPES}, pools of q's "
-                         f"dtype or int8, D 64 or 128, at most "
+                         f"dtype or int8, D in {PAGED_HEAD_DIMS}, at most "
                          f"{MAX_GROUP} query heads a kv head and a window "
                          f"and sinks >= 0; got {dtype}, {kv_dtype}, D {D}, "
                          f"H {H}, Hkv {Hkv}, window {window}, sinks {sinks}")
@@ -168,8 +173,10 @@ def p1_window_tiles(plan: P1Plan, length: int, split: int, window: int,
 # warpgroup a block owning 64 of the G*C rows, positions staged 64 a stage
 # in a ring of 3 (K then V; int8 as raw rows, converted into one bf16 tile,
 # with their scales); the positions split over blocks where one row tile
-# a (b, kv head) makes fewer than P3_FILL blocks. f32 q on the CUDA cores:
-# 256 threads, a 64-row tile, the f32 tiles in shared memory.
+# a (b, kv head) makes fewer than P3_FILL blocks. A bf16 tile is 64 rows in
+# 64-column panels (D 96: two, as D 128, the last 32 columns unused; the
+# pools are not padded). f32 q on the CUDA cores: 256 threads, a 64-row
+# tile, the f32 tiles in shared memory.
 P3_ROWS = 64
 P3_COLS = 64
 P3_STAGES = 3
@@ -201,10 +208,10 @@ def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
             page: int, max_pages: int) -> P3Plan:
     """P3's launch plan for q of ``dtype`` and pools of ``kv_dtype``."""
     quant = kv_dtype == torch.int8
-    if kv_dtype not in (dtype, torch.int8) or D not in (64, 128) \
+    if kv_dtype not in (dtype, torch.int8) or D not in PAGED_HEAD_DIMS \
             or H % Hkv or C <= 0:
-        raise ValueError(f"P3 takes pools of q's dtype or int8 and D 64 or "
-                         f"128; got {dtype}, {kv_dtype}, D {D}")
+        raise ValueError(f"P3 takes pools of q's dtype or int8 and D in "
+                         f"{PAGED_HEAD_DIMS}; got {dtype}, {kv_dtype}, D {D}")
     GC = H // Hkv * C
     rows = -(-GC // P3_ROWS)
     if dtype == torch.float32:
@@ -213,7 +220,7 @@ def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
                       0, 0)
     if dtype != torch.bfloat16:
         raise ValueError(f"P3 takes q of {KERNEL_DTYPES}; got {dtype}")
-    tile = D * P3_ROWS * 2
+    tile = -(-D // 64) * 64 * P3_ROWS * 2
     raw = P3_COLS * D if quant else tile
     smem = tile + P3_STAGES * 2 * raw + (2 * tile + P3_STAGES * 2 * P3_COLS
                                         * 4 if quant else 0) + 1024
@@ -422,9 +429,9 @@ def _check_kernel_inputs(what, q, k_pages, v_pages, ints, scales, quant):
     if quant and any(s.dtype != torch.float32 or not s.is_contiguous()
                      for s in scales):
         raise ValueError(f"{what} kernel wants contiguous f32 scales")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+    if q.shape[-1] not in PAGED_HEAD_DIMS:
         raise ValueError(f"{what} kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}; got {q.shape[-1]}")
+                         f"{PAGED_HEAD_DIMS}; got {q.shape[-1]}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError(f"{what} kernel wants contiguous pools")
 

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""The plain decode's machine code (P1's ``paged_decode_kernel``) in this
-checkout against another's, on a host with the CUDA toolkit.
+"""The machine code of P1 and P3 in this checkout against another's, on a
+host with the CUDA toolkit.
 
     python3 scripts/p1_sass_diff.py --parent DIR
 
-Compiles ``cubecl_tpu_torch/csrc/paged_attention.cu`` of this checkout and
-of DIR alone (``nvcc -c`` with the port's flags, each against its own
-``csrc`` headers, both at once), reads each object's SASS (``cuobjdump
--sass``) and compares the instructions of every ``paged_decode_kernel``
-instance (addresses and encodings dropped; functions keyed by the name
-after the anonymous namespace, which names the file), and prints each P1
-kernel's registers and spills from ptxas. Exits 1 where an instance's
-SASS differs or is missing; needs nvcc, not a card.
+Compiles ``cubecl_tpu_torch/csrc/paged_attention.cu`` (P1) and
+``paged_chunked.cu`` (P3) of this checkout and of DIR alone (``nvcc -c``
+with the port's flags, each against its own ``csrc`` headers, all four at
+once), reads each object's SASS (``cuobjdump -sass``) and compares the
+instructions of every kernel instance that DIR's object holds (addresses
+and encodings dropped; functions keyed by the name after the anonymous
+namespace, which names the file): P1's ``paged_decode_kernel``,
+``paged_window_kernel`` and ``paged_ring_kernel``, P3's
+``paged_chunked_kernel`` (f32) and ``paged_chunked_wgmma_kernel`` (bf16),
+and each file's ``paged_combine_kernel``. Instances only this checkout
+holds (new head dims) are listed with their registers and spills from
+ptxas. Exits 1 where one of DIR's instances differs or is missing; needs
+nvcc, not a card.
 """
 
 import argparse
@@ -22,6 +27,7 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = ("paged_attention.cu", "paged_chunked.cu")
 
 
 def key(name):
@@ -30,11 +36,11 @@ def key(name):
     return m.group(1) if m else name
 
 
-def compile_tree(nvcc, flags, tree, out):
+def compile_tree(nvcc, flags, tree, source, out):
     csrc = os.path.join(tree, "cubecl_tpu_torch", "csrc")
     return subprocess.Popen(
         [nvcc, *flags, "-I", csrc, "-c", "-o", out,
-         os.path.join(csrc, "paged_attention.cu")],
+         os.path.join(csrc, source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -72,32 +78,40 @@ def read(proc, obj, cuobjdump):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
-                    help="a checkout whose P1 to compare with")
+                    help="a checkout whose P1 and P3 to compare with")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     from cubecl_tpu_torch.utils import native
 
     nvcc = native.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        objs = {n: os.path.join(tmp, f"{n}.o") for n in ("parent", "this")}
-        procs = {n: compile_tree(nvcc, native.NVCC_FLAGS, t, objs[n])
-                 for n, t in (("parent", args.parent), ("this", ROOT))}
-        (pr, pf), (tr, tf) = (read(procs[n], objs[n], cuobjdump)
-                              for n in ("parent", "this"))
-    plain = sorted(n for n in pf if n.startswith("paged_decode_kernel"))
-    same = 0
-    for n in plain:
-        eq = pf[n] == tf.get(n)
-        same += eq
-        print(f"{'same' if eq else 'DIFFERENT'} SASS ({len(pf[n])} "
-              f"instructions): {n}; parent {pr.get(n)}, this {tr.get(n)}")
-    for n in sorted(tf):
-        if n.startswith(("paged_window_kernel", "paged_ring_kernel")):
-            print(f"this: {n}: {tr.get(n)}, {len(tf[n])} instructions")
-    print(f"plain decode: SASS identical in {same} of {len(plain)} "
-          f"instances")
-    return 0 if plain and same == len(plain) else 1
+        jobs = {(t, s): os.path.join(tmp, f"{t}-{s}.o")
+                for t in ("parent", "this") for s in SOURCES}
+        procs = {(t, s): compile_tree(nvcc, native.NVCC_FLAGS,
+                                      args.parent if t == "parent" else ROOT,
+                                      s, obj)
+                 for (t, s), obj in jobs.items()}
+        got = {j: read(procs[j], jobs[j], cuobjdump) for j in jobs}
+    for source in SOURCES:
+        (pr, pf), (tr, tf) = got["parent", source], got["this", source]
+        kinds = {}
+        for n in sorted(pf):
+            eq = pf[n] == tf.get(n)
+            ok &= eq
+            kind = re.match(r"(paged_\w+?_kernel)", n).group(1)
+            same, total = kinds.get(kind, (0, 0))
+            kinds[kind] = (same + eq, total + 1)
+            print(f"{source}: {'same' if eq else 'DIFFERENT'} SASS "
+                  f"({len(pf[n])} instructions): {n}; parent {pr.get(n)}, "
+                  f"this {tr.get(n)}")
+        for n in sorted(set(tf) - set(pf)):
+            print(f"{source}: this only: {n}: {tr.get(n)}, {len(tf[n])} "
+                  f"instructions")
+        print(f"{source}: the parent's instances, SASS identical: " + ", ".join(
+            f"{k} {s} of {t}" for k, (s, t) in sorted(kinds.items())))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -3,14 +3,18 @@
 on one CUDA card, and the serving path that runs P3, measured alike for
 two checkouts.
 
-    python3 scripts/p3_c1_times.py [--tree DIR] [--no-serve]
+    python3 scripts/p3_c1_times.py [--tree DIR] [--no-serve] [--no-c1]
+                                   [--cases i|zb]
 
 Imports ``cubecl_tpu_torch`` from DIR (default: the checkout this script
 is in), so that an older checkout's kernels are timed by the same method
 as this one's; the method and the cases are ``chip_smoke.py``'s of this
 checkout. For P3: every row of ``CHUNKED_CASES`` (phase i: the verify
 step, chunked prefill from 0 and from 768, the d768 f32 case, a ragged
-batch with a length-0 row, int8 verify and prefill), its device time with
+batch with a length-0 row, int8 verify and prefill), or with ``--cases
+zb`` the bf16-q rows of ``ZB_P3`` (phase zb1: head dim 96 on bf16 and
+int8 pools, the verify step, chunked prefill from 0 and from 768 at
+Phi-3-mini's widths, a ragged G 4 batch on pages of 7), its device time with
 a cold L2 (``cold_ms``: each call after a read of 1 GiB), its time back to
 back with each launch on the next layer of the pool (``cuda_ms``), its
 bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, the larger)
@@ -57,20 +61,15 @@ def _margin(cs, got, want):
     return ((g - w).abs() / (atol + rtol * w.abs())).max().item()
 
 
-def p3_times(cs, pa, dev, gen, card):
-    out, page = {}, 128
-    for (name, B, L, Hkv, G, C, D, max_pages, starts, lengths, dt,
-         quant) in cs.CHUNKED_CASES:
+def p3_times(cs, pa, dev, gen, card, cases):
+    out = {}
+    for (name, B, L, Hkv, G, C, D, page, max_pages, starts, lengths, dt,
+         quant) in cases:
         lengths = lengths or [s + C for s in starts]
         P = B * max_pages + 5
-        shape = (L, Hkv, P, page, D)
         q = torch.randn(B, Hkv * G, C, D, generator=gen, device=dev).to(dt)
-        if quant:
-            kp, vp, ks, vs = cs.int8_pools(shape, dev, gen)
-        else:
-            kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                      for _ in range(2))
-            ks = vs = None
+        kp, vp, ks, vs = cs.kv_pools("int8" if quant else cs._dt(dt),
+                                     (L, Hkv, P, page, D), dev, gen)
         table = torch.randperm(P, generator=gen, device=dev)[:B * max_pages]
         table = table.view(B, max_pages).to(torch.int32)
         st = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -139,6 +138,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--no-serve", action="store_true")
+    ap.add_argument("--no-c1", action="store_true")
+    ap.add_argument("--cases", choices=("i", "zb"), default="i")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     if not torch.cuda.is_available():
@@ -160,9 +161,12 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     gen = torch.Generator(device=dev).manual_seed(17)
+    cases = cs.CHUNKED_CASES if args.cases == "i" else [
+        c for c in cs.ZB_P3 if c[-2] == torch.bfloat16]
     out = {"tree": tree, "card": card,
-           "p3": p3_times(cs, pa, dev, gen, card),
-           "c1_f32": c1_times(cs, conv, dev, gen, card)}
+           "p3": p3_times(cs, pa, dev, gen, card, cases)}
+    if not args.no_c1:
+        out["c1_f32"] = c1_times(cs, conv, dev, gen, card)
     if not args.no_serve:
         k = cs.serve_slice(llama, pa, fa, dev, card)
         out["serve"] = {

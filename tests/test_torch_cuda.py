@@ -179,7 +179,7 @@ def _p1_table(g, dev, layout, B):
 
 @pytest.mark.parametrize("layout", list(P1_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("G", [1, 3, 8])
 def test_paged_kernel_matches_plain(dev, dtype, D, G, layout):
     """P1 against its plain version on each of P1_LAYOUTS: the positions
@@ -449,8 +449,10 @@ def _int8_pools(g, dev, shape):
 
 @pytest.mark.parametrize("layout", list(P1_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(6, 2, 2, 64), (3, 4, 8, 128)],
-                         ids=["B6-Hkv2-G2-D64", "B3-Hkv4-G8-D128"])
+@pytest.mark.parametrize("shape", [(6, 2, 2, 64), (3, 4, 8, 128),
+                                   (5, 2, 1, 96), (4, 2, 4, 96)],
+                         ids=["B6-Hkv2-G2-D64", "B3-Hkv4-G8-D128",
+                              "B5-Hkv2-G1-D96", "B4-Hkv2-G4-D96"])
 def test_paged_int8_kernel_matches_plain(dev, dtype, shape, layout):
     """P1 on int8 pools: lengths 0, 1, mid-page, a page boundary and past
     it, and the other P1_LAYOUTS (splits over positions, each position's
@@ -485,6 +487,9 @@ P1_REPEAT_CASES = {
     "ragged int8": (8, 8, 2, 128, 8, [0, 1, 127, 128, 129, 1000, 640, 1024],
                     torch.bfloat16, True),
     "d768 f32": (16, 4, 3, 64, 4, [400] * 16, torch.float32, False),
+    # phase zb's Phi-3-mini decode: 32 kv heads of one query head, D 96
+    "phi3 bf16": (8, 32, 1, 96, 9, [1056] * 8, torch.bfloat16, False),
+    "phi3 int8": (8, 32, 1, 96, 9, [1056] * 8, torch.bfloat16, True),
 }
 P1_LAUNCHES = 200
 
@@ -541,7 +546,9 @@ def test_paged_kernel_plan_matches_the_kernel(dev):
                     (2, 16, 8, 128, 16, 256), (6, 6, 2, 128, 7, 21),
                     (40, 16, 8, 64, 16, 8), (300, 16, 8, 128, 128, 9),
                     (3, 32, 4, 64, 1, 5), (8, 16, 8, 128, 128, 33),
-                    (8, 16, 8, 128, 16, 17)]:
+                    (8, 16, 8, 128, 16, 17), (8, 32, 32, 96, 128, 9),
+                    (1, 32, 32, 96, 128, 33), (5, 8, 2, 96, 7, 21),
+                    (2, 16, 2, 96, 16, 256)]:
                 for opts in [(0, 0, False), (2000, 4, False),
                              (240, 16, False), (1, 0, False),
                              (7, 130, False), (0, 9, False),
@@ -602,7 +609,7 @@ def _ring_meta(table, lengths, page, sinks):
 @pytest.mark.parametrize("layout", list(P1_WINDOWED))
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 def test_paged_window_kernel_matches_plain(dev, D, dtype, quant, layout):
     """P1 with window + sinks (paged_window_kernel) against its plain
     version: its live tiles split over blocks (one split at 40 rows x 8
@@ -634,7 +641,7 @@ def test_paged_window_kernel_matches_plain(dev, D, dtype, quant, layout):
 @pytest.mark.parametrize("layout", list(P1_RINGS))
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 def test_paged_ring_kernel_matches_plain(dev, D, dtype, quant, layout):
     """P1 on a ring (paged_ring_kernel) against its plain version: slots
     recycled past the capacity, slots never written (-1), a row whose meta
@@ -682,9 +689,10 @@ P1_MODE0_PARAMS = ("(const T1 *, const T2 *, const T2 *, const float *, "
 def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
     """The plain decode keeps its plan (the serving, KV-bound and d768
     shapes' splits and scratch, mode 0) and its kernels: the library holds
-    paged_decode_kernel<T, TK, D> for the 8 (q, pools, D) instances with
-    their parameters unchanged, beside 8 paged_window_kernel and 8
-    paged_ring_kernel instances (cuobjdump, demangled by cu++filt)."""
+    paged_decode_kernel<T, TK, D> for the 12 (q, pools, D) instances (D
+    64, 96 and 128) with their parameters unchanged, beside 12
+    paged_window_kernel and 12 paged_ring_kernel instances (cuobjdump,
+    demangled by cu++filt)."""
     import os
     import re
     import subprocess
@@ -718,15 +726,15 @@ def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
         k = re.search(r"(paged_(?:decode|window|ring)_kernel)<", d).group(1)
         by_kernel.setdefault(k, []).append(d)
     assert {k: len(v) for k, v in by_kernel.items()} == {
-        "paged_decode_kernel": 8, "paged_window_kernel": 8,
-        "paged_ring_kernel": 8}
+        "paged_decode_kernel": 12, "paged_window_kernel": 12,
+        "paged_ring_kernel": 12}
     params = re.sub(r"\s+", "", P1_MODE0_PARAMS)
     for d in by_kernel["paged_decode_kernel"]:
         assert d.endswith(">" + params), (d, params)
     for T, TK in (("float", "float"), ("float", "signedchar"),
                   ("__nv_bfloat16", "__nv_bfloat16"),
                   ("__nv_bfloat16", "signedchar")):
-        for D in (64, 128):   # a non-type argument may print as (int)64
+        for D in (64, 96, 128):   # a non-type argument may print as (int)64
             want = rf"paged_decode_kernel<{T},{TK},(\(int\))?{D}>\("
             assert any(re.search(want, d)
                        for d in by_kernel["paged_decode_kernel"]), \
@@ -736,8 +744,10 @@ def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
 @pytest.mark.parametrize("page", [16, 7, 48, 128])
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 2, 2, 5, 64), (2, 2, 3, 70, 128)],
-                         ids=["B4-Hkv2-G2-C5-D64", "B2-Hkv2-G3-C70-D128"])
+@pytest.mark.parametrize("shape", [(4, 2, 2, 5, 64), (2, 2, 3, 70, 128),
+                                   (4, 2, 2, 5, 96), (2, 2, 3, 70, 96)],
+                         ids=["B4-Hkv2-G2-C5-D64", "B2-Hkv2-G3-C70-D128",
+                              "B4-Hkv2-G2-C5-D96", "B2-Hkv2-G3-C70-D96"])
 def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape, page):
     """P3: chunks starting at 0, in mid-page and on a page boundary, one
     row of length 0 (zeros) and one whose length stops inside its chunk,
@@ -792,6 +802,10 @@ P3_REPEAT_CASES = {
     "ragged": (8, 8, 2, 16, 128, 8, [0, 1, 127, 128, 500, 1000, 640, 3],
                [0, 17, 143, 144, 510, 1016, 656, 10]),
     "prefill start 768": (8, 8, 2, 256, 128, 9, [768] * 8, None),
+    # phase zb's Phi-3-mini shapes, D 96: the verify step (2 splits),
+    # chunked prefill from 768
+    "phi3 verify": (8, 32, 1, 5, 96, 10, [1051] * 8, None),
+    "phi3 prefill start 768": (8, 32, 1, 256, 96, 10, [768] * 8, None),
 }
 P3_LAUNCHES = 200
 
@@ -849,7 +863,9 @@ def test_paged_chunked_plan_matches_the_kernel(dev):
                     (8, 16, 8, 5, 128, 128, 9), (8, 16, 8, 256, 128, 128, 9),
                     (8, 16, 8, 16, 128, 128, 8), (16, 12, 4, 5, 64, 128, 4),
                     (4, 4, 2, 5, 64, 7, 21), (2, 6, 2, 70, 128, 16, 10),
-                    (1, 32, 8, 1, 128, 16, 4096), (300, 16, 8, 5, 64, 128, 9)]:
+                    (1, 32, 8, 1, 128, 16, 4096), (300, 16, 8, 5, 64, 128, 9),
+                    (8, 32, 32, 5, 96, 128, 10), (8, 32, 32, 256, 96, 128, 10),
+                    (4, 4, 2, 16, 96, 7, 40), (1, 8, 1, 1, 96, 16, 4096)]:
                 assert pa.p3_kernel_plan(dt, kv, B, H, Hkv, C, D, page,
                                          max_pages) \
                     == pa.p3_plan(dt, kv, B, H, Hkv, C, D, page, max_pages), \
@@ -887,6 +903,75 @@ def test_chunked_serving_kernels_match_plain(dev, kv_dtype):
     assert torch.equal(tk, tp) and ak == ap == 3.0
     assert torch.equal(tk, llama.generate(model, prompt, 6, max_pages=4,
                                           page=32))
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"], ids=["f32", "int8"])
+def test_serving_at_head_dim_96_matches_plain(dev, kv_dtype):
+    """The llama at head dim 96 (Phi-3-mini's; d 384, 4/2 heads) served on
+    the D 96 instances, f32: prefill_chunked (P3 prefill-shaped), decode
+    steps and the speculative verify (P1, P3 decode-shaped), beam search
+    (P1 on the forked beams' pages), then 120
+    windowed decode steps and 120 on a ring of 96 slots (P1's options),
+    each launch counted, against the plain versions fed the same tokens:
+    equal tokens and beams, logits and beam scores as
+    test_chunked_serving_kernels_match_plain holds logits."""
+    cfg = llama.LlamaConfig(vocab=128, d_model=384, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512, kv_dtype=kv_dtype,
+                            use_framework_kernels=False)
+    assert cfg.head_dim == 96
+    model = llama.init_params(cfg, seed=5, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (3, 70), dtype=np.int32)).to(dev)
+    streaming = (dict(attn_window=24, attn_sinks=8), 4), \
+        (dict(attn_window=24, attn_sinks=32, ring_cache=True), 3)
+    out, fed = [], []
+    for kernels in (True, False):
+        n = (paged_attention_chunked.launches, paged_attention.launches)
+        c = llama.init_kv_cache(cfg, 3, 4, 32, dev)
+        lg, c = llama.prefill_chunked(model, c, prompt, chunk=32,
+                                      kernels=kernels)
+        toks, acc = llama.speculative_generate(model, prompt, 6, model,
+                                               gamma=3, max_pages=4,
+                                               page=32, kernels=kernels)
+        ran = (paged_attention_chunked.launches - n[0],
+               paged_attention.launches - n[1])
+        assert all(ran) if kernels else ran == (0, 0)
+        n1 = paged_attention.launches
+        beams = llama.beam_generate(model, prompt[0], 6, beams=3, page=32,
+                                    kernels=kernels)
+        # P1 once a layer for each of the 5 decode steps after the prefill
+        assert paged_attention.launches - n1 == (10 if kernels else 0)
+        streams = []
+        for i, (over, pages) in enumerate(streaming):
+            m = llama.Llama(dataclasses.replace(cfg, **over), device=dev)
+            m.load_state_dict(model.state_dict())
+            sc = llama.init_kv_cache(m.cfg, 3, pages, 32, dev)
+            w = (paged_attention.window_launches,
+                 paged_attention.ring_launches)
+            tok, lgs, feed = prompt[:, 0], [], []
+            for t in range(120):   # greedy; the plain run fed its tokens
+                tok = tok if kernels else fed[i][:, t]
+                feed.append(tok)
+                lg_t, sc = llama.decode_step(m, sc, tok, kernels=kernels)
+                lgs.append(lg_t)
+                tok = lg_t.argmax(-1).to(torch.int32)
+            if kernels:
+                fed.append(torch.stack(feed, 1))
+            got = (paged_attention.window_launches - w[0],
+                   paged_attention.ring_launches - w[1])
+            want = (0, 0) if not kernels else \
+                (0, 240) if over.get("ring_cache") else (240, 0)
+            assert got == want, (over, got)
+            streams.append(torch.stack(lgs, 1))
+        out.append((lg, toks, acc, streams, beams))
+    (lk, tk, ak, sk, bk), (lp, tp, ap, sp, bp) = out
+    tol = 1e-3 if kv_dtype else 2e-5
+    torch.testing.assert_close(lk, lp, atol=tol, rtol=max(tol, 1e-4))
+    assert torch.equal(tk, tp) and ak == ap == 3.0
+    assert torch.equal(bk[0], bp[0])
+    torch.testing.assert_close(bk[1], bp[1], atol=tol, rtol=max(tol, 1e-4))
+    for a, b in zip(sk, sp):
+        torch.testing.assert_close(a, b, atol=tol, rtol=max(tol, 1e-4))
 
 
 # -- slice 5: the matmul kernel (M1/M2), its tuner, K0 cmma ---------------
