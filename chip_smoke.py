@@ -16,7 +16,8 @@ bf16 instance of the flash forward, dK/dV and dQ kernels, dense,
 block-sparse and masked at D 64 and 128, C1's bf16 body, every 8-bit GEMM
 instance and the K0 bf16/f16 cmma kernels issue wgmma: HGMMA in
 ``cuobjdump -sass``, IGMMA for the int8 GEMM; their registers and
-spills; P1's plain, window and ring kernels spilling nothing), 3 flash
+spills; P1's plain, window, ring and grouped kernels spilling nothing),
+3 flash
 vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
 bf16 D 64 at GPT-2's widths), 4 paged decode (P1: positions split over
@@ -159,7 +160,21 @@ bf16) served through ``generate`` (8 x 1024 + 32 steps),
 int8 cache, windowed and ring decode, each path's P1 and P3 launches
 counted from 0; zb3 its f32 exactness at 2 layers (decode steps, a
 verify chunk, chunked prefill, windowed and ring steps, beam search)
-against the plain route within LOGIT_TOL, greedy tokens and beams equal. Each kernel's
+against the plain route within LOGIT_TOL, greedy tokens and beams equal.
+Then P1 past 8 query heads a kv head (phase zc): zc1 P1's row groups
+(every position, window + sinks, the ring) on bf16, int8 and f32 pools
+against plain at Mistral-Large-2's decode (B 8 x 8 kv heads x G 12, D
+128), G 16, Falcon-7B's multi-query G 71 (D 64), G 9 at D 96 on pages of
+7 and G 12 on pages of 1, each plan held to the built kernel's, every case
+timed (cold L2) beside the same call at G 2 (the same K/V bytes), and P3
+at G 12 (the verify step, chunked prefill from 0 and 768), 16 and 71;
+zc2 the llama at Mistral-Large-2's widths (8 of its 88 layers, bf16,
+11.5B parameters) served through ``generate`` (8 x 1024 + 32 steps),
+``prefill_chunked``, a verify ``decode_chunk``, ``speculative_generate``
+with a self-draft and an int8 cache, each path's P1 (every launch
+grouped) and P3 launches counted from 0; zc3 its f32 exactness at 2
+layers (decode steps, a verify chunk, chunked prefill) against the plain
+route within LOGIT_TOL, greedy tokens equal. Each kernel's
 line gives its time beside its bound (bytes over 3.35 TB/s or operations
 over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. A K0
@@ -326,6 +341,8 @@ def kernel_name(mangled):
                     r"ELi(\d+)ELb([01])E", mangled)
     g32 = re.search(r"(gemm_tf32x3_kernel)ILi(\d+)ELi(\d+)E", mangled)
     p3 = re.search(r"(paged_chunked_wgmma_kernel)ILi(\d+)ELb([01])E", mangled)
+    p1g = re.search(r"(paged_grouped_kernel)ILi(\d)E(13__nv_bfloat16|f)"
+                    r"(S\d*_|[af])?Li(\d+)E", mangled)
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
     for name in ("conv3x3_tf32x3_kernel", "conv3x3_split_weights_kernel"):
@@ -334,6 +351,12 @@ def kernel_name(mangled):
     if p3:
         int8 = ", int8 KV" if p3.group(3) == "1" else ""
         return f"{p3.group(1)}<bf16{int8}, {p3.group(2)}>"
+    if p1g:
+        mode = ("full", "window", "ring")[int(p1g.group(2))]
+        return (f"{p1g.group(1)}<{mode}, "
+                f"{'f32' if p1g.group(3) == 'f' else 'bf16'}"
+                f"{', int8 KV' if p1g.group(4) == 'a' else ''}, "
+                f"{p1g.group(5)}>")
     if "expert_wgmma_kernel" in mangled:
         return "expert_wgmma_kernel<bf16>"
     if g16:
@@ -1185,7 +1208,8 @@ def profile_step(step, model, tokens):
                "flash dQ" if "flash_bwd_dq" in n else
                "flash forward" if "flash_fwd" in n else
                "paged chunked (P3)" if "paged_chunked" in n else
-               "paged decode (P1)" if "paged_decode" in n else
+               "paged decode (P1)" if re.search(
+                   r"paged_(decode|window|ring|grouped)_kernel", n) else
                "K0 @cube" if re.search(r"_(rmsnorm|layernorm|gelu|softmax)_"
                                        r"(fwd|bwd)_k", n) else
                "GEMM" if re.search(r"gemm|nvjet|xmma|cutlass|sm90", n, re.I)
@@ -1596,10 +1620,12 @@ def kv_pools(kind, shape, dev, gen):
 
 def _p1_counts(pa):
     f = pa.paged_attention
-    return (f.launches, f.int8_launches, f.window_launches, f.ring_launches)
+    return (f.launches, f.int8_launches, f.window_launches, f.ring_launches,
+            f.grouped_launches)
 
 
-def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None):
+def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None,
+                beside_group=None):
     """P1 against its plain version, one case (J_CASES' columns) a row: the
     call's launch counted in its mode, a length-0 row's zeros, the launch
     plan in ops/paged_attention.py held to the built kernel's; CUDA-event
@@ -1607,7 +1633,10 @@ def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None):
     layers walk the pool) and with a cold L2, plain's time, the bound on
     the positions the call attends and the GB/s of K/V read. With
     ``beside`` (a head dim), also the cold-L2 time of that D's instance at
-    the same B, Hkv, context and mode (``d{beside}_cold_ms``)."""
+    the same B, Hkv, context and mode (``d{beside}_cold_ms``); with
+    ``beside_group`` (a group), that of the same call at that many query
+    heads a kv head, which reads the same K/V bytes
+    (``g{beside_group}_cold_ms``)."""
     rows = {}
     for (name, B, L, Hkv, G, D, page, max_pages, lengths, kind, mode, window,
          sinks) in cases:
@@ -1635,7 +1664,7 @@ def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None):
         got = pa.paged_attention(q, kp, vp, table, ln, layer=L - 1, **sc)
         torch.cuda.synchronize()
         want_n = (n0[0] + 1, n0[1] + quant, n0[2] + (mode == "window"),
-                  n0[3] + ring)
+                  n0[3] + ring, n0[4] + (G > 8))
         if _p1_counts(pa) != want_n:
             fail(f"phase {phase} {what}: launches {_p1_counts(pa)}, want "
                  f"{want_n}")
@@ -1672,6 +1701,16 @@ def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None):
                 q, kp, vp, table, ln, layer=1, k_scales=ks, v_scales=vs,
                 **opts))
             del q, kp, vp, ks, vs
+        g_key = f"g{beside_group}_cold_ms"
+        if beside_group:
+            q = torch.randn(B, Hkv * beside_group, D, generator=gen,
+                            device=dev).to(qdt)
+            kp, vp, ks, vs = kv_pools(kind, (2, Hkv, P, page, D), dev, gen)
+            row[g_key] = cold_ms(lambda: pa.paged_attention(
+                q, kp, vp, table, ln, layer=1, k_scales=ks, v_scales=vs,
+                **opts))
+            row["groups"] = plan.groups
+            del q, kp, vp, ks, vs
         print(f"phase {phase} {what}: max abs err {err} (atol/rtol "
               f"{TOL[qdt]}); kernel {1e3 * ms:.1f} µs back to back "
               f"({kv_gb / ms * 1e3:.0f} GB/s of KV), {1e3 * cold:.1f} µs cold "
@@ -1679,6 +1718,9 @@ def p1_vs_plain(pa, dev, gen, card, phase, cases, beside=None):
               f"splits)" + (f", D {beside} at the same B, Hkv and context "
                             f"{1e3 * row[f'd{beside}_cold_ms']:.1f} µs cold"
                             if beside else "")
+              + (f" ({plan.groups} row groups); G {beside_group} at the "
+                 f"same B, Hkv, D and context (the same K/V bytes) "
+                 f"{1e3 * row[g_key]:.1f} µs cold" if beside_group else "")
               + f"; plain {plain_ms:.4f} ms, bound {1e3 * bms:.1f} µs ({by}; "
               f"{100 * bms / cold:.1f}% of it cold) [{card}]", flush=True)
     torch.cuda.empty_cache()
@@ -1691,6 +1733,7 @@ def _paged_counts(fa, pa):
             "paged_attention_int8": pa.paged_attention.int8_launches,
             "paged_attention_window": pa.paged_attention.window_launches,
             "paged_attention_ring": pa.paged_attention.ring_launches,
+            "paged_attention_grouped": pa.paged_attention.grouped_launches,
             "paged_attention_chunked": pa.paged_attention_chunked.launches}
 
 
@@ -1699,6 +1742,7 @@ def _reset_paged(fa, pa):
     pa.paged_attention.int8_launches = 0
     pa.paged_attention.window_launches = 0
     pa.paged_attention.ring_launches = 0
+    pa.paged_attention.grouped_launches = 0
     pa.paged_attention_chunked.launches = 0
 
 
@@ -5105,17 +5149,27 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def phi3_serve(llama, pa, fa, dev, card):
-    """Phase zb2: the llama at Phi-3-mini's widths served at full depth in
-    bf16 through its entry points, each path's P1 and P3 launches counted
-    from 0 against what it must make: ``generate`` (B 8 x 1024 + 32 steps;
-    ms/step, tok/s, peak memory), ``prefill_chunked`` in chunks of 256, a
-    ``decode_chunk`` verify of 5 tokens, ``speculative_generate`` with a
-    self-draft and a small draft (tokens equal to greedy up to the first
-    near tie, as phase k), ``beam_generate``, an int8 cache, windowed and
-    ring decode."""
-    t = PHI3_SERVE
-    cfg = llama.LlamaConfig(**PHI3, seq=t["S"], dtype="bfloat16",
+# the paths of serve_at_widths beyond generate, prefill_chunked, the verify
+# step, speculative decoding with a self-draft and an int8 cache
+ZB2_PATHS = ("beam", "small draft", "window", "ring")
+
+
+def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
+                    layers=None, paths=ZB2_PATHS):
+    """The llama at a model's ``widths`` (``layers`` of them, or its own
+    depth) served in bf16 through its entry points, each path's P1 and P3
+    launches (P1's row groups past 8 query heads a kv head among them)
+    counted from 0 against what it must make: ``generate`` (``t``'s B x S
+    + steps; ms/step, tok/s, peak memory), ``prefill_chunked`` in t's
+    chunks, a ``decode_chunk`` verify of gamma + 1 tokens,
+    ``speculative_generate`` with a self-draft (and with ``paths``' "small
+    draft": PHI3_DRAFT; tokens equal to greedy up to the first near tie,
+    as phase k), an int8 cache, and of ``paths`` ``beam_generate``,
+    windowed (PHI3_STREAM) and ring (PHI3_RING) decode. Phase zb2 at
+    Phi-3-mini's widths, zc2 at Mistral-Large-2's."""
+    cfg = llama.LlamaConfig(**dict(widths, n_layers=layers
+                                   or widths["n_layers"]),
+                            seq=t["S"], dtype="bfloat16",
                             use_framework_kernels=False)
     L, B, S, steps, page, pages = (cfg.n_layers, t["B"], t["S"], t["steps"],
                                    t["page"], t["pages"])
@@ -5126,7 +5180,9 @@ def phi3_serve(llama, pa, fa, dev, card):
     prompt = torch.from_numpy(np.random.default_rng(41).integers(
         0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
     out = {}
-    tag = f"llama at Phi-3-mini's widths ({n_params / 1e9:.3f}B bf16)"
+    tag = f"llama at {model_name}'s widths ({n_params / 1e9:.3f}B bf16)"
+    # P1's row groups: a launch past 8 query heads a kv head is grouped
+    grouped = cfg.n_heads // cfg.n_kv_heads > 8
 
     # generate: prefill + steps greedy
     torch.cuda.reset_peak_memory_stats()
@@ -5134,23 +5190,24 @@ def phi3_serve(llama, pa, fa, dev, card):
     toks, gen_s = _timed(lambda: llama.generate(model, prompt, steps, pages,
                                                 page))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    n_gen = _check_paged(fa, pa, "phase zb2 generate", {
-        "flash_attention": L, "paged_attention": L * steps})
+    n_gen = _check_paged(fa, pa, f"phase {phase} generate", {
+        "flash_attention": L, "paged_attention": L * steps,
+        "paged_attention_grouped": L * steps * grouped})
     if toks.shape != (B, steps) or not ((toks >= 0)
                                         & (toks < cfg.vocab)).all():
-        fail(f"phase zb2 generate: bad tokens {tuple(toks.shape)}")
+        fail(f"phase {phase} generate: bad tokens {tuple(toks.shape)}")
     cache = llama.init_kv_cache(cfg, B, pages, page, dev)
     (logits, cache), prefill_s = _timed(lambda: llama.prefill(model, cache,
                                                               prompt))
     if not torch.isfinite(logits.float()).all():
-        fail("phase zb2: non-finite prefill logits")
+        fail(f"phase {phase}: non-finite prefill logits")
     (again, _), decode_s = _timed(lambda: stream_steps(
         llama, model, cache, logits.argmax(-1).to(torch.int32), steps))
     if not torch.equal(again, toks):
-        fail("phase zb2: the warm re-run gave other tokens than generate")
+        fail(f"phase {phase}: the warm re-run gave other tokens than generate")
     step_ms = 1e3 * decode_s / steps
     del cache
-    print(f"phase zb2 serve {tag}: d{cfg.d_model}, {L} layers, "
+    print(f"phase {phase} serve {tag}: d{cfg.d_model}, {L} layers, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}: {B} x {S} prompt + {steps} greedy "
           f"steps; generate {gen_s:.3f} s cold; warm prefill {prefill_s:.4f} "
@@ -5166,44 +5223,51 @@ def phi3_serve(llama, pa, fa, dev, card):
 
     want, want_logits = greedy_ref(llama, model, prompt, steps, pages, page)
     if not torch.equal(want, toks):
-        fail("phase zb2: generate's greedy stream written out differs")
+        fail(f"phase {phase}: generate's greedy stream written out differs")
 
     # beam_generate after the first prompt, its beams forked on the pages
-    nb, bsteps = t["beams"], t["beam_steps"]
-    _reset_paged(fa, pa)
-    (btoks, bscores), beam_s = _timed(lambda: llama.beam_generate(
-        model, prompt[0], bsteps, beams=nb, page=page))
-    n_beam = _check_paged(fa, pa, "phase zb2 beam_generate", {
-        "flash_attention": L, "paged_attention": L * (bsteps - 1)})
-    if btoks.shape != (nb, S + bsteps) or not torch.equal(
-            btoks[:, :S], prompt[:1].expand(nb, S)) or not torch.isfinite(
-            bscores).all() or (bscores[1:] > bscores[:-1]).any():
-        fail(f"phase zb2 beam_generate: beams {tuple(btoks.shape)} lost "
-             f"the prompt or scores {bscores.tolist()} are not finite and "
-             "descending")
-    print(f"phase zb2 beam_generate {tag}: {nb} beams of {bsteps} tokens "
-          f"after a {S}-token prompt, {beam_s:.3f} s "
-          f"({1e3 * beam_s / bsteps:.2f} ms a token, the prefill "
-          f"included); scores {[round(x, 3) for x in bscores.tolist()]}; "
-          f"launches {n_beam} [{card}]", flush=True)
-    out["beam"] = dict(s=beam_s, scores=bscores.tolist(), launches=n_beam)
+    if "beam" in paths:
+        nb, bsteps = t["beams"], t["beam_steps"]
+        _reset_paged(fa, pa)
+        (btoks, bscores), beam_s = _timed(lambda: llama.beam_generate(
+            model, prompt[0], bsteps, beams=nb, page=page))
+        n_beam = _check_paged(fa, pa, f"phase {phase} beam_generate", {
+            "flash_attention": L, "paged_attention": L * (bsteps - 1),
+            "paged_attention_grouped": L * (bsteps - 1) * grouped})
+        if btoks.shape != (nb, S + bsteps) or not torch.equal(
+                btoks[:, :S], prompt[:1].expand(nb, S)) or not \
+                torch.isfinite(bscores).all() or \
+                (bscores[1:] > bscores[:-1]).any():
+            fail(f"phase {phase} beam_generate: beams "
+                 f"{tuple(btoks.shape)} lost the prompt or scores "
+                 f"{bscores.tolist()} are not finite and descending")
+        print(f"phase {phase} beam_generate {tag}: {nb} beams of {bsteps} "
+              f"tokens after a {S}-token prompt, {beam_s:.3f} s "
+              f"({1e3 * beam_s / bsteps:.2f} ms a token, the prefill "
+              f"included); scores "
+              f"{[round(x, 3) for x in bscores.tolist()]}; launches "
+              f"{n_beam} [{card}]", flush=True)
+        out["beam"] = dict(s=beam_s, scores=bscores.tolist(),
+                           launches=n_beam)
 
     # prefill_chunked in chunks of 256, against the one-shot prefill
     c1 = llama.init_kv_cache(cfg, B, pages, page, dev)
     _reset_paged(fa, pa)
     (l_chunk, c1), chunk_s = _timed(lambda: llama.prefill_chunked(
         model, c1, prompt, t["chunk"]))
-    n_chunk = _check_paged(fa, pa, "phase zb2 prefill_chunked", {
+    n_chunk = _check_paged(fa, pa, f"phase {phase} prefill_chunked", {
         "paged_attention_chunked": L * S // t["chunk"]})
     if not torch.isfinite(l_chunk.float()).all():
-        fail("phase zb2 prefill_chunked: non-finite logits")
+        fail(f"phase {phase} prefill_chunked: non-finite logits")
     d_chunk = (l_chunk.float() - want_logits[:, 0]).abs().max().item()
     del c1
-    print(f"phase zb2 prefill_chunked {tag}: {B} x {S} in chunks of "
+    print(f"phase {phase} prefill_chunked {tag}: {B} x {S} in chunks of "
           f"{t['chunk']}, {chunk_s:.4f} s ({B * S / chunk_s:.0f} prompt "
-          f"tok/s); last logits against the one-shot prefill's (A1, padded "
-          f"to 128): max abs diff {d_chunk:.4f} (bf16 rounding through {L} "
-          f"layers; exactness is zb3's); launches {n_chunk} [{card}]",
+          f"tok/s); last logits against the one-shot prefill's (A1"
+          f"{'' if cfg.head_dim in (64, 128) else ', padded to 128'}): max "
+          f"abs diff {d_chunk:.4f} (bf16 rounding through {L} layers; "
+          f"exactness is phase {phase[:-1]}3's); launches {n_chunk} "
+          f"[{card}]",
           flush=True)
     out["prefill_chunked"] = dict(s=chunk_s, logit_diff=d_chunk,
                                   launches=n_chunk)
@@ -5215,7 +5279,7 @@ def phi3_serve(llama, pa, fa, dev, card):
     _reset_paged(fa, pa)
     (l5, c1), verify_s = _timed(lambda: llama.decode_chunk(
         model, c1, want[:, :g + 1]))
-    n_verify = _check_paged(fa, pa, "phase zb2 decode_chunk", {
+    n_verify = _check_paged(fa, pa, f"phase {phase} decode_chunk", {
         "paged_attention_chunked": L})
     # the logits after chunk token i are the decode steps' after token i
     d_verify = (l5.float() - want_logits[:, 1:g + 2]).abs().max().item()
@@ -5227,19 +5291,19 @@ def phi3_serve(llama, pa, fa, dev, card):
              decode_chunk(m, c1, tk)[0].float().sum())):
         p = profile_step(fn, model, want[:, g + 1:2 * g + 2])
         if p is None:
-            print(f"phase zb2 profile of one {name}: the trace holds no "
+            print(f"phase {phase} profile of one {name}: the trace holds no "
                   "device time; not measured", flush=True)
             continue
         wall, busy, groups, _ = p
         prof[name] = dict(wall_ms=wall, busy_ms=busy, groups=groups)
-        print(f"phase zb2 profile of one {name} {tag}, B {B} at context "
+        print(f"phase {phase} profile of one {name} {tag}, B {B} at context "
               f"{int(c1.lengths.max())}: wall {wall:.2f} ms, device busy "
               f"{busy:.2f} ms (idle {100 - 100 * busy / wall:.1f}%); device "
               f"ms by group "
               f"{ {k: round(v, 3) for k, v in sorted(groups.items())} } "
               f"[{card}]", flush=True)
     del c1
-    print(f"phase zb2 decode_chunk {tag}: a verify step of {g + 1} tokens "
+    print(f"phase {phase} decode_chunk {tag}: a verify step of {g + 1} tokens "
           f"(generate's) after the {S}-token prompt in {1e3 * verify_s:.2f} "
           f"ms; logits against the decode steps' max abs diff {d_verify:.4f}"
           f"; launches {n_verify} [{card}]", flush=True)
@@ -5248,14 +5312,16 @@ def phi3_serve(llama, pa, fa, dev, card):
 
     # speculative decoding, the drafts as phase k chooses them
     spec = {}
-    draft_cfg = llama.LlamaConfig(**PHI3_DRAFT)
-    for name, draft in (("self-draft", model),
-                        ("d768 draft", llama.init_params(draft_cfg, seed=3,
-                                                         device=dev))):
-        what = f"phase zb2 speculative {name}"
+    drafts = [("self-draft", lambda: model)]
+    if "small draft" in paths:
+        drafts.append(("d768 draft", lambda: llama.init_params(
+            llama.LlamaConfig(**PHI3_DRAFT), seed=3, device=dev)))
+    for dname, make in drafts:
+        draft = make()
+        what = f"phase {phase} speculative {dname}"
         _, acc, secs, rounds, st = speculative_checked(
             llama, pa, fa, model, draft, prompt, steps, g, pages, page, want,
-            want_logits, BF16_GAP, name == "self-draft", what)
+            want_logits, BF16_GAP, dname == "self-draft", what)
         print(f"{what} {tag} (draft head dim {draft.cfg.head_dim}): {B} x "
               f"{steps} tokens, gamma {g}: {rounds} rounds in {secs:.3f} s "
               f"({B * steps / secs:.1f} tok/s), mean acceptance {acc:.3f}; "
@@ -5264,7 +5330,7 @@ def phi3_serve(llama, pa, fa, dev, card):
               f"equal generate's up to the first near tie (prefix "
               f"{st['prefix_min']}..{steps}); launches {st['launches']} "
               f"[{card}]", flush=True)
-        spec[name] = dict(tok_s=B * steps / secs, acceptance=acc,
+        spec[dname] = dict(tok_s=B * steps / secs, acceptance=acc,
                           rounds=rounds, **st)
         del draft
     out["speculative"] = spec
@@ -5277,84 +5343,95 @@ def phi3_serve(llama, pa, fa, dev, card):
     lg8, c8 = llama.prefill(m8, c8, prompt)
     _, s8 = _timed(lambda: stream_steps(llama, m8, c8, None, steps,
                                         feed=want))
-    n8 = _check_paged(fa, pa, "phase zb2 int8 KV", {
+    n8 = _check_paged(fa, pa, f"phase {phase} int8 KV", {
         "flash_attention": L, "paged_attention": L * steps,
-        "paged_attention_int8": L * steps})
+        "paged_attention_int8": L * steps,
+        "paged_attention_grouped": L * steps * grouped})
     agree8 = (lg8.argmax(-1) == want[:, 0]).float().mean().item()
     del m8, c8
     torch.cuda.empty_cache()
-    print(f"phase zb2 int8 KV {tag}: {B} x {S} prompt + {steps} steps fed "
+    print(f"phase {phase} int8 KV {tag}: {B} x {S} prompt + {steps} steps fed "
           f"generate's tokens, {1e3 * s8 / steps:.3f} ms/step "
           f"({B * steps / s8:.1f} tok/s); first token equal to the bf16 "
           f"cache's in {agree8:.3f} of the rows; launches {n8} [{card}]",
           flush=True)
     out["int8"] = dict(ms_step=1e3 * s8 / steps, launches=n8)
 
-    # windowed decode: phase z1's sinks and window after a 4096-token prompt
-    z = PHI3_STREAM
-    mw = with_cfg(llama, model, dataclasses.replace(
-        cfg, attn_window=z["window"], attn_sinks=z["sinks"]))
-    pw = torch.from_numpy(np.random.default_rng(42).integers(
-        0, cfg.vocab, (z["B"], z["S"]), dtype=np.int32)).to(dev)
-    cw = llama.init_kv_cache(mw.cfg, z["B"], z["pages"], z["page"], dev)
-    _reset_paged(fa, pa)
-    lw, cw = llama.prefill(mw, cw, pw)
-    (_, lgw), sw = _timed(lambda: stream_steps(
-        llama, mw, cw, lw.argmax(-1).to(torch.int32), z["steps"]))
-    nw = _check_paged(fa, pa, "phase zb2 windowed decode", {
-        "flash_attention": L, "paged_attention": L * z["steps"],
-        "paged_attention_window": L * z["steps"]})
-    if not torch.isfinite(lgw).all():
-        fail("phase zb2 windowed decode: non-finite logits")
-    del mw, cw, pw, lgw
-    torch.cuda.empty_cache()
-    print(f"phase zb2 windowed decode {tag} (sinks {z['sinks']}, window "
-          f"{z['window']}): {z['B']} x {z['S']} prompt (full-attention "
-          f"prefill) + {z['steps']} windowed steps at "
-          f"{1e3 * sw / z['steps']:.3f} ms/step "
-          f"({z['B'] * z['steps'] / sw:.1f} tok/s); launches {nw} [{card}]",
-          flush=True)
-    out["window"] = dict(ms_step=1e3 * sw / z["steps"], launches=nw)
+    if "window" in paths:
+        # windowed decode: phase z1's sinks and window after a 4096-token
+        # prompt
+        z = PHI3_STREAM
+        mw = with_cfg(llama, model, dataclasses.replace(
+            cfg, attn_window=z["window"], attn_sinks=z["sinks"]))
+        pw = torch.from_numpy(np.random.default_rng(42).integers(
+            0, cfg.vocab, (z["B"], z["S"]), dtype=np.int32)).to(dev)
+        cw = llama.init_kv_cache(mw.cfg, z["B"], z["pages"], z["page"], dev)
+        _reset_paged(fa, pa)
+        lw, cw = llama.prefill(mw, cw, pw)
+        (_, lgw), sw = _timed(lambda: stream_steps(
+            llama, mw, cw, lw.argmax(-1).to(torch.int32), z["steps"]))
+        nw = _check_paged(fa, pa, f"phase {phase} windowed decode", {
+            "flash_attention": L, "paged_attention": L * z["steps"],
+            "paged_attention_window": L * z["steps"],
+            "paged_attention_grouped": L * z["steps"] * grouped})
+        if not torch.isfinite(lgw).all():
+            fail(f"phase {phase} windowed decode: non-finite logits")
+        del mw, cw, pw, lgw
+        torch.cuda.empty_cache()
+        print(f"phase {phase} windowed decode {tag} (sinks {z['sinks']}, "
+              f"window {z['window']}): {z['B']} x {z['S']} prompt "
+              f"(full-attention prefill) + {z['steps']} windowed steps at "
+              f"{1e3 * sw / z['steps']:.3f} ms/step "
+              f"({z['B'] * z['steps'] / sw:.1f} tok/s); launches {nw} "
+              f"[{card}]", flush=True)
+        out["window"] = dict(ms_step=1e3 * sw / z["steps"], launches=nw)
 
-    # ring decode: phase z2's ring, from an empty cache past its capacity
-    r = PHI3_RING
-    mr = with_cfg(llama, model, dataclasses.replace(
-        cfg, attn_window=r["window"], attn_sinks=r["sinks"], ring_cache=True))
-    rc = llama.init_kv_cache(mr.cfg, r["B"], r["pages"], r["page"], dev)
-    first = torch.from_numpy(np.random.default_rng(43).integers(
-        0, cfg.vocab, (r["B"],), dtype=np.int32)).to(dev)
-    _reset_paged(fa, pa)
-    (_, lgr), sr = _timed(lambda: stream_steps(llama, mr, rc, first,
-                                               r["steps"]))
-    nr = _check_paged(fa, pa, "phase zb2 ring decode", {
-        "paged_attention": L * r["steps"],
-        "paged_attention_ring": L * r["steps"]})
-    if rc.k.shape[2] != r["B"] * r["pages"] or int(rc.lengths.min()) != \
-            r["steps"] or not torch.isfinite(lgr).all():
-        fail("phase zb2 ring decode: the ring grew, lost count or gave "
-             "non-finite logits")
-    del mr, rc, lgr
-    print(f"phase zb2 ring decode {tag} (sinks {r['sinks']}, window "
-          f"{r['window']}, {r['pages']} pages of {r['page']}): {r['B']} rows "
-          f"x {r['steps']} steps from an empty cache, "
-          f"{1e3 * sr / r['steps']:.3f} ms/step; launches {nr} [{card}]",
-          flush=True)
-    out["ring"] = dict(ms_step=1e3 * sr / r["steps"], launches=nr)
+    if "ring" in paths:
+        # ring decode: phase z2's ring, from an empty cache past its capacity
+        r = PHI3_RING
+        mr = with_cfg(llama, model, dataclasses.replace(
+            cfg, attn_window=r["window"], attn_sinks=r["sinks"],
+            ring_cache=True))
+        rc = llama.init_kv_cache(mr.cfg, r["B"], r["pages"], r["page"], dev)
+        first = torch.from_numpy(np.random.default_rng(43).integers(
+            0, cfg.vocab, (r["B"],), dtype=np.int32)).to(dev)
+        _reset_paged(fa, pa)
+        (_, lgr), sr = _timed(lambda: stream_steps(llama, mr, rc, first,
+                                                   r["steps"]))
+        nr = _check_paged(fa, pa, f"phase {phase} ring decode", {
+            "paged_attention": L * r["steps"],
+            "paged_attention_ring": L * r["steps"],
+            "paged_attention_grouped": L * r["steps"] * grouped})
+        if rc.k.shape[2] != r["B"] * r["pages"] or \
+                int(rc.lengths.min()) != r["steps"] or \
+                not torch.isfinite(lgr).all():
+            fail(f"phase {phase} ring decode: the ring grew, lost count or "
+                 "gave non-finite logits")
+        del mr, rc, lgr
+        print(f"phase {phase} ring decode {tag} (sinks {r['sinks']}, "
+              f"window {r['window']}, {r['pages']} pages of {r['page']}): "
+              f"{r['B']} rows x {r['steps']} steps from an empty cache, "
+              f"{1e3 * sr / r['steps']:.3f} ms/step; launches {nr} [{card}]",
+              flush=True)
+        out["ring"] = dict(ms_step=1e3 * sr / r["steps"], launches=nr)
     del model
     torch.cuda.empty_cache()
     return out
 
 
-def phi3_exactness(llama, pa, fa, dev, card):
-    """Phase zb3: the llama at Phi-3-mini's widths in f32 with 2 layers,
+def exactness_at_widths(llama, pa, fa, dev, card, phase, widths, e,
+                        model_name, extras=True):
+    """The llama at a model's ``widths`` in f32 with ``e``'s layers,
     kernels against the plain route: prefill and decode-step logits (the
-    plain run fed the kernels' tokens), a verify chunk, chunked prefill,
-    windowed and ring decode within LOGIT_TOL; beam search's beams equal
-    and its scores within LOGIT_TOL; the kernels' greedy tokens equal the
-    plain route's own up to the first near tie (LOGIT_TOL)."""
-    e = PHI3_EXACT
-    cfg = llama.LlamaConfig(**dict(PHI3, n_layers=e["layers"]),
+    plain run fed the kernels' tokens), a verify chunk, chunked prefill
+    and, with ``extras``, windowed and ring decode within LOGIT_TOL, and
+    beam search's beams equal and its scores within LOGIT_TOL; the
+    kernels' greedy tokens equal the plain route's own up to the first
+    near tie (LOGIT_TOL). Phase zb3 at Phi-3-mini's widths, zc3 at
+    Mistral-Large-2's."""
+    cfg = llama.LlamaConfig(**dict(widths, n_layers=e["layers"]),
                             seq=e["S"], use_framework_kernels=False)
+    grouped = cfg.n_heads // cfg.n_kv_heads > 8
     L, B, steps = cfg.n_layers, e["B"], e["steps"]
     model = llama.init_params(cfg, seed=1, device=dev)
     rng = np.random.default_rng(44)
@@ -5381,7 +5458,8 @@ def phi3_exactness(llama, pa, fa, dev, card):
                                   attn_sinks=e["sinks"]), e["pages"]),
                             (dict(attn_window=e["ring_window"],
                                   attn_sinks=e["ring_sinks"],
-                                  ring_cache=True), e["ring_pages"])):
+                                  ring_cache=True), e["ring_pages"])) \
+                if extras else ():
             m = with_cfg(llama, model, dataclasses.replace(cfg, **over))
             cs = llama.init_kv_cache(m.cfg, B, pages, e["page"], dev)
             fs = runs[True]["stream_toks"][len(streams)] if not kernels \
@@ -5394,58 +5472,65 @@ def phi3_exactness(llama, pa, fa, dev, card):
                              lcp=lcp.float(), stream_toks=[s[0] for s in
                                                            streams],
                              stream_lgs=[s[1] for s in streams], launches=n)
-    ns = e["stream_steps"]
+    ns = e["stream_steps"] if extras else 0
     want_n = {"flash_attention": L, "paged_attention": L * (steps + 2 * ns),
               "paged_attention_window": L * ns,
               "paged_attention_ring": L * ns, "paged_attention_int8": 0,
+              "paged_attention_grouped": L * (steps + 2 * ns) * grouped,
               "paged_attention_chunked": L * (1 + -(-e["S"] // e["chunk"]))}
     if runs[True]["launches"] != want_n:
-        fail(f"phase zb3: kernel launches {runs[True]['launches']}, want "
+        fail(f"phase {phase}: kernel launches {runs[True]['launches']}, want "
              f"{want_n}")
     if any(runs[False]["launches"].values()):
-        fail(f"phase zb3: the plain route launched {runs[False]['launches']}")
+        fail(f"phase {phase}: the plain route launched "
+             f"{runs[False]['launches']}")
     k, p = runs[True], runs[False]
     errs = {"prefill": (k["lg"] - p["lg"]).abs().max().item(),
             "decode steps": (k["lgs"] - p["lgs"]).abs().max().item(),
             "verify chunk": (k["l5"] - p["l5"]).abs().max().item(),
-            "prefill_chunked": (k["lcp"] - p["lcp"]).abs().max().item(),
-            "windowed steps": (k["stream_lgs"][0]
-                               - p["stream_lgs"][0]).abs().max().item(),
-            "ring steps": (k["stream_lgs"][1]
-                           - p["stream_lgs"][1]).abs().max().item()}
+            "prefill_chunked": (k["lcp"] - p["lcp"]).abs().max().item()}
+    for i, what in enumerate(("windowed steps", "ring steps")[:len(
+            k["stream_lgs"])]):
+        errs[what] = (k["stream_lgs"][i]
+                      - p["stream_lgs"][i]).abs().max().item()
     bad = {n: v for n, v in errs.items() if not v <= LOGIT_TOL}
     if bad:
-        fail(f"phase zb3: logits differ by more than {LOGIT_TOL}: {bad}")
+        fail(f"phase {phase}: logits differ by more than {LOGIT_TOL}: {bad}")
 
     # beam search from the first prompt, kernels against the plain route
-    beams = {}
-    for kernels in (True, False):
-        _reset_paged(fa, pa)
-        beams[kernels] = llama.beam_generate(
-            model, prompt[0], e["beam_steps"], beams=e["beams"],
-            page=e["page"], kernels=kernels)
-        _check_paged(fa, pa, "phase zb3 beam_generate", {
-            "flash_attention": L * kernels,
-            "paged_attention": L * (e["beam_steps"] - 1) * kernels})
-    (tk_b, sk_b), (tp_b, sp_b) = beams[True], beams[False]
-    errs["beam scores"] = (sk_b - sp_b).abs().max().item()
-    if not torch.equal(tk_b, tp_b) or errs["beam scores"] > LOGIT_TOL:
-        fail(f"phase zb3 beam_generate: kernels against the plain route, "
-             f"beams equal {torch.equal(tk_b, tp_b)}, scores differ by "
-             f"{errs['beam scores']} (tol {LOGIT_TOL})")
+    if extras:
+        beams = {}
+        for kernels in (True, False):
+            _reset_paged(fa, pa)
+            beams[kernels] = llama.beam_generate(
+                model, prompt[0], e["beam_steps"], beams=e["beams"],
+                page=e["page"], kernels=kernels)
+            _check_paged(fa, pa, f"phase {phase} beam_generate", {
+                "flash_attention": L * kernels,
+                "paged_attention": L * (e["beam_steps"] - 1) * kernels,
+                "paged_attention_grouped":
+                    L * (e["beam_steps"] - 1) * kernels * grouped})
+        (tk_b, sk_b), (tp_b, sp_b) = beams[True], beams[False]
+        errs["beam scores"] = (sk_b - sp_b).abs().max().item()
+        if not torch.equal(tk_b, tp_b) or errs["beam scores"] > LOGIT_TOL:
+            fail(f"phase {phase} beam_generate: kernels against the plain "
+                 f"route, beams equal {torch.equal(tk_b, tp_b)}, scores "
+                 f"differ by {errs['beam scores']} (tol {LOGIT_TOL})")
     # greedy tokens: the plain route's own run, against the kernels'
     ptoks, plgs = greedy_ref(llama, model, prompt, steps, e["pages"],
                              e["page"], kernels=False)
     prefix, agree = tie_prefix(k["toks"], ptoks, plgs, LOGIT_TOL,
-                               "phase zb3 greedy tokens, kernels against "
-                               "the plain route")
-    print(f"phase zb3 exactness llama at Phi-3-mini's widths, f32, {L} "
-          f"layers: {B} x {e['S']} prompt + {steps} greedy steps, a verify "
-          f"chunk of {e['C']}, prefill_chunked in chunks of {e['chunk']}, "
-          f"{ns} windowed (sinks {e['sinks']}, window {e['window']}) and "
-          f"{ns} ring steps (sinks {e['ring_sinks']}, window "
-          f"{e['ring_window']}, {e['ring_pages']} pages of {e['page']}), "
-          f"{e['beams']} beams of {e['beam_steps']} tokens (beams equal), "
+                               f"phase {phase} greedy tokens, kernels "
+                               "against the plain route")
+    more = (f", {ns} windowed (sinks {e['sinks']}, window {e['window']}) "
+            f"and {ns} ring steps (sinks {e['ring_sinks']}, window "
+            f"{e['ring_window']}, {e['ring_pages']} pages of {e['page']}), "
+            f"{e['beams']} beams of {e['beam_steps']} tokens (beams equal)"
+            if extras else "")
+    print(f"phase {phase} exactness llama at {model_name}'s widths, f32, "
+          f"{L} layers: {B} x {e['S']} prompt + {steps} greedy steps, a "
+          f"verify chunk of {e['C']}, prefill_chunked in chunks of "
+          f"{e['chunk']}{more}, "
           f"kernels against plain fed the same tokens: max abs err {errs} "
           f"(tol {LOGIT_TOL}); greedy tokens equal the plain route's up to "
           f"the first near tie (prefix {min(prefix)}..{steps}, agreeing from "
@@ -5466,10 +5551,104 @@ def serve_d96(llama, pa, fa, dev, gen, card):
     out = dict(p1=p1_vs_plain(pa, dev, gen, card, "zb1", ZB_P1, beside=128),
                p3=chunked_vs_plain(pa, dev, gen, card, "zb1", ZB_P3,
                                    beside=128))
-    out["serve"] = phi3_serve(llama, pa, fa, dev, card)
-    out["exact"] = phi3_exactness(llama, pa, fa, dev, card)
+    out["serve"] = serve_at_widths(llama, pa, fa, dev, card, "zb2", PHI3,
+                                   PHI3_SERVE, "Phi-3-mini")
+    out["exact"] = exactness_at_widths(llama, pa, fa, dev, card, "zb3",
+                                       PHI3, PHI3_EXACT, "Phi-3-mini")
     out["seconds"] = time.perf_counter() - t0
     print(f"phase zb took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
+
+# -- phase zc: P1 past 8 query heads a kv head, Mistral-Large-2's widths ------
+
+# Mistral-Large-Instruct-2407's widths (Mistral Large 2; its config.json on
+# the Hugging Face hub, mistralai/Mistral-Large-Instruct-2407: hidden 12288,
+# 96 heads on 8 kv heads of 128, so 12 query heads a kv head,
+# intermediate 28672, 88 layers, vocab 32768, rope_theta 1e6, rms_norm_eps
+# 1e-5): the llama's block (RMSNorm, SwiGLU, full RoPE, no biases). The
+# port's llama ties the output head to the embedding, where the checkpoint
+# has a head of its own: the served weights are random anyway.
+MISTRAL_LARGE_2 = dict(vocab=32768, d_model=12288, n_heads=96, n_kv_heads=8,
+                       n_layers=88, d_ff=28672, rope_theta=1e6, rms_eps=1e-5)
+# zc2 serves 8 of the 88 layers (11.5B parameters, 23 GB in bf16), so that
+# the model fits one card beside what earlier phases leave allocated and the
+# phase stays inside the script's time limit
+ZC_LAYERS = 8
+# zc1, P1 past 8 query heads a kv head (J_CASES' columns): Mistral-Large-2's
+# serving decode (B 8 x Hkv 8 x G 12, D 128, context 1056); G 16 at D 128
+# (B 8 x Hkv 2, context 2048); Falcon-7B's multi-query attention (71 heads
+# on one kv head, D 64, context 2048); G 9 at D 96, ragged with a length-0
+# row on pages of 7; G 12 on pages of 1. Each layout (name, B, L, Hkv, G,
+# D, page, max_pages, lengths, (window, sinks)) in full, window + sinks and
+# ring mode on bf16, int8 and f32 pools; a ring row's length is its length
+# plus half the table's capacity (its slots recycled), a length 0 stays 0
+ZC_P1 = [
+    (f"{name} {kind} {mode}", B, L, Hkv, G, D, page, mp,
+     [n + page * mp // 2 if n and mode == "ring" else n for n in lens],
+     kind, mode, *(opts if mode != "full" else (0, 0)))
+    for name, B, L, Hkv, G, D, page, mp, lens, opts in [
+        ("mistral-large-2 serve", 8, 4, 8, 12, 128, 128, 9, [1056] * 8,
+         (512, 4)),
+        ("G16 ctx2048", 8, 4, 2, 16, 128, 128, 16, [2048] * 8, (1024, 4)),
+        ("falcon-7b G71 ctx2048", 8, 4, 1, 71, 64, 128, 16, [2048] * 8,
+         (1024, 4)),
+        ("G9 D96 page7 ragged", 5, 2, 2, 9, 96, 7, 40, [0, 7, 70, 129, 280],
+         (50, 9)),
+        ("G12 page1", 3, 2, 4, 12, 128, 1, 300, [0, 150, 300], (64, 3))]
+    for kind in KV_KINDS for mode in ("full", "window", "ring")]
+# zc1, P3 past 8 (CHUNKED_CASES' columns): Mistral-Large-2's verify step (C
+# 5: 60 rows, decode-shaped, its positions split) and chunked prefill from
+# 0 and from 768 (C 256: 48 row tiles); G 16's and Falcon-7B's verify step
+# at context 2048; each on bf16, int8 and f32 pools
+ZC_P3 = [
+    (f"{name} {kind}", B, L, Hkv, G, C, D, page, mp, starts, None,
+     KV_KINDS[kind][0], kind == "int8")
+    for name, B, L, Hkv, G, C, D, page, mp, starts in [
+        ("mistral-large-2 verify", 8, 4, 8, 12, 5, 128, 128, 9, [1051] * 8),
+        ("mistral-large-2 prefill start 0", 8, 4, 8, 12, 256, 128, 128, 9,
+         [0] * 8),
+        ("mistral-large-2 prefill start 768", 8, 4, 8, 12, 256, 128, 128, 9,
+         [768] * 8),
+        ("G16 verify", 8, 4, 2, 16, 5, 128, 128, 16, [2043] * 8),
+        ("falcon-7b G71 verify", 8, 4, 1, 71, 5, 64, 128, 16, [2043] * 8)]
+    for kind in KV_KINDS]
+# zc2: the llama at Mistral-Large-2's widths, bf16, ZC_LAYERS layers: B 8 x
+# a 1024-token prompt, 32 greedy steps, chunks of 256, the verify step of
+# gamma + 1 tokens, a self-draft, an int8 cache
+ZC_SERVE = dict(B=8, S=1024, steps=32, page=128, pages=9, chunk=256,
+                gamma=4)
+# zc3: f32 exactness at full width, 2 layers: B 2 x a 200-token prompt on
+# pages of 16, 24 greedy steps, a verify chunk of 5, chunked prefill in
+# chunks of 64
+ZC_EXACT = dict(layers=2, B=2, S=200, steps=24, C=5, page=16, pages=16,
+                chunk=64)
+
+
+def serve_grouped(llama, pa, fa, dev, gen, card):
+    """Phase zc: P1 past 8 query heads a kv head on the card. zc1 P1's row
+    groups in every mode and on every pool against their plain version
+    (ZC_P1), each timed (cold L2) beside the same call at G 2, which reads
+    the same K/V bytes, and P3 at G 12, 16 and 71 (ZC_P3); zc2 the llama at
+    Mistral-Large-2's widths (ZC_LAYERS layers, bf16) served through
+    ``generate``, ``prefill_chunked``, a verify ``decode_chunk``,
+    ``speculative_generate`` with a self-draft and an int8 cache
+    (``serve_at_widths``); zc3 its f32 exactness with 2 layers
+    (``exactness_at_widths``)."""
+    t0 = time.perf_counter()
+    out = dict(p1=p1_vs_plain(pa, dev, gen, card, "zc1", ZC_P1,
+                              beside_group=2),
+               p3=chunked_vs_plain(pa, dev, gen, card, "zc1", ZC_P3))
+    out["serve"] = serve_at_widths(llama, pa, fa, dev, card, "zc2",
+                                   MISTRAL_LARGE_2, ZC_SERVE,
+                                   "Mistral-Large-2", layers=ZC_LAYERS,
+                                   paths=())
+    out["exact"] = exactness_at_widths(llama, pa, fa, dev, card, "zc3",
+                                       MISTRAL_LARGE_2, ZC_EXACT,
+                                       "Mistral-Large-2", extras=False)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase zc took {out['seconds']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -5551,7 +5730,8 @@ def main():
     # (a library reused from an earlier build has no ptxas log)
     p1_spill = [(n, sp) for n, _, sp in summary
                 if n.startswith(("paged_decode_kernel", "paged_window_kernel",
-                                 "paged_ring_kernel")) and not sp.startswith(
+                                 "paged_ring_kernel", "paged_grouped_kernel"))
+                and not sp.startswith(
                     "0 bytes stack frame, 0 bytes spill stores")]
     if p1_spill:
         fail(f"phase 2: P1 spills or keeps a stack frame: {p1_spill}")
@@ -5841,6 +6021,9 @@ def main():
     # -- phase zb: serving at head dim 96 (P1 and P3 at D 96, Phi-3-mini) ----
     zb = serve_d96(llama, pa, fa, dev, gen, card)
 
+    # -- phase zc: P1 past 8 query heads a kv head (Mistral-Large-2) ---------
+    zc = serve_grouped(llama, pa, fa, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
         # three TF32 products says so in bound_term
@@ -5952,14 +6135,17 @@ def main():
     c1 = y_rows["bf16 32x56x56x64->64"]
     zb_serve = zb["serve"]
 
-    def zb_row(name, source, replaces, n, main, table, library, **extra):
-        # a D 96 row: the main case's numbers, every other case beside them
+    def zb_row(name, source, replaces, n, main, table, library,
+               keys=("cold_ms", "d128_cold_ms", "splits"), **extra):
+        # a zb (D 96) or zc (G past 8) row: the main case's numbers, every
+        # other case beside them
         r = table[main]
         return row(name, source, replaces, n, r, library,
-                   library=NO_LIBRARY_PAGED,
-                   **{k: r[k] for k in ("cold_ms", "d128_cold_ms", "splits")},
+                   library=NO_LIBRARY_PAGED, **{k: r[k] for k in keys},
                    other_cases={k: v for k, v in table.items() if k != main},
                    **extra)
+
+    zc_serve = zc["serve"]
 
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
@@ -6348,6 +6534,45 @@ def main():
                            "paged_combine_kernel<bf16, 96> where split",
                    "f32": "paged_chunked_kernel<float, TK, 96>"},
                launches_path="phase zb2: prefill_chunked, the verify step "
+                             "and speculative decoding's verify rounds"),
+        zb_row("paged_attention_grouped",
+               "cubecl_tpu_torch/csrc/paged_attention.cu",
+               "cubecl_tpu/ops/paged_attention.py:247",
+               zc_serve["generate"]["launches"]["paged_attention_grouped"],
+               "mistral-large-2 serve bf16 full", zc["p1"], None,
+               keys=("cold_ms", "g2_cold_ms", "splits", "groups"),
+               shape="bf16 B8 Hkv8 G12 D128 context 1056 (Mistral-Large-2), "
+                     "4-layer pool (ms: back to back, each launch on the "
+                     "next layer; g2_cold_ms: the same call at G 2, the "
+                     "same K/V bytes)",
+               kernel_symbols="paged_grouped_kernel<MODE, T, TK, D> over "
+                              "(splits x row groups of at most 8 query "
+                              "rows, Hkv, B), every mode, then "
+                              "paged_combine_kernel<T, D> where split",
+               launches_path=f"phase zc2: generate, 8 x 1024 + 32 steps, "
+                             f"{ZC_LAYERS} layers, every launch grouped "
+                             "(paged_attention.grouped_launches)",
+               int8_grouped_launches=zc_serve["int8"]["launches"][
+                   "paged_attention_grouped"],
+               mistral_large_2_serve=zc_serve, exactness_f32=zc["exact"],
+               phase_seconds=zc["seconds"]),
+        zb_row("paged_attention_chunked_grouped",
+               "cubecl_tpu_torch/csrc/paged_chunked.cu",
+               "cubecl_tpu/ops/paged_attention.py:675",
+               zc_serve["prefill_chunked"]["launches"][
+                   "paged_attention_chunked"]
+               + zc_serve["verify"]["launches"]["paged_attention_chunked"]
+               + sum(v["launches"]["paged_attention_chunked"]
+                     for v in zc_serve["speculative"].values()),
+               "mistral-large-2 verify bf16", zc["p3"], None,
+               keys=("cold_ms", "splits"),
+               shape="verify: bf16 B8 Hkv8 G12 C5 D128 context 1056 "
+                     "(Mistral-Large-2)",
+               kernel_symbols={
+                   "bf16": "paged_chunked_wgmma_kernel<128, QUANT>, then "
+                           "paged_combine_kernel<bf16, 128> where split",
+                   "f32": "paged_chunked_kernel<float, TK, D>"},
+               launches_path="phase zc2: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds"),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@
 //   pages cost nothing and no work list is built.
 //
 // Math (as P1/P2): the G = H / Hkv query rows of one kv head against that
-// head's pages of layer `layer` in the stacked pool (L, Hkv, P, page, D);
+// head's pages of layer `layer` in the stacked pool (L, Hkv, P, page, D),
+// for any G;
 // base-2 online softmax over positions < lengths[b] with f32 statistics,
 // accumulator and probabilities; a row of length 0 gets zeros. Table
 // entries are clamped to [0, P) before they are read (P1's scale gather
@@ -60,9 +61,25 @@
 //   1-byte reads a row, neighbouring lanes on neighbouring addresses). f32
 //   pools, whose 147 KB of shared memory hold one block an SM, let ptxas
 //   use the SM's registers (P1MinBlocks): at its default 128 they spilled.
+// - Past 8 query heads a kv head (Mistral-Large-2's 12, MiniMax's 16,
+//   Falcon-7B's multi-query 71; paged_grouped_kernel): a block holds at
+//   most MAXG = 8 query rows (q in shared memory, m, l and acc in
+//   registers, the warps' combine buffer sized for 8), so the G rows of a
+//   kv head are cut into groups = ceil(G / 8) row groups of ceil(G /
+//   groups) rows, the last maybe fewer (its other rows zeros, never
+//   written), each a block of its own. A split's row groups are neighbours
+//   in block order (block x = split * groups + group), so they walk the
+//   same positions at about the same time and can share the K/V through
+//   the L2. The splits count every block of a (batch row, kv head): B *
+//   Hkv * groups blocks before the split (p1_splits). A block writes its
+//   rows' outputs, or where the positions are split their partials, one a
+//   query row as the other kernels do (the combine reads row hk * G + g).
+//   The same body with its block's rows from blockIdx.x (GROUPED); the
+//   kernels of at most 8 rows are the code they were.
 // What holds it back: the f32 products and shuffles per position (G of
 // each) run on the CUDA cores; at B * Hkv near one wave the split is 1 and
-// the tail of the wave idles.
+// the tail of the wave idles; past 8 rows a kv head each row group reads
+// the kv head's K/V again (from the L2 where a neighbour just read it).
 //
 // P1's two options (StreamingLLM serving), each a kernel of its own on the
 // same body, chosen at compile time (MODE), so that the plain decode's
@@ -98,7 +115,7 @@ constexpr int PT = 64;          // positions per tile
 constexpr int PNT = 256;        // threads per block
 constexpr int PNW = PNT / 32;   // warps per block
 constexpr int WR = PT / PNW;    // positions of a tile a warp owns
-constexpr int MAXG = 8;         // query rows per kv head supported
+constexpr int MAXG = 8;         // query rows a block holds (a row group)
 constexpr int STAGES = 3;       // ring of K/V stages per warp
 constexpr int kSMs = 132;       // the H100's SMs
 constexpr int kSmSmem = 233472;  // shared memory of an SM (228 KB)
@@ -138,12 +155,20 @@ inline int p1_walk_tiles(int mode, int page, int max_pages, int window,
   return (int)std::min(tiles, live);
 }
 
-// splits of each (batch row, kv head): enough blocks to fill the card once
-// at two blocks an SM (one where shared memory holds one), at most the
-// tiles a row walks; 1 where B * Hkv fills it alone
-inline int p1_splits(int B, int Hkv, int tiles, int smem) {
+// row groups of a kv head's G query rows: ceil(G / MAXG), each of
+// p1_group_rows(G) rows but the last
+inline int p1_groups(int G) { return (G + MAXG - 1) / MAXG; }
+inline int p1_group_rows(int G) {
+  return (G + p1_groups(G) - 1) / p1_groups(G);
+}
+
+// splits of each (batch row, kv head): enough blocks, its row groups
+// counted, to fill the card once at two blocks an SM (one where shared
+// memory holds one), at most the tiles a row walks; 1 where B * Hkv *
+// groups fills it alone
+inline int p1_splits(int B, int Hkv, int groups, int tiles, int smem) {
   const int per_sm = kSmSmem / (smem + 1024) >= 2 ? 2 : 1;
-  const int rows = B * Hkv;
+  const int rows = B * Hkv * groups;
   return std::max(1, std::min(kSMs * per_sm / rows, tiles));
 }
 
@@ -215,10 +240,27 @@ struct Slots96 {
   }
 };
 
-// the body of the three kernels below, for MODE; part (splits > 1): per
-// (b, kv head, split, query row g < G) the row's unnormalised f32
-// accumulator (D), then its m and l
-template <int MODE, typename T, typename TK, int D>
+// where a grouped block writes: its first query head row, its partials,
+// its live rows; kept in shared memory from the start to the end (as
+// registers through the loop they made the tightest instances spill, and
+// they are not cheap to recompute)
+struct P1Out {
+  int64_t row;
+  float* part;
+  int rows;
+};
+__device__ __forceinline__ P1Out& p1_out() {
+  __shared__ P1Out out;
+  return out;
+}
+
+// the body of the kernels below, for MODE; part (splits > 1): per (b, kv
+// head, split, query row < H / Hkv) the row's unnormalised f32 accumulator
+// (D), then its m and l. GROUPED: block x is split x / groups and row
+// group x % groups of the kv head's H / Hkv rows, G its rows (the last
+// group's past H / Hkv are zeros); else G = H / Hkv <= MAXG, block x split
+// x
+template <int MODE, bool GROUPED, typename T, typename TK, int D>
 __device__ __forceinline__ void paged_decode_body(
     const T* __restrict__ q, const TK* __restrict__ kpool,
     const TK* __restrict__ vpool, const float* __restrict__ kscale,
@@ -243,7 +285,16 @@ __device__ __forceinline__ void paged_decode_body(
   float* qs = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  int split, g0, live;  // grouped: the split, the first row, the live rows
+  if constexpr (GROUPED) {
+    const int groups = (H / Hkv + G - 1) / G;
+    split = blockIdx.x / groups;
+    g0 = (blockIdx.x % groups) * G;
+    live = min(G, H / Hkv - g0);
+  } else {
+    split = blockIdx.x;
+  }
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int len = max(lengths[b], 0);
   // the table-order positions walked: those below the length (the ring:
   // the slots written so far, at most the table's)
@@ -256,21 +307,46 @@ __device__ __forceinline__ void paged_decode_body(
   // window mode walks its live tiles instead
   const WindowTiles wt(len, window, sinks, split, splits);
   const int n_tiles = MODE == kModeWindow ? wt.count : (p1 - p0 + PT - 1) / PT;
-  const int64_t orow0 = (int64_t)b * H + (int64_t)hk * G;  // query head row
-  float* pr = splits == 1 ? nullptr
-                          : part + (((int64_t)b * Hkv + hk) * splits + split) *
-                                       G * (D + 2);
-  if (n_tiles == 0) {  // no position: zeros (and an empty partial)
-    for (int i = tid; i < G * (D + 2); i += PNT) {
-      if (splits == 1) {
-        if (i < G * D) o[orow0 * D + i] = from_float<T>(0.f);
-      } else {
-        pr[i] = i % (D + 2) == D ? -INFINITY : 0.f;
-      }
-    }
-    return;
+  int64_t orow0;  // the block's first query head row
+  float* pr;      // its partials
+  if constexpr (GROUPED) {
+    orow0 = (int64_t)b * H + (int64_t)hk * (H / Hkv) + g0;
+    pr = splits == 1 ? nullptr
+                     : part + ((((int64_t)b * Hkv + hk) * splits + split) *
+                                   (H / Hkv) + g0) * (D + 2);
+  } else {
+    orow0 = (int64_t)b * H + (int64_t)hk * G;
+    pr = splits == 1 ? nullptr
+                     : part + (((int64_t)b * Hkv + hk) * splits + split) * G *
+                                  (D + 2);
   }
-  for (int i = tid; i < G * D; i += PNT) qs[i] = to_float(q[orow0 * D + i]);
+  if constexpr (GROUPED) {
+    if (tid == 0) p1_out() = P1Out{orow0, pr, live};
+    if (n_tiles == 0) {  // no position: zeros (and an empty partial)
+      for (int i = tid; i < live * (D + 2); i += PNT) {
+        if (splits == 1) {
+          if (i < live * D) o[orow0 * D + i] = from_float<T>(0.f);
+        } else {
+          pr[i] = i % (D + 2) == D ? -INFINITY : 0.f;
+        }
+      }
+      return;
+    }
+    for (int i = tid; i < G * D; i += PNT)
+      qs[i] = i < live * D ? to_float(q[orow0 * D + i]) : 0.f;
+  } else {
+    if (n_tiles == 0) {  // no position: zeros (and an empty partial)
+      for (int i = tid; i < G * (D + 2); i += PNT) {
+        if (splits == 1) {
+          if (i < G * D) o[orow0 * D + i] = from_float<T>(0.f);
+        } else {
+          pr[i] = i % (D + 2) == D ? -INFINITY : 0.f;
+        }
+      }
+      return;
+    }
+    for (int i = tid; i < G * D; i += PNT) qs[i] = to_float(q[orow0 * D + i]);
+  }
   const int64_t head_page0 = ((int64_t)layer * Hkv + hk) * P;
   const int* tab = table + (int64_t)b * max_pages;
 
@@ -499,7 +575,14 @@ __device__ __forceinline__ void paged_decode_body(
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += PNT) {
+  int rows_out = G;  // the rows written, from the first at orow0, to pr
+  if constexpr (GROUPED) {
+    const P1Out at = p1_out();
+    orow0 = at.row;
+    pr = at.part;
+    rows_out = at.rows;
+  }
+  for (int i = tid; i < rows_out * D; i += PNT) {
     const int g = i / D, d = i % D;
     float mx = -INFINITY;
 #pragma unroll
@@ -536,6 +619,20 @@ struct P1MinBlocks {
   static constexpr int value = D == 96 && sizeof(TK) == 4 ? 1 : 0;
 };
 
+// the grouped kernels' least blocks an SM, so that ptxas budgets the
+// registers the SM gives each block: the two that shared memory holds for
+// bf16 and int8 pools; one for f32 pools, which serve the exactness checks
+// (at D 96 and 128 their shared memory holds one; at D 64 the ring
+// spilled at two)
+template <typename TK, int D, int MODE>
+struct P1GroupedMinBlocks {
+  static constexpr int value =
+      sizeof(TK) == 4 ||
+              kSmSmem / (P1Smem<TK, D, MODE>::kBytes + 1024) < 2
+          ? 1
+          : 2;
+};
+
 // the plain decode: every position below the length
 template <typename T, typename TK, int D>
 __global__ void __launch_bounds__(PNT, P1MinBlocks<TK, D>::value)
@@ -548,7 +645,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                     float* __restrict__ part, int H, int Hkv, int G,
                     int layer, int P, int page, int max_pages,
                     float scale_log2, int splits) {
-  paged_decode_body<kModeFull, T, TK, D>(
+  paged_decode_body<kModeFull, false, T, TK, D>(
       q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
       layer, P, page, max_pages, scale_log2, splits, 0, 0, nullptr);
 }
@@ -565,7 +662,7 @@ paged_window_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                     float* __restrict__ part, int H, int Hkv, int G,
                     int layer, int P, int page, int max_pages,
                     float scale_log2, int splits, int window, int sinks) {
-  paged_decode_body<kModeWindow, T, TK, D>(
+  paged_decode_body<kModeWindow, false, T, TK, D>(
       q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
       layer, P, page, max_pages, scale_log2, splits, window, sinks, nullptr);
 }
@@ -583,14 +680,36 @@ paged_ring_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                   int P, int page, int max_pages, float scale_log2,
                   int splits, int window, int sinks,
                   const int* __restrict__ meta) {
-  paged_decode_body<kModeRing, T, TK, D>(
+  paged_decode_body<kModeRing, false, T, TK, D>(
       q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
       layer, P, page, max_pages, scale_log2, splits, window, sinks, meta);
 }
 
+// past 8 query heads a kv head, each mode: the row groups' blocks (G: a
+// block's rows; window and sinks read in window and ring mode, meta in
+// ring mode)
 template <int MODE, typename T, typename TK, int D>
+__global__ void __launch_bounds__(PNT, P1GroupedMinBlocks<TK, D, MODE>::value)
+paged_grouped_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
+                     const TK* __restrict__ vpool,
+                     const float* __restrict__ kscale,
+                     const float* __restrict__ vscale,
+                     const int* __restrict__ table,
+                     const int* __restrict__ lengths, T* __restrict__ o,
+                     float* __restrict__ part, int H, int Hkv, int G,
+                     int layer, int P, int page, int max_pages,
+                     float scale_log2, int splits, int window, int sinks,
+                     const int* __restrict__ meta) {
+  paged_decode_body<MODE, true, T, TK, D>(
+      q, kpool, vpool, kscale, vscale, table, lengths, o, part, H, Hkv, G,
+      layer, P, page, max_pages, scale_log2, splits, window, sinks, meta);
+}
+
+template <int MODE, bool GROUPED, typename T, typename TK, int D>
 const void* p1_kernel() {
-  if constexpr (MODE == kModeFull) {
+  if constexpr (GROUPED) {
+    return (const void*)paged_grouped_kernel<MODE, T, TK, D>;
+  } else if constexpr (MODE == kModeFull) {
     return (const void*)paged_decode_kernel<T, TK, D>;
   } else if constexpr (MODE == kModeWindow) {
     return (const void*)paged_window_kernel<T, TK, D>;
@@ -607,21 +726,32 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
                          int page, int max_pages, int window, int sinks,
                          float scale_log2, cudaStream_t stream) {
   constexpr int smem = P1Smem<TK, D, MODE>::kBytes;
+  const int groups = p1_groups(H / Hkv);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      p1_kernel<MODE, T, TK, D>(),
+      p1_kernel<MODE, false, T, TK, D>(),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t attr_grouped = cudaFuncSetAttribute(
+      p1_kernel<MODE, true, T, TK, D>(),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const int splits = p1_splits(
-      B, Hkv, p1_walk_tiles(MODE, page, max_pages, window, sinks), smem);
+  if (attr_grouped != cudaSuccess) return attr_grouped;
+  const int splits =
+      p1_splits(B, Hkv, groups,
+                p1_walk_tiles(MODE, page, max_pages, window, sinks), smem);
   if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
-  const dim3 grid(splits, Hkv, B);
+  const dim3 grid(splits * groups, Hkv, B);
   const T* qt = static_cast<const T*>(q);
   const TK *kt = static_cast<const TK*>(kp), *vt = static_cast<const TK*>(vp);
   const int* tab = static_cast<const int*>(table);
   const int* len = static_cast<const int*>(lengths);
   T* ot = static_cast<T*>(o);
   float* pt = static_cast<float*>(part);
-  if constexpr (MODE == kModeFull) {
+  if (groups > 1) {  // past 8 query heads a kv head: the row groups
+    paged_grouped_kernel<MODE, T, TK, D><<<grid, PNT, smem, stream>>>(
+        qt, kt, vt, ks, vsc, tab, len, ot, pt, H, Hkv,
+        p1_group_rows(H / Hkv), layer, P, page, max_pages, scale_log2,
+        splits, window, sinks, meta);
+  } else if constexpr (MODE == kModeFull) {
     paged_decode_kernel<T, TK, D><<<grid, PNT, smem, stream>>>(
         qt, kt, vt, ks, vsc, tab, len, ot, pt, H, Hkv, H / Hkv, layer, P,
         page, max_pages, scale_log2, splits);
@@ -681,9 +811,9 @@ inline int p1_mode(int window, bool ring) {
 // slot's absolute position (-1: never written), masked by the window too.
 // part: the splits' partial sums where the positions are split,
 // cubecl_paged_decode_plan's plan[6] floats (null where that is 0).
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for a dtype / head_dim (D 64, 96 and 128 are built) / group size this
-// kernel was not built for.
+// Any H that is a multiple of Hkv. Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for a dtype / head_dim (D 64, 96 and
+// 128 are built) this kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const float* k_scales,
                                    const float* v_scales, const void* table,
@@ -695,7 +825,7 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    void* stream) {
   using namespace cubecl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || H <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   if (window < 0 || sinks < 0) return cudaErrorInvalidValue;
   const bool quant = kv_dtype == kI8;
   if (quant != (k_scales != nullptr && v_scales != nullptr))
@@ -735,16 +865,16 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
 // P1's launch plan for q of `dtype`, pools of `kv_dtype`, the shapes and
 // the options (window, sinks, ring: a pos_meta given): plan[0..7] =
 // threads a block, dynamic shared memory bytes, the grid (x: the splits of
-// a (batch row, kv head), y: Hkv, z: B), the splits, the floats of `part`
-// (0 without a split), the mode (0 plain, 1 window + sinks, 2 ring).
-// Returns 0, or cudaErrorInvalidValue for what cubecl_paged_decode
-// refuses.
+// a (batch row, kv head) times its row groups, y: Hkv, z: B), the splits,
+// the floats of `part` (0 without a split), the mode (0 plain, 1 window +
+// sinks, 2 ring); plan[8] = the row groups of a kv head. Returns 0, or
+// cudaErrorInvalidValue for what cubecl_paged_decode refuses.
 extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
                                         int Hkv, int D, int page,
                                         int max_pages, int window, int sinks,
                                         int ring, int* plan) {
   using namespace cubecl;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || B <= 0 ||
+  if (Hkv <= 0 || H <= 0 || H % Hkv != 0 || B <= 0 ||
       (dtype != kF32 && dtype != kBF16) ||
       (kv_dtype != kI8 && kv_dtype != dtype) || window < 0 || sinks < 0)
     return cudaErrorInvalidValue;
@@ -754,15 +884,18 @@ extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
       : mode == kModeWindow ? p1_smem<kModeWindow>(dtype, kv_dtype, D)
                             : p1_smem<kModeRing>(dtype, kv_dtype, D);
   if (smem < 0) return cudaErrorInvalidValue;
-  const int splits = p1_splits(
-      B, Hkv, p1_walk_tiles(mode, page, max_pages, window, sinks), smem);
+  const int groups = p1_groups(H / Hkv);
+  const int splits =
+      p1_splits(B, Hkv, groups,
+                p1_walk_tiles(mode, page, max_pages, window, sinks), smem);
   plan[0] = PNT;
   plan[1] = smem;
-  plan[2] = splits;
+  plan[2] = splits * groups;
   plan[3] = Hkv;
   plan[4] = B;
   plan[5] = splits;
   plan[6] = splits > 1 ? B * Hkv * splits * (H / Hkv) * (D + 2) : 0;
   plan[7] = mode;
+  plan[8] = groups;
   return 0;
 }

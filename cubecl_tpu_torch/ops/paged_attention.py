@@ -36,13 +36,14 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
 ``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
 in ``PAGED_HEAD_DIMS`` (64, 96, 128: each an instance of its own; D 96 is
-Phi-3-mini's head dim, its pools unpadded), and for decode at most 8 query
-heads per kv head; anything else raises. P1 splits the positions of each
-(batch row, kv head) over blocks where B * Hkv leaves the card idle,
-copies K and V through the table with cp.async into a ring per warp, and
-combines the splits in a second, small launch (:func:`p1_plan`); with a
-window it walks only the
-tiles that hold a live position (:func:`p1_window_tiles`). P3 runs bf16 q
+Phi-3-mini's head dim, its pools unpadded) and any number of query heads a
+kv head; anything else raises. P1 cuts a kv head's query heads into row
+groups of at most 8, a block each (:func:`p1_group_rows`), splits the
+positions of each (batch row, kv head) over blocks where B * Hkv * groups
+leaves the card idle, copies K and V through the table with cp.async into
+a ring per warp, and combines the splits in a second, small launch
+(:func:`p1_plan`); with a window it walks only the tiles that hold a live
+position (:func:`p1_window_tiles`). P3 runs bf16 q
 (bf16 or int8 pools) on the tensor cores
 (``wgmma``, cp.async staging through the table; decode-shaped chunks split
 their positions over blocks and a second, small launch combines the
@@ -65,16 +66,17 @@ import torch
 from ..utils import native
 from .attention import KERNEL_DTYPES, LOG2E
 
-MAX_GROUP = 8  # query heads per kv head the decode kernel takes (csrc MAXG)
 # the head dims P1 and P3 are built for (flash's KERNEL_HEAD_DIMS are 64 and
 # 128; flash at 96 pads to 128, a paged pool is never padded)
 PAGED_HEAD_DIMS = (64, 96, 128)
 
 # P1's body (csrc/paged_attention.cu), for p1_plan: 256 threads (8 warps)
-# a block, 64-position tiles (8 positions a warp), a ring of 3 stages of
-# K and V rows per warp, q in f32 ahead of the rings; the positions of a
-# (batch row, kv head) split over blocks until the grid fills the 132 SMs
-# once at two blocks an SM (one where shared memory holds one)
+# a block, at most 8 query rows a block (a row group; q in f32 ahead of the
+# rings), 64-position tiles (8 positions a warp), a ring of 3 stages of K
+# and V rows per warp; the positions of a (batch row, kv head) split over
+# blocks until the grid, its row groups counted, fills the 132 SMs once at
+# two blocks an SM (one where shared memory holds one)
+P1_GROUP_ROWS = 8  # csrc MAXG
 P1_THREADS = 256
 P1_TILE = 64
 P1_STAGES = 3
@@ -90,17 +92,29 @@ P1_FULL, P1_WINDOW, P1_RING = 0, 1, 2
 @dataclasses.dataclass(frozen=True)
 class P1Plan:
     """One call of P1: ``threads`` a block, dynamic shared memory
-    ``smem_bytes``, the ``grid`` (splits, Hkv, B), the position
+    ``smem_bytes``, the ``grid`` (splits * groups, Hkv, B), the position
     ``splits`` of a (batch row, kv head), the f32 ``scratch`` (floats)
-    of the splits' partial sums and the ``mode`` (P1_FULL, P1_WINDOW,
-    P1_RING): the arithmetic of csrc/paged_attention.cu's
-    ``cubecl_paged_decode_plan``."""
+    of the splits' partial sums, the ``mode`` (P1_FULL, P1_WINDOW,
+    P1_RING) and the row ``groups`` of a kv head's query heads (block x
+    is split x // groups, row group x % groups): the arithmetic of
+    csrc/paged_attention.cu's ``cubecl_paged_decode_plan``."""
     threads: int
     smem_bytes: int
     grid: Tuple[int, int, int]
     splits: int
     scratch: int
     mode: int = P1_FULL
+    groups: int = 1
+
+
+def p1_group_rows(G: int, group: int):
+    """The query rows [first, end) of a kv head's ``G`` that row group
+    ``group`` holds: ceil(G / 8) groups of ceil(G / groups) rows, the last
+    the rest, as the kernel cuts them (csrc ``p1_groups``,
+    ``p1_group_rows``)."""
+    groups = -(-G // P1_GROUP_ROWS)
+    rows = -(-G // groups)
+    return min(G, group * rows), min(G, (group + 1) * rows)
 
 
 # cached: a decode step's host time is what its launches wait on
@@ -111,13 +125,13 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
     """P1's launch plan for q of ``dtype``, pools of ``kv_dtype`` and the
     options of the call (``ring``: a ``pos_meta`` is given)."""
     if dtype not in KERNEL_DTYPES or kv_dtype not in (dtype, torch.int8) \
-            or D not in PAGED_HEAD_DIMS or Hkv <= 0 or H % Hkv \
-            or H // Hkv > MAX_GROUP or B <= 0 or window < 0 or sinks < 0:
+            or D not in PAGED_HEAD_DIMS or Hkv <= 0 or H <= 0 or H % Hkv \
+            or B <= 0 or window < 0 or sinks < 0:
         raise ValueError(f"P1 takes q of {KERNEL_DTYPES}, pools of q's "
-                         f"dtype or int8, D in {PAGED_HEAD_DIMS}, at most "
-                         f"{MAX_GROUP} query heads a kv head and a window "
-                         f"and sinks >= 0; got {dtype}, {kv_dtype}, D {D}, "
-                         f"H {H}, Hkv {Hkv}, window {window}, sinks {sinks}")
+                         f"dtype or int8, D in {PAGED_HEAD_DIMS}, H a "
+                         f"multiple of Hkv and a window and sinks >= 0; got "
+                         f"{dtype}, {kv_dtype}, D {D}, H {H}, Hkv {Hkv}, "
+                         f"window {window}, sinks {sinks}")
     # the ring where a pos_meta is given, else window + sinks where window
     # > 0 (sinks alone change nothing), else the full walk
     mode = P1_RING if ring else P1_WINDOW if window > 0 else P1_FULL
@@ -127,17 +141,19 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
     stage = 2 * rows * D * (1 if quant else dtype.itemsize) + (
         2 * rows * 4 if quant else 0) + (rows * 4 if mode == P1_RING else 0)
     ring_bytes = warps * P1_STAGES * stage
-    comb = warps * MAX_GROUP * (D + 2) * 4  # the warps' (acc, m, l)
-    smem = MAX_GROUP * D * 4 + max(ring_bytes, comb)
+    comb = warps * P1_GROUP_ROWS * (D + 2) * 4  # the warps' (acc, m, l)
+    smem = P1_GROUP_ROWS * D * 4 + max(ring_bytes, comb)
     per_sm = 2 if P1_SM_SMEM // (smem + 1024) >= 2 else 1
     cap = page * max_pages
     tiles = max(1, -(-cap // P1_TILE))
     if mode == P1_WINDOW:  # the sinks' tiles and a window's, at most
         tiles = min(tiles, -(-min(sinks, cap) // P1_TILE)
                     + (window - 1) // P1_TILE + 2)
-    splits = max(1, min(P1_SMS * per_sm // (B * Hkv), tiles))
+    groups = -(-(H // Hkv) // P1_GROUP_ROWS)
+    splits = max(1, min(P1_SMS * per_sm // (B * Hkv * groups), tiles))
     scratch = B * H * splits * (D + 2) if splits > 1 else 0
-    return P1Plan(P1_THREADS, smem, (splits, Hkv, B), splits, scratch, mode)
+    return P1Plan(P1_THREADS, smem, (splits * groups, Hkv, B), splits,
+                  scratch, mode, groups)
 
 
 def p1_split_positions(plan: P1Plan, length: int, split: int):
@@ -469,9 +485,6 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
                          scales, quant)
     B, H, D = q.shape
     L, Hkv, P, page, _ = k_pages.shape
-    if H // Hkv > MAX_GROUP:
-        raise ValueError(f"paged_attention kernel takes at most {MAX_GROUP} "
-                         f"query heads per kv head; got {H // Hkv}")
     _layer_in(layer, L)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     q = q.contiguous()
@@ -502,14 +515,18 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
         paged_attention.window_launches += 1
     elif plan.mode == P1_RING:
         paged_attention.ring_launches += 1
+    if plan.groups > 1:
+        paged_attention.grouped_launches += 1
     return o
 
 
 paged_attention.launches = 0
-# among them: the launches on int8 pools, with a window (no ring), on a ring
+# among them: the launches on int8 pools, with a window (no ring), on a
+# ring, with more than 8 query heads a kv head (row groups)
 paged_attention.int8_launches = 0
 paged_attention.window_launches = 0
 paged_attention.ring_launches = 0
+paged_attention.grouped_launches = 0
 
 
 def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
@@ -568,14 +585,14 @@ def p1_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int,
     """The built P1's launch plan (``cubecl_paged_decode_plan``): what
     :func:`p1_plan` must equal (builds the CUDA kernels on first use)."""
     lib = native.kernels()
-    plan = (ctypes.c_int * 8)()
+    plan = (ctypes.c_int * 9)()
     rc = lib.cubecl_paged_decode_plan(
         native.DTYPE_CODES[dtype], native.DTYPE_CODES[kv_dtype], B, H, Hkv,
         D, page, max_pages, window, sinks, int(ring),
         ctypes.cast(plan, ctypes.c_void_p))
     native.check(lib, rc, "paged_decode_plan")
     return P1Plan(plan[0], plan[1], (plan[2], plan[3], plan[4]), plan[5],
-                  plan[6], plan[7])
+                  plan[6], plan[7], plan[8])
 
 
 def p3_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int,

@@ -14,9 +14,10 @@ namespace, which names the file): P1's ``paged_decode_kernel``,
 ``paged_window_kernel`` and ``paged_ring_kernel``, P3's
 ``paged_chunked_kernel`` (f32) and ``paged_chunked_wgmma_kernel`` (bf16),
 and each file's ``paged_combine_kernel``. Instances only this checkout
-holds (new head dims) are listed with their registers and spills from
-ptxas. Exits 1 where one of DIR's instances differs or is missing; needs
-nvcc, not a card.
+holds (new head dims, P1's ``paged_grouped_kernel`` past 8 query heads a
+kv head) are listed with their registers and spills from ptxas. Exits 1
+where one of DIR's instances differs or is missing; needs nvcc, not a
+card.
 """
 
 import argparse

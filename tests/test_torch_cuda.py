@@ -119,8 +119,10 @@ def test_flash_kernel_matches_plain(dev, dtype, D, causal, S):
                                     (130, 300)])
 def test_flash_kernel_gqa_and_cross_lengths(dev, dtype, D, G, causal, Sq,
                                             Skv):
-    """GQA groups of 1, 2 and 8 query heads a kv head, and Sq != Skv
-    (causal: col <= row in absolute positions): o and lse against plain."""
+    """Flash's GQA groups of 1, 2 and 8 query heads a kv head (A1 reads kv
+    head h // G for any G; P1's and P3's groups past 8 are the grouped
+    paged tests'), and Sq != Skv (causal: col <= row in absolute
+    positions): o and lse against plain."""
     g = torch.Generator(device=dev).manual_seed(Sq * Skv + G)
     q = torch.randn(2, 8, Sq, D, generator=g, device=dev).to(dtype)
     k = torch.randn(2, 8 // G, Skv, D, generator=g, device=dev).to(dtype)
@@ -373,8 +375,10 @@ def _bwd_kernels_vs_plain(q, k, v, do, causal):
 @pytest.mark.parametrize("G", [1, 2, 8])
 @pytest.mark.parametrize("S", FLASH_S)
 def test_flash_backward_bf16_kernels_round_as_jax(dev, D, causal, G, S):
-    """The tensor-core bodies of A3 and A4 at every FLASH_S and GQA group
-    of 1, 2 and 8 query heads a kv head."""
+    """The tensor-core bodies of A3 and A4 at every FLASH_S and flash's
+    GQA groups of 1, 2 and 8 query heads a kv head (any G divides the
+    heads the same way; P1's and P3's groups past 8 are the grouped paged
+    tests')."""
     _bwd_kernels_vs_plain(*_bwd_bf16_inputs(dev, S * G + D, 8, 8 // G, S,
                                             S, D), causal)
 
@@ -490,6 +494,11 @@ P1_REPEAT_CASES = {
     # phase zb's Phi-3-mini decode: 32 kv heads of one query head, D 96
     "phi3 bf16": (8, 32, 1, 96, 9, [1056] * 8, torch.bfloat16, False),
     "phi3 int8": (8, 32, 1, 96, 9, [1056] * 8, torch.bfloat16, True),
+    # phase zc's row groups: Mistral-Large-2's decode (G 12: 2 groups of 6
+    # rows), Falcon-7B's multi-query G 71 (9 groups, 3 splits)
+    "mistral-large-2 bf16": (8, 8, 12, 128, 9, [1056] * 8, torch.bfloat16,
+                             False),
+    "falcon G71 int8": (8, 1, 71, 64, 16, [2048] * 8, torch.bfloat16, True),
 }
 P1_LAUNCHES = 200
 
@@ -739,6 +748,129 @@ def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
             assert any(re.search(want, d)
                        for d in by_kernel["paged_decode_kernel"]), \
                 (want, by_kernel["paged_decode_kernel"])
+
+
+# P1 past 8 query heads a kv head (row groups of at most 8 rows, a block
+# each): (B, Hkv, G, D, page, max_pages, lengths, window, sinks). G 9 at
+# D 96, ragged with a length-0 row on pages of 7; Mistral-Large-2's G 12
+# at D 128 on pages of 1; G 16 at D 128, one row at context 4096 (many
+# splits); Falcon-7B's multi-query G 71 at D 64, 8 rows (3 splits of 9
+# row groups)
+P1_GROUPED = {
+    "G9-D96-page7": (5, 2, 9, 96, 7, 40, [0, 7, 70, 129, 280], 50, 9),
+    "G12-D128-page1": (3, 2, 12, 128, 1, 300, [0, 150, 300], 64, 3),
+    "G16-D128-B1-ctx4096": (1, 2, 16, 128, 128, 32, [4096], 2000, 4),
+    "G71-D64": (8, 1, 71, 64, 128, 16, [2048, 1, 64, 65, 700, 1500, 2000,
+                                         2047], 256, 4),
+}
+
+
+@pytest.mark.parametrize("layout", list(P1_GROUPED))
+@pytest.mark.parametrize("mode", ["full", "window", "ring"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_paged_grouped_kernel_matches_plain(dev, kind, mode, layout):
+    """P1 past 8 query heads a kv head in every mode and on every pool
+    against its plain version: the row groups' blocks (p1_plan's groups)
+    and their split over positions combined into one output a query row,
+    a length-0 row's zeros; the call's plan is the built kernel's; one
+    launch, counted in its mode."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, G, D, page, max_pages, lengths, window, sinks = \
+        P1_GROUPED[layout]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(G * D + len(mode))
+    q, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, kind == "int8",
+                                             B, Hkv, G, D, page, max_pages)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(layer=1, k_scales=ks, v_scales=vs)
+    if mode != "full":
+        kw.update(window=window, sinks=sinks)
+    if mode == "ring":
+        kw["pos_meta"] = torch.from_numpy(_ring_meta(
+            table, lengths, page, sinks)[:kp.shape[2]]).to(dev)
+    args = (dtype, kp.dtype, B, Hkv * G, Hkv, D, page, max_pages,
+            kw.get("window", 0), kw.get("sinks", 0), mode == "ring")
+    plan = pa.p1_plan(*args)
+    assert plan.groups == -(-G // 8) and plan.grid[0] == \
+        plan.splits * plan.groups
+    assert pa.p1_kernel_plan(*args) == plan
+    n = (paged_attention.launches, paged_attention.window_launches,
+         paged_attention.ring_launches)
+    got = paged_attention(q, kp, vp, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.window_launches,
+            paged_attention.ring_launches) == (
+        n[0] + 1, n[1] + (mode == "window"), n[2] + (mode == "ring"))
+    _close(got, paged_attention_plain(q, kp, vp, table, ln, **kw))
+    if 0 in lengths:
+        assert not got[lengths.index(0)].any()
+
+
+def test_paged_grouped_plan_matches_the_kernel(dev):
+    """P1's plans past 8 query heads a kv head (G 9, 12, 16, 71 and 127;
+    the row groups, the splits that count them, the scratch) are the built
+    kernel's, per q dtype, pool dtype, shape and options."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    for dt in (torch.float32, torch.bfloat16):
+        for kv in (dt, torch.int8):
+            for B, H, Hkv, D, page, max_pages in [
+                    (8, 96, 8, 128, 128, 9), (8, 32, 2, 128, 128, 16),
+                    (8, 71, 1, 64, 128, 16), (5, 18, 2, 96, 7, 40),
+                    (3, 24, 2, 128, 1, 300), (1, 71, 1, 64, 16, 2),
+                    (1, 127, 1, 64, 128, 33), (40, 96, 8, 128, 16, 8),
+                    (2, 32, 2, 96, 16, 256)]:
+                for opts in [(0, 0, False), (2000, 4, False),
+                             (240, 16, False), (240, 16, True),
+                             (0, 0, True)]:
+                    args = (dt, kv, B, H, Hkv, D, page, max_pages, *opts)
+                    assert pa.p1_kernel_plan(*args) == pa.p1_plan(*args), \
+                        args
+
+
+# P3 past 8 query heads a kv head: (B, Hkv, G, C, D, page, max_pages,
+# starts, lengths or None for starts + C): Mistral-Large-2's verify step
+# (G 12: 60 rows, one tile, positions split) and a prefill chunk from 0
+# (G 12 x 70 tokens: 14 row tiles); Falcon-7B's verify step (G 71 x 5:
+# 355 rows in 6 tiles) with a length-0 row
+P3_GROUPED = {
+    "G12-verify": (4, 2, 12, 5, 128, 16, 20, [0, 7, 16, 40], None),
+    "G12-C70": (2, 2, 12, 70, 128, 16, 10, [0, 9], None),
+    "G71-verify": (4, 1, 71, 5, 64, 128, 3, [0, 100, 251, 3],
+                   [0, 105, 256, 8]),
+}
+
+
+@pytest.mark.parametrize("case", list(P3_GROUPED))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_paged_chunked_grouped_kernel_matches_plain(dev, kind, case):
+    """P3 at G 12 and 71 against its plain version on every pool: the G *
+    C rows cut into 64-row tiles, decode-shaped tiles with their
+    positions split; the plan is the built kernel's; one launch."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, G, C, D, page, max_pages, starts, lengths = P3_GROUPED[case]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(G * C + len(kind))
+    q, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, kind == "int8",
+                                             B, Hkv, G, D, page, max_pages)
+    q = torch.randn(B, Hkv * G, C, D, generator=g, device=dev).to(dtype)
+    args = (dtype, kp.dtype, B, Hkv * G, Hkv, C, D, page, max_pages)
+    assert pa.p3_kernel_plan(*args) == pa.p3_plan(*args)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = st + C if lengths is None else torch.tensor(
+        lengths, dtype=torch.int32, device=dev)
+    n = paged_attention_chunked.launches
+    got = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                  k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_chunked.launches == n + 1
+    _close(got, paged_attention_chunked_plain(q, kp, vp, table, ln, st,
+                                              layer=1, k_scales=ks,
+                                              v_scales=vs))
+    if lengths is not None:
+        assert not got[0].any()
 
 
 @pytest.mark.parametrize("page", [16, 7, 48, 128])
