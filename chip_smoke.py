@@ -174,7 +174,18 @@ zc2 the llama at Mistral-Large-2's widths (8 of its 88 layers, bf16,
 with a self-draft and an int8 cache, each path's P1 (every launch
 grouped) and P3 launches counted from 0; zc3 its f32 exactness at 2
 layers (decode steps, a verify chunk, chunked prefill) against the plain
-route within LOGIT_TOL, greedy tokens equal. Each kernel's
+route within LOGIT_TOL, greedy tokens equal. Then head dim 256 (phase
+zd): zd1 A1's forward (bf16 and f32, GPT-J-6B's and Qwen3-Next's
+prefill, a ragged S 1021, padded from D 192 and 160, kv_len and a
+window; SDPA timed beside bf16), P1 in every mode on bf16, int8 and f32
+pools (G 1, 8 and 12, ragged rows on pages of 7, pages of 1) and P3 (the
+verify step, chunked prefill from 0 and 768) against plain, each timed
+(cold L2) beside the same call at D 128; zd2 the llama at GPT-J-6B's
+widths (28 layers, bf16) served through zb2's paths but the d768 draft;
+zd3 its f32 exactness at 2 layers. In zb2, zc2 and zd2 speculative
+decoding's tokens and the self-draft's rejections are held to twice the
+verify step's measured logit difference from the decode steps (the
+derivation is ``serve_at_widths``'). Each kernel's
 line gives its time beside its bound (bytes over 3.35 TB/s or operations
 over the dtype's peak) and,
 where one PyTorch call computes the same function, that call's time. A K0
@@ -406,7 +417,9 @@ def flash_sass(sass, summary):
     library's SASS: (name, HGMMA count, registers, spill line) each. Fails
     unless every bf16 instance of each of the three kernels issues wgmma
     (HGMMA) and they cover D 64 and 128 on the dense, the block-sparse and
-    the masked (the options') schedule."""
+    the masked (the options') schedule, and the forward's also D 256 on
+    the dense and the masked one, none of which spills (where a fresh
+    build's ptxas log reports them)."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     rows, covered = [], {k: set() for k in kinds}
@@ -419,6 +432,9 @@ def flash_sass(sass, summary):
         n = chunk.count("HGMMA")
         r, sp = regs.get(name, (None, "not in the ptxas log"))
         rows.append((name, n, r, sp))
+        if ", 256" in name and r is not None and not sp.startswith(
+                "0 bytes stack frame, 0 bytes spill stores"):
+            fail(f"phase 2: {name} spills or keeps a stack frame: {sp}")
         if "<bf16" in name:
             if n == 0:
                 fail(f"phase 2: {name} issues no HGMMA (wgmma)")
@@ -429,9 +445,13 @@ def flash_sass(sass, summary):
     want = {(d, sp) for d in ("64", "128")
             for sp in ("dense", "block-sparse", "masked")}
     for kind, got in covered.items():
-        if got != want:
+        if kind == "flash_fwd":  # A1's forward alone is built at D 256
+            want_kind = want | {("256", "dense"), ("256", "masked")}
+        else:
+            want_kind = want
+        if got != want_kind:
             fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
-                 f"{sorted(got)}, want {sorted(want)}")
+                 f"{sorted(got)}, want {sorted(want_kind)}")
     return rows
 
 
@@ -447,7 +467,7 @@ B_LAYOUTS = ("(K, N)", "(N, K)")
 
 def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
     """Phase 2: C1's bf16 and f32 (3xTF32) bodies, E1's bf16 body, P3's
-    bf16 body (D 64, 96 and 128, bf16 and int8 pools) and every 8-, 16-bit
+    bf16 body (D 64, 96, 128 and 256, bf16 and int8 pools) and every 8-, 16-bit
     and f32 GEMM instance in the SASS: (name, wgmma count, registers, spill
     line) each. Fails unless each issues HGMMA (each 8-bit GEMM instance
     its GEMM8_SASS instruction), C1 f32 and P3 spill nothing (where a
@@ -501,7 +521,7 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
         (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
         for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
         | {"conv3x3", "conv3x3 f32", "expert"} \
-        | {("p3", d, q) for d in (64, 96, 128) for q in (False, True)}
+        | {("p3", d, q) for d in (64, 96, 128, 256) for q in (False, True)}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -1418,13 +1438,16 @@ def bound_ms(flops, nbytes, dtype, products=False):
 
 
 def flash_bound(B, H, Hkv, Sq, Sk, D, dtype, causal, products=2,
-                extra_bytes=0):
+                extra_bytes=0, pairs=None):
     """Bound of an attention call over (B, H, Sq, D) queries and (B, Hkv,
     Sk, D) keys and values, of ``products`` matrix products per live
     (query, key) pair and head: the forward's two, or the dK/dV kernel's
-    four and the dQ kernel's three. Bytes: q, k, v and o (or the grads in
-    their place), plus ``extra_bytes``."""
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    four and the dQ kernel's three. ``pairs``: the live pairs of a batch
+    row and head where a mask other than ``causal`` sets them (then ``Sk``
+    counts only the keys some live pair reads). Bytes: q, k, v and o (or
+    the grads in their place), plus ``extra_bytes``."""
+    if pairs is None:
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
     elem = torch.finfo(dtype).bits // 8
     nbytes = elem * D * (2 * B * H * Sq + 2 * B * Hkv * Sk) + extra_bytes
     return bound_ms(2 * products * D * B * H * pairs, nbytes, dtype,
@@ -1830,11 +1853,12 @@ def speculative_checked(llama, pa, fa, model, draft, prompt, steps, gamma,
                         max_pages, page, want, want_logits, gap_tol,
                         self_draft, what, kernels=True):
     """``speculative_generate`` timed, its tokens held against ``want``
-    (the greedy stream, up to each row's first near tie), its kernel
-    launches against what the rounds it ran must launch, and, for a
-    self-draft, every rejection against the verify logits: the target's
-    logit of the rejected proposal within ``gap_tol`` of its top logit.
-    Returns (tokens, acceptance, seconds, rounds, stats)."""
+    (the greedy stream, up to each row's first near tie: a top-2 gap below
+    ``gap_tol``), its kernel launches against what the rounds it ran must
+    launch, and, for a self-draft, every rejection against the verify
+    logits: the target's logit of the rejected proposal within ``gap_tol``
+    of its top logit. Returns (tokens, acceptance, seconds, rounds,
+    stats)."""
     verify, drafts = [], []
     undo = [recording(llama, "decode_chunk", verify),
             recording(llama, "decode_step", drafts)]
@@ -5166,7 +5190,19 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     draft": PHI3_DRAFT; tokens equal to greedy up to the first near tie,
     as phase k), an int8 cache, and of ``paths`` ``beam_generate``,
     windowed (PHI3_STREAM) and ring (PHI3_RING) decode. Phase zb2 at
-    Phi-3-mini's widths, zc2 at Mistral-Large-2's."""
+    Phi-3-mini's widths, zc2 at Mistral-Large-2's, zd2 at GPT-J-6B's.
+
+    Speculative decoding's tokens and a self-draft's rejections are held
+    to twice the verify step's measured difference from the decode steps
+    (``d_verify``: max |v - d| of the logits after the same tokens). The
+    verify step picks t = argmax v where the draft proposed p = argmax d,
+    so a rejection's gap v[t] - v[p] = (v[t] - d[t]) + (d[t] - d[p]) +
+    (d[p] - v[p]) <= 2 max |v - d|, as d[t] <= d[p]; the same bounds where
+    the greedy stream (d's) and the speculative one (v's) may part. The
+    difference is the two paths' rounding: GEMMs of other heights and bf16
+    activations (most of it, with or without the kernels), P3's and P1's.
+    It does not catch a P3 fault, which widens it: the f32 exactness
+    phases (zb3, zc3, zd3) hold P3 to the plain route within LOGIT_TOL."""
     cfg = llama.LlamaConfig(**dict(widths, n_layers=layers
                                    or widths["n_layers"]),
                             seq=t["S"], dtype="bfloat16",
@@ -5264,7 +5300,7 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     print(f"phase {phase} prefill_chunked {tag}: {B} x {S} in chunks of "
           f"{t['chunk']}, {chunk_s:.4f} s ({B * S / chunk_s:.0f} prompt "
           f"tok/s); last logits against the one-shot prefill's (A1"
-          f"{'' if cfg.head_dim in (64, 128) else ', padded to 128'}): max "
+          f"{'' if cfg.head_dim in (64, 128, 256) else ', padded to 128'}): max "
           f"abs diff {d_chunk:.4f} (bf16 rounding through {L} layers; "
           f"exactness is phase {phase[:-1]}3's); launches {n_chunk} "
           f"[{card}]",
@@ -5309,6 +5345,7 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
           f"; launches {n_verify} [{card}]", flush=True)
     out["verify"] = dict(ms=1e3 * verify_s, logit_diff=d_verify,
                          launches=n_verify, profile=prof)
+    spec_tol = 2 * d_verify
 
     # speculative decoding, the drafts as phase k chooses them
     spec = {}
@@ -5321,13 +5358,14 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
         what = f"phase {phase} speculative {dname}"
         _, acc, secs, rounds, st = speculative_checked(
             llama, pa, fa, model, draft, prompt, steps, g, pages, page, want,
-            want_logits, BF16_GAP, dname == "self-draft", what)
+            want_logits, spec_tol, dname == "self-draft", what)
         print(f"{what} {tag} (draft head dim {draft.cfg.head_dim}): {B} x "
               f"{steps} tokens, gamma {g}: {rounds} rounds in {secs:.3f} s "
               f"({B * steps / secs:.1f} tok/s), mean acceptance {acc:.3f}; "
               f"{st['rejections']} rejections (largest logit gap "
-              f"{st['max_rejection_gap']:.4f}, tolerance {BF16_GAP}); tokens "
-              f"equal generate's up to the first near tie (prefix "
+              f"{st['max_rejection_gap']:.4f}, tolerance {spec_tol:.4f}: "
+              f"twice the verify step's difference); tokens equal "
+              f"generate's up to the first near tie (prefix "
               f"{st['prefix_min']}..{steps}); launches {st['launches']} "
               f"[{card}]", flush=True)
         spec[dname] = dict(tok_s=B * steps / secs, acceptance=acc,
@@ -5649,6 +5687,195 @@ def serve_grouped(llama, pa, fa, dev, gen, card):
                                        "Mistral-Large-2", extras=False)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase zc took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
+
+# -- phase zd: head dim 256 (A1's forward, P1, P3), GPT-J-6B's widths ---------
+
+D256 = 256
+# GPT-J-6B's widths (its config.json on the Hugging Face hub,
+# EleutherAI/gpt-j-6b: n_embd 4096, n_head 16, so 16 heads of 256 with no
+# GQA, n_layer 28, n_inner null (4 x 4096 = 16384), vocab_size 50400,
+# layer_norm_epsilon 1e-5, rotary base 10000) through the llama's block,
+# which differs from GPT-J's in RMSNorm for LayerNorm, SwiGLU over three
+# 16384-wide matrices for GELU over two, full RoPE for rotary_dim 64, a
+# sequential residual for the parallel one and the output head tied to the
+# embedding: 7.72B parameters, 15.4 GB in bf16, at full depth
+GPTJ_6B = dict(vocab=50400, d_model=4096, n_heads=16, n_kv_heads=16,
+               n_layers=28, d_ff=16384, rope_theta=10000.0, rms_eps=1e-5)
+# Qwen3-Next-80B-A3B's full-attention layers (Qwen/Qwen3-Next-80B-A3B-
+# Instruct's config.json: 16 query heads on 2 kv heads of 256, G 8): the
+# kernel cases' grouped layout at D 256
+QWEN3_NEXT_H, QWEN3_NEXT_HKV = 16, 2
+# zd1, A1's forward at D 256 (flash_attention and the public functions
+# over it): (name, function, B, H, Hkv, S, D, options) at GPT-J's prefill
+# (B 8 x 16 heads x S 1024) and Qwen3-Next's (B 2 x 16/2 x S 4096), a
+# ragged tail (S 1021), flash_attention_padded at D 192 and 160 (padded to
+# 256), kv_len and a window (masked); each in bf16 and f32
+ZD_A1 = [
+    ("gpt-j prefill", "flash_attention", 8, 16, 16, 1024, D256, {}),
+    ("qwen3-next prefill", "flash_attention", 2, QWEN3_NEXT_H,
+     QWEN3_NEXT_HKV, 4096, D256, {}),
+    ("ragged S1021", "flash_attention", 8, 16, 16, 1021, D256, {}),
+    ("padded D192", "flash_attention_padded", 8, 16, 16, 1024, 192, {}),
+    ("padded D160", "flash_attention_padded", 8, 16, 16, 1024, 160, {}),
+    ("kv_len 900", "flash_attention", 8, 16, 16, 1024, D256,
+     dict(kv_len=900)),
+    ("window 1024", "flash_attention_local", 2, QWEN3_NEXT_H,
+     QWEN3_NEXT_HKV, 4096, D256, dict(left=1023))]
+# zd1, P1 at D 256 (J_CASES' columns): GPT-J's serving decode (B 8 x 16 kv
+# heads of one query head, context 1056), Qwen3-Next's (B 8 x 2 kv heads of
+# 8, context 4096), G 12 on one kv head (the grouped kernel), G 4 ragged
+# with a length-0 row on pages of 7, and pages of 1; each layout in full,
+# window + sinks and ring mode on bf16, int8 and f32 pools (a ring row's
+# length: its length plus half the table's capacity, a length 0 stays 0)
+ZD_P1 = [
+    (f"{name} {kind} {mode}", B, L, Hkv, G, D256, page, mp,
+     [n + page * mp // 2 if n and mode == "ring" else n for n in lens],
+     kind, mode, *(opts if mode != "full" else (0, 0)))
+    for name, B, L, Hkv, G, page, mp, lens, opts in [
+        ("gpt-j serve", 8, 4, 16, 1, 128, 9, [1056] * 8, (512, 4)),
+        ("qwen3-next ctx4096", 8, 4, QWEN3_NEXT_HKV, 8, 128, 33, [4096] * 8,
+         (2000, 4)),
+        ("G12 grouped", 4, 2, 1, 12, 128, 16, [2048] * 4, (1024, 4)),
+        ("G4 page7 ragged", 5, 2, 2, 4, 7, 40, [0, 7, 70, 129, 280],
+         (50, 9)),
+        ("G2 page1", 3, 2, 4, 2, 1, 300, [0, 150, 300], (64, 3))]
+    for kind in KV_KINDS for mode in ("full", "window", "ring")]
+# zd1, P3 at D 256 (CHUNKED_CASES' columns): the verify step (C 5) and
+# chunked prefill (C 256) from 0 and from 768 at GPT-J's and Qwen3-Next's
+# widths, each on bf16, int8 and f32 pools
+ZD_P3 = [
+    (f"{name} {kind}", B, L, Hkv, G, C, D256, page, mp, starts, None,
+     KV_KINDS[kind][0], kind == "int8")
+    for name, B, L, Hkv, G, C, page, mp, starts in [
+        ("gpt-j verify", 8, 4, 16, 1, 5, 128, 9, [1051] * 8),
+        ("gpt-j prefill start 0", 8, 4, 16, 1, 256, 128, 9, [0] * 8),
+        ("gpt-j prefill start 768", 8, 4, 16, 1, 256, 128, 9, [768] * 8),
+        ("qwen3-next verify", 8, 4, QWEN3_NEXT_HKV, 8, 5, 128, 33,
+         [4091] * 8),
+        ("qwen3-next prefill start 0", 2, 4, QWEN3_NEXT_HKV, 8, 256, 128, 33,
+         [0] * 2),
+        ("qwen3-next prefill start 768", 2, 4, QWEN3_NEXT_HKV, 8, 256, 128,
+         33, [768] * 2)]
+    for kind in KV_KINDS]
+# zd2: the llama at GPT-J-6B's widths, bf16, all 28 layers: B 8 x a
+# 1024-token prompt, 32 greedy steps, chunks of 256, the verify step of
+# gamma + 1 tokens, a self-draft, 4 beams of 16 tokens after the first
+# prompt, an int8 cache, phase zb2's window (sinks 4, window 2000 after a
+# 4096-token prompt) and ring (17 pages of 16, 320 steps)
+ZD_SERVE = dict(B=8, S=1024, steps=32, page=128, pages=9, chunk=256,
+                gamma=4, beams=4, beam_steps=16)
+ZD2_PATHS = ("beam", "window", "ring")
+
+
+def a1_vs_plain(fa, dev, gen, card, phase, cases):
+    """A1's forward at D 256 against its plain version, one case (ZD_A1) a
+    row and dtype (bf16, f32), under no_grad as prefill runs it: the
+    public function's launch counted (flash_attention, or masked_forward
+    with an option), its output against flash_attention_plain at the real
+    D (GQA repeated inside the plain version); CUDA-event times back to
+    back and with a cold L2, the same call at D 128 (same B, heads and
+    context, half the bytes) with a cold L2, the plain version's time, the
+    bound over the live pairs at the real D and, in bf16, SDPA's time
+    (``is_causal`` and ``enable_gqa``; with an option the element mask as
+    a bool ``attn_mask``, kv heads repeated outside the call)."""
+    rows = {}
+    for name, fname, B, H, Hkv, S, D, opts in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            fn = getattr(fa, fname)
+            q = torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(B, Hkv, S, D, generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            masked = bool(opts)
+            call = lambda q_, k_, v_: fn(q_, k_, v_, **opts)  # noqa: E731
+            what = (f"A1 {name} {_dt(dt)} B{B} H{H}/{Hkv} S{S} D{D} causal"
+                    f"{' ' + str(opts) if opts else ''} ({fname})")
+            counter = fa.masked_forward if masked else fa.flash_attention
+            n0 = counter.launches
+            with torch.no_grad():
+                got = call(q, k, v)
+            torch.cuda.synchronize()
+            if counter.launches != n0 + 1:
+                fail(f"phase {phase} {what}: the kernel did not launch once")
+            plain_opts = {}
+            if "kv_len" in opts:
+                plain_opts["kv_len"] = opts["kv_len"]
+            if "left" in opts:
+                plain_opts["window"] = (opts["left"], 0)
+            plain = lambda: fa.flash_attention_plain(  # noqa: E731
+                q, k, v, True, **plain_opts)
+            err = compare(got, plain(), f"phase {phase} {what}")
+            with torch.no_grad():
+                ms = cuda_ms(lambda: call(q, k, v), iters=10)
+                cold = cold_ms(lambda: call(q, k, v))
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            # the bound over the live pairs and the keys they read (a
+            # kv_len's tail is never read)
+            live = fa._live_mask(q, k, True, **plain_opts)
+            pairs, keys = int(live.sum()), int(live.any(0).sum())
+            bms, by = flash_bound(B, H, Hkv, S, keys, D, dt, True,
+                                  pairs=pairs)
+            row = dict(max_abs_err=err, ms=ms, cold_ms=cold,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       live_pairs=pairs, keys_read=keys, library_ms=None)
+            if dt == torch.bfloat16:
+                if masked:
+                    kr, vr = (t.repeat_interleave(H // Hkv, 1)
+                              for t in (k, v))
+                    row["library_ms"] = cuda_ms(
+                        lambda: TF.scaled_dot_product_attention(
+                            q, kr, vr, attn_mask=live), iters=5)
+                    del kr, vr
+                else:
+                    row["library_ms"] = cuda_ms(
+                        lambda: TF.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True),
+                        iters=10)
+            del q, k, v, got, live
+            q = torch.randn(B, H, S, 128, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(B, Hkv, S, 128, generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            with torch.no_grad():
+                row["d128_cold_ms"] = cold_ms(lambda: call(q, k, v))
+            del q, k, v
+            torch.cuda.empty_cache()
+            rows[f"{name} {_dt(dt)}"] = row
+            lib = row["library_ms"]
+            print(f"phase {phase} {what}: max abs err {err} (atol/rtol "
+                  f"{TOL[dt]}); kernel {ms:.4f} ms back to back, {cold:.4f} "
+                  f"ms cold L2 (D 128 at the same B, heads and context "
+                  f"{row['d128_cold_ms']:.4f} ms); plain {plain_ms:.4f} ms; "
+                  + (f"SDPA {lib:.4f} ms; " if lib is not None else "")
+                  + f"bound {bms:.4f} ms ({by}, {pairs} live pairs a row "
+                  f"and head, {keys} keys read; "
+                  f"{100 * bms / cold:.1f}% of it cold) [{card}]",
+                  flush=True)
+    return rows
+
+
+def serve_d256(llama, pa, fa, dev, gen, card):
+    """Phase zd: head dim 256 on the card. zd1 A1's forward (ZD_A1), P1 in
+    every mode on every pool, the grouped kernel among them (ZD_P1), and
+    P3 (ZD_P3) against their plain versions, each timed (cold L2) beside
+    the same call at D 128; zd2 the llama at GPT-J-6B's widths at full
+    depth (28 layers, bf16) served through ``generate``,
+    ``prefill_chunked``, a verify ``decode_chunk``, ``speculative_generate``
+    with a self-draft, ``beam_generate``, an int8 cache, windowed and ring
+    decode (``serve_at_widths``); zd3 its f32 exactness with 2 layers
+    (``exactness_at_widths``)."""
+    t0 = time.perf_counter()
+    out = dict(a1=a1_vs_plain(fa, dev, gen, card, "zd1", ZD_A1),
+               p1=p1_vs_plain(pa, dev, gen, card, "zd1", ZD_P1, beside=128),
+               p3=chunked_vs_plain(pa, dev, gen, card, "zd1", ZD_P3,
+                                   beside=128))
+    out["serve"] = serve_at_widths(llama, pa, fa, dev, card, "zd2", GPTJ_6B,
+                                   ZD_SERVE, "GPT-J-6B", paths=ZD2_PATHS)
+    out["exact"] = exactness_at_widths(llama, pa, fa, dev, card, "zd3",
+                                       GPTJ_6B, PHI3_EXACT, "GPT-J-6B")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase zd took {out['seconds']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -6024,6 +6251,9 @@ def main():
     # -- phase zc: P1 past 8 query heads a kv head (Mistral-Large-2) ---------
     zc = serve_grouped(llama, pa, fa, dev, gen, card)
 
+    # -- phase zd: head dim 256 (A1's forward, P1, P3; GPT-J-6B) ------------
+    zd = serve_d256(llama, pa, fa, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
         # three TF32 products says so in bound_term
@@ -6136,16 +6366,18 @@ def main():
     zb_serve = zb["serve"]
 
     def zb_row(name, source, replaces, n, main, table, library,
-               keys=("cold_ms", "d128_cold_ms", "splits"), **extra):
-        # a zb (D 96) or zc (G past 8) row: the main case's numbers, every
-        # other case beside them
+               keys=("cold_ms", "d128_cold_ms", "splits"),
+               library_is=NO_LIBRARY_PAGED, **extra):
+        # a zb (D 96), zc (G past 8) or zd (D 256) row: the main case's
+        # numbers, every other case beside them
         r = table[main]
         return row(name, source, replaces, n, r, library,
-                   library=NO_LIBRARY_PAGED, **{k: r[k] for k in keys},
+                   library=library_is, **{k: r[k] for k in keys},
                    other_cases={k: v for k, v in table.items() if k != main},
                    **extra)
 
     zc_serve = zc["serve"]
+    zd_serve = zd["serve"]
 
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
@@ -6573,6 +6805,66 @@ def main():
                            "paged_combine_kernel<bf16, 128> where split",
                    "f32": "paged_chunked_kernel<float, TK, D>"},
                launches_path="phase zc2: prefill_chunked, the verify step "
+                             "and speculative decoding's verify rounds"),
+        zb_row("flash_attention_d256",
+               "cubecl_tpu_torch/csrc/flash_attention.cu",
+               "cubecl_tpu/ops/attention.py:76",
+               zd_serve["generate"]["launches"]["flash_attention"],
+               "gpt-j prefill bf16", zd["a1"],
+               zd["a1"]["gpt-j prefill bf16"]["library_ms"],
+               keys=("cold_ms", "d128_cold_ms", "live_pairs", "keys_read"),
+               library_is="F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True); with an option the element mask "
+                       "as a bool attn_mask",
+               shape="bf16 B8 H16/16 S1024 D256 causal (GPT-J-6B's "
+                     "prefill); d128_cold_ms: the same call at D 128",
+               kernel_symbols={
+                   "bf16": "flash_fwd_wgmma_kernel<bf16, 256, Tiles> (2 "
+                           "K/V stages, P V as two m64n128k16)",
+                   "f32": "flash_fwd_kernel<float, 256, Tiles>"},
+               launches_path="phase zd2: generate, 8 x 1024 + 32 steps, 28 "
+                             "layers (GPT-J-6B's widths)",
+               gptj_6b_serve=zd_serve, exactness_f32=zd["exact"],
+               phase_seconds=zd["seconds"]),
+        zb_row("paged_attention_d256",
+               "cubecl_tpu_torch/csrc/paged_attention.cu",
+               "cubecl_tpu/ops/paged_attention.py:247",
+               zd_serve["generate"]["launches"]["paged_attention"],
+               "gpt-j serve bf16 full", zd["p1"], None,
+               shape="bf16 B8 Hkv16 G1 D256 context 1056 (GPT-J-6B), "
+                     "4-layer pool (ms: back to back, each launch on the "
+                     "next layer)",
+               kernel_symbols="paged_decode_kernel<T, TK, 256> (window: "
+                              "paged_window_kernel, ring: paged_ring_kernel, "
+                              "past 8 rows a kv head: paged_grouped_kernel; "
+                              "f32 pools one stage a warp), then "
+                              "paged_combine_kernel<T, 256> where split",
+               launches_path="phase zd2: generate, 8 x 1024 + 32 steps, 28 "
+                             "layers",
+               int8_launches=zd_serve["int8"]["launches"][
+                   "paged_attention_int8"],
+               window_launches=zd_serve["window"]["launches"][
+                   "paged_attention_window"],
+               ring_launches=zd_serve["ring"]["launches"][
+                   "paged_attention_ring"]),
+        zb_row("paged_attention_chunked_d256",
+               "cubecl_tpu_torch/csrc/paged_chunked.cu",
+               "cubecl_tpu/ops/paged_attention.py:675",
+               zd_serve["prefill_chunked"]["launches"][
+                   "paged_attention_chunked"]
+               + zd_serve["verify"]["launches"]["paged_attention_chunked"]
+               + sum(v["launches"]["paged_attention_chunked"]
+                     for v in zd_serve["speculative"].values()),
+               "gpt-j verify bf16", zd["p3"], None,
+               shape="verify: bf16 B8 Hkv16 G1 C5 D256 context 1056 "
+                     "(GPT-J-6B)",
+               kernel_symbols={
+                   "bf16": "paged_chunked_wgmma_kernel<256, QUANT> (four "
+                           "128-byte panels; decode-shaped tiles' P halves "
+                           "in shared memory), then "
+                           "paged_combine_kernel<bf16, 256> where split",
+                   "f32": "paged_chunked_kernel<float, TK, 256>"},
+               launches_path="phase zd2: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds"),
     ]}))
     print(json.dumps({"ok": True, "device": {

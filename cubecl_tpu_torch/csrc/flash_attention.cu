@@ -61,6 +61,17 @@
 // Both: tiles wholly above the diagonal are never visited; GQA reads kv
 // head h / (H / Hkv) directly, with no repeat.
 //
+// D 256 (GPT-J-6B's and Qwen3-Next's head dim), the forward alone: bf16
+// keeps its body with 2 K/V stages (wg_stages: q tiles and K/V tiles are
+// 32 KB each, and 3 stages would take 256 KB of the 227 KB a block may
+// hold); O is 128 f32 registers a consumer thread, held beside S's 32
+// under the consumers' setmaxnreg budget of 240; P V is two m64n128k16
+// products a k16 step (columns 0..127, 128..255), and Q K^T's 16 k16
+// steps make their descriptors beside each product instead of keeping 32
+// registers of them across the loop. f32 keeps its body (214,016 bytes
+// of shared memory: one block an SM). A5's block-sparse schedule is not
+// built at D 256.
+//
 // A1's options (kv_len, segment ids, a sliding window) and A8's window are
 // the same bodies on the masked schedule of flash_tiles.cuh
 // (cubecl_flash_masked_fwd): the walk covers the band's tiles only, a tile
@@ -277,16 +288,24 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 
 // -- the bf16 body: wgmma fed by TMA, warp-specialised ---------------------
 
-constexpr int kStages = 3;        // K/V stages of the ring
 constexpr int kPanel = 64 * 128;  // one 64-row x 64-column bf16 panel, bytes
 constexpr int NC = 2;             // consumer warpgroups (64 q rows each)
 constexpr int kWgThreads = 128 * (NC + 1);
+
+// K/V stages of the ring: 3, or 2 at D 256, whose NC q tiles and K/V
+// tiles are 32 KB each (3 stages would take 256 KB of the 227 KB a block
+// may hold; 2 take 192 KB)
+template <int D>
+constexpr int wg_stages() {
+  return D == 256 ? 2 : 3;
+}
 
 // dynamic shared memory of the bf16 body: NC q tiles, then the K and V
 // rings, each tile D / 64 panels; then the mbarriers (the q tiles', and
 // each stage's full and empty); plus the slack to align the base to 1024
 template <int D>
 struct WgSmem {
+  static constexpr int kStages = wg_stages<D>();
   static constexpr int kTile = D / 64 * kPanel;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + NC * kTile;
@@ -304,8 +323,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int Hkv, int Sq, float scale_log2, int causal,
                        Tiles tiles) {
   static_assert(sizeof(T) == 2, "the wgmma body takes 16-bit inputs");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the wgmma body is built for D 64, 128 and 256");
   using L = WgSmem<D>;
   constexpr int kPanels = D / 64;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -410,10 +432,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
 
   const uint32_t q_s = smem_addr(smem + L::kQ + c * L::kTile);
-  uint64_t dq[D / 16];  // Q's descriptors, k16 steps, 4 to a 128-byte panel
+  // Q's descriptors, k16 steps, 4 to a 128-byte panel, made once; at D 256
+  // (16 of them: 32 registers beside O's 128) made again for each tile
+  constexpr bool kWide = D == 256;
+  uint64_t dq[kWide ? 1 : D / 16];
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    dq[kk] = sw128_desc(q_s + (kk / 4) * kPanel + (kk % 4) * 32, 16, 1024);
+    for (int kk = 0; kk < D / 16; ++kk)
+      dq[kk] = sw128_desc(q_s + (kk / 4) * kPanel + (kk % 4) * 32, 16, 1024);
+  }
 
   mbar_wait(q_full, 0);
   int st = 0;
@@ -426,15 +453,32 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // S = Q K^T over D in k16 steps (the first overwrites s)
       const uint32_t k_s = smem_addr(smem + L::kK + st * L::kTile);
       float s[32];
-      uint64_t dk[D / 16];
+      uint64_t dk[kWide ? 1 : D / 16];
+      if constexpr (!kWide) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        dk[kk] = sw128_desc(k_s + (kk / 4) * kPanel + (kk % 4) * 32, 16,
-                            1024);
-      wgmma_fence();
+        for (int kk = 0; kk < D / 16; ++kk)
+          dk[kk] = sw128_desc(k_s + (kk / 4) * kPanel + (kk % 4) * 32, 16,
+                              1024);
+      }
+      if constexpr (kWide) {
+        // Q's base through an empty asm, so that the compiler makes each
+        // step's descriptors beside its product and keeps none across the
+        // loop
+        uint32_t qb = q_s;
+        asm volatile("" : "+r"(qb));
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64(s, dq[kk], dk[kk], kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * kPanel + (kk % 4) * 32;
+          wgmma_ss_m64n64(s, sw128_desc(qb + off, 16, 1024),
+                          sw128_desc(k_s + off, 16, 1024), kk > 0);
+        }
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_m64n64(s, dq[kk], dk[kk], kk > 0);
+      }
       wgmma_commit();
       wgmma_wait0();
       reg_fence(s);
@@ -513,10 +557,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (D == 128)
+        if constexpr (D == 256) {
+          // two m64n128k16: columns 0..127 (panels 0, 1), 128..255 (2, 3)
+          wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(acc), pa[kk],
+                           dv[kk]);
+          wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(acc + 64), pa[kk],
+                           sw128_desc(v_s + 2 * kPanel + kk * 2048, kPanel,
+                                      1024));
+        } else if constexpr (D == 128) {
           wgmma_rs_m64n128(acc, pa[kk], dv[kk]);
-        else
+        } else {
           wgmma_rs_m64n64(acc, pa[kk], dv[kk]);
+        }
       }
       wgmma_commit();
       wgmma_wait0();
@@ -590,6 +642,9 @@ int launch_f32_any(const void* q, const void* k, const void* v, void* o,
                                  scale_log2, causal, blocks, tiles, st)
   if (D == 64) return CUBECL_FLASH(64);
   if (D == 128) return CUBECL_FLASH(128);
+  // D 256: A1 alone (the dense and masked schedules); A5 stays at 64, 128
+  if constexpr (!Tiles::kSparse)
+    if (D == 256) return CUBECL_FLASH(256);
 #undef CUBECL_FLASH
   return cudaErrorInvalidValue;
 }
@@ -606,6 +661,8 @@ int launch_bf16_any(const void* q, const void* k, const void* v, void* o,
                                     scale_log2, causal, blocks, tiles, st)
   if (D == 64) return CUBECL_FLASH(64);
   if (D == 128) return CUBECL_FLASH(128);
+  if constexpr (!Tiles::kSparse)
+    if (D == 256) return CUBECL_FLASH(256);
 #undef CUBECL_FLASH
   return cudaErrorInvalidValue;
 }
@@ -620,7 +677,7 @@ extern "C" const char* cubecl_error_string(int code) {
 // q (B, H, Sq, D), k/v (B, Hkv, Skv, D), o (B, H, Sq, D): contiguous, one
 // dtype; lse (B, H, Sq) f32, or null for none. Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a dtype / head_dim this
-// kernel was not built for.
+// kernel was not built for (D 64, 128 and 256).
 extern "C" int cubecl_flash_fwd(const void* q, const void* k, const void* v,
                                 void* o, float* lse, int dtype, int B, int H,
                                 int Hkv, int Sq, int Skv, int D,

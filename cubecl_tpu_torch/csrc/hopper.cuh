@@ -198,6 +198,18 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 16 bf16, K-major in smem) . B (16 x 64
+// bf16, MN-major in smem: the transpose bit); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_m64n64_tb(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" CUBECL_R32
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : CUBECL_F32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64, f32) += A (64 x 16 bf16 in registers) . B (16 x 64 bf16,
 // MN-major in smem: the transpose bit)
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],

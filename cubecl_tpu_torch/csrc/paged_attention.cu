@@ -61,6 +61,17 @@
 //   1-byte reads a row, neighbouring lanes on neighbouring addresses). f32
 //   pools, whose 147 KB of shared memory hold one block an SM, let ptxas
 //   use the SM's registers (P1MinBlocks): at its default 128 they spilled.
+// - D 256 (GPT-J-6B's and Qwen3-Next's head dim): a quarter row is 8
+//   chunks (bf16), 16 (f32) or 4 (int8), whole, swizzled as at D 128; for
+//   P V a lane owns 8 neighbouring columns (one 16-byte read a row for
+//   bf16, two for f32, one of 8 bytes for int8). The warps' rings take
+//   192 KB on bf16 pools, 96 KB on int8; f32 pools keep one stage a warp
+//   (p1_stages: three 16 KB stages a warp would take 384 KB, two 256 KB),
+//   copied and waited for at each tile, the block's 8 warps overlapping
+//   one another's copies. Every D 256 kernel is built for one block an SM
+//   (P1MinBlocks; int8 pools, whose 108,032 bytes would hold two, for the
+//   registers of 8 columns a lane and query row), and the splits fill the
+//   card once at one block an SM (p1_per_sm).
 // - Past 8 query heads a kv head (Mistral-Large-2's 12, MiniMax's 16,
 //   Falcon-7B's multi-query 71; paged_grouped_kernel): a block holds at
 //   most MAXG = 8 query rows (q in shared memory, m, l and acc in
@@ -116,7 +127,7 @@ constexpr int PNT = 256;        // threads per block
 constexpr int PNW = PNT / 32;   // warps per block
 constexpr int WR = PT / PNW;    // positions of a tile a warp owns
 constexpr int MAXG = 8;         // query rows a block holds (a row group)
-constexpr int STAGES = 3;       // ring of K/V stages per warp
+constexpr int STAGES = 3;       // ring of K/V stages per warp (p1_stages)
 constexpr int kSMs = 132;       // the H100's SMs
 constexpr int kSmSmem = 233472;  // shared memory of an SM (228 KB)
 
@@ -126,6 +137,14 @@ constexpr int kModeWindow = 1;
 constexpr int kModeRing = 2;
 
 
+// the stages of a warp's ring: STAGES, or 1 for f32 pools at D 256, whose
+// 16 KB stages (8 K and 8 V rows of 1 KB) would take 384 KB at 3 stages a
+// warp and 256 KB at 2, past the 227 KB a block may hold (one: 136 KB)
+template <typename TK, int D>
+constexpr int p1_stages() {
+  return D == 256 && sizeof(TK) == 4 ? 1 : STAGES;
+}
+
 // dynamic shared memory: q (MAXG x D f32), then the warps' rings (a
 // stage: WR K rows, WR V rows, for int8 their WR K and WR V scales, for
 // the ring the WR positions' meta); the rings are reused at the end for
@@ -133,11 +152,12 @@ constexpr int kModeRing = 2;
 template <typename TK, int D, int MODE = kModeFull>
 struct P1Smem {
   static constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  static constexpr int kStages = p1_stages<TK, D>();
   static constexpr int kRow = D * (int)sizeof(TK);
   static constexpr int kMeta = 2 * WR * kRow + (kQuant ? 2 * WR * 4 : 0);
   static constexpr int kStage = kMeta + (MODE == kModeRing ? WR * 4 : 0);
   static constexpr int kRing = MAXG * D * 4;
-  static constexpr int kRingBytes = PNW * STAGES * kStage;
+  static constexpr int kRingBytes = PNW * kStages * kStage;
   static constexpr int kComb = PNW * MAXG * (D + 2) * 4;
   static constexpr int kBytes =
       kRing + (kRingBytes > kComb ? kRingBytes : kComb);
@@ -163,11 +183,9 @@ inline int p1_group_rows(int G) {
 }
 
 // splits of each (batch row, kv head): enough blocks, its row groups
-// counted, to fill the card once at two blocks an SM (one where shared
-// memory holds one), at most the tiles a row walks; 1 where B * Hkv *
-// groups fills it alone
-inline int p1_splits(int B, int Hkv, int groups, int tiles, int smem) {
-  const int per_sm = kSmSmem / (smem + 1024) >= 2 ? 2 : 1;
+// counted, to fill the card once at per_sm blocks an SM (p1_per_sm), at
+// most the tiles a row walks; 1 where B * Hkv * groups fills it alone
+inline int p1_splits(int B, int Hkv, int groups, int tiles, int per_sm) {
   const int rows = B * Hkv * groups;
   return std::max(1, std::min(kSMs * per_sm / rows, tiles));
 }
@@ -274,8 +292,9 @@ __device__ __forceinline__ void paged_decode_body(
   constexpr int EPC = Chunk<TK>::N;    // elements per 16-byte chunk
   constexpr bool D96 = D == 96;        // the slots and columns of Slots96
   using S96 = Slots96<TK>;
-  static_assert(D == 64 || D == 96 || D == 128,
-                "P1 is built for D 64, 96 and 128");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "P1 is built for D 64, 96, 128 and 256");
+  constexpr int NS = L::kStages;       // stages of a warp's ring
   constexpr int RC = L::kRow / 16;     // chunks per row
   constexpr int CPT = (RC + 3) / 4;    // chunks per lane: a quarter row
   constexpr int SWZ = RC >= 8 ? 4 : 0;  // odd rows: chunk j at j ^ SWZ
@@ -352,7 +371,7 @@ __device__ __forceinline__ void paged_decode_body(
 
   const int p = lane / 4, quarter = lane % 4;  // score phase
   const int swz = D96 ? S96::shift(p) : (p & 1) * SWZ;
-  uint8_t* ring = smem + L::kRing + warp * STAGES * L::kStage;
+  uint8_t* ring = smem + L::kRing + warp * NS * L::kStage;
   const uint32_t ring_s = smem_addr(ring);
 
   // stage st <- K and V rows (and scales, the ring's meta) of this warp's
@@ -402,7 +421,7 @@ __device__ __forceinline__ void paged_decode_body(
     }
   };
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
+  for (int st = 0; st < NS - 1; ++st) {
     if (st < n_tiles) issue(st, st);
     cp_async_commit();
   }
@@ -418,12 +437,21 @@ __device__ __forceinline__ void paged_decode_body(
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % STAGES;
-    cp_async_wait<STAGES - 2>();  // this lane's copies of tile t
-    __syncwarp();                 // the warp's; its tile t - 1 is read
-    if (t + STAGES - 1 < n_tiles)
-      issue(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    cp_async_commit();
+    const int st = t % NS;
+    if constexpr (NS == 1) {
+      // one stage: the warp has read tile t - 1; tile t is copied, then
+      // waited for
+      __syncwarp();
+      issue(t, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+    } else {
+      cp_async_wait<NS - 2>();  // this lane's copies of tile t
+      __syncwarp();             // the warp's; its tile t - 1 is read
+      if (t + NS - 1 < n_tiles) issue(t + NS - 1, (t + NS - 1) % NS);
+      cp_async_commit();
+    }
     const uint8_t* stage = ring + st * L::kStage;
 
     // scores of position p: its quarter of the row, then two shuffles
@@ -528,7 +556,20 @@ __device__ __forceinline__ void paged_decode_body(
         const uint8_t* vp = vrows + r * L::kRow +
                             (((cb / 16) ^ ((r & 1) * SWZ)) * 16) + cb % 16;
         float v[CW];
-        if constexpr (CW == 4) {
+        if constexpr (CW == 8) {
+          // D 256: 16 bytes (bf16), 32 (f32: the row's chunks 2 lane and 2
+          // lane + 1, neighbours under the swizzle) or 8 (int8)
+          if constexpr (std::is_same<TK, float>::value) {
+            load4(reinterpret_cast<const float*>(vp), v);
+            load4(reinterpret_cast<const float*>(vp) + 4, v + 4);
+          } else if constexpr (std::is_same<TK, __nv_bfloat16>::value) {
+            Chunk<TK>::load(reinterpret_cast<const TK*>(vp), v);
+          } else {
+            const uint2 u = *reinterpret_cast<const uint2*>(vp);
+            unpack_s8x4(u.x, v);
+            unpack_s8x4(u.y, v + 4);
+          }
+        } else if constexpr (CW == 4) {
           load4(reinterpret_cast<const TK*>(vp), v);
         } else if constexpr (std::is_same<TK, float>::value) {
           const float2 f = *reinterpret_cast<const float2*>(vp);
@@ -613,10 +654,13 @@ __device__ __forceinline__ void paged_decode_body(
 // the launch bounds' least blocks an SM: f32 pools at D 96 (q and the
 // rings: 147 KB of shared memory) hold one block an SM, so ptxas may give
 // their kernels the SM's registers (at its default of 128 they spilled);
-// every other instance keeps the bounds it was built with (0: none)
+// so does every pool at D 256 (bf16 and f32 by shared memory; int8, whose
+// 108 KB would hold two, for the registers of 8 columns a lane and query
+// row); every other instance keeps the bounds it was built with (0: none)
 template <typename TK, int D>
 struct P1MinBlocks {
-  static constexpr int value = D == 96 && sizeof(TK) == 4 ? 1 : 0;
+  static constexpr int value =
+      (D == 96 && sizeof(TK) == 4) || D == 256 ? 1 : 0;
 };
 
 // the grouped kernels' least blocks an SM, so that ptxas budgets the
@@ -627,11 +671,20 @@ struct P1MinBlocks {
 template <typename TK, int D, int MODE>
 struct P1GroupedMinBlocks {
   static constexpr int value =
-      sizeof(TK) == 4 ||
+      sizeof(TK) == 4 || D == 256 ||
               kSmSmem / (P1Smem<TK, D, MODE>::kBytes + 1024) < 2
           ? 1
           : 2;
 };
+
+// blocks an SM for the splits: one where the launch bounds ask for one
+// (P1MinBlocks), else two where shared memory holds two, else one
+template <typename TK, int D>
+inline int p1_per_sm(int smem) {
+  return P1MinBlocks<TK, D>::value == 0 && kSmSmem / (smem + 1024) >= 2
+             ? 2
+             : 1;
+}
 
 // the plain decode: every position below the length
 template <typename T, typename TK, int D>
@@ -737,7 +790,8 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
   if (attr_grouped != cudaSuccess) return attr_grouped;
   const int splits =
       p1_splits(B, Hkv, groups,
-                p1_walk_tiles(MODE, page, max_pages, window, sinks), smem);
+                p1_walk_tiles(MODE, page, max_pages, window, sinks),
+                p1_per_sm<TK, D>(smem));
   if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
   const dim3 grid(splits * groups, Hkv, B);
   const T* qt = static_cast<const T*>(q);
@@ -771,26 +825,30 @@ cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-// dynamic shared memory of the instance for (dtype, kv_dtype, D, mode), or
-// -1
+// the instance for (dtype, kv_dtype, D, mode): its dynamic shared memory
+// (-1: none is built), blocks an SM for the splits and a warp's stages
+struct P1Sizes {
+  int smem, per_sm, stages;
+};
 template <int MODE>
-int p1_smem(int dtype, int kv_dtype, int D) {
+P1Sizes p1_sizes(int dtype, int kv_dtype, int D) {
   const bool quant = kv_dtype == kI8;
-#define CUBECL_P1_SMEM(TK, HD) P1Smem<TK, HD, MODE>::kBytes
-  if (D == 64)
-    return quant ? CUBECL_P1_SMEM(int8_t, 64)
-                 : dtype == kF32 ? CUBECL_P1_SMEM(float, 64)
-                                 : CUBECL_P1_SMEM(__nv_bfloat16, 64);
-  if (D == 96)
-    return quant ? CUBECL_P1_SMEM(int8_t, 96)
-                 : dtype == kF32 ? CUBECL_P1_SMEM(float, 96)
-                                 : CUBECL_P1_SMEM(__nv_bfloat16, 96);
-  if (D == 128)
-    return quant ? CUBECL_P1_SMEM(int8_t, 128)
-                 : dtype == kF32 ? CUBECL_P1_SMEM(float, 128)
-                                 : CUBECL_P1_SMEM(__nv_bfloat16, 128);
-#undef CUBECL_P1_SMEM
-  return -1;
+#define CUBECL_P1_SIZES(TK, HD)                                    \
+  P1Sizes{P1Smem<TK, HD, MODE>::kBytes,                            \
+          p1_per_sm<TK, HD>(P1Smem<TK, HD, MODE>::kBytes),         \
+          p1_stages<TK, HD>()}
+#define CUBECL_P1_D(HD)                                            \
+  if (D == HD)                                                     \
+    return quant ? CUBECL_P1_SIZES(int8_t, HD)                     \
+                 : dtype == kF32 ? CUBECL_P1_SIZES(float, HD)      \
+                                 : CUBECL_P1_SIZES(__nv_bfloat16, HD);
+  CUBECL_P1_D(64)
+  CUBECL_P1_D(96)
+  CUBECL_P1_D(128)
+  CUBECL_P1_D(256)
+#undef CUBECL_P1_D
+#undef CUBECL_P1_SIZES
+  return P1Sizes{-1, 0, 0};
 }
 
 // the mode of a call: the ring where meta is given, else window + sinks
@@ -812,8 +870,8 @@ inline int p1_mode(int window, bool ring) {
 // part: the splits' partial sums where the positions are split,
 // cubecl_paged_decode_plan's plan[6] floats (null where that is 0).
 // Any H that is a multiple of Hkv. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue for a dtype / head_dim (D 64, 96 and
-// 128 are built) this kernel was not built for.
+// launches, or cudaErrorInvalidValue for a dtype / head_dim (D 64, 96,
+// 128 and 256 are built) this kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const float* k_scales,
                                    const float* v_scales, const void* table,
@@ -847,6 +905,8 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                               : CUBECL_PAGED(float, float, 96);
     if (D == 128) return quant ? CUBECL_PAGED(float, int8_t, 128)
                                : CUBECL_PAGED(float, float, 128);
+    if (D == 256) return quant ? CUBECL_PAGED(float, int8_t, 256)
+                               : CUBECL_PAGED(float, float, 256);
   }
   if (dtype == kBF16) {
     if (D == 64) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 64)
@@ -856,6 +916,9 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
     if (D == 128)
       return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 128)
                    : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 128);
+    if (D == 256)
+      return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 256)
+                   : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 256);
   }
 #undef CUBECL_PAGED
 #undef CUBECL_PAGED_MODE
@@ -867,7 +930,8 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
 // threads a block, dynamic shared memory bytes, the grid (x: the splits of
 // a (batch row, kv head) times its row groups, y: Hkv, z: B), the splits,
 // the floats of `part` (0 without a split), the mode (0 plain, 1 window +
-// sinks, 2 ring); plan[8] = the row groups of a kv head. Returns 0, or
+// sinks, 2 ring); plan[8] = the row groups of a kv head; plan[9] = the
+// stages of a warp's ring (p1_stages). Returns 0, or
 // cudaErrorInvalidValue for what cubecl_paged_decode refuses.
 extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
                                         int Hkv, int D, int page,
@@ -879,17 +943,18 @@ extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
       (kv_dtype != kI8 && kv_dtype != dtype) || window < 0 || sinks < 0)
     return cudaErrorInvalidValue;
   const int mode = p1_mode(window, ring != 0);
-  const int smem =
-      mode == kModeFull     ? p1_smem<kModeFull>(dtype, kv_dtype, D)
-      : mode == kModeWindow ? p1_smem<kModeWindow>(dtype, kv_dtype, D)
-                            : p1_smem<kModeRing>(dtype, kv_dtype, D);
-  if (smem < 0) return cudaErrorInvalidValue;
+  const P1Sizes sz =
+      mode == kModeFull     ? p1_sizes<kModeFull>(dtype, kv_dtype, D)
+      : mode == kModeWindow ? p1_sizes<kModeWindow>(dtype, kv_dtype, D)
+                            : p1_sizes<kModeRing>(dtype, kv_dtype, D);
+  if (sz.smem < 0) return cudaErrorInvalidValue;
   const int groups = p1_groups(H / Hkv);
   const int splits =
       p1_splits(B, Hkv, groups,
-                p1_walk_tiles(mode, page, max_pages, window, sinks), smem);
+                p1_walk_tiles(mode, page, max_pages, window, sinks),
+                sz.per_sm);
   plan[0] = PNT;
-  plan[1] = smem;
+  plan[1] = sz.smem;
   plan[2] = splits * groups;
   plan[3] = Hkv;
   plan[4] = B;
@@ -897,5 +962,6 @@ extern "C" int cubecl_paged_decode_plan(int dtype, int kv_dtype, int B, int H,
   plan[6] = splits > 1 ? B * Hkv * splits * (H / Hkv) * (D + 2) : 0;
   plan[7] = mode;
   plan[8] = groups;
+  plan[9] = sz.stages;
   return 0;
 }

@@ -85,7 +85,18 @@
 //   m64n128k16 (an MN-major V under the 128-byte swizzle is 64 columns an
 //   atom), whose columns 96..127 are never stored. 112 KB bf16, as D 128.
 //
-// Each D is a template instance of its own (D 64, 96, 128): the entry
+// - D 256 (GPT-J-6B's and Qwen3-Next's head dim): four 128-byte panels a
+//   tile, 230,400 bytes with bf16 pools (one block an SM), 199,168 with
+//   int8; Q K^T 16 k16 steps, their descriptors made beside each product;
+//   O is 128 f32 registers a thread, so P V is two m64n128k16 a k16 step
+//   and, with the halves, P's two halves go to shared memory (where the
+//   tile's K was) as the A operands of m64n64k16 products from shared
+//   memory, the tile's sums from zero one 64-column panel of V at a time
+//   into a 32-register accumulator added to O (with both halves and a
+//   second accumulator in registers, ptxas spilled). f32: the CUDA-core
+//   body at 214,528 bytes, one block an SM.
+//
+// Each D is a template instance of its own (D 64, 96, 128, 256): the entry
 // points and the plan refuse any other D, the body static_asserts its D
 // and the P V product names each accumulator width (wgmma_pv), so no D
 // can fall into another's layout.
@@ -436,8 +447,11 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kEl = 16 / (int)sizeof(TK);          // elements a chunk
   // the accumulator's columns: D 96 computes D 128's, 96..127 unstored
   constexpr int DP = (D + 63) / 64 * 64;
-  static_assert(D == 64 || D == 96 || D == 128,
-                "P3's wgmma body is built for D 64, 96 and 128");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "P3's wgmma body is built for D 64, 96, 128 and 256");
+  // D 256: Q's and K's descriptors made beside each product, and P V's
+  // tile sums 64 columns at a time, so that O's 128 registers fit
+  constexpr bool kWide = D == 256;
   const TK* kpool = static_cast<const TK*>(kpool_);
   const TK* vpool = static_cast<const TK*>(vpool_);
   extern __shared__ uint8_t smem_raw[];
@@ -546,10 +560,14 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
   const uint32_t q_s = s_base + L::kQ;
-  uint64_t dq[D / 16];  // Q's descriptors, k16 steps, 4 to a 128-byte panel
+  // Q's descriptors, k16 steps, 4 to a 128-byte panel (D 256: none kept)
+  uint64_t dq[kWide ? 1 : D / 16];
+  if constexpr (!kWide) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    dq[kk] = sw128_desc(q_s + (kk / 4) * kTcPanel + (kk % 4) * 32, 16, 1024);
+    for (int kk = 0; kk < D / 16; ++kk)
+      dq[kk] =
+          sw128_desc(q_s + (kk / 4) * kTcPanel + (kk % 4) * 32, 16, 1024);
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kTcStages;
@@ -598,14 +616,30 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // S = Q K^T over D in k16 steps (the first overwrites s)
     float s[32];
-    uint64_t dk[D / 16];
+    if constexpr (kWide) {
+      // Q's base through an empty asm, so that the compiler makes each
+      // step's descriptors beside its product and keeps none across the
+      // loop (16 of Q's would take 32 registers beside O's 128)
+      uint32_t qb = q_s;
+      asm volatile("" : "+r"(qb));
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      dk[kk] = sw128_desc(k_s + (kk / 4) * kTcPanel + (kk % 4) * 32, 16, 1024);
-    wgmma_fence();
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kTcPanel + (kk % 4) * 32;
+        wgmma_ss_m64n64(s, sw128_desc(qb + off, 16, 1024),
+                        sw128_desc(k_s + off, 16, 1024), kk > 0);
+      }
+    } else {
+      uint64_t dk[D / 16];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64(s, dq[kk], dk[kk], kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)
+        dk[kk] =
+            sw128_desc(k_s + (kk / 4) * kTcPanel + (kk % 4) * 32, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64(s, dq[kk], dk[kk], kk > 0);
+    }
     wgmma_commit();
     wgmma_wait0();
     reg_fence(s);
@@ -685,7 +719,77 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       dv[kk] = sw128_desc(v_s + kk * 2048, kTcPanel, 1024);
     }
     reg_fence(acc);
-    if (halves) {
+    if constexpr (kWide) {
+      // V's 64-column panel p, k16 step kk (MN-major, the transpose bit)
+      auto dvp = [&](int p, int kk) {
+        return sw128_desc(v_s + p * kTcPanel + kk * 2048, kTcPanel, 1024);
+      };
+      if (halves) {
+        // P's two bf16 halves into the place of the tile's K (read by Q
+        // K^T and free until the ring refills the stage after the next
+        // barrier), hi in panel 0 and lo in panel 1, each 64 rows x 64
+        // positions under the 128-byte swizzle that Q's descriptors read:
+        // the A operands of shared-memory wgmma, so that no register holds
+        // them beside O's 128. Then the tile's P V from zero in a
+        // 64-column accumulator, panel by panel of V, each added to O in
+        // f32 (a second 128-register accumulator would not fit either)
+        uint8_t* ph = smem + (k_s - s_base);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            // s[4 j + 2 i + e] is row warp * 16 + lane / 4 + 8 i, column
+            // 8 j + col_l + e
+            float lo = s[4 * j + 2 * i], hi = s[4 * j + 2 * i + 1];
+            if constexpr (QUANT) {
+              lo *= ksc[kTcCols + 8 * j + col_l];
+              hi *= ksc[kTcCols + 8 * j + col_l + 1];
+            }
+            const uint32_t h = pack_bf16(lo, hi);
+            const float2 back = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&h));
+            const int row = warp * 16 + lane / 4 + 8 * i;
+            const int off = row * 128 + ((j ^ (row % 8)) << 4) + col_l * 2;
+            *reinterpret_cast<uint32_t*>(ph + off) = h;
+            *reinterpret_cast<uint32_t*>(ph + kTcPanel + off) =
+                pack_bf16(lo - back.x, hi - back.y);
+          }
+        }
+        fence_proxy_async();
+        __syncthreads();
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          float ot[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_ss_m64n64_tb(ot, sw128_desc(k_s + kk * 32, 16, 1024),
+                               dvp(p, kk), kk > 0);
+            wgmma_ss_m64n64_tb(
+                ot, sw128_desc(k_s + kTcPanel + kk * 32, 16, 1024),
+                dvp(p, kk), 1);
+          }
+          wgmma_commit();
+          wgmma_wait0();
+          reg_fence(ot);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) acc[32 * p + j] += ot[j];
+        }
+      } else {
+        // two m64n128k16 a k16 step: columns 0..127, then 128..255
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(acc), pa[kk],
+                           dvp(0, kk));
+          wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(acc + 64),
+                           pa[kk], dvp(2, kk));
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(acc);
+      }
+    } else if (halves) {
       // a decode-shaped chunk continues the decode steps, whose P1 sums in
       // f32 rounded to nearest: the tile's P V is summed from zero in its
       // own accumulator and added to O in f32, so that the tensor cores'
@@ -790,6 +894,8 @@ inline int p3_smem(int dtype, bool quant, int D) {
       return p3_smem_of<96>(dtype, quant);
     case 128:
       return p3_smem_of<128>(dtype, quant);
+    case 256:
+      return p3_smem_of<256>(dtype, quant);
     default:
       return -1;
   }
@@ -806,7 +912,7 @@ inline int p3_smem(int dtype, bool quant, int D) {
 // positions, cubecl_paged_chunked_plan's plan[8] floats (null where that
 // is 0). Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for a dtype / head_dim this kernel was not built
-// for (D 64, 96 and 128 are built).
+// for (D 64, 96, 128 and 256 are built).
 extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                     const void* v_pages, const float* k_scales,
                                     const float* v_scales, const void* table,
@@ -839,6 +945,8 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                               : CUBECL_CHUNKED(float, float, 96);
     if (D == 128) return quant ? CUBECL_CHUNKED(float, int8_t, 128)
                                : CUBECL_CHUNKED(float, float, 128);
+    if (D == 256) return quant ? CUBECL_CHUNKED(float, int8_t, 256)
+                               : CUBECL_CHUNKED(float, float, 256);
   }
   if (dtype == kBF16) {
     if (D == 64)
@@ -850,6 +958,9 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
     if (D == 128)
       return quant ? CUBECL_CHUNKED_WG(128, true)
                    : CUBECL_CHUNKED_WG(128, false);
+    if (D == 256)
+      return quant ? CUBECL_CHUNKED_WG(256, true)
+                   : CUBECL_CHUNKED_WG(256, false);
   }
 #undef CUBECL_CHUNKED_WG
 #undef CUBECL_CHUNKED

@@ -5,10 +5,12 @@ ctors/fill/load/store/execute, cmma.rs:83-953) over the IR CoopMma ops
 (cubecl-ir/src/cmma.rs:13-81).
 
 The tracing is the JAX package's (a fragment is a cube-scope tile), so a
-cmma kernel traces to the same scope in both packages. Neither backend of
-the port lowers the ``mma.*`` ops yet: the CUDA printer and the torch
-evaluator raise ``NotImplementedError`` for them (ROADMAP, K0 op
-families).
+cmma kernel traces to the same scope in both packages. Both backends of
+the port lower the ``mma.*`` ops: the torch evaluator computes each
+fragment op on tensors (``backend/torch_eval.py::_mma``), and the CUDA
+printer prints them (``backend/cuda/printer.py::mma``), a 16-bit or f32
+product on ``wgmma`` with its accumulator in registers
+(``mma_wgmma``; f32 as three TF32 products).
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@ torch as the JAX ``_bwd`` takes it in jnp. Otherwise (serving, no_grad) the
 forward runs alone and writes no lse.
 
 On CUDA tensors every half is a hand-written kernel (f32 or bf16, D in
-{64, 128}; anything else raises): the forward of
+{64, 128} and, for the forward alone, 256; anything else raises, and at D
+256 the Function refuses to start a pass whose backward is not built):
+the forward of
 ``csrc/flash_attention.cu``, which replaces the TPU kernels A1
 ``_fwd_call``, A2 ``_fwd_call_tri`` and A8 ``_fwd_call_packed``, and the
 dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu``, which replace A3
@@ -56,11 +58,12 @@ kernel bodies on the masked schedule of ``csrc/flash_tiles.cuh``
 (``masked_forward``, ``masked_dkv``, ``masked_dq``, each counting its
 launches), behind the JAX package's public functions without
 ``interpret``: ``flash_attention(..., kv_len=)``,
-``flash_attention_padded`` (D padded with zeros to 64 or 128, the scale
-from the real D; D past 128 raises on the card), ``flash_attention_
+``flash_attention_padded`` (D padded with zeros to 64, 128 or 256, the
+scale from the real D; D past 256 raises on the card), ``flash_attention_
 segmented``, ``flash_attention_local`` and ``flash_attention_packed``
 (A8: on this card A1's kernel at D 64, a smaller D padded to it; with
-``window``). The last four take any D up to 128 as the padded one does.
+``window``). The last four take any D up to 256 as the padded one does
+(past 128 the forward alone: ROADMAP Queue 2a).
 All run ``_FlashAttention`` under autograd, the counterpart of the JAX
 ``_flash_seg``, ``_flash_local`` and ``_flash_packed`` custom_vjps; on
 CPU tensors the plain versions with the options as one boolean mask. A
@@ -82,7 +85,10 @@ import torch
 from ..utils import native
 
 LOG2E = math.log2(math.e)
+# the head dims of the backward kernels (A3/A4, A5-A7, A8) and of the
+# forward's (A1) instances: the forward is also built at 256
 KERNEL_HEAD_DIMS = (64, 128)
+FORWARD_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -218,9 +224,9 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
     return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
 
-def _kernel_inputs(what, q, k, v, *more):
+def _kernel_inputs(what, q, k, v, *more, head_dims=KERNEL_HEAD_DIMS):
     """Check what the kernels take; returns contiguous q, k, v, *more
-    (``more``: tensors shaped as q)."""
+    (``more``: tensors shaped as q; ``head_dims``: the kernel's)."""
     _check_shapes(q, k, v)
     if any(t.shape != q.shape for t in more):
         raise ValueError(f"{what}: want do shaped as q {tuple(q.shape)}; "
@@ -234,9 +240,9 @@ def _kernel_inputs(what, q, k, v, *more):
                                            for t in (k, v) + more):
         raise ValueError(f"{what} kernel takes one dtype of {KERNEL_DTYPES}; "
                          f"got {[t.dtype for t in tensors]}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+    if q.shape[-1] not in head_dims:
         raise ValueError(f"{what} kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}; got {q.shape[-1]}")
+                         f"{head_dims}; got {q.shape[-1]}")
     tensors = tuple(t.contiguous() for t in tensors)
     native.check_aligned(*tensors)
     return tensors
@@ -260,7 +266,8 @@ def _stream(q):
 def _flash_forward(q, k, v, causal, sm_scale, need_lse):
     """The forward kernel (bf16: the tensor-core body; f32: the CUDA-core
     body): o and, with ``need_lse``, the base-2 lse."""
-    q, k, v = _kernel_inputs("flash_attention", q, k, v)
+    q, k, v = _kernel_inputs("flash_attention", q, k, v,
+                             head_dims=FORWARD_HEAD_DIMS)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -452,7 +459,8 @@ def masked_forward(q, k, v, mask: _Mask, causal, sm_scale, need_lse):
     the forward's bodies on the masked schedule of ``csrc/flash_tiles.cuh``
     (bf16 on the tensor cores, f32 on the CUDA cores); o and, with
     ``need_lse``, the base-2 lse."""
-    q, k, v = _kernel_inputs("flash_attention (options)", q, k, v)
+    q, k, v = _kernel_inputs("flash_attention (options)", q, k, v,
+                             head_dims=FORWARD_HEAD_DIMS)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if need_lse else None
@@ -517,6 +525,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, mask):
+        D = q.shape[-1]
+        if q.device.type != "cpu" and D not in KERNEL_HEAD_DIMS:
+            # refused here, before the forward runs, rather than in the
+            # backward's launch
+            raise NotImplementedError(
+                f"flash attention's backward (A3/A4) at head dim {D} is not "
+                f"ported to the card (built at {KERNEL_HEAD_DIMS}; ROADMAP "
+                "Queue 2a: A3/A4 at D 256 next); the forward runs there "
+                "without grad (torch.no_grad(), or inputs that do not "
+                "require grad)")
         if q.device.type == "cpu":
             o, lse = flash_attention_plain(q, k, v, causal, sm_scale,
                                            return_lse=True,
@@ -581,18 +599,18 @@ flash_attention.launches = 0
 
 
 def _padded_attend(q, k, v, causal, scale, mask):
-    """``_attend`` at any head dim up to 128: D is padded with zeros to 64
-    or 128 (zero columns of q and k leave the scores as they are; those of
-    v are sliced off), the scale fixed from the real D by the caller. A D
-    past 128 runs unpadded on the CPU and raises on the card."""
+    """``_attend`` at any head dim up to 256: D is padded with zeros to 64,
+    128 or 256 (zero columns of q and k leave the scores as they are; those
+    of v are sliced off), the scale fixed from the real D by the caller, as
+    the JAX ``flash_attention_padded`` pads D in (128, 256] to 256. A D past
+    256 runs unpadded on the CPU and raises on the card."""
     D = q.shape[-1]
-    Dp = 64 if D <= 64 else 128 if D <= 128 else D
+    Dp = next((d for d in FORWARD_HEAD_DIMS if D <= d), D)
     if Dp == D:
-        if D > 128 and q.device.type != "cpu":
+        if D > FORWARD_HEAD_DIMS[-1] and q.device.type != "cpu":
             raise NotImplementedError(
-                f"flash attention at head dim {D} > 128 is not ported to the "
-                "card yet (ROADMAP Queue 2a: the JAX flash_attention_padded "
-                "pads it to 256 for its exact kernel)")
+                f"flash attention at head dim {D} > 256 is not ported to the "
+                "card (ROADMAP Queue 2a)")
         return _attend(q, k, v, causal, scale, mask)
     pad = (0, Dp - D)
     o = _attend(torch.nn.functional.pad(q, pad),
@@ -604,9 +622,9 @@ def _padded_attend(q, k, v, causal, scale, mask):
 def flash_attention_padded(q, k, v, causal: bool = True,
                            sm_scale: Optional[float] = None,
                            block_q: int = 1024, block_k: int = 2048):
-    """flash_attention at any sequence length and head dim up to 128 (the
+    """flash_attention at any sequence length and head dim up to 256 (the
     JAX signature without ``interpret``; the blocks fix nothing): D is
-    padded to 64 or 128, the scale taken from the real D. Unlike the JAX
+    padded to 64, 128 or 256, the scale taken from the real D. Unlike the JAX
     function, S is not padded: the kernels mask a ragged tail themselves.
     Differentiable (the pad and the slice through autograd)."""
     _check_shapes(q, k, v)
@@ -621,7 +639,7 @@ def flash_attention_segmented(q, k, v, segment_ids_q, segment_ids_kv=None,
     segment id (and, ``causal``, col <= row). segment_ids: (B, S) int,
     numpy or torch; a reserved id (e.g. -1) for padding slots. Tiles whose
     rows' and columns' id ranges do not overlap are skipped whole; a row
-    with no live key gets zeros (F16). Differentiable. D up to 128, as
+    with no live key gets zeros (F16). Differentiable. D up to 256, as
     ``flash_attention_padded``."""
     _check_shapes(q, k, v)
     if segment_ids_kv is None:
@@ -637,7 +655,7 @@ def flash_attention_local(q, k, v, left: int, right: int = 0,
     """Sliding-window flash attention: position i attends keys j with
     i - left <= j <= i + right (Mistral's local attention when ``causal``
     and ``right == 0``). The kernels walk only the band's tiles, so the
-    cost scales with S * (left + right + 64). Differentiable. D up to 128,
+    cost scales with S * (left + right + 64). Differentiable. D up to 256,
     as ``flash_attention_padded``."""
     _check_shapes(q, k, v)
     if left < 0 or right < 0:

@@ -35,9 +35,11 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``_paged_call_headed`` and P2 ``_paged_call_live``) and
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
 ``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
-in ``PAGED_HEAD_DIMS`` (64, 96, 128: each an instance of its own; D 96 is
-Phi-3-mini's head dim, its pools unpadded) and any number of query heads a
-kv head; anything else raises. P1 cuts a kv head's query heads into row
+in ``PAGED_HEAD_DIMS`` (64, 96, 128, 256: each an instance of its own; D
+96 is Phi-3-mini's head dim, its pools unpadded; D 256 GPT-J-6B's and
+Qwen3-Next's, where P1 keeps one stage a warp on f32 pools and runs one
+block an SM, and P3's bf16 body holds four 64-column panels a tile) and
+any number of query heads a kv head; anything else raises. P1 cuts a kv head's query heads into row
 groups of at most 8, a block each (:func:`p1_group_rows`), splits the
 positions of each (batch row, kv head) over blocks where B * Hkv * groups
 leaves the card idle, copies K and V through the table with cp.async into
@@ -66,16 +68,17 @@ import torch
 from ..utils import native
 from .attention import KERNEL_DTYPES, LOG2E
 
-# the head dims P1 and P3 are built for (flash's KERNEL_HEAD_DIMS are 64 and
-# 128; flash at 96 pads to 128, a paged pool is never padded)
-PAGED_HEAD_DIMS = (64, 96, 128)
+# the head dims P1 and P3 are built for (flash's forward is built at 64,
+# 128 and 256; flash at 96 pads to 128, a paged pool is never padded)
+PAGED_HEAD_DIMS = (64, 96, 128, 256)
 
 # P1's body (csrc/paged_attention.cu), for p1_plan: 256 threads (8 warps)
 # a block, at most 8 query rows a block (a row group; q in f32 ahead of the
 # rings), 64-position tiles (8 positions a warp), a ring of 3 stages of K
-# and V rows per warp; the positions of a (batch row, kv head) split over
-# blocks until the grid, its row groups counted, fills the 132 SMs once at
-# two blocks an SM (one where shared memory holds one)
+# and V rows per warp (one stage on f32 pools at D 256: p1_stages); the
+# positions of a (batch row, kv head) split over blocks until the grid, its
+# row groups counted, fills the 132 SMs once at two blocks an SM (one where
+# shared memory holds one or the launch bounds ask for one: p1_per_sm)
 P1_GROUP_ROWS = 8  # csrc MAXG
 P1_THREADS = 256
 P1_TILE = 64
@@ -95,9 +98,10 @@ class P1Plan:
     ``smem_bytes``, the ``grid`` (splits * groups, Hkv, B), the position
     ``splits`` of a (batch row, kv head), the f32 ``scratch`` (floats)
     of the splits' partial sums, the ``mode`` (P1_FULL, P1_WINDOW,
-    P1_RING) and the row ``groups`` of a kv head's query heads (block x
-    is split x // groups, row group x % groups): the arithmetic of
-    csrc/paged_attention.cu's ``cubecl_paged_decode_plan``."""
+    P1_RING), the row ``groups`` of a kv head's query heads (block x
+    is split x // groups, row group x % groups) and the ``stages`` of a
+    warp's ring: the arithmetic of csrc/paged_attention.cu's
+    ``cubecl_paged_decode_plan``."""
     threads: int
     smem_bytes: int
     grid: Tuple[int, int, int]
@@ -105,6 +109,7 @@ class P1Plan:
     scratch: int
     mode: int = P1_FULL
     groups: int = 1
+    stages: int = P1_STAGES
 
 
 def p1_group_rows(G: int, group: int):
@@ -115,6 +120,28 @@ def p1_group_rows(G: int, group: int):
     groups = -(-G // P1_GROUP_ROWS)
     rows = -(-G // groups)
     return min(G, group * rows), min(G, (group + 1) * rows)
+
+
+def p1_stages(kv_dtype, D: int) -> int:
+    """The stages of a P1 warp's ring (csrc ``p1_stages``): 3, or 1 for f32
+    pools at D 256, whose 16 KB stages would take 384 KB at 3 a warp and
+    256 KB at 2."""
+    return 1 if D == 256 and kv_dtype == torch.float32 else P1_STAGES
+
+
+def p1_min_blocks(kv_dtype, D: int) -> int:
+    """The least blocks an SM of P1's launch bounds (csrc
+    ``P1MinBlocks``): one for f32 pools at D 96 and every pool at D 256,
+    else none (0)."""
+    return 1 if D == 256 or (D == 96 and kv_dtype == torch.float32) else 0
+
+
+def p1_per_sm(kv_dtype, D: int, smem: int) -> int:
+    """P1's blocks an SM for the splits (csrc ``p1_per_sm``): one where
+    the launch bounds ask for one, else two where shared memory holds two,
+    else one."""
+    return 2 if not p1_min_blocks(kv_dtype, D) and \
+        P1_SM_SMEM // (smem + 1024) >= 2 else 1
 
 
 # cached: a decode step's host time is what its launches wait on
@@ -140,10 +167,11 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
     quant = kv_dtype == torch.int8
     stage = 2 * rows * D * (1 if quant else dtype.itemsize) + (
         2 * rows * 4 if quant else 0) + (rows * 4 if mode == P1_RING else 0)
-    ring_bytes = warps * P1_STAGES * stage
+    stages = p1_stages(kv_dtype, D)
+    ring_bytes = warps * stages * stage
     comb = warps * P1_GROUP_ROWS * (D + 2) * 4  # the warps' (acc, m, l)
     smem = P1_GROUP_ROWS * D * 4 + max(ring_bytes, comb)
-    per_sm = 2 if P1_SM_SMEM // (smem + 1024) >= 2 else 1
+    per_sm = p1_per_sm(kv_dtype, D, smem)
     cap = page * max_pages
     tiles = max(1, -(-cap // P1_TILE))
     if mode == P1_WINDOW:  # the sinks' tiles and a window's, at most
@@ -153,7 +181,7 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
     splits = max(1, min(P1_SMS * per_sm // (B * Hkv * groups), tiles))
     scratch = B * H * splits * (D + 2) if splits > 1 else 0
     return P1Plan(P1_THREADS, smem, (splits * groups, Hkv, B), splits,
-                  scratch, mode, groups)
+                  scratch, mode, groups, stages)
 
 
 def p1_split_positions(plan: P1Plan, length: int, split: int):
@@ -191,7 +219,7 @@ def p1_window_tiles(plan: P1Plan, length: int, split: int, window: int,
 # with their scales); the positions split over blocks where one row tile
 # a (b, kv head) makes fewer than P3_FILL blocks. A bf16 tile is 64 rows in
 # 64-column panels (D 96: two, as D 128, the last 32 columns unused; the
-# pools are not padded). f32 q on the CUDA cores: 256 threads, a 64-row
+# pools are not padded; D 256: four, 230,400 bytes with bf16 pools). f32 q on the CUDA cores: 256 threads, a 64-row
 # tile, the f32 tiles in shared memory.
 P3_ROWS = 64
 P3_COLS = 64
@@ -585,14 +613,14 @@ def p1_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int,
     """The built P1's launch plan (``cubecl_paged_decode_plan``): what
     :func:`p1_plan` must equal (builds the CUDA kernels on first use)."""
     lib = native.kernels()
-    plan = (ctypes.c_int * 9)()
+    plan = (ctypes.c_int * 10)()
     rc = lib.cubecl_paged_decode_plan(
         native.DTYPE_CODES[dtype], native.DTYPE_CODES[kv_dtype], B, H, Hkv,
         D, page, max_pages, window, sinks, int(ring),
         ctypes.cast(plan, ctypes.c_void_p))
     native.check(lib, rc, "paged_decode_plan")
     return P1Plan(plan[0], plan[1], (plan[2], plan[3], plan[4]), plan[5],
-                  plan[6], plan[7], plan[8])
+                  plan[6], plan[7], plan[8], plan[9])
 
 
 def p3_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int,

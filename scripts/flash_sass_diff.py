@@ -11,9 +11,11 @@ once), reads each object's SASS (``cuobjdump -sass``) and compares the
 instructions of every instance on the dense and the block-sparse schedules
 (addresses and encodings dropped; functions keyed by the name after the
 anonymous namespace), then prints the registers and spills that ptxas
-reports for each instance on the masked schedule (the options). Exits 1
-where an instance of the parent differs or is missing; needs nvcc, not a
-card.
+reports for each instance on the masked schedule (the options) and for
+each instance only this checkout holds (the forward's D 256 instances,
+dense and masked, bf16 and f32). Exits 1 where an instance of the parent
+differs or is missing, or where an instance only this checkout holds
+spills or keeps a stack frame; needs nvcc, not a card.
 """
 
 import argparse
@@ -105,9 +107,15 @@ def main():
         if "Masked" in n:
             print(f"this, masked: {n}: {regs['this'].get(n)}, "
                   f"{len(tf[n])} instructions")
-    print(f"dense and block-sparse flash instances: SASS identical in "
-          f"{same} of {len(pf)}")
-    return 0 if pf and same == len(pf) else 1
+    new_spill = 0
+    for n in sorted(set(tf) - set(pf)):
+        r = regs["this"].get(n) or ""
+        new_spill += "0 bytes stack frame, 0 bytes spill stores" not in r
+        print(f"this only: {n}: {r}, {len(tf[n])} instructions")
+    print(f"the parent's flash instances: SASS identical in {same} of "
+          f"{len(pf)}; {len(set(tf) - set(pf))} only in this checkout, "
+          f"{new_spill} of them with a stack frame or spills")
+    return 0 if pf and same == len(pf) and not new_spill else 1
 
 
 if __name__ == "__main__":

@@ -14,10 +14,11 @@ namespace, which names the file): P1's ``paged_decode_kernel``,
 ``paged_window_kernel`` and ``paged_ring_kernel``, P3's
 ``paged_chunked_kernel`` (f32) and ``paged_chunked_wgmma_kernel`` (bf16),
 and each file's ``paged_combine_kernel``. Instances only this checkout
-holds (new head dims, P1's ``paged_grouped_kernel`` past 8 query heads a
-kv head) are listed with their registers and spills from ptxas. Exits 1
-where one of DIR's instances differs or is missing; needs nvcc, not a
-card.
+holds (new head dims, such as D 256's, P1's ``paged_grouped_kernel``
+past 8 query heads a kv head) are listed with their registers and spills
+from ptxas. Exits 1 where one of DIR's instances differs or is missing,
+or where an instance only this checkout holds spills or keeps a stack
+frame; needs nvcc, not a card.
 """
 
 import argparse
@@ -108,8 +109,11 @@ def main():
                   f"({len(pf[n])} instructions): {n}; parent {pr.get(n)}, "
                   f"this {tr.get(n)}")
         for n in sorted(set(tf) - set(pf)):
+            clean = "0 bytes stack frame, 0 bytes spill stores" in (
+                tr.get(n) or "")
+            ok &= clean
             print(f"{source}: this only: {n}: {tr.get(n)}, {len(tf[n])} "
-                  f"instructions")
+                  f"instructions{'' if clean else ' (SPILLS)'}")
         print(f"{source}: the parent's instances, SASS identical: " + ", ".join(
             f"{k} {s} of {t}" for k, (s, t) in sorted(kinds.items())))
     return 0 if ok else 1

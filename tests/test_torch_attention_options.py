@@ -259,7 +259,8 @@ def test_options_are_checked():
 
 
 def test_padded_past_128_runs_on_the_cpu():
-    """D 160: no padding, the plain route (the card raises, ROADMAP)."""
+    """D 160: padded to 256 as on the card, where A1's forward is built at
+    256, equal to the plain route at 160."""
     q, k, v, _ = _inputs(9, 1, 2, 2, 40, 40, 160)
     t = [torch.from_numpy(a) for a in (q, k, v)]
     torch.testing.assert_close(fa.flash_attention_padded(*t),

@@ -698,9 +698,9 @@ P1_MODE0_PARAMS = ("(const T1 *, const T2 *, const T2 *, const float *, "
 def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
     """The plain decode keeps its plan (the serving, KV-bound and d768
     shapes' splits and scratch, mode 0) and its kernels: the library holds
-    paged_decode_kernel<T, TK, D> for the 12 (q, pools, D) instances (D
-    64, 96 and 128) with their parameters unchanged, beside 12
-    paged_window_kernel and 12 paged_ring_kernel instances (cuobjdump,
+    paged_decode_kernel<T, TK, D> for the 16 (q, pools, D) instances (D
+    64, 96, 128 and 256) with their parameters unchanged, beside 16
+    paged_window_kernel and 16 paged_ring_kernel instances (cuobjdump,
     demangled by cu++filt)."""
     import os
     import re
@@ -735,15 +735,15 @@ def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
         k = re.search(r"(paged_(?:decode|window|ring)_kernel)<", d).group(1)
         by_kernel.setdefault(k, []).append(d)
     assert {k: len(v) for k, v in by_kernel.items()} == {
-        "paged_decode_kernel": 12, "paged_window_kernel": 12,
-        "paged_ring_kernel": 12}
+        "paged_decode_kernel": 16, "paged_window_kernel": 16,
+        "paged_ring_kernel": 16}
     params = re.sub(r"\s+", "", P1_MODE0_PARAMS)
     for d in by_kernel["paged_decode_kernel"]:
         assert d.endswith(">" + params), (d, params)
     for T, TK in (("float", "float"), ("float", "signedchar"),
                   ("__nv_bfloat16", "__nv_bfloat16"),
                   ("__nv_bfloat16", "signedchar")):
-        for D in (64, 96, 128):   # a non-type argument may print as (int)64
+        for D in (64, 96, 128, 256):  # a non-type argument: maybe (int)64
             want = rf"paged_decode_kernel<{T},{TK},(\(int\))?{D}>\("
             assert any(re.search(want, d)
                        for d in by_kernel["paged_decode_kernel"]), \
@@ -2971,8 +2971,14 @@ def test_flash_option_functions_run_the_kernels(dev, dtype):
 
 
 def test_flash_padded_past_128_raises(dev):
-    q = torch.zeros(1, 2, 64, 160, device=dev)
+    """Past 128 the forward alone is built (padded to 256): a pass under
+    grad raises at the forward (ROADMAP Queue 2a, A3/A4 at D 256); past
+    256 nothing is built."""
+    q = torch.zeros(1, 2, 64, 160, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa.flash_attention_padded(q, q, q)
+    q = torch.zeros(1, 2, 64, 288, device=dev)
+    with pytest.raises(NotImplementedError, match="256"):
         fa.flash_attention_padded(q, q, q)
 
 
@@ -3002,3 +3008,219 @@ def test_train_step_at_other_head_dims_matches_plain(dev, hd, heads):
         tol = 1e-4 * b.grad.abs().max().item()
         assert (a.grad - b.grad).abs().max().item() <= tol, name
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# -- head dim 256: A1's forward, P1, P3 (GPT-J-6B's, Qwen3-Next's) ----------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 65, 128, 200, 1021])
+@pytest.mark.parametrize("G", [1, 8])
+def test_flash_d256_kernel_matches_plain(dev, dtype, causal, S, G):
+    """A1's forward at D 256 (bf16: 2 K/V stages, P V as two m64n128k16;
+    f32: the CUDA-core body) against the plain version, o and lse, at GQA
+    1 and 8 and lengths around the 64-row tiles; one launch."""
+    g = torch.Generator(device=dev).manual_seed(S + G)
+    q = torch.randn(2, 8, S, 256, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 8 // G, S, 256, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 8 // G, S, 256, generator=g, device=dev).to(dtype)
+    n = flash_attention.launches
+    o, lse = fa._flash_forward(q, k, v, causal, None, True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
+    _close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+    with torch.no_grad():
+        assert torch.equal(flash_attention(q, k, v, causal), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("option", ["kv_len", "window", "segments",
+                                    "padded 192", "padded 160"])
+def test_flash_d256_options_match_plain(dev, dtype, option):
+    """A1's masked instances at D 256 (kv_len, a window, segment ids) and
+    the padded route from D 192 and 160, through the public functions
+    under no_grad, against the plain version; one masked launch (or one
+    dense launch for the padded route)."""
+    g = torch.Generator(device=dev).manual_seed(len(option))
+    D = int(option.split()[1]) if option.startswith("padded") else 256
+    q = torch.randn(2, 8, 300, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(2, 2, 300, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    n = (fa.masked_forward.launches, flash_attention.launches)
+    with torch.no_grad():
+        if option == "kv_len":
+            got, opts = flash_attention(q, k, v, kv_len=230), dict(
+                kv_len=230)
+        elif option == "window":
+            got, opts = fa.flash_attention_local(q, k, v, 70), dict(
+                window=(70, 0))
+        elif option == "segments":
+            ids = torch.arange(300, device=dev).div(97, rounding_mode="floor")
+            ids = ids.expand(2, 300).to(torch.int32).contiguous()
+            got = fa.flash_attention_segmented(q, k, v, ids)
+            opts = dict(seg=(ids, ids))
+        else:
+            got, opts = fa.flash_attention_padded(q, k, v), {}
+    torch.cuda.synchronize()
+    masked = bool(opts)
+    assert (fa.masked_forward.launches - n[0],
+            flash_attention.launches - n[1]) == (int(masked), 1 - masked)
+    _close(got, flash_attention_plain(q, k, v, True, **opts))
+
+
+def test_flash_d256_refuses_grad_at_the_forward(dev):
+    """Under grad the Function refuses D 256 at the forward (the backward
+    kernels are built at 64 and 128), before any launch."""
+    q = torch.zeros(1, 2, 64, 256, device=dev, requires_grad=True)
+    n = flash_attention.launches
+    with pytest.raises(NotImplementedError, match="Queue 2a"):
+        flash_attention(q, q, q)
+    assert flash_attention.launches == n
+
+
+# P1 at D 256: (B, Hkv, G, page, max_pages, lengths, window, sinks):
+# GPT-J's decode (16 kv heads of one query head), Qwen3-Next's (G 8) at
+# context 4096, G 12 (the grouped kernel), ragged with a length-0 row on
+# pages of 7, pages of 1
+P1_D256 = {
+    "gpt-j": (8, 16, 1, 128, 9, [1056, 1, 64, 65, 500, 1000, 0, 1100],
+              512, 4),
+    "qwen3-next-ctx4096": (2, 2, 8, 128, 33, [4096, 3001], 2000, 4),
+    "G12": (3, 1, 12, 16, 40, [640, 0, 301], 100, 9),
+    "G4-page7": (5, 2, 4, 7, 40, [0, 7, 70, 129, 280], 50, 9),
+    "G2-page1": (3, 4, 2, 1, 300, [0, 150, 300], 64, 3),
+}
+
+
+@pytest.mark.parametrize("layout", list(P1_D256))
+@pytest.mark.parametrize("mode", ["full", "window", "ring"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_paged_d256_kernel_matches_plain(dev, kind, mode, layout):
+    """P1 at D 256 in every mode and on every pool (f32: one stage a
+    warp), the grouped kernel past 8 query heads a kv head, against its
+    plain version; the plan is the built kernel's; one launch, counted in
+    its mode; a length-0 row's zeros."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, G, page, max_pages, lengths, window, sinks = P1_D256[layout]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(G + page + len(mode))
+    q, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, kind == "int8",
+                                             B, Hkv, G, 256, page, max_pages)
+    if mode == "ring":  # a ring past its capacity: its slots recycled
+        lengths = [n + page * max_pages // 2 if n else 0 for n in lengths]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(layer=1, k_scales=ks, v_scales=vs)
+    if mode != "full":
+        kw.update(window=window, sinks=sinks)
+    if mode == "ring":
+        kw["pos_meta"] = torch.from_numpy(_ring_meta(
+            table, lengths, page, sinks)[:kp.shape[2]]).to(dev)
+    args = (dtype, kp.dtype, B, Hkv * G, Hkv, 256, page, max_pages,
+            kw.get("window", 0), kw.get("sinks", 0), mode == "ring")
+    plan = pa.p1_plan(*args)
+    assert pa.p1_kernel_plan(*args) == plan
+    assert plan.stages == (1 if kind == "f32" else 3)
+    n = (paged_attention.launches, paged_attention.window_launches,
+         paged_attention.ring_launches, paged_attention.grouped_launches)
+    got = paged_attention(q, kp, vp, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.window_launches,
+            paged_attention.ring_launches,
+            paged_attention.grouped_launches) == (
+        n[0] + 1, n[1] + (mode == "window"), n[2] + (mode == "ring"),
+        n[3] + (G > 8))
+    _close(got, paged_attention_plain(q, kp, vp, table, ln, **kw))
+    if 0 in lengths:
+        assert not got[lengths.index(0)].any()
+
+
+# P3 at D 256: (B, Hkv, G, C, page, max_pages, starts, lengths or None
+# for starts + C): GPT-J's verify step (positions split) and a prefill
+# chunk from 768; Qwen3-Next's verify step (G 8: 40 rows); a ragged batch
+# with a length-0 row on pages of 7; G 12 x C 70 (14 row tiles)
+P3_D256 = {
+    "gpt-j-verify": (8, 16, 1, 5, 128, 9, [1051] * 8, None),
+    "gpt-j-C256-from-768": (2, 16, 1, 256, 128, 9, [768, 0], None),
+    "qwen3-next-verify": (4, 2, 8, 5, 128, 33, [4091, 7, 100, 2000], None),
+    "ragged-page7": (4, 2, 4, 16, 7, 40, [0, 1, 127, 200],
+                     [0, 17, 143, 216]),
+    "G12-C70": (2, 2, 12, 70, 16, 10, [0, 9], None),
+}
+
+
+@pytest.mark.parametrize("case", list(P3_D256))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_paged_chunked_d256_kernel_matches_plain(dev, kind, case):
+    """P3 at D 256 against its plain version on every pool: the bf16
+    body's four panels, decode-shaped tiles with their positions split
+    (each tile's P V from zero, 64 columns at a time), prefill-shaped
+    ones as two m64n128k16 a step; f32 the CUDA-core body; the plan is
+    the built kernel's; one launch."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, G, C, page, max_pages, starts, lengths = P3_D256[case]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(G * C + len(kind))
+    _, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, kind == "int8",
+                                             B, Hkv, G, 256, page, max_pages)
+    q = torch.randn(B, Hkv * G, C, 256, generator=g, device=dev).to(dtype)
+    args = (dtype, kp.dtype, B, Hkv * G, Hkv, C, 256, page, max_pages)
+    assert pa.p3_kernel_plan(*args) == pa.p3_plan(*args)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = st + C if lengths is None else torch.tensor(
+        lengths, dtype=torch.int32, device=dev)
+    n = paged_attention_chunked.launches
+    got = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                  k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_chunked.launches == n + 1
+    _close(got, paged_attention_chunked_plain(q, kp, vp, table, ln, st,
+                                              layer=1, k_scales=ks,
+                                              v_scales=vs))
+    if lengths is not None:
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"], ids=["f32", "int8"])
+def test_serving_at_head_dim_256_matches_plain(dev, kv_dtype):
+    """The llama at head dim 256 (d 512, 2 heads on 1 kv head) served on
+    the D 256 instances, f32: prefill (A1), prefill_chunked (P3
+    prefill-shaped), decode steps and the speculative verify (P1, P3
+    decode-shaped), greedy generate, against the plain versions: equal
+    tokens, logits as test_chunked_serving_kernels_match_plain holds
+    them."""
+    cfg = llama.LlamaConfig(vocab=128, d_model=512, n_heads=2, n_kv_heads=1,
+                            n_layers=2, d_ff=512, kv_dtype=kv_dtype,
+                            use_framework_kernels=False)
+    assert cfg.head_dim == 256
+    model = llama.init_params(cfg, seed=7, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (3, 70), dtype=np.int32)).to(dev)
+    out = []
+    for kernels in (True, False):
+        n = (flash_attention.launches, paged_attention_chunked.launches,
+             paged_attention.launches)
+        c = llama.init_kv_cache(cfg, 3, 4, 32, dev)
+        lp, c = llama.prefill(model, c, prompt, kernels=kernels)
+        c = llama.init_kv_cache(cfg, 3, 4, 32, dev)
+        lg, c = llama.prefill_chunked(model, c, prompt, chunk=32,
+                                      kernels=kernels)
+        toks, acc = llama.speculative_generate(model, prompt, 6, model,
+                                               gamma=3, max_pages=4,
+                                               page=32, kernels=kernels)
+        ran = (flash_attention.launches - n[0],
+               paged_attention_chunked.launches - n[1],
+               paged_attention.launches - n[2])
+        assert all(ran) if kernels else ran == (0, 0, 0)
+        out.append((lp, lg, toks, acc))
+    (pk, lk, tk, ak), (pp, lp, tp, ap) = out
+    tol = 1e-3 if kv_dtype else 2e-5
+    torch.testing.assert_close(pk, pp, atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(lk, lp, atol=tol, rtol=max(tol, 1e-4))
+    assert torch.equal(tk, tp) and ak == ap == 3.0
+    assert torch.equal(tk, llama.generate(model, prompt, 6, max_pages=4,
+                                          page=32))

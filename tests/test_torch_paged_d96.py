@@ -300,11 +300,11 @@ def test_p1_plan_at_d96_sizes_its_instances():
     assert p1_plan(bf, bf, 1, 32, 32, D, 128, 9).splits == 8
 
 
-@pytest.mark.parametrize("D_other", [32, 80, 160, 256])
+@pytest.mark.parametrize("D_other", [32, 80, 160, 288, 512])
 def test_other_head_dims_are_refused(D_other):
     """P1 and P3 take the head dims they have instances for (64, 96,
-    128) and refuse the rest (ROADMAP Queue 2a: 32, 80, 256)."""
-    assert PAGED_HEAD_DIMS == (64, 96, 128)
+    128, 256) and refuse the rest (ROADMAP Queue 2a: 32, 80, past 256)."""
+    assert PAGED_HEAD_DIMS == (64, 96, 128, 256)
     bf = torch.bfloat16
     for D_ok in PAGED_HEAD_DIMS:
         p1_plan(bf, bf, 8, 16, 8, D_ok, 128, 9)
