@@ -182,7 +182,15 @@ pools (G 1, 8 and 12, ragged rows on pages of 7, pages of 1) and P3 (the
 verify step, chunked prefill from 0 and 768) against plain, each timed
 (cold L2) beside the same call at D 128; zd2 the llama at GPT-J-6B's
 widths (28 layers, bf16) served through zb2's paths but the d768 draft;
-zd3 its f32 exactness at 2 layers. In zb2, zc2 and zd2 speculative
+zd3 its f32 exactness at 2 layers. Then training at head dim 256 (phase
+ze): ze1 A3 and A4 at D 256 (bf16 and f32, GPT-J-6B's and Qwen3-Next's
+training shapes, a ragged S 1021, cross lengths, non-causal, padded from
+D 192 and 160, kv_len, a window and packed documents) through autograd
+and alone against both plain backwards, each timed (cold L2) beside the
+same call at D 128, SDPA's backward and the bound; ze2 the llama at
+GPT-J-6B's widths trained at full depth (28 layers, bf16, B 4 x S 1024,
+then a ragged S 1000), A1, A3, A4 and K0's RMSNorm counted from 0; ze3
+its f32 exactness at 2 layers. In zb2, zc2 and zd2 speculative
 decoding's tokens and the self-draft's rejections are held to twice the
 verify step's measured logit difference from the decode steps (the
 derivation is ``serve_at_widths``'). Each kernel's
@@ -417,9 +425,9 @@ def flash_sass(sass, summary):
     library's SASS: (name, HGMMA count, registers, spill line) each. Fails
     unless every bf16 instance of each of the three kernels issues wgmma
     (HGMMA) and they cover D 64 and 128 on the dense, the block-sparse and
-    the masked (the options') schedule, and the forward's also D 256 on
-    the dense and the masked one, none of which spills (where a fresh
-    build's ptxas log reports them)."""
+    the masked (the options') schedule, and D 256 on the dense and the
+    masked one, none of which spills (where a fresh build's ptxas log
+    reports them)."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     rows, covered = [], {k: set() for k in kinds}
@@ -445,10 +453,8 @@ def flash_sass(sass, summary):
     want = {(d, sp) for d in ("64", "128")
             for sp in ("dense", "block-sparse", "masked")}
     for kind, got in covered.items():
-        if kind == "flash_fwd":  # A1's forward alone is built at D 256
-            want_kind = want | {("256", "dense"), ("256", "masked")}
-        else:
-            want_kind = want
+        # D 256 on the dense and masked schedules (not the block-sparse)
+        want_kind = want | {("256", "dense"), ("256", "masked")}
         if got != want_kind:
             fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
                  f"{sorted(got)}, want {sorted(want_kind)}")
@@ -1139,15 +1145,15 @@ def flash_backward(fa, dev, gen, card):
 def flash_backward_sweep(fa, dev, gen, card):
     """Phase d: the bf16 dK/dV and dQ kernels against both plain backwards
     over the card tests' grid: B2 with 8 query heads in kv groups of 1, 2
-    and 8 and with 6 in groups of 3, every length of ``BWD_SWEEP_S``, D 64
-    and 128, causal or not. Prints the largest atol (at EXACT_BWD_TOL's
+    and 8 and with 6 in groups of 3, every length of ``BWD_SWEEP_S``, D 64,
+    128 and 256, causal or not. Prints the largest atol (at EXACT_BWD_TOL's
     rtol) that the kernels and the rounding plain version need against the
     exact plain backward, with the case."""
     worst = {"kernels": (0.0, ""), "rounding plain": (0.0, "")}
     dt = torch.bfloat16
     for S in BWD_SWEEP_S:
         for H, Hkv in ((8, 8), (8, 4), (8, 1), (6, 2)):
-            for D in (64, 128):
+            for D in (64, 128, 256):
                 for causal in (True, False):
                     q, do = (torch.randn(2, H, S, D, generator=gen,
                                          device=dev).to(dt) for _ in range(2))
@@ -1169,9 +1175,9 @@ def flash_backward_sweep(fa, dev, gen, card):
                         for who, x in zip(worst, need):
                             if x > worst[who][0]:
                                 worst[who] = (x, f"d{n} {case}")
-    print(f"phase d sweep of the bf16 backward, {len(BWD_SWEEP_S) * 16} "
-          f"cases (B2, H 8/8, 8/4, 8/1, 6/2, S {BWD_SWEEP_S}, D 64 and "
-          f"128, causal or not): all within atol/rtol {TOL[dt]} of the "
+    print(f"phase d sweep of the bf16 backward, {len(BWD_SWEEP_S) * 24} "
+          f"cases (B2, H 8/8, 8/4, 8/1, 6/2, S {BWD_SWEEP_S}, D 64, 128 "
+          f"and 256, causal or not): all within atol/rtol {TOL[dt]} of the "
           f"rounding plain backward and {EXACT_BWD_TOL[dt]} of the exact "
           f"one; largest atol needed against the exact one at rtol "
           f"{EXACT_BWD_TOL[dt][1]}: kernels {worst['kernels'][0]} "
@@ -4889,16 +4895,16 @@ def option_case(fa, dev, gen, card, name, fn, B, H, Hkv, S, D, dt, causal,
     return row
 
 
-def phi3_rmsnorm(llama, cu, cfg, dev, gen, card):
-    """K0's RMSNorm at Phi-3-mini's width (3072, which phases a-h never
-    run), forward and backward through ``_rmsnorm`` as the llama calls it,
-    against plain f32 autograd of the formula on the same inputs (bf16
-    TOL, as phase e)."""
-    shape = (PHI3_TRAIN["B"], PHI3_TRAIN["S"], cfg.d_model)
+def rmsnorm_at_width(llama, cu, cfg, shape, dev, gen, card, phase):
+    """K0's RMSNorm at a trained width and shape (a per-shape build that
+    phases a-h never run), forward and backward through ``_rmsnorm`` as
+    the llama calls it, against plain f32 autograd of the formula on the
+    same inputs (bf16 TOL, as phase e)."""
     x, dy = (torch.randn(shape, generator=gen, device=dev)
              .to(torch.bfloat16) for _ in range(2))
     g = torch.randn(cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
-    n = cu.server.launches["_rmsnorm_bwd_k"]
+    k0 = ("_rmsnorm_fwd_k", "_rmsnorm_bwd_k")
+    n = [cu.server.launches[k] for k in k0]
     leaves = [t.clone().requires_grad_() for t in (x, g)]
     y = llama._rmsnorm(*leaves, cfg, True)
     y.backward(dy)
@@ -4907,33 +4913,44 @@ def phi3_rmsnorm(llama, cu, cfg, dev, gen, card):
                                   + cfg.rms_eps) * refs[1]
     y_ref.backward(dy.float())
     torch.cuda.synchronize()
-    if cu.server.launches["_rmsnorm_bwd_k"] != n + 1:
-        fail("phase za K0 rmsnorm d3072: the backward kernel did not run")
-    errs = [compare(a, r.to(torch.bfloat16), f"phase za K0 rmsnorm d3072 {w}")
+    what = (f"phase {phase} K0 rmsnorm d{cfg.d_model} "
+            f"{'x'.join(map(str, shape))}")
+    if [cu.server.launches[k] - m for k, m in zip(k0, n)] != [1, 1]:
+        fail(f"{what}: the forward and backward kernels did not run once "
+             "each")
+    errs = [compare(a, r.to(torch.bfloat16), f"{what} {w}")
             for w, a, r in (("y", y, y_ref), ("dx", leaves[0].grad,
                                                refs[0].grad),
                             ("dg", leaves[1].grad, refs[1].grad))]
-    print(f"phase za K0 rmsnorm at d3072 (bf16 {shape}), kernels against "
-          f"plain f32 autograd: max abs err y {errs[0]}, dx {errs[1]}, dg "
-          f"{errs[2]} (atol/rtol {TOL[torch.bfloat16]}) [{card}]",
-          flush=True)
+    print(f"{what} (bf16), kernels against plain f32 autograd: max abs err "
+          f"y {errs[0]}, dx {errs[1]}, dg {errs[2]} (atol/rtol "
+          f"{TOL[torch.bfloat16]}) [{card}]", flush=True)
     return errs
 
 
-def phi3_train(llama, fa, cu, dev, gen, card):
-    """Phase za4: the repo's llama at Phi-3-mini's widths (head dim 96: the
-    padded route, D padded to 128 for the dense kernels), bf16 at full depth:
-    SGD steps at B 4 x S 1024 and two at a ragged S 1000, the launches of
-    every kernel of the path counted from 0 (A1, A3, A4 once a layer a step;
-    no masked kernel); then f32 exactness at full width with 2 layers, one
-    SGD step with the kernels against one with the plain versions (loss to
-    1e-5 relative, gradients and weights to 1e-4 of their max-abs, phase
-    g's bounds) and the prefill logits (LOGIT_TOL)."""
-    t = PHI3_TRAIN
-    cfg = llama.LlamaConfig(**PHI3, seq=t["S"], dtype="bfloat16",
+def train_at_widths(llama, fa, cu, dev, gen, card, phase, widths, t,
+                    model_name, exact_phase=None):
+    """The repo's llama at a published model's widths (``widths``), bf16 at
+    full depth: K0's RMSNorm against plain at the width and at both trained
+    shapes (``rmsnorm_at_width``), then SGD steps at B x S (``t``) on one batch and two at a ragged
+    length, the launches of every kernel of the path counted from 0 (A1,
+    A3, A4 once a layer a step, through the flash function the llama picks
+    for its head dim; no masked kernel; K0's RMSNorm 2L + 1 a step each
+    way), one profiled step (the device's busy share); then f32 exactness
+    at full width with ``exact_layers`` layers, one SGD step with the
+    kernels against one with the plain versions (loss to 1e-5 relative,
+    gradients and weights to 1e-4 of their max-abs, phase g's bounds) and
+    the prefill logits (LOGIT_TOL), printed as ``exact_phase`` (default
+    ``phase``)."""
+    cfg = llama.LlamaConfig(**widths, seq=t["S"], dtype="bfloat16",
                             use_framework_kernels=True)
     L, B, S, steps = cfg.n_layers, t["B"], t["S"], t["steps"]
-    k0_errs = phi3_rmsnorm(llama, cu, cfg, dev, gen, card)
+    route = fa.flash_for_head_dim(cfg.head_dim, cfg.n_heads).__name__
+    k0_errs = {s_: rmsnorm_at_width(llama, cu, cfg, (B, s_, cfg.d_model), dev,
+                                    gen, card, phase)
+               for s_ in (S, t["ragged_S"])}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
     model = llama.init_params(cfg, seed=0, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
     step = llama.make_train_step(cfg, TRAIN_LR)
@@ -4949,7 +4966,8 @@ def phi3_train(llama, fa, cu, dev, gen, card):
     ragged = torch.from_numpy(rng.integers(0, cfg.vocab,
                                            (B, t["ragged_S"] + 1),
                                            dtype=np.int32)).to(dev)
-    # two steps at the ragged length: the first builds its K0 kernels
+    # two steps at the ragged length (its K0 kernels built by
+    # rmsnorm_at_width above)
     loss_r, sec_r = _train(step, model, ragged, 2)
     torch.cuda.synchronize()
     launches = dict(_masked_launches(fa),
@@ -4962,30 +4980,37 @@ def phi3_train(llama, fa, cu, dev, gen, card):
             "flash_bwd_dq": L * n, "_rmsnorm_fwd_k": per * n,
             "_rmsnorm_bwd_k": per * n}
     if launches != want:
-        fail(f"phase za4 train Phi-3-mini widths: kernel launches "
+        fail(f"phase {phase} train {model_name} widths: kernel launches "
              f"{launches}, want {want}")
     if not all(math.isfinite(x) for x in losses + loss_r) \
             or losses[-1] >= losses[0]:
-        fail(f"phase za4: losses {losses} (ragged {loss_r}) are not finite "
-             "and falling")
+        fail(f"phase {phase}: losses {losses} (ragged {loss_r}) are not "
+             "finite and falling")
+    prof = profile_step(step, model, tokens)
     ms = 1e3 * statistics.median(secs[1:])
-    print(f"phase za4 train llama at Phi-3-mini's widths ({n_params / 1e9:.3f}"
-          f"B bf16: d{cfg.d_model}, {L} layers, {cfg.n_heads}/"
-          f"{cfg.n_kv_heads} heads of {cfg.head_dim} through "
-          f"flash_attention_padded, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+    traced = "no device time in the trace" if prof is None else (
+        f"one more step traced: {prof[0]:.2f} ms wall, {prof[1]:.2f} ms "
+        f"busy ({100 * (1 - prof[1] / prof[0]):.1f}% idle), by group "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            prof[2].items(), key=lambda kv: -kv[1])))
+    print(f"phase {phase} train llama at {model_name}'s widths "
+          f"({n_params / 1e9:.3f}B bf16: d{cfg.d_model}, {L} layers, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} through "
+          f"{route}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
           f"use_framework_kernels=True): B {B} x S {S}, SGD lr {TRAIN_LR}, "
           f"{steps} steps on one batch: losses {losses}; {ms:.2f} ms/step "
           f"warm (median of steps 2-{steps}; step 1 {1e3 * secs[0]:.2f} ms), "
           f"{B * S / ms * 1e3:.0f} tok/s; two steps at ragged S "
-          f"{t['ragged_S']}: losses {loss_r}, {1e3 * sec_r[1]:.2f} ms the "
-          f"second (the first, with its K0 builds, {1e3 * sec_r[0]:.2f}); "
-          f"peak memory "
-          f"{peak:.2f} GiB; launches over the {n} steps {launches} [{card}]",
-          flush=True)
+          f"{t['ragged_S']}: losses {loss_r}, {1e3 * sec_r[0]:.2f} and "
+          f"{1e3 * sec_r[1]:.2f} ms; "
+          f"peak memory {peak:.2f} GiB ({held:.2f} GiB held before the "
+          f"phase); launches over the {n} steps {launches}; {traced} "
+          f"[{card}]", flush=True)
     del model, step
     torch.cuda.empty_cache()
     # f32 exactness at full width, 2 layers, ragged S
-    ecfg = llama.LlamaConfig(**dict(PHI3, n_layers=t["exact_layers"]),
+    phase = exact_phase or phase
+    ecfg = llama.LlamaConfig(**dict(widths, n_layers=t["exact_layers"]),
                              seq=t["ragged_S"], use_framework_kernels=True)
     etok = torch.from_numpy(rng.integers(0, ecfg.vocab,
                                          (t["exact_B"], t["ragged_S"] + 1),
@@ -4999,21 +5024,21 @@ def phi3_train(llama, fa, cu, dev, gen, card):
         runs.append((loss.item(), dict(m.named_parameters()), logits))
     (lk, pk, gk), (lp, pp, gp) = runs
     if abs(lk - lp) > 1e-5 * abs(lp):
-        fail(f"phase za4 exactness: loss {lk} with kernels, {lp} plain")
+        fail(f"phase {phase} exactness: loss {lk} with kernels, {lp} plain")
     worst = {"grad": 0.0, "weight": 0.0}
     for name, p in pp.items():
         for what, a, b in (("grad", pk[name].grad, p.grad),
                            ("weight", pk[name], p)):
             rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
             if rel > 1e-4:
-                fail(f"phase za4 exactness: {name} {what} differs by {rel} "
-                     "of its max-abs (> 1e-4)")
+                fail(f"phase {phase} exactness: {name} {what} differs by "
+                     f"{rel} of its max-abs (> 1e-4)")
             worst[what] = max(worst[what], rel)
     err_l = (gk - gp).abs().max().item()
     if not err_l <= LOGIT_TOL:
-        fail(f"phase za4 exactness: prefill logits differ by {err_l} > "
+        fail(f"phase {phase} exactness: prefill logits differ by {err_l} > "
              f"{LOGIT_TOL}")
-    print(f"phase za4 exactness at Phi-3-mini's widths, f32, "
+    print(f"phase {phase} exactness at {model_name}'s widths, f32, "
           f"{t['exact_layers']} layers, B {t['exact_B']} x S "
           f"{t['ragged_S']}: one SGD step with the kernels and one with the "
           f"plain versions: loss {lk} vs {lp} (rel "
@@ -5025,7 +5050,11 @@ def phi3_train(llama, fa, cu, dev, gen, card):
     torch.cuda.empty_cache()
     return dict(launches=launches, losses=losses, ms_per_step=ms,
                 ragged_losses=loss_r, ragged_ms=1e3 * sec_r[1], peak_gib=peak,
-                params_b=n_params / 1e9, k0_rmsnorm_d3072_err=k0_errs,
+                held_gib=held, params_b=n_params / 1e9, route=route,
+                profile=None if prof is None else dict(
+                    wall_ms=prof[0], busy_ms=prof[1], groups=prof[2],
+                    idle_share=1 - prof[1] / prof[0]),
+                k0_rmsnorm_err=k0_errs,
                 exact=dict(loss_rel=abs(lk - lp) / abs(lp), **worst,
                            prefill_logits_err=err_l))
 
@@ -5042,7 +5071,7 @@ def flash_options(llama, fa, cu, ex_attn, dev, gen, card):
     the main cases timed beside the dense causal kernels, their bounds over
     the live pairs and SDPA with the element mask; the example twin
     (``cubecl_tpu_torch/examples/attention.py``); za4 the llama at
-    Phi-3-mini's widths (``phi3_train``)."""
+    Phi-3-mini's widths (``train_at_widths``)."""
     out = {}
     m = MISTRAL_ATTN
     out["window"] = option_case(
@@ -5097,7 +5126,8 @@ def flash_options(llama, fa, cu, ex_attn, dev, gen, card):
     print(f"phase za examples/attention twin (f32, B1 H2 S512 D128): dense, "
           f"window, block-sparse and paged decode ran; launches "
           f"{_masked_launches(fa)} [{card}]", flush=True)
-    out["phi3"] = phi3_train(llama, fa, cu, dev, gen, card)
+    out["phi3"] = train_at_widths(llama, fa, cu, dev, gen, card, "za4", PHI3,
+                                  PHI3_TRAIN, "Phi-3-mini")
     return out
 
 
@@ -5879,6 +5909,271 @@ def serve_d256(llama, pa, fa, dev, gen, card):
     return out
 
 
+# -- phase ze: training at head dim 256 (A3/A4 at D 256; GPT-J-6B) ---------
+
+# ze1, A3 and A4 at D 256: (name, public function, B, H, Hkv, Sq, Skv, D,
+# causal, options as ``_Mask.of`` takes them) at GPT-J's training shape (B
+# 8 x 16 heads x S 1024, causal), Qwen3-Next's (B 2 x 16/2 x S 4096, G 8), a
+# ragged S 1021, cross lengths (Sq 512 on Skv 1024), non-causal, the padded
+# route from D 192 and 160 (padded to 256), and the masked options (kv_len
+# 900 of 1024, a window of 1024 at S 4096, packed documents of 256-2048
+# tokens at S 4096); each in bf16 and f32
+ZE_A34 = [
+    ("gpt-j train", "flash_attention", 8, 16, 16, 1024, 1024, D256, True,
+     {}),
+    ("qwen3-next train", "flash_attention", 2, QWEN3_NEXT_H, QWEN3_NEXT_HKV,
+     4096, 4096, D256, True, {}),
+    ("ragged S1021", "flash_attention", 8, 16, 16, 1021, 1021, D256, True,
+     {}),
+    ("cross Sq512 Skv1024", "flash_attention", 8, 16, 16, 512, 1024, D256,
+     True, {}),
+    ("non-causal", "flash_attention", 2, 16, 16, 1024, 1024, D256, False,
+     {}),
+    ("padded D192", "flash_attention_padded", 8, 16, 16, 1024, 1024, 192,
+     True, {}),
+    ("padded D160", "flash_attention_padded", 8, 16, 16, 1024, 1024, 160,
+     True, {}),
+    ("kv_len 900", "flash_attention", 8, 16, 16, 1024, 1024, D256, True,
+     dict(kv_len=900)),
+    ("window 1024", "flash_attention_local", 2, QWEN3_NEXT_H,
+     QWEN3_NEXT_HKV, 4096, 4096, D256, True, dict(window=(1023, 0))),
+    ("segments", "flash_attention_segmented", 2, QWEN3_NEXT_H,
+     QWEN3_NEXT_HKV, 4096, 4096, D256, True, dict(seg="docs"))]
+# ze2: the llama at GPT-J-6B's widths trained at full depth (28 layers, bf16)
+# as phase za4 trains Phi-3-mini's; ze3 its f32 exactness with 2 layers.
+# Memory reckoned from the widths: 28.8 GiB of bf16 weights and SGD grads,
+# ~22 GiB of activations at B 4 x S 1024, 2-3 GiB of logits and their
+# grads: ~53 GiB
+ZE_TRAIN = dict(B=4, S=1024, steps=4, ragged_S=1000, exact_layers=2,
+                exact_B=2)
+
+
+def _public(fa, fname, causal, opts):
+    """The public function of a ZE_A34 case on (q, k, v)."""
+    if fname == "flash_attention_local":
+        return lambda q, k, v: fa.flash_attention_local(
+            q, k, v, *opts["window"], causal)
+    if fname == "flash_attention_segmented":
+        return lambda q, k, v: fa.flash_attention_segmented(
+            q, k, v, opts["seg"][0], None, causal)
+    return lambda q, k, v: getattr(fa, fname)(q, k, v, causal, **opts)
+
+
+def _a34_kernels(fa, q, k, v, do, causal, scale, opts):
+    """A1 (with lse), A3 and A4 on (q, k, v, do) at their head dim, dense
+    or masked as ``opts`` say: (forward, dkv, dq, counters), the last two
+    calls on the forward's o and lse (set by calling the first)."""
+    mask = fa._Mask.of(q, k, **opts)
+    st = {}
+
+    def fwd():
+        o, lse = (fa._flash_forward(q, k, v, causal, scale, True)
+                  if mask is None else
+                  fa.masked_forward(q, k, v, mask, causal, scale, True))
+        # di as the autograd Function takes it
+        st.update(lse=lse, di=(do.float() * o.float()).sum(-1))
+        return o, lse
+
+    if mask is None:
+        def dkv():
+            return fa.flash_bwd_dkv(q, k, v, do, st["lse"], st["di"], causal,
+                                    scale)
+
+        def dq():
+            return fa.flash_bwd_dq(q, k, v, do, st["lse"], st["di"], causal,
+                                   scale)
+        return fwd, dkv, dq, (fa.flash_attention, fa.flash_bwd_dkv,
+                              fa.flash_bwd_dq)
+
+    def dkv():
+        return fa.masked_dkv(q, k, v, do, st["lse"], st["di"], mask, causal,
+                             scale)
+
+    def dq():
+        return fa.masked_dq(q, k, v, do, st["lse"], st["di"], mask, causal,
+                            scale)
+    return fwd, dkv, dq, (fa.masked_forward, fa.masked_dkv, fa.masked_dq)
+
+
+def a34_vs_plain(fa, dev, gen, card, phase, cases):
+    """A3 and A4 at D 256 against their plain versions, one case (ZE_A34) a
+    row and dtype (bf16, f32), as phase d holds them: the public function
+    forward and backward through autograd (one launch of each of A1, A3,
+    A4, dense or masked), its output and grads equal to the kernels' called
+    alone (D below 256 padded to it, the grads sliced back), the lse-writing
+    forward's o and lse within TOL of the plain forward's (lse at f32 TOL),
+    the grads within TOL of the plain backward that rounds p and dS as the
+    kernels do and within EXACT_BWD_TOL of the exact one, at the real D,
+    and a second call bit
+    for bit; then each kernel's cold-L2 time beside the same call at D
+    128, the plain backward's time, the bound over the live pairs at the
+    real D (4 products a pair for dK/dV, 3 for dQ) and, in bf16, SDPA's
+    autograd backward (``is_causal`` and ``enable_gqa``; with an option the
+    element mask as a bool ``attn_mask``, kv heads repeated outside the
+    call)."""
+    rows = {"dkv": {}, "dq": {}}
+    worst = (0.0, "")
+    for name, fname, B, H, Hkv, Sq, Skv, D, causal, opts in cases:
+        if opts.get("seg") == "docs":
+            ids = doc_ids(np.random.default_rng(24), B, Sq, 256, 2048, 128,
+                          dev)
+            opts = dict(seg=(ids, ids))
+        plain_opts = dict(opts)
+        for dt in (torch.bfloat16, torch.float32):
+            q, do = (torch.randn(B, H, Sq, D, generator=gen, device=dev)
+                     .to(dt) for _ in range(2))
+            k, v = (torch.randn(B, Hkv, Skv, D, generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            what = (f"A3/A4 {name} {_dt(dt)} B{B} H{H}/{Hkv} Sq{Sq} "
+                    f"Skv{Skv} D{D} {'causal' if causal else 'non-causal'} "
+                    f"({fname})")
+            scale = D ** -0.5
+            pad = (lambda t: TF.pad(t, (0, D256 - D))) if D < D256 \
+                else (lambda t: t)
+            fwd, dkv, dqk, counters = _a34_kernels(
+                fa, *(pad(t) for t in (q, k, v, do)), causal, scale, opts)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            n0 = [c.launches for c in counters]
+            out = _public(fa, fname, causal, opts)(*leaves)
+            out.backward(do)
+            torch.cuda.synchronize()
+            if [c.launches - n for c, n in zip(counters, n0)] != [1, 1, 1]:
+                fail(f"phase {phase} {what}: autograd did not launch A1, A3 "
+                     "and A4 once each")
+            o, lse = fwd()
+            o = o[..., :D]
+            dk, dv = dkv()
+            dq = dqk()
+            torch.cuda.synchronize()
+            got = [t[..., :D] for t in (dq, dk, dv)]
+            if not torch.equal(o, out.detach()) or not all(
+                    torch.equal(t.grad, g) for t, g in zip(leaves, got)):
+                fail(f"phase {phase} {what}: the autograd Function's output "
+                     "or grads are not the kernels'")
+            del leaves, out
+            o_ref, lse_ref = fa.flash_attention_plain(
+                q, k, v, causal, scale, return_lse=True, **plain_opts)
+            err_o = compare(o, o_ref, f"phase {phase} {what}: o")
+            err_lse = compare(lse, lse_ref, f"phase {phase} {what}: lse")
+            del o_ref, lse_ref
+            exact, rounded = (fa.flash_attention_backward_plain(
+                q, k, v, o, lse, do, causal, scale, round_p_ds=rnd,
+                **plain_opts) for rnd in (False, True))
+            torch.cuda.synchronize()
+            err_r, err, need = zip(*(compare_bwd(
+                a, r, e, f"phase {phase} {what}: d{n}")
+                for n, a, r, e in zip("qkv", got, rounded, exact)))
+            del exact, rounded
+            need_k = tuple(x[0] for x in need)  # the kernels' (not plain's)
+            if max(need_k) > worst[0]:
+                worst = (max(need_k), what)
+            again = (dqk(), *dkv())
+            if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk,
+                                                                 dv))):
+                fail(f"phase {phase} {what}: a second call of the kernels "
+                     "differs")
+            del again
+            dkv_ms, dq_ms = cold_ms(dkv), cold_ms(dqk)
+            plain_ms = cuda_ms(lambda: fa.flash_attention_backward_plain(
+                q, k, v, o, lse, do, causal, scale, **plain_opts), iters=3,
+                warmup=1)
+            live = fa._live_mask(q, k, causal, **plain_opts)
+            if live is None:
+                pairs, keys = Sq * Skv, Skv
+            else:
+                lead = live.shape[0] if live.dim() == 4 else 1
+                flat = live.reshape(-1, Sq, Skv)
+                pairs = int(flat.sum()) // lead
+                keys = int(flat.any(1).sum()) // lead
+            elem = torch.finfo(dt).bits // 8
+            stats = 8 * B * H * Sq  # lse and di, f32
+            b_dkv = flash_bound(B, H, Hkv, Sq, keys, D, dt, causal, 4,
+                                elem * D * 2 * B * Hkv * keys + stats,
+                                pairs=pairs)
+            b_dq = flash_bound(B, H, Hkv, Sq, keys, D, dt, causal, 3,
+                               elem * D * B * H * Sq + stats, pairs=pairs)
+            lib = None
+            if dt == torch.bfloat16:
+                if live is None:
+                    lib = cuda_ms(grad_call(
+                        lambda q_, k_, v_: TF.scaled_dot_product_attention(
+                            q_, k_, v_, is_causal=causal, enable_gqa=True),
+                        (q, k, v), do), iters=5)
+                else:
+                    kr, vr = (t.repeat_interleave(H // Hkv, 1)
+                              for t in (k, v))
+                    lib = cuda_ms(grad_call(
+                        lambda q_, k_, v_: TF.scaled_dot_product_attention(
+                            q_, k_, v_, attn_mask=live), (q, kr, vr), do),
+                        iters=3)
+                    del kr, vr
+            del live, dq, dk, dv, got
+            # the same call at D 128
+            t128 = [torch.randn(B, h, s, 128, generator=gen, device=dev)
+                    .to(dt) for h, s in ((H, Sq), (Hkv, Skv), (Hkv, Skv),
+                                         (H, Sq))]
+            fwd128, dkv128, dq128, _ = _a34_kernels(fa, *t128, causal, None,
+                                                    opts)
+            fwd128()
+            d128 = (cold_ms(dkv128), cold_ms(dq128))
+            del t128, fwd128, dkv128, dq128, q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+            key = f"{name} {_dt(dt)}"
+            common = dict(o_err=err_o, lse_err=err_lse, plain_ms=plain_ms,
+                          library_ms=lib, live_pairs=pairs,
+                          keys_read=keys, atol_vs_exact=dict(
+                              zip(("dq", "dk", "dv"), need_k)))
+            rows["dkv"][key] = dict(
+                common, max_abs_err=max(err[1:]),
+                max_abs_err_vs_rounding_plain=max(err_r[1:]), ms=dkv_ms,
+                bound_ms=b_dkv[0], bound_by=b_dkv[1], d128_cold_ms=d128[0])
+            rows["dq"][key] = dict(
+                common, max_abs_err=err[0],
+                max_abs_err_vs_rounding_plain=err_r[0], ms=dq_ms,
+                bound_ms=b_dq[0], bound_by=b_dq[1], d128_cold_ms=d128[1])
+            print(f"phase {phase} {what}: one autograd pass launched A1, A3, "
+                  f"A4 once each, its grads the kernels'; A1 against the "
+                  f"plain forward: max abs err o {err_o}, lse {err_lse} "
+                  f"(atol/rtol {TOL[dt]}; lse {TOL[torch.float32]}); A3/A4 "
+                  f"against the plain "
+                  f"backward that rounds p and dS as the kernels do: dq "
+                  f"{err_r[0]}, dk {err_r[1]}, dv {err_r[2]} (atol/rtol "
+                  f"{TOL[dt]}); against the exact one: dq {err[0]}, dk "
+                  f"{err[1]}, dv {err[2]} (atol/rtol {EXACT_BWD_TOL[dt]}; "
+                  f"the atol each needs at that rtol, kernel and rounding "
+                  f"plain: dq {need[0]}, dk {need[1]}, dv {need[2]}); two "
+                  f"calls bit-identical; "
+                  f"cold L2: dK/dV {dkv_ms:.4f} ms (D 128 {d128[0]:.4f}; "
+                  f"bound {b_dkv[0]:.4f}, {b_dkv[1]}), dQ {dq_ms:.4f} ms "
+                  f"(D 128 {d128[1]:.4f}; bound {b_dq[0]:.4f}, {b_dq[1]}); "
+                  f"plain backward {plain_ms:.4f} ms; "
+                  + (f"SDPA's backward {lib:.4f} ms; " if lib is not None
+                     else "")
+                  + f"{pairs} live pairs a row and head, {keys} keys read "
+                  f"[{card}]", flush=True)
+    print(f"phase {phase}: the largest atol (at rtol "
+          f"{EXACT_BWD_TOL[torch.bfloat16][1]}) that A3/A4 at D 256 need "
+          f"against the exact plain backward: {worst[0]:.3g} ({worst[1]}) "
+          f"[{card}]", flush=True)
+    rows["worst_atol_vs_exact"] = dict(atol=worst[0], case=worst[1])
+    return rows
+
+
+def train_d256(llama, fa, cu, dev, gen, card):
+    """Phase ze: training at head dim 256. ze1 A3 and A4 at D 256
+    (ZE_A34) against their plain versions; ze2 the llama at GPT-J-6B's
+    widths trained at full depth (28 layers, bf16), ze3 its f32 exactness
+    with 2 layers (``train_at_widths``)."""
+    t0 = time.perf_counter()
+    out = dict(a34=a34_vs_plain(fa, dev, gen, card, "ze1", ZE_A34))
+    out["train"] = train_at_widths(llama, fa, cu, dev, gen, card, "ze2",
+                                   GPTJ_6B, ZE_TRAIN, "GPT-J-6B",
+                                   exact_phase="ze3")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase ze took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6253,6 +6548,9 @@ def main():
 
     # -- phase zd: head dim 256 (A1's forward, P1, P3; GPT-J-6B) ------------
     zd = serve_d256(llama, pa, fa, dev, gen, card)
+
+    # -- phase ze: training at head dim 256 (A3/A4; GPT-J-6B) ---------------
+    ze = train_d256(llama, fa, cu, dev, gen, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
@@ -6866,6 +7164,38 @@ def main():
                    "f32": "paged_chunked_kernel<float, TK, 256>"},
                launches_path="phase zd2: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds"),
+        *(zb_row(f"flash_attention_bwd_{what}_d256",
+                 "cubecl_tpu_torch/csrc/flash_attention_bwd.cu",
+                 replaces, ze["train"]["launches"][f"flash_bwd_{what}"],
+                 "gpt-j train bf16", ze["a34"][what],
+                 ze["a34"][what]["gpt-j train bf16"]["library_ms"],
+                 keys=("d128_cold_ms", "live_pairs", "keys_read",
+                       "max_abs_err_vs_rounding_plain", "atol_vs_exact"),
+                 library_is=sdpa_bwd + "; with an option the element mask "
+                                       "as a bool attn_mask",
+                 shape="bf16 B8 H16/16 S1024 D256 causal (GPT-J-6B's "
+                       "training); ms: cold L2; d128_cold_ms: the same call "
+                       "at D 128",
+                 plain_ms_is="the whole plain backward (dq, dk, dv)",
+                 kernel_symbols=symbols,
+                 launches_path="phase ze2: 6 SGD steps at B 4, 28 layers "
+                               "(GPT-J-6B's widths)",
+                 worst_atol_vs_exact=ze["a34"]["worst_atol_vs_exact"],
+                 **({"gptj_6b_train": ze["train"],
+                     "phase_seconds": ze["seconds"]} if what == "dkv"
+                    else {}))
+          for what, replaces, symbols in (
+              ("dkv", "cubecl_tpu/ops/attention.py:469", {
+                  "bf16": "flash_bwd_dkv_wide_kernel<bf16, 256, Tiles> (one "
+                          "64-row kv tile a block; warpgroup 1 s^T, p^T, dV, "
+                          "warpgroup 2 dP^T, dS^T, dK, p^T handed over "
+                          "through shared memory)",
+                  "f32": "flash_bwd_dkv_sliced_kernel<float, 256, Tiles>"}),
+              ("dq", "cubecl_tpu/ops/attention.py:660", {
+                  "bf16": "flash_bwd_dq_wide_kernel<bf16, 256, Tiles> (one "
+                          "64-row q tile a block; each warpgroup 128 of dQ's "
+                          "columns, s and dP computed by both)",
+                  "f32": "flash_bwd_dq_sliced_kernel<float, 256, Tiles>"}))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

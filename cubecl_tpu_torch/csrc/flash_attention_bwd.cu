@@ -84,6 +84,47 @@
 // of a product. That is 210 KB (dkv) and 178 KB (dq) of the 227 KB a block
 // may have at D = 128.
 //
+// D 256 (GPT-J-6B's and Qwen3-Next's head dim) has bodies of its own, on
+// the dense and the masked schedules (the block-sparse ones are not built
+// there): the ones above run out of room. At D 256 a bf16 consumer's dK and
+// dV would be 256 f32 registers a thread (setmaxnreg grants 240), and
+// their shared memory (NC tiles of K, V and 3 ring stages, 32 KB a tile)
+// 320 KB of the 227 KB a block may hold; the f32 bodies' staging takes
+// 411 KB (dkv) and 346 KB (dq).
+//   bf16 (flash_bwd_dkv_wide_kernel, flash_bwd_dq_wide_kernel): a block
+//        owns ONE 64-row tile, stationary (64 KB for its two operands),
+//        and streams the other side through a ring of 2 stages (128 KB).
+//        Its two consumer warpgroups share the tile (setmaxnreg 40/232:
+//        at 24 the producer's lse/di warp spilled on the masked schedule):
+//     dkv: by role. Warpgroup 1 computes s^T = K q^T, masks it, takes p^T
+//        and accumulates dV += p^T dO; warpgroup 2 computes dP^T = V dO^T,
+//        takes dS^T = p^T (dP^T - di) * scale with the f32 p^T that
+//        warpgroup 1 hands it through 16 KB of shared memory (each
+//        thread's 32 values at the same place in both fragments, two named
+//        barriers a tile), and accumulates dK += dS^T q. Each holds one
+//        64 x 256 accumulator (128 registers a thread) beside one score
+//        tile: 4 products of 64 x 64 x 256 a tile pair, as the math needs;
+//        215 KB of shared memory.
+//     dq:  by columns. Warpgroup c accumulates dQ's columns 128 c ..
+//        128 c + 127 (64 registers, as a D 128 consumer) and computes the
+//        whole s and dP itself: 5 products a tile pair against the 3 that
+//        the math needs (1.67x), and no hand-over; 198 KB.
+//        The score products walk D in 16 k16 steps, the descriptors made
+//        beside each step; the gradient products are D 128's m64n128k16,
+//        two a step for a 256-wide accumulator. p and dS round to bf16
+//        where the other bodies round them (dS from the unrounded p); the
+//        group sum over the query heads stays in registers.
+//   f32 (flash_bwd_dkv_sliced_kernel, flash_bwd_dq_sliced_kernel): the
+//        CUDA-core bodies' arithmetic with one layout of the streamed
+//        tile in shared memory at a time: transposed for s (then dP),
+//        then row-major for dV (then dK, or dQ), each staged again from
+//        global memory (L2); 214,528 bytes. dK/dV takes two blocks a kv
+//        tile, 128 of the columns each (both compute the scores), so
+//        that each tile's products can be summed from zero and then
+//        added: with one running sum of G x Sq terms (32,768 at
+//        Qwen3-Next's G 8 x S 4096) f32 parted from the plain backward
+//        by more than its 2e-5 / 1e-4.
+//
 // The same kernel bodies, with the block-sparse schedules of
 // flash_tiles.cuh in place of the dense causal ranges, replace
 //   A6 _bsp_dq_call  (dQ over the forward schedule: a block owns rows of
@@ -171,11 +212,11 @@ __device__ __forceinline__ void outer4(const float* a, int as, int ai,
 }
 
 // acc[i][c*4 + j] += sum_n w[n][ty*4 + i] * m[n][c*64 + tx*4 + j]: a 64-row
-// transposed weight tile (stride PS) times a row-major (64, D) operand
-template <int D>
+// transposed weight tile (stride PS) times a row-major (64, D) operand, over
+// its first DC 64-column groups
+template <int D, int DC = D / 64>
 __device__ __forceinline__ void accum(const float* w, const float* m, int ty,
-                                     int tx, float (&acc)[4][4 * (D / 64)]) {
-  constexpr int DC = D / 64;
+                                     int tx, float (&acc)[4][4 * DC]) {
 #pragma unroll 4
   for (int n = 0; n < 64; ++n) {
     const float4 w4 = *reinterpret_cast<const float4*>(&w[n * PS + ty * 4]);
@@ -203,16 +244,16 @@ __device__ __forceinline__ void store_t(float* w, int ty, int tx,
         make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DC = D / 64>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
                                            int n, int ty, int tx,
-                                           const float (&acc)[4][4 * (D / 64)]) {
+                                           const float (&acc)[4][4 * DC]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty * 4 + i;
     if (r >= n) continue;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
+    for (int c = 0; c < DC; ++c)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         dst[(int64_t)r * D + c * 64 + tx * 4 + j] =
@@ -418,11 +459,245 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + qo * D, q0, q_end, ty, tx, acc);
 }
 
+// -- D 256 on the CUDA cores: one tile of the streamed side at a time ------
+
+// the stationary side's two operands transposed [D][64]; one (64, D) tile
+// of the streamed side, transposed for a score product or row-major for a
+// gradient product; the 64 x 64 weight tile [64][PS]; lse, di [64]
+template <int D>
+constexpr int sliced_smem_bytes() {
+  return (3 * D * 64 + 64 * PS + 2 * 64) * 4;
+}
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di, T* __restrict__ dk,
+                            T* __restrict__ dv, int H, int Hkv, int Sq,
+                            int Skv, float scale, float scale_log2,
+                            int causal, Tiles tiles) {
+  static_assert(D == 256 && !Tiles::kSparse,
+                "the sliced body is built for D 256, dense or masked");
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);  // [D][BN]
+  float* Vt = Kt + D * BN;                      // [D][BN]
+  float* X = Vt + D * BN;  // q^T, dO^T [D][BM], then dO, q [BM][D]
+  float* Ps = X + D * BM;  // [BM][PS]: p, then dS
+  float* lse_s = Ps + BM * PS;                  // [BM]
+  float* di_s = lse_s + BM;                     // [BM]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // q columns tx*4.. of the (kv, q) score block
+  const int ty = tid / 16;  // kv rows ty*4.., output rows of dK / dV
+  int k0, k_end;
+  tiles.own(k0, k_end);
+  const int hk = blockIdx.y / 2;
+  const int half = blockIdx.y % 2;  // dK's and dV's columns 128 half..
+  const int b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
+
+  stage<T, D, BN>(k + kvo, k0, k_end, Kt, nullptr);
+  stage<T, D, BN>(v + kvo, k0, k_end, Vt, nullptr);
+
+  // the block's 128 columns of dK and dV; each tile's products are summed
+  // from zero and then added, so that a sum over H / Hkv heads of Sq rows
+  // takes one addition a tile (at Qwen3-Next's G 8 x S 4096, 512 instead
+  // of 32,768 into one register: f32's 2e-5/1e-4 against the plain
+  // backward held there only so)
+  float dk_acc[4][8], dv_acc[4][8], part[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  auto add_part = [&](const float* w, float (&acc)[4][8]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+    accum<D, 2>(w, X + 128 * half, ty, tx, part);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += part[i][j];
+  };
+
+  const int n_tiles = tiles.count(k0);
+  for (int g = 0; g < rep; ++g) {
+    const int h = hk * rep + g;
+    const int64_t qo = ((int64_t)b * H + h) * Sq;
+    for (int t = 0; t < n_tiles; ++t) {
+      int q0, q_end, f9_end;
+      float inv_n;
+      if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
+      __syncthreads();  // the previous tile's readers are done
+      stage<T, D, BM>(q + qo * D, q0, q_end, X, nullptr);
+      if (tid < BM) {
+        const bool in = q0 + tid < q_end;
+        lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
+        di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      outer4<D>(Kt, BN, ty, X, BM, tx, s);
+      __syncthreads();
+      stage<T, D, BM>(dout + qo * D, q0, q_end, X, nullptr);
+      __syncthreads();
+      outer4<D>(Vt, BN, ty, X, BM, tx, dp);
+      if constexpr (Tiles::kMasked)
+        if (!tiles.mask.whole(q0, k0))
+          tiles.mask.template kill<true>(s, k0 + ty * 4, q0 + tx * 4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = tx * 4 + j;
+        const int row = q0 + m;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = k0 + ty * 4 + i;
+          bool ok = true;
+          if constexpr (!Tiles::kMasked)
+            ok = row < q_end && col < k_end && (!causal || col <= row);
+          const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
+          s[i][j] = p;
+          dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
+        }
+      }
+      __syncthreads();  // dO^T's readers are done
+      // dV[n][:] += sum_m p[m][n] dO[m][:]
+      stage<T, D, BM>(dout + qo * D, q0, q_end, nullptr, X);
+      store_t(Ps, ty, tx, s);
+      __syncthreads();
+      add_part(Ps, dv_acc);
+      __syncthreads();
+      // dK[n][:] += sum_m dS[m][n] q[m][:]
+      stage<T, D, BM>(q + qo * D, q0, q_end, nullptr, X);
+      store_t(Ps, ty, tx, dp);
+      __syncthreads();
+      add_part(Ps, dk_acc);
+    }
+  }
+  store_rows<T, D, 2>(dk + kvo + 128 * half, k0, k_end, ty, tx, dk_acc);
+  store_rows<T, D, 2>(dv + kvo + 128 * half, k0, k_end, ty, tx, dv_acc);
+}
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di, T* __restrict__ dq,
+                           int H, int Hkv, int Sq, int Skv, float scale,
+                           float scale_log2, int causal, Tiles tiles) {
+  static_assert(D == 256 && !Tiles::kSparse,
+                "the sliced body is built for D 256, dense or masked");
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);  // [D][BM]
+  float* dOt = Qt + D * BM;                     // [D][BM]
+  float* X = dOt + D * BM;  // K^T, V^T [D][BN], then K [BN][D]
+  float* Ss = X + D * BN;   // [BN][PS]: dS transposed
+  float* lse_s = Ss + BN * PS;                  // [BM]
+  float* di_s = lse_s + BM;                     // [BM]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // kv columns tx*4.., dQ columns tx*4 + 64c
+  const int ty = tid / 16;  // q rows ty*4..
+  int q0, q_end;
+  tiles.own(q0, q_end);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int64_t qo = ((int64_t)b * H + h) * Sq;
+  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
+
+  stage<T, D, BM>(q + qo * D, q0, q_end, Qt, nullptr);
+  stage<T, D, BM>(dout + qo * D, q0, q_end, dOt, nullptr);
+  if (tid < BM) {
+    const bool in = q0 + tid < q_end;
+    lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
+    di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
+  }
+
+  float acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+
+  const int n_tiles = tiles.count(q0);
+  for (int t = 0; t < n_tiles; ++t) {
+    int k0, k_end;
+    if (!tiles.visit(t, q0, q_end, k0, k_end)) continue;
+    __syncthreads();  // the previous tile's readers are done
+    stage<T, D, BN>(k + kvo, k0, k_end, X, nullptr);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    outer4<D>(Qt, BM, ty, X, BN, tx, s);
+    __syncthreads();
+    stage<T, D, BN>(v + kvo, k0, k_end, X, nullptr);
+    __syncthreads();
+    outer4<D>(dOt, BM, ty, X, BN, tx, dp);
+    if constexpr (Tiles::kMasked)
+      if (!tiles.mask.whole(q0, k0))
+        tiles.mask.template kill<false>(s, q0 + ty * 4, k0 + tx * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = ty * 4 + i;
+      const int row = q0 + m;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx * 4 + j;
+        bool ok = true;
+        if constexpr (!Tiles::kMasked)
+          ok = row < q_end && col < k_end && (!causal || col <= row);
+        const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
+        dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
+      }
+    }
+    __syncthreads();  // V^T's readers are done
+    // dQ[m][:] += sum_n dS[m][n] k[n][:]
+    stage<T, D, BN>(k + kvo, k0, k_end, nullptr, X);
+    store_t(Ss, ty, tx, dp);
+    __syncthreads();
+    accum<D>(Ss, X, ty, tx, acc);
+  }
+  store_rows<T, D>(dq + qo * D, q0, q_end, ty, tx, acc);
+}
+
 template <typename Kernel>
 cudaError_t opt_in_smem(Kernel kernel, int bytes) {
   // above 48 KB a kernel must opt in to dynamic shared memory
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// the CUDA-core bodies of a head dim: D 256's sliced ones, else the
+// others (each only where chosen, so that no body is built at a D it does
+// not fit)
+template <typename T, int D, typename Tiles>
+constexpr auto dkv_cuda_core() {
+  if constexpr (D == 256)
+    return flash_bwd_dkv_sliced_kernel<T, D, Tiles>;
+  else
+    return flash_bwd_dkv_kernel<T, D, Tiles>;
+}
+template <typename T, int D, typename Tiles>
+constexpr auto dq_cuda_core() {
+  if constexpr (D == 256)
+    return flash_bwd_dq_sliced_kernel<T, D, Tiles>;
+  else
+    return flash_bwd_dq_kernel<T, D, Tiles>;
 }
 
 template <typename T, int D, typename Tiles>
@@ -431,12 +706,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int B, int H, int Hkv, int Sq,
                        int Skv, float scale, float scale_log2, int causal,
                        int blocks, Tiles tiles, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  static const cudaError_t attr =
-      opt_in_smem(flash_bwd_dkv_kernel<T, D, Tiles>, smem);
+  constexpr int smem =
+      D == 256 ? sliced_smem_bytes<D>() : dkv_smem_bytes<D>();
+  const auto kernel = dkv_cuda_core<T, D, Tiles>();
+  static const cudaError_t attr = opt_in_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(blocks, Hkv, B);
-  flash_bwd_dkv_kernel<T, D, Tiles><<<grid, NT, smem, stream>>>(
+  // D 256: two blocks a kv tile, 128 of dK's and dV's columns each
+  const dim3 grid(blocks, D == 256 ? 2 * Hkv : Hkv, B);
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
       static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Skv, scale,
@@ -450,12 +727,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int B, int H, int Hkv, int Sq, int Skv,
                       float scale, float scale_log2, int causal, int blocks,
                       Tiles tiles, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<D>();
-  static const cudaError_t attr =
-      opt_in_smem(flash_bwd_dq_kernel<T, D, Tiles>, smem);
+  constexpr int smem = D == 256 ? sliced_smem_bytes<D>() : dq_smem_bytes<D>();
+  const auto kernel = dq_cuda_core<T, D, Tiles>();
+  static const cudaError_t attr = opt_in_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(blocks, H, B);
-  flash_bwd_dq_kernel<T, D, Tiles><<<grid, NT, smem, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
       static_cast<T*>(dq), H, Hkv, Sq, Skv, scale, scale_log2, causal, tiles);
@@ -500,8 +777,9 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
   return sw128_desc(tile + kk * 2048, kPanel, 1024);
 }
 
+template <int S = kStages>
 __device__ __forceinline__ void next_stage(int& st, uint32_t& phase) {
-  if (++st == kStages) {
+  if (++st == S) {
     st = 0;
     phase ^= 1;
   }
@@ -535,8 +813,8 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
 
 // this thread's rows r, r + 8 (r = warp * 16 + lane / 4) of an m64nN
 // accumulator d[4 j + 2 i + e], columns 8 j + (lane % 4) * 2 + e, stored
-// in bf16 where the row is below r_end
-template <int D>
+// in bf16 where the row is below r_end (rows LD elements apart)
+template <int D, int LD = D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
                                           int row_a, int r_end, int col_l,
                                           const float (&d)[D / 2]) {
@@ -546,7 +824,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst,
     if (row >= r_end) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (int64_t)row * D + 8 * j +
+      *reinterpret_cast<__nv_bfloat162*>(dst + (int64_t)row * LD + 8 * j +
                                          col_l) =
           __floats2bfloat162_rn(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
   }
@@ -998,6 +1276,460 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   store_acc<D>(dq + qo * D, row_a, q_end, col_l, acc);
 }
 
+// -- D 256 on the tensor cores: one tile a block, two consumers on it ----
+
+constexpr int kWideStages = 2;  // stages of the streamed side's ring
+// setmaxnreg of the D 256 bodies' warpgroups: the producer's lse/di warp
+// walks the masked schedule's tiles too, and spilled at 24 registers; 40
+// leave the consumers 232 (40 x 128 + 232 x 256 <= 65,536), which neither
+// role fills
+constexpr int kWideProducerRegs = 40;
+constexpr int kWideConsumerRegs = 232;
+
+// dynamic shared memory of the D 256 bodies: the stationary side's one
+// tile of two operands (four panels each), the ring of the streamed side's
+// two operands, for dkv the ring's lse and di and the f32 p^T handed from
+// one consumer to the other, the mbarriers, and the slack to align the
+// base to 1024: 215,080 bytes (dkv), 197,672 (dq)
+template <bool kStats>
+struct WideSmem {
+  static constexpr int kTile = 4 * kPanel;
+  static constexpr int kA = 0;
+  static constexpr int kB = kA + kTile;
+  static constexpr int kRa = kB + kTile;
+  static constexpr int kRb = kRa + kWideStages * kTile;
+  static constexpr int kLse = kRb + kWideStages * kTile;
+  static constexpr int kDi = kLse + (kStats ? kWideStages * kStat : 0);
+  static constexpr int kP = kDi + (kStats ? kWideStages * kStat : 0);
+  static constexpr int kBar = kP + (kStats ? 64 * 64 * 4 : 0);
+  static constexpr int kBytes = kBar + (1 + 2 * kWideStages) * 8 + 1024;
+};
+
+// named barriers 1.. (0 is __syncthreads'): sync waits until n threads
+// have arrived, arrive only counts; either orders this thread's earlier
+// shared-memory accesses before the barrier completes
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// a 64 x 64 score tile over D 256 from two K-major tiles of four panels:
+// 16 k16 steps (the first overwrites), each step's descriptors made beside
+// its product. a_s goes through an empty asm, so that the compiler keeps
+// none of the stationary tile's 16 descriptors (32 registers) across the
+// walk.
+__device__ __forceinline__ void scores256(float (&d)[32], uint32_t a_s,
+                                          uint32_t b_s) {
+  asm volatile("" : "+r"(a_s));
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    wgmma_ss_m64n64(d, kmajor(a_s, kk), kmajor(b_s, kk), kk > 0);
+}
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int Hkv, int Sq,
+                          int Skv, float scale, float scale_log2, int causal,
+                          Tiles tiles) {
+  static_assert(sizeof(T) == 2 && D == 256 && !Tiles::kSparse,
+                "the wide body takes 16-bit inputs at D 256, dense or "
+                "masked");
+  using L = WideSmem<true>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kWideStages;
+
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = H / Hkv;
+  // the block's one kv tile, shared by both consumers
+  int k0, k_end;
+  tiles.own(blockIdx.x, gridDim.x, k0, k_end);
+  const int n_tiles = k0 < k_end ? tiles.count(k0) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kWideStages; ++st) {
+      mbar_init(&full[st], 1 + 32);  // the issuer, the lse/di lanes
+      mbar_init(&empty[st], 8);      // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // -- producer: as flash_bwd_dkv_wgmma_kernel's ---------------------------
+    setmaxnreg_dec<kWideProducerRegs>();
+    if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      int st = 0;
+      uint32_t phase = 0;
+      for (int g = 0; g < rep; ++g) {
+        const int64_t bh = (int64_t)b * H + hk * rep + g;
+        for (int t = 0; t < n_tiles; ++t) {
+          int q0 = 0, q_end = 0, f9_end = 0;
+          float inv_n = 0.f;
+          if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
+          mbar_wait(&empty[st], phase ^ 1);
+          float* lse_s =
+              reinterpret_cast<float*>(smem + L::kLse + st * kStat);
+          float* di_s = reinterpret_cast<float*>(smem + L::kDi + st * kStat);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int r = q0 + lane + 32 * u;
+            lse_s[lane + 32 * u] = r < q_end ? lse[bh * Sq + r] : 0.f;
+            di_s[lane + 32 * u] = r < q_end ? di[bh * Sq + r] : 0.f;
+          }
+          mbar_arrive(&full[st]);
+          next_stage<kWideStages>(st, phase);
+        }
+      }
+      return;
+    }
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(&tq);
+    tma_prefetch_map(&tk);
+    tma_prefetch_map(&tv);
+    tma_prefetch_map(&tdo);
+    mbar_expect_tx(kv_full, 2 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      tma_load_3d(smem + L::kA + p * kPanel, &tk, kv_full, p * 64, k0,
+                  b * Hkv + hk);
+      tma_load_3d(smem + L::kB + p * kPanel, &tv, kv_full, p * 64, k0,
+                  b * Hkv + hk);
+    }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < rep; ++g) {
+      const int bh = b * H + hk * rep + g;
+      for (int t = 0; t < n_tiles; ++t) {
+        int q0 = 0, q_end = 0, f9_end = 0;
+        float inv_n = 0.f;
+        if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
+        mbar_wait(&empty[st], phase ^ 1);
+        mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          tma_load_3d(smem + L::kRa + st * L::kTile + p * kPanel, &tq,
+                      &full[st], p * 64, q0, bh);
+          tma_load_3d(smem + L::kRb + st * L::kTile + p * kPanel, &tdo,
+                      &full[st], p * 64, q0, bh);
+        }
+        next_stage<kWideStages>(st, phase);
+      }
+    }
+    return;
+  }
+
+  // -- consumers, one role each over the block's 64 kv rows: warpgroup 1
+  // computes s^T = K q^T and p^T, hands p^T to warpgroup 2 through shared
+  // memory and accumulates dV += p^T dO; warpgroup 2 computes dP^T = V dO^T,
+  // dS^T from the handed p^T and accumulates dK += dS^T q --------------------
+  setmaxnreg_inc<kWideConsumerRegs>();
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int row_l = warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+  // p^T as both warpgroups' m64n64 fragments hold it: this thread's 32
+  // values, 8 float4 128 threads apart
+  float4* p_buf = reinterpret_cast<float4*>(smem + L::kP) + threadIdx.x % 128;
+
+  float lo[64], hi[64];  // dV (warpgroup 1) or dK (2): columns 0..127, 128..
+#pragma unroll
+  for (int j = 0; j < 64; ++j) lo[j] = hi[j] = 0.f;
+  const uint32_t k_s = smem_addr(smem + L::kA);
+  const uint32_t v_s = smem_addr(smem + L::kB);
+
+  mbar_wait(kv_full, 0);
+  int st = 0, n = 0;  // n: the tiles this block has computed on
+  uint32_t phase = 0;
+  for (int g = 0; g < rep; ++g) {
+    for (int t = 0; t < n_tiles; ++t) {
+      int q0 = 0, q_end = 0, f9_end = 0;
+      float inv_n = 0.f;
+      if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
+      mbar_wait(&full[st], phase);
+      const uint32_t q_s = smem_addr(smem + L::kRa + st * L::kTile);
+      const uint32_t do_s = smem_addr(smem + L::kRb + st * L::kTile);
+      uint32_t a[4][4];
+      if (wg == 1) {
+        const float* lse_s =
+            reinterpret_cast<const float*>(smem + L::kLse + st * kStat);
+        float s[32];
+        wgmma_fence();
+        scores256(s, k_s, q_s);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(s);
+        // the mask: q rows past q_end, kv rows past k_end, the diagonal
+        // (the options: their dead scores to -inf)
+        bool edge = false;
+        if constexpr (Tiles::kMasked) {
+          if (!tiles.mask.whole(q0, k0))
+            tiles.mask.template kill<true>(s, k0 + row_l, q0 + col_l);
+        } else {
+          edge = q0 + kFlashTile > q_end || k0 + kFlashTile > k_end ||
+                 (causal && k0 + kFlashTile - 1 > q0);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = 8 * j + col_l + e;
+            const float l = lse_s[m];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float& x = s[4 * j + 2 * i + e];
+              bool ok = true;
+              if (edge) {
+                const int row = q0 + m;
+                const int col = k0 + row_l + 8 * i;
+                ok = row < q_end && col < k_end && (!causal || col <= row);
+              }
+              x = ok ? exp2_approx(x * scale_log2 - l) : 0.f;
+            }
+          }
+        if (n > 0) named_sync(2, 256);  // warpgroup 2 has read the last p^T
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          p_buf[128 * u] =
+              make_float4(s[4 * u], s[4 * u + 1], s[4 * u + 2], s[4 * u + 3]);
+        named_arrive(1, 256);
+        pack_a(s, a);
+      } else {
+        const float* di_s =
+            reinterpret_cast<const float*>(smem + L::kDi + st * kStat);
+        if (n > 0) named_arrive(2, 256);  // done with the last p^T
+        float dp[32];
+        wgmma_fence();
+        scores256(dp, v_s, do_s);
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(dp);
+        named_sync(1, 256);  // this tile's p^T is in
+        // dS^T = p^T (dP^T - di) * scale, from the unrounded p
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float4 p4 = p_buf[128 * u];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const int x = 4 * u + w;
+            const float d = di_s[8 * u + col_l + w % 2];
+            dp[x] = p[w] * (dp[x] - d) * scale;
+          }
+        }
+        pack_a(dp, a);
+      }
+      // dV += p^T dO (warpgroup 1) or dK += dS^T q (2): two m64n128k16 a
+      // k16 step, columns 0..127 (panels 0, 1) and 128..255 (2, 3)
+      const uint32_t b_s = wg == 1 ? do_s : q_s;
+      reg_fence(lo);
+      reg_fence(hi);
+      wgmma_fence();
+      rs_tile<128>(lo, a, b_s);
+      rs_tile<128>(hi, a, b_s + 2 * kPanel);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(lo);
+      reg_fence(hi);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      next_stage<kWideStages>(st, phase);
+      ++n;
+    }
+  }
+
+  T* out = (wg == 1 ? dv : dk) + ((int64_t)b * Hkv + hk) * Skv * D;
+  store_acc<128, D>(out, k0 + row_l, k_end, col_l, lo);
+  store_acc<128, D>(out + 128, k0 + row_l, k_end, col_l, hi);
+}
+
+template <typename T, int D, typename Tiles>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, T* __restrict__ dq,
+                         int H, int Hkv, int Sq, float scale,
+                         float scale_log2, int causal, Tiles tiles) {
+  static_assert(sizeof(T) == 2 && D == 256 && !Tiles::kSparse,
+                "the wide body takes 16-bit inputs at D 256, dense or "
+                "masked");
+  using L = WideSmem<false>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWideStages;
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  // the block's one q tile, shared by both consumers
+  int q0, q_end;
+  tiles.own(blockIdx.x, gridDim.x, q0, q_end);
+  const int n_tiles = q0 < q_end ? tiles.count(q0) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kWideStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // -- producer -----------------------------------------------------------
+    setmaxnreg_dec<kWideProducerRegs>();
+    if (threadIdx.x != 0) return;
+    tma_prefetch_map(&tq);
+    tma_prefetch_map(&tk);
+    tma_prefetch_map(&tv);
+    tma_prefetch_map(&tdo);
+    mbar_expect_tx(q_full, 2 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      tma_load_3d(smem + L::kA + p * kPanel, &tq, q_full, p * 64, q0,
+                  b * H + h);
+      tma_load_3d(smem + L::kB + p * kPanel, &tdo, q_full, p * 64, q0,
+                  b * H + h);
+    }
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      int c0 = 0, c_end = 0;
+      if (!tiles.visit(t, q0, q_end, c0, c_end)) continue;
+      mbar_wait(&empty[st], phase ^ 1);
+      mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        tma_load_3d(smem + L::kRa + st * L::kTile + p * kPanel, &tk,
+                    &full[st], p * 64, c0, b * Hkv + hk);
+        tma_load_3d(smem + L::kRb + st * L::kTile + p * kPanel, &tv,
+                    &full[st], p * 64, c0, b * Hkv + hk);
+      }
+      next_stage<kWideStages>(st, phase);
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup c owns dQ's columns 128 c.. 128 c + 127 of the
+  // block's 64 q rows; both compute the whole s and dP ---------------------
+  setmaxnreg_inc<kWideConsumerRegs>();
+  const int c = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+  const int64_t qo = ((int64_t)b * H + h) * Sq;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row_a + 8 * i < q_end;
+    lse_r[i] = in ? lse[qo + row_a + 8 * i] : 0.f;
+    di_r[i] = in ? di[qo + row_a + 8 * i] : 0.f;
+  }
+
+  float acc[64];  // (64 x 128) f32
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  const uint32_t q_s = smem_addr(smem + L::kA);
+  const uint32_t do_s = smem_addr(smem + L::kB);
+  const int half = 2 * c * kPanel;  // the consumer's panels of K
+
+  mbar_wait(q_full, 0);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    int c0 = 0, c_end = 0;
+    if (!tiles.visit(t, q0, q_end, c0, c_end)) continue;
+    mbar_wait(&full[st], phase);
+    const uint32_t k_s = smem_addr(smem + L::kRa + st * L::kTile);
+    const uint32_t v_s = smem_addr(smem + L::kRb + st * L::kTile);
+    // s = q K^T and dP = dO V^T over the whole D
+    float s[32], dp[32];
+    wgmma_fence();
+    scores256(s, q_s, k_s);
+    scores256(dp, do_s, v_s);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(s);
+    reg_fence(dp);
+
+    bool edge = false;
+    if constexpr (Tiles::kMasked) {
+      if (!tiles.mask.whole(q0, c0))
+        tiles.mask.template kill<false>(s, row_a, c0 + col_l);
+    } else {
+      edge = c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_a + 8 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * i + e;
+          const int col = c0 + 8 * j + col_l + e;
+          const bool ok = !edge || (col < c_end && (!causal || col <= row));
+          const float p = ok ? exp2_approx(s[x] * scale_log2 - lse_r[i])
+                             : 0.f;
+          dp[x] = p * (dp[x] - di_r[i]) * scale;
+        }
+    }
+
+    // dQ[:, half] += dS K[:, half]: m64n128k16 over the consumer's panels
+    uint32_t da[4][4];
+    pack_a(dp, da);
+    reg_fence(acc);
+    wgmma_fence();
+    rs_tile<128>(acc, da, k_s + half);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    next_stage<kWideStages>(st, phase);
+  }
+
+  store_acc<128, D>(dq + qo * D + 128 * c, row_a, q_end, col_l, acc);
+}
+
+// the tensor-core bodies of a head dim: D 256's wide ones, else the others
+template <int D, typename Tiles>
+constexpr auto dkv_tensor_core() {
+  if constexpr (D == 256)
+    return flash_bwd_dkv_wide_kernel<__nv_bfloat16, D, Tiles>;
+  else
+    return flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, D, Tiles>;
+}
+template <int D, typename Tiles>
+constexpr auto dq_tensor_core() {
+  if constexpr (D == 256)
+    return flash_bwd_dq_wide_kernel<__nv_bfloat16, D, Tiles>;
+  else
+    return flash_bwd_dq_wgmma_kernel<__nv_bfloat16, D, Tiles>;
+}
+
 template <int D, typename Tiles>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
@@ -1012,9 +1744,10 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
     cudaMemsetAsync(dv, 0, n, stream);
     return cudaGetLastError();
   }
-  constexpr int smem = BwdSmem<D, true>::kBytes;
-  static const cudaError_t attr =
-      opt_in_smem(flash_bwd_dkv_wgmma_kernel<T, D, Tiles>, smem);
+  constexpr int smem =
+      D == 256 ? WideSmem<true>::kBytes : BwdSmem<D, true>::kBytes;
+  const auto kernel = dkv_tensor_core<D, Tiles>();
+  static const cudaError_t attr = opt_in_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   // the maps are kernel parameters (__grid_constant__), encoded per call
   CUtensorMap tq, tk, tv, tdo;
@@ -1024,7 +1757,7 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   if (e == cudaSuccess) e = rows_map(&tv, v, D, Skv, B * Hkv);
   if (e != cudaSuccess) return e;
   const dim3 grid(blocks, Hkv, B);
-  flash_bwd_dkv_wgmma_kernel<T, D, Tiles><<<grid, kWgThreads, smem, stream>>>(
+  kernel<<<grid, kWgThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, di, static_cast<T*>(dk), static_cast<T*>(dv),
       H, Hkv, Sq, Skv, scale, scale_log2, causal, tiles);
   return cudaGetLastError();
@@ -1042,9 +1775,10 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
     cudaMemsetAsync(dq, 0, (size_t)B * H * Sq * D * sizeof(T), stream);
     return cudaGetLastError();
   }
-  constexpr int smem = BwdSmem<D, false>::kBytes;
-  static const cudaError_t attr =
-      opt_in_smem(flash_bwd_dq_wgmma_kernel<T, D, Tiles>, smem);
+  constexpr int smem =
+      D == 256 ? WideSmem<false>::kBytes : BwdSmem<D, false>::kBytes;
+  const auto kernel = dq_tensor_core<D, Tiles>();
+  static const cudaError_t attr = opt_in_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e = rows_map(&tq, q, D, Sq, B * H);
@@ -1053,18 +1787,21 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   if (e == cudaSuccess) e = rows_map(&tv, v, D, Skv, B * Hkv);
   if (e != cudaSuccess) return e;
   const dim3 grid(blocks, H, B);
-  flash_bwd_dq_wgmma_kernel<T, D, Tiles><<<grid, kWgThreads, smem, stream>>>(
+  kernel<<<grid, kWgThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, di, static_cast<T*>(dq), H, Hkv, Sq, scale,
       scale_log2, causal, tiles);
   return cudaGetLastError();
 }
 
-// The four (dtype, head_dim) instances of one schedule: f32 on the
-// CUDA-core bodies (one 64-row tile to a block), bf16 on the wgmma bodies
-// (NC 64-row tiles to a block; `tiles` counts the launch's tiles so). The
-// launchers of both bodies take the same arguments. Neither falls back on
-// the other: an error of the chosen body is returned as it is.
-constexpr int tiles_per_block(int dtype) { return dtype == kBF16 ? NC : 1; }
+// The (dtype, head_dim) instances of one schedule: f32 on the CUDA-core
+// bodies (one 64-row tile to a block), bf16 on the wgmma bodies (NC 64-row
+// tiles to a block, one at D 256; `tiles` counts the launch's tiles so);
+// D 256 on the dense and masked schedules only. The launchers of both
+// bodies take the same arguments. Neither falls back on the other: an
+// error of the chosen body is returned as it is.
+constexpr int tiles_per_block(int dtype, int D) {
+  return dtype == kBF16 && D != 256 ? NC : 1;
+}
 
 template <typename Tiles>
 int launch_dkv_any(const void* q, const void* k, const void* v,
@@ -1083,6 +1820,12 @@ int launch_dkv_any(const void* q, const void* k, const void* v,
     return CUBECL_DKV((launch_dkv_wgmma<64, Tiles>));
   if (dtype == kBF16 && D == 128)
     return CUBECL_DKV((launch_dkv_wgmma<128, Tiles>));
+  if constexpr (!Tiles::kSparse) {  // D 256: the dense and masked schedules
+    if (dtype == kF32 && D == 256)
+      return CUBECL_DKV((launch_dkv<float, 256, Tiles>));
+    if (dtype == kBF16 && D == 256)
+      return CUBECL_DKV((launch_dkv_wgmma<256, Tiles>));
+  }
 #undef CUBECL_DKV
   return cudaErrorInvalidValue;
 }
@@ -1104,6 +1847,12 @@ int launch_dq_any(const void* q, const void* k, const void* v,
     return CUBECL_DQ((launch_dq_wgmma<64, Tiles>));
   if (dtype == kBF16 && D == 128)
     return CUBECL_DQ((launch_dq_wgmma<128, Tiles>));
+  if constexpr (!Tiles::kSparse) {  // D 256: the dense and masked schedules
+    if (dtype == kF32 && D == 256)
+      return CUBECL_DQ((launch_dq<float, 256, Tiles>));
+    if (dtype == kBF16 && D == 256)
+      return CUBECL_DQ((launch_dq_wgmma<256, Tiles>));
+  }
 #undef CUBECL_DQ
   return cudaErrorInvalidValue;
 }
@@ -1123,7 +1872,7 @@ extern "C" int cubecl_flash_bwd_dkv(const void* q, const void* k,
                                     float scale, float scale_log2, int causal,
                                     void* stream) {
   using namespace cubecl;
-  const int rows = tiles_per_block(dtype) * kFlashTile;  // kv rows a block
+  const int rows = tiles_per_block(dtype, D) * kFlashTile;  // kv rows a block
   return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, Hkv, Sq,
                         Skv, D, scale, scale_log2, causal,
                         (Skv + rows - 1) / rows,
@@ -1140,7 +1889,7 @@ extern "C" int cubecl_flash_bwd_dq(const void* q, const void* k,
                                    float scale_log2, int causal,
                                    void* stream) {
   using namespace cubecl;
-  const int rows = tiles_per_block(dtype) * kFlashTile;  // q rows a block
+  const int rows = tiles_per_block(dtype, D) * kFlashTile;  // q rows a block
   return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
                        D, scale, scale_log2, causal, (Sq + rows - 1) / rows,
                        DenseQTiles{Sq, Skv, causal},
@@ -1156,7 +1905,7 @@ extern "C" int cubecl_flash_masked_dkv(
     int Sq, int Skv, int D, float scale, float scale_log2, int causal,
     int kv_len, int left, int right, void* stream) {
   using namespace cubecl;
-  const int rows = tiles_per_block(dtype) * kFlashTile;  // kv rows a block
+  const int rows = tiles_per_block(dtype, D) * kFlashTile;  // kv rows a block
   const MaskedKVTiles tiles{make_mask(B, Sq, Skv, causal, kv_len, left, right,
                                       seg_q, seg_kv, ranges)};
   return launch_dkv_any(q, k, v, dout, lse, di, dk, dv, dtype, B, H, Hkv, Sq,
@@ -1173,7 +1922,7 @@ extern "C" int cubecl_flash_masked_dq(
     int Sq, int Skv, int D, float scale, float scale_log2, int causal,
     int kv_len, int left, int right, void* stream) {
   using namespace cubecl;
-  const int rows = tiles_per_block(dtype) * kFlashTile;  // q rows a block
+  const int rows = tiles_per_block(dtype, D) * kFlashTile;  // q rows a block
   const MaskedQTiles tiles{make_mask(B, Sq, Skv, causal, kv_len, left, right,
                                      seg_q, seg_kv, ranges)};
   return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
@@ -1197,7 +1946,7 @@ extern "C" int cubecl_flash_bsp_dq(const void* q, const void* k,
   const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
   const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
   // a block's kernel tiles lie in one user tile, as in the bf16 forward
-  const int per = tiles_per_block(dtype);
+  const int per = tiles_per_block(dtype, D);
   const int slots = (q_sub + per - 1) / per * per;
   const SparseQTiles tiles{ids, counts, stride, bq, bk, slots, k_sub,
                            causal, /*keep_f9=*/0, 0};
@@ -1223,7 +1972,7 @@ extern "C" int cubecl_flash_bsp_dkv(const void* q, const void* k,
   using namespace cubecl;
   const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
   const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
-  const int per = tiles_per_block(dtype);
+  const int per = tiles_per_block(dtype, D);
   const int slots = (k_sub + per - 1) / per * per;
   const SparseKVTiles tiles{t_ids, t_counts, f_ids, f_counts, t_stride,
                             f_stride, bq, bk, slots, q_sub, causal, 0};

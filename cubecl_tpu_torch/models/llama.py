@@ -28,9 +28,10 @@ functions that take tensors follow their inputs' device.
 
 Prefill and training attention go through the flash function that the
 JAX model picks for the head dim (``ops.attention.flash_for_head_dim``:
-``flash_attention`` at 64 and 128, ``flash_attention_packed`` at 32 with
-heads a multiple of 4, ``flash_attention_padded`` otherwise; hand-written
-CUDA forward, in training also its dK/dV and dQ backward kernels), each
+``flash_attention`` at 64 and multiples of 128 (256: GPT-J-6B's),
+``flash_attention_packed`` at 32 with heads a multiple of 4,
+``flash_attention_padded`` otherwise (up to 256); hand-written CUDA
+forward, in training also its dK/dV and dQ backward kernels), each
 decode step's through ``ops.paged_attention.paged_attention``
 and each chunk's through ``ops.paged_attention.paged_attention_chunked``.
 With ``use_framework_kernels=True`` (the default, as in the JAX package)

@@ -16,9 +16,8 @@ torch as the JAX ``_bwd`` takes it in jnp. Otherwise (serving, no_grad) the
 forward runs alone and writes no lse.
 
 On CUDA tensors every half is a hand-written kernel (f32 or bf16, D in
-{64, 128} and, for the forward alone, 256; anything else raises, and at D
-256 the Function refuses to start a pass whose backward is not built):
-the forward of
+{64, 128, 256}; anything else raises, and the Function refuses to start a
+pass whose backward is not built): the forward of
 ``csrc/flash_attention.cu``, which replaces the TPU kernels A1
 ``_fwd_call``, A2 ``_fwd_call_tri`` and A8 ``_fwd_call_packed``, and the
 dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu``, which replace A3
@@ -62,8 +61,8 @@ launches), behind the JAX package's public functions without
 scale from the real D; D past 256 raises on the card), ``flash_attention_
 segmented``, ``flash_attention_local`` and ``flash_attention_packed``
 (A8: on this card A1's kernel at D 64, a smaller D padded to it; with
-``window``). The last four take any D up to 256 as the padded one does
-(past 128 the forward alone: ROADMAP Queue 2a).
+``window``). The last four take any D up to 256 as the padded one does,
+forward and backward (past 256: ROADMAP Queue 2a).
 All run ``_FlashAttention`` under autograd, the counterpart of the JAX
 ``_flash_seg``, ``_flash_local`` and ``_flash_packed`` custom_vjps; on
 CPU tensors the plain versions with the options as one boolean mask. A
@@ -85,10 +84,11 @@ import torch
 from ..utils import native
 
 LOG2E = math.log2(math.e)
-# the head dims of the backward kernels (A3/A4, A5-A7, A8) and of the
-# forward's (A1) instances: the forward is also built at 256
-KERNEL_HEAD_DIMS = (64, 128)
-FORWARD_HEAD_DIMS = (64, 128, 256)
+# the head dims of the kernels' instances: A1's forward and A3/A4's
+# backward (dense and masked) at 64, 128 and 256; the block-sparse ones
+# (A5-A7) at 64 and 128
+KERNEL_HEAD_DIMS = (64, 128, 256)
+SPARSE_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -266,8 +266,7 @@ def _stream(q):
 def _flash_forward(q, k, v, causal, sm_scale, need_lse):
     """The forward kernel (bf16: the tensor-core body; f32: the CUDA-core
     body): o and, with ``need_lse``, the base-2 lse."""
-    q, k, v = _kernel_inputs("flash_attention", q, k, v,
-                             head_dims=FORWARD_HEAD_DIMS)
+    q, k, v = _kernel_inputs("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -459,8 +458,7 @@ def masked_forward(q, k, v, mask: _Mask, causal, sm_scale, need_lse):
     the forward's bodies on the masked schedule of ``csrc/flash_tiles.cuh``
     (bf16 on the tensor cores, f32 on the CUDA cores); o and, with
     ``need_lse``, the base-2 lse."""
-    q, k, v = _kernel_inputs("flash_attention (options)", q, k, v,
-                             head_dims=FORWARD_HEAD_DIMS)
+    q, k, v = _kernel_inputs("flash_attention (options)", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if need_lse else None
@@ -532,9 +530,7 @@ class _FlashAttention(torch.autograd.Function):
             raise NotImplementedError(
                 f"flash attention's backward (A3/A4) at head dim {D} is not "
                 f"ported to the card (built at {KERNEL_HEAD_DIMS}; ROADMAP "
-                "Queue 2a: A3/A4 at D 256 next); the forward runs there "
-                "without grad (torch.no_grad(), or inputs that do not "
-                "require grad)")
+                "Queue 2a)")
         if q.device.type == "cpu":
             o, lse = flash_attention_plain(q, k, v, causal, sm_scale,
                                            return_lse=True,
@@ -605,9 +601,9 @@ def _padded_attend(q, k, v, causal, scale, mask):
     the JAX ``flash_attention_padded`` pads D in (128, 256] to 256. A D past
     256 runs unpadded on the CPU and raises on the card."""
     D = q.shape[-1]
-    Dp = next((d for d in FORWARD_HEAD_DIMS if D <= d), D)
+    Dp = next((d for d in KERNEL_HEAD_DIMS if D <= d), D)
     if Dp == D:
-        if D > FORWARD_HEAD_DIMS[-1] and q.device.type != "cpu":
+        if D > KERNEL_HEAD_DIMS[-1] and q.device.type != "cpu":
             raise NotImplementedError(
                 f"flash attention at head dim {D} > 256 is not ported to the "
                 "card (ROADMAP Queue 2a)")
@@ -895,7 +891,13 @@ def flash_attention_block_sparse_backward_plain(
 
 def _bsp_inputs(what, q, k, v, *more):
     _bsp_shapes(q, k, v)
-    return _kernel_inputs(what, q, k, v, *more)
+    D = q.shape[-1]
+    if D in KERNEL_HEAD_DIMS and D not in SPARSE_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{what}: block-sparse flash attention (A5-A7) at head dim "
+            f"{D} is not ported to the card (built at "
+            f"{SPARSE_HEAD_DIMS}; ROADMAP Queue 2a)")
+    return _kernel_inputs(what, q, k, v, *more, head_dims=SPARSE_HEAD_DIMS)
 
 
 def bsp_forward(q, k, v, sched: _Schedule, causal, scale, bq, bk,

@@ -11,11 +11,12 @@ once), reads each object's SASS (``cuobjdump -sass``) and compares the
 instructions of every instance on the dense and the block-sparse schedules
 (addresses and encodings dropped; functions keyed by the name after the
 anonymous namespace), then prints the registers and spills that ptxas
-reports for each instance on the masked schedule (the options) and for
-each instance only this checkout holds (the forward's D 256 instances,
-dense and masked, bf16 and f32). Exits 1 where an instance of the parent
-differs or is missing, or where an instance only this checkout holds
-spills or keeps a stack frame; needs nvcc, not a card.
+reports for each instance on the masked schedule (the options), for
+each instance only this checkout holds and for every D 256 instance (the
+forward's and the backward's, dense and masked, bf16 and f32). Exits 1
+where an instance of the parent differs or is missing, or where an
+instance only this checkout holds or a D 256 instance spills or keeps a
+stack frame; needs nvcc, not a card.
 """
 
 import argparse
@@ -107,15 +108,24 @@ def main():
         if "Masked" in n:
             print(f"this, masked: {n}: {regs['this'].get(n)}, "
                   f"{len(tf[n])} instructions")
-    new_spill = 0
-    for n in sorted(set(tf) - set(pf)):
+    def spills(n):
         r = regs["this"].get(n) or ""
-        new_spill += "0 bytes stack frame, 0 bytes spill stores" not in r
-        print(f"this only: {n}: {r}, {len(tf[n])} instructions")
+        return "0 bytes stack frame, 0 bytes spill stores" not in r
+
+    for n in sorted(set(tf) - set(pf)):
+        print(f"this only: {n}: {regs['this'].get(n)}, {len(tf[n])} "
+              "instructions")
+    new_spill = sum(spills(n) for n in set(tf) - set(pf))
+    d256 = sorted(n for n in tf if "Li256E" in n)
+    for n in d256:
+        print(f"this, D 256: {n}: {regs['this'].get(n)}")
+    d256_spill = sum(spills(n) for n in d256)
     print(f"the parent's flash instances: SASS identical in {same} of "
           f"{len(pf)}; {len(set(tf) - set(pf))} only in this checkout, "
-          f"{new_spill} of them with a stack frame or spills")
-    return 0 if pf and same == len(pf) and not new_spill else 1
+          f"{new_spill} of them with a stack frame or spills; {len(d256)} "
+          f"D 256 instances, {d256_spill} with a stack frame or spills")
+    return 0 if pf and same == len(pf) and not new_spill and not d256_spill \
+        else 1
 
 
 if __name__ == "__main__":

@@ -306,7 +306,7 @@ def test_generate_framework_kernels_match_plain(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", FLASH_S)
 def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, S):
@@ -370,7 +370,7 @@ def _bwd_kernels_vs_plain(q, k, v, do, causal):
         and torch.equal(dv, dv2)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("G", [1, 2, 8])
 @pytest.mark.parametrize("S", FLASH_S)
@@ -378,12 +378,12 @@ def test_flash_backward_bf16_kernels_round_as_jax(dev, D, causal, G, S):
     """The tensor-core bodies of A3 and A4 at every FLASH_S and flash's
     GQA groups of 1, 2 and 8 query heads a kv head (any G divides the
     heads the same way; P1's and P3's groups past 8 are the grouped paged
-    tests')."""
+    tests'); D 256 runs the wide bodies (one 64-row tile a block)."""
     _bwd_kernels_vs_plain(*_bwd_bf16_inputs(dev, S * G + D, 8, 8 // G, S,
                                             S, D), causal)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("Sq,Skv", [(40, 72), (100, 37), (130, 300),
                                     (1, 200), (200, 1)])
@@ -2852,18 +2852,20 @@ def _options(g, dev, option, causal, B, Sq, Skv):
 
 
 def _pad_d(t, D):
-    return torch.nn.functional.pad(t, (0, (64 if D <= 64 else 128) - D))
+    Dp = next(d for d in fa.KERNEL_HEAD_DIMS if D <= d)
+    return torch.nn.functional.pad(t, (0, Dp - D))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("option", ["kv_len", "segments", "window", "all",
                                     "f16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_option_kernels_match_plain(dev, dtype, D, option, causal):
     """The masked forward (o, lse), dK/dV and dQ kernels, one launch each
     through the autograd Function (D 32 and 96 padded to 64 and 128 as
-    ``flash_attention_padded`` pads them), against the plain versions with
+    ``flash_attention_padded`` pads them; D 256 the wide and sliced bodies
+    of A3/A4), against the plain versions with
     the same options on the kernel's own o and lse, by ``_close_bwd``; F16's
     rows get o = 0, lse = 0 and pass nothing back; a second call is
     bit-identical."""
@@ -2971,23 +2973,32 @@ def test_flash_option_functions_run_the_kernels(dev, dtype):
 
 
 def test_flash_padded_past_128_raises(dev):
-    """Past 128 the forward alone is built (padded to 256): a pass under
-    grad raises at the forward (ROADMAP Queue 2a, A3/A4 at D 256); past
-    256 nothing is built."""
+    """Past 128 both halves are built (padded to 256): a pass under grad
+    at D 160 runs A1, A3 and A4 once each; past 256 nothing is built, and
+    a pass with or without grad raises before any launch (ROADMAP Queue
+    2a)."""
     q = torch.zeros(1, 2, 64, 160, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention_padded(q, q, q)
-    q = torch.zeros(1, 2, 64, 288, device=dev)
-    with pytest.raises(NotImplementedError, match="256"):
-        fa.flash_attention_padded(q, q, q)
+    n = (flash_attention.launches, fa.flash_bwd_dkv.launches,
+         fa.flash_bwd_dq.launches)
+    fa.flash_attention_padded(q, q, q).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    for grad in (False, True):
+        q = torch.zeros(1, 2, 64, 288, device=dev, requires_grad=grad)
+        with pytest.raises(NotImplementedError, match="Queue 2a"):
+            fa.flash_attention_padded(q, q, q)
+    assert flash_attention.launches == n[0] + 1
 
 
-@pytest.mark.parametrize("hd,heads", [(96, 2), (32, 4)])
+@pytest.mark.parametrize("hd,heads", [(96, 2), (32, 4), (256, 2)])
 def test_train_step_at_other_head_dims_matches_plain(dev, hd, heads):
-    """A llama SGD step, f32, at head dim 96 (the padded route) and 32 (the
-    packed route), with the kernels and with the plain versions: loss,
-    gradients and weights, as test_train_step_kernels_match_plain; the
-    dense kernels ran once a layer each way."""
+    """A llama SGD step, f32, at head dim 96 (the padded route), 32 (the
+    packed route) and 256 (the exact route: A3/A4's sliced bodies), with
+    the kernels and with the plain versions: loss, gradients and weights,
+    as test_train_step_kernels_match_plain; the dense kernels ran once a
+    layer each way."""
     cfg = llama.LlamaConfig(vocab=128, d_model=hd * heads, n_heads=heads,
                             n_kv_heads=heads // 2, n_layers=2, d_ff=256,
                             seq=129)
@@ -3071,14 +3082,55 @@ def test_flash_d256_options_match_plain(dev, dtype, option):
     _close(got, flash_attention_plain(q, k, v, True, **opts))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dq", [192, 160])
+def test_flash_d256_padded_grads_match_plain(dev, dtype, Dq):
+    """flash_attention_padded under grad from D 192 and 160: padded to 256
+    for A1, A3 and A4 (one dense launch each), the grads sliced back to Dq
+    through autograd, held by ``_close_bwd`` against the plain backwards
+    at the real D on the kernel's own o and lse."""
+    g = torch.Generator(device=dev).manual_seed(Dq)
+    q, do = (torch.randn(2, 8, 300, Dq, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, 300, Dq, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (flash_attention.launches, fa.flash_bwd_dkv.launches,
+         fa.flash_bwd_dq.launches)
+    out = fa.flash_attention_padded(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    scale = Dq ** -0.5
+    o, lse = fa._flash_forward(*(_pad_d(t, Dq) for t in (q, k, v)), True,
+                               scale, True)
+    o = o[..., :Dq]
+    assert torch.equal(o, out.detach())
+    rounded, exact = (fa.flash_attention_backward_plain(
+        q, k, v, o, lse, do, True, scale, round_p_ds=rnd)
+        for rnd in (True, False))
+    for t, r, e in zip(leaves, rounded, exact):
+        assert t.grad.shape == t.shape
+        _close_bwd(t.grad, r, e)
+
+
 def test_flash_d256_refuses_grad_at_the_forward(dev):
-    """Under grad the Function refuses D 256 at the forward (the backward
-    kernels are built at 64 and 128), before any launch."""
-    q = torch.zeros(1, 2, 64, 256, device=dev, requires_grad=True)
-    n = flash_attention.launches
+    """Under grad at D 256 the Function no longer refuses: a pass launches
+    A1, A3 and A4 once each (the backward's D 256 instances). The refusal
+    at the forward moved past 256 (D 384), before any launch."""
+    q = torch.randn(1, 2, 64, 256, device=dev, requires_grad=True)
+    n = (flash_attention.launches, fa.flash_bwd_dkv.launches,
+         fa.flash_bwd_dq.launches)
+    flash_attention(q, q, q).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert torch.isfinite(q.grad).all()
+    q = torch.zeros(1, 2, 64, 384, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="Queue 2a"):
         flash_attention(q, q, q)
-    assert flash_attention.launches == n
+    assert flash_attention.launches == n[0] + 1
 
 
 # P1 at D 256: (B, Hkv, G, page, max_pages, lengths, window, sinks):

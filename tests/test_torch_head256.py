@@ -2,7 +2,8 @@
 cubecl_tpu: A1's forward (``flash_attention`` with its lse, the padded
 route from D 192, the masked options), P1 in every mode on f32, bf16 and
 int8 pools at 1, 8 and 12 query heads a kv head, P3, both launch plans at
-D 256, the refusal of a training pass whose backward is not built, and
+D 256, the refusal of a training pass past 256 (training at 256 is
+tests/test_torch_train256.py's), and
 the llama at head dim 256 served through ``prefill``, ``decode_step``,
 ``decode_chunk``, ``prefill_chunked`` and greedy ``generate``.
 
@@ -125,24 +126,28 @@ def test_flash_options_match_jax_kernel(option):
 
 def test_flash_routes_head_dim_256_to_the_exact_kernel():
     """The models' flash function at D 256 is flash_attention, whose
-    forward has a D 256 instance (the backward's head dims stay 64, 128)."""
+    forward and backward have D 256 instances (the block-sparse ones stay
+    at 64, 128)."""
     assert fa.flash_for_head_dim(D, 16) is fa.flash_attention
-    assert fa.FORWARD_HEAD_DIMS == (64, 128, 256)
-    assert fa.KERNEL_HEAD_DIMS == (64, 128)
+    assert fa.KERNEL_HEAD_DIMS == (64, 128, 256)
+    assert fa.SPARSE_HEAD_DIMS == (64, 128)
 
 
 @pytest.mark.parametrize("Dq", [160, 256])
 def test_flash_refuses_a_training_pass_off_the_cpu(Dq):
-    """Off the CPU (meta tensors stand in for the card's) the Function
-    refuses a pass at D past 128 under grad at the forward, naming ROADMAP
-    Queue 2a, rather than in the backward's launch; the CPU trains on the
-    plain versions, with gradients."""
-    q = torch.zeros(1, 2, 64, Dq, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 2a"):
-        fa.flash_attention_padded(q, q, q)
-    x = torch.from_numpy(_qkv(3, 1, 2, 2, 64, Dq)[0]).requires_grad_()
-    fa.flash_attention_padded(x, x, x).sum().backward()
-    assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
+    """Off the CPU (meta tensors stand in for the card's) a pass under
+    grad is refused only past 256, naming ROADMAP Queue 2a: at Dq (padded
+    to 256, or 256) it goes on to the kernels, which want a CUDA tensor;
+    at Dq + 256 it is refused before any launch. The CPU trains on the
+    plain versions at both, with gradients."""
+    for d, err, match in ((Dq, ValueError, "CUDA"),
+                          (Dq + 256, NotImplementedError, "Queue 2a")):
+        q = torch.zeros(1, 2, 64, d, device="meta", requires_grad=True)
+        with pytest.raises(err, match=match):
+            fa.flash_attention_padded(q, q, q)
+        x = torch.from_numpy(_qkv(3, 1, 2, 2, 64, d)[0]).requires_grad_()
+        fa.flash_attention_padded(x, x, x).sum().backward()
+        assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
 
 
 def test_flash_past_256_stays_unported():
