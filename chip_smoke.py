@@ -190,7 +190,16 @@ and alone against both plain backwards, each timed (cold L2) beside the
 same call at D 128, SDPA's backward and the bound; ze2 the llama at
 GPT-J-6B's widths trained at full depth (28 layers, bf16, B 4 x S 1024,
 then a ragged S 1000), A1, A3, A4 and K0's RMSNorm counted from 0; ze3
-its f32 exactness at 2 layers. In zb2, zc2 and zd2 speculative
+its f32 exactness at 2 layers. Then head dims 80 and 32 (phase zf): zf1
+P1 in every mode on bf16, int8 and f32 pools (Phi-2's decode, B 8 x 32
+kv heads of 80; H2O-Danube's G 4 at context 4096; D 32 at B 8 x 16
+heads; G 12 on one kv head, G 4 ragged on pages of 7, pages of 1) and
+P3 (the verify step, chunked prefill from 0 and 768, a G 4 verify step,
+a ragged batch on pages of 7) at both head dims against plain, each
+timed (cold L2) beside the same call at D 96 (for 80) or D 64 (for 32);
+zf2 the llama at Phi-2's widths (32 layers, bf16) and zf3 at
+Pythia-31M's (6 layers) served through zd2's paths; zf4 the f32
+exactness of both at 2 layers. In zb2, zc2, zd2, zf2 and zf3 speculative
 decoding's tokens and the self-draft's rejections are held to twice the
 verify step's measured logit difference from the decode steps (the
 derivation is ``serve_at_widths``'). Each kernel's
@@ -473,11 +482,11 @@ B_LAYOUTS = ("(K, N)", "(N, K)")
 
 def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
     """Phase 2: C1's bf16 and f32 (3xTF32) bodies, E1's bf16 body, P3's
-    bf16 body (D 64, 96, 128 and 256, bf16 and int8 pools) and every 8-, 16-bit
-    and f32 GEMM instance in the SASS: (name, wgmma count, registers, spill
-    line) each. Fails unless each issues HGMMA (each 8-bit GEMM instance
-    its GEMM8_SASS instruction), C1 f32 and P3 spill nothing (where a
-    fresh build's ptxas log reports them), and the
+    bf16 body (D 32, 64, 80, 96, 128 and 256, bf16 and int8 pools) and
+    every 8-, 16-bit and f32 GEMM instance in the SASS: (name, wgmma
+    count, registers, spill line) each. Fails unless each issues HGMMA
+    (each 8-bit GEMM instance its GEMM8_SASS instruction), C1 f32 and P3
+    spill nothing (where a fresh build's ptxas log reports them), and the
     instances are exactly ``tiles8`` (ops/matmul.py's ``kernel_tiles(1)``)
     for each of the three 8-bit types, ``tiles16`` (``kernel_tiles(2)``)
     for bf16 and f16 in both B layouts and ``tiles32``
@@ -527,7 +536,8 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
         (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
         for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
         | {"conv3x3", "conv3x3 f32", "expert"} \
-        | {("p3", d, q) for d in (64, 96, 128, 256) for q in (False, True)}
+        | {("p3", d, q) for d in (32, 64, 80, 96, 128, 256)
+           for q in (False, True)}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -5209,7 +5219,7 @@ ZB2_PATHS = ("beam", "small draft", "window", "ring")
 
 
 def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
-                    layers=None, paths=ZB2_PATHS):
+                    layers=None, paths=ZB2_PATHS, exact_phase=None):
     """The llama at a model's ``widths`` (``layers`` of them, or its own
     depth) served in bf16 through its entry points, each path's P1 and P3
     launches (P1's row groups past 8 query heads a kv head among them)
@@ -5220,7 +5230,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     draft": PHI3_DRAFT; tokens equal to greedy up to the first near tie,
     as phase k), an int8 cache, and of ``paths`` ``beam_generate``,
     windowed (PHI3_STREAM) and ring (PHI3_RING) decode. Phase zb2 at
-    Phi-3-mini's widths, zc2 at Mistral-Large-2's, zd2 at GPT-J-6B's.
+    Phi-3-mini's widths, zc2 at Mistral-Large-2's, zd2 at GPT-J-6B's,
+    zf2 and zf3 at Phi-2's and Pythia-31M's.
 
     Speculative decoding's tokens and a self-draft's rejections are held
     to twice the verify step's measured difference from the decode steps
@@ -5232,7 +5243,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     difference is the two paths' rounding: GEMMs of other heights and bf16
     activations (most of it, with or without the kernels), P3's and P1's.
     It does not catch a P3 fault, which widens it: the f32 exactness
-    phases (zb3, zc3, zd3) hold P3 to the plain route within LOGIT_TOL."""
+    phases (zb3, zc3, zd3, zf4: ``exact_phase``, by default the phase's
+    third) hold P3 to the plain route within LOGIT_TOL."""
     cfg = llama.LlamaConfig(**dict(widths, n_layers=layers
                                    or widths["n_layers"]),
                             seq=t["S"], dtype="bfloat16",
@@ -5327,12 +5339,14 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
         fail(f"phase {phase} prefill_chunked: non-finite logits")
     d_chunk = (l_chunk.float() - want_logits[:, 0]).abs().max().item()
     del c1
+    pad = "" if cfg.head_dim in fa.KERNEL_HEAD_DIMS else ", padded to " + \
+        str(min(d for d in fa.KERNEL_HEAD_DIMS if d > cfg.head_dim))
     print(f"phase {phase} prefill_chunked {tag}: {B} x {S} in chunks of "
           f"{t['chunk']}, {chunk_s:.4f} s ({B * S / chunk_s:.0f} prompt "
-          f"tok/s); last logits against the one-shot prefill's (A1"
-          f"{'' if cfg.head_dim in (64, 128, 256) else ', padded to 128'}): max "
-          f"abs diff {d_chunk:.4f} (bf16 rounding through {L} layers; "
-          f"exactness is phase {phase[:-1]}3's); launches {n_chunk} "
+          f"tok/s); last logits against the one-shot prefill's (A1{pad}): "
+          f"max abs diff {d_chunk:.4f} (bf16 rounding through {L} layers; "
+          f"exactness is phase {exact_phase or phase[:-1] + '3'}'s); "
+          f"launches {n_chunk} "
           f"[{card}]",
           flush=True)
     out["prefill_chunked"] = dict(s=chunk_s, logit_diff=d_chunk,
@@ -6174,6 +6188,130 @@ def train_d256(llama, fa, cu, dev, gen, card):
     return out
 
 
+
+# -- phase zf: serving at head dims 80 and 32 (P1 and P3; Phi-2, Pythia-31M)
+
+D80, D32 = 80, 32
+# Phi-2's widths (its config.json on the Hugging Face hub, microsoft/phi-2:
+# hidden_size 2560, 32 heads of 80 with no GQA, 32 layers,
+# intermediate_size 10240, vocab_size 51200, rope_theta 10000,
+# layer_norm_eps 1e-5) through the llama's block, which differs from
+# Phi-2's in RMSNorm for LayerNorm, SwiGLU over three 10240-wide matrices
+# for a GELU MLP over two, full RoPE for partial_rotary_factor 0.4, a
+# sequential residual for the parallel one and the output head tied to
+# the embedding: 3.49B parameters, 6.97 GB in bf16, at full depth
+PHI_2 = dict(vocab=51200, d_model=2560, n_heads=32, n_kv_heads=32,
+             n_layers=32, d_ff=10240, rope_theta=10000.0, rms_eps=1e-5)
+# H2O-Danube-1.8B (h2oai/h2o-danube-1.8b-base's config.json: 32 query heads
+# on 8 kv heads of 80, G 4): the kernel cases' grouped layout at D 80
+DANUBE_H, DANUBE_HKV = 32, 8
+# Pythia-31M's widths (EleutherAI/pythia-31m's config.json: hidden_size
+# 256, 8 heads of 32, 6 layers, intermediate_size 1024, vocab_size 50304,
+# rotary_emb_base 10000, layer_norm_eps 1e-5) through the llama's block
+# likewise (GPT-NeoX's LayerNorm, GELU MLP, rotary_pct 0.25 and parallel
+# residual not kept): 8 heads prefill through flash_attention_packed (A8,
+# D 32 padded to 64), as the JAX model routes them
+PYTHIA_31M = dict(vocab=50304, d_model=256, n_heads=8, n_kv_heads=8,
+                  n_layers=6, d_ff=1024, rope_theta=10000.0, rms_eps=1e-5)
+# zf1, P1 at D 80 and 32 (J_CASES' columns): Phi-2's serving decode (B 8 x
+# 32 kv heads of one query head, context 1056) and Danube's (B 8 x 8 kv
+# heads of 4, context 4096) at D 80; at D 32 PACKED32's widths (B 8 x 16
+# heads, context 2048: Pythia-31M's own decode does not load the card);
+# at both G 12 on one kv head (the grouped kernel), G 4 ragged with a
+# length-0 row on pages of 7, and pages of 1; each layout in full, window +
+# sinks and ring mode on bf16, int8 and f32 pools (a ring row's length:
+# its length plus half the table's capacity, a length 0 stays 0)
+ZF_LAYOUTS = {
+    D80: [("phi-2 serve", 8, 4, 32, 1, 128, 9, [1056] * 8, (512, 4)),
+          ("danube G4 ctx4096", 8, 4, DANUBE_HKV, DANUBE_H // DANUBE_HKV,
+           128, 33, [4096] * 8, (2000, 4))],
+    D32: [("B8 H16 ctx2048", 8, 4, PACKED32["Hkv"], 1, 128, 16,
+           [2048] * 8, (1024, 4))]}
+ZF_P1 = {D: [
+    (f"{name} {kind} {mode}", B, L, Hkv, G, D, page, mp,
+     [n + page * mp // 2 if n and mode == "ring" else n for n in lens],
+     kind, mode, *(opts if mode != "full" else (0, 0)))
+    for name, B, L, Hkv, G, page, mp, lens, opts in ZF_LAYOUTS[D] + [
+        ("G12 grouped", 4, 2, 1, 12, 128, 16, [2048] * 4, (1024, 4)),
+        ("G4 page7 ragged", 5, 2, 2, 4, 7, 40, [0, 7, 70, 129, 280],
+         (50, 9)),
+        ("G2 page1", 3, 2, 4, 2, 1, 300, [0, 150, 300], (64, 3))]
+    for kind in KV_KINDS for mode in ("full", "window", "ring")]
+    for D in (D80, D32)}
+# zf1, P3 at D 80 and 32 (CHUNKED_CASES' columns): the verify step (C 5)
+# and chunked prefill (C 256) from 0 and from 768 on Phi-2's layout (32 kv
+# heads of one query head), Danube's G 4 verify step at context 4096, a
+# ragged G 4 batch on pages of 7 with a length-0 row; each on bf16, int8
+# and f32 pools
+ZF_P3 = {D: [
+    (f"{name} {kind}", B, L, Hkv, G, C, D, page, mp, starts, lens,
+     KV_KINDS[kind][0], kind == "int8")
+    for name, B, L, Hkv, G, C, page, mp, starts, lens in [
+        ("phi-2 verify", 8, 4, 32, 1, 5, 128, 9, [1051] * 8, None),
+        ("phi-2 prefill start 0", 8, 4, 32, 1, 256, 128, 9, [0] * 8, None),
+        ("phi-2 prefill start 768", 8, 4, 32, 1, 256, 128, 9, [768] * 8,
+         None),
+        ("danube G4 verify", 8, 4, DANUBE_HKV, DANUBE_H // DANUBE_HKV, 5,
+         128, 33, [4091] * 8, None),
+        ("ragged G4 page7", 4, 2, 2, 4, 16, 7, 40, [0, 1, 127, 200],
+         [0, 17, 143, 216])]
+    for kind in KV_KINDS]
+    for D in (D80, D32)}
+# the instance each D is timed beside (cold L2, the same call): the
+# nearest built head dim
+ZF_BESIDE = {D80: 96, D32: 64}
+
+
+def serve_d80_d32(llama, pa, fa, dev, gen, card):
+    """Phase zf: serving at head dims 80 and 32 on the card. zf1 P1 in
+    every mode on every pool, the grouped kernel among them (ZF_P1), and
+    P3 (ZF_P3) against their plain versions at both head dims, each timed
+    (cold L2) beside the same call at the nearest built D (ZF_BESIDE); zf2
+    the llama at Phi-2's widths at full depth (32 layers, bf16) and zf3 at
+    Pythia-31M's (6 layers) served through ``generate``,
+    ``prefill_chunked``, a verify ``decode_chunk``, ``speculative_generate``
+    with a self-draft, ``beam_generate``, an int8 cache, windowed and ring
+    decode (``serve_at_widths``); zf4 the f32 exactness of both with 2
+    layers (``exactness_at_widths``)."""
+    t0 = time.perf_counter()
+    out = {}
+    # a head dim with no instance is refused on the card before any
+    # launch, naming ROADMAP Queue 2a
+    for D in (48, 288):
+        q = torch.zeros(2, 4, D, device=dev, dtype=torch.bfloat16)
+        kp = torch.zeros(1, 2, 4, 16, D, device=dev, dtype=torch.bfloat16)
+        table = torch.arange(4, device=dev, dtype=torch.int32).view(2, 2)
+        ln = torch.tensor([3, 20], device=dev, dtype=torch.int32)
+        for what, call in (
+                ("P1", lambda: pa.paged_attention(q, kp, kp, table, ln)),
+                ("P3", lambda: pa.paged_attention_chunked(
+                    q[:, :, None], kp, kp, table, ln, ln - 1))):
+            try:
+                call()
+                fail(f"phase zf1: {what} at D {D} did not raise")
+            except ValueError as e:
+                if "Queue 2a" not in str(e):
+                    fail(f"phase zf1: {what} at D {D} raised {e}")
+    print(f"phase zf1: P1 and P3 refuse D 48 and 288 on the card, naming "
+          f"ROADMAP Queue 2a [{card}]", flush=True)
+    for D in (D80, D32):
+        out[f"p1 d{D}"] = p1_vs_plain(pa, dev, gen, card, "zf1", ZF_P1[D],
+                                      beside=ZF_BESIDE[D])
+        out[f"p3 d{D}"] = chunked_vs_plain(pa, dev, gen, card, "zf1",
+                                           ZF_P3[D], beside=ZF_BESIDE[D])
+    out["phi-2"] = serve_at_widths(llama, pa, fa, dev, card, "zf2", PHI_2,
+                                   ZD_SERVE, "Phi-2", paths=ZD2_PATHS,
+                                   exact_phase="zf4")
+    out["pythia-31m"] = serve_at_widths(llama, pa, fa, dev, card, "zf3",
+                                        PYTHIA_31M, ZD_SERVE, "Pythia-31M",
+                                        paths=ZD2_PATHS, exact_phase="zf4")
+    out["exact"] = {name: exactness_at_widths(
+        llama, pa, fa, dev, card, "zf4", widths, PHI3_EXACT, name)
+        for name, widths in (("Phi-2", PHI_2), ("Pythia-31M", PYTHIA_31M))}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase zf took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6551,6 +6689,9 @@ def main():
 
     # -- phase ze: training at head dim 256 (A3/A4; GPT-J-6B) ---------------
     ze = train_d256(llama, fa, cu, dev, gen, card)
+
+    # -- phase zf: head dims 80 and 32 (P1, P3; Phi-2, Pythia-31M) ----------
+    zf = serve_d80_d32(llama, pa, fa, dev, gen, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
@@ -7196,6 +7337,63 @@ def main():
                           "64-row q tile a block; each warpgroup 128 of dQ's "
                           "columns, s and dP computed by both)",
                   "f32": "flash_bwd_dq_sliced_kernel<float, 256, Tiles>"}))),
+        *(zb_row(f"paged_attention_d{D}",
+                 "cubecl_tpu_torch/csrc/paged_attention.cu",
+                 "cubecl_tpu/ops/paged_attention.py:247",
+                 zf[model]["generate"]["launches"]["paged_attention"],
+                 main, zf[f"p1 d{D}"], None,
+                 keys=("cold_ms", f"d{ZF_BESIDE[D]}_cold_ms", "splits"),
+                 shape=shape + " (ms: back to back, each launch on the next "
+                 f"layer; d{ZF_BESIDE[D]}_cold_ms: the same call at D "
+                 f"{ZF_BESIDE[D]})",
+                 kernel_symbols=f"paged_decode_kernel<T, TK, {D}> (window: "
+                                "paged_window_kernel, ring: "
+                                "paged_ring_kernel, past 8 rows a kv head: "
+                                "paged_grouped_kernel), then "
+                                f"paged_combine_kernel<T, {D}> where split",
+                 launches_path=f"phase {phase}: generate, 8 x 1024 + 32 "
+                               f"steps, {layers} layers ({name}'s widths)",
+                 int8_launches=zf[model]["int8"]["launches"][
+                     "paged_attention_int8"],
+                 window_launches=zf[model]["window"]["launches"][
+                     "paged_attention_window"],
+                 ring_launches=zf[model]["ring"]["launches"][
+                     "paged_attention_ring"],
+                 **{f"{model.replace('-', '_')}_serve": zf[model],
+                    "exactness_f32": zf["exact"][name]},
+                 **({"phase_seconds": zf["seconds"]} if D == D80 else {}))
+          for D, model, name, phase, layers, main, shape in (
+              (D80, "phi-2", "Phi-2", "zf2", 32, "phi-2 serve bf16 full",
+               "bf16 B8 Hkv32 G1 D80 context 1056 (Phi-2), 4-layer pool"),
+              (D32, "pythia-31m", "Pythia-31M", "zf3", 6,
+               "B8 H16 ctx2048 bf16 full",
+               "bf16 B8 Hkv16 G1 D32 context 2048, 4-layer pool"))),
+        *(zb_row(f"paged_attention_chunked_d{D}",
+                 "cubecl_tpu_torch/csrc/paged_chunked.cu",
+                 "cubecl_tpu/ops/paged_attention.py:675",
+                 zf[model]["prefill_chunked"]["launches"][
+                     "paged_attention_chunked"]
+                 + zf[model]["verify"]["launches"]["paged_attention_chunked"]
+                 + sum(v["launches"]["paged_attention_chunked"]
+                       for v in zf[model]["speculative"].values()),
+                 "phi-2 verify bf16", zf[f"p3 d{D}"], None,
+                 keys=("cold_ms", f"d{ZF_BESIDE[D]}_cold_ms", "splits"),
+                 shape=f"verify: bf16 B8 Hkv32 G1 C5 D{D} context 1056 "
+                       f"(Phi-2's layout); d{ZF_BESIDE[D]}_cold_ms: the "
+                       f"same call at D {ZF_BESIDE[D]}",
+                 kernel_symbols={
+                     "bf16": f"paged_chunked_wgmma_kernel<{D}, QUANT> "
+                             f"(D {128 if D == D80 else 64}'s 128-byte "
+                             "panels, the columns past D unused), "
+                             f"then paged_combine_kernel<bf16, {D}> where "
+                             "split",
+                     "f32": f"paged_chunked_kernel<float, TK, {D}>"},
+                 launches_path=f"phase {phase}: prefill_chunked, the verify "
+                               "step and speculative decoding's verify "
+                               f"rounds ({name}'s widths)")
+          for D, model, name, phase in (
+              (D80, "phi-2", "Phi-2", "zf2"),
+              (D32, "pythia-31m", "Pythia-31M", "zf3"))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -72,6 +72,21 @@
 //   (P1MinBlocks; int8 pools, whose 108,032 bytes would hold two, for the
 //   registers of 8 columns a lane and query row), and the splits fill the
 //   card once at one block an SM (p1_per_sm).
+// - D 80 (Phi-2's and H2O-Danube's head dim; pools unpadded, as at D 96):
+//   a row is 10 chunks (bf16), 20 (f32) or 5 (int8), so the quarters hold
+//   3-3-2-2 chunks (bf16), 5 each (f32) or 2-1-1-1 (int8), the `j < RC`
+//   guard of D 96's int8 rows skipping the missing ones. The XOR swizzle
+//   would send chunks 8 and 9 past a 10-chunk row, so D 80 has slots of
+//   its own (Slots80): f32 rows (320 bytes) as they are, an odd row
+//   starting 4 chunks over already; bf16 rows (160 bytes) rotate odd rows
+//   by 2 chunks, int8 rows (80 bytes) even rows by 1, which gives each
+//   8-lane phase of a 16-byte load its 8 bank groups. For P V a lane owns
+//   columns lane, lane + 32 and, in lanes 0..15, lane + 64, as at D 96.
+//   f32 pools (125,440 bytes: one block an SM) take P1MinBlocks' one, as
+//   at D 96.
+// - D 32 (Pythia-31M's head dim): rows of 4 chunks (bf16), 8 (f32,
+//   swizzled as at D 128) or 2 (int8: quarters 2 and 3 hold none); for P
+//   V a lane owns one column (one 4-, 2- or 1-byte read a row).
 // - Past 8 query heads a kv head (Mistral-Large-2's 12, MiniMax's 16,
 //   Falcon-7B's multi-query 71; paged_grouped_kernel): a block holds at
 //   most MAXG = 8 query rows (q in shared memory, m, l and acc in
@@ -223,6 +238,35 @@ struct WindowTiles {
   }
 };
 
+// D 80's slots (see the header): the 16-byte slot of chunk j of a row,
+// from the row's shift: j (f32: shift 0), or (j + shift) % chunks (bf16:
+// 2 on odd rows, 0 on even; int8: 1 on even rows, 0 on odd)
+template <typename TK>
+struct Slots80 {
+  static constexpr int kRow = 80 * (int)sizeof(TK);
+  static constexpr int kChunks = kRow / 16;
+  __device__ __forceinline__ static int shift(int row) {
+    if constexpr (kChunks == 10) return (row & 1) ? 2 : 0;
+    else if constexpr (kChunks == 5) return (row & 1) ? 0 : 1;
+    else return 0;
+  }
+  __device__ __forceinline__ static int slot(int j, int shift) {
+    return j + shift < kChunks ? j + shift : j + shift - kChunks;
+  }
+  // P V: the element at column d of a row that starts at `row`
+  __device__ __forceinline__ static float at(const uint8_t* row, int shift,
+                                             int d) {
+    const int byte = d * (int)sizeof(TK);
+    const TK x = *reinterpret_cast<const TK*>(
+        row + slot(byte / 16, shift) * 16 + byte % 16);
+    if constexpr (std::is_same<TK, int8_t>::value) {
+      return static_cast<float>(x);
+    } else {
+      return to_float(x);
+    }
+  }
+};
+
 // D 96's slots: the 16-byte slot of chunk j of a row, from the row's
 // shift (`shift`): j ^ shift where a row is a multiple of 128 bytes (f32),
 // j (bf16: shift 0), or (j + shift) % 6 (int8: 2 on even rows, 0 on odd)
@@ -291,14 +335,20 @@ __device__ __forceinline__ void paged_decode_body(
   constexpr bool QUANT = L::kQuant;
   constexpr int EPC = Chunk<TK>::N;    // elements per 16-byte chunk
   constexpr bool D96 = D == 96;        // the slots and columns of Slots96
+  constexpr bool D80 = D == 80;        // ... of Slots80
   using S96 = Slots96<TK>;
-  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
-                "P1 is built for D 64, 96, 128 and 256");
+  using S80 = Slots80<TK>;
+  // P V's columns lane + 32 e of the rotated rows (D 80 and 96)
+  using SX = typename std::conditional<D80, S80, S96>::type;
+  static_assert(D == 32 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "P1 is built for D 32, 64, 80, 96, 128 and 256");
   constexpr int NS = L::kStages;       // stages of a warp's ring
   constexpr int RC = L::kRow / 16;     // chunks per row
   constexpr int CPT = (RC + 3) / 4;    // chunks per lane: a quarter row
   constexpr int SWZ = RC >= 8 ? 4 : 0;  // odd rows: chunk j at j ^ SWZ
-  constexpr int CW = D / 32;           // P V: output columns per lane
+  // P V: output columns per lane (D 80: the third in lanes 0..15 only)
+  constexpr int CW = D80 ? 3 : D / 32;
   static_assert(CPT >= 1, "a quarter row must hold one 16-byte chunk");
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem);
@@ -370,7 +420,9 @@ __device__ __forceinline__ void paged_decode_body(
   const int* tab = table + (int64_t)b * max_pages;
 
   const int p = lane / 4, quarter = lane % 4;  // score phase
-  const int swz = D96 ? S96::shift(p) : (p & 1) * SWZ;
+  const int swz = D96   ? S96::shift(p)
+                  : D80 ? S80::shift(p)
+                        : (p & 1) * SWZ;
   uint8_t* ring = smem + L::kRing + warp * NS * L::kStage;
   const uint32_t ring_s = smem_addr(ring);
 
@@ -400,7 +452,9 @@ __device__ __forceinline__ void paged_decode_body(
     for (int c = 0; c < CPT; ++c) {
       const int j = c * 4 + quarter;
       if (RC % 4 == 0 || j < RC) {  // int8 D 96: quarters 2, 3 hold one
-        const int at = D96 ? S96::slot(j, swz) : (j ^ swz);
+        const int at = D96   ? S96::slot(j, swz)
+                       : D80 ? S80::slot(j, swz)
+                             : (j ^ swz);
         cp_async16_zfill(kd + at * 16, kpool + row * D + j * EPC, ok);
         cp_async16_zfill(kd + WR * L::kRow + at * 16,
                          vpool + row * D + j * EPC, ok);
@@ -464,7 +518,9 @@ __device__ __forceinline__ void paged_decode_body(
       const int j = c * 4 + quarter;
       if (RC % 4 == 0 || j < RC) {
         float kx[EPC];
-        Chunk<TK>::load(krow + (D96 ? S96::slot(j, swz) : (j ^ swz)) * EPC,
+        Chunk<TK>::load(krow + (D96   ? S96::slot(j, swz)
+                                : D80 ? S80::slot(j, swz)
+                                      : (j ^ swz)) * EPC,
                         kx);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g)
@@ -529,15 +585,17 @@ __device__ __forceinline__ void paged_decode_body(
 
     // O += P V over the warp's 8 positions: lane owns columns lane * CW..
     const uint8_t* vrows = stage + WR * L::kRow;
-    if constexpr (D96) {
-      // columns lane, lane + 32, lane + 64
+    if constexpr (D96 || D80) {
+      // columns lane, lane + 32, lane + 64 (D 80: lanes 0..15 only)
 #pragma unroll
       for (int r = 0; r < WR; ++r) {
-        const int sh = S96::shift(r);
+        const int sh = SX::shift(r);
         float v[CW];
 #pragma unroll
         for (int e = 0; e < CW; ++e)
-          v[e] = S96::at(vrows + r * L::kRow, sh, e * 32 + lane);
+          v[e] = !D80 || e < 2 || lane < 16
+                     ? SX::at(vrows + r * L::kRow, sh, e * 32 + lane)
+                     : 0.f;
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g < G) {
@@ -571,6 +629,13 @@ __device__ __forceinline__ void paged_decode_body(
           }
         } else if constexpr (CW == 4) {
           load4(reinterpret_cast<const TK*>(vp), v);
+        } else if constexpr (CW == 1) {
+          // D 32: one column, 4, 2 or 1 bytes
+          if constexpr (std::is_same<TK, int8_t>::value) {
+            v[0] = static_cast<float>(*reinterpret_cast<const int8_t*>(vp));
+          } else {
+            v[0] = to_float(*reinterpret_cast<const TK*>(vp));
+          }
         } else if constexpr (std::is_same<TK, float>::value) {
           const float2 f = *reinterpret_cast<const float2*>(vp);
           v[0] = f.x;
@@ -608,7 +673,8 @@ __device__ __forceinline__ void paged_decode_body(
       float* cw = comb + (warp * MAXG + g) * (D + 2);
 #pragma unroll
       for (int e = 0; e < CW; ++e)
-        cw[D96 ? e * 32 + lane : lane * CW + e] = acc[g][e];
+        if (!D80 || e < 2 || lane < 16)
+          cw[D96 || D80 ? e * 32 + lane : lane * CW + e] = acc[g][e];
       if (lane == 0) {
         cw[D] = m[g];
         cw[D + 1] = l[g];
@@ -651,16 +717,22 @@ __device__ __forceinline__ void paged_decode_body(
   }
 }
 
-// the launch bounds' least blocks an SM: f32 pools at D 96 (q and the
-// rings: 147 KB of shared memory) hold one block an SM, so ptxas may give
+// the launch bounds' least blocks an SM: f32 pools at D 80 and 96 (q and
+// the rings: 123 and 147 KB of shared memory) hold one block an SM, so
+// ptxas may give
 // their kernels the SM's registers (at its default of 128 they spilled);
 // so does every pool at D 256 (bf16 and f32 by shared memory; int8, whose
 // 108 KB would hold two, for the registers of 8 columns a lane and query
-// row); every other instance keeps the bounds it was built with (0: none)
+// row); f32 pools at D 32 ask for two, the blocks that the splits count
+// on (without bounds ptxas held their plain decode to 80 registers and
+// spilled); every other instance keeps the bounds it was built with (0:
+// none)
 template <typename TK, int D>
 struct P1MinBlocks {
   static constexpr int value =
-      (D == 96 && sizeof(TK) == 4) || D == 256 ? 1 : 0;
+      ((D == 80 || D == 96) && sizeof(TK) == 4) || D == 256 ? 1
+      : D == 32 && sizeof(TK) == 4                          ? 2
+                                                            : 0;
 };
 
 // the grouped kernels' least blocks an SM, so that ptxas budgets the
@@ -681,7 +753,7 @@ struct P1GroupedMinBlocks {
 // (P1MinBlocks), else two where shared memory holds two, else one
 template <typename TK, int D>
 inline int p1_per_sm(int smem) {
-  return P1MinBlocks<TK, D>::value == 0 && kSmSmem / (smem + 1024) >= 2
+  return P1MinBlocks<TK, D>::value != 1 && kSmSmem / (smem + 1024) >= 2
              ? 2
              : 1;
 }
@@ -842,7 +914,9 @@ P1Sizes p1_sizes(int dtype, int kv_dtype, int D) {
     return quant ? CUBECL_P1_SIZES(int8_t, HD)                     \
                  : dtype == kF32 ? CUBECL_P1_SIZES(float, HD)      \
                                  : CUBECL_P1_SIZES(__nv_bfloat16, HD);
+  CUBECL_P1_D(32)
   CUBECL_P1_D(64)
+  CUBECL_P1_D(80)
   CUBECL_P1_D(96)
   CUBECL_P1_D(128)
   CUBECL_P1_D(256)
@@ -870,8 +944,8 @@ inline int p1_mode(int window, bool ring) {
 // part: the splits' partial sums where the positions are split,
 // cubecl_paged_decode_plan's plan[6] floats (null where that is 0).
 // Any H that is a multiple of Hkv. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue for a dtype / head_dim (D 64, 96,
-// 128 and 256 are built) this kernel was not built for.
+// launches, or cudaErrorInvalidValue for a dtype / head_dim (D 32, 64,
+// 80, 96, 128 and 256 are built) this kernel was not built for.
 extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                    const void* v_pages, const float* k_scales,
                                    const float* v_scales, const void* table,
@@ -899,8 +973,12 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
    : mode == kModeWindow ? CUBECL_PAGED_MODE(kModeWindow, T, TK, HD)       \
                      : CUBECL_PAGED_MODE(kModeRing, T, TK, HD))
   if (dtype == kF32) {
+    if (D == 32) return quant ? CUBECL_PAGED(float, int8_t, 32)
+                              : CUBECL_PAGED(float, float, 32);
     if (D == 64) return quant ? CUBECL_PAGED(float, int8_t, 64)
                               : CUBECL_PAGED(float, float, 64);
+    if (D == 80) return quant ? CUBECL_PAGED(float, int8_t, 80)
+                              : CUBECL_PAGED(float, float, 80);
     if (D == 96) return quant ? CUBECL_PAGED(float, int8_t, 96)
                               : CUBECL_PAGED(float, float, 96);
     if (D == 128) return quant ? CUBECL_PAGED(float, int8_t, 128)
@@ -909,8 +987,12 @@ extern "C" int cubecl_paged_decode(const void* q, const void* k_pages,
                                : CUBECL_PAGED(float, float, 256);
   }
   if (dtype == kBF16) {
+    if (D == 32) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 32)
+                              : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 32);
     if (D == 64) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 64)
                               : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 64);
+    if (D == 80) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 80)
+                              : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 80);
     if (D == 96) return quant ? CUBECL_PAGED(__nv_bfloat16, int8_t, 96)
                               : CUBECL_PAGED(__nv_bfloat16, __nv_bfloat16, 96);
     if (D == 128)

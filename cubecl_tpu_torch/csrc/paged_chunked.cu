@@ -84,6 +84,16 @@
 //   takes six k16 steps, which read none of them; P V is D 128's
 //   m64n128k16 (an MN-major V under the 128-byte swizzle is 64 columns an
 //   atom), whose columns 96..127 are never stored. 112 KB bf16, as D 128.
+// - D 80 (Phi-2's head dim) takes the same route: D 128's two panels,
+//   columns 80..127 never written, Q K^T five k16 steps, P V D 128's
+//   m64n128k16 with 48 dead columns, never stored. D 32 (Pythia-31M's)
+//   takes D 64's one panel: two k16 steps, P V m64n64k16 with 32 dead
+//   columns. Both tiles are byte-bound where decode-shaped (the dead
+//   columns move no byte) and the prefill-shaped tiles' P V does 1.6x
+//   (D 80) or 2x (D 32) the useful work; narrower panels (m64n80k16, a
+//   64-byte swizzle at D 32) are the alternative, not built (PR 21's
+//   narrow-panel D 96 measured no faster). int8 rows are 80 and 32 bytes
+//   (5 and 2 chunks), whole chunks, as the cp.async copies want.
 //
 // - D 256 (GPT-J-6B's and Qwen3-Next's head dim): four 128-byte panels a
 //   tile, 230,400 bytes with bf16 pools (one block an SM), 199,168 with
@@ -96,10 +106,10 @@
 //   second accumulator in registers, ptxas spilled). f32: the CUDA-core
 //   body at 214,528 bytes, one block an SM.
 //
-// Each D is a template instance of its own (D 64, 96, 128, 256): the entry
-// points and the plan refuse any other D, the body static_asserts its D
-// and the P V product names each accumulator width (wgmma_pv), so no D
-// can fall into another's layout.
+// Each D is a template instance of its own (D 32, 64, 80, 96, 128, 256):
+// the entry points and the plan refuse any other D, the body static_asserts
+// its D and the P V product names each accumulator width (wgmma_pv), so no
+// D can fall into another's layout.
 //
 // f32 q: the CUDA cores (paged_chunked_kernel), the first version: one
 // TF32 pass would not hold f32's tolerance (three would: wgmma_gemm.cuh's
@@ -109,7 +119,8 @@
 // 64-position tiles that ends at the tile's last live position. At small
 // G*C most of a tile's rows are idle (their threads skip the products).
 // A thread owns output columns tx * 4 + 64 c; at D 96 the columns 64..95
-// are the first 8 tx's (the others skip that group).
+// are the first 8 tx's (the others skip that group), at D 80 the columns
+// 64..79 the first 4 tx's, at D 32 the columns 0..31 the first 8.
 #include <algorithm>
 #include <climits>
 #include <type_traits>
@@ -144,7 +155,8 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
                      float scale_log2) {
   constexpr bool QUANT = std::is_same<TK, int8_t>::value;
   // 4-wide column groups of the output per thread; at D 96 the second
-  // group (columns 64..95) is the first 8 tx's only
+  // group (columns 64..95) is the first 8 tx's only (D 80: 64..79, the
+  // first 4; D 32: the one group, the first 8)
   constexpr int DC = (D + 63) / 64;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][BM]  (q transposed)
@@ -371,7 +383,7 @@ constexpr int kTcPanel = 64 * 128;  // 64 rows x 64 bf16, 128-byte swizzle
 template <int D, bool QUANT>
 struct TcSmem {
   // 64 rows of D bf16 in 64-column panels (D 96: two, the last 32 columns
-  // unused)
+  // unused; D 80: two, the last 48; D 32: one, the last 32)
   static constexpr int kTile = (D + 63) / 64 * kTcPanel;
   static constexpr int kRaw = QUANT ? kTcCols * D : kTile;  // K (or V)
   static constexpr int kQ = 0;
@@ -413,7 +425,7 @@ inline TcPlan tc_plan(int B, int Hkv, int GC, int page, int max_pages) {
 }
 
 // O (+)= P V for 16 positions: m64nNk16 over the accumulator's N columns
-// (D 96's is N 128), one instance a built N
+// (D 80's and 96's is N 128, D 32's N 64), one instance a built N
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
@@ -445,10 +457,12 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   using L = TcSmem<D, QUANT>;
   constexpr int kChunks = D * (int)sizeof(TK) / 16;  // 16-byte chunks a row
   constexpr int kEl = 16 / (int)sizeof(TK);          // elements a chunk
-  // the accumulator's columns: D 96 computes D 128's, 96..127 unstored
+  // the accumulator's columns: D 80 and 96 compute D 128's, D 32 D 64's,
+  // the columns past D unstored
   constexpr int DP = (D + 63) / 64 * 64;
-  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
-                "P3's wgmma body is built for D 64, 96, 128 and 256");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "P3's wgmma body is built for D 32, 64, 80, 96, 128 and 256");
   // D 256: Q's and K's descriptors made beside each product, and P V's
   // tile sums 64 columns at a time, so that O's 128 registers fit
   constexpr bool kWide = D == 256;
@@ -888,8 +902,12 @@ int p3_smem_of(int dtype, bool quant) {
 }
 inline int p3_smem(int dtype, bool quant, int D) {
   switch (D) {
+    case 32:
+      return p3_smem_of<32>(dtype, quant);
     case 64:
       return p3_smem_of<64>(dtype, quant);
+    case 80:
+      return p3_smem_of<80>(dtype, quant);
     case 96:
       return p3_smem_of<96>(dtype, quant);
     case 128:
@@ -912,7 +930,7 @@ inline int p3_smem(int dtype, bool quant, int D) {
 // positions, cubecl_paged_chunked_plan's plan[8] floats (null where that
 // is 0). Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for a dtype / head_dim this kernel was not built
-// for (D 64, 96, 128 and 256 are built).
+// for (D 32, 64, 80, 96, 128 and 256 are built).
 extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                     const void* v_pages, const float* k_scales,
                                     const float* v_scales, const void* table,
@@ -939,8 +957,12 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                   C, layer, P, page, max_pages, scale_log2,  \
                                   st)
   if (dtype == kF32) {
+    if (D == 32) return quant ? CUBECL_CHUNKED(float, int8_t, 32)
+                              : CUBECL_CHUNKED(float, float, 32);
     if (D == 64) return quant ? CUBECL_CHUNKED(float, int8_t, 64)
                               : CUBECL_CHUNKED(float, float, 64);
+    if (D == 80) return quant ? CUBECL_CHUNKED(float, int8_t, 80)
+                              : CUBECL_CHUNKED(float, float, 80);
     if (D == 96) return quant ? CUBECL_CHUNKED(float, int8_t, 96)
                               : CUBECL_CHUNKED(float, float, 96);
     if (D == 128) return quant ? CUBECL_CHUNKED(float, int8_t, 128)
@@ -949,9 +971,15 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                : CUBECL_CHUNKED(float, float, 256);
   }
   if (dtype == kBF16) {
+    if (D == 32)
+      return quant ? CUBECL_CHUNKED_WG(32, true)
+                   : CUBECL_CHUNKED_WG(32, false);
     if (D == 64)
       return quant ? CUBECL_CHUNKED_WG(64, true)
                    : CUBECL_CHUNKED_WG(64, false);
+    if (D == 80)
+      return quant ? CUBECL_CHUNKED_WG(80, true)
+                   : CUBECL_CHUNKED_WG(80, false);
     if (D == 96)
       return quant ? CUBECL_CHUNKED_WG(96, true)
                    : CUBECL_CHUNKED_WG(96, false);

@@ -35,11 +35,13 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``_paged_call_headed`` and P2 ``_paged_call_live``) and
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
 ``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
-in ``PAGED_HEAD_DIMS`` (64, 96, 128, 256: each an instance of its own; D
-96 is Phi-3-mini's head dim, its pools unpadded; D 256 GPT-J-6B's and
-Qwen3-Next's, where P1 keeps one stage a warp on f32 pools and runs one
-block an SM, and P3's bf16 body holds four 64-column panels a tile) and
-any number of query heads a kv head; anything else raises. P1 cuts a kv head's query heads into row
+in ``PAGED_HEAD_DIMS`` (32, 64, 80, 96, 128, 256: each an instance of its
+own; D 32 is Pythia-31M's head dim, D 80 Phi-2's, D 96 Phi-3-mini's, their
+pools unpadded, P3's bf16 tiles in D 64's or D 128's panels; D 256
+GPT-J-6B's and Qwen3-Next's, where P1 keeps one stage a warp on f32 pools
+and runs one block an SM, and P3's bf16 body holds four 64-column panels a
+tile) and any number of query heads a kv head; any other D raises (ROADMAP
+Queue 2a). P1 cuts a kv head's query heads into row
 groups of at most 8, a block each (:func:`p1_group_rows`), splits the
 positions of each (batch row, kv head) over blocks where B * Hkv * groups
 leaves the card idle, copies K and V through the table with cp.async into
@@ -68,9 +70,10 @@ import torch
 from ..utils import native
 from .attention import KERNEL_DTYPES, LOG2E
 
-# the head dims P1 and P3 are built for (flash's forward is built at 64,
-# 128 and 256; flash at 96 pads to 128, a paged pool is never padded)
-PAGED_HEAD_DIMS = (64, 96, 128, 256)
+# the head dims P1 and P3 are built for (flash is built at 64, 128 and 256;
+# flash at 32 pads to 64, at 80 and 96 to 128; a paged pool is never
+# padded)
+PAGED_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 # P1's body (csrc/paged_attention.cu), for p1_plan: 256 threads (8 warps)
 # a block, at most 8 query rows a block (a row group; q in f32 ahead of the
@@ -131,16 +134,18 @@ def p1_stages(kv_dtype, D: int) -> int:
 
 def p1_min_blocks(kv_dtype, D: int) -> int:
     """The least blocks an SM of P1's launch bounds (csrc
-    ``P1MinBlocks``): one for f32 pools at D 96 and every pool at D 256,
-    else none (0)."""
-    return 1 if D == 256 or (D == 96 and kv_dtype == torch.float32) else 0
+    ``P1MinBlocks``): one for f32 pools at D 80 and 96 and every pool at D
+    256, two for f32 pools at D 32, else none (0)."""
+    if D == 256 or (D in (80, 96) and kv_dtype == torch.float32):
+        return 1
+    return 2 if D == 32 and kv_dtype == torch.float32 else 0
 
 
 def p1_per_sm(kv_dtype, D: int, smem: int) -> int:
     """P1's blocks an SM for the splits (csrc ``p1_per_sm``): one where
     the launch bounds ask for one, else two where shared memory holds two,
     else one."""
-    return 2 if not p1_min_blocks(kv_dtype, D) and \
+    return 2 if p1_min_blocks(kv_dtype, D) != 1 and \
         P1_SM_SMEM // (smem + 1024) >= 2 else 1
 
 
@@ -155,10 +160,11 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
             or D not in PAGED_HEAD_DIMS or Hkv <= 0 or H <= 0 or H % Hkv \
             or B <= 0 or window < 0 or sinks < 0:
         raise ValueError(f"P1 takes q of {KERNEL_DTYPES}, pools of q's "
-                         f"dtype or int8, D in {PAGED_HEAD_DIMS}, H a "
-                         f"multiple of Hkv and a window and sinks >= 0; got "
-                         f"{dtype}, {kv_dtype}, D {D}, H {H}, Hkv {Hkv}, "
-                         f"window {window}, sinks {sinks}")
+                         f"dtype or int8, D in {PAGED_HEAD_DIMS} (others: "
+                         f"ROADMAP Queue 2a), H a multiple of Hkv and a "
+                         f"window and sinks >= 0; got {dtype}, {kv_dtype}, "
+                         f"D {D}, H {H}, Hkv {Hkv}, window {window}, sinks "
+                         f"{sinks}")
     # the ring where a pos_meta is given, else window + sinks where window
     # > 0 (sinks alone change nothing), else the full walk
     mode = P1_RING if ring else P1_WINDOW if window > 0 else P1_FULL
@@ -218,9 +224,10 @@ def p1_window_tiles(plan: P1Plan, length: int, split: int, window: int,
 # in a ring of 3 (K then V; int8 as raw rows, converted into one bf16 tile,
 # with their scales); the positions split over blocks where one row tile
 # a (b, kv head) makes fewer than P3_FILL blocks. A bf16 tile is 64 rows in
-# 64-column panels (D 96: two, as D 128, the last 32 columns unused; the
-# pools are not padded; D 256: four, 230,400 bytes with bf16 pools). f32 q on the CUDA cores: 256 threads, a 64-row
-# tile, the f32 tiles in shared memory.
+# 64-column panels (D 80 and 96: two, as D 128, the columns past D unused;
+# D 32: one, as D 64; the pools are not padded; D 256: four, 230,400 bytes
+# with bf16 pools). f32 q on the CUDA cores: 256 threads, a 64-row tile,
+# the f32 tiles in shared memory.
 P3_ROWS = 64
 P3_COLS = 64
 P3_STAGES = 3
@@ -255,7 +262,8 @@ def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
     if kv_dtype not in (dtype, torch.int8) or D not in PAGED_HEAD_DIMS \
             or H % Hkv or C <= 0:
         raise ValueError(f"P3 takes pools of q's dtype or int8 and D in "
-                         f"{PAGED_HEAD_DIMS}; got {dtype}, {kv_dtype}, D {D}")
+                         f"{PAGED_HEAD_DIMS} (others: ROADMAP Queue 2a); got "
+                         f"{dtype}, {kv_dtype}, D {D}")
     GC = H // Hkv * C
     rows = -(-GC // P3_ROWS)
     if dtype == torch.float32:
@@ -475,7 +483,8 @@ def _check_kernel_inputs(what, q, k_pages, v_pages, ints, scales, quant):
         raise ValueError(f"{what} kernel wants contiguous f32 scales")
     if q.shape[-1] not in PAGED_HEAD_DIMS:
         raise ValueError(f"{what} kernel takes head_dim in "
-                         f"{PAGED_HEAD_DIMS}; got {q.shape[-1]}")
+                         f"{PAGED_HEAD_DIMS} (others: ROADMAP Queue 2a); got "
+                         f"{q.shape[-1]}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError(f"{what} kernel wants contiguous pools")
 

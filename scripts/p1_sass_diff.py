@@ -14,11 +14,12 @@ namespace, which names the file): P1's ``paged_decode_kernel``,
 ``paged_window_kernel`` and ``paged_ring_kernel``, P3's
 ``paged_chunked_kernel`` (f32) and ``paged_chunked_wgmma_kernel`` (bf16),
 and each file's ``paged_combine_kernel``. Instances only this checkout
-holds (new head dims, such as D 256's, P1's ``paged_grouped_kernel``
-past 8 query heads a kv head) are listed with their registers and spills
-from ptxas. Exits 1 where one of DIR's instances differs or is missing,
-or where an instance only this checkout holds spills or keeps a stack
-frame; needs nvcc, not a card.
+holds (new head dims, such as D 256's or D 32's and 80's, P1's
+``paged_grouped_kernel`` past 8 query heads a kv head) are listed with
+their registers and spills from ptxas, then counted by head dim. Exits 1
+where one of DIR's instances differs or is missing, or where an instance
+only this checkout holds spills or keeps a stack frame; needs nvcc, not
+a card.
 """
 
 import argparse
@@ -108,12 +109,21 @@ def main():
             print(f"{source}: {'same' if eq else 'DIFFERENT'} SASS "
                   f"({len(pf[n])} instructions): {n}; parent {pr.get(n)}, "
                   f"this {tr.get(n)}")
+        new = {}
         for n in sorted(set(tf) - set(pf)):
             clean = "0 bytes stack frame, 0 bytes spill stores" in (
                 tr.get(n) or "")
             ok &= clean
             print(f"{source}: this only: {n}: {tr.get(n)}, {len(tf[n])} "
                   f"instructions{'' if clean else ' (SPILLS)'}")
+            # the head dim: the template's last int argument (Li80E)
+            d = int(re.findall(r"Li(\d+)E", n)[-1])
+            count, spills = new.get(d, (0, 0))
+            new[d] = (count + 1, spills + (not clean))
+        if new:
+            print(f"{source}: this only, by head dim: " + ", ".join(
+                f"D {d}: {c} ({s} spilling)" for d, (c, s) in sorted(
+                    new.items())))
         print(f"{source}: the parent's instances, SASS identical: " + ", ".join(
             f"{k} {s} of {t}" for k, (s, t) in sorted(kinds.items())))
     return 0 if ok else 1

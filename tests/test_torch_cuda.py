@@ -13,6 +13,7 @@ output apart. The DSL kernels (K0) are held against the torch evaluator run
 on the card, which rounds at the same ops, at the same tolerances.
 """
 
+import ctypes
 import dataclasses
 import math
 
@@ -181,7 +182,7 @@ def _p1_table(g, dev, layout, B):
 
 @pytest.mark.parametrize("layout", list(P1_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("G", [1, 3, 8])
 def test_paged_kernel_matches_plain(dev, dtype, D, G, layout):
     """P1 against its plain version on each of P1_LAYOUTS: the positions
@@ -454,9 +455,13 @@ def _int8_pools(g, dev, shape):
 @pytest.mark.parametrize("layout", list(P1_LAYOUTS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(6, 2, 2, 64), (3, 4, 8, 128),
-                                   (5, 2, 1, 96), (4, 2, 4, 96)],
+                                   (5, 2, 1, 96), (4, 2, 4, 96),
+                                   (5, 2, 1, 80), (4, 2, 4, 80),
+                                   (6, 2, 2, 32), (3, 4, 8, 32)],
                          ids=["B6-Hkv2-G2-D64", "B3-Hkv4-G8-D128",
-                              "B5-Hkv2-G1-D96", "B4-Hkv2-G4-D96"])
+                              "B5-Hkv2-G1-D96", "B4-Hkv2-G4-D96",
+                              "B5-Hkv2-G1-D80", "B4-Hkv2-G4-D80",
+                              "B6-Hkv2-G2-D32", "B3-Hkv4-G8-D32"])
 def test_paged_int8_kernel_matches_plain(dev, dtype, shape, layout):
     """P1 on int8 pools: lengths 0, 1, mid-page, a page boundary and past
     it, and the other P1_LAYOUTS (splits over positions, each position's
@@ -499,6 +504,13 @@ P1_REPEAT_CASES = {
     "mistral-large-2 bf16": (8, 8, 12, 128, 9, [1056] * 8, torch.bfloat16,
                              False),
     "falcon G71 int8": (8, 1, 71, 64, 16, [2048] * 8, torch.bfloat16, True),
+    # phase zf's decodes: Phi-2 (D 80, 32 kv heads of one query head),
+    # H2O-Danube (D 80, G 4), D 32 at B 8 x 16 heads
+    "phi-2 bf16": (8, 32, 1, 80, 9, [1056] * 8, torch.bfloat16, False),
+    "phi-2 int8": (8, 32, 1, 80, 9, [1056] * 8, torch.bfloat16, True),
+    "danube G4 f32": (8, 8, 4, 80, 32, [4096] * 8, torch.float32, False),
+    "D32 bf16": (8, 16, 1, 32, 16, [2048] * 8, torch.bfloat16, False),
+    "D32 int8": (8, 16, 1, 32, 16, [2048] * 8, torch.bfloat16, True),
 }
 P1_LAUNCHES = 200
 
@@ -557,7 +569,12 @@ def test_paged_kernel_plan_matches_the_kernel(dev):
                     (3, 32, 4, 64, 1, 5), (8, 16, 8, 128, 128, 33),
                     (8, 16, 8, 128, 16, 17), (8, 32, 32, 96, 128, 9),
                     (1, 32, 32, 96, 128, 33), (5, 8, 2, 96, 7, 21),
-                    (2, 16, 2, 96, 16, 256)]:
+                    (2, 16, 2, 96, 16, 256), (8, 32, 32, 80, 128, 9),
+                    (8, 32, 8, 80, 128, 32), (1, 32, 32, 80, 128, 33),
+                    (5, 8, 2, 80, 7, 21), (2, 16, 2, 80, 16, 256),
+                    (8, 16, 16, 32, 128, 16), (8, 8, 8, 32, 128, 9),
+                    (5, 8, 2, 32, 7, 21), (1, 8, 1, 32, 16, 256),
+                    (3, 6, 3, 32, 1, 300)]:
                 for opts in [(0, 0, False), (2000, 4, False),
                              (240, 16, False), (1, 0, False),
                              (7, 130, False), (0, 9, False),
@@ -618,7 +635,7 @@ def _ring_meta(table, lengths, page, sinks):
 @pytest.mark.parametrize("layout", list(P1_WINDOWED))
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 def test_paged_window_kernel_matches_plain(dev, D, dtype, quant, layout):
     """P1 with window + sinks (paged_window_kernel) against its plain
     version: its live tiles split over blocks (one split at 40 rows x 8
@@ -650,7 +667,7 @@ def test_paged_window_kernel_matches_plain(dev, D, dtype, quant, layout):
 @pytest.mark.parametrize("layout", list(P1_RINGS))
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 def test_paged_ring_kernel_matches_plain(dev, D, dtype, quant, layout):
     """P1 on a ring (paged_ring_kernel) against its plain version: slots
     recycled past the capacity, slots never written (-1), a row whose meta
@@ -688,6 +705,34 @@ def test_paged_ring_kernel_matches_plain(dev, D, dtype, quant, layout):
         assert not got[lengths.index(0)].any()
 
 
+@pytest.mark.parametrize("D", [48, 160, 288])
+def test_paged_other_head_dims_are_refused(dev, D):
+    """A head dim without a P1 or P3 instance is refused on the card:
+    both wrappers raise before any launch, naming ROADMAP Queue 2a, and
+    the built plan entries return an error (cudaErrorInvalidValue)."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+    from cubecl_tpu_torch.utils import native
+
+    bf = torch.bfloat16
+    q = torch.zeros(2, 4, D, device=dev, dtype=bf)
+    kp = torch.zeros(1, 2, 4, 16, D, device=dev, dtype=bf)
+    table = torch.arange(4, device=dev, dtype=torch.int32).view(2, 2)
+    ln = torch.tensor([3, 20], device=dev, dtype=torch.int32)
+    n = (paged_attention.launches, paged_attention_chunked.launches)
+    with pytest.raises(ValueError, match="Queue 2a"):
+        paged_attention(q, kp, kp, table, ln)
+    with pytest.raises(ValueError, match="Queue 2a"):
+        paged_attention_chunked(q[:, :, None], kp, kp, table, ln, ln - 1)
+    assert (paged_attention.launches, paged_attention_chunked.launches) == n
+    lib = native.kernels()
+    plan = (ctypes.c_int * 10)()
+    assert lib.cubecl_paged_decode_plan(
+        1, 1, 2, 4, 2, D, 16, 2, 0, 0, 0,
+        ctypes.cast(plan, ctypes.c_void_p)) != 0
+    assert lib.cubecl_paged_chunked_plan(
+        1, 1, 2, 4, 2, 1, D, 16, 2, ctypes.cast(plan, ctypes.c_void_p)) != 0
+
+
 # P1's plain-decode parameters as before the StreamingLLM kernels came
 # beside them (cu++filt names a template's parameter types T1, T2)
 P1_MODE0_PARAMS = ("(const T1 *, const T2 *, const T2 *, const float *, "
@@ -698,9 +743,9 @@ P1_MODE0_PARAMS = ("(const T1 *, const T2 *, const T2 *, const float *, "
 def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
     """The plain decode keeps its plan (the serving, KV-bound and d768
     shapes' splits and scratch, mode 0) and its kernels: the library holds
-    paged_decode_kernel<T, TK, D> for the 16 (q, pools, D) instances (D
-    64, 96, 128 and 256) with their parameters unchanged, beside 16
-    paged_window_kernel and 16 paged_ring_kernel instances (cuobjdump,
+    paged_decode_kernel<T, TK, D> for the 24 (q, pools, D) instances (D
+    32, 64, 80, 96, 128 and 256) with their parameters unchanged, beside
+    24 paged_window_kernel and 24 paged_ring_kernel instances (cuobjdump,
     demangled by cu++filt)."""
     import os
     import re
@@ -735,15 +780,15 @@ def test_paged_plain_decode_plan_and_symbols_unchanged(dev):
         k = re.search(r"(paged_(?:decode|window|ring)_kernel)<", d).group(1)
         by_kernel.setdefault(k, []).append(d)
     assert {k: len(v) for k, v in by_kernel.items()} == {
-        "paged_decode_kernel": 16, "paged_window_kernel": 16,
-        "paged_ring_kernel": 16}
+        "paged_decode_kernel": 24, "paged_window_kernel": 24,
+        "paged_ring_kernel": 24}
     params = re.sub(r"\s+", "", P1_MODE0_PARAMS)
     for d in by_kernel["paged_decode_kernel"]:
         assert d.endswith(">" + params), (d, params)
     for T, TK in (("float", "float"), ("float", "signedchar"),
                   ("__nv_bfloat16", "__nv_bfloat16"),
                   ("__nv_bfloat16", "signedchar")):
-        for D in (64, 96, 128, 256):  # a non-type argument: maybe (int)64
+        for D in (32, 64, 80, 96, 128, 256):  # maybe (int)64
             want = rf"paged_decode_kernel<{T},{TK},(\(int\))?{D}>\("
             assert any(re.search(want, d)
                        for d in by_kernel["paged_decode_kernel"]), \
@@ -762,6 +807,9 @@ P1_GROUPED = {
     "G16-D128-B1-ctx4096": (1, 2, 16, 128, 128, 32, [4096], 2000, 4),
     "G71-D64": (8, 1, 71, 64, 128, 16, [2048, 1, 64, 65, 700, 1500, 2000,
                                          2047], 256, 4),
+    # G 12 on one kv head at D 80 and D 32, ragged with a length-0 row
+    "G12-D80": (4, 1, 12, 80, 128, 16, [0, 100, 1024, 2048], 512, 4),
+    "G12-D32-page7": (5, 2, 12, 32, 7, 40, [0, 7, 70, 129, 280], 50, 9),
 }
 
 
@@ -820,7 +868,9 @@ def test_paged_grouped_plan_matches_the_kernel(dev):
                     (8, 71, 1, 64, 128, 16), (5, 18, 2, 96, 7, 40),
                     (3, 24, 2, 128, 1, 300), (1, 71, 1, 64, 16, 2),
                     (1, 127, 1, 64, 128, 33), (40, 96, 8, 128, 16, 8),
-                    (2, 32, 2, 96, 16, 256)]:
+                    (2, 32, 2, 96, 16, 256), (4, 12, 1, 80, 128, 16),
+                    (5, 18, 2, 80, 7, 40), (4, 12, 1, 32, 128, 16),
+                    (3, 24, 2, 32, 1, 300)]:
                 for opts in [(0, 0, False), (2000, 4, False),
                              (240, 16, False), (240, 16, True),
                              (0, 0, True)]:
@@ -839,6 +889,8 @@ P3_GROUPED = {
     "G12-C70": (2, 2, 12, 70, 128, 16, 10, [0, 9], None),
     "G71-verify": (4, 1, 71, 5, 64, 128, 3, [0, 100, 251, 3],
                    [0, 105, 256, 8]),
+    "G12-verify-D80": (4, 2, 12, 5, 80, 16, 20, [0, 7, 16, 40], None),
+    "G12-verify-D32": (4, 2, 12, 5, 32, 16, 20, [0, 7, 16, 40], None),
 }
 
 
@@ -877,9 +929,13 @@ def test_paged_chunked_grouped_kernel_matches_plain(dev, kind, case):
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 2, 2, 5, 64), (2, 2, 3, 70, 128),
-                                   (4, 2, 2, 5, 96), (2, 2, 3, 70, 96)],
+                                   (4, 2, 2, 5, 96), (2, 2, 3, 70, 96),
+                                   (4, 2, 2, 5, 80), (2, 2, 3, 70, 80),
+                                   (4, 2, 2, 5, 32), (2, 2, 3, 70, 32)],
                          ids=["B4-Hkv2-G2-C5-D64", "B2-Hkv2-G3-C70-D128",
-                              "B4-Hkv2-G2-C5-D96", "B2-Hkv2-G3-C70-D96"])
+                              "B4-Hkv2-G2-C5-D96", "B2-Hkv2-G3-C70-D96",
+                              "B4-Hkv2-G2-C5-D80", "B2-Hkv2-G3-C70-D80",
+                              "B4-Hkv2-G2-C5-D32", "B2-Hkv2-G3-C70-D32"])
 def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape, page):
     """P3: chunks starting at 0, in mid-page and on a page boundary, one
     row of length 0 (zeros) and one whose length stops inside its chunk,
@@ -938,6 +994,11 @@ P3_REPEAT_CASES = {
     # chunked prefill from 768
     "phi3 verify": (8, 32, 1, 5, 96, 10, [1051] * 8, None),
     "phi3 prefill start 768": (8, 32, 1, 256, 96, 10, [768] * 8, None),
+    # phase zf's Phi-2 (D 80) and D 32 shapes
+    "phi-2 verify": (8, 32, 1, 5, 80, 10, [1051] * 8, None),
+    "phi-2 prefill start 768": (8, 32, 1, 256, 80, 10, [768] * 8, None),
+    "D32 verify": (8, 16, 1, 5, 32, 17, [2043] * 8, None),
+    "D32 prefill start 768": (8, 16, 1, 256, 32, 10, [768] * 8, None),
 }
 P3_LAUNCHES = 200
 
@@ -997,7 +1058,11 @@ def test_paged_chunked_plan_matches_the_kernel(dev):
                     (4, 4, 2, 5, 64, 7, 21), (2, 6, 2, 70, 128, 16, 10),
                     (1, 32, 8, 1, 128, 16, 4096), (300, 16, 8, 5, 64, 128, 9),
                     (8, 32, 32, 5, 96, 128, 10), (8, 32, 32, 256, 96, 128, 10),
-                    (4, 4, 2, 16, 96, 7, 40), (1, 8, 1, 1, 96, 16, 4096)]:
+                    (4, 4, 2, 16, 96, 7, 40), (1, 8, 1, 1, 96, 16, 4096),
+                    (8, 32, 32, 5, 80, 128, 10), (8, 32, 32, 256, 80, 128, 10),
+                    (8, 32, 8, 5, 80, 128, 33), (4, 8, 2, 16, 80, 7, 40),
+                    (8, 16, 16, 5, 32, 128, 17), (8, 8, 8, 256, 32, 128, 10),
+                    (4, 8, 2, 16, 32, 7, 40), (1, 8, 1, 1, 32, 16, 4096)]:
                 assert pa.p3_kernel_plan(dt, kv, B, H, Hkv, C, D, page,
                                          max_pages) \
                     == pa.p3_plan(dt, kv, B, H, Hkv, C, D, page, max_pages), \
