@@ -199,7 +199,16 @@ a ragged batch on pages of 7) at both head dims against plain, each
 timed (cold L2) beside the same call at D 96 (for 80) or D 64 (for 32);
 zf2 the llama at Phi-2's widths (32 layers, bf16) and zf3 at
 Pythia-31M's (6 layers) served through zd2's paths; zf4 the f32
-exactness of both at 2 layers. In zb2, zc2, zd2, zf2 and zf3 speculative
+exactness of both at 2 layers. Then Mamba trained and A5-A7 padded (phase
+zg): zg1 S1's backward (the reverse scan) against its plain version at
+phase u's shapes in f32 and bf16, timed with a cold L2; zg2 Mamba at
+Mamba-130M's widths (24 layers, f32) trained by ``make_train_step`` at B
+2 x L 2048 (loss falling each step, S1 and its backward once a layer a
+step counted from 0, one step profiled); zg3 its f32 exactness at 4
+layers against S1's plain halves and the doubling scan; zg4 A5-A7 at
+Phi-2's 32 heads of 80 (B 1 x S 8192, bf16, band mask at block 512)
+padded to D 128, beside the bounds at D 80 and 128 and SDPA, then S 1024
+cases at D 32, 80 and 96. In zb2, zc2, zd2, zf2 and zf3 speculative
 decoding's tokens and the self-draft's rejections are held to twice the
 verify step's measured logit difference from the decode steps (the
 derivation is ``serve_at_widths``'). Each kernel's
@@ -1248,6 +1257,8 @@ def profile_step(step, model, tokens):
                    r"paged_(decode|window|ring|grouped)_kernel", n) else
                "K0 @cube" if re.search(r"_(rmsnorm|layernorm|gelu|softmax)_"
                                        r"(fwd|bwd)_k", n) else
+               "S1 backward" if "scan_bwd_kernel" in n else
+               "S1 forward" if "scan_kernel<" in n else
                "GEMM" if re.search(r"gemm|nvjet|xmma|cutlass|sm90", n, re.I)
                else "other")
         ms = e.time_range.elapsed_us() / 1e3
@@ -4025,17 +4036,26 @@ def _bsp_launches(fa):
 
 
 def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
-             timed):
+             timed, phase="x"):
     """One block-sparse case: forward and backward through autograd (A5,
     A6, A7 once each, counted from 0), then each kernel against the plain
     version on the kernel's own o and lse; with ``timed`` each kernel's
     time, the plain versions' and SDPA's with the element mask as a bool
-    (1, 1, S, S) ``attn_mask`` (it does the dense work)."""
+    (1, 1, S, S) ``attn_mask`` (it does the dense work). A D the kernels
+    are not built at runs padded with zeros to the next of
+    ``fa.SPARSE_HEAD_DIMS``, as ``flash_attention_block_sparse`` pads it:
+    the kernels are called on the padded tensors and their outputs sliced
+    to D; plain versions and SDPA run at the real D, and the bounds are
+    given at both."""
     q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
                    for _ in range(4))
+    Dp = next(d for d in fa.SPARSE_HEAD_DIMS if D <= d)
+    qp, kp, vp, dop = (TF.pad(t, (0, Dp - D)) if Dp != D else t
+                       for t in (q, k, v, do))
     bq_, bk_ = fa._fit_block(bq, S), fa._fit_block(bk, S)
     bm = bsp_mask(kind, S // bq_, S // bk_)
-    what = (f"{name}: {_dt(dt)} B{B} H{H} S{S} D{D} blocks {bq_}x{bk_} "
+    what = (f"{name}: {_dt(dt)} B{B} H{H} S{S} D{D}"
+            f"{f' (padded to {Dp})' if Dp != D else ''} blocks {bq_}x{bk_} "
             f"{'causal' if causal else 'non-causal'}")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.bsp_forward.launches = fa.bsp_dq.launches = fa.bsp_dkv.launches = 0
@@ -4047,63 +4067,72 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
     path_s = time.perf_counter() - t0
     launches = _bsp_launches(fa)
     if launches != {"bsp_forward": 1, "bsp_dq": 1, "bsp_dkv": 1}:
-        fail(f"phase x {what}: kernel launches {launches}, want one each")
+        fail(f"phase {phase} {what}: kernel launches {launches}, want one "
+             "each")
     pruned = fa._pruned_mask(bm, causal, bq_, bk_, S // bq_, S // bk_)
     sched = fa._schedule(pruned, bq_, bk_, dev)
     scale = D ** -0.5
-    o, lse = fa.bsp_forward(q, k, v, sched, causal, scale, bq_, bk_, True)
+    o_p, lse = fa.bsp_forward(qp, kp, vp, sched, causal, scale, bq_, bk_,
+                              True)
+    o = o_p[..., :D]
     o_ref, lse_ref = fa.flash_attention_block_sparse_plain(
         q, k, v, bm, causal, None, bq, bk, return_lse=True)
     torch.cuda.synchronize()
-    err_o = compare(o, o_ref, f"phase x {what}: o")
-    err_lse = compare(lse, lse_ref, f"phase x {what}: lse",
+    err_o = compare(o, o_ref, f"phase {phase} {what}: o")
+    err_lse = compare(lse, lse_ref, f"phase {phase} {what}: lse",
                       TOL[torch.float32])
     if not torch.equal(out.detach(), o):
-        fail(f"phase x {what}: the autograd forward is not A5's")
-    di = (do.float() * o.float()).sum(-1)
-    dq = fa.bsp_dq(q, k, v, do, lse, di, sched, causal, scale, bq_, bk_)
-    dk, dv = fa.bsp_dkv(q, k, v, do, lse, di, sched, causal, scale, bq_, bk_)
+        fail(f"phase {phase} {what}: the autograd forward is not A5's")
+    # di as the autograd Function takes it, from the padded do and o
+    di = (dop.float() * o_p.float()).sum(-1)
+    dq = fa.bsp_dq(qp, kp, vp, dop, lse, di, sched, causal, scale, bq_,
+                   bk_)[..., :D]
+    dk, dv = (t[..., :D] for t in fa.bsp_dkv(qp, kp, vp, dop, lse, di, sched,
+                                             causal, scale, bq_, bk_))
     exact, rounded = (fa.flash_attention_block_sparse_backward_plain(
         q, k, v, o, lse, do, bm, causal, None, bq, bk, round_p_ds=rnd)
         for rnd in (False, True))
     torch.cuda.synchronize()
-    err_r, err, need = zip(*(compare_bwd(a, r, e, f"phase x {what}: d{n}")
+    err_r, err, need = zip(*(compare_bwd(a, r, e,
+                                         f"phase {phase} {what}: d{n}")
                              for n, a, r, e in zip("qkv", (dq, dk, dv),
                                                    rounded, exact)))
     if not all(torch.equal(t.grad, a) for t, a in zip(leaves, (dq, dk, dv))):
-        fail(f"phase x {what}: the autograd Function's grads are not the "
-             "kernels'")
+        fail(f"phase {phase} {what}: the autograd Function's grads are not "
+             "the kernels'")
     empty = np.nonzero(~pruned.any(0))[0]
     for ki in empty:
         if dk[:, :, ki * bk_:(ki + 1) * bk_].any() \
                 or dv[:, :, ki * bk_:(ki + 1) * bk_].any():
-            fail(f"phase x {what}: kv tile {ki}, attended by no q tile, "
-                 "has non-zero dk or dv")
+            fail(f"phase {phase} {what}: kv tile {ki}, attended by no q "
+                 "tile, has non-zero dk or dv")
     f9 = ""
     if kind == "f9":  # rows 0..bk-1 see only masked columns: the mean of V
         mean = v[:, :, bk_:2 * bk_].float().mean(2, keepdim=True)
         e9 = compare(o[:, :, :bk_], mean.expand(B, H, bk_, D).to(dt),
-                     f"phase x {what}: F9 rows against the mean of V")
+                     f"phase {phase} {what}: F9 rows against the mean of V")
         if dq[:, :, :bk_].any():
-            fail(f"phase x {what}: F9 rows have a non-zero dq")
+            fail(f"phase {phase} {what}: F9 rows have a non-zero dq")
         f9 = f"; F9 rows: o = mean of V over their columns ({e9}), dq = 0"
     row = dict(max_abs_err=max(err_o, *err), o_err=err_o, lse_err=err_lse,
                dq_err=err[0], dkv_err=max(err[1:]), dq_err_rounded=err_r[0],
                dkv_err_rounded=max(err_r[1:]), launches=launches,
                path_s=path_s, mask_tiles=int(pruned.sum()),
-               empty_kv_tiles=len(empty))
+               empty_kv_tiles=len(empty), head_dim=D, kernel_head_dim=Dp)
     msg = ""
     if timed:
         pairs = live_pairs(pruned, bq_, bk_, causal)
         bounds = bsp_bounds(pairs, B, H, S, D, dt)
+        padded = bsp_bounds(pairs, B, H, S, Dp, dt)
         row.update(
             live_pairs_per_head=pairs,
-            fwd_ms=cuda_ms(lambda: fa.bsp_forward(q, k, v, sched, causal,
+            fwd_ms=cuda_ms(lambda: fa.bsp_forward(qp, kp, vp, sched, causal,
                                                   scale, bq_, bk_, True)),
-            dq_ms=cuda_ms(lambda: fa.bsp_dq(q, k, v, do, lse, di, sched,
+            dq_ms=cuda_ms(lambda: fa.bsp_dq(qp, kp, vp, dop, lse, di, sched,
                                             causal, scale, bq_, bk_)),
-            dkv_ms=cuda_ms(lambda: fa.bsp_dkv(q, k, v, do, lse, di, sched,
-                                              causal, scale, bq_, bk_)),
+            dkv_ms=cuda_ms(lambda: fa.bsp_dkv(qp, kp, vp, dop, lse, di,
+                                              sched, causal, scale, bq_,
+                                              bk_)),
             plain_fwd_ms=cuda_ms(
                 lambda: fa.flash_attention_block_sparse_plain(
                     q, k, v, bm, causal, None, bq, bk, return_lse=True),
@@ -4114,6 +4143,10 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
                 iters=5, warmup=1),
             bounds={k_: dict(zip(("bound_ms", "bound_by"), b))
                     for k_, b in bounds.items()})
+        if Dp != D:
+            row["bounds_at_padded_d"] = {
+                k_: dict(zip(("bound_ms", "bound_by"), b))
+                for k_, b in padded.items()}
         el = np.kron(pruned, np.ones((bq_, bk_), bool))
         if causal:
             el &= np.tril(np.ones((S, S), bool))
@@ -4123,27 +4156,36 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
         row["library_fwd_ms"] = cuda_ms(lambda: sdpa(q, k, v))
         row["library_bwd_ms"] = cuda_ms(grad_call(sdpa, (q, k, v), do))
         del el
+
+        def bound(what_):
+            b = f"bound {bounds[what_][0]:.4f}"
+            if Dp != D:
+                b += f", at D {Dp} {padded[what_][0]:.4f}"
+            return b
+
         msg = (f"; live pairs a head {pairs}; A5 {row['fwd_ms']:.4f} ms "
-               f"(bound {bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), A6 "
-               f"{row['dq_ms']:.4f} ms (bound {bounds['dq'][0]:.4f}; on the "
-               f"CUDA cores, a constant from an earlier run, "
-               f"{CUDA_CORE_BWD_MS['A6']}), A7 {row['dkv_ms']:.4f} ms "
-               f"(bound {bounds['dkv'][0]:.4f}; on the CUDA cores, the same, "
-               f"{CUDA_CORE_BWD_MS['A7']}); "
-               f"plain forward {row['plain_fwd_ms']:.4f} ms, backward "
+               f"({bound('fwd')}, {bounds['fwd'][1]}), A6 "
+               f"{row['dq_ms']:.4f} ms ({bound('dq')}"
+               + (f"; on the CUDA cores, a constant from an earlier run, "
+                  f"{CUDA_CORE_BWD_MS['A6']}" if phase == "x" else "")
+               + f"), A7 {row['dkv_ms']:.4f} ms ({bound('dkv')}"
+               + (f"; on the CUDA cores, the same, "
+                  f"{CUDA_CORE_BWD_MS['A7']}" if phase == "x" else "")
+               + f"); plain forward {row['plain_fwd_ms']:.4f} ms, backward "
                f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
                f"forward {row['library_fwd_ms']:.4f} ms, backward "
                f"{row['library_bwd_ms']:.4f} ms")
-    print(f"phase x {what}: {int(pruned.sum())} live tiles, {len(empty)} kv "
-          f"tiles attended by none; launches {launches}, forward + backward "
-          f"{path_s:.4f} s; max abs err o {err_o}, lse {err_lse}; dq, dk, "
-          f"dv against the plain backward that rounds p and dS as the "
-          f"kernels do {err_r[0]}, {err_r[1]}, {err_r[2]} (atol/rtol "
-          f"{TOL[dt]}), against the exact one {err[0]}, {err[1]}, {err[2]} "
-          f"(atol/rtol {EXACT_BWD_TOL[dt]}; the atol each needs there, "
-          f"kernel and rounding plain: {need[0]}, {need[1]}, {need[2]}){f9}"
-          f"{msg} [{card}]", flush=True)
-    del q, k, v, do, leaves, out, o, lse, dq, dk, dv, exact, rounded
+    print(f"phase {phase} {what}: {int(pruned.sum())} live tiles, "
+          f"{len(empty)} kv tiles attended by none; launches {launches}, "
+          f"forward + backward {path_s:.4f} s; max abs err o {err_o}, lse "
+          f"{err_lse}; dq, dk, dv against the plain backward that rounds p "
+          f"and dS as the kernels do {err_r[0]}, {err_r[1]}, {err_r[2]} "
+          f"(atol/rtol {TOL[dt]}), against the exact one {err[0]}, "
+          f"{err[1]}, {err[2]} (atol/rtol {EXACT_BWD_TOL[dt]}; the atol each "
+          f"needs there, kernel and rounding plain: {need[0]}, {need[1]}, "
+          f"{need[2]}){f9}{msg} [{card}]", flush=True)
+    del q, k, v, do, qp, kp, vp, dop, leaves, out, o, o_p, lse, dq, dk, dv
+    del exact, rounded
     torch.cuda.empty_cache()
     return row
 
@@ -6312,6 +6354,243 @@ def serve_d80_d32(llama, pa, fa, dev, gen, card):
     print(f"phase zf took {out['seconds']:.1f} s [{card}]", flush=True)
     return out
 
+# -- phase zg: Mamba trained on the card (S1's backward), A5-A7 padded ------
+
+# zg2: Mamba-130M's widths (MAMBA_130M) trained at the paper's context, L
+# 2048, f32, scan_impl "auto" (S1 and its backward once a layer a step). B
+# 2: at B 4 the step's own 57.6 GiB (autograd keeps a and h, 1.6 GB a
+# layer) came on top of the 12.6 GiB that earlier phases hold, a peak of
+# 70.2 GiB of the card's 80 GB (PERF.md section 6)
+ZG_TRAIN = dict(B=2, L=2048, steps=3)
+# SGD's step for zg2: at B 2 the llama phases' TRAIN_LR (0.1) overshot,
+# the third step's loss above the second's (10.97, 9.71, 10.30; PERF.md
+# section 6); at 0.03 the loss falls smoothly in CPU runs at 2 and 8
+# layers
+ZG_LR = 0.03
+# zg3: exactness at full width, 4 layers, B 2 x L 512, f32
+ZG_EXACT = dict(layers=4, B=2, L=512)
+# the f32 train step's bounds (PERF.md section 2): the loss to 1e-5
+# relative, each grad to 1e-4 of its max-abs
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-4
+# zg4: Phi-2's attention widths (32 heads of 80) in phase x's long-context
+# block-sparse training shape (B 1 x S 8192, bf16, causal, band mask at
+# block 512), padded to D 128; then S 1024 cases at D 32, 80 and 96:
+# (name, H, D, dtype, causal, block_q, block_k, mask)
+ZG_BSP_MAIN = dict(B=1, H=32, S=8192, D=80, dtype=torch.bfloat16, block=512)
+ZG_BSP_CASES = [
+    ("D32 f32 non-causal band", 16, 32, torch.float32, False, 128, 128,
+     "band"),
+    ("D32 bf16 holed", 16, 32, torch.bfloat16, True, 128, 128, "holed"),
+    ("D32 bf16 bq 128 x bk 64, F9 rows", 16, 32, torch.bfloat16, True, 128,
+     64, "f9"),
+    ("D80 f32 bq 128 x bk 64, F9 rows", 16, 80, torch.float32, True, 128, 64,
+     "f9"),
+    ("D96 f32 holed", 16, 96, torch.float32, True, 128, 128, "holed"),
+    ("D96 bf16 non-causal band", 16, 96, torch.bfloat16, False, 128, 128,
+     "band"),
+    ("D96 bf16 bq 128 x bk 64, F9 rows", 16, 96, torch.bfloat16, True, 128,
+     64, "f9"),
+]
+NO_LIBRARY_SCAN_BWD = ("none: no one PyTorch call computes the reverse of a "
+                       "first-order linear recurrence")
+
+
+def scan_bwd_vs_plain(ssm, dev, gen, card):
+    """Phase zg1: S1's backward (``scan_bwd_kernel``) against
+    ``scan_chunked_core_backward_plain`` at SCAN_CASES in f32 and bf16, on
+    the forward kernel's own h, one launch a case; its cold-L2 time, the
+    plain version's and the bound (5 array passes: a, h, dh read, da, du
+    written)."""
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, B, L, DN in SCAN_CASES:
+            af = (torch.exp(-torch.rand(B, L, DN, generator=gen,
+                                        device=dev)) * .9).to(dt)
+            uf = (torch.randn(B, L, DN, generator=gen, device=dev) * .1
+                  ).to(dt)
+            dh = (torch.randn(B, L, DN, generator=gen, device=dev) * .1
+                  ).to(dt)
+            h = ssm.scan_chunked_core(af, uf)
+            ssm.scan_chunked_core_backward.launches = 0
+            da, du = ssm.scan_chunked_core_backward(af, h, dh)
+            torch.cuda.synchronize()
+            launches = ssm.scan_chunked_core_backward.launches
+            what = f"S1 backward {name} {_dt(dt)} ({B}, {L}, {DN})"
+            if launches != 1:
+                fail(f"phase zg1 {what}: {launches} launches, want 1")
+            ref_da, ref_du = ssm.scan_chunked_core_backward_plain(af, h, dh)
+            err = max(compare(da, ref_da, f"phase zg1 {what}: da"),
+                      compare(du, ref_du, f"phase zg1 {what}: du"))
+            if da[:, 0].any():
+                fail(f"phase zg1 {what}: da at t = 0 is not zero")
+            del ref_da, ref_du
+            elem = torch.finfo(dt).bits // 8
+            ms = cold_ms(lambda: ssm.scan_chunked_core_backward(af, h, dh))
+            plain_ms = cuda_ms(
+                lambda: ssm.scan_chunked_core_backward_plain(af, h, dh),
+                iters=2 if L > 1 else 10, warmup=1)
+            bms, by = bound_ms(3 * B * L * DN, 5 * B * L * DN * elem, dt)
+            key = f"{name} {_dt(dt)}"
+            rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, launches=launches,
+                             gb_per_s=5 * B * L * DN * elem / ms / 1e6)
+            print(f"phase zg1 {what}: max abs err {err} (atol/rtol "
+                  f"{TOL[dt]}); kernel {ms:.4f} ms cold L2 "
+                  f"({rows[key]['gb_per_s']:.0f} GB/s), plain {plain_ms:.4f}"
+                  f" ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of "
+                  f"it); library: none [{card}]", flush=True)
+            del af, uf, dh, h, da, du
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _mamba_grads(mamba, ssm, cfg, tokens, dev, kernels):
+    """Loss, grads and the (S1, S1 backward) launches of one backward of
+    ``loss_fn`` on a model from seed 4."""
+    model = mamba.init_params(cfg, seed=4, device=dev).requires_grad_(True)
+    ssm.scan_chunked_core.launches = 0
+    ssm.scan_chunked_core_backward.launches = 0
+    loss = mamba.loss_fn(model, tokens, kernels=kernels)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = (ssm.scan_chunked_core.launches,
+                ssm.scan_chunked_core_backward.launches)
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    return loss.item(), grads, launches
+
+
+def train_mamba(mamba, ssm, dev, card):
+    """Phase zg2: Mamba at Mamba-130M's published widths (24 layers, f32)
+    trained by ``make_train_step`` at B 2 x L 2048 on one batch, scan_impl
+    "auto": the loss finite and falling from step to step, S1 and its
+    backward launched once a layer a step (counted from 0 over the steps),
+    ms/step, peak memory and one profiled step (the device's idle share).
+    Phase zg3: at the same widths with 4 layers, B 2 x L 512, the loss
+    and grads of the kernels against S1's plain halves and against the
+    doubling scan under autograd, within the f32 train step's bounds."""
+    cfg = mamba.MambaConfig(**dict(MAMBA_130M, seq=ZG_TRAIN["L"]))
+    B, L, steps = ZG_TRAIN["B"], ZG_TRAIN["L"], ZG_TRAIN["steps"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    model = mamba.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = mamba.make_train_step(cfg, ZG_LR)
+    tokens = torch.from_numpy(np.random.default_rng(26).integers(
+        0, cfg.vocab, (B, L + 1), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssm.scan_chunked_core.launches = 0
+    ssm.scan_chunked_core_backward.launches = 0
+    losses, secs = _train(step, model, tokens, steps)
+    torch.cuda.synchronize()
+    launches = {"scan_chunked_core": ssm.scan_chunked_core.launches,
+                "scan_chunked_core_backward":
+                    ssm.scan_chunked_core_backward.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: cfg.n_layers * steps for k in launches}
+    if launches != want:
+        fail(f"phase zg2: kernel launches {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not all(
+            a > b for a, b in zip(losses, losses[1:])):
+        fail(f"phase zg2: losses {losses} are not finite and falling")
+    prof = profile_step(step, model, tokens)
+    ms = 1e3 * statistics.median(secs[1:])
+    traced = "no device time in the trace" if prof is None else (
+        f"one more step traced: {prof[0]:.2f} ms wall, {prof[1]:.2f} ms "
+        f"busy ({100 * (1 - prof[1] / prof[0]):.1f}% idle), by group "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            prof[2].items(), key=lambda kv: -kv[1]))
+        + "; longest other kernels " + ", ".join(
+            f"{k} {v:.2f}" for k, v in prof[3]))
+    print(f"phase zg2 train Mamba at Mamba-130M's widths "
+          f"({n_params / 1e6:.1f}M f32: d{cfg.d_model}, {cfg.n_layers} "
+          f"layers, d_state {cfg.d_state}, expand {cfg.expand}, vocab "
+          f"{cfg.vocab}, scan_impl auto): B {B} x L {L}, SGD lr {ZG_LR}, "
+          f"{steps} steps on one batch: losses {losses}; {ms:.2f} ms/step "
+          f"warm (median of steps 2-{steps}; step 1 {1e3 * secs[0]:.2f} ms), "
+          f"{B * L / ms * 1e3:.0f} tok/s; peak memory {peak:.2f} GiB "
+          f"({held:.2f} GiB held before the phase); launches over the "
+          f"{steps} steps {launches}; {traced} [{card}]", flush=True)
+    out = dict(launches=launches, losses=losses, ms_per_step=ms,
+               step_ms=[1e3 * x for x in secs], peak_gib=peak, held_gib=held,
+               params_m=n_params / 1e6, B=B, L=L,
+               profile=None if prof is None else dict(
+                   wall_ms=prof[0], busy_ms=prof[1], groups=prof[2],
+                   idle_share=1 - prof[1] / prof[0]))
+    del model, step, tokens
+    torch.cuda.empty_cache()
+
+    ecfg = mamba.MambaConfig(**dict(MAMBA_130M, n_layers=ZG_EXACT["layers"],
+                                    seq=ZG_EXACT["L"]))
+    etok = torch.from_numpy(np.random.default_rng(27).integers(
+        0, ecfg.vocab, (ZG_EXACT["B"], ZG_EXACT["L"] + 1),
+        dtype=np.int32)).to(dev)
+    lk, gk, nk = _mamba_grads(mamba, ssm, ecfg, etok, dev, True)
+    if nk != (ecfg.n_layers, ecfg.n_layers):
+        fail(f"phase zg3: (S1, S1 backward) launches {nk}, want "
+             f"{ecfg.n_layers} each")
+    exact = {}
+    for name, c, kernels in (
+            ("plain", ecfg, False),
+            ("assoc", dataclasses.replace(ecfg, scan_impl="assoc"), True)):
+        lr_, gr, nr = _mamba_grads(mamba, ssm, c, etok, dev, kernels)
+        if nr != (0, 0):
+            fail(f"phase zg3 {name}: the kernels ran ({nr} launches)")
+        rel = abs(lk - lr_) / abs(lr_)
+        if rel > TRAIN_LOSS_REL:
+            fail(f"phase zg3: loss {lk} with the kernels, {lr_} {name} "
+                 f"(rel {rel} > {TRAIN_LOSS_REL})")
+        worst, at = 0.0, ""
+        for k, r in gr.items():
+            g_rel = ((gk[k] - r).abs().max()
+                     / r.abs().max().clamp_min(1e-30)).item()
+            if not g_rel <= TRAIN_GRAD_REL:
+                fail(f"phase zg3: grad {k} differs from {name}'s by {g_rel} "
+                     f"of its max-abs (> {TRAIN_GRAD_REL})")
+            if g_rel >= worst:
+                worst, at = g_rel, k
+        exact[name] = dict(loss=lr_, loss_rel=rel, worst_grad_rel=worst,
+                           worst_grad=at)
+        del gr
+        torch.cuda.empty_cache()
+    print(f"phase zg3 exactness at Mamba-130M's widths, f32, "
+          f"{ecfg.n_layers} layers, B {ZG_EXACT['B']} x L {ZG_EXACT['L']}: "
+          f"loss and grads with S1 and its backward ({nk[0]} and {nk[1]} "
+          f"launches) against S1's plain halves: loss {lk} vs "
+          f"{exact['plain']['loss']} (rel {exact['plain']['loss_rel']:.2e}),"
+          f" worst grad {exact['plain']['worst_grad_rel']:.2e} of its "
+          f"max-abs ({exact['plain']['worst_grad']}); against the doubling "
+          f"scan: loss rel {exact['assoc']['loss_rel']:.2e}, worst grad "
+          f"{exact['assoc']['worst_grad_rel']:.2e} "
+          f"({exact['assoc']['worst_grad']}) (tol {TRAIN_LOSS_REL}, "
+          f"{TRAIN_GRAD_REL}) [{card}]", flush=True)
+    out["exact"] = dict(loss=lk, launches=nk, **exact)
+    del gk
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_train_and_padded_bsp(mamba, ssm, fa, dev, gen, card):
+    """Phase zg: zg1 S1's backward against plain, zg2 and zg3 Mamba
+    trained (``train_mamba``), zg4 A5-A7 at head dims 80, 32 and 96 padded
+    to the built 64 and 128 (``bsp_case``): Phi-2's heads at ZG_BSP_MAIN,
+    timed, then ZG_BSP_CASES."""
+    t0 = time.perf_counter()
+    out = dict(zg1=scan_bwd_vs_plain(ssm, dev, gen, card))
+    out.update(train_mamba(mamba, ssm, dev, card))
+    m = ZG_BSP_MAIN
+    bsp = {"main": bsp_case(fa, dev, gen, card, "Phi-2 heads", m["B"],
+                            m["H"], m["S"], m["D"], m["dtype"], True,
+                            m["block"], m["block"], "band", True, "zg4")}
+    for name, H, D, dt, causal, bq, bk, kind in ZG_BSP_CASES:
+        bsp[name] = bsp_case(fa, dev, gen, card, name, 1, H, 1024, D, dt,
+                             causal, bq, bk, kind, False, "zg4")
+    out["zg4"] = bsp
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase zg took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6693,6 +6972,9 @@ def main():
     # -- phase zf: head dims 80 and 32 (P1, P3; Phi-2, Pythia-31M) ----------
     zf = serve_d80_d32(llama, pa, fa, dev, gen, card)
 
+    # -- phase zg: Mamba trained (S1's backward); A5-A7 at D 32, 80, 96 -----
+    zg = mamba_train_and_padded_bsp(mamba, ssm, fa, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
         # three TF32 products says so in bound_term
@@ -6748,6 +7030,29 @@ def main():
                                        "dkv_err", "empty_kv_tiles")}
                  for k, v in x_rows.items() if k not in ("main", "dense_ms")}
 
+    zg_main = zg["zg4"]["main"]
+    zg_small = {k: {f: v[f] for f in ("head_dim", "kernel_head_dim",
+                                      "max_abs_err", "o_err", "dq_err",
+                                      "dkv_err", "empty_kv_tiles")}
+                for k, v in zg["zg4"].items() if k != "main"}
+
+    def zg_bsp_row(what):  # zg4's main case: Phi-2's 32 heads of 80
+        err = {"fwd": "o_err", "dq": "dq_err", "dkv": "dkv_err"}[what]
+        return {"shape": "bf16 B1 H32 S8192 D80 (Phi-2's heads) padded to "
+                         "D 128, causal, blocks 512, band i-1..i + global "
+                         "tile 0",
+                "max_abs_err": zg_main[err], "ms": zg_main[f"{what}_ms"],
+                "plain_ms": zg_main["plain_fwd_ms" if what == "fwd"
+                                   else "plain_bwd_ms"],
+                **zg_main["bounds"][what],
+                "bound_ms_at_padded_d": zg_main["bounds_at_padded_d"][what][
+                    "bound_ms"],
+                "library_ms": zg_main["library_fwd_ms" if what == "fwd"
+                                      else "library_bwd_ms"],
+                "launches": zg_main["launches"][
+                    {"fwd": "bsp_forward", "dq": "bsp_dq",
+                     "dkv": "bsp_dkv"}[what]]}
+
     def bsp_row(name, source, replaces, what, plain):
         b = xm["bounds"][what]
         err = {"fwd": xm["o_err"], "dq": xm["dq_err"], "dkv": xm["dkv_err"]}
@@ -6765,8 +7070,10 @@ def main():
                    live_pairs_per_head=xm["live_pairs_per_head"],
                    **({"plain_ms_is": "the whole plain backward (dq, dk, "
                        "dv)"} if what != "fwd" else {}),
+                   padded_phi2_d80=zg_bsp_row(what),
                    **({"s1024_cases": bsp_small,
-                       "dense_a1_a3_a4_ms": x_rows["dense_ms"]}
+                       "dense_a1_a3_a4_ms": x_rows["dense_ms"],
+                       "s1024_padded_cases": zg_small}
                       if what == "fwd" else {}))
 
     za_lib = "F.scaled_dot_product_attention with the element mask as a " \
@@ -7105,7 +7412,27 @@ def main():
             launches_path="phase v: forward, B 8 x L 2048, 24 layers",
             **{k.replace(" ", "_"): v for k, v in u_rows.items()
                if k != "mamba-130m"},
-            mamba_130m=v_out),
+            mamba_130m=v_out,
+            train_launches_zg2=zg["launches"]["scan_chunked_core"]),
+        row("selective_scan_backward",
+            "cubecl_tpu_torch/csrc/selective_scan.cu (scan_bwd_kernel)",
+            "cubecl_tpu/ops/ssm.py:126",
+            zg["launches"]["scan_chunked_core_backward"],
+            zg["zg1"]["mamba-130m f32"], None, library=NO_LIBRARY_SCAN_BWD,
+            replaces_is="S1's backward: the JAX kernel has none, and the "
+                        "JAX package trains Mamba through jax.grad of its "
+                        "associative scan (cubecl_tpu/models/mamba.py:196)",
+            shape="f32 (8, 2048, 24576): Mamba-130M's B 8 x L 2048 x d_inner "
+                  "1536 x d_state 16; ms: cold L2",
+            launches_path=f"phase zg2: {ZG_TRAIN['steps']} SGD steps of "
+                          f"Mamba-130M's 24 layers at B {zg['B']} x L "
+                          f"{zg['L']}, one a layer a step",
+            **{k.replace(" ", "_"): v for k, v in zg["zg1"].items()
+               if k != "mamba-130m f32"},
+            mamba_130m_train={k: zg[k] for k in (
+                "losses", "ms_per_step", "step_ms", "peak_gib", "held_gib",
+                "params_m", "B", "L", "profile", "exact")},
+            phase_seconds=zg["seconds"]),
         bsp_row("flash_attention_block_sparse",
                 "cubecl_tpu_torch/csrc/flash_attention.cu (with "
                 "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1109",

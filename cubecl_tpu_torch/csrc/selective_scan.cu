@@ -57,6 +57,57 @@ scan_kernel(const T* __restrict__ a, const T* __restrict__ u, T* __restrict__ h,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ h,
+                const T* __restrict__ dh, T* __restrict__ da,
+                T* __restrict__ du, int L, int64_t DN) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * SCAN_THREADS + threadIdx.x;
+  if (c >= DN) return;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * L * DN + c;
+  float g = 0.f;
+  float a_next = 0.f;  // a[t + 1]; g is 0 past the end, so any value does
+  int t = L - 1;
+  for (; t + 1 >= UNROLL; t -= UNROLL) {
+    float av[UNROLL], hv[UNROLL], dv[UNROLL];
+#pragma unroll
+    for (int i = 0; i < UNROLL; ++i) {
+      const int64_t idx = base + static_cast<int64_t>(t - i) * DN;
+      av[i] = to_float(a[idx]);
+      dv[i] = to_float(dh[idx]);
+      hv[i] = t - i > 0 ? to_float(h[idx - DN]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < UNROLL; ++i) {
+      const int64_t idx = base + static_cast<int64_t>(t - i) * DN;
+      g = fmaf(a_next, g, dv[i]);
+      du[idx] = from_float<T>(g);
+      da[idx] = from_float<T>(g * hv[i]);
+      a_next = av[i];
+    }
+  }
+  for (; t >= 0; --t) {
+    const int64_t idx = base + static_cast<int64_t>(t) * DN;
+    g = fmaf(a_next, g, to_float(dh[idx]));
+    du[idx] = from_float<T>(g);
+    da[idx] = from_float<T>(t > 0 ? g * to_float(h[idx - DN]) : 0.f);
+    a_next = to_float(a[idx]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_scan_bwd(const void* a, const void* h, const void* dh,
+                            void* da, void* du, int B, int L, int64_t DN,
+                            cudaStream_t st) {
+  const int64_t blocks = (DN + SCAN_THREADS - 1) / SCAN_THREADS;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  scan_bwd_kernel<T><<<dim3(static_cast<unsigned>(blocks), B), SCAN_THREADS, 0, st>>>(
+      static_cast<const T*>(a), static_cast<const T*>(h),
+      static_cast<const T*>(dh), static_cast<T*>(da), static_cast<T*>(du), L,
+      DN);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_scan(const void* a, const void* u, void* h, int B, int L,
                         int64_t DN, cudaStream_t st) {
   const int64_t blocks = (DN + SCAN_THREADS - 1) / SCAN_THREADS;
@@ -81,5 +132,22 @@ extern "C" int cubecl_selective_scan(const void* a, const void* u, void* h,
   if (B < 1 || B > 65535 || L < 1 || DN < 1) return cudaErrorInvalidValue;
   if (dtype == kF32) return launch_scan<float>(a, u, h, B, L, DN, st);
   if (dtype == kBF16) return launch_scan<__nv_bfloat16>(a, u, h, B, L, DN, st);
+  return cudaErrorInvalidValue;
+}
+
+// The backward: a, h, dh in, da, du out, all (B, L, DN), contiguous and of
+// one dtype (kF32 or kBF16); the same limits and return codes as
+// cubecl_selective_scan.
+extern "C" int cubecl_selective_scan_bwd(const void* a, const void* h,
+                                         const void* dh, void* da, void* du,
+                                         int dtype, int B, int L, int64_t DN,
+                                         void* stream) {
+  using namespace cubecl;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > 65535 || L < 1 || DN < 1) return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return launch_scan_bwd<float>(a, h, dh, da, du, B, L, DN, st);
+  if (dtype == kBF16)
+    return launch_scan_bwd<__nv_bfloat16>(a, h, dh, da, du, B, L, DN, st);
   return cudaErrorInvalidValue;
 }

@@ -9,21 +9,22 @@ window and a (B, d_inner, N) SSM state) instead of a KV cache.
 
 ``init_params`` / ``params_from_jax`` give a :class:`Mamba` module (weights
 in the JAX orientation ``(d_in, d_out)``, used as ``x @ W``, built frozen);
-``forward`` runs a sequence, ``loss_fn`` its next-token loss (value only:
-the scan kernel has no backward yet, ROADMAP Queue 3 F1),
-``decode_init`` / ``decode_step`` serve token by token. ``cfg.scan_impl``
-picks the scan: ``"auto"`` runs S1 (``ops.ssm.scan_chunked_core``, the
-hand-written ``csrc/selective_scan.cu``) whenever the tensors are on the
-card, and the associative route on the CPU, as the JAX ``auto`` picks its
-kernel on its accelerator only (its L >= 256, L % 64 conditions are TPU
-tile rules); ``"chunked"`` forces S1 (its plain version on the CPU);
-``"assoc"`` is the plain doubling scan. ``kernels=False`` runs S1's plain
-version wherever S1 would run. Models are built on the card unless
-``device`` says otherwise.
+``forward`` runs a sequence, ``loss_fn`` its next-token loss,
+differentiable on every ``scan_impl``; ``make_train_step`` takes one SGD
+step of it (the llama's ``sgd_step``: the weights made trainable, the JAX
+``p - lr * g``); ``decode_init`` / ``decode_step`` serve token by token.
+``cfg.scan_impl`` picks the scan: ``"auto"`` runs S1
+(``ops.ssm.scan_chunked_core``, the hand-written ``csrc/selective_scan.cu``,
+with its hand-written reverse scan under autograd) whenever the tensors are
+on the card, and the associative route on the CPU, as the JAX ``auto``
+picks its kernel on its accelerator only (its L >= 256, L % 64 conditions
+are TPU tile rules); ``"chunked"`` forces S1 (its plain versions on the
+CPU); ``"assoc"`` is the plain doubling scan, differentiated by autograd.
+``kernels=False`` runs S1's plain versions wherever S1 would run. Models
+are built on the card unless ``device`` says otherwise.
 
-``make_train_step``, ``param_shardings`` and ``make_sharded_train_step``
-wait for S1's backward (F1) and the port's ``torch.distributed`` layer
-(ROADMAP Queue 1 items 13 and 15).
+``param_shardings`` and ``make_sharded_train_step`` wait for the port's
+``torch.distributed`` layer (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -36,10 +37,11 @@ import torch
 from torch import nn
 
 from ..ops.ssm import selective_scan, selective_scan_chunked, ssm_decode_step
-from .llama import _to_torch
+from .llama import _to_torch, sgd_step
 
 __all__ = ["MambaConfig", "Mamba", "init_params", "params_from_jax",
-           "forward", "loss_fn", "decode_init", "decode_step"]
+           "forward", "loss_fn", "make_train_step", "decode_init",
+           "decode_step"]
 
 SCAN_IMPLS = ("auto", "chunked", "assoc")
 
@@ -232,6 +234,13 @@ def loss_fn(model: Mamba, tokens, *, kernels: bool = True):
     logits = forward(model, tokens[:, :-1], kernels=kernels)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, tokens[:, 1:].long()[..., None]).mean()
+
+
+def make_train_step(cfg: MambaConfig, lr: float = 1e-3, *,
+                    kernels: bool = True):
+    """``step(model, tokens) -> loss``: one in-place SGD step of
+    :func:`loss_fn` on tokens (B, L + 1) (see ``llama.sgd_step``)."""
+    return sgd_step(cfg, loss_fn, lr, kernels)
 
 
 def decode_init(cfg: MambaConfig, batch: int,

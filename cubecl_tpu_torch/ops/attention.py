@@ -43,7 +43,10 @@ lists of active tiles, which the kernels walk: ``bsp_forward`` (A5,
 on the block-sparse schedules of ``csrc/flash_tiles.cuh``. Its
 ``_FlashBlockSparse`` is the counterpart of the JAX ``_flash_bsp``
 custom_vjp; on CPU tensors it runs ``flash_attention_block_sparse_plain``
-and ``flash_attention_block_sparse_backward_plain``. Causally masked scores
+and ``flash_attention_block_sparse_backward_plain``. The kernels are built
+at D 64 and 128; the public function pads any D up to 128 with zeros to
+them on both devices, outside the Function (past 128: ROADMAP Queue 2a on
+the card, D as it is on the CPU). Causally masked scores
 take the JAX kernels' finite ``DEFAULT_MASK_VALUE``, so a row whose every
 visited column is masked (only with block_q != block_k) gets the mean of V
 over those columns, as the JAX forward gives it; the backward is the true
@@ -86,7 +89,7 @@ from ..utils import native
 LOG2E = math.log2(math.e)
 # the head dims of the kernels' instances: A1's forward and A3/A4's
 # backward (dense and masked) at 64, 128 and 256; the block-sparse ones
-# (A5-A7) at 64 and 128
+# (A5-A7) at 64 and 128, a smaller D padded to them
 KERNEL_HEAD_DIMS = (64, 128, 256)
 SPARSE_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -889,14 +892,29 @@ def flash_attention_block_sparse_backward_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _bsp_unported(what, D):
+    return NotImplementedError(
+        f"{what}: block-sparse flash attention (A5-A7) at head dim {D} is "
+        f"not ported to the card (built at {SPARSE_HEAD_DIMS}, a smaller D "
+        f"padded to them; ROADMAP Queue 2a)")
+
+
+def _bsp_head_dim(D, device) -> int:
+    """The head dim the block-sparse kernels run a real D at: the next of
+    SPARSE_HEAD_DIMS. Past 128 the plain versions run D as it is on the
+    CPU, and the card raises (ROADMAP Queue 2a)."""
+    Dp = next((d for d in SPARSE_HEAD_DIMS if D <= d), D)
+    if Dp == D and D not in SPARSE_HEAD_DIMS and device.type != "cpu":
+        raise _bsp_unported("flash_attention_block_sparse", D)
+    return Dp
+
+
 def _bsp_inputs(what, q, k, v, *more):
+    """The wrappers take the built head dims only (the public function pads
+    a smaller D to them); past 128 they raise, naming ROADMAP Queue 2a."""
     _bsp_shapes(q, k, v)
-    D = q.shape[-1]
-    if D in KERNEL_HEAD_DIMS and D not in SPARSE_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what}: block-sparse flash attention (A5-A7) at head dim "
-            f"{D} is not ported to the card (built at "
-            f"{SPARSE_HEAD_DIMS}; ROADMAP Queue 2a)")
+    if q.shape[-1] > SPARSE_HEAD_DIMS[-1]:
+        raise _bsp_unported(what, q.shape[-1])
     return _kernel_inputs(what, q, k, v, *more, head_dims=SPARSE_HEAD_DIMS)
 
 
@@ -1018,19 +1036,30 @@ def flash_attention_block_sparse(q, k, v, block_mask, causal: bool = True,
     ``_fit_block(block_k, Skv)`` rows; ``causal`` adds the in-tile causal
     mask at absolute positions, and tiles wholly above the diagonal are
     pruned. q, k, v (B, H, S, D) with as many k/v heads as q heads. Cost
-    and gradients scale with the mask's live tiles. See the module
-    docstring for the kernels and F9."""
+    and gradients scale with the mask's live tiles. Any D up to 128, on
+    either device: D is padded with zeros to 64 or 128 (the kernels' head
+    dims; zero columns of q and k leave the scores as they are, those of v
+    are sliced off, so F9's rows keep their mean of V), the scale taken
+    from the real D, the pad and the slice outside the autograd Function
+    so that they carry the gradient. Past 128 the CPU runs D unpadded and
+    the card raises (ROADMAP Queue 2a). See the module docstring for the
+    kernels and F9."""
     _bsp_shapes(q, k, v)
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     bq, bk = _fit_block(block_q, Sq), _fit_block(block_k, Skv)
     bm = _pruned_mask(block_mask, causal, bq, bk, Sq // bq, Skv // bk)
     scale = _scale(q, sm_scale)
+    Dp = _bsp_head_dim(D, q.device)
+    if Dp != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashBlockSparse.apply(q, k, v, bm, causal, scale, bq, bk)
-    if q.device.type == "cpu":
-        return flash_attention_block_sparse_plain(q, k, v, bm, causal, scale,
-                                                  bq, bk)
-    return bsp_forward(q, k, v, _schedule(bm, bq, bk, q.device), causal,
-                       scale, bq, bk, False)[0]
+        o = _FlashBlockSparse.apply(q, k, v, bm, causal, scale, bq, bk)
+    elif q.device.type == "cpu":
+        o = flash_attention_block_sparse_plain(q, k, v, bm, causal, scale,
+                                               bq, bk)
+    else:
+        o = bsp_forward(q, k, v, _schedule(bm, bq, bk, q.device), causal,
+                        scale, bq, bk, False)[0]
+    return o if Dp == D else o[..., :D]

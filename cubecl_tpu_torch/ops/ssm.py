@@ -17,11 +17,18 @@ h_{t-1} + u_t runs over pre-discretized a = exp(Δ⊙A), u = (Δ⊙x) ⊗ Bc.
   :func:`scan_chunked_core_plain`. ``scan_chunked_core.launches`` counts
   the kernel's launches. The JAX route pads D·N to 128 lanes; the kernel
   takes any D·N, so the port does not pad.
+- Under autograd :func:`scan_chunked_core` runs ``_ScanCore``, whose
+  backward is the reverse scan g_t = dh_t + a_{t+1} g_{t+1}, du = g, da =
+  g · h_{t-1}: on CUDA tensors the hand-written ``scan_bwd_kernel`` of the
+  same file (:func:`scan_chunked_core_backward`, counted in its
+  ``launches``), on CPU tensors :func:`scan_chunked_core_backward_plain`.
+  It saves a and the h it returned; the gradient reaches x, delta, A and
+  Bc through the discretization by autograd. The JAX kernel has no
+  backward (the JAX package differentiates its associative scan).
 - :func:`ssm_decode_step`: one token of O(1)-state decode.
 
 ``selective_scan_sp`` (sequence parallel) waits for the port's
-``torch.distributed`` layer (ROADMAP Queue 1 item 15); S1 has no backward
-yet (Queue 3 F1).
+``torch.distributed`` layer (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ import torch
 
 from ..utils import native
 
-__all__ = ["scan_chunked_core", "scan_chunked_core_plain", "selective_scan",
-           "selective_scan_chunked", "selective_scan_naive",
-           "ssm_decode_step"]
+__all__ = ["scan_chunked_core", "scan_chunked_core_backward",
+           "scan_chunked_core_backward_plain", "scan_chunked_core_plain",
+           "selective_scan", "selective_scan_chunked",
+           "selective_scan_naive", "ssm_decode_step"]
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -106,40 +114,54 @@ def scan_chunked_core_plain(af, uf):
     return h
 
 
-def scan_chunked_core(af, uf, chunk: int = 1024, hier=None):
-    """The recurrence over pre-discretized decay/input arrays af, uf (B, L,
-    DN) -> h (B, L, DN) in af's dtype, carried in f32 from 0. Exposed apart
-    so that its traffic (a read, u read, h write) can be timed alone.
+def scan_chunked_core_backward_plain(af, h, dh):
+    """S1's backward in plain PyTorch: the reverse scan g_t = dh_t +
+    a_{t+1} g_{t+1} from g_L = 0, carried in f32, gives (da, du) with du_t
+    = g_t and da_t = g_t h_{t-1} (h_{-1} = 0), from a, the forward's
+    stored h and dh = dLoss/dh (B, L, DN), each cast to af's dtype."""
+    B, L, DN = af.shape
+    da, du = torch.empty_like(af), torch.empty_like(af)
+    g = torch.zeros((B, DN), dtype=torch.float32, device=af.device)
+    for t in range(L - 1, -1, -1):
+        if t + 1 < L:
+            g = af[:, t + 1].float() * g + dh[:, t].float()
+        else:
+            g = dh[:, t].float()
+        du[:, t] = g.to(af.dtype)
+        da[:, t] = (g * h[:, t - 1].float()).to(af.dtype) if t else 0
+    return da, du
 
-    ``chunk`` and ``hier`` are the TPU kernel's layouts of this one
-    computation (chunks of L through VMEM; a flat or hierarchical in-tile
-    scan); they change no result and are kept for the API. On CUDA tensors
-    the kernel runs (any B ≤ 65535, L ≥ 1 and DN; f32 or bf16), or a
-    ``ValueError`` names what it does not take; on CPU tensors the plain
-    version runs. S1 has no backward: under autograd this raises, on
-    either device (``scan_chunked_core_plain`` or ``kernels=False`` is the
-    differentiable route)."""
-    native.refuse_grad("scan_chunked_core (S1)", "scan_chunked_core_plain "
-                       "or kernels=False", af, uf)
+
+def _kernel_checks(what, *tensors):
+    """What the forward and backward kernels take: (B, L, DN) tensors of
+    one shape, dtype of KERNEL_DTYPES and CUDA device, contiguous, B <=
+    65535; else a ``ValueError`` naming ``what``."""
+    t0 = tensors[0]
+    if any(t.device != t0.device for t in tensors):
+        raise ValueError(f"{what}: tensors on "
+                         f"{[str(t.device) for t in tensors]}; the kernel "
+                         "wants one CUDA device")
+    if t0.dim() != 3 or any(t.shape != t0.shape for t in tensors):
+        raise ValueError(f"{what} takes tensors of one shape (B, L, DN); "
+                         f"got {[tuple(t.shape) for t in tensors]}")
+    if t0.dtype not in KERNEL_DTYPES or any(t.dtype != t0.dtype
+                                            for t in tensors):
+        raise ValueError(f"{what} kernel takes tensors of one dtype of "
+                         f"{KERNEL_DTYPES}; got "
+                         f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: the kernel wants contiguous tensors")
+    if not 1 <= t0.shape[0] <= 65535:
+        raise ValueError(f"{what} kernel takes 1 <= B <= 65535; got "
+                         f"{t0.shape[0]}")
+
+
+def _scan_forward(af, uf):
+    """S1 on CUDA tensors, its plain version on CPU tensors."""
     if af.device.type == "cpu":
         return scan_chunked_core_plain(af, uf)
-    if uf.device != af.device:
-        raise ValueError(f"scan_chunked_core: af on {af.device}, uf on "
-                         f"{uf.device}; the kernel wants one CUDA device")
-    if af.dim() != 3 or uf.shape != af.shape:
-        raise ValueError(f"scan_chunked_core takes af, uf of one shape (B, "
-                         f"L, DN); got {tuple(af.shape)}, {tuple(uf.shape)}")
-    if af.dtype not in KERNEL_DTYPES or uf.dtype != af.dtype:
-        raise ValueError(f"scan_chunked_core kernel takes af and uf of one "
-                         f"dtype of {KERNEL_DTYPES}; got {af.dtype}, "
-                         f"{uf.dtype}")
-    if not (af.is_contiguous() and uf.is_contiguous()):
-        raise ValueError("scan_chunked_core: the kernel wants contiguous "
-                         "af and uf")
+    _kernel_checks("scan_chunked_core", af, uf)
     B, L, DN = af.shape
-    if not 1 <= B <= 65535:
-        raise ValueError(f"scan_chunked_core kernel takes 1 <= B <= 65535; "
-                         f"got {B}")
     h = torch.empty_like(af)
     if h.numel() == 0:
         return h
@@ -154,6 +176,78 @@ def scan_chunked_core(af, uf, chunk: int = 1024, hier=None):
     return h
 
 
+def scan_chunked_core_backward(af, h, dh):
+    """S1's backward, (da, du) from a, the stored h and dh (B, L, DN): on
+    CUDA tensors the hand-written ``scan_bwd_kernel`` (f32 or bf16, the
+    forward kernel's limits, else a ``ValueError``), on CPU tensors
+    :func:`scan_chunked_core_backward_plain`."""
+    if af.device.type == "cpu":
+        return scan_chunked_core_backward_plain(af, h, dh)
+    dh = dh.contiguous()
+    _kernel_checks("scan_chunked_core_backward", af, h, dh)
+    B, L, DN = af.shape
+    da, du = torch.empty_like(af), torch.empty_like(af)
+    if da.numel() == 0:
+        return da, du
+    lib = native.kernels()
+    with torch.cuda.device(af.device):
+        rc = lib.cubecl_selective_scan_bwd(
+            af.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+            du.data_ptr(), native.DTYPE_CODES[af.dtype], B, L, DN,
+            torch.cuda.current_stream().cuda_stream)
+    native.check(lib, rc, "scan_chunked_core_backward")
+    scan_chunked_core_backward.launches += 1
+    return da, du
+
+
+scan_chunked_core_backward.launches = 0
+
+
+class _ScanCore(torch.autograd.Function):
+    """The recurrence under autograd: S1 forward and its reverse scan
+    (``kernels``: the wrappers, which run the kernels on CUDA tensors;
+    else the plain versions on any device). Saves a and h."""
+
+    @staticmethod
+    def forward(ctx, af, uf, kernels):
+        h = _scan_forward(af, uf) if kernels \
+            else scan_chunked_core_plain(af, uf)
+        ctx.save_for_backward(af, h)
+        ctx.kernels = kernels
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        af, h = ctx.saved_tensors
+        bwd = scan_chunked_core_backward if ctx.kernels \
+            else scan_chunked_core_backward_plain
+        da, du = bwd(af, h, dh)
+        return da, du, None
+
+
+def _differentiable(af, uf):
+    return torch.is_grad_enabled() and (af.requires_grad or uf.requires_grad)
+
+
+def scan_chunked_core(af, uf, chunk: int = 1024, hier=None):
+    """The recurrence over pre-discretized decay/input arrays af, uf (B, L,
+    DN) -> h (B, L, DN) in af's dtype, carried in f32 from 0. Exposed apart
+    so that its traffic (a read, u read, h write) can be timed alone.
+
+    ``chunk`` and ``hier`` are the TPU kernel's layouts of this one
+    computation (chunks of L through VMEM; a flat or hierarchical in-tile
+    scan); they change no result and are kept for the API. On CUDA tensors
+    the kernel runs (any B ≤ 65535, L ≥ 1 and DN; f32 or bf16), or a
+    ``ValueError`` names what it does not take; on CPU tensors the plain
+    version runs. Differentiable: under autograd with an input that
+    requires grad it runs ``_ScanCore``, whose backward is
+    :func:`scan_chunked_core_backward` (the hand-written reverse scan on
+    CUDA tensors)."""
+    if _differentiable(af, uf):
+        return _ScanCore.apply(af, uf, True)
+    return _scan_forward(af, uf)
+
+
 scan_chunked_core.launches = 0
 
 
@@ -163,14 +257,18 @@ def selective_scan_chunked(x, delta, A, Bc, Cc, D_skip=None,
     """Single-pass selective scan: the (B, L, D·N) recurrence in one pass
     over a, u and h through :func:`scan_chunked_core` (S1 on the card).
     ``kernels=False`` runs :func:`scan_chunked_core_plain` on any
-    device."""
+    device, and under autograd its reverse scan in plain PyTorch too."""
     B, L, D = x.shape
     N = A.shape[1]
     a, u = _discretize(x, delta, A, Bc)                     # (B,L,D,N)
     af, uf = a.reshape(B, L, D * N), u.reshape(B, L, D * N)
     del a, u
-    h = scan_chunked_core(af, uf, chunk, hier) if kernels \
-        else scan_chunked_core_plain(af, uf)
+    if kernels:
+        h = scan_chunked_core(af, uf, chunk, hier)
+    elif _differentiable(af, uf):
+        h = _ScanCore.apply(af, uf, False)
+    else:
+        h = scan_chunked_core_plain(af, uf)
     del af, uf
     return _readout(h.view(B, L, D, N), x, Cc, D_skip)
 

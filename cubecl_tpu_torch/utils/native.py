@@ -60,6 +60,7 @@ _SIGNATURES = {
     "cubecl_matmul8": [_VP] * 6 + [_I] * 10 + [_F, _VP],
     "cubecl_expert_matmul": [_VP] * 4 + [_I] * 8 + [_VP],
     "cubecl_selective_scan": [_VP] * 3 + [_I] * 3 + [_I64, _VP],
+    "cubecl_selective_scan_bwd": [_VP] * 5 + [_I] * 3 + [_I64, _VP],
     "cubecl_flash_bsp_fwd": [_VP] * 7 + [_I] * 9 + [_F, _I, _VP],
     "cubecl_flash_bsp_dq": [_VP] * 9 + [_I] * 9 + [_F, _F, _I, _VP],
     "cubecl_flash_bsp_dkv": [_VP] * 10 + [_I] + [_VP] * 2 + [_I] * 9

@@ -14,6 +14,10 @@ Gradients are compared where no row is fully masked: on such rows (F9,
 ROADMAP Queue 3; only block_q != block_k) the JAX backward is not the
 gradient of the JAX forward, and the port gives the true gradient
 (``test_f9_rows``).
+
+At head dims 32, 80 and 96 (Pythia-31M's, Phi-2's, Phi-3-mini's) the port
+pads D with zeros to 64 or 128, the kernels' head dims, on the CPU as on
+the card; the JAX kernel takes the real D. Same tolerances.
 """
 
 import jax
@@ -182,3 +186,78 @@ def test_asserts_and_shapes():
         fa.flash_attention_block_sparse(tq, tk[:, :1], tv[:, :1],
                                         np.ones((4, 4), bool), True, None,
                                         64, 64)
+
+
+PADDED_DIMS = [32, 80, 96]
+# (causal, block_q, block_k): a square causal grid and a non-causal one
+# with bq != bk
+PADDED_CASES = {"causal64": (True, 64, 64), "full128x64": (False, 128, 64)}
+
+
+def _inputs_d(seed, D):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, H, S, D), dtype=np.float32)
+                   for _ in range(4))
+    return q * 0.5, k * 0.5, v, do
+
+
+@pytest.mark.parametrize("case", list(PADDED_CASES))
+@pytest.mark.parametrize("D", PADDED_DIMS)
+def test_padded_head_dims_match_jax(D, case):
+    """o and dq, dk, dv at the real D against the JAX kernel; the grads keep
+    the input's width, and the no-grad forward gives the same o."""
+    causal, bq, bk = PADDED_CASES[case]
+    q, k, v, do = _inputs_d(D + bq, D)
+    bm = _mask(D + bk, S // bq, S // bk)
+    o_ref, refs = _jax(q, k, v, do, bm, causal, bq, bk)
+    o, grads = _port(q, k, v, do, bm, causal, bq, bk)
+    assert o.shape == (B, H, S, D)
+    assert all(g.shape == (B, H, S, D) for g in grads)
+    np.testing.assert_allclose(o, o_ref, **FWD_TOL)
+    _close_grads(grads, refs)
+    with torch.no_grad():
+        o2 = fa.flash_attention_block_sparse(
+            *(torch.from_numpy(a) for a in (q, k, v)), bm, causal, None, bq,
+            bk)
+    np.testing.assert_allclose(o2.numpy(), o, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("D", PADDED_DIMS)
+def test_f9_rows_padded(D):
+    """F9's rows after padding: the JAX forward (the mean of V over the
+    visited columns, V's zero columns sliced off) and the true gradient,
+    autograd of the plain forward at the real D."""
+    q, k, v, do = _inputs_d(D, D)
+    bm = np.ones((2, 4), bool)
+    bm[0] = [False, True, False, False]
+    o, grads = _port(q, k, v, do, bm, True, 128, 64)
+    o_ref, _ = _jax(q, k, v, do, bm, True, 128, 64)
+    np.testing.assert_allclose(o, o_ref, **FWD_TOL)
+    np.testing.assert_allclose(o[:, :, :64],
+                               np.broadcast_to(v[:, :, 64:128].mean(
+                                   2, keepdims=True), o[:, :, :64].shape),
+                               **FWD_TOL)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    fa.flash_attention_block_sparse_plain(*ts, bm, True, None, 128, 64) \
+        .backward(torch.from_numpy(do))
+    _close_grads(grads, [t.grad.numpy() for t in ts])
+    assert np.all(grads[0][:, :, :64] == 0.0)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_past_128_raises_off_the_cpu(D):
+    """D 129-256 are not ported to the card (ROADMAP Queue 2a): off the CPU
+    the public function and each wrapper raise before any kernel runs
+    (meta tensors stand in for the card's); on the CPU the plain versions
+    run D as it is."""
+    bm = np.ones((2, 2), bool)
+    q = torch.empty(1, 2, 256, D, device="meta")
+    with pytest.raises(NotImplementedError, match="Queue 2a"):
+        fa.flash_attention_block_sparse(q, q, q, bm, True, None, 128, 128)
+    with pytest.raises(NotImplementedError, match="Queue 2a"):
+        fa.bsp_forward(q, q, q, None, True, D ** -0.5, 128, 128, False)
+    qc = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (1, 2, 256, D), dtype=np.float32))
+    o = fa.flash_attention_block_sparse(qc, qc, qc, bm, True, None, 128, 128)
+    torch.testing.assert_close(o, fa.flash_attention_block_sparse_plain(
+        qc, qc, qc, bm, True, None, 128, 128), rtol=0, atol=0)

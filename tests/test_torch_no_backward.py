@@ -1,8 +1,9 @@
 """The hand kernels without a backward refuse autograd, on every device.
 
-S1, E1, C1, P1 and P3 write their outputs through ``data_ptr()`` into a
-fresh tensor and have no autograd Function (nor have the JAX kernels,
-whose ``jax.grad`` fails). So each wrapper's kernel route raises
+E1, C1, P1 and P3 write their outputs through ``data_ptr()`` into a fresh
+tensor and have no autograd Function (nor have the JAX kernels, whose
+``jax.grad`` fails; S1 has a backward of its own, held by
+``tests/test_torch_mamba_train.py``). So each wrapper's kernel route raises
 ``NotImplementedError`` under grad mode when an input requires grad,
 before it looks at the device: the CPU holds the same contract as the
 card, where the graph would otherwise be cut silently. The plain routes
@@ -15,20 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from cubecl_tpu_torch.models import mamba
-from cubecl_tpu_torch.ops import conv, moe, paged_attention as pa, ssm
+from cubecl_tpu_torch.ops import conv, moe, paged_attention as pa
 
 
 def _t(rng, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-
-
-def _scan(rng):
-    af = torch.rand(2, 6, 8, generator=torch.Generator().manual_seed(0))
-    uf = _t(rng, 2, 6, 8)
-    return ((lambda a, u: ssm.scan_chunked_core(a, u)),
-            (lambda a, u: ssm.scan_chunked_core_plain(a, u)),
-            [af, uf], "scan_chunked_core")
 
 
 def _experts(rng):
@@ -80,28 +72,11 @@ def _paged_chunked(rng):
             [_t(rng, 2, 4, 3, 16), kp, vp], "paged_attention_chunked")
 
 
-def _mamba(rng):
-    """Mamba with trainable weights: ``scan_impl="chunked"`` takes S1 and
-    raises instead of leaving A_log and dt_w without a gradient; its plain
-    route (``kernels=False``) gives every weight one."""
-    cfg = mamba.MambaConfig(vocab=31, d_model=16, n_layers=1, seq=6,
-                            scan_impl="chunked")
-    model = mamba.init_params(cfg, seed=0, device="cpu")
-    model.requires_grad_(True)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 7),
-                                         dtype=np.int32))
-    layer = model.layers[0]
-    return ((lambda *_: mamba.loss_fn(model, toks)),
-            (lambda *_: mamba.loss_fn(model, toks, kernels=False)),
-            [layer.A_log, layer.dt_w], "scan_chunked_core")
-
-
-ROUTES = {"S1 scan_chunked_core": _scan, "E1 expert_matmul": _experts,
+ROUTES = {"E1 expert_matmul": _experts,
           "C1 conv2d_pairs": _conv_pairs,
           "C1 conv2d_pairs_packed": _conv_pairs_packed,
           "P1 paged_attention": _paged,
-          "P3 paged_attention_chunked": _paged_chunked,
-          "Mamba chunked, trainable": _mamba}
+          "P3 paged_attention_chunked": _paged_chunked}
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
