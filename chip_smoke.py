@@ -13,10 +13,11 @@ checks smaller f32 configs end to end against the plain versions.
 
 Phases (lines before the last): 1 device, 2 build (failing unless every
 bf16 instance of the flash forward, dK/dV and dQ kernels, dense,
-block-sparse and masked at D 64 and 128, C1's bf16 body, every 8-bit GEMM
+block-sparse and masked at D 64, 128 and 256, C1's bf16 body, every 8-bit GEMM
 instance and the K0 bf16/f16 cmma kernels issue wgmma: HGMMA in
 ``cuobjdump -sass``, IGMMA for the int8 GEMM; their registers and
-spills; P1's plain, window, ring and grouped kernels spilling nothing),
+spills; P1's plain, window, ring, grouped and ragged kernels spilling
+nothing),
 3 flash
 vs plain (with
 TFLOP/s; bf16 D 128 at the llama's prefill and training lengths, f32 D 64,
@@ -208,7 +209,16 @@ step counted from 0, one step profiled); zg3 its f32 exactness at 4
 layers against S1's plain halves and the doubling scan; zg4 A5-A7 at
 Phi-2's 32 heads of 80 (B 1 x S 8192, bf16, band mask at block 512)
 padded to D 128, beside the bounds at D 80 and 128 and SDPA, then S 1024
-cases at D 32, 80 and 96. In zb2, zc2, zd2, zf2 and zf3 speculative
+cases at D 32, 80 and 96. Then every head dim up to 256 (phase zh): zh1
+A5-A7 at D 256 at GPT-J-6B's 16 heads (B 1 x S 8192, bf16, the band mask
+at block 512) against plain, timed with a cold L2 beside D 128, the
+bounds and SDPA, then S 1024 cases at D 256, 160 and 192 (F9's rows
+among them); zh2 P1 in every mode on every pool and P3 at head dims
+without an instance of their own (MPT-30B's 112, and 48, 100, 160, 192,
+200) against plain, timed beside their ragged width's instance; zh3 the
+llama at MPT-30B's widths (8 of 48 layers, 64 heads of 112) served
+through zd2's paths, every P1 and P3 launch a ragged instance's; zh4 its
+f32 exactness at 2 layers. In zb2, zc2, zd2, zf2, zf3 and zh3 speculative
 decoding's tokens and the self-draft's rejections are held to twice the
 verify step's measured logit difference from the decode steps (the
 derivation is ``serve_at_widths``'). Each kernel's
@@ -377,9 +387,12 @@ def kernel_name(mangled):
     g16 = re.search(r"(gemm16_wgmma_kernel)INS\d*_\d+(BF16|F16)ELi(\d+)"
                     r"ELi(\d+)ELb([01])E", mangled)
     g32 = re.search(r"(gemm_tf32x3_kernel)ILi(\d+)ELi(\d+)E", mangled)
-    p3 = re.search(r"(paged_chunked_wgmma_kernel)ILi(\d+)ELb([01])E", mangled)
+    p3 = re.search(r"(paged_chunked_wgmma(?:_ragged)?_kernel)ILi(\d+)"
+                   r"ELb([01])E", mangled)
     p1g = re.search(r"(paged_grouped_kernel)ILi(\d)E(13__nv_bfloat16|f)"
                     r"(S\d*_|[af])?Li(\d+)E", mangled)
+    p1r = re.search(r"(paged_ragged_kernel)ILi(\d)ELb([01])E"
+                    r"(13__nv_bfloat16|f)(S\d*_|[af])?Li(\d+)E", mangled)
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
     for name in ("conv3x3_tf32x3_kernel", "conv3x3_split_weights_kernel"):
@@ -387,13 +400,21 @@ def kernel_name(mangled):
             return f"{name}<f32>"
     if p3:
         int8 = ", int8 KV" if p3.group(3) == "1" else ""
-        return f"{p3.group(1)}<bf16{int8}, {p3.group(2)}>"
+        width = "width " if "ragged" in p3.group(1) else ""
+        return f"{p3.group(1)}<bf16{int8}, {width}{p3.group(2)}>"
     if p1g:
         mode = ("full", "window", "ring")[int(p1g.group(2))]
         return (f"{p1g.group(1)}<{mode}, "
                 f"{'f32' if p1g.group(3) == 'f' else 'bf16'}"
                 f"{', int8 KV' if p1g.group(4) == 'a' else ''}, "
                 f"{p1g.group(5)}>")
+    if p1r:
+        mode = ("full", "window", "ring")[int(p1r.group(2))]
+        return (f"{p1r.group(1)}<{mode}, "
+                f"{'grouped, ' if p1r.group(3) == '1' else ''}"
+                f"{'f32' if p1r.group(4) == 'f' else 'bf16'}"
+                f"{', int8 KV' if p1r.group(5) == 'a' else ''}, "
+                f"width {p1r.group(6)}>")
     if "expert_wgmma_kernel" in mangled:
         return "expert_wgmma_kernel<bf16>"
     if g16:
@@ -442,10 +463,9 @@ def flash_sass(sass, summary):
     """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
     library's SASS: (name, HGMMA count, registers, spill line) each. Fails
     unless every bf16 instance of each of the three kernels issues wgmma
-    (HGMMA) and they cover D 64 and 128 on the dense, the block-sparse and
-    the masked (the options') schedule, and D 256 on the dense and the
-    masked one, none of which spills (where a fresh build's ptxas log
-    reports them)."""
+    (HGMMA) and they cover D 64, 128 and 256 on the dense, the block-sparse
+    and the masked (the options') schedule, the D 256 ones spilling
+    nothing (where a fresh build's ptxas log reports them)."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     rows, covered = [], {k: set() for k in kinds}
@@ -468,14 +488,12 @@ def flash_sass(sass, summary):
                                "block-sparse" if "block-sparse" in name
                                else "masked" if "masked" in name
                                else "dense"))
-    want = {(d, sp) for d in ("64", "128")
+    want = {(d, sp) for d in ("64", "128", "256")
             for sp in ("dense", "block-sparse", "masked")}
     for kind, got in covered.items():
-        # D 256 on the dense and masked schedules (not the block-sparse)
-        want_kind = want | {("256", "dense"), ("256", "masked")}
-        if got != want_kind:
+        if got != want:
             fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
-                 f"{sorted(got)}, want {sorted(want_kind)}")
+                 f"{sorted(got)}, want {sorted(want)}")
     return rows
 
 
@@ -491,7 +509,8 @@ B_LAYOUTS = ("(K, N)", "(N, K)")
 
 def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
     """Phase 2: C1's bf16 and f32 (3xTF32) bodies, E1's bf16 body, P3's
-    bf16 body (D 32, 64, 80, 96, 128 and 256, bf16 and int8 pools) and
+    bf16 body (D 32, 64, 80, 96, 128 and 256, bf16 and int8 pools; its
+    ragged instances at the widths 64, 128 and 256) and
     every 8-, 16-bit and f32 GEMM instance in the SASS: (name, wgmma
     count, registers, spill line) each. Fails unless each issues HGMMA
     (each 8-bit GEMM instance its GEMM8_SASS instruction), C1 f32 and P3
@@ -508,15 +527,16 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
                 "conv3x3_wgmma_kernel", "gemm8_wgmma_kernel",
                 "gemm16_wgmma_kernel", "expert_wgmma_kernel",
                 "gemm_tf32x3_kernel", "conv3x3_tf32x3_kernel",
-                "paged_chunked_wgmma_kernel")):
+                "paged_chunked_wgmma_kernel",
+                "paged_chunked_wgmma_ragged_kernel")):
             continue
         name = kernel_name(mangled)
         m8 = re.search(r"gemm8_wgmma_kernel<(\w+), (\d+), (\d+)>", name)
         m16 = re.search(r"gemm16_wgmma_kernel<(\w+), (\d+), (\d+), "
                         r"B (.+)>", name)
         m32 = re.search(r"gemm_tf32x3_kernel<(\d+), (\d+)>", name)
-        mp3 = re.search(r"paged_chunked_wgmma_kernel<bf16(, int8 KV)?, "
-                        r"(\d+)>", name)
+        mp3 = re.search(r"paged_chunked_wgmma_(ragged_)?kernel<bf16"
+                        r"(, int8 KV)?, (?:width )?(\d+)>", name)
         want = GEMM8_SASS[m8.group(1)] if m8 else "HGMMA"
         n = chunk.count(want)
         r, sp = regs.get(name, (None, "not in the ptxas log"))
@@ -529,7 +549,8 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
                                       "stores"):
             fail(f"phase 2: {name} spills or keeps a stack frame: {sp}")
         if mp3:
-            got.add(("p3", int(mp3.group(2)), bool(mp3.group(1))))
+            got.add(("p3 ragged" if mp3.group(1) else "p3",
+                     int(mp3.group(3)), bool(mp3.group(2))))
         elif "conv3x3_tf32x3" in name:
             got.add("conv3x3 f32")
         elif m8:
@@ -546,7 +567,8 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
         for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
         | {"conv3x3", "conv3x3 f32", "expert"} \
         | {("p3", d, q) for d in (32, 64, 80, 96, 128, 256)
-           for q in (False, True)}
+           for q in (False, True)} \
+        | {("p3 ragged", d, q) for d in (64, 128, 256) for q in (False, True)}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -1254,7 +1276,7 @@ def profile_step(step, model, tokens):
                "flash forward" if "flash_fwd" in n else
                "paged chunked (P3)" if "paged_chunked" in n else
                "paged decode (P1)" if re.search(
-                   r"paged_(decode|window|ring|grouped)_kernel", n) else
+                   r"paged_(decode|window|ring|grouped|ragged)_kernel", n) else
                "K0 @cube" if re.search(r"_(rmsnorm|layernorm|gelu|softmax)_"
                                        r"(fwd|bwd)_k", n) else
                "S1 backward" if "scan_bwd_kernel" in n else
@@ -1784,7 +1806,10 @@ def _paged_counts(fa, pa):
             "paged_attention_window": pa.paged_attention.window_launches,
             "paged_attention_ring": pa.paged_attention.ring_launches,
             "paged_attention_grouped": pa.paged_attention.grouped_launches,
-            "paged_attention_chunked": pa.paged_attention_chunked.launches}
+            "paged_attention_ragged": pa.paged_attention.ragged_launches,
+            "paged_attention_chunked": pa.paged_attention_chunked.launches,
+            "paged_attention_chunked_ragged":
+                pa.paged_attention_chunked.ragged_launches}
 
 
 def _reset_paged(fa, pa):
@@ -1793,7 +1818,9 @@ def _reset_paged(fa, pa):
     pa.paged_attention.window_launches = 0
     pa.paged_attention.ring_launches = 0
     pa.paged_attention.grouped_launches = 0
+    pa.paged_attention.ragged_launches = 0
     pa.paged_attention_chunked.launches = 0
+    pa.paged_attention_chunked.ragged_launches = 0
 
 
 def _check_paged(fa, pa, what, want):
@@ -4036,7 +4063,7 @@ def _bsp_launches(fa):
 
 
 def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
-             timed, phase="x"):
+             timed, phase="x", beside=None):
     """One block-sparse case: forward and backward through autograd (A5,
     A6, A7 once each, counted from 0), then each kernel against the plain
     version on the kernel's own o and lse; with ``timed`` each kernel's
@@ -4046,7 +4073,9 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
     ``fa.SPARSE_HEAD_DIMS``, as ``flash_attention_block_sparse`` pads it:
     the kernels are called on the padded tensors and their outputs sliced
     to D; plain versions and SDPA run at the real D, and the bounds are
-    given at both."""
+    given at both. With ``beside`` (a head dim) and ``timed``, each kernel
+    also with a cold L2 (``cold_ms``), beside the same call at that D
+    (``d{beside}_cold_ms``)."""
     q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
                    for _ in range(4))
     Dp = next(d for d in fa.SPARSE_HEAD_DIMS if D <= d)
@@ -4156,6 +4185,27 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
         row["library_fwd_ms"] = cuda_ms(lambda: sdpa(q, k, v))
         row["library_bwd_ms"] = cuda_ms(grad_call(sdpa, (q, k, v), do))
         del el
+        if beside:
+            def three(q_, k_, v_, do_, lse_, di_, sc_):
+                return {"fwd": cold_ms(lambda: fa.bsp_forward(
+                            q_, k_, v_, sched, causal, sc_, bq_, bk_, True)),
+                        "dq": cold_ms(lambda: fa.bsp_dq(
+                            q_, k_, v_, do_, lse_, di_, sched, causal, sc_,
+                            bq_, bk_)),
+                        "dkv": cold_ms(lambda: fa.bsp_dkv(
+                            q_, k_, v_, do_, lse_, di_, sched, causal, sc_,
+                            bq_, bk_))}
+
+            row["cold_ms"] = three(qp, kp, vp, dop, lse, di, scale)
+            qb, kb, vb, dob = (torch.randn(B, H, S, beside, generator=gen,
+                                           device=dev).to(dt)
+                               for _ in range(4))
+            ob, lseb = fa.bsp_forward(qb, kb, vb, sched, causal,
+                                      beside ** -0.5, bq_, bk_, True)
+            row[f"d{beside}_cold_ms"] = three(
+                qb, kb, vb, dob, lseb, (dob.float() * ob.float()).sum(-1),
+                beside ** -0.5)
+            del qb, kb, vb, dob, ob, lseb
 
         def bound(what_):
             b = f"bound {bounds[what_][0]:.4f}"
@@ -4174,7 +4224,13 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
                + f"); plain forward {row['plain_fwd_ms']:.4f} ms, backward "
                f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
                f"forward {row['library_fwd_ms']:.4f} ms, backward "
-               f"{row['library_bwd_ms']:.4f} ms")
+               f"{row['library_bwd_ms']:.4f} ms"
+               + ("; cold L2: A5 / A6 / A7 " + " / ".join(
+                   f"{row['cold_ms'][w]:.4f}" for w in ("fwd", "dq", "dkv"))
+                  + f" ms, the same calls at D {beside} " + " / ".join(
+                      f"{row[f'd{beside}_cold_ms'][w]:.4f}"
+                      for w in ("fwd", "dq", "dkv")) + " ms"
+                  if beside else ""))
     print(f"phase {phase} {what}: {int(pruned.sum())} live tiles, "
           f"{len(empty)} kv tiles attended by none; launches {launches}, "
           f"forward + backward {path_s:.4f} s; max abs err o {err_o}, lse "
@@ -5301,8 +5357,11 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
         0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
     out = {}
     tag = f"llama at {model_name}'s widths ({n_params / 1e9:.3f}B bf16)"
-    # P1's row groups: a launch past 8 query heads a kv head is grouped
+    # P1's row groups: a launch past 8 query heads a kv head is grouped;
+    # at a head dim without an instance of its own every P1 and P3 launch
+    # is a ragged instance's
     grouped = cfg.n_heads // cfg.n_kv_heads > 8
+    ragged = cfg.head_dim not in pa.PAGED_HEAD_DIMS
 
     # generate: prefill + steps greedy
     torch.cuda.reset_peak_memory_stats()
@@ -5312,7 +5371,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_gen = _check_paged(fa, pa, f"phase {phase} generate", {
         "flash_attention": L, "paged_attention": L * steps,
-        "paged_attention_grouped": L * steps * grouped})
+        "paged_attention_grouped": L * steps * grouped,
+        "paged_attention_ragged": L * steps * ragged})
     if toks.shape != (B, steps) or not ((toks >= 0)
                                         & (toks < cfg.vocab)).all():
         fail(f"phase {phase} generate: bad tokens {tuple(toks.shape)}")
@@ -5353,7 +5413,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
             model, prompt[0], bsteps, beams=nb, page=page))
         n_beam = _check_paged(fa, pa, f"phase {phase} beam_generate", {
             "flash_attention": L, "paged_attention": L * (bsteps - 1),
-            "paged_attention_grouped": L * (bsteps - 1) * grouped})
+            "paged_attention_grouped": L * (bsteps - 1) * grouped,
+            "paged_attention_ragged": L * (bsteps - 1) * ragged})
         if btoks.shape != (nb, S + bsteps) or not torch.equal(
                 btoks[:, :S], prompt[:1].expand(nb, S)) or not \
                 torch.isfinite(bscores).all() or \
@@ -5376,7 +5437,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     (l_chunk, c1), chunk_s = _timed(lambda: llama.prefill_chunked(
         model, c1, prompt, t["chunk"]))
     n_chunk = _check_paged(fa, pa, f"phase {phase} prefill_chunked", {
-        "paged_attention_chunked": L * S // t["chunk"]})
+        "paged_attention_chunked": L * S // t["chunk"],
+        "paged_attention_chunked_ragged": L * S // t["chunk"] * ragged})
     if not torch.isfinite(l_chunk.float()).all():
         fail(f"phase {phase} prefill_chunked: non-finite logits")
     d_chunk = (l_chunk.float() - want_logits[:, 0]).abs().max().item()
@@ -5402,7 +5464,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     (l5, c1), verify_s = _timed(lambda: llama.decode_chunk(
         model, c1, want[:, :g + 1]))
     n_verify = _check_paged(fa, pa, f"phase {phase} decode_chunk", {
-        "paged_attention_chunked": L})
+        "paged_attention_chunked": L,
+        "paged_attention_chunked_ragged": L * ragged})
     # the logits after chunk token i are the decode steps' after token i
     d_verify = (l5.float() - want_logits[:, 1:g + 2]).abs().max().item()
     prof = {}
@@ -5470,7 +5533,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
     n8 = _check_paged(fa, pa, f"phase {phase} int8 KV", {
         "flash_attention": L, "paged_attention": L * steps,
         "paged_attention_int8": L * steps,
-        "paged_attention_grouped": L * steps * grouped})
+        "paged_attention_grouped": L * steps * grouped,
+        "paged_attention_ragged": L * steps * ragged})
     agree8 = (lg8.argmax(-1) == want[:, 0]).float().mean().item()
     del m8, c8
     torch.cuda.empty_cache()
@@ -5497,7 +5561,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
         nw = _check_paged(fa, pa, f"phase {phase} windowed decode", {
             "flash_attention": L, "paged_attention": L * z["steps"],
             "paged_attention_window": L * z["steps"],
-            "paged_attention_grouped": L * z["steps"] * grouped})
+            "paged_attention_grouped": L * z["steps"] * grouped,
+            "paged_attention_ragged": L * z["steps"] * ragged})
         if not torch.isfinite(lgw).all():
             fail(f"phase {phase} windowed decode: non-finite logits")
         del mw, cw, pw, lgw
@@ -5525,7 +5590,8 @@ def serve_at_widths(llama, pa, fa, dev, card, phase, widths, t, model_name,
         nr = _check_paged(fa, pa, f"phase {phase} ring decode", {
             "paged_attention": L * r["steps"],
             "paged_attention_ring": L * r["steps"],
-            "paged_attention_grouped": L * r["steps"] * grouped})
+            "paged_attention_grouped": L * r["steps"] * grouped,
+            "paged_attention_ragged": L * r["steps"] * ragged})
         if rc.k.shape[2] != r["B"] * r["pages"] or \
                 int(rc.lengths.min()) != r["steps"] or \
                 not torch.isfinite(lgr).all():
@@ -5556,6 +5622,7 @@ def exactness_at_widths(llama, pa, fa, dev, card, phase, widths, e,
     cfg = llama.LlamaConfig(**dict(widths, n_layers=e["layers"]),
                             seq=e["S"], use_framework_kernels=False)
     grouped = cfg.n_heads // cfg.n_kv_heads > 8
+    ragged = cfg.head_dim not in pa.PAGED_HEAD_DIMS
     L, B, steps = cfg.n_layers, e["B"], e["steps"]
     model = llama.init_params(cfg, seed=1, device=dev)
     rng = np.random.default_rng(44)
@@ -5601,7 +5668,10 @@ def exactness_at_widths(llama, pa, fa, dev, card, phase, widths, e,
               "paged_attention_window": L * ns,
               "paged_attention_ring": L * ns, "paged_attention_int8": 0,
               "paged_attention_grouped": L * (steps + 2 * ns) * grouped,
-              "paged_attention_chunked": L * (1 + -(-e["S"] // e["chunk"]))}
+              "paged_attention_ragged": L * (steps + 2 * ns) * ragged,
+              "paged_attention_chunked": L * (1 + -(-e["S"] // e["chunk"])),
+              "paged_attention_chunked_ragged":
+                  L * (1 + -(-e["S"] // e["chunk"])) * ragged}
     if runs[True]["launches"] != want_n:
         fail(f"phase {phase}: kernel launches {runs[True]['launches']}, want "
              f"{want_n}")
@@ -5633,7 +5703,9 @@ def exactness_at_widths(llama, pa, fa, dev, card, phase, widths, e,
                 "flash_attention": L * kernels,
                 "paged_attention": L * (e["beam_steps"] - 1) * kernels,
                 "paged_attention_grouped":
-                    L * (e["beam_steps"] - 1) * kernels * grouped})
+                    L * (e["beam_steps"] - 1) * kernels * grouped,
+                "paged_attention_ragged":
+                    L * (e["beam_steps"] - 1) * kernels * ragged})
         (tk_b, sk_b), (tp_b, sp_b) = beams[True], beams[False]
         errs["beam scores"] = (sk_b - sp_b).abs().max().item()
         if not torch.equal(tk_b, tp_b) or errs["beam scores"] > LOGIT_TOL:
@@ -6317,9 +6389,9 @@ def serve_d80_d32(llama, pa, fa, dev, gen, card):
     layers (``exactness_at_widths``)."""
     t0 = time.perf_counter()
     out = {}
-    # a head dim with no instance is refused on the card before any
-    # launch, naming ROADMAP Queue 2a
-    for D in (48, 288):
+    # a head dim past 256 is refused on the card before any launch, naming
+    # ROADMAP Queue 2a (every D up to 256 runs: phase zh)
+    for D in (288, 320):
         q = torch.zeros(2, 4, D, device=dev, dtype=torch.bfloat16)
         kp = torch.zeros(1, 2, 4, 16, D, device=dev, dtype=torch.bfloat16)
         table = torch.arange(4, device=dev, dtype=torch.int32).view(2, 2)
@@ -6334,7 +6406,7 @@ def serve_d80_d32(llama, pa, fa, dev, gen, card):
             except ValueError as e:
                 if "Queue 2a" not in str(e):
                     fail(f"phase zf1: {what} at D {D} raised {e}")
-    print(f"phase zf1: P1 and P3 refuse D 48 and 288 on the card, naming "
+    print(f"phase zf1: P1 and P3 refuse D 288 and 320 on the card, naming "
           f"ROADMAP Queue 2a [{card}]", flush=True)
     for D in (D80, D32):
         out[f"p1 d{D}"] = p1_vs_plain(pa, dev, gen, card, "zf1", ZF_P1[D],
@@ -6591,6 +6663,137 @@ def mamba_train_and_padded_bsp(mamba, ssm, fa, dev, gen, card):
     return out
 
 
+# -- phase zh: every head dim up to 256 (A5-A7 at D 256; P1/P3 ragged) ----
+
+# zh1: GPT-J-6B's attention widths (16 heads of 256) in phase x's
+# long-context block-sparse training shape (B 1 x S 8192, bf16, causal,
+# the band mask at block 512), each kernel timed with a cold L2 beside the
+# same call at D 128; then S 1024 cases at D 256 and at D 160 and 192
+# (padded to 256): (name, H, D, dtype, causal, block_q, block_k, mask)
+ZH_BSP_MAIN = dict(B=1, H=16, S=8192, D=D256, dtype=torch.bfloat16,
+                   block=512)
+ZH_BSP_CASES = [
+    ("D256 f32 holed", 16, D256, torch.float32, True, 128, 128, "holed"),
+    ("D256 bf16 non-causal band", 16, D256, torch.bfloat16, False, 128, 128,
+     "band"),
+    ("D256 bf16 bq 128 x bk 64, F9 rows", 16, D256, torch.bfloat16, True,
+     128, 64, "f9"),
+    ("D256 f32 bq 128 x bk 64, F9 rows", 16, D256, torch.float32, True, 128,
+     64, "f9"),
+    ("D160 bf16 holed", 16, 160, torch.bfloat16, True, 128, 128, "holed"),
+    ("D160 f32 non-causal band", 16, 160, torch.float32, False, 128, 128,
+     "band"),
+    ("D192 bf16 bq 128 x bk 64, F9 rows", 16, 192, torch.bfloat16, True,
+     128, 64, "f9"),
+    ("D192 f32 holed", 16, 192, torch.float32, True, 128, 128, "holed"),
+]
+# MPT-30B's widths (mosaicml/mpt-30b's config.json: d_model 7168, n_heads
+# 64, so 64 heads of 112 with no GQA, n_layers 48, expansion_ratio 4:
+# d_ff 28672, vocab_size 50432) through the llama's block, which differs
+# from MPT's in RMSNorm for LayerNorm, SwiGLU over three 28672-wide
+# matrices for its GELU MLP over two, and RoPE (theta 10000) for ALiBi:
+# 1.64 GB of bf16 weights a layer. At its 48 layers that is 79 GB, the
+# whole card, so phase zh3 serves 8 of them (13.2 GB, plus 1.45 GB of
+# embeddings and about 2.1 GB of pools), as phase zc cut Mistral-Large-2
+D112 = 112
+MPT_30B = dict(vocab=50432, d_model=7168, n_heads=64, n_kv_heads=64,
+               n_layers=48, d_ff=28672, rope_theta=10000.0, rms_eps=1e-5)
+ZH_LAYERS = 8
+# zh2, P1 at head dims without an instance of their own (J_CASES'
+# columns): MPT-30B's serving decode at D 112 (B 8 x 64 kv heads of one
+# query head, context 1056, pages of 128), G 4 at context 4096, G 12 on
+# one kv head (the grouped kernel), G 4 ragged with a length-0 row on
+# pages of 7; each in full, window + sinks and ring mode on bf16, int8 and
+# f32 pools (a ring row's length: its length plus half the table's
+# capacity, a length 0 stays 0). At D 48, 100 (a bf16 row of 200 bytes, no
+# multiple of 16: 8-byte copies; int8 100 bytes: 4-byte), 160, 192 and 200
+# the ragged G 4 layout alone
+ZH_LAYOUTS = {
+    D112: [("mpt-30b serve", 8, 4, 64, 1, 128, 9, [1056] * 8, (512, 4)),
+           ("G4 ctx4096", 8, 4, 8, 4, 128, 33, [4096] * 8, (2000, 4)),
+           ("G12 grouped", 4, 2, 1, 12, 128, 16, [2048] * 4, (1024, 4))]}
+ZH_RAGGED_DIMS = (48, 100, D112, 160, 192, 200)
+ZH_P1 = {D: [
+    (f"{name} {kind} {mode}", B, L, Hkv, G, D, page, mp,
+     [n + page * mp // 2 if n and mode == "ring" else n for n in lens],
+     kind, mode, *(opts if mode != "full" else (0, 0)))
+    for name, B, L, Hkv, G, page, mp, lens, opts in ZH_LAYOUTS.get(D, []) + [
+        ("G4 page7 ragged", 5, 2, 2, 4, 7, 40, [0, 7, 70, 129, 280],
+         (50, 9))]
+    for kind in KV_KINDS for mode in ("full", "window", "ring")]
+    for D in ZH_RAGGED_DIMS}
+# zh2, P3 (CHUNKED_CASES' columns): at D 112 the verify step (C 5) and
+# chunked prefill (C 256) from 0 and from 768 on MPT-30B's layout; at every
+# D a ragged G 4 batch on pages of 7 with a length-0 row; each on bf16,
+# int8 and f32 pools
+ZH_P3 = {D: [
+    (f"{name} {kind}", B, L, Hkv, G, C, D, page, mp, starts, lens,
+     KV_KINDS[kind][0], kind == "int8")
+    for name, B, L, Hkv, G, C, page, mp, starts, lens in ([
+        ("mpt-30b verify", 8, 4, 64, 1, 5, 128, 9, [1051] * 8, None),
+        ("mpt-30b prefill start 0", 8, 4, 64, 1, 256, 128, 9, [0] * 8,
+         None),
+        ("mpt-30b prefill start 768", 8, 4, 64, 1, 256, 128, 9, [768] * 8,
+         None)] if D == D112 else []) + [
+        ("ragged G4 page7", 4, 2, 2, 4, 16, 7, 40, [0, 1, 127, 200],
+         [0, 17, 143, 216])]
+    for kind in KV_KINDS]
+    for D in ZH_RAGGED_DIMS}
+# the exact instance each D is timed beside (cold L2, the same call): its
+# ragged instance's width, the next of 64, 128 and 256
+ZH_BESIDE = {D: next(w for w in (64, 128, 256) if D <= w)
+             for D in ZH_RAGGED_DIMS}
+
+
+def every_head_dim(llama, pa, fa, dev, gen, card):
+    """Phase zh: every head dim up to 256 on the card. zh1 A5-A7 at D 256
+    (GPT-J-6B's heads at ZH_BSP_MAIN, timed with a cold L2 beside D 128;
+    then ZH_BSP_CASES, D 160 and 192 padded to 256, F9's rows among them);
+    zh2 P1 in every mode on every pool (ZH_P1) and P3 (ZH_P3) at head dims
+    without an instance of their own, each against its plain version and
+    timed (cold L2) beside the same call at its ragged width (ZH_BESIDE);
+    zh3 the llama at MPT-30B's widths (8 of 48 layers, 64 heads of 112)
+    served through ``serve_at_widths``; zh4 its f32 exactness with 2
+    layers (``exactness_at_widths``)."""
+    t0 = time.perf_counter()
+    out = {}
+    m = ZH_BSP_MAIN
+    bsp = {"main": bsp_case(fa, dev, gen, card, "GPT-J-6B heads", m["B"],
+                            m["H"], m["S"], m["D"], m["dtype"], True,
+                            m["block"], m["block"], "band", True, "zh1",
+                            beside=128)}
+    for name, H, D, dt, causal, bq, bk, kind in ZH_BSP_CASES:
+        bsp[name] = bsp_case(fa, dev, gen, card, name, 1, H, 1024, D, dt,
+                             causal, bq, bk, kind, False, "zh1")
+    out["zh1"] = bsp
+    # past 256 the card still refuses, naming ROADMAP Queue 2a
+    for D in (288, 320):
+        q = torch.zeros(1, 2, 256, D, device=dev, dtype=torch.bfloat16)
+        try:
+            fa.flash_attention_block_sparse(q, q, q, np.ones((2, 2), bool),
+                                            True, None, 128, 128)
+            fail(f"phase zh1: block-sparse attention at D {D} did not raise")
+        except NotImplementedError as e:
+            if "Queue 2a" not in str(e):
+                fail(f"phase zh1: block-sparse attention at D {D} raised {e}")
+    print(f"phase zh1: block-sparse attention refuses D 288 and 320 on the "
+          f"card, naming ROADMAP Queue 2a [{card}]", flush=True)
+    for D in ZH_RAGGED_DIMS:
+        out[f"p1 d{D}"] = p1_vs_plain(pa, dev, gen, card, "zh2", ZH_P1[D],
+                                      beside=ZH_BESIDE[D])
+        out[f"p3 d{D}"] = chunked_vs_plain(pa, dev, gen, card, "zh2",
+                                           ZH_P3[D], beside=ZH_BESIDE[D])
+    out["mpt-30b"] = serve_at_widths(llama, pa, fa, dev, card, "zh3",
+                                     MPT_30B, ZD_SERVE, "MPT-30B",
+                                     layers=ZH_LAYERS, paths=ZD2_PATHS,
+                                     exact_phase="zh4")
+    out["exact"] = exactness_at_widths(llama, pa, fa, dev, card, "zh4",
+                                       MPT_30B, PHI3_EXACT, "MPT-30B")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase zh took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6669,7 +6872,8 @@ def main():
     # (a library reused from an earlier build has no ptxas log)
     p1_spill = [(n, sp) for n, _, sp in summary
                 if n.startswith(("paged_decode_kernel", "paged_window_kernel",
-                                 "paged_ring_kernel", "paged_grouped_kernel"))
+                                 "paged_ring_kernel", "paged_grouped_kernel",
+                                 "paged_ragged_kernel"))
                 and not sp.startswith(
                     "0 bytes stack frame, 0 bytes spill stores")]
     if p1_spill:
@@ -6975,6 +7179,9 @@ def main():
     # -- phase zg: Mamba trained (S1's backward); A5-A7 at D 32, 80, 96 -----
     zg = mamba_train_and_padded_bsp(mamba, ssm, fa, dev, gen, card)
 
+    # -- phase zh: every head dim up to 256 (A5-A7 at D 256; P1/P3 ragged) --
+    zh = every_head_dim(llama, pa, fa, dev, gen, card)
+
     def row(name, source, replaces, n, r, library_ms, **extra):
         # bound_by is "bytes" or "operations"; an f32 product bounded by
         # three TF32 products says so in bound_term
@@ -7124,6 +7331,55 @@ def main():
 
     zc_serve = zc["serve"]
     zd_serve = zd["serve"]
+    zh_main = zh["zh1"]["main"]
+    zh_small = {k: {f: v[f] for f in ("head_dim", "kernel_head_dim",
+                                      "max_abs_err", "o_err", "dq_err",
+                                      "dkv_err", "empty_kv_tiles")}
+                for k, v in zh["zh1"].items() if k != "main"}
+    zh_serve = zh["mpt-30b"]
+
+    def zh_bsp_row(name, source, replaces, what):
+        # zh1's main case: GPT-J-6B's 16 heads of 256, ms with a cold L2
+        err = {"fwd": "o_err", "dq": "dq_err", "dkv": "dkv_err"}[what]
+        return row(name, source, replaces, zh_main["launches"][
+                       {"fwd": "bsp_forward", "dq": "bsp_dq",
+                        "dkv": "bsp_dkv"}[what]],
+                   dict(max_abs_err=zh_main[err],
+                        ms=zh_main["cold_ms"][what],
+                        plain_ms=zh_main["plain_fwd_ms" if what == "fwd"
+                                         else "plain_bwd_ms"],
+                        **zh_main["bounds"][what]),
+                   zh_main["library_fwd_ms" if what == "fwd"
+                           else "library_bwd_ms"],
+                   library=bsp_lib + ("" if what == "fwd" else
+                                      ", its autograd backward (dq, dk, "
+                                      "dv together)"),
+                   shape="bf16 B1 H16 S8192 D256 (GPT-J-6B's heads), "
+                         "causal, blocks 512, band i-1..i + global tile 0; "
+                         "ms: cold L2",
+                   warm_ms=zh_main[f"{what}_ms"],
+                   d128_cold_ms=zh_main["d128_cold_ms"][what],
+                   live_pairs_per_head=zh_main["live_pairs_per_head"],
+                   kernel_symbols={
+                       "fwd": "flash_fwd_wgmma_kernel<bf16, 256, "
+                              "SparseQTiles> (f32: flash_fwd_kernel<float, "
+                              "256, SparseQTiles>)",
+                       "dq": "flash_bwd_dq_wide_kernel<bf16, 256, "
+                             "SparseQTiles> (f32: flash_bwd_dq_sliced_"
+                             "kernel<float, 256, SparseQTiles>)",
+                       "dkv": "flash_bwd_dkv_wide_kernel<bf16, 256, "
+                              "SparseKVTiles> (f32: flash_bwd_dkv_sliced_"
+                              "kernel<float, 256, SparseKVTiles>)"}[what],
+                   launches_path="phase zh1: forward and backward through "
+                                 "autograd at GPT-J-6B's heads",
+                   **({"plain_ms_is": "the whole plain backward (dq, dk, "
+                       "dv)"} if what != "fwd" else {}),
+                   **({"s1024_cases_d256_d160_d192": zh_small}
+                      if what == "fwd" else {}))
+
+    def zh_cases(kind):  # zh2's cases of every ragged D, keyed by D
+        return {f"D{D} {k}": v for D in ZH_RAGGED_DIMS
+                for k, v in zh[f"{kind} d{D}"].items()}
 
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
@@ -7721,6 +7977,69 @@ def main():
           for D, model, name, phase in (
               (D80, "phi-2", "Phi-2", "zf2"),
               (D32, "pythia-31m", "Pythia-31M", "zf3"))),
+        zh_bsp_row("flash_attention_block_sparse_d256",
+                   "cubecl_tpu_torch/csrc/flash_attention.cu (with "
+                   "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1109",
+                   "fwd"),
+        zh_bsp_row("flash_attention_block_sparse_dq_d256",
+                   "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
+                   "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1228",
+                   "dq"),
+        zh_bsp_row("flash_attention_block_sparse_dkv_d256",
+                   "cubecl_tpu_torch/csrc/flash_attention_bwd.cu (with "
+                   "csrc/flash_tiles.cuh)", "cubecl_tpu/ops/attention.py:1316",
+                   "dkv"),
+        zb_row("paged_attention_ragged",
+               "cubecl_tpu_torch/csrc/paged_ragged.cu (with "
+               "csrc/paged_decode.cuh)",
+               "cubecl_tpu/ops/paged_attention.py:247",
+               zh_serve["generate"]["launches"]["paged_attention_ragged"],
+               f"D{D112} mpt-30b serve bf16 full", zh_cases("p1"), None,
+               keys=("cold_ms", "d128_cold_ms", "splits"),
+               shape="bf16 B8 Hkv64 G1 D112 context 1056 (MPT-30B), "
+                     "4-layer pool (ms: back to back, each launch on the "
+                     "next layer; d128_cold_ms: the same call at D 128, "
+                     "the width its ragged instance runs in)",
+               kernel_symbols="paged_ragged_kernel<MODE, GROUPED, T, TK, "
+                              "DP> (DP 64, 128 or 256: the next width up; "
+                              "every mode, past 8 rows a kv head grouped), "
+                              "then paged_combine_ragged_kernel<T, DP> "
+                              "where split",
+               launches_path=f"phase zh3: generate, 8 x 1024 + 32 steps, "
+                             f"{ZH_LAYERS} layers (MPT-30B's widths), every "
+                             "launch ragged "
+                             "(paged_attention.ragged_launches)",
+               int8_launches=zh_serve["int8"]["launches"][
+                   "paged_attention_int8"],
+               window_launches=zh_serve["window"]["launches"][
+                   "paged_attention_window"],
+               ring_launches=zh_serve["ring"]["launches"][
+                   "paged_attention_ring"],
+               mpt_30b_serve=zh_serve, exactness_f32=zh["exact"],
+               phase_seconds=zh["seconds"]),
+        zb_row("paged_attention_chunked_ragged",
+               "cubecl_tpu_torch/csrc/paged_chunked.cu",
+               "cubecl_tpu/ops/paged_attention.py:675",
+               zh_serve["prefill_chunked"]["launches"][
+                   "paged_attention_chunked_ragged"]
+               + zh_serve["verify"]["launches"][
+                   "paged_attention_chunked_ragged"]
+               + sum(v["launches"]["paged_attention_chunked"]
+                     for v in zh_serve["speculative"].values()),
+               f"D{D112} mpt-30b verify bf16", zh_cases("p3"), None,
+               keys=("cold_ms", "d128_cold_ms", "splits"),
+               shape="verify: bf16 B8 Hkv64 G1 C5 D112 context 1056 "
+                     "(MPT-30B); d128_cold_ms: the same call at D 128",
+               kernel_symbols={
+                   "bf16": "paged_chunked_wgmma_ragged_kernel<DP, QUANT> "
+                           "(DP 64, 128 or 256; the columns past D zeros, "
+                           "never stored), then "
+                           "paged_combine_ragged_kernel<bf16, DP> where "
+                           "split",
+                   "f32": "paged_chunked_ragged_kernel<float, TK, DP>"},
+               launches_path=f"phase zh3: prefill_chunked, the verify step "
+                             "and speculative decoding's verify rounds "
+                             "(MPT-30B's widths, every launch ragged)"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

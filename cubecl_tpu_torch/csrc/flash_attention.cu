@@ -69,8 +69,8 @@
 // products a k16 step (columns 0..127, 128..255), and Q K^T's 16 k16
 // steps make their descriptors beside each product instead of keeping 32
 // registers of them across the loop. f32 keeps its body (214,016 bytes
-// of shared memory: one block an SM). A5's block-sparse schedule is not
-// built at D 256.
+// of shared memory: one block an SM). A5 runs the same D 256 bodies on the
+// block-sparse schedule (ops/attention.py pads D 129-255 to 256).
 //
 // A1's options (kv_len, segment ids, a sliding window) and A8's window are
 // the same bodies on the masked schedule of flash_tiles.cuh
@@ -642,9 +642,7 @@ int launch_f32_any(const void* q, const void* k, const void* v, void* o,
                                  scale_log2, causal, blocks, tiles, st)
   if (D == 64) return CUBECL_FLASH(64);
   if (D == 128) return CUBECL_FLASH(128);
-  // D 256: A1 alone (the dense and masked schedules); A5 stays at 64, 128
-  if constexpr (!Tiles::kSparse)
-    if (D == 256) return CUBECL_FLASH(256);
+  if (D == 256) return CUBECL_FLASH(256);
 #undef CUBECL_FLASH
   return cudaErrorInvalidValue;
 }
@@ -661,8 +659,7 @@ int launch_bf16_any(const void* q, const void* k, const void* v, void* o,
                                     scale_log2, causal, blocks, tiles, st)
   if (D == 64) return CUBECL_FLASH(64);
   if (D == 128) return CUBECL_FLASH(128);
-  if constexpr (!Tiles::kSparse)
-    if (D == 256) return CUBECL_FLASH(256);
+  if (D == 256) return CUBECL_FLASH(256);
 #undef CUBECL_FLASH
   return cudaErrorInvalidValue;
 }

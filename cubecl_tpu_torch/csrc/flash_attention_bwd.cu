@@ -85,8 +85,8 @@
 // may have at D = 128.
 //
 // D 256 (GPT-J-6B's and Qwen3-Next's head dim) has bodies of its own, on
-// the dense and the masked schedules (the block-sparse ones are not built
-// there): the ones above run out of room. At D 256 a bf16 consumer's dK and
+// every schedule (A6 and A7 too, with F9's rows as above): the ones above
+// run out of room. At D 256 a bf16 consumer's dK and
 // dV would be 256 f32 registers a thread (setmaxnreg grants 240), and
 // their shared memory (NC tiles of K, V and 3 ring stages, 32 KB a tile)
 // 320 KB of the 227 KB a block may hold; the f32 bodies' staging takes
@@ -479,8 +479,7 @@ flash_bwd_dkv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             T* __restrict__ dv, int H, int Hkv, int Sq,
                             int Skv, float scale, float scale_log2,
                             int causal, Tiles tiles) {
-  static_assert(D == 256 && !Tiles::kSparse,
-                "the sliced body is built for D 256, dense or masked");
+  static_assert(D == 256, "the sliced body is built for D 256");
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // [D][BN]
   float* Vt = Kt + D * BN;                      // [D][BN]
@@ -566,6 +565,9 @@ flash_bwd_dkv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
             ok = row < q_end && col < k_end && (!causal || col <= row);
           const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
           s[i][j] = p;
+          // an F9 row: p = 1/n on each visited column, for dV only
+          if constexpr (Tiles::kSparse)
+            if (row < f9_end && row < q_end && col < k_end) s[i][j] = inv_n;
           dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
         }
       }
@@ -596,8 +598,7 @@ flash_bwd_dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const float* __restrict__ di, T* __restrict__ dq,
                            int H, int Hkv, int Sq, int Skv, float scale,
                            float scale_log2, int causal, Tiles tiles) {
-  static_assert(D == 256 && !Tiles::kSparse,
-                "the sliced body is built for D 256, dense or masked");
+  static_assert(D == 256, "the sliced body is built for D 256");
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][BM]
   float* dOt = Qt + D * BM;                     // [D][BM]
@@ -1339,9 +1340,8 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           T* __restrict__ dv, int H, int Hkv, int Sq,
                           int Skv, float scale, float scale_log2, int causal,
                           Tiles tiles) {
-  static_assert(sizeof(T) == 2 && D == 256 && !Tiles::kSparse,
-                "the wide body takes 16-bit inputs at D 256, dense or "
-                "masked");
+  static_assert(sizeof(T) == 2 && D == 256,
+                "the wide body takes 16-bit inputs at D 256");
   using L = WideSmem<true>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -1507,6 +1507,24 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
           p_buf[128 * u] =
               make_float4(s[4 * u], s[4 * u + 1], s[4 * u + 2], s[4 * u + 3]);
         named_arrive(1, 256);
+        // an F9 row (its tile crosses the diagonal, so `edge` held): p = 1/n
+        // on each visited column, for dV only (dS took the p above, 0)
+        if constexpr (Tiles::kSparse) {
+          if (q0 < f9_end) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int row = q0 + 8 * j + col_l + e;
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                  const int col = k0 + row_l + 8 * i;
+                  if (row < f9_end && row < q_end && col < k_end)
+                    s[4 * j + 2 * i + e] = inv_n;
+                }
+              }
+          }
+        }
         pack_a(s, a);
       } else {
         const float* di_s =
@@ -1567,9 +1585,8 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ di, T* __restrict__ dq,
                          int H, int Hkv, int Sq, float scale,
                          float scale_log2, int causal, Tiles tiles) {
-  static_assert(sizeof(T) == 2 && D == 256 && !Tiles::kSparse,
-                "the wide body takes 16-bit inputs at D 256, dense or "
-                "masked");
+  static_assert(sizeof(T) == 2 && D == 256,
+                "the wide body takes 16-bit inputs at D 256");
   using L = WideSmem<false>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -1795,8 +1812,8 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
 
 // The (dtype, head_dim) instances of one schedule: f32 on the CUDA-core
 // bodies (one 64-row tile to a block), bf16 on the wgmma bodies (NC 64-row
-// tiles to a block, one at D 256; `tiles` counts the launch's tiles so);
-// D 256 on the dense and masked schedules only. The launchers of both
+// tiles to a block, one at D 256; `tiles` counts the launch's tiles so),
+// on every schedule. The launchers of both
 // bodies take the same arguments. Neither falls back on the other: an
 // error of the chosen body is returned as it is.
 constexpr int tiles_per_block(int dtype, int D) {
@@ -1820,12 +1837,10 @@ int launch_dkv_any(const void* q, const void* k, const void* v,
     return CUBECL_DKV((launch_dkv_wgmma<64, Tiles>));
   if (dtype == kBF16 && D == 128)
     return CUBECL_DKV((launch_dkv_wgmma<128, Tiles>));
-  if constexpr (!Tiles::kSparse) {  // D 256: the dense and masked schedules
-    if (dtype == kF32 && D == 256)
-      return CUBECL_DKV((launch_dkv<float, 256, Tiles>));
-    if (dtype == kBF16 && D == 256)
-      return CUBECL_DKV((launch_dkv_wgmma<256, Tiles>));
-  }
+  if (dtype == kF32 && D == 256)
+    return CUBECL_DKV((launch_dkv<float, 256, Tiles>));
+  if (dtype == kBF16 && D == 256)
+    return CUBECL_DKV((launch_dkv_wgmma<256, Tiles>));
 #undef CUBECL_DKV
   return cudaErrorInvalidValue;
 }
@@ -1847,12 +1862,10 @@ int launch_dq_any(const void* q, const void* k, const void* v,
     return CUBECL_DQ((launch_dq_wgmma<64, Tiles>));
   if (dtype == kBF16 && D == 128)
     return CUBECL_DQ((launch_dq_wgmma<128, Tiles>));
-  if constexpr (!Tiles::kSparse) {  // D 256: the dense and masked schedules
-    if (dtype == kF32 && D == 256)
-      return CUBECL_DQ((launch_dq<float, 256, Tiles>));
-    if (dtype == kBF16 && D == 256)
-      return CUBECL_DQ((launch_dq_wgmma<256, Tiles>));
-  }
+  if (dtype == kF32 && D == 256)
+    return CUBECL_DQ((launch_dq<float, 256, Tiles>));
+  if (dtype == kBF16 && D == 256)
+    return CUBECL_DQ((launch_dq_wgmma<256, Tiles>));
 #undef CUBECL_DQ
   return cudaErrorInvalidValue;
 }

@@ -128,6 +128,53 @@ __device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
+// 8 bytes (through L1), or 8 bytes of zeros where !valid
+__device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+// The widest copy that rows of `bytes` bytes, packed from a 16-byte
+// aligned base, allow: 16, 8 or 4 (cp.async), else `elem`, the element
+// size (plain loads: rows of an odd number of 2- or 1-byte elements)
+__device__ __forceinline__ int copy_unit(int bytes, int elem) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : elem;
+}
+// The first nb (1..16) bytes of a 16-byte chunk of a row whose rows start
+// `unit` bytes apart in alignment, below 16 (the callers copy whole chunks
+// of 16-byte-aligned rows with cp_async16_zfill): 8 or 4, cp.async pieces
+// of that size; 2 or 1, rows of an odd count of 2- or 1-byte elements,
+// plain loads and stores of `unit` bytes, which a __syncwarp or
+// __syncthreads orders before the readers, as it orders the copies' wait.
+// Zeros where !valid, nothing read from src then. nb is a multiple of
+// unit. The loops stay rolled: the path is for rare head dims, and the
+// kernels' registers and build time are what an unrolled one would cost.
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const uint8_t* src,
+                                           int nb, int unit, bool valid) {
+  if (unit == 8) {
+#pragma unroll 1
+    for (int b = 0; b < nb; b += 8) cp_async8_zfill(dst + b, src + b, valid);
+  } else if (unit == 4) {
+#pragma unroll 1
+    for (int b = 0; b < nb; b += 4) cp_async4_zfill(dst + b, src + b, valid);
+  } else if (unit == 2) {
+#pragma unroll 1
+    for (int b = 0; b < nb; b += 2) {
+      const uint32_t x =
+          valid ? *reinterpret_cast<const uint16_t*>(src + b) : 0u;
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + b), "r"(x)
+                   : "memory");
+    }
+  } else {
+#pragma unroll 1
+    for (int b = 0; b < nb; ++b) {
+      const uint32_t x = valid ? src[b] : 0u;
+      asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(dst + b), "r"(x)
+                   : "memory");
+    }
+  }
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

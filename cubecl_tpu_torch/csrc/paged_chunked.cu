@@ -106,10 +106,18 @@
 //   second accumulator in registers, ptxas spilled). f32: the CUDA-core
 //   body at 214,528 bytes, one block an SM.
 //
-// Each D is a template instance of its own (D 32, 64, 80, 96, 128, 256):
-// the entry points and the plan refuse any other D, the body static_asserts
-// its D and the P V product names each accumulator width (wgmma_pv), so no
-// D can fall into another's layout.
+// Each D of PAGED_HEAD_DIMS is a template instance of its own (D 32, 64,
+// 80, 96, 128, 256): the body static_asserts its D and the P V product
+// names each accumulator width (wgmma_pv), so no D can fall into another's
+// layout. Every other D from 1 to 255 (MPT-30B's 112, ...) runs in the
+// ragged instances of the next width of 64, 128 and 256 (RAGGED, the real
+// D an argument): the pools stay at the real D and are never padded or
+// copied; the copies take a row's own bytes, in cp.async pieces of 16, 8
+// or 4 bytes as the rows' alignment allows (plain loads for rows of an odd
+// number of bf16 or int8 elements), into the width's layout, whose columns
+// past D stay the zeros the block wrote first; o and the splits' partials
+// are written at the real D (paged_combine.cuh's paged_combine_ragged_
+// kernel). Q K^T and P V run over the width's columns.
 //
 // f32 q: the CUDA cores (paged_chunked_kernel), the first version: one
 // TF32 pass would not hold f32's tolerance (three would: wgmma_gemm.cuh's
@@ -136,24 +144,36 @@ constexpr int BN = 64;       // positions per tile
 constexpr int NT = 256;      // threads: 16 x 16, each a 4x4 score block
 constexpr int PS = BM + 4;   // row stride of the transposed P tile (floats)
 
+// a pool element in f32 (int8: its value, the scale applied apart)
+template <typename TK>
+__device__ __forceinline__ float elem_float(TK x) {
+  if constexpr (std::is_same<TK, int8_t>::value) {
+    return static_cast<float>(x);
+  } else {
+    return to_float(x);
+  }
+}
+
 template <int D>
 constexpr int chunked_smem_bytes() {
   // Qs [D][BM] + Ks [D][BN] + Vs [BN][D] + Ps [BN][PS] + 2 x [BN] scales
   return (D * BM + D * BN + BN * D + BN * PS + 2 * BN) * 4;
 }
 
-template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(NT)
-paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
-                     const TK* __restrict__ vpool,
-                     const float* __restrict__ kscale,
-                     const float* __restrict__ vscale,
-                     const int* __restrict__ table,
-                     const int* __restrict__ lengths,
-                     const int* __restrict__ starts, T* __restrict__ o, int H,
-                     int Hkv, int C, int layer, int P, int page, int max_pages,
-                     float scale_log2) {
+// the f32 body; RAGGED (a head dim dr without an instance of its own, run
+// in this instance's width D): q, the pools and o hold rows of dr elements,
+// read and written element by element, the columns from dr on zero in
+// shared memory and never stored
+template <typename T, typename TK, int D, bool RAGGED = false>
+__device__ __forceinline__ void paged_chunked_body(
+    const T* __restrict__ q, const TK* __restrict__ kpool,
+    const TK* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    T* __restrict__ o, int H, int Hkv, int C, int layer, int P, int page,
+    int max_pages, float scale_log2, int dr = D) {
   constexpr bool QUANT = std::is_same<TK, int8_t>::value;
+  const int DR = RAGGED ? dr : D;  // the head dim of q, the pools and o
   // 4-wide column groups of the output per thread; at D 96 the second
   // group (columns 64..95) is the first 8 tx's only (D 80: 64..79, the
   // first 4; D 32: the one group, the first 8)
@@ -186,7 +206,14 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
   for (int i = tid; i < BM * D / 4; i += NT) {
     const int m = i % BM, c = i / BM;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + m < GC) load4(q + (qrow0 + r0 + m) * D + c * 4, x);
+    if constexpr (RAGGED) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (r0 + m < GC && c * 4 + e < dr)
+          x[e] = to_float(q[(qrow0 + r0 + m) * dr + c * 4 + e]);
+    } else {
+      if (r0 + m < GC) load4(q + (qrow0 + r0 + m) * D + c * 4, x);
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) Qs[(c * 4 + e) * BM + m] = x[e];
   }
@@ -228,8 +255,17 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
       if (t < kv_end) {
         const int pid = min(max(tab[t / page], 0), P - 1);
         const int64_t row = (head_page0 + pid) * page + (t % page);
-        load4(kpool + row * D + c * 4, x);
-        load4(vpool + row * D + c * 4, y);
+        if constexpr (RAGGED) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c * 4 + e < dr) {
+              x[e] = elem_float(kpool[row * dr + c * 4 + e]);
+              y[e] = elem_float(vpool[row * dr + c * 4 + e]);
+            }
+        } else {
+          load4(kpool + row * D + c * 4, x);
+          load4(vpool + row * D + c * 4, y);
+        }
         if (QUANT && c == 0) {
           ksc[n] = kscale[row];
           vsc[n] = vscale[row];
@@ -334,36 +370,87 @@ paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
     const int r = r0 + ty * 4 + i;
     if (r >= GC) continue;
     const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
-    T* orow = o + (qrow0 + r) * D;
+    T* orow = o + (qrow0 + r) * DR;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       if (D % 64 == 0 || c * 64 + tx * 4 < D)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          orow[c * 64 + tx * 4 + j] = from_float<T>(acc[i][c * 4 + j] * inv);
+          if (!RAGGED || c * 64 + tx * 4 + j < dr)
+            orow[c * 64 + tx * 4 + j] = from_float<T>(acc[i][c * 4 + j] * inv);
   }
 }
 
 template <typename T, typename TK, int D>
+__global__ void __launch_bounds__(NT)
+paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
+                     const TK* __restrict__ vpool,
+                     const float* __restrict__ kscale,
+                     const float* __restrict__ vscale,
+                     const int* __restrict__ table,
+                     const int* __restrict__ lengths,
+                     const int* __restrict__ starts, T* __restrict__ o, int H,
+                     int Hkv, int C, int layer, int P, int page, int max_pages,
+                     float scale_log2) {
+  paged_chunked_body<T, TK, D>(q, kpool, vpool, kscale, vscale, table,
+                               lengths, starts, o, H, Hkv, C, layer, P, page,
+                               max_pages, scale_log2);
+}
+
+// the f32 body at a head dim dr (1..DP) with no instance of its own
+template <typename T, typename TK, int DP>
+__global__ void __launch_bounds__(NT)
+paged_chunked_ragged_kernel(const T* __restrict__ q,
+                            const TK* __restrict__ kpool,
+                            const TK* __restrict__ vpool,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
+                            const int* __restrict__ table,
+                            const int* __restrict__ lengths,
+                            const int* __restrict__ starts,
+                            T* __restrict__ o, int H, int Hkv, int C,
+                            int layer, int P, int page, int max_pages,
+                            float scale_log2, int dr) {
+  paged_chunked_body<T, TK, DP, true>(q, kpool, vpool, kscale, vscale, table,
+                                      lengths, starts, o, H, Hkv, C, layer,
+                                      P, page, max_pages, scale_log2, dr);
+}
+
+// RAGGED: the instance of width D runs head dim dr
+template <typename T, typename TK, int D, bool RAGGED = false>
 cudaError_t launch_chunked(const void* q, const void* kp, const void* vp,
                            const float* ks, const float* vsc,
                            const void* table, const void* lengths,
                            const void* starts, void* o, int B, int H, int Hkv,
                            int C, int layer, int P, int page, int max_pages,
-                           float scale_log2, cudaStream_t stream) {
+                           float scale_log2, cudaStream_t stream,
+                           int dr = D) {
   constexpr int smem = chunked_smem_bytes<D>();
+  const void* kernel;
+  if constexpr (RAGGED)
+    kernel = (const void*)paged_chunked_ragged_kernel<T, TK, D>;
+  else
+    kernel = (const void*)paged_chunked_kernel<T, TK, D>;
   // above 48 KB a kernel must opt in to dynamic shared memory, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_chunked_kernel<T, TK, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int GC = (H / Hkv) * C;
   const dim3 grid((GC + BM - 1) / BM, Hkv, B);
-  paged_chunked_kernel<T, TK, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const TK*>(kp),
-      static_cast<const TK*>(vp), ks, vsc, static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<const int*>(starts),
-      static_cast<T*>(o), H, Hkv, C, layer, P, page, max_pages, scale_log2);
+  const T* qt = static_cast<const T*>(q);
+  const TK *kt = static_cast<const TK*>(kp), *vt = static_cast<const TK*>(vp);
+  const int* tab = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  const int* sts = static_cast<const int*>(starts);
+  T* ot = static_cast<T*>(o);
+  if constexpr (RAGGED)
+    paged_chunked_ragged_kernel<T, TK, D><<<grid, NT, smem, stream>>>(
+        qt, kt, vt, ks, vsc, tab, len, sts, ot, H, Hkv, C, layer, P, page,
+        max_pages, scale_log2, dr);
+  else
+    paged_chunked_kernel<T, TK, D><<<grid, NT, smem, stream>>>(
+        qt, kt, vt, ks, vsc, tab, len, sts, ot, H, Hkv, C, layer, P, page,
+        max_pages, scale_log2);
   return cudaGetLastError();
 }
 
@@ -437,26 +524,34 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
   }
 }
 
-// part (splits > 1): per (b, kv head, split, row < G*C) the row's
-// unnormalised f32 accumulator (D), then its m and l
-template <int D, bool QUANT>
-__global__ void __launch_bounds__(kTcThreads)
-paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const void* __restrict__ kpool_,
-                           const void* __restrict__ vpool_,
-                           const float* __restrict__ kscale,
-                           const float* __restrict__ vscale,
-                           const int* __restrict__ table,
-                           const int* __restrict__ lengths,
-                           const int* __restrict__ starts,
-                           __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ part, int H, int Hkv, int C,
-                           int layer, int P, int page, int max_pages,
-                           float scale_log2, TcPlan plan) {
+// the bf16 body. part (splits > 1): per (b, kv head, split, row < G*C) the
+// row's unnormalised f32 accumulator (D), then its m and l. RAGGED (a head
+// dim dr without an instance of its own, run in this instance's width D,
+// 64, 128 or 256): q, the pools, o and part hold rows of dr elements; in
+// shared memory each row keeps D's panels and swizzle, its columns from dr
+// on the zeros that the block writes once at its start (the copies write
+// a row's own bytes only), so K's columns there are zeros, never a stale
+// NaN that q's zero columns would turn into NaN scores
+template <int D, bool QUANT, bool RAGGED = false>
+__device__ __forceinline__ void paged_chunked_wgmma_body(
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool_,
+    const void* __restrict__ vpool_, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ part, int H, int Hkv,
+    int C, int layer, int P, int page, int max_pages, float scale_log2,
+    TcPlan plan, int dr = D) {
   using TK = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
   using L = TcSmem<D, QUANT>;
   constexpr int kChunks = D * (int)sizeof(TK) / 16;  // 16-byte chunks a row
   constexpr int kEl = 16 / (int)sizeof(TK);          // elements a chunk
+  const int DR = RAGGED ? dr : D;  // the head dim of q, the pools, o, part
+  // RAGGED: the bytes of a K/V row and of a q row, their chunks, and the
+  // widest copy each row's alignment allows (the bases are 16-byte aligned)
+  const int rb = DR * (int)sizeof(TK), rbq = 2 * DR;
+  const int kc = RAGGED ? (rb + 15) / 16 : kChunks;
+  const int qc = RAGGED ? (rbq + 15) / 16 : D / 8;
+  const int unit = copy_unit(rb, (int)sizeof(TK)), unit_q = copy_unit(rbq, 2);
   // the accumulator's columns: D 80 and 96 compute D 128's, D 32 D 64's,
   // the columns past D unstored
   constexpr int DP = (D + 63) / 64 * 64;
@@ -471,6 +566,13 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t s_base = smem_addr(smem);
+  if constexpr (RAGGED) {
+    // every tile's columns from dr on: zeros, before any copy lands
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < (L::kBytes - 1024) / 16; i += kTcThreads)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -521,8 +623,8 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = p0 + t * kTcCols;
     const uint32_t ks0 = s_base + L::kRing + st * 2 * L::kRaw;
 #pragma unroll 4
-    for (int i = tid; i < kTcCols * kChunks; i += kTcThreads) {
-      const int n = i / kChunks, c = i % kChunks;
+    for (int i = tid; i < kTcCols * kc; i += kTcThreads) {
+      const int n = i / kc, c = i % kc;
       const int pos = k0 + n;
       const bool ok = pos < p1;
       int64_t row = 0;
@@ -533,8 +635,24 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t dst = QUANT ? ks0 + n * D + c * 16
                                  : ks0 + (c / 8) * kTcPanel + n * 128 +
                                        (((c % 8) ^ (n % 8)) << 4);
-      cp_async16_zfill(dst, kpool + row * D + c * kEl, ok);
-      cp_async16_zfill(dst + L::kRaw, vpool + row * D + c * kEl, ok);
+      if constexpr (RAGGED) {
+        // the row's own bytes: whole 16-byte chunks, or pieces of `unit`
+        const uint8_t* ksrc =
+            reinterpret_cast<const uint8_t*>(kpool + row * dr) + c * 16;
+        const uint8_t* vsrc =
+            reinterpret_cast<const uint8_t*>(vpool + row * dr) + c * 16;
+        if (unit == 16) {
+          cp_async16_zfill(dst, ksrc, ok);
+          cp_async16_zfill(dst + L::kRaw, vsrc, ok);
+        } else {
+          const int nb = min(16, rb - c * 16);
+          copy_chunk(dst, ksrc, nb, unit, ok);
+          copy_chunk(dst + L::kRaw, vsrc, nb, unit, ok);
+        }
+      } else {
+        cp_async16_zfill(dst, kpool + row * D + c * kEl, ok);
+        cp_async16_zfill(dst + L::kRaw, vpool + row * D + c * kEl, ok);
+      }
       if (QUANT && c == 0) {
         const uint32_t sc = s_base + L::kScale + (st * 2 * kTcCols + n) * 4;
         cp_async4_zfill(sc, kscale + row, ok);
@@ -544,12 +662,19 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   // Q (rows past G*C as zeros) with stage 0, then stage 1: a group each
-  for (int i = tid; i < kTcRows * (D / 8); i += kTcThreads) {
-    const int m = i / (D / 8), c = i % (D / 8);
+  for (int i = tid; i < kTcRows * qc; i += kTcThreads) {
+    const int m = i / qc, c = i % qc;
     const bool ok = r0 + m < GC;
-    cp_async16_zfill(s_base + L::kQ + (c / 8) * kTcPanel + m * 128 +
-                         (((c % 8) ^ (m % 8)) << 4),
-                     q + (ok ? (qrow0 + r0 + m) * D + c * 8 : 0), ok);
+    const uint32_t dst = s_base + L::kQ + (c / 8) * kTcPanel + m * 128 +
+                         (((c % 8) ^ (m % 8)) << 4);
+    const uint8_t* qsrc = reinterpret_cast<const uint8_t*>(
+        q + (ok ? (qrow0 + r0 + m) * DR : 0)) + c * 16;
+    if (RAGGED && unit_q != 16)
+      copy_chunk(dst, qsrc, min(16, rbq - c * 16), unit_q, ok);
+    else if (RAGGED)
+      cp_async16_zfill(dst, qsrc, ok);
+    else
+      cp_async16_zfill(dst, q + (ok ? (qrow0 + r0 + m) * D + c * 8 : 0), ok);
   }
 #pragma unroll
   for (int st = 0; st < kTcStages - 1; ++st) {
@@ -840,58 +965,132 @@ paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (row >= GC) continue;
     if (plan.splits == 1) {
       const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
-      __nv_bfloat16* orow = o + (qrow0 + row) * D;
+      __nv_bfloat16* orow = o + (qrow0 + row) * DR;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col_l) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
-                                  acc[4 * j + 2 * i + 1] * inv);
+      for (int j = 0; j < D / 8; ++j) {
+        if constexpr (RAGGED) {  // columns below dr, one at a time
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + col_l + e < dr)
+              orow[8 * j + col_l + e] =
+                  __float2bfloat16(acc[4 * j + 2 * i + e] * inv);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col_l) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                    acc[4 * j + 2 * i + 1] * inv);
+        }
+      }
     } else {
       float* pr = part + (((int64_t)(b * Hkv + hk) * plan.splits + split) *
-                              GC + row) * (D + 2);
+                              GC + row) * (DR + 2);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(pr + 8 * j + col_l) =
-            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        if constexpr (RAGGED) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + col_l + e < dr)
+              pr[8 * j + col_l + e] = acc[4 * j + 2 * i + e];
+        } else {
+          *reinterpret_cast<float2*>(pr + 8 * j + col_l) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
       if (lane % 4 == 0) {
-        pr[D] = m_i[i];
-        pr[D + 1] = l_i[i];
+        pr[DR] = m_i[i];
+        pr[DR + 1] = l_i[i];
       }
     }
   }
 }
 
 template <int D, bool QUANT>
+__global__ void __launch_bounds__(kTcThreads)
+paged_chunked_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const void* __restrict__ kpool_,
+                           const void* __restrict__ vpool_,
+                           const float* __restrict__ kscale,
+                           const float* __restrict__ vscale,
+                           const int* __restrict__ table,
+                           const int* __restrict__ lengths,
+                           const int* __restrict__ starts,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ part, int H, int Hkv, int C,
+                           int layer, int P, int page, int max_pages,
+                           float scale_log2, TcPlan plan) {
+  paged_chunked_wgmma_body<D, QUANT>(q, kpool_, vpool_, kscale, vscale,
+                                     table, lengths, starts, o, part, H, Hkv,
+                                     C, layer, P, page, max_pages, scale_log2,
+                                     plan);
+}
+
+// the bf16 body at a head dim dr (1..DP) with no instance of its own
+template <int DP, bool QUANT>
+__global__ void __launch_bounds__(kTcThreads)
+paged_chunked_wgmma_ragged_kernel(
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool_,
+    const void* __restrict__ vpool_, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ part, int H, int Hkv,
+    int C, int layer, int P, int page, int max_pages, float scale_log2,
+    TcPlan plan, int dr) {
+  paged_chunked_wgmma_body<DP, QUANT, true>(
+      q, kpool_, vpool_, kscale, vscale, table, lengths, starts, o, part, H,
+      Hkv, C, layer, P, page, max_pages, scale_log2, plan, dr);
+}
+
+// RAGGED: the instance of width D runs head dim dr
+template <int D, bool QUANT, bool RAGGED = false>
 cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
                                  const float* ks, const float* vsc,
                                  const void* table, const void* lengths,
                                  const void* starts, void* o, void* part,
                                  int B, int H, int Hkv, int C, int layer,
                                  int P, int page, int max_pages,
-                                 float scale_log2, cudaStream_t stream) {
+                                 float scale_log2, cudaStream_t stream,
+                                 int dr = D) {
   constexpr int smem = TcSmem<D, QUANT>::kBytes;
+  const void* kernel;
+  if constexpr (RAGGED)
+    kernel = (const void*)paged_chunked_wgmma_ragged_kernel<D, QUANT>;
+  else
+    kernel = (const void*)paged_chunked_wgmma_kernel<D, QUANT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_chunked_wgmma_kernel<D, QUANT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int GC = (H / Hkv) * C;
   const TcPlan p = tc_plan(B, Hkv, GC, page, max_pages);
   if (p.splits > 1 && part == nullptr) return cudaErrorInvalidValue;
   const dim3 grid(p.row_tiles * p.splits, Hkv, B);
-  paged_chunked_wgmma_kernel<D, QUANT><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), kp, vp, ks, vsc,
-      static_cast<const int*>(table), static_cast<const int*>(lengths),
-      static_cast<const int*>(starts), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(part), H, Hkv, C, layer, P, page, max_pages,
-      scale_log2, p);
+  const auto* qt = static_cast<const __nv_bfloat16*>(q);
+  const int* tab = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  const int* sts = static_cast<const int*>(starts);
+  auto* ot = static_cast<__nv_bfloat16*>(o);
+  auto* pt = static_cast<float*>(part);
+  if constexpr (RAGGED)
+    paged_chunked_wgmma_ragged_kernel<D, QUANT>
+        <<<grid, kTcThreads, smem, stream>>>(qt, kp, vp, ks, vsc, tab, len,
+                                             sts, ot, pt, H, Hkv, C, layer, P,
+                                             page, max_pages, scale_log2, p,
+                                             dr);
+  else
+    paged_chunked_wgmma_kernel<D, QUANT><<<grid, kTcThreads, smem, stream>>>(
+        qt, kp, vp, ks, vsc, tab, len, sts, ot, pt, H, Hkv, C, layer, P, page,
+        max_pages, scale_log2, p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.splits == 1) return e;
-  paged_combine_kernel<__nv_bfloat16, D>
-      <<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(o), H,
-      Hkv, C, p.splits);
+  if constexpr (RAGGED)
+    paged_combine_ragged_kernel<__nv_bfloat16, D>
+        <<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(pt, ot, H, Hkv, C,
+                                                  p.splits, dr);
+  else
+    paged_combine_kernel<__nv_bfloat16, D>
+        <<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(pt, ot, H, Hkv, C,
+                                                  p.splits);
   return cudaGetLastError();
 }
+
 
 // dynamic shared memory of the body for (dtype, int8 pools, D): each
 // built D a case of its own; -1 for a D that has no instance
@@ -914,8 +1113,9 @@ inline int p3_smem(int dtype, bool quant, int D) {
       return p3_smem_of<128>(dtype, quant);
     case 256:
       return p3_smem_of<256>(dtype, quant);
-    default:
-      return -1;
+    default:  // a D up to 256 without an instance: its ragged width's
+      return D >= 1 && D < 256 ? p3_smem(dtype, quant, paged_ragged_width(D))
+                               : -1;
   }
 }
 
@@ -928,9 +1128,11 @@ inline int p3_smem(int dtype, bool quant, int D) {
 // with f32 scale pools k_scales/v_scales (L, Hkv, P, page) (null
 // otherwise). part: the bf16 body's partial sums where it splits the
 // positions, cubecl_paged_chunked_plan's plan[8] floats (null where that
-// is 0). Returns cudaGetLastError() after the launches, or
-// cudaErrorInvalidValue for a dtype / head_dim this kernel was not built
-// for (D 32, 64, 80, 96, 128 and 256 are built).
+// is 0). D 32, 64, 80, 96, 128 and 256 are instances of their own; any
+// other D from 1 to 255 runs in the next of the widths 64, 128 and 256
+// (RAGGED). Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a dtype or head_dim this kernel was not built
+// for.
 extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                                     const void* v_pages, const float* k_scales,
                                     const float* v_scales, const void* table,
@@ -992,6 +1194,30 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
   }
 #undef CUBECL_CHUNKED_WG
 #undef CUBECL_CHUNKED
+  if (D < 1 || D >= 256) return cudaErrorInvalidValue;
+  const int DP = paged_ragged_width(D);
+#define CUBECL_RAGGED_F32(TK, W)                                             \
+  launch_chunked<float, TK, W, true>(q, k_pages, v_pages, k_scales, v_scales, \
+                                     table, lengths, starts, o, B, H, Hkv, C, \
+                                     layer, P, page, max_pages, scale_log2,  \
+                                     st, D)
+#define CUBECL_RAGGED_WG(W, QUANT)                                           \
+  launch_chunked_wgmma<W, QUANT, true>(q, k_pages, v_pages, k_scales,        \
+                                       v_scales, table, lengths, starts, o,  \
+                                       part, B, H, Hkv, C, layer, P, page,   \
+                                       max_pages, scale_log2, st, D)
+#define CUBECL_RAGGED(W)                                                     \
+  (dtype == kF32 ? (quant ? CUBECL_RAGGED_F32(int8_t, W)                    \
+                          : CUBECL_RAGGED_F32(float, W))                     \
+                 : (quant ? CUBECL_RAGGED_WG(W, true)                       \
+                          : CUBECL_RAGGED_WG(W, false)))
+  if (dtype == kF32 || dtype == kBF16)
+    return DP == 64    ? CUBECL_RAGGED(64)
+           : DP == 128 ? CUBECL_RAGGED(128)
+                       : CUBECL_RAGGED(256);
+#undef CUBECL_RAGGED
+#undef CUBECL_RAGGED_WG
+#undef CUBECL_RAGGED_F32
   return cudaErrorInvalidValue;
 }
 

@@ -44,9 +44,9 @@ on the block-sparse schedules of ``csrc/flash_tiles.cuh``. Its
 ``_FlashBlockSparse`` is the counterpart of the JAX ``_flash_bsp``
 custom_vjp; on CPU tensors it runs ``flash_attention_block_sparse_plain``
 and ``flash_attention_block_sparse_backward_plain``. The kernels are built
-at D 64 and 128; the public function pads any D up to 128 with zeros to
-them on both devices, outside the Function (past 128: ROADMAP Queue 2a on
-the card, D as it is on the CPU). Causally masked scores
+at D 64, 128 and 256; the public function pads any D up to 256 with zeros
+to them on both devices, outside the Function (past 256: ROADMAP Queue 2a
+on the card, D as it is on the CPU). Causally masked scores
 take the JAX kernels' finite ``DEFAULT_MASK_VALUE``, so a row whose every
 visited column is masked (only with block_q != block_k) gets the mean of V
 over those columns, as the JAX forward gives it; the backward is the true
@@ -89,9 +89,9 @@ from ..utils import native
 LOG2E = math.log2(math.e)
 # the head dims of the kernels' instances: A1's forward and A3/A4's
 # backward (dense and masked) at 64, 128 and 256; the block-sparse ones
-# (A5-A7) at 64 and 128, a smaller D padded to them
+# (A5-A7) at the same three, a smaller D padded to them
 KERNEL_HEAD_DIMS = (64, 128, 256)
-SPARSE_HEAD_DIMS = (64, 128)
+SPARSE_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -901,7 +901,7 @@ def _bsp_unported(what, D):
 
 def _bsp_head_dim(D, device) -> int:
     """The head dim the block-sparse kernels run a real D at: the next of
-    SPARSE_HEAD_DIMS. Past 128 the plain versions run D as it is on the
+    SPARSE_HEAD_DIMS. Past 256 the plain versions run D as it is on the
     CPU, and the card raises (ROADMAP Queue 2a)."""
     Dp = next((d for d in SPARSE_HEAD_DIMS if D <= d), D)
     if Dp == D and D not in SPARSE_HEAD_DIMS and device.type != "cpu":
@@ -911,7 +911,7 @@ def _bsp_head_dim(D, device) -> int:
 
 def _bsp_inputs(what, q, k, v, *more):
     """The wrappers take the built head dims only (the public function pads
-    a smaller D to them); past 128 they raise, naming ROADMAP Queue 2a."""
+    a smaller D to them); past 256 they raise, naming ROADMAP Queue 2a."""
     _bsp_shapes(q, k, v)
     if q.shape[-1] > SPARSE_HEAD_DIMS[-1]:
         raise _bsp_unported(what, q.shape[-1])
@@ -1036,14 +1036,14 @@ def flash_attention_block_sparse(q, k, v, block_mask, causal: bool = True,
     ``_fit_block(block_k, Skv)`` rows; ``causal`` adds the in-tile causal
     mask at absolute positions, and tiles wholly above the diagonal are
     pruned. q, k, v (B, H, S, D) with as many k/v heads as q heads. Cost
-    and gradients scale with the mask's live tiles. Any D up to 128, on
-    either device: D is padded with zeros to 64 or 128 (the kernels' head
-    dims; zero columns of q and k leave the scores as they are, those of v
-    are sliced off, so F9's rows keep their mean of V), the scale taken
-    from the real D, the pad and the slice outside the autograd Function
-    so that they carry the gradient. Past 128 the CPU runs D unpadded and
-    the card raises (ROADMAP Queue 2a). See the module docstring for the
-    kernels and F9."""
+    and gradients scale with the mask's live tiles. Any D up to 256, on
+    either device: D is padded with zeros to 64, 128 or 256 (the kernels'
+    head dims; zero columns of q and k leave the scores as they are, those
+    of v are sliced off, so F9's rows keep their mean of V), the scale
+    taken from the real D, the pad and the slice outside the autograd
+    Function so that they carry the gradient. Past 256 the CPU runs D
+    unpadded and the card raises (ROADMAP Queue 2a). See the module
+    docstring for the kernels and F9."""
     _bsp_shapes(q, k, v)
     B, H, Sq, D = q.shape
     Skv = k.shape[2]

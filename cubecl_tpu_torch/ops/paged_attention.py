@@ -34,14 +34,19 @@ On CUDA tensors ``paged_attention`` launches the hand-written kernel of
 ``csrc/paged_attention.cu`` (replaces the TPU kernels P1
 ``_paged_call_headed`` and P2 ``_paged_call_live``) and
 ``paged_attention_chunked`` that of ``csrc/paged_chunked.cu`` (replaces P3
-``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, D
-in ``PAGED_HEAD_DIMS`` (32, 64, 80, 96, 128, 256: each an instance of its
-own; D 32 is Pythia-31M's head dim, D 80 Phi-2's, D 96 Phi-3-mini's, their
+``_paged_chunked_call``): q of f32 or bf16, pools of q's dtype or int8, any
+D from 1 to 256 and any number of query heads a kv head. The head dims of
+``PAGED_HEAD_DIMS`` (32, 64, 80, 96, 128, 256) are instances of their own
+(D 32 is Pythia-31M's head dim, D 80 Phi-2's, D 96 Phi-3-mini's, their
 pools unpadded, P3's bf16 tiles in D 64's or D 128's panels; D 256
 GPT-J-6B's and Qwen3-Next's, where P1 keeps one stage a warp on f32 pools
 and runs one block an SM, and P3's bf16 body holds four 64-column panels a
-tile) and any number of query heads a kv head; any other D raises (ROADMAP
-Queue 2a). P1 cuts a kv head's query heads into row
+tile); every other D (MPT-30B's 112, ...) runs in the ragged instances of
+the next width of 64, 128 and 256 (:func:`paged_width`; P1's in
+``csrc/paged_ragged.cu``), the real D an argument: the pools, q and o stay
+at the real D (no call copies or pads a pool), and the columns past it are
+zeros in shared memory, never stored. Past 256 both raise (ROADMAP Queue
+2a). P1 cuts a kv head's query heads into row
 groups of at most 8, a block each (:func:`p1_group_rows`), splits the
 positions of each (batch row, kv head) over blocks where B * Hkv * groups
 leaves the card idle, copies K and V through the table with cp.async into
@@ -70,10 +75,27 @@ import torch
 from ..utils import native
 from .attention import KERNEL_DTYPES, LOG2E
 
-# the head dims P1 and P3 are built for (flash is built at 64, 128 and 256;
-# flash at 32 pads to 64, at 80 and 96 to 128; a paged pool is never
-# padded)
+# the head dims P1 and P3 have instances of their own for (flash is built
+# at 64, 128 and 256; flash at 32 pads to 64, at 80 and 96 to 128; a paged
+# pool is never padded); any other D up to PAGED_MAX_HEAD_DIM runs in the
+# ragged instance of its paged_width
 PAGED_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+PAGED_MAX_HEAD_DIM = 256
+PAGED_RAGGED_WIDTHS = (64, 128, 256)
+
+
+def paged_width(D: int) -> int:
+    """The width of the instance that runs head dim ``D``: D itself where
+    it has an instance, else the next of PAGED_RAGGED_WIDTHS (csrc
+    ``paged_combine.cuh::paged_ragged_width``); past 256 a ValueError
+    naming ROADMAP Queue 2a."""
+    if D in PAGED_HEAD_DIMS:
+        return D
+    if not 1 <= D <= PAGED_MAX_HEAD_DIM:
+        raise ValueError(f"P1 and P3 take head dims 1..{PAGED_MAX_HEAD_DIM} "
+                         f"(D past {PAGED_MAX_HEAD_DIM}: ROADMAP Queue 2a); "
+                         f"got D {D}")
+    return next(w for w in PAGED_RAGGED_WIDTHS if D <= w)
 
 # P1's body (csrc/paged_attention.cu), for p1_plan: 256 threads (8 warps)
 # a block, at most 8 query rows a block (a row group; q in f32 ahead of the
@@ -156,12 +178,12 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
             ring: bool = False) -> P1Plan:
     """P1's launch plan for q of ``dtype``, pools of ``kv_dtype`` and the
     options of the call (``ring``: a ``pos_meta`` is given)."""
+    W = paged_width(D)  # the instance's width; raises past 256
     if dtype not in KERNEL_DTYPES or kv_dtype not in (dtype, torch.int8) \
-            or D not in PAGED_HEAD_DIMS or Hkv <= 0 or H <= 0 or H % Hkv \
+            or Hkv <= 0 or H <= 0 or H % Hkv \
             or B <= 0 or window < 0 or sinks < 0:
         raise ValueError(f"P1 takes q of {KERNEL_DTYPES}, pools of q's "
-                         f"dtype or int8, D in {PAGED_HEAD_DIMS} (others: "
-                         f"ROADMAP Queue 2a), H a multiple of Hkv and a "
+                         f"dtype or int8, H a multiple of Hkv and a "
                          f"window and sinks >= 0; got {dtype}, {kv_dtype}, "
                          f"D {D}, H {H}, Hkv {Hkv}, window {window}, sinks "
                          f"{sinks}")
@@ -171,13 +193,14 @@ def p1_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int, page: int,
     warps = P1_THREADS // 32
     rows = P1_TILE // warps  # a warp's positions of a tile
     quant = kv_dtype == torch.int8
-    stage = 2 * rows * D * (1 if quant else dtype.itemsize) + (
+    # shared memory holds the instance's width; the scratch the real D
+    stage = 2 * rows * W * (1 if quant else dtype.itemsize) + (
         2 * rows * 4 if quant else 0) + (rows * 4 if mode == P1_RING else 0)
-    stages = p1_stages(kv_dtype, D)
+    stages = p1_stages(kv_dtype, W)
     ring_bytes = warps * stages * stage
-    comb = warps * P1_GROUP_ROWS * (D + 2) * 4  # the warps' (acc, m, l)
-    smem = P1_GROUP_ROWS * D * 4 + max(ring_bytes, comb)
-    per_sm = p1_per_sm(kv_dtype, D, smem)
+    comb = warps * P1_GROUP_ROWS * (W + 2) * 4  # the warps' (acc, m, l)
+    smem = P1_GROUP_ROWS * W * 4 + max(ring_bytes, comb)
+    per_sm = p1_per_sm(kv_dtype, W, smem)
     cap = page * max_pages
     tiles = max(1, -(-cap // P1_TILE))
     if mode == P1_WINDOW:  # the sinks' tiles and a window's, at most
@@ -259,21 +282,20 @@ def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
             page: int, max_pages: int) -> P3Plan:
     """P3's launch plan for q of ``dtype`` and pools of ``kv_dtype``."""
     quant = kv_dtype == torch.int8
-    if kv_dtype not in (dtype, torch.int8) or D not in PAGED_HEAD_DIMS \
-            or H % Hkv or C <= 0:
-        raise ValueError(f"P3 takes pools of q's dtype or int8 and D in "
-                         f"{PAGED_HEAD_DIMS} (others: ROADMAP Queue 2a); got "
+    W = paged_width(D)  # the instance's width; raises past 256
+    if kv_dtype not in (dtype, torch.int8) or H % Hkv or C <= 0:
+        raise ValueError(f"P3 takes pools of q's dtype or int8; got "
                          f"{dtype}, {kv_dtype}, D {D}")
     GC = H // Hkv * C
     rows = -(-GC // P3_ROWS)
     if dtype == torch.float32:
-        smem = (D * 64 * 3 + 64 * 68 + 2 * 64) * 4
+        smem = (W * 64 * 3 + 64 * 68 + 2 * 64) * 4
         return P3Plan("cuda-cores", P3_FMA_THREADS, smem, (rows, Hkv, B), 1,
                       0, 0)
     if dtype != torch.bfloat16:
         raise ValueError(f"P3 takes q of {KERNEL_DTYPES}; got {dtype}")
-    tile = -(-D // 64) * 64 * P3_ROWS * 2
-    raw = P3_COLS * D if quant else tile
+    tile = -(-W // 64) * 64 * P3_ROWS * 2
+    raw = P3_COLS * W if quant else tile
     smem = tile + P3_STAGES * 2 * raw + (2 * tile + P3_STAGES * 2 * P3_COLS
                                         * 4 if quant else 0) + 1024
     kv_tiles = max(1, -(-page * max_pages // P3_COLS))
@@ -481,10 +503,10 @@ def _check_kernel_inputs(what, q, k_pages, v_pages, ints, scales, quant):
     if quant and any(s.dtype != torch.float32 or not s.is_contiguous()
                      for s in scales):
         raise ValueError(f"{what} kernel wants contiguous f32 scales")
-    if q.shape[-1] not in PAGED_HEAD_DIMS:
-        raise ValueError(f"{what} kernel takes head_dim in "
-                         f"{PAGED_HEAD_DIMS} (others: ROADMAP Queue 2a); got "
-                         f"{q.shape[-1]}")
+    if not 1 <= q.shape[-1] <= PAGED_MAX_HEAD_DIM:
+        raise ValueError(f"{what} kernel takes head_dim 1.."
+                         f"{PAGED_MAX_HEAD_DIM} (past it: ROADMAP Queue 2a); "
+                         f"got {q.shape[-1]}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError(f"{what} kernel wants contiguous pools")
 
@@ -554,16 +576,20 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths,
         paged_attention.ring_launches += 1
     if plan.groups > 1:
         paged_attention.grouped_launches += 1
+    if D not in PAGED_HEAD_DIMS:
+        paged_attention.ragged_launches += 1
     return o
 
 
 paged_attention.launches = 0
 # among them: the launches on int8 pools, with a window (no ring), on a
-# ring, with more than 8 query heads a kv head (row groups)
+# ring, with more than 8 query heads a kv head (row groups), at a head dim
+# without an instance of its own (the ragged instances)
 paged_attention.int8_launches = 0
 paged_attention.window_launches = 0
 paged_attention.ring_launches = 0
 paged_attention.grouped_launches = 0
+paged_attention.ragged_launches = 0
 
 
 def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
@@ -610,10 +636,14 @@ def paged_attention_chunked(q, k_pages, v_pages, page_indices, lengths,
             scale * LOG2E, torch.cuda.current_stream().cuda_stream)
     native.check(lib, rc, "paged_attention_chunked")
     paged_attention_chunked.launches += 1
+    if D not in PAGED_HEAD_DIMS:
+        paged_attention_chunked.ragged_launches += 1
     return o
 
 
 paged_attention_chunked.launches = 0
+# among them: the launches at a head dim without an instance of its own
+paged_attention_chunked.ragged_launches = 0
 
 
 def p1_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, D: int,

@@ -4,10 +4,11 @@ host with the CUDA toolkit.
 
     python3 scripts/p1_sass_diff.py --parent DIR
 
-Compiles ``cubecl_tpu_torch/csrc/paged_attention.cu`` (P1) and
-``paged_chunked.cu`` (P3) of this checkout and of DIR alone (``nvcc -c``
-with the port's flags, each against its own ``csrc`` headers, all four at
-once), reads each object's SASS (``cuobjdump -sass``) and compares the
+Compiles ``cubecl_tpu_torch/csrc/paged_attention.cu`` (P1),
+``paged_ragged.cu`` (P1 at the head dims without an instance of their own,
+where the checkout has it) and ``paged_chunked.cu`` (P3) of this checkout
+and of DIR alone (``nvcc -c`` with the port's flags, each against its own
+``csrc`` headers, all at once), reads each object's SASS (``cuobjdump -sass``) and compares the
 instructions of every kernel instance that DIR's object holds (addresses
 and encodings dropped; functions keyed by the name after the anonymous
 namespace, which names the file): P1's ``paged_decode_kernel``,
@@ -16,7 +17,8 @@ namespace, which names the file): P1's ``paged_decode_kernel``,
 and each file's ``paged_combine_kernel``. Instances only this checkout
 holds (new head dims, such as D 256's or D 32's and 80's, P1's
 ``paged_grouped_kernel`` past 8 query heads a kv head) are listed with
-their registers and spills from ptxas, then counted by head dim. Exits 1
+their registers and spills from ptxas, then counted by head dim (the
+ragged instances by their width). Exits 1
 where one of DIR's instances differs or is missing, or where an instance
 only this checkout holds spills or keeps a stack frame; needs nvcc, not
 a card.
@@ -30,7 +32,7 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("paged_attention.cu", "paged_chunked.cu")
+SOURCES = ("paged_attention.cu", "paged_ragged.cu", "paged_chunked.cu")
 
 
 def key(name):
@@ -89,16 +91,24 @@ def main():
     nvcc = native.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     ok = True
+    def has(tree, source):
+        return os.path.exists(os.path.join(tree, "cubecl_tpu_torch", "csrc",
+                                           source))
+
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {(t, s): os.path.join(tmp, f"{t}-{s}.o")
-                for t in ("parent", "this") for s in SOURCES}
+                for t, tree in (("parent", args.parent), ("this", ROOT))
+                for s in SOURCES if has(tree, s)}
         procs = {(t, s): compile_tree(nvcc, native.NVCC_FLAGS,
                                       args.parent if t == "parent" else ROOT,
                                       s, obj)
                  for (t, s), obj in jobs.items()}
         got = {j: read(procs[j], jobs[j], cuobjdump) for j in jobs}
     for source in SOURCES:
-        (pr, pf), (tr, tf) = got["parent", source], got["this", source]
+        if ("this", source) not in got:
+            continue
+        (pr, pf) = got.get(("parent", source), ({}, {}))
+        (tr, tf) = got["this", source]
         kinds = {}
         for n in sorted(pf):
             eq = pf[n] == tf.get(n)

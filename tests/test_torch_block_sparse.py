@@ -15,9 +15,10 @@ ROADMAP Queue 3; only block_q != block_k) the JAX backward is not the
 gradient of the JAX forward, and the port gives the true gradient
 (``test_f9_rows``).
 
-At head dims 32, 80 and 96 (Pythia-31M's, Phi-2's, Phi-3-mini's) the port
-pads D with zeros to 64 or 128, the kernels' head dims, on the CPU as on
-the card; the JAX kernel takes the real D. Same tolerances.
+At head dims 32, 80, 96 and 160 (Pythia-31M's, Phi-2's, Phi-3-mini's, and
+one between 128 and 256) the port pads D with zeros to 64, 128 or 256, the
+kernels' head dims, on the CPU as on the card, and runs D 256 (GPT-J-6B's)
+as it is; the JAX kernel takes the real D. Same tolerances.
 """
 
 import jax
@@ -188,7 +189,7 @@ def test_asserts_and_shapes():
                                         64, 64)
 
 
-PADDED_DIMS = [32, 80, 96]
+PADDED_DIMS = [32, 80, 96, 160, 256]
 # (causal, block_q, block_k): a square causal grid and a non-causal one
 # with bq != bk
 PADDED_CASES = {"causal64": (True, 64, 64), "full128x64": (False, 128, 64)}
@@ -244,10 +245,10 @@ def test_f9_rows_padded(D):
     assert np.all(grads[0][:, :, :64] == 0.0)
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [288, 320])
 def test_past_128_raises_off_the_cpu(D):
-    """D 129-256 are not ported to the card (ROADMAP Queue 2a): off the CPU
-    the public function and each wrapper raise before any kernel runs
+    """D past 256 is not ported to the card (ROADMAP Queue 2a): off the
+    CPU the public function and each wrapper raise before any kernel runs
     (meta tensors stand in for the card's); on the CPU the plain versions
     run D as it is."""
     bm = np.ones((2, 2), bool)

@@ -705,11 +705,12 @@ def test_paged_ring_kernel_matches_plain(dev, D, dtype, quant, layout):
         assert not got[lengths.index(0)].any()
 
 
-@pytest.mark.parametrize("D", [48, 160, 288])
+@pytest.mark.parametrize("D", [288, 320, 512])
 def test_paged_other_head_dims_are_refused(dev, D):
-    """A head dim without a P1 or P3 instance is refused on the card:
-    both wrappers raise before any launch, naming ROADMAP Queue 2a, and
-    the built plan entries return an error (cudaErrorInvalidValue)."""
+    """A head dim past 256 is refused on the card (every D up to 256 runs,
+    in its own instance or a ragged one): both wrappers raise before any
+    launch, naming ROADMAP Queue 2a, and the built plan entries return an
+    error (cudaErrorInvalidValue)."""
     from cubecl_tpu_torch.ops import paged_attention as pa
     from cubecl_tpu_torch.utils import native
 
@@ -731,6 +732,103 @@ def test_paged_other_head_dims_are_refused(dev, D):
         ctypes.cast(plan, ctypes.c_void_p)) != 0
     assert lib.cubecl_paged_chunked_plan(
         1, 1, 2, 4, 2, 1, D, 16, 2, ctypes.cast(plan, ctypes.c_void_p)) != 0
+
+
+# P1 and P3 at head dims with no instance of their own, run by the ragged
+# instances of the next width of 64, 128 and 256: 1 and 33 (rows of an odd
+# number of bf16 or int8 elements: plain loads), 48, 100 (bf16 rows of 200
+# bytes: 8-byte copies; int8 of 100: 4-byte), MPT-30B's 112, 160, 192, 200
+# and 255 (the widest, f32 pools at 256's one stage a warp)
+RAGGED_D = [1, 33, 48, 100, 112, 160, 192, 200, 255]
+# (B, Hkv, G, page, max_pages, lengths, window, sinks): positions split
+# over blocks and combined, a length-0 row, a row at the table's capacity;
+# G 12 on pages of 7 (the row groups of the grouped kernel). On a ring a
+# row's length is its length plus half the capacity (a length 0 stays 0),
+# so that its slots recycle
+RAGGED_P1 = {
+    "G2-page16": (4, 2, 2, 16, 17, [0, 100, 200, 272], 240, 16),
+    "G12-page7": (5, 1, 12, 7, 40, [0, 7, 70, 129, 280], 50, 9),
+}
+
+
+@pytest.mark.parametrize("layout", list(RAGGED_P1))
+@pytest.mark.parametrize("mode", ["full", "window", "ring"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("D", RAGGED_D)
+def test_paged_ragged_head_dims_match_plain(dev, D, kind, mode, layout):
+    """P1 at a head dim without an instance of its own (paged_ragged.cu) in
+    every mode and on every pool against its plain version: the pools,
+    q and o at the real D, no copy of a pool; the plan is the built
+    kernel's; one launch, counted in its mode; a length-0 row's zeros."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, G, page, max_pages, lengths, window, sinks = RAGGED_P1[layout]
+    if mode == "ring":
+        lengths = [n + page * max_pages // 2 if n else 0 for n in lengths]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(D * G + len(mode))
+    q, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, kind == "int8",
+                                             B, Hkv, G, D, page, max_pages)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(layer=1, k_scales=ks, v_scales=vs)
+    if mode != "full":
+        kw.update(window=window, sinks=sinks)
+    if mode == "ring":
+        kw["pos_meta"] = torch.from_numpy(_ring_meta(
+            table, lengths, page, sinks)[:kp.shape[2]]).to(dev)
+    args = (dtype, kp.dtype, B, Hkv * G, Hkv, D, page, max_pages,
+            kw.get("window", 0), kw.get("sinks", 0), mode == "ring")
+    assert pa.p1_kernel_plan(*args) == pa.p1_plan(*args)
+    n = (paged_attention.launches, paged_attention.window_launches,
+         paged_attention.ring_launches, paged_attention.grouped_launches)
+    got = paged_attention(q, kp, vp, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.window_launches,
+            paged_attention.ring_launches,
+            paged_attention.grouped_launches) == (
+        n[0] + 1, n[1] + (mode == "window"), n[2] + (mode == "ring"),
+        n[3] + (G > 8))
+    assert got.shape == q.shape
+    _close(got, paged_attention_plain(q, kp, vp, table, ln, **kw))
+    if 0 in lengths:
+        assert not got[lengths.index(0)].any()
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 2, 5, 7), (2, 2, 3, 70, 16)],
+                         ids=["verify-page7", "C70-page16"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("D", RAGGED_D)
+def test_paged_chunked_ragged_head_dims_match_plain(dev, D, kind, shape):
+    """P3 at a head dim without an instance of its own (the ragged
+    instances of paged_chunked.cu) on every pool against its plain
+    version: the decode-shaped chunk with its positions split and
+    combined, the C 70 chunk in 4 row tiles; a length-0 row's zeros; the
+    plan is the built kernel's; one launch."""
+    from cubecl_tpu_torch.ops import paged_attention as pa
+
+    B, Hkv, G, C, page = shape
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    max_pages = -(-128 // page) + 2
+    g = torch.Generator(device=dev).manual_seed(C * D + len(kind))
+    _, kp, vp, ks, vs, table = _stream_pools(g, dev, dtype, kind == "int8",
+                                             B, Hkv, G, D, page, max_pages)
+    q = torch.randn(B, Hkv * G, C, D, generator=g, device=dev).to(dtype)
+    args = (dtype, kp.dtype, B, Hkv * G, Hkv, C, D, page, max_pages)
+    assert pa.p3_kernel_plan(*args) == pa.p3_plan(*args)
+    for starts, lengths in (([0, 7, 16, 40][:B], None),
+                            ([0, 9, 3, 20][:B], [0, 12, 30, 25][:B])):
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ln = st + C if lengths is None else torch.tensor(
+            lengths, dtype=torch.int32, device=dev)
+        n = paged_attention_chunked.launches
+        got = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                      k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        assert paged_attention_chunked.launches == n + 1
+        _close(got, paged_attention_chunked_plain(
+            q, kp, vp, table, ln, st, layer=1, k_scales=ks, v_scales=vs))
+        if lengths is not None:
+            assert not got[0].any()
 
 
 # P1's plain-decode parameters as before the StreamingLLM kernels came
@@ -2526,7 +2624,7 @@ def _f9_mask(n_q, n_kv):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,bq,bk,mask", [
     (512, 128, 128, _band_mask), (480, 96, 160, _band_mask),
@@ -2569,7 +2667,7 @@ def test_block_sparse_kernels_match_plain(dev, dtype, D, causal, S, bq, bk,
             assert not t.grad[:, :, ki * bk_:(ki + 1) * bk_].any()
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,bq,bk,mask", [
     (512, 128, 128, _band_mask), (512, 64, 64, _holed_mask),
@@ -2615,15 +2713,16 @@ def test_block_sparse_backward_bf16_rounds_as_jax(dev, D, causal, S, bq, bk,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 80, 96])
+@pytest.mark.parametrize("D", [32, 80, 96, 160, 192])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S,bq,bk,mask", [
     (512, 128, 128, _band_mask), (512, 64, 64, _holed_mask),
     (512, 128, 64, _f9_mask)], ids=["band128", "holed64", "f9_128x64"])
 def test_block_sparse_padded_head_dims_match_plain(dev, dtype, D, causal, S,
                                                    bq, bk, mask):
-    """A5, A6 and A7 at D 32, 80 and 96, padded with zeros to 64 or 128
-    outside the autograd Function: one launch each, o and the grads at the
+    """A5, A6 and A7 at D 32, 80, 96, 160 and 192, padded with zeros to
+    64, 128 or 256 outside the autograd Function: one launch each, o and
+    the grads at the
     real D against the plain forward and backward there; a kv tile nobody
     attends gets dk = dv = 0 exactly."""
     g = torch.Generator(device=dev).manual_seed(S + bq + D + causal)
@@ -2657,9 +2756,9 @@ def test_block_sparse_padded_head_dims_match_plain(dev, dtype, D, causal, S,
 
 
 def test_block_sparse_refuses_other_shapes(dev):
-    """Other k/v head counts raise; any D up to 128 runs (padded); D 129-256
-    raise naming ROADMAP Queue 2a (the D 256 schedules are not built), and
-    the wrappers take only the built head dims 64 and 128."""
+    """Other k/v head counts raise; any D up to 256 runs (padded to 64, 128
+    or 256); D past 256 raises naming ROADMAP Queue 2a, and the wrappers
+    take only the built head dims 64, 128 and 256."""
     q = torch.zeros(1, 4, 256, 64, device=dev)
     kv = torch.zeros(1, 2, 256, 64, device=dev)
     with pytest.raises(ValueError, match="as many k/v heads"):
@@ -2673,7 +2772,12 @@ def test_block_sparse_refuses_other_shapes(dev):
     with pytest.raises(ValueError, match="head_dim"):
         fa.bsp_forward(q32, q32, q32, sched, True, 32 ** -0.5, 128, 128,
                        False)
-    for D in (129, 192, 256, 320):
+    for D in (129, 192, 256):
+        qd = torch.zeros(1, 2, 256, D, device=dev)
+        assert fa.flash_attention_block_sparse(
+            qd, qd, qd, np.ones((2, 2), bool), True, None, 128,
+            128).shape == qd.shape
+    for D in (288, 320):
         qd = torch.zeros(1, 2, 256, D, device=dev)
         with pytest.raises(NotImplementedError, match="Queue 2a"):
             fa.flash_attention_block_sparse(

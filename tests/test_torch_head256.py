@@ -126,11 +126,11 @@ def test_flash_options_match_jax_kernel(option):
 
 def test_flash_routes_head_dim_256_to_the_exact_kernel():
     """The models' flash function at D 256 is flash_attention, whose
-    forward and backward have D 256 instances (the block-sparse ones stay
-    at 64, 128)."""
+    forward and backward have D 256 instances (as the block-sparse ones
+    have)."""
     assert fa.flash_for_head_dim(D, 16) is fa.flash_attention
     assert fa.KERNEL_HEAD_DIMS == (64, 128, 256)
-    assert fa.SPARSE_HEAD_DIMS == (64, 128)
+    assert fa.SPARSE_HEAD_DIMS == (64, 128, 256)
 
 
 @pytest.mark.parametrize("Dq", [160, 256])

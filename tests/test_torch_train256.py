@@ -252,11 +252,16 @@ def test_past_256_a_training_pass_is_refused(Dq):
 
 @pytest.mark.parametrize("grad", [False, True], ids=["forward", "train"])
 def test_block_sparse_stays_unported_at_256(grad):
-    """A5-A7 are not built at D 256: the block-sparse function raises
-    NotImplementedError naming ROADMAP Queue 2a off the CPU, with or
-    without grad, and runs its plain versions on the CPU."""
+    """A5-A7 are built at D 256 and not past it: off the CPU (meta tensors
+    stand in for the card's) the block-sparse function goes on to the
+    kernels at D 256, which want a CUDA tensor, and raises
+    NotImplementedError naming ROADMAP Queue 2a at D 288, with or without
+    grad; on the CPU it runs its plain versions."""
     q = torch.zeros(1, 2, 256, D, device="meta", requires_grad=grad)
     bm = np.ones((2, 2), bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_block_sparse(q, q, q, bm, True, None, 128, 128)
+    q = torch.zeros(1, 2, 256, D + 32, device="meta", requires_grad=grad)
     with pytest.raises(NotImplementedError, match="Queue 2a"):
         fa.flash_attention_block_sparse(q, q, q, bm, True, None, 128, 128)
     x = torch.from_numpy(_inputs(11, 2, 2, 256)[0]).requires_grad_(grad)
