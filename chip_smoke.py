@@ -240,6 +240,7 @@ result. Imports only torch, numpy and cubecl_tpu_torch.
 import atexit
 import copy
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -364,6 +365,20 @@ def atol_needed(got, ref, rtol):
     return max(((g - r).abs() - rtol * r.abs()).max().item(), 0.0)
 
 
+def plain_bwd(fa, q, k, v, o, lse, do, *args, **kw):
+    """``fa.flash_attention_backward_plain`` as the kernels' reference:
+    f32 inputs go in as float64 copies (an exact reference where a kv
+    head's gradient sums many terms: in f32 its own rounding was 3.27e-5
+    off a dV element at Qwen3-Next's G 8 x S 4096, past f32's tolerance)
+    and the grads come back in f32; other dtypes as they are."""
+    if q.dtype != torch.float32:
+        return fa.flash_attention_backward_plain(q, k, v, o, lse, do, *args,
+                                                 **kw)
+    grads = fa.flash_attention_backward_plain(
+        *(t.double() for t in (q, k, v, o, lse, do)), *args, **kw)
+    return tuple(g.float() for g in grads)
+
+
 def compare_bwd(got, rounded, exact, what):
     """A gradient of the flash backward kernels: within TOL of the plain
     backward that rounds p and dS as the kernels do (``rounded``), and
@@ -393,6 +408,12 @@ def kernel_name(mangled):
                     r"(S\d*_|[af])?Li(\d+)E", mangled)
     p1r = re.search(r"(paged_ragged_kernel)ILi(\d)ELb([01])E"
                     r"(13__nv_bfloat16|f)(S\d*_|[af])?Li(\d+)E", mangled)
+    fx = re.search(r"(flash_(?:fwd|bwd_dkv)_tf32x3_kernel)IfLi(\d+)E",
+                   mangled)
+    if fx:
+        return (f"{fx.group(1)}<f32, {fx.group(2)}"
+                f"{', block-sparse' if 'Sparse' in mangled else ''}"
+                f"{', masked' if 'Masked' in mangled else ''}>")
     if "conv3x3_wgmma_kernel" in mangled:
         return "conv3x3_wgmma_kernel<bf16>"
     for name in ("conv3x3_tf32x3_kernel", "conv3x3_split_weights_kernel"):
@@ -462,13 +483,17 @@ def sass_of(nvcc, so):
 def flash_sass(sass, summary):
     """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
     library's SASS: (name, HGMMA count, registers, spill line) each. Fails
-    unless every bf16 instance of each of the three kernels issues wgmma
-    (HGMMA) and they cover D 64, 128 and 256 on the dense, the block-sparse
-    and the masked (the options') schedule, the D 256 ones spilling
-    nothing (where a fresh build's ptxas log reports them)."""
+    unless every bf16 instance of each of the three kernels and every f32
+    instance of the forward and of dK/dV (the 3xTF32 bodies) issues wgmma
+    (HGMMA), each covering D 64, 128 and 256 on the dense, the
+    block-sparse and the masked (the options') schedule, the D 256 ones
+    spilling nothing (where a fresh build's ptxas log reports them). The
+    f32 dQ stays on the CUDA cores."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-    rows, covered = [], {k: set() for k in kinds}
+    tensor_core = [(k, "bf16") for k in kinds] + [
+        ("flash_fwd", "f32"), ("flash_bwd_dkv", "f32")]
+    rows, covered = [], {kd: set() for kd in tensor_core}
     for chunk in sass.split("Function : ")[1:]:
         mangled = chunk.split("\n", 1)[0].strip()
         kind = next((k for k in kinds if k in mangled), None)
@@ -481,18 +506,20 @@ def flash_sass(sass, summary):
         if ", 256" in name and r is not None and not sp.startswith(
                 "0 bytes stack frame, 0 bytes spill stores"):
             fail(f"phase 2: {name} spills or keeps a stack frame: {sp}")
-        if "<bf16" in name:
+        dt = "bf16" if "<bf16" in name else "f32" if "tf32x3" in name \
+            else None
+        if dt is not None:
             if n == 0:
                 fail(f"phase 2: {name} issues no HGMMA (wgmma)")
-            covered[kind].add((re.search(r", (\d+)", name).group(1),
-                               "block-sparse" if "block-sparse" in name
-                               else "masked" if "masked" in name
-                               else "dense"))
+            covered[(kind, dt)].add((re.search(r", (\d+)", name).group(1),
+                                     "block-sparse" if "block-sparse" in name
+                                     else "masked" if "masked" in name
+                                     else "dense"))
     want = {(d, sp) for d in ("64", "128", "256")
             for sp in ("dense", "block-sparse", "masked")}
-    for kind, got in covered.items():
+    for (kind, dt), got in covered.items():
         if got != want:
-            fail(f"phase 2: bf16 {kind} instances with HGMMA cover "
+            fail(f"phase 2: {dt} {kind} instances with HGMMA cover "
                  f"{sorted(got)}, want {sorted(want)}")
     return rows
 
@@ -617,6 +644,82 @@ BWD_SWEEP_S = [1, 63, 64, 65, 77, 127, 128, 200, 1021]
 # beside this run's.
 CUDA_CORE_BWD_MS = {"A3": 3.0899, "A4": 2.6739, "A6": 5.4057, "A7": 8.0546,
                     "train llama": 221.44, "train transformer": 106.79}
+
+
+# The f32 flash bodies before they ran on the tensor cores (A1's CUDA-core
+# flash_fwd_kernel, A3's flash_bwd_dkv_kernel and, at D 256,
+# flash_bwd_dkv_sliced_kernel), taken by this script on an H100 80GB HBM3
+# at 700 W (an earlier run): phase d's d768 row back to back (forward with
+# lse, dK/dV), and the cold-L2 times of phase zd1's A1 and phase ze1's A3
+# f32 cases by case name (D 128 at the same shape beside them). Printed
+# beside this run's.
+CUDA_CORE_F32_MS = {
+    "d": {"A1": 0.0770, "A3": 0.2311},
+    "zd1": {"gpt-j prefill": (3.0082, 1.5596),
+            "qwen3-next prefill": (10.9001, 5.7876),
+            "ragged S1021": (2.9989, 1.5549), "padded D192": (3.3922, 1.5711),
+            "padded D160": (3.3363, 1.5551), "kv_len 900": (3.3765, 1.5331),
+            "window 1024": (5.6328, 2.5536)},
+    "ze1": {"gpt-j train": (10.7284, 3.0082),
+            "qwen3-next train": (48.2031, 15.5069),
+            "ragged S1021": (10.6965, 2.9914),
+            "cross Sq512 Skv1024": (3.1609, 0.9311),
+            "non-causal": (5.0255, 1.3762), "padded D192": (10.7126, 2.9884),
+            "padded D160": (10.7982, 3.0126), "kv_len 900": (10.7157, 2.8762),
+            "window 1024": (20.9930, 5.3790), "segments": (17.0585, 5.5424)}}
+
+
+# The entry points of the f32 bodies whose launches phase by phase this
+# script counts (F32_LAUNCHES, by the value of the entry's ``dtype``
+# parameter: csrc/common.cuh's kF32 is 0): A1's forward, A3's dK/dV, A4's
+# dQ on their three schedules, E1 and P3. The wrappers' own counts are
+# untouched.
+F32_ENTRIES = {
+    "A1": ("cubecl_flash_fwd", "cubecl_flash_masked_fwd",
+           "cubecl_flash_bsp_fwd"),
+    "A3": ("cubecl_flash_bwd_dkv", "cubecl_flash_masked_dkv",
+           "cubecl_flash_bsp_dkv"),
+    "A4": ("cubecl_flash_bwd_dq", "cubecl_flash_masked_dq",
+           "cubecl_flash_bsp_dq"),
+    "E1": ("cubecl_expert_matmul",),
+    "P3": ("cubecl_paged_chunked",)}
+F32_LAUNCHES = {body: {} for body in F32_ENTRIES}
+PHASE = {"now": "1"}  # main sets it as each phase starts
+
+
+def dtype_place(native, name):
+    """The place of the ``dtype`` parameter of entry point ``name``, read by
+    its name from the ``extern "C"`` declaration in csrc; fails unless the
+    declaration has as many parameters as ``native._SIGNATURES`` binds."""
+    for path in sorted(glob.glob(os.path.join(native.CSRC_DIR, "*.cu"))):
+        with open(path) as f:
+            m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                          f.read())
+        if m:
+            params = [re.split(r"[\s*]+", p.strip())[-1]
+                      for p in m.group(1).split(",")]
+            if len(params) != len(native._SIGNATURES[name]):
+                raise RuntimeError(
+                    f"{name}: {len(params)} parameters in {path}, "
+                    f"{len(native._SIGNATURES[name])} bound in native.py")
+            return params.index("dtype")
+    raise RuntimeError(f"{name}: no extern \"C\" declaration in csrc")
+
+
+def count_f32_launches(native):
+    """Wrap the built library's entry points of F32_ENTRIES so that each
+    call with an f32 dtype adds one to F32_LAUNCHES[body][the current
+    phase]."""
+    lib = native.kernels()
+    for body, entries in F32_ENTRIES.items():
+        for name in entries:
+            def counted(*args, _fn=getattr(lib, name),
+                        _at=dtype_place(native, name), _body=body):
+                if args[_at] == 0:
+                    n = F32_LAUNCHES[_body]
+                    n[PHASE["now"]] = n.get(PHASE["now"], 0) + 1
+                return _fn(*args)
+            setattr(lib, name, counted)
 
 
 def compile_only(client):
@@ -900,13 +1003,79 @@ def serve_k0(llama, fa, pa, cu, dev, card):
     return {"launches": launches["_rmsnorm_fwd_k"]}
 
 
+# The d768 f32 llama's prefill (phase 6: B 16 x S 384) and training step
+# (phase g: B 4 x S 384), use_framework_kernels=False, on the CUDA-core f32
+# flash bodies: the medians of scripts/flash_f32_times.py's two runs of
+# the parent checkout in one call (f32_prefill_ms, f32_step_ms; host
+# clock), H100 80GB HBM3 at 700 W. Printed beside this run's.
+CUDA_CORE_F32_E2E_MS = {"prefill": (20.676, 20.892), "step": (43.063, 49.870)}
+F32_LLAMA = dict(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4,
+                 n_layers=8, d_ff=2048, seq=512)
+E2E_REPS = 5  # timed calls of f32_prefill_ms and f32_step_ms
+
+
+def f32_prefill_ms(llama, dev):
+    """Median host-clock ms (each call synchronised, on a fresh cache) of
+    ``llama.prefill`` with the kernels on phase 6's d768 f32 llama at B 16
+    x S 384 (no framework kernels), after a warm call."""
+    cfg = llama.LlamaConfig(**F32_LLAMA, use_framework_kernels=False)
+    model = llama.init_params(cfg, seed=1, device=dev)
+    B, S, page = 16, 384, 128
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+
+    def once():
+        cache = llama.init_kv_cache(cfg, B, math.ceil((S + 32) / page), page,
+                                    dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            llama.prefill(model, cache, prompt, kernels=True)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    once()
+    return statistics.median(once() for _ in range(E2E_REPS))
+
+
+def f32_step_ms(llama, dev):
+    """Median host-clock ms (each step synchronised) of one
+    ``make_train_step`` step with the kernels on phase g's d768 f32 llama
+    at B 4 x S 384 (no framework kernels), after two warm steps."""
+    cfg = llama.LlamaConfig(**F32_LLAMA, use_framework_kernels=False)
+    model = llama.init_params(cfg, seed=1, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (4, 385), dtype=np.int32)).to(dev)
+    step = llama.make_train_step(cfg, 1e-3, kernels=True)
+
+    def once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, tokens)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    once()
+    once()
+    return statistics.median(once() for _ in range(E2E_REPS))
+
+
+def _e2e_beside(what, ms):
+    """This run's f32 prefill or step time beside the CUDA-core bodies'."""
+    lo, hi = CUDA_CORE_F32_E2E_MS[what]
+    return (f"{ms:.3f} ms (median of {E2E_REPS}, host clock; on the "
+            f"CUDA-core f32 "
+            f"flash bodies {lo:.3f}-{hi:.3f} ms, constants of this script "
+            f"from an earlier run)")
+
+
 def exactness(llama, dev, framework):
     """Phases 6 and c (bench.py:604-609): a d768 f32 llama served with the
     kernels and with their plain versions; prefill logits within
-    LOGIT_TOL, greedy tokens equal but at near-ties. Returns the line."""
-    cfg = llama.LlamaConfig(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4,
-                            n_layers=8, d_ff=2048, seq=512,
-                            use_framework_kernels=framework)
+    LOGIT_TOL, greedy tokens equal but at near-ties; without the framework
+    kernels (phase 6) the prefill's time (f32_prefill_ms). Returns the
+    line."""
+    cfg = llama.LlamaConfig(**F32_LLAMA, use_framework_kernels=framework)
     model = llama.init_params(cfg, seed=1, device=dev)
     B, S, steps, page = 16, 384, 32, 128
     max_pages = math.ceil((S + steps) / page)
@@ -944,11 +1113,14 @@ def exactness(llama, dev, framework):
                      f"top-2 gap of {gap} >= {LOGIT_TOL}")
             flips.append((b, i, gap))
     same = int((k_toks == p_toks).all(1).sum())
+    del model
+    timed = ("" if framework else "; the f32 prefill with the kernels "
+             + _e2e_beside("prefill", f32_prefill_ms(llama, dev)))
     return (f"exactness llama d768 f32 (8 layers, 12/4 heads, "
             f"use_framework_kernels={framework}): {B} requests x {S} prompt "
             f"+ {steps} steps, kernels vs plain on the card: prefill logits "
             f"max abs err {logit_err} (tol {LOGIT_TOL}); {same}/{B} token "
-            f"rows equal; near-tie flips {flips}")
+            f"rows equal; near-tie flips {flips}{timed}")
 
 
 def _plain_rmsnorm_bwd(x, g, dy, eps=RMS_EPS):
@@ -1117,8 +1289,8 @@ def flash_backward(fa, dev, gen, card):
         di = (do.float() * o.float()).sum(-1)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
         dq = fa.flash_bwd_dq(q, k, v, do, lse, di, causal)
-        exact, rounded = (fa.flash_attention_backward_plain(
-            q, k, v, o, lse, do, causal, round_p_ds=rnd)
+        exact, rounded = (plain_bwd(
+            fa, q, k, v, o, lse, do, causal, round_p_ds=rnd)
             for rnd in (False, True))
         torch.cuda.synchronize()
         err_r, err, need = zip(*(compare_bwd(a, r, e, f"{what}: d{n}")
@@ -1155,6 +1327,36 @@ def flash_backward(fa, dev, gen, card):
                f"earlier run: dK/dV {CUDA_CORE_BWD_MS['A3']:.4f}, dQ "
                f"{CUDA_CORE_BWD_MS['A4']:.4f} ms)" if name == "train"
                else "")
+        lse_bytes = 8 * B * H * S           # lse and di, f32
+        elem = torch.finfo(dt).bits // 8
+        dkv_bound = flash_bound(B, H, Hkv, S, S, D, dt, causal, 4,
+                                elem * D * 2 * B * Hkv * S + lse_bytes)
+        dq_bound = flash_bound(B, H, Hkv, S, S, D, dt, causal, 3,
+                               elem * D * B * H * S + lse_bytes)
+        f32 = {}
+        if dt == torch.float32:
+            # the 3xTF32 forward and dK/dV with a cold L2, their shares of
+            # the bounds, SDPA's forward in f32 (TF32 off)
+            fwd_bound = flash_bound(B, H, Hkv, S, S, D, dt, causal)
+            f32 = dict(
+                fwd_cold_ms=cold_ms(lambda: fa._flash_forward(
+                    q, k, v, causal, None, True)),
+                dkv_cold_ms=cold_ms(lambda: fa.flash_bwd_dkv(
+                    q, k, v, do, lse, di, causal)),
+                library_fwd_ms=cuda_ms(
+                    lambda: TF.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True)),
+                fwd_bound=fwd_bound)
+            fc, dc = f32["fwd_cold_ms"], f32["dkv_cold_ms"]
+            was = (f"; the 3xTF32 bodies with a cold L2: forward {fc:.4f} "
+                   f"ms ({100 * fwd_bound[0] / fc:.1f}% of its bound "
+                   f"{fwd_bound[0]:.4f}, {fwd_bound[1]}), dK/dV {dc:.4f} ms "
+                   f"({100 * dkv_bound[0] / dc:.1f}% of "
+                   f"{dkv_bound[0]:.4f}); on the CUDA cores, constants "
+                   f"of this script from an earlier run, back to back: "
+                   f"forward {CUDA_CORE_F32_MS['d']['A1']:.4f}, dK/dV "
+                   f"{CUDA_CORE_F32_MS['d']['A3']:.4f} ms; SDPA's f32 "
+                   f"forward {f32['library_fwd_ms']:.4f} ms")
         print(f"phase d {what}: max abs err o {err_o}, lse {err_lse} "
               f"(atol/rtol {TOL[dt]}; lse {TOL[torch.float32]}); against "
               f"the plain backward that rounds p and dS as the kernels do: "
@@ -1168,18 +1370,12 @@ def flash_backward(fa, dev, gen, card):
               f"ms{was}; TFLOP/s dK/dV {tf['dK/dV']:.1f}, dQ {tf['dQ']:.1f},"
               f" both {tf['both']:.1f}; plain backward {plain_ms:.4f} ms, "
               f"SDPA's backward {lib_ms:.4f} ms [{card}]", flush=True)
-        lse_bytes = 8 * B * H * S           # lse and di, f32
-        elem = torch.finfo(dt).bits // 8
         rows[name] = dict(
             dq_err=err[0], dkv_err=max(err[1:]), dq_err_rounded=err_r[0],
             dkv_err_rounded=max(err_r[1:]), atol_vs_exact=dict(
                 zip(("dq", "dk", "dv"), need)), fwd_ms=fwd_ms,
             dkv_ms=dkv_ms, dq_ms=dq_ms, plain_ms=plain_ms, library_ms=lib_ms,
-            tflops=tf,
-            dkv_bound=flash_bound(B, H, Hkv, S, S, D, dt, causal, 4,
-                                  elem * D * 2 * B * Hkv * S + lse_bytes),
-            dq_bound=flash_bound(B, H, Hkv, S, S, D, dt, causal, 3,
-                                 elem * D * B * H * S + lse_bytes))
+            tflops=tf, dkv_bound=dkv_bound, dq_bound=dq_bound, **f32)
     return rows
 
 
@@ -1204,8 +1400,8 @@ def flash_backward_sweep(fa, dev, gen, card):
                     di = (do.float() * o.float()).sum(-1)
                     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
                     dq = fa.flash_bwd_dq(q, k, v, do, lse, di, causal)
-                    exact, rounded = (fa.flash_attention_backward_plain(
-                        q, k, v, o, lse, do, causal, round_p_ds=rnd)
+                    exact, rounded = (plain_bwd(
+                        fa, q, k, v, o, lse, do, causal, round_p_ds=rnd)
                         for rnd in (False, True))
                     case = (f"H{H}/{Hkv} S{S} D{D} "
                             f"{'causal' if causal else 'non-causal'}")
@@ -1374,10 +1570,9 @@ def train_exactness(llama, dev, framework):
     """Phase g (bench.py:604-609): one SGD step of the d768 f32 llama at
     B 4 x S 384 with the kernels and one with their plain versions, from
     the same weights: loss to 1e-5 relative, every gradient and updated
-    weight to 1e-4 of its max-abs. Returns the line."""
-    cfg = llama.LlamaConfig(vocab=8192, d_model=768, n_heads=12, n_kv_heads=4,
-                            n_layers=8, d_ff=2048, seq=512,
-                            use_framework_kernels=framework)
+    weight to 1e-4 of its max-abs; without the framework kernels the
+    step's time (f32_step_ms). Returns the line."""
+    cfg = llama.LlamaConfig(**F32_LLAMA, use_framework_kernels=framework)
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, (4, 385), dtype=np.int32)).to(dev)
     runs = []
@@ -1398,12 +1593,15 @@ def train_exactness(llama, dev, framework):
                 fail(f"train exactness: {name} {what} differs by {rel} of "
                      "its max-abs (> 1e-4)")
             worst[what] = max(worst[what], rel)
+    del runs, pk, pp
+    timed = ("" if framework else "; one f32 step with the kernels "
+             + _e2e_beside("step", f32_step_ms(llama, dev)))
     return (f"train exactness llama d768 f32 (8 layers, 12/4 heads, "
             f"use_framework_kernels={framework}): B 4 x S 384, one SGD step "
             f"with the kernels and one with the plain versions: loss {lk} "
             f"vs {lp} (rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-5); worst "
             f"gradient {worst['grad']:.2e} and updated weight "
-            f"{worst['weight']:.2e} of their max-abs (tol 1e-4)")
+            f"{worst['weight']:.2e} of their max-abs (tol 1e-4){timed}")
 
 
 def train_transformer(fa, cu, dev, card):
@@ -4073,8 +4271,9 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
     ``fa.SPARSE_HEAD_DIMS``, as ``flash_attention_block_sparse`` pads it:
     the kernels are called on the padded tensors and their outputs sliced
     to D; plain versions and SDPA run at the real D, and the bounds are
-    given at both. With ``beside`` (a head dim) and ``timed``, each kernel
-    also with a cold L2 (``cold_ms``), beside the same call at that D
+    given at both. With ``beside`` (a head dim) or in f32, and ``timed``,
+    each kernel also with a cold L2 (``cold_ms``) and its share of the
+    bound; with ``beside``, beside the same call at that D
     (``d{beside}_cold_ms``)."""
     q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
                    for _ in range(4))
@@ -4185,7 +4384,7 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
         row["library_fwd_ms"] = cuda_ms(lambda: sdpa(q, k, v))
         row["library_bwd_ms"] = cuda_ms(grad_call(sdpa, (q, k, v), do))
         del el
-        if beside:
+        if beside or dt == torch.float32:
             def three(q_, k_, v_, do_, lse_, di_, sc_):
                 return {"fwd": cold_ms(lambda: fa.bsp_forward(
                             q_, k_, v_, sched, causal, sc_, bq_, bk_, True)),
@@ -4197,6 +4396,7 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
                             bq_, bk_))}
 
             row["cold_ms"] = three(qp, kp, vp, dop, lse, di, scale)
+        if beside:
             qb, kb, vb, dob = (torch.randn(B, H, S, beside, generator=gen,
                                            device=dev).to(dt)
                                for _ in range(4))
@@ -4217,20 +4417,25 @@ def bsp_case(fa, dev, gen, card, name, B, H, S, D, dt, causal, bq, bk, kind,
                f"({bound('fwd')}, {bounds['fwd'][1]}), A6 "
                f"{row['dq_ms']:.4f} ms ({bound('dq')}"
                + (f"; on the CUDA cores, a constant from an earlier run, "
-                  f"{CUDA_CORE_BWD_MS['A6']}" if phase == "x" else "")
+                  f"{CUDA_CORE_BWD_MS['A6']}" if phase == "x"
+                  and name == "main" else "")
                + f"), A7 {row['dkv_ms']:.4f} ms ({bound('dkv')}"
                + (f"; on the CUDA cores, the same, "
-                  f"{CUDA_CORE_BWD_MS['A7']}" if phase == "x" else "")
+                  f"{CUDA_CORE_BWD_MS['A7']}" if phase == "x"
+                  and name == "main" else "")
                + f"); plain forward {row['plain_fwd_ms']:.4f} ms, backward "
                f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
                f"forward {row['library_fwd_ms']:.4f} ms, backward "
                f"{row['library_bwd_ms']:.4f} ms"
                + ("; cold L2: A5 / A6 / A7 " + " / ".join(
                    f"{row['cold_ms'][w]:.4f}" for w in ("fwd", "dq", "dkv"))
-                  + f" ms, the same calls at D {beside} " + " / ".join(
-                      f"{row[f'd{beside}_cold_ms'][w]:.4f}"
-                      for w in ("fwd", "dq", "dkv")) + " ms"
-                  if beside else ""))
+                  + " ms (" + " / ".join(
+                      f"{100 * bounds[w][0] / row['cold_ms'][w]:.1f}%"
+                      for w in ("fwd", "dq", "dkv")) + " of the bounds)"
+                  if "cold_ms" in row else "")
+               + (f", the same calls at D {beside} " + " / ".join(
+                   f"{row[f'd{beside}_cold_ms'][w]:.4f}"
+                   for w in ("fwd", "dq", "dkv")) + " ms" if beside else ""))
     print(f"phase {phase} {what}: {int(pruned.sum())} live tiles, "
           f"{len(empty)} kv tiles attended by none; launches {launches}, "
           f"forward + backward {path_s:.4f} s; max abs err o {err_o}, lse "
@@ -4257,8 +4462,9 @@ def block_sparse(fa, dev, gen, card):
                              m["S"], m["D"], m["dtype"], True, m["block"],
                              m["block"], "band", True)}
     for name, H, D, dt, causal, bq, bk, kind in BSP_CASES:
+        # the f32 case timed: A5 and A7 on the 3xTF32 bodies
         rows[name] = bsp_case(fa, dev, gen, card, name, 1, H, 1024, D, dt,
-                              causal, bq, bk, kind, False)
+                              causal, bq, bk, kind, dt == torch.float32)
     def randn(H, S):
         return torch.randn(8, H, S, 128, generator=gen,
                            device=dev).to(torch.bfloat16)
@@ -4798,8 +5004,8 @@ DOCS = dict(B=4, H=16, Hkv=8, S=8192, D=128, lo=256, hi=2048, pad=128,
 # A8 at head dim 32 (padded to 64) with a window, and kv_len at one shape
 PACKED32 = dict(B=8, H=16, Hkv=16, S=2048, D=32, window=(256, 0))
 KV_LEN = dict(B=2, H=16, Hkv=8, S=2048, D=128, kv_len=1900)
-# the f32 bodies (CUDA cores) at smaller shapes: (name, B, H, Hkv, S, D,
-# causal, options)
+# the f32 bodies (3xTF32 forward and dK/dV, CUDA-core dQ) at smaller
+# shapes: (name, B, H, Hkv, S, D, causal, options)
 ZA_F32 = [("window f32", 1, 8, 2, 1024, 128, True, dict(window=(300, 0))),
           ("band f32", 1, 8, 8, 1000, 64, False, dict(window=(100, 50))),
           ("segments f32", 2, 4, 2, 1024, 64, True, "docs"),
@@ -4870,7 +5076,8 @@ def option_case(fa, dev, gen, card, name, fn, B, H, Hkv, S, D, dt, causal,
     would not fit; with ``timed`` each kernel's time, its bound over the
     live pairs, the dense causal kernels' time at the same shape, the plain
     versions' (on those heads) and SDPA's with the element mask as a bool
-    ``attn_mask``, forward and backward."""
+    ``attn_mask``, forward and backward; in f32 the masked A1 and A3 also
+    with a cold L2 and their shares of the bounds."""
     q, do = (torch.randn(B, H, S, D, generator=gen, device=dev).to(dt)
              for _ in range(2))
     k, v = (torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(dt)
@@ -4917,8 +5124,8 @@ def option_case(fa, dev, gen, card, name, fn, B, H, Hkv, S, D, dt, causal,
     err_lse = compare(lse[:, :hs], lse_ref, f"phase za {what}: lse",
                       TOL[torch.float32])
     del o_ref, lse_ref
-    exact, rounded = (fa.flash_attention_backward_plain(
-        *sub, o[:, :hs], lse[:, :hs], do[:, :hs], causal, scale,
+    exact, rounded = (plain_bwd(
+        fa, *sub, o[:, :hs], lse[:, :hs], do[:, :hs], causal, scale,
         round_p_ds=rnd, **mask.plain()) for rnd in (False, True))
     torch.cuda.synchronize()
     err_r, err, need = zip(*(compare_bwd(a, r, e, f"phase za {what}: d{n}")
@@ -4978,6 +5185,12 @@ def option_case(fa, dev, gen, card, name, fn, B, H, Hkv, S, D, dt, causal,
         row["library_bwd_ms"] = cuda_ms(grad_call(sdpa, (q, kr, vr), do),
                                         iters=5)
         del kr, vr
+        if dt == torch.float32:  # the 3xTF32 bodies with a cold L2
+            row["cold_ms"] = dict(
+                fwd=cold_ms(lambda: fa.masked_forward(
+                    qp, kp, vp, mask, causal, scale, True)),
+                dkv=cold_ms(lambda: fa.masked_dkv(
+                    qp, kp, vp, dop, lse, di, mask, causal, scale)))
         dn = row["dense_causal"]
         msg = (f"; live pairs {pairs} ({pairs / dense_pairs:.3f} of dense "
                f"causal's {dense_pairs}); masked A1 {row['fwd_ms']:.4f} ms "
@@ -4989,7 +5202,12 @@ def option_case(fa, dev, gen, card, name, fn, B, H, Hkv, S, D, dt, causal,
                f"forward {row['plain_fwd_ms']:.4f} ms, backward "
                f"{row['plain_bwd_ms']:.4f} ms; SDPA with the element mask "
                f"forward {row['library_fwd_ms']:.4f} ms, backward "
-               f"{row['library_bwd_ms']:.4f} ms")
+               f"{row['library_bwd_ms']:.4f} ms"
+               + ("; cold L2: masked A1 " + ", A3 ".join(
+                   f"{row['cold_ms'][w]:.4f} ms ("
+                   f"{100 * bounds[w][0] / row['cold_ms'][w]:.1f}% of its "
+                   f"bound)" for w in ("fwd", "dkv"))
+                  if "cold_ms" in row else ""))
     print(f"phase za {what}: launches {launches}, forward + backward "
           f"{path_s:.4f} s; against plain on {row['plain_heads']}: max abs "
           f"err o {err_o}, lse {err_lse}; dq, dk, dv against the plain "
@@ -5222,7 +5440,8 @@ def flash_options(llama, fa, cu, ex_attn, dev, gen, card):
                                      fa._Mask.of(q, k, **kw))
 
         out[name] = option_case(fa, dev, gen, card, f"za3 {name}", fn, B, H,
-                                Hkv, S, D, torch.float32, causal, opts)
+                                Hkv, S, D, torch.float32, causal, opts,
+                                timed=True)
     _reset_masked(fa)
     got = ex_attn.launch(dev)
     torch.cuda.synchronize()
@@ -5936,9 +6155,10 @@ def a1_vs_plain(fa, dev, gen, card, phase, cases):
     D (GQA repeated inside the plain version); CUDA-event times back to
     back and with a cold L2, the same call at D 128 (same B, heads and
     context, half the bytes) with a cold L2, the plain version's time, the
-    bound over the live pairs at the real D and, in bf16, SDPA's time
-    (``is_causal`` and ``enable_gqa``; with an option the element mask as
-    a bool ``attn_mask``, kv heads repeated outside the call)."""
+    bound over the live pairs at the real D and SDPA's time (``is_causal``
+    and ``enable_gqa``; with an option the element mask as a bool
+    ``attn_mask``, kv heads repeated outside the call; f32 with TF32 off);
+    in f32 the CUDA-core body's time of CUDA_CORE_F32_MS beside it."""
     rows = {}
     for name, fname, B, H, Hkv, S, D, opts in cases:
         for dt in (torch.bfloat16, torch.float32):
@@ -5978,19 +6198,17 @@ def a1_vs_plain(fa, dev, gen, card, phase, cases):
             row = dict(max_abs_err=err, ms=ms, cold_ms=cold,
                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                        live_pairs=pairs, keys_read=keys, library_ms=None)
-            if dt == torch.bfloat16:
-                if masked:
-                    kr, vr = (t.repeat_interleave(H // Hkv, 1)
-                              for t in (k, v))
-                    row["library_ms"] = cuda_ms(
-                        lambda: TF.scaled_dot_product_attention(
-                            q, kr, vr, attn_mask=live), iters=5)
-                    del kr, vr
-                else:
-                    row["library_ms"] = cuda_ms(
-                        lambda: TF.scaled_dot_product_attention(
-                            q, k, v, is_causal=True, enable_gqa=True),
-                        iters=10)
+            # SDPA in either dtype (f32 with TF32 off)
+            if masked:
+                kr, vr = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
+                row["library_ms"] = cuda_ms(
+                    lambda: TF.scaled_dot_product_attention(
+                        q, kr, vr, attn_mask=live), iters=5)
+                del kr, vr
+            else:
+                row["library_ms"] = cuda_ms(
+                    lambda: TF.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), iters=10)
             del q, k, v, got, live
             q = torch.randn(B, H, S, 128, generator=gen, device=dev).to(dt)
             k, v = (torch.randn(B, Hkv, S, 128, generator=gen,
@@ -6000,14 +6218,18 @@ def a1_vs_plain(fa, dev, gen, card, phase, cases):
             del q, k, v
             torch.cuda.empty_cache()
             rows[f"{name} {_dt(dt)}"] = row
-            lib = row["library_ms"]
+            was = CUDA_CORE_F32_MS.get(phase, {}).get(name)
             print(f"phase {phase} {what}: max abs err {err} (atol/rtol "
                   f"{TOL[dt]}); kernel {ms:.4f} ms back to back, {cold:.4f} "
                   f"ms cold L2 (D 128 at the same B, heads and context "
-                  f"{row['d128_cold_ms']:.4f} ms); plain {plain_ms:.4f} ms; "
-                  + (f"SDPA {lib:.4f} ms; " if lib is not None else "")
-                  + f"bound {bms:.4f} ms ({by}, {pairs} live pairs a row "
-                  f"and head, {keys} keys read; "
+                  f"{row['d128_cold_ms']:.4f} ms)"
+                  + (f"; on the CUDA cores, a constant of this script from "
+                     f"an earlier run, {was[0]:.4f} ms cold (D 128 "
+                     f"{was[1]:.4f})" if dt == torch.float32 and was
+                     else "")
+                  + f"; plain {plain_ms:.4f} ms; SDPA "
+                  f"{row['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}, "
+                  f"{pairs} live pairs a row and head, {keys} keys read; "
                   f"{100 * bms / cold:.1f}% of it cold) [{card}]",
                   flush=True)
     return rows
@@ -6135,10 +6357,11 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
     and a second call bit
     for bit; then each kernel's cold-L2 time beside the same call at D
     128, the plain backward's time, the bound over the live pairs at the
-    real D (4 products a pair for dK/dV, 3 for dQ) and, in bf16, SDPA's
-    autograd backward (``is_causal`` and ``enable_gqa``; with an option the
-    element mask as a bool ``attn_mask``, kv heads repeated outside the
-    call)."""
+    real D (4 products a pair for dK/dV, 3 for dQ) and SDPA's autograd
+    backward (``is_causal`` and ``enable_gqa``; with an option the element
+    mask as a bool ``attn_mask``, kv heads repeated outside the call; f32
+    with TF32 off); in f32 the CUDA-core dK/dV's time of CUDA_CORE_F32_MS
+    beside it."""
     rows = {"dkv": {}, "dq": {}}
     worst = (0.0, "")
     for name, fname, B, H, Hkv, Sq, Skv, D, causal, opts in cases:
@@ -6184,8 +6407,8 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
             err_o = compare(o, o_ref, f"phase {phase} {what}: o")
             err_lse = compare(lse, lse_ref, f"phase {phase} {what}: lse")
             del o_ref, lse_ref
-            exact, rounded = (fa.flash_attention_backward_plain(
-                q, k, v, o, lse, do, causal, scale, round_p_ds=rnd,
+            exact, rounded = (plain_bwd(
+                fa, q, k, v, o, lse, do, causal, scale, round_p_ds=rnd,
                 **plain_opts) for rnd in (False, True))
             torch.cuda.synchronize()
             err_r, err, need = zip(*(compare_bwd(
@@ -6220,21 +6443,19 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
                                 pairs=pairs)
             b_dq = flash_bound(B, H, Hkv, Sq, keys, D, dt, causal, 3,
                                elem * D * B * H * Sq + stats, pairs=pairs)
-            lib = None
-            if dt == torch.bfloat16:
-                if live is None:
-                    lib = cuda_ms(grad_call(
-                        lambda q_, k_, v_: TF.scaled_dot_product_attention(
-                            q_, k_, v_, is_causal=causal, enable_gqa=True),
-                        (q, k, v), do), iters=5)
-                else:
-                    kr, vr = (t.repeat_interleave(H // Hkv, 1)
-                              for t in (k, v))
-                    lib = cuda_ms(grad_call(
-                        lambda q_, k_, v_: TF.scaled_dot_product_attention(
-                            q_, k_, v_, attn_mask=live), (q, kr, vr), do),
-                        iters=3)
-                    del kr, vr
+            # SDPA's backward in either dtype (f32 with TF32 off)
+            if live is None:
+                lib = cuda_ms(grad_call(
+                    lambda q_, k_, v_: TF.scaled_dot_product_attention(
+                        q_, k_, v_, is_causal=causal, enable_gqa=True),
+                    (q, k, v), do), iters=5)
+            else:
+                kr, vr = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
+                lib = cuda_ms(grad_call(
+                    lambda q_, k_, v_: TF.scaled_dot_product_attention(
+                        q_, k_, v_, attn_mask=live), (q, kr, vr), do),
+                    iters=3)
+                del kr, vr
             del live, dq, dk, dv, got
             # the same call at D 128
             t128 = [torch.randn(B, h, s, 128, generator=gen, device=dev)
@@ -6247,6 +6468,8 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
             del t128, fwd128, dkv128, dq128, q, k, v, do, o, lse
             torch.cuda.empty_cache()
             key = f"{name} {_dt(dt)}"
+            was = (CUDA_CORE_F32_MS.get(phase, {}).get(name)
+                   if dt == torch.float32 else None)
             common = dict(o_err=err_o, lse_err=err_lse, plain_ms=plain_ms,
                           library_ms=lib, live_pairs=pairs,
                           keys_read=keys, atol_vs_exact=dict(
@@ -6272,13 +6495,16 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
                   f"plain: dq {need[0]}, dk {need[1]}, dv {need[2]}); two "
                   f"calls bit-identical; "
                   f"cold L2: dK/dV {dkv_ms:.4f} ms (D 128 {d128[0]:.4f}; "
-                  f"bound {b_dkv[0]:.4f}, {b_dkv[1]}), dQ {dq_ms:.4f} ms "
-                  f"(D 128 {d128[1]:.4f}; bound {b_dq[0]:.4f}, {b_dq[1]}); "
-                  f"plain backward {plain_ms:.4f} ms; "
-                  + (f"SDPA's backward {lib:.4f} ms; " if lib is not None
-                     else "")
-                  + f"{pairs} live pairs a row and head, {keys} keys read "
-                  f"[{card}]", flush=True)
+                  f"bound {b_dkv[0]:.4f}, {b_dkv[1]}, "
+                  f"{100 * b_dkv[0] / dkv_ms:.1f}% of it"
+                  + (f"; on the CUDA cores, a constant of this script from "
+                     f"an earlier run, {was[0]:.4f} (D 128 {was[1]:.4f})"
+                     if was else "")
+                  + f"), dQ {dq_ms:.4f} ms (D 128 {d128[1]:.4f}; bound "
+                  f"{b_dq[0]:.4f}, {b_dq[1]}, {100 * b_dq[0] / dq_ms:.1f}% "
+                  f"of it); plain backward {plain_ms:.4f} ms; SDPA's "
+                  f"backward {lib:.4f} ms; {pairs} live pairs a row and "
+                  f"head, {keys} keys read [{card}]", flush=True)
     print(f"phase {phase}: the largest atol (at rtol "
           f"{EXACT_BWD_TOL[torch.bfloat16][1]}) that A3/A4 at D 256 need "
           f"against the exact plain backward: {worst[0]:.3g} ({worst[1]}) "
@@ -6827,6 +7053,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     # -- phase 1: device ----------------------------------------------------
+    PHASE["now"] = "1"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6853,6 +7080,7 @@ def main():
     train_cases = bwd_cases(dev, torch.Generator(device=dev).manual_seed(6))
 
     # -- phase 2: build -----------------------------------------------------
+    PHASE["now"] = "2"
     # K0's kernels are traced and printed, and their nvcc processes started,
     # by phase a's and e's launches on a compile-only client (they cover
     # every K0 kernel that phases b, c and f-h launch); csrc builds while
@@ -6865,7 +7093,7 @@ def main():
     block_extremes = make_block_extremes()
     red_compile_only(R, FU, cstd, ex_sum, ex_prog, T, co, block_extremes)
     build = native.build()
-    native.kernels()
+    count_f32_launches(native)
     cu.server.wait_builds()
     build_wall = time.perf_counter() - t0
     summary = ptxas_summary(build.log)
@@ -6920,6 +7148,7 @@ def main():
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # -- phase 3: flash vs plain --------------------------------------------
+    PHASE["now"] = "3"
     flash_rows = []
     # A1 at the 0.77B llama's prefill, A8's f32 instance at the d768
     # prefill's width, the training length, the GPT-2-width bf16 D 64
@@ -6950,6 +7179,7 @@ def main():
               f"{by}) [{card}]", flush=True)
 
     # -- phase 4: paged vs plain --------------------------------------------
+    PHASE["now"] = "4"
     paged_rows = []
     for name, B, L, Hkv, G, D, page, max_pages, lengths, dt in [
             ("ragged", 8, 4, 8, 2, 128, 128, 8,
@@ -6995,6 +7225,7 @@ def main():
     del q, kp, vp
 
     # -- phase 5: serve at full width (bench.py:541-545) --------------------
+    PHASE["now"] = "5"
     cfg = llama.LlamaConfig(vocab=8192, d_model=2048, n_heads=16,
                             n_kv_heads=8, n_layers=16, d_ff=5632, seq=1024,
                             dtype="bfloat16", use_framework_kernels=False)
@@ -7050,18 +7281,22 @@ def main():
     del model, cache, logits
 
     # -- phase 6: serve exactness, kernels vs plain (bench.py:604-609) ------
+    PHASE["now"] = "6"
     print(f"phase 6 {exactness(llama, dev, False)}", flush=True)
 
     # -- phase a: the DSL kernels (K0) at BASELINE sizes --------------------
+    PHASE["now"] = "a"
     k0_rows = []
     for c in cases:
         k0_rows.append(run_case(c, cu, ev, card))
     checked = set(cu.server._cache)
 
     # -- phase b: serve at full width with RMSNorm on K0 --------------------
+    PHASE["now"] = "b"
     k0_serve = serve_k0(llama, fa, pa, cu, dev, card)
 
     # -- phase c: serve exactness with RMSNorm on K0 ------------------------
+    PHASE["now"] = "c"
     print(f"phase c {exactness(llama, dev, True)}", flush=True)
     unchecked = set(cu.server._cache) - checked
     if unchecked:
@@ -7071,23 +7306,28 @@ def main():
     bc_launches = dict(cu.server.launches)
 
     # -- phase d: flash backward kernels vs plain ---------------------------
+    PHASE["now"] = "d"
     bwd_rows = flash_backward(fa, dev, gen, card)
     flash_backward_sweep(fa, dev, gen, card)
 
     # -- phase e: the K0 backward kernels at the train shapes ---------------
+    PHASE["now"] = "e"
     e_rows = {c["name"]: run_case(c, cu, ev, card, "e") for c in train_cases}
     param_grad_checks(dev, gen, card)
     checked = set(cu.server._cache)
 
     # -- phase f: train llama 0.77B bf16 at full width ----------------------
+    PHASE["now"] = "f"
     f_launches, f_k0_share = train_llama(llama, fa, cu, dev, card)
 
     # -- phase g: train exactness, kernels vs plain -------------------------
+    PHASE["now"] = "g"
     for framework in (True, False):
         print(f"phase g {train_exactness(llama, dev, framework)} [{card}]",
               flush=True)
 
     # -- phase h: train the transformer (GPT-2 small widths) ----------------
+    PHASE["now"] = "h"
     h_launches = train_transformer(fa, cu, dev, card)
     unchecked = set(cu.server._cache) - checked
     if unchecked:
@@ -7095,91 +7335,117 @@ def main():
              f"hold against plain: {sorted(unchecked)}")
 
     # -- phase i: the chunked paged-attention kernel (P3) against plain ------
+    PHASE["now"] = "i"
     i_rows = chunked_vs_plain(pa, dev, gen, card)
 
     # -- phase j: paged decode on int8 pools against plain; KV-bound decode -
+    PHASE["now"] = "j"
     j_rows = p1_vs_plain(pa, dev, gen, card, "j", J_CASES)
 
     # -- phase k: the slice's path at full width (llama 0.77B bf16) ---------
+    PHASE["now"] = "k"
     k_out = serve_slice(llama, pa, fa, dev, card)
 
     # -- phase l: the slice's exactness in f32 (d768), kernels vs plain -----
+    PHASE["now"] = "l"
     print(f"phase l {slice_exactness(llama, pa, fa, dev, card)} [{card}]",
           flush=True)
 
     # -- phase m: the matmul kernel (M1, M2) against plain, by dtype --------
+    PHASE["now"] = "m"
     m_rows = matmul_vs_plain(mm, dev, gen, card)
     m_f32 = next(r for r in m_rows
                  if r["case"] == _mm_what(f"{MM_S}^3", torch.float32,
                                           torch.float32, False, None))
 
     # -- phase n: the autotuned matmul path (BASELINE config 4) -------------
+    PHASE["now"] = "n"
     n_out = autotuned_path(mm, cu, dev, gen, card)
 
     # -- phase o: K0 cmma (matmul_cmma) and the K0 quant kernels ------------
+    PHASE["now"] = "o"
     o_out = cmma_and_quant(mm, qk, cu, ev, dev, gen, card)
     torch.cuda.empty_cache()
 
     # -- phase p: reductions (BASELINE config 2) -----------------------------
+    PHASE["now"] = "p"
     p_out = reductions(R, ex_sum, ex_prog, cu, ev, dev, gen, card,
                        block_extremes)
     torch.cuda.empty_cache()
 
     # -- phase q: comptime fusion (config 5), into_contiguous, identity -----
+    PHASE["now"] = "q"
     q_out = fusion_and_std(FU, cstd, cu, ev, dev, gen, card)
     torch.cuda.empty_cache()
 
     # -- phase r: the throughput runners, stored and read back ---------------
+    PHASE["now"] = "r"
     throughput(cstd, T, cu, card)
     torch.cuda.empty_cache()
 
     # -- phase s: the expert GEMM (E1) against plain --------------------------
+    PHASE["now"] = "s"
     s_rows = experts_vs_plain(moe, dev, gen, card)
 
     # -- phase t: the MoE llama at 0.77B widths, 8 experts, sparse route ------
+    PHASE["now"] = "t"
     t_out = serve_moe(llama, moe, fa, pa, dev, card)
 
     # -- phase u: the selective scan (S1) against plain -----------------------
+    PHASE["now"] = "u"
     u_rows = scan_vs_plain(ssm, dev, gen, card)
 
     # -- phase v: Mamba at Mamba-130M's widths --------------------------------
+    PHASE["now"] = "v"
     v_out = serve_mamba(mamba, ssm, dev, card)
 
     # -- phase w: exactness in f32, MoE llama d768 and Mamba, kernels vs plain 
+    PHASE["now"] = "w"
     w_out = moe_exactness(llama, fa, dev, card)
     w_out["mamba"] = mamba_exactness(mamba, dev, card)
 
     # -- phase x: block-sparse attention (A5, A6, A7) -------------------------
+    PHASE["now"] = "x"
     x_rows = block_sparse(fa, dev, gen, card)
 
     # -- phase y: the small-channel conv (C1) and conv2d_autotuned ------------
+    PHASE["now"] = "y"
     y_rows = convolutions(conv, ex_conv, cu, dev, gen, card)
 
     # -- phase z: StreamingLLM serving (P1's window + sinks and ring) ---------
+    PHASE["now"] = "z"
     z_out = streaming_serve(llama, pa, fa, dev, gen, card)
 
     # -- phase za: flash attention's options (A1/A3/A4 masked, A8) -----------
+    PHASE["now"] = "za"
     za = flash_options(llama, fa, cu, ex_attn, dev, gen, card)
 
     # -- phase zb: serving at head dim 96 (P1 and P3 at D 96, Phi-3-mini) ----
+    PHASE["now"] = "zb"
     zb = serve_d96(llama, pa, fa, dev, gen, card)
 
     # -- phase zc: P1 past 8 query heads a kv head (Mistral-Large-2) ---------
+    PHASE["now"] = "zc"
     zc = serve_grouped(llama, pa, fa, dev, gen, card)
 
     # -- phase zd: head dim 256 (A1's forward, P1, P3; GPT-J-6B) ------------
+    PHASE["now"] = "zd"
     zd = serve_d256(llama, pa, fa, dev, gen, card)
 
     # -- phase ze: training at head dim 256 (A3/A4; GPT-J-6B) ---------------
+    PHASE["now"] = "ze"
     ze = train_d256(llama, fa, cu, dev, gen, card)
 
     # -- phase zf: head dims 80 and 32 (P1, P3; Phi-2, Pythia-31M) ----------
+    PHASE["now"] = "zf"
     zf = serve_d80_d32(llama, pa, fa, dev, gen, card)
 
     # -- phase zg: Mamba trained (S1's backward); A5-A7 at D 32, 80, 96 -----
+    PHASE["now"] = "zg"
     zg = mamba_train_and_padded_bsp(mamba, ssm, fa, dev, gen, card)
 
     # -- phase zh: every head dim up to 256 (A5-A7 at D 256; P1/P3 ragged) --
+    PHASE["now"] = "zh"
     zh = every_head_dim(llama, pa, fa, dev, gen, card)
 
     def row(name, source, replaces, n, r, library_ms, **extra):
@@ -7362,13 +7628,13 @@ def main():
                    live_pairs_per_head=zh_main["live_pairs_per_head"],
                    kernel_symbols={
                        "fwd": "flash_fwd_wgmma_kernel<bf16, 256, "
-                              "SparseQTiles> (f32: flash_fwd_kernel<float, "
-                              "256, SparseQTiles>)",
+                              "SparseQTiles> (f32: flash_fwd_tf32x3_kernel<"
+                              "float, 256, SparseQTiles>)",
                        "dq": "flash_bwd_dq_wide_kernel<bf16, 256, "
                              "SparseQTiles> (f32: flash_bwd_dq_sliced_"
                              "kernel<float, 256, SparseQTiles>)",
                        "dkv": "flash_bwd_dkv_wide_kernel<bf16, 256, "
-                              "SparseKVTiles> (f32: flash_bwd_dkv_sliced_"
+                              "SparseKVTiles> (f32: flash_bwd_dkv_tf32x3_"
                               "kernel<float, 256, SparseKVTiles>)"}[what],
                    launches_path="phase zh1: forward and backward through "
                                  "autograd at GPT-J-6B's heads",
@@ -7381,6 +7647,11 @@ def main():
         return {f"D{D} {k}": v for D in ZH_RAGGED_DIMS
                 for k, v in zh[f"{kind} d{D}"].items()}
 
+    print(f"f32 launches on this script's paths, counted at the library's "
+          f"entry points by phase (A1 forward, A3 dK/dV, A4 dQ on every "
+          f"schedule; E1; P3): {json.dumps(F32_LAUNCHES)}; totals "
+          f"{ {b: sum(n.values()) for b, n in F32_LAUNCHES.items()} } "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": [
         row("flash_attention", "cubecl_tpu_torch/csrc/flash_attention.cu",
             "cubecl_tpu/ops/attention.py:76", launches["flash_attention"],
@@ -7707,7 +7978,7 @@ def main():
                "cubecl_tpu/ops/attention.py:76", "fwd", "window",
                "bf16 B1 H32/8 S8192 D128 causal, window 4096 (Mistral-7B)",
                kernel_symbols="flash_fwd_wgmma_kernel<bf16, D, MaskedQTiles>"
-                              ", f32: flash_fwd_kernel<float, D, "
+                              ", f32: flash_fwd_tf32x3_kernel<float, D, "
                               "MaskedQTiles>",
                padded_route_phi3_mini=za["phi3"]),
         za_row("flash_attention_options_bwd_dkv",
@@ -7843,7 +8114,7 @@ def main():
                kernel_symbols={
                    "bf16": "flash_fwd_wgmma_kernel<bf16, 256, Tiles> (2 "
                            "K/V stages, P V as two m64n128k16)",
-                   "f32": "flash_fwd_kernel<float, 256, Tiles>"},
+                   "f32": "flash_fwd_tf32x3_kernel<float, 256, Tiles>"},
                launches_path="phase zd2: generate, 8 x 1024 + 32 steps, 28 "
                              "layers (GPT-J-6B's widths)",
                gptj_6b_serve=zd_serve, exactness_f32=zd["exact"],
@@ -7914,7 +8185,8 @@ def main():
                           "64-row kv tile a block; warpgroup 1 s^T, p^T, dV, "
                           "warpgroup 2 dP^T, dS^T, dK, p^T handed over "
                           "through shared memory)",
-                  "f32": "flash_bwd_dkv_sliced_kernel<float, 256, Tiles>"}),
+                  "f32": "flash_bwd_dkv_tf32x3_kernel<float, 256, Tiles> "
+                         "(two blocks a kv tile, dV's and dK's)"}),
               ("dq", "cubecl_tpu/ops/attention.py:660", {
                   "bf16": "flash_bwd_dq_wide_kernel<bf16, 256, Tiles> (one "
                           "64-row q tile a block; each warpgroup 128 of dQ's "

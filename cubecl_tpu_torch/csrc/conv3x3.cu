@@ -53,7 +53,7 @@
 //   the registers, skipping pixels past H and W.
 //
 // f32: the same implicit GEMM as three TF32 products a k8 step
-// (conv3x3_tf32x3_kernel), with wgmma_gemm.cuh's split (tf32_split: big =
+// (conv3x3_tf32x3_kernel), with hopper.cuh's split (tf32_split: big =
 // x truncated to tf32, small = tf32(x - big); A_small B_big + A_big B_small
 // + A_big B_big): one TF32 product would miss f32's 2e-5 / 1e-4, three hold
 // it, as for M1's f32 GEMM. What does not carry over from the bf16 body:
@@ -98,7 +98,7 @@
 #include <algorithm>
 
 #include "hopper.cuh"
-#include "wgmma_gemm.cuh"  // tf32_split, wgmma_tf32
+#include "wgmma_gemm.cuh"  // wgmma_tf32 (and hopper.cuh's tf32_split)
 
 namespace cubecl {
 namespace {

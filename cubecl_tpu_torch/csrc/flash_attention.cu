@@ -50,13 +50,24 @@
 // ex2.approx alone (16 results a clock an SM: half the tensor cores' time
 // per score at D 128, all of it at D 64).
 //
-// f32: the CUDA cores (flash_fwd_kernel), on purpose. A TF32 product keeps
-// about three decimal digits and would break the f32 exactness the port's
-// f32 paths hold against their plain versions (atol 2e-5, rtol 1e-4); at
-// D 64 the f32 kernel is already faster than SDPA. Each 256-thread block
-// owns a 64-row q tile of one (batch, head) and sweeps 64-row kv tiles
-// staged in shared memory; every thread computes a 4x4 block of scores and
-// a 4 x D/16 block of the output from float4 shared-memory reads.
+// f32: the tensor cores as three TF32 products (flash_fwd_tf32x3_kernel,
+// on flash_tf32.cuh). One TF32 product keeps about three decimal digits and
+// would break the f32 exactness the port's f32 paths hold against their
+// plain versions (atol 2e-5, rtol 1e-4); the split of each operand into a
+// big and a small tf32 half holds it, as M1's f32 GEMM does. One warpgroup
+// a block owns a 64-row q tile of one (batch, head), kept in shared memory
+// as it is (the A operand of S, split in registers at each use), and walks
+// each visited 64-row kv tile in two steps of 32 keys: the step's K is
+// staged split (big and small tiles, K-major over D) and its V transposed
+// and split (K-major along the keys), by plain loads; S = Q K^T is
+// m64n32k8, twelve products (four k8 steps) a 32-column panel of D summed
+// from zero and added in f32; the online softmax runs on the f32
+// accumulator; O += P V takes P from that accumulator as the split A
+// fragment, m64n64k8 a 64-column block of O, twelve products summed from
+// zero and added to O in f32 (the tensor cores' sums round toward zero).
+// 48, 96 and 192 KB of shared memory at D 64, 128 and 256. exp2 is exp2f.
+// Bound: 3 x 4 D flops a live pair at 495 TFLOP/s of TF32 (the D 128
+// prefill of GPT-J's heads, 0.2 ms).
 //
 // Both: tiles wholly above the diagonal are never visited; GQA reads kv
 // head h / (H / Hkv) directly, with no repeat.
@@ -68,8 +79,8 @@
 // under the consumers' setmaxnreg budget of 240; P V is two m64n128k16
 // products a k16 step (columns 0..127, 128..255), and Q K^T's 16 k16
 // steps make their descriptors beside each product instead of keeping 32
-// registers of them across the loop. f32 keeps its body (214,016 bytes
-// of shared memory: one block an SM). A5 runs the same D 256 bodies on the
+// registers of them across the loop. f32 runs the same 3xTF32 body (O 128
+// registers a thread, 192 KB). A5 runs the same D 256 bodies on the
 // block-sparse schedule (ops/attention.py pads D 129-255 to 256).
 //
 // A1's options (kv_len, segment ids, a sliding window) and A8's window are
@@ -86,203 +97,192 @@
 // (block-sparse forward over build_block_schedule's kv_ids and counts):
 // a 64-row kernel tile lies in one user q tile and visits the kernel tiles
 // of that tile's active kv tiles, with the JAX kernels' finite mask value.
+#include "flash_tf32.cuh"
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace cubecl {
 namespace {
 
-constexpr int BM = 64;       // q rows per block
-constexpr int BN = 64;       // kv rows per tile
-constexpr int NT = 256;      // threads: 16 x 16, each a 4x4 score block
-constexpr int PS = BM + 4;   // row stride of the transposed P tile (floats)
+constexpr int BM = 64;  // q rows per kernel tile
 
+// -- the f32 body: 3xTF32 wgmma (flash_tf32.cuh) ---------------------------
+
+// dynamic shared memory of the f32 body: the q tile as it is (D / 32 panels
+// of 64 rows), a step's 32 keys split in two (K: D / 32 panels of 32 rows
+// each half; V transposed: D rows of 32 keys each half), and the slack to
+// align the base to 1024: 48, 96 and 192 KB at D 64, 128 and 256
 template <int D>
-constexpr int flash_smem_bytes() {
-  // Qs [D][BM] + Ks [D][BN] + Vs [BN][D] + Ps [BN][PS], all f32
-  return (D * BM + D * BN + BN * D + BN * PS) * 4;
-}
+struct F32Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kKb = kQ + BM * D * 4;
+  static constexpr int kKs = kKb + kStep * D * 4;
+  static constexpr int kVb = kKs + kStep * D * 4;
+  static constexpr int kVs = kVb + kStep * D * 4;
+  static constexpr int kBytes = kVs + kStep * D * 4 + 1024;
+};
 
 template <typename T, int D, typename Tiles>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
-                 float scale_log2, int causal, Tiles tiles) {
-  constexpr int DC = D / 64;  // 4-wide column groups of the output per thread
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [D][BM]  (q transposed)
-  float* Ks = Qs + D * BM;                      // [D][BN]  (k transposed)
-  float* Vs = Ks + D * BN;                      // [BN][D]
-  float* Ps = Vs + BN * D;                      // [BN][PS] (p transposed)
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // score columns tx*4.., output columns tx*4 + 64*c
-  const int ty = tid / 16;  // rows ty*4..ty*4+3
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int H, int Hkv, int Sq,
+                        int Skv, float scale_log2, int causal, Tiles tiles) {
+  static_assert(sizeof(T) == 4, "the 3xTF32 body takes f32 inputs");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the 3xTF32 body is built for D 64, 128 and 256");
+  using L = F32Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   int q0, q_end;  // the block's rows; rows from q_end on are not its own
   tiles.own(q0, q_end);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const T* qp = q + ((int64_t)b * H + h) * Sq * D;
   const T* kp = k + ((int64_t)b * Hkv + hk) * Skv * D;
   const T* vp = v + ((int64_t)b * Hkv + hk) * Skv * D;
-  T* op = o + ((int64_t)b * H + h) * Sq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows of the m64nN accumulators: row_a and row_a + 8; its
+  // columns 8 j + col_l + {0, 1}
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
 
-  // q tile -> Qs[d][m]; rows past q_end are zero (their output is not stored)
-  for (int i = tid; i < BM * D / 4; i += NT) {
-    const int m = i % BM, c = i / BM;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + m < q_end) load4(qp + (int64_t)(q0 + m) * D + c * 4, x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) Qs[(c * 4 + e) * BM + m] = x[e];
-  }
+  // the q tile as it is; rows past q_end are zero (their output is not
+  // stored)
+  stage_rows<BM, D, false>(q + ((int64_t)b * H + h) * Sq * D, D, q0, q_end,
+                           smem + L::kQ, nullptr);
+  const uint32_t q_s = smem_addr(smem + L::kQ);
+  const uint32_t kb_s = smem_addr(smem + L::kKb);
+  const uint32_t ks_s = smem_addr(smem + L::kKs);
+  const uint32_t vb_s = smem_addr(smem + L::kVb);
+  const uint32_t vs_s = smem_addr(smem + L::kVs);
 
-  float acc[4][4 * DC];
-  float m_i[4], l_i[4];
+  // O, (64 x D) f32 in column blocks of AN: 32 at D 256, where blocks of
+  // 64 (a 32-register part beside O's 128) spilled
+  constexpr int AN = D == 256 ? 32 : 64;
+  float acc[D / AN][AN / 2];
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
+  for (int c = 0; c < D / AN; ++c)
 #pragma unroll
-    for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
-  }
+    for (int j = 0; j < AN / 2; ++j) acc[c][j] = 0.f;
 
   const int n_tiles = tiles.count(q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
-    int k0, k_end;  // the tile's columns; those from k_end on are absent
-    if (!tiles.visit(kt, q0, q_end, k0, k_end)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BN * D / 4; i += NT) {
-      const int n = i % BN, c = i / BN;
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      float y[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + n < k_end) {
-        load4(kp + (int64_t)(k0 + n) * D + c * 4, x);
-        load4(vp + (int64_t)(k0 + n) * D + c * 4, y);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Ks[(c * 4 + e) * BN + n] = x[e];
-      *reinterpret_cast<float4*>(&Vs[n * D + c * 4]) =
-          make_float4(y[0], y[1], y[2], y[3]);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qs[d * BM + ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&Ks[d * BN + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-    // the options: the dead scores of a tile not wholly live to -inf
+    int c0, c_end;  // the tile's columns; those from c_end on are absent
+    if (!tiles.visit(kt, q0, q_end, c0, c_end)) continue;
+    // the mask on edge tiles only (the options: dead scores to -inf on a
+    // tile that is not wholly live)
+    bool edge = false, whole = true;
     if constexpr (Tiles::kMasked)
-      if (!tiles.mask.whole(q0, k0))
-        tiles.mask.template kill<false>(s, q0 + ty * 4, k0 + tx * 4);
-    // online softmax, base 2; a row's 64 columns live in 16 lanes of a warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        bool ok = true;
-        if constexpr (!Tiles::kMasked)
-          ok = col < k_end && (!causal || col <= row);
-        if constexpr (Tiles::kSparse)  // causal: the finite mask value
-          s[i][j] = ok ? s[i][j] * scale_log2
-                       : (col < k_end ? kMaskValue : -INFINITY);
-        else
-          s[i][j] = ok ? s[i][j] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = warp_max16(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      // a row with nothing live yet keeps p = 0 instead of exp2(nan)
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_i[i] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_use);
-        rs += s[i][j];
-      }
-      rs = warp_sum16(rs);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * DC; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Ps[(tx * 4 + j) * PS + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+      whole = tiles.mask.whole(q0, c0);
+    else
+      edge = c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+    // the tile's two steps of 32 keys
+    for (int k0 = c0; k0 < c0 + kFlashTile && k0 < c_end; k0 += kStep) {
+      __syncthreads();  // the previous step's products are done
+      stage_rows<kStep, D, true>(kp, D, k0, c_end, smem + L::kKb,
+                                 smem + L::kKs);
+      stage_cols<D>(vp, D, k0, c_end, 0, smem + L::kVb, smem + L::kVs);
+      fence_proxy_async();  // the stores, then wgmma's reads
+      __syncthreads();
 
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Ps[n * PS + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+      // S = Q K^T
+      float s[16];
+      scores<D>(s, q_s, kb_s, ks_s);
+      if constexpr (Tiles::kMasked)
+        if (!whole) tiles.mask.template kill<false>(s, row_a, k0 + col_l);
+
+      // online softmax, base 2; a row's 32 columns live in 4 lanes
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(&Vs[n * D + c * 64 + tx * 4]);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+      for (int i = 0; i < 2; ++i) {
+        const int row = row_a + 8 * i;
+        float mx = -INFINITY;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][c * 4 + j] = fmaf(pv[i], vv[j], acc[i][c * 4 + j]);
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * i + e];
+            if (edge) {
+              const int col = k0 + 8 * j + col_l + e;
+              const bool ok = col < c_end && (!causal || col <= row);
+              if constexpr (Tiles::kSparse)  // causal: the finite mask value
+                x = ok ? x * scale_log2
+                       : (col < c_end ? kMaskValue : -INFINITY);
+              else
+                x = ok ? x * scale_log2 : -INFINITY;
+            } else {
+              x *= scale_log2;
+            }
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[i], mx);
+        // a row with nothing live yet keeps p = 0 instead of exp2(nan)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m_i[i] - m_use);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * i + e];
+            x = exp2f(x - m_use);
+            rs += x;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l_i[i] = l_i[i] * alpha + rs;
+        m_i[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < D / AN; ++c)
+#pragma unroll
+          for (int j = 0; j < AN / 8; ++j) {
+            acc[c][4 * j + 2 * i] *= alpha;
+            acc[c][4 * j + 2 * i + 1] *= alpha;
+          }
       }
+
+      // O += P V: P, the accumulator of S, is the split A fragment
+      accumulate<D, AN>(acc, s, vb_s, vs_s);
     }
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= q_end) continue;
-    const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
-    // every lane of the row's 16 holds its stats; a row with nothing live
-    // gets 0, finite, and its masked columns give exp2(s - 0) = 0 anyway
-    if (lse != nullptr && tx == 0)
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    inv[i] = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
+    // a row with nothing live gets lse 0, finite, and its masked columns
+    // give exp2(s - 0) = 0 anyway
+    if (lse != nullptr && lane % 4 == 0 && row < q_end)
       lse[((int64_t)b * H + h) * Sq + row] =
           l_i[i] == 0.f ? 0.f : m_i[i] + log2f(l_i[i]);
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        op[(int64_t)row * D + c * 64 + tx * 4 + j] =
-            from_float<T>(acc[i][c * 4 + j] * inv);
   }
+  store_f32<D, AN>(o + ((int64_t)b * H + h) * Sq * D, D, row_a, q_end,
+                   col_l, acc, inv);
 }
 
-template <typename T, int D, typename Tiles>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int B, int H, int Hkv, int Sq, int Skv,
-                         float scale_log2, int causal, int blocks,
-                         Tiles tiles, cudaStream_t stream) {
-  constexpr int smem = flash_smem_bytes<D>();
+template <int D, typename Tiles>
+cudaError_t launch_flash_tf32x3(const void* q, const void* k, const void* v,
+                                void* o, float* lse, int B, int H, int Hkv,
+                                int Sq, int Skv, float scale_log2, int causal,
+                                int blocks, Tiles tiles,
+                                cudaStream_t stream) {
+  constexpr int smem = F32Smem<D>::kBytes;
   // above 48 KB a kernel must opt in to dynamic shared memory, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, Tiles>,
+      flash_fwd_tf32x3_kernel<float, D, Tiles>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(blocks, H, B);
-  flash_fwd_kernel<T, D, Tiles><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Sq, Skv,
-      scale_log2, causal, tiles);
+  flash_fwd_tf32x3_kernel<float, D, Tiles>
+      <<<grid, kF32Threads, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv,
+          Sq, Skv, scale_log2, causal, tiles);
   return cudaGetLastError();
 }
 
@@ -631,14 +631,14 @@ cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the f32 instances of one schedule (the CUDA-core body, 64-row blocks)
+// the f32 instances of one schedule (the 3xTF32 body, 64-row blocks)
 template <typename Tiles>
 int launch_f32_any(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int Hkv, int Sq, int Skv, int D,
                    float scale_log2, int causal, int blocks, Tiles tiles,
                    cudaStream_t st) {
 #define CUBECL_FLASH(HD)                                                     \
-  launch_flash<float, HD, Tiles>(q, k, v, o, lse, B, H, Hkv, Sq, Skv,        \
+  launch_flash_tf32x3<HD, Tiles>(q, k, v, o, lse, B, H, Hkv, Sq, Skv,        \
                                  scale_log2, causal, blocks, tiles, st)
   if (D == 64) return CUBECL_FLASH(64);
   if (D == 128) return CUBECL_FLASH(128);

@@ -74,23 +74,39 @@
 // the unrounded f32 p. Outputs are written once, in bf16, from f32
 // accumulators.
 //
-// f32: the CUDA cores (flash_bwd_dkv_kernel, flash_bwd_dq_kernel), on
-// purpose, as the f32 forward: a TF32 product keeps about three decimal
-// digits and would break f32's 2e-5/1e-4 against the plain version. 256
-// threads; every thread holds a 4x4 block of s/p/dS and a 4 x D/16 block
-// of each output accumulator, and reads its operands as float4 from shared
-// memory, where every tile is staged in f32: q, dO and k, v transposed for
-// the two score products, and row-major where they are the right operand
-// of a product. That is 210 KB (dkv) and 178 KB (dq) of the 227 KB a block
-// may have at D = 128.
+// f32 dK/dV: the tensor cores as three TF32 products
+// (flash_bwd_dkv_tf32x3_kernel, on flash_tf32.cuh; the forward's f32 body
+// says why three). One warpgroup a block owns a 64-row kv tile and one of
+// its two gradients: two blocks a kv tile, dV's and dK's, each holding one
+// 64 x D f32 accumulator (both in one block spilled from D 128). K (and V
+// for dK's block) stay in shared memory as they are, the A operands of the
+// transposed scores, split in registers at each use. A block walks each
+// visited q tile in two steps of 32 rows, staging one operand at a time
+// into one split buffer by plain loads: q (K-major over D) for s^T = K q^T,
+// dK's block dO for dP^T = V dO^T (m64n32k8, twelve products a 32-column
+// panel of D summed from zero and added in f32); then dO (dV's block) or q
+// (dK's) transposed, K-major along the step's rows, for dV += p^T dO or
+// dK += dS^T q, whose A operand is p^T or dS^T itself, split from the
+// score accumulators (m64n64k8 a 64-column block, twelve products summed
+// from zero and added in f32: one addition a step however many heads and
+// rows the group sums). Five products a tile pair where the math needs
+// four (s^T twice); 48, 96 and 192 KB at D 64, 128 and 256. exp2 is
+// exp2f. Bound: 3 x 8 D flops a live pair at 495 TFLOP/s of TF32.
+//
+// f32 dQ: the CUDA cores (flash_bwd_dq_kernel): 256 threads; every thread
+// holds a 4x4 block of s/p/dS and a 4 x D/16 block of the output
+// accumulator, and reads its operands as float4 from shared memory, where
+// every tile is staged in f32: q, dO and k, v transposed for the two score
+// products, and row-major where they are the right operand of a product.
+// That is 178 KB of the 227 KB a block may have at D = 128.
 //
 // D 256 (GPT-J-6B's and Qwen3-Next's head dim) has bodies of its own, on
 // every schedule (A6 and A7 too, with F9's rows as above): the ones above
 // run out of room. At D 256 a bf16 consumer's dK and
 // dV would be 256 f32 registers a thread (setmaxnreg grants 240), and
 // their shared memory (NC tiles of K, V and 3 ring stages, 32 KB a tile)
-// 320 KB of the 227 KB a block may hold; the f32 bodies' staging takes
-// 411 KB (dkv) and 346 KB (dq).
+// 320 KB of the 227 KB a block may hold; the f32 dQ body's staging takes
+// 346 KB.
 //   bf16 (flash_bwd_dkv_wide_kernel, flash_bwd_dq_wide_kernel): a block
 //        owns ONE 64-row tile, stationary (64 KB for its two operands),
 //        and streams the other side through a ring of 2 stages (128 KB).
@@ -114,16 +130,10 @@
 //        two a step for a 256-wide accumulator. p and dS round to bf16
 //        where the other bodies round them (dS from the unrounded p); the
 //        group sum over the query heads stays in registers.
-//   f32 (flash_bwd_dkv_sliced_kernel, flash_bwd_dq_sliced_kernel): the
-//        CUDA-core bodies' arithmetic with one layout of the streamed
-//        tile in shared memory at a time: transposed for s (then dP),
-//        then row-major for dV (then dK, or dQ), each staged again from
-//        global memory (L2); 214,528 bytes. dK/dV takes two blocks a kv
-//        tile, 128 of the columns each (both compute the scores), so
-//        that each tile's products can be summed from zero and then
-//        added: with one running sum of G x Sq terms (32,768 at
-//        Qwen3-Next's G 8 x S 4096) f32 parted from the plain backward
-//        by more than its 2e-5 / 1e-4.
+//   f32 dQ (flash_bwd_dq_sliced_kernel): the CUDA-core body's arithmetic
+//        with one layout of the streamed tile in shared memory at a time:
+//        transposed for s (then dP), then row-major for dQ, each staged
+//        again from global memory (L2); 214,528 bytes.
 //
 // The same kernel bodies, with the block-sparse schedules of
 // flash_tiles.cuh in place of the dense causal ranges, replace
@@ -150,6 +160,7 @@
 // -inf once they are in (exp2 of them is 0), so the loops mask nothing.
 // Masked entries get p = 0, so a row with no live key (F16) gives nothing
 // to any gradient. The dense and block-sparse instances keep their code.
+#include "flash_tf32.cuh"
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
 
@@ -160,13 +171,6 @@ constexpr int BM = 64;      // q rows per tile
 constexpr int BN = 64;      // kv rows per tile
 constexpr int NT = 256;     // threads: 16 x 16, each a 4x4 score block
 constexpr int PS = BM + 4;  // row stride of a transposed 64x64 score tile
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // Kt, Vt [D][BN]; Qt, dOt [D][BM]; Qr, dOr [BM][D]; Ps [BM][PS];
-  // lse, di [BM]
-  return (2 * D * BN + 2 * D * BM + 2 * BM * D + BM * PS + 2 * BM) * 4;
-}
 
 template <int D>
 constexpr int dq_smem_bytes() {
@@ -212,8 +216,7 @@ __device__ __forceinline__ void outer4(const float* a, int as, int ai,
 }
 
 // acc[i][c*4 + j] += sum_n w[n][ty*4 + i] * m[n][c*64 + tx*4 + j]: a 64-row
-// transposed weight tile (stride PS) times a row-major (64, D) operand, over
-// its first DC 64-column groups
+// transposed weight tile (stride PS) times a row-major (64, D) operand
 template <int D, int DC = D / 64>
 __device__ __forceinline__ void accum(const float* w, const float* m, int ty,
                                      int tx, float (&acc)[4][4 * DC]) {
@@ -259,116 +262,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
         dst[(int64_t)r * D + c * 64 + tx * 4 + j] =
             from_float<T>(acc[i][c * 4 + j]);
   }
-}
-
-// ---------------------------------------------------------------- dK, dV
-
-template <typename T, int D, typename Tiles>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
-                     float scale, float scale_log2, int causal, Tiles tiles) {
-  constexpr int DC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);  // [D][BN]
-  float* Vt = Kt + D * BN;                      // [D][BN]
-  float* Qt = Vt + D * BN;                      // [D][BM]
-  float* dOt = Qt + D * BM;                     // [D][BM]
-  float* Qr = dOt + D * BM;                     // [BM][D]
-  float* dOr = Qr + BM * D;                     // [BM][D]
-  float* Ps = dOr + BM * D;                     // [BM][PS]: p, then dS
-  float* lse_s = Ps + BM * PS;                  // [BM]
-  float* di_s = lse_s + BM;                     // [BM]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // q columns tx*4.. of the (kv, q) score block
-  const int ty = tid / 16;  // kv rows ty*4.., output rows of dK / dV
-  int k0, k_end;  // the block's kv rows; rows from k_end on are not its own
-  tiles.own(k0, k_end);
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int rep = H / Hkv;
-  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
-
-  stage<T, D, BN>(k + kvo, k0, k_end, Kt, nullptr);
-  stage<T, D, BN>(v + kvo, k0, k_end, Vt, nullptr);
-
-  float dk_acc[4][4 * DC], dv_acc[4][4 * DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int n_tiles = tiles.count(k0);
-  for (int g = 0; g < rep; ++g) {
-    const int h = hk * rep + g;
-    const int64_t qo = ((int64_t)b * H + h) * Sq;
-    for (int t = 0; t < n_tiles; ++t) {
-      // q rows [q0, q_end); rows below f9_end have no live column (F9)
-      int q0, q_end, f9_end;
-      float inv_n;
-      if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
-      __syncthreads();  // the previous tile's readers are done
-      stage<T, D, BM>(q + qo * D, q0, q_end, Qt, Qr);
-      stage<T, D, BM>(dout + qo * D, q0, q_end, dOt, dOr);
-      if (tid < BM) {
-        const bool in = q0 + tid < q_end;
-        lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
-        di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      // transposed scores s^T[n][m] and dP^T[n][m]: kv rows, q columns
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      outer4<D>(Kt, BN, ty, Qt, BM, tx, s);
-      outer4<D>(Vt, BN, ty, dOt, BM, tx, dp);
-      // the options: the dead scores of a tile not wholly live to -inf
-      if constexpr (Tiles::kMasked)
-        if (!tiles.mask.whole(q0, k0))
-          tiles.mask.template kill<true>(s, k0 + ty * 4, q0 + tx * 4);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = tx * 4 + j;
-        const int row = q0 + m;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = k0 + ty * 4 + i;
-          bool in = true, ok = true;
-          if constexpr (!Tiles::kMasked) {
-            in = row < q_end && col < k_end;
-            ok = in && (!causal || col <= row);
-          }
-          const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
-          if constexpr (Tiles::kSparse) {
-            // an F9 row: p = 1/n on each visited column, for dV only
-            s[i][j] = in && row < f9_end ? inv_n : p;
-            dp[i][j] = ok ? p * (dp[i][j] - di_s[m]) * scale : 0.f;  // dS
-          } else {
-            s[i][j] = p;
-            dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
-          }
-        }
-      }
-      // Ps[m][n] = p: dV[n][:] += sum_m p[m][n] dO[m][:]
-      store_t(Ps, ty, tx, s);
-      __syncthreads();
-      accum<D>(Ps, dOr, ty, tx, dv_acc);
-      __syncthreads();
-      // Ps[m][n] = dS: dK[n][:] += sum_m dS[m][n] q[m][:]
-      store_t(Ps, ty, tx, dp);
-      __syncthreads();
-      accum<D>(Ps, Qr, ty, tx, dk_acc);
-    }
-  }
-  store_rows<T, D>(dk + kvo, k0, k_end, ty, tx, dk_acc);
-  store_rows<T, D>(dv + kvo, k0, k_end, ty, tx, dv_acc);
 }
 
 // ------------------------------------------------------------------- dQ
@@ -471,126 +364,6 @@ constexpr int sliced_smem_bytes() {
 
 template <typename T, int D, typename Tiles>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ di, T* __restrict__ dk,
-                            T* __restrict__ dv, int H, int Hkv, int Sq,
-                            int Skv, float scale, float scale_log2,
-                            int causal, Tiles tiles) {
-  static_assert(D == 256, "the sliced body is built for D 256");
-  extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);  // [D][BN]
-  float* Vt = Kt + D * BN;                      // [D][BN]
-  float* X = Vt + D * BN;  // q^T, dO^T [D][BM], then dO, q [BM][D]
-  float* Ps = X + D * BM;  // [BM][PS]: p, then dS
-  float* lse_s = Ps + BM * PS;                  // [BM]
-  float* di_s = lse_s + BM;                     // [BM]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // q columns tx*4.. of the (kv, q) score block
-  const int ty = tid / 16;  // kv rows ty*4.., output rows of dK / dV
-  int k0, k_end;
-  tiles.own(k0, k_end);
-  const int hk = blockIdx.y / 2;
-  const int half = blockIdx.y % 2;  // dK's and dV's columns 128 half..
-  const int b = blockIdx.z;
-  const int rep = H / Hkv;
-  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
-
-  stage<T, D, BN>(k + kvo, k0, k_end, Kt, nullptr);
-  stage<T, D, BN>(v + kvo, k0, k_end, Vt, nullptr);
-
-  // the block's 128 columns of dK and dV; each tile's products are summed
-  // from zero and then added, so that a sum over H / Hkv heads of Sq rows
-  // takes one addition a tile (at Qwen3-Next's G 8 x S 4096, 512 instead
-  // of 32,768 into one register: f32's 2e-5/1e-4 against the plain
-  // backward held there only so)
-  float dk_acc[4][8], dv_acc[4][8], part[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  auto add_part = [&](const float* w, float (&acc)[4][8]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
-    accum<D, 2>(w, X + 128 * half, ty, tx, part);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += part[i][j];
-  };
-
-  const int n_tiles = tiles.count(k0);
-  for (int g = 0; g < rep; ++g) {
-    const int h = hk * rep + g;
-    const int64_t qo = ((int64_t)b * H + h) * Sq;
-    for (int t = 0; t < n_tiles; ++t) {
-      int q0, q_end, f9_end;
-      float inv_n;
-      if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
-      __syncthreads();  // the previous tile's readers are done
-      stage<T, D, BM>(q + qo * D, q0, q_end, X, nullptr);
-      if (tid < BM) {
-        const bool in = q0 + tid < q_end;
-        lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
-        di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      outer4<D>(Kt, BN, ty, X, BM, tx, s);
-      __syncthreads();
-      stage<T, D, BM>(dout + qo * D, q0, q_end, X, nullptr);
-      __syncthreads();
-      outer4<D>(Vt, BN, ty, X, BM, tx, dp);
-      if constexpr (Tiles::kMasked)
-        if (!tiles.mask.whole(q0, k0))
-          tiles.mask.template kill<true>(s, k0 + ty * 4, q0 + tx * 4);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = tx * 4 + j;
-        const int row = q0 + m;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = k0 + ty * 4 + i;
-          bool ok = true;
-          if constexpr (!Tiles::kMasked)
-            ok = row < q_end && col < k_end && (!causal || col <= row);
-          const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
-          s[i][j] = p;
-          // an F9 row: p = 1/n on each visited column, for dV only
-          if constexpr (Tiles::kSparse)
-            if (row < f9_end && row < q_end && col < k_end) s[i][j] = inv_n;
-          dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
-        }
-      }
-      __syncthreads();  // dO^T's readers are done
-      // dV[n][:] += sum_m p[m][n] dO[m][:]
-      stage<T, D, BM>(dout + qo * D, q0, q_end, nullptr, X);
-      store_t(Ps, ty, tx, s);
-      __syncthreads();
-      add_part(Ps, dv_acc);
-      __syncthreads();
-      // dK[n][:] += sum_m dS[m][n] q[m][:]
-      stage<T, D, BM>(q + qo * D, q0, q_end, nullptr, X);
-      store_t(Ps, ty, tx, dp);
-      __syncthreads();
-      add_part(Ps, dk_acc);
-    }
-  }
-  store_rows<T, D, 2>(dk + kvo + 128 * half, k0, k_end, ty, tx, dk_acc);
-  store_rows<T, D, 2>(dv + kvo + 128 * half, k0, k_end, ty, tx, dv_acc);
-}
-
-template <typename T, int D, typename Tiles>
-__global__ void __launch_bounds__(NT)
 flash_bwd_dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const T* __restrict__ dout,
@@ -683,16 +456,9 @@ cudaError_t opt_in_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the CUDA-core bodies of a head dim: D 256's sliced ones, else the
-// others (each only where chosen, so that no body is built at a D it does
+// the CUDA-core dQ bodies of a head dim: D 256's sliced one, else the
+// other (each only where chosen, so that no body is built at a D it does
 // not fit)
-template <typename T, int D, typename Tiles>
-constexpr auto dkv_cuda_core() {
-  if constexpr (D == 256)
-    return flash_bwd_dkv_sliced_kernel<T, D, Tiles>;
-  else
-    return flash_bwd_dkv_kernel<T, D, Tiles>;
-}
 template <typename T, int D, typename Tiles>
 constexpr auto dq_cuda_core() {
   if constexpr (D == 256)
@@ -701,24 +467,198 @@ constexpr auto dq_cuda_core() {
     return flash_bwd_dq_kernel<T, D, Tiles>;
 }
 
+// -- the f32 dK/dV body: 3xTF32 wgmma (flash_tf32.cuh) ---------------------
+
+// dynamic shared memory of the f32 dK/dV body: the kv tile's K and V as
+// they are (D / 32 panels of 64 rows each; dV's block stages no V), one
+// streamed operand of a 32-row q step split in two (q or dO as D / 32
+// panels of 32 rows, or transposed as D rows of 32), the step's lse and
+// di, and the slack to align the base to 1024: 48, 96 and 192 KB at D 64,
+// 128 and 256
+template <int D>
+struct F32BwdSmem {
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + BN * D * 4;
+  static constexpr int kXb = kV + BN * D * 4;
+  static constexpr int kXs = kXb + kStep * D * 4;
+  static constexpr int kLse = kXs + kStep * D * 4;
+  static constexpr int kDi = kLse + kStep * 4;
+  static constexpr int kBytes = kDi + kStep * 4 + 1024;
+};
+
 template <typename T, int D, typename Tiles>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                       int Skv, float scale, float scale_log2, int causal,
-                       int blocks, Tiles tiles, cudaStream_t stream) {
-  constexpr int smem =
-      D == 256 ? sliced_smem_bytes<D>() : dkv_smem_bytes<D>();
-  const auto kernel = dkv_cuda_core<T, D, Tiles>();
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkv_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di, T* __restrict__ dk,
+                            T* __restrict__ dv, int H, int Hkv, int Sq,
+                            int Skv, float scale, float scale_log2,
+                            int causal, Tiles tiles) {
+  static_assert(sizeof(T) == 4, "the 3xTF32 body takes f32 inputs");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the 3xTF32 body is built for D 64, 128 and 256");
+  using L = F32BwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
+  float* di_s = reinterpret_cast<float*>(smem + L::kDi);
+
+  int k0, k_end;  // the block's kv rows; rows from k_end on are not its own
+  tiles.own(k0, k_end);
+  // two blocks a kv tile, by role: dV (s^T, p^T, dV += p^T dO) or dK (s^T,
+  // dP^T, dS^T, dK += dS^T q), each with one 64 x D accumulator (both in
+  // one block took 2 x D / 2 registers a thread and spilled from D 128)
+  const int hk = blockIdx.y / 2;
+  const bool dk_role = blockIdx.y % 2;
+  const int b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows of the transposed m64n32 scores (kv rows) and of
+  // dK or dV: row_l and row_l + 8 of the tile; its columns (q rows of the
+  // step) 8 j + col_l + {0, 1}
+  const int row_l = warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+
+  stage_rows<BN, D, false>(k + kvo, D, k0, k_end, smem + L::kK, nullptr);
+  if (dk_role)
+    stage_rows<BN, D, false>(v + kvo, D, k0, k_end, smem + L::kV, nullptr);
+  const uint32_t k_s = smem_addr(smem + L::kK);
+  const uint32_t v_s = smem_addr(smem + L::kV);
+  const uint32_t xb_s = smem_addr(smem + L::kXb);
+  const uint32_t xs_s = smem_addr(smem + L::kXs);
+  // stage one operand of the step into X (split), after the readers of the
+  // last one; the stores, then wgmma's reads
+  auto into_x = [&](auto&& copy) {
+    __syncthreads();
+    copy();
+    fence_proxy_async();
+    __syncthreads();
+  };
+
+  // dK or dV, each step's products summed from zero and then added
+  // (accumulate), so that a sum over H / Hkv heads of Sq rows takes one
+  // addition a step
+  float acc[D / 64][32];
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[c][j] = 0.f;
+
+  const int n_tiles = tiles.count(k0);
+  for (int g = 0; g < rep; ++g) {
+    const int64_t qo = ((int64_t)b * H + hk * rep + g) * Sq;
+    const float* qh = q + qo * D;
+    const float* doh = dout + qo * D;
+    for (int t = 0; t < n_tiles; ++t) {
+      // q rows [q0, q_end); rows below f9_end have no live column (F9)
+      int q0, q_end, f9_end;
+      float inv_n;
+      if (!tiles.visit(t, k0, k_end, q0, q_end, f9_end, inv_n)) continue;
+      // the mask on edge tiles only: q rows past q_end, kv rows past
+      // k_end, the diagonal, F9's rows (the options: their dead scores
+      // set to -inf once the scores are in)
+      bool edge = false, whole = true;
+      if constexpr (Tiles::kMasked)
+        whole = tiles.mask.whole(q0, k0);
+      else
+        edge = q0 + kFlashTile > q_end || k0 + kFlashTile > k_end ||
+               (causal && k0 + kFlashTile - 1 > q0) || q0 < f9_end;
+      // the tile's two steps of 32 q rows
+      for (int qs = q0; qs < q0 + kFlashTile && qs < q_end; qs += kStep) {
+        // s^T = K q^T, with the step's lse and di
+        into_x([&] {
+          stage_rows<kStep, D, true>(qh, D, qs, q_end, smem + L::kXb,
+                                     smem + L::kXs);
+          if (threadIdx.x < kStep) {
+            const bool in = qs + threadIdx.x < q_end;
+            lse_s[threadIdx.x] = in ? lse[qo + qs + threadIdx.x] : 0.f;
+            di_s[threadIdx.x] = in ? di[qo + qs + threadIdx.x] : 0.f;
+          }
+        });
+        float s[16], dp[16];
+        scores<D>(s, k_s, xb_s, xs_s);
+        if (dk_role) {  // dP^T = V dO^T
+          into_x([&] {
+            stage_rows<kStep, D, true>(doh, D, qs, q_end, smem + L::kXb,
+                                       smem + L::kXs);
+          });
+          scores<D>(dp, v_s, xb_s, xs_s);
+        }
+        if constexpr (Tiles::kMasked)
+          if (!whole)
+            tiles.mask.template kill<true>(s, k0 + row_l, qs + col_l);
+
+        // p^T (into s: dV's block) or dS^T (into dp: dK's block)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = 8 * j + col_l + e;
+            const float l = lse_s[m], d = di_s[m];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float& x = s[4 * j + 2 * i + e];
+              bool ok = true, f9 = false;
+              if (edge) {
+                const int row = qs + m;
+                const int col = k0 + row_l + 8 * i;
+                const bool in = row < q_end && col < k_end;
+                ok = in && (!causal || col <= row);
+                // an F9 row: p = 1/n on each visited column, for dV only
+                f9 = Tiles::kSparse && in && row < f9_end;
+              }
+              // masked: p = 0 by a select (the exp2 may be inf there)
+              const float p = ok ? exp2f(x * scale_log2 - l) : 0.f;
+              x = f9 ? inv_n : p;
+              if (dk_role) {
+                float& y = dp[4 * j + 2 * i + e];
+                y = p * (y - d) * scale;
+              }
+            }
+          }
+
+        // dV += p^T dO or dK += dS^T q over the step's rows, dO or q
+        // transposed
+        into_x([&] {
+          stage_cols<D>(dk_role ? qh : doh, D, qs, q_end, 0, smem + L::kXb,
+                        smem + L::kXs);
+        });
+        // one call on the block's operand: a call a role put dK's and dV's
+        // accumulators in other registers, and their join spilled them
+        float x[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) x[j] = dk_role ? dp[j] : s[j];
+        accumulate<D, 64>(acc, x, xb_s, xs_s);
+      }
+    }
+  }
+  const float one[2] = {1.f, 1.f};
+  store_f32<D, 64>((dk_role ? dk : dv) + kvo, D, k0 + row_l, k_end, col_l,
+                   acc, one);
+}
+
+template <int D, typename Tiles>
+cudaError_t launch_dkv_tf32x3(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* di, void* dk, void* dv, int B,
+                              int H, int Hkv, int Sq, int Skv, float scale,
+                              float scale_log2, int causal, int blocks,
+                              Tiles tiles, cudaStream_t stream) {
+  constexpr int smem = F32BwdSmem<D>::kBytes;
+  const auto kernel = flash_bwd_dkv_tf32x3_kernel<float, D, Tiles>;
   static const cudaError_t attr = opt_in_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
-  // D 256: two blocks a kv tile, 128 of dK's and dV's columns each
-  const dim3 grid(blocks, D == 256 ? 2 * Hkv : Hkv, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Skv, scale,
-      scale_log2, causal, tiles);
+  // two blocks a kv tile: dV's and dK's
+  const dim3 grid(blocks, 2 * Hkv, B);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Skv,
+      scale, scale_log2, causal, tiles);
   return cudaGetLastError();
 }
 
@@ -1810,11 +1750,11 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The (dtype, head_dim) instances of one schedule: f32 on the CUDA-core
-// bodies (one 64-row tile to a block), bf16 on the wgmma bodies (NC 64-row
-// tiles to a block, one at D 256; `tiles` counts the launch's tiles so),
-// on every schedule. The launchers of both
-// bodies take the same arguments. Neither falls back on the other: an
+// The (dtype, head_dim) instances of one schedule: f32 dK/dV on the 3xTF32
+// body and f32 dQ on the CUDA-core bodies (one 64-row tile to a block),
+// bf16 on the wgmma bodies (NC 64-row tiles to a block, one at D 256;
+// `tiles` counts the launch's tiles so), on every schedule. The launchers
+// of both bodies take the same arguments. Neither falls back on the other: an
 // error of the chosen body is returned as it is.
 constexpr int tiles_per_block(int dtype, int D) {
   return dtype == kBF16 && D != 256 ? NC : 1;
@@ -1830,15 +1770,15 @@ int launch_dkv_any(const void* q, const void* k, const void* v,
   LAUNCH(q, k, v, dout, lse, di, dk, dv, B, H, Hkv, Sq, Skv, scale,          \
          scale_log2, causal, blocks, tiles, st)
   if (dtype == kF32 && D == 64)
-    return CUBECL_DKV((launch_dkv<float, 64, Tiles>));
+    return CUBECL_DKV((launch_dkv_tf32x3<64, Tiles>));
   if (dtype == kF32 && D == 128)
-    return CUBECL_DKV((launch_dkv<float, 128, Tiles>));
+    return CUBECL_DKV((launch_dkv_tf32x3<128, Tiles>));
   if (dtype == kBF16 && D == 64)
     return CUBECL_DKV((launch_dkv_wgmma<64, Tiles>));
   if (dtype == kBF16 && D == 128)
     return CUBECL_DKV((launch_dkv_wgmma<128, Tiles>));
   if (dtype == kF32 && D == 256)
-    return CUBECL_DKV((launch_dkv<float, 256, Tiles>));
+    return CUBECL_DKV((launch_dkv_tf32x3<256, Tiles>));
   if (dtype == kBF16 && D == 256)
     return CUBECL_DKV((launch_dkv_wgmma<256, Tiles>));
 #undef CUBECL_DKV

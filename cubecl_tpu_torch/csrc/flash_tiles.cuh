@@ -161,14 +161,15 @@ struct FlashMask {
         if (!(kT ? live(c + j, r + i) : live(r + i, c + j)))
           x[i][j] = -INFINITY;
   }
-  // the same for an m64n64 wgmma accumulator: x[4 j + 2 i + e] at
+  // the same for an m64nW wgmma accumulator of N = W / 2 registers (the
+  // bf16 bodies' m64n64, the 3xTF32 bodies' m64n32): x[4 j + 2 i + e] at
   // (r + 8 i, c + 8 j + e)
-  template <bool kT>
-  __device__ __forceinline__ void kill(float (&x)[32], int r, int c) const {
+  template <bool kT, int N>
+  __device__ __forceinline__ void kill(float (&x)[N], int r, int c) const {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < N / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int a = r + 8 * i, b = c + 8 * j + e;

@@ -3,8 +3,9 @@
 // csrc/paged_chunked.cu's bf16 body, csrc/wgmma_gemm.cuh, and the K0
 // printer's cmma kernels, which include wgmma_gemm.cuh):
 // mbarriers, TMA tensor copies, cp.async copies, the 128-byte-swizzle
-// shared-memory descriptors of wgmma, the wgmma instructions themselves and
-// setmaxnreg; on the host, the tensor maps the copies read.
+// shared-memory descriptors of wgmma, the wgmma instructions themselves,
+// the 3xTF32 split of an f32 operand and setmaxnreg; on the host, the
+// tensor maps the copies read.
 //
 // Layout convention: a tile of 16-bit elements is stored as 64-column
 // "panels", each rows x 128 bytes as TMA writes it with
@@ -296,6 +297,58 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// -- 3xTF32: an f32 operand as the sum of two tf32 values ------------------
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as the f32 bit pattern that a tf32 wgmma operand is: cvt.rna.tf32.f32's
+// rounding (half a tf32 ulp added to the magnitude's bits, the 13 low bits
+// cleared; an overflow rounds to infinity, as cvt.rna's does; an infinity
+// stays one) in two integer instructions. Not for a NaN: the addition
+// carries a NaN's mantissa into its exponent and sign (0x7fffffff, the
+// NaN that CUDA's arithmetic returns, comes out as -0) or rounds it to
+// infinity (0x7f800001).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// the split of x: big = x truncated to tf32 (its 13 low bits cleared) and
+// small = tf32(x - big), x - big being exact in f32 and of x's sign; x =
+// big + small to about 2^-22 of |x|. Truncation never leaves the finite
+// range, so every finite x has a finite big and small, up to FLT_MAX (F12:
+// big rounded to nearest took |x| >= (2 - 2^-11) 2^127 to infinity, x - big
+// to -infinity and the cross terms to inf - inf = NaN, where the f32
+// product is finite); it is also one instruction where rounding was two.
+// Truncation leaves small up to one tf32 ulp of big instead of half of
+// one, so the one dropped term A_small B_small is at most 2^-20 of a
+// product: the emulation (tests/test_torch_matmul.py) keeps 3xTF32 as
+// close to plain f32 as rounding did. A NaN's big is 0x7fffffff, a NaN to
+// the tensor cores too (they read the 19 high bits only: truncated, a NaN
+// whose mantissa is all in the 13 low bits, 0x7f800001, would be an
+// infinity there). Where big is not finite (x an infinity or a NaN), x -
+// big is NaN (0x7fffffff) and small -0. So an output whose row of A and
+// column of B are finite is the f32 product to 3xTF32's precision; a NaN
+// operand gives NaN wherever the f32 product does; an infinite operand
+// gives NaN or an infinity of the f32 product's sign where that product
+// is infinite (the cross terms inf . small are NaN where the other
+// operand's small half is 0, a value that tf32 holds exactly, and an
+// infinity of the other sign where that half's sign is not the value's).
+// The guard is one compare and select a value: the split is a large share
+// of the consumers' work (a finite-check on each half as well ran the
+// 4096^3 GEMM 31% slower, PERF.md).
+__device__ __forceinline__ void tf32_split(uint32_t x, uint32_t& big,
+                                           uint32_t& small) {
+  const float f = __uint_as_float(x);
+  big = isnan(f) ? 0x7fffffffu : x & 0xffffe000u;
+  small = tf32_rna(f - __uint_as_float(big));
+}
+// the split of four neighbouring values (a 16-byte chunk)
+__device__ __forceinline__ void tf32_split4(const uint4& x, uint4& big,
+                                            uint4& small) {
+  tf32_split(x.x, big.x, small.x);
+  tf32_split(x.y, big.y, small.y);
+  tf32_split(x.z, big.z, small.z);
+  tf32_split(x.w, big.w, small.w);
 }
 
 // -- registers -------------------------------------------------------------

@@ -24,11 +24,12 @@ dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu``, which replace A3
 ``_bwd_dkv_call`` and A4 ``_bwd_dq_call``. The forward has two bodies: bf16
 runs both products on the tensor cores (``wgmma`` fed by TMA copies) and
 rounds the probabilities to bf16 for the P.V product, as the JAX forward
-does; f32 runs on the CUDA cores, because a TF32 product would not hold
-f32's exactness against the plain version. The backward kernels have the
-same two bodies: bf16 on the tensor cores, rounding p and dS to bf16 for
-their products as the JAX kernels do (``round_p_ds`` of the plain
-versions gives that rounding), f32 on the CUDA cores. On CPU tensors the
+does; f32 runs them on the tensor cores too, each as three TF32 products
+(``csrc/flash_tf32.cuh``: one TF32 product would not hold f32's exactness
+against the plain version, three do). The backward kernels: bf16 on the
+tensor cores, rounding p and dS to bf16 for their products as the JAX
+kernels do (``round_p_ds`` of the plain versions gives that rounding); f32
+dK/dV as three TF32 products, f32 dQ on the CUDA cores. On CPU tensors the
 same Function runs the plain PyTorch versions, ``flash_attention_plain`` and
 ``flash_attention_backward_plain``, which are also the kernels' references
 on the card. Each wrapper counts its launches (``flash_attention.launches``
@@ -180,12 +181,12 @@ def flash_attention_plain(q, k, v, causal: bool = True,
 
 
 def _rounder(dtype, round_p_ds: bool):
-    """f32 -> f32 through ``dtype`` (the storage dtype at which the JAX
+    """t -> t through ``dtype`` (the storage dtype at which the JAX
     kernels feed p and dS to the matrix unit) when ``round_p_ds``; else
     the identity."""
     if not round_p_ds:
         return lambda t: t
-    return lambda t: t.to(dtype).float()
+    return lambda t: t.to(dtype).to(t.dtype)
 
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
@@ -194,28 +195,33 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
                                    seg=None, window=None):
     """(dq, dk, dv) of flash attention in plain PyTorch, from the forward's
     residuals (o, base-2 lse) and the upstream do: the math of the dK/dV
-    and dQ kernels with the (Sq, Skv) probabilities materialized, f32
-    throughout, each kv head's gradient summed over its query heads; cast
-    to the inputs' dtypes. ``round_p_ds`` rounds p and dS to the inputs'
-    dtype before their products (dS from the unrounded p), as the JAX
-    kernels A3/A4 and the bf16 kernels do; off, the reference is exact.
-    ``kv_len``, ``seg`` and ``window`` as in ``flash_attention_plain``:
-    masked pairs get p = 0, so F16's rows give nothing."""
+    and dQ kernels with the (Sq, Skv) probabilities materialized, each kv
+    head's gradient summed over its query heads; cast to the inputs'
+    dtypes. Computed in f32, or in the inputs' dtype where it is wider:
+    float64 copies of f32 inputs give an exact reference where a kv head's
+    gradient sums so many terms (H / Hkv x Sq: 32,768 at Qwen3-Next's G 8
+    x S 4096) that f32's own rounding of the sums reaches f32's
+    tolerance. ``round_p_ds`` rounds p and dS to the inputs' dtype before
+    their products (dS from the unrounded p), as the JAX kernels A3/A4 and
+    the bf16 kernels do; off, the reference is exact. ``kv_len``, ``seg``
+    and ``window`` as in ``flash_attention_plain``: masked pairs get p =
+    0, so F16's rows give nothing."""
     _check_shapes(q, k, v)
     scale = _scale(q, sm_scale)
+    wide = torch.promote_types(q.dtype, torch.float32)
     rnd = _rounder(q.dtype, round_p_ds)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     rep = H // Hkv
-    qf, dof = q.float(), do.float()
-    kf = k.float().repeat_interleave(rep, dim=1)
-    vf = v.float().repeat_interleave(rep, dim=1)
+    qf, dof = q.to(wide), do.to(wide)
+    kf = k.to(wide).repeat_interleave(rep, dim=1)
+    vf = v.to(wide).repeat_interleave(rep, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
-    p = torch.exp2(s - lse.float()[..., None])
+    p = torch.exp2(s - lse.to(wide)[..., None])
     live = _live_mask(q, k, causal, kv_len, seg, window)
     if live is not None:
         p = p.masked_fill(~live, 0.0)
-    di = (dof * o.float()).sum(-1, keepdim=True)
+    di = (dof * o.to(wide)).sum(-1, keepdim=True)
     dv = torch.matmul(rnd(p).transpose(-1, -2), dof)
     ds = rnd(p * (torch.matmul(dof, vf.transpose(-1, -2)) - di) * scale)
     dq = torch.matmul(ds, kf)
@@ -267,7 +273,7 @@ def _stream(q):
 
 
 def _flash_forward(q, k, v, causal, sm_scale, need_lse):
-    """The forward kernel (bf16: the tensor-core body; f32: the CUDA-core
+    """The forward kernel (bf16: the tensor-core body; f32: the 3xTF32
     body): o and, with ``need_lse``, the base-2 lse."""
     q, k, v = _kernel_inputs("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
@@ -294,7 +300,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True,
     """dk, dv (B, Hkv, Skv, D) by the dK/dV kernel (A3), each kv head's
     gradient summed over its query heads; CUDA tensors only. bf16 runs the
     tensor-core body (p and dS rounded to bf16 for their products), f32
-    the CUDA-core one."""
+    the 3xTF32 one (two blocks a kv tile, dV's and dK's)."""
     q, k, v, do = _kernel_inputs("flash_bwd_dkv", q, k, v, do)
     lse, di = _stats("flash_bwd_dkv", q, lse, di)
     B, H, Sq, D = q.shape
@@ -459,7 +465,7 @@ def _masked_call(what, entry, tensors, mask, q, k, *scalars):
 def masked_forward(q, k, v, mask: _Mask, causal, sm_scale, need_lse):
     """A1 with its options (kv_len, segment ids, a window) on CUDA tensors:
     the forward's bodies on the masked schedule of ``csrc/flash_tiles.cuh``
-    (bf16 on the tensor cores, f32 on the CUDA cores); o and, with
+    (bf16 on the tensor cores, f32 as three TF32 products); o and, with
     ``need_lse``, the base-2 lse."""
     q, k, v = _kernel_inputs("flash_attention (options)", q, k, v)
     o = torch.empty_like(q)

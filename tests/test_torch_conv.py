@@ -345,7 +345,7 @@ _TF32_KEEP = np.uint32(0xFFFFE000)
 
 
 def _tf32_split(x):
-    """csrc/wgmma_gemm.cuh's tf32_split on finite f32: big = x truncated to
+    """csrc/hopper.cuh's tf32_split on finite f32: big = x truncated to
     tf32, small = x - big (exact) rounded to tf32, to nearest with ties
     away from zero (cvt.rna.tf32.f32)."""
     u = np.ascontiguousarray(x, np.float32).view(np.uint32)

@@ -64,13 +64,27 @@ def _close(got, ref):
                                rtol=rtol)
 
 
-# The flash backward kernels against the exact f32 plain backward: bf16
+# The flash backward kernels against the exact plain backward (f32 inputs
+# as float64 copies, ``_plain_bwd``): bf16
 # rounds p and dS for their products as the JAX kernels do, and that
 # rounding alone can pass TOL (dv under GQA, where a kv head sums several
 # heads' rounded p). This bound sits above the largest atol that
 # chip_smoke.py's phase-d sweep reads at rtol 1e-2; f32 rounds nothing.
 EXACT_BWD_TOL = {torch.float32: TOL[torch.float32],
                  torch.bfloat16: (2e-2, 1e-2)}
+
+
+def _plain_bwd(q, k, v, o, lse, do, *args, **kw):
+    """``flash_attention_backward_plain`` as the kernels' reference: f32
+    inputs go in as float64 copies (exact where a kv head's gradient sums
+    many terms, which f32's own rounding is not) and the grads come back
+    in f32; other dtypes as they are."""
+    if q.dtype != torch.float32:
+        return fa.flash_attention_backward_plain(q, k, v, o, lse, do, *args,
+                                                 **kw)
+    grads = fa.flash_attention_backward_plain(
+        *(t.double() for t in (q, k, v, o, lse, do)), *args, **kw)
+    return tuple(g.float() for g in grads)
 
 
 def _close_bwd(got, rounded, exact):
@@ -137,10 +151,10 @@ def test_flash_kernel_gqa_and_cross_lengths(dev, dtype, D, G, causal, Sq,
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
 
 
-def test_flash_f32_keeps_the_cuda_core_body(dev):
-    """The f32 instances are the CUDA-core body on purpose (a TF32 product
-    keeps about three decimal digits): causal S 200 holds f32's tolerance,
-    o and lse."""
+def test_flash_f32_runs_the_tf32x3_body(dev):
+    """The f32 instances are the 3xTF32 body (csrc/flash_tf32.cuh: three
+    TF32 wgmma products a k8 step, where one TF32 product keeps about three
+    decimal digits): causal S 200 holds f32's tolerance, o and lse."""
     g = torch.Generator(device=dev).manual_seed(200)
     q = torch.randn(2, 6, 200, 128, generator=g, device=dev)
     k = torch.randn(2, 2, 200, 128, generator=g, device=dev)
@@ -153,6 +167,170 @@ def test_flash_f32_keeps_the_cuda_core_body(dev):
     torch.testing.assert_close(o, o_ref, atol=TOL[torch.float32][0],
                                rtol=TOL[torch.float32][1])
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+
+
+# -- the f32 forward and dK/dV as three TF32 products (csrc/flash_tf32.cuh)
+# held to the exact plain forward and backward at f32's tolerance: every
+# head dim the kernels are built at and the padded ones, the dense, masked
+# and block-sparse schedules, GQA groups of 1, 3 and 8 at S 1021, many
+# launches of one input, and q and k of a larger magnitude
+
+TF32X3_GROUPS = {1: (8, 8), 3: (6, 2), 8: (8, 1)}  # G: (H, Hkv)
+
+
+def _tf32x3_inputs(dev, seed, H, Hkv, S, D, qk_scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(2, H, S, D, generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(2, Hkv, S, D, generator=g, device=dev)
+            for _ in range(2))
+    return q * qk_scale, k * qk_scale, v, do
+
+
+def _tf32x3_run(q, k, v, do, causal, mask=None):
+    """A1's forward (o, lse) and A3's dK/dV on the f32 inputs at their head
+    dim, padded with zeros to the kernels' (the scale from the real D),
+    dense or masked: o, lse, dk, dv sliced back to D."""
+    D = q.shape[-1]
+    Dp = next(d for d in fa.KERNEL_HEAD_DIMS if D <= d)
+    qp, kp, vp, dop = (torch.nn.functional.pad(t, (0, Dp - D))
+                       for t in (q, k, v, do))
+    scale = D ** -0.5
+    if mask is None:
+        o, lse = fa._flash_forward(qp, kp, vp, causal, scale, True)
+    else:
+        o, lse = fa.masked_forward(qp, kp, vp, mask, causal, scale, True)
+    di = (dop * o).sum(-1)
+    if mask is None:
+        dk, dv = fa.flash_bwd_dkv(qp, kp, vp, dop, lse, di, causal, scale)
+    else:
+        dk, dv = fa.masked_dkv(qp, kp, vp, dop, lse, di, mask, causal, scale)
+    return o[..., :D], lse, dk[..., :D], dv[..., :D]
+
+
+def _tf32x3_check(q, k, v, do, causal, got, opts=None):
+    """o, lse, dk and dv against the exact plain versions at f32's
+    tolerance (the backward on the kernel's own o and lse)."""
+    opts = opts or {}
+    o, lse, dk, dv = got
+    scale = q.shape[-1] ** -0.5
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, scale,
+                                           return_lse=True, **opts)
+    _close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+    _, dk_ref, dv_ref = _plain_bwd(q, k, v, o, lse, do, causal, scale,
+                                   **opts)
+    _close(dk, dk_ref)
+    _close(dv, dv_ref)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 80, 96, 192])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_flash_tf32x3_dense_matches_plain(dev, D, causal, G):
+    """The dense schedule at S 1021 (a ragged last tile and step), kv
+    groups of 1, 3 and 8 query heads, D 64, 128, 256 and padded from 80,
+    96 and 192; one launch each of the forward and dK/dV."""
+    H, Hkv = TF32X3_GROUPS[G]
+    q, k, v, do = _tf32x3_inputs(dev, D + G + causal, H, Hkv, 1021, D)
+    n = (flash_attention.launches, fa.flash_bwd_dkv.launches)
+    got = _tf32x3_run(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fa.flash_bwd_dkv.launches) == \
+        (n[0] + 1, n[1] + 1)
+    _tf32x3_check(q, k, v, do, causal, got)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("option", ["kv_len", "window", "segments"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32x3_masked_matches_plain(dev, D, option, causal):
+    """The masked schedule (A1's and A3's options) at S 1021, 3 query heads
+    a kv head: keys past kv_len 900, a band of 300 (and 100 to the right
+    when not causal), packed documents of 20 to 90 rows (a tile's rows in
+    several); one launch each."""
+    q, k, v, do = _tf32x3_inputs(dev, D + len(option) + causal, 6, 2, 1021,
+                                 D)
+    g = torch.Generator(device=dev).manual_seed(D)
+    opts = {"kv_len": dict(kv_len=900),
+            "window": dict(window=(300, 0 if causal else 100)),
+            "segments": dict(seg=(_doc_ids(g, dev, 2, 1021),) * 2)}[option]
+    mask = fa._Mask.of(q, k, **opts)
+    n = (fa.masked_forward.launches, fa.masked_dkv.launches)
+    got = _tf32x3_run(q, k, v, do, causal, mask)
+    torch.cuda.synchronize()
+    assert (fa.masked_forward.launches, fa.masked_dkv.launches) == \
+        (n[0] + 1, n[1] + 1)
+    _tf32x3_check(q, k, v, do, causal, got, mask.plain())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk,mask", [(128, 64, "f9"), (64, 64, "holed")],
+                         ids=["f9_128x64", "holed64"])
+def test_flash_tf32x3_block_sparse_matches_plain(dev, D, causal, bq, bk,
+                                                 mask):
+    """The block-sparse schedules at S 1024 (A5 and A7 in f32): F9's rows
+    (bq 128 > bk 64, q tile 0 attends kv tile 1 only: p = 1/n for dV) and
+    a kv tile nobody attends (dk = dv = 0 exactly)."""
+    S = 1024
+    g = torch.Generator(device=dev).manual_seed(D + bq + causal)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=g, device=dev)
+                   for _ in range(4))
+    bm = {"f9": _f9_mask, "holed": _holed_mask}[mask](S // bq, S // bk)
+    pruned = fa._pruned_mask(bm, causal, bq, bk, S // bq, S // bk)
+    sched = fa._schedule(pruned, bq, bk, dev)
+    scale = D ** -0.5
+    n = (fa.bsp_forward.launches, fa.bsp_dkv.launches)
+    o, lse = fa.bsp_forward(q, k, v, sched, causal, scale, bq, bk, True)
+    di = (do * o).sum(-1)
+    dk, dv = fa.bsp_dkv(q, k, v, do, lse, di, sched, causal, scale, bq, bk)
+    torch.cuda.synchronize()
+    assert (fa.bsp_forward.launches, fa.bsp_dkv.launches) == \
+        (n[0] + 1, n[1] + 1)
+    o_ref, lse_ref = fa.flash_attention_block_sparse_plain(
+        q, k, v, bm, causal, None, bq, bk, return_lse=True)
+    _close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
+    _, dk_ref, dv_ref = fa.flash_attention_block_sparse_backward_plain(
+        q, k, v, o, lse, do, bm, causal, None, bq, bk)
+    _close(dk, dk_ref)
+    _close(dv, dv_ref)
+    for ki in np.nonzero(~pruned.any(0))[0]:
+        assert not dk[:, :, ki * bk:(ki + 1) * bk].any()
+        assert not dv[:, :, ki * bk:(ki + 1) * bk].any()
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("schedule", ["dense", "masked"])
+def test_flash_tf32x3_every_launch_of_many_agrees(dev, D, schedule):
+    """200 launches each of the f32 forward and dK/dV on one input (causal
+    S 1021, 3 query heads a kv head; masked: a band of 300) give the first
+    launch's outputs bit for bit, which hold the plain versions: a race
+    shows in a few launches of many, not in one."""
+    q, k, v, do = _tf32x3_inputs(dev, D, 6, 2, 1021, D)
+    opts = {} if schedule == "dense" else dict(window=(300, 0))
+    mask = fa._Mask.of(q, k, **opts) if opts else None
+    first = _tf32x3_run(q, k, v, do, True, mask)
+    _tf32x3_check(q, k, v, do, True, first, opts)
+    differ = 0
+    for _ in range(200):
+        again = _tf32x3_run(q, k, v, do, True, mask)
+        differ += not all(torch.equal(a, b) for a, b in zip(again, first))
+    assert differ == 0, f"{differ} of 200 launches differ"
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 8])
+def test_flash_tf32x3_large_magnitude_holds_f32(dev, D, G):
+    """q and k of N(0, 4) entries (scores 4 times the unit case's, a
+    softmax that magnifies an error of the scores as much): the 3xTF32
+    forward and dK/dV still hold f32's tolerance against the exact plain
+    versions (the backward's in float64), where one TF32 product misses
+    it at any magnitude (tests/test_torch_flash_tf32x3.py)."""
+    H, Hkv = TF32X3_GROUPS[G]
+    q, k, v, do = _tf32x3_inputs(dev, 3 * D + G, H, Hkv, 512, D, 2.0)
+    _tf32x3_check(q, k, v, do, True, _tf32x3_run(q, k, v, do, True))
 
 
 # P1's table layouts: (B or None for the test's own, page, max_pages,
@@ -331,9 +509,8 @@ def test_flash_backward_kernels_match_plain(dev, dtype, D, causal, S):
     assert torch.equal(o2, o.detach())
     _, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
-    rounded = fa.flash_attention_backward_plain(q, k, v, o2, lse, do, causal,
-                                                round_p_ds=True)
-    exact = fa.flash_attention_backward_plain(q, k, v, o2, lse, do, causal)
+    rounded = _plain_bwd(q, k, v, o2, lse, do, causal, round_p_ds=True)
+    exact = _plain_bwd(q, k, v, o2, lse, do, causal)
     for t, r, e in zip(leaves, rounded, exact):
         _close_bwd(t.grad, r, e)
 
@@ -360,9 +537,8 @@ def _bwd_kernels_vs_plain(q, k, v, do, causal):
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == \
         (n[0] + 1, n[1] + 1)
-    rounded = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal,
-                                                round_p_ds=True)
-    exact = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    rounded = _plain_bwd(q, k, v, o, lse, do, causal, round_p_ds=True)
+    exact = _plain_bwd(q, k, v, o, lse, do, causal)
     for t, r, e in zip((dq, dk, dv), rounded, exact):
         _close_bwd(t, r, e)
     dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, di, causal)
@@ -1457,7 +1633,7 @@ def _non_finite_agree(o, want):
     """The 3xTF32 routes on non-finite operands: NaN wherever the f32
     product is NaN, finite and within TOL wherever it is finite, and an
     infinity of its sign or NaN wherever it is infinite (the cross terms
-    inf . small: csrc/wgmma_gemm.cuh, tf32_split)."""
+    inf . small: csrc/hopper.cuh, tf32_split)."""
     nan, inf, fin = want.isnan(), want.isinf(), want.isfinite()
     assert nan.any() and inf.any() and fin.any()
     assert bool(o[nan].isnan().all()), "a NaN of the f32 product was lost"
@@ -3215,7 +3391,7 @@ def test_flash_option_kernels_match_plain(dev, dtype, D, option, causal):
                                            return_lse=True, **mask.plain())
     _close(o, o_ref)
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=1e-4)
-    rounded, exact = (fa.flash_attention_backward_plain(
+    rounded, exact = (_plain_bwd(
         q, k, v, o, lse, do, causal, scale, round_p_ds=rnd, **mask.plain())
         for rnd in (True, False))
     for t, r, e in zip(leaves, rounded, exact):
@@ -3281,8 +3457,7 @@ def test_flash_option_functions_run_the_kernels(dev, dtype):
         _close(out.detach(), ref)
         o, lse = flash_attention_plain(q, k, v, True, return_lse=True,
                                        **opts)
-        exact = fa.flash_attention_backward_plain(q, k, v, o, lse, do, True,
-                                                  **opts)
+        exact = _plain_bwd(q, k, v, o, lse, do, True, **opts)
         atol, rtol = EXACT_BWD_TOL[dtype]
         for t, e in zip(leaves, exact):
             torch.testing.assert_close(t.grad.float(), e.float(), atol=atol,
@@ -3428,7 +3603,7 @@ def test_flash_d256_padded_grads_match_plain(dev, dtype, Dq):
                                scale, True)
     o = o[..., :Dq]
     assert torch.equal(o, out.detach())
-    rounded, exact = (fa.flash_attention_backward_plain(
+    rounded, exact = (_plain_bwd(
         q, k, v, o, lse, do, True, scale, round_p_ds=rnd)
         for rnd in (True, False))
     for t, r, e in zip(leaves, rounded, exact):

@@ -806,8 +806,13 @@ def test_cmma_f32_prints_the_tf32x3_route(size):
     assert ("mapping=cmma-wgmma-tf32x3 warpgroups=2 "
             "register_accumulators=1") in src
     assert '#include "wgmma_gemm.cuh"' in src
+    # the TF32 wgmma in wgmma_gemm.cuh, the split in the hopper.cuh it
+    # includes
     with open(f"{CSRC_DIR}/wgmma_gemm.cuh") as f:
         cuh = f.read()
+    assert '#include "hopper.cuh"' in cuh
+    with open(f"{CSRC_DIR}/hopper.cuh") as f:
+        cuh += f.read()
     assert '"k8.f32.tf32.tf32' in cuh
     # big truncated (finite for every finite x, F12), a NaN kept one;
     # small rounded as cvt.rna.tf32.f32 in integer instructions

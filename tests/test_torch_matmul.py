@@ -427,7 +427,7 @@ def _tf32(x):
 
 
 def _split(x, guard=True, truncate=True):
-    """csrc/wgmma_gemm.cuh's tf32_split: big = x truncated to tf32 (its 13
+    """csrc/hopper.cuh's tf32_split: big = x truncated to tf32 (its 13
     low bits cleared; ``truncate=False``: rounded as ``_tf32``, the split
     before F12), small = tf32(x - big), a NaN's big 0x7fffffff
     (``guard``), x - big's NaN CUDA's."""
