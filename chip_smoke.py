@@ -393,6 +393,48 @@ def compare_bwd(got, rounded, exact, what):
                         atol_needed(rounded, exact, tol[1]))
 
 
+def a4_f32_rows(bwd_rows, ze):
+    """The kernels line's f32 dQ (flash_bwd_dq_tf32x3_kernel) at the d768
+    train shape (phase d) and GPT-J-6B's (phase ze1): the cold-L2 time, its
+    bound (three TF32 products where they bound) and SDPA's f32 backward
+    (dq, dk and dv together, TF32 off)."""
+    d = bwd_rows["d768"]
+    g = ze["a34"]["dq"]["gpt-j train f32"]
+    return {
+        "d768 B2 H12/4 S384 D64 causal (phase d)": dict(
+            ms=d["dq_cold_ms"], bound_ms=d["dq_bound"][0],
+            bound_by=d["dq_bound"][1], library_ms=d["library_ms"],
+            max_abs_err=d["dq_err"]),
+        "gpt-j train B8 H16/16 S1024 D256 causal (phase ze1)": dict(
+            ms=g["ms"], bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+            library_ms=g["library_ms"], max_abs_err=g["max_abs_err"]),
+        "ms_is": "device time with a cold L2",
+        "library": "the autograd backward of F.scaled_dot_product_attention "
+                   "in f32 with TF32 off (dq, dk and dv together)"}
+
+
+def p3_f32_rows(i_rows, zd, zf, zh):
+    """The kernels line's f32 P3 (paged_chunked_tf32x3_kernel) at the
+    d768 verify step (phase i), Phi-2's, MPT-30B's and GPT-J-6B's verify
+    and prefill shapes (phases zf1, zh2, zd1): cold-L2 time, bound,
+    splits."""
+    cases = {"d768 verify D64 (phase i)": i_rows["d768"]}
+    for label, table, name in (
+            ("phi-2 D80 (phase zf1)", zf["p3 d80"], "phi-2 verify f32"),
+            ("phi-2 D80 prefill from 768 (phase zf1)", zf["p3 d80"],
+             "phi-2 prefill start 768 f32"),
+            ("mpt-30b D112 (phase zh2)", zh["p3 d112"], "mpt-30b verify f32"),
+            ("mpt-30b D112 prefill from 768 (phase zh2)", zh["p3 d112"],
+             "mpt-30b prefill start 768 f32"),
+            ("gpt-j D256 (phase zd1)", zd["p3"], "gpt-j verify f32"),
+            ("gpt-j D256 prefill from 768 (phase zd1)", zd["p3"],
+             "gpt-j prefill start 768 f32")):
+        cases[label] = table[name]
+    return {k: {f: v[f] for f in ("max_abs_err", "ms", "cold_ms",
+                                  "bound_ms", "bound_by", "splits")}
+            for k, v in cases.items()}
+
+
 def kernel_name(mangled):
     """A compiled csrc kernel's readable name: kernel<dtype, D, ...>."""
     k = re.search(r"\d+([A-Za-z_]+_kernel)I(13__nv_bfloat16|f)"
@@ -410,6 +452,18 @@ def kernel_name(mangled):
                     r"(13__nv_bfloat16|f)(S\d*_|[af])?Li(\d+)E", mangled)
     fx = re.search(r"(flash_(?:fwd|bwd_dkv)_tf32x3_kernel)IfLi(\d+)E",
                    mangled)
+    fq = re.search(r"(flash_bwd_dq_tf32x3_kernel)ILi(\d+)ELi(\d)E", mangled)
+    p3f = re.search(r"(paged_chunked_tf32x3(?:_ragged)?_kernel)ILi(\d+)"
+                    r"ELb([01])E", mangled)
+    if fq:
+        return (f"{fq.group(1)}<f32, {fq.group(2)}, {fq.group(3)} q tile"
+                f"{'s' if fq.group(3) != '1' else ''}"
+                f"{', block-sparse' if 'Sparse' in mangled else ''}"
+                f"{', masked' if 'Masked' in mangled else ''}>")
+    if p3f:
+        int8 = ", int8 KV" if p3f.group(3) == "1" else ""
+        width = "width " if "ragged" in p3f.group(1) else ""
+        return f"{p3f.group(1)}<f32{int8}, {width}{p3f.group(2)}>"
     if fx:
         return (f"{fx.group(1)}<f32, {fx.group(2)}"
                 f"{', block-sparse' if 'Sparse' in mangled else ''}"
@@ -483,17 +537,17 @@ def sass_of(nvcc, so):
 def flash_sass(sass, summary):
     """Phase 2: the flash instances (forward, dK/dV, dQ) in the built
     library's SASS: (name, HGMMA count, registers, spill line) each. Fails
-    unless every bf16 instance of each of the three kernels and every f32
-    instance of the forward and of dK/dV (the 3xTF32 bodies) issues wgmma
-    (HGMMA), each covering D 64, 128 and 256 on the dense, the
-    block-sparse and the masked (the options') schedule, the D 256 ones
-    spilling nothing (where a fresh build's ptxas log reports them). The
-    f32 dQ stays on the CUDA cores."""
+    unless every instance of each of the three kernels, bf16 and f32 (the
+    3xTF32 bodies), issues wgmma (HGMMA), each covering D 64, 128 and 256
+    on the dense, the block-sparse and the masked (the options') schedule
+    (f32 dQ with two q tiles a block at D 128 and one at D 64 and 256),
+    the D 256 ones and every f32 dQ spilling nothing (where a fresh
+    build's ptxas log reports them)."""
     regs = {n: (r, sp) for n, r, sp in summary}
     kinds = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-    tensor_core = [(k, "bf16") for k in kinds] + [
-        ("flash_fwd", "f32"), ("flash_bwd_dkv", "f32")]
+    tensor_core = [(k, dt) for k in kinds for dt in ("bf16", "f32")]
     rows, covered = [], {kd: set() for kd in tensor_core}
+    dq_tiles = set()
     for chunk in sass.split("Function : ")[1:]:
         mangled = chunk.split("\n", 1)[0].strip()
         kind = next((k for k in kinds if k in mangled), None)
@@ -503,24 +557,32 @@ def flash_sass(sass, summary):
         n = chunk.count("HGMMA")
         r, sp = regs.get(name, (None, "not in the ptxas log"))
         rows.append((name, n, r, sp))
-        if ", 256" in name and r is not None and not sp.startswith(
-                "0 bytes stack frame, 0 bytes spill stores"):
+        if (", 256" in name or "dq_tf32x3" in name) and r is not None \
+                and not sp.startswith("0 bytes stack frame, 0 bytes spill "
+                                      "stores"):
             fail(f"phase 2: {name} spills or keeps a stack frame: {sp}")
         dt = "bf16" if "<bf16" in name else "f32" if "tf32x3" in name \
             else None
         if dt is not None:
             if n == 0:
                 fail(f"phase 2: {name} issues no HGMMA (wgmma)")
-            covered[(kind, dt)].add((re.search(r", (\d+)", name).group(1),
-                                     "block-sparse" if "block-sparse" in name
-                                     else "masked" if "masked" in name
-                                     else "dense"))
+            sched = ("block-sparse" if "block-sparse" in name
+                     else "masked" if "masked" in name else "dense")
+            d = re.search(r", (\d+)", name).group(1)
+            covered[(kind, dt)].add((d, sched))
+            if "dq_tf32x3" in name:
+                dq_tiles.add((d, sched, re.search(r"(\d) q tile",
+                                                  name).group(1)))
     want = {(d, sp) for d in ("64", "128", "256")
             for sp in ("dense", "block-sparse", "masked")}
     for (kind, dt), got in covered.items():
         if got != want:
             fail(f"phase 2: {dt} {kind} instances with HGMMA cover "
                  f"{sorted(got)}, want {sorted(want)}")
+    want_dq = {(d, sp, "2" if d == "128" else "1") for d, sp in want}
+    if dq_tiles != want_dq:
+        fail(f"phase 2: f32 dQ instances {sorted(dq_tiles)}, want "
+             f"{sorted(want_dq)}")
     return rows
 
 
@@ -536,8 +598,9 @@ B_LAYOUTS = ("(K, N)", "(N, K)")
 
 def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
     """Phase 2: C1's bf16 and f32 (3xTF32) bodies, E1's bf16 body, P3's
-    bf16 body (D 32, 64, 80, 96, 128 and 256, bf16 and int8 pools; its
-    ragged instances at the widths 64, 128 and 256) and
+    bf16 and f32 (3xTF32) bodies (D 32, 64, 80, 96, 128 and 256, pools of
+    q's dtype and int8; the ragged instances at the widths 64, 128 and
+    256) and
     every 8-, 16-bit and f32 GEMM instance in the SASS: (name, wgmma
     count, registers, spill line) each. Fails unless each issues HGMMA
     (each 8-bit GEMM instance its GEMM8_SASS instruction), C1 f32 and P3
@@ -555,15 +618,17 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
                 "gemm16_wgmma_kernel", "expert_wgmma_kernel",
                 "gemm_tf32x3_kernel", "conv3x3_tf32x3_kernel",
                 "paged_chunked_wgmma_kernel",
-                "paged_chunked_wgmma_ragged_kernel")):
+                "paged_chunked_wgmma_ragged_kernel",
+                "paged_chunked_tf32x3_kernel",
+                "paged_chunked_tf32x3_ragged_kernel")):
             continue
         name = kernel_name(mangled)
         m8 = re.search(r"gemm8_wgmma_kernel<(\w+), (\d+), (\d+)>", name)
         m16 = re.search(r"gemm16_wgmma_kernel<(\w+), (\d+), (\d+), "
                         r"B (.+)>", name)
         m32 = re.search(r"gemm_tf32x3_kernel<(\d+), (\d+)>", name)
-        mp3 = re.search(r"paged_chunked_wgmma_(ragged_)?kernel<bf16"
-                        r"(, int8 KV)?, (?:width )?(\d+)>", name)
+        mp3 = re.search(r"paged_chunked_(wgmma|tf32x3)_(ragged_)?kernel<"
+                        r"(?:bf16|f32)(, int8 KV)?, (?:width )?(\d+)>", name)
         want = GEMM8_SASS[m8.group(1)] if m8 else "HGMMA"
         n = chunk.count(want)
         r, sp = regs.get(name, (None, "not in the ptxas log"))
@@ -576,8 +641,9 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
                                       "stores"):
             fail(f"phase 2: {name} spills or keeps a stack frame: {sp}")
         if mp3:
-            got.add(("p3 ragged" if mp3.group(1) else "p3",
-                     int(mp3.group(3)), bool(mp3.group(2))))
+            got.add((f"p3{' f32' if mp3.group(1) == 'tf32x3' else ''}"
+                     f"{' ragged' if mp3.group(2) else ''}",
+                     int(mp3.group(4)), bool(mp3.group(3))))
         elif "conv3x3_tf32x3" in name:
             got.add("conv3x3 f32")
         elif m8:
@@ -593,9 +659,10 @@ def wgmma_body_sass(sass, summary, tiles8, tiles16, tiles32):
         (t, bm, bn, lay) for t in GEMM16_TYPES for bm, bn, _ in tiles16
         for lay in B_LAYOUTS} | {("f32", bm, bn) for bm, bn, _ in tiles32} \
         | {"conv3x3", "conv3x3 f32", "expert"} \
-        | {("p3", d, q) for d in (32, 64, 80, 96, 128, 256)
-           for q in (False, True)} \
-        | {("p3 ragged", d, q) for d in (64, 128, 256) for q in (False, True)}
+        | {(p3, d, q) for p3 in ("p3", "p3 f32")
+           for d in (32, 64, 80, 96, 128, 256) for q in (False, True)} \
+        | {(p3, d, q) for p3 in ("p3 ragged", "p3 f32 ragged")
+           for d in (64, 128, 256) for q in (False, True)}
     if got != want:
         fail(f"phase 2: wgmma instances {sorted(map(str, got))}, want "
              f"{sorted(map(str, want))}")
@@ -667,6 +734,21 @@ CUDA_CORE_F32_MS = {
             "non-causal": (5.0255, 1.3762), "padded D192": (10.7126, 2.9884),
             "padded D160": (10.7982, 3.0126), "kv_len 900": (10.7157, 2.8762),
             "window 1024": (20.9930, 5.3790), "segments": (17.0585, 5.5424)}}
+# A4's f32 dQ on the CUDA cores (flash_bwd_dq_kernel, flash_bwd_dq_sliced_
+# kernel) with a cold L2, on an H100 80GB HBM3 at 700 W, on the tree before
+# the dQ ran as three TF32 products: phase d's d768 row as
+# scripts/flash_f32_times.py took it, phase ze1's cases (D 256 or the
+# case's D, the same call at D 128) as this script's phase ze1 took them;
+# PERF.md names the runs. Printed beside this run's, nowhere else
+CUDA_CORE_DQ_MS = {
+    "d": {"d768": 0.1007},
+    "ze1": {"gpt-j train": (4.7209, 2.4270),
+            "qwen3-next train": (17.0468, 8.5224),
+            "ragged S1021": (4.6274, 2.4162),
+            "cross Sq512 Skv1024": (1.4260, 0.7264),
+            "non-causal": (2.1963, 1.1124), "padded D192": (4.6562, 2.3965),
+            "padded D160": (4.6571, 2.3872), "kv_len 900": (4.6965, 2.2362),
+            "window 1024": (7.3311, 3.5377), "segments": (5.6212, 2.7682)}}
 
 
 # The entry points of the f32 bodies whose launches phase by phase this
@@ -1343,19 +1425,25 @@ def flash_backward(fa, dev, gen, card):
                     q, k, v, causal, None, True)),
                 dkv_cold_ms=cold_ms(lambda: fa.flash_bwd_dkv(
                     q, k, v, do, lse, di, causal)),
+                dq_cold_ms=cold_ms(lambda: fa.flash_bwd_dq(
+                    q, k, v, do, lse, di, causal)),
                 library_fwd_ms=cuda_ms(
                     lambda: TF.scaled_dot_product_attention(
                         q, k, v, is_causal=causal, enable_gqa=True)),
                 fwd_bound=fwd_bound)
             fc, dc = f32["fwd_cold_ms"], f32["dkv_cold_ms"]
+            qc = f32["dq_cold_ms"]
             was = (f"; the 3xTF32 bodies with a cold L2: forward {fc:.4f} "
                    f"ms ({100 * fwd_bound[0] / fc:.1f}% of its bound "
                    f"{fwd_bound[0]:.4f}, {fwd_bound[1]}), dK/dV {dc:.4f} ms "
                    f"({100 * dkv_bound[0] / dc:.1f}% of "
-                   f"{dkv_bound[0]:.4f}); on the CUDA cores, constants "
-                   f"of this script from an earlier run, back to back: "
-                   f"forward {CUDA_CORE_F32_MS['d']['A1']:.4f}, dK/dV "
-                   f"{CUDA_CORE_F32_MS['d']['A3']:.4f} ms; SDPA's f32 "
+                   f"{dkv_bound[0]:.4f}), dQ {qc:.4f} ms "
+                   f"({100 * dq_bound[0] / qc:.1f}% of {dq_bound[0]:.4f}); "
+                   f"on the CUDA cores, constants of this script from an "
+                   f"earlier run, back to back: forward "
+                   f"{CUDA_CORE_F32_MS['d']['A1']:.4f}, dK/dV "
+                   f"{CUDA_CORE_F32_MS['d']['A3']:.4f} ms, dQ with a cold "
+                   f"L2 {CUDA_CORE_DQ_MS['d']['d768']:.4f} ms; SDPA's f32 "
                    f"forward {f32['library_fwd_ms']:.4f} ms")
         print(f"phase d {what}: max abs err o {err_o}, lse {err_lse} "
               f"(atol/rtol {TOL[dt]}; lse {TOL[torch.float32]}); against "
@@ -1377,6 +1465,76 @@ def flash_backward(fa, dev, gen, card):
             dkv_ms=dkv_ms, dq_ms=dq_ms, plain_ms=plain_ms, library_ms=lib_ms,
             tflops=tf, dkv_bound=dkv_bound, dq_bound=dq_bound, **f32)
     return rows
+
+
+# phase d's f32 dQ instances (flash_bwd_dq_tf32x3_kernel): B 2, S 1021
+# (S 1024 block-sparse), causal, 18 query heads, 3 a kv head (block-sparse:
+# 9 heads of one kv head each)
+A4_F32_H = 18
+A4_F32_S = 1021
+
+
+def a4_f32_instances(fa, dev, gen, card):
+    """Phase d: every instance of the f32 dQ body (D 64, 128, 256; dense,
+    masked with a band of 300, block-sparse with F9's rows at bq 128, bk
+    64; two q tiles a block at D 128) launched once on its forward's o and
+    lse and held to the plain backward on float64 copies at f32's
+    tolerance."""
+    errs = {}
+    for D in (64, 128, 256):
+        for sched in ("dense", "masked", "block-sparse"):
+            S = A4_F32_S + 3 if sched == "block-sparse" else A4_F32_S
+            H, Hkv = ((A4_F32_H // 2,) * 2 if sched == "block-sparse"
+                      else (A4_F32_H, A4_F32_H // 3))
+            q, do = (torch.randn(2, H, S, D, generator=gen, device=dev)
+                     for _ in range(2))
+            k, v = (torch.randn(2, Hkv, S, D, generator=gen,
+                                device=dev) for _ in range(2))
+            scale = D ** -0.5
+            what = f"phase d f32 dQ {sched} D{D} B2 H{H}/{Hkv} S{S} causal"
+            if sched == "block-sparse":
+                bq, bk = 128, 64
+                bm = bsp_mask("f9", S // bq, S // bk)
+                sched_t = fa._schedule(fa._pruned_mask(
+                    bm, True, bq, bk, S // bq, S // bk), bq, bk, dev)
+                o, lse = fa.bsp_forward(q, k, v, sched_t, True, scale,
+                                        bq, bk, True)
+                di = (do * o).sum(-1)
+                n0 = fa.bsp_dq.launches
+                dq = fa.bsp_dq(q, k, v, do, lse, di, sched_t, True,
+                               scale, bq, bk)
+                n = fa.bsp_dq.launches - n0
+                ref = fa.flash_attention_block_sparse_backward_plain(
+                    *(t.double() for t in (q, k, v, o, lse, do)), bm,
+                    True, None, bq, bk)[0].float()
+            else:
+                mask = fa._Mask.of(q, k, window=(300, 0)) \
+                    if sched == "masked" else None
+                counter = fa.masked_dq if mask else fa.flash_bwd_dq
+                if mask is None:
+                    o, lse = fa._flash_forward(q, k, v, True, scale, True)
+                else:
+                    o, lse = fa.masked_forward(q, k, v, mask, True, scale,
+                                               True)
+                di = (do * o).sum(-1)
+                n0 = counter.launches
+                dq = (fa.flash_bwd_dq(q, k, v, do, lse, di, True, scale)
+                      if mask is None else fa.masked_dq(
+                          q, k, v, do, lse, di, mask, True, scale))
+                n = counter.launches - n0
+                ref = plain_bwd(fa, q, k, v, o, lse, do, True, scale,
+                                **({} if mask is None
+                                   else mask.plain()))[0]
+            torch.cuda.synchronize()
+            if n != 1:
+                fail(f"{what}: the kernel did not launch once")
+            errs[f"{sched} D{D}"] = compare(dq, ref, what)
+            del q, k, v, do, o, lse, di, dq, ref
+    torch.cuda.empty_cache()
+    print(f"phase d f32 dQ (3xTF32) on every instance, one launch each "
+          f"against the plain backward on float64 copies (atol/rtol "
+          f"{TOL[torch.float32]}): max abs err {errs} [{card}]", flush=True)
+    return errs
 
 
 def flash_backward_sweep(fa, dev, gen, card):
@@ -1770,6 +1928,66 @@ NO_LIBRARY_PAGED = ("no single PyTorch call attends through a block "
 # W; printed beside this run's
 CUDA_CORE_P3_MS = {"verify": 0.179, "prefill start 0": 0.182,
                    "prefill start 768": 0.826, "verify int8": 0.160}
+
+
+# phase i's f32 P3 instances (paged_chunked_tf32x3_kernel): every head dim
+# with an instance and three ragged ones (in the widths 64, 128, 256), f32
+# and int8 pools; a verify-shaped chunk (G 2 x C 5, its positions split) on
+# pages of 7 and a prefill-shaped one (G 3 x C 70: 4 row tiles, no split)
+# on pages of 16: (B, Hkv, G, C, page, max_pages, starts, lengths or None)
+P3_F32_SHAPES = {"verify": (4, 2, 2, 5, 7, 40, [0, 37, 100, 250],
+                            [0, 42, 105, 255]),
+                 "prefill": (2, 2, 3, 70, 16, 20, [0, 40], None)}
+P3_F32_DIMS = (32, 64, 80, 96, 128, 256, 48, 112, 200)
+
+
+def p3_f32_instances(pa, dev, gen, card):
+    """Phase i: every instance of P3's f32 body, one launch a case of
+    P3_F32_SHAPES on f32 and int8 pools at P3_F32_DIMS, its plan the built
+    kernel's (split where decode-shaped), held to the plain version at
+    f32's tolerance; a length-0 row's zeros."""
+    errs = {}
+    for D in P3_F32_DIMS:
+        for quant in (False, True):
+            for shape, (B, Hkv, G, C, page, mp, starts, lengths) in \
+                    P3_F32_SHAPES.items():
+                kv_dt = torch.int8 if quant else torch.float32
+                args = (torch.float32, kv_dt, B, Hkv * G, Hkv, C, D, page, mp)
+                plan = pa.p3_plan(*args)
+                what = (f"phase i f32 P3 {shape} D{D} "
+                        f"{'int8' if quant else 'f32'} pools B{B} Hkv{Hkv} "
+                        f"G{G} C{C} page{page}")
+                if pa.p3_kernel_plan(*args) != plan or \
+                        plan.body != "tf32x3" or \
+                        (plan.splits > 1) != (shape == "verify"):
+                    fail(f"{what}: plan {plan} (the kernel's "
+                         f"{pa.p3_kernel_plan(*args)})")
+                P = B * mp + 3
+                q = torch.randn(B, Hkv * G, C, D, generator=gen, device=dev)
+                kp, vp, ks, vs = kv_pools("int8" if quant else "f32",
+                                          (2, Hkv, P, page, D), dev, gen)
+                table = torch.randperm(P, generator=gen, device=dev)[
+                    :B * mp].view(B, mp).to(torch.int32)
+                st = torch.tensor(starts, dtype=torch.int32, device=dev)
+                ln = st + C if lengths is None else torch.tensor(
+                    lengths, dtype=torch.int32, device=dev)
+                n0 = pa.paged_attention_chunked.launches
+                got = pa.paged_attention_chunked(q, kp, vp, table, ln, st,
+                                                 layer=1, k_scales=ks,
+                                                 v_scales=vs)
+                torch.cuda.synchronize()
+                if pa.paged_attention_chunked.launches != n0 + 1:
+                    fail(f"{what}: the kernel did not launch once")
+                errs[f"{shape} D{D} {'int8' if quant else 'f32'}"] = compare(
+                    got, pa.paged_attention_chunked_plain(
+                        q, kp, vp, table, ln, st, layer=1, k_scales=ks,
+                        v_scales=vs), what)
+                if lengths is not None and got[0].any():
+                    fail(f"{what}: a length-0 row is not zero")
+    print(f"phase i f32 P3 (3xTF32) on every instance, one launch a case "
+          f"against plain (atol/rtol {TOL[torch.float32]}): max abs err "
+          f"{errs} [{card}]", flush=True)
+    return errs
 
 
 def chunked_vs_plain(pa, dev, gen, card, phase="i", cases=CHUNKED_CASES,
@@ -6470,6 +6688,8 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
             key = f"{name} {_dt(dt)}"
             was = (CUDA_CORE_F32_MS.get(phase, {}).get(name)
                    if dt == torch.float32 else None)
+            was_dq = (CUDA_CORE_DQ_MS.get(phase, {}).get(name)
+                      if dt == torch.float32 else None)
             common = dict(o_err=err_o, lse_err=err_lse, plain_ms=plain_ms,
                           library_ms=lib, live_pairs=pairs,
                           keys_read=keys, atol_vs_exact=dict(
@@ -6502,7 +6722,11 @@ def a34_vs_plain(fa, dev, gen, card, phase, cases):
                      if was else "")
                   + f"), dQ {dq_ms:.4f} ms (D 128 {d128[1]:.4f}; bound "
                   f"{b_dq[0]:.4f}, {b_dq[1]}, {100 * b_dq[0] / dq_ms:.1f}% "
-                  f"of it); plain backward {plain_ms:.4f} ms; SDPA's "
+                  f"of it"
+                  + (f"; on the CUDA cores, a constant of this script from "
+                     f"an earlier run, {was_dq[0]:.4f} (D 128 "
+                     f"{was_dq[1]:.4f})" if was_dq else "")
+                  + f"); plain backward {plain_ms:.4f} ms; SDPA's "
                   f"backward {lib:.4f} ms; {pairs} live pairs a row and "
                   f"head, {keys} keys read [{card}]", flush=True)
     print(f"phase {phase}: the largest atol (at rtol "
@@ -7309,6 +7533,7 @@ def main():
     PHASE["now"] = "d"
     bwd_rows = flash_backward(fa, dev, gen, card)
     flash_backward_sweep(fa, dev, gen, card)
+    a4_f32_instances(fa, dev, gen, card)
 
     # -- phase e: the K0 backward kernels at the train shapes ---------------
     PHASE["now"] = "e"
@@ -7337,6 +7562,7 @@ def main():
     # -- phase i: the chunked paged-attention kernel (P3) against plain ------
     PHASE["now"] = "i"
     i_rows = chunked_vs_plain(pa, dev, gen, card)
+    p3_f32_instances(pa, dev, gen, card)
 
     # -- phase j: paged decode on int8 pools against plain; KV-bound decode -
     PHASE["now"] = "j"
@@ -7631,8 +7857,8 @@ def main():
                               "SparseQTiles> (f32: flash_fwd_tf32x3_kernel<"
                               "float, 256, SparseQTiles>)",
                        "dq": "flash_bwd_dq_wide_kernel<bf16, 256, "
-                             "SparseQTiles> (f32: flash_bwd_dq_sliced_"
-                             "kernel<float, 256, SparseQTiles>)",
+                             "SparseQTiles> (f32: flash_bwd_dq_tf32x3_"
+                             "kernel<256, 1, SparseQTiles>)",
                        "dkv": "flash_bwd_dkv_wide_kernel<bf16, 256, "
                               "SparseKVTiles> (f32: flash_bwd_dkv_tf32x3_"
                               "kernel<float, 256, SparseKVTiles>)"}[what],
@@ -7716,9 +7942,13 @@ def main():
                         "paged_combine_kernel<bf16, D> where the "
                         "positions are split (a second launch a call, "
                         "not counted in launches)",
-                "f32": "paged_chunked_kernel<float, TK, D> (CUDA cores)"},
+                "f32": "paged_chunked_tf32x3_kernel<D, QUANT> (3xTF32 "
+                       "wgmma, a ring of raw slots filled through the "
+                       "table by bulk copies, a row each), then "
+                       "paged_combine_kernel<float, D> where split"},
             splits={n: r["splits"] for n, r in i_rows.items()},
             device_ms_cold_l2=i_rows["verify"]["cold_ms"],
+            f32=p3_f32_rows(i_rows, zd, zf, zh),
             **{name.replace(" ", "_"): {f: i_rows[name][f] for f in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "body", "splits", "cold_ms")}
@@ -7775,7 +8005,8 @@ def main():
             library=sdpa_bwd, shape="bf16 B8 H16/8 S1023 D128 causal",
             max_abs_err_vs_rounding_plain=train["dq_err_rounded"],
             atol_vs_exact=train["atol_vs_exact"],
-            tflops=train["tflops"]["dQ"], **bwd_other("dq")),
+            tflops=train["tflops"]["dQ"], **bwd_other("dq"),
+            f32=a4_f32_rows(bwd_rows, ze)),
         k0_row("_rmsnorm_bwd_k", e("_rmsnorm_bwd_k bf16 8x1023x2048"),
                8 * 1023 * 2048, 2, 3, 8,
                launches=f_launches["_rmsnorm_bwd_k"],
@@ -8057,7 +8288,7 @@ def main():
                    "bf16": "paged_chunked_wgmma_kernel<96, QUANT> (D 128's "
                            "128-byte panels, columns 96..127 unused), then "
                            "paged_combine_kernel<bf16, 96> where split",
-                   "f32": "paged_chunked_kernel<float, TK, 96>"},
+                   "f32": "paged_chunked_tf32x3_kernel<96, QUANT>"},
                launches_path="phase zb2: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds"),
         zb_row("paged_attention_grouped",
@@ -8096,7 +8327,7 @@ def main():
                kernel_symbols={
                    "bf16": "paged_chunked_wgmma_kernel<128, QUANT>, then "
                            "paged_combine_kernel<bf16, 128> where split",
-                   "f32": "paged_chunked_kernel<float, TK, D>"},
+                   "f32": "paged_chunked_tf32x3_kernel<D, QUANT>"},
                launches_path="phase zc2: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds"),
         zb_row("flash_attention_d256",
@@ -8156,7 +8387,8 @@ def main():
                            "128-byte panels; decode-shaped tiles' P halves "
                            "in shared memory), then "
                            "paged_combine_kernel<bf16, 256> where split",
-                   "f32": "paged_chunked_kernel<float, TK, 256>"},
+                   "f32": "paged_chunked_tf32x3_kernel<256, QUANT> "
+                          "(three raw slots: 231,936 bytes)"},
                launches_path="phase zd2: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds"),
         *(zb_row(f"flash_attention_bwd_{what}_d256",
@@ -8191,7 +8423,9 @@ def main():
                   "bf16": "flash_bwd_dq_wide_kernel<bf16, 256, Tiles> (one "
                           "64-row q tile a block; each warpgroup 128 of dQ's "
                           "columns, s and dP computed by both)",
-                  "f32": "flash_bwd_dq_sliced_kernel<float, 256, Tiles>"}))),
+                  "f32": "flash_bwd_dq_tf32x3_kernel<256, 1, Tiles> "
+                         "(3xTF32; one 64-row q tile a block; K and V "
+                         "through one raw slot by cp.async)"}))),
         *(zb_row(f"paged_attention_d{D}",
                  "cubecl_tpu_torch/csrc/paged_attention.cu",
                  "cubecl_tpu/ops/paged_attention.py:247",
@@ -8242,7 +8476,7 @@ def main():
                              "panels, the columns past D unused), "
                              f"then paged_combine_kernel<bf16, {D}> where "
                              "split",
-                     "f32": f"paged_chunked_kernel<float, TK, {D}>"},
+                     "f32": f"paged_chunked_tf32x3_kernel<{D}, QUANT>"},
                  launches_path=f"phase {phase}: prefill_chunked, the verify "
                                "step and speculative decoding's verify "
                                f"rounds ({name}'s widths)")
@@ -8308,7 +8542,8 @@ def main():
                            "never stored), then "
                            "paged_combine_ragged_kernel<bf16, DP> where "
                            "split",
-                   "f32": "paged_chunked_ragged_kernel<float, TK, DP>"},
+                   "f32": "paged_chunked_tf32x3_ragged_kernel<DP, "
+                          "QUANT>"},
                launches_path=f"phase zh3: prefill_chunked, the verify step "
                              "and speculative decoding's verify rounds "
                              "(MPT-30B's widths, every launch ragged)"),

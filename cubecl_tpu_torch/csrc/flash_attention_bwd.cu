@@ -93,20 +93,27 @@
 // four (s^T twice); 48, 96 and 192 KB at D 64, 128 and 256. exp2 is
 // exp2f. Bound: 3 x 8 D flops a live pair at 495 TFLOP/s of TF32.
 //
-// f32 dQ: the CUDA cores (flash_bwd_dq_kernel): 256 threads; every thread
-// holds a 4x4 block of s/p/dS and a 4 x D/16 block of the output
-// accumulator, and reads its operands as float4 from shared memory, where
-// every tile is staged in f32: q, dO and k, v transposed for the two score
-// products, and row-major where they are the right operand of a product.
-// That is 178 KB of the 227 KB a block may have at D = 128.
+// f32 dQ: the tensor cores as three TF32 products too
+// (flash_bwd_dq_tf32x3_kernel), with the K/V side staged asynchronously.
+// A block owns one or two 64-row q tiles, one a warpgroup (two at D 128,
+// both sharing every split K/V step; one at D 64 and 256: dq_f32_tiles),
+// each keeping its q and dO as they are (the A operands of s and dP, split
+// in registers) and its rows' lse and di in registers. The kv walk runs in 32-key steps whose
+// operands (V, then K) come through a ring of raw f32 slots by cp.async,
+// issued up to three operands ahead of the one in use; each is split from
+// shared memory into one split tile X once it has landed (V and K
+// K-major over D for dP = dO V^T and s = q K^T; K again, transposed, for
+// dQ += dS K, dS the split A operand from the m64n32 accumulator). Three
+// products a step, each group of 32 terms summed from zero and added in
+// f32; 76 to 231 KB of shared memory (F32DqSmem). Bound: 3 x 6 D flops a
+// live pair at 495 TFLOP/s of TF32.
 //
 // D 256 (GPT-J-6B's and Qwen3-Next's head dim) has bodies of its own, on
 // every schedule (A6 and A7 too, with F9's rows as above): the ones above
 // run out of room. At D 256 a bf16 consumer's dK and
 // dV would be 256 f32 registers a thread (setmaxnreg grants 240), and
 // their shared memory (NC tiles of K, V and 3 ring stages, 32 KB a tile)
-// 320 KB of the 227 KB a block may hold; the f32 dQ body's staging takes
-// 346 KB.
+// 320 KB of the 227 KB a block may hold.
 //   bf16 (flash_bwd_dkv_wide_kernel, flash_bwd_dq_wide_kernel): a block
 //        owns ONE 64-row tile, stationary (64 KB for its two operands),
 //        and streams the other side through a ring of 2 stages (128 KB).
@@ -130,10 +137,9 @@
 //        two a step for a 256-wide accumulator. p and dS round to bf16
 //        where the other bodies round them (dS from the unrounded p); the
 //        group sum over the query heads stays in registers.
-//   f32 dQ (flash_bwd_dq_sliced_kernel): the CUDA-core body's arithmetic
-//        with one layout of the streamed tile in shared memory at a time:
-//        transposed for s (then dP), then row-major for dQ, each staged
-//        again from global memory (L2); 214,528 bytes.
+//   f32 dQ: the 3xTF32 body above with one warpgroup and one raw slot
+//        (the own tiles 128 KB, X 64 KB, the slot 32.5 KB: 230,912 bytes);
+//        dQ 128 registers a thread in column blocks of 32.
 //
 // The same kernel bodies, with the block-sparse schedules of
 // flash_tiles.cuh in place of the dense causal ranges, replace
@@ -167,304 +173,13 @@
 namespace cubecl {
 namespace {
 
-constexpr int BM = 64;      // q rows per tile
-constexpr int BN = 64;      // kv rows per tile
-constexpr int NT = 256;     // threads: 16 x 16, each a 4x4 score block
-constexpr int PS = BM + 4;  // row stride of a transposed 64x64 score tile
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  // Qt, dOt [D][BM]; Kt, Vt [D][BN]; Kr [BN][D]; Ss [BN][PS]; lse, di [BM]
-  return (2 * D * BM + 2 * D * BN + BN * D + BN * PS + 2 * BM) * 4;
-}
-
-// Rows r0.. r0+R-1 of a (rows, D) matrix -> f32 shared memory, transposed
-// (t[d * R + r]) and/or row-major (rm[r * D + d]); rows >= n are zero.
-template <typename T, int D, int R>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
-                                      int n, float* t, float* rm) {
-  for (int i = threadIdx.x; i < R * D / 4; i += NT) {
-    const int r = i % R, c = i / R;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < n) load4(src + (int64_t)(r0 + r) * D + c * 4, x);
-    if (t != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) t[(c * 4 + e) * R + r] = x[e];
-    }
-    if (rm != nullptr)
-      *reinterpret_cast<float4*>(&rm[r * D + c * 4]) =
-          make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// acc[i][j] += sum_d a[d][ai*4 + i] * b[d][bj*4 + j] over transposed tiles
-template <int D>
-__device__ __forceinline__ void outer4(const float* a, int as, int ai,
-                                       const float* b, int bs, int bj,
-                                       float (&acc)[4][4]) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(&a[d * as + ai * 4]);
-    const float4 y = *reinterpret_cast<const float4*>(&b[d * bs + bj * 4]);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
-  }
-}
-
-// acc[i][c*4 + j] += sum_n w[n][ty*4 + i] * m[n][c*64 + tx*4 + j]: a 64-row
-// transposed weight tile (stride PS) times a row-major (64, D) operand
-template <int D, int DC = D / 64>
-__device__ __forceinline__ void accum(const float* w, const float* m, int ty,
-                                     int tx, float (&acc)[4][4 * DC]) {
-#pragma unroll 4
-  for (int n = 0; n < 64; ++n) {
-    const float4 w4 = *reinterpret_cast<const float4*>(&w[n * PS + ty * 4]);
-    const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const float4 m4 =
-          *reinterpret_cast<const float4*>(&m[n * D + c * 64 + tx * 4]);
-      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][c * 4 + j] = fmaf(wv[i], mv[j], acc[i][c * 4 + j]);
-    }
-  }
-}
-
-// w[(tx*4 + j) * PS + ty*4 + i] = x[i][j]: a thread's 4x4 block, transposed
-__device__ __forceinline__ void store_t(float* w, int ty, int tx,
-                                        const float (&x)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(&w[(tx * 4 + j) * PS + ty * 4]) =
-        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
-}
-
-template <typename T, int D, int DC = D / 64>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
-                                           int n, int ty, int tx,
-                                           const float (&acc)[4][4 * DC]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dst[(int64_t)r * D + c * 64 + tx * 4 + j] =
-            from_float<T>(acc[i][c * 4 + j]);
-  }
-}
-
-// ------------------------------------------------------------------- dQ
-
-template <typename T, int D, typename Tiles>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq, int H,
-                    int Hkv, int Sq, int Skv, float scale, float scale_log2,
-                    int causal, Tiles tiles) {
-  constexpr int DC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][BM]
-  float* dOt = Qt + D * BM;                     // [D][BM]
-  float* Kt = dOt + D * BM;                     // [D][BN]
-  float* Vt = Kt + D * BN;                      // [D][BN]
-  float* Kr = Vt + D * BN;                      // [BN][D]
-  float* Ss = Kr + BN * D;                      // [BN][PS]: dS transposed
-  float* lse_s = Ss + BN * PS;                  // [BM]
-  float* di_s = lse_s + BM;                     // [BM]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // kv columns tx*4.., dQ columns tx*4 + 64c
-  const int ty = tid / 16;  // q rows ty*4..
-  int q0, q_end;  // the block's rows; rows from q_end on are not its own
-  tiles.own(q0, q_end);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int64_t qo = ((int64_t)b * H + h) * Sq;
-  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
-
-  stage<T, D, BM>(q + qo * D, q0, q_end, Qt, nullptr);
-  stage<T, D, BM>(dout + qo * D, q0, q_end, dOt, nullptr);
-  if (tid < BM) {
-    const bool in = q0 + tid < q_end;
-    lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
-    di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
-  }
-
-  float acc[4][4 * DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles = tiles.count(q0);
-  for (int t = 0; t < n_tiles; ++t) {
-    int k0, k_end;  // the tile's columns; those from k_end on are absent
-    if (!tiles.visit(t, q0, q_end, k0, k_end)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D, BN>(k + kvo, k0, k_end, Kt, Kr);
-    stage<T, D, BN>(v + kvo, k0, k_end, Vt, nullptr);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    outer4<D>(Qt, BM, ty, Kt, BN, tx, s);
-    outer4<D>(dOt, BM, ty, Vt, BN, tx, dp);
-    // the options: the dead scores of a tile not wholly live to -inf
-    if constexpr (Tiles::kMasked)
-      if (!tiles.mask.whole(q0, k0))
-        tiles.mask.template kill<false>(s, q0 + ty * 4, k0 + tx * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty * 4 + i;
-      const int row = q0 + m;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        bool ok = true;
-        if constexpr (!Tiles::kMasked)
-          ok = row < q_end && col < k_end && (!causal || col <= row);
-        const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
-        dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
-      }
-    }
-    // Ss[n][m] = dS: dQ[m][:] += sum_n dS[m][n] k[n][:]
-    store_t(Ss, ty, tx, dp);
-    __syncthreads();
-    accum<D>(Ss, Kr, ty, tx, acc);
-  }
-  store_rows<T, D>(dq + qo * D, q0, q_end, ty, tx, acc);
-}
-
-// -- D 256 on the CUDA cores: one tile of the streamed side at a time ------
-
-// the stationary side's two operands transposed [D][64]; one (64, D) tile
-// of the streamed side, transposed for a score product or row-major for a
-// gradient product; the 64 x 64 weight tile [64][PS]; lse, di [64]
-template <int D>
-constexpr int sliced_smem_bytes() {
-  return (3 * D * 64 + 64 * PS + 2 * 64) * 4;
-}
-
-template <typename T, int D, typename Tiles>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const T* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ di, T* __restrict__ dq,
-                           int H, int Hkv, int Sq, int Skv, float scale,
-                           float scale_log2, int causal, Tiles tiles) {
-  static_assert(D == 256, "the sliced body is built for D 256");
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][BM]
-  float* dOt = Qt + D * BM;                     // [D][BM]
-  float* X = dOt + D * BM;  // K^T, V^T [D][BN], then K [BN][D]
-  float* Ss = X + D * BN;   // [BN][PS]: dS transposed
-  float* lse_s = Ss + BN * PS;                  // [BM]
-  float* di_s = lse_s + BM;                     // [BM]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // kv columns tx*4.., dQ columns tx*4 + 64c
-  const int ty = tid / 16;  // q rows ty*4..
-  int q0, q_end;
-  tiles.own(q0, q_end);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int64_t qo = ((int64_t)b * H + h) * Sq;
-  const int64_t kvo = ((int64_t)b * Hkv + hk) * Skv * D;
-
-  stage<T, D, BM>(q + qo * D, q0, q_end, Qt, nullptr);
-  stage<T, D, BM>(dout + qo * D, q0, q_end, dOt, nullptr);
-  if (tid < BM) {
-    const bool in = q0 + tid < q_end;
-    lse_s[tid] = in ? lse[qo + q0 + tid] : 0.f;
-    di_s[tid] = in ? di[qo + q0 + tid] : 0.f;
-  }
-
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles = tiles.count(q0);
-  for (int t = 0; t < n_tiles; ++t) {
-    int k0, k_end;
-    if (!tiles.visit(t, q0, q_end, k0, k_end)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D, BN>(k + kvo, k0, k_end, X, nullptr);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    outer4<D>(Qt, BM, ty, X, BN, tx, s);
-    __syncthreads();
-    stage<T, D, BN>(v + kvo, k0, k_end, X, nullptr);
-    __syncthreads();
-    outer4<D>(dOt, BM, ty, X, BN, tx, dp);
-    if constexpr (Tiles::kMasked)
-      if (!tiles.mask.whole(q0, k0))
-        tiles.mask.template kill<false>(s, q0 + ty * 4, k0 + tx * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty * 4 + i;
-      const int row = q0 + m;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        bool ok = true;
-        if constexpr (!Tiles::kMasked)
-          ok = row < q_end && col < k_end && (!causal || col <= row);
-        const float p = ok ? exp2f(s[i][j] * scale_log2 - lse_s[m]) : 0.f;
-        dp[i][j] = p * (dp[i][j] - di_s[m]) * scale;  // dS
-      }
-    }
-    __syncthreads();  // V^T's readers are done
-    // dQ[m][:] += sum_n dS[m][n] k[n][:]
-    stage<T, D, BN>(k + kvo, k0, k_end, nullptr, X);
-    store_t(Ss, ty, tx, dp);
-    __syncthreads();
-    accum<D>(Ss, X, ty, tx, acc);
-  }
-  store_rows<T, D>(dq + qo * D, q0, q_end, ty, tx, acc);
-}
-
+constexpr int BM = 64;  // q rows per tile
+constexpr int BN = 64;  // kv rows per tile
 template <typename Kernel>
 cudaError_t opt_in_smem(Kernel kernel, int bytes) {
   // above 48 KB a kernel must opt in to dynamic shared memory
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// the CUDA-core dQ bodies of a head dim: D 256's sliced one, else the
-// other (each only where chosen, so that no body is built at a D it does
-// not fit)
-template <typename T, int D, typename Tiles>
-constexpr auto dq_cuda_core() {
-  if constexpr (D == 256)
-    return flash_bwd_dq_sliced_kernel<T, D, Tiles>;
-  else
-    return flash_bwd_dq_kernel<T, D, Tiles>;
 }
 
 // -- the f32 dK/dV body: 3xTF32 wgmma (flash_tf32.cuh) ---------------------
@@ -662,21 +377,270 @@ cudaError_t launch_dkv_tf32x3(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D, typename Tiles>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* di,
-                      void* dq, int B, int H, int Hkv, int Sq, int Skv,
-                      float scale, float scale_log2, int causal, int blocks,
-                      Tiles tiles, cudaStream_t stream) {
-  constexpr int smem = D == 256 ? sliced_smem_bytes<D>() : dq_smem_bytes<D>();
-  const auto kernel = dq_cuda_core<T, D, Tiles>();
+// -- the f32 dQ body: 3xTF32 wgmma, the K/V ring by cp.async -------------
+
+// the f32 dQ body's 64-row q tiles a block, one a warpgroup: two at D 128,
+// where both share each split K/V step; one at D 64 (three blocks an SM,
+// faster than two blocks of two tiles) and at D 256
+__host__ __device__ constexpr int dq_f32_tiles(int D) {
+  return D == 128 ? 2 : 1;
+}
+
+// dynamic shared memory of the f32 dQ body for NW warpgroups (64 q rows
+// each): their q and dO tiles as they are (D / 32 panels of 64 rows each),
+// one split step X (a 32-row operand in a big and a small tile, K-major
+// over D or transposed), the raw slots of the K/V ring (flash_tf32.cuh's
+// raw_slots) and the slack to align the base to 1024: 76,288 bytes at D 64
+// (NW 1), 215,552 at D 128 (NW 2), 230,912 at D 256 (NW 1, one raw slot)
+template <int D, int NW>
+struct F32DqSmem {
+  static constexpr int kOwn = BM * D * 4;  // one 64-row tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + NW * kOwn;
+  static constexpr int kXb = kDo + NW * kOwn;
+  static constexpr int kXs = kXb + kStep * D * 4;
+  static constexpr int kRaw = kXs + kStep * D * 4;
+  static constexpr int kSlot = kStep * raw_ld<float>(D);
+  static constexpr int kSlots = raw_slots(kRaw + 1024, kSlot);
+  static constexpr int kBytes = kRaw + kSlots * kSlot + 1024;
+  static_assert(kSlots >= 1 && kBytes <= 232448, "fits one block");
+};
+
+// The block's NW 64-row q tiles of one (batch, head), one a warpgroup, walk
+// the union of their kv tiles in steps of 32 keys. A step's operands come
+// through the ring in the order V, K: each is split once it has landed,
+// by all the block's threads, into X, and each warpgroup that visits the
+// tile runs the products that read it:
+//   V rows (K-major over D)  dP = dO V^T      twelve products a 32-column
+//   K rows (K-major over D)  s = q K^T        panel of D, from zero, added
+//                            dS = p (dP - di) * scale (the mask first)
+//   K transposed             dQ += dS K       twelve a column block of dQ
+// the copies of the next NR operands in flight meanwhile (the copy into a
+// slot is issued once the slot's operand is split).
+template <int D, int NW, typename Tiles>
+__global__ void __launch_bounds__(NW * kF32Threads, 1)
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           float* __restrict__ dq, int H, int Hkv, int Sq,
+                           int Skv, float scale, float scale_log2, int causal,
+                           Tiles tiles) {
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the 3xTF32 dQ body is built for D 64, 128 and 256");
+  static_assert(NW == dq_f32_tiles(D), "the q tiles of dq_f32_tiles");
+  constexpr int NTH = NW * kF32Threads;
+  using L = F32DqSmem<D, NW>;
+  constexpr int NR = L::kSlots;
+  // dQ in column blocks of AN: 32 at D 256 (the forward's O: blocks of 64
+  // spilled beside 128 registers of accumulator)
+  constexpr int AN = D == 256 ? 32 : 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s_base = smem_addr(smem);
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int64_t qo = ((int64_t)b * H + h) * Sq;
+  const float* kp = k + ((int64_t)b * Hkv + hk) * Skv * D;
+  const float* vp = v + ((int64_t)b * Hkv + hk) * Skv * D;
+  // the block's NW kernel q tiles, as the bf16 body's
+  int r0[NW], r_end[NW], count[NW];
+  int n_tiles = 0;
+#pragma unroll
+  for (int c = 0; c < NW; ++c) {
+    tiles.own(blockIdx.x * NW + c, gridDim.x * NW, r0[c], r_end[c]);
+    count[c] = r0[c] < r_end[c] ? tiles.count(r0[c]) : 0;
+    n_tiles = max(n_tiles, count[c]);
+  }
+  // does any of the block's tiles visit kv tile t (its columns [c0, c_end))
+  auto loaded = [&](int t, int& c0, int& c_end) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < NW; ++c)
+      any |= t < count[c] && tiles.visit(t, r0[c], r_end[c], c0, c_end);
+    return any;
+  };
+
+  // the own tiles as they are; rows past r_end are zeros (never stored)
+#pragma unroll
+  for (int c = 0; c < NW; ++c) {
+    load_rows<BM, D, NTH>(q + qo * D, D, r0[c], r_end[c], D,
+                          smem + L::kQ + c * L::kOwn);
+    load_rows<BM, D, NTH>(dout + qo * D, D, r0[c], r_end[c], D,
+                          smem + L::kDo + c * L::kOwn);
+  }
+
+  // The walk's operands in order (each visited step's V, then its K), for
+  // the copies NR operands ahead of the products: kv tile t, its columns
+  // [c0, c_end), the step's first key k0, V (0) or K (1); live while the
+  // walk lasts
+  struct Ahead {
+    int t, c0, c_end, k0, kind;
+    bool live;
+  } ah{0, 0, 0, 0, 0, false};
+  auto find = [&]() {
+    for (; ah.t < n_tiles; ++ah.t)
+      if (loaded(ah.t, ah.c0, ah.c_end)) {
+        ah.k0 = ah.c0;
+        return true;
+      }
+    return false;
+  };
+  // the next operand's copy into slot `slot`; one group a call, empty
+  // past the walk, so that operand u's group is always the (u + 1)-th
+  auto issue = [&](int slot) {
+    if (ah.live) {
+      copy_raw<D, NTH>(ah.kind ? kp : vp, D, ah.k0, ah.c_end,
+                       s_base + L::kRaw + slot * L::kSlot);
+      if (ah.kind == 0) {
+        ah.kind = 1;
+      } else {
+        ah.kind = 0;
+        ah.k0 += kStep;
+        if (ah.k0 >= ah.c0 + kFlashTile || ah.k0 >= ah.c_end) {
+          ++ah.t;
+          ah.live = find();
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  ah.live = find();
+#pragma unroll
+  for (int sl = 0; sl < NR; ++sl) issue(sl);
+
+  // the warpgroup's tile, warp-uniform for the compiler
+  const int wg = NW == 1 ? 0 : __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  int q0 = r0[0], q_end = r_end[0], n_own = count[0];
+#pragma unroll
+  for (int c = 1; c < NW; ++c)
+    if (c == wg) {
+      q0 = r0[c];
+      q_end = r_end[c];
+      n_own = count[c];
+    }
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows of the m64nN accumulators: row_a and row_a + 8; its
+  // columns 8 j + col_l + {0, 1}
+  const int row_a = q0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row_a + 8 * i < q_end;
+    lse_r[i] = in ? lse[qo + row_a + 8 * i] : 0.f;
+    di_r[i] = in ? di[qo + row_a + 8 * i] : 0.f;
+  }
+  const uint32_t q_s = s_base + L::kQ + wg * L::kOwn;
+  const uint32_t do_s = s_base + L::kDo + wg * L::kOwn;
+  const uint32_t xb_s = s_base + L::kXb;
+  const uint32_t xs_s = s_base + L::kXs;
+  // operand u (counted from 0) in slot u % NR: split into X once it has
+  // landed and the last products have read X, then visible to wgmma; an
+  // operand read twice (K) is split twice before its slot is refilled
+  int u = 0;
+  auto land = [&] {
+    cp_async_wait<NR - 1>();  // this thread's copies of operand u
+    __syncthreads();          // everyone's; the last products are done
+  };
+  auto ready = [&] {
+    fence_proxy_async();  // the split's stores, then wgmma's reads
+    __syncthreads();
+  };
+  auto raw = [&] { return smem + L::kRaw + (u % NR) * L::kSlot; };
+
+  float acc[D / AN][AN / 2];  // dQ, (64 x D) f32
+#pragma unroll
+  for (int c = 0; c < D / AN; ++c)
+#pragma unroll
+    for (int j = 0; j < AN / 2; ++j) acc[c][j] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    int c0, c_end;  // the tile's columns; those from c_end on are absent
+    if (!loaded(t, c0, c_end)) continue;
+    int c0m, c_endm;
+    const bool mine = t < n_own && tiles.visit(t, q0, q_end, c0m, c_endm);
+    // the mask on edge tiles only (the options: dead scores to -inf on a
+    // tile that is not wholly live); rows past q_end are never stored
+    bool edge = false, whole = true;
+    if constexpr (Tiles::kMasked)
+      whole = tiles.mask.whole(q0, c0);
+    else
+      edge = c0 + kFlashTile > c_end || (causal && c0 + kFlashTile - 1 > q0);
+    // the tile's steps of 32 keys
+    for (int k0 = c0; k0 < c0 + kFlashTile && k0 < c_end; k0 += kStep) {
+      // dP = dO V^T
+      land();
+      split_rows<D, float, NTH>(raw(), smem + L::kXb, smem + L::kXs);
+      ready();
+      issue(u % NR);
+      ++u;
+      float dp[16], s[16];
+      if (mine) scores<D>(dp, do_s, xb_s, xs_s);
+
+      // s = q K^T, then dS (into dp)
+      land();
+      split_rows<D, float, NTH>(raw(), smem + L::kXb, smem + L::kXs);
+      ready();
+      if (mine) {
+        scores<D>(s, q_s, xb_s, xs_s);
+        if constexpr (Tiles::kMasked)
+          if (!whole) tiles.mask.template kill<false>(s, row_a, k0 + col_l);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 4 * j + 2 * i + e;
+              const int row = row_a + 8 * i;
+              const int col = k0 + 8 * j + col_l + e;
+              const bool ok =
+                  !edge || (col < c_end && (!causal || col <= row));
+              // masked: p = 0 by a select (the exp2 may be inf there)
+              const float p = ok ? exp2f(s[x] * scale_log2 - lse_r[i]) : 0.f;
+              dp[x] = p * (dp[x] - di_r[i]) * scale;
+            }
+      }
+
+      // dQ += dS K: the step's K again, transposed; dS the split A operand
+      __syncthreads();  // s's products are done with X
+      split_cols<D, float, NTH>(raw(), smem + L::kXb, smem + L::kXs);
+      ready();
+      issue(u % NR);
+      ++u;
+      if (mine) accumulate<D, AN>(acc, dp, xb_s, xs_s);
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  const float one[2] = {1.f, 1.f};
+  store_f32<D, AN>(dq + qo * D, D, row_a, q_end, col_l, acc, one);
+}
+
+template <int D, typename Tiles>
+cudaError_t launch_dq_tf32x3(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* di, void* dq, int B, int H, int Hkv,
+                             int Sq, int Skv, float scale, float scale_log2,
+                             int causal, int blocks, Tiles tiles,
+                             cudaStream_t stream) {
+  constexpr int NW = dq_f32_tiles(D);
+  constexpr int smem = F32DqSmem<D, NW>::kBytes;
+  const auto kernel = flash_bwd_dq_tf32x3_kernel<D, NW, Tiles>;
   static const cudaError_t attr = opt_in_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(blocks, H, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, di,
-      static_cast<T*>(dq), H, Hkv, Sq, Skv, scale, scale_log2, causal, tiles);
+  kernel<<<grid, NW * kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      static_cast<float*>(dq), H, Hkv, Sq, Skv, scale, scale_log2, causal,
+      tiles);
   return cudaGetLastError();
 }
 
@@ -1750,14 +1714,19 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The (dtype, head_dim) instances of one schedule: f32 dK/dV on the 3xTF32
-// body and f32 dQ on the CUDA-core bodies (one 64-row tile to a block),
-// bf16 on the wgmma bodies (NC 64-row tiles to a block, one at D 256;
-// `tiles` counts the launch's tiles so), on every schedule. The launchers
-// of both bodies take the same arguments. Neither falls back on the other: an
-// error of the chosen body is returned as it is.
+// The (dtype, head_dim) instances of one schedule: f32 on the 3xTF32
+// bodies, bf16 on the wgmma bodies, on every schedule. A dK/dV block owns
+// NC 64-row kv tiles in bf16 (one at D 256) and one in f32; a dQ block
+// owns dq_tiles_per_block q tiles (`tiles` counts the launch's tiles so).
+// The launchers of both bodies take the same arguments. Neither falls back
+// on the other: an error of the chosen body is returned as it is.
 constexpr int tiles_per_block(int dtype, int D) {
   return dtype == kBF16 && D != 256 ? NC : 1;
+}
+
+// the q tiles a dQ block owns: bf16 as tiles_per_block, f32 dq_f32_tiles
+constexpr int dq_tiles_per_block(int dtype, int D) {
+  return dtype == kF32 ? dq_f32_tiles(D) : tiles_per_block(dtype, D);
 }
 
 template <typename Tiles>
@@ -1795,15 +1764,15 @@ int launch_dq_any(const void* q, const void* k, const void* v,
   LAUNCH(q, k, v, dout, lse, di, dq, B, H, Hkv, Sq, Skv, scale, scale_log2,  \
          causal, blocks, tiles, st)
   if (dtype == kF32 && D == 64)
-    return CUBECL_DQ((launch_dq<float, 64, Tiles>));
+    return CUBECL_DQ((launch_dq_tf32x3<64, Tiles>));
   if (dtype == kF32 && D == 128)
-    return CUBECL_DQ((launch_dq<float, 128, Tiles>));
+    return CUBECL_DQ((launch_dq_tf32x3<128, Tiles>));
   if (dtype == kBF16 && D == 64)
     return CUBECL_DQ((launch_dq_wgmma<64, Tiles>));
   if (dtype == kBF16 && D == 128)
     return CUBECL_DQ((launch_dq_wgmma<128, Tiles>));
   if (dtype == kF32 && D == 256)
-    return CUBECL_DQ((launch_dq<float, 256, Tiles>));
+    return CUBECL_DQ((launch_dq_tf32x3<256, Tiles>));
   if (dtype == kBF16 && D == 256)
     return CUBECL_DQ((launch_dq_wgmma<256, Tiles>));
 #undef CUBECL_DQ
@@ -1842,7 +1811,8 @@ extern "C" int cubecl_flash_bwd_dq(const void* q, const void* k,
                                    float scale_log2, int causal,
                                    void* stream) {
   using namespace cubecl;
-  const int rows = tiles_per_block(dtype, D) * kFlashTile;  // q rows a block
+  const int per = dq_tiles_per_block(dtype, D);
+  const int rows = per * kFlashTile;  // q rows a block
   return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
                        D, scale, scale_log2, causal, (Sq + rows - 1) / rows,
                        DenseQTiles{Sq, Skv, causal},
@@ -1875,7 +1845,8 @@ extern "C" int cubecl_flash_masked_dq(
     int Sq, int Skv, int D, float scale, float scale_log2, int causal,
     int kv_len, int left, int right, void* stream) {
   using namespace cubecl;
-  const int rows = tiles_per_block(dtype, D) * kFlashTile;  // q rows a block
+  const int per = dq_tiles_per_block(dtype, D);
+  const int rows = per * kFlashTile;  // q rows a block
   const MaskedQTiles tiles{make_mask(B, Sq, Skv, causal, kv_len, left, right,
                                      seg_q, seg_kv, ranges)};
   return launch_dq_any(q, k, v, dout, lse, di, dq, dtype, B, H, Hkv, Sq, Skv,
@@ -1899,7 +1870,7 @@ extern "C" int cubecl_flash_bsp_dq(const void* q, const void* k,
   const int q_sub = (bq + kFlashTile - 1) / kFlashTile;
   const int k_sub = (bk + kFlashTile - 1) / kFlashTile;
   // a block's kernel tiles lie in one user tile, as in the bf16 forward
-  const int per = tiles_per_block(dtype, D);
+  const int per = dq_tiles_per_block(dtype, D);
   const int slots = (q_sub + per - 1) / per * per;
   const SparseQTiles tiles{ids, counts, stride, bq, bk, slots, k_sub,
                            causal, /*keep_f9=*/0, 0};

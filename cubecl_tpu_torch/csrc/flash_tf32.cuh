@@ -1,6 +1,8 @@
-// The 3xTF32 building blocks of the f32 flash bodies: the forward's
-// flash_fwd_tf32x3_kernel (flash_attention.cu) and the backward's
-// flash_bwd_dkv_tf32x3_kernel (flash_attention_bwd.cu).
+// The 3xTF32 building blocks of the f32 flash bodies and of P3's f32 body:
+// the forward's flash_fwd_tf32x3_kernel (flash_attention.cu), the
+// backward's flash_bwd_dkv_tf32x3_kernel and flash_bwd_dq_tf32x3_kernel
+// (flash_attention_bwd.cu) and paged_chunked_tf32x3_kernel
+// (paged_chunked.cu).
 //
 // An f32 product runs on the tensor cores as three TF32 products (3xTF32,
 // as csrc/wgmma_gemm.cuh's GEMM): each operand x is split into big = x
@@ -209,13 +211,15 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
 }
 
 // the three products of one k8 step: A_small B_big (overwriting d where
-// first), A_big B_small, A_big B_big; B's halves at descriptors bb, bs
-template <int N>
+// first), A_big B_small, A_big B_big; B's halves at descriptors bb, bs.
+// BX: B is exact in tf32 (int8 values), its small half zero and never
+// staged: A_small B_big and A_big B_big only
+template <int N, bool BX = false>
 __device__ __forceinline__ void tf32x3(float (&d)[N], const uint32_t (&ab)[4],
                                        const uint32_t (&as)[4], uint64_t bb,
                                        uint64_t bs, bool first) {
   wgmma_tf32(d, as, bb, first ? 0 : 1);
-  wgmma_tf32(d, ab, bs, 1);
+  if constexpr (!BX) wgmma_tf32(d, ab, bs, 1);
   wgmma_tf32(d, ab, bb, 1);
 }
 
@@ -229,7 +233,7 @@ __device__ __forceinline__ uint64_t step_desc(uint32_t panel, int s) {
 // (D / 32 panels of 64 rows), B the step's 32 rows split at b_big and
 // b_small (D / 32 panels of 32 rows); each panel's twelve products summed
 // from zero, then added in f32
-template <int D>
+template <int D, bool BX = false>
 __device__ __forceinline__ void scores(float (&s)[16], uint32_t a_s,
                                        uint32_t b_big, uint32_t b_small) {
 #pragma unroll
@@ -249,8 +253,8 @@ __device__ __forceinline__ void scores(float (&s)[16], uint32_t a_s,
     wgmma_fence();
 #pragma unroll
     for (int st = 0; st < 4; ++st)
-      tf32x3(part, ab[st], as[st], step_desc(b_big + bp, st),
-             step_desc(b_small + bp, st), st == 0);
+      tf32x3<16, BX>(part, ab[st], as[st], step_desc(b_big + bp, st),
+                     step_desc(b_small + bp, st), st == 0);
     wgmma_commit();
     wgmma_wait0();
     reg_fence(part);
@@ -264,7 +268,7 @@ __device__ __forceinline__ void scores(float (&s)[16], uint32_t a_s,
 // rows) in split RS fragments, B the step's C x 32 transposed tile split
 // at b_big and b_small; each column block's twelve products summed from
 // zero, then added in f32
-template <int C, int N>
+template <int C, int N, bool BX = false>
 __device__ __forceinline__ void accumulate(float (&acc)[C / N][N / 2],
                                            const float (&x)[16],
                                            uint32_t b_big, uint32_t b_small) {
@@ -279,8 +283,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[C / N][N / 2],
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      tf32x3(part, xb[kk], xs[kk], step_desc(b_big + bc, kk),
-             step_desc(b_small + bc, kk), kk == 0);
+      tf32x3<N / 2, BX>(part, xb[kk], xs[kk], step_desc(b_big + bc, kk),
+                        step_desc(b_small + bc, kk), kk == 0);
     wgmma_commit();
     wgmma_wait0();
     reg_fence(part);
@@ -309,6 +313,195 @@ __device__ __forceinline__ void store_f32(
                                    8 * j + col_l) =
             make_float2(acc[c][4 * j + 2 * i] * mul[i],
                         acc[c][4 * j + 2 * i + 1] * mul[i]);
+  }
+}
+
+// -- asynchronous staging: raw rows by cp.async, split once they land ------
+//
+// The bodies with a ring (the dQ body of flash_attention_bwd.cu, P3's f32
+// body of paged_chunked.cu) copy each operand of a 32-row step (the step's
+// K, its V) as it is into a raw slot of a ring of NR slots, NR operands
+// ahead of the one in use: dQ's contiguous rows by every thread's 16-byte
+// cp.async (copy_raw), P3's rows, each found through the table, by a bulk
+// copy of the TMA unit a row issued by one warp (fill_rows), completing
+// on the slot's mbarrier (each measured faster than the other's way on
+// its body: PERF.md §6). When an operand has landed the block splits
+// it from shared memory into the split tiles above (split_rows,
+// split_cols) and runs its products while the next copies are in
+// flight. A raw row is the operand's C values (f32, or int8 for
+// P3's int8 pools) and 16 bytes more: with rows 16 bytes past a multiple
+// of 128 apart, the 32 lanes of a warp that read 16 bytes each of one
+// column chunk of 32 rows (split_cols) hit every bank once a 128 bytes.
+
+constexpr int kRawPad = 16;
+
+// the bytes from one raw row of C values of TK to the next
+template <typename TK>
+__host__ __device__ constexpr int raw_ld(int C) {
+  return C * (int)sizeof(TK) + kRawPad;
+}
+
+// The raw slots of a body whose other shared memory takes `base` bytes
+// (the 1 KB of alignment slack included) and whose slots take `slot` bytes
+// each: as many, up to 3, as leave two blocks an SM (113 KB each), else as
+// many as fit one block's 232,448 bytes; 0 where not even one fits
+__host__ __device__ constexpr int raw_slots(int base, int slot) {
+  constexpr int two = 115712, one = 232448;
+  return (two - base) / slot >= 1
+             ? ((two - base) / slot < 3 ? (two - base) / slot : 3)
+             : ((one - base) / slot < 3 ? (one - base) / slot : 3);
+}
+
+// Rows r0 .. r0 + R - 1 of an f32 matrix (rows ld apart; columns from dc
+// on, and rows at or past n, as zeros) into C / 32 panels of R rows as
+// they are (stage_rows' layout), by NTH threads, plain loads: the block's
+// own tiles, read once
+template <int R, int C, int NTH>
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          int ld, int r0, int n, int dc,
+                                          uint8_t* dst) {
+  constexpr int CH = C / 4;
+  const bool vec = ld % 4 == 0;  // 16-byte rows (the bases are aligned)
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * CH; i += NTH) {
+    const int r = i / CH, ch = i % CH;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < n) {
+      const float* p = src + (int64_t)(r0 + r) * ld + 4 * ch;
+      if (vec && 4 * ch + 4 <= dc) {
+        const float4 y = __ldg(reinterpret_cast<const float4*>(p));
+        x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * ch + e < dc) x[e] = __ldg(p + e);
+      }
+    }
+    *reinterpret_cast<float4*>(dst + (ch / 8) * R * 128 + sw_off(r, ch % 8)) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// Rows r0 .. r0 + 31 of an f32 matrix with C columns (rows ld apart, 16-byte
+// aligned), those at or past n as zeros, into the raw slot at `slot` by
+// cp.async (the caller commits the group), by NTH threads
+template <int C, int NTH>
+__device__ __forceinline__ void copy_raw(const float* __restrict__ src,
+                                         int ld, int r0, int n,
+                                         uint32_t slot) {
+  constexpr int CH = C / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kStep * CH; i += NTH) {
+    const int r = i / CH, ch = i % CH;
+    const bool ok = r0 + r < n;
+    cp_async16_zfill(slot + r * raw_ld<float>(C) + 16 * ch,
+                     src + (ok ? (int64_t)(r0 + r) * ld + 4 * ch : 0), ok);
+  }
+}
+
+// one row of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory by the TMA unit's bulk copy, completing on
+// the mbarrier `bar`
+__device__ __forceinline__ void bulk_row(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The 32 rows of a raw slot (`ld` bytes apart), row `lane` from `src`
+// (`bytes` of it, a multiple of 16) by the TMA unit, or zeros where src is
+// null (past the range); called by one warp, whose lane 0 is the one
+// arrival on `bar` and announces the bytes the copies complete there
+__device__ __forceinline__ void fill_rows(uint32_t slot, int ld,
+                                          const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  const int lane = threadIdx.x % 32;
+  const unsigned live = __ballot_sync(0xffffffffu, src != nullptr);
+  if (lane == 0) mbar_expect_tx(bar, __popc(live) * bytes);
+  __syncwarp();
+  const uint32_t dst = slot + lane * ld;
+  if (src != nullptr) {
+    bulk_row(dst, src, bytes, bar);
+  } else {
+#pragma unroll 1
+    for (uint32_t b = 0; b < bytes; b += 16)
+      asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst + b),
+                   "r"(0)
+                   : "memory");
+  }
+}
+
+// A raw slot's 32 rows of C values of TK into C / 32 panels of 32 rows,
+// K-major over C (stage_rows' layout): f32 split into `big` and `small`,
+// int8 as its exact f32 values into `big` alone (its small half is zero)
+template <int C, typename TK, int NTH>
+__device__ __forceinline__ void split_rows(const uint8_t* raw, uint8_t* big,
+                                           uint8_t* small) {
+  constexpr int CH = C * (int)sizeof(TK) / 16;  // raw chunks a row
+#pragma unroll 2
+  for (int i = threadIdx.x; i < kStep * CH; i += NTH) {
+    const int r = i / CH, ch = i % CH;
+    const uint4 x =
+        *reinterpret_cast<const uint4*>(raw + r * raw_ld<TK>(C) + 16 * ch);
+    if constexpr (sizeof(TK) == 4) {
+      const int off = (ch / 8) * kStep * 128 + sw_off(r, ch % 8);
+      uint4 b, s;
+      tf32_split4(x, b, s);
+      *reinterpret_cast<uint4*>(big + off) = b;
+      *reinterpret_cast<uint4*>(small + off) = s;
+    } else {
+      const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float f[4];
+        unpack_s8x4(w[k], f);
+        const int oc = 4 * ch + k;  // the 4 values' chunk in the panels
+        *reinterpret_cast<float4*>(big + (oc / 8) * kStep * 128 +
+                                   sw_off(r, oc % 8)) =
+            make_float4(f[0], f[1], f[2], f[3]);
+      }
+    }
+  }
+}
+
+// A raw slot's 32 rows of C values of TK transposed into C rows of one
+// panel (stage_cols' layout: the step's rows permuted by kperm within each
+// 8): f32 split into `big` and `small`, int8 into `big` alone. A warp's
+// lanes take the 32 rows of one 16-byte column chunk, so that each store
+// fills one panel row.
+template <int C, typename TK, int NTH>
+__device__ __forceinline__ void split_cols(const uint8_t* raw, uint8_t* big,
+                                           uint8_t* small) {
+  constexpr int E = 16 / (int)sizeof(TK);  // values a chunk
+  constexpr int CH = C / E;                // raw chunks a row
+  const int r = threadIdx.x % kStep;
+  const int pos = (r & ~7) | kperm(r & 7);
+  const uint8_t* row = raw + r * raw_ld<TK>(C);
+#pragma unroll 2
+  for (int ch = threadIdx.x / kStep; ch < CH; ch += NTH / kStep) {
+    const uint4 x = *reinterpret_cast<const uint4*>(row + 16 * ch);
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (sizeof(TK) == 4) {
+        const int off = sw_off(4 * ch + k, pos / 4) + (pos % 4) * 4;
+        uint32_t b, s;
+        tf32_split(w[k], b, s);
+        *reinterpret_cast<uint32_t*>(big + off) = b;
+        *reinterpret_cast<uint32_t*>(small + off) = s;
+      } else {
+        float f[4];
+        unpack_s8x4(w[k], f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          *reinterpret_cast<float*>(
+              big + sw_off(E * ch + 4 * k + e, pos / 4) + (pos % 4) * 4) =
+              f[e];
+      }
+    }
   }
 }
 

@@ -103,8 +103,7 @@
 //   tile's K was) as the A operands of m64n64k16 products from shared
 //   memory, the tile's sums from zero one 64-column panel of V at a time
 //   into a 32-register accumulator added to O (with both halves and a
-//   second accumulator in registers, ptxas spilled). f32: the CUDA-core
-//   body at 214,528 bytes, one block an SM.
+//   second accumulator in registers, ptxas spilled).
 //
 // Each D of PAGED_HEAD_DIMS is a template instance of its own (D 32, 64,
 // 80, 96, 128, 256): the body static_asserts its D and the P V product
@@ -119,340 +118,35 @@
 // are written at the real D (paged_combine.cuh's paged_combine_ragged_
 // kernel). Q K^T and P V run over the width's columns.
 //
-// f32 q: the CUDA cores (paged_chunked_kernel), the first version: one
-// TF32 pass would not hold f32's tolerance (three would: wgmma_gemm.cuh's
-// split is a candidate). A1's f32 kernel (flash_attention.cu) with the table lookup in
-// its K/V staging: one 256-thread block per (64-row tile of the G*C rows,
-// kv head, batch row), f32 math from shared memory, and a loop over
-// 64-position tiles that ends at the tile's last live position. At small
-// G*C most of a tile's rows are idle (their threads skip the products).
-// A thread owns output columns tx * 4 + 64 c; at D 96 the columns 64..95
-// are the first 8 tx's (the others skip that group), at D 80 the columns
-// 64..79 the first 4 tx's, at D 32 the columns 0..31 the first 8.
+// f32 q (f32 or int8 pools): the tensor cores as three TF32 products
+// (paged_chunked_tf32x3_kernel, on flash_tf32.cuh; one TF32 product would
+// not hold f32's tolerance). One warpgroup owns 64 of the G*C rows and
+// the positions of its split, as the bf16 body (tc_plan: decode-shaped
+// tiles split their positions, combined by paged_combine_kernel<float>),
+// and walks them in steps of 32: the step's K and V rows come through the
+// table into a ring of raw slots (three where shared memory leaves two
+// blocks an SM or, at D 256 f32, fits one) by the TMA unit's bulk copies,
+// a row each, issued by one warp (16-byte cp.async copies by every thread
+// ran the verify step at 0.6 TB/s; PERF.md §6), each split from
+// shared memory once it has landed into one split tile (K K-major for S,
+// V transposed for P V, P the f32 accumulator split in registers). int8
+// values are exact in tf32: their small halves are zero, so S and P V take
+// two products a k8 step. The tiles are D in 32-column panels: D 80 runs
+// at 96 (three panels, the last 16 columns zeros, never stored), D 32 at
+// 32. Shared memory (TfSmem): 31,232 bytes (D 32) to 100,352 (D 128, two
+// slots) with f32 pools, two blocks an SM; 231,936 at D 256 (q 64 KB, the
+// split step 64 KB, three slots of 32.5 KB), one; int8 pools 18,304 to
+// 108,160 (D 256, one slot), two blocks an SM.
 #include <algorithm>
 #include <climits>
 #include <type_traits>
 
+#include "flash_tf32.cuh"
 #include "hopper.cuh"
 #include "paged_combine.cuh"
 
 namespace cubecl {
 namespace {
-
-constexpr int BM = 64;       // query rows (of the G*C) per block
-constexpr int BN = 64;       // positions per tile
-constexpr int NT = 256;      // threads: 16 x 16, each a 4x4 score block
-constexpr int PS = BM + 4;   // row stride of the transposed P tile (floats)
-
-// a pool element in f32 (int8: its value, the scale applied apart)
-template <typename TK>
-__device__ __forceinline__ float elem_float(TK x) {
-  if constexpr (std::is_same<TK, int8_t>::value) {
-    return static_cast<float>(x);
-  } else {
-    return to_float(x);
-  }
-}
-
-template <int D>
-constexpr int chunked_smem_bytes() {
-  // Qs [D][BM] + Ks [D][BN] + Vs [BN][D] + Ps [BN][PS] + 2 x [BN] scales
-  return (D * BM + D * BN + BN * D + BN * PS + 2 * BN) * 4;
-}
-
-// the f32 body; RAGGED (a head dim dr without an instance of its own, run
-// in this instance's width D): q, the pools and o hold rows of dr elements,
-// read and written element by element, the columns from dr on zero in
-// shared memory and never stored
-template <typename T, typename TK, int D, bool RAGGED = false>
-__device__ __forceinline__ void paged_chunked_body(
-    const T* __restrict__ q, const TK* __restrict__ kpool,
-    const TK* __restrict__ vpool, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, const int* __restrict__ table,
-    const int* __restrict__ lengths, const int* __restrict__ starts,
-    T* __restrict__ o, int H, int Hkv, int C, int layer, int P, int page,
-    int max_pages, float scale_log2, int dr = D) {
-  constexpr bool QUANT = std::is_same<TK, int8_t>::value;
-  const int DR = RAGGED ? dr : D;  // the head dim of q, the pools and o
-  // 4-wide column groups of the output per thread; at D 96 the second
-  // group (columns 64..95) is the first 8 tx's only (D 80: 64..79, the
-  // first 4; D 32: the one group, the first 8)
-  constexpr int DC = (D + 63) / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [D][BM]  (q transposed)
-  float* Ks = Qs + D * BM;                      // [D][BN]  (k transposed)
-  float* Vs = Ks + D * BN;                      // [BN][D]
-  float* Ps = Vs + BN * D;                      // [BN][PS] (p transposed)
-  float* ksc = Ps + BN * PS;                    // [BN] int8: K scales
-  float* vsc = ksc + BN;                        // [BN] int8: V scales
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // score columns tx*4.., output columns tx*4 + 64*c
-  const int ty = tid / 16;  // rows ty*4..ty*4+3
-  const int G = H / Hkv;
-  const int GC = G * C;
-  // the tiles of late chunk tokens do the most work: schedule them first
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int len = lengths[b];
-  const int start = starts[b];
-  const int64_t head_page0 = ((int64_t)layer * Hkv + hk) * P;
-  const int* tab = table + (int64_t)b * max_pages;
-  // row r = g * C + i is query head hk * G + g, token i: (B, H, C, D)
-  const int64_t qrow0 = ((int64_t)b * H + (int64_t)hk * G) * C;
-
-  // q tile -> Qs[d][m]; rows past G*C are zero (their output is not stored)
-  for (int i = tid; i < BM * D / 4; i += NT) {
-    const int m = i % BM, c = i / BM;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (RAGGED) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (r0 + m < GC && c * 4 + e < dr)
-          x[e] = to_float(q[(qrow0 + r0 + m) * dr + c * 4 + e]);
-    } else {
-      if (r0 + m < GC) load4(q + (qrow0 + r0 + m) * D + c * 4, x);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) Qs[(c * 4 + e) * BM + m] = x[e];
-  }
-
-  float acc[4][4 * DC];
-  float m_i[4], l_i[4];
-  int qpos[4];  // each row's query position, or -1 past G*C (nothing live)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-    const int r = r0 + ty * 4 + i;
-    qpos[i] = r < GC ? start + r % C : -1;
-#pragma unroll
-    for (int j = 0; j < 4 * DC; ++j) acc[i][j] = 0.f;
-  }
-
-  // the tile's last live position: its largest chunk token i
-  const int r_end = min(r0 + BM, GC);
-  int i_max = C - 1;
-  if (r_end - r0 < C) {
-    i_max = 0;
-    for (int r = r0; r < r_end; ++r) i_max = max(i_max, r % C);
-  }
-  const int kv_end = min(len, start + i_max + 1);
-  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
-  // threads whose 4 rows all lie past G*C (most of the tile at the verify
-  // step's G*C = 10) skip the products; they still stage K/V and join the
-  // row reductions of their warp
-  const bool rows_live = r0 + ty * 4 < GC;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BN * D / 4; i += NT) {
-      const int n = i % BN, c = i / BN;
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      float y[4] = {0.f, 0.f, 0.f, 0.f};
-      const int t = k0 + n;
-      if (t < kv_end) {
-        const int pid = min(max(tab[t / page], 0), P - 1);
-        const int64_t row = (head_page0 + pid) * page + (t % page);
-        if constexpr (RAGGED) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (c * 4 + e < dr) {
-              x[e] = elem_float(kpool[row * dr + c * 4 + e]);
-              y[e] = elem_float(vpool[row * dr + c * 4 + e]);
-            }
-        } else {
-          load4(kpool + row * D + c * 4, x);
-          load4(vpool + row * D + c * 4, y);
-        }
-        if (QUANT && c == 0) {
-          ksc[n] = kscale[row];
-          vsc[n] = vscale[row];
-        }
-      } else if (QUANT && c == 0) {
-        ksc[n] = 0.f;
-        vsc[n] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Ks[(c * 4 + e) * BN + n] = x[e];
-      *reinterpret_cast<float4*>(&Vs[n * D + c * 4]) =
-          make_float4(y[0], y[1], y[2], y[3]);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    if (rows_live) {
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&Qs[d * BM + ty * 4]);
-        const float4 bb =
-            *reinterpret_cast<const float4*>(&Ks[d * BN + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-      }
-    }
-
-    // online softmax, base 2; a row's 64 columns live in 16 lanes of a warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        const bool ok = col < len && col <= qpos[i];
-        float x = s[i][j] * scale_log2;
-        // int8: the K scale on the score column, after the base-2 scaling
-        if (QUANT) x *= ksc[tx * 4 + j];
-        s[i][j] = ok ? x : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = warp_max16(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      // a row with nothing live yet keeps p = 0 instead of exp2(nan)
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_i[i] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_use);
-        rs += s[i][j];
-      }
-      rs = warp_sum16(rs);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * DC; ++j) acc[i][j] *= alpha;
-    }
-    // int8: the V scale on the probability column (l took the unscaled p)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float vj = QUANT ? vsc[tx * 4 + j] : 1.f;
-      *reinterpret_cast<float4*>(&Ps[(tx * 4 + j) * PS + ty * 4]) =
-          make_float4(s[0][j] * vj, s[1][j] * vj, s[2][j] * vj, s[3][j] * vj);
-    }
-    __syncthreads();
-
-    if (rows_live) {
-#pragma unroll 4
-      for (int n = 0; n < BN; ++n) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(&Ps[n * PS + ty * 4]);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          if (D % 64 == 0 || c * 64 + tx * 4 < D) {
-            const float4 v4 = *reinterpret_cast<const float4*>(
-                &Vs[n * D + c * 64 + tx * 4]);
-            const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[i][c * 4 + j] = fmaf(pv[i], vv[j], acc[i][c * 4 + j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= GC) continue;
-    const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
-    T* orow = o + (qrow0 + r) * DR;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (D % 64 == 0 || c * 64 + tx * 4 < D)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (!RAGGED || c * 64 + tx * 4 + j < dr)
-            orow[c * 64 + tx * 4 + j] = from_float<T>(acc[i][c * 4 + j] * inv);
-  }
-}
-
-template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(NT)
-paged_chunked_kernel(const T* __restrict__ q, const TK* __restrict__ kpool,
-                     const TK* __restrict__ vpool,
-                     const float* __restrict__ kscale,
-                     const float* __restrict__ vscale,
-                     const int* __restrict__ table,
-                     const int* __restrict__ lengths,
-                     const int* __restrict__ starts, T* __restrict__ o, int H,
-                     int Hkv, int C, int layer, int P, int page, int max_pages,
-                     float scale_log2) {
-  paged_chunked_body<T, TK, D>(q, kpool, vpool, kscale, vscale, table,
-                               lengths, starts, o, H, Hkv, C, layer, P, page,
-                               max_pages, scale_log2);
-}
-
-// the f32 body at a head dim dr (1..DP) with no instance of its own
-template <typename T, typename TK, int DP>
-__global__ void __launch_bounds__(NT)
-paged_chunked_ragged_kernel(const T* __restrict__ q,
-                            const TK* __restrict__ kpool,
-                            const TK* __restrict__ vpool,
-                            const float* __restrict__ kscale,
-                            const float* __restrict__ vscale,
-                            const int* __restrict__ table,
-                            const int* __restrict__ lengths,
-                            const int* __restrict__ starts,
-                            T* __restrict__ o, int H, int Hkv, int C,
-                            int layer, int P, int page, int max_pages,
-                            float scale_log2, int dr) {
-  paged_chunked_body<T, TK, DP, true>(q, kpool, vpool, kscale, vscale, table,
-                                      lengths, starts, o, H, Hkv, C, layer,
-                                      P, page, max_pages, scale_log2, dr);
-}
-
-// RAGGED: the instance of width D runs head dim dr
-template <typename T, typename TK, int D, bool RAGGED = false>
-cudaError_t launch_chunked(const void* q, const void* kp, const void* vp,
-                           const float* ks, const float* vsc,
-                           const void* table, const void* lengths,
-                           const void* starts, void* o, int B, int H, int Hkv,
-                           int C, int layer, int P, int page, int max_pages,
-                           float scale_log2, cudaStream_t stream,
-                           int dr = D) {
-  constexpr int smem = chunked_smem_bytes<D>();
-  const void* kernel;
-  if constexpr (RAGGED)
-    kernel = (const void*)paged_chunked_ragged_kernel<T, TK, D>;
-  else
-    kernel = (const void*)paged_chunked_kernel<T, TK, D>;
-  // above 48 KB a kernel must opt in to dynamic shared memory, once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return attr;
-  const int GC = (H / Hkv) * C;
-  const dim3 grid((GC + BM - 1) / BM, Hkv, B);
-  const T* qt = static_cast<const T*>(q);
-  const TK *kt = static_cast<const TK*>(kp), *vt = static_cast<const TK*>(vp);
-  const int* tab = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-  const int* sts = static_cast<const int*>(starts);
-  T* ot = static_cast<T*>(o);
-  if constexpr (RAGGED)
-    paged_chunked_ragged_kernel<T, TK, D><<<grid, NT, smem, stream>>>(
-        qt, kt, vt, ks, vsc, tab, len, sts, ot, H, Hkv, C, layer, P, page,
-        max_pages, scale_log2, dr);
-  else
-    paged_chunked_kernel<T, TK, D><<<grid, NT, smem, stream>>>(
-        qt, kt, vt, ks, vsc, tab, len, sts, ot, H, Hkv, C, layer, P, page,
-        max_pages, scale_log2);
-  return cudaGetLastError();
-}
 
 // -- bf16 q: the tensor cores ----------------------------------------------
 
@@ -1092,11 +786,431 @@ cudaError_t launch_chunked_wgmma(const void* q, const void* kp, const void* vp,
 }
 
 
+// -- f32 q: the tensor cores as three TF32 products ------------------------
+
+// the f32 body's tile width: D in 32-column panels (D 80: 96, its last 16
+// columns zeros, never stored)
+constexpr int tf_width(int D) { return (D + 31) / 32 * 32; }
+
+// dynamic shared memory of the f32 body: the q tile as it is (W / 32
+// panels of 64 rows), one split step X (32 positions of K, K-major over
+// W, or of V transposed: a big and, with f32 pools, a small tile), the raw
+// slots of the K/V ring (rows of W pool values 16 bytes apart past their
+// width; int8: each slot's 32 scales after its rows) and the slack to
+// align the base to 1024 (flash_tf32.cuh's raw_slots: two blocks an SM
+// where three, two or one slot allow it)
+template <int D, bool QUANT>
+struct TfSmem {
+  using TK = typename std::conditional<QUANT, int8_t, float>::type;
+  static constexpr int W = tf_width(D);
+  static constexpr int kQ = 0;
+  static constexpr int kXb = kQ + kTcRows * W * 4;
+  static constexpr int kXs = kXb + kStep * W * 4;
+  static constexpr int kRaw = kXs + (QUANT ? 0 : kStep * W * 4);
+  static constexpr int kLd = raw_ld<TK>(W);
+  static constexpr int kSlot = kStep * kLd + (QUANT ? kStep * 4 : 0);
+  static constexpr int kSlots = raw_slots(kRaw + 1024, kSlot);
+  static constexpr int kBytes = kRaw + kSlots * kSlot + 1024;
+  static_assert(kSlots >= 1 && kBytes <= 232448, "fits one block");
+};
+
+// The f32 body. A block is one warpgroup owning 64 of the G*C rows of one
+// (batch row, kv head), and the positions of its split (tc_plan, as the
+// bf16 body), walked in steps of 32 positions. A step's K, then its V,
+// come through the ring and the table (bulk copies a row, positions past
+// the range as zeros), each issued three operands (or as many as the
+// slots) ahead of the one in use, and each is split from shared memory into X
+// once it has landed: K K-major for S = Q K^T (m64n32k8, Q split in
+// registers from the tile as it is), V transposed for O += P V with P the
+// f32 m64n32 accumulator split in registers (P1's f32 P). Each group of
+// 32 terms is summed from zero and added in f32. int8 pools: their values
+// are exact in tf32, so X holds one tile and S and P V take two products
+// a k8 step (tf32x3's BX); the K scale goes on the score column, the V
+// scale on the probability column (l takes the unscaled p). part (splits
+// > 1): per (b, kv head, split, row < G*C) the row's unnormalised f32
+// accumulator (DR values), then its m and l. RAGGED (a head dim dr with no
+// instance of its own, in this instance's width D): q, the pools, o and
+// part hold rows of dr values; the copies take a row's own bytes (pieces
+// of 16, 8 or 4), into slots whose columns from dr on are the zeros the
+// block writes once (as at D 80, whose slots' last 16 columns stay zero)
+template <int D, bool QUANT, bool RAGGED = false>
+__device__ __forceinline__ void paged_chunked_tf32x3_body(
+    const float* __restrict__ q, const void* __restrict__ kpool_,
+    const void* __restrict__ vpool_, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    float* __restrict__ o, float* __restrict__ part, int H, int Hkv, int C,
+    int layer, int P, int page, int max_pages, float scale_log2, TcPlan plan,
+    int dr = D) {
+  using L = TfSmem<D, QUANT>;
+  using TK = typename L::TK;
+  constexpr int W = L::W;
+  constexpr int NR = L::kSlots;
+  // O in column blocks of AN: 64 where W is a multiple of 64 below 256,
+  // else 32 (W 32, 96; at 256 blocks of 64 spilled in the flash forward)
+  constexpr int AN = W % 64 == 0 && W < 256 ? 64 : 32;
+  static_assert(D == 32 || D == 64 || D == 80 || D == 96 || D == 128 ||
+                    D == 256,
+                "P3's f32 body is built for D 32, 64, 80, 96, 128 and 256");
+  const int DR = RAGGED ? dr : D;  // the head dim of q, the pools, o, part
+  // a pool row's bytes, its 16-byte chunks, and the widest copy its
+  // alignment allows (the bases are 16-byte aligned)
+  const int rb = DR * (int)sizeof(TK);
+  const int kc = (rb + 15) / 16;
+  const int unit = copy_unit(rb, (int)sizeof(TK));
+  const TK* kpool = static_cast<const TK*>(kpool_);
+  const TK* vpool = static_cast<const TK*>(vpool_);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s_base = smem_addr(smem);
+  if constexpr (RAGGED || D != W) {
+    // the slots' columns from DR on: zeros, before any copy lands
+    uint4* z = reinterpret_cast<uint4*>(smem + L::kRaw);
+    for (int i = threadIdx.x; i < NR * L::kSlot / 16; i += kTcThreads)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int G = H / Hkv;
+  const int GC = G * C;
+  const int split = blockIdx.x % plan.splits;
+  const int r0 = (plan.row_tiles - 1 - blockIdx.x / plan.splits) * kTcRows;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int len = lengths[b];
+  const int start = starts[b];
+  const int64_t head_page0 = ((int64_t)layer * Hkv + hk) * P;
+  const int* tab = table + (int64_t)b * max_pages;
+  // row r = g * C + i is query head hk * G + g, token i: (B, H, C, D)
+  const int64_t qrow0 = ((int64_t)b * H + (int64_t)hk * G) * C;
+
+  // the tile's first and last chunk tokens: the positions every live row
+  // sees, and the tile's last live position
+  const int r_end = min(r0 + kTcRows, GC);
+  int i_min = 0, i_max = C - 1;
+  if (r_end - r0 < C) {
+    i_min = C - 1;
+    i_max = 0;
+    for (int r = r0; r < r_end; ++r) {
+      i_min = min(i_min, r % C);
+      i_max = max(i_max, r % C);
+    }
+  }
+  const int kv_end = min(len, start + i_max + 1);
+  const int full_end = min(len, start + i_min + 1);
+  const int p0 = split * plan.split_len;
+  const int p1 = min(kv_end, p0 + plan.split_len);
+  const int n_steps = p1 > p0 ? (p1 - p0 + kStep - 1) / kStep : 0;
+
+  // the slots' barriers: operand u completes slot u % NR's (u / NR)-th
+  // phase
+  __shared__ uint64_t ring_bar[NR];
+  if (tid == 0) {
+    for (int sl = 0; sl < NR; ++sl) mbar_init(&ring_bar[sl], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // operand u (step u / 2's K, or its V) into slot `slot` through the
+  // table, zeros from p1 on, completing on the slot's barrier: warp 0 a
+  // bulk copy a row (lane j row j; int8: the rows' scales by 4-byte
+  // cp.async, one group a call); a ragged row whose bytes are no multiple
+  // of 16 in every thread's cp.async pieces (copy_chunk), the barrier then
+  // arrived on with no bytes. Nothing past the walk.
+  auto issue = [&](int u, int slot) {
+    if (u < 2 * n_steps) {
+      const int k0 = p0 + (u / 2) * kStep;
+      const TK* pool = u % 2 ? vpool : kpool;
+      const float* sc = u % 2 ? vscale : kscale;
+      const uint32_t dst0 = s_base + L::kRaw + slot * L::kSlot;
+      if (!RAGGED || rb % 16 == 0) {
+        if (warp == 0) {
+          const int pos = k0 + lane;
+          const bool ok = pos < p1;
+          int64_t row = 0;
+          if (ok) {
+            const int pid = min(max(tab[pos / page], 0), P - 1);
+            row = (head_page0 + pid) * page + pos % page;
+          }
+          fill_rows(dst0, L::kLd, ok ? pool + row * DR : nullptr, rb,
+                    &ring_bar[slot]);
+          if (QUANT)
+            cp_async4_zfill(dst0 + kStep * L::kLd + lane * 4, sc + row, ok);
+        }
+      } else {
+#pragma unroll 1
+        for (int i = tid; i < kStep * kc; i += kTcThreads) {
+          const int n = i / kc, c = i % kc;
+          const int pos = k0 + n;
+          const bool ok = pos < p1;
+          int64_t row = 0;
+          if (ok) {
+            const int pid = min(max(tab[pos / page], 0), P - 1);
+            row = (head_page0 + pid) * page + pos % page;
+          }
+          copy_chunk(dst0 + n * L::kLd + c * 16,
+                     reinterpret_cast<const uint8_t*>(pool + row * DR) +
+                         c * 16,
+                     min(16, rb - c * 16), unit, ok);
+          if (QUANT && c == 0)
+            cp_async4_zfill(dst0 + kStep * L::kLd + n * 4, sc + row, ok);
+        }
+        if (tid == 0) mbar_expect_tx(&ring_bar[slot], 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // the first NR operands in flight, then the q tile (rows past G*C and
+  // columns past DR as zeros)
+#pragma unroll
+  for (int sl = 0; sl < NR; ++sl) issue(sl, sl);
+  load_rows<kTcRows, W, kTcThreads>(q + qrow0 * DR, DR, r0, GC, DR,
+                                    smem + L::kQ);
+
+  // this thread's rows of the m64nN accumulators: row_a and row_a + 8; its
+  // columns 8 j + col_l + {0, 1}; a row's position (rows past G*C: none
+  // masked, their sums are not stored)
+  const int row_a = r0 + warp * 16 + lane / 4;
+  const int col_l = (lane % 4) * 2;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row_a + 8 * i;
+    qpos[i] = r < GC ? start + r % C : INT_MAX;
+  }
+  const uint32_t q_s = s_base + L::kQ;
+  const uint32_t xb_s = s_base + L::kXb;
+  const uint32_t xs_s = s_base + L::kXs;
+
+  float acc[W / AN][AN / 2];  // O, (64 x W) f32
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < W / AN; ++c)
+#pragma unroll
+    for (int j = 0; j < AN / 2; ++j) acc[c][j] = 0.f;
+
+  // operand u, landed, split into X after the last products read X, then
+  // visible to wgmma; its slot refilled with operand u + NR. sc: the
+  // operand's scales at this thread's 8 columns (int8)
+  auto take = [&](int u, bool cols, float (&sc)[8]) {
+    cp_async_wait<NR - 1>();  // this thread's cp.async copies of operand u
+    mbar_wait(&ring_bar[u % NR], (u / NR) & 1);  // its bulk copies
+    __syncthreads();  // everyone's; the last products are done
+    const uint8_t* raw = smem + L::kRaw + (u % NR) * L::kSlot;
+    if (cols)
+      split_cols<W, TK, kTcThreads>(raw, smem + L::kXb, smem + L::kXs);
+    else
+      split_rows<W, TK, kTcThreads>(raw, smem + L::kXb, smem + L::kXs);
+    if constexpr (QUANT) {
+      const float* s = reinterpret_cast<const float*>(raw + kStep * L::kLd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sc[2 * j + e] = s[8 * j + col_l + e];
+    }
+    fence_proxy_async();  // the split's stores, then wgmma's reads
+    __syncthreads();
+    issue(u + NR, u % NR);
+  };
+
+  for (int st = 0; st < n_steps; ++st) {
+    const int k0 = p0 + st * kStep;
+    float sc[8];
+    // S = Q K^T over W
+    take(2 * st, false, sc);
+    float s[16];
+    scores<W, QUANT>(s, q_s, xb_s, xs_s);
+
+    // online softmax, base 2; a row's 32 columns live in 4 lanes
+    const bool edge = k0 + kStep > full_end;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x *= scale_log2;
+          // int8: the K scale on the score column, after the base-2 scaling
+          if constexpr (QUANT) x *= sc[2 * j + e];
+          if (edge) {
+            const int col = k0 + 8 * j + col_l + e;
+            if (!(col < len && col <= qpos[i])) x = -INFINITY;
+          }
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[i], mx);
+      // a row with nothing live yet keeps p = 0 instead of exp2(nan)
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m_i[i] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * i + e];
+          x = exp2f(x - m_use);
+          rs += x;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l_i[i] = l_i[i] * alpha + rs;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < W / AN; ++c)
+#pragma unroll
+        for (int j = 0; j < AN / 8; ++j) {
+          acc[c][4 * j + 2 * i] *= alpha;
+          acc[c][4 * j + 2 * i + 1] *= alpha;
+        }
+    }
+
+    // O += P V over the step's 32 positions, V transposed; int8: the V
+    // scale on the probability column (l took the unscaled p)
+    take(2 * st + 1, true, sc);
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) s[4 * j + 2 * i + e] *= sc[2 * j + e];
+    }
+    accumulate<W, AN, QUANT>(acc, s, xb_s, xs_s);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_a + 8 * i;
+    if (row >= GC) continue;
+    float* dst;
+    float mul = 1.f;
+    if (plan.splits == 1) {
+      mul = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
+      dst = o + (qrow0 + row) * DR;
+    } else {
+      dst = part + (((int64_t)(b * Hkv + hk) * plan.splits + split) * GC +
+                    row) * (DR + 2);
+      if (lane % 4 == 0) {
+        dst[DR] = m_i[i];
+        dst[DR + 1] = l_i[i];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < W / AN; ++c)
+#pragma unroll
+      for (int j = 0; j < AN / 8; ++j) {
+        const int col = AN * c + 8 * j + col_l;
+        const float x0 = acc[c][4 * j + 2 * i] * mul;
+        const float x1 = acc[c][4 * j + 2 * i + 1] * mul;
+        if constexpr (RAGGED) {  // columns below dr, one at a time
+          if (col < dr) dst[col] = x0;
+          if (col + 1 < dr) dst[col + 1] = x1;
+        } else if (col < D) {  // D even: both columns or neither
+          *reinterpret_cast<float2*>(dst + col) = make_float2(x0, x1);
+        }
+      }
+  }
+}
+
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(kTcThreads)
+paged_chunked_tf32x3_kernel(const float* __restrict__ q,
+                            const void* __restrict__ kpool_,
+                            const void* __restrict__ vpool_,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
+                            const int* __restrict__ table,
+                            const int* __restrict__ lengths,
+                            const int* __restrict__ starts,
+                            float* __restrict__ o, float* __restrict__ part,
+                            int H, int Hkv, int C, int layer, int P, int page,
+                            int max_pages, float scale_log2, TcPlan plan) {
+  paged_chunked_tf32x3_body<D, QUANT>(q, kpool_, vpool_, kscale, vscale,
+                                      table, lengths, starts, o, part, H, Hkv,
+                                      C, layer, P, page, max_pages,
+                                      scale_log2, plan);
+}
+
+// the f32 body at a head dim dr (1..DP) with no instance of its own
+template <int DP, bool QUANT>
+__global__ void __launch_bounds__(kTcThreads)
+paged_chunked_tf32x3_ragged_kernel(
+    const float* __restrict__ q, const void* __restrict__ kpool_,
+    const void* __restrict__ vpool_, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ table,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    float* __restrict__ o, float* __restrict__ part, int H, int Hkv, int C,
+    int layer, int P, int page, int max_pages, float scale_log2, TcPlan plan,
+    int dr) {
+  paged_chunked_tf32x3_body<DP, QUANT, true>(
+      q, kpool_, vpool_, kscale, vscale, table, lengths, starts, o, part, H,
+      Hkv, C, layer, P, page, max_pages, scale_log2, plan, dr);
+}
+
+// RAGGED: the instance of width D runs head dim dr
+template <int D, bool QUANT, bool RAGGED = false>
+cudaError_t launch_chunked_tf32x3(const void* q, const void* kp,
+                                  const void* vp, const float* ks,
+                                  const float* vsc, const void* table,
+                                  const void* lengths, const void* starts,
+                                  void* o, void* part, int B, int H, int Hkv,
+                                  int C, int layer, int P, int page,
+                                  int max_pages, float scale_log2,
+                                  cudaStream_t stream, int dr = D) {
+  constexpr int smem = TfSmem<D, QUANT>::kBytes;
+  const void* kernel;
+  if constexpr (RAGGED)
+    kernel = (const void*)paged_chunked_tf32x3_ragged_kernel<D, QUANT>;
+  else
+    kernel = (const void*)paged_chunked_tf32x3_kernel<D, QUANT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int GC = (H / Hkv) * C;
+  const TcPlan p = tc_plan(B, Hkv, GC, page, max_pages);
+  if (p.splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid(p.row_tiles * p.splits, Hkv, B);
+  const auto* qt = static_cast<const float*>(q);
+  const int* tab = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  const int* sts = static_cast<const int*>(starts);
+  auto* ot = static_cast<float*>(o);
+  auto* pt = static_cast<float*>(part);
+  if constexpr (RAGGED)
+    paged_chunked_tf32x3_ragged_kernel<D, QUANT>
+        <<<grid, kTcThreads, smem, stream>>>(qt, kp, vp, ks, vsc, tab, len,
+                                             sts, ot, pt, H, Hkv, C, layer, P,
+                                             page, max_pages, scale_log2, p,
+                                             dr);
+  else
+    paged_chunked_tf32x3_kernel<D, QUANT><<<grid, kTcThreads, smem, stream>>>(
+        qt, kp, vp, ks, vsc, tab, len, sts, ot, pt, H, Hkv, C, layer, P, page,
+        max_pages, scale_log2, p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  if constexpr (RAGGED)
+    paged_combine_ragged_kernel<float, D>
+        <<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(pt, ot, H, Hkv, C,
+                                                  p.splits, dr);
+  else
+    paged_combine_kernel<float, D>
+        <<<dim3(B * Hkv, GC), D / 4, 0, stream>>>(pt, ot, H, Hkv, C,
+                                                  p.splits);
+  return cudaGetLastError();
+}
+
 // dynamic shared memory of the body for (dtype, int8 pools, D): each
 // built D a case of its own; -1 for a D that has no instance
 template <int D>
 int p3_smem_of(int dtype, bool quant) {
-  if (dtype == kF32) return chunked_smem_bytes<D>();
+  if (dtype == kF32)
+    return quant ? TfSmem<D, true>::kBytes : TfSmem<D, false>::kBytes;
   return quant ? TcSmem<D, true>::kBytes : TcSmem<D, false>::kBytes;
 }
 inline int p3_smem(int dtype, bool quant, int D) {
@@ -1126,9 +1240,8 @@ inline int p3_smem(int dtype, bool quant, int D) {
 // int32; lengths and starts (B,) int32; o (B, H, C, D). Contiguous; q and o
 // of `dtype` (f32 or bf16), the pools of `kv_dtype`: the same dtype, or int8
 // with f32 scale pools k_scales/v_scales (L, Hkv, P, page) (null
-// otherwise). part: the bf16 body's partial sums where it splits the
-// positions, cubecl_paged_chunked_plan's plan[8] floats (null where that
-// is 0). D 32, 64, 80, 96, 128 and 256 are instances of their own; any
+// otherwise). part: the partial sums where a body splits the positions,
+// cubecl_paged_chunked_plan's plan[8] floats (null where that is 0). D 32, 64, 80, 96, 128 and 256 are instances of their own; any
 // other D from 1 to 255 runs in the next of the widths 64, 128 and 256
 // (RAGGED). Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for a dtype or head_dim this kernel was not built
@@ -1149,28 +1262,35 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
   if (quant != (k_scales != nullptr && v_scales != nullptr))
     return cudaErrorInvalidValue;
   if (!quant && kv_dtype != dtype) return cudaErrorInvalidValue;
-#define CUBECL_CHUNKED(T, TK, HD)                                            \
-  launch_chunked<T, TK, HD>(q, k_pages, v_pages, k_scales, v_scales, table,  \
-                            lengths, starts, o, B, H, Hkv, C, layer, P, page, \
-                            max_pages, scale_log2, st)
+#define CUBECL_CHUNKED_TF(HD, QUANT)                                          \
+  launch_chunked_tf32x3<HD, QUANT>(q, k_pages, v_pages, k_scales, v_scales,   \
+                                   table, lengths, starts, o, part, B, H,     \
+                                   Hkv, C, layer, P, page, max_pages,         \
+                                   scale_log2, st)
 #define CUBECL_CHUNKED_WG(HD, QUANT)                                          \
   launch_chunked_wgmma<HD, QUANT>(q, k_pages, v_pages, k_scales, v_scales,   \
                                   table, lengths, starts, o, part, B, H, Hkv, \
                                   C, layer, P, page, max_pages, scale_log2,  \
                                   st)
   if (dtype == kF32) {
-    if (D == 32) return quant ? CUBECL_CHUNKED(float, int8_t, 32)
-                              : CUBECL_CHUNKED(float, float, 32);
-    if (D == 64) return quant ? CUBECL_CHUNKED(float, int8_t, 64)
-                              : CUBECL_CHUNKED(float, float, 64);
-    if (D == 80) return quant ? CUBECL_CHUNKED(float, int8_t, 80)
-                              : CUBECL_CHUNKED(float, float, 80);
-    if (D == 96) return quant ? CUBECL_CHUNKED(float, int8_t, 96)
-                              : CUBECL_CHUNKED(float, float, 96);
-    if (D == 128) return quant ? CUBECL_CHUNKED(float, int8_t, 128)
-                               : CUBECL_CHUNKED(float, float, 128);
-    if (D == 256) return quant ? CUBECL_CHUNKED(float, int8_t, 256)
-                               : CUBECL_CHUNKED(float, float, 256);
+    if (D == 32)
+      return quant ? CUBECL_CHUNKED_TF(32, true)
+                   : CUBECL_CHUNKED_TF(32, false);
+    if (D == 64)
+      return quant ? CUBECL_CHUNKED_TF(64, true)
+                   : CUBECL_CHUNKED_TF(64, false);
+    if (D == 80)
+      return quant ? CUBECL_CHUNKED_TF(80, true)
+                   : CUBECL_CHUNKED_TF(80, false);
+    if (D == 96)
+      return quant ? CUBECL_CHUNKED_TF(96, true)
+                   : CUBECL_CHUNKED_TF(96, false);
+    if (D == 128)
+      return quant ? CUBECL_CHUNKED_TF(128, true)
+                   : CUBECL_CHUNKED_TF(128, false);
+    if (D == 256)
+      return quant ? CUBECL_CHUNKED_TF(256, true)
+                   : CUBECL_CHUNKED_TF(256, false);
   }
   if (dtype == kBF16) {
     if (D == 32)
@@ -1193,22 +1313,22 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
                    : CUBECL_CHUNKED_WG(256, false);
   }
 #undef CUBECL_CHUNKED_WG
-#undef CUBECL_CHUNKED
+#undef CUBECL_CHUNKED_TF
   if (D < 1 || D >= 256) return cudaErrorInvalidValue;
   const int DP = paged_ragged_width(D);
-#define CUBECL_RAGGED_F32(TK, W)                                             \
-  launch_chunked<float, TK, W, true>(q, k_pages, v_pages, k_scales, v_scales, \
-                                     table, lengths, starts, o, B, H, Hkv, C, \
-                                     layer, P, page, max_pages, scale_log2,  \
-                                     st, D)
+#define CUBECL_RAGGED_F32(W, QUANT)                                          \
+  launch_chunked_tf32x3<W, QUANT, true>(q, k_pages, v_pages, k_scales,       \
+                                        v_scales, table, lengths, starts, o, \
+                                        part, B, H, Hkv, C, layer, P, page,  \
+                                        max_pages, scale_log2, st, D)
 #define CUBECL_RAGGED_WG(W, QUANT)                                           \
   launch_chunked_wgmma<W, QUANT, true>(q, k_pages, v_pages, k_scales,        \
                                        v_scales, table, lengths, starts, o,  \
                                        part, B, H, Hkv, C, layer, P, page,   \
                                        max_pages, scale_log2, st, D)
 #define CUBECL_RAGGED(W)                                                     \
-  (dtype == kF32 ? (quant ? CUBECL_RAGGED_F32(int8_t, W)                    \
-                          : CUBECL_RAGGED_F32(float, W))                     \
+  (dtype == kF32 ? (quant ? CUBECL_RAGGED_F32(W, true)                      \
+                          : CUBECL_RAGGED_F32(W, false))                     \
                  : (quant ? CUBECL_RAGGED_WG(W, true)                       \
                           : CUBECL_RAGGED_WG(W, false)))
   if (dtype == kF32 || dtype == kBF16)
@@ -1222,7 +1342,8 @@ extern "C" int cubecl_paged_chunked(const void* q, const void* k_pages,
 }
 
 // P3's launch plan for q of `dtype`, pools of `kv_dtype` and the shapes:
-// plan[0..8] = the body (0: the CUDA cores, 1: wgmma), threads a block,
+// plan[0..8] = the body (1: bf16 wgmma, 2: f32 3xTF32 wgmma; both one
+// warpgroup a block on tc_plan's grid), threads a block,
 // dynamic shared memory bytes, the grid (x, y, z), position splits, the
 // positions a split, and the floats of `part` (0 without a split).
 // Returns 0, or cudaErrorInvalidValue for what cubecl_paged_chunked
@@ -1239,20 +1360,8 @@ extern "C" int cubecl_paged_chunked_plan(int dtype, int kv_dtype, int B,
   const int smem = p3_smem(dtype, quant, D);
   if (smem < 0) return cudaErrorInvalidValue;
   const int GC = (H / Hkv) * C;
-  if (dtype == kF32) {
-    plan[0] = 0;
-    plan[1] = NT;
-    plan[2] = smem;
-    plan[3] = (GC + BM - 1) / BM;
-    plan[4] = Hkv;
-    plan[5] = B;
-    plan[6] = 1;
-    plan[7] = 0;
-    plan[8] = 0;
-    return 0;
-  }
   const TcPlan p = tc_plan(B, Hkv, GC, page, max_pages);
-  plan[0] = 1;
+  plan[0] = dtype == kF32 ? 2 : 1;
   plan[1] = kTcThreads;
   plan[2] = smem;
   plan[3] = p.row_tiles * p.splits;

@@ -29,7 +29,8 @@ does; f32 runs them on the tensor cores too, each as three TF32 products
 against the plain version, three do). The backward kernels: bf16 on the
 tensor cores, rounding p and dS to bf16 for their products as the JAX
 kernels do (``round_p_ds`` of the plain versions gives that rounding); f32
-dK/dV as three TF32 products, f32 dQ on the CUDA cores. On CPU tensors the
+dK/dV and dQ as three TF32 products each (dQ with its K/V steps staged by
+cp.async). On CPU tensors the
 same Function runs the plain PyTorch versions, ``flash_attention_plain`` and
 ``flash_attention_backward_plain``, which are also the kernels' references
 on the card. Each wrapper counts its launches (``flash_attention.launches``
@@ -324,8 +325,9 @@ def flash_bwd_dkv(q, k, v, do, lse, di, causal: bool = True,
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool = True,
                  sm_scale: Optional[float] = None):
     """dq (B, H, Sq, D) by the dQ kernel (A4); CUDA tensors only. bf16 on
-    the tensor cores (dS rounded to bf16 for dS K), f32 on the CUDA
-    cores."""
+    the tensor cores (dS rounded to bf16 for dS K), f32 as three TF32
+    products each (two 64-row q tiles a block at D 128, one at D 64 and
+    256)."""
     q, k, v, do = _kernel_inputs("flash_bwd_dq", q, k, v, do)
     lse, di = _stats("flash_bwd_dq", q, lse, di)
     B, H, Sq, D = q.shape

@@ -52,11 +52,11 @@ positions of each (batch row, kv head) over blocks where B * Hkv * groups
 leaves the card idle, copies K and V through the table with cp.async into
 a ring per warp, and combines the splits in a second, small launch
 (:func:`p1_plan`); with a window it walks only the tiles that hold a live
-position (:func:`p1_window_tiles`). P3 runs bf16 q
-(bf16 or int8 pools) on the tensor cores
+position (:func:`p1_window_tiles`). P3 runs on the tensor cores
 (``wgmma``, cp.async staging through the table; decode-shaped chunks split
 their positions over blocks and a second, small launch combines the
-splits: :func:`p3_plan`) and f32 q on the CUDA cores. The caller keeps
+splits: :func:`p3_plan`): bf16 q (bf16 or int8 pools) in bf16 products, f32
+q (f32 or int8 pools) as three TF32 products each (3xTF32). The caller keeps
 ``lengths`` within ``max_pages * page``: the kernels read it on the
 device and do not check it. On CPU tensors each
 runs its plain version, which is also the kernel's reference on the card.
@@ -242,27 +242,55 @@ def p1_window_tiles(plan: P1Plan, length: int, split: int, window: int,
     per = -(-len(live) // plan.splits)
     return [t * P1_TILE for t in live[split * per:(split + 1) * per]]
 
-# P3's bodies (csrc/paged_chunked.cu), for p3_plan. bf16 q on wgmma: one
-# warpgroup a block owning 64 of the G*C rows, positions staged 64 a stage
-# in a ring of 3 (K then V; int8 as raw rows, converted into one bf16 tile,
-# with their scales); the positions split over blocks where one row tile
-# a (b, kv head) makes fewer than P3_FILL blocks. A bf16 tile is 64 rows in
-# 64-column panels (D 80 and 96: two, as D 128, the columns past D unused;
-# D 32: one, as D 64; the pools are not padded; D 256: four, 230,400 bytes
-# with bf16 pools). f32 q on the CUDA cores: 256 threads, a 64-row tile,
-# the f32 tiles in shared memory.
+# P3's bodies (csrc/paged_chunked.cu), for p3_plan: one warpgroup a block
+# owning 64 of the G*C rows, the positions split over blocks where one row
+# tile a (b, kv head) makes fewer than P3_FILL blocks. bf16 q on bf16
+# wgmma: positions staged 64 a stage in a ring of 3 (K then V; int8 as raw
+# rows, converted into one bf16 tile, with their scales). A bf16 tile is 64
+# rows in 64-column panels (D 80 and 96: two, as D 128, the columns past D
+# unused; D 32: one, as D 64; the pools are not padded; D 256: four,
+# 230,400 bytes with bf16 pools). f32 q on 3xTF32 wgmma: q as it is, one
+# split step of 32 positions (K, or V transposed; int8 pools exact in
+# tf32: no small half), raw slots of the K/V ring (rows 16 bytes past
+# their width apart; int8 with the step's 32 scales), all in 32-column
+# panels (D 80 at 96); as many slots, up to 3, as leave two blocks an SM,
+# else as fit one (p3_tf32_smem).
 P3_ROWS = 64
 P3_COLS = 64
 P3_STAGES = 3
 P3_FILL = 264  # blocks that fill the H100's 132 SMs twice
 P3_WG_THREADS = 128
-P3_FMA_THREADS = 256
+P3_STEP = 32  # positions of a 3xTF32 step
+P3_RAW_PAD = 16
+SMEM_TWO_BLOCKS = 115712  # a block's share where two fit an SM
+SMEM_LIMIT = 232448
+
+
+def raw_slots(base: int, slot: int) -> int:
+    """The raw slots of a 3xTF32 body whose other shared memory takes
+    ``base`` bytes (alignment slack included), ``slot`` bytes each: as
+    many, up to 3, as leave two blocks an SM, else as fit one
+    (``csrc/flash_tf32.cuh::raw_slots``)."""
+    budget = SMEM_TWO_BLOCKS if SMEM_TWO_BLOCKS - base >= slot \
+        else SMEM_LIMIT
+    return min(3, (budget - base) // slot)
+
+
+def p3_tf32_smem(W: int, quant: bool) -> int:
+    """Dynamic shared memory of P3's f32 body at instance width ``W``
+    (``csrc/paged_chunked.cu::TfSmem``)."""
+    W = -(-W // 32) * 32
+    elem = 1 if quant else 4
+    raw = P3_ROWS * W * 4 + P3_STEP * W * 4 * (1 if quant else 2)
+    slot = P3_STEP * (W * elem + P3_RAW_PAD) + (P3_STEP * 4 if quant else 0)
+    return raw + raw_slots(raw + 1024, slot) * slot + 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class P3Plan:
-    """One call of P3: its ``body`` ("wgmma" or "cuda-cores"), ``threads``
-    a block, dynamic shared memory ``smem_bytes``, the ``grid``, the
+    """One call of P3: its ``body`` ("wgmma" for bf16 q, "tf32x3" for f32
+    q), ``threads`` a block, dynamic shared memory ``smem_bytes``, the
+    ``grid``, the
     position ``splits`` of a row tile and the positions ``split_len`` of
     a split (a multiple of 64), and the f32 ``scratch`` (floats) of the
     splits' partial sums: the arithmetic of csrc/paged_chunked.cu's
@@ -289,15 +317,15 @@ def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
     GC = H // Hkv * C
     rows = -(-GC // P3_ROWS)
     if dtype == torch.float32:
-        smem = (W * 64 * 3 + 64 * 68 + 2 * 64) * 4
-        return P3Plan("cuda-cores", P3_FMA_THREADS, smem, (rows, Hkv, B), 1,
-                      0, 0)
-    if dtype != torch.bfloat16:
+        body, smem = "tf32x3", p3_tf32_smem(W, quant)
+    elif dtype == torch.bfloat16:
+        tile = -(-W // 64) * 64 * P3_ROWS * 2
+        raw = P3_COLS * W if quant else tile
+        body = "wgmma"
+        smem = tile + P3_STAGES * 2 * raw + (
+            2 * tile + P3_STAGES * 2 * P3_COLS * 4 if quant else 0) + 1024
+    else:
         raise ValueError(f"P3 takes q of {KERNEL_DTYPES}; got {dtype}")
-    tile = -(-W // 64) * 64 * P3_ROWS * 2
-    raw = P3_COLS * W if quant else tile
-    smem = tile + P3_STAGES * 2 * raw + (2 * tile + P3_STAGES * 2 * P3_COLS
-                                        * 4 if quant else 0) + 1024
     kv_tiles = max(1, -(-page * max_pages // P3_COLS))
     splits, split_len = 1, kv_tiles * P3_COLS
     base = rows * B * Hkv
@@ -305,7 +333,7 @@ def p3_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int, D: int,
         per = max(1, kv_tiles // -(-P3_FILL // base))
         splits, split_len = -(-kv_tiles // per), per * P3_COLS
     scratch = B * Hkv * splits * GC * (D + 2) if splits > 1 else 0
-    return P3Plan("wgmma", P3_WG_THREADS, smem, (rows * splits, Hkv, B),
+    return P3Plan(body, P3_WG_THREADS, smem, (rows * splits, Hkv, B),
                   splits, split_len, scratch)
 
 
@@ -672,5 +700,5 @@ def p3_kernel_plan(dtype, kv_dtype, B: int, H: int, Hkv: int, C: int,
         native.DTYPE_CODES[dtype], native.DTYPE_CODES[kv_dtype], B, H, Hkv,
         C, D, page, max_pages, ctypes.cast(plan, ctypes.c_void_p))
     native.check(lib, rc, "paged_chunked_plan")
-    return P3Plan("wgmma" if plan[0] else "cuda-cores", plan[1], plan[2],
+    return P3Plan({1: "wgmma", 2: "tf32x3"}[plan[0]], plan[1], plan[2],
                   (plan[3], plan[4], plan[5]), plan[6], plan[7], plan[8])

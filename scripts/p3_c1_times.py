@@ -4,7 +4,7 @@ on one CUDA card, and the serving path that runs P3, measured alike for
 two checkouts.
 
     python3 scripts/p3_c1_times.py [--tree DIR] [--no-serve] [--no-c1]
-                                   [--cases i|zb]
+                                   [--cases i|zb|f32]
 
 Imports ``cubecl_tpu_torch`` from DIR (default: the checkout this script
 is in), so that an older checkout's kernels are timed by the same method
@@ -14,7 +14,11 @@ step, chunked prefill from 0 and from 768, the d768 f32 case, a ragged
 batch with a length-0 row, int8 verify and prefill), or with ``--cases
 zb`` the bf16-q rows of ``ZB_P3`` (phase zb1: head dim 96 on bf16 and
 int8 pools, the verify step, chunked prefill from 0 and from 768 at
-Phi-3-mini's widths, a ragged G 4 batch on pages of 7), its device time with
+Phi-3-mini's widths, a ragged G 4 batch on pages of 7), or with ``--cases
+f32`` the f32-q rows (``F32_CASES``: the verify step and chunked prefill
+from 768 at the d768 config's D 64, Phi-2's D 80, MPT-30B's D 112 and
+GPT-J-6B's D 256, on f32 pools, and the verify steps again on int8 pools),
+its device time with
 a cold L2 (``cold_ms``: each call after a read of 1 GiB), its time back to
 back with each launch on the next layer of the pool (``cuda_ms``), its
 bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, the larger)
@@ -27,11 +31,14 @@ and the worst error as a share of ``TOL``. Then, unless ``--no-serve``,
 phase k (``serve_slice``: the 0.77B bf16 llama's chunked prefill,
 speculative decoding and continuous batching, launches checked) on the
 tree's modules: its chunked prefill seconds, speculative tok/s and
-continuous-batching tok/s (host clock; the steps are host-bound). Prints
+continuous-batching tok/s (host clock; the steps are host-bound). With
+``--no-serve --no-c1`` only DIR's ``paged_chunked.cu`` (and
+``flash_attention.cu``, which holds the error strings) is built. Prints
 the card (``nvidia-smi``) and one JSON line; needs a card.
 """
 
 import argparse
+import glob
 import importlib.util
 import json
 import os
@@ -44,6 +51,22 @@ import torch.nn.functional as TF
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C1_F32_CASES = [("f32 32x56x56x64->64", (32, 56, 56, 64, 64)),
                 ("f32 1x6x10x32->48", (1, 6, 10, 32, 48))]
+
+
+def f32_cases(cs):
+    """The f32-q P3 rows of chip_smoke.py's phases i, zf1, zh2 and zd1
+    (f32 pools), and their verify steps on int8 pools."""
+    rows = [c for c in cs.CHUNKED_CASES if c[0] == "d768"]
+    for table, names in (
+            (cs.ZF_P3[cs.D80], ("phi-2 verify f32",
+                                "phi-2 prefill start 768 f32")),
+            (cs.ZH_P3[cs.D112], ("mpt-30b verify f32",
+                                 "mpt-30b prefill start 768 f32")),
+            (cs.ZD_P3, ("gpt-j verify f32", "gpt-j prefill start 768 f32"))):
+        rows += [c for c in table if c[0] in names]
+    rows += [(c[0].replace(" f32", "") + " int8 pools", *c[1:-1], True)
+             for c in list(rows) if "verify" in c[0]]
+    return rows
 
 
 def _chip_smoke():
@@ -139,7 +162,7 @@ def main():
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--no-serve", action="store_true")
     ap.add_argument("--no-c1", action="store_true")
-    ap.add_argument("--cases", choices=("i", "zb"), default="i")
+    ap.add_argument("--cases", choices=("i", "zb", "f32"), default="i")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     if not torch.cuda.is_available():
@@ -151,7 +174,16 @@ def main():
     from cubecl_tpu_torch.ops import attention as fa
     from cubecl_tpu_torch.ops import conv
     from cubecl_tpu_torch.ops import paged_attention as pa
+    from cubecl_tpu_torch.utils import native
 
+    if args.no_serve and args.no_c1:
+        csrc = native.CSRC_DIR
+        native._sources = lambda: (
+            [os.path.join(csrc, f) for f in ("flash_attention.cu",
+                                             "paged_chunked.cu")],
+            sorted(glob.glob(os.path.join(csrc, "*.cuh"))))
+        native._SIGNATURES = {k: v for k, v in native._SIGNATURES.items()
+                              if "chunked" in k}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -161,8 +193,9 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     gen = torch.Generator(device=dev).manual_seed(17)
-    cases = cs.CHUNKED_CASES if args.cases == "i" else [
-        c for c in cs.ZB_P3 if c[-2] == torch.bfloat16]
+    cases = {"i": lambda: cs.CHUNKED_CASES,
+             "zb": lambda: [c for c in cs.ZB_P3 if c[-2] == torch.bfloat16],
+             "f32": lambda: f32_cases(cs)}[args.cases]()
     out = {"tree": tree, "card": card,
            "p3": p3_times(cs, pa, dev, gen, card, cases)}
     if not args.no_c1:

@@ -333,6 +333,182 @@ def test_flash_tf32x3_large_magnitude_holds_f32(dev, D, G):
     _tf32x3_check(q, k, v, do, True, _tf32x3_run(q, k, v, do, True))
 
 
+# -- A4's f32 dQ as three TF32 products (flash_bwd_dq_tf32x3_kernel), held
+# to the exact plain backward (float64 copies) at f32's tolerance: the
+# dense, masked and block-sparse schedules at D 64, 128, 256 and padded
+# from 80 and 192 (dq_f32_tiles: two q tiles a block at D 128, one at D 64
+# and 256), two grid sizes each, large q and k, F12's top of f32's range,
+# many launches of one input
+
+
+def _dq_run(q, k, v, do, causal, mask=None, sched=None):
+    """A1's forward (o, lse) and A4's dQ (or A6's on a block-sparse
+    schedule (sched, bq, bk)) on the f32 inputs, padded with zeros to the
+    kernels' head dim (the scale from the real D): o, lse and dq sliced
+    back to D."""
+    D = q.shape[-1]
+    Dp = next(d for d in fa.KERNEL_HEAD_DIMS if D <= d)
+    qp, kp, vp, dop = (torch.nn.functional.pad(t, (0, Dp - D))
+                       for t in (q, k, v, do))
+    scale = D ** -0.5
+    if sched is not None:
+        sc, bq, bk = sched
+        o, lse = fa.bsp_forward(qp, kp, vp, sc, causal, scale, bq, bk, True)
+    elif mask is None:
+        o, lse = fa._flash_forward(qp, kp, vp, causal, scale, True)
+    else:
+        o, lse = fa.masked_forward(qp, kp, vp, mask, causal, scale, True)
+    di = (dop * o).sum(-1)
+    if sched is not None:
+        dq = fa.bsp_dq(qp, kp, vp, dop, lse, di, sc, causal, scale, bq, bk)
+    elif mask is None:
+        dq = fa.flash_bwd_dq(qp, kp, vp, dop, lse, di, causal, scale)
+    else:
+        dq = fa.masked_dq(qp, kp, vp, dop, lse, di, mask, causal, scale)
+    return o[..., :D], lse, dq[..., :D]
+
+
+def _dq_check(q, k, v, do, causal, got, opts=None):
+    """dq against the exact plain backward on the kernel's own o and lse
+    at f32's tolerance."""
+    o, lse, dq = got
+    dq_ref = _plain_bwd(q, k, v, o, lse, do, causal, q.shape[-1] ** -0.5,
+                        **(opts or {}))[0]
+    _close(dq, dq_ref)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 80, 192])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("H", [8, 16], ids=["H8", "H16"])
+def test_flash_tf32x3_dq_dense_matches_plain(dev, D, causal, G, H):
+    """The dense schedule at S 1021 (a ragged last tile and step), kv
+    groups of 1 and 8 query heads, 2 x 8 and 2 x 16 heads (128 and 256
+    blocks of two q tiles at D 128); one launch of dQ."""
+    q, k, v, do = _tf32x3_inputs(dev, D + G + causal + H, H, H // G, 1021,
+                                 D)
+    n = fa.flash_bwd_dq.launches
+    got = _dq_run(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == n + 1
+    _dq_check(q, k, v, do, causal, got)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("option", ["kv_len", "window", "segments"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H", [6, 18], ids=["H6", "H18"])
+def test_flash_tf32x3_dq_masked_matches_plain(dev, D, option, causal, H):
+    """The masked schedule (A4's options) at S 1021, 3 query heads a kv
+    head: keys past kv_len 900, a band of 300 (and 100 to the right when
+    not causal), packed documents of 20 to 90 rows; 2 x 6 and 2 x 18
+    heads; one launch."""
+    q, k, v, do = _tf32x3_inputs(dev, D + len(option) + causal + H, H,
+                                 H // 3, 1021, D)
+    g = torch.Generator(device=dev).manual_seed(D)
+    opts = {"kv_len": dict(kv_len=900),
+            "window": dict(window=(300, 0 if causal else 100)),
+            "segments": dict(seg=(_doc_ids(g, dev, 2, 1021),) * 2)}[option]
+    mask = fa._Mask.of(q, k, **opts)
+    n = fa.masked_dq.launches
+    got = _dq_run(q, k, v, do, causal, mask)
+    torch.cuda.synchronize()
+    assert fa.masked_dq.launches == n + 1
+    _dq_check(q, k, v, do, causal, got, mask.plain())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk,mask", [(128, 64, "f9"), (64, 64, "holed")],
+                         ids=["f9_128x64", "holed64"])
+@pytest.mark.parametrize("H", [3, 9], ids=["H3", "H9"])
+def test_flash_tf32x3_dq_block_sparse_matches_plain(dev, D, causal, bq, bk,
+                                                    mask, H):
+    """The block-sparse schedule at S 1024 (A6 in f32): F9's rows (bq 128
+    > bk 64: rows whose every visited column is masked get no dQ) and a
+    kv tile nobody attends; 2 x 3 and 2 x 9 heads (at D 128 a block's two
+    q tiles lie in one user tile); one launch."""
+    S = 1024
+    g = torch.Generator(device=dev).manual_seed(D + bq + causal + H)
+    q, k, v, do = (torch.randn(2, H, S, D, generator=g, device=dev)
+                   for _ in range(4))
+    bm = {"f9": _f9_mask, "holed": _holed_mask}[mask](S // bq, S // bk)
+    pruned = fa._pruned_mask(bm, causal, bq, bk, S // bq, S // bk)
+    sched = fa._schedule(pruned, bq, bk, dev)
+    n = fa.bsp_dq.launches
+    o, lse, dq = _dq_run(q, k, v, do, causal, sched=(sched, bq, bk))
+    torch.cuda.synchronize()
+    assert fa.bsp_dq.launches == n + 1
+    dq_ref = fa.flash_attention_block_sparse_backward_plain(
+        *(t.double() for t in (q, k, v, o, lse, do)), bm, causal, None, bq,
+        bk)[0]
+    _close(dq, dq_ref.float())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 8])
+def test_flash_tf32x3_dq_large_magnitude_holds_f32(dev, D, G):
+    """q and k of N(0, 4) entries: the 3xTF32 dQ holds f32's tolerance
+    against the exact plain backward (in float64)."""
+    H, Hkv = TF32X3_GROUPS[G]
+    q, k, v, do = _tf32x3_inputs(dev, 5 * D + G, H, Hkv, 512, D, 2.0)
+    _dq_check(q, k, v, do, True, _dq_run(q, k, v, do, True))
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_tf32x3_dq_top_of_range_stays_finite(dev, D):
+    """F12: key 0's column 5 at the top of f32's range in each of the two
+    batch rows' two kv heads (FLT_MAX whole, a value just under it, the
+    least value that rounding to tf32 takes to infinity, -FLT_MAX), the
+    column's other keys and q's column 5 zero (the scores stay as they
+    are); non-causal, so every row sees key 0. V is +w at key 0 and -w at
+    every other key and dO is w 1e-14 on every row, so that dS[i, 0] = p
+    (dP - di) scale = p (1 - p0) 2 |w|^2 1e-14 scale has no cancellation:
+    dQ's column 5, dS[i, 0] K[0, 5] alone, is large (1e20 and more),
+    finite and within TOL of the float64 plain backward (big truncated to tf32 stays
+    finite; rounded to nearest it was an infinity and the cross terms
+    NaN)."""
+    q, k, _, _ = _tf32x3_inputs(dev, 7 * D, 6, 2, 700, D)
+    g = torch.Generator(device=dev).manual_seed(7 * D + 1)
+    w = torch.randn(D, generator=g, device=dev)
+    v = (-w).expand(2, 2, 700, D).clone()
+    v[:, :, 0] = w
+    do = (w * 1e-14).expand(2, 6, 700, D).contiguous()
+    top = float(np.finfo(np.float32).max)
+    q[..., 5] = 0.0
+    k[..., 5] = 0.0
+    k[0, 0, 0, 5], k[1, 1, 0, 5] = top, -top
+    k[0, 1, 0, 5] = float(np.nextafter(np.float32(top), np.float32(0)))
+    k[1, 0, 0, 5] = (2 - 2.0 ** -11) * 2.0 ** 127
+    o, lse, dq = _dq_run(q, k, v, do, False)
+    torch.cuda.synchronize()
+    assert bool(dq.isfinite().all()) and dq[..., 5].abs().min() > 1e6
+    _dq_check(q, k, v, do, False, (o, lse, dq))
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("schedule", ["dense", "masked"])
+def test_flash_tf32x3_dq_every_launch_of_many_agrees(dev, D, schedule):
+    """200 launches of the f32 dQ on one input (causal S 1021, 2 x 18
+    heads: two q tiles a block at D 128; masked: a band of 300) give
+    the first launch's dq bit for bit, which holds the plain backward: a
+    race in the ring of raw slots shows in a few launches of many."""
+    q, k, v, do = _tf32x3_inputs(dev, D + 1, 18, 6, 1021, D)
+    opts = {} if schedule == "dense" else dict(window=(300, 0))
+    mask = fa._Mask.of(q, k, **opts) if opts else None
+    o, lse, first = _dq_run(q, k, v, do, True, mask)
+    _dq_check(q, k, v, do, True, (o, lse, first), opts)
+    di = (do * o).sum(-1)
+    scale = D ** -0.5
+    differ = 0
+    for _ in range(200):
+        again = fa.flash_bwd_dq(q, k, v, do, lse, di, True, scale) \
+            if mask is None else fa.masked_dq(q, k, v, do, lse, di, mask,
+                                              True, scale)
+        differ += not torch.equal(again, first)
+    assert differ == 0, f"{differ} of 200 launches differ"
+
+
 # P1's table layouts: (B or None for the test's own, page, max_pages,
 # lengths): the first test's batch (a few splits of one tile), one and two
 # rows at context 4096 (tens of splits), and ragged lengths around a tile
@@ -1217,7 +1393,7 @@ def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape, page):
     or not (7, 48) and that hold 64 (128). bf16 runs the wgmma body: the
     decode-shaped chunk (10 rows) with its positions in several splits
     and the combine (p3_plan), the C 70 chunk's 210 rows in 4 row tiles
-    without a split; f32 the CUDA-core body."""
+    without a split; f32 the 3xTF32 wgmma body on the same plan."""
     from cubecl_tpu_torch.ops import paged_attention as pa
 
     B, Hkv, G, C, D = shape
@@ -1227,9 +1403,8 @@ def test_paged_chunked_kernel_matches_plain(dev, quant, dtype, shape, page):
     plan = pa.p3_plan(dtype, torch.int8 if quant else dtype, B, Hkv * G,
                       Hkv, C, D, page, max_pages)
     assert plan.body == ("wgmma" if dtype == torch.bfloat16
-                         else "cuda-cores")
-    if dtype == torch.bfloat16:
-        assert (plan.splits > 1) == (G * C <= 64)
+                         else "tf32x3")
+    assert (plan.splits > 1) == (G * C <= 64)
     q = torch.randn(B, Hkv * G, C, D, generator=g, device=dev).to(dtype)
     if quant:
         kp, vp, ks, vs = _int8_pools(g, dev, (L, Hkv, P, page, D))
@@ -1298,6 +1473,45 @@ def test_paged_chunked_every_launch_of_many_agrees(dev, case, quant):
     else:
         kp, vp = (torch.randn(shape, generator=g, device=dev).to(
             torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
+    table = table.view(B, max_pages).to(torch.int32)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = st + C if lengths is None else torch.tensor(
+        lengths, dtype=torch.int32, device=dev)
+    first = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                    k_scales=ks, v_scales=vs)
+    _close(first, paged_attention_chunked_plain(
+        q, kp, vp, table, ln, st, layer=1, k_scales=ks, v_scales=vs))
+    bad = torch.zeros(P3_LAUNCHES, dtype=torch.int64, device=dev)
+    for i in range(P3_LAUNCHES):
+        got = paged_attention_chunked(q, kp, vp, table, ln, st, layer=1,
+                                      k_scales=ks, v_scales=vs)
+        bad[i] = (got != first).sum()
+    bad = bad.cpu()
+    assert not bad.any(), (f"{int((bad > 0).sum())} of {P3_LAUNCHES} "
+                           f"launches differ, {int(bad.sum())} elements")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("case", list(P3_REPEAT_CASES))
+def test_paged_chunked_f32_every_launch_of_many_agrees(dev, case, quant):
+    """P3's f32 body (3xTF32) at the same shapes on f32 and int8 pools: a
+    race in its ring of raw slots (a slot refilled before its split read
+    it, a split before the copy landed) shows in a few launches of many.
+    The first launch within TOL of plain, each of P3_LAUNCHES launches
+    equal to it bit for bit."""
+    B, Hkv, G, C, D, max_pages, starts, lengths = P3_REPEAT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(len(case) + quant + 1)
+    L, page = 2, 128
+    P = B * max_pages + 5
+    shape = (L, Hkv, P, page, D)
+    q = torch.randn(B, Hkv * G, C, D, generator=g, device=dev)
+    if quant:
+        kp, vp, ks, vs = _int8_pools(g, dev, shape)
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device=dev)
+                  for _ in range(2))
         ks = vs = None
     table = torch.randperm(P, generator=g, device=dev)[:B * max_pages]
     table = table.view(B, max_pages).to(torch.int32)
@@ -3706,8 +3920,9 @@ def test_paged_chunked_d256_kernel_matches_plain(dev, kind, case):
     """P3 at D 256 against its plain version on every pool: the bf16
     body's four panels, decode-shaped tiles with their positions split
     (each tile's P V from zero, 64 columns at a time), prefill-shaped
-    ones as two m64n128k16 a step; f32 the CUDA-core body; the plan is
-    the built kernel's; one launch."""
+    ones as two m64n128k16 a step; f32 the 3xTF32 body (three raw slots
+    beside the q tile and the split step: 231,936 bytes); the plan is the
+    built kernel's; one launch."""
     from cubecl_tpu_torch.ops import paged_attention as pa
 
     B, Hkv, G, C, page, max_pages, starts, lengths = P3_D256[case]

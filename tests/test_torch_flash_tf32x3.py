@@ -1,5 +1,6 @@
 """The f32 flash bodies' arithmetic (csrc/flash_tf32.cuh: the forward's
-flash_fwd_tf32x3_kernel and the dK/dV's flash_bwd_dkv_tf32x3_kernel)
+flash_fwd_tf32x3_kernel, the dK/dV's flash_bwd_dkv_tf32x3_kernel and the
+dQ's flash_bwd_dq_tf32x3_kernel)
 emulated in torch on the CPU and held against the JAX package's
 ``flash_attention`` and its ``jax.vjp``, in Pallas interpret mode under
 ``jax.jit`` as tests/test_torch_train256.py runs them (at the JAX
@@ -15,7 +16,8 @@ score products panel by panel (32 columns of D), the products over keys
 or q rows a step of 32 at a time, the kv tiles walked in steps of 32 keys
 with the kernels' online softmax (base 2, the l == 0 and m == -inf
 guards). dK and dV sum each step's part over the group's query heads in
-the kernels' order. The kernels' layout (the transposed tiles' kperm
+the kernels' order; dQ sums each 32-key step's part over the walk. The
+kernels' layout (the transposed tiles' kperm
 order against the accumulator's RS fragments) is held by index
 arithmetic. On the card the kernels are held to the plain versions by
 tests/test_torch_cuda.py; here f32's tolerance (atol 2e-5, rtol 1e-4)
@@ -137,6 +139,33 @@ def emu_dkv(q, k, v, do, o, lse, causal):
     return dk, dv
 
 
+def emu_dq(q, k, v, do, o, lse, causal):
+    """dq of flash_bwd_dq_tf32x3_kernel on the forward's o and lse: each
+    32-key step's dP = dO V^T and s = q K^T by panels, p and dS = p (dP -
+    di) * scale in f32, dQ += dS K over the step's 32 keys from zero, then
+    added in f32; the steps in the walk's order. A block's two warpgroups
+    (D 128) own other rows and change no sum."""
+    B, H, Sq, D = q.shape
+    rep = H // k.shape[1]
+    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    Skv = k.shape[2]
+    scale = np.float32(D ** -0.5)
+    scale_log2 = np.float32(D ** -0.5 * LOG2E)
+    di = (do * o).sum(-1)
+    rows = torch.arange(Sq)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, Skv, STEP):
+        kk, vv = k[:, :, k0:k0 + STEP], v[:, :, k0:k0 + STEP]
+        cols = torch.arange(k0, k0 + kk.shape[2])
+        dp = scores(do, vv)
+        s = scores(q, kk)
+        ok = _live(rows, cols, Skv, causal)
+        p = torch.where(ok, torch.exp2(s * scale_log2 - lse[..., None]), 0.0)
+        ds = p * (dp - di[..., None]) * scale
+        dq += mm3(ds, kk)
+    return dq
+
+
 def _inputs(seed, H, Hkv, S, D, scale=1.0):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((1, H, S, D), dtype=np.float32) * np.float32(scale)
@@ -205,6 +234,18 @@ def test_dkv_emulation_matches_jax_grad(case):
     dk, dv = emu_dkv(q, k, v, do, o, lse, causal)
     np.testing.assert_allclose(dk.numpy(), dk_ref, **F32_TOL, err_msg="dk")
     np.testing.assert_allclose(dv.numpy(), dv_ref, **F32_TOL, err_msg="dv")
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_dq_emulation_matches_jax_grad(case):
+    """dq of the 3xTF32 dQ body's arithmetic, on the emulated forward's o
+    and lse, against the JAX vjp (A4) at f32's tolerance."""
+    D, causal, G = case
+    (q, k, v, do), _, (dq_ref, _, _) = _jax_ref(D, causal, G, S)
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = emu_forward(q, k, v, causal)
+    dq = emu_dq(q, k, v, do, o, lse, causal)
+    np.testing.assert_allclose(dq.numpy(), dq_ref, **F32_TOL, err_msg="dq")
 
 
 # q and k scaled up: scores of a few tens, where the softmax magnifies an

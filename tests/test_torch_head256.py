@@ -336,15 +336,17 @@ def test_p1_plan_at_d256_fits_the_card(kind, mode, G):
 def test_p3_plan_at_d256_fits_the_card(kind):
     """p3_plan at D 256: the bf16 body's four 64-column panels a tile and 3
     stages (230,400 bytes with bf16 pools, 199,168 with int8: one block an
-    SM), the f32 body's tiles (214,528); under 232,448 bytes."""
+    SM), the f32 body's q tile, split step and three raw slots of 32
+    positions (231,936 bytes); under 232,448 bytes."""
     dt, kv = KINDS[kind]
     plan = p3_plan(dt, kv, 8, 16, 16, 5, D, 128, 9)
     want = {"bf16": 32768 + 3 * 2 * 32768 + 1024,
             "int8": 32768 + 3 * 2 * 64 * 256 + 2 * 32768 + 3 * 2 * 64 * 4
             + 1024,
-            "f32": (D * 64 * 3 + 64 * 68 + 2 * 64) * 4}[kind]
+            "f32": 64 * D * 4 + 2 * 32 * D * 4 + 3 * 32 * (D * 4 + 16)
+            + 1024}[kind]
     assert plan.smem_bytes == want <= SMEM_LIMIT
-    assert plan.body == ("cuda-cores" if kind == "f32" else "wgmma")
+    assert plan.body == ("tf32x3" if kind == "f32" else "wgmma")
     assert 256 in PAGED_HEAD_DIMS
 
 

@@ -466,12 +466,18 @@ def test_p3_plan_gives_every_position_to_one_split(case, kv):
 
 
 def test_p3_f32_plan_at_d96():
-    """The f32 body at D 96: Q, K, V and P in f32 shared memory, one
-    64-row tile a block, no split."""
+    """The f32 body at D 96 (3xTF32 on the tensor cores): three 32-column
+    panels, the q tile as it is, one split step of 32 positions and three
+    raw slots of the ring (rows of 96 f32 and 16 bytes) in shared memory,
+    two blocks an SM; one warpgroup a block, the positions of this
+    decode-shaped chunk split as the bf16 body's."""
     plan = p3_plan(torch.float32, torch.float32, 8, 32, 32, 5, D, 128, 10)
-    assert plan.body == "cuda-cores" and plan.splits == 1
-    assert plan.smem_bytes == (D * 64 * 3 + 64 * 68 + 2 * 64) * 4
-    assert plan.grid == (1, 32, 8)
+    bf16 = p3_plan(torch.bfloat16, torch.bfloat16, 8, 32, 32, 5, D, 128, 10)
+    assert plan.body == "tf32x3" and plan.threads == 128
+    assert plan.smem_bytes == (64 * D * 4 + 2 * 32 * D * 4
+                               + 3 * 32 * (D * 4 + 16) + 1024) <= 115712
+    assert (plan.grid, plan.splits, plan.split_len) == \
+        (bf16.grid, bf16.splits, bf16.split_len) == ((2, 32, 8), 2, 640)
 
 
 # -- the llama at head dim 96 -------------------------------------------------
